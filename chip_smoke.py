@@ -6,20 +6,32 @@
 
 Phases, in order; any failure exits non-zero:
   1. build: compile csrc/*.cu with nvcc (all in parallel), print seconds;
-  2. kernels: every hand-written kernel at every shape the serving path
-     gives it, against its plain PyTorch version on the same bf16 inputs
-     (fp32 math) at |err| <= ATOL + RTOL |ref|; prints max error (absolute
-     and over the output's rms), kernel / plain / library ms and the bound
-     from bytes or operations on this card;
+  2. kernels: every hand-written kernel at every shape the serving and the
+     training paths give it, against its plain PyTorch version on the same
+     bf16 inputs (fp32 math) at |err| <= ATOL + RTOL |ref| (the attention
+     backward: within the bf16 rounding bound of each gradient element,
+     see BF16_U; dropout: bit-equal, keep rate 0.9 +- 0.002, identity at
+     p = 0);
+     prints max error (absolute and over the output's rms), kernel / plain
+     / library ms and the bound from bytes or operations on this card;
   3. small-model agreement: a small D=64 model's drive_only waypoints on
-     the GPU (bf16, kernels) against the CPU plain path (fp32);
-  4. full width: the default LingoAgent (CoT, int8 LLM, speculative) on
-     SimLingoConfig() with seeded random bf16 weights, FRAMES frames on a
-     seeded 1024x512 frame, then one use_cot=False frame; launch counts of every
-     kernel are reset just before and read just after;
-  5. the {"kernels": [...]} line, the nvidia-smi line, and the last line
+     the GPU (bf16, kernels) against the CPU plain path (fp32), and one
+     training step of the same model with LoRA r=4, dropout 0.1 (losses to
+     2e-2, grad norm to 5e-2 relative);
+  4. full width, serving: the default LingoAgent (CoT, int8 LLM,
+     speculative) on SimLingoConfig() with seeded random bf16 weights,
+     FRAMES frames on a seeded 1024x512 frame, then one use_cot=False
+     frame; launch counts of every kernel are reset just before and read
+     just after, with a profile of one speculative frame;
+  5. full width, training: train_torch's trainer on
+     presets.internvl2_1b(lora=True) (seed 0) and synthetic_example(batch 6,
+     seq_len 768, 2 tiles): 1 warm-up step, then TRAIN_STEPS timed steps
+     with the launch counts reset after the warm-up; peak memory, and a
+     profile of one more step;
+  6. the {"kernels": [...]} line, the nvidia-smi line, and the last line
      {"ok": true, "device": {...}}.
-Per-case results also go to chiprun_out/chip_smoke_cases.json.
+Per-case results also go to chiprun_out/chip_smoke_cases.json, the paths'
+statistics to chip_smoke_agent.json and chip_smoke_train.json.
 """
 
 from __future__ import annotations
@@ -43,7 +55,15 @@ PEAK_BF16 = 989e12
 # keys), so its atol is a tenth of int8_matmul's (outputs of rms ~1).
 ATOL = {"flash_attn_fwd": 2e-3, "int8_matmul": 2e-2}
 RTOL = 2e-2
+# The backward rounds P and dS to bf16 (unit roundoff 2^-8) before its
+# products, and its output to bf16: each gradient element is held to
+# |err| <= 2^-8 (sum |terms| + |ref|) + 1e-5 rms(ref), the rounding bound
+# (the sum of |terms| comes from attention_bwd_reference(abs_terms=True)).
+# An rms-scaled atol does not fit: in early causal rows a few large terms
+# cancel to a small gradient, and their rounding shows against it.
+BF16_U = 2.0 ** -8
 FRAMES = 4                  # CoT frames: the first plain, then speculative
+TRAIN_STEPS = 3             # timed full-width training steps (after 1 warm-up)
 L2_BYTES = 64 << 20         # rotate operand sets past the 50 MB L2
 
 
@@ -79,7 +99,8 @@ def time_ms(torch, fn, sets, iters=20):
 
 
 def eager_ms(torch, fn, sets, iters=20):
-    """ms per call launched eagerly from Python (includes host overhead)."""
+    """ms per call launched eagerly from Python (includes host overhead;
+    the only way to time a call that cannot be captured in a graph)."""
     for args in sets[:2]:
         fn(*args)
     torch.cuda.synchronize()
@@ -125,13 +146,40 @@ def attention_cases():
     ]
 
 
+def train_llm_valid(torch, dev):
+    """kv_valid of the full-width training batch: [text | 30 queries] of
+    synthetic_example(batch 6, seq_len 768, 2 tiles, seed 0)."""
+    from simlingo_tpu_torch.core import presets
+    from simlingo_tpu_torch.data.synthetic import synthetic_example
+    ex = synthetic_example(presets.internvl2_1b(), batch=6, seq_len=768,
+                           num_patches=2, seed=0, device=dev)
+    valid = ex.driving_input.prompt.valid
+    return torch.cat([valid, torch.ones(6, 30, dtype=torch.bool, device=dev)], 1)
+
+
+def visible_pairs(torch, dev, B, T, S, causal, q_off, valid):
+    """(row, key) pairs the data makes visible, summed over the batch, and
+    the number of rows that see no key."""
+    off = S - T if q_off is None else q_off
+    mask = torch.ones(T, S, dtype=torch.bool, device=dev)
+    if causal:
+        mask &= (torch.arange(S, device=dev)[None, :]
+                 <= torch.arange(T, device=dev)[:, None] + off)
+    mask = mask[None] & valid[:, None, :] if valid is not None else mask[None].expand(B, T, S)
+    return int(mask.sum()), int((~mask.any(-1)).sum()), mask
+
+
 def run_attention_checks(torch, dev, results):
     import torch.nn.functional as F
     from simlingo_tpu_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=dev).manual_seed(0)
     D = 64
+    cases = attention_cases() + [
+        ("llm_train", 6, 798, 798, 14, 2, True, None, "train", False),
+        ("vit_train", 12, 1025, 1025, 16, 16, False, None, None, True)]
+    train_valid = train_llm_valid(torch, dev)
     for (name, B, T, S, HQ, HK, causal, q_off, ranges,
-         strided) in attention_cases():
+         strided) in cases:
         def make():
             if strided:      # ViT: heads are views of one [B, T, 3*H*D] projection
                 qkv = torch.randn(B, T, 3 * HQ * D, generator=gen, device=dev,
@@ -146,28 +194,29 @@ def run_attention_checks(torch, dev, results):
                 v = torch.randn(B, S, HK, D, generator=gen, device=dev,
                                 dtype=torch.bfloat16)
             valid = None
-            if ranges is not None:
+            if ranges == "train":
+                valid = train_valid
+            elif ranges is not None:
                 valid = torch.zeros(B, S, dtype=torch.bool, device=dev)
                 for lo, hi in ranges:
                     valid[:, lo:hi] = True
             return q, k, v, valid
 
         q, k, v, valid = make()
-        out = FA.flash_attn_fwd(q, k, v, valid, causal, None, q_off)
+        out, lse = FA.flash_attn_fwd(q, k, v, valid, causal, None, q_off,
+                                     return_lse=True)
         torch.cuda.synchronize()
         ref = FA.attention_reference(q.float(), k.float(), v.float(), valid,
                                      causal, None, q_off)
         err, rel, ok = max_violation("flash_attn_fwd", out, ref)
+        ref_lse = FA.attention_lse_reference(q.float(), k.float(), valid, causal,
+                                             None, q_off)
+        fin = torch.isfinite(ref_lse)
+        lse_err = float((lse[fin] - ref_lse[fin]).abs().max()) if fin.any() else 0.0
+        ok = ok and torch.equal(torch.isfinite(lse), fin) and lse_err <= 1e-2
         # visible (row, key) pairs: the work this data needs
-        off = S - T if q_off is None else q_off
-        mask = torch.ones(T, S, dtype=torch.bool, device=dev)
-        if causal:
-            mask &= (torch.arange(S, device=dev)[None, :]
-                     <= torch.arange(T, device=dev)[:, None] + off)
-        if valid is not None:
-            mask = mask[None] & valid[:, None, :]
-        pairs = int(mask.sum()) * (1 if valid is not None else B)
-        empty_rows = int((~mask.any(-1)).sum()) if valid is not None else 0
+        pairs, empty_rows, mask = visible_pairs(torch, dev, B, T, S, causal,
+                                                q_off, valid)
         flops = 4 * D * pairs * HQ
         nbytes = 2 * (B * T * HQ * D * 2 + 2 * B * S * HK * D) + (
             B * S if valid is not None else 0)
@@ -181,10 +230,7 @@ def run_attention_checks(torch, dev, results):
             q_, k_, v_, m_, causal, None, q_off), sets[:2], iters=4)
 
         def sdpa(q_, k_, v_, m_):
-            am = None
-            if causal or m_ is not None:
-                am = mask if m_ is not None else mask[None]
-                am = am[:, None]
+            am = mask[:, None] if causal or m_ is not None else None
             return F.scaled_dot_product_attention(
                 q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
                 attn_mask=am, enable_gqa=HQ != HK)
@@ -192,13 +238,14 @@ def run_attention_checks(torch, dev, results):
         row = dict(kernel="flash_attn_fwd", case=name,
                    shape=f"q[{B},{T},{HQ},{D}] kv[{B},{S},{HK},{D}]",
                    causal=causal, q_offset=q_off, empty_rows=empty_rows,
-                   max_abs_err=err, err_over_rms=rel, ok=ok, kernel_ms=kernel_ms,
+                   max_abs_err=err, err_over_rms=rel, lse_err=lse_err, ok=ok,
+                   kernel_ms=kernel_ms,
                    launch_ms=launch_ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bms, bound_by=bby)
         results.append(row)
         log(f"[kernel] flash_attn_fwd {name:12s} {row['shape']:32s} "
             f"err={err:.3e} err/rms={rel:.3e} (atol {ATOL['flash_attn_fwd']} "
-            f"rtol {RTOL}) {'OK' if ok else 'FAIL'} "
+            f"rtol {RTOL}) lse_err={lse_err:.2e} {'OK' if ok else 'FAIL'} "
             f"empty_rows={empty_rows} kernel_ms={kernel_ms:.4f} "
             f"launch_ms={launch_ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
@@ -243,6 +290,130 @@ def run_int8_checks(torch, dev, results):
             f"err={err:.3e} err/rms={rel:.3e} (atol {ATOL['int8_matmul']} "
             f"rtol {RTOL}) {'OK' if ok else 'FAIL'} kernel_ms={kernel_ms:.4f} launch_ms={launch_ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} bound_ms={bms:.4f} ({bby})")
+
+
+def run_attention_bwd_checks(torch, dev, results):
+    """flash_attn_bwd at the two training shapes, against
+    attention_bwd_reference on the same bf16 inputs (and the kernel
+    forward's o and lse); library: autograd through SDPA's backward."""
+    import torch.nn.functional as F
+    from simlingo_tpu_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device=dev).manual_seed(3)
+    D = 64
+    train_valid = train_llm_valid(torch, dev)
+    for name, B, T, HQ, HK, causal, strided in (
+            ("llm_train", 6, 798, 14, 2, True, False),
+            ("vit_train", 12, 1025, 16, 16, False, True)):
+        valid = train_valid if causal else None
+
+        def make():
+            if strided:
+                qkv = torch.randn(B, T, 3 * HQ * D, generator=gen, device=dev,
+                                  dtype=torch.bfloat16)
+                q, k, v = (qkv[..., i * HQ * D:(i + 1) * HQ * D].view(B, T, HQ, D)
+                           for i in range(3))
+            else:
+                q = torch.randn(B, T, HQ, D, generator=gen, device=dev, dtype=torch.bfloat16)
+                k, v = (torch.randn(B, T, HK, D, generator=gen, device=dev,
+                                    dtype=torch.bfloat16) for _ in range(2))
+            out, lse = FA.flash_attn_fwd(q, k, v, valid, causal, return_lse=True)
+            dout = torch.randn(B, T, HQ, D, generator=gen, device=dev, dtype=torch.bfloat16)
+            return q, k, v, out, dout, lse
+
+        q, k, v, out, dout, lse = make()
+        got = FA.flash_attn_bwd(q, k, v, valid, out, dout, lse, causal)
+        torch.cuda.synchronize()
+        args = (q.float(), k.float(), v.float(), valid, out.float(), dout.float(),
+                lse, causal)
+        ref = FA.attention_bwd_reference(*args)
+        mag = FA.attention_bwd_reference(*args, abs_terms=True)
+        ok, err, rel, ratio = True, 0.0, 0.0, 0.0
+        for a, b, m in zip(got, ref, mag):
+            diff = (a.float() - b).abs()
+            rms = float(b.square().mean().sqrt())
+            tol = BF16_U * (m + b.abs()) + 1e-5 * rms
+            ok &= bool((diff <= tol).all())
+            err, rel = max(err, float(diff.max())), max(rel, float(diff.max()) / rms)
+            ratio = max(ratio, float((diff / tol).max()))
+        del mag
+        pairs, empty_rows, mask = visible_pairs(torch, dev, B, T, T, causal, None, valid)
+        flops = 10 * D * pairs * HQ          # S, dP, dV, dQ, dK: 2*D per pair each
+        qsz, ksz = B * T * HQ * D, B * T * HK * D
+        nbytes = 2 * (3 * qsz + 2 * ksz) + 2 * (qsz + 2 * ksz) + 4 * B * HQ * T + (
+            B * T if valid is not None else 0)
+        bms, bby = bound(nbytes, flops)
+        sets = [make() for _ in range(n_sets(nbytes))]
+
+        def kernel(q_, k_, v_, o_, d_, l_):
+            return FA.flash_attn_bwd(q_, k_, v_, valid, o_, d_, l_, causal)
+        kernel_ms = time_ms(torch, kernel, sets)
+        plain_ms = time_ms(torch, lambda q_, k_, v_, o_, d_, l_: FA.attention_bwd_reference(
+            q_, k_, v_, valid, o_, d_, l_, causal), sets[:2], iters=2)
+        # library: the backward of SDPA with the same mask (eager, events)
+        xs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(
+            *(x.transpose(1, 2) for x in xs),
+            attn_mask=mask[:, None] if causal else None, enable_gqa=HQ != HK)
+        lib_do = dout.transpose(1, 2)
+        library_ms = eager_ms(torch, lambda: torch.autograd.grad(
+            lib_out, xs, lib_do, retain_graph=True), [()], iters=10)
+        del lib_out, xs, sets
+        row = dict(kernel="flash_attn_bwd", case=name,
+                   shape=f"q[{B},{T},{HQ},{D}] kv[{B},{T},{HK},{D}]", causal=causal,
+                   empty_rows=empty_rows, max_abs_err=err, err_over_rms=rel,
+                   err_over_tol=ratio, ok=ok,
+                   kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bms, bound_by=bby,
+                   dkdv_blocks=-(-T // 64) * HK * B, dq_blocks=-(-T // 64) * HQ * B)
+        results.append(row)
+        log(f"[kernel] flash_attn_bwd {name:12s} {row['shape']:32s} err={err:.3e} "
+            f"err/rms={rel:.3e} err/tol={ratio:.3f} (tol 2^-8 (sum|terms| + |ref|)) "
+            f"{'OK' if ok else 'FAIL'} kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={library_ms:.4f} (SDPA backward) bound_ms={bms:.4f} ({bby}) "
+            f"dK/dV blocks={row['dkdv_blocks']} dQ blocks={row['dq_blocks']}")
+
+
+def run_dropout_checks(torch, dev, results):
+    """dropout at the LoRA inputs of the training path: bit-equal to
+    dropout_plain, keep rate 0.9 +- 0.002, identity at p = 0; library:
+    F.dropout."""
+    import torch.nn.functional as F
+    from simlingo_tpu_torch.kernels import dropout as DO
+    gen = torch.Generator(device=dev).manual_seed(4)
+    seed, rate = 0x243F6A8885A308D3, 0.1
+    for name, C in (("lora_x_896", 896), ("lora_h_4864", 4864)):
+        shape = (6, 798, C)
+
+        def make():
+            return (torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16),)
+        (x,) = make()
+        out = DO.dropout(x, seed, rate)
+        torch.cuda.synchronize()
+        ref = DO.dropout_plain(x, seed, rate)
+        keep = DO.dropout(torch.ones_like(x), seed, rate) != 0
+        keep_ref = DO.keep_mask(x.numel(), seed, rate, dev).view(shape)
+        rate_kept = float(keep.float().mean())
+        identity = torch.equal(DO.dropout(x, seed, 0.0), x)
+        ok = (torch.equal(out, ref) and torch.equal(keep, keep_ref) and identity
+              and abs(rate_kept - (1 - rate)) <= 0.002)
+        err = float((out.float() - ref.float()).abs().max())
+        nbytes = 2 * 2 * x.numel()
+        bms, bby = bound(nbytes, 0)
+        sets = [make() for _ in range(n_sets(nbytes))]
+        kernel_ms = time_ms(torch, lambda x_: DO.dropout(x_, seed, rate), sets)
+        plain_ms = time_ms(torch, lambda x_: DO.dropout_plain(x_, seed, rate), sets[:2],
+                           iters=2)
+        library_ms = time_ms(torch, lambda x_: F.dropout(x_, rate, training=True), sets)
+        row = dict(kernel="dropout", case=name, shape=f"[6,798,{C}] bf16 p={rate}",
+                   max_abs_err=err, err_over_rms=0.0, bit_equal=torch.equal(out, ref),
+                   keep_rate=rate_kept, identity_at_0=identity, ok=ok,
+                   kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bms, bound_by=bby)
+        results.append(row)
+        log(f"[kernel] dropout        {name:12s} {row['shape']:24s} bit_equal="
+            f"{row['bit_equal']} keep_rate={rate_kept:.5f} identity_at_0={identity} "
+            f"{'OK' if ok else 'FAIL'} kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={library_ms:.4f} (F.dropout) bound_ms={bms:.4f} ({bby})")
 
 
 # ---------------------------------------------------------------------------
@@ -382,16 +553,24 @@ def full_width(torch, dev):
     return ok, stats, agent, frame
 
 
-def profile_frame(torch, agent, frame):
-    """Device time by kernel over one speculative CoT frame (torch.profiler)."""
+def device_profile(torch, fn, what):
+    """Device time by kernel over one call of fn (torch.profiler): wall,
+    busy share and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        agent.run_step(frame)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    from torch.autograd import DeviceType
     rows = []
     for e in prof.key_averages():
+        # kernels only: an operator's row, and a user annotation's device
+        # range (e.g. the optimizer step), repeat the time of the kernels
+        # inside them, so summing those too would count it twice
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "self_cuda_time_total", 0)
@@ -399,7 +578,7 @@ def profile_frame(torch, agent, frame):
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"[profile] one speculative frame: wall {wall:.2f} ms, device busy "
+    log(f"[profile] {what}: wall {wall:.2f} ms, device busy "
         f"{busy:.2f} ms ({100 * busy / wall:.1f} %), idle {100 * (1 - busy / wall):.1f} %")
     for ms, n, key in rows[:15]:
         log(f"[profile] {ms:9.3f} ms  x{n:5d}  {key[:90]}")
@@ -415,20 +594,136 @@ def _leaves(tree):
         yield tree
 
 
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# Phases 3 and 5: the training path
+# ---------------------------------------------------------------------------
+
+def small_training_agreement(torch, dev):
+    """One train_step of a small D=64 model with LoRA r=4, dropout 0.1 on
+    the GPU (bf16, kernels) and on the CPU (fp32, plain versions), from the
+    same params, batch and seed: the dropout masks are the same on both
+    sides (Philox of the flat index), so the losses and grad norm agree."""
+    import copy
+    from simlingo_tpu_torch.data.synthetic import synthetic_example
+    from simlingo_tpu_torch.models import simlingo
+    from simlingo_tpu_torch.models.qwen2 import Qwen2Config
+    from simlingo_tpu_torch.models.vit import ViTConfig
+    from simlingo_tpu_torch.train import train_step as ts
+    cfg = simlingo.SimLingoConfig(
+        vit=ViTConfig(hidden_size=128, num_layers=2, num_heads=2,
+                      intermediate_size=256, image_size=448, patch_size=56,
+                      projector_out=128, gelu_approximate=True),
+        llm=Qwen2Config(vocab_size=2048, hidden_size=128, num_layers=2, num_heads=2,
+                        num_kv_heads=1, head_dim=64, intermediate_size=256,
+                        lora_r=4, lora_alpha=8, lora_dropout=0.1),
+        img_context_token_id=2000)
+    params = simlingo.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    for ab in _leaves(params["lora"]):
+        ab.add_(0.01)                        # nonzero B: every adapter in play
+    opt = ts.OptimizerConfig(lr=1e-4, total_steps=10)
+    metrics = {}
+    for device, dtype in (("cpu", torch.float32), (dev, torch.bfloat16)):
+        state = ts.init_train_state(_to(copy.deepcopy(params), device), opt)
+        batch = synthetic_example(cfg, batch=2, seq_len=96, num_patches=2, seed=1,
+                                  device=device)
+        step = ts.make_train_step(cfg, opt, compute_dtype=dtype)
+        metrics[str(device)] = {k: float(v) for k, v in step(state, batch, 1234).items()}
+    ref, got = metrics["cpu"], metrics[str(dev)]
+    ok = True
+    for key, want in ref.items():
+        tol = 5e-2 if key == "grad_norm" else 2e-2
+        good = abs(got[key] - want) <= tol * abs(want)
+        ok &= good
+        log(f"[small] train_step {key:15s} GPU bf16 {got[key]:.6f} vs CPU fp32 "
+            f"{want:.6f} (rel tol {tol}) {'OK' if good else 'FAIL'}")
+    return ok
+
+
+def full_width_training(torch, dev):
+    """presets.internvl2_1b(lora=True) through the trainer: 1 warm-up step
+    and TRAIN_STEPS timed steps; launches counted over the timed steps."""
+    import dataclasses
+    from simlingo_tpu_torch.core.config import compose
+    from simlingo_tpu_torch.kernels import dropout as DO
+    from simlingo_tpu_torch.kernels import flash_attention as FA
+    from simlingo_tpu_torch.kernels import quantized_matmul as QM
+    from simlingo_tpu_torch.train import trainer
+
+    kernels = {"flash_attn_fwd": FA.flash_attn_fwd, "flash_attn_bwd": FA.flash_attn_bwd,
+               "dropout": DO.dropout, "int8_matmul": QM.int8_matmul}
+
+    def reset_after_warmup(step, _):
+        if step == 0:
+            torch.cuda.synchronize()
+            for fn in kernels.values():
+                fn.launches = 0
+
+    cfg = compose([f"max_steps={1 + TRAIN_STEPS}", "data.batch_size=6",
+                   "data.max_text_len=768", "seed=0"])
+    m = cfg.model
+    log(f"[train] presets.internvl2_1b(lora=True): ViT {m.vit.num_layers}x"
+        f"{m.vit.hidden_size} ({m.vit.num_heads} heads, tanh GELU), Qwen2 "
+        f"{m.llm.num_layers}x{m.llm.hidden_size} vocab {m.llm.vocab_size}, LoRA r="
+        f"{m.llm.lora_r} alpha={m.llm.lora_alpha} dropout={m.llm.lora_dropout}; "
+        f"batch {cfg.data.batch_size}, seq {cfg.data.max_text_len} + "
+        f"{m.num_queries} queries, 2 tiles; no remat; "
+        f"AdamW {dataclasses.asdict(cfg.optimizer)}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = trainer.train(cfg, device=dev, after_step=reset_after_warmup)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    timed = res["records"][1:]
+    ms = [r["ms"] for r in timed]
+    ok = all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+             for r in res["records"])
+    mean_ms = sum(ms) / len(ms)
+    log(f"[train] timed steps: ms {[round(x, 2) for x in ms]} -> mean {mean_ms:.2f} "
+        f"ms/step, {cfg.data.batch_size * 1e3 / mean_ms:.3f} samples/s")
+    log(f"[train] loss {[round(r['loss'], 5) for r in res['records']]} grad_norm "
+        f"{[round(r['grad_norm'], 5) for r in res['records']]} finite="
+        f"{'OK' if ok else 'FAIL'}")
+    log(f"[train] peak memory {peak / 2 ** 30:.2f} GiB (max_memory_allocated)")
+    log(f"[train] launches over the {TRAIN_STEPS} timed steps: {launches}")
+    for name in ("flash_attn_fwd", "flash_attn_bwd", "dropout"):
+        if launches[name] <= 0:
+            log(f"[train] FAIL: kernel {name} was not launched on the training path")
+            ok = False
+    state, step_fn, batch = res["state"], res["step_fn"], res["batch"]
+    profile = device_profile(torch, lambda: step_fn(state, batch, 99), "one training step")
+    stats = dict(step_ms=ms, mean_step_ms=mean_ms,
+                 samples_per_s=cfg.data.batch_size * 1e3 / mean_ms,
+                 records=res["records"], peak_bytes=peak, launches=launches,
+                 profile=profile)
+    return ok, stats
+
+
 def kernel_line(cases, launches):
-    """One entry per ported kernel, at its representative prefill shape."""
+    """One entry per ported kernel, at a representative shape of its path;
+    launches: {path: {kernel: count}} from each path's counted run."""
     meta = {
         "flash_attn_fwd": ("simlingo_tpu_torch/csrc/flash_attn_fwd.cu",
                            "simlingo_tpu/kernels/flash_attention.py:308", "llm_prefill"),
         "int8_matmul": ("simlingo_tpu_torch/csrc/int8_matmul.cu",
                         "simlingo_tpu/kernels/quantized_matmul.py:49", "gate_up"),
+        "flash_attn_bwd": ("simlingo_tpu_torch/csrc/flash_attn_bwd.cu",
+                           "simlingo_tpu/kernels/flash_attention.py:382", "llm_train"),
+        "dropout": ("simlingo_tpu_torch/csrc/dropout.cu",
+                    "simlingo_tpu/kernels/dropout.py:32", "lora_x_896"),
     }
     out = []
     for name, (src, replaces, case) in meta.items():
         mine = [c for c in cases if c["kernel"] == name]
         rep = [c for c in mine if c["case"] == case and c.get("M", 640) == 640][0]
+        by_path = {path: counts.get(name, 0) for path, counts in launches.items()}
         out.append({"name": name, "route": "cuda", "source": src,
-                    "replaces": replaces, "launches": launches[name],
+                    "replaces": replaces, "launches": sum(by_path.values()),
+                    "launches_by_path": by_path,
                     "max_abs_err": max(c["max_abs_err"] for c in mine),
                     "ms": rep["kernel_ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
@@ -436,19 +731,26 @@ def kernel_line(cases, launches):
     return {"kernels": out}
 
 
-def run_agent_phases(torch, dev, cases) -> int:
-    if not small_model_agreement(torch, dev):
+def run_path_phases(torch, dev, cases) -> int:
+    if not small_model_agreement(torch, dev) or not small_training_agreement(torch, dev):
         return 1
     ok, stats, agent, frame = full_width(torch, dev)
     if not ok:
         return 1
-    stats["profile"] = profile_frame(torch, agent, frame)
+    stats["profile"] = device_profile(torch, lambda: agent.run_step(frame),
+                                      "one speculative frame")
+    del agent, frame
+    ok, train_stats = full_width_training(torch, dev)
+    if not ok:
+        return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_agent.json"), "w") as f:
-        json.dump(dict(stats, nvidia_smi=smi), f, indent=1)
-    print(json.dumps(kernel_line(cases, stats["launches"])), flush=True)
+    for name, st in (("agent", stats), ("train", train_stats)):
+        with open(os.path.join(ROOT, "chiprun_out", f"chip_smoke_{name}.json"), "w") as f:
+            json.dump(dict(st, nvidia_smi=smi), f, indent=1)
+    launches = {"serve": stats["launches"], "train": train_stats["launches"]}
+    print(json.dumps(kernel_line(cases, launches)), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -484,6 +786,8 @@ def main() -> int:
     cases = []
     run_attention_checks(torch, dev, cases)
     run_int8_checks(torch, dev, cases)
+    run_attention_bwd_checks(torch, dev, cases)
+    run_dropout_checks(torch, dev, cases)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_cases.json"), "w") as f:
         json.dump(cases, f, indent=1)
@@ -495,7 +799,7 @@ def main() -> int:
         log("[kernel] all cases within tolerance")
         return 0
 
-    return run_agent_phases(torch, dev, cases)
+    return run_path_phases(torch, dev, cases)
 
 
 if __name__ == "__main__":

@@ -19,11 +19,15 @@ import numpy as np
 import torch
 
 from simlingo_tpu_torch.core.device import resolve_device
-from simlingo_tpu_torch.core.structs import DrivingInput, LanguageLabel
+from simlingo_tpu_torch.core.structs import (DrivingExample, DrivingInput,
+                                             DrivingLabel, LanguageLabel)
 
 
 def _tensor(x, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(np.asarray(x))).to(device)
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":     # numpy has no bf16: exact via fp32
+        return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
 
 
 def _convert(node, key: str, device):
@@ -68,3 +72,14 @@ def input_from_jax(di, device="cuda") -> DrivingInput:
         target_point=_tensor(di.target_point, dev),
         prompt=prompt,
         prompt_inference=None if pi is None else label_from_jax(pi, dev))
+
+
+def example_from_jax(ex, device="cuda") -> DrivingExample:
+    """A JAX DrivingExample (its static metadata is dropped)."""
+    dev = resolve_device(device)
+    dl = ex.driving_label
+    return DrivingExample(
+        driving_input=input_from_jax(ex.driving_input, dev),
+        driving_label=DrivingLabel(waypoints=_tensor(dl.waypoints, dev),
+                                   path=_tensor(dl.path, dev),
+                                   waypoints_1d=_tensor(dl.waypoints_1d, dev)))

@@ -22,6 +22,11 @@
 // in registers. Rows with no visible valid key return 0 (the Pallas kernel
 // left finite garbage there). Causal blocks stop at the last key tile their
 // rows see.
+//
+// Training also asks for the base-2 log-sum-exp of each row's scaled
+// logits (lse [B, HQ, T] fp32; -inf for a row that sees no valid key),
+// which the backward (flash_attn_bwd.cu) uses to recompute P. Serving
+// passes a null lse pointer and the kernel's work is unchanged.
 
 #include "common.cuh"
 
@@ -38,7 +43,8 @@ using simlingo::ld32;
 __global__ void __launch_bounds__(128)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const uint8_t* __restrict__ kv_valid,
-                 bf16* __restrict__ o, int T, int S, int HQ, int HK,
+                 bf16* __restrict__ o, float* __restrict__ lse,
+                 int T, int S, int HQ, int HK,
                  long long sqb, long long sqt, long long sqh,
                  long long skb, long long sks, long long skh,
                  long long svb, long long svs, long long svh,
@@ -189,6 +195,10 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[r] = l > 0.f ? 1.f / l : 0.f;             // no visible key -> 0
+    const int row = row0 + r * 8;
+    if (lse != nullptr && t4 == 0 && row < T)
+      lse[((long long)b * HQ + h) * T + row] =
+          l > 0.f ? m_run[r] + log2f(l) : -INFINITY;
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -208,7 +218,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 extern "C" int simlingo_flash_attn_fwd(
     const void* q, const void* k, const void* v, const void* kv_valid, void* o,
-    int B, int T, int S, int HQ, int HK,
+    void* lse, int B, int T, int S, int HQ, int HK,
     long long sqb, long long sqt, long long sqh,
     long long skb, long long sks, long long skh,
     long long svb, long long svs, long long svh,
@@ -217,7 +227,7 @@ extern "C" int simlingo_flash_attn_fwd(
   flash_fwd_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const uint8_t*>(kv_valid),
-      static_cast<bf16*>(o), T, S, HQ, HK, sqb, sqt, sqh, skb, sks, skh,
+      static_cast<bf16*>(o), static_cast<float*>(lse), T, S, HQ, HK, sqb, sqt, sqh, skb, sks, skh,
       svb, svs, svh, causal, q_offset, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }

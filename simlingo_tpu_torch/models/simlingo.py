@@ -1,10 +1,10 @@
 """The composed SimLingo VLA model: InternViT + Qwen2 + adaptors.
 
-Counterpart of `simlingo_tpu/models/simlingo.py` (inference half): the
-hybrid sequence is token embeddings with waypoint placeholders spliced in
-(one-hot over padded (slot, coord) lists) and image features spliced at the
-`<IMG_CONTEXT>` positions (cumsum-gather), followed by the 30 driving
-queries.
+Counterpart of `simlingo_tpu/models/simlingo.py`: the hybrid sequence is
+token embeddings with waypoint placeholders spliced in (one-hot over padded
+(slot, coord) lists) and image features spliced at the `<IMG_CONTEXT>`
+positions (cumsum-gather), followed by the 30 driving queries;
+`forward_loss` is the training forward. There is no remat.
 """
 
 from __future__ import annotations
@@ -15,7 +15,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from simlingo_tpu_torch.core.device import resolve_device
-from simlingo_tpu_torch.core.structs import LanguageLabel
+from simlingo_tpu_torch.core.structs import (DrivingExample, LanguageLabel,
+                                             TrainingOutput, summarise_losses)
 from simlingo_tpu_torch.models import adaptors as A
 from simlingo_tpu_torch.models import qwen2, vit
 
@@ -28,6 +29,9 @@ class SimLingoConfig:
     speed_wps_mode: str = "2d"
     predict_route_as_wps: bool = True
     adaptor_mlp_dim: int = 256
+    freeze_vision: bool = False          # no gradient into the vision tower
+    # CE on the gathered (contiguous) answer positions; 0 => full-sequence CE
+    max_answer_len: int = 160
 
     @property
     def num_queries(self) -> int:
@@ -47,7 +51,7 @@ def init_params(cfg: SimLingoConfig, generator: torch.Generator,
     dev = resolve_device(device)
     kw = dict(dtype=dtype, device=dev)
     H = cfg.llm.hidden_size
-    return {
+    p = {
         "vision": vit.init_params(generator, cfg.vit, **kw),
         "llm": qwen2.init_params(generator, cfg.llm, **kw),
         "adaptors": A.init_driving_adaptor(
@@ -55,6 +59,9 @@ def init_params(cfg: SimLingoConfig, generator: torch.Generator,
             cfg.predict_route_as_wps, **kw),
         "wp_encoder": A.init_wp_encoder(generator, H, **kw),
     }
+    if cfg.llm.lora_r > 0:
+        p["lora"] = qwen2.init_lora_params(generator, cfg.llm, **kw)
+    return p
 
 
 def build_text_embeddings(params: Dict[str, Any], label: LanguageLabel,
@@ -85,6 +92,8 @@ def build_text_embeddings(params: Dict[str, Any], label: LanguageLabel,
         NP = pixel_values.shape[1]
         imgs = pixel_values.reshape((B * NP,) + tuple(pixel_values.shape[2:]))
         feats = vit.extract_features(params["vision"], imgs, cfg.vit)
+        if cfg.freeze_vision:
+            feats = feats.detach()
         n_img = NP * feats.shape[1]
         feats = feats.reshape(B, n_img, -1).to(embeds.dtype)
         img_mask = ids == cfg.img_context_token_id                    # [B, T]
@@ -113,3 +122,41 @@ def assemble_sequence(params, label: LanguageLabel, pixel_values,
                                                device=text.device)], dim=1)
     q_pos = label.num_valid[:, None] + torch.arange(Q, device=text.device)
     return embeds, valid, torch.cat([text_positions(label), q_pos], dim=1)
+
+
+def forward_loss(params: Dict[str, Any], example: DrivingExample,
+                 cfg: SimLingoConfig, dropout_seed: Optional[int] = None,
+                 compute_dtype=torch.float32
+                 ) -> Tuple[TrainingOutput, Dict[str, torch.Tensor]]:
+    """Training forward: language CE + route / speed smooth-L1 ->
+    (TrainingOutput, predictions). `dropout_seed` turns LoRA dropout on."""
+    di = example.driving_input
+    label = di.prompt
+    embeds, valid, pos = assemble_sequence(params, label, di.pixel_values, cfg,
+                                           dtype=compute_dtype)
+    T = label.ids.shape[1]
+    hidden, _ = qwen2.forward(params["llm"], embeds, cfg.llm, pos, kv_valid=valid,
+                              causal=True, lora_params=params.get("lora"),
+                              dropout_seed=dropout_seed)
+    text_h, query_h = hidden[:, :T], hidden[:, T:]
+
+    def logits_fn(h):
+        return qwen2.logits_from_hidden(params["llm"], h, cfg.llm)
+
+    if cfg.max_answer_len > 0:
+        hg, labels_g, valid_g = A.gather_answer_states(
+            text_h, label.ids, label.loss_mask, cfg.max_answer_len)
+        losses = A.language_loss_gathered(hg, labels_g, valid_g, logits_fn)
+    else:
+        losses = A.language_loss(logits_fn(text_h), label.ids, label.loss_mask)
+
+    dl = example.driving_label
+    route_label = dl.path if cfg.predict_route_as_wps else None
+    if cfg.speed_wps_mode == "2d":
+        speed_label = dl.waypoints[:, :A.NUM_SPEED_QUERIES]
+    else:              # 1d: the cumulative arc length only ([d, 0] pairs)
+        speed_label = dl.waypoints_1d[:, :A.NUM_SPEED_QUERIES, :1]
+    d_losses, preds = A.driving_loss(params["adaptors"], query_h, route_label,
+                                     speed_label)
+    losses.update(d_losses)
+    return summarise_losses(losses), preds

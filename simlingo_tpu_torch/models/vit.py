@@ -4,7 +4,9 @@ Counterpart of `simlingo_tpu/models/vit.py`: patch embedding as an unfold +
 matmul over (ph, pw, c)-ordered patches, cls + position embedding, pre-norm
 layers with layer scale, 0.5x pixel shuffle and the mlp1 projector. Images
 are NHWC. Attention reads q/k/v as [B, T, H, D] views of each projection's
-[B, T, H*D] output (no transpose copy), through kernels/flash_attention.
+[B, T, H*D] output (no transpose copy), through kernels/flash_attention;
+in training (autograd on) through `attention_train`, whose backward kernel
+reads the same views. There is no remat.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
-from simlingo_tpu_torch.kernels.flash_attention import attention
+from simlingo_tpu_torch.kernels.flash_attention import attention_autograd
 from simlingo_tpu_torch.models import layers as L
 
 
@@ -108,8 +110,9 @@ def _vit_layer(p, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
     if cfg.use_qk_norm:
         q = L.rmsnorm(p["q_norm"], q, cfg.layer_norm_eps)
         k = L.rmsnorm(p["k_norm"], k, cfg.layer_norm_eps)
-    a = attention(q.view(B, T, nh, hd), k.view(B, T, nh, hd),
-                  v.view(B, T, nh, hd), None, causal=False, scale=hd ** -0.5)
+    a = attention_autograd(q.view(B, T, nh, hd), k.view(B, T, nh, hd),
+                           v.view(B, T, nh, hd), None, causal=False,
+                           scale=hd ** -0.5)
     a = L.linear(p["attn"]["o"], a.reshape(B, T, H))
     x = x + p["ls1"].to(a.dtype) * a
     m = L.gelu_mlp(p["mlp"], L.layernorm(p["ln2"], x, cfg.layer_norm_eps),

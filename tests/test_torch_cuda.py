@@ -10,12 +10,17 @@ bf16 kernels against the plain fp32 math on the same bf16 inputs, at
 rtol = 2e-2 and an atol of 2e-2 for int8_matmul (outputs of rms ~0.6) and
 2e-3 for attention over 77-129 keys (outputs of rms ~0.1); 4e-3 where causal
 rows see as few as one key: the kernel rounds each probability to bf16
-(2^-9 relative) before it weights a value of |v| up to ~4.
+(2^-9 relative) before it weights a value of |v| up to ~4. The backward
+kernel's gradients are held at |err| <= 3e-2 rms(ref) + 2e-2 |ref|: it
+rounds P and dS to bf16 before the products, and each gradient sums
+over up to T terms. The dropout kernel equals its plain version bit for
+bit.
 """
 
 import pytest
 import torch
 
+from simlingo_tpu_torch.kernels import dropout as TD
 from simlingo_tpu_torch.kernels import flash_attention as TFA
 from simlingo_tpu_torch.kernels import quantized_matmul as TQM
 
@@ -83,3 +88,77 @@ def test_kernels_refuse_what_they_do_not_take(gpu):
     w_q, scale = TQM.quantize_weight(torch.randn(8, 24, device=gpu))
     with pytest.raises(ValueError, match="K % 16"):
         TQM.int8_matmul(x, w_q, scale)
+
+
+def _close_to_rms(got, ref, name):
+    ref = ref.float()
+    rms = float(ref.square().mean().sqrt())
+    bad = (got.float() - ref).abs() > 3e-2 * rms + 2e-2 * ref.abs()
+    assert not bool(bad.any()), (name, float((got.float() - ref).abs().max()), rms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,HQ,HK,causal,strided", [
+    (150, 14, 2, True, False), (130, 4, 4, False, True), (64, 2, 1, True, False)])
+def test_flash_attn_bwd_kernel_matches_plain(gpu, T, HQ, HK, causal, strided):
+    g = torch.Generator(device=gpu).manual_seed(3)
+    B, D = 2, 64
+    if strided:       # ViT: heads are views of one [B, T, 3*H*D] projection
+        qkv = torch.randn(B, T, 3 * HQ * D, generator=g, device=gpu).bfloat16()
+        q, k, v = (qkv[..., i * HQ * D:(i + 1) * HQ * D].view(B, T, HQ, D)
+                   for i in range(3))
+        valid = None
+    else:
+        q = torch.randn(B, T, HQ, D, generator=g, device=gpu).bfloat16()
+        k, v = (torch.randn(B, T, HK, D, generator=g, device=gpu).bfloat16()
+                for _ in range(2))
+        valid = torch.ones(B, T, dtype=torch.bool, device=gpu)
+        valid[0, :7] = False                   # rows with no visible key
+        valid[1, T - 40:] = False              # right padding: skipped key tiles
+    dout = torch.randn(B, T, HQ, D, generator=g, device=gpu).bfloat16()
+    out, lse = TFA.flash_attn_fwd(q, k, v, valid, causal, None, None, return_lse=True)
+    want_lse = TFA.attention_lse_reference(q.float(), k.float(), valid, causal)
+    finite = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(lse), finite)
+    torch.testing.assert_close(lse[finite], want_lse[finite], atol=1e-2, rtol=1e-3)
+    before = TFA.flash_attn_bwd.launches
+    got = TFA.flash_attn_bwd(q, k, v, valid, out, dout, lse, causal)
+    torch.cuda.synchronize()
+    assert TFA.flash_attn_bwd.launches == before + 1
+    ref = TFA.attention_bwd_reference(q.float(), k.float(), v.float(), valid,
+                                      out.float(), dout.float(), want_lse, causal)
+    for a, b, name in zip(got, ref, "qkv"):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        _close_to_rms(a, b, name)
+    if valid is not None and causal:           # rows 0..6 of sample 0 see nothing
+        assert float(got[0][0, :7].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_attention_train_launches_both_kernels(gpu):
+    g = torch.Generator(device=gpu).manual_seed(4)
+    q = torch.randn(1, 70, 4, 64, generator=g, device=gpu).bfloat16().requires_grad_(True)
+    k = torch.randn(1, 70, 2, 64, generator=g, device=gpu).bfloat16().requires_grad_(True)
+    v = torch.randn(1, 70, 2, 64, generator=g, device=gpu).bfloat16().requires_grad_(True)
+    f0, b0 = TFA.flash_attn_fwd.launches, TFA.flash_attn_bwd.launches
+    out = TFA.attention_autograd(q, k, v, None, causal=True)
+    out.float().square().sum().backward()
+    assert (TFA.flash_attn_fwd.launches, TFA.flash_attn_bwd.launches) == (f0 + 1, b0 + 1)
+    assert all(x.grad is not None and torch.isfinite(x.grad).all() for x in (q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("numel,offset", [(6 * 798 * 896, 0), (1003, 0), (4099, 3)])
+def test_dropout_kernel_bit_identical_to_plain(gpu, numel, offset):
+    g = torch.Generator(device=gpu).manual_seed(5)
+    x = torch.randn(numel + offset, generator=g, device=gpu).bfloat16()[offset:]
+    seed = 0x1234_5678_9ABC_DEF0
+    before = TD.dropout.launches
+    out = TD.dropout(x, seed, 0.1)
+    assert TD.dropout.launches == before + 1
+    assert torch.equal(out, TD.dropout_plain(x, seed, 0.1))
+    keep = TD.keep_mask(numel, seed, 0.1, gpu)
+    assert torch.equal(TD.dropout(torch.ones_like(x), seed, 0.1) != 0, keep)
+    if numel > 10 ** 6:
+        assert abs(float(keep.float().mean()) - 0.9) < 0.002
+    assert torch.equal(TD.dropout(x, seed, 0.0), x)

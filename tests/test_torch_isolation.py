@@ -1,7 +1,8 @@
 """simlingo_tpu_torch stands alone: it imports no jax, flax or simlingo_tpu.
 
-A subprocess blocks those imports, imports every module of the port and
-drives the tiny agent on the CPU; an entry point built without `device`
+A subprocess blocks those imports, imports every module of the port
+(the training modules included), drives the tiny agent and two training
+steps with LoRA dropout on the CPU; an entry point built without `device`
 must refuse on a machine without a GPU.
 """
 
@@ -63,9 +64,25 @@ SCRIPT = textwrap.dedent("""
         assert np.isfinite(r["route"]).all() and len(r["language_tokens"]) == 4
     assert len(agent.spec_stats) == 1
 
+    import dataclasses
+    from simlingo_tpu_torch.core.config import compose
+    from simlingo_tpu_torch.data.synthetic import synthetic_example
+    from simlingo_tpu_torch.kernels import dropout as TD
+    from simlingo_tpu_torch.train import trainer
+    tcfg = compose(["max_steps=2", "data.batch_size=2", "data.max_text_len=96",
+                    "precision=fp32"])
+    tiny = simlingo.SimLingoConfig.tiny()
+    tcfg.model = dataclasses.replace(tiny, llm=dataclasses.replace(
+        tiny.llm, lora_r=4, lora_alpha=8, lora_dropout=0.1))
+    recs = trainer.train(tcfg, device="cpu")["records"]
+    assert len(recs) == 2 and all(np.isfinite(r["loss"]) for r in recs)
+    assert TD.dropout.launches == 0          # CPU tensors take the plain version
+
     if not torch.cuda.is_available():
         for build in (lambda: LingoAgent(params, cfg),
-                      lambda: simlingo.init_params(cfg, torch.Generator())):
+                      lambda: simlingo.init_params(cfg, torch.Generator()),
+                      lambda: trainer.train(tcfg),
+                      lambda: synthetic_example(tiny, 1, 96)):
             try:
                 build()
             except RuntimeError as e:

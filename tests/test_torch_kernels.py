@@ -140,3 +140,76 @@ def test_quantize_llm_bit_identical_through_bridge():
     assert got["layers"]["0"]["mlp"]["gate"]["w_q"].shape == (128, 64)  # [N, K]
     with pytest.raises(NotImplementedError, match="A8"):
         TQ.quantize_llm(params_from_jax(llm, device="cpu"), bits=4)
+
+
+# ---------------------------------------------------------------------------
+# The backward (training): attention_bwd_reference, the plain version of
+# flash_attn_bwd, at fp32 atol = rtol = 1e-4
+# ---------------------------------------------------------------------------
+
+BWD_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _bwd_case(seed, B, T, HQ, HK, D, pad_left):
+    q, k, v, _ = _gqa_inputs(seed, B, T, T, HQ, HK, D)
+    valid = np.ones((B, T), bool)
+    valid[0, :pad_left] = False               # rows 0..pad_left-1 see no key
+    valid[-1, T - 11:] = False                # right padding
+    g = np.random.RandomState(seed + 1).randn(B, T, HQ, D).astype(np.float32)
+    return q, k, v, valid, g
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_bwd_reference_matches_torch_autograd(causal):
+    q, k, v, valid, g = _bwd_case(5, 2, 40, 4, 2, 16, pad_left=6)
+    tq_, tk, tv = (_t(x).double().requires_grad_(True) for x in (q, k, v))
+    out = TFA.attention_reference(tq_, tk, tv, _t(valid), causal)
+    want = torch.autograd.grad(out, (tq_, tk, tv), _t(g).double())
+    lse = TFA.attention_lse_reference(_t(q), _t(k), _t(valid), causal)
+    got = TFA.attention_bwd_reference(_t(q), _t(k), _t(v), _t(valid),
+                                      out.detach().float(), _t(g), lse, causal)
+    for a, b, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), err_msg=name, **BWD_TOL)
+    # and through the autograd Function
+    xs = [_t(x).requires_grad_(True) for x in (q, k, v)]
+    fn = torch.autograd.grad(TFA.attention_train(*xs, _t(valid), causal),
+                             xs, _t(g))
+    for a, b, name in zip(fn, want, "qkv"):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), err_msg=name, **BWD_TOL)
+
+
+def test_attention_bwd_reference_matches_pallas_gqa():
+    """The Pallas `_bwd_kernel_gqa` path (HQ=4 over HK=2, causal, invalid
+    keys at both ends), in interpret mode through jax.vjp; rows that see no
+    valid key get a zero cotangent on the JAX side (its kernel is exact
+    only for those)."""
+    B, T, HQ, HK, D = 2, 96, 4, 2, 64
+    q, k, v, valid, g = _bwd_case(7, B, T, HQ, HK, D, pad_left=5)
+    g = g * _visible_rows(valid, T, T, 0)[:, :, None, None]
+    out, vjp = jax.vjp(lambda q_, k_, v_: JFA.flash_attention(
+        q_, k_, v_, jnp.asarray(valid), causal=True), *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    lse = TFA.attention_lse_reference(_t(q), _t(k), _t(valid), True)
+    got = TFA.attention_bwd_reference(_t(q), _t(k), _t(v), _t(valid),
+                                      _t(np.asarray(out)), _t(g), lse, True)
+    for a, b, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **BWD_TOL)
+
+
+def test_attention_bwd_reference_matches_pallas_bt_hd_pair():
+    """The Pallas `_bwd_kernel_pair` path: flat [B, T, H*D] with 4 heads,
+    non-causal; the port reads [B, T, H, D] views of the same arrays."""
+    B, T, H, D = 2, 80, 4, 64
+    rng = np.random.RandomState(9)
+    q, k, v, g = (rng.randn(B, T, H * D).astype(np.float32) for _ in range(4))
+    _, vjp = jax.vjp(lambda q_, k_, v_: JFA.flash_attention(
+        q_, k_, v_, None, causal=False, layout="bt_hd", num_heads=H),
+        *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    tq_, tk, tv, tg = (_t(x).view(B, T, H, D) for x in (q, k, v, g))
+    out = TFA.attention_reference(tq_, tk, tv, None, False)
+    lse = TFA.attention_lse_reference(tq_, tk, None, False)
+    got = TFA.attention_bwd_reference(tq_, tk, tv, None, out, tg, lse, False)
+    for a, b, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(a.reshape(B, T, H * D).numpy(), np.asarray(b),
+                                   err_msg=name, **BWD_TOL)

@@ -148,3 +148,78 @@ def test_preprocess_device_matches_jax_cubic_resize():
     out = tpipe.preprocess_device(torch.from_numpy(frames), 448, grid=(2, 1))
     assert out.shape == ref.shape == (1, 2, 448, 448, 3)
     np.testing.assert_allclose(out.numpy(), ref, atol=2e-5, rtol=0)
+
+
+def _leaf_grads_close(got, want, name):
+    np.testing.assert_allclose(got, want, rtol=2e-4,
+                               atol=max(2e-4 * np.abs(want).max(), 1e-8),
+                               err_msg=name)
+
+
+def test_qwen2_training_grads_match_jax(qwen):
+    """The training forward (attention_train, LoRA without dropout): the
+    gradients of LoRA factors and input embeddings equal jax.grad's."""
+    jcfg, params, embeds, valid, pos = qwen
+    lora = jax.tree_util.tree_map(lambda a: a + 0.02,
+                                  jq.init_lora_params(jax.random.PRNGKey(5), jcfg))
+    cot = np.random.RandomState(6).randn(*embeds.shape).astype(np.float32) * valid[..., None]
+
+    def jloss(lp, x):
+        out, _ = jq.forward(params, x, jcfg, jnp.asarray(pos), jnp.asarray(valid),
+                            lora_params=lp)
+        return (out * cot).sum()
+    want_lora, want_x = jax.jit(jax.grad(jloss, argnums=(0, 1)))(lora, jnp.asarray(embeds))
+    tl = params_from_jax(lora, device="cpu")
+    leaves = [ab[k].requires_grad_(True) for layer in tl["layers"].values()
+              for ab in layer.values() for k in ("a", "b")]
+    x = torch.from_numpy(embeds).requires_grad_(True)
+    out, _ = tq.forward(params_from_jax(params, device="cpu"), x,
+                        _tcfg(jcfg, tq.Qwen2Config), torch.from_numpy(pos).long(),
+                        torch.from_numpy(valid), lora_params=tl)
+    (out * torch.from_numpy(cot)).sum().backward()
+    _leaf_grads_close(x.grad.numpy(), np.asarray(want_x), "embeds")
+    wl = params_from_jax(want_lora, device="cpu")
+    for i, layer in tl["layers"].items():
+        for name, ab in layer.items():
+            for k in ("a", "b"):
+                _leaf_grads_close(ab[k].grad.numpy(), wl["layers"][i][name][k].numpy(),
+                                  f"{i}/{name}/{k}")
+    assert len(leaves) == 2 * 7 * jcfg.num_layers
+
+
+def test_vit_training_grads_match_jax():
+    """InternViT at head_dim 64 (the JAX bt_hd branch): the gradients of
+    every vision leaf through attention_train equal jax.grad's."""
+    jcfg = dataclasses.replace(jvit.ViTConfig.tiny(), hidden_size=128, num_heads=2,
+                               gelu_approximate=True)
+    params = jax.jit(jvit.init_params, static_argnums=1)(jax.random.PRNGKey(1), jcfg)
+    imgs = np.random.RandomState(2).randn(2, 56, 56, 3).astype(np.float32)
+    cot = np.random.RandomState(3).randn(2, jcfg.tokens_per_patch_image,
+                                         64).astype(np.float32)
+
+    def jloss(p):
+        return (jvit.extract_features(p, jnp.asarray(imgs), jcfg) * cot).sum()
+    want = jax.jit(jax.grad(jloss))(params)
+    tp = params_from_jax(params, device="cpu")
+    out = tvit.extract_features(_requires_grad(tp), torch.from_numpy(imgs),
+                                _tcfg(jcfg, tvit.ViTConfig))
+    (out * torch.from_numpy(cot)).sum().backward()
+    flat_w = _flat(params_from_jax(want, device="cpu"))
+    for path, x in _flat(tp).items():
+        _leaf_grads_close(x.grad.numpy(), flat_w[path].numpy(), path)
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _requires_grad(tree):
+    for x in _flat(tree).values():
+        x.requires_grad_(True)
+    return tree
