@@ -11,13 +11,18 @@ Phases, in order; any failure exits non-zero:
      bf16 inputs (fp32 math) at |err| <= ATOL + RTOL |ref| (the attention
      backward: within the bf16 rounding bound of each gradient element,
      see BF16_U; dropout: bit-equal, keep rate 0.9 +- 0.002, identity at
-     p = 0);
-     prints max error (absolute and over the output's rms), kernel / plain
-     / library ms and the bound from bytes or operations on this card;
-  3. small-model agreement: a small D=64 model's drive_only waypoints on
+     p = 0; LayerNorm / RMSNorm forward and backward at the ViT, projector,
+     LLM-training and serving rows, and the fused CE forward, backward and
+     dW backward at the training shape and a ragged one, each against the
+     tolerance stated at BF16_SPACING);
+     prints max error (absolute and over the output's rms, or over the
+     tolerance), kernel / plain / library ms and the bound from bytes or
+     operations on this card;
+  3. small-model agreement: a small D=128 model's drive_only waypoints on
      the GPU (bf16, kernels) against the CPU plain path (fp32), and one
      training step of the same model with LoRA r=4, dropout 0.1 (losses to
-     2e-2, grad norm to 5e-2 relative);
+     2e-2, grad norm to 5e-2 relative), then that step again with both
+     fused-kernel gates on (SIMLINGO_CE_IMPL=pallas, SIMLINGO_LN_IMPL=pallas);
   4. full width, serving: the default LingoAgent (CoT, int8 LLM,
      speculative) on SimLingoConfig() with seeded random bf16 weights,
      FRAMES frames on a seeded 1024x512 frame, then one use_cot=False
@@ -27,11 +32,17 @@ Phases, in order; any failure exits non-zero:
      presets.internvl2_1b(lora=True) (seed 0) and synthetic_example(batch 6,
      seq_len 768, 2 tiles): 1 warm-up step, then TRAIN_STEPS timed steps
      with the launch counts reset after the warm-up; peak memory, and a
-     profile of one more step;
-  6. the {"kernels": [...]} line, the nvidia-smi line, and the last line
+     profile of one more step (device time by kernel class); then the
+     same run with both gates set in the process environment (restored
+     afterwards), which must launch the six norm and CE kernels (their
+     counts are logged against GATED_PER_STEP), and the two runs side by
+     side (losses to 2e-2 relative);
+  6. the {"kernels": [...]} line (ten kernels, launches per path: serve,
+     train, train_gated), the nvidia-smi line, and the last line
      {"ok": true, "device": {...}}.
 Per-case results also go to chiprun_out/chip_smoke_cases.json, the paths'
-statistics to chip_smoke_agent.json and chip_smoke_train.json.
+statistics to chip_smoke_agent.json, chip_smoke_train.json and
+chip_smoke_train_gated.json.
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -62,6 +74,17 @@ RTOL = 2e-2
 # An rms-scaled atol does not fit: in early causal rows a few large terms
 # cancel to a small gradient, and their rounding shows against it.
 BF16_U = 2.0 ** -8
+# The norm kernels and their plain versions round the same fp32 math to
+# bf16, summed in another order: y and dx are held to one bf16 spacing,
+# |err| <= 2^-7 |ref| + 1e-5 rms(ref); dscale / dbias (sums over all rows)
+# to 2^-7 |ref| + 1e-5 sum_rows |term|. The fused CE's ce (fp32) to
+# 2e-3 + 1e-5 |ref|: two logits' worth of fp32 accumulation error over
+# H = 896 products (896 * 2^-23 * sum |h w| ~ 1e-3); its dh and dW to
+# 2^-7 (sum |terms| + |ref|) + 1e-6 rms(ref): kernel and plain version
+# round dlogits to bf16 at the same point, so a flip costs one spacing.
+BF16_SPACING = 2.0 ** -7
+CE_ATOL = 2e-3
+PEAK_FP32 = 67e12           # non-tensor fp32 FLOP/s (norm arithmetic)
 FRAMES = 4                  # CoT frames: the first plain, then speculative
 TRAIN_STEPS = 3             # timed full-width training steps (after 1 warm-up)
 L2_BYTES = 64 << 20         # rotate operand sets past the 50 MB L2
@@ -71,8 +94,8 @@ def log(*a):
     print(*a, flush=True)
 
 
-def bound(nbytes, flops):
-    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16 * 1e3
+def bound(nbytes, flops, peak=PEAK_BF16):
+    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -416,6 +439,214 @@ def run_dropout_checks(torch, dev, results):
             f"library_ms={library_ms:.4f} (F.dropout) bound_ms={bms:.4f} ({bby})")
 
 
+def _ratio(got, ref, tol):
+    diff = (got.float() - ref.float()).abs()
+    return float(diff.max()), float((diff / tol).max())
+
+
+def norm_cases():
+    """(kernel family, case, rows, d, eps): the ViT's 48 LayerNorms and the
+    projector's, the LLM's 49 RMSNorms in training and at the serving rows
+    (decode 1, prefill 640)."""
+    return [("layernorm", "vit", 12 * 1025, 1024, 1e-6),
+            ("layernorm", "projector", 12 * 256, 4096, 1e-5),
+            ("rmsnorm", "llm_train", 6 * 798, 896, 1e-6),
+            ("rmsnorm", "serve_decode", 1, 896, 1e-6),
+            ("rmsnorm", "serve_prefill", 640, 896, 1e-6)]
+
+
+def run_norm_checks(torch, dev, results):
+    """layernorm / rmsnorm forward and backward against their plain
+    versions on the same bf16 inputs (bf16 scale and bias, as the compute
+    copies of the path); library: F.layer_norm / F.rms_norm and their
+    autograd backward (eager)."""
+    import torch.nn.functional as F
+    from simlingo_tpu_torch.kernels import layernorm as TL
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for fam, name, n, d, eps in norm_cases():
+        ln = fam == "layernorm"
+
+        def make():
+            x = (2 * torch.randn(n, d, generator=gen, device=dev) + 0.3).bfloat16()
+            dy = torch.randn(n, d, generator=gen, device=dev).bfloat16()
+            scale = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).bfloat16()
+            bias = (0.1 * torch.randn(d, generator=gen, device=dev)).bfloat16()
+            if ln:
+                _, mean, rstd = TL.layernorm_fwd_plain(x, scale, bias, eps)
+            else:
+                _, rstd = TL.rmsnorm_fwd_plain(x, scale, eps)
+                mean = None
+            return x, scale, bias, dy, mean, rstd
+
+        x, scale, bias, dy, mean, rstd = make()
+        if ln:
+            y = TL.layernorm_fwd(x, scale, bias, eps)[0]
+            ry = TL.layernorm_fwd_plain(x, scale, bias, eps)[0]
+            got = TL.layernorm_bwd(x, scale, mean, rstd, dy)
+            ref = TL.layernorm_bwd_plain(x, scale, mean, rstd, dy)
+            xhat = (x.float() - mean[:, None]) * rstd[:, None]
+            terms = [(dy.float() * xhat).abs().sum(0), dy.float().abs().sum(0)]
+        else:
+            y = TL.rmsnorm_fwd(x, scale, eps)[0]
+            ry = TL.rmsnorm_fwd_plain(x, scale, eps)[0]
+            got = TL.rmsnorm_bwd(x, scale, rstd, dy)
+            ref = TL.rmsnorm_bwd_plain(x, scale, rstd, dy)
+            xhat = x.float() * rstd[:, None]
+            terms = [(dy.float() * xhat).abs().sum(0)]
+        torch.cuda.synchronize()
+
+        def spacing_tol(r):
+            r = r.float()
+            return BF16_SPACING * r.abs() + 1e-5 * float(r.square().mean().sqrt())
+        fwd_err, fwd_ratio = _ratio(y, ry, spacing_tol(ry))
+        bwd = [_ratio(got[0], ref[0], spacing_tol(ref[0]))]
+        bwd += [_ratio(a, b, BF16_SPACING * b.float().abs() + 1e-5 * t)
+                for a, b, t in zip(got[1:], ref[1:], terms)]
+        bwd_err, bwd_ratio = max(e for e, _ in bwd), max(r for _, r in bwd)
+
+        # bytes each input read once, each output written once
+        stat_b = (8 if ln else 4) * n
+        par_b = (2 if ln else 1) * 2 * d
+        fwd_bytes = 2 * n * d * 2 + par_b + stat_b
+        bwd_bytes = 3 * n * d * 2 + 2 * d + stat_b + par_b
+        fb = bound(fwd_bytes, (8 if ln else 4) * n * d, PEAK_FP32)
+        bb = bound(bwd_bytes, (16 if ln else 12) * n * d, PEAK_FP32)
+        sets = [make() for _ in range(n_sets(bwd_bytes))]
+        if ln:
+            kf = lambda x_, s_, b_, d_, m_, r_: TL.layernorm_fwd(x_, s_, b_, eps)      # noqa: E731
+            pf = lambda x_, s_, b_, d_, m_, r_: TL.layernorm_fwd_plain(x_, s_, b_, eps)  # noqa: E731
+            lf = lambda x_, s_, b_, d_, m_, r_: F.layer_norm(x_, (d,), s_, b_, eps)    # noqa: E731
+            kb = lambda x_, s_, b_, d_, m_, r_: TL.layernorm_bwd(x_, s_, m_, r_, d_)   # noqa: E731
+            pb = lambda x_, s_, b_, d_, m_, r_: TL.layernorm_bwd_plain(x_, s_, m_, r_, d_)  # noqa: E731
+        else:
+            kf = lambda x_, s_, b_, d_, m_, r_: TL.rmsnorm_fwd(x_, s_, eps)            # noqa: E731
+            pf = lambda x_, s_, b_, d_, m_, r_: TL.rmsnorm_fwd_plain(x_, s_, eps)      # noqa: E731
+            lf = lambda x_, s_, b_, d_, m_, r_: F.rms_norm(x_, (d,), s_, eps)          # noqa: E731
+            kb = lambda x_, s_, b_, d_, m_, r_: TL.rmsnorm_bwd(x_, s_, r_, d_)         # noqa: E731
+            pb = lambda x_, s_, b_, d_, m_, r_: TL.rmsnorm_bwd_plain(x_, s_, r_, d_)   # noqa: E731
+        # library backward: autograd through the library forward (eager)
+        xs = [t.detach().clone().requires_grad_(True) for t in (x, scale, bias)]
+        lib_out = (F.layer_norm(xs[0], (d,), xs[1], xs[2], eps) if ln
+                   else F.rms_norm(xs[0], (d,), xs[1], eps))
+        lib_in = xs if ln else xs[:2]
+        rows = []
+        for kernel, fn, plain, lib, err, ratio, (bms, bby) in (
+                (f"{fam}_fwd", kf, pf, lf, fwd_err, fwd_ratio, fb),
+                (f"{fam}_bwd", kb, pb, None, bwd_err, bwd_ratio, bb)):
+            kernel_ms = time_ms(torch, fn, sets)
+            plain_ms = time_ms(torch, plain, sets[:2], iters=4)
+            if lib is None:
+                library_ms, how = eager_ms(torch, lambda: torch.autograd.grad(
+                    lib_out, lib_in, dy, retain_graph=True), [()]), "eager"
+            else:
+                library_ms, how = time_ms(torch, lib, sets), "graph"
+            rows.append(dict(kernel=kernel, case=name, shape=f"[{n},{d}] bf16 eps={eps}",
+                             max_abs_err=err, err_over_tol=ratio, ok=ratio <= 1.0,
+                             kernel_ms=kernel_ms, plain_ms=plain_ms,
+                             library_ms=library_ms, library_timing=how,
+                             bound_ms=bms, bound_by=bby))
+        del lib_out, xs, sets
+        for row in rows:
+            results.append(row)
+            log(f"[kernel] {row['kernel']:14s} {name:13s} {row['shape']:28s} "
+                f"err={row['max_abs_err']:.3e} err/tol={row['err_over_tol']:.3f} "
+                f"{'OK' if row['ok'] else 'FAIL'} kernel_ms={row['kernel_ms']:.4f} "
+                f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+                f"({row['library_timing']}) bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
+    torch.cuda.empty_cache()
+
+
+def ce_cases():
+    """(case, N, H, V, compute_dw): the training shape (6 x 160 answer
+    positions, the tied 151674-row head), with and without dW, and a
+    ragged small one."""
+    return [("train", 960, 896, 151674, False), ("train_dw", 960, 896, 151674, True),
+            ("ragged", 100, 128, 1111, True)]
+
+
+def run_ce_checks(torch, dev, results):
+    """fused_ce forward and backward (dh; dh + dW) against their plain
+    versions on the same bf16 inputs, at the training shape and a ragged
+    one (N not a multiple of 128 rows, V not of 128 columns, labels out of
+    range); library: F.cross_entropy(F.linear(h, w).float(), labels) and
+    its autograd backward (eager)."""
+    import torch.nn.functional as F
+    from simlingo_tpu_torch.kernels import fused_ce as TC
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for name, N, H, V, dw in ce_cases():
+        h = torch.randn(N, H, generator=gen, device=dev).bfloat16()
+        w = (0.02 * torch.randn(V, H, generator=gen, device=dev)).bfloat16()
+        labels = torch.randint(0, V, (N,), generator=gen, device=dev)
+        if name == "ragged":
+            labels[0], labels[-1] = -100, V
+        # the loss's cotangent: 1 / (valid answer tokens) on valid rows
+        g = (torch.rand(N, generator=gen, device=dev) < 0.8).float() / (0.8 * N)
+        logz, ce = TC.fused_ce_fwd(h, labels, w)
+        rlogz, rce = TC.fused_ce_fwd_plain(h, labels, w)
+        dh, dwk = TC.fused_ce_bwd(h, labels, w, rlogz, g, dw)
+        torch.cuda.synchronize()
+        fwd_err, fwd_ratio = _ratio(ce, rce, CE_ATOL + 1e-5 * rce.abs())
+        lz_err, lz_ratio = _ratio(logz, rlogz, CE_ATOL + 1e-5 * rlogz.abs())
+        rdh, rdw = TC.fused_ce_bwd_plain(h, labels, w, rlogz, g, dw)
+        mdh, mdw = TC.fused_ce_bwd_plain(h, labels, w, rlogz, g, dw, abs_terms=True)
+        bwd = []
+        for a, b, m in ((dh, rdh, mdh), (dwk, rdw, mdw)):
+            if a is None:
+                continue
+            rms = float(b.float().square().mean().sqrt())
+            bwd.append(_ratio(a, b, BF16_SPACING * (m + b.float().abs()) + 1e-6 * rms))
+        del rdh, rdw, mdh, mdw
+        bwd_err, bwd_ratio = max(e for e, _ in bwd), max(r for _, r in bwd)
+        fwd_ratio = max(fwd_ratio, lz_ratio)
+        nhv = 2 * N * H * V
+        fb = bound(2 * N * H + 2 * V * H + 8 * N + 8 * N, nhv)
+        bb = bound(2 * N * H + 2 * V * H + 16 * N + 2 * N * H + (2 * V * H if dw else 0),
+                   (3 if dw else 2) * nhv)
+        sets = [(h, labels, w, rlogz, g)]
+        lib_labels = labels.clamp(0, V - 1)
+        lib_fwd = lambda h_, l_, w_, z_, g_: F.cross_entropy(            # noqa: E731
+            F.linear(h_, w_).float(), lib_labels, reduction="none")
+        rows = []
+        if name != "train_dw":          # the forward is the same for both train cases
+            kernel_ms = time_ms(torch, lambda h_, l_, w_, z_, g_: TC.fused_ce_fwd(h_, l_, w_), sets)
+            plain_ms = time_ms(torch, lambda h_, l_, w_, z_, g_: TC.fused_ce_fwd_plain(
+                h_, l_, w_), sets, iters=2)
+            library_ms, how = time_ms(torch, lib_fwd, sets), "graph"
+            rows.append(dict(kernel="fused_ce_fwd", case=name, err=fwd_err, ratio=fwd_ratio,
+                             kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                             how=how, bound=fb))
+        kernel_ms = time_ms(torch, lambda h_, l_, w_, z_, g_: TC.fused_ce_bwd(
+            h_, l_, w_, z_, g_, dw), sets)
+        plain_ms = time_ms(torch, lambda h_, l_, w_, z_, g_: TC.fused_ce_bwd_plain(
+            h_, l_, w_, z_, g_, dw), sets, iters=2)
+        hx = h.detach().clone().requires_grad_(True)
+        wx = w.detach().clone().requires_grad_(dw)
+        lib_out = F.cross_entropy(F.linear(hx, wx).float(), lib_labels, reduction="none")
+        lib_in = [hx, wx] if dw else [hx]
+        library_ms = eager_ms(torch, lambda: torch.autograd.grad(
+            lib_out, lib_in, g, retain_graph=True), [()], iters=10)
+        rows.append(dict(kernel="fused_ce_bwd", case=name, err=bwd_err, ratio=bwd_ratio,
+                         kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                         how="eager", bound=bb))
+        del lib_out, hx, wx, sets
+        for r in rows:
+            bms, bby = r["bound"]
+            with_dw = dw and r["kernel"] == "fused_ce_bwd"
+            row = dict(kernel=r["kernel"], case=name,
+                       shape=f"N={N} H={H} V={V}{' +dW' if with_dw else ''}",
+                       max_abs_err=r["err"], err_over_tol=r["ratio"], ok=r["ratio"] <= 1.0,
+                       kernel_ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+                       library_ms=r["library_ms"], library_timing=r["how"],
+                       bound_ms=bms, bound_by=bby)
+            results.append(row)
+            log(f"[kernel] {row['kernel']:14s} {name:13s} {row['shape']:28s} "
+                f"err={row['max_abs_err']:.3e} err/tol={row['err_over_tol']:.3f} "
+                f"{'OK' if row['ok'] else 'FAIL'} kernel_ms={row['kernel_ms']:.4f} "
+                f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+                f"({row['library_timing']}) bound_ms={bms:.4f} ({bby})")
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # Phases 3-4: the serving path
 # ---------------------------------------------------------------------------
@@ -578,12 +809,43 @@ def device_profile(torch, fn, what):
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    classes = {}
+    for ms, n, key in rows:
+        cls = kernel_class(key)
+        ms0, n0 = classes.get(cls, (0.0, 0))
+        classes[cls] = (ms0 + ms, n0 + n)
     log(f"[profile] {what}: wall {wall:.2f} ms, device busy "
         f"{busy:.2f} ms ({100 * busy / wall:.1f} %), idle {100 * (1 - busy / wall):.1f} %")
+    log(f"[profile] device ms (launches) by class: "
+        + ", ".join(f"{c} {ms:.2f} ({n})" for c, (ms, n) in sorted(classes.items())))
     for ms, n, key in rows[:15]:
         log(f"[profile] {ms:9.3f} ms  x{n:5d}  {key[:90]}")
     return dict(wall_ms=wall, device_busy_ms=busy,
+                classes={c: dict(ms=ms, count=n) for c, (ms, n) in classes.items()},
                 top=[dict(ms=ms, count=n, name=key) for ms, n, key in rows[:25]])
+
+
+HAND_KERNELS = ("flash_fwd_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel", "bwd_prep_kernel",
+                "dropout_kernel", "gemm_kernel", "gemv_kernel", "norm_fwd_kernel",
+                "norm_bwd_kernel", "col_reduce_kernel", "ce_fwd_tile_kernel",
+                "ce_fwd_finalize_kernel", "ce_bwd_kernel", "ce_dh_reduce_kernel")
+
+
+def kernel_class(name):
+    """hand (this repo's CUDA kernels), gemm (cuBLAS / CUTLASS), elementwise,
+    reduce, copy or other (PyTorch's own kernels, by their names)."""
+    if re.search(r"(^|[:\s])(" + "|".join(HAND_KERNELS) + r")\b", name):
+        return "hand"
+    low = name.lower()
+    if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet", "cublas", "sm90_")):
+        return "gemm"
+    if "elementwise" in low or "foreach" in low:
+        return "elementwise"
+    if "reduce" in low or "norm" in low or "softmax" in low:
+        return "reduce"
+    if "copy" in low or "memcpy" in low or "memset" in low or "cat" in low:
+        return "copy"
+    return "other"
 
 
 def _leaves(tree):
@@ -602,11 +864,55 @@ def _to(tree, dev):
 # Phases 3 and 5: the training path
 # ---------------------------------------------------------------------------
 
-def small_training_agreement(torch, dev):
-    """One train_step of a small D=64 model with LoRA r=4, dropout 0.1 on
+GATES_ON = {"SIMLINGO_CE_IMPL": "pallas", "SIMLINGO_LN_IMPL": "pallas"}
+NEW_KERNELS = ("layernorm_fwd", "layernorm_bwd", "rmsnorm_fwd", "rmsnorm_bwd",
+               "fused_ce_fwd", "fused_ce_bwd")
+# launches per training step with both gates on: the ViT's 24 x 2 LayerNorms
+# and the projector's; the LLM's 24 x 2 RMSNorms and the final one; one CE
+GATED_PER_STEP = {"layernorm_fwd": 49, "layernorm_bwd": 49, "rmsnorm_fwd": 49,
+                  "rmsnorm_bwd": 49, "fused_ce_fwd": 1, "fused_ce_bwd": 1}
+
+
+class gates_set:
+    """Set the fused-kernel gates in the process environment (or leave
+    them unset) and restore the environment afterwards."""
+
+    def __init__(self, on):
+        self.env = GATES_ON if on else {}
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in GATES_ON}
+        for k in GATES_ON:
+            os.environ.pop(k, None)
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def kernel_fns():
+    from simlingo_tpu_torch.kernels import dropout as DO
+    from simlingo_tpu_torch.kernels import flash_attention as FA
+    from simlingo_tpu_torch.kernels import fused_ce as TC
+    from simlingo_tpu_torch.kernels import layernorm as TL
+    from simlingo_tpu_torch.kernels import quantized_matmul as QM
+    return {"flash_attn_fwd": FA.flash_attn_fwd, "flash_attn_bwd": FA.flash_attn_bwd,
+            "dropout": DO.dropout, "int8_matmul": QM.int8_matmul,
+            "layernorm_fwd": TL.layernorm_fwd, "layernorm_bwd": TL.layernorm_bwd,
+            "rmsnorm_fwd": TL.rmsnorm_fwd, "rmsnorm_bwd": TL.rmsnorm_bwd,
+            "fused_ce_fwd": TC.fused_ce_fwd, "fused_ce_bwd": TC.fused_ce_bwd}
+
+
+def small_training_agreement(torch, dev, gated=False):
+    """One train_step of a small D=128 model with LoRA r=4, dropout 0.1 on
     the GPU (bf16, kernels) and on the CPU (fp32, plain versions), from the
     same params, batch and seed: the dropout masks are the same on both
-    sides (Philox of the flat index), so the losses and grad norm agree."""
+    sides (Philox of the flat index), so the losses and grad norm agree.
+    `gated`: with both fused-kernel gates on, on both sides."""
     import copy
     from simlingo_tpu_torch.data.synthetic import synthetic_example
     from simlingo_tpu_torch.models import simlingo
@@ -626,35 +932,48 @@ def small_training_agreement(torch, dev):
         ab.add_(0.01)                        # nonzero B: every adapter in play
     opt = ts.OptimizerConfig(lr=1e-4, total_steps=10)
     metrics = {}
-    for device, dtype in (("cpu", torch.float32), (dev, torch.bfloat16)):
-        state = ts.init_train_state(_to(copy.deepcopy(params), device), opt)
-        batch = synthetic_example(cfg, batch=2, seq_len=96, num_patches=2, seed=1,
-                                  device=device)
-        step = ts.make_train_step(cfg, opt, compute_dtype=dtype)
-        metrics[str(device)] = {k: float(v) for k, v in step(state, batch, 1234).items()}
+    fns = kernel_fns()
+    tag = "gated " if gated else ""
+    with gates_set(gated):
+        for device, dtype in (("cpu", torch.float32), (dev, torch.bfloat16)):
+            state = ts.init_train_state(_to(copy.deepcopy(params), device), opt)
+            batch = synthetic_example(cfg, batch=2, seq_len=96, num_patches=2, seed=1,
+                                      device=device)
+            step = ts.make_train_step(cfg, opt, compute_dtype=dtype)
+            before = {k: fns[k].launches for k in NEW_KERNELS}
+            metrics[str(device)] = {k: float(v) for k, v in step(state, batch, 1234).items()}
+    new = {k: fns[k].launches - before[k] for k in NEW_KERNELS}
     ref, got = metrics["cpu"], metrics[str(dev)]
     ok = True
     for key, want in ref.items():
         tol = 5e-2 if key == "grad_norm" else 2e-2
         good = abs(got[key] - want) <= tol * abs(want)
         ok &= good
-        log(f"[small] train_step {key:15s} GPU bf16 {got[key]:.6f} vs CPU fp32 "
+        log(f"[small] {tag}train_step {key:15s} GPU bf16 {got[key]:.6f} vs CPU fp32 "
             f"{want:.6f} (rel tol {tol}) {'OK' if good else 'FAIL'}")
+    log(f"[small] {tag}train_step launches of the fused kernels on the GPU: {new}")
+    if gated and min(new.values()) <= 0:
+        log("[small] FAIL: a fused kernel was not launched with the gates on")
+        ok = False
     return ok
 
 
-def full_width_training(torch, dev):
+def full_width_training(torch, dev, gated=False):
     """presets.internvl2_1b(lora=True) through the trainer: 1 warm-up step
-    and TRAIN_STEPS timed steps; launches counted over the timed steps."""
+    and TRAIN_STEPS timed steps; launches counted over the timed steps.
+    `gated`: with both fused-kernel gates set in the process environment
+    (restored afterwards)."""
+    with gates_set(gated):
+        return _full_width_training(torch, dev, gated)
+
+
+def _full_width_training(torch, dev, gated):
     import dataclasses
     from simlingo_tpu_torch.core.config import compose
-    from simlingo_tpu_torch.kernels import dropout as DO
-    from simlingo_tpu_torch.kernels import flash_attention as FA
-    from simlingo_tpu_torch.kernels import quantized_matmul as QM
     from simlingo_tpu_torch.train import trainer
 
-    kernels = {"flash_attn_fwd": FA.flash_attn_fwd, "flash_attn_bwd": FA.flash_attn_bwd,
-               "dropout": DO.dropout, "int8_matmul": QM.int8_matmul}
+    kernels = kernel_fns()
+    tag = "[train_gated]" if gated else "[train]"
 
     def reset_after_warmup(step, _):
         if step == 0:
@@ -665,7 +984,7 @@ def full_width_training(torch, dev):
     cfg = compose([f"max_steps={1 + TRAIN_STEPS}", "data.batch_size=6",
                    "data.max_text_len=768", "seed=0"])
     m = cfg.model
-    log(f"[train] presets.internvl2_1b(lora=True): ViT {m.vit.num_layers}x"
+    log(f"{tag} presets.internvl2_1b(lora=True): ViT {m.vit.num_layers}x"
         f"{m.vit.hidden_size} ({m.vit.num_heads} heads, tanh GELU), Qwen2 "
         f"{m.llm.num_layers}x{m.llm.hidden_size} vocab {m.llm.vocab_size}, LoRA r="
         f"{m.llm.lora_r} alpha={m.llm.lora_alpha} dropout={m.llm.lora_dropout}; "
@@ -683,24 +1002,62 @@ def full_width_training(torch, dev):
     ok = all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
              for r in res["records"])
     mean_ms = sum(ms) / len(ms)
-    log(f"[train] timed steps: ms {[round(x, 2) for x in ms]} -> mean {mean_ms:.2f} "
+    log(f"{tag} timed steps: ms {[round(x, 2) for x in ms]} -> mean {mean_ms:.2f} "
         f"ms/step, {cfg.data.batch_size * 1e3 / mean_ms:.3f} samples/s")
-    log(f"[train] loss {[round(r['loss'], 5) for r in res['records']]} grad_norm "
+    log(f"{tag} loss {[round(r['loss'], 5) for r in res['records']]} grad_norm "
         f"{[round(r['grad_norm'], 5) for r in res['records']]} finite="
         f"{'OK' if ok else 'FAIL'}")
-    log(f"[train] peak memory {peak / 2 ** 30:.2f} GiB (max_memory_allocated)")
-    log(f"[train] launches over the {TRAIN_STEPS} timed steps: {launches}")
-    for name in ("flash_attn_fwd", "flash_attn_bwd", "dropout"):
+    log(f"{tag} peak memory {peak / 2 ** 30:.2f} GiB (max_memory_allocated)")
+    log(f"{tag} launches over the {TRAIN_STEPS} timed steps: {launches}")
+    must = ["flash_attn_fwd", "flash_attn_bwd", "dropout"]
+    if gated:
+        must += list(NEW_KERNELS)
+        for name, per_step in GATED_PER_STEP.items():
+            want = per_step * TRAIN_STEPS
+            log(f"{tag} {name}: {launches[name]} launches, expected {per_step} per "
+                f"step x {TRAIN_STEPS} = {want} "
+                f"{'OK' if launches[name] == want else 'DIFFERS'}")
+    else:
+        log(f"{tag} fused kernels with the gates off: "
+            f"{ {k: launches[k] for k in NEW_KERNELS} } (expected 0)")
+    for name in must:
         if launches[name] <= 0:
-            log(f"[train] FAIL: kernel {name} was not launched on the training path")
+            log(f"{tag} FAIL: kernel {name} was not launched on the training path")
             ok = False
     state, step_fn, batch = res["state"], res["step_fn"], res["batch"]
-    profile = device_profile(torch, lambda: step_fn(state, batch, 99), "one training step")
+    profile = device_profile(torch, lambda: step_fn(state, batch, 99),
+                             "one gated training step" if gated else "one training step")
     stats = dict(step_ms=ms, mean_step_ms=mean_ms,
                  samples_per_s=cfg.data.batch_size * 1e3 / mean_ms,
                  records=res["records"], peak_bytes=peak, launches=launches,
                  profile=profile)
     return ok, stats
+
+
+def compare_training(plain, gated):
+    """The ungated and the gated full-width step side by side; the losses
+    agree to 2e-2 relative (the gated CE does not round the logits to bf16
+    as the chunked CE's logits_fn(...).float() does)."""
+    ok = True
+    for a, b in zip(plain["records"], gated["records"]):
+        good = abs(b["loss"] - a["loss"]) <= 2e-2 * abs(a["loss"])
+        ok &= good
+        log(f"[train_ab] step {a['step']}: loss {a['loss']:.5f} vs gated {b['loss']:.5f} "
+            f"(rel tol 2e-2) {'OK' if good else 'FAIL'}; grad_norm {a['grad_norm']:.5f} "
+            f"vs {b['grad_norm']:.5f}; ms {a['ms']:.2f} vs {b['ms']:.2f}")
+    pp, gp = plain["profile"], gated["profile"]
+    log(f"[train_ab] mean ms/step {plain['mean_step_ms']:.2f} vs gated "
+        f"{gated['mean_step_ms']:.2f}; samples/s {plain['samples_per_s']:.3f} vs "
+        f"{gated['samples_per_s']:.3f}; peak {plain['peak_bytes'] / 2 ** 30:.2f} vs "
+        f"{gated['peak_bytes'] / 2 ** 30:.2f} GiB; profiled step device busy "
+        f"{pp['device_busy_ms']:.2f} of {pp['wall_ms']:.2f} ms vs "
+        f"{gp['device_busy_ms']:.2f} of {gp['wall_ms']:.2f} ms")
+    for cls in sorted(set(pp["classes"]) | set(gp["classes"])):
+        a = pp["classes"].get(cls, {"ms": 0.0, "count": 0})
+        b = gp["classes"].get(cls, {"ms": 0.0, "count": 0})
+        log(f"[train_ab] {cls:12s} device ms {a['ms']:9.3f} ({a['count']:6d}) vs gated "
+            f"{b['ms']:9.3f} ({b['count']:6d})")
+    return ok
 
 
 def kernel_line(cases, launches):
@@ -715,6 +1072,18 @@ def kernel_line(cases, launches):
                            "simlingo_tpu/kernels/flash_attention.py:382", "llm_train"),
         "dropout": ("simlingo_tpu_torch/csrc/dropout.cu",
                     "simlingo_tpu/kernels/dropout.py:32", "lora_x_896"),
+        "layernorm_fwd": ("simlingo_tpu_torch/csrc/layernorm.cu",
+                          "simlingo_tpu/kernels/layernorm.py:54", "vit"),
+        "layernorm_bwd": ("simlingo_tpu_torch/csrc/layernorm.cu",
+                          "simlingo_tpu/kernels/layernorm.py:84", "vit"),
+        "rmsnorm_fwd": ("simlingo_tpu_torch/csrc/layernorm.cu",
+                        "simlingo_tpu/kernels/layernorm.py:71", "llm_train"),
+        "rmsnorm_bwd": ("simlingo_tpu_torch/csrc/layernorm.cu",
+                        "simlingo_tpu/kernels/layernorm.py:110", "llm_train"),
+        "fused_ce_fwd": ("simlingo_tpu_torch/csrc/fused_ce.cu",
+                         "simlingo_tpu/kernels/fused_ce.py:55", "train"),
+        "fused_ce_bwd": ("simlingo_tpu_torch/csrc/fused_ce.cu",
+                         "simlingo_tpu/kernels/fused_ce.py:85", "train"),
     }
     out = []
     for name, (src, replaces, case) in meta.items():
@@ -732,7 +1101,8 @@ def kernel_line(cases, launches):
 
 
 def run_path_phases(torch, dev, cases) -> int:
-    if not small_model_agreement(torch, dev) or not small_training_agreement(torch, dev):
+    if not (small_model_agreement(torch, dev) and small_training_agreement(torch, dev)
+            and small_training_agreement(torch, dev, gated=True)):
         return 1
     ok, stats, agent, frame = full_width(torch, dev)
     if not ok:
@@ -743,13 +1113,18 @@ def run_path_phases(torch, dev, cases) -> int:
     ok, train_stats = full_width_training(torch, dev)
     if not ok:
         return 1
+    torch.cuda.empty_cache()
+    ok, gated_stats = full_width_training(torch, dev, gated=True)
+    if not ok or not compare_training(train_stats, gated_stats):
+        return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    for name, st in (("agent", stats), ("train", train_stats)):
+    for name, st in (("agent", stats), ("train", train_stats), ("train_gated", gated_stats)):
         with open(os.path.join(ROOT, "chiprun_out", f"chip_smoke_{name}.json"), "w") as f:
             json.dump(dict(st, nvidia_smi=smi), f, indent=1)
-    launches = {"serve": stats["launches"], "train": train_stats["launches"]}
+    launches = {"serve": stats["launches"], "train": train_stats["launches"],
+                "train_gated": gated_stats["launches"]}
     print(json.dumps(kernel_line(cases, launches)), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -788,6 +1163,8 @@ def main() -> int:
     run_int8_checks(torch, dev, cases)
     run_attention_bwd_checks(torch, dev, cases)
     run_dropout_checks(torch, dev, cases)
+    run_norm_checks(torch, dev, cases)
+    run_ce_checks(torch, dev, cases)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_cases.json"), "w") as f:
         json.dump(cases, f, indent=1)

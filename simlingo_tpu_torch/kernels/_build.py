@@ -14,6 +14,7 @@ or imported when this module is imported: the first launch builds.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -95,3 +96,17 @@ def load(name: str) -> ctypes.CDLL:
 def check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
+
+
+def aligned16(t):
+    """`t` contiguous with a 16-byte aligned start (kernels that read 16
+    bytes a thread need it); copies only when it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index`."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -104,9 +104,7 @@ def _dropout_cuda(x, seed, rate):
         raise TypeError(f"dropout kernel takes bf16, got {x.dtype}")
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
-    x = x.contiguous()
-    if x.data_ptr() % 16:
-        x = x.clone()                      # the kernel reads 16 bytes a thread
+    x = _build.aligned16(x)                # the kernel reads 16 bytes a thread
     out = torch.empty_like(x)
     n = x.numel()
     if n == 0:

@@ -1,0 +1,202 @@
+"""Softmax cross-entropy over the tied LM head, with no logits in memory.
+
+Counterpart of `simlingo_tpu/kernels/fused_ce.py`: `fused_ce` (:178), a
+custom VJP over `_fwd_kernel` (:55) and `_bwd_kernel` (:85).
+`models/adaptors.py:language_loss_gathered` routes through it when
+SIMLINGO_CE_IMPL is pallas or pallas_dw (`core/gates.py`) and the head is
+the tied [V, H] embedding.
+
+    fused_ce(h2 [N, H], labels [N], w [V, H], compute_dw) -> ce [N] fp32
+    ce = logz - gold, logz = logsumexp(h2 w^T), gold = the label's logit
+
+A row whose label is outside [0, V) gets a finite logz and gold 0; the
+caller masks it. The backward recomputes the logits from the saved logz:
+    dlogits = ((exp(logits - logz) - onehot) g), rounded to w's dtype
+    dh = dlogits w          (in h's dtype)
+    dW = dlogits^T h        (fp32 sums, in w's dtype; compute_dw only)
+With compute_dw False the gradient of w is zeros (JAX `_fused_ce_bwd`
+:207-210), or None where autograd does not ask for it. With compute_dw
+True, dW is computed where autograd asks for it.
+
+On a CUDA tensor `fused_ce_fwd` / `fused_ce_bwd` launch `csrc/fused_ce.cu`
+(bf16 h and w, H % 32 == 0 forward and H in BWD_WIDTHS backward, 16-byte
+aligned rows; anything else raises); on a CPU tensor they run their plain
+versions. Labels may come as any integer type: the wrapper hands the
+kernel int64.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from simlingo_tpu_torch.kernels import _build
+
+BWD_WIDTHS = (64, 128, 256, 512, 896)     # csrc/fused_ce.cu: NT = H / 64
+_FWD_TILE = 128                           # vocabulary columns per forward block
+_BWD_ROWS = 32                            # h rows per backward block
+
+
+# ---------------------------------------------------------------------------
+# plain versions (fp32 math, the kernels' rounding points)
+# ---------------------------------------------------------------------------
+
+def _logits(h2, w):
+    return h2.float() @ w.float().t()
+
+
+def fused_ce_fwd_plain(h2, labels, w):
+    """(logz [N], ce [N]) fp32."""
+    V = w.shape[0]
+    logits = _logits(h2, w)
+    logz = torch.logsumexp(logits, dim=-1)
+    labels = labels.long()
+    ok = (labels >= 0) & (labels < V)
+    gold = logits.gather(1, labels.clamp(0, V - 1)[:, None])[:, 0]
+    return logz, logz - torch.where(ok, gold, torch.zeros((), device=h2.device))
+
+
+def _dlogits_plain(h2, labels, w, logz, g):
+    V = w.shape[0]
+    p = torch.exp(_logits(h2, w) - logz[:, None])
+    onehot = labels.long()[:, None] == torch.arange(V, device=h2.device)[None]
+    return (p - onehot.float()) * g.float()[:, None]
+
+
+def fused_ce_bwd_plain(h2, labels, w, logz, g, compute_dw, abs_terms=False):
+    """(dh in h's dtype, dW in w's dtype or None). dlogits is rounded to
+    w's dtype before both products, as the kernels do. With `abs_terms`,
+    returns instead fp32 |dlogits| |w| and |dlogits|^T |h|: the sums of
+    |term| that bound the kernel's rounding error."""
+    dl = _dlogits_plain(h2, labels, w, logz, g).to(w.dtype).float()
+    hf, wf = h2.float(), w.float()
+    if abs_terms:
+        dl, hf, wf = dl.abs(), hf.abs(), wf.abs()
+    dh = dl @ wf
+    dw = dl.t() @ hf if compute_dw else None
+    if abs_terms:
+        return dh, dw
+    return dh.to(h2.dtype), None if dw is None else dw.to(w.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check(what, h2, labels, w, widths=None):
+    for name, x in (("h2", h2), ("w", w)):
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"{what} kernel takes bf16 {name}, got {x.dtype}")
+    if h2.dim() != 2 or w.dim() != 2 or h2.shape[1] != w.shape[1] \
+            or labels.shape != h2.shape[:1]:
+        raise ValueError(f"{what}: shapes h2 {tuple(h2.shape)}, labels "
+                         f"{tuple(labels.shape)}, w {tuple(w.shape)}")
+    H = h2.shape[1]
+    if widths is None and H % 32:
+        raise ValueError(f"{what} kernel needs H % 32 == 0, got {H}")
+    if widths is not None and H not in widths:
+        raise ValueError(f"{what} kernel takes H in {widths}, got {H}")
+
+
+def fused_ce_fwd(h2, labels, w):
+    """(logz [N], ce [N]) fp32."""
+    if h2.device.type == "cpu":
+        return fused_ce_fwd_plain(h2, labels, w)
+    _check("fused_ce_fwd", h2, labels, w)
+    h2, w = _build.aligned16(h2), _build.aligned16(w)
+    labels = labels.to(torch.int64).contiguous()
+    N, H = h2.shape
+    V = w.shape[0]
+    dev = h2.device
+    logz = torch.empty(N, dtype=torch.float32, device=dev)
+    ce = torch.empty(N, dtype=torch.float32, device=dev)
+    if N == 0:
+        return logz, ce
+    nvt = -(-V // _FWD_TILE)
+    part = torch.empty((2, nvt, N), dtype=torch.float32, device=dev)
+    gold = torch.empty(N, dtype=torch.float32, device=dev)
+    rc = _lib().simlingo_fused_ce_fwd(
+        h2.data_ptr(), w.data_ptr(), labels.data_ptr(), part[0].data_ptr(),
+        part[1].data_ptr(), gold.data_ptr(), logz.data_ptr(), ce.data_ptr(),
+        N, H, V, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "fused_ce_fwd")
+    fused_ce_fwd.launches += 1
+    return logz, ce
+
+
+def _segments(N: int, V: int, sms: int) -> int:
+    """Vocabulary segments of the dh backward: enough blocks of (32 rows,
+    segment) to fill the card in one wave."""
+    return max(1, min(-(-V // _BWD_ROWS), sms // -(-N // _BWD_ROWS)))
+
+
+def fused_ce_bwd(h2, labels, w, logz, g, compute_dw):
+    """(dh [N, H] in h's dtype, dW [V, H] in w's dtype or None)."""
+    if h2.device.type == "cpu":
+        return fused_ce_bwd_plain(h2, labels, w, logz, g, compute_dw)
+    _check("fused_ce_bwd", h2, labels, w, BWD_WIDTHS)
+    h2, w = _build.aligned16(h2), _build.aligned16(w)
+    labels = labels.to(torch.int64).contiguous()
+    logz = logz.float().contiguous()
+    g = g.float().contiguous()
+    N, H = h2.shape
+    V = w.shape[0]
+    dev = h2.device
+    dh = torch.empty_like(h2)
+    dw = torch.empty_like(w) if compute_dw else None
+    if N == 0:
+        return dh, None if dw is None else dw.zero_()
+    S = _segments(N, V, _build.sm_count(dev.index or 0))
+    part = torch.empty((S, N, H), dtype=torch.float32, device=dev)
+    rc = _lib().simlingo_fused_ce_bwd(
+        h2.data_ptr(), w.data_ptr(), labels.data_ptr(), logz.data_ptr(), g.data_ptr(),
+        part.data_ptr(), dh.data_ptr(), None if dw is None else dw.data_ptr(),
+        N, H, V, S, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "fused_ce_bwd")
+    fused_ce_bwd.launches += 1
+    return dh, dw
+
+
+fused_ce_fwd.launches = 0
+fused_ce_bwd.launches = 0
+
+
+def _lib():
+    lib = _build.load("fused_ce")
+    if lib.simlingo_fused_ce_fwd.argtypes is None:
+        lib.simlingo_fused_ce_fwd.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        lib.simlingo_fused_ce_fwd.restype = ctypes.c_int
+        lib.simlingo_fused_ce_bwd.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        lib.simlingo_fused_ce_bwd.restype = ctypes.c_int
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+class _FusedCE(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, h2, labels, w, compute_dw: bool):
+        logz, ce = fused_ce_fwd(h2, labels, w)
+        ctx.save_for_backward(h2, labels, w, logz)
+        ctx.compute_dw = compute_dw
+        return ce
+
+    @staticmethod
+    def backward(ctx, g):
+        h2, labels, w, logz = ctx.saved_tensors
+        want_w = ctx.needs_input_grad[2]
+        dh, dw = fused_ce_bwd(h2, labels, w, logz, g, ctx.compute_dw and want_w)
+        if dw is None and want_w:
+            dw = torch.zeros_like(w)         # the frozen tied head: no dW
+        return dh, None, dw, None
+
+
+def fused_ce(h2, labels, w, compute_dw: bool = False):
+    """Per-row CE of h2 [N, H] against the tied head w [V, H]: ce [N] fp32."""
+    return _FusedCE.apply(h2, labels, w, compute_dw)

@@ -1,0 +1,264 @@
+"""Fused LayerNorm / RMSNorm, forward and backward: bf16 in and out, fp32
+statistics.
+
+Counterpart of `simlingo_tpu/kernels/layernorm.py`: `layernorm_fused`
+(:138) and `rmsnorm_fused` (:212), custom VJPs over `_ln_fwd_kernel` (:54),
+`_rms_fwd_kernel` (:71), `_ln_bwd_kernel` (:84) and `_rms_bwd_kernel`
+(:110). `models/layers.py` routes through them when
+SIMLINGO_LN_IMPL=pallas (`core/gates.py`).
+
+The forward saves the per-row mean (LayerNorm) and rstd in fp32. The
+backward computes, with the same identities as JAX,
+    xhat = (x - mean) rstd,  dxhat = dy scale,
+    dx = rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat))   (LayerNorm)
+    dx = rstd (dxhat - xhat mean(dxhat xhat))                  (RMSNorm)
+and dscale = sum over rows of dy xhat, dbias = sum of dy, in fp32, cast to
+the scale's dtype; dx comes back in x's dtype. A parameter whose gradient
+autograd does not ask for (the LLM's frozen RMSNorm scales under LoRA) is
+skipped; JAX always computes it, and the trainable results are the same.
+
+Each of the four wrappers launches its kernel in `csrc/layernorm.cu` on a
+CUDA tensor (bf16 x, scale and bias in bf16 or fp32, d % 8 == 0, d <= 8192;
+anything else raises) and runs its plain version on a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from simlingo_tpu_torch.kernels import _build
+
+MAX_D = 8192
+
+
+# ---------------------------------------------------------------------------
+# plain versions (fp32 math; the kernels' arithmetic)
+# ---------------------------------------------------------------------------
+
+def layernorm_fwd_plain(x2, scale, bias, eps):
+    """x2 [n, d] -> (y [n, d] in x's dtype, mean [n], rstd [n] fp32)."""
+    xf = x2.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mean
+    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    y = xc * rstd * scale.float() + bias.float()
+    return y.to(x2.dtype), mean[:, 0], rstd[:, 0]
+
+
+def rmsnorm_fwd_plain(x2, scale, eps):
+    """x2 [n, d] -> (y [n, d] in x's dtype, rstd [n] fp32)."""
+    xf = x2.float()
+    rstd = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (xf * rstd * scale.float()).to(x2.dtype), rstd[:, 0]
+
+
+def layernorm_bwd_plain(x2, scale, mean, rstd, dy2, need_dscale=True,
+                        need_dbias=True):
+    """(dx in x's dtype, dscale, dbias in the scale's dtype, or None where
+    not needed)."""
+    xhat = (x2.float() - mean[:, None]) * rstd[:, None]
+    dy = dy2.float()
+    dxhat = dy * scale.float()
+    m1 = dxhat.mean(dim=-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    dx = (rstd[:, None] * (dxhat - m1 - xhat * m2)).to(x2.dtype)
+    dscale = (dy * xhat).sum(0).to(scale.dtype) if need_dscale else None
+    dbias = dy.sum(0).to(scale.dtype) if need_dbias else None
+    return dx, dscale, dbias
+
+
+def rmsnorm_bwd_plain(x2, scale, rstd, dy2, need_dscale=True):
+    """(dx in x's dtype, dscale in the scale's dtype or None)."""
+    xhat = x2.float() * rstd[:, None]
+    dy = dy2.float()
+    dxhat = dy * scale.float()
+    m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    dx = (rstd[:, None] * (dxhat - xhat * m2)).to(x2.dtype)
+    return dx, (dy * xhat).sum(0).to(scale.dtype) if need_dscale else None
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check(what, x2, scale, bias=None):
+    if x2.dtype != torch.bfloat16:
+        raise TypeError(f"{what} kernel takes bf16 x, got {x2.dtype}")
+    n, d = x2.shape
+    if d % 8 or d > MAX_D:
+        raise ValueError(f"{what} kernel needs d % 8 == 0 and d <= {MAX_D}, got {d}")
+    if scale.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{what} kernel takes a bf16 or fp32 scale, got {scale.dtype}")
+    for name, p in (("scale", scale), ("bias", bias)):
+        if p is None:
+            continue
+        if p.shape != (d,) or p.dtype != scale.dtype or p.device != x2.device:
+            raise ValueError(f"{what}: {name} must be [{d}] {scale.dtype} on "
+                             f"{x2.device}, got {tuple(p.shape)} {p.dtype} {p.device}")
+
+
+def _rows_per_block(d: int) -> int:
+    """Rows a 256-thread block handles at once (csrc/layernorm.cu's table:
+    one warp a row up to d = 1024, then 2, 4, 8 warps)."""
+    return max(1, 8 // max(1, -(-d // 1024)))
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _fwd_cuda(what, x2, scale, bias, eps, rms):
+    _check(what, x2, scale, bias)
+    x2, scale = _build.aligned16(x2), _build.aligned16(scale)
+    bias = None if bias is None else _build.aligned16(bias)
+    n, d = x2.shape
+    y = torch.empty_like(x2)
+    mean = None if rms else torch.empty(n, dtype=torch.float32, device=x2.device)
+    rstd = torch.empty(n, dtype=torch.float32, device=x2.device)
+    if n == 0:
+        return y, mean, rstd
+    rc = _lib().simlingo_norm_fwd(
+        x2.data_ptr(), scale.data_ptr(), None if bias is None else bias.data_ptr(),
+        y.data_ptr(), None if mean is None else mean.data_ptr(), rstd.data_ptr(),
+        n, d, ctypes.c_float(float(eps)), int(rms),
+        int(scale.dtype == torch.bfloat16), _stream(x2))
+    _build.check(rc, what)
+    return y, mean, rstd
+
+
+def _bwd_cuda(what, x2, scale, mean, rstd, dy2, need_dscale, need_dbias, rms):
+    _check(what, x2, scale)
+    if dy2.dtype != torch.bfloat16 or dy2.shape != x2.shape:
+        raise ValueError(f"{what}: dy must be bf16 {tuple(x2.shape)}, got "
+                         f"{dy2.dtype} {tuple(dy2.shape)}")
+    x2, dy2, scale = _build.aligned16(x2), _build.aligned16(dy2), _build.aligned16(scale)
+    rstd = rstd.float().contiguous()
+    mean = None if rms else mean.float().contiguous()
+    n, d = x2.shape
+    dev = x2.device
+    dx = torch.empty_like(x2)
+    make = torch.zeros if n == 0 else torch.empty
+    dscale = make(d, dtype=scale.dtype, device=dev) if need_dscale else None
+    dbias = make(d, dtype=scale.dtype, device=dev) if need_dbias else None
+    if n == 0:
+        return dx, dscale, dbias
+    rpb = _rows_per_block(d)
+    grid = max(1, min(-(-n // rpb), 2 * _build.sm_count(dev.index or 0)))
+    part_s = torch.empty((grid, d), dtype=torch.float32, device=dev) if need_dscale else None
+    part_b = torch.empty((grid, d), dtype=torch.float32, device=dev) if need_dbias else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    rc = _lib().simlingo_norm_bwd(
+        x2.data_ptr(), dy2.data_ptr(), scale.data_ptr(), ptr(mean), rstd.data_ptr(),
+        dx.data_ptr(), ptr(part_s), ptr(part_b), ptr(dscale), ptr(dbias),
+        n, d, grid, int(rms), int(scale.dtype == torch.bfloat16), _stream(x2))
+    _build.check(rc, what)
+    return dx, dscale, dbias
+
+
+def layernorm_fwd(x2, scale, bias, eps):
+    """x2 [n, d] -> (y, mean [n], rstd [n])."""
+    if x2.device.type == "cpu":
+        return layernorm_fwd_plain(x2, scale, bias, eps)
+    out = _fwd_cuda("layernorm_fwd", x2, scale, bias, eps, rms=False)
+    layernorm_fwd.launches += 1
+    return out
+
+
+def rmsnorm_fwd(x2, scale, eps):
+    """x2 [n, d] -> (y, rstd [n])."""
+    if x2.device.type == "cpu":
+        return rmsnorm_fwd_plain(x2, scale, eps)
+    y, _, rstd = _fwd_cuda("rmsnorm_fwd", x2, scale, None, eps, rms=True)
+    rmsnorm_fwd.launches += 1
+    return y, rstd
+
+
+def layernorm_bwd(x2, scale, mean, rstd, dy2, need_dscale=True, need_dbias=True):
+    """(dx, dscale or None, dbias or None)."""
+    if x2.device.type == "cpu":
+        return layernorm_bwd_plain(x2, scale, mean, rstd, dy2, need_dscale, need_dbias)
+    out = _bwd_cuda("layernorm_bwd", x2, scale, mean, rstd, dy2, need_dscale,
+                    need_dbias, rms=False)
+    layernorm_bwd.launches += 1
+    return out
+
+
+def rmsnorm_bwd(x2, scale, rstd, dy2, need_dscale=True):
+    """(dx, dscale or None)."""
+    if x2.device.type == "cpu":
+        return rmsnorm_bwd_plain(x2, scale, rstd, dy2, need_dscale)
+    dx, dscale, _ = _bwd_cuda("rmsnorm_bwd", x2, scale, None, rstd, dy2, need_dscale,
+                              False, rms=True)
+    rmsnorm_bwd.launches += 1
+    return dx, dscale
+
+
+for _fn in (layernorm_fwd, rmsnorm_fwd, layernorm_bwd, rmsnorm_bwd):
+    _fn.launches = 0
+
+
+def _lib():
+    lib = _build.load("layernorm")
+    if lib.simlingo_norm_fwd.argtypes is None:
+        lib.simlingo_norm_fwd.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_float]
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        lib.simlingo_norm_fwd.restype = ctypes.c_int
+        lib.simlingo_norm_bwd.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        lib.simlingo_norm_bwd.restype = ctypes.c_int
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+class _LayerNorm(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps: float):
+        x2 = x.reshape(-1, x.shape[-1])
+        y, mean, rstd = layernorm_fwd(x2, scale, bias, eps)
+        ctx.save_for_backward(x2, scale, mean, rstd)
+        return y.view(x.shape)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, scale, mean, rstd = ctx.saved_tensors
+        dx, dscale, dbias = layernorm_bwd(x2, scale, mean, rstd,
+                                          dy.reshape(x2.shape),
+                                          ctx.needs_input_grad[1],
+                                          ctx.needs_input_grad[2])
+        return dx.view(dy.shape), dscale, dbias, None
+
+
+class _RMSNorm(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, scale, eps: float):
+        x2 = x.reshape(-1, x.shape[-1])
+        y, rstd = rmsnorm_fwd(x2, scale, eps)
+        ctx.save_for_backward(x2, scale, rstd)
+        return y.view(x.shape)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, scale, rstd = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd(x2, scale, rstd, dy.reshape(x2.shape),
+                                 ctx.needs_input_grad[1])
+        return dx.view(dy.shape), dscale, None
+
+
+def layernorm_fused(x, scale, bias, eps: float = 1e-6):
+    """LayerNorm over the last axis of x [..., d]."""
+    return _LayerNorm.apply(x, scale, bias, eps)
+
+
+def rmsnorm_fused(x, scale, eps: float = 1e-6):
+    """RMSNorm over the last axis of x [..., d]."""
+    return _RMSNorm.apply(x, scale, eps)

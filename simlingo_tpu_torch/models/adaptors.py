@@ -4,9 +4,9 @@ losses.
 Counterpart of `simlingo_tpu/models/adaptors.py`: 20 route queries + 10
 speed queries appended to the sequence; MLP heads emit per-step deltas, and
 a cumsum over the step axis gives waypoints (in fp32). Losses: smooth-L1 on
-the waypoints, next-token CE on the assistant answer (the XLA branch of
-`language_loss_gathered`; the fused-CE kernel is gated off in JAX and not
-ported).
+the waypoints, next-token CE on the assistant answer: chunked and
+checkpointed by default, or, with SIMLINGO_CE_IMPL=pallas / pallas_dw and
+the tied head, through the fused CE of `kernels/fused_ce.py`.
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from simlingo_tpu_torch.core import gates
+from simlingo_tpu_torch.kernels.fused_ce import fused_ce
 from simlingo_tpu_torch.models import layers as L
 
 NUM_ROUTE_QUERIES = 20
@@ -127,12 +129,24 @@ def _masked_ce(logits_fn, h, labels, valid):
 def language_loss_gathered(hidden_g: torch.Tensor, labels: torch.Tensor,
                            valid: torch.Tensor,
                            logits_fn: Callable[[torch.Tensor], torch.Tensor],
-                           chunk: int = 32):
+                           chunk: int = 32,
+                           head_w: Optional[torch.Tensor] = None):
     """CE over the gathered answer positions. The [B, A, vocab] fp32 logits
     never exist whole: `chunk` positions at a time, each chunk under
     activation checkpointing, so the backward recomputes its logits (the
-    JAX scan over a checkpointed body)."""
-    A = hidden_g.shape[1]
+    JAX scan over a checkpointed body).
+
+    head_w ([V, H], the tied embedding): when given and SIMLINGO_CE_IMPL is
+    pallas (frozen head) or pallas_dw (the real dW), the CE runs the fused
+    kernel instead, which keeps no logits at all
+    (`simlingo_tpu/models/adaptors.py:217-226`)."""
+    B, A, H = hidden_g.shape
+    impl = gates.ce_impl()
+    if head_w is not None and impl in ("pallas", "pallas_dw"):
+        ce = fused_ce(hidden_g.reshape(B * A, H), labels.reshape(B * A),
+                      head_w.to(hidden_g.dtype), impl == "pallas_dw").view(B, A)
+        return {"language_loss": (torch.where(valid, ce, torch.zeros((), device=ce.device)),
+                                  valid)}
     if chunk <= 0 or A <= chunk or A % chunk:
         return {"language_loss": (_masked_ce(logits_fn, hidden_g, labels, valid),
                                   valid)}

@@ -3,7 +3,9 @@
 Counterpart of `simlingo_tpu/models/layers.py`. Parameter trees keep the
 JAX key names, but linear weights are stored torch-style [out, in]
 (core/from_jax.py transposes). Weights are cast to the activation's dtype
-at apply time; norms compute in fp32 and cast back.
+at apply time; norms compute in fp32 and cast back. With
+SIMLINGO_LN_IMPL=pallas (`core/gates.py`) the norms run the fused kernels
+of `kernels/layernorm.py`, as `simlingo_tpu/models/layers.py:90-110` does.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from simlingo_tpu_torch.core import gates
+from simlingo_tpu_torch.kernels import layernorm as fused_norm
 from simlingo_tpu_torch.kernels.quantized_matmul import int8_matmul
 
 Params = Dict[str, Any]
@@ -89,6 +93,8 @@ def embed(p: Params, ids: torch.Tensor, dtype=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    if gates.ln_impl() == "pallas":
+        return fused_norm.layernorm_fused(x, p["scale"], p["bias"], eps)
     xf = x.float()
     mean = xf.mean(dim=-1, keepdim=True)
     var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
@@ -98,6 +104,8 @@ def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    if gates.ln_impl() == "pallas":
+        return fused_norm.rmsnorm_fused(x, p["scale"], eps)
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps) * p["scale"].float()

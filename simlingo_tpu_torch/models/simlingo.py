@@ -146,7 +146,12 @@ def forward_loss(params: Dict[str, Any], example: DrivingExample,
     if cfg.max_answer_len > 0:
         hg, labels_g, valid_g = A.gather_answer_states(
             text_h, label.ids, label.loss_mask, cfg.max_answer_len)
-        losses = A.language_loss_gathered(hg, labels_g, valid_g, logits_fn)
+        # the tied [V, H] head enables the fused CE (SIMLINGO_CE_IMPL=pallas);
+        # an lm_head or an int8 table keeps the chunked CE
+        emb = params["llm"]["embed"]
+        head_w = None if ("lm_head" in params["llm"] or "w_q" in emb) else emb["w"]
+        losses = A.language_loss_gathered(hg, labels_g, valid_g, logits_fn,
+                                          head_w=head_w)
     else:
         losses = A.language_loss(logits_fn(text_h), label.ids, label.loss_mask)
 

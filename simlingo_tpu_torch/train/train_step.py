@@ -13,8 +13,10 @@ Matching optax (`clip_by_global_norm` then `adamw` with no mask):
     `torch.optim.AdamW` with its lr set from the schedule each step computes
     the same update (the tests hold it against `make_train_step`);
   * the schedule is evaluated at the step count before the update.
-The refuse-to-build rule for the fused CE (`SIMLINGO_CE_IMPL=pallas`) is
-not carried over: the fused CE is not ported.
+Under SIMLINGO_CE_IMPL=pallas the fused CE gives the tied head no dW, so
+`make_train_step` refuses to build a step whose llm/embed is trainable,
+as JAX does (`simlingo_tpu/train/train_step.py:160-179`); pallas_dw
+builds.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
+from simlingo_tpu_torch.core import gates
 from simlingo_tpu_torch.core.structs import DrivingExample
 from simlingo_tpu_torch.models import simlingo
 from simlingo_tpu_torch.models.simlingo import SimLingoConfig
@@ -132,12 +135,21 @@ def init_train_state(params, opt_cfg: OptimizerConfig,
 
 
 def make_train_step(model_cfg: SimLingoConfig, opt_cfg: OptimizerConfig,
-                    compute_dtype=torch.bfloat16
+                    compute_dtype=torch.bfloat16,
+                    trainable_fn: Callable[[str], bool] = production_trainable
                     ) -> Callable[[TrainState, DrivingExample, int],
                                   Dict[str, torch.Tensor]]:
     """train_step(state, batch, seed) -> metrics; updates `state` in place.
     Metrics (0-d tensors, not synchronised): loss, each loss average, and
-    grad_norm, the global norm of the unclipped gradients."""
+    grad_norm, the global norm of the unclipped gradients. `trainable_fn`
+    is the partition the state was built with (JAX's
+    `trainable_mask_tree`)."""
+    if gates.ce_impl() == "pallas" and trainable_fn("llm/embed/w"):
+        raise ValueError(
+            "SIMLINGO_CE_IMPL=pallas requires a FROZEN llm/embed (the fused CE "
+            "computes no dW for the tied LM head). Freeze the base LLM "
+            "(production_trainable), use SIMLINGO_CE_IMPL=pallas_dw (streams "
+            "the real dW), or unset SIMLINGO_CE_IMPL.")
     schedule = onecycle_schedule(opt_cfg)
 
     def train_step(state: TrainState, batch: DrivingExample, seed: int

@@ -16,6 +16,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from simlingo_tpu_torch.core import gates
 from simlingo_tpu_torch.core.config import TrainConfig
 from simlingo_tpu_torch.core.device import resolve_device
 from simlingo_tpu_torch.data.synthetic import synthetic_example
@@ -30,22 +31,24 @@ def step_seed(seed: int, step: int) -> int:
 
 def train(cfg: TrainConfig, params: Optional[Dict[str, Any]] = None,
           device="cuda",
-          after_step: Optional[Callable[[int, Dict[str, float]], None]] = None
+          after_step: Optional[Callable[[int, Dict[str, float]], None]] = None,
+          trainable_fn: Callable[[str], bool] = ts.production_trainable
           ) -> Dict[str, Any]:
     """Run `cfg.max_steps` steps. Returns the state, the step function, the
     batch and the per-step records ({step, ms, loss, grad_norm, ...})."""
     dev = resolve_device(device)
+    print(f"gates {gates.resolved()}", flush=True)
     compute_dtype = torch.bfloat16 if cfg.precision == "bf16" else torch.float32
     model_cfg = cfg.model
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(cfg.seed)
         params = simlingo.init_params(model_cfg, gen, device=dev)
-    state = ts.init_train_state(params, cfg.optimizer)
+    state = ts.init_train_state(params, cfg.optimizer, trainable_fn)
     del params
     n_train = sum(x.numel() for x in state.trainable.values())
     n_all = sum(x.numel() for x in ts.flatten(state.params).values())
     print(f"params {n_all / 1e6:.2f} M, trainable {n_train / 1e6:.2f} M", flush=True)
-    step_fn = ts.make_train_step(model_cfg, cfg.optimizer, compute_dtype)
+    step_fn = ts.make_train_step(model_cfg, cfg.optimizer, compute_dtype, trainable_fn)
     batch = synthetic_example(model_cfg, batch=cfg.data.batch_size,
                               seq_len=cfg.data.max_text_len,
                               num_patches=2, device=dev)

@@ -14,7 +14,13 @@ rows see as few as one key: the kernel rounds each probability to bf16
 kernel's gradients are held at |err| <= 3e-2 rms(ref) + 2e-2 |ref|: it
 rounds P and dS to bf16 before the products, and each gradient sums
 over up to T terms. The dropout kernel equals its plain version bit for
-bit.
+bit. The norm kernels' bf16 outputs (y, dx) are held to one bf16 spacing
+of the plain version's (2^-7 |ref| + 1e-5 rms): both round the same fp32
+math, summed in another order; their parameter gradients to 2^-7 |ref|
+plus 1e-5 of the sum of |terms| over the rows. The fused CE's ce to
+2e-3 + 1e-5 |ref| (fp32 accumulation over H products), its dh and dW to
+2^-7 (sum |terms| + |ref|): kernel and plain version round dlogits to
+bf16 at the same point, so a flip is at most one bf16 spacing.
 """
 
 import pytest
@@ -22,6 +28,8 @@ import torch
 
 from simlingo_tpu_torch.kernels import dropout as TD
 from simlingo_tpu_torch.kernels import flash_attention as TFA
+from simlingo_tpu_torch.kernels import fused_ce as TCE
+from simlingo_tpu_torch.kernels import layernorm as TLN
 from simlingo_tpu_torch.kernels import quantized_matmul as TQM
 
 
@@ -162,3 +170,117 @@ def test_dropout_kernel_bit_identical_to_plain(gpu, numel, offset):
     if numel > 10 ** 6:
         assert abs(float(keep.float().mean()) - 0.9) < 0.002
     assert torch.equal(TD.dropout(x, seed, 0.0), x)
+
+
+def _within(got, ref, tol, name):
+    diff = (got.float() - ref.float()).abs()
+    assert bool((diff <= tol).all()), (name, float(diff.max()), float((diff / tol).max()))
+
+
+def _bf16_spacing_tol(ref):
+    ref = ref.float()
+    return 2.0 ** -7 * ref.abs() + 1e-5 * float(ref.square().mean().sqrt())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(1, 896), (777, 1024), (33, 4096), (5, 128), (300, 2048)])
+@pytest.mark.parametrize("scale_dtype", [torch.bfloat16, torch.float32])
+def test_norm_kernels_match_plain(gpu, n, d, scale_dtype):
+    g = torch.Generator(device=gpu).manual_seed(6)
+    x = (3 * torch.randn(n, d, generator=g, device=gpu) + 0.5).bfloat16()
+    dy = torch.randn(n, d, generator=g, device=gpu).bfloat16()
+    scale = (torch.randn(d, generator=g, device=gpu) + 1).to(scale_dtype)
+    bias = torch.randn(d, generator=g, device=gpu).to(scale_dtype)
+    counts = [f.launches for f in (TLN.layernorm_fwd, TLN.layernorm_bwd,
+                                   TLN.rmsnorm_fwd, TLN.rmsnorm_bwd)]
+    y, mean, rstd = TLN.layernorm_fwd(x, scale, bias, 1e-6)
+    ry, rmean, rrstd = TLN.layernorm_fwd_plain(x, scale, bias, 1e-6)
+    _within(y, ry, _bf16_spacing_tol(ry), "ln y")
+    torch.testing.assert_close(mean, rmean, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, rrstd, atol=0, rtol=1e-5)
+    got = TLN.layernorm_bwd(x, scale, rmean, rrstd, dy)
+    ref = TLN.layernorm_bwd_plain(x, scale, rmean, rrstd, dy)
+    xhat = (x.float() - rmean[:, None]) * rrstd[:, None]
+    terms = ((dy.float() * xhat).abs().sum(0), dy.float().abs().sum(0))
+    _within(got[0], ref[0], _bf16_spacing_tol(ref[0]), "ln dx")
+    for a, b, t, name in zip(got[1:], ref[1:], terms, ("dscale", "dbias")):
+        assert a.dtype == scale_dtype
+        _within(a, b, 2.0 ** -7 * b.float().abs() + 1e-5 * t, name)
+    y, rstd = TLN.rmsnorm_fwd(x, scale, 1e-6)
+    ry, rrstd = TLN.rmsnorm_fwd_plain(x, scale, 1e-6)
+    _within(y, ry, _bf16_spacing_tol(ry), "rms y")
+    dx, dscale = TLN.rmsnorm_bwd(x, scale, rrstd, dy)
+    rdx, rdscale = TLN.rmsnorm_bwd_plain(x, scale, rrstd, dy)
+    _within(dx, rdx, _bf16_spacing_tol(rdx), "rms dx")
+    xhat = x.float() * rrstd[:, None]
+    _within(dscale, rdscale, 2.0 ** -7 * rdscale.float().abs()
+            + 1e-5 * (dy.float() * xhat).abs().sum(0), "rms dscale")
+    frozen = TLN.rmsnorm_bwd(x, scale, rrstd, dy, need_dscale=False)
+    assert frozen[1] is None and torch.equal(frozen[0], dx)
+    assert [f.launches for f in (TLN.layernorm_fwd, TLN.layernorm_bwd, TLN.rmsnorm_fwd,
+                                 TLN.rmsnorm_bwd)] == [c + k for c, k in zip(counts, (1, 1, 1, 2))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,V", [(100, 128, 1111), (960, 896, 5003), (7, 64, 300)])
+def test_fused_ce_kernels_match_plain(gpu, N, H, V):
+    g = torch.Generator(device=gpu).manual_seed(7)
+    h = torch.randn(N, H, generator=g, device=gpu).bfloat16()
+    w = (0.02 * torch.randn(V, H, generator=g, device=gpu)).bfloat16()
+    labels = torch.randint(0, V, (N,), generator=g, device=gpu)
+    labels[0], labels[-1] = -100, V
+    cot = torch.rand(N, generator=g, device=gpu)
+    f0, b0 = TCE.fused_ce_fwd.launches, TCE.fused_ce_bwd.launches
+    logz, ce = TCE.fused_ce_fwd(h, labels, w)
+    rlogz, rce = TCE.fused_ce_fwd_plain(h, labels, w)
+    _within(ce, rce, 2e-3 + 1e-5 * rce.abs(), "ce")
+    _within(logz, rlogz, 2e-3 + 1e-5 * rlogz.abs(), "logz")
+    dh, dw = TCE.fused_ce_bwd(h, labels, w, rlogz, cot, True)
+    rdh, rdw = TCE.fused_ce_bwd_plain(h, labels, w, rlogz, cot, True)
+    mdh, mdw = TCE.fused_ce_bwd_plain(h, labels, w, rlogz, cot, True, abs_terms=True)
+    for a, b, m, name in ((dh, rdh, mdh, "dh"), (dw, rdw, mdw, "dw")):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        tol = 2.0 ** -7 * (m + b.float().abs()) + 1e-6 * float(b.float().square().mean().sqrt())
+        _within(a, b, tol, name)
+    dh_only, none = TCE.fused_ce_bwd(h, labels, w, rlogz, cot, False)
+    assert none is None and torch.equal(dh_only, dh)
+    assert (TCE.fused_ce_fwd.launches, TCE.fused_ce_bwd.launches) == (f0 + 1, b0 + 2)
+
+
+@pytest.mark.cuda
+def test_fused_kernels_launch_under_autograd(gpu):
+    g = torch.Generator(device=gpu).manual_seed(8)
+    x = torch.randn(3, 50, 896, generator=g, device=gpu).bfloat16().requires_grad_(True)
+    scale = torch.ones(896, device=gpu, requires_grad=True)
+    w = (0.02 * torch.randn(1000, 896, generator=g, device=gpu)).bfloat16()
+    labels = torch.randint(0, 1000, (150,), generator=g, device=gpu)
+    counts = [f.launches for f in (TLN.rmsnorm_fwd, TLN.rmsnorm_bwd,
+                                   TCE.fused_ce_fwd, TCE.fused_ce_bwd)]
+    y = TLN.rmsnorm_fused(x, scale.bfloat16(), 1e-6)
+    TCE.fused_ce(y.reshape(150, 896), labels, w).sum().backward()
+    assert [f.launches for f in (TLN.rmsnorm_fwd, TLN.rmsnorm_bwd, TCE.fused_ce_fwd,
+                                 TCE.fused_ce_bwd)] == [c + 1 for c in counts]
+    assert torch.isfinite(x.grad.float()).all() and scale.grad.dtype == torch.float32
+
+
+@pytest.mark.cuda
+def test_fused_kernels_refuse_what_they_do_not_take(gpu):
+    x = torch.randn(4, 64, device=gpu)
+    scale = torch.ones(64, device=gpu)
+    with pytest.raises(TypeError, match="bf16"):
+        TLN.layernorm_fwd(x, scale, scale, 1e-6)                 # fp32 x
+    with pytest.raises(ValueError, match="d % 8"):
+        TLN.rmsnorm_fwd(torch.randn(4, 60, device=gpu).bfloat16(),
+                        torch.ones(60, device=gpu), 1e-6)
+    with pytest.raises(TypeError, match="scale"):
+        TLN.rmsnorm_fwd(x.bfloat16(), scale.half(), 1e-6)
+    h = torch.randn(8, 96, device=gpu).bfloat16()
+    w = torch.randn(50, 96, device=gpu).bfloat16()
+    labels = torch.zeros(8, dtype=torch.long, device=gpu)
+    with pytest.raises(TypeError, match="bf16"):
+        TCE.fused_ce_fwd(h.float(), labels, w)
+    with pytest.raises(ValueError, match="H in"):
+        TCE.fused_ce_bwd(h, labels, w, torch.zeros(8, device=gpu),
+                         torch.ones(8, device=gpu), False)
+    with pytest.raises(ValueError, match="H % 32"):
+        TCE.fused_ce_fwd(h[:, :80], labels, w[:, :80])

@@ -2,8 +2,9 @@
 
 A subprocess blocks those imports, imports every module of the port
 (the training modules included), drives the tiny agent and two training
-steps with LoRA dropout on the CPU; an entry point built without `device`
-must refuse on a machine without a GPU.
+steps with LoRA dropout on the CPU, then two more with both fused-kernel
+gates on; an entry point built without `device` must refuse on a machine
+without a GPU.
 """
 
 import subprocess
@@ -77,6 +78,17 @@ SCRIPT = textwrap.dedent("""
     recs = trainer.train(tcfg, device="cpu")["records"]
     assert len(recs) == 2 and all(np.isfinite(r["loss"]) for r in recs)
     assert TD.dropout.launches == 0          # CPU tensors take the plain version
+
+    import os
+    from simlingo_tpu_torch.kernels import fused_ce as TCE, layernorm as TLN
+    os.environ.update(SIMLINGO_CE_IMPL="pallas", SIMLINGO_LN_IMPL="pallas")
+    gated = trainer.train(tcfg, device="cpu")["records"]
+    del os.environ["SIMLINGO_CE_IMPL"], os.environ["SIMLINGO_LN_IMPL"]
+    assert len(gated) == 2 and all(np.isfinite(r["loss"]) for r in gated)
+    assert abs(gated[0]["loss"] - recs[0]["loss"]) <= 1e-4 * abs(recs[0]["loss"])
+    assert all(fn.launches == 0 for fn in (
+        TCE.fused_ce_fwd, TCE.fused_ce_bwd, TLN.layernorm_fwd, TLN.layernorm_bwd,
+        TLN.rmsnorm_fwd, TLN.rmsnorm_bwd))
 
     if not torch.cuda.is_available():
         for build in (lambda: LingoAgent(params, cfg),

@@ -7,7 +7,7 @@ is tested in test_torch_dropout.py. Compared: the synthetic batch (exact),
 the bridged LoRA tree, `forward_loss` (per-key losses and total at 2e-4),
 the trainable gradients (rtol 2e-4, atol 2e-4 max|g| per leaf), the
 OneCycle schedule, and three AdamW/OneCycle steps of `make_train_step`
-(params at 2e-4).
+(params at 2e-4); the last three again with both fused-kernel gates on.
 """
 
 import dataclasses
@@ -24,6 +24,8 @@ from simlingo_tpu.train import train_step as jts
 from simlingo_tpu_torch.core.config import compose
 from simlingo_tpu_torch.core.from_jax import example_from_jax, params_from_jax
 from simlingo_tpu_torch.data.synthetic import synthetic_example
+from simlingo_tpu_torch.models import adaptors as TA
+from simlingo_tpu_torch.models import layers as TL
 from simlingo_tpu_torch.models import simlingo as tsim
 from simlingo_tpu_torch.models.qwen2 import Qwen2Config
 from simlingo_tpu_torch.models.vit import ViTConfig
@@ -102,6 +104,10 @@ def test_params_from_jax_carries_the_lora_tree(setup):
 
 @pytest.mark.parametrize("max_answer_len", [160, 0])   # gathered (5 chunks) / full CE
 def test_forward_loss_matches_jax(setup, max_answer_len):
+    _check_forward_loss(setup, max_answer_len)
+
+
+def _check_forward_loss(setup, max_answer_len):
     jcfg, params, ex = setup
     jcfg = dataclasses.replace(jcfg, max_answer_len=max_answer_len)
     ref, _ = jax.jit(lambda p: jsim.forward_loss(p, ex, jcfg,
@@ -119,6 +125,10 @@ def test_forward_loss_matches_jax(setup, max_answer_len):
 
 
 def test_trainable_grads_match_jax(setup):
+    _check_trainable_grads(setup)
+
+
+def _check_trainable_grads(setup):
     jcfg, params, ex = setup
     (ref_loss, _), ref_grads = _loss_and_grads_jax(jcfg, params, ex)
     tp = params_from_jax(params, device="cpu")
@@ -153,6 +163,10 @@ def test_onecycle_matches_optax():
 
 
 def test_three_train_steps_track_jax(setup):
+    _check_three_train_steps(setup)
+
+
+def _check_three_train_steps(setup):
     jcfg, params, ex = setup
     opt_cfg = dict(lr=1e-3, total_steps=10, grad_clip=0.3)
     mask = jts.trainable_mask(params, jts.production_trainable)
@@ -181,6 +195,28 @@ def test_three_train_steps_track_jax(setup):
         if path in start:
             moved = max(moved, float((x.detach() - start[path]).abs().max()))
     assert moved > 1e-3, moved                   # the updates were applied
+
+
+@pytest.mark.parametrize("check", ["forward_loss", "grads", "steps"])
+def test_gated_slice_tracks_jax(setup, monkeypatch, check):
+    """The same comparisons with SIMLINGO_CE_IMPL=pallas and
+    SIMLINGO_LN_IMPL=pallas in both packages: JAX runs its Pallas kernels
+    (interpret mode), the port the plain versions of its kernels."""
+    monkeypatch.setenv("SIMLINGO_CE_IMPL", "pallas")
+    monkeypatch.setenv("SIMLINGO_LN_IMPL", "pallas")
+    calls = []
+    for module, name in ((TL.fused_norm, "layernorm_fused"),
+                         (TL.fused_norm, "rmsnorm_fused"), (TA, "fused_ce")):
+        real = getattr(module, name)
+        monkeypatch.setattr(module, name, lambda *a, _n=name, _f=real:
+                            calls.append(_n) or _f(*a))
+    if check == "forward_loss":
+        _check_forward_loss(setup, 160)
+    elif check == "grads":
+        _check_trainable_grads(setup)
+    else:
+        _check_three_train_steps(setup)
+    assert {"layernorm_fused", "rmsnorm_fused", "fused_ce"} <= set(calls)
 
 
 def test_trainer_runs_synthetic_overrides_on_cpu(setup, capsys):
