@@ -14,7 +14,10 @@ Phases, in order; any failure exits non-zero:
      p = 0; LayerNorm / RMSNorm forward and backward at the ViT, projector,
      LLM-training and serving rows, and the fused CE forward, backward and
      dW backward at the training shape and a ragged one, each against the
-     tolerance stated at BF16_SPACING);
+     tolerance stated at BF16_SPACING; the int8 forward also at the
+     int8-base training rows, and its activation gradient int8_matmul_dx
+     at every linear and the tied head of that path, against the bound
+     stated at DX_SUM_U);
      prints max error (absolute and over the output's rms, or over the
      tolerance), kernel / plain / library ms and the bound from bytes or
      operations on this card;
@@ -22,7 +25,8 @@ Phases, in order; any failure exits non-zero:
      the GPU (bf16, kernels) against the CPU plain path (fp32), and one
      training step of the same model with LoRA r=4, dropout 0.1 (losses to
      2e-2, grad norm to 5e-2 relative), then that step again with both
-     fused-kernel gates on (SIMLINGO_CE_IMPL=pallas, SIMLINGO_LN_IMPL=pallas);
+     fused-kernel gates on (SIMLINGO_CE_IMPL=pallas, SIMLINGO_LN_IMPL=pallas),
+     and again on an int8 base LLM (which must launch int8_matmul_dx);
   4. full width, serving: the default LingoAgent (CoT, int8 LLM,
      speculative) on SimLingoConfig() with seeded random bf16 weights,
      FRAMES frames on a seeded 1024x512 frame, then one use_cot=False
@@ -36,13 +40,16 @@ Phases, in order; any failure exits non-zero:
      same run with both gates set in the process environment (restored
      afterwards), which must launch the six norm and CE kernels (their
      counts are logged against GATED_PER_STEP), and the two runs side by
-     side (losses to 2e-2 relative);
-  6. the {"kernels": [...]} line (ten kernels, launches per path: serve,
-     train, train_gated), the nvidia-smi line, and the last line
-     {"ok": true, "device": {...}}.
+     side (losses to 2e-2 relative); then the ungated run again with the
+     base LLM quantized to int8 (`bench.py` BENCH_INT8_BASE=1), which must
+     launch int8_matmul and int8_matmul_dx (counts logged against
+     INT8_PER_STEP), its losses beside the bf16 base's (information only);
+  6. the {"kernels": [...]} line (eleven kernels, launches per path: serve,
+     train, train_gated, train_int8), the nvidia-smi line, and the last
+     line {"ok": true, "device": {...}}.
 Per-case results also go to chiprun_out/chip_smoke_cases.json, the paths'
-statistics to chip_smoke_agent.json, chip_smoke_train.json and
-chip_smoke_train_gated.json.
+statistics to chip_smoke_agent.json, chip_smoke_train.json,
+chip_smoke_train_gated.json and chip_smoke_train_int8.json.
 """
 
 from __future__ import annotations
@@ -84,6 +91,13 @@ BF16_U = 2.0 ** -8
 # round dlogits to bf16 at the same point, so a flip costs one spacing.
 BF16_SPACING = 2.0 ** -7
 CE_ATOL = 2e-3
+# The int8 activation gradient: kernel and plain version round g * scale
+# to bf16 identically (the same fp32 product, round to nearest even), sum
+# in fp32 in another order, and round dx once: |err| <= 2^-7 |ref| (one
+# spacing) + DX_SUM_U sqrt(N) sum|terms| (the order: a random walk of N
+# fp32 roundings of 2^-24, with a margin of 16) + 1e-6 rms(ref). A looser
+# 2^-7 sum|terms| would pass a kernel that dropped the output at N = 151674.
+DX_SUM_U = 2.0 ** -20
 PEAK_FP32 = 67e12           # non-tensor fp32 FLOP/s (norm arithmetic)
 FRAMES = 4                  # CoT frames: the first plain, then speculative
 TRAIN_STEPS = 3             # timed full-width training steps (after 1 warm-up)
@@ -280,8 +294,11 @@ def run_int8_checks(torch, dev, results):
     gen = torch.Generator(device=dev).manual_seed(1)
     shapes = [("qo", 896, 896), ("kv", 896, 128), ("gate_up", 896, 4864),
               ("down", 4864, 896)]
-    cases = [(n, K, N, M) for (n, K, N) in shapes for M in (1, 16, 30, 640)]
-    cases += [("head", 896, 151674, 1), ("head", 896, 151674, 16)]
+    # serving rows (decode, verify, queries, prefill) and the int8-base
+    # training rows: 6 x 798 for the linears, one 32-position CE chunk x 6
+    # for the tied head
+    cases = [(n, K, N, M) for (n, K, N) in shapes for M in (1, 16, 30, 640, 4788)]
+    cases += [("head", 896, 151674, M) for M in (1, 16, 192)]
     for name, K, N, M in cases:
         def make():
             x = torch.randn(M, K, generator=gen, device=dev, dtype=torch.bfloat16)
@@ -313,6 +330,61 @@ def run_int8_checks(torch, dev, results):
             f"err={err:.3e} err/rms={rel:.3e} (atol {ATOL['int8_matmul']} "
             f"rtol {RTOL}) {'OK' if ok else 'FAIL'} kernel_ms={kernel_ms:.4f} launch_ms={launch_ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} bound_ms={bms:.4f} ({bby})")
+
+
+def int8_dx_cases():
+    """(case, M, N, K) of int8_matmul_dx on the int8-base training path:
+    g [M, N] through w_q [N, K]; the linears at 6 x 798 rows, the tied head
+    per 32-position CE chunk (6 x 32 rows)."""
+    return [("qo", 4788, 896, 896), ("kv", 4788, 128, 896), ("gate_up", 4788, 4864, 896),
+            ("down", 4788, 896, 4864), ("head", 192, 151674, 896)]
+
+
+def run_int8_dx_checks(torch, dev, results):
+    """int8_matmul_dx against int8_matmul_dx_reference on the same bf16 g
+    and a bf16 scale (the training step's frozen cast), held to the bound
+    stated at DX_SUM_U; library: (g.float() * scale).to(bf16) @
+    w_q.to(bf16), timed only."""
+    from simlingo_tpu_torch.kernels import quantized_matmul as QM
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for name, M, N, K in int8_dx_cases():
+        def make():
+            g = torch.randn(M, N, generator=gen, device=dev, dtype=torch.bfloat16)
+            w = torch.randn(N, K, generator=gen, device=dev) * 0.02
+            w_q, scale = QM.quantize_weight(w, axis=0)
+            return g, w_q, scale.bfloat16()
+        g, w_q, scale = make()
+        dx = QM.int8_matmul_dx(g, w_q, scale)
+        torch.cuda.synchronize()
+        ref = QM.int8_matmul_dx_reference(g, w_q, scale)
+        terms = QM.int8_matmul_dx_reference(g, w_q, scale, abs_terms=True)
+        rms = float(ref.float().square().mean().sqrt())
+        tol = (BF16_SPACING * ref.float().abs() + DX_SUM_U * N ** 0.5 * terms
+               + 1e-6 * rms)
+        err, ratio = _ratio(dx, ref, tol)
+        del terms, tol
+        nbytes = M * N * 2 + N * K + N * 2 + M * K * 2
+        bms, bby = bound(nbytes, 2 * M * N * K)
+        sets = [make() for _ in range(n_sets(nbytes))]
+        kernel_ms = time_ms(torch, QM.int8_matmul_dx, sets)
+        plain_ms = time_ms(torch, QM.int8_matmul_dx_reference, sets[:2], iters=4)
+
+        def library(g_, w_, s_):
+            return (g_.float() * s_).to(torch.bfloat16) @ w_.to(torch.bfloat16)
+        library_ms = time_ms(torch, library, sets)
+        del sets
+        row = dict(kernel="int8_matmul_dx", case=name, shape=f"M={M} N={N} K={K}",
+                   M=M, N=N, K=K, max_abs_err=err, err_over_rms=err / max(rms, 1e-30),
+                   err_over_tol=ratio, ok=ratio <= 1.0, kernel_ms=kernel_ms,
+                   plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms, bound_by=bby,
+                   blocks=-(-K // 64) * -(-M // 64))
+        results.append(row)
+        log(f"[kernel] int8_matmul_dx {name:8s} M={M:4d} N={N:6d} K={K:5d} "
+            f"err={err:.3e} err/rms={row['err_over_rms']:.3e} err/tol={ratio:.3f} "
+            f"(tol 2^-7 |ref| + 2^-20 sqrt(N) sum|terms|) {'OK' if ratio <= 1.0 else 'FAIL'} "
+            f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+            f"bound_ms={bms:.4f} ({bby}) blocks={row['blocks']}")
+    torch.cuda.empty_cache()
 
 
 def run_attention_bwd_checks(torch, dev, results):
@@ -826,7 +898,7 @@ def device_profile(torch, fn, what):
 
 
 HAND_KERNELS = ("flash_fwd_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel", "bwd_prep_kernel",
-                "dropout_kernel", "gemm_kernel", "gemv_kernel", "norm_fwd_kernel",
+                "dropout_kernel", "gemm_kernel", "gemv_kernel", "dx_kernel", "norm_fwd_kernel",
                 "norm_bwd_kernel", "col_reduce_kernel", "ce_fwd_tile_kernel",
                 "ce_fwd_finalize_kernel", "ce_bwd_kernel", "ce_dh_reduce_kernel")
 
@@ -871,6 +943,11 @@ NEW_KERNELS = ("layernorm_fwd", "layernorm_bwd", "rmsnorm_fwd", "rmsnorm_bwd",
 # and the projector's; the LLM's 24 x 2 RMSNorms and the final one; one CE
 GATED_PER_STEP = {"layernorm_fwd": 49, "layernorm_bwd": 49, "rmsnorm_fwd": 49,
                   "rmsnorm_bwd": 49, "fused_ce_fwd": 1, "fused_ce_bwd": 1}
+INT8_KERNELS = ("int8_matmul", "int8_matmul_dx")
+# launches per training step on the int8 base: the 24 x 7 linears forward
+# and dx; the tied head per 32-position chunk of the 160 answer positions
+# (5 chunks, each checkpointed): forward, recompute and dx
+INT8_PER_STEP = {"int8_matmul": 24 * 7 + 5 * 2, "int8_matmul_dx": 24 * 7 + 5}
 
 
 class gates_set:
@@ -902,18 +979,21 @@ def kernel_fns():
     from simlingo_tpu_torch.kernels import quantized_matmul as QM
     return {"flash_attn_fwd": FA.flash_attn_fwd, "flash_attn_bwd": FA.flash_attn_bwd,
             "dropout": DO.dropout, "int8_matmul": QM.int8_matmul,
+            "int8_matmul_dx": QM.int8_matmul_dx,
             "layernorm_fwd": TL.layernorm_fwd, "layernorm_bwd": TL.layernorm_bwd,
             "rmsnorm_fwd": TL.rmsnorm_fwd, "rmsnorm_bwd": TL.rmsnorm_bwd,
             "fused_ce_fwd": TC.fused_ce_fwd, "fused_ce_bwd": TC.fused_ce_bwd}
 
 
-def small_training_agreement(torch, dev, gated=False):
+def small_training_agreement(torch, dev, gated=False, int8_base=False):
     """One train_step of a small D=128 model with LoRA r=4, dropout 0.1 on
     the GPU (bf16, kernels) and on the CPU (fp32, plain versions), from the
     same params, batch and seed: the dropout masks are the same on both
     sides (Philox of the flat index), so the losses and grad norm agree.
-    `gated`: with both fused-kernel gates on, on both sides."""
+    `gated`: with both fused-kernel gates on, on both sides. `int8_base`:
+    the base LLM quantized to int8 (core/quantize.quantize_llm) first."""
     import copy
+    from simlingo_tpu_torch.core.quantize import quantize_llm
     from simlingo_tpu_torch.data.synthetic import synthetic_example
     from simlingo_tpu_torch.models import simlingo
     from simlingo_tpu_torch.models.qwen2 import Qwen2Config
@@ -930,19 +1010,22 @@ def small_training_agreement(torch, dev, gated=False):
     params = simlingo.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     for ab in _leaves(params["lora"]):
         ab.add_(0.01)                        # nonzero B: every adapter in play
+    if int8_base:
+        params["llm"] = quantize_llm(params["llm"])
     opt = ts.OptimizerConfig(lr=1e-4, total_steps=10)
     metrics = {}
     fns = kernel_fns()
-    tag = "gated " if gated else ""
+    watched = NEW_KERNELS + INT8_KERNELS
+    tag = "gated " if gated else "int8-base " if int8_base else ""
     with gates_set(gated):
         for device, dtype in (("cpu", torch.float32), (dev, torch.bfloat16)):
             state = ts.init_train_state(_to(copy.deepcopy(params), device), opt)
             batch = synthetic_example(cfg, batch=2, seq_len=96, num_patches=2, seed=1,
                                       device=device)
             step = ts.make_train_step(cfg, opt, compute_dtype=dtype)
-            before = {k: fns[k].launches for k in NEW_KERNELS}
+            before = {k: fns[k].launches for k in watched}
             metrics[str(device)] = {k: float(v) for k, v in step(state, batch, 1234).items()}
-    new = {k: fns[k].launches - before[k] for k in NEW_KERNELS}
+    new = {k: fns[k].launches - before[k] for k in watched}
     ref, got = metrics["cpu"], metrics[str(dev)]
     ok = True
     for key, want in ref.items():
@@ -951,29 +1034,34 @@ def small_training_agreement(torch, dev, gated=False):
         ok &= good
         log(f"[small] {tag}train_step {key:15s} GPU bf16 {got[key]:.6f} vs CPU fp32 "
             f"{want:.6f} (rel tol {tol}) {'OK' if good else 'FAIL'}")
-    log(f"[small] {tag}train_step launches of the fused kernels on the GPU: {new}")
-    if gated and min(new.values()) <= 0:
-        log("[small] FAIL: a fused kernel was not launched with the gates on")
-        ok = False
+    log(f"[small] {tag}train_step launches of the fused and int8 kernels on the GPU: {new}")
+    for name in (NEW_KERNELS if gated else ()) + (INT8_KERNELS if int8_base else ()):
+        if new[name] <= 0:
+            log(f"[small] FAIL: kernel {name} was not launched in the {tag}step")
+            ok = False
     return ok
 
 
-def full_width_training(torch, dev, gated=False):
+def full_width_training(torch, dev, gated=False, int8_base=False):
     """presets.internvl2_1b(lora=True) through the trainer: 1 warm-up step
     and TRAIN_STEPS timed steps; launches counted over the timed steps.
     `gated`: with both fused-kernel gates set in the process environment
-    (restored afterwards)."""
+    (restored afterwards). `int8_base`: the same seed-0 params with the
+    frozen base LLM quantized to int8 before the trainer takes them
+    (`bench.py` BENCH_INT8_BASE=1)."""
     with gates_set(gated):
-        return _full_width_training(torch, dev, gated)
+        return _full_width_training(torch, dev, gated, int8_base)
 
 
-def _full_width_training(torch, dev, gated):
+def _full_width_training(torch, dev, gated, int8_base):
     import dataclasses
     from simlingo_tpu_torch.core.config import compose
+    from simlingo_tpu_torch.core.quantize import quantize_llm
+    from simlingo_tpu_torch.models import simlingo
     from simlingo_tpu_torch.train import trainer
 
     kernels = kernel_fns()
-    tag = "[train_gated]" if gated else "[train]"
+    tag = "[train_gated]" if gated else "[train_int8]" if int8_base else "[train]"
 
     def reset_after_warmup(step, _):
         if step == 0:
@@ -990,10 +1078,16 @@ def _full_width_training(torch, dev, gated):
         f"{m.llm.lora_r} alpha={m.llm.lora_alpha} dropout={m.llm.lora_dropout}; "
         f"batch {cfg.data.batch_size}, seq {cfg.data.max_text_len} + "
         f"{m.num_queries} queries, 2 tiles; no remat; "
-        f"AdamW {dataclasses.asdict(cfg.optimizer)}")
+        f"AdamW {dataclasses.asdict(cfg.optimizer)}{'; int8 base LLM' if int8_base else ''}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    res = trainer.train(cfg, device=dev, after_step=reset_after_warmup)
+    params = None
+    if int8_base:                 # the trainer's own init, then the int8 base
+        params = simlingo.init_params(m, torch.Generator(device=dev).manual_seed(cfg.seed),
+                                      device=dev)
+        params["llm"] = quantize_llm(params["llm"])
+    res = trainer.train(cfg, params=params, device=dev, after_step=reset_after_warmup)
+    del params
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
@@ -1020,13 +1114,23 @@ def _full_width_training(torch, dev, gated):
     else:
         log(f"{tag} fused kernels with the gates off: "
             f"{ {k: launches[k] for k in NEW_KERNELS} } (expected 0)")
+    if int8_base:
+        must += list(INT8_KERNELS)
+        for name, per_step in INT8_PER_STEP.items():
+            want = per_step * TRAIN_STEPS
+            log(f"{tag} {name}: {launches[name]} launches, expected {per_step} per "
+                f"step x {TRAIN_STEPS} = {want} "
+                f"{'OK' if launches[name] == want else 'DIFFERS'}")
+    else:
+        log(f"{tag} int8 kernels on the bf16 base: "
+            f"{ {k: launches[k] for k in INT8_KERNELS} } (expected 0)")
     for name in must:
         if launches[name] <= 0:
             log(f"{tag} FAIL: kernel {name} was not launched on the training path")
             ok = False
     state, step_fn, batch = res["state"], res["step_fn"], res["batch"]
     profile = device_profile(torch, lambda: step_fn(state, batch, 99),
-                             "one gated training step" if gated else "one training step")
+                             f"one training step {tag}")
     stats = dict(step_ms=ms, mean_step_ms=mean_ms,
                  samples_per_s=cfg.data.batch_size * 1e3 / mean_ms,
                  records=res["records"], peak_bytes=peak, launches=launches,
@@ -1045,19 +1149,37 @@ def compare_training(plain, gated):
         log(f"[train_ab] step {a['step']}: loss {a['loss']:.5f} vs gated {b['loss']:.5f} "
             f"(rel tol 2e-2) {'OK' if good else 'FAIL'}; grad_norm {a['grad_norm']:.5f} "
             f"vs {b['grad_norm']:.5f}; ms {a['ms']:.2f} vs {b['ms']:.2f}")
-    pp, gp = plain["profile"], gated["profile"]
-    log(f"[train_ab] mean ms/step {plain['mean_step_ms']:.2f} vs gated "
-        f"{gated['mean_step_ms']:.2f}; samples/s {plain['samples_per_s']:.3f} vs "
-        f"{gated['samples_per_s']:.3f}; peak {plain['peak_bytes'] / 2 ** 30:.2f} vs "
-        f"{gated['peak_bytes'] / 2 ** 30:.2f} GiB; profiled step device busy "
-        f"{pp['device_busy_ms']:.2f} of {pp['wall_ms']:.2f} ms vs "
-        f"{gp['device_busy_ms']:.2f} of {gp['wall_ms']:.2f} ms")
-    for cls in sorted(set(pp["classes"]) | set(gp["classes"])):
-        a = pp["classes"].get(cls, {"ms": 0.0, "count": 0})
-        b = gp["classes"].get(cls, {"ms": 0.0, "count": 0})
-        log(f"[train_ab] {cls:12s} device ms {a['ms']:9.3f} ({a['count']:6d}) vs gated "
-            f"{b['ms']:9.3f} ({b['count']:6d})")
+    log_side_by_side("[train_ab]", "gated", plain, gated)
     return ok
+
+
+def log_side_by_side(tag, what, plain, other):
+    """Mean ms/step, samples/s, peak memory and the profiled step's device
+    time by kernel class of two full-width runs."""
+    pp, op = plain["profile"], other["profile"]
+    log(f"{tag} mean ms/step {plain['mean_step_ms']:.2f} vs {what} "
+        f"{other['mean_step_ms']:.2f}; samples/s {plain['samples_per_s']:.3f} vs "
+        f"{other['samples_per_s']:.3f}; peak {plain['peak_bytes'] / 2 ** 30:.2f} vs "
+        f"{other['peak_bytes'] / 2 ** 30:.2f} GiB; profiled step device busy "
+        f"{pp['device_busy_ms']:.2f} of {pp['wall_ms']:.2f} ms vs "
+        f"{op['device_busy_ms']:.2f} of {op['wall_ms']:.2f} ms")
+    for cls in sorted(set(pp["classes"]) | set(op["classes"])):
+        a = pp["classes"].get(cls, {"ms": 0.0, "count": 0})
+        b = op["classes"].get(cls, {"ms": 0.0, "count": 0})
+        log(f"{tag} {cls:12s} device ms {a['ms']:9.3f} ({a['count']:6d}) vs {what} "
+            f"{b['ms']:9.3f} ({b['count']:6d})")
+
+
+def compare_int8_base(plain, int8):
+    """The bf16-base and the int8-base full-width step side by side, from
+    the same seed-0 params: information only (int8 rounds every frozen
+    weight of the LLM)."""
+    for a, b in zip(plain["records"], int8["records"]):
+        log(f"[train_int8_ab] step {a['step']}: loss {a['loss']:.5f} vs int8 base "
+            f"{b['loss']:.5f} (rel diff {abs(b['loss'] - a['loss']) / abs(a['loss']):.2e}); "
+            f"grad_norm {a['grad_norm']:.5f} vs {b['grad_norm']:.5f}; "
+            f"ms {a['ms']:.2f} vs {b['ms']:.2f}")
+    log_side_by_side("[train_int8_ab]", "int8 base", plain, int8)
 
 
 def kernel_line(cases, launches):
@@ -1068,6 +1190,8 @@ def kernel_line(cases, launches):
                            "simlingo_tpu/kernels/flash_attention.py:308", "llm_prefill"),
         "int8_matmul": ("simlingo_tpu_torch/csrc/int8_matmul.cu",
                         "simlingo_tpu/kernels/quantized_matmul.py:49", "gate_up"),
+        "int8_matmul_dx": ("simlingo_tpu_torch/csrc/int8_matmul.cu",
+                           "simlingo_tpu/kernels/quantized_matmul.py:81", "gate_up"),
         "flash_attn_bwd": ("simlingo_tpu_torch/csrc/flash_attn_bwd.cu",
                            "simlingo_tpu/kernels/flash_attention.py:382", "llm_train"),
         "dropout": ("simlingo_tpu_torch/csrc/dropout.cu",
@@ -1088,7 +1212,8 @@ def kernel_line(cases, launches):
     out = []
     for name, (src, replaces, case) in meta.items():
         mine = [c for c in cases if c["kernel"] == name]
-        rep = [c for c in mine if c["case"] == case and c.get("M", 640) == 640][0]
+        rows = 4788 if name == "int8_matmul_dx" else 640    # int8: prefill; dx: training
+        rep = [c for c in mine if c["case"] == case and c.get("M", rows) == rows][0]
         by_path = {path: counts.get(name, 0) for path, counts in launches.items()}
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": sum(by_path.values()),
@@ -1102,7 +1227,8 @@ def kernel_line(cases, launches):
 
 def run_path_phases(torch, dev, cases) -> int:
     if not (small_model_agreement(torch, dev) and small_training_agreement(torch, dev)
-            and small_training_agreement(torch, dev, gated=True)):
+            and small_training_agreement(torch, dev, gated=True)
+            and small_training_agreement(torch, dev, int8_base=True)):
         return 1
     ok, stats, agent, frame = full_width(torch, dev)
     if not ok:
@@ -1117,14 +1243,20 @@ def run_path_phases(torch, dev, cases) -> int:
     ok, gated_stats = full_width_training(torch, dev, gated=True)
     if not ok or not compare_training(train_stats, gated_stats):
         return 1
+    torch.cuda.empty_cache()
+    ok, int8_stats = full_width_training(torch, dev, int8_base=True)
+    if not ok:
+        return 1
+    compare_int8_base(train_stats, int8_stats)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    for name, st in (("agent", stats), ("train", train_stats), ("train_gated", gated_stats)):
+    for name, st in (("agent", stats), ("train", train_stats), ("train_gated", gated_stats),
+                     ("train_int8", int8_stats)):
         with open(os.path.join(ROOT, "chiprun_out", f"chip_smoke_{name}.json"), "w") as f:
             json.dump(dict(st, nvidia_smi=smi), f, indent=1)
     launches = {"serve": stats["launches"], "train": train_stats["launches"],
-                "train_gated": gated_stats["launches"]}
+                "train_gated": gated_stats["launches"], "train_int8": int8_stats["launches"]}
     print(json.dumps(kernel_line(cases, launches)), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1161,6 +1293,7 @@ def main() -> int:
     cases = []
     run_attention_checks(torch, dev, cases)
     run_int8_checks(torch, dev, cases)
+    run_int8_dx_checks(torch, dev, cases)
     run_attention_bwd_checks(torch, dev, cases)
     run_dropout_checks(torch, dev, cases)
     run_norm_checks(torch, dev, cases)

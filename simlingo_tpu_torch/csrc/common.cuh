@@ -43,6 +43,15 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                ::"r"(s), "l"(gmem), "r"(pred ? 16 : 0) : "memory");
 }
 
+// 4-byte variant (for rows that are only 4-byte aligned); zero-fills when
+// pred is false.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(s), "l"(gmem), "r"(pred ? 4 : 0) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -24,6 +24,28 @@
 //    in registers when it is loaded. The scale is applied to the fp32
 //    accumulators in the epilogue.
 // K must be a multiple of 16 (the wrapper checks).
+//
+// The activation gradient, dx_kernel (simlingo_int8_matmul_dx):
+//   dx[M,K] = bf16(g[M,N] * scale[N]) . w_q[N,K], fp32 sums, bf16 out.
+// Replaces _int8_matmul_bwd (:81), which runs the same Pallas _kernel with
+// transpose_rhs flipped and a ones scale. In the [N, K] layout the sum runs
+// along the weight's rows, which gemv_kernel and gemm_kernel do not
+// compute. What bounds it on the training path (M = 4788 rows) is the
+// tensor-core operations; for the tied head (M = 192, N = 151674) the
+// grid: 3 x 14 tiles each walk the whole vocabulary.
+// Design: 64 x 64 output tiles, 4 warps of 32 x 32, mma.m16n8k16 with fp32
+// accumulators. The reduction streams in steps of 64 weight rows through a
+// 3-stage cp.async ring: g as bf16, the weight as raw int8, the 64 scales
+// as fp32. Each A-fragment is scaled and rounded to bf16 as it is loaded
+// (JAX's gs = (g.astype(f32) * scale).astype(g.dtype), :86), so g is read
+// once and no scaled copy exists. A B-fragment pairs reduction rows
+// (2t, 2t+1) at one output column: two byte loads from adjacent shared
+// rows (row stride 80: the 4 rows a warp reads fall in 8 distinct banks),
+// dequantized exactly in registers. The tail of the reduction is
+// zero-filled on all three operands. g rows are copied 16 bytes at a time
+// when N % 8 == 0 and g is 16-byte aligned, else 4 bytes at a time (the
+// vocabulary, 151674, leaves rows 4-byte aligned only); N must be even.
+// No atomics: every output is written once, in a fixed order.
 
 #include "common.cuh"
 
@@ -174,6 +196,122 @@ void launch_gemm(const bf16* x, const int8_t* w, const float* s, bf16* y,
   gemm_kernel<BM, WMT, WNT><<<grid, 128, 0, st>>>(x, w, s, y, M, N, K);
 }
 
+constexpr int DX_BM = 64;            // dx rows per block
+constexpr int DX_BK = 64;            // dx columns (weight columns) per block
+constexpr int DX_BR = 64;            // reduction step (weight rows)
+constexpr int LDG = DX_BR + 8;       // bf16 row stride of the g tile
+constexpr int LDW = DX_BK + 16;      // int8 row stride of the weight tile
+
+// g (bf16x2, lower index low) * (s.x, s.y) in fp32, rounded to bf16x2.
+__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t v, float2 s) {
+  return simlingo::pack_bf16x2(__uint_as_float(v << 16) * s.x,
+                               __uint_as_float(v & 0xffff0000u) * s.y);
+}
+
+__device__ __forceinline__ uint32_t int8_pair_to_bf16x2(int8_t lo, int8_t hi) {
+  return simlingo::pack_bf16x2(static_cast<float>(lo), static_cast<float>(hi));
+}
+
+// VEC: bytes per cp.async of a g row, 16 or 4.
+template <int VEC>
+__global__ void __launch_bounds__(128)
+dx_kernel(const bf16* __restrict__ g, const int8_t* __restrict__ w,
+          const float* __restrict__ scale, bf16* __restrict__ dx,
+          int M, int N, int K) {
+  __shared__ __align__(16) bf16 Gs[STAGES][DX_BM * LDG];     // [m][n]
+  __shared__ __align__(16) int8_t Ws[STAGES][DX_BR * LDW];   // [n][k] int8 codes
+  __shared__ __align__(16) float Ss[STAGES][DX_BR];          // scale[n]
+  const int m0 = blockIdx.y * DX_BM, k0 = blockIdx.x * DX_BK;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, t4 = lane & 3;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;     // 2 x 2 warps
+
+  auto load_tile = [&](int stage, int rt) {
+    const int n0 = rt * DX_BR;
+    constexpr int E = VEC / 2;                                // bf16 per copy
+    for (int c = tid; c < DX_BM * (DX_BR / E); c += 128) {
+      const int row = c / (DX_BR / E), nc = (c % (DX_BR / E)) * E;
+      const bool ok = m0 + row < M && n0 + nc < N;
+      const bf16* src = ok ? g + (long long)(m0 + row) * N + n0 + nc : g;
+      if constexpr (VEC == 16)
+        simlingo::cp_async16(&Gs[stage][row * LDG + nc], src, ok);
+      else
+        simlingo::cp_async4(&Gs[stage][row * LDG + nc], src, ok);
+    }
+    for (int c = tid; c < DX_BR * (DX_BK / 16); c += 128) {  // 16 int8 per chunk
+      const int row = c / (DX_BK / 16), kc = (c % (DX_BK / 16)) * 16;
+      const bool ok = n0 + row < N && k0 + kc < K;
+      simlingo::cp_async16(&Ws[stage][row * LDW + kc],
+                           ok ? w + (long long)(n0 + row) * K + k0 + kc : w, ok);
+    }
+    if (tid < DX_BR) {
+      const bool ok = n0 + tid < N;
+      simlingo::cp_async4(&Ss[stage][tid], ok ? scale + n0 + tid : scale, ok);
+    }
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
+
+  const int rtiles = (N + DX_BR - 1) / DX_BR;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < rtiles) load_tile(s, s);
+    simlingo::cp_async_commit();
+  }
+  for (int rt = 0; rt < rtiles; ++rt) {
+    simlingo::cp_async_wait<STAGES - 2>();     // step rt has landed
+    __syncthreads();                           // ... and stage rt-1 is free
+    if (rt + STAGES - 1 < rtiles) load_tile((rt + STAGES - 1) % STAGES, rt + STAGES - 1);
+    simlingo::cp_async_commit();
+    const bf16* G = Gs[rt % STAGES];
+    const int8_t* Wq = Ws[rt % STAGES];
+    const float* S = Ss[rt % STAGES];
+#pragma unroll
+    for (int ks = 0; ks < DX_BR / 16; ++ks) {
+      const int r = ks * 16 + t4 * 2;          // this lane's reduction rows r, r+1, r+8, r+9
+      const float2 s01 = *reinterpret_cast<const float2*>(S + r);
+      const float2 s89 = *reinterpret_cast<const float2*>(S + r + 8);
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const bf16* ap = G + (wm + mt * 16 + gq) * LDG + r;
+        a[mt][0] = scale_bf16x2(ld32(ap), s01);
+        a[mt][1] = scale_bf16x2(ld32(ap + 8 * LDG), s01);
+        a[mt][2] = scale_bf16x2(ld32(ap + 8), s89);
+        a[mt][3] = scale_bf16x2(ld32(ap + 8 * LDG + 8), s89);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int8_t* bp = Wq + r * LDW + wn + nt * 8 + gq;
+        const uint32_t b0 = int8_pair_to_bf16x2(bp[0], bp[LDW]);
+        const uint32_t b1 = int8_pair_to_bf16x2(bp[8 * LDW], bp[9 * LDW]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          simlingo::mma_bf16_16816(acc[mt][nt], a[mt], b0, b1);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = m0 + wm + mt * 16 + gq + half * 8;
+        const int col = k0 + wn + nt * 8 + t4 * 2;   // even; K is a multiple of 16
+        if (row < M && col < K)
+          *reinterpret_cast<__nv_bfloat162*>(dx + (long long)row * K + col) =
+              __floats2bfloat162_rn(acc[mt][nt][half * 2], acc[mt][nt][half * 2 + 1]);
+      }
+}
+
 }  // namespace
 
 extern "C" int simlingo_int8_matmul(const void* x_, const void* w_,
@@ -187,5 +325,22 @@ extern "C" int simlingo_int8_matmul(const void* x_, const void* w_,
   if (M == 1) gemv_kernel<<<(N + 7) / 8, 256, 0, st>>>(x, w, s, y, N, K);
   else if (M <= 48) launch_gemm<16, 1, 2>(x, w, s, y, M, N, K, st);
   else launch_gemm<64, 2, 4>(x, w, s, y, M, N, K, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dx[M,K] = bf16(g[M,N] * scale[N]) . w_q[N,K]. vec16: g rows may be copied
+// 16 bytes at a time (N % 8 == 0, g 16-byte aligned), else 4 (N even, g
+// 4-byte aligned). K % 16 == 0, w_q 16-byte aligned (the wrapper checks).
+extern "C" int simlingo_int8_matmul_dx(const void* g_, const void* w_,
+                                       const void* s_, void* dx_, int M, int N,
+                                       int K, int vec16, void* stream) {
+  const auto* g = static_cast<const bf16*>(g_);
+  const auto* w = static_cast<const int8_t*>(w_);
+  const auto* s = static_cast<const float*>(s_);
+  auto* dx = static_cast<bf16*>(dx_);
+  auto st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((K + DX_BK - 1) / DX_BK, (M + DX_BM - 1) / DX_BM);
+  if (vec16) dx_kernel<16><<<grid, 128, 0, st>>>(g, w, s, dx, M, N, K);
+  else dx_kernel<4><<<grid, 128, 0, st>>>(g, w, s, dx, M, N, K);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,15 +1,27 @@
-"""w8a16 (int8-weight, bf16-activation) matmul.
+"""w8a16 (int8-weight, bf16-activation) matmul, differentiable in x.
 
-Counterpart of `simlingo_tpu/kernels/quantized_matmul.py` (`_kernel` :49,
-reached via `_int8_matmul_impl` :302). The port keeps ONE weight layout for
-every int8 product: torch's [N, K] (out, in) row-major, so the linears and
-the tied [V, H] LM head (the JAX `transpose_rhs=True` case) take the same
-kernel. Quantization is symmetric per output channel:
+Counterpart of `simlingo_tpu/kernels/quantized_matmul.py`: the forward
+`_kernel` (:49, reached via `_int8_matmul_impl` :302) and the activation
+VJP `_int8_matmul_bwd` (:81) of the `int8_matmul` custom_vjp (:58-101).
+The port keeps ONE weight layout for every int8 product: torch's [N, K]
+(out, in) row-major, so the linears and the tied [V, H] LM head (the JAX
+`transpose_rhs=True` case) take the same kernels. Quantization is
+symmetric per output channel:
 
     w_q[n, k] = round(w[n, k] / scale[n]),  scale[n] = max_k |w[n, k]| / 127
 
-On a CUDA tensor `int8_matmul` launches the hand-written kernel
-(`csrc/int8_matmul.cu`); on a CPU tensor it runs `int8_matmul_reference`.
+    y  = int8_matmul(x, w_q, scale):  y[m, n] = sum_k x[m, k] w_q[n, k] scale[n]
+    dx = int8_matmul_dx(g, w_q, scale): dx[m, k] = sum_n bf16(g[m, n] scale[n]) w_q[n, k]
+
+w_q and scale are frozen base weights: they get no gradient (JAX returns
+float0 and zeros, :96-97). The autograd Function saves only w_q and
+scale, never a dequantized copy, so no bf16 copy of a frozen layer lives
+from forward to backward (JAX's optimisation-barrier comment, :88-93).
+On a CUDA tensor both products launch the hand-written kernels
+(`csrc/int8_matmul.cu`); on a CPU tensor they run their plain versions.
+The scale may be fp32 or bf16 (the training step stores frozen leaves in
+bf16, as JAX does); the kernels read it widened to fp32, the value JAX
+multiplies by.
 """
 
 from __future__ import annotations
@@ -44,40 +56,94 @@ def int8_matmul_reference(x: torch.Tensor, w_q: torch.Tensor,
     return (acc * scale.float()).to(x.dtype)
 
 
+def int8_matmul_dx_reference(g: torch.Tensor, w_q: torch.Tensor,
+                             scale: torch.Tensor, abs_terms: bool = False
+                             ) -> torch.Tensor:
+    """Plain version of the activation gradient: g * scale rounded to g's
+    dtype (the kernel's and JAX's rounding point, :86), then an fp32
+    product with the int8 codes, cast to g's dtype. With `abs_terms`,
+    returns instead the fp32 sums of |term| (|g * scale| |w_q|), which
+    bound the error of summing in another order."""
+    gs = (g.float() * scale.float()).to(g.dtype).float()
+    if abs_terms:
+        return gs.abs() @ w_q.float().abs()
+    return (gs @ w_q.float()).to(g.dtype)
+
+
 def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
                 scale: torch.Tensor) -> torch.Tensor:
     """y[..., n] = sum_k x[..., k] * w_q[n, k] * scale[n].
 
-    x [..., K] (bf16 on the GPU), w_q int8 [N, K], scale f32 [N]."""
+    x [..., K] (bf16 on the GPU), w_q int8 [N, K], scale f32 or bf16 [N].
+    Records an autograd node only when x needs a gradient (training);
+    serving calls the forward kernel directly."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _Int8Matmul.apply(x, w_q, scale)
+    return _int8_matmul_fwd(x, w_q, scale)
+
+
+def int8_matmul_dx(g: torch.Tensor, w_q: torch.Tensor,
+                   scale: torch.Tensor) -> torch.Tensor:
+    """dx[..., k] = sum_n bf16(g[..., n] * scale[n]) * w_q[n, k].
+
+    g [..., N] (bf16 on the GPU), w_q int8 [N, K], scale f32 or bf16 [N]."""
+    if g.device.type == "cpu":
+        return int8_matmul_dx_reference(g, w_q, scale)
+    return _int8_matmul_dx_cuda(g, w_q, scale)
+
+
+class _Int8Matmul(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, w_q, scale):
+        ctx.save_for_backward(w_q, scale)
+        return _int8_matmul_fwd(x, w_q, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        w_q, scale = ctx.saved_tensors
+        dx = int8_matmul_dx(g, w_q, scale) if ctx.needs_input_grad[0] else None
+        return dx, None, None
+
+
+def _int8_matmul_fwd(x, w_q, scale):
     if x.device.type == "cpu":
         return int8_matmul_reference(x, w_q, scale)
     return _int8_matmul_cuda(x, w_q, scale)
 
 
+def _check(what, a, w_q, scale, width):
+    """Checks shared by both kernels; returns the scale as contiguous fp32.
+    `a` is the activation (x) or the cotangent (g), `width` its last dim."""
+    N = w_q.shape[0]
+    if a.dtype != torch.bfloat16:
+        raise TypeError(f"{what} kernel takes bf16 activations, got {a.dtype}")
+    if w_q.dtype != torch.int8 or w_q.dim() != 2 or not w_q.is_contiguous():
+        raise TypeError(f"{what} kernel takes a contiguous int8 [N, K] weight")
+    if scale.dtype not in (torch.float32, torch.bfloat16) or scale.shape != (N,):
+        raise TypeError(f"{what} kernel takes a float32 or bfloat16 [N] scale")
+    if not (a.device == w_q.device == scale.device):
+        raise ValueError(f"{what}: tensors on different devices")
+    if a.shape[-1] != width or w_q.shape[1] % 16 != 0:
+        raise ValueError(f"{what} kernel needs K % 16 == 0 and a [..., {width}] "
+                         f"operand; got {tuple(a.shape)}, w_q {tuple(w_q.shape)}")
+    if w_q.data_ptr() % 16:
+        raise ValueError(f"{what} kernel needs a 16-byte aligned weight")
+    return scale.float().contiguous()
+
+
 def _int8_matmul_cuda(x, w_q, scale):
     N, K = w_q.shape
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"int8_matmul kernel takes bf16 activations, got {x.dtype}")
-    if w_q.dtype != torch.int8 or not w_q.is_contiguous():
-        raise TypeError("int8_matmul kernel takes a contiguous int8 [N, K] weight")
-    if scale.dtype != torch.float32 or scale.shape != (N,) or not scale.is_contiguous():
-        raise TypeError("int8_matmul kernel takes a contiguous float32 [N] scale")
-    if x.shape[-1] != K or K % 16 != 0:
-        raise ValueError(f"int8_matmul kernel needs K % 16 == 0 and x[..., K]; "
-                         f"got x {tuple(x.shape)}, w_q {tuple(w_q.shape)}")
-    if not (x.device == w_q.device == scale.device):
-        raise ValueError("int8_matmul: tensors on different devices")
+    scale = _check("int8_matmul", x, w_q, scale, K)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, K).contiguous()
     M = x2.shape[0]
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     if M == 0:
         return out.reshape(*lead, N)
-    for t in (x2, w_q):
-        if t.data_ptr() % 16:
-            raise ValueError("int8_matmul kernel needs 16-byte aligned operands")
-    lib = _lib()
-    rc = lib.simlingo_int8_matmul(
+    if x2.data_ptr() % 16:
+        raise ValueError("int8_matmul kernel needs 16-byte aligned operands")
+    rc = _lib().simlingo_int8_matmul(
         x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
         M, N, K, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "int8_matmul")
@@ -85,13 +151,41 @@ def _int8_matmul_cuda(x, w_q, scale):
     return out.reshape(*lead, N)
 
 
+def _int8_matmul_dx_cuda(g, w_q, scale):
+    N, K = w_q.shape
+    scale = _check("int8_matmul_dx", g, w_q, scale, N)
+    if N % 2:
+        raise ValueError(f"int8_matmul_dx kernel needs an even N, got {N}")
+    lead = g.shape[:-1]
+    g2 = g.reshape(-1, N).contiguous()
+    if g2.data_ptr() % 4:
+        g2 = g2.clone()
+    M = g2.shape[0]
+    out = torch.empty((M, K), dtype=torch.bfloat16, device=g.device)
+    if M == 0:
+        return out.reshape(*lead, K)
+    # 16-byte copies of g rows where every row start is 16-byte aligned;
+    # the vocabulary width (151674) takes the 4-byte copies
+    vec16 = int(N % 8 == 0 and g2.data_ptr() % 16 == 0)
+    rc = _lib().simlingo_int8_matmul_dx(
+        g2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        M, N, K, vec16, torch.cuda.current_stream(g.device).cuda_stream)
+    _build.check(rc, "int8_matmul_dx")
+    int8_matmul_dx.launches += 1
+    return out.reshape(*lead, K)
+
+
 int8_matmul.launches = 0
+int8_matmul_dx.launches = 0
 
 
 def _lib():
     lib = _build.load("int8_matmul")
-    fn = lib.simlingo_int8_matmul
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    if lib.simlingo_int8_matmul.argtypes is None:
+        lib.simlingo_int8_matmul.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        lib.simlingo_int8_matmul.restype = ctypes.c_int
+        lib.simlingo_int8_matmul_dx.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        lib.simlingo_int8_matmul_dx.restype = ctypes.c_int
     return lib

@@ -20,7 +20,9 @@ math, summed in another order; their parameter gradients to 2^-7 |ref|
 plus 1e-5 of the sum of |terms| over the rows. The fused CE's ce to
 2e-3 + 1e-5 |ref| (fp32 accumulation over H products), its dh and dW to
 2^-7 (sum |terms| + |ref|): kernel and plain version round dlogits to
-bf16 at the same point, so a flip is at most one bf16 spacing.
+bf16 at the same point, so a flip is at most one bf16 spacing. The int8
+activation gradient to one bf16 spacing of |ref| plus 2^-20 sqrt(N) of
+the sum of |terms| (see _dx_tol).
 """
 
 import pytest
@@ -96,6 +98,78 @@ def test_kernels_refuse_what_they_do_not_take(gpu):
     w_q, scale = TQM.quantize_weight(torch.randn(8, 24, device=gpu))
     with pytest.raises(ValueError, match="K % 16"):
         TQM.int8_matmul(x, w_q, scale)
+
+
+def _dx_tol(g, w_q, scale, ref):
+    """The int8 activation gradient: kernel and plain version round g *
+    scale to bf16 identically, then sum in fp32 in another order and round
+    dx once: one bf16 spacing of |ref|, plus 2^-20 sqrt(N) of the sum of
+    |terms| for the order (a random walk of N roundings of 2^-24, with a
+    margin of 16)."""
+    terms = TQM.int8_matmul_dx_reference(g, w_q, scale, abs_terms=True)
+    ref = ref.float()
+    return (2.0 ** -7 * ref.abs() + 2.0 ** -20 * w_q.shape[0] ** 0.5 * terms
+            + 1e-6 * float(ref.square().mean().sqrt()))
+
+
+@pytest.mark.cuda
+# N = 304: 16-byte copies of g rows; N = 130: 4-byte copies, a ragged tail;
+# a bf16 scale (the training step's frozen cast)
+@pytest.mark.parametrize("M,N,K,scale_dtype", [
+    (200, 304, 896, torch.float32), (77, 130, 64, torch.float32),
+    (4788, 128, 896, torch.bfloat16)])
+def test_int8_matmul_gives_x_its_gradient_through_the_dx_kernel(gpu, M, N, K, scale_dtype):
+    """C1: on a CUDA tensor that needs a gradient, the output carries an
+    autograd node and x.grad comes from the int8_matmul_dx kernel."""
+    g = torch.Generator(device=gpu).manual_seed(9)
+    x = torch.randn(M, K, generator=g, device=gpu).bfloat16().requires_grad_(True)
+    w_q, scale = TQM.quantize_weight(torch.randn(N, K, generator=g, device=gpu) * 0.02)
+    scale = scale.to(scale_dtype)
+    cot = torch.randn(M, N, generator=g, device=gpu).bfloat16()
+    f0, b0 = TQM.int8_matmul.launches, TQM.int8_matmul_dx.launches
+    y = TQM.int8_matmul(x, w_q, scale)
+    assert y.grad_fn is not None
+    torch.testing.assert_close(y.float(), TQM.int8_matmul_reference(x.float(), w_q, scale),
+                               atol=2e-2, rtol=2e-2)
+    y.backward(cot)
+    assert (TQM.int8_matmul.launches, TQM.int8_matmul_dx.launches) == (f0 + 1, b0 + 1)
+    assert x.grad is not None and x.grad.dtype == torch.bfloat16
+    ref = TQM.int8_matmul_dx_reference(cot, w_q, scale)
+    _within(x.grad, ref, _dx_tol(cot, w_q, scale, ref), "dx")
+    with torch.no_grad():                              # serving: no graph
+        assert TQM.int8_matmul(x, w_q, scale).grad_fn is None
+
+
+@pytest.mark.cuda
+def test_int8_matmul_dx_kernel_at_the_vocabulary_width(gpu):
+    """The tied head's dx: g rows of 151674 bf16 are 4-byte aligned only,
+    and the reduction ends 58 rows into its last step of 64."""
+    g = torch.Generator(device=gpu).manual_seed(10)
+    V, H = 151674, 896
+    w_q, scale = TQM.quantize_weight(torch.randn(V, H, generator=g, device=gpu) * 0.02)
+    cot = (1e-3 * torch.randn(40, V, generator=g, device=gpu)).bfloat16()
+    before = TQM.int8_matmul_dx.launches
+    dx = TQM.int8_matmul_dx(cot, w_q, scale.bfloat16())
+    assert TQM.int8_matmul_dx.launches == before + 1
+    ref = TQM.int8_matmul_dx_reference(cot, w_q, scale.bfloat16())
+    _within(dx, ref, _dx_tol(cot, w_q, scale.bfloat16(), ref), "head dx")
+    view = torch.empty(40 * V + 1, device=gpu, dtype=torch.bfloat16)[1:].view(40, V)
+    view.copy_(cot)                                    # a 2-byte aligned start
+    assert torch.equal(TQM.int8_matmul_dx(view, w_q, scale.bfloat16()), dx)
+
+
+@pytest.mark.cuda
+def test_int8_matmul_dx_refuses_what_it_does_not_take(gpu):
+    w_q, scale = TQM.quantize_weight(torch.randn(33, 64, device=gpu))
+    with pytest.raises(ValueError, match="even N"):
+        TQM.int8_matmul_dx(torch.randn(4, 33, device=gpu).bfloat16(), w_q, scale)
+    w_q, scale = TQM.quantize_weight(torch.randn(32, 64, device=gpu))
+    with pytest.raises(TypeError, match="scale"):
+        TQM.int8_matmul_dx(torch.randn(4, 32, device=gpu).bfloat16(), w_q, scale.half())
+    with pytest.raises(TypeError, match="bf16"):
+        TQM.int8_matmul_dx(torch.randn(4, 32, device=gpu), w_q, scale)
+    with pytest.raises(ValueError, match="K % 16"):
+        TQM.int8_matmul_dx(torch.randn(4, 33, device=gpu).bfloat16(), w_q, scale)
 
 
 def _close_to_rms(got, ref, name):

@@ -3,8 +3,8 @@
 A subprocess blocks those imports, imports every module of the port
 (the training modules included), drives the tiny agent and two training
 steps with LoRA dropout on the CPU, then two more with both fused-kernel
-gates on; an entry point built without `device` must refuse on a machine
-without a GPU.
+gates on, and two on an int8 base LLM; an entry point built without
+`device` must refuse on a machine without a GPU.
 """
 
 import subprocess
@@ -89,6 +89,17 @@ SCRIPT = textwrap.dedent("""
     assert all(fn.launches == 0 for fn in (
         TCE.fused_ce_fwd, TCE.fused_ce_bwd, TLN.layernorm_fwd, TLN.layernorm_bwd,
         TLN.rmsnorm_fwd, TLN.rmsnorm_bwd))
+
+    from simlingo_tpu_torch.core.quantize import quantize_llm
+    from simlingo_tpu_torch.kernels import quantized_matmul as TQM
+    p8 = simlingo.init_params(tcfg.model, torch.Generator().manual_seed(tcfg.seed),
+                              device="cpu")
+    p8["llm"] = quantize_llm(p8["llm"])
+    int8 = trainer.train(tcfg, params=p8, device="cpu")["records"]
+    assert len(int8) == 2 and all(np.isfinite([r["loss"], r["grad_norm"]]).all()
+                                  for r in int8)
+    assert abs(int8[0]["loss"] - recs[0]["loss"]) <= 1e-2 * abs(recs[0]["loss"])
+    assert TQM.int8_matmul.launches == TQM.int8_matmul_dx.launches == 0
 
     if not torch.cuda.is_available():
         for build in (lambda: LingoAgent(params, cfg),

@@ -57,10 +57,14 @@ def setup():
 
 
 def _loss_and_grads_jax(jcfg, params, ex):
-    def loss_fn(p):
-        out, _ = jsim.forward_loss(p, ex, jcfg, compute_dtype=jnp.float32)
+    """Loss and the gradients of the trainable partition (everything but
+    the frozen base LLM, whose leaves may be int8 and take no gradient)."""
+    def loss_fn(trainable):
+        out, _ = jsim.forward_loss(dict(trainable, llm=params["llm"]), ex, jcfg,
+                                   compute_dtype=jnp.float32)
         return out.loss, out.loss_averages
-    return jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
+    trainable = {k: v for k, v in params.items() if k != "llm"}
+    return jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(trainable)
 
 
 def test_synthetic_example_identical_to_jax(setup):
