@@ -17,7 +17,8 @@ Phases, in order; any failure exits non-zero:
      tolerance stated at BF16_SPACING; the int8 forward also at the
      int8-base training rows, and its activation gradient int8_matmul_dx
      at every linear and the tied head of that path, against the bound
-     stated at DX_SUM_U);
+     stated at DX_SUM_U and bit-identical across two calls, with its
+     grid: tile, reduction segments S and blocks);
      prints max error (absolute and over the output's rms, or over the
      tolerance), kernel / plain / library ms and the bound from bytes or
      operations on this card;
@@ -355,6 +356,7 @@ def run_int8_dx_checks(torch, dev, results):
             return g, w_q, scale.bfloat16()
         g, w_q, scale = make()
         dx = QM.int8_matmul_dx(g, w_q, scale)
+        same = torch.equal(QM.int8_matmul_dx(g, w_q, scale), dx)   # no atomics: bit-identical
         torch.cuda.synchronize()
         ref = QM.int8_matmul_dx_reference(g, w_q, scale)
         terms = QM.int8_matmul_dx_reference(g, w_q, scale, abs_terms=True)
@@ -373,17 +375,21 @@ def run_int8_dx_checks(torch, dev, results):
             return (g_.float() * s_).to(torch.bfloat16) @ w_.to(torch.bfloat16)
         library_ms = time_ms(torch, library, sets)
         del sets
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        (bm, bn), S, _ = QM._dx_plan(M, N, K, sms)
+        ok = ratio <= 1.0 and same
         row = dict(kernel="int8_matmul_dx", case=name, shape=f"M={M} N={N} K={K}",
                    M=M, N=N, K=K, max_abs_err=err, err_over_rms=err / max(rms, 1e-30),
-                   err_over_tol=ratio, ok=ratio <= 1.0, kernel_ms=kernel_ms,
+                   err_over_tol=ratio, bit_identical=same, ok=ok, kernel_ms=kernel_ms,
                    plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms, bound_by=bby,
-                   blocks=-(-K // 64) * -(-M // 64))
+                   tile=[bm, bn], segments=S, blocks=-(-M // bm) * -(-K // bn) * S)
         results.append(row)
         log(f"[kernel] int8_matmul_dx {name:8s} M={M:4d} N={N:6d} K={K:5d} "
             f"err={err:.3e} err/rms={row['err_over_rms']:.3e} err/tol={ratio:.3f} "
-            f"(tol 2^-7 |ref| + 2^-20 sqrt(N) sum|terms|) {'OK' if ratio <= 1.0 else 'FAIL'} "
+            f"(tol 2^-7 |ref| + 2^-20 sqrt(N) sum|terms|) bit-identical={same} "
+            f"{'OK' if ok else 'FAIL'} "
             f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-            f"bound_ms={bms:.4f} ({bby}) blocks={row['blocks']}")
+            f"bound_ms={bms:.4f} ({bby}) tile={bm}x{bn} S={S} blocks={row['blocks']}")
     torch.cuda.empty_cache()
 
 
@@ -898,8 +904,8 @@ def device_profile(torch, fn, what):
 
 
 HAND_KERNELS = ("flash_fwd_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel", "bwd_prep_kernel",
-                "dropout_kernel", "gemm_kernel", "gemv_kernel", "dx_kernel", "norm_fwd_kernel",
-                "norm_bwd_kernel", "col_reduce_kernel", "ce_fwd_tile_kernel",
+                "dropout_kernel", "gemm_kernel", "gemv_kernel", "dx_kernel", "dx_reduce_kernel",
+                "norm_fwd_kernel", "norm_bwd_kernel", "col_reduce_kernel", "ce_fwd_tile_kernel",
                 "ce_fwd_finalize_kernel", "ce_bwd_kernel", "ce_dh_reduce_kernel")
 
 

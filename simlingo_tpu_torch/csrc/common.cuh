@@ -67,6 +67,27 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
                : "=r"(r0), "=r"(r1) : "r"(s) : "memory");
 }
 
+// Four 8x8 b16 matrices from shared memory: lanes 8i..8i+7 give the row
+// addresses of matrix i, and lane (g, t) receives row g, columns 2t..2t+1
+// of each. From a [m][k] row-major tile, lanes 0-15 on rows 0-15 at column
+// 0 and lanes 16-31 on rows 0-15 at column 8 give the A-fragment a0..a3 of
+// mma.m16n8k16.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s) : "memory");
+}
+
+// The same, transposed: lane (g, t) receives rows 2t..2t+1 of column g.
+// From a [k][n] row-major tile, lanes 0-15 on rows 0-15 at column n and
+// lanes 16-31 on rows 0-15 at column n + 8 give the B-fragments of two n8
+// tiles: (r0, r1) for columns n..n+7, (r2, r3) for n+8..n+15.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s) : "memory");
+}
+
 // wait until at most N committed groups are still in flight
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {

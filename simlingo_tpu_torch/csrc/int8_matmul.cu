@@ -30,22 +30,46 @@
 // Replaces _int8_matmul_bwd (:81), which runs the same Pallas _kernel with
 // transpose_rhs flipped and a ones scale. In the [N, K] layout the sum runs
 // along the weight's rows, which gemv_kernel and gemm_kernel do not
-// compute. What bounds it on the training path (M = 4788 rows) is the
-// tensor-core operations; for the tied head (M = 192, N = 151674) the
-// grid: 3 x 14 tiles each walk the whole vocabulary.
-// Design: 64 x 64 output tiles, 4 warps of 32 x 32, mma.m16n8k16 with fp32
-// accumulators. The reduction streams in steps of 64 weight rows through a
-// 3-stage cp.async ring: g as bf16, the weight as raw int8, the 64 scales
-// as fp32. Each A-fragment is scaled and rounded to bf16 as it is loaded
-// (JAX's gs = (g.astype(f32) * scale).astype(g.dtype), :86), so g is read
-// once and no scaled copy exists. A B-fragment pairs reduction rows
-// (2t, 2t+1) at one output column: two byte loads from adjacent shared
-// rows (row stride 80: the 4 rows a warp reads fall in 8 distinct banks),
-// dequantized exactly in registers. The tail of the reduction is
-// zero-filled on all three operands. g rows are copied 16 bytes at a time
-// when N % 8 == 0 and g is 16-byte aligned, else 4 bytes at a time (the
-// vocabulary, 151674, leaves rows 4-byte aligned only); N must be even.
-// No atomics: every output is written once, in a fixed order.
+// compute. What bounds it on the training path: at the linears (M = 4788
+// rows) the tensor-core operations, and in practice the shared-memory
+// traffic and instructions that feed mma.sync; at the tied head (M = 192,
+// N = 151674) the bytes (136 MB of int8 weight, 58 MB of g), so the grid
+// has to cover every SM while the tiles alone are 21.
+// Design (chip_smoke.py phase 2 and PERF.md hold the numbers):
+//  * The grid. 64 x 128 output tiles, and the reduction cut into S
+//    segments of whole 32-row steps, S the grid's slowest axis. The
+//    wrapper's plan: S = 1 where the tiles alone give two blocks an SM (at
+//    every linear), else the largest S whose blocks fit in one wave of the
+//    3 resident blocks an SM (the head: 21 x 18 = 378 blocks). The blocks
+//    of one segment run together and share its g and weight rows in L2.
+//    With S > 1 each block writes an fp32 partial [S, M, K] and
+//    dx_reduce_kernel sums s = 0..S-1 in order and rounds once: no
+//    atomics, so every call gives the same bits. 128 x 128 tiles of 8
+//    warps measured slower at every shape: 266 tiles at the linears leave
+//    2 blocks for a second wave, and 64 x 32 warp tiles read more shared
+//    memory per product.
+//  * The loop. 4 warps of 32 x 64. The reduction streams through a 4-stage
+//    cp.async ring in 54784 bytes of dynamic shared memory: g as bf16, the
+//    weight as raw int8, the 32 scales as fp32. One cooperative pass per
+//    stage dequantizes the int8 tile exactly into a bf16 [n][k] tile (a
+//    byte permute and one fp32 subtraction per code), once per block and
+//    not once per warp that reads it, one step ahead of the products, which
+//    read B by ldmatrix.x4.trans. A comes by ldmatrix.x4 from the g tile as
+//    copied and is scaled in registers: g * scale in fp32, rounded to bf16
+//    (JAX's gs = (g.astype(f32) * scale).astype(g.dtype), :86), the same
+//    rounding as a pass in shared memory without its round trip through
+//    it (the A operand of a later wgmma comes from registers too). One
+//    barrier a step. The bf16 tile is staged through shared memory and
+//    written 16 bytes a lane. The tail is zero-filled on all three
+//    operands. g rows are copied 16 bytes at a time when N % 8 == 0 and g
+//    is 16-byte aligned, else 4 bytes at a time (the vocabulary, 151674,
+//    leaves rows 4-byte aligned only; one zero-padded copy of g with
+//    16-byte copies measured slower, PERF.md); N must be even.
+//  * The plan (S and the segment length) is made by the Python wrapper,
+//    which reads this file's geometry from simlingo_int8_matmul_dx_geometry
+//    and refuses a library whose geometry differs from its own.
+
+#include <atomic>
 
 #include "common.cuh"
 
@@ -197,10 +221,21 @@ void launch_gemm(const bf16* x, const int8_t* w, const float* s, bf16* y,
 }
 
 constexpr int DX_BM = 64;            // dx rows per block
-constexpr int DX_BK = 64;            // dx columns (weight columns) per block
-constexpr int DX_BR = 64;            // reduction step (weight rows)
-constexpr int LDG = DX_BR + 8;       // bf16 row stride of the g tile
-constexpr int LDW = DX_BK + 16;      // int8 row stride of the weight tile
+constexpr int DX_BN = 128;           // dx columns (weight columns) per block
+constexpr int DX_BR = 32;            // reduction step: weight rows per stage
+constexpr int DX_STAGES = 4;         // depth of the cp.async ring
+constexpr int DX_THREADS = 128;      // 4 warps, 2 x 2, each 32 x 64
+constexpr int DX_RESIDENT = 3;       // blocks an SM holds: <= 170 registers a thread
+// Dynamic shared memory, stage by stage: the g tile [m][n] (bf16, 80-byte
+// rows: every ldmatrix phase of 8 rows x 16 bytes hits 32 banks), the int8
+// tile [n][k] as copied, the scales [n] (fp32); then two dequantized tiles
+// [n][k] (bf16, 272-byte rows, the same for ldmatrix.trans).
+constexpr int DX_LDG = DX_BR + 8, DX_LDB = DX_BN + 8;
+constexpr int DX_SG = DX_STAGES * DX_BM * DX_LDG * 2;
+constexpr int DX_SW = DX_STAGES * DX_BR * DX_BN;
+constexpr int DX_SS = DX_STAGES * DX_BR * 4;
+constexpr int DX_SMEM = DX_SG + DX_SW + DX_SS + 2 * DX_BR * DX_LDB * 2;   // 54784 bytes
+static_assert(DX_BM * (DX_BN + 8) * 2 <= DX_SG, "the output tile fits the g ring");
 
 // g (bf16x2, lower index low) * (s.x, s.y) in fp32, rounded to bf16x2.
 __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t v, float2 s) {
@@ -208,108 +243,221 @@ __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t v, float2 s) {
                                __uint_as_float(v & 0xffff0000u) * s.y);
 }
 
-__device__ __forceinline__ uint32_t int8_pair_to_bf16x2(int8_t lo, int8_t hi) {
-  return simlingo::pack_bf16x2(static_cast<float>(lo), static_cast<float>(hi));
+// Four int8 codes (lowest byte first) -> two bf16x2 words, exactly. A byte
+// permute makes each code c the fp32 2^23 + (c ^ 0x80) = 2^23 + 128 + c;
+// subtracting 2^23 + 128 leaves c, which bf16 holds exactly (|c| <= 127).
+__device__ __forceinline__ uint2 int8x4_to_bf16x4(uint32_t q) {
+  const uint32_t u = q ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + i)) - 8388736.f;
+  return make_uint2(simlingo::pack_bf16x2(f[0], f[1]), simlingo::pack_bf16x2(f[2], f[3]));
 }
 
-// VEC: bytes per cp.async of a g row, 16 or 4.
+// One 64 x 128 tile of dx over reduction steps [z * seg_steps, ...) of 32
+// weight rows, z = blockIdx.z. VEC: bytes per cp.async of a g row, 16 or 4.
+// With part set, the fp32 sums go to part[z] and dx_reduce_kernel rounds
+// them; else the tile is rounded to bf16 here. (ptxas schedules the loop
+// well in the statement order below; equivalent rearrangements of it, such
+// as scaling each A-fragment right after its own ldmatrix, measured slower.)
 template <int VEC>
-__global__ void __launch_bounds__(128)
-dx_kernel(const bf16* __restrict__ g, const int8_t* __restrict__ w,
-          const float* __restrict__ scale, bf16* __restrict__ dx,
-          int M, int N, int K) {
-  __shared__ __align__(16) bf16 Gs[STAGES][DX_BM * LDG];     // [m][n]
-  __shared__ __align__(16) int8_t Ws[STAGES][DX_BR * LDW];   // [n][k] int8 codes
-  __shared__ __align__(16) float Ss[STAGES][DX_BR];          // scale[n]
-  const int m0 = blockIdx.y * DX_BM, k0 = blockIdx.x * DX_BK;
+__global__ void __launch_bounds__(DX_THREADS, DX_RESIDENT)
+dx_kernel(const bf16* __restrict__ g, const int8_t* __restrict__ w, const float* __restrict__ scale,
+          float* __restrict__ part, bf16* __restrict__ dx, int M, int N, int K, int seg_steps) {
+  constexpr int E = VEC / 2;                          // bf16 per g copy
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Gs = reinterpret_cast<bf16*>(smem);
+  int8_t* Ws = reinterpret_cast<int8_t*>(smem + DX_SG);
+  unsigned char* Ss = smem + DX_SG + DX_SW;           // fp32 scales
+  bf16* Bs = reinterpret_cast<bf16*>(smem + DX_SG + DX_SW + DX_SS);
+  const int m0 = blockIdx.y * DX_BM, k0 = blockIdx.x * DX_BN;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gq = lane >> 2, t4 = lane & 3;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;     // 2 x 2 warps
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
+  const int r0 = blockIdx.z * seg_steps;
+  const int steps = min((N + DX_BR - 1) / DX_BR - r0, seg_steps);
 
-  auto load_tile = [&](int stage, int rt) {
-    const int n0 = rt * DX_BR;
-    constexpr int E = VEC / 2;                                // bf16 per copy
-    for (int c = tid; c < DX_BM * (DX_BR / E); c += 128) {
+  auto load = [&](int stage, int step) {
+    const int n0 = (r0 + step) * DX_BR;
+    bf16* G = Gs + stage * DX_BM * DX_LDG;
+#pragma unroll
+    for (int i = 0; i < DX_BM * DX_BR / (E * DX_THREADS); ++i) {
+      const int c = tid + i * DX_THREADS;
       const int row = c / (DX_BR / E), nc = (c % (DX_BR / E)) * E;
       const bool ok = m0 + row < M && n0 + nc < N;
       const bf16* src = ok ? g + (long long)(m0 + row) * N + n0 + nc : g;
-      if constexpr (VEC == 16)
-        simlingo::cp_async16(&Gs[stage][row * LDG + nc], src, ok);
-      else
-        simlingo::cp_async4(&Gs[stage][row * LDG + nc], src, ok);
+      if constexpr (VEC == 16) simlingo::cp_async16(G + row * DX_LDG + nc, src, ok);
+      else simlingo::cp_async4(G + row * DX_LDG + nc, src, ok);
     }
-    for (int c = tid; c < DX_BR * (DX_BK / 16); c += 128) {  // 16 int8 per chunk
-      const int row = c / (DX_BK / 16), kc = (c % (DX_BK / 16)) * 16;
-      const bool ok = n0 + row < N && k0 + kc < K;
-      simlingo::cp_async16(&Ws[stage][row * LDW + kc],
-                           ok ? w + (long long)(n0 + row) * K + k0 + kc : w, ok);
+#pragma unroll
+    for (int i = 0; i < DX_BR * DX_BN / (16 * DX_THREADS); ++i) {   // 16 codes a copy
+      const int c = tid + i * DX_THREADS;
+      const int row = c / (DX_BN / 16), col = (c % (DX_BN / 16)) * 16;
+      const bool ok = n0 + row < N && k0 + col < K;
+      simlingo::cp_async16(Ws + (stage * DX_BR + row) * DX_BN + col,
+                           ok ? w + (long long)(n0 + row) * K + k0 + col : w, ok);
     }
     if (tid < DX_BR) {
       const bool ok = n0 + tid < N;
-      simlingo::cp_async4(&Ss[stage][tid], ok ? scale + n0 + tid : scale, ok);
+      simlingo::cp_async4(Ss + stage * DX_BR * 4 + tid * 4, ok ? scale + n0 + tid : scale, ok);
+    }
+  };
+  // The cooperative pass: the landed int8 tile of `stage`, dequantized into
+  // the bf16 tile `buf`.
+  auto dequant = [&](int stage, int buf) {
+#pragma unroll
+    for (int i = 0; i < DX_BR * DX_BN / (16 * DX_THREADS); ++i) {
+      const int c = tid + i * DX_THREADS;
+      const int row = c / (DX_BN / 16), col = (c % (DX_BN / 16)) * 16;
+      const uint4 q = *reinterpret_cast<const uint4*>(Ws + (stage * DX_BR + row) * DX_BN + col);
+      const uint2 a = int8x4_to_bf16x4(q.x), b = int8x4_to_bf16x4(q.y);
+      const uint2 cc = int8x4_to_bf16x4(q.z), d = int8x4_to_bf16x4(q.w);
+      uint4* o = reinterpret_cast<uint4*>(Bs + (buf * DX_BR + row) * DX_LDB + col);
+      o[0] = make_uint4(a.x, a.y, b.x, b.y);
+      o[1] = make_uint4(cc.x, cc.y, d.x, d.y);
     }
   };
 
-  float acc[2][4][4];
+  float acc[2][8][4];
 #pragma unroll
-  for (int a = 0; a < 2; ++a)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int b = 0; b < 4; ++b)
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-  const int rtiles = (N + DX_BR - 1) / DX_BR;
+  // Step t + 1 is dequantized while step t is multiplied, behind one
+  // barrier a step: its loads landed one iteration earlier.
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < rtiles) load_tile(s, s);
+  for (int s = 0; s < DX_STAGES - 1; ++s) {
+    if (s < steps) load(s, s);
     simlingo::cp_async_commit();
   }
-  for (int rt = 0; rt < rtiles; ++rt) {
-    simlingo::cp_async_wait<STAGES - 2>();     // step rt has landed
-    __syncthreads();                           // ... and stage rt-1 is free
-    if (rt + STAGES - 1 < rtiles) load_tile((rt + STAGES - 1) % STAGES, rt + STAGES - 1);
+  simlingo::cp_async_wait<DX_STAGES - 2>();          // step 0 has landed
+  __syncthreads();
+  dequant(0, 0);
+  for (int t = 0; t < steps; ++t) {
+    simlingo::cp_async_wait<DX_STAGES - 3>();        // step t + 1 has landed
+    __syncthreads();            // step t is dequantized; step t - 1's buffers are free
+    if (t + DX_STAGES - 1 < steps) load((t + DX_STAGES - 1) % DX_STAGES, t + DX_STAGES - 1);
     simlingo::cp_async_commit();
-    const bf16* G = Gs[rt % STAGES];
-    const int8_t* Wq = Ws[rt % STAGES];
-    const float* S = Ss[rt % STAGES];
+    const bool next = t + 1 < steps;
+    const bf16* G = Gs + (t % DX_STAGES) * DX_BM * DX_LDG;
+    const bf16* B = Bs + (t & 1) * DX_BR * DX_LDB;
 #pragma unroll
-    for (int ks = 0; ks < DX_BR / 16; ++ks) {
-      const int r = ks * 16 + t4 * 2;          // this lane's reduction rows r, r+1, r+8, r+9
-      const float2 s01 = *reinterpret_cast<const float2*>(S + r);
-      const float2 s89 = *reinterpret_cast<const float2*>(S + r + 8);
+    for (int kk = 0; kk < DX_BR / 16; ++kk) {
+      // A: the warp's 32 g rows by ldmatrix.x4, then g * scale in fp32
+      // rounded to bf16 in registers (JAX's gs, :86); this lane holds
+      // reduction columns c0, c0 + 1 and c0 + 8, c0 + 9 of every fragment
       uint32_t a[2][4];
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const bf16* ap = G + (wm + mt * 16 + gq) * LDG + r;
-        a[mt][0] = scale_bf16x2(ld32(ap), s01);
-        a[mt][1] = scale_bf16x2(ld32(ap + 8 * LDG), s01);
-        a[mt][2] = scale_bf16x2(ld32(ap + 8), s89);
-        a[mt][3] = scale_bf16x2(ld32(ap + 8 * LDG + 8), s89);
+      for (int i = 0; i < 2; ++i)
+        simlingo::ldmatrix_x4(a[i], G + (wm + i * 16 + (lane & 15)) * DX_LDG + kk * 16 + (lane >> 4) * 8);
+      {
+        const int c0 = kk * 16 + (lane & 3) * 2;
+        const float* S = reinterpret_cast<const float*>(Ss + (t % DX_STAGES) * DX_BR * 4);
+        const float2 s01 = *reinterpret_cast<const float2*>(S + c0);
+        const float2 s89 = *reinterpret_cast<const float2*>(S + c0 + 8);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          a[i][0] = scale_bf16x2(a[i][0], s01); a[i][1] = scale_bf16x2(a[i][1], s01);
+          a[i][2] = scale_bf16x2(a[i][2], s89); a[i][3] = scale_bf16x2(a[i][3], s89);
+        }
       }
+      // B: the warp's 64 columns by ldmatrix.x4.trans, two n8 tiles a load
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int8_t* bp = Wq + r * LDW + wn + nt * 8 + gq;
-        const uint32_t b0 = int8_pair_to_bf16x2(bp[0], bp[LDW]);
-        const uint32_t b1 = int8_pair_to_bf16x2(bp[8 * LDW], bp[9 * LDW]);
+      for (int j = 0; j < 4; ++j) {
+        uint32_t b[4];
+        simlingo::ldmatrix_x4_trans(b, B + (kk * 16 + (lane & 15)) * DX_LDB + wn + j * 16 + (lane >> 4) * 8);
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-          simlingo::mma_bf16_16816(acc[mt][nt], a[mt], b0, b1);
+        for (int i = 0; i < 2; ++i) {
+          simlingo::mma_bf16_16816(acc[i][2 * j], a[i], b[0], b[1]);
+          simlingo::mma_bf16_16816(acc[i][2 * j + 1], a[i], b[2], b[3]);
+        }
+      }
+      // after the step's last products are issued, so that the two overlap
+      if (next) {
+        if (kk != 0) dequant((t + 1) % DX_STAGES, (t + 1) & 1);
       }
     }
   }
 
+  if (!part) {                  // bf16 out: staged in the g ring, 16 bytes a lane
+    __syncthreads();                                   // every warp is done with the ring
+    bf16* O = Gs;
+    constexpr int LDO = DX_BN + 8;
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = wm + i * 16 + (lane >> 2) + half * 8, c = wn + j * 8 + (lane & 3) * 2;
+          *reinterpret_cast<__nv_bfloat162*>(O + r * LDO + c) =
+              __floats2bfloat162_rn(acc[i][j][half * 2], acc[i][j][half * 2 + 1]);
+        }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < DX_BM * DX_BN / (8 * DX_THREADS); ++i) {
+      const int c = tid + i * DX_THREADS;
+      const int r = c / (DX_BN / 8), col = (c % (DX_BN / 8)) * 8;
+      if (m0 + r < M && k0 + col < K)                  // K % 16 == 0: whole chunks
+        *reinterpret_cast<uint4*>(dx + (long long)(m0 + r) * K + k0 + col) =
+            *reinterpret_cast<const uint4*>(O + r * LDO + col);
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int row = m0 + wm + mt * 16 + gq + half * 8;
-        const int col = k0 + wn + nt * 8 + t4 * 2;   // even; K is a multiple of 16
-        if (row < M && col < K)
-          *reinterpret_cast<__nv_bfloat162*>(dx + (long long)row * K + col) =
-              __floats2bfloat162_rn(acc[mt][nt][half * 2], acc[mt][nt][half * 2 + 1]);
+        const int row = m0 + wm + i * 16 + (lane >> 2) + half * 8;
+        const int col = k0 + wn + j * 8 + (lane & 3) * 2;   // even; K % 16 == 0
+        if (row < M && col < K)     // fp32 partial: 8 bytes a lane, 32 a row segment
+          *reinterpret_cast<float2*>(part + ((long long)blockIdx.z * M + row) * K + col) =
+              make_float2(acc[i][j][half * 2], acc[i][j][half * 2 + 1]);
       }
+}
+
+// dx = bf16(sum_s part[s]) over the S fp32 partials, s = 0..S-1 in order;
+// four outputs a thread.
+__global__ void __launch_bounds__(256)
+dx_reduce_kernel(const float* __restrict__ part, bf16* __restrict__ dx,
+                 long long count, int S) {
+  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (i >= count / 4) return;
+  float4 a = reinterpret_cast<const float4*>(part)[i];
+  for (int s = 1; s < S; ++s) {
+    const float4 b = reinterpret_cast<const float4*>(part + s * count)[i];
+    a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
+  }
+  uint2 o;
+  o.x = simlingo::pack_bf16x2(a.x, a.y);
+  o.y = simlingo::pack_bf16x2(a.z, a.w);
+  reinterpret_cast<uint2*>(dx)[i] = o;
+}
+
+constexpr int MAX_DEVICES = 64;
+
+template <int VEC>
+cudaError_t launch_dx(const bf16* g, const int8_t* w, const float* s, float* part, bf16* dx,
+                      int M, int N, int K, int seg_steps, int S, cudaStream_t st) {
+  // The shared-memory limit above 48 KB is a per-device attribute of the
+  // kernel: raised at its first launch on each device.
+  static std::atomic<bool> raised[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= MAX_DEVICES || !raised[dev].load(std::memory_order_relaxed)) {
+    e = cudaFuncSetAttribute(dx_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, DX_SMEM);
+    if (e != cudaSuccess) return e;
+    if (dev < MAX_DEVICES) raised[dev].store(true, std::memory_order_relaxed);
+  }
+  const dim3 grid((K + DX_BN - 1) / DX_BN, (M + DX_BM - 1) / DX_BM, S);
+  dx_kernel<VEC><<<grid, DX_THREADS, DX_SMEM, st>>>(g, w, s, part, dx, M, N, K, seg_steps);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -328,19 +476,35 @@ extern "C" int simlingo_int8_matmul(const void* x_, const void* w_,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dx[M,K] = bf16(g[M,N] * scale[N]) . w_q[N,K]. vec16: g rows may be copied
-// 16 bytes at a time (N % 8 == 0, g 16-byte aligned), else 4 (N even, g
-// 4-byte aligned). K % 16 == 0, w_q 16-byte aligned (the wrapper checks).
-extern "C" int simlingo_int8_matmul_dx(const void* g_, const void* w_,
-                                       const void* s_, void* dx_, int M, int N,
-                                       int K, int vec16, void* stream) {
+// dx_kernel's geometry, which the wrapper's plan is made for: output tile
+// rows and columns, weight rows a reduction step, resident blocks an SM.
+extern "C" void simlingo_int8_matmul_dx_geometry(int* out) {
+  out[0] = DX_BM;
+  out[1] = DX_BN;
+  out[2] = DX_BR;
+  out[3] = DX_RESIDENT;
+}
+
+// dx[M,K] = bf16(g[M,N] * scale[N]) . w_q[N,K], g row-major [M, N]. vec16:
+// g rows may be copied 16 bytes at a time (N % 8 == 0, g 16-byte aligned),
+// else 4 (N even, g 4-byte aligned). K % 16 == 0, w_q 16-byte aligned (the
+// wrapper checks). S segments of seg_steps reduction steps each: with S > 1
+// the blocks write fp32 partials to part [S, M, K] and dx_reduce_kernel
+// sums them; with S == 1 part may be null and is unused.
+extern "C" int simlingo_int8_matmul_dx(const void* g_, const void* w_, const void* s_,
+                                       void* part_, void* dx_, int M, int N, int K,
+                                       int vec16, int S, int seg_steps, void* stream) {
   const auto* g = static_cast<const bf16*>(g_);
   const auto* w = static_cast<const int8_t*>(w_);
   const auto* s = static_cast<const float*>(s_);
+  auto* part = S > 1 ? static_cast<float*>(part_) : nullptr;
   auto* dx = static_cast<bf16*>(dx_);
   auto st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((K + DX_BK - 1) / DX_BK, (M + DX_BM - 1) / DX_BM);
-  if (vec16) dx_kernel<16><<<grid, 128, 0, st>>>(g, w, s, dx, M, N, K);
-  else dx_kernel<4><<<grid, 128, 0, st>>>(g, w, s, dx, M, N, K);
+  if (S > 1 && !part) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = vec16 ? launch_dx<16>(g, w, s, part, dx, M, N, K, seg_steps, S, st)
+                              : launch_dx<4>(g, w, s, part, dx, M, N, K, seg_steps, S, st);
+  if (e != cudaSuccess || S == 1) return static_cast<int>(e);
+  const long long count = static_cast<long long>(M) * K;
+  dx_reduce_kernel<<<static_cast<unsigned>((count / 4 + 255) / 256), 256, 0, st>>>(part, dx, count, S);
   return static_cast<int>(cudaGetLastError());
 }

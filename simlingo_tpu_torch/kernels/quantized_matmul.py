@@ -151,6 +151,30 @@ def _int8_matmul_cuda(x, w_q, scale):
     return out.reshape(*lead, N)
 
 
+# dx_kernel's geometry; `_lib` refuses a library that reports another
+# (simlingo_int8_matmul_dx_geometry), so the plan and the kernel agree.
+_DX_TILE = (64, 128)    # output tile (rows, columns)
+_DX_STEP = 32           # reduction step: weight rows per stage
+_DX_RESIDENT = 3        # blocks an SM holds at once
+
+
+def _dx_plan(M: int, N: int, K: int, sms: int):
+    """Grid of dx_kernel: (tile, S segments, seg rows).
+
+    The reduction (N) splits into S segments of `seg` rows, each a whole
+    number of steps (the last one ragged). S = 1 where the output tiles
+    alone give 2 * sms blocks or more (every linear of the training path);
+    below that, S is the largest count whose blocks fit in one wave of
+    resident blocks, tiles * S <= _DX_RESIDENT * sms (the tied head: 21
+    tiles, S = 18, 378 blocks), so that no block waits for a second wave."""
+    bm, bn = _DX_TILE
+    tiles = -(-M // bm) * -(-K // bn)
+    steps = max(1, -(-N // _DX_STEP))
+    S = 1 if tiles >= 2 * sms else max(1, min(steps, _DX_RESIDENT * sms // tiles))
+    per = -(-steps // S)
+    return _DX_TILE, -(-steps // per), per * _DX_STEP
+
+
 def _int8_matmul_dx_cuda(g, w_q, scale):
     N, K = w_q.shape
     scale = _check("int8_matmul_dx", g, w_q, scale, N)
@@ -164,12 +188,17 @@ def _int8_matmul_dx_cuda(g, w_q, scale):
     out = torch.empty((M, K), dtype=torch.bfloat16, device=g.device)
     if M == 0:
         return out.reshape(*lead, K)
+    _, S, seg = _dx_plan(M, N, K, _build.sm_count(g.device.index or 0))
+    part = torch.empty((S, M, K), dtype=torch.float32, device=g.device) if S > 1 else None
     # 16-byte copies of g rows where every row start is 16-byte aligned;
-    # the vocabulary width (151674) takes the 4-byte copies
+    # the vocabulary width (151674) takes the 4-byte copies, measured faster
+    # than one zero-padded copy of g and 16-byte copies (PERF.md)
     vec16 = int(N % 8 == 0 and g2.data_ptr() % 16 == 0)
     rc = _lib().simlingo_int8_matmul_dx(
-        g2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        M, N, K, vec16, torch.cuda.current_stream(g.device).cuda_stream)
+        g2.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+        None if part is None else part.data_ptr(), out.data_ptr(),
+        M, N, K, vec16, S, seg // _DX_STEP,
+        torch.cuda.current_stream(g.device).cuda_stream)
     _build.check(rc, "int8_matmul_dx")
     int8_matmul_dx.launches += 1
     return out.reshape(*lead, K)
@@ -182,10 +211,17 @@ int8_matmul_dx.launches = 0
 def _lib():
     lib = _build.load("int8_matmul")
     if lib.simlingo_int8_matmul.argtypes is None:
+        geometry = (ctypes.c_int * 4)()
+        lib.simlingo_int8_matmul_dx_geometry(geometry)
+        if tuple(geometry) != (*_DX_TILE, _DX_STEP, _DX_RESIDENT):
+            raise RuntimeError(
+                f"int8_matmul_dx: the library's tile, step and resident blocks "
+                f"{tuple(geometry)} differ from the plan's "
+                f"{(*_DX_TILE, _DX_STEP, _DX_RESIDENT)}")
         lib.simlingo_int8_matmul.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         lib.simlingo_int8_matmul.restype = ctypes.c_int
         lib.simlingo_int8_matmul_dx.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.simlingo_int8_matmul_dx.restype = ctypes.c_int
     return lib

@@ -28,6 +28,7 @@ the sum of |terms| (see _dx_tol).
 import pytest
 import torch
 
+from simlingo_tpu_torch.kernels import _build
 from simlingo_tpu_torch.kernels import dropout as TD
 from simlingo_tpu_torch.kernels import flash_attention as TFA
 from simlingo_tpu_torch.kernels import fused_ce as TCE
@@ -143,7 +144,7 @@ def test_int8_matmul_gives_x_its_gradient_through_the_dx_kernel(gpu, M, N, K, sc
 @pytest.mark.cuda
 def test_int8_matmul_dx_kernel_at_the_vocabulary_width(gpu):
     """The tied head's dx: g rows of 151674 bf16 are 4-byte aligned only,
-    and the reduction ends 58 rows into its last step of 64."""
+    and the reduction ends 26 rows into its last step of 32."""
     g = torch.Generator(device=gpu).manual_seed(10)
     V, H = 151674, 896
     w_q, scale = TQM.quantize_weight(torch.randn(V, H, generator=g, device=gpu) * 0.02)
@@ -156,6 +157,27 @@ def test_int8_matmul_dx_kernel_at_the_vocabulary_width(gpu):
     view = torch.empty(40 * V + 1, device=gpu, dtype=torch.bfloat16)[1:].view(40, V)
     view.copy_(cot)                                    # a 2-byte aligned start
     assert torch.equal(TQM.int8_matmul_dx(view, w_q, scale.bfloat16()), dx)
+
+
+@pytest.mark.cuda
+# the reduction split into S > 1 segments: a small shape; the tied head's;
+# a ragged last segment (N = 20010 ends 10 rows into its last step)
+@pytest.mark.parametrize("M,N,K", [(16, 20000, 64), (192, 151674, 896), (77, 20010, 128)])
+def test_int8_matmul_dx_split_reduction_is_right_and_bit_identical(gpu, M, N, K):
+    _, S, seg = TQM._dx_plan(M, N, K, _build.sm_count(gpu.index or 0))
+    assert S > 1
+    if N == 20010:
+        assert N - (S - 1) * seg < seg and N % TQM._DX_STEP
+    g = torch.Generator(device=gpu).manual_seed(11)
+    w_q, scale = TQM.quantize_weight(torch.randn(N, K, generator=g, device=gpu) * 0.02)
+    cot = torch.randn(M, N, generator=g, device=gpu).bfloat16()
+    before = TQM.int8_matmul_dx.launches
+    dx = TQM.int8_matmul_dx(cot, w_q, scale)
+    again = TQM.int8_matmul_dx(cot, w_q, scale)
+    assert TQM.int8_matmul_dx.launches == before + 2
+    assert torch.equal(dx, again)
+    ref = TQM.int8_matmul_dx_reference(cot, w_q, scale)
+    _within(dx, ref, _dx_tol(cot, w_q, scale, ref), "split dx")
 
 
 @pytest.mark.cuda
