@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py               # all phases, one GPU
     python3 chip_smoke.py --kernels     # build + kernel checks only
+    python3 chip_smoke.py --int8-sweep  # the int8 forward at forced splits S
 
 Phases, in order; any failure exits non-zero:
   1. build: compile csrc/*.cu with nvcc (all in parallel), print seconds;
@@ -14,11 +15,12 @@ Phases, in order; any failure exits non-zero:
      p = 0; LayerNorm / RMSNorm forward and backward at the ViT, projector,
      LLM-training and serving rows, and the fused CE forward, backward and
      dW backward at the training shape and a ragged one, each against the
-     tolerance stated at BF16_SPACING; the int8 forward also at the
-     int8-base training rows, and its activation gradient int8_matmul_dx
-     at every linear and the tied head of that path, against the bound
-     stated at DX_SUM_U and bit-identical across two calls, with its
-     grid: tile, reduction segments S and blocks);
+     tolerance stated at BF16_SPACING; the int8 forward at the serving
+     and the int8-base training rows (those again with a bf16 scale),
+     against the bound stated at FWD_U, and its activation gradient
+     int8_matmul_dx at every linear and the tied head of that path,
+     against the bound stated at DX_SUM_U, both bit-identical across two
+     calls, with their grid: tile, reduction segments S and blocks);
      prints max error (absolute and over the output's rms, or over the
      tolerance), kernel / plain / library ms and the bound from bytes or
      operations on this card;
@@ -32,7 +34,9 @@ Phases, in order; any failure exits non-zero:
      speculative) on SimLingoConfig() with seeded random bf16 weights,
      FRAMES frames on a seeded 1024x512 frame, then one use_cot=False
      frame; launch counts of every kernel are reset just before and read
-     just after, with a profile of one speculative frame;
+     just after, with a profile of one speculative frame (device time by
+     kernel class and by hand kernel; int8_matmul's calls in that frame
+     against its forward kernels' launches, one each);
   5. full width, training: train_torch's trainer on
      presets.internvl2_1b(lora=True) (seed 0) and synthetic_example(batch 6,
      seq_len 768, 2 tiles): 1 warm-up step, then TRAIN_STEPS timed steps
@@ -70,10 +74,9 @@ sys.path.insert(0, ROOT)
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
-# bf16 kernels vs the fp32 plain version: |err| <= atol + RTOL |ref|.
-# Attention outputs are small (rms ~0.05 for rows that see hundreds of
-# keys), so its atol is a tenth of int8_matmul's (outputs of rms ~1).
-ATOL = {"flash_attn_fwd": 2e-3, "int8_matmul": 2e-2}
+# bf16 attention vs the fp32 plain version: |err| <= atol + RTOL |ref|
+# (outputs of rms ~0.05 for rows that see hundreds of keys).
+ATOL = {"flash_attn_fwd": 2e-3}
 RTOL = 2e-2
 # The backward rounds P and dS to bf16 (unit roundoff 2^-8) before its
 # products, and its output to bf16: each gradient element is held to
@@ -99,6 +102,12 @@ CE_ATOL = 2e-3
 # fp32 roundings of 2^-24, with a margin of 16) + 1e-6 rms(ref). A looser
 # 2^-7 sum|terms| would pass a kernel that dropped the output at N = 151674.
 DX_SUM_U = 2.0 ** -20
+# The int8 forward against its plain version in fp32 (unrounded): the
+# kernel rounds its fp32 sum times the scale once to bf16 (unit roundoff
+# 2^-8) and sums in another order, reduction segments included: |err| <=
+# 2^-8 |ref| + DX_SUM_U sqrt(K) sum|terms| + 1e-6 rms(ref). PR 7's atol /
+# rtol 2e-2 would pass a dropped segment of K = 4864.
+FWD_U = 2.0 ** -8
 PEAK_FP32 = 67e12           # non-tensor fp32 FLOP/s (norm arithmetic)
 FRAMES = 4                  # CoT frames: the first plain, then speculative
 TRAIN_STEPS = 3             # timed full-width training steps (after 1 warm-up)
@@ -291,27 +300,41 @@ def run_attention_checks(torch, dev, results):
 
 
 def run_int8_checks(torch, dev, results):
+    """int8_matmul at every serving row (decode 1, verify 16, queries 30,
+    prefill 640) and the int8-base training rows (6 x 798 for the linears,
+    one 32-position CE chunk x 6 for the tied head), against
+    int8_matmul_reference on the same bf16 x in fp32, held to the bound
+    stated at FWD_U and bit-identical across two calls, with the plan's
+    tile, reduction segments S and blocks; the training rows again with a
+    bf16 scale (the training step's frozen cast). Library: dequantize +
+    torch.matmul, timed only."""
     from simlingo_tpu_torch.kernels import quantized_matmul as QM
     gen = torch.Generator(device=dev).manual_seed(1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     shapes = [("qo", 896, 896), ("kv", 896, 128), ("gate_up", 896, 4864),
               ("down", 4864, 896)]
-    # serving rows (decode, verify, queries, prefill) and the int8-base
-    # training rows: 6 x 798 for the linears, one 32-position CE chunk x 6
-    # for the tied head
-    cases = [(n, K, N, M) for (n, K, N) in shapes for M in (1, 16, 30, 640, 4788)]
-    cases += [("head", 896, 151674, M) for M in (1, 16, 192)]
-    for name, K, N, M in cases:
+    cases = [(n, K, N, M, torch.float32) for (n, K, N) in shapes
+             for M in (1, 16, 30, 640, 4788)]
+    cases += [("head", 896, 151674, M, torch.float32) for M in (1, 16, 192)]
+    cases += [(n, K, N, 4788, torch.bfloat16) for (n, K, N) in shapes]
+    cases += [("head", 896, 151674, M, torch.bfloat16) for M in (1, 16, 192)]
+    for name, K, N, M, sdt in cases:
         def make():
             x = torch.randn(M, K, generator=gen, device=dev, dtype=torch.bfloat16)
             w = torch.randn(N, K, generator=gen, device=dev) * 0.02
             w_q, scale = QM.quantize_weight(w, axis=0)
-            return x, w_q, scale
+            return x, w_q, scale.to(sdt)
         x, w_q, scale = make()
         out = QM.int8_matmul(x, w_q, scale)
+        same = torch.equal(QM.int8_matmul(x, w_q, scale), out)   # no atomics: bit-identical
         torch.cuda.synchronize()
         ref = QM.int8_matmul_reference(x.float(), w_q, scale)
-        err, rel, ok = max_violation("int8_matmul", out, ref)
-        nbytes = M * K * 2 + N * K + N * 4 + M * N * 2
+        terms = QM.int8_matmul_reference(x.float(), w_q, scale, abs_terms=True)
+        rms = float(ref.square().mean().sqrt())
+        err, ratio = _ratio(out, ref, FWD_U * ref.abs() + DX_SUM_U * K ** 0.5 * terms
+                            + 1e-6 * rms)
+        del terms
+        nbytes = M * K * 2 + N * K + N * scale.element_size() + M * N * 2
         bms, bby = bound(nbytes, 2 * M * N * K)
         sets = [make() for _ in range(n_sets(nbytes))]
         kernel_ms = time_ms(torch, QM.int8_matmul, sets)
@@ -321,16 +344,28 @@ def run_int8_checks(torch, dev, results):
         def dequant_matmul(x_, w_, s_):
             return x_ @ (w_.to(torch.bfloat16) * s_[:, None].to(torch.bfloat16)).t()
         library_ms = time_ms(torch, dequant_matmul, sets)
+        del sets
+        if M == 1:
+            tile, S, blocks = "gemv", 1, -(-N // 8)
+        else:
+            (bm, bn), S, _ = QM._fwd_plan(M, N, K, sms)
+            tile, blocks = f"{bm}x{bn}", -(-M // bm) * -(-N // bn) * S
+        ok = ratio <= 1.0 and same
         row = dict(kernel="int8_matmul", case=name, shape=f"M={M} K={K} N={N}",
-                   M=M, K=K, N=N, max_abs_err=err, err_over_rms=rel, ok=ok,
-                   kernel_ms=kernel_ms,
+                   M=M, K=K, N=N, scale=str(sdt).replace("torch.", ""),
+                   max_abs_err=err, err_over_rms=err / max(rms, 1e-30),
+                   err_over_tol=ratio, bit_identical=same, ok=ok, kernel_ms=kernel_ms,
                    launch_ms=launch_ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=bms, bound_by=bby)
+                   library_ms=library_ms, bound_ms=bms, bound_by=bby,
+                   tile=tile, segments=S, blocks=blocks)
         results.append(row)
         log(f"[kernel] int8_matmul    {name:8s} M={M:4d} K={K:5d} N={N:6d} "
-            f"err={err:.3e} err/rms={rel:.3e} (atol {ATOL['int8_matmul']} "
-            f"rtol {RTOL}) {'OK' if ok else 'FAIL'} kernel_ms={kernel_ms:.4f} launch_ms={launch_ms:.4f} "
-            f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} bound_ms={bms:.4f} ({bby})")
+            f"scale={row['scale']:8s} err={err:.3e} err/rms={row['err_over_rms']:.3e} "
+            f"err/tol={ratio:.3f} (tol 2^-8 |ref| + 2^-20 sqrt(K) sum|terms|) "
+            f"bit-identical={same} {'OK' if ok else 'FAIL'} kernel_ms={kernel_ms:.4f} "
+            f"launch_ms={launch_ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+            f"bound_ms={bms:.4f} ({bby}) tile={tile} S={S} blocks={blocks}")
+    torch.cuda.empty_cache()
 
 
 def int8_dx_cases():
@@ -725,6 +760,62 @@ def run_ce_checks(torch, dev, results):
         torch.cuda.empty_cache()
 
 
+# the int8 forward's splittable path shapes: (case, M, N, K)
+SWEEP_SHAPES = [("qo", 16, 896, 896), ("gate_up", 16, 4864, 896), ("down", 16, 896, 4864),
+                ("qo", 640, 896, 896), ("kv", 640, 128, 896), ("down", 640, 896, 4864),
+                ("gate_up", 640, 4864, 896), ("qo", 4788, 896, 896), ("kv", 4788, 128, 896),
+                ("down", 4788, 896, 4864), ("gate_up", 4788, 4864, 896)]
+
+
+def int8_sweep(torch, dev) -> int:
+    """int8_matmul's kernel launched at every reduction split S the cluster
+    cap allows (whole steps, as the plan cuts them), at SWEEP_SHAPES: ms
+    per call (CUDA-graph replay, as phase 2 times), blocks, the worst
+    err/tol (FWD_U's bound) and which S `_fwd_plan` picks; rows also to
+    chiprun_out/int8_fwd_sweep.json. Information for the plan."""
+    from simlingo_tpu_torch.kernels import _build
+    from simlingo_tpu_torch.kernels import quantized_matmul as QM
+    lib, sms = QM._lib(), _build.sm_count(dev.index or 0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = []
+    for name, M, N, K in SWEEP_SHAPES:
+        tile, plan_S, _ = QM._fwd_plan(M, N, K, sms)
+        steps = -(-K // QM._fwd_geometry(M)[1])
+        tiles = -(-M // tile[0]) * -(-N // tile[1])
+
+        def make():
+            x = torch.randn(M, K, generator=gen, device=dev, dtype=torch.bfloat16)
+            w_q, scale = QM.quantize_weight(torch.randn(N, K, generator=gen, device=dev) * 0.02)
+            return x, w_q, scale
+        sets = [make() for _ in range(n_sets(M * K * 2 + N * K + M * N * 2))]
+        for S in sorted({-(-steps // -(-steps // s)) for s in range(1, QM._FWD_CLUSTER + 1)}):
+            per = -(-steps // S)
+
+            def run(x, w_q, scale, S=S, per=per):
+                y = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
+                _build.check(lib.simlingo_int8_matmul(
+                    x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), y.data_ptr(), M, N, K, 0,
+                    S, per, torch.cuda.current_stream(dev).cuda_stream), "int8_matmul")
+                return y
+            x, w_q, scale = sets[0]
+            ref = QM.int8_matmul_reference(x.float(), w_q, scale)
+            terms = QM.int8_matmul_reference(x.float(), w_q, scale, abs_terms=True)
+            _, ratio = _ratio(run(x, w_q, scale), ref, FWD_U * ref.abs()
+                              + DX_SUM_U * K ** 0.5 * terms + 1e-6 * float(ref.square().mean().sqrt()))
+            ms = time_ms(torch, run, sets)
+            rows.append(dict(case=name, M=M, N=N, K=K, tile=list(tile), S=S, blocks=tiles * S,
+                             ms=ms, err_over_tol=ratio, plan=S == plan_S))
+            log(f"[sweep] int8_matmul {name:8s} M={M:5d} N={N:6d} K={K:5d} "
+                f"tile={tile[0]}x{tile[1]} S={S} blocks={tiles * S:5d} ms={ms:.4f} "
+                f"err/tol={ratio:.3f}{'  <- plan' if S == plan_S else ''}")
+        del sets
+        torch.cuda.empty_cache()
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "int8_fwd_sweep.json"), "w") as f:
+        json.dump(rows, f, indent=1)
+    return 0 if all(r["err_over_tol"] <= 1.0 for r in rows) else 1
+
+
 # ---------------------------------------------------------------------------
 # Phases 3-4: the serving path
 # ---------------------------------------------------------------------------
@@ -887,26 +978,37 @@ def device_profile(torch, fn, what):
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    classes = {}
+    classes, hand = {}, {}
     for ms, n, key in rows:
         cls = kernel_class(key)
         ms0, n0 = classes.get(cls, (0.0, 0))
         classes[cls] = (ms0 + ms, n0 + n)
+        if cls == "hand":
+            name = next(k for k in HAND_KERNELS if re.search(rf"(^|[:\s]){k}\b", key))
+            ms0, n0 = hand.get(name, (0.0, 0))
+            hand[name] = (ms0 + ms, n0 + n)
     log(f"[profile] {what}: wall {wall:.2f} ms, device busy "
         f"{busy:.2f} ms ({100 * busy / wall:.1f} %), idle {100 * (1 - busy / wall):.1f} %")
     log(f"[profile] device ms (launches) by class: "
         + ", ".join(f"{c} {ms:.2f} ({n})" for c, (ms, n) in sorted(classes.items())))
+    log(f"[profile] hand kernels, device ms (launches): "
+        + ", ".join(f"{k} {ms:.2f} ({n})" for k, (ms, n) in sorted(hand.items())))
     for ms, n, key in rows[:15]:
         log(f"[profile] {ms:9.3f} ms  x{n:5d}  {key[:90]}")
     return dict(wall_ms=wall, device_busy_ms=busy,
                 classes={c: dict(ms=ms, count=n) for c, (ms, n) in classes.items()},
+                hand={k: dict(ms=ms, count=n) for k, (ms, n) in hand.items()},
                 top=[dict(ms=ms, count=n, name=key) for ms, n, key in rows[:25]])
 
 
 HAND_KERNELS = ("flash_fwd_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel", "bwd_prep_kernel",
-                "dropout_kernel", "gemm_kernel", "gemv_kernel", "dx_kernel", "dx_reduce_kernel",
+                "dropout_kernel", "gemm_kernel", "gemm64_kernel", "gemv_kernel", "dx_kernel",
+                "dx_reduce_kernel",
                 "norm_fwd_kernel", "norm_bwd_kernel", "col_reduce_kernel", "ce_fwd_tile_kernel",
                 "ce_fwd_finalize_kernel", "ce_bwd_kernel", "ce_dh_reduce_kernel")
+
+
+INT8_FWD_KERNELS = ("gemv_kernel", "gemm_kernel", "gemm64_kernel")
 
 
 def kernel_class(name):
@@ -1239,8 +1341,14 @@ def run_path_phases(torch, dev, cases) -> int:
     ok, stats, agent, frame = full_width(torch, dev)
     if not ok:
         return 1
+    from simlingo_tpu_torch.kernels import quantized_matmul as QM
+    QM.int8_matmul.launches = 0
     stats["profile"] = device_profile(torch, lambda: agent.run_step(frame),
                                       "one speculative frame")
+    calls = QM.int8_matmul.launches
+    fwd = sum(stats["profile"]["hand"].get(k, {"count": 0})["count"] for k in INT8_FWD_KERNELS)
+    log(f"[profile] int8_matmul calls in the profiled frame {calls}, forward-kernel "
+        f"launches {fwd} {'OK' if fwd == calls else 'DIFFERS'} (one launch a call)")
     del agent, frame
     ok, train_stats = full_width_training(torch, dev)
     if not ok:
@@ -1279,6 +1387,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels", action="store_true",
                     help="build and check the kernels only")
+    ap.add_argument("--int8-sweep", action="store_true",
+                    help="build, then time the int8 forward at every reduction split")
     args = ap.parse_args()
 
     import torch
@@ -1294,6 +1404,8 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all(verbose=True)
     log(f"[build] {time.perf_counter() - t0:.2f} s (nvcc in parallel)")
+    if args.int8_sweep:
+        return int8_sweep(torch, dev)
 
     # 2. kernels
     cases = []

@@ -10,19 +10,37 @@
 //
 // What bounds it: at decode sizes (M = 1, 16 and 30) the weight bytes --
 // the whole point of int8 is to read half of bf16's; at prefill (M = 640)
-// the tensor-core operations.
+// and the training rows (M = 4788) the tensor-core operations.
 //
 // Design:
 //  * M = 1 (decode), gemv_kernel: one warp per output channel n. Each lane
 //    streams 16 int8 weights per 16-byte load, dequantizes in registers, and
 //    FMAs them against the activation row read through the read-only cache;
 //    a warp shuffle reduces, and the scale is applied once per output.
-//  * M > 1, gemm_kernel: BM x 64 output tiles (BM = 16 up to M = 48, else
-//    64), 4 warps, mma.m16n8k16 with fp32 accumulators. K streams in steps
-//    of 64 through a 3-stage cp.async ring; the weight tile stays int8 in
-//    shared memory and each B-fragment is dequantized (exactly: |v| <= 127)
-//    in registers when it is loaded. The scale is applied to the fp32
-//    accumulators in the epilogue.
+//  * 2 <= M <= 48 (verify, queries), gemm_kernel: 16 x 64 output tiles, 4
+//    warps, mma.m16n8k16 with fp32 accumulators. K streams in steps of 64
+//    through a 3-stage cp.async ring; the weight tile stays int8 in shared
+//    memory and each B-fragment is dequantized (exactly: |v| <= 127) in
+//    registers when it is loaded. Here the bound is the weight bytes.
+//  * M > 48 (prefill, training), gemm64_kernel: dx_kernel's loop below
+//    with the operands' roles as in y = x . w_q^T: 64 x 128 tiles of 4
+//    warps, a 4-stage cp.async ring of 32 K-columns, the int8 tile
+//    dequantized once a block into a bf16 [n][k] tile, A and B by
+//    ldmatrix.x4 into mma.sync. Here the bound is the operations, and in
+//    practice the instructions and shared-memory traffic that feed mma.sync.
+//  * The grid. Where the output tiles alone do not fill the card (every
+//    M <= 48 call but the head's, and the narrow linears at prefill) the
+//    reduction is cut into S <= 8 segments of whole steps, gridDim.z = S,
+//    and the S blocks of one output tile form one thread-block cluster
+//    (1, 1, S). Each block leaves its fp32 partial tile in its own shared
+//    memory; after a cluster barrier each block takes a slice of the tile's
+//    rows, reads the S partials through distributed shared memory in the
+//    order s = 0..S-1, applies the scale to the fp32 sum and stores bf16 --
+//    one launch, no scratch in device memory, no atomics, the same bits on
+//    every call. The plan (S and the segment length) is made by the Python
+//    wrapper from simlingo_int8_matmul_geometry.
+//  * The scale is read as the caller holds it, fp32 or bf16 (widened
+//    exactly, as torch's .float() does), and multiplies the fp32 sum.
 // K must be a multiple of 16 (the wrapper checks).
 //
 // The activation gradient, dx_kernel (simlingo_int8_matmul_dx):
@@ -71,16 +89,32 @@
 
 #include <atomic>
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 using simlingo::ld32;
 
+constexpr int MAX_DEVICES = 64;
+constexpr int MAX_CLUSTER = 8;         // the portable cluster size
+constexpr int SMALL_M = 48;            // gemm_kernel takes 2 <= M <= 48
+constexpr int SMALL_RESIDENT = 8;      // its blocks an SM: <= 64 registers a thread
+// Blocks an SM that a split of the 64-row kernel aims at: 2 of the 3 it
+// holds. Beyond 2 an SM more segments only added per-block cost (the
+// forced-split sweep, chip_smoke.py --int8-sweep, in PERF.md).
+constexpr int LARGE_FILL = 2;
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
+
+template <typename ST>
 __global__ void __launch_bounds__(256)
 gemv_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
-            const float* __restrict__ scale, bf16* __restrict__ y, int N, int K) {
+            const ST* __restrict__ scale, bf16* __restrict__ y, int N, int K) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n = blockIdx.x * 8 + warp;
   if (n >= N) return;
@@ -104,10 +138,161 @@ gemv_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) y[n] = __float2bfloat16(acc * scale[n]);
+  if (lane == 0) y[n] = __float2bfloat16(acc * widen(scale[n]));
 }
 
-constexpr int BN = 64, BK = 64, STAGES = 3;
+// Eight bf16 outputs of one row, columns gc..gc+7 (`left` = N - gc of them
+// exist), packed lowest first: 16 bytes where N % 8 == 0, else bf16 pairs
+// where N is even (rows 4-byte aligned), else one by one.
+__device__ __forceinline__ void store_row8(bf16* __restrict__ out, int left, int N, uint4 v) {
+  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+  if ((N & 7) == 0) {
+    *reinterpret_cast<uint4*>(out) = v;
+  } else if ((N & 1) == 0) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (2 * j < left) *reinterpret_cast<uint32_t*>(out + 2 * j) = u[j];
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (j < left)
+        out[j] = __ushort_as_bfloat16(static_cast<unsigned short>(u[j >> 1] >> (16 * (j & 1))));
+  }
+}
+
+// Eight fp32 sums of one output row times their scales, each rounded once
+// to bf16, and stored.
+template <typename ST>
+__device__ __forceinline__ void store_scaled8(bf16* __restrict__ out, const ST* __restrict__ sc,
+                                              int left, int N, const float (&v)[8]) {
+  float o[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) o[j] = j < left ? v[j] * widen(sc[j]) : 0.f;
+  store_row8(out, left, N, make_uint4(
+      simlingo::pack_bf16x2(o[0], o[1]), simlingo::pack_bf16x2(o[2], o[3]),
+      simlingo::pack_bf16x2(o[4], o[5]), simlingo::pack_bf16x2(o[6], o[7])));
+}
+
+// The split reduction's epilogue. Every block of the cluster holds
+// the fp32 partial tile F [BM][LDF] of the same output tile, over its own
+// reduction segment (cluster rank s = segment s). Block `rank` sums rows
+// [rank * BM / S, (rank + 1) * BM / S) over s = 0..S-1 in that order,
+// eight columns a thread, scales and stores them.
+template <int BM, int BN, int LDF, int THREADS, typename ST>
+__device__ __forceinline__ void cluster_epilogue(const float* F, const ST* __restrict__ scale,
+                                                 bf16* __restrict__ y, int m0, int n0,
+                                                 int M, int N, int tid) {
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();                          // every partial tile of the cluster is in place
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int lo = rank * BM / S, hi = (rank + 1) * BM / S;
+  for (int c = tid; c < (hi - lo) * (BN / 8); c += THREADS) {
+    const int r = lo + c / (BN / 8), col = (c % (BN / 8)) * 8;
+    const int gr = m0 + r, gc = n0 + col;
+    if (gr >= M || gc >= N) continue;
+    float v[8];
+    for (int s = 0; s < S; ++s) {
+      const float* src = F + r * LDF + col;
+      const float4* p = reinterpret_cast<const float4*>(
+          s == rank ? src : cluster.map_shared_rank(src, s));
+      const float4 a = p[0], b = p[1];
+      const float t[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = s == 0 ? t[j] : v[j] + t[j];
+    }
+    store_scaled8(y + (long long)gr * N + gc, scale + gc, N - gc, N, v);
+  }
+  cluster.sync();                          // the partials live until every block has read them
+}
+
+// gemm_kernel's epilogue, on the block's fp32 accumulators
+// acc[MT][NT][4] (the m16n8 fragments of the warp tile at rows wm, columns
+// wn), once every warp is done with the ring `smem`. Unsplit (gridDim.z ==
+// 1): the sums times their scales, rounded to bf16 in registers, staged as
+// the bf16 tile [BM][BN + 8] and stored 16 bytes a lane. Split: the fp32
+// partial tile [BM][BN + 8] goes to cluster_epilogue. (The padded rows keep
+// the fragment stores free of bank conflicts.)
+template <int BM, int BN, int THREADS, int MT, int NT, typename ST>
+__device__ __forceinline__ void gemm_epilogue(unsigned char* smem, const float (&acc)[MT][NT][4],
+                                              int wm, int wn, const ST* __restrict__ scale,
+                                              bf16* __restrict__ y, int m0, int n0, int M, int N,
+                                              int tid) {
+  constexpr int LD = BN + 8;
+  const int lane = tid & 31, g = lane >> 2, t2 = (lane & 3) * 2;
+  if (gridDim.z == 1) {
+    float sc[NT][2];                              // this lane's columns' scales
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = n0 + wn + nt * 8 + t2 + e;
+        sc[nt][e] = c < N ? widen(scale[c]) : 0.f;
+      }
+    bf16* O = reinterpret_cast<bf16*>(smem);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          *reinterpret_cast<uint32_t*>(O + (wm + mt * 16 + g + half * 8) * LD + wn + nt * 8 + t2) =
+              simlingo::pack_bf16x2(acc[mt][nt][half * 2] * sc[nt][0],
+                                    acc[mt][nt][half * 2 + 1] * sc[nt][1]);
+    __syncthreads();
+    for (int i = tid; i < BM * BN / 8; i += THREADS) {
+      const int r = i / (BN / 8), col = (i % (BN / 8)) * 8;
+      if (m0 + r < M && n0 + col < N)
+        store_row8(y + (long long)(m0 + r) * N + n0 + col, N - n0 - col, N,
+                   *reinterpret_cast<const uint4*>(O + r * LD + col));
+    }
+    return;
+  }
+  float* F = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        *reinterpret_cast<float2*>(F + (wm + mt * 16 + g + half * 8) * LD + wn + nt * 8 + t2) =
+            make_float2(acc[mt][nt][half * 2], acc[mt][nt][half * 2 + 1]);
+  cluster_epilogue<BM, BN, LD, THREADS>(F, scale, y, m0, n0, M, N, tid);
+}
+
+// Four int8 codes (lowest byte first) -> two bf16x2 words, exactly. A byte
+// permute makes each code c the fp32 2^23 + (c ^ 0x80) = 2^23 + 128 + c;
+// subtracting 2^23 + 128 leaves c, which bf16 holds exactly (|c| <= 127).
+__device__ __forceinline__ uint2 int8x4_to_bf16x4(uint32_t q) {
+  const uint32_t u = q ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + i)) - 8388736.f;
+  return make_uint2(simlingo::pack_bf16x2(f[0], f[1]), simlingo::pack_bf16x2(f[2], f[3]));
+}
+
+// gemm64_kernel's cooperative pass: a landed int8 tile [ROWS][COLS] (row
+// stride LDS bytes) dequantized exactly into a bf16 tile [ROWS][LDD], 16
+// codes a thread an iteration, consecutive threads on consecutive rows
+// (48-byte reads, 80-byte writes: no bank conflicts).
+template <int ROWS, int COLS, int LDS, int LDD, int THREADS>
+__device__ __forceinline__ void dequant_rows(const int8_t* __restrict__ src, bf16* __restrict__ dst,
+                                             int tid) {
+#pragma unroll
+  for (int i = 0; i < ROWS * COLS / (16 * THREADS); ++i) {
+    const int c = tid + i * THREADS;
+    const int row = c % ROWS, col = (c / ROWS) * 16;
+    const uint4 q = *reinterpret_cast<const uint4*>(src + row * LDS + col);
+    const uint2 a = int8x4_to_bf16x4(q.x), b = int8x4_to_bf16x4(q.y);
+    const uint2 cc = int8x4_to_bf16x4(q.z), d = int8x4_to_bf16x4(q.w);
+    uint4* o = reinterpret_cast<uint4*>(dst + row * LDD + col);
+    o[0] = make_uint4(a.x, a.y, b.x, b.y);
+    o[1] = make_uint4(cc.x, cc.y, d.x, d.y);
+  }
+}
+
+constexpr int BM = 16, BN = 64, BK = 64, STAGES = 3;   // gemm_kernel
 constexpr int LDA = BK + 8;     // bf16 row stride: conflict-free 32-bit fragment loads
 constexpr int LDB = BK + 16;    // int8 row stride: conflict-free 16-bit fragment loads
 
@@ -117,27 +302,31 @@ __device__ __forceinline__ uint32_t int8x2_to_bf16x2(uint16_t v) {
                                static_cast<float>(static_cast<int8_t>(v >> 8)));
 }
 
-// BM x 64 output tile per block of 4 warps; each warp owns a
-// (16*WMT) x (8*WNT) sub-tile. K streams through a STAGES-deep cp.async
-// ring: the activation tile as bf16, the weight tile as raw int8 (half the
-// shared-memory bytes), dequantized in registers as each B-fragment is
-// loaded.
-template <int BM, int WMT, int WNT>
-__global__ void __launch_bounds__(128)
+// 16 x 64 output tile per block of 4 warps; each warp owns a
+// (16*WMT) x (8*WNT) = 16 x 16 sub-tile. The block's reduction segment, steps
+// [z * seg_steps, ...) of BK, z = blockIdx.z, streams through a STAGES-deep
+// cp.async ring: the activation tile as bf16, the weight tile as raw int8
+// (half the shared-memory bytes), dequantized in registers as each
+// B-fragment is loaded. The sums then go to gemm_epilogue.
+template <typename ST>
+__global__ void __launch_bounds__(128, SMALL_RESIDENT)
 gemm_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
-            const float* __restrict__ scale, bf16* __restrict__ y,
-            int M, int N, int K) {
-  constexpr int WARPS_N = BN / (8 * WNT);
+            const ST* __restrict__ scale, bf16* __restrict__ y,
+            int M, int N, int K, int seg_steps) {
+  constexpr int WMT = 1, WNT = 2, WARPS_N = BN / (8 * WNT);
   static_assert((BM / (16 * WMT)) * WARPS_N == 4, "4 warps per block");
+  static_assert(BM * (BN + 8) * 4 <= STAGES * BM * LDA * 2, "the partial tile fits the x ring");
   __shared__ __align__(16) bf16 As[STAGES][BM * LDA];      // [m][k]
   __shared__ __align__(16) int8_t Bs[STAGES][BN * LDB];    // [n][k] int8 codes
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int wm = (warp / WARPS_N) * 16 * WMT, wn = (warp % WARPS_N) * 8 * WNT;
+  const int kt0 = blockIdx.z * seg_steps;
+  const int ktiles = min((K + BK - 1) / BK - kt0, seg_steps);
 
   auto load_tile = [&](int stage, int kt) {
-    const int k0 = kt * BK;
+    const int k0 = (kt0 + kt) * BK;
     for (int c = tid; c < BM * (BK / 8); c += 128) {         // 8 bf16 per chunk
       const int row = c / (BK / 8), kc = (c % (BK / 8)) * 8;
       const bool ok = m0 + row < M && k0 + kc < K;
@@ -160,7 +349,6 @@ gemm_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
 
-  const int ktiles = (K + BK - 1) / BK;
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < ktiles) load_tile(s, s);
@@ -196,28 +384,236 @@ gemm_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
     }
   }
 
-#pragma unroll
-  for (int mt = 0; mt < WMT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < WNT; ++nt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = m0 + wm + mt * 16 + g + half * 8;
-        if (r >= M) continue;
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int c = n0 + wn + nt * 8 + t4 * 2 + j;
-          if (c < N)
-            y[(long long)r * N + c] = __float2bfloat16(acc[mt][nt][half * 2 + j] * scale[c]);
-        }
-      }
+  simlingo::cp_async_wait<0>();
+  __syncthreads();                             // every warp is done with the ring
+  gemm_epilogue<BM, BN, 128>(reinterpret_cast<unsigned char*>(&As[0][0]), acc, wm, wn,
+                             scale, y, m0, n0, M, N, tid);
 }
 
-template <int BM, int WMT, int WNT>
-void launch_gemm(const bf16* x, const int8_t* w, const float* s, bf16* y,
-                 int M, int N, int K, cudaStream_t st) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_kernel<BM, WMT, WNT><<<grid, 128, 0, st>>>(x, w, s, y, M, N, K);
+// The 64-row variant (M > 48): dx_kernel's loop with the operands' roles
+// as in y = x . w_q^T. One 64 x 128 output tile of 4 warps (32 x 64 each);
+// the reduction steps of 32 K-columns stream through a 4-stage cp.async
+// ring in dynamic shared memory: x as bf16 [m][k], the weight as raw int8
+// [n][k] in 48-byte rows. One cooperative pass a stage dequantizes the int8
+// tile exactly into a bf16 [n][k] tile, once a block, one step ahead of the
+// products; a thread a row, so that its 16-byte reads and writes are free
+// of bank conflicts.
+// A comes by ldmatrix.x4 from the x tile, B by non-transposed ldmatrix.x4
+// from the bf16 [n][k] tile (rows = n, columns = k: each lane receives the
+// (b0, b1) of two n8 tiles). Both tiles have 80-byte rows, so every
+// ldmatrix phase of 8 rows x 16 bytes hits 32 banks. No scaling in the
+// loop. Unsplit, the sums are scaled in registers and the bf16 tile is
+// staged through shared memory, 16 bytes a lane to device memory; split,
+// the partial tile goes to cluster_epilogue. (This epilogue is written out
+// here rather than shared with gemm_kernel's: the shared form moved
+// ptxas's schedule of the loop and cost 5-10 % at M = 4788, PERF.md.)
+constexpr int T_BM = 64, T_BN = 128, T_BK = 32, T_STAGES = 4, T_THREADS = 128;
+constexpr int LARGE_RESIDENT = 3;      // blocks an SM: <= 170 registers a thread
+constexpr int T_LD = T_BK + 8;         // x and dequantized-weight row stride (bf16)
+constexpr int T_LDW = T_BK + 16;       // int8 weight row stride (bytes)
+constexpr int T_SX = T_STAGES * T_BM * T_LD * 2;
+constexpr int T_SW = T_STAGES * T_BN * T_LDW;
+constexpr int T_SMEM = T_SX + T_SW + 2 * T_BN * T_LD * 2;   // 65536 bytes
+static_assert(T_BM * (T_BN + 8) * 4 <= T_SMEM, "the partial tile fits the ring");
+
+template <typename ST>
+__global__ void __launch_bounds__(T_THREADS, LARGE_RESIDENT)
+gemm64_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
+              const ST* __restrict__ scale, bf16* __restrict__ y,
+              int M, int N, int K, int seg_steps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Xs = reinterpret_cast<bf16*>(smem);
+  int8_t* Ws = reinterpret_cast<int8_t*>(smem + T_SX);
+  bf16* Bs = reinterpret_cast<bf16*>(smem + T_SX + T_SW);
+  const int m0 = blockIdx.y * T_BM, n0 = blockIdx.x * T_BN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
+  const int kt0 = blockIdx.z * seg_steps;
+  const int steps = min((K + T_BK - 1) / T_BK - kt0, seg_steps);
+
+  auto load = [&](int stage, int step) {
+    const int k0 = (kt0 + step) * T_BK;
+#pragma unroll
+    for (int i = 0; i < T_BM * T_BK / (8 * T_THREADS); ++i) {       // 8 bf16 a copy
+      const int c = tid + i * T_THREADS;
+      const int row = c / (T_BK / 8), kc = (c % (T_BK / 8)) * 8;
+      const bool ok = m0 + row < M && k0 + kc < K;
+      simlingo::cp_async16(Xs + (stage * T_BM + row) * T_LD + kc,
+                           ok ? x + (long long)(m0 + row) * K + k0 + kc : x, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < T_BN * T_BK / (16 * T_THREADS); ++i) {      // 16 codes a copy
+      const int c = tid + i * T_THREADS;
+      const int row = c / (T_BK / 16), kc = (c % (T_BK / 16)) * 16;
+      const bool ok = n0 + row < N && k0 + kc < K;
+      simlingo::cp_async16(Ws + (stage * T_BN + row) * T_LDW + kc,
+                           ok ? w + (long long)(n0 + row) * K + k0 + kc : w, ok);
+    }
+  };
+  // The cooperative pass: the landed int8 tile of `stage` dequantized into
+  // the bf16 tile `buf`, a thread a row (48-byte reads, 80-byte writes: no
+  // bank conflicts).
+  auto dequant = [&](int stage, int buf) {
+    dequant_rows<T_BN, T_BK, T_LDW, T_LD, T_THREADS>(Ws + stage * T_BN * T_LDW,
+                                                     Bs + buf * T_BN * T_LD, tid);
+  };
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  // Step t + 1 is dequantized while step t is multiplied, behind one
+  // barrier a step: its loads landed one iteration earlier.
+#pragma unroll
+  for (int s = 0; s < T_STAGES - 1; ++s) {
+    if (s < steps) load(s, s);
+    simlingo::cp_async_commit();
+  }
+  simlingo::cp_async_wait<T_STAGES - 2>();           // step 0 has landed
+  __syncthreads();
+  dequant(0, 0);
+  for (int t = 0; t < steps; ++t) {
+    simlingo::cp_async_wait<T_STAGES - 3>();         // step t + 1 has landed
+    __syncthreads();            // step t is dequantized; step t - 1's buffers are free
+    if (t + T_STAGES - 1 < steps) load((t + T_STAGES - 1) % T_STAGES, t + T_STAGES - 1);
+    simlingo::cp_async_commit();
+    const bool next = t + 1 < steps;
+    const bf16* X = Xs + (t % T_STAGES) * T_BM * T_LD;
+    const bf16* B = Bs + (t & 1) * T_BN * T_LD;
+#pragma unroll
+    for (int kk = 0; kk < T_BK / 16; ++kk) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        simlingo::ldmatrix_x4(a[i], X + (wm + i * 16 + (lane & 15)) * T_LD + kk * 16 + (lane >> 4) * 8);
+      // B: lanes 0-7 / 8-15 address n rows 0-7 at k 0 / 8, lanes 16-31 the
+      // same for n rows 8-15: (b[0], b[1]) of n8 tile 2j, (b[2], b[3]) of 2j + 1
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t b[4];
+        simlingo::ldmatrix_x4(b, B + (wn + j * 16 + (lane & 7) + ((lane >> 4) << 3)) * T_LD
+                                     + kk * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          simlingo::mma_bf16_16816(acc[i][2 * j], a[i], b[0], b[1]);
+          simlingo::mma_bf16_16816(acc[i][2 * j + 1], a[i], b[2], b[3]);
+        }
+      }
+      // after the step's last products are issued, so that the two overlap
+      if (next && kk != 0) dequant((t + 1) % T_STAGES, (t + 1) & 1);
+    }
+  }
+
+  simlingo::cp_async_wait<0>();
+  __syncthreads();                                   // every warp is done with the ring
+  if (gridDim.z == 1) {
+    float sc[8][2];                                  // this lane's 16 columns' scales
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = n0 + wn + j * 8 + (lane & 3) * 2 + e;
+        sc[j][e] = c < N ? widen(scale[c]) : 0.f;
+      }
+    bf16* O = reinterpret_cast<bf16*>(smem);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = wm + i * 16 + (lane >> 2) + half * 8, c = wn + j * 8 + (lane & 3) * 2;
+          *reinterpret_cast<uint32_t*>(O + r * (T_BN + 8) + c) = simlingo::pack_bf16x2(
+              acc[i][j][half * 2] * sc[j][0], acc[i][j][half * 2 + 1] * sc[j][1]);
+        }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < T_BM * T_BN / (8 * T_THREADS); ++i) {
+      const int c = tid + i * T_THREADS;
+      const int r = c / (T_BN / 8), col = (c % (T_BN / 8)) * 8;
+      if (m0 + r < M && n0 + col < N)
+        store_row8(y + (long long)(m0 + r) * N + n0 + col, N - n0 - col, N,
+                   *reinterpret_cast<const uint4*>(O + r * (T_BN + 8) + col));
+    }
+    return;
+  }
+  float* F = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = wm + i * 16 + (lane >> 2) + half * 8, c = wn + j * 8 + (lane & 3) * 2;
+        *reinterpret_cast<float2*>(F + r * (T_BN + 8) + c) =
+            make_float2(acc[i][j][half * 2], acc[i][j][half * 2 + 1]);
+      }
+  cluster_epilogue<T_BM, T_BN, T_BN + 8, T_THREADS>(F, scale, y, m0, n0, M, N, tid);
+}
+
+// Launches `kernel` on `grid`, whose z extent S is the cluster: (1, 1, S).
+// Before its first launch with a cluster size on a device, the kernel's
+// dynamic shared-memory limit is raised where it needs more than 48 KB,
+// and the occupancy calculator is asked whether one such cluster fits the
+// card at all; a size that does not is refused (cudaErrorInvalidConfiguration),
+// with no fallback to an unsplit launch.
+template <typename... Params, typename... Args>
+cudaError_t launch_clustered(void (*kernel)(Params...),
+                             std::atomic<bool> (&ready)[MAX_DEVICES][MAX_CLUSTER + 1],
+                             dim3 grid, int smem, cudaStream_t st, Args... args) {
+  const int S = static_cast<int>(grid.z);
+  if (S < 1 || S > MAX_CLUSTER) return cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = S;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(128);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= MAX_DEVICES || !ready[dev][S].load(std::memory_order_relaxed)) {
+    if (smem > 48 * 1024) {
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return e;
+    }
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, reinterpret_cast<const void*>(kernel), &cfg);
+    if (e != cudaSuccess) return e;
+    if (clusters < 1) return cudaErrorInvalidConfiguration;
+    if (dev < MAX_DEVICES) ready[dev][S].store(true, std::memory_order_relaxed);
+  }
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <typename ST>
+cudaError_t launch_gemm(const bf16* x, const int8_t* w, const ST* s, bf16* y,
+                        int M, int N, int K, int S, int seg_steps, cudaStream_t st) {
+  static std::atomic<bool> ready[MAX_DEVICES][MAX_CLUSTER + 1];
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, S);
+  return launch_clustered(gemm_kernel<ST>, ready, grid, 0, st,
+                          x, w, s, y, M, N, K, seg_steps);
+}
+
+template <typename ST>
+cudaError_t launch_gemm64(const bf16* x, const int8_t* w, const ST* s, bf16* y,
+                          int M, int N, int K, int S, int seg_steps, cudaStream_t st) {
+  static std::atomic<bool> ready[MAX_DEVICES][MAX_CLUSTER + 1];
+  const dim3 grid((N + T_BN - 1) / T_BN, (M + T_BM - 1) / T_BM, S);
+  return launch_clustered(gemm64_kernel<ST>, ready, grid, T_SMEM, st,
+                          x, w, s, y, M, N, K, seg_steps);
 }
 
 constexpr int DX_BM = 64;            // dx rows per block
@@ -241,18 +637,6 @@ static_assert(DX_BM * (DX_BN + 8) * 2 <= DX_SG, "the output tile fits the g ring
 __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t v, float2 s) {
   return simlingo::pack_bf16x2(__uint_as_float(v << 16) * s.x,
                                __uint_as_float(v & 0xffff0000u) * s.y);
-}
-
-// Four int8 codes (lowest byte first) -> two bf16x2 words, exactly. A byte
-// permute makes each code c the fp32 2^23 + (c ^ 0x80) = 2^23 + 128 + c;
-// subtracting 2^23 + 128 leaves c, which bf16 holds exactly (|c| <= 127).
-__device__ __forceinline__ uint2 int8x4_to_bf16x4(uint32_t q) {
-  const uint32_t u = q ^ 0x80808080u;
-  float f[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + i)) - 8388736.f;
-  return make_uint2(simlingo::pack_bf16x2(f[0], f[1]), simlingo::pack_bf16x2(f[2], f[3]));
 }
 
 // One 64 x 128 tile of dx over reduction steps [z * seg_steps, ...) of 32
@@ -439,8 +823,6 @@ dx_reduce_kernel(const float* __restrict__ part, bf16* __restrict__ dx,
   reinterpret_cast<uint2*>(dx)[i] = o;
 }
 
-constexpr int MAX_DEVICES = 64;
-
 template <int VEC>
 cudaError_t launch_dx(const bf16* g, const int8_t* w, const float* s, float* part, bf16* dx,
                       int M, int N, int K, int seg_steps, int S, cudaStream_t st) {
@@ -460,20 +842,44 @@ cudaError_t launch_dx(const bf16* g, const int8_t* w, const float* s, float* par
   return cudaGetLastError();
 }
 
+template <typename ST>
+cudaError_t run_forward(const bf16* x, const int8_t* w, const ST* s, bf16* y,
+                        int M, int N, int K, int S, int seg_steps, cudaStream_t st) {
+  if (M == 1) {
+    gemv_kernel<ST><<<(N + 7) / 8, 256, 0, st>>>(x, w, s, y, N, K);
+    return cudaGetLastError();
+  }
+  if (M <= SMALL_M) return launch_gemm<ST>(x, w, s, y, M, N, K, S, seg_steps, st);
+  return launch_gemm64<ST>(x, w, s, y, M, N, K, S, seg_steps, st);
+}
+
 }  // namespace
 
-extern "C" int simlingo_int8_matmul(const void* x_, const void* w_,
-                                    const void* s_, void* y_, int M, int N,
-                                    int K, void* stream) {
+// y[M,N] = bf16((x[M,K] . w_q[N,K]^T) * scale[N]); the scale fp32, or bf16
+// with scale_bf16 set. M > 1: the reduction in S segments of seg_steps
+// steps each (the wrapper's plan, S <= 8; S = 1, seg_steps >= the steps of
+// K: no split). M == 1 takes the GEMV and ignores S.
+extern "C" int simlingo_int8_matmul(const void* x_, const void* w_, const void* s_,
+                                    void* y_, int M, int N, int K, int scale_bf16,
+                                    int S, int seg_steps, void* stream) {
   const auto* x = static_cast<const bf16*>(x_);
   const auto* w = static_cast<const int8_t*>(w_);
-  const auto* s = static_cast<const float*>(s_);
   auto* y = static_cast<bf16*>(y_);
   auto st = static_cast<cudaStream_t>(stream);
-  if (M == 1) gemv_kernel<<<(N + 7) / 8, 256, 0, st>>>(x, w, s, y, N, K);
-  else if (M <= 48) launch_gemm<16, 1, 2>(x, w, s, y, M, N, K, st);
-  else launch_gemm<64, 2, 4>(x, w, s, y, M, N, K, st);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t e =
+      scale_bf16 ? run_forward(x, w, static_cast<const bf16*>(s_), y, M, N, K, S, seg_steps, st)
+                 : run_forward(x, w, static_cast<const float*>(s_), y, M, N, K, S, seg_steps, st);
+  return static_cast<int>(e);
+}
+
+// The forward's geometry, which the wrapper's plan is made for: for the
+// 16-row (gemm_kernel) and the 64-row (gemm64_kernel) variant each, output
+// tile rows and columns, reduction step (K columns) and blocks an SM that a
+// split fills; then the cluster cap and the largest M of the 16-row variant.
+extern "C" void simlingo_int8_matmul_geometry(int* out) {
+  const int g[10] = {BM, BN, BK, SMALL_RESIDENT, T_BM, T_BN, T_BK, LARGE_FILL,
+                     MAX_CLUSTER, SMALL_M};
+  for (int i = 0; i < 10; ++i) out[i] = g[i];
 }
 
 // dx_kernel's geometry, which the wrapper's plan is made for: output tile

@@ -20,8 +20,9 @@ from forward to backward (JAX's optimisation-barrier comment, :88-93).
 On a CUDA tensor both products launch the hand-written kernels
 (`csrc/int8_matmul.cu`); on a CPU tensor they run their plain versions.
 The scale may be fp32 or bf16 (the training step stores frozen leaves in
-bf16, as JAX does); the kernels read it widened to fp32, the value JAX
-multiplies by.
+bf16, as JAX does); the kernels multiply by it widened to fp32, the value
+JAX multiplies by. The forward kernel reads a bf16 scale itself; the
+activation gradient's wrapper widens it first.
 """
 
 from __future__ import annotations
@@ -49,9 +50,14 @@ def quantize_weight(w: torch.Tensor, axis: int = 0
 
 
 def int8_matmul_reference(x: torch.Tensor, w_q: torch.Tensor,
-                          scale: torch.Tensor) -> torch.Tensor:
+                          scale: torch.Tensor, abs_terms: bool = False
+                          ) -> torch.Tensor:
     """Plain version: fp32 product of x and the int8 codes, scaled per
-    output channel, cast back to x's dtype."""
+    output channel, cast back to x's dtype. With `abs_terms`, returns
+    instead the fp32 sums of |term| (|x| |w_q| |scale|), which bound the
+    error of summing in another order."""
+    if abs_terms:
+        return (x.float().abs() @ w_q.float().abs().t()) * scale.float().abs()
     acc = x.float() @ w_q.float().t()
     return (acc * scale.float()).to(x.dtype)
 
@@ -113,8 +119,9 @@ def _int8_matmul_fwd(x, w_q, scale):
 
 
 def _check(what, a, w_q, scale, width):
-    """Checks shared by both kernels; returns the scale as contiguous fp32.
-    `a` is the activation (x) or the cotangent (g), `width` its last dim."""
+    """Checks shared by both kernels; returns the scale contiguous, in its
+    dtype. `a` is the activation (x) or the cotangent (g), `width` its last
+    dim."""
     N = w_q.shape[0]
     if a.dtype != torch.bfloat16:
         raise TypeError(f"{what} kernel takes bf16 activations, got {a.dtype}")
@@ -129,7 +136,41 @@ def _check(what, a, w_q, scale, width):
                          f"operand; got {tuple(a.shape)}, w_q {tuple(w_q.shape)}")
     if w_q.data_ptr() % 16:
         raise ValueError(f"{what} kernel needs a 16-byte aligned weight")
-    return scale.float().contiguous()
+    return scale.contiguous()
+
+
+# The forward kernels' geometry; `_lib` refuses a library that reports
+# another (simlingo_int8_matmul_geometry). Per variant: output tile (rows,
+# columns), reduction step (K columns), blocks an SM that a split fills --
+# gemm_kernel's resident blocks; 2 of gemm64_kernel's 3, past which more
+# segments measured slower (PERF.md).
+_FWD_SMALL = ((16, 64), 64, 8)       # gemm_kernel, 2 <= M <= _FWD_SMALL_M
+_FWD_LARGE = ((64, 128), 32, 2)      # gemm64_kernel, M > _FWD_SMALL_M
+_FWD_CLUSTER = 8                     # most blocks in a cluster (portable)
+_FWD_SMALL_M = 48
+
+
+def _fwd_geometry(M: int):
+    """(tile, step, blocks an SM a split fills) of the variant that takes M."""
+    return _FWD_SMALL if M <= _FWD_SMALL_M else _FWD_LARGE
+
+
+def _fwd_plan(M: int, N: int, K: int, sms: int):
+    """Grid of gemm_kernel (M >= 2; M = 1 takes the GEMV): (tile, S
+    segments, seg K columns).
+
+    The reduction (K) splits into S segments of `seg` columns, each a whole
+    number of steps (the last one ragged), and the S blocks of an output
+    tile form one cluster that sums their partials in shared memory. S = 1
+    where the output tiles alone give 2 * sms blocks or more; below that, S
+    is the largest count, at most _FWD_CLUSTER, whose blocks the SMs take
+    at once (the variant's blocks an SM), so that no block waits."""
+    tile, step, fill = _fwd_geometry(M)
+    tiles = -(-M // tile[0]) * -(-N // tile[1])
+    steps = max(1, -(-K // step))
+    S = 1 if tiles >= 2 * sms else max(1, min(steps, _FWD_CLUSTER, fill * sms // tiles))
+    per = -(-steps // S)
+    return tile, -(-steps // per), per * step
 
 
 def _int8_matmul_cuda(x, w_q, scale):
@@ -143,9 +184,14 @@ def _int8_matmul_cuda(x, w_q, scale):
         return out.reshape(*lead, N)
     if x2.data_ptr() % 16:
         raise ValueError("int8_matmul kernel needs 16-byte aligned operands")
+    S, seg_steps = 1, 0                              # the GEMV (M = 1) takes no plan
+    if M > 1:
+        _, S, seg = _fwd_plan(M, N, K, _build.sm_count(x.device.index or 0))
+        seg_steps = seg // _fwd_geometry(M)[1]
     rc = _lib().simlingo_int8_matmul(
         x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        M, N, K, torch.cuda.current_stream(x.device).cuda_stream)
+        M, N, K, int(scale.dtype == torch.bfloat16), S, seg_steps,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "int8_matmul")
     int8_matmul.launches += 1
     return out.reshape(*lead, N)
@@ -177,7 +223,7 @@ def _dx_plan(M: int, N: int, K: int, sms: int):
 
 def _int8_matmul_dx_cuda(g, w_q, scale):
     N, K = w_q.shape
-    scale = _check("int8_matmul_dx", g, w_q, scale, N)
+    scale = _check("int8_matmul_dx", g, w_q, scale, N).float()
     if N % 2:
         raise ValueError(f"int8_matmul_dx kernel needs an even N, got {N}")
     lead = g.shape[:-1]
@@ -211,6 +257,14 @@ int8_matmul_dx.launches = 0
 def _lib():
     lib = _build.load("int8_matmul")
     if lib.simlingo_int8_matmul.argtypes is None:
+        geometry = (ctypes.c_int * 10)()
+        lib.simlingo_int8_matmul_geometry(geometry)
+        want = (*_FWD_SMALL[0], *_FWD_SMALL[1:], *_FWD_LARGE[0], *_FWD_LARGE[1:],
+                _FWD_CLUSTER, _FWD_SMALL_M)
+        if tuple(geometry) != want:
+            raise RuntimeError(
+                f"int8_matmul: the library's geometry {tuple(geometry)} differs "
+                f"from the plan's {want}")
         geometry = (ctypes.c_int * 4)()
         lib.simlingo_int8_matmul_dx_geometry(geometry)
         if tuple(geometry) != (*_DX_TILE, _DX_STEP, _DX_RESIDENT):
@@ -219,7 +273,7 @@ def _lib():
                 f"{tuple(geometry)} differ from the plan's "
                 f"{(*_DX_TILE, _DX_STEP, _DX_RESIDENT)}")
         lib.simlingo_int8_matmul.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.simlingo_int8_matmul.restype = ctypes.c_int
         lib.simlingo_int8_matmul_dx.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])

@@ -22,7 +22,9 @@ plus 1e-5 of the sum of |terms| over the rows. The fused CE's ce to
 2^-7 (sum |terms| + |ref|): kernel and plain version round dlogits to
 bf16 at the same point, so a flip is at most one bf16 spacing. The int8
 activation gradient to one bf16 spacing of |ref| plus 2^-20 sqrt(N) of
-the sum of |terms| (see _dx_tol).
+the sum of |terms| (see _dx_tol); the int8 forward's split reduction to
+half a spacing of the fp32 |ref| plus 2^-20 sqrt(K) of the sum of |terms|
+(see _fwd_tol).
 """
 
 import pytest
@@ -88,6 +90,50 @@ def test_int8_matmul_kernel_matches_plain(gpu, M):
     assert TQM.int8_matmul.launches == before + 1
     ref = TQM.int8_matmul_reference(x.float(), w_q, scale)
     torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
+
+
+def _fwd_tol(x, w_q, scale, ref):
+    """The int8 forward against its plain version in fp32: the kernel rounds
+    its fp32 sum times the scale once to bf16 (2^-8 |ref|) and sums in
+    another order, reduction segments included: 2^-20 sqrt(K) of the sum of
+    |terms| (a random walk of K roundings of 2^-24, with a margin of 16)."""
+    terms = TQM.int8_matmul_reference(x.float(), w_q, scale, abs_terms=True)
+    ref = ref.float()
+    return (2.0 ** -8 * ref.abs() + 2.0 ** -20 * w_q.shape[1] ** 0.5 * terms
+            + 1e-6 * float(ref.square().mean().sqrt()))
+
+
+@pytest.mark.cuda
+# 16-row tiles with the reduction split into 8 segments, the last one short;
+# K = 4880 ends 16 columns into its last step; 64-row tiles in a cluster of
+# the plan's largest S; bf16 scales (the training step's frozen cast) at the
+# GEMV, prefill and training rows; N = 130 and 131: bf16 pairs and single
+# stores at the ragged columns
+@pytest.mark.parametrize("M,N,K,scale_dtype", [
+    (16, 896, 4864, torch.float32), (30, 896, 4880, torch.float32),
+    (64, 128, 1024, torch.float32), (1, 896, 896, torch.bfloat16),
+    (640, 896, 4864, torch.bfloat16), (4788, 128, 896, torch.bfloat16),
+    (200, 130, 896, torch.bfloat16), (5, 131, 64, torch.float32)])
+def test_int8_matmul_split_reduction_is_right_and_bit_identical(gpu, M, N, K, scale_dtype):
+    if M > 1:
+        _, S, seg = TQM._fwd_plan(M, N, K, _build.sm_count(gpu.index or 0))
+        if (M, K) == (16, 4864):
+            assert S > 1 and K - (S - 1) * seg < seg
+        if K == 4880:
+            assert S > 1 and K % 64
+        if (M, N) == (64, 128):
+            assert S == TQM._FWD_CLUSTER
+    g = torch.Generator(device=gpu).manual_seed(12)
+    x = torch.randn(M, K, generator=g, device=gpu).bfloat16()
+    w_q, scale = TQM.quantize_weight(torch.randn(N, K, generator=g, device=gpu) * 0.02)
+    scale = scale.to(scale_dtype)
+    before = TQM.int8_matmul.launches
+    out = TQM.int8_matmul(x, w_q, scale)
+    again = TQM.int8_matmul(x, w_q, scale)
+    assert TQM.int8_matmul.launches == before + 2
+    assert torch.equal(out, again)
+    ref = TQM.int8_matmul_reference(x.float(), w_q, scale)
+    _within(out, ref, _fwd_tol(x, w_q, scale, ref), "int8_matmul")
 
 
 @pytest.mark.cuda
