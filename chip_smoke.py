@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py               # all phases, one GPU
     python3 chip_smoke.py --kernels     # build + kernel checks only
+    python3 chip_smoke.py --kernels flash_attn_bwd   # ... of the named kernels
     python3 chip_smoke.py --int8-sweep  # the int8 forward at forced splits S
 
 Phases, in order; any failure exits non-zero:
@@ -11,7 +12,11 @@ Phases, in order; any failure exits non-zero:
      training paths give it, against its plain PyTorch version on the same
      bf16 inputs (fp32 math) at |err| <= ATOL + RTOL |ref| (the attention
      backward: within the bf16 rounding bound of each gradient element,
-     see BF16_U; dropout: bit-equal, keep rate 0.9 +- 0.002, identity at
+     see BF16_U, and so pass by pass -- its dS^T scratch against
+     attention_ds_reference, its dq against attention_dq_from_ds_reference
+     of that scratch -- bit-identical across two calls, with the device ms
+     of its three kernels, their ptxas registers, the dK/dV instantiation
+     and the scratch bytes; dropout: bit-equal, keep rate 0.9 +- 0.002, identity at
      p = 0; LayerNorm / RMSNorm forward and backward at the ViT, projector,
      LLM-training and serving rows, and the fused CE forward, backward and
      dW backward at the training shape and a ragged one, each against the
@@ -60,6 +65,7 @@ chip_smoke_train_gated.json and chip_smoke_train_int8.json.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import os
@@ -159,6 +165,59 @@ def eager_ms(torch, fn, sets, iters=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_split_ms(torch, fn, sets, names, iters=10):
+    """Device ms a launch of each named kernel of one wrapper, from
+    torch.profiler over `iters` eager calls cycling through the operand
+    sets (a kernel's device time does not depend on how it was launched)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn(*sets[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*sets[i % len(sets)])
+        torch.cuda.synchronize()
+    total = {name: [0.0, 0] for name in names}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        for name in names:
+            if re.search(rf"(^|[:\s]){name}\b", e.key):
+                total[name][0] += dev_us / 1e3
+                total[name][1] += e.count
+    # per launch (one a call): the tracer may drop events of some calls
+    return {name: ms / max(n, 1) for name, (ms, n) in total.items()}
+
+
+def ptxas_usage(stem):
+    """{kernel: (registers, spill store bytes)} of csrc/<stem>.cu from the
+    `nvcc -Xptxas -v` log that phase 1 wrote beside the library."""
+    from simlingo_tpu_torch.kernels import _build
+    path = _build.BUILD_ROOT / _build._digest() / f"{stem}.build.log"
+    usage, name, spill = {}, None, 0
+    for line in path.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            short = name
+            for k in HAND_KERNELS:                   # the mangled name, template args
+                t = re.search(rf"{len(k)}{k}(?:ILi(\d+)E)?", name)
+                if t:
+                    short = k + (f"<{t.group(1)}>" if t.group(1) else "")
+                    break
+            usage[short] = (int(m.group(1)), spill)
+            name = None
+    return usage
 
 
 def n_sets(nbytes):
@@ -431,12 +490,18 @@ def run_int8_dx_checks(torch, dev, results):
 def run_attention_bwd_checks(torch, dev, results):
     """flash_attn_bwd at the two training shapes, against
     attention_bwd_reference on the same bf16 inputs (and the kernel
-    forward's o and lse); library: autograd through SDPA's backward."""
+    forward's o and lse), and pass by pass against attention_ds_reference
+    and attention_dq_from_ds_reference; bit-identical across two calls;
+    device ms of its three kernels and their ptxas registers; library:
+    autograd through SDPA's backward."""
     import torch.nn.functional as F
     from simlingo_tpu_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=dev).manual_seed(3)
     D = 64
     train_valid = train_llm_valid(torch, dev)
+    regs = {k: v for k, v in ptxas_usage("flash_attn_bwd").items()
+            if k.split("<")[0] in BWD_KERNELS}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, B, T, HQ, HK, causal, strided in (
             ("llm_train", 6, 798, 14, 2, True, False),
             ("vit_train", 12, 1025, 16, 16, False, True)):
@@ -457,13 +522,15 @@ def run_attention_bwd_checks(torch, dev, results):
             return q, k, v, out, dout, lse
 
         q, k, v, out, dout, lse = make()
-        got = FA.flash_attn_bwd(q, k, v, valid, out, dout, lse, causal)
+        *got, ds = FA.flash_attn_bwd(q, k, v, valid, out, dout, lse, causal, return_ds=True)
+        same = all(torch.equal(a, b) for a, b in zip(       # no atomics: bit-identical
+            FA.flash_attn_bwd(q, k, v, valid, out, dout, lse, causal), got))
         torch.cuda.synchronize()
         args = (q.float(), k.float(), v.float(), valid, out.float(), dout.float(),
                 lse, causal)
         ref = FA.attention_bwd_reference(*args)
         mag = FA.attention_bwd_reference(*args, abs_terms=True)
-        ok, err, rel, ratio = True, 0.0, 0.0, 0.0
+        ok, err, rel, ratio = same, 0.0, 0.0, 0.0
         for a, b, m in zip(got, ref, mag):
             diff = (a.float() - b).abs()
             rms = float(b.square().mean().sqrt())
@@ -471,7 +538,32 @@ def run_attention_bwd_checks(torch, dev, results):
             ok &= bool((diff <= tol).all())
             err, rel = max(err, float(diff.max())), max(rel, float(diff.max()) / rms)
             ratio = max(ratio, float((diff / tol).max()))
-        del mag
+        del mag, ref
+        # the scratch path, pass by pass: the kernel's dS^T on the pairs it
+        # writes against the plain first pass, and its dq against the plain
+        # second pass over the kernel's own scratch (same bound)
+        plan = FA._bwd_plan(B, T, T, HQ, HK, causal, 0)
+        written = FA._pair_mask(plan.written, plan, FA._live_key_tiles(valid, B, T, dev))
+        pass_ratio = []
+        for want, terms, have in (
+                (FA.attention_ds_reference(*args), FA.attention_ds_reference(
+                    *args, abs_terms=True), ds),
+                (FA.attention_dq_from_ds_reference(ds, k.float(), valid, T, causal),
+                 FA.attention_dq_from_ds_reference(ds, k.float(), valid, T, causal,
+                                                   abs_terms=True), got[0])):
+            if want.shape == ds.shape:                 # the first pass: written pairs only
+                want, terms, have = (torch.where(written, x.float(), 0.0)
+                                     for x in (want, terms, have))
+            rms = float(want.square().mean().sqrt())
+            tol = BF16_U * (terms + want.abs()) + 1e-5 * rms
+            pass_ratio.append(float(((have.float() - want).abs() / tol).max()))
+            del want, terms, have, tol
+        ok &= max(pass_ratio) <= 1.0
+        del written, ds
+        # the bits of (dq, dk, dv) for this seed: equal digests across trees
+        # on one card mean equal results
+        digest = [hashlib.sha256(x.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+                  .hexdigest()[:12] for x in got]
         pairs, empty_rows, mask = visible_pairs(torch, dev, B, T, T, causal, None, valid)
         flops = 10 * D * pairs * HQ          # S, dP, dV, dQ, dK: 2*D per pair each
         qsz, ksz = B * T * HQ * D, B * T * HK * D
@@ -483,6 +575,7 @@ def run_attention_bwd_checks(torch, dev, results):
         def kernel(q_, k_, v_, o_, d_, l_):
             return FA.flash_attn_bwd(q_, k_, v_, valid, o_, d_, l_, causal)
         kernel_ms = time_ms(torch, kernel, sets)
+        split = kernel_split_ms(torch, kernel, sets, BWD_KERNELS)
         plain_ms = time_ms(torch, lambda q_, k_, v_, o_, d_, l_: FA.attention_bwd_reference(
             q_, k_, v_, valid, o_, d_, l_, causal), sets[:2], iters=2)
         # library: the backward of SDPA with the same mask (eager, events)
@@ -497,16 +590,33 @@ def run_attention_bwd_checks(torch, dev, results):
         row = dict(kernel="flash_attn_bwd", case=name,
                    shape=f"q[{B},{T},{HQ},{D}] kv[{B},{T},{HK},{D}]", causal=causal,
                    empty_rows=empty_rows, max_abs_err=err, err_over_rms=rel,
-                   err_over_tol=ratio, ok=ok,
+                   err_over_tol=ratio, bit_identical=same, ok=ok,
                    kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bms, bound_by=bby,
-                   dkdv_blocks=-(-T // 64) * HK * B, dq_blocks=-(-T // 64) * HQ * B)
+                   bound_ms=bms, bound_by=bby, split_ms=split, ptxas=regs,
+                   ds_bytes=plan.ds_bytes, ds_floor_ms=2 * plan.ds_bytes / PEAK_BYTES * 1e3,
+                   pairs_per_head=[len(plan.written), plan.n_qt * plan.n_kt],
+                   ds_pass_err_over_tol=pass_ratio[0], dq_pass_err_over_tol=pass_ratio[1],
+                   dkdv_blocks=plan.n_kt * HK * B, dq_blocks=plan.n_qt * HQ * B,
+                   dkdv_kernel=f"bwd_dkdv_kernel<{FA._dkdv_blocks(B, T, HK, sms)}>",
+                   digest=digest)
         results.append(row)
         log(f"[kernel] flash_attn_bwd {name:12s} {row['shape']:32s} err={err:.3e} "
             f"err/rms={rel:.3e} err/tol={ratio:.3f} (tol 2^-8 (sum|terms| + |ref|)) "
+            f"bit-identical={same} "
             f"{'OK' if ok else 'FAIL'} kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms={library_ms:.4f} (SDPA backward) bound_ms={bms:.4f} ({bby}) "
-            f"dK/dV blocks={row['dkdv_blocks']} dQ blocks={row['dq_blocks']}")
+            f"dK/dV blocks={row['dkdv_blocks']} ({row['dkdv_kernel']}) "
+            f"dQ blocks={row['dq_blocks']}")
+        log(f"[kernel] flash_attn_bwd {name:12s} device ms a call by kernel: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+            + " | ptxas registers (spill bytes): "
+            + ", ".join(f"{k} {r} ({sp})" for k, (r, sp) in regs.items()))
+        log(f"[kernel] flash_attn_bwd {name:12s} dS^T scratch {plan.ds_shape} bf16 "
+            f"{plan.ds_bytes} bytes (written + read once: {row['ds_floor_ms']:.4f} ms at "
+            f"{PEAK_BYTES / 1e12} TB/s), pairs a head {len(plan.written)} of "
+            f"{plan.n_qt * plan.n_kt}; err/tol of the dS pass {pass_ratio[0]:.3f}, "
+            f"of dq from the kernel's dS {pass_ratio[1]:.3f}; sha256 of dq, dk, dv "
+            f"{' '.join(digest)}")
 
 
 def run_dropout_checks(torch, dev, results):
@@ -1009,6 +1119,7 @@ HAND_KERNELS = ("flash_fwd_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel", "bwd_pre
 
 
 INT8_FWD_KERNELS = ("gemv_kernel", "gemm_kernel", "gemm64_kernel")
+BWD_KERNELS = ("bwd_prep_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel")
 
 
 def kernel_class(name):
@@ -1333,6 +1444,13 @@ def kernel_line(cases, launches):
     return {"kernels": out}
 
 
+def smi_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
 def run_path_phases(torch, dev, cases) -> int:
     if not (small_model_agreement(torch, dev) and small_training_agreement(torch, dev)
             and small_training_agreement(torch, dev, gated=True)
@@ -1362,9 +1480,7 @@ def run_path_phases(torch, dev, cases) -> int:
     if not ok:
         return 1
     compare_int8_base(train_stats, int8_stats)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+    smi = smi_line()
     for name, st in (("agent", stats), ("train", train_stats), ("train_gated", gated_stats),
                      ("train_int8", int8_stats)):
         with open(os.path.join(ROOT, "chiprun_out", f"chip_smoke_{name}.json"), "w") as f:
@@ -1383,10 +1499,16 @@ def run_path_phases(torch, dev, cases) -> int:
 # main
 # ---------------------------------------------------------------------------
 
+KERNEL_CHECKS = {"flash_attn_fwd": run_attention_checks, "int8_matmul": run_int8_checks,
+                 "int8_matmul_dx": run_int8_dx_checks, "flash_attn_bwd": run_attention_bwd_checks,
+                 "dropout": run_dropout_checks, "norms": run_norm_checks, "fused_ce": run_ce_checks}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernels", action="store_true",
-                    help="build and check the kernels only")
+    ap.add_argument("--kernels", nargs="*", choices=sorted(KERNEL_CHECKS), metavar="NAME",
+                    help="build and check the kernels only (those named, else all: "
+                         + ", ".join(sorted(KERNEL_CHECKS)) + ")")
     ap.add_argument("--int8-sweep", action="store_true",
                     help="build, then time the int8 forward at every reduction split")
     args = ap.parse_args()
@@ -1409,13 +1531,9 @@ def main() -> int:
 
     # 2. kernels
     cases = []
-    run_attention_checks(torch, dev, cases)
-    run_int8_checks(torch, dev, cases)
-    run_int8_dx_checks(torch, dev, cases)
-    run_attention_bwd_checks(torch, dev, cases)
-    run_dropout_checks(torch, dev, cases)
-    run_norm_checks(torch, dev, cases)
-    run_ce_checks(torch, dev, cases)
+    for name, check in KERNEL_CHECKS.items():
+        if not args.kernels or name in args.kernels:
+            check(torch, dev, cases)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_cases.json"), "w") as f:
         json.dump(cases, f, indent=1)
@@ -1423,8 +1541,8 @@ def main() -> int:
     if bad:
         log(f"[kernel] FAILED: {[(c['kernel'], c['case'], c['shape']) for c in bad]}")
         return 1
-    if args.kernels:
-        log("[kernel] all cases within tolerance")
+    if args.kernels is not None:
+        log(f"[kernel] all cases within tolerance on {smi_line()}")
         return 0
 
     return run_path_phases(torch, dev, cases)

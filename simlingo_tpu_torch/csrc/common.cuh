@@ -88,6 +88,18 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s) : "memory");
 }
 
+// The inverse of ldmatrix_x4: four 8x8 b16 matrices to shared memory,
+// lanes 8i..8i+7 giving the row addresses of matrix i and lane (g, t)
+// holding row g, columns 2t..2t+1 of each. With the addresses of
+// ldmatrix_x4 (lanes 0-15 on rows 0-15 at column 0, lanes 16-31 at column
+// 8), an mma.m16n8k16 A-fragment -- or the accumulators of two n8 tiles
+// packed to bf16 pairs -- lands as a row-major 16 x 16 tile.
+__device__ __forceinline__ void stmatrix_x4(const uint32_t (&r)[4], void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1,%2,%3,%4};\n"
+               ::"r"(s), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3]) : "memory");
+}
+
 // wait until at most N committed groups are still in flight
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {

@@ -18,26 +18,47 @@
 // (its lse is read as +inf, so P = 0): that is attention_reference's VJP.
 //
 // Three launches, no atomics, so results do not change from run to run:
-//   1. prep: delta[b, h, t] = rowsum(dO * O) in fp32, one warp per row;
-//   2. dK/dV: one block of 4 warps per (batch, kv head, 64-key tile); each
-//      warp owns 16 keys, holds their K and V rows as mma A-fragments and
-//      dK, dV in fp32 registers. The block loops over the group's query
-//      heads and over the 64-row query tiles that can see its keys, with
-//      Q, dO, lse and delta double-buffered in shared memory by cp.async.
-//      It computes S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T sit in
-//      the accumulators in exactly the A-fragment layout that dV += P^T dO
-//      and dK += dS^T Q need (B-fragments by ldmatrix.trans, as the
-//      forward's P V). Key tiles with no valid key write zeros at once.
-//   3. dQ: one block per (batch, query head, 64-row query tile), the
-//      forward's structure: Q and dO rows in registers, K and V tiles
-//      double-buffered, dQ += dS K in fp32 registers.
+//   1. prep: delta[b, h, t] = rowsum(dO * O) in fp32, 8 lanes a row;
+//      with kv_valid, also live[b, kt] = whether 64-key tile kt holds a
+//      valid key.
+//   2. dK/dV: one block of 4 warps per (batch, kv head, 64-key tile), its
+//      K and V tiles in shared memory; each warp owns 16 keys and holds
+//      their dK, dV in fp32 registers. The block loops over the group's
+//      query heads and over the 64-row query tiles that can see its keys,
+//      with Q, dO, lse and delta double-buffered in shared memory by
+//      cp.async. It computes S^T = K Q^T and dP^T = V dO^T (K, V
+//      A-fragments by ldmatrix), so P^T and dS^T sit in the accumulators in
+//      exactly the A-fragment layout that dV += P^T dO and dK += dS^T Q
+//      need (B-fragments by ldmatrix.trans, as the forward's P V). The bf16
+//      dS^T fragment that dK takes is also written, once, to a scratch of
+//      key-major 64 x 64 tiles, ds[B, HQ, n_kt, n_qt, 64 keys, 64 queries]
+//      (stmatrix into a per-warp shared tile, then 512 contiguous bytes a
+//      store instruction).
+//   3. dQ: one block of 4 warps per (batch, query head, 64-row query
+//      tile), a tiled product dQ = scale dS K over the key tiles: dS^T
+//      tiles (8 KB contiguous each) and K tiles double-buffered by
+//      cp.async, dS's A-fragments by ldmatrix.trans from the key-major
+//      tile, K's B-fragments as the forward's V. It reads no Q, dO, V, lse
+//      or delta and computes no exp2.
+// A (query tile, key tile) pair is written by 2 and read by 3 exactly when
+// pair_live() holds, so no uninitialised scratch reaches dQ; a key tile
+// without a valid key is in no pair and its dK, dV are 0.
 //
 // What bounds it: tensor-core operations -- 5 products of 2*T*S*D each per
-// head (S and dP are computed twice, once in each kernel), 2.5x the
-// forward's 4*T*S*D. The dK/dV grid of the LLM is small: 6 * 2 * 13 = 156
-// blocks on 132 SMs, each walking 7 heads x up to 13 query tiles serially;
+// head (S, dP, dV, dK in the dK/dV kernel, dS K in dQ), 2.5x the forward's
+// 4*T*S*D -- and, by design, the scratch: dS is written and read once in
+// bf16 (2 x 2*B*HQ*T*S bytes; 0.27 ms at 3.35 TB/s at the ViT's
+// [12,1025,16,64], above its 0.13 ms operations bound); the dQ kernel is
+// bound by reading it. No atomics either way; summing fp32 dQ partials in
+// order would move 4x the bytes at D = 64. Where its grid fills 3 blocks an
+// SM (the ViT: 3264 blocks), the dK/dV kernel is compiled for 3 resident
+// blocks (at most 168 registers) instead of the 2 that its own register
+// count allows. The dK/dV grid of the LLM is small: 6 * 2 * 13 = 156 blocks
+// on 132 SMs, each walking 7 heads x up to 13 query tiles serially;
 // splitting the group across blocks (and reducing dK/dV afterwards) is the
 // fix, left for a later change.
+
+#include <atomic>
 
 #include "common.cuh"
 
@@ -56,44 +77,99 @@ __device__ __forceinline__ float lse_as_read(float lse) {
   return lse == -INFINITY ? INFINITY : lse;
 }
 
-// delta[b, h, t] = sum_d dO * O; dO and O contiguous [B, T, HQ, D]
+// Whether the dK/dV kernel writes, and the dQ kernel reads, the dS^T tile of
+// (query tile qt, key tile kt): its key tile holds a valid key and, if
+// causal, its first key is visible to its last row (slot q_offset + row).
+// Monotone: true for a suffix of qt and a prefix of kt.
+__device__ __forceinline__ bool pair_live(bool key_tile_live, int qt, int kt,
+                                          int T, int causal, int q_offset) {
+  return key_tile_live &&
+         (!causal || kt * BKV <= q_offset + min(qt * BQ + BQ - 1, T - 1));
+}
+
+// Rows (b, t, h) first, 8 lanes a row with 16-byte loads: delta[b, h, t] =
+// sum_d dO * O, with dO and O contiguous [B, T, HQ, D]. Then, with
+// kv_valid, one warp a key tile: live[b * n_kt + kt] = any valid key in
+// [64 kt, 64 kt + 64).
+//
+// The sum keeps the order of a warp a row with 4-byte loads (lane l the
+// products of elements 2l, 2l + 1, then a butterfly over lanes 16, 8, 4, 2,
+// 1), so delta -- and so dK -- keep their bits: lane p of a row holds that
+// warp's lanes 4p .. 4p + 3 as w[0..3]; lanes 16, 8, 4 apart are lanes 4, 2,
+// 1 apart here, and lanes 2, 1 apart are w[j ^ 2], w[j ^ 1] in the lane.
 __global__ void __launch_bounds__(256)
 bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                float* __restrict__ delta, int T, int HQ, long long rows) {
-  const long long row = blockIdx.x * 8LL + (threadIdx.x >> 5);   // (b, t, h)
+                float* __restrict__ delta, const uint8_t* __restrict__ kv_valid,
+                uint8_t* __restrict__ live, int T, int S, int HQ, int n_kt,
+                long long rows, long long tiles) {
+  const long long row_blocks = (rows + 31) / 32;
   const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const __nv_bfloat162 ov = reinterpret_cast<const __nv_bfloat162*>(o + row * D)[lane];
-  const __nv_bfloat162 dv = reinterpret_cast<const __nv_bfloat162*>(dout + row * D)[lane];
-  float acc = __bfloat162float(ov.x) * __bfloat162float(dv.x) +
-              __bfloat162float(ov.y) * __bfloat162float(dv.y);
+  if (blockIdx.x >= row_blocks) {
+    const long long i = (blockIdx.x - row_blocks) * 8LL + (threadIdx.x >> 5);   // (b, kt)
+    if (i >= tiles) return;
+    const long long b = i / n_kt;
+    const int k0 = static_cast<int>(i % n_kt) * BKV;
+    const uint8_t* vr = kv_valid + b * S;
+    const bool any = (k0 + lane < S && vr[k0 + lane]) ||
+                     (k0 + 32 + lane < S && vr[k0 + 32 + lane]);
+    const unsigned m = __ballot_sync(0xffffffffu, any);
+    if (lane == 0) live[i] = m != 0u;
+    return;
+  }
+  const long long w = blockIdx.x * 32LL + (threadIdx.x >> 3);
+  const int part = threadIdx.x & 7;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  if (w < rows) {
+    const uint4 ov = reinterpret_cast<const uint4*>(o + w * D)[part];
+    const uint4 dv = reinterpret_cast<const uint4*>(dout + w * D)[part];
+    const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&dv);
 #pragma unroll
-  for (int m = 16; m > 0; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
-  if (lane == 0) {
-    const int h = static_cast<int>(row % HQ);
-    const long long bt = row / HQ;
+    for (int j = 0; j < 4; ++j)
+      acc[j] = __bfloat162float(op[j].x) * __bfloat162float(dp[j].x) +
+               __bfloat162float(op[j].y) * __bfloat162float(dp[j].y);
+  }
+#pragma unroll
+  for (int m = 4; m > 0; m >>= 1)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], m);
+  if (part == 0 && w < rows) {
+    const int h = static_cast<int>(w % HQ);
+    const long long bt = w / HQ;
     const long long b = bt / T, t = bt % T;
-    delta[(b * HQ + h) * T + t] = acc;
+    delta[(b * HQ + h) * T + t] = (acc[0] + acc[2]) + (acc[1] + acc[3]);
   }
 }
 
-__global__ void __launch_bounds__(128)
+constexpr int DKDV_DYN_SMEM = 2 * BKV * LDK * 2;   // the K and V tiles
+
+// MIN_BLOCKS: resident blocks an SM that ptxas must fit (3 caps the
+// registers at 168); 1 leaves the count to ptxas (2 blocks an SM).
+template <int MIN_BLOCKS>
+__global__ void __launch_bounds__(128, MIN_BLOCKS)
 bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const uint8_t* __restrict__ kv_valid,
+                const uint8_t* __restrict__ live,
                 const bf16* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, bf16* __restrict__ dk,
-                bf16* __restrict__ dv, int T, int S, int HQ, int HK,
+                const float* __restrict__ delta, bf16* __restrict__ ds,
+                bf16* __restrict__ dk, bf16* __restrict__ dv,
+                int T, int S, int HQ, int HK,
                 long long sqb, long long sqt, long long sqh,
                 long long skb, long long sks, long long skh,
                 long long svb, long long svs, long long svh,
                 int causal, int q_offset, float scale, float scale_log2) {
   __shared__ __align__(16) bf16 Qs[2][BQ * LDK];     // [query][d]
   __shared__ __align__(16) bf16 dOs[2][BQ * LDK];    // [query][d]
+  __shared__ __align__(16) bf16 dSs[4][16 * LDK];    // a warp's dS^T rows: [key][query]
   __shared__ float lse_s[2][BQ];
   __shared__ float delta_s[2][BQ];
+  extern __shared__ __align__(16) bf16 kv_s[];       // dynamic: K then V tile, [key][d]
+  bf16* Ks = kv_s;
+  bf16* Vs = kv_s + BKV * LDK;
 
-  const int k0 = blockIdx.x * BKV, hk = blockIdx.y, b = blockIdx.z;
+  const int kt = blockIdx.x, k0 = kt * BKV, hk = blockIdx.y, b = blockIdx.z;
   const int group = HQ / HK;
+  const int n_qt = (T + BQ - 1) / BQ, n_kt = (S + BKV - 1) / BKV;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int key0 = k0 + warp * 16 + g;              // this thread's keys: key0, key0+8
@@ -106,12 +182,11 @@ bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int s = key0 + r * 8;
     key_ok[r] = s < S && (kv_valid == nullptr || kv_valid[(long long)b * S + s]);
   }
-  // causal: the first query row that sees key k0 is k0 - q_offset
-  const int row_lo = causal ? max(0, k0 - q_offset) : 0;
-  const int qt_lo = row_lo / BQ;
-  const int n_qt = row_lo < T ? (T + BQ - 1) / BQ - qt_lo : 0;
-  const int any_key = __syncthreads_or(key_ok[0] || key_ok[1]);
-  const int n_it = any_key ? group * n_qt : 0;
+  const bool tile_live = live == nullptr || live[(long long)b * n_kt + kt];
+  int qt_lo = 0;                                    // the first query tile that sees k0
+  while (qt_lo < n_qt && !pair_live(tile_live, qt_lo, kt, T, causal, q_offset)) ++qt_lo;
+  const int n_qtv = n_qt - qt_lo;
+  const int n_it = group * n_qtv;
 
   float dkacc[8][4], dvacc[8][4];
 #pragma unroll
@@ -120,25 +195,20 @@ bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < 4; ++j) dkacc[i][j] = dvacc[i][j] = 0.f;
 
   if (n_it > 0) {
-    uint32_t kf[4][4], vf[4][4];
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      const int c = ks * 16 + t4 * 2;
-      const bool r0 = key0 < S, r1 = key0 + 8 < S;
-      kf[ks][0] = r0 ? ld32(kb + key0 * sks + c) : 0u;
-      kf[ks][1] = r1 ? ld32(kb + (key0 + 8) * sks + c) : 0u;
-      kf[ks][2] = r0 ? ld32(kb + key0 * sks + c + 8) : 0u;
-      kf[ks][3] = r1 ? ld32(kb + (key0 + 8) * sks + c + 8) : 0u;
-      vf[ks][0] = r0 ? ld32(vb + key0 * svs + c) : 0u;
-      vf[ks][1] = r1 ? ld32(vb + (key0 + 8) * svs + c) : 0u;
-      vf[ks][2] = r0 ? ld32(vb + key0 * svs + c + 8) : 0u;
-      vf[ks][3] = r1 ? ld32(vb + (key0 + 8) * svs + c + 8) : 0u;
+    // the block's K and V rows to shared memory once (keys past S as 0); each
+    // warp takes its A-fragments by ldmatrix where it needs them, so they
+    // hold no registers across the loop
+    for (int c = tid; c < BKV * (D / 8); c += 128) {
+      const int key = c >> 3, dc = (c & 7) * 8, s = k0 + key;
+      const bool in = s < S;
+      simlingo::cp_async16(&Ks[key * LDK + dc], in ? kb + s * sks + dc : kb, in);
+      simlingo::cp_async16(&Vs[key * LDK + dc], in ? vb + s * svs + dc : vb, in);
     }
 
-    // stage query tile `it`: (head, tile) = (hk * group + it / n_qt, qt_lo + it % n_qt)
+    // stage query tile `it`: (head, tile) = (hk * group + it / n_qtv, qt_lo + it % n_qtv)
     auto load_tile = [&](int stage, int it) {
-      const int h = hk * group + it / n_qt;
-      const int q0 = (qt_lo + it % n_qt) * BQ;
+      const int h = hk * group + it / n_qtv;
+      const int q0 = (qt_lo + it % n_qtv) * BQ;
       const bf16* qb = q + b * sqb + h * sqh;
       const bf16* db = dout + ((long long)b * T * HQ + h) * D;
       for (int c = tid; c < BQ * (D / 8); c += 128) {
@@ -158,9 +228,11 @@ bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     load_tile(0, 0);
     simlingo::cp_async_commit();
 
+    bf16* stage_ds = dSs[warp];
     for (int it = 0; it < n_it; ++it) {
       const int st = it & 1;
-      const int q0 = (qt_lo + it % n_qt) * BQ;
+      const int h = hk * group + it / n_qtv;
+      const int q0 = (qt_lo + it % n_qtv) * BQ;
       if (it + 1 < n_it) load_tile(st ^ 1, it + 1);
       simlingo::cp_async_commit();
       simlingo::cp_async_wait<1>();
@@ -171,15 +243,21 @@ bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       // S^T = K Q^T and dP^T = V dO^T over 64 queries: 8 n-tiles of 8
       float sc[8][4], dp[8][4];
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
+      for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
         for (int j = 0; j < 4; ++j) sc[nt][j] = dp[nt][j] = 0.f;
 #pragma unroll
-        for (int ks = 0; ks < 4; ++ks) {
+      for (int ks = 0; ks < 4; ++ks) {
+        uint32_t kf[4], vf[4];
+        const int kvo = (warp * 16 + (lane & 15)) * LDK + ks * 16 + (lane >> 4) * 8;
+        simlingo::ldmatrix_x4(kf, &Ks[kvo]);
+        simlingo::ldmatrix_x4(vf, &Vs[kvo]);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
           const bf16* qp = &Qt[(nt * 8 + g) * LDK + ks * 16 + t4 * 2];
-          simlingo::mma_bf16_16816(sc[nt], kf[ks], ld32(qp), ld32(qp + 8));
+          simlingo::mma_bf16_16816(sc[nt], kf, ld32(qp), ld32(qp + 8));
           const bf16* dp_ = &dOt[(nt * 8 + g) * LDK + ks * 16 + t4 * 2];
-          simlingo::mma_bf16_16816(dp[nt], vf[ks], ld32(dp_), ld32(dp_ + 8));
+          simlingo::mma_bf16_16816(dp[nt], vf, ld32(dp_), ld32(dp_ + 8));
         }
       }
       // P^T and dS^T in place: row = key (g, g+8), column = query
@@ -207,6 +285,8 @@ bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         sa[1] = simlingo::pack_bf16x2(dp[2 * kk][2], dp[2 * kk][3]);
         sa[2] = simlingo::pack_bf16x2(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
         sa[3] = simlingo::pack_bf16x2(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+        // the same bf16 dS^T, keys [16 warp, +16) x queries [16kk, +16), to the warp's tile
+        simlingo::stmatrix_x4(sa, &stage_ds[(lane & 15) * LDK + kk * 16 + (lane >> 4) * 8]);
 #pragma unroll
         for (int dt = 0; dt < 8; ++dt) {
           uint32_t b0, b1;
@@ -216,7 +296,17 @@ bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           simlingo::mma_bf16_16816(dkacc[dt], sa, b0, b1);
         }
       }
-      __syncthreads();                 // stage `st` is reloaded next iteration
+      // the warp's 16 rows of tile (kt, q0 / 64): 2 KB, contiguous
+      __syncwarp();
+      bf16* dsw = ds + ((((long long)b * HQ + h) * n_kt + kt) * n_qt + q0 / BQ) * (BKV * BQ) +
+                  warp * 16 * BQ;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = lane + 32 * i, r = c >> 3, cc = (c & 7) * 8;
+        *reinterpret_cast<uint4*>(dsw + c * 8) =
+            *reinterpret_cast<const uint4*>(&stage_ds[r * LDK + cc]);
+      }
+      __syncthreads();                 // stage `st` (and the dS tile) is reused next iteration
     }
   }
 
@@ -236,61 +326,40 @@ bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// dQ[b, t, h, :] = scale * sum_s dS[b, h, t, s] K[b, s, h / group, :] over the
+// key tiles whose pair with this query tile is live. Dynamic shared memory:
+// a ring of DQ_STAGES (dS^T tile, K tile) pairs, then n_kt key-tile flags,
+// within the 48 KB a block has without opting in (the loop is bound by
+// reading the scratch; deeper rings were no faster).
+constexpr int DQ_STAGES = 2;
+constexpr int DQ_STAGE = 2 * BKV * LDK;           // bf16 elements a stage
+constexpr int DQ_RING_BYTES = DQ_STAGES * DQ_STAGE * 2;
+
 __global__ void __launch_bounds__(128)
-bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const uint8_t* __restrict__ kv_valid,
-              const bf16* __restrict__ dout, const float* __restrict__ lse,
-              const float* __restrict__ delta, bf16* __restrict__ dq,
-              int T, int S, int HQ, int HK,
-              long long sqb, long long sqt, long long sqh,
-              long long skb, long long sks, long long skh,
-              long long svb, long long svs, long long svh,
-              int causal, int q_offset, float scale, float scale_log2) {
-  __shared__ __align__(16) bf16 Ks[2][BKV * LDK];   // [key][d]
-  __shared__ __align__(16) bf16 Vs[2][BKV * LDK];   // [key][d]
-  __shared__ uint8_t key_ok[2][BKV];
+bwd_dq_kernel(const bf16* __restrict__ ds, const bf16* __restrict__ k,
+              const uint8_t* __restrict__ live, bf16* __restrict__ dq,
+              int T, int S, int HQ, int HK, long long skb, long long sks, long long skh,
+              int causal, int q_offset, float scale) {
+  extern __shared__ __align__(16) uint8_t dq_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(dq_smem);    // stage: [key][query] dS^T, [key][d] K
+  uint8_t* live_s = dq_smem + DQ_RING_BYTES;
 
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int qt = blockIdx.x, q0 = qt * BQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (HQ / HK);
+  const int n_qt = (T + BQ - 1) / BQ, n_kt = (S + BKV - 1) / BKV;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int row0 = q0 + warp * 16 + g;              // this thread's rows: row0, row0+8
-  const bf16* qb = q + b * sqb + h * sqh;
-  const bf16* db = dout + ((long long)b * T * HQ + h) * D;
+  // tile (kt, qt) of this (b, h) at dsb + kt * n_qt * 64 * 64
+  const bf16* dsb = ds + (((long long)b * HQ + h) * n_kt * n_qt + qt) * (BKV * BQ);
   const bf16* kb = k + b * skb + hk * skh;
-  const bf16* vb = v + b * svb + hk * svh;
-  const long long dstride = (long long)HQ * D;
 
-  uint32_t qf[4][4], df[4][4];
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    const int c = ks * 16 + t4 * 2;
-    const bool r0 = row0 < T, r1 = row0 + 8 < T;
-    qf[ks][0] = r0 ? ld32(qb + row0 * sqt + c) : 0u;
-    qf[ks][1] = r1 ? ld32(qb + (row0 + 8) * sqt + c) : 0u;
-    qf[ks][2] = r0 ? ld32(qb + row0 * sqt + c + 8) : 0u;
-    qf[ks][3] = r1 ? ld32(qb + (row0 + 8) * sqt + c + 8) : 0u;
-    df[ks][0] = r0 ? ld32(db + row0 * dstride + c) : 0u;
-    df[ks][1] = r1 ? ld32(db + (row0 + 8) * dstride + c) : 0u;
-    df[ks][2] = r0 ? ld32(db + row0 * dstride + c + 8) : 0u;
-    df[ks][3] = r1 ? ld32(db + (row0 + 8) * dstride + c + 8) : 0u;
-  }
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + r * 8;
-    const long long i = ((long long)b * HQ + h) * T + row;
-    lse_r[r] = row < T ? lse_as_read(lse[i]) : INFINITY;
-    delta_r[r] = row < T ? delta[i] : 0.f;
-  }
-
-  int kv_end = S;
-  if (causal) {
-    const int last_row = min(q0 + BQ, T) - 1;
-    kv_end = min(S, q_offset + last_row + 1);
-  }
-  const int ntiles = kv_end > 0 ? (kv_end + BKV - 1) / BKV : 0;
-  const int qslot[2] = {q_offset + row0, q_offset + row0 + 8};
+  for (int i = tid; i < n_kt; i += 128)
+    live_s[i] = live == nullptr || live[(long long)b * n_kt + i];
+  __syncthreads();
+  auto next_tile = [&](int kt) {                    // the next live key tile after kt
+    for (++kt; kt < n_kt; ++kt)
+      if (pair_live(live_s[kt], qt, kt, T, causal, q_offset)) break;
+    return kt;
+  };
 
   float dqacc[8][4];
 #pragma unroll
@@ -298,121 +367,144 @@ bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 4; ++j) dqacc[i][j] = 0.f;
 
-  auto load_tile = [&](int stage, int kv0) {
+  auto load_tile = [&](int stage, int kt) {
+    bf16* dSs = ring + stage * DQ_STAGE;
+    bf16* Ks = dSs + BKV * LDK;
+    const int kv0 = kt * BKV;
+    const bf16* tile = dsb + (long long)kt * n_qt * (BKV * BQ);
     for (int c = tid; c < BKV * (D / 8); c += 128) {
       const int key = c >> 3, dc = (c & 7) * 8, s = kv0 + key;
+      simlingo::cp_async16(&dSs[key * LDK + dc], tile + c * 8, true);
       const bool in = s < S;
-      simlingo::cp_async16(&Ks[stage][key * LDK + dc], in ? kb + s * sks + dc : kb, in);
-      simlingo::cp_async16(&Vs[stage][key * LDK + dc], in ? vb + s * svs + dc : vb, in);
-    }
-    if (tid < BKV) {
-      const int s = kv0 + tid;
-      key_ok[stage][tid] = (s < S) && (kv_valid == nullptr || kv_valid[(long long)b * S + s]);
+      simlingo::cp_async16(&Ks[key * LDK + dc], in ? kb + s * sks + dc : kb, in);
     }
   };
-  if (ntiles > 0) load_tile(0, 0);
-  simlingo::cp_async_commit();
-
-  for (int it = 0; it < ntiles; ++it) {
-    const int kv0 = it * BKV, st = it & 1;
-    if (it + 1 < ntiles) load_tile(st ^ 1, kv0 + BKV);
+  // prologue: the first DQ_STAGES - 1 live tiles, one commit group each
+  int kt_load = next_tile(-1);
+#pragma unroll
+  for (int st = 0; st < DQ_STAGES - 1; ++st) {
+    if (kt_load < n_kt) {
+      load_tile(st, kt_load);
+      kt_load = next_tile(kt_load);
+    }
     simlingo::cp_async_commit();
-    simlingo::cp_async_wait<1>();
-    __syncthreads();
-    const bf16* Kt = Ks[st];
-    const bf16* Vt = Vs[st];
-    const uint8_t* ok_t = key_ok[st];
-
-    // S = Q K^T and dP = dO V^T for 64 keys: 8 n-tiles of 8 keys
-    float sc[8][4], dp[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[nt][j] = dp[nt][j] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        const bf16* kp = &Kt[(nt * 8 + g) * LDK + ks * 16 + t4 * 2];
-        simlingo::mma_bf16_16816(sc[nt], qf[ks], ld32(kp), ld32(kp + 8));
-        const bf16* vp = &Vt[(nt * 8 + g) * LDK + ks * 16 + t4 * 2];
-        simlingo::mma_bf16_16816(dp[nt], df[ks], ld32(vp), ld32(vp + 8));
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = nt * 8 + t4 * 2 + (j & 1);
-        const bool ok = ok_t[key] && (!causal || kv0 + key <= qslot[j >> 1]);
-        const float p = ok ? exp2f(sc[nt][j] * scale_log2 - lse_r[j >> 1]) : 0.f;
-        dp[nt][j] = p * (dp[nt][j] - delta_r[j >> 1]);
-      }
-    // dQ += dS K: n-tiles (2kk, 2kk+1) of dS are the A-fragment of keys
-    // [16kk, 16kk+16); K^T's B-fragments come from the row-major K tile
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[4];
-      a[0] = simlingo::pack_bf16x2(dp[2 * kk][0], dp[2 * kk][1]);
-      a[1] = simlingo::pack_bf16x2(dp[2 * kk][2], dp[2 * kk][3]);
-      a[2] = simlingo::pack_bf16x2(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-      a[3] = simlingo::pack_bf16x2(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < 8; ++dt) {
-        uint32_t b0, b1;
-        simlingo::ldmatrix_x2_trans(b0, b1, &Kt[(kk * 16 + (lane & 15)) * LDK + dt * 8]);
-        simlingo::mma_bf16_16816(dqacc[dt], a, b0, b1);
-      }
-    }
-    __syncthreads();
   }
 
+  int it = 0;
+  for (int kt = next_tile(-1); kt < n_kt; kt = next_tile(kt), ++it) {
+    simlingo::cp_async_wait<DQ_STAGES - 2>();       // tile `it` has landed
+    __syncthreads();                                // ... for all; stage it - 1 is free
+    if (kt_load < n_kt) {
+      load_tile((it + DQ_STAGES - 1) % DQ_STAGES, kt_load);
+      kt_load = next_tile(kt_load);
+    }
+    simlingo::cp_async_commit();
+    const bf16* dSt = ring + (it % DQ_STAGES) * DQ_STAGE;
+    const bf16* Kt = dSt + BKV * LDK;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + r * 8;
-    if (row >= T) continue;
-    bf16* drow = dq + (((long long)b * T + row) * HQ + h) * D;
+    for (int ks = 0; ks < 4; ++ks) {
+      // A = dS [16 rows of this warp][16 keys]: the key-major tile, transposed
+      uint32_t a[4];
+      simlingo::ldmatrix_x4_trans(
+          a, &dSt[(ks * 16 + (lane >> 4) * 8 + (lane & 7)) * LDK + warp * 16 +
+                  ((lane >> 3) & 1) * 8]);
 #pragma unroll
-    for (int dt = 0; dt < 8; ++dt)
-      *reinterpret_cast<uint32_t*>(drow + dt * 8 + t4 * 2) = simlingo::pack_bf16x2(
-          dqacc[dt][2 * r] * scale, dqacc[dt][2 * r + 1] * scale);
+      for (int dp = 0; dp < 4; ++dp) {
+        uint32_t bk[4];
+        simlingo::ldmatrix_x4_trans(bk, &Kt[(ks * 16 + (lane & 15)) * LDK + dp * 16 +
+                                            (lane >> 4) * 8]);
+        simlingo::mma_bf16_16816(dqacc[2 * dp], a, bk[0], bk[1]);
+        simlingo::mma_bf16_16816(dqacc[2 * dp + 1], a, bk[2], bk[3]);
+      }
+    }
+  }
+
+  // scale, round to bf16 and stage the warp's 16 rows x 64 through the ring
+  // (once every warp is past its last tile) for 16-byte row stores
+  __syncthreads();
+  bf16* stage_dq = ring + warp * 16 * LDK;
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    uint32_t r[4];
+    r[0] = simlingo::pack_bf16x2(dqacc[2 * p][0] * scale, dqacc[2 * p][1] * scale);
+    r[1] = simlingo::pack_bf16x2(dqacc[2 * p][2] * scale, dqacc[2 * p][3] * scale);
+    r[2] = simlingo::pack_bf16x2(dqacc[2 * p + 1][0] * scale, dqacc[2 * p + 1][1] * scale);
+    r[3] = simlingo::pack_bf16x2(dqacc[2 * p + 1][2] * scale, dqacc[2 * p + 1][3] * scale);
+    simlingo::stmatrix_x4(r, &stage_dq[(lane & 15) * LDK + p * 16 + (lane >> 4) * 8]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = lane + 32 * i, r = c >> 3, cc = (c & 7) * 8;
+    const int t = q0 + warp * 16 + r;
+    if (t < T)
+      *reinterpret_cast<uint4*>(dq + (((long long)b * T + t) * HQ + h) * D + cc) =
+          *reinterpret_cast<const uint4*>(&stage_dq[r * LDK + cc]);
   }
 }
 
 }  // namespace
 
-// delta: fp32 scratch [B, HQ, T] allocated by the caller; lse [B, HQ, T]
-// from the forward; o, dout, dq contiguous [B, T, HQ, 64]; dk, dv
-// contiguous [B, S, HK, 64].
+constexpr int MAX_DEVICES = 64;
+
+// The tiles the wrapper's plan (_bwd_plan) assumes: query rows, keys; and
+// the resident dK/dV blocks an SM of its second instantiation.
+extern "C" void simlingo_flash_attn_bwd_geometry(int* out) {
+  out[0] = BQ;
+  out[1] = BKV;
+  out[2] = 3;
+}
+
+// delta: fp32 scratch [B, HQ, T]; live: uint8 scratch [B, n_kt], null
+// without kv_valid; ds: bf16 scratch [B, HQ, n_kt, n_qt, 64, 64] (n_kt, n_qt:
+// S and T in tiles of 64); lse [B, HQ, T] from the forward; o, dout, dq
+// contiguous [B, T, HQ, 64]; dk, dv contiguous [B, S, HK, 64]. All
+// allocated by the caller.
 extern "C" int simlingo_flash_attn_bwd(
     const void* q, const void* k, const void* v, const void* kv_valid,
-    const void* o, const void* dout, const void* lse, void* delta,
-    void* dq, void* dk, void* dv, int B, int T, int S, int HQ, int HK,
+    const void* o, const void* dout, const void* lse, void* delta, void* live,
+    void* ds, void* dq, void* dk, void* dv, int B, int T, int S, int HQ, int HK,
     long long sqb, long long sqt, long long sqh,
     long long skb, long long sks, long long skh,
     long long svb, long long svs, long long svh,
-    int causal, int q_offset, float scale, void* stream) {
+    int causal, int q_offset, float scale, int dkdv_blocks, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float scale_log2 = scale * 1.4426950408889634f;
+  const int n_kt = (S + BKV - 1) / BKV, n_qt = (T + BQ - 1) / BQ;
+  const int dq_smem = DQ_RING_BYTES + n_kt;
   const long long rows = (long long)B * T * HQ;
-  bwd_prep_kernel<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, st>>>(
+  const long long tiles = kv_valid != nullptr ? (long long)B * n_kt : 0;
+  bwd_prep_kernel<<<static_cast<unsigned>((rows + 31) / 32 + (tiles + 7) / 8), 256, 0,
+                    st>>>(
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
-      static_cast<float*>(delta), T, HQ, rows);
+      static_cast<float*>(delta), static_cast<const uint8_t*>(kv_valid),
+      static_cast<uint8_t*>(live), T, S, HQ, n_kt, rows, tiles);
   int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
-  bwd_dkdv_kernel<<<dim3((S + BKV - 1) / BKV, HK, B), 128, 0, st>>>(
+  const uint8_t* live_r = kv_valid != nullptr ? static_cast<const uint8_t*>(live) : nullptr;
+  const int capped = dkdv_blocks == 3;
+  auto dkdv = capped ? bwd_dkdv_kernel<3> : bwd_dkdv_kernel<1>;
+  // static + dynamic shared memory exceed 48 KB: opt in, once a device and instantiation
+  static std::atomic<bool> raised[MAX_DEVICES][2];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= MAX_DEVICES || !raised[dev][capped].load(std::memory_order_relaxed)) {
+    e = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, DKDV_DYN_SMEM);
+    if (e != cudaSuccess) return e;
+    if (dev < MAX_DEVICES) raised[dev][capped].store(true, std::memory_order_relaxed);
+  }
+  dkdv<<<dim3(n_kt, HK, B), 128, DKDV_DYN_SMEM, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const uint8_t*>(kv_valid),
+      static_cast<const bf16*>(v), static_cast<const uint8_t*>(kv_valid), live_r,
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk),
+      static_cast<const float*>(delta), static_cast<bf16*>(ds), static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), T, S, HQ, HK, sqb, sqt, sqh, skb, sks, skh,
       svb, svs, svh, causal, q_offset, scale, scale_log2);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
-  bwd_dq_kernel<<<dim3((T + BQ - 1) / BQ, HQ, B), 128, 0, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const uint8_t*>(kv_valid),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq),
-      T, S, HQ, HK, sqb, sqt, sqh, skb, sks, skh, svb, svs, svh,
-      causal, q_offset, scale, scale_log2);
+  bwd_dq_kernel<<<dim3(n_qt, HQ, B), 128, dq_smem, st>>>(
+      static_cast<const bf16*>(ds), static_cast<const bf16*>(k), live_r,
+      static_cast<bf16*>(dq), T, S, HQ, HK, skb, sks, skh, causal, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }

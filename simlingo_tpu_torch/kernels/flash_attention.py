@@ -7,6 +7,10 @@ read from the flat projection output) and `_fwd_kernel` (:114, plain MHA).
 Backward (training): `csrc/flash_attn_bwd.cu` covers `_bwd_kernel_gqa`
 (:382), `_bwd_kernel_pair` (:869) and `_bwd_kernel` (:205) the same way,
 from the output and the forward's base-2 log-sum-exp (`attention_train`).
+Its dK/dV kernel writes the bf16 dS once to a scratch of key-major tiles and
+its dQ kernel is the tiled product scale dS K (`_bwd_plan` sizes the scratch;
+`attention_ds_reference` and `attention_dq_from_ds_reference` are the two
+passes in plain PyTorch).
 
 Semantics (as `attention_reference` in the JAX package, :71-107):
   * q [B, T, HQ, D], k/v [B, S, HK, D]; query head h reads kv head
@@ -25,7 +29,8 @@ and runs `attention_bwd_reference` on CPU tensors.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -184,12 +189,31 @@ def attention_lse_reference(q, k, kv_valid, causal, scale=None, q_offset=None):
     return torch.logsumexp(logits, dim=-1) * LOG2E
 
 
+def _probs_and_ds(q, k, v, kv_valid, o, dout, lse, causal, scale, q_offset,
+                  abs_terms=False):
+    """The backward's P and dS [B, HQ, T, S] fp32: P = exp2(s * log2(e) -
+    lse) on visible pairs (0 where lse = -inf), delta = rowsum(dO * O), dS =
+    P (dO V^T - delta); with `abs_terms`, P (|dO| |V|^T + |delta|) in
+    place of dS, the sum of |term| of each of its elements."""
+    group = q.shape[2] // k.shape[2]
+    logits, mask = _scaled_logits(q, k, kv_valid, causal, scale, q_offset)
+    lse = torch.where(lse == float("-inf"), float("inf"), lse.float())
+    p = torch.where(mask, torch.exp2(logits * LOG2E - lse[..., None]),
+                    torch.zeros((), device=q.device))
+    do = dout.float()
+    vf = v.float().repeat_interleave(group, dim=2)
+    delta = (do * o.float()).sum(-1).transpose(1, 2)            # [B, HQ, T]
+    if abs_terms:
+        return p, p * (torch.einsum("bthd,bshd->bhts", do.abs(), vf.abs())
+                       + delta.abs()[..., None])
+    return p, p * (torch.einsum("bthd,bshd->bhts", do, vf) - delta[..., None])
+
+
 def attention_bwd_reference(q, k, v, kv_valid, o, dout, lse, causal,
                             scale=None, q_offset=None, abs_terms=False):
-    """Plain version of `flash_attn_bwd`, the kernel's algorithm in fp32:
-    P = exp2(s * log2(e) - lse) on visible pairs, delta = rowsum(dO * O),
-    dS = P (dO V^T - delta); returns (dq, dk, dv) fp32 with dk/dv summed
-    over each kv head's query-head group. Rows with lse = -inf give 0.
+    """Plain version of `flash_attn_bwd`, the kernel's algorithm in fp32
+    (`_probs_and_ds`); returns (dq, dk, dv) fp32 with dk/dv summed over
+    each kv head's query-head group. Rows with lse = -inf give 0.
     With `abs_terms`, returns instead the sum of |term| of each gradient
     element (|dS| |K|, |dS| |Q|, P |dO|): the kernel rounds dS and P to
     bf16 before these products, so its error is within 2^-8 of that sum
@@ -198,15 +222,9 @@ def attention_bwd_reference(q, k, v, kv_valid, o, dout, lse, causal,
     _, S, HK, _ = k.shape
     group = HQ // HK
     scale, q_offset = _defaults(q, k, scale, q_offset)
-    logits, mask = _scaled_logits(q, k, kv_valid, causal, scale, q_offset)
-    lse = torch.where(lse == float("-inf"), float("inf"), lse.float())
-    p = torch.where(mask, torch.exp2(logits * LOG2E - lse[..., None]),
-                    torch.zeros((), device=q.device))
+    p, ds = _probs_and_ds(q, k, v, kv_valid, o, dout, lse, causal, scale, q_offset)
     do = dout.float()
-    vf = v.float().repeat_interleave(group, dim=2)
     kf = k.float().repeat_interleave(group, dim=2)
-    delta = (do * o.float()).sum(-1).transpose(1, 2)            # [B, HQ, T]
-    ds = p * (torch.einsum("bthd,bshd->bhts", do, vf) - delta[..., None])
     if abs_terms:
         ds, kf, q, do = ds.abs(), kf.abs(), q.abs(), do.abs()
     dq = scale * torch.einsum("bhts,bshd->bthd", ds, kf)
@@ -216,16 +234,149 @@ def attention_bwd_reference(q, k, v, kv_valid, o, dout, lse, causal,
             dv.view(B, S, HK, group, D).sum(3))
 
 
+# The backward's tiles (query rows, keys) and the resident blocks an SM of
+# the dK/dV kernel's capped instantiation; `_bwd_lib` refuses a library
+# that reports others (simlingo_flash_attn_bwd_geometry).
+_BWD_TILE = (64, 64)
+_DKDV_BLOCKS = 3
+# The dQ kernel keeps one flag a key tile in shared memory, beside 36 KB of
+# tiles, within the 48 KB a block gets without opting in.
+_BWD_MAX_KEY_TILES = 8192
+
+
+def _pair_live(qt, kt, T, causal, q_offset):
+    """`pair_live` of csrc/flash_attn_bwd.cu for a key tile that holds a
+    valid key: the first key of tile kt is visible to the last row of
+    query tile qt (slot-order causality), or the attention is not causal."""
+    bq, bkv = _BWD_TILE
+    return not causal or kt * bkv <= q_offset + min(qt * bq + bq - 1, T - 1)
+
+
+class BwdPlan(NamedTuple):
+    n_qt: int                 # query tiles of _BWD_TILE[0] rows
+    n_kt: int                 # key tiles of _BWD_TILE[1] keys
+    ds_shape: tuple           # (B, HQ, n_kt, n_qt, keys, rows): the bf16 dS^T scratch
+    ds_bytes: int
+    written: frozenset        # (query tile, key tile) pairs the dK/dV kernel writes
+    read: frozenset           # ... and those the dQ kernel reads
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_plan(B, T, S, HQ, HK, causal, q_offset):
+    """The scratch and the tile pairs of `flash_attn_bwd`.
+
+    The dK/dV kernel of key tile kt walks the query tiles from the first
+    whose pair is live to the last, writing dS^T for each; the dQ kernel of
+    query tile qt walks the key tiles whose pair is live. A key tile
+    without a valid key (`_live_key_tiles`, the prep kernel's flags) drops
+    out of both for its batch row, and its dK, dV are 0. The scratch holds
+    one key-major tile [keys][rows] a pair, contiguous, in the order [B,
+    HQ, key tile, query tile]; a written tile is written whole (keys past S
+    and rows past T as 0)."""
+    bq, bkv = _BWD_TILE
+    n_qt, n_kt = -(-T // bq), -(-S // bkv)
+    written = set()
+    for kt in range(n_kt):
+        qt_lo = 0
+        while qt_lo < n_qt and not _pair_live(qt_lo, kt, T, causal, q_offset):
+            qt_lo += 1
+        written.update((qt, kt) for qt in range(qt_lo, n_qt))
+    read = {(qt, kt) for qt in range(n_qt) for kt in range(n_kt)
+            if _pair_live(qt, kt, T, causal, q_offset)}
+    shape = (B, HQ, n_kt, n_qt, bkv, bq)
+    return BwdPlan(n_qt, n_kt, shape, 2 * B * HQ * n_kt * bkv * n_qt * bq,
+                   frozenset(written), frozenset(read))
+
+
+def _dkdv_blocks(B, S, HK, sms):
+    """The dK/dV kernel's instantiation: _DKDV_BLOCKS resident blocks an SM
+    (registers capped) where its grid of (key tile, kv head, batch) blocks
+    fills that many on every SM (the ViT's 3264), else 1: ptxas's own
+    register count, 2 blocks an SM (the LLM's 156 blocks fill fewer)."""
+    blocks = B * HK * -(-S // _BWD_TILE[1])
+    return _DKDV_BLOCKS if blocks >= _DKDV_BLOCKS * sms else 1
+
+
+def _live_key_tiles(kv_valid, B, S, device=None):
+    """[B, n_kt] bool: the key tiles that hold a valid key (all of them
+    without kv_valid), as the prep kernel flags them."""
+    n_kt, bkv = -(-S // _BWD_TILE[1]), _BWD_TILE[1]
+    if kv_valid is None:
+        return torch.ones(B, n_kt, dtype=torch.bool, device=device)
+    v = torch.zeros(B, n_kt * bkv, dtype=torch.bool, device=kv_valid.device)
+    v[:, :S] = kv_valid.bool().expand(B, S)
+    return v.view(B, n_kt, bkv).any(-1)
+
+
+def _pair_mask(pairs, plan, live):
+    """[B, 1, n_kt, n_qt, 1, 1] bool, broadcast against the scratch: the
+    tiles of `pairs` with a live key tile."""
+    tiles = torch.zeros(plan.n_kt, plan.n_qt, dtype=torch.bool)
+    for qt, kt in pairs:
+        tiles[kt, qt] = True
+    tiles = tiles.to(live.device)[None] & live[:, :, None]          # [B, n_kt, n_qt]
+    return tiles[:, None, :, :, None, None]
+
+
+def _ds_matrix(ds):
+    """The scratch's tiles [B, HQ, n_kt, n_qt, keys, rows] as one key-major
+    matrix [B, HQ, S_pad, T_pad]."""
+    B, HQ, n_kt, n_qt, bkv, bq = ds.shape
+    return ds.permute(0, 1, 2, 4, 3, 5).reshape(B, HQ, n_kt * bkv, n_qt * bq)
+
+
+def attention_ds_reference(q, k, v, kv_valid, o, dout, lse, causal,
+                           scale=None, q_offset=None, abs_terms=False):
+    """Plain first pass of `flash_attn_bwd`: dS^T fp32 in the scratch
+    layout its dK/dV kernel writes (`_bwd_plan`: key-major tiles), 0 past S
+    and T (the kernel rounds it to bf16). With `abs_terms`, the sum of
+    |term| of each element instead (`_probs_and_ds`)."""
+    B, T, HQ, _ = q.shape
+    _, S, HK, _ = k.shape
+    scale, q_offset = _defaults(q, k, scale, q_offset)
+    _, ds = _probs_and_ds(q, k, v, kv_valid, o, dout, lse, causal, scale, q_offset,
+                          abs_terms)
+    plan = _bwd_plan(B, T, S, HQ, HK, bool(causal), q_offset)
+    bq, bkv = _BWD_TILE
+    out = torch.zeros((B, HQ, plan.n_kt * bkv, plan.n_qt * bq), dtype=torch.float32,
+                      device=q.device)
+    out[:, :, :S, :T] = ds.transpose(2, 3)
+    return out.view(B, HQ, plan.n_kt, bkv, plan.n_qt, bq).permute(0, 1, 2, 4, 3, 5).contiguous()
+
+
+def attention_dq_from_ds_reference(ds, k, kv_valid, T, causal, scale=None,
+                                   q_offset=None, abs_terms=False):
+    """Plain second pass of `flash_attn_bwd`: dq [B, T, HQ, D] fp32 =
+    scale sum_s dS[b, h, t, s] K[b, s, h // group] from the dS^T scratch
+    (`_bwd_plan`), reading only the tile pairs the dQ kernel reads
+    (whatever lies elsewhere, NaN included, never reaches dq).
+    With `abs_terms`, the sum of |term| of each element."""
+    B, HQ = ds.shape[:2]
+    _, S, HK, D = k.shape
+    scale = D ** -0.5 if scale is None else scale
+    q_offset = S - T if q_offset is None else q_offset
+    plan = _bwd_plan(B, T, S, HQ, HK, bool(causal), q_offset)
+    read = _pair_mask(plan.read, plan, _live_key_tiles(kv_valid, B, S, ds.device))
+    dst = _ds_matrix(torch.where(read, ds.float(), torch.zeros((), device=ds.device)))
+    dst = dst[:, :, :S, :T]
+    kf = k.float().repeat_interleave(HQ // HK, dim=2)
+    if abs_terms:
+        dst, kf = dst.abs(), kf.abs()
+    return scale * torch.einsum("bhst,bshd->bthd", dst, kf)
+
+
 def _aligned16(name, x):
     if x.data_ptr() % 16 or any(s % 8 for s in x.stride()[:3]):
         raise ValueError(f"flash_attn_bwd: {name} rows must be 16-byte aligned")
 
 
 def flash_attn_bwd(q, k, v, kv_valid, o, dout, lse, causal=True, scale=None,
-                   q_offset=None):
+                   q_offset=None, return_ds=False):
     """Launch the CUDA backward: (dq [B,T,HQ,D], dk, dv [B,S,HK,D]) bf16.
     q/k/v may be strided views as in the forward; o and dout are made
-    contiguous; lse is the forward's [B, HQ, T] fp32."""
+    contiguous; lse is the forward's [B, HQ, T] fp32. With `return_ds`,
+    also the bf16 dS^T scratch (`_bwd_plan`; only the pairs it writes for
+    live key tiles hold values)."""
     B, T, HQ, D = q.shape
     _, S, HK, _ = k.shape
     if D != 64:
@@ -250,24 +401,34 @@ def flash_attn_bwd(q, k, v, kv_valid, o, dout, lse, causal=True, scale=None,
         kv_valid = kv_valid.to(device=q.device, dtype=torch.uint8)
         kv_valid = kv_valid.expand(B, S).contiguous()
         valid_ptr = kv_valid.data_ptr()
+    plan = _bwd_plan(B, T, S, HQ, HK, bool(causal), int(q_offset))
+    if plan.n_kt > _BWD_MAX_KEY_TILES:
+        raise ValueError(f"flash_attn_bwd kernel takes at most "
+                         f"{_BWD_MAX_KEY_TILES * _BWD_TILE[1]} keys, got {S}")
     dq = torch.empty((B, T, HQ, D), dtype=torch.bfloat16, device=q.device)
     dk = torch.empty((B, S, HK, D), dtype=torch.bfloat16, device=q.device)
     dv = torch.empty((B, S, HK, D), dtype=torch.bfloat16, device=q.device)
+    ds = torch.empty(plan.ds_shape, dtype=torch.bfloat16, device=q.device)
     if B * T * S == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
+        grads = (dq.zero_(), dk.zero_(), dv.zero_())
+        return (*grads, ds) if return_ds else grads
     delta = torch.empty((B, HQ, T), dtype=torch.float32, device=q.device)
+    live = (torch.empty((B, plan.n_kt), dtype=torch.uint8, device=q.device)
+            if kv_valid is not None else None)
     rc = _bwd_lib().simlingo_flash_attn_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_ptr, o.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        live.data_ptr() if live is not None else None, ds.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, T, S, HQ, HK,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         int(bool(causal)), int(q_offset), ctypes.c_float(float(scale)),
+        _dkdv_blocks(B, S, HK, _build.sm_count(q.device.index or 0)),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attn_bwd")
     flash_attn_bwd.launches += 1
-    return dq, dk, dv
+    return (dq, dk, dv, ds) if return_ds else (dq, dk, dv)
 
 
 flash_attn_bwd.launches = 0
@@ -277,9 +438,14 @@ def _bwd_lib():
     lib = _build.load("flash_attn_bwd")
     fn = lib.simlingo_flash_attn_bwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+        geometry = (ctypes.c_int * 3)()
+        lib.simlingo_flash_attn_bwd_geometry(geometry)
+        if tuple(geometry) != (*_BWD_TILE, _DKDV_BLOCKS):
+            raise RuntimeError(f"flash_attn_bwd: the library's geometry {tuple(geometry)} "
+                               f"differs from the plan's {(*_BWD_TILE, _DKDV_BLOCKS)}")
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 9
-                       + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                       + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib

@@ -247,12 +247,9 @@ def _close_to_rms(got, ref, name):
     assert not bool(bad.any()), (name, float((got.float() - ref).abs().max()), rms)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("T,HQ,HK,causal,strided", [
-    (150, 14, 2, True, False), (130, 4, 4, False, True), (64, 2, 1, True, False)])
-def test_flash_attn_bwd_kernel_matches_plain(gpu, T, HQ, HK, causal, strided):
-    g = torch.Generator(device=gpu).manual_seed(3)
-    B, D = 2, 64
+def _bwd_inputs(gpu, B, T, S, HQ, HK, strided, pad_left, seed=3):
+    g = torch.Generator(device=gpu).manual_seed(seed)
+    D = 64
     if strided:       # ViT: heads are views of one [B, T, 3*H*D] projection
         qkv = torch.randn(B, T, 3 * HQ * D, generator=g, device=gpu).bfloat16()
         q, k, v = (qkv[..., i * HQ * D:(i + 1) * HQ * D].view(B, T, HQ, D)
@@ -260,28 +257,64 @@ def test_flash_attn_bwd_kernel_matches_plain(gpu, T, HQ, HK, causal, strided):
         valid = None
     else:
         q = torch.randn(B, T, HQ, D, generator=g, device=gpu).bfloat16()
-        k, v = (torch.randn(B, T, HK, D, generator=g, device=gpu).bfloat16()
+        k, v = (torch.randn(B, S, HK, D, generator=g, device=gpu).bfloat16()
                 for _ in range(2))
-        valid = torch.ones(B, T, dtype=torch.bool, device=gpu)
-        valid[0, :7] = False                   # rows with no visible key
-        valid[1, T - 40:] = False              # right padding: skipped key tiles
+        valid = torch.ones(B, S, dtype=torch.bool, device=gpu)
+        valid[0, :pad_left] = False            # rows with no visible key
+        valid[1, S - 40:] = False              # right padding: skipped key tiles
     dout = torch.randn(B, T, HQ, D, generator=g, device=gpu).bfloat16()
+    return q, k, v, valid, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S,HQ,HK,causal,strided,pad_left", [
+    (150, 150, 14, 2, True, False, 7), (130, 130, 4, 4, False, True, 0),
+    (64, 64, 2, 1, True, False, 7),
+    (150, 150, 14, 2, True, False, 70),        # key tile 0 of sample 0: no valid key
+    (100, 170, 4, 2, True, False, 7),          # q_offset = S - T = 70, T % 64 != 0
+    (832, 832, 16, 16, False, True, 0)])       # 416 dK/dV blocks: the 3-an-SM instantiation
+def test_flash_attn_bwd_kernel_matches_plain(gpu, T, S, HQ, HK, causal, strided, pad_left):
+    B = 2
+    sms = torch.cuda.get_device_properties(gpu).multi_processor_count
+    assert TFA._dkdv_blocks(B, S, HK, sms) == (3 if B * HK * -(-S // 64) >= 3 * sms else 1)
+    q, k, v, valid, dout = _bwd_inputs(gpu, B, T, S, HQ, HK, strided, pad_left)
     out, lse = TFA.flash_attn_fwd(q, k, v, valid, causal, None, None, return_lse=True)
     want_lse = TFA.attention_lse_reference(q.float(), k.float(), valid, causal)
     finite = torch.isfinite(want_lse)
     assert torch.equal(torch.isfinite(lse), finite)
     torch.testing.assert_close(lse[finite], want_lse[finite], atol=1e-2, rtol=1e-3)
     before = TFA.flash_attn_bwd.launches
-    got = TFA.flash_attn_bwd(q, k, v, valid, out, dout, lse, causal)
+    *got, ds = TFA.flash_attn_bwd(q, k, v, valid, out, dout, lse, causal, return_ds=True)
     torch.cuda.synchronize()
     assert TFA.flash_attn_bwd.launches == before + 1
-    ref = TFA.attention_bwd_reference(q.float(), k.float(), v.float(), valid,
-                                      out.float(), dout.float(), want_lse, causal)
+    args = (q.float(), k.float(), v.float(), valid, out.float(), dout.float(), want_lse,
+            causal)
+    ref = TFA.attention_bwd_reference(*args)
     for a, b, name in zip(got, ref, "qkv"):
         assert a.dtype == torch.bfloat16 and a.shape == b.shape
         _close_to_rms(a, b, name)
-    if valid is not None and causal:           # rows 0..6 of sample 0 see nothing
-        assert float(got[0][0, :7].abs().max()) == 0.0
+    # the scratch on the pairs the dK/dV kernel writes: the plain first pass
+    # rounded once to bf16 (P and dS from the same lse)
+    plan = TFA._bwd_plan(B, T, S, HQ, HK, causal, S - T)
+    written = TFA._pair_mask(plan.written, plan, TFA._live_key_tiles(valid, B, S, gpu))
+    want = TFA.attention_ds_reference(*args)
+    terms = TFA.attention_ds_reference(*args, abs_terms=True)
+    tol = 2.0 ** -8 * (terms + want.abs()) + 1e-5 * float(want.square().mean().sqrt())
+    assert bool(((ds.float() - want).abs() <= tol)[written.expand_as(ds)].all())
+    empty = ~finite.transpose(1, 2)            # [B, T, HQ]: rows that see no valid key
+    if bool(empty.any()):                      # (q_offset 0 with a left pad leaves some)
+        assert float(got[0][empty].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_flash_attn_bwd_is_bit_identical_across_calls(gpu):
+    """No atomics: two calls give the same bits in dq, dk and dv."""
+    q, k, v, valid, dout = _bwd_inputs(gpu, 3, 300, 300, 14, 2, False, 70, seed=8)
+    out, lse = TFA.flash_attn_fwd(q, k, v, valid, True, None, None, return_lse=True)
+    first = TFA.flash_attn_bwd(q, k, v, valid, out, dout, lse, True)
+    second = TFA.flash_attn_bwd(q, k, v, valid, out, dout, lse, True)
+    for a, b, name in zip(first, second, "qkv"):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
