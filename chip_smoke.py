@@ -5,6 +5,9 @@
     python3 chip_smoke.py --kernels     # build + kernel checks only
     python3 chip_smoke.py --kernels flash_attn_bwd   # ... of the named kernels
     python3 chip_smoke.py --int8-sweep  # the int8 forward at forced splits S
+    python3 chip_smoke.py --ce-sweep    # the fused CE backward at forced segments S
+    python3 chip_smoke.py --kernels fused_ce --parent DIR   # ... and the CE
+                                        # forward's bits against the tree at DIR
 
 Phases, in order; any failure exits non-zero:
   1. build: compile csrc/*.cu with nvcc (all in parallel), print seconds;
@@ -20,7 +23,11 @@ Phases, in order; any failure exits non-zero:
      p = 0; LayerNorm / RMSNorm forward and backward at the ViT, projector,
      LLM-training and serving rows, and the fused CE forward, backward and
      dW backward at the training shape and a ragged one, each against the
-     tolerance stated at BF16_SPACING; the int8 forward at the serving
+     tolerance stated at BF16_SPACING (the backward also pass by pass: its
+     dlogits scratch against ce_dlogits_reference, its dh and dW against
+     the plain products of its own scratch; bit-identical across two calls;
+     with the device ms of its four kernels, their ptxas registers and the
+     scratch bytes); the int8 forward at the serving
      and the int8-base training rows (those again with a bf16 scale),
      against the bound stated at FWD_U, and its activation gradient
      int8_matmul_dx at every linear and the tied head of that path,
@@ -218,6 +225,12 @@ def ptxas_usage(stem):
             usage[short] = (int(m.group(1)), spill)
             name = None
     return usage
+
+
+def sha12(torch, x):
+    """The first 12 hex digits of the sha256 of a tensor's bytes."""
+    return hashlib.sha256(x.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+                          ).hexdigest()[:12]
 
 
 def n_sets(nbytes):
@@ -562,8 +575,7 @@ def run_attention_bwd_checks(torch, dev, results):
         del written, ds
         # the bits of (dq, dk, dv) for this seed: equal digests across trees
         # on one card mean equal results
-        digest = [hashlib.sha256(x.contiguous().view(torch.uint8).cpu().numpy().tobytes())
-                  .hexdigest()[:12] for x in got]
+        digest = [sha12(torch, x) for x in got]
         pairs, empty_rows, mask = visible_pairs(torch, dev, B, T, T, causal, None, valid)
         flops = 10 * D * pairs * HQ          # S, dP, dV, dQ, dK: 2*D per pair each
         qsz, ksz = B * T * HQ * D, B * T * HK * D
@@ -796,6 +808,9 @@ def run_ce_checks(torch, dev, results):
     import torch.nn.functional as F
     from simlingo_tpu_torch.kernels import fused_ce as TC
     gen = torch.Generator(device=dev).manual_seed(6)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    regs = {k: v for k, v in ptxas_usage("fused_ce").items()
+            if k.split("<")[0] in CE_BWD_KERNELS}
     for name, N, H, V, dw in ce_cases():
         h = torch.randn(N, H, generator=gen, device=dev).bfloat16()
         w = (0.02 * torch.randn(V, H, generator=gen, device=dev)).bfloat16()
@@ -806,8 +821,13 @@ def run_ce_checks(torch, dev, results):
         g = (torch.rand(N, generator=gen, device=dev) < 0.8).float() / (0.8 * N)
         logz, ce = TC.fused_ce_fwd(h, labels, w)
         rlogz, rce = TC.fused_ce_fwd_plain(h, labels, w)
-        dh, dwk = TC.fused_ce_bwd(h, labels, w, rlogz, g, dw)
+        dh, dwk, dl = TC.fused_ce_bwd(h, labels, w, rlogz, g, dw, return_scratch=True)
+        again = TC.fused_ce_bwd(h, labels, w, rlogz, g, dw)      # no atomics: same bits
+        same = torch.equal(again[0], dh) and (not dw or torch.equal(again[1], dwk))
+        del again
         torch.cuda.synchronize()
+        fwd_digest = {"ce": sha12(torch, ce), "logz": sha12(torch, logz)}
+        bwd_digest = {k: sha12(torch, x) for k, x in (("dh", dh), ("dw", dwk)) if x is not None}
         fwd_err, fwd_ratio = _ratio(ce, rce, CE_ATOL + 1e-5 * rce.abs())
         lz_err, lz_ratio = _ratio(logz, rlogz, CE_ATOL + 1e-5 * rlogz.abs())
         rdh, rdw = TC.fused_ce_bwd_plain(h, labels, w, rlogz, g, dw)
@@ -819,6 +839,27 @@ def run_ce_checks(torch, dev, results):
             rms = float(b.float().square().mean().sqrt())
             bwd.append(_ratio(a, b, BF16_SPACING * (m + b.float().abs()) + 1e-6 * rms))
         del rdh, rdw, mdh, mdw
+        # the passes one by one: the kernel's scratch against the plain
+        # first pass (both round the fp32 dlogits to bf16: within a
+        # spacing, 2^-6 |ref| with margin), its dh and dW against the plain
+        # products of that scratch (2^-8 (sum|terms| + |ref|): one rounding)
+        plan = TC._bwd_plan(N, H, V, sms)
+        pass_ratio = {}
+        ref_dl = TC.ce_dlogits_reference(h, labels, w, rlogz, g, plan)
+        pass_ratio["dl"] = _ratio(dl, ref_dl, BF16_SPACING * 2 * ref_dl.float().abs() + 1e-30)[1]
+        del ref_dl
+        for key, got, want, terms in (
+                ("dh", dh, TC.ce_dh_from_scratch_reference(dl, w, plan),
+                 TC.ce_dh_from_scratch_reference(dl, w, plan, abs_terms=True)),
+                ("dw", dwk, *((TC.ce_dw_from_scratch_reference(dl, h, V),
+                               TC.ce_dw_from_scratch_reference(dl, h, V, abs_terms=True))
+                              if dw else (None, None)))):
+            if got is None:
+                continue
+            rms = float(want.square().mean().sqrt())
+            pass_ratio[key] = _ratio(got, want, BF16_U * (terms + want.abs()) + 1e-6 * rms)[1]
+            del want, terms
+        del dl
         bwd_err, bwd_ratio = max(e for e, _ in bwd), max(r for _, r in bwd)
         fwd_ratio = max(fwd_ratio, lz_ratio)
         nhv = 2 * N * H * V
@@ -837,9 +878,11 @@ def run_ce_checks(torch, dev, results):
             library_ms, how = time_ms(torch, lib_fwd, sets), "graph"
             rows.append(dict(kernel="fused_ce_fwd", case=name, err=fwd_err, ratio=fwd_ratio,
                              kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                             how=how, bound=fb))
+                             how=how, bound=fb, digest=fwd_digest))
         kernel_ms = time_ms(torch, lambda h_, l_, w_, z_, g_: TC.fused_ce_bwd(
             h_, l_, w_, z_, g_, dw), sets)
+        split = kernel_split_ms(torch, lambda h_, l_, w_, z_, g_: TC.fused_ce_bwd(
+            h_, l_, w_, z_, g_, dw), sets, CE_BWD_KERNELS)
         plain_ms = time_ms(torch, lambda h_, l_, w_, z_, g_: TC.fused_ce_bwd_plain(
             h_, l_, w_, z_, g_, dw), sets, iters=2)
         hx = h.detach().clone().requires_grad_(True)
@@ -850,23 +893,50 @@ def run_ce_checks(torch, dev, results):
             lib_out, lib_in, g, retain_graph=True), [()], iters=10)
         rows.append(dict(kernel="fused_ce_bwd", case=name, err=bwd_err, ratio=bwd_ratio,
                          kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                         how="eager", bound=bb))
+                         how="eager", bound=bb, digest=bwd_digest,
+                         extra=dict(split_ms=split, bit_identical=same, ptxas=regs,
+                                    pass_err_over_tol=pass_ratio,
+                                    scratch_shape=list(plan.scratch_shape),
+                                    scratch_bytes=plan.scratch_bytes,
+                                    scratch_floor_ms=2 * plan.scratch_bytes / PEAK_BYTES * 1e3,
+                                    S=plan.S, seg_steps=plan.seg_steps,
+                                    dlogits_blocks=plan.dlogits_blocks,
+                                    dh_blocks=plan.dh_blocks,
+                                    dw_blocks=plan.dw_blocks if dw else 0)))
         del lib_out, hx, wx, sets
         for r in rows:
             bms, bby = r["bound"]
             with_dw = dw and r["kernel"] == "fused_ce_bwd"
+            extra = r.get("extra", {})
+            ok = r["ratio"] <= 1.0 and extra.get("bit_identical", True) and all(
+                x <= 1.0 for x in extra.get("pass_err_over_tol", {}).values())
             row = dict(kernel=r["kernel"], case=name,
                        shape=f"N={N} H={H} V={V}{' +dW' if with_dw else ''}",
-                       max_abs_err=r["err"], err_over_tol=r["ratio"], ok=r["ratio"] <= 1.0,
+                       max_abs_err=r["err"], err_over_tol=r["ratio"], ok=ok,
                        kernel_ms=r["kernel_ms"], plain_ms=r["plain_ms"],
                        library_ms=r["library_ms"], library_timing=r["how"],
-                       bound_ms=bms, bound_by=bby)
+                       bound_ms=bms, bound_by=bby, digest=r["digest"], **extra)
             results.append(row)
             log(f"[kernel] {row['kernel']:14s} {name:13s} {row['shape']:28s} "
                 f"err={row['max_abs_err']:.3e} err/tol={row['err_over_tol']:.3f} "
                 f"{'OK' if row['ok'] else 'FAIL'} kernel_ms={row['kernel_ms']:.4f} "
                 f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
                 f"({row['library_timing']}) bound_ms={bms:.4f} ({bby})")
+            if extra:
+                log(f"[kernel] fused_ce_bwd   {name:13s} device ms a call by kernel: "
+                    + ", ".join(f"{k} {v:.4f}" for k, v in extra["split_ms"].items())
+                    + f" | bit-identical={extra['bit_identical']} | err/tol by pass: "
+                    + ", ".join(f"{k} {v:.3f}" for k, v in extra["pass_err_over_tol"].items())
+                    + " | ptxas registers (spill bytes): "
+                    + ", ".join(f"{k} {n} ({sp})" for k, (n, sp) in regs.items()))
+                log(f"[kernel] fused_ce_bwd   {name:13s} dlogits scratch "
+                    f"{extra['scratch_shape']} bf16 {extra['scratch_bytes']} bytes (written + "
+                    f"read once: {extra['scratch_floor_ms']:.4f} ms at {PEAK_BYTES / 1e12} "
+                    f"TB/s; bound {bms:.4f} ms ({bby})); S={extra['S']} segments of "
+                    f"{extra['seg_steps']} steps; blocks dlogits {extra['dlogits_blocks']}, "
+                    f"dh {extra['dh_blocks']}, dW {extra['dw_blocks']}")
+            log(f"[kernel] {row['kernel']:14s} {name:13s} sha256 "
+                + " ".join(f"{k} {v}" for k, v in r["digest"].items()))
         torch.cuda.empty_cache()
 
 
@@ -924,6 +994,80 @@ def int8_sweep(torch, dev) -> int:
     with open(os.path.join(ROOT, "chiprun_out", "int8_fwd_sweep.json"), "w") as f:
         json.dump(rows, f, indent=1)
     return 0 if all(r["err_over_tol"] <= 1.0 for r in rows) else 1
+
+
+def ce_sweep(torch, dev) -> int:
+    """fused_ce_bwd (dh) at the training shape, launched at forced segment
+    counts S of the dh product (whole 128-column steps, as the plan cuts
+    them): ms a call (CUDA-graph replay), the device ms of each kernel
+    (torch.profiler), blocks, the err/tol of dh against the plain version
+    (the bound of run_ce_checks) and which S `_bwd_plan` picks; rows also to
+    chiprun_out/ce_bwd_sweep.json. Information for the plan."""
+    from simlingo_tpu_torch.kernels import _build
+    from simlingo_tpu_torch.kernels import fused_ce as TC
+    lib, sms = TC._lib(), torch.cuda.get_device_properties(dev).multi_processor_count
+    N, H, V = 960, 896, 151674
+    gen = torch.Generator(device=dev).manual_seed(6)
+    h = torch.randn(N, H, generator=gen, device=dev).bfloat16()
+    w = (0.02 * torch.randn(V, H, generator=gen, device=dev)).bfloat16()
+    labels = torch.randint(0, V, (N,), generator=gen, device=dev)
+    g = (torch.rand(N, generator=gen, device=dev) < 0.8).float() / (0.8 * N)
+    logz = TC.fused_ce_fwd(h, labels, w)[0]
+    plan = TC._bwd_plan(N, H, V, sms)
+    steps = plan.vpad // TC._VSTEP
+    rdh = TC.fused_ce_bwd_plain(h, labels, w, logz, g, False)[0].float()
+    mdh = TC.fused_ce_bwd_plain(h, labels, w, logz, g, False, abs_terms=True)[0]
+    tol = BF16_SPACING * (mdh + rdh.abs()) + 1e-6 * float(rdh.square().mean().sqrt())
+    del mdh
+    sets = [(h, labels, w, logz, g)]
+    rows = []
+    tiles = plan.dh_blocks // plan.S
+    for S in sorted({TC._segments(steps, s)[0] for s in (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 12,
+                                                         14, 16, 20, 24, 28, 32)}):
+        per = TC._segments(steps, S)[1]
+
+        def run(h_, l_, w_, z_, g_, S=S, per=per):
+            dl = torch.empty(plan.scratch_shape, dtype=torch.bfloat16, device=dev)
+            part = torch.empty((S, N, H), dtype=torch.float32, device=dev)
+            dh = torch.empty_like(h_)
+            _build.check(lib.simlingo_fused_ce_bwd(
+                h_.data_ptr(), w_.data_ptr(), l_.data_ptr(), z_.data_ptr(), g_.data_ptr(),
+                dl.data_ptr(), part.data_ptr(), dh.data_ptr(), None, N, H, V, S, per,
+                torch.cuda.current_stream(dev).cuda_stream), "fused_ce_bwd")
+            return dh
+        ratio = _ratio(run(*sets[0]), rdh, tol)[1]
+        ms = time_ms(torch, run, sets)
+        split = kernel_split_ms(torch, run, sets, CE_BWD_KERNELS[:3])
+        mine = S == plan.S
+        rows.append(dict(S=S, seg_steps=per, blocks=tiles * S, ms=ms, split_ms=split,
+                         err_over_tol=ratio, plan=mine))
+        log(f"[sweep] fused_ce_bwd dh N={N} H={H} V={V} S={S:2d} blocks={tiles * S:4d} "
+            f"ms={ms:.4f} (" + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+            + f") err/tol={ratio:.3f}{'  <- plan' if mine else ''}")
+        torch.cuda.empty_cache()
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "ce_bwd_sweep.json"), "w") as f:
+        json.dump(rows, f, indent=1)
+    return 0 if all(r["err_over_tol"] <= 1.0 for r in rows) else 1
+
+
+def compare_ce_fwd_digests(parent) -> bool:
+    """The fused CE forward's ce / logz bits of this tree and of the tree
+    at `parent` (scripts/ce_fwd_digest.py, one process each, this card):
+    True if equal."""
+    script = os.path.join(ROOT, "scripts", "ce_fwd_digest.py")
+    got = []
+    for tree in (ROOT, os.path.abspath(parent)):
+        run = subprocess.run([sys.executable, script], cwd=tree, capture_output=True,
+                             text=True, timeout=900)
+        line = next((x for x in run.stdout.splitlines() if x.startswith("CE_FWD_DIGEST")), None)
+        if run.returncode or line is None:
+            log(f"[digest] {tree}: exit {run.returncode}\n{run.stdout[-3000:]}{run.stderr[-3000:]}")
+            return False
+        got.append(json.loads(line.split(" ", 2)[2]))
+    log(f"[digest] fused_ce_fwd N=960 H=896 V=151674 sha256: this tree {got[0]}, "
+        f"{parent} {got[1]}: {'EQUAL' if got[0] == got[1] else 'DIFFERENT'}")
+    return got[0] == got[1]
 
 
 # ---------------------------------------------------------------------------
@@ -1115,11 +1259,13 @@ HAND_KERNELS = ("flash_fwd_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel", "bwd_pre
                 "dropout_kernel", "gemm_kernel", "gemm64_kernel", "gemv_kernel", "dx_kernel",
                 "dx_reduce_kernel",
                 "norm_fwd_kernel", "norm_bwd_kernel", "col_reduce_kernel", "ce_fwd_tile_kernel",
-                "ce_fwd_finalize_kernel", "ce_bwd_kernel", "ce_dh_reduce_kernel")
+                "ce_fwd_finalize_kernel", "ce_dlogits_kernel", "ce_dh_kernel",
+                "ce_dh_reduce_kernel", "ce_dw_kernel")
 
 
 INT8_FWD_KERNELS = ("gemv_kernel", "gemm_kernel", "gemm64_kernel")
 BWD_KERNELS = ("bwd_prep_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel")
+CE_BWD_KERNELS = ("ce_dlogits_kernel", "ce_dh_kernel", "ce_dh_reduce_kernel", "ce_dw_kernel")
 
 
 def kernel_class(name):
@@ -1511,6 +1657,11 @@ def main() -> int:
                          + ", ".join(sorted(KERNEL_CHECKS)) + ")")
     ap.add_argument("--int8-sweep", action="store_true",
                     help="build, then time the int8 forward at every reduction split")
+    ap.add_argument("--ce-sweep", action="store_true",
+                    help="build, then time the fused CE backward at forced segment counts")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="also hold the fused CE forward's bits equal to those of the "
+                         "source tree at DIR (e.g. a git archive of the parent commit)")
     args = ap.parse_args()
 
     import torch
@@ -1528,6 +1679,8 @@ def main() -> int:
     log(f"[build] {time.perf_counter() - t0:.2f} s (nvcc in parallel)")
     if args.int8_sweep:
         return int8_sweep(torch, dev)
+    if args.ce_sweep:
+        return ce_sweep(torch, dev)
 
     # 2. kernels
     cases = []
@@ -1540,6 +1693,8 @@ def main() -> int:
     bad = [c for c in cases if not c["ok"]]
     if bad:
         log(f"[kernel] FAILED: {[(c['kernel'], c['case'], c['shape']) for c in bad]}")
+        return 1
+    if args.parent and not compare_ce_fwd_digests(args.parent):
         return 1
     if args.kernels is not None:
         log(f"[kernel] all cases within tolerance on {smi_line()}")

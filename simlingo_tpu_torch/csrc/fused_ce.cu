@@ -1,5 +1,5 @@
 // Softmax cross-entropy over the tied LM head for Hopper (sm_90a), with no
-// logits in device memory: forward and backward.
+// fp32 logits in device memory: forward and backward.
 //
 // Replaces the Pallas TPU kernels of simlingo_tpu/kernels/fused_ce.py:
 // _fwd_kernel (:55, via _run_fwd :118) and _bwd_kernel (:85, via _run_bwd
@@ -22,111 +22,171 @@
 // running max, sum, gold and dh resident across it. Blocks on the H100
 // run in parallel in no order, so the sums across vocabulary tiles are
 // second passes over per-block partials, in a fixed order (no atomics:
-// results do not change from run to run):
-//   forward   ce_fwd_tile_kernel: one block per (128 rows, 128 vocab
-//             columns) tile, a plain K loop over H with both operands
-//             double-buffered by cp.async (mma.sync m16n8k16, fp32
-//             accumulate); the epilogue writes the tile's row max m_s and
-//             sum l_s (partials [V/128, N], 9 MB at the training shape),
-//             and the one block that holds a row's label writes its gold.
-//             blockIdx.x (the row tile) runs fastest, so the N/128 blocks
-//             that read one w tile run together and w comes from device
-//             memory about once. ce_fwd_finalize_kernel:
+// results do not change from run to run).
+//
+// The logits tile, logits_tile: one block of 8 warps computes a 128 rows x
+// 128 vocabulary columns tile of h w^T over K = H, both operands streamed
+// through a 3-stage cp.async ring of 64-wide k-steps, fragments by
+// ldmatrix.x4 (mma.sync m16n8k16, fp32 accumulate), 2 blocks an SM. Blocks
+// run with the row tile (blockIdx.x) fastest, so the N/128 blocks that
+// read one w tile run together and w comes from device memory about once.
+//   forward   ce_fwd_tile_kernel: the epilogue writes the tile's row max
+//             m_s and sum l_s (partials [V/128, N], 9 MB at the training
+//             shape), and the one block that holds a row's label writes
+//             its gold. ce_fwd_finalize_kernel:
 //             logz = M + log sum_s l_s exp(m_s - M).
-//   backward  ce_bwd_kernel<DW = false>: one block per (32 rows of h,
-//             vocabulary segment). The rows stay in shared memory, the
-//             segment's w tiles of 32 stream through a cp.async double
-//             buffer, and per tile the block recomputes the logits, forms
-//             dlogits in shared memory (bf16) and adds dlogits w_tile to
-//             a [32, H] fp32 accumulator held in registers. The segments
-//             are few (about #SM / (N / 32): 4 at the training shape), so
-//             the partials [S, N, H] fp32 stay small (14 MB) and all
-//             blocks run in one wave; blocks of one segment run together,
-//             so w is read from device memory about once.
-//             ce_dh_reduce_kernel sums the S partials in order.
-//             ce_bwd_kernel<DW = true>: the same kernel with the roles
-//             swapped -- one block per 32 vocabulary rows, h streaming --
-//             owns its dW rows outright, as on the TPU: no reduction.
-// Rows of w past V and of h past N are zero-filled, never read (JAX zeroes
-// w's pad rows: 0 * NaN would poison dh); columns past V are -inf in the
-// max and the sum and 0 in dlogits. A tile whose columns are all past V
-// keeps m = -inf, and the merge skips it (no exp(-inf + inf)).
+//   backward  a scratch and two tiled products. JAX rounds dlogits to w's
+//             dtype before both of its products (:107, :114), so a bf16
+//             dlogits written once keeps every rounding point:
+//   1. ce_dlogits_kernel: the logits tile again, and its epilogue writes
+//      dlogits = bf16((exp(s - logz) - onehot) g) to the scratch
+//      dl [N, Vpad], Vpad = 128 ceil(V / 128), 0 in the columns past V.
+//      Row-major, because both readers want rows of it: the dh product
+//      reads 64-column steps of 128 rows (128 contiguous bytes a row, whole
+//      cache lines) and the dW product 64-row steps of 128 columns. The
+//      tile is staged in shared memory and stored 16 bytes a lane.
+//   2. ce_dh_kernel: dh partials = dl w over the vocabulary cut into S
+//      segments of whole 128-column steps; one block of 8 warps per (128 x
+//      128 tile of [N, H], segment), the segment the grid's slowest axis,
+//      so the tiles that share a segment's scratch and w rows run together
+//      and find them in L2. A 3-stage cp.async ring of 64-wide k-steps; A
+//      (dl) by ldmatrix.x4, B (w rows, [k][n]) by ldmatrix.x4.trans. fp32
+//      partials [S, N, H]; ce_dh_reduce_kernel sums s = 0..S-1 in order and
+//      rounds once. The wrapper's plan (_bwd_plan) takes the S whose blocks
+//      fill their last wave of G_RESIDENT blocks an SM best (a segment's
+//      tiles fit one wave): 14 at the training shape, 2.97 waves, measured
+//      faster than one wave of 4 segments that leaves 40 SMs half busy.
+//   3. ce_dw_kernel (compute_dw): dW = dl^T h, one block per (128
+//      vocabulary rows, 128 columns of H) over K = N: it owns its dW tile
+//      outright, as on the TPU -- no reduction. The same loop, A (dl,
+//      stored [k][m]) by ldmatrix.x4.trans; the fp32 sums are rounded to
+//      bf16, staged in shared memory and stored 16 bytes a lane.
+//   The scratch costs its bytes: written and read once, 2 x 2 N Vpad (582
+//   MB at the training shape, 0.174 ms at 3.35 TB/s), below the operations
+//   bound. In practice every loop here runs near the mma.sync issue rate
+//   (200-300 TFLOP/s); wider tiles that cut L2 traffic by a quarter (128 x
+//   256 logits, 256 x 128 dh) measured no faster (PERF.md).
+// Rows of w past V and of h past N are zero-filled by cp.async, never read
+// (JAX zeroes w's pad rows: 0 * NaN would poison dh); columns past V are
+// -inf in the max and the sum and 0 in dlogits. A tile whose columns are
+// all past V keeps m = -inf, and the merge skips it (no exp(-inf + inf)).
+
+#include <atomic>
 
 #include "common.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using simlingo::ld32;
+
+constexpr int MAX_DEVICES = 16;
+
+// ---------------------------------------------------------------------------
+// the logits tile h w^T, shared by the forward and the dlogits pass
+// ---------------------------------------------------------------------------
+
+constexpr int FBM = 128, FBN = 128;  // logits tile: h rows x vocabulary columns
+constexpr int FBK = 64;               // k-step
+constexpr int F_STAGES = 3;           // depth of the cp.async ring
+constexpr int FLD = FBK + 8;          // 144-byte rows: every ldmatrix phase hits 32 banks
+constexpr int F_STAGE = (FBM + FBN) * FLD;           // bf16: A [FBM][FLD], B [FBN][FLD]
+constexpr int F_SMEM = F_STAGES * F_STAGE * 2;       // 110592 bytes: 2 blocks an SM
+
+// acc[mt][nt][e] += the logits of row m0 + wm * 32 + mt * 16 + g + 8 (e >> 1)
+// and column v0 + wn * 64 + nt * 8 + 2 t4 + (e & 1), wm = warp & 3,
+// wn = warp >> 2 (mma.m16n8k16 accumulator layout, g = lane / 4, t4 = lane
+// % 4). h and w rows stream through a ring of 64-wide k-steps (zero past
+// H, N and V); A-fragments by ldmatrix.x4 from the h tile, B-fragments by
+// ldmatrix.x4 from the w tile ([n][k]: two n8 tiles a load). Each
+// accumulator takes its 16-wide k-chunks in increasing order, whatever the
+// k-step and ring depth, so the logits' bits do not depend on them. Ends
+// behind a barrier with no copy in flight: `smem` is free for an epilogue.
+__device__ __forceinline__ void logits_tile(const bf16* __restrict__ h,
+                                            const bf16* __restrict__ w, int m0, int v0,
+                                            int N, int H, int V, bf16* smem,
+                                            float (&acc)[2][8][4]) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp & 3, wn = warp >> 2;     // warp tile: 32 rows x 64 columns
+
+  auto load = [&](int stage, int k) {
+    bf16* As = smem + stage * F_STAGE;
+    bf16* Bs = As + FBM * FLD;
+#pragma unroll
+    for (int i = 0; i < (FBM + FBN) * (FBK / 8) / 256; ++i) {
+      const int c = tid + i * 256;
+      const int r = c >> 3, kc = (c & 7) * 8;
+      const bool kin = k + kc < H;                     // H % 32 == 0: whole chunks
+      if (r < FBM) {
+        const int m = m0 + r;
+        const bool in = m < N && kin;
+        simlingo::cp_async16(As + r * FLD + kc,
+                             in ? h + static_cast<long long>(m) * H + k + kc : h, in);
+      } else {
+        const int v = v0 + r - FBM;
+        const bool in = v < V && kin;
+        simlingo::cp_async16(Bs + (r - FBM) * FLD + kc,
+                             in ? w + static_cast<long long>(v) * H + k + kc : w, in);
+      }
+    }
+  };
+
+  const int steps = (H + FBK - 1) / FBK;
+#pragma unroll
+  for (int s = 0; s < F_STAGES - 1; ++s) {
+    if (s < steps) load(s, s * FBK);
+    simlingo::cp_async_commit();
+  }
+  for (int t = 0; t < steps; ++t) {
+    simlingo::cp_async_wait<F_STAGES - 2>();         // step t has landed
+    __syncthreads();                 // and every warp is done with step t - 1's stage
+    if (t + F_STAGES - 1 < steps) load((t + F_STAGES - 1) % F_STAGES, (t + F_STAGES - 1) * FBK);
+    simlingo::cp_async_commit();
+    const bf16* As = smem + (t % F_STAGES) * F_STAGE;
+    const bf16* Bs = As + FBM * FLD;
+#pragma unroll
+    for (int kk = 0; kk < FBK / 16; ++kk) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        simlingo::ldmatrix_x4(a[mt], As + (wm * 32 + mt * 16 + (lane & 15)) * FLD + kk * 16 +
+                                         (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        // matrices (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15)
+        uint32_t b[4];
+        simlingo::ldmatrix_x4(b, Bs + (wn * 64 + np * 16 + (lane & 7) + ((lane >> 4) << 3)) * FLD +
+                                     kk * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          simlingo::mma_bf16_16816(acc[mt][2 * np], a[mt], b[0], b[1]);
+          simlingo::mma_bf16_16816(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
+        }
+      }
+    }
+  }
+  simlingo::cp_async_wait<0>();
+  __syncthreads();
+}
 
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
 
-constexpr int FBM = 128, FBN = 128, FBK = 32;
-constexpr int FLD = FBK + 8;          // padded rows: conflict-free fragment loads
-
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(256, 2)
 ce_fwd_tile_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
                    const long long* __restrict__ labels, float* __restrict__ part_m,
                    float* __restrict__ part_l, float* __restrict__ gold,
                    int N, int H, int V) {
-  __shared__ __align__(16) bf16 As[2][FBM * FLD];
-  __shared__ __align__(16) bf16 Bs[2][FBN * FLD];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
   __shared__ float red_m[2][FBM], red_l[2][FBM];
   const int m0 = blockIdx.x * FBM, v0 = blockIdx.y * FBN;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int wm = warp & 3, wn = warp >> 2;     // warp tile: 32 rows x 64 columns
-
-  auto load = [&](int st, int k0) {
-    for (int c = tid; c < (FBM + FBN) * (FBK / 8); c += 256) {
-      const int r = c >> 2, kc = (c & 3) * 8;
-      if (r < FBM) {
-        const int m = m0 + r;
-        const bool in = m < N;
-        simlingo::cp_async16(&As[st][r * FLD + kc],
-                             in ? h + static_cast<long long>(m) * H + k0 + kc : h, in);
-      } else {
-        const int v = v0 + r - FBM;
-        const bool in = v < V;
-        simlingo::cp_async16(&Bs[st][(r - FBM) * FLD + kc],
-                             in ? w + static_cast<long long>(v) * H + k0 + kc : w, in);
-      }
-    }
-  };
+  const int wm = warp & 3, wn = warp >> 2;
 
   float acc[2][8][4] = {};
-  const int nk = H / FBK;
-  load(0, 0);
-  simlingo::cp_async_commit();
-  for (int it = 0; it < nk; ++it) {
-    const int st = it & 1;
-    if (it + 1 < nk) load(st ^ 1, (it + 1) * FBK);      // overlaps this chunk
-    simlingo::cp_async_commit();
-    simlingo::cp_async_wait<1>();
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < FBK / 16; ++kk) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const bf16* ap = &As[st][(wm * 32 + mt * 16 + g) * FLD + kk * 16 + t4 * 2];
-        a[mt][0] = ld32(ap);
-        a[mt][1] = ld32(ap + 8 * FLD);
-        a[mt][2] = ld32(ap + 8);
-        a[mt][3] = ld32(ap + 8 * FLD + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const bf16* bp = &Bs[st][(wn * 64 + nt * 8 + g) * FLD + kk * 16 + t4 * 2];
-        const uint32_t b0 = ld32(bp), b1 = ld32(bp + 8);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) simlingo::mma_bf16_16816(acc[mt][nt], a[mt], b0, b1);
-      }
-    }
-    __syncthreads();                 // stage `st` is reloaded next iteration
-  }
+  logits_tile(h, w, m0, v0, N, H, V, smem, acc);
 
   // epilogue: this warp's 64 columns of each of its rows
 #pragma unroll
@@ -213,151 +273,191 @@ ce_fwd_finalize_kernel(const float* __restrict__ part_m, const float* __restrict
 }
 
 // ---------------------------------------------------------------------------
-// backward
+// backward, 1: the dlogits scratch
 // ---------------------------------------------------------------------------
 
-constexpr int BR = 32, BQ = 32;       // resident rows, streamed rows per tile
-constexpr int LDP = BQ + 8;
+constexpr int DLD = FBN + 8;          // staged dlogits rows: 272 bytes, conflict-free
+static_assert(FBM * DLD <= F_STAGES * F_STAGE, "the staged tile fits the ring");
 
-// R: the block's 32 resident rows (h rows for dh, w rows for dW); Q: the
-// streamed rows (w tiles of the segment for dh, all of h for dW). Per Q
-// tile: S = R Q^T [32, 32] (warp w: the 16x8 tile (w & 1, w >> 1), four
-// independent accumulators over K = H), dlogits into Ps, then
-// acc[32, H] += Ps Q_tile (warp w: columns [w NT 8, (w + 1) NT 8)).
-template <int NT, bool DW>
-__global__ void __launch_bounds__(256)
-ce_bwd_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
-              const long long* __restrict__ labels, const float* __restrict__ logz,
-              const float* __restrict__ gco, float* __restrict__ dh_part,
-              bf16* __restrict__ dw, int N, int H, int V, int q_per_seg) {
+// dl[row, v0 .. v0 + 127] for the block's 128 rows (rows past N are not
+// stored; columns past V are stored as 0).
+__global__ void __launch_bounds__(256, 2)
+ce_dlogits_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
+                  const long long* __restrict__ labels, const float* __restrict__ logz,
+                  const float* __restrict__ gco, bf16* __restrict__ dl,
+                  int N, int H, int V, int vpad) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int LD = H + 8;
-  bf16* Rs = reinterpret_cast<bf16*>(smem_raw);          // [BR][LD]
-  bf16* Qs = Rs + BR * LD;                               // [2][BQ][LD]
-  bf16* Ps = Qs + 2 * BQ * LD;                           // [BR][LDP]
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int m0 = blockIdx.x * FBM, v0 = blockIdx.y * FBN;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int r0 = blockIdx.x * BR;
-  const int nR = DW ? V : N, nQ = DW ? N : V;
-  const bf16* Rsrc = DW ? w : h;
-  const bf16* Qsrc = DW ? h : w;
-  const int ntq = (nQ + BQ - 1) / BQ;
-  const int q_begin = DW ? 0 : blockIdx.y * q_per_seg;
-  const int q_end = DW ? ntq : min(ntq, q_begin + q_per_seg);
+  const int wm = warp & 3, wn = warp >> 2;
 
-  auto load_rows = [&](bf16* dst, const bf16* src, int row0, int rows_total) {
-    const int cpr = H / 8;                                 // 16-byte chunks a row
-    for (int c = tid; c < 32 * cpr; c += 256) {
-      const int r = c / cpr, kc = (c - r * cpr) * 8, gr = row0 + r;
-      const bool in = gr < rows_total;
-      simlingo::cp_async16(dst + r * LD + kc,
-                           in ? src + static_cast<long long>(gr) * H + kc : src, in);
-    }
-  };
-  load_rows(Rs, Rsrc, r0, nR);
-  if (q_begin < q_end) load_rows(Qs, Qsrc, q_begin * BQ, nQ);
-  simlingo::cp_async_commit();
-
-  const int mt1 = warp & 1, nt1 = warp >> 1;             // this warp's S tile
-  // dh: the S rows are h rows, fixed for the block
-  float lz_r[2] = {0.f, 0.f}, g_r[2] = {0.f, 0.f};
-  long long lab_r[2] = {-1, -1};
-  if (!DW) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int m = r0 + mt1 * 16 + g + 8 * r;
-      if (m < N) {
-        lz_r[r] = logz[m];
-        g_r[r] = gco[m];
-        lab_r[r] = labels[m];
-      }
-    }
-  }
-
-  float acc[2][NT][4] = {};
-  for (int it = q_begin; it < q_end; ++it) {
-    const int st = (it - q_begin) & 1;
-    if (it + 1 < q_end) load_rows(Qs + (st ^ 1) * BQ * LD, Qsrc, (it + 1) * BQ, nQ);
-    simlingo::cp_async_commit();
-    simlingo::cp_async_wait<1>();
-    __syncthreads();
-    const bf16* Qt = Qs + st * BQ * LD;
-
-    float s4[4][4] = {};
-    const bf16* ap = Rs + (mt1 * 16 + g) * LD + t4 * 2;
-    const bf16* bp = Qt + (nt1 * 8 + g) * LD + t4 * 2;
-    for (int k = 0; k < H; k += 64) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kk = k + c * 16;
-        const uint32_t a[4] = {ld32(ap + kk), ld32(ap + 8 * LD + kk), ld32(ap + kk + 8),
-                               ld32(ap + 8 * LD + kk + 8)};
-        simlingo::mma_bf16_16816(s4[c], a, ld32(bp + kk), ld32(bp + kk + 8));
-      }
-    }
-    float dl[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float s = (s4[0][j] + s4[1][j]) + (s4[2][j] + s4[3][j]);
-      const int i = mt1 * 16 + g + 8 * (j >> 1);            // R index
-      const int q = it * BQ + nt1 * 8 + t4 * 2 + (j & 1);    // Q index
-      const int m = DW ? q : r0 + i, v = DW ? r0 + i : q;
-      float lz = lz_r[j >> 1], gg = g_r[j >> 1];
-      long long lab = lab_r[j >> 1];
-      if (DW && m < N) {
-        lz = logz[m];
-        gg = gco[m];
-        lab = labels[m];
-      }
-      const float p = expf(s - lz);
-      dl[j] = (m < N && v < V) ? (p - (v == lab ? 1.f : 0.f)) * gg : 0.f;
-    }
-    bf16* pp = Ps + (mt1 * 16 + g) * LDP + nt1 * 8 + t4 * 2;
-    *reinterpret_cast<uint32_t*>(pp) = simlingo::pack_bf16x2(dl[0], dl[1]);
-    *reinterpret_cast<uint32_t*>(pp + 8 * LDP) = simlingo::pack_bf16x2(dl[2], dl[3]);
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const bf16* p = Ps + (mt * 16 + g) * LDP + kk * 16 + t4 * 2;
-        a[mt][0] = ld32(p);
-        a[mt][1] = ld32(p + 8 * LDP);
-        a[mt][2] = ld32(p + 8);
-        a[mt][3] = ld32(p + 8 * LDP + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        uint32_t b0, b1;
-        simlingo::ldmatrix_x2_trans(
-            b0, b1, Qt + (kk * 16 + (lane & 15)) * LD + (warp * NT + nt) * 8);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) simlingo::mma_bf16_16816(acc[mt][nt], a[mt], b0, b1);
-      }
-    }
-    __syncthreads();                 // Ps and stage `st` are rewritten next
-  }
+  float acc[2][8][4] = {};
+  logits_tile(h, w, m0, v0, N, H, V, smem, acc);
 
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+    for (int r = 0; r < 2; ++r) {
+      const int local = wm * 32 + mt * 16 + g + 8 * r, row = m0 + local;
+      const bool in = row < N;
+      const float lz = in ? logz[row] : 0.f, gg = in ? gco[row] : 0.f;
+      const long long lab = in ? labels[row] : -1;
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = r0 + mt * 16 + g + 8 * r;
-        const int col = (warp * NT + nt) * 8 + t4 * 2;
-        const float x0 = acc[mt][nt][2 * r], x1 = acc[mt][nt][2 * r + 1];
-        if (DW) {
-          if (row < V)
-            *reinterpret_cast<uint32_t*>(dw + static_cast<long long>(row) * H + col) =
-                simlingo::pack_bf16x2(x0, x1);
-        } else if (row < N) {
-          *reinterpret_cast<float2*>(
-              dh_part + (static_cast<long long>(blockIdx.y) * N + row) * H + col) =
-              make_float2(x0, x1);
+      for (int nt = 0; nt < 8; ++nt) {
+        const int col = wn * 64 + nt * 8 + t4 * 2, v = v0 + col;
+        float d[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = expf(acc[mt][nt][2 * r + e] - lz);
+          d[e] = (in && v + e < V) ? (p - (v + e == lab ? 1.f : 0.f)) * gg : 0.f;
         }
+        *reinterpret_cast<uint32_t*>(smem + local * DLD + col) = simlingo::pack_bf16x2(d[0], d[1]);
+      }
+    }
+  __syncthreads();
+  for (int c = tid; c < FBM * (FBN / 8); c += 256) {
+    const int r = c >> 4, cc = (c & 15) * 8;
+    if (m0 + r < N)
+      *reinterpret_cast<uint4*>(dl + static_cast<long long>(m0 + r) * vpad + v0 + cc) =
+          *reinterpret_cast<const uint4*>(smem + r * DLD + cc);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward, 2 and 3: the tiled products dh = dl w and dW = dl^T h
+// ---------------------------------------------------------------------------
+
+constexpr int VSTEP = 128;           // vocabulary columns a dlogits tile, a segment step
+constexpr int GM = 128, GN = 128;    // product tile
+constexpr int GK = 64;               // k-step
+constexpr int G_STAGES = 3;          // depth of the cp.async ring
+constexpr int G_THREADS = 256;       // 8 warps, 2 (m) x 4 (n), each 64 x 32
+constexpr int G_RESIDENT = 2;        // blocks an SM: <= 128 registers a thread
+// Shared memory, stage by stage: the A tile ([m][k], 144-byte rows, or
+// [k][m], 272-byte rows) and the B tile ([k][n], 272-byte rows): every
+// ldmatrix phase of 8 rows x 16 bytes hits 32 distinct banks.
+constexpr int G_LDA = GK + 8, G_LDAT = GM + 8, G_LDB = GN + 8;
+constexpr int G_A = GM * G_LDA > GK * G_LDAT ? GM * G_LDA : GK * G_LDAT;
+constexpr int G_B = GK * G_LDB;
+constexpr int G_SMEM = G_STAGES * (G_A + G_B) * 2;              // 107520 bytes
+constexpr int G_LDO = GN + 8;        // the dW tile staged for its stores
+static_assert(GM * G_LDO * 2 <= G_SMEM, "the dW tile fits the ring");
+static_assert(VSTEP % GK == 0, "segments are whole k-steps");
+
+// acc[i][j][e] += sum over k in [k0, k0 + steps GK) of A(m, k) B(k, n),
+// m = m0 + wm + 16 i + g + 8 (e >> 1), n = n0 + wn + 8 j + 2 t4 + (e & 1),
+// wm = (warp >> 2) 64, wn = (warp & 3) 32. B(k, n) = B[k ldb + n], zero for
+// k >= b_klim or n >= b_nlim. A(m, k) = A[m lda + k], zero for m >= a_lim
+// (AT false: dh, A = dl); or A[k lda + m], zero for k >= a_lim (AT true: dW,
+// A = dl^T). Ends behind a barrier with no copy in flight: `smem` is free.
+template <bool AT>
+__device__ __forceinline__ void product_tile(const bf16* __restrict__ A, long long lda,
+                                             int a_lim, const bf16* __restrict__ B, int ldb,
+                                             int b_klim, int b_nlim, int m0, int n0, int k0,
+                                             int steps, bf16* smem, float (&acc)[4][4][4]) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+
+  auto load = [&](int stage, int step) {
+    const int k = k0 + step * GK;
+    bf16* As = smem + stage * (G_A + G_B);
+    bf16* Bs = As + G_A;
+#pragma unroll
+    for (int i = 0; i < GM * GK / (8 * G_THREADS); ++i) {
+      const int c = tid + i * G_THREADS;
+      if constexpr (!AT) {
+        const int r = c >> 3, kc = (c & 7) * 8;
+        const bool ok = m0 + r < a_lim;
+        simlingo::cp_async16(As + r * G_LDA + kc,
+                             ok ? A + (m0 + r) * lda + k + kc : A, ok);
+      } else {
+        const int r = c >> 4, mc = (c & 15) * 8;
+        const bool ok = k + r < a_lim;
+        simlingo::cp_async16(As + r * G_LDAT + mc,
+                             ok ? A + (k + r) * lda + m0 + mc : A, ok);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < GK * GN / (8 * G_THREADS); ++i) {
+      const int c = tid + i * G_THREADS;
+      const int r = c >> 4, nc = (c & 15) * 8;
+      const bool ok = k + r < b_klim && n0 + nc < b_nlim;
+      simlingo::cp_async16(Bs + r * G_LDB + nc,
+                           ok ? B + static_cast<long long>(k + r) * ldb + n0 + nc : B, ok);
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < G_STAGES - 1; ++s) {
+    if (s < steps) load(s, s);
+    simlingo::cp_async_commit();
+  }
+  for (int t = 0; t < steps; ++t) {
+    simlingo::cp_async_wait<G_STAGES - 2>();         // step t has landed
+    __syncthreads();                 // and every warp is done with step t - 1's stage
+    if (t + G_STAGES - 1 < steps) load((t + G_STAGES - 1) % G_STAGES, t + G_STAGES - 1);
+    simlingo::cp_async_commit();
+    const bf16* As = smem + (t % G_STAGES) * (G_A + G_B);
+    const bf16* Bs = As + G_A;
+#pragma unroll
+    for (int kk = 0; kk < GK / 16; ++kk) {
+      uint32_t a[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (!AT)
+          simlingo::ldmatrix_x4(a[i], As + (wm + i * 16 + (lane & 15)) * G_LDA + kk * 16 +
+                                          (lane >> 4) * 8);
+        else      // [k][m]: matrices (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15), ...
+          simlingo::ldmatrix_x4_trans(
+              a[i], As + (kk * 16 + (lane & 7) + ((lane >> 4) << 3)) * G_LDAT + wm + i * 16 +
+                        ((lane >> 3) & 1) * 8);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        uint32_t b[4];
+        simlingo::ldmatrix_x4_trans(b, Bs + (kk * 16 + (lane & 15)) * G_LDB + wn + j * 16 +
+                                           (lane >> 4) * 8);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          simlingo::mma_bf16_16816(acc[i][2 * j], a[i], b[0], b[1]);
+          simlingo::mma_bf16_16816(acc[i][2 * j + 1], a[i], b[2], b[3]);
+        }
+      }
+    }
+  }
+  simlingo::cp_async_wait<0>();
+  __syncthreads();
+}
+
+// fp32 partial part[s] of the 128 x 128 tile (blockIdx.y, blockIdx.x) of dh
+// over segment s = blockIdx.z: vocabulary columns [s seg, (s + 1) seg) of
+// dl, seg = seg_steps VSTEP.
+__global__ void __launch_bounds__(G_THREADS, G_RESIDENT)
+ce_dh_kernel(const bf16* __restrict__ dl, const bf16* __restrict__ w,
+             float* __restrict__ part, int N, int H, int V, int vpad, int seg_steps) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int n0 = blockIdx.x * GN, m0 = blockIdx.y * GM, s = blockIdx.z;
+  const int k0 = s * seg_steps * VSTEP;
+  const int steps = (min(vpad, k0 + seg_steps * VSTEP) - k0) / GK;
+  float acc[4][4][4] = {};
+  product_tile<false>(dl, vpad, N, w, H, V, H, m0, n0, k0, steps, smem, acc);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = m0 + wm + i * 16 + (lane >> 2) + 8 * half;
+        const int col = n0 + wn + j * 8 + (lane & 3) * 2;
+        if (row < N && col < H)
+          *reinterpret_cast<float2*>(part + (static_cast<long long>(s) * N + row) * H + col) =
+              make_float2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
       }
 }
 
@@ -380,40 +480,48 @@ ce_dh_reduce_kernel(const float* __restrict__ part, bf16* __restrict__ dh,
   }
 }
 
-template <int NT>
-int launch_bwd(const void* h, const void* w, const void* labels, const void* logz,
-               const void* g, void* part, void* dh, void* dw, int N, int H, int V,
-               int S, cudaStream_t st) {
-  const size_t smem = static_cast<size_t>(3 * 32 * (H + 8) + BR * LDP) * sizeof(bf16);
-  const bf16* hp = static_cast<const bf16*>(h);
-  const bf16* wp = static_cast<const bf16*>(w);
-  const long long* lp = static_cast<const long long*>(labels);
-  const float* zp = static_cast<const float*>(logz);
-  const float* gp = static_cast<const float*>(g);
-  auto kdh = ce_bwd_kernel<NT, false>;
-  cudaError_t e = cudaFuncSetAttribute(kdh, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int ntq = (V + BQ - 1) / BQ;
-  const int q_per_seg = (ntq + S - 1) / S;
-  kdh<<<dim3((N + BR - 1) / BR, S), 256, smem, st>>>(
-      hp, wp, lp, zp, gp, static_cast<float*>(part), nullptr, N, H, V, q_per_seg);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long long count = static_cast<long long>(N) * H;
-  long long blocks = (count / 4 + 255) / 256;
-  if (blocks > 132 * 8) blocks = 132 * 8;
-  ce_dh_reduce_kernel<<<static_cast<unsigned>(blocks), 256, 0, st>>>(
-      static_cast<const float*>(part), static_cast<bf16*>(dh), count, S);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || dw == nullptr) return static_cast<int>(e);
-  auto kdw = ce_bwd_kernel<NT, true>;
-  e = cudaFuncSetAttribute(kdw, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kdw<<<dim3((V + BR - 1) / BR, 1), 256, smem, st>>>(
-      hp, wp, lp, zp, gp, nullptr, static_cast<bf16*>(dw), N, H, V, 0);
-  return static_cast<int>(cudaGetLastError());
+// dW rows [m0, m0 + 128) (vocabulary), columns [n0, n0 + 128) of H, over
+// all N rows of dl and h; rounded to bf16.
+__global__ void __launch_bounds__(G_THREADS, G_RESIDENT)
+ce_dw_kernel(const bf16* __restrict__ dl, const bf16* __restrict__ h, bf16* __restrict__ dw,
+             int N, int H, int V, int vpad) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int n0 = blockIdx.x * GN, m0 = blockIdx.y * GM;
+  float acc[4][4][4] = {};
+  product_tile<true>(dl, vpad, N, h, H, N, H, m0, n0, 0, (N + GK - 1) / GK, smem, acc);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = wm + i * 16 + (lane >> 2) + 8 * half, c = wn + j * 8 + (lane & 3) * 2;
+        *reinterpret_cast<uint32_t*>(smem + r * G_LDO + c) =
+            simlingo::pack_bf16x2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
+      }
+  __syncthreads();
+  for (int c = tid; c < GM * (GN / 8); c += G_THREADS) {
+    const int r = c >> 4, cc = (c & 15) * 8;
+    if (m0 + r < V && n0 + cc < H)                     // H % 8 == 0: whole chunks
+      *reinterpret_cast<uint4*>(dw + static_cast<long long>(m0 + r) * H + n0 + cc) =
+          *reinterpret_cast<const uint4*>(smem + r * G_LDO + cc);
+  }
+}
+
+// The dynamic shared-memory limit above 48 KB is a per-device attribute of
+// a kernel: raised at its first launch on each device.
+cudaError_t raise_smem(const void* kernel, int bytes, std::atomic<bool>* raised) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < MAX_DEVICES && raised[dev].load(std::memory_order_relaxed)) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess && dev < MAX_DEVICES) raised[dev].store(true, std::memory_order_relaxed);
+  return e;
 }
 
 }  // namespace
@@ -423,13 +531,16 @@ int launch_bwd(const void* h, const void* w, const void* labels, const void* log
 extern "C" int simlingo_fused_ce_fwd(const void* h, const void* w, const void* labels,
                                      void* part_m, void* part_l, void* gold, void* logz,
                                      void* ce, int N, int H, int V, void* stream) {
+  static std::atomic<bool> raised[MAX_DEVICES];
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nvt = (V + FBN - 1) / FBN;
-  ce_fwd_tile_kernel<<<dim3((N + FBM - 1) / FBM, nvt), 256, 0, st>>>(
+  cudaError_t e = raise_smem(reinterpret_cast<const void*>(ce_fwd_tile_kernel), F_SMEM, raised);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ce_fwd_tile_kernel<<<dim3((N + FBM - 1) / FBM, nvt), 256, F_SMEM, st>>>(
       static_cast<const bf16*>(h), static_cast<const bf16*>(w),
       static_cast<const long long*>(labels), static_cast<float*>(part_m),
       static_cast<float*>(part_l), static_cast<float*>(gold), N, H, V);
-  const cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   ce_fwd_finalize_kernel<<<(N + 31) / 32, 256, 0, st>>>(
       static_cast<const float*>(part_m), static_cast<const float*>(part_l),
@@ -438,19 +549,55 @@ extern "C" int simlingo_fused_ce_fwd(const void* h, const void* w, const void* l
   return static_cast<int>(cudaGetLastError());
 }
 
-// dh [N, H] bf16; dw [V, H] bf16 or null (no dW). Scratch: part [S, N, H]
-// fp32, S vocabulary segments. Needs H in {64, 128, 256, 512, 896}.
+// The backward's geometry, which the wrapper's plan is made for: vocabulary
+// columns a dlogits tile and a segment step, the product tile's rows and
+// columns, its blocks an SM.
+extern "C" void simlingo_fused_ce_bwd_geometry(int* out) {
+  out[0] = VSTEP;
+  out[1] = GM;
+  out[2] = GN;
+  out[3] = G_RESIDENT;
+}
+
+// dh [N, H] bf16; dw [V, H] bf16 or null (no dW). Scratch: dl [N, Vpad]
+// bf16, Vpad = 128 ceil(V / 128); part [S, N, H] fp32, S segments of
+// seg_steps 128-column steps each (the wrapper's plan: none empty). Needs
+// H % 32 == 0, 16-byte aligned rows.
 extern "C" int simlingo_fused_ce_bwd(const void* h, const void* w, const void* labels,
-                                     const void* logz, const void* g, void* part,
+                                     const void* logz, const void* g, void* dl, void* part,
                                      void* dh, void* dw, int N, int H, int V, int S,
-                                     void* stream) {
+                                     int seg_steps, void* stream) {
+  static std::atomic<bool> dl_raised[MAX_DEVICES], dh_raised[MAX_DEVICES],
+      dw_raised[MAX_DEVICES];
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (H) {
-    case 64: return launch_bwd<1>(h, w, labels, logz, g, part, dh, dw, N, H, V, S, st);
-    case 128: return launch_bwd<2>(h, w, labels, logz, g, part, dh, dw, N, H, V, S, st);
-    case 256: return launch_bwd<4>(h, w, labels, logz, g, part, dh, dw, N, H, V, S, st);
-    case 512: return launch_bwd<8>(h, w, labels, logz, g, part, dh, dw, N, H, V, S, st);
-    case 896: return launch_bwd<14>(h, w, labels, logz, g, part, dh, dw, N, H, V, S, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (H % 32 != 0 || S < 1 || seg_steps < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int vpad = (V + VSTEP - 1) / VSTEP * VSTEP;
+  const bf16* hp = static_cast<const bf16*>(h);
+  const bf16* wp = static_cast<const bf16*>(w);
+  bf16* dlp = static_cast<bf16*>(dl);
+  cudaError_t e = raise_smem(reinterpret_cast<const void*>(ce_dlogits_kernel), F_SMEM, dl_raised);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ce_dlogits_kernel<<<dim3((N + FBM - 1) / FBM, vpad / FBN), 256, F_SMEM, st>>>(
+      hp, wp, static_cast<const long long*>(labels), static_cast<const float*>(logz),
+      static_cast<const float*>(g), dlp, N, H, V, vpad);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = raise_smem(reinterpret_cast<const void*>(ce_dh_kernel), G_SMEM, dh_raised);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ce_dh_kernel<<<dim3((H + GN - 1) / GN, (N + GM - 1) / GM, S), G_THREADS, G_SMEM, st>>>(
+      dlp, wp, static_cast<float*>(part), N, H, V, vpad, seg_steps);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long count = static_cast<long long>(N) * H;
+  long long blocks = (count / 4 + 255) / 256;
+  if (blocks > 132 * 8) blocks = 132 * 8;
+  ce_dh_reduce_kernel<<<static_cast<unsigned>(blocks), 256, 0, st>>>(
+      static_cast<const float*>(part), static_cast<bf16*>(dh), count, S);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || dw == nullptr) return static_cast<int>(e);
+  e = raise_smem(reinterpret_cast<const void*>(ce_dw_kernel), G_SMEM, dw_raised);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ce_dw_kernel<<<dim3((H + GN - 1) / GN, vpad / GM), G_THREADS, G_SMEM, st>>>(
+      dlp, hp, static_cast<bf16*>(dw), N, H, V, vpad);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -23,19 +23,32 @@ On a CUDA tensor `fused_ce_fwd` / `fused_ce_bwd` launch `csrc/fused_ce.cu`
 aligned rows; anything else raises); on a CPU tensor they run their plain
 versions. Labels may come as any integer type: the wrapper hands the
 kernel int64.
+
+The backward on the card is a scratch and two tiled products (`_bwd_plan`
+sizes them): dlogits is written once, in w's dtype, to dl [N, Vpad]
+(Vpad = 128 ceil(V / 128), zero past V); dh = dl w goes per vocabulary
+segment (S segments of whole 128-column steps) into fp32 partials
+[S, N, H], summed in segment order; dW = dl^T h. `ce_dlogits_reference`,
+`ce_dh_from_scratch_reference` and `ce_dw_from_scratch_reference` are those
+passes in plain PyTorch.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 
 from simlingo_tpu_torch.kernels import _build
 
-BWD_WIDTHS = (64, 128, 256, 512, 896)     # csrc/fused_ce.cu: NT = H / 64
+BWD_WIDTHS = (64, 128, 256, 512, 896)     # the widths the backward is held to
 _FWD_TILE = 128                           # vocabulary columns per forward block
-_BWD_ROWS = 32                            # h rows per backward block
+# csrc/fused_ce.cu's backward geometry (simlingo_fused_ce_bwd_geometry):
+_VSTEP = 128                              # vocabulary columns a dlogits tile, a segment step
+_DH_TILE = (128, 128)                     # product tile: rows, columns
+_DH_RESIDENT = 2                          # product blocks an SM
+_DH_MAX_SEGMENTS = 16                     # cap on S: fp32 partials [S, N, H]
 
 
 # ---------------------------------------------------------------------------
@@ -78,6 +91,93 @@ def fused_ce_bwd_plain(h2, labels, w, logz, g, compute_dw, abs_terms=False):
     if abs_terms:
         return dh, dw
     return dh.to(h2.dtype), None if dw is None else dw.to(w.dtype)
+
+
+class BwdPlan(NamedTuple):
+    vpad: int                      # scratch row length: 128 ceil(V / 128)
+    scratch_shape: Tuple[int, int]     # dl [N, vpad], w's dtype
+    scratch_bytes: int
+    dlogits_blocks: int            # (128 rows, 128 columns) tiles of dl
+    S: int                         # vocabulary segments of the dh product
+    seg_steps: int                 # 128-column steps a segment (the last may be short)
+    segments: Tuple[Tuple[int, int], ...]    # [c0, c1) columns of dl per segment
+    part_shape: Tuple[int, int, int]     # fp32 partials of dh [S, N, H]
+    dh_blocks: int                 # (128 x 128 tile of dh, segment)
+    dw_blocks: int                 # (128 vocabulary rows, 128 columns of H)
+
+
+def _wave_fill(blocks: int, slots: int) -> float:
+    """The share of `ceil(blocks / slots)` waves of `slots` blocks that
+    `blocks` blocks fill."""
+    return blocks / (-(-blocks // slots) * slots)
+
+
+def _segments(steps: int, S: int):
+    """(S, steps a segment) for at most S segments of whole steps, none
+    empty."""
+    per = -(-steps // S)
+    return -(-steps // per), per
+
+
+def _bwd_plan(N: int, H: int, V: int, sms: int) -> BwdPlan:
+    """The backward's scratch and grids. dh's reduction (the vocabulary)
+    is cut into S segments of whole 128-column steps, the segment the
+    grid's slowest axis, so the tiles of one segment (fewer than a wave of
+    _DH_RESIDENT blocks an SM) run together. Where the tiles alone fill a
+    wave, S = 1; else S <= _DH_MAX_SEGMENTS fills its last wave best, the
+    fewest segments among equals (the training shape: 56 tiles, S = 14,
+    784 blocks, 2.97 waves of 264; `chip_smoke.py --ce-sweep`)."""
+    bm, bn = _DH_TILE
+    vpad = _VSTEP * -(-V // _VSTEP)
+    steps = vpad // _VSTEP
+    tiles = -(-N // bm) * -(-H // bn)
+    slots = _DH_RESIDENT * sms
+    S = 1
+    if tiles < slots:
+        S = max((_segments(steps, s)[0] for s in range(1, min(steps, _DH_MAX_SEGMENTS) + 1)),
+                key=lambda s: (_wave_fill(tiles * s, slots), -s))
+    S, per = _segments(steps, S)
+    segments = tuple((s * per * _VSTEP, min(steps, (s + 1) * per) * _VSTEP)
+                     for s in range(S))
+    return BwdPlan(vpad=vpad, scratch_shape=(N, vpad), scratch_bytes=2 * N * vpad,
+                   dlogits_blocks=-(-N // _FWD_TILE) * steps, S=S, seg_steps=per,
+                   segments=segments, part_shape=(S, N, H), dh_blocks=tiles * S,
+                   dw_blocks=-(-H // bn) * (vpad // bm))
+
+
+def ce_dlogits_reference(h2, labels, w, logz, g, plan):
+    """The first pass, plain: dl [N, vpad] in w's dtype, dlogits rounded
+    where the kernel rounds it, 0 in the columns past V."""
+    N, V = h2.shape[0], w.shape[0]
+    dl = torch.zeros(plan.scratch_shape, dtype=w.dtype, device=h2.device)
+    dl[:, :V] = _dlogits_plain(h2, labels, w, logz, g).to(w.dtype)
+    return dl
+
+
+def ce_dh_from_scratch_reference(dl, w, plan, abs_terms=False):
+    """The second pass, plain: fp32 partials dl[:, seg] w[seg] per segment
+    (w zero past V, as the kernel zero-fills it), summed in segment order;
+    fp32 [N, H] (|dl| |w| with `abs_terms`)."""
+    V, H = w.shape
+    wf = torch.zeros((plan.vpad, H), dtype=torch.float32, device=w.device)
+    wf[:V] = w.float()
+    dlf = dl.float()
+    if abs_terms:
+        dlf, wf = dlf.abs(), wf.abs()
+    out = None
+    for c0, c1 in plan.segments:
+        part = dlf[:, c0:c1] @ wf[c0:c1]
+        out = part if out is None else out + part
+    return out
+
+
+def ce_dw_from_scratch_reference(dl, h2, V, abs_terms=False):
+    """The dW pass, plain: dl[:, :V]^T h, fp32 [V, H] (|dl|^T |h| with
+    `abs_terms`); the columns of dl past V are never read."""
+    dlf, hf = dl[:, :V].float(), h2.float()
+    if abs_terms:
+        dlf, hf = dlf.abs(), hf.abs()
+    return dlf.t() @ hf
 
 
 # ---------------------------------------------------------------------------
@@ -125,15 +225,12 @@ def fused_ce_fwd(h2, labels, w):
     return logz, ce
 
 
-def _segments(N: int, V: int, sms: int) -> int:
-    """Vocabulary segments of the dh backward: enough blocks of (32 rows,
-    segment) to fill the card in one wave."""
-    return max(1, min(-(-V // _BWD_ROWS), sms // -(-N // _BWD_ROWS)))
-
-
-def fused_ce_bwd(h2, labels, w, logz, g, compute_dw):
-    """(dh [N, H] in h's dtype, dW [V, H] in w's dtype or None)."""
+def fused_ce_bwd(h2, labels, w, logz, g, compute_dw, return_scratch=False):
+    """(dh [N, H] in h's dtype, dW [V, H] in w's dtype or None); with
+    `return_scratch` (CUDA only) also the dlogits scratch dl [N, Vpad]."""
     if h2.device.type == "cpu":
+        if return_scratch:
+            raise ValueError("fused_ce_bwd: the scratch exists on the card only")
         return fused_ce_bwd_plain(h2, labels, w, logz, g, compute_dw)
     _check("fused_ce_bwd", h2, labels, w, BWD_WIDTHS)
     h2, w = _build.aligned16(h2), _build.aligned16(w)
@@ -146,16 +243,19 @@ def fused_ce_bwd(h2, labels, w, logz, g, compute_dw):
     dh = torch.empty_like(h2)
     dw = torch.empty_like(w) if compute_dw else None
     if N == 0:
-        return dh, None if dw is None else dw.zero_()
-    S = _segments(N, V, _build.sm_count(dev.index or 0))
-    part = torch.empty((S, N, H), dtype=torch.float32, device=dev)
+        out = (dh, None if dw is None else dw.zero_())
+        return (*out, None) if return_scratch else out
+    plan = _bwd_plan(N, H, V, _build.sm_count(dev.index or 0))
+    dl = torch.empty(plan.scratch_shape, dtype=torch.bfloat16, device=dev)
+    part = torch.empty(plan.part_shape, dtype=torch.float32, device=dev)
     rc = _lib().simlingo_fused_ce_bwd(
         h2.data_ptr(), w.data_ptr(), labels.data_ptr(), logz.data_ptr(), g.data_ptr(),
-        part.data_ptr(), dh.data_ptr(), None if dw is None else dw.data_ptr(),
-        N, H, V, S, torch.cuda.current_stream(dev).cuda_stream)
+        dl.data_ptr(), part.data_ptr(), dh.data_ptr(),
+        None if dw is None else dw.data_ptr(), N, H, V, plan.S, plan.seg_steps,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "fused_ce_bwd")
     fused_ce_bwd.launches += 1
-    return dh, dw
+    return (dh, dw, dl) if return_scratch else (dh, dw)
 
 
 fused_ce_fwd.launches = 0
@@ -169,8 +269,16 @@ def _lib():
             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         lib.simlingo_fused_ce_fwd.restype = ctypes.c_int
         lib.simlingo_fused_ce_bwd.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.simlingo_fused_ce_bwd.restype = ctypes.c_int
+        lib.simlingo_fused_ce_bwd_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.simlingo_fused_ce_bwd_geometry.restype = None
+        geometry = (ctypes.c_int * 4)()
+        lib.simlingo_fused_ce_bwd_geometry(geometry)
+        want = (_VSTEP, *_DH_TILE, _DH_RESIDENT)
+        if tuple(geometry) != want:
+            raise RuntimeError(f"fused_ce_bwd: the library's geometry {tuple(geometry)} "
+                               f"differs from the plan's {want}")
     return lib
 
 

@@ -397,7 +397,8 @@ def test_norm_kernels_match_plain(gpu, n, d, scale_dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,H,V", [(100, 128, 1111), (960, 896, 5003), (7, 64, 300)])
+@pytest.mark.parametrize("N,H,V", [(100, 128, 1111), (960, 896, 5003), (7, 64, 300),
+                                   (130, 896, 40961)])
 def test_fused_ce_kernels_match_plain(gpu, N, H, V):
     g = torch.Generator(device=gpu).manual_seed(7)
     h = torch.randn(N, H, generator=g, device=gpu).bfloat16()
@@ -420,6 +421,10 @@ def test_fused_ce_kernels_match_plain(gpu, N, H, V):
     dh_only, none = TCE.fused_ce_bwd(h, labels, w, rlogz, cot, False)
     assert none is None and torch.equal(dh_only, dh)
     assert (TCE.fused_ce_fwd.launches, TCE.fused_ce_bwd.launches) == (f0 + 1, b0 + 2)
+    # no atomics: the same bits on every call (V = 40961 splits unevenly
+    # across the dh segments)
+    dh2, dw2 = TCE.fused_ce_bwd(h, labels, w, rlogz, cot, True)
+    assert torch.equal(dh2, dh) and torch.equal(dw2, dw)
 
 
 @pytest.mark.cuda
