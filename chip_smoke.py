@@ -6,14 +6,20 @@
     python3 chip_smoke.py --kernels flash_attn_bwd   # ... of the named kernels
     python3 chip_smoke.py --int8-sweep  # the int8 forward at forced splits S
     python3 chip_smoke.py --ce-sweep    # the fused CE backward at forced segments S
-    python3 chip_smoke.py --kernels fused_ce --parent DIR   # ... and the CE
-                                        # forward's bits against the tree at DIR
+    python3 chip_smoke.py --attn-sweep  # the attention forward at forced plans
+    python3 chip_smoke.py --parent DIR  # ... and the CE forward's and the tiled
+                                        # attention forward's bits against the
+                                        # tree at DIR, with both trees' times
+                                        # (scripts/fwd_digest.py)
 
 Phases, in order; any failure exits non-zero:
   1. build: compile csrc/*.cu with nvcc (all in parallel), print seconds;
   2. kernels: every hand-written kernel at every shape the serving and the
      training paths give it, against its plain PyTorch version on the same
      bf16 inputs (fp32 math) at |err| <= ATOL + RTOL |ref| (the attention
+     forward also with its lse, bit-identical across two calls, its path
+     -- tiled or split, the splits -- its kernel's ptxas registers and
+     sha256 digests of out and lse; the attention
      backward: within the bf16 rounding bound of each gradient element,
      see BF16_U, and so pass by pass -- its dS^T scratch against
      attention_ds_reference, its dq against attention_dq_from_ds_reference
@@ -288,17 +294,21 @@ def visible_pairs(torch, dev, B, T, S, causal, q_off, valid):
     return int(mask.sum()), int((~mask.any(-1)).sum()), mask
 
 
-def run_attention_checks(torch, dev, results):
-    import torch.nn.functional as F
-    from simlingo_tpu_torch.kernels import flash_attention as FA
+def attention_inputs(torch, dev):
+    """For each phase-2 attention case (`attention_cases`, then the two
+    training shapes): the case, its first inputs (q, k, v, kv_valid) and
+    the timing sets, all drawn from one generator seeded 0. kv_valid is
+    bool, so a timed call includes the wrapper's conversion to uint8, as
+    it has since PR 6. `scripts/fwd_digest.py` takes its inputs from here."""
     gen = torch.Generator(device=dev).manual_seed(0)
     D = 64
     cases = attention_cases() + [
         ("llm_train", 6, 798, 798, 14, 2, True, None, "train", False),
         ("vit_train", 12, 1025, 1025, 16, 16, False, None, None, True)]
     train_valid = train_llm_valid(torch, dev)
-    for (name, B, T, S, HQ, HK, causal, q_off, ranges,
-         strided) in cases:
+    for case in cases:
+        B, T, S, HQ, HK, _, _, ranges, strided = case[1:]
+
         def make():
             if strided:      # ViT: heads are views of one [B, T, 3*H*D] projection
                 qkv = torch.randn(B, T, 3 * HQ * D, generator=gen, device=dev,
@@ -321,10 +331,39 @@ def run_attention_checks(torch, dev, results):
                     valid[:, lo:hi] = True
             return q, k, v, valid
 
-        q, k, v, valid = make()
+        first = make()
+        yield case, first, [make() for _ in range(n_sets(attention_bytes(case)))]
+
+
+def attention_bytes(case):
+    """Bytes a call must move: q, out, k, v (bf16) and kv_valid."""
+    _, B, T, S, HQ, HK, _, _, ranges, _ = case
+    return 2 * (B * T * HQ * 64 * 2 + 2 * B * S * HK * 64) + (B * S if ranges else 0)
+
+
+def attention_call(FA, case):
+    """The timed call of a phase-2 attention case."""
+    causal, q_off = case[6], case[7]
+    return lambda q_, k_, v_, m_: FA.flash_attn_fwd(q_, k_, v_, m_, causal, None, q_off)
+
+
+def run_attention_checks(torch, dev, results):
+    import torch.nn.functional as F
+    from simlingo_tpu_torch.kernels import flash_attention as FA
+    from simlingo_tpu_torch.kernels import _build
+    D = 64
+    regs_all = ptxas_usage("flash_attn_fwd")
+    for case, (q, k, v, valid), sets in attention_inputs(torch, dev):
+        name, B, T, S, HQ, HK, causal, q_off, _, _ = case
         out, lse = FA.flash_attn_fwd(q, k, v, valid, causal, None, q_off,
                                      return_lse=True)
+        again = FA.flash_attn_fwd(q, k, v, valid, causal, None, q_off, return_lse=True)
         torch.cuda.synchronize()
+        same = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        off = S - T if q_off is None else q_off
+        plan = FA._fwd_plan(B, T, S, HQ, HK, causal, off, sms=_build.sm_count(dev.index or 0))
+        kname = "flash_fwd_split_kernel" if plan.path == "split" else "flash_fwd_kernel"
+        regs = regs_all.get(kname, (0, 0))
         ref = FA.attention_reference(q.float(), k.float(), v.float(), valid,
                                      causal, None, q_off)
         err, rel, ok = max_violation("flash_attn_fwd", out, ref)
@@ -332,17 +371,13 @@ def run_attention_checks(torch, dev, results):
                                              None, q_off)
         fin = torch.isfinite(ref_lse)
         lse_err = float((lse[fin] - ref_lse[fin]).abs().max()) if fin.any() else 0.0
-        ok = ok and torch.equal(torch.isfinite(lse), fin) and lse_err <= 1e-2
+        ok = ok and torch.equal(torch.isfinite(lse), fin) and lse_err <= 1e-2 and same
         # visible (row, key) pairs: the work this data needs
         pairs, empty_rows, mask = visible_pairs(torch, dev, B, T, S, causal,
                                                 q_off, valid)
         flops = 4 * D * pairs * HQ
-        nbytes = 2 * (B * T * HQ * D * 2 + 2 * B * S * HK * D) + (
-            B * S if valid is not None else 0)
-        bms, bby = bound(nbytes, flops)
-        sets = [make() for _ in range(n_sets(nbytes))]
-        def kernel(q_, k_, v_, m_):
-            return FA.flash_attn_fwd(q_, k_, v_, m_, causal, None, q_off)
+        bms, bby = bound(attention_bytes(case), flops)
+        kernel = attention_call(FA, case)
         kernel_ms = time_ms(torch, kernel, sets)
         launch_ms = eager_ms(torch, kernel, sets)
         plain_ms = time_ms(torch, lambda q_, k_, v_, m_: FA.attention_reference(
@@ -358,6 +393,10 @@ def run_attention_checks(torch, dev, results):
                    shape=f"q[{B},{T},{HQ},{D}] kv[{B},{S},{HK},{D}]",
                    causal=causal, q_offset=q_off, empty_rows=empty_rows,
                    max_abs_err=err, err_over_rms=rel, lse_err=lse_err, ok=ok,
+                   bit_identical=same, path=plan.path,
+                   splits=plan.splits, tiles_per_split=plan.tiles_per_split,
+                   grid=plan.grid, registers=regs[0], spill_bytes=regs[1],
+                   sha_out=sha12(torch, out), sha_lse=sha12(torch, lse),
                    kernel_ms=kernel_ms,
                    launch_ms=launch_ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bms, bound_by=bby)
@@ -365,10 +404,15 @@ def run_attention_checks(torch, dev, results):
         log(f"[kernel] flash_attn_fwd {name:12s} {row['shape']:32s} "
             f"err={err:.3e} err/rms={rel:.3e} (atol {ATOL['flash_attn_fwd']} "
             f"rtol {RTOL}) lse_err={lse_err:.2e} {'OK' if ok else 'FAIL'} "
-            f"empty_rows={empty_rows} kernel_ms={kernel_ms:.4f} "
+            f"bit-identical across calls={same} empty_rows={empty_rows} "
+            f"kernel_ms={kernel_ms:.4f} "
             f"launch_ms={launch_ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
             f"bound_ms={bms:.4f} ({bby})")
+        log(f"[kernel] flash_attn_fwd {name:12s} path={plan.path} splits={plan.splits} "
+            f"tiles/split={plan.tiles_per_split} grid={plan.grid} "
+            f"{kname} registers={regs[0]} spill={regs[1]} "
+            f"sha256 out {row['sha_out']} lse {row['sha_lse']}")
 
 
 def run_int8_checks(torch, dev, results):
@@ -791,12 +835,23 @@ def run_norm_checks(torch, dev, results):
     torch.cuda.empty_cache()
 
 
+CE_SEED = 6
+
+
 def ce_cases():
     """(case, N, H, V, compute_dw): the training shape (6 x 160 answer
     positions, the tied 151674-row head), with and without dW, and a
     ragged small one."""
     return [("train", 960, 896, 151674, False), ("train_dw", 960, 896, 151674, True),
             ("ragged", 100, 128, 1111, True)]
+
+
+def ce_inputs(torch, dev, gen, N, H, V):
+    """h [N, H] and the head w [V, H] (bf16), labels [N]: the CE cases'
+    inputs (the first case's also `scripts/fwd_digest.py`'s)."""
+    h = torch.randn(N, H, generator=gen, device=dev).bfloat16()
+    w = (0.02 * torch.randn(V, H, generator=gen, device=dev)).bfloat16()
+    return h, w, torch.randint(0, V, (N,), generator=gen, device=dev)
 
 
 def run_ce_checks(torch, dev, results):
@@ -807,14 +862,12 @@ def run_ce_checks(torch, dev, results):
     its autograd backward (eager)."""
     import torch.nn.functional as F
     from simlingo_tpu_torch.kernels import fused_ce as TC
-    gen = torch.Generator(device=dev).manual_seed(6)
+    gen = torch.Generator(device=dev).manual_seed(CE_SEED)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     regs = {k: v for k, v in ptxas_usage("fused_ce").items()
             if k.split("<")[0] in CE_BWD_KERNELS}
     for name, N, H, V, dw in ce_cases():
-        h = torch.randn(N, H, generator=gen, device=dev).bfloat16()
-        w = (0.02 * torch.randn(V, H, generator=gen, device=dev)).bfloat16()
-        labels = torch.randint(0, V, (N,), generator=gen, device=dev)
+        h, w, labels = ce_inputs(torch, dev, gen, N, H, V)
         if name == "ragged":
             labels[0], labels[-1] = -100, V
         # the loss's cotangent: 1 / (valid answer tokens) on valid rows
@@ -1051,23 +1104,130 @@ def ce_sweep(torch, dev) -> int:
     return 0 if all(r["err_over_tol"] <= 1.0 for r in rows) else 1
 
 
-def compare_ce_fwd_digests(parent) -> bool:
-    """The fused CE forward's ce / logz bits of this tree and of the tree
-    at `parent` (scripts/ce_fwd_digest.py, one process each, this card):
-    True if equal."""
-    script = os.path.join(ROOT, "scripts", "ce_fwd_digest.py")
-    got = []
-    for tree in (ROOT, os.path.abspath(parent)):
-        run = subprocess.run([sys.executable, script], cwd=tree, capture_output=True,
+def fwd_digests(torch, dev, kernel):
+    """{case: {output: sha12}} and {case: device ms a call} of one forward
+    kernel of the tree whose `simlingo_tpu_torch` is imported, on phase
+    2's inputs and timed calls: "flash_attn_fwd" at every attention case,
+    "fused_ce_fwd" at the training shape."""
+    digests, ms = {}, {}
+    if kernel == "flash_attn_fwd":
+        from simlingo_tpu_torch.kernels import flash_attention as FA
+        for case, (q, k, v, valid), sets in attention_inputs(torch, dev):
+            out, lse = FA.flash_attn_fwd(q, k, v, valid, case[6], None, case[7],
+                                         return_lse=True)
+            digests[case[0]] = {"out": sha12(torch, out), "lse": sha12(torch, lse)}
+            ms[case[0]] = time_ms(torch, attention_call(FA, case), sets)
+            del sets
+            torch.cuda.empty_cache()
+    elif kernel == "fused_ce_fwd":
+        from simlingo_tpu_torch.kernels import fused_ce as TC
+        name, N, H, V, _ = ce_cases()[0]
+        gen = torch.Generator(device=dev).manual_seed(CE_SEED)
+        h, w, labels = ce_inputs(torch, dev, gen, N, H, V)
+        logz, ce = TC.fused_ce_fwd(h, labels, w)
+        digests[name] = {"ce": sha12(torch, ce), "logz": sha12(torch, logz)}
+        ms[name] = time_ms(torch, lambda h_, l_, w_: TC.fused_ce_fwd(h_, l_, w_),
+                           [(h, labels, w)])
+    else:
+        raise ValueError(f"fwd_digests: no kernel {kernel!r}")
+    return digests, ms
+
+
+# the cases whose bits must equal the parent's: the CE forward (its loop
+# kept each accumulator's order, PR 10) and the attention forward's tiled
+# path (its loop kept each row's order, PR 11)
+MUST_EQUAL = {"fused_ce_fwd": ("train",),
+              "flash_attn_fwd": ("vit", "vit_train", "llm_prefill", "llm_train")}
+
+
+def compare_fwd(parent, kernel) -> bool:
+    """One forward kernel of this tree and of the tree at `parent`
+    (scripts/fwd_digest.py, one process each, in turns: parent, this,
+    this, parent, on this card): device ms of every case side by side, and
+    True if the bits of the MUST_EQUAL cases are equal."""
+    script = os.path.join(ROOT, "scripts", "fwd_digest.py")
+    parent = os.path.abspath(parent)
+    runs = {}
+    for tree in (parent, ROOT, ROOT, parent):
+        run = subprocess.run([sys.executable, script, kernel], cwd=tree, capture_output=True,
                              text=True, timeout=900)
-        line = next((x for x in run.stdout.splitlines() if x.startswith("CE_FWD_DIGEST")), None)
+        line = next((x for x in run.stdout.splitlines() if x.startswith("FWD_DIGEST")), None)
         if run.returncode or line is None:
             log(f"[digest] {tree}: exit {run.returncode}\n{run.stdout[-3000:]}{run.stderr[-3000:]}")
             return False
-        got.append(json.loads(line.split(" ", 2)[2]))
-    log(f"[digest] fused_ce_fwd N=960 H=896 V=151674 sha256: this tree {got[0]}, "
-        f"{parent} {got[1]}: {'EQUAL' if got[0] == got[1] else 'DIFFERENT'}")
-    return got[0] == got[1]
+        runs.setdefault(tree, []).append(json.loads(line.split(" ", 3)[3]))
+    mine, theirs = runs[ROOT], runs[parent]
+    equal = True
+    for case in mine[0]["ms"]:
+        a = [r["ms"][case] for r in mine]
+        b = [r["ms"][case] for r in theirs]
+        same = mine[0]["digests"][case] == theirs[0]["digests"][case]
+        must = case in MUST_EQUAL[kernel]
+        equal &= same or not must
+        log(f"[ab] {kernel} {case:12s} ms this tree {a[0]:.4f} {a[1]:.4f} | parent "
+            f"{b[0]:.4f} {b[1]:.4f} | ratio {sum(a) / sum(b):.3f} | bits "
+            f"{'EQUAL' if same else 'DIFFERENT'}{' (must be equal)' if must else ''} "
+            f"{mine[0]['digests'][case]} / {theirs[0]['digests'][case]}")
+    log(f"[digest] {kernel} cases {MUST_EQUAL[kernel]} against {parent}: "
+        f"{'EQUAL' if equal else 'DIFFERENT'}")
+    return equal
+
+
+def attn_sweep(torch, dev) -> int:
+    """flash_attn_fwd at forced plans: the tiled path, and the split path
+    at most 4 / 8 splits, at the serving shapes and at T = 64 / 128 /
+    256 against the 770-key cache (group 7: 448 / 896 / 1792 packed rows);
+    the tiled path at the ViT, prefill and training shapes; each against
+    the plain version."""
+    from simlingo_tpu_torch.kernels import _build
+    from simlingo_tpu_torch.kernels import flash_attention as FA
+    sms = _build.sm_count(dev.index or 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    small = [(f"kv770_T{T}", 1, T, 770, 14, 2, True, 770 - T) for T in (1, 16, 30, 64, 128, 256)]
+    large = [("vit", 2, 1025, 1025, 16, 16, False, 0), ("llm_prefill", 1, 640, 770, 14, 2, True, 0),
+             ("llm_train", 6, 798, 798, 14, 2, True, 0), ("vit_train", 12, 1025, 1025, 16, 16, False, 0)]
+    rows, bad = [], 0
+    for name, B, T, S, HQ, HK, causal, off in small + large:
+        knobs = [(0, FA.SPLIT_MAX)] + [(1 << 30, n) for n in (4, 8) if T <= 256]
+        plans = {}                                   # distinct plans, with their knobs
+        for srows, n in knobs:
+            plan = FA._fwd_plan(B, T, S, HQ, HK, causal, off, sms=sms, split_rows=srows,
+                                max_splits=n)
+            plans.setdefault(plan, (srows, n))
+        def make():
+            return tuple(torch.randn(B, L, H, 64, generator=gen, device=dev, dtype=torch.bfloat16)
+                         for L, H in ((T, HQ), (S, HK), (S, HK)))
+        nbytes = 2 * (B * T * HQ * 64 * 2 + 2 * B * S * HK * 64)
+        sets = [make() for _ in range(n_sets(nbytes))]
+        q, k, v = sets[0]
+        ref = FA.attention_reference(q.float(), k.float(), v.float(), None, causal, None, off)
+        chosen = FA._fwd_plan(B, T, S, HQ, HK, causal, off, sms=sms)
+        for plan, (srows, n) in plans.items():
+            out = FA.flash_attn_fwd(q, k, v, None, causal, None, off, split_rows=srows,
+                                    max_splits=n)
+            torch.cuda.synchronize()
+            # causal rows see as few as one key here (no padding): the
+            # kernel's bf16 probabilities weigh values of |v| up to ~4, so
+            # the atol of tests/test_torch_cuda.py's causal cases, 4e-3
+            err = float((out.float() - ref).abs().max())
+            ok = bool(((out.float() - ref).abs()
+                       <= (4e-3 if causal else ATOL["flash_attn_fwd"]) + RTOL * ref.abs()).all())
+            bad += not ok
+            ms = time_ms(torch, lambda q_, k_, v_, srows=srows, n=n: FA.flash_attn_fwd(
+                q_, k_, v_, None, causal, None, off, split_rows=srows, max_splits=n), sets)
+            mine = (plan.path, plan.splits) == (chosen.path, chosen.splits)
+            rows.append(dict(case=name, path=plan.path, splits=plan.splits,
+                             tiles_per_split=plan.tiles_per_split,
+                             grid=plan.grid, ms=ms, max_abs_err=err, ok=ok, plan=mine))
+            log(f"[sweep] flash_attn_fwd {name:12s} {plan.path:5s} "
+                f"splits={plan.splits:2d} tiles/split={plan.tiles_per_split} grid={plan.grid} "
+                f"ms={ms:.4f} err={err:.2e} {'OK' if ok else 'FAIL'}{'  <- plan' if mine else ''}")
+        del sets
+        torch.cuda.empty_cache()
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "attn_fwd_sweep.json"), "w") as f:
+        json.dump(rows, f, indent=1)
+    return 1 if bad else 0
 
 
 # ---------------------------------------------------------------------------
@@ -1255,7 +1415,7 @@ def device_profile(torch, fn, what):
                 top=[dict(ms=ms, count=n, name=key) for ms, n, key in rows[:25]])
 
 
-HAND_KERNELS = ("flash_fwd_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel", "bwd_prep_kernel",
+HAND_KERNELS = ("flash_fwd_kernel", "flash_fwd_split_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel", "bwd_prep_kernel",
                 "dropout_kernel", "gemm_kernel", "gemm64_kernel", "gemv_kernel", "dx_kernel",
                 "dx_reduce_kernel",
                 "norm_fwd_kernel", "norm_bwd_kernel", "col_reduce_kernel", "ce_fwd_tile_kernel",
@@ -1659,9 +1819,13 @@ def main() -> int:
                     help="build, then time the int8 forward at every reduction split")
     ap.add_argument("--ce-sweep", action="store_true",
                     help="build, then time the fused CE backward at forced segment counts")
+    ap.add_argument("--attn-sweep", action="store_true",
+                    help="build, then time the attention forward at forced plans")
     ap.add_argument("--parent", metavar="DIR",
-                    help="also hold the fused CE forward's bits equal to those of the "
-                         "source tree at DIR (e.g. a git archive of the parent commit)")
+                    help="also hold the fused CE forward's and the tiled attention "
+                         "forward's bits equal to those of the source tree at DIR (e.g. "
+                         "a git archive of the parent commit), and time both forwards "
+                         "of both trees on phase 2's inputs")
     args = ap.parse_args()
 
     import torch
@@ -1681,6 +1845,8 @@ def main() -> int:
         return int8_sweep(torch, dev)
     if args.ce_sweep:
         return ce_sweep(torch, dev)
+    if args.attn_sweep:
+        return attn_sweep(torch, dev)
 
     # 2. kernels
     cases = []
@@ -1694,8 +1860,11 @@ def main() -> int:
     if bad:
         log(f"[kernel] FAILED: {[(c['kernel'], c['case'], c['shape']) for c in bad]}")
         return 1
-    if args.parent and not compare_ce_fwd_digests(args.parent):
-        return 1
+    if args.parent:
+        checked = set(args.kernels or KERNEL_CHECKS)
+        for check, kernel in (("fused_ce", "fused_ce_fwd"), ("flash_attn_fwd", "flash_attn_fwd")):
+            if check in checked and not compare_fwd(args.parent, kernel):
+                return 1
     if args.kernels is not None:
         log(f"[kernel] all cases within tolerance on {smi_line()}")
         return 0

@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
-"""Serving frame times of one source tree of the PyTorch port, for A/B runs.
+"""Serving frame times and outputs of one source tree of the PyTorch port, for A/B runs.
 
 Runs the full-width serving phase of that tree's `chip_smoke.py`
 (`full_width`: CoT frames, plain then speculative, one action-only frame,
-decode ms/token) on the GPU and prints one line `AB <tree> {json}`.
+decode ms/token) on the GPU, then one more speculative CoT frame, and
+prints one line `AB <tree> {json}` with the times, that frame's language
+tokens and its route and speed waypoints (the weights and the frame come
+from seed 0, so two trees' lines compare token by token).
 To compare a parent commit with the working tree on one card, unpack the
 parent into an ignored directory and alternate the two in one command:
 
@@ -30,10 +33,14 @@ def main() -> int:
     import chip_smoke
     from simlingo_tpu_torch.kernels import _build
     _build.build_all()
-    ok, stats, _, _ = chip_smoke.full_width(torch, torch.device("cuda"))
+    ok, stats, agent, frame = chip_smoke.full_width(torch, torch.device("cuda"))
     keys = ("frame_ms_cot_plain", "frame_ms_cot_spec", "frame_ms_drive_only",
             "decode_ms_per_token")
-    print("AB", os.getcwd(), json.dumps({k: stats[k] for k in keys}), flush=True)
+    out = {k: stats[k] for k in keys}
+    r = agent.run_step(frame)
+    out.update(tokens=[int(t) for t in r.get("language_tokens", [])],
+               route=r["route"].tolist(), speed_wps=r["speed_wps"].tolist())
+    print("AB", os.getcwd(), json.dumps(out), flush=True)
     return 0 if ok else 1
 
 

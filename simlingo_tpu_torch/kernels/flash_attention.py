@@ -1,9 +1,14 @@
 """Flash attention with slot-order causality and key validity.
 
-Counterpart of `simlingo_tpu/kernels/flash_attention.py`. Forward: one CUDA
-kernel (`csrc/flash_attn_fwd.cu`) covers the three Pallas forward kernels
--- `_fwd_kernel_gqa` (:308, the LLM), `_fwd_kernel_pair` (:786, the ViT
-read from the flat projection output) and `_fwd_kernel` (:114, plain MHA).
+Counterpart of `simlingo_tpu/kernels/flash_attention.py`. Forward:
+`csrc/flash_attn_fwd.cu` covers the three Pallas forward kernels --
+`_fwd_kernel_gqa` (:308, the LLM), `_fwd_kernel_pair` (:786, the ViT read
+from the flat projection output) and `_fwd_kernel` (:114, plain MHA) -- on
+two paths that `_fwd_plan` chooses between: the tiled path (blocks of 64
+query rows of one head) and, for a small T x group, the split path (a
+GQA group's heads packed into one block's rows as `_fwd_kernel_gqa` packs
+them, the keys cut into splits whose partials a thread-block cluster merges
+in split order; `attention_split_reference` is its plain version).
 Backward (training): `csrc/flash_attn_bwd.cu` covers `_bwd_kernel_gqa`
 (:382), `_bwd_kernel_pair` (:869) and `_bwd_kernel` (:205) the same way,
 from the output and the forward's base-2 log-sum-exp (`attention_train`).
@@ -84,6 +89,125 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_attn_fwd(q, k, v, kv_valid, causal, scale, q_offset)
 
 
+# The forward's geometry: keys a tile, query rows a block, the largest
+# cluster of splits; `_lib` refuses a library that reports others
+# (simlingo_flash_attn_fwd_geometry).
+_FWD_GEOMETRY = (64, 64, 8)
+_FWD_TILE, _FWD_ROWS = _FWD_GEOMETRY[:2]
+# The split path takes a GQA group whose packed rows (group x T) number at
+# most this many: decode 7, verify 112, the queries 210 (Qwen2-0.5B, group
+# 7). Against the 770-key cache it beat the tiled path up to T = 256 (1792
+# packed rows) and lost at the prefill's 4480 (`chip_smoke.py --attn-sweep`).
+SPLIT_MAX_ROWS = 1792
+# At most this many splits (one cluster) a row block: the portable cluster size.
+SPLIT_MAX = _FWD_GEOMETRY[2]
+
+
+class FwdPlan(NamedTuple):
+    path: str                 # "split" or "tiled"
+    rows: int                 # rows a (kv head | query head, batch) walks: group * T or T
+    row_blocks: int           # blocks of _FWD_ROWS of those rows
+    splits: int               # split path: blocks (one cluster) a row block; tiled: 0
+    tiles_per_split: int      # key tiles of _FWD_TILE keys a split
+    kv_end: int               # keys [0, kv_end) some row may see
+    key_ranges: tuple         # each split's keys [lo, hi), clipped to kv_end; tiled: one range
+    grid: tuple               # the launch's (x, y, z)
+
+
+@functools.lru_cache(maxsize=256)
+def _fwd_launch(B, T, S, HQ, HK, sms=132, split_rows=SPLIT_MAX_ROWS, max_splits=SPLIT_MAX):
+    """(splits, key tiles a split) of `flash_attn_fwd`, from the shapes
+    alone (the grid does not depend on q_offset); 0 splits is the tiled
+    path. The split path cuts the key tiles of S into at most `max_splits`
+    runs of equal length, fewer where its blocks would pass one an SM; it
+    is taken where a group's packed rows group x T are at most
+    `split_rows` and at least two splits fit (the ViT's 1025 rows of 32
+    heads fill the card with one)."""
+    if not 1 <= max_splits <= SPLIT_MAX:
+        raise ValueError(f"flash_attn_fwd: max_splits {max_splits} not in [1, {SPLIT_MAX}]")
+    n_kt = max(1, -(-S // _FWD_TILE))
+    fit = sms // (-(-(HQ // HK) * T // _FWD_ROWS) * B * HK)      # splits of one block an SM
+    if (HQ // HK) * T > split_rows or fit < 2 <= n_kt:
+        return 0, 0
+    splits = max(1, min(max_splits, n_kt, fit))
+    tps = -(-n_kt // splits)
+    return -(-n_kt // tps), tps
+
+
+def _fwd_plan(B, T, S, HQ, HK, causal, q_offset, sms=132, split_rows=SPLIT_MAX_ROWS,
+              max_splits=SPLIT_MAX):
+    """The blocks of `flash_attn_fwd` and the keys each split attends to
+    (`_fwd_launch`)."""
+    splits, tps = _fwd_launch(B, T, S, HQ, HK, sms, split_rows, max_splits)
+    kv_end = max(0, min(S, q_offset + T)) if causal else S
+    if splits:
+        rows = (HQ // HK) * T
+        span = tps * _FWD_TILE
+        ranges = tuple((min(s * span, kv_end), min((s + 1) * span, kv_end))
+                       for s in range(splits))
+        grid = (splits, -(-rows // _FWD_ROWS), B * HK)
+        return FwdPlan("split", rows, grid[1], splits, tps, kv_end, ranges, grid)
+    grid = (-(-T // _FWD_ROWS), HQ, B)
+    return FwdPlan("tiled", T, grid[0], 0, 0, kv_end, ((0, kv_end),), grid)
+
+
+def _packed_rows(group, T):
+    """(head in group, t) of each packed row r of the split path: r // T,
+    r % T, as `_fwd_kernel_gqa` reshapes [G, bq, D] to G * bq rows."""
+    r = torch.arange(group * T)
+    return r // T, r % T
+
+
+def attention_split_reference(q, k, v, kv_valid, causal, scale=None, q_offset=None,
+                              return_lse=False, plan=None):
+    """Plain version of the split path in fp32: each GQA group's heads
+    packed into rows (`_packed_rows`), a partial (m, l, O) of every row
+    over each split's keys (`_fwd_plan`'s key ranges; base 2, m = -inf and
+    l = 0 where the split shows the row no key), merged in split order.
+    A row that sees no valid key gives 0 (and lse -inf)."""
+    B, T, HQ, D = q.shape
+    _, S, HK, _ = k.shape
+    G = HQ // HK
+    scale, q_offset = _defaults(q, k, scale, q_offset)
+    if plan is None:
+        plan = _fwd_plan(B, T, S, HQ, HK, bool(causal), q_offset, split_rows=G * T)
+    hg, t = (x.to(q.device) for x in _packed_rows(G, T))
+    heads = torch.arange(HK, device=q.device)[:, None] * G + hg[None]        # [HK, R]
+    tt = t[None].expand_as(heads)
+    qp = q.float()[:, tt, heads]                                             # [B, HK, R, D]
+    x = torch.einsum("bkrd,bskd->bkrs", qp * scale, k.float()) * LOG2E
+    mask = torch.ones((B, 1, G * T, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (torch.arange(S, device=q.device)[None, :] <= (t + q_offset)[:, None])
+    if kv_valid is not None:
+        mask = mask & kv_valid.bool().expand(B, S)[:, None, None, :]
+    x = x.masked_fill(~mask, float("-inf"))
+    vf = v.float()
+    inf = torch.tensor(float("-inf"), device=q.device)
+    parts = []
+    for lo, hi in plan.key_ranges:
+        xs = x[..., lo:hi]
+        m = xs.amax(-1) if hi > lo else inf.expand(x.shape[:-1])
+        p = torch.exp2(xs - torch.where(m == inf, 0.0, m)[..., None])
+        parts.append((m, p.sum(-1), torch.einsum("bkrs,bskd->bkrd", p, vf[:, lo:hi])))
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    L = torch.zeros_like(M)
+    O = torch.zeros(qp.shape, device=q.device)
+    for m, l, o in parts:                                  # split order 0..n-1
+        w = torch.where(m == inf, 0.0, torch.exp2(m - torch.where(M == inf, 0.0, M)))
+        L = L + l * w
+        O = O + o * w[..., None]
+    seen = L > 0
+    out = torch.zeros((B, T, HQ, D), device=q.device)
+    out[:, tt, heads] = torch.where(seen[..., None], O / L.clamp(min=1e-30)[..., None], 0.0)
+    out = out.to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.full((B, HQ, T), float("-inf"), device=q.device)
+    lse[:, heads, tt] = torch.where(seen, M + torch.log2(L.clamp(min=1e-30)), inf)
+    return out, lse
+
+
 def _check_bthd(name, x, D):
     if x.dim() != 4 or x.shape[-1] != D or x.stride(-1) != 1:
         raise ValueError(f"flash_attn_fwd: {name} must be [B, L, H, {D}] with "
@@ -91,11 +215,15 @@ def _check_bthd(name, x, D):
 
 
 def flash_attn_fwd(q, k, v, kv_valid=None, causal=True, scale=None,
-                   q_offset=None, return_lse=False):
-    """Launch the CUDA kernel. q/k/v may be strided views (e.g. heads of a
-    [B, T, H*D] projection, or a KV cache); no copy is made. With
-    `return_lse` also returns the base-2 log-sum-exp [B, HQ, T] fp32 of
-    the scaled logits (-inf where a row sees no valid key)."""
+                   q_offset=None, return_lse=False, split_rows=SPLIT_MAX_ROWS,
+                   max_splits=SPLIT_MAX):
+    """Launch the CUDA kernel of the path `_fwd_plan` chooses (one launch
+    a call; sweeps and tests force another through its knobs `split_rows`
+    and `max_splits`, so the plan always fits these shapes). q/k/v may be
+    strided views (e.g. heads of a [B, T, H*D] projection, or a KV cache);
+    no copy is made. With `return_lse` also returns the base-2 log-sum-exp
+    [B, HQ, T] fp32 of the scaled logits (-inf where a row sees no valid
+    key)."""
     B, T, HQ, D = q.shape
     _, S, HK, _ = k.shape
     if D != 64:
@@ -127,6 +255,8 @@ def flash_attn_fwd(q, k, v, kv_valid=None, causal=True, scale=None,
            if return_lse else None)
     if B * T == 0:
         return (out, lse) if return_lse else out
+    splits, tps = _fwd_launch(B, T, S, HQ, HK, _build.sm_count(q.device.index or 0),
+                              split_rows, max_splits)
     lib = _lib()
     rc = lib.simlingo_flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_ptr, out.data_ptr(),
@@ -135,7 +265,7 @@ def flash_attn_fwd(q, k, v, kv_valid=None, causal=True, scale=None,
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         int(bool(causal)), int(q_offset), ctypes.c_float(float(scale)),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        splits, tps, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attn_fwd")
     flash_attn_fwd.launches += 1
     return (out, lse) if return_lse else out
@@ -148,10 +278,15 @@ def _lib():
     lib = _build.load("flash_attn_fwd")
     fn = lib.simlingo_flash_attn_fwd
     if fn.argtypes is None:
+        geometry = (ctypes.c_int * 3)()
+        lib.simlingo_flash_attn_fwd_geometry(geometry)
+        if tuple(geometry) != _FWD_GEOMETRY:
+            raise RuntimeError(f"flash_attn_fwd: the library's geometry {tuple(geometry)} "
+                               f"differs from the plan's {_FWD_GEOMETRY}")
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 9
-                       + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                          ctypes.c_void_p])
+                       + [ctypes.c_int, ctypes.c_int, ctypes.c_float]
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 

@@ -77,6 +77,98 @@ def test_flash_attn_fwd_reads_strided_head_views(gpu):
     torch.testing.assert_close(out.float(), ref, atol=2e-3, rtol=2e-2)
 
 
+def _serving_attention(gpu, T, q_offset, seed=5):
+    """Qwen2-0.5B's serving attention: q [1, T, 14, 64] against the
+    770-key cache [1, 770, 2, 64], the first 40 keys invalid (padding)."""
+    g = torch.Generator(device=gpu).manual_seed(seed)
+    q = torch.randn(1, T, 14, 64, generator=g, device=gpu).bfloat16()
+    k, v = (torch.randn(1, 770, 2, 64, generator=g, device=gpu).bfloat16() for _ in range(2))
+    valid = torch.ones(1, 770, dtype=torch.bool, device=gpu)
+    valid[:, :40] = False
+    return q, k, v, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,q_offset", [(1, 700), (16, 690), (30, 740), (1, 20), (16, 0)])
+def test_flash_attn_fwd_split_path_matches_plain(gpu, T, q_offset):
+    """Decode, verify and the queries take the split path, one launch a
+    call; out and lse against the plain version, the split path's plain
+    mirror included; rows that see no key (q_offset 20 and 0 put every
+    slot in the padding) give exact zeros and lse -inf."""
+    q, k, v, valid = _serving_attention(gpu, T, q_offset)
+    plan = TFA._fwd_plan(1, T, 770, 14, 2, True, q_offset)
+    assert plan.path == "split" and plan.splits == 7
+    before = TFA.flash_attn_fwd.launches
+    out, lse = TFA.flash_attn_fwd(q, k, v, valid, True, None, q_offset, return_lse=True)
+    torch.cuda.synchronize()
+    assert TFA.flash_attn_fwd.launches == before + 1
+    args = (q.float(), k.float(), v.float(), valid, True, None, q_offset)
+    ref = TFA.attention_reference(*args)
+    split_out, split_lse = TFA.attention_split_reference(*args, return_lse=True)
+    torch.testing.assert_close(split_out, ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(out.float(), ref, atol=4e-3, rtol=2e-2)
+    want_lse = TFA.attention_lse_reference(q.float(), k.float(), valid, True, None, q_offset)
+    finite = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(lse), finite) and torch.equal(torch.isfinite(split_lse), finite)
+    torch.testing.assert_close(lse[finite], want_lse[finite], atol=1e-2, rtol=1e-3)
+    empty = ~finite.transpose(1, 2)                           # [B, T, HQ]
+    if bool(empty.any()):
+        assert float(out[empty].float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,q_offset", [(1, 700), (16, 690), (30, 740)])
+def test_flash_attn_fwd_split_path_is_bit_identical_across_calls(gpu, T, q_offset):
+    """The clusters merge their partials in split order, no atomics."""
+    q, k, v, valid = _serving_attention(gpu, T, q_offset, seed=6)
+    first = TFA.flash_attn_fwd(q, k, v, valid, True, None, q_offset, return_lse=True)
+    second = TFA.flash_attn_fwd(q, k, v, valid, True, None, q_offset, return_lse=True)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,max_splits", [
+    ("tiled", 8), ("split", 8), ("split", 4), ("split", 1)])
+def test_flash_attn_fwd_forced_plans_match_plain(gpu, path, max_splits):
+    """Both kernels at a ragged GQA case: T = 37, S = 300 (5 tiles, the last
+    44 keys), causal with q_offset S - T, invalid keys at both ends of one
+    batch row; splits of 1, 2 and 5 tiles."""
+    g = torch.Generator(device=gpu).manual_seed(7)
+    B, T, S, HQ, HK = 2, 37, 300, 8, 2
+    q = torch.randn(B, T, HQ, 64, generator=g, device=gpu).bfloat16()
+    k, v = (torch.randn(B, S, HK, 64, generator=g, device=gpu).bfloat16() for _ in range(2))
+    valid = torch.ones(B, S, dtype=torch.bool, device=gpu)
+    valid[1, :70] = False
+    valid[1, 290:] = False
+    split_rows = 0 if path == "tiled" else 1 << 30
+    plan = TFA._fwd_plan(B, T, S, HQ, HK, True, S - T, split_rows=split_rows,
+                         max_splits=max_splits)
+    assert plan.path == path
+    out, lse = TFA.flash_attn_fwd(q, k, v, valid, True, None, None, return_lse=True,
+                                  split_rows=split_rows, max_splits=max_splits)
+    ref = TFA.attention_reference(q.float(), k.float(), v.float(), valid, True)
+    torch.testing.assert_close(out.float(), ref, atol=4e-3, rtol=2e-2)
+    want_lse = TFA.attention_lse_reference(q.float(), k.float(), valid, True)
+    torch.testing.assert_close(lse, want_lse, atol=1e-2, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_flash_attn_fwd_vit_views_on_the_tiled_loop(gpu):
+    """The ViT at serving width: [2, 1025, 16, 64] views of one projection
+    on the tiled path's ring loop; the last row block holds one row (three
+    of its warps compute nothing) and the last key tile one key."""
+    plan = TFA._fwd_plan(2, 1025, 1025, 16, 16, False, 0)
+    assert plan.path == "tiled" and plan.grid == (17, 16, 2)
+    g = torch.Generator(device=gpu).manual_seed(8)
+    qkv = torch.randn(2, 1025, 3 * 16 * 64, generator=g, device=gpu).bfloat16()
+    q, k, v = (qkv[..., i * 1024:(i + 1) * 1024].view(2, 1025, 16, 64) for i in range(3))
+    out, lse = TFA.flash_attn_fwd(q, k, v, None, False, return_lse=True)
+    ref = TFA.attention_reference(q.float(), k.float(), v.float(), None, False)
+    torch.testing.assert_close(out.float(), ref, atol=2e-3, rtol=2e-2)
+    torch.testing.assert_close(lse, TFA.attention_lse_reference(q.float(), k.float(), None, False),
+                               atol=1e-2, rtol=1e-3)
+
+
 @pytest.mark.cuda
 # M = 1: the GEMV; 2..48: the 16-row tiles; above: the 64-row tiles
 @pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 16, 30, 48, 49, 200])
