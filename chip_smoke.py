@@ -4,12 +4,14 @@
     python3 chip_smoke.py               # all phases, one GPU
     python3 chip_smoke.py --kernels     # build + kernel checks only
     python3 chip_smoke.py --kernels flash_attn_bwd   # ... of the named kernels
-    python3 chip_smoke.py --int8-sweep  # the int8 forward at forced splits S
+    python3 chip_smoke.py --int8-sweep  # the int8 forward at forced splits S and the
+                                        # GEMV at forced plans
     python3 chip_smoke.py --ce-sweep    # the fused CE backward at forced segments S
     python3 chip_smoke.py --attn-sweep  # the attention forward at forced plans
     python3 chip_smoke.py --parent DIR  # ... and the CE forward's and the tiled
                                         # attention forward's bits against the
                                         # tree at DIR, with both trees' times
+                                        # of those and of the int8 GEMV
                                         # (scripts/fwd_digest.py)
 
 Phases, in order; any failure exits non-zero:
@@ -34,7 +36,8 @@ Phases, in order; any failure exits non-zero:
      the plain products of its own scratch; bit-identical across two calls;
      with the device ms of its four kernels, their ptxas registers and the
      scratch bytes); the int8 forward at the serving
-     and the int8-base training rows (those again with a bf16 scale),
+     and the int8-base training rows (decode and those again with a bf16
+     scale; at M = 1 with the GEMV's plan and registers),
      against the bound stated at FWD_U, and its activation gradient
      int8_matmul_dx at every linear and the tied head of that path,
      against the bound stated at DX_SUM_U, both bit-identical across two
@@ -54,7 +57,9 @@ Phases, in order; any failure exits non-zero:
      frame; launch counts of every kernel are reset just before and read
      just after, with a profile of one speculative frame (device time by
      kernel class and by hand kernel; int8_matmul's calls in that frame
-     against its forward kernels' launches, one each);
+     against its forward kernels' launches, one each), and the plain
+     generator profiled at 1 and GEN_PROFILE_TOKENS new tokens (device
+     busy, gemv_kernel's ms and launches a decoded token);
   5. full width, training: train_torch's trainer on
      presets.internvl2_1b(lora=True) (seed 0) and synthetic_example(batch 6,
      seq_len 768, 2 tiles): 1 warm-up step, then TRAIN_STEPS timed steps
@@ -83,6 +88,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -140,6 +146,17 @@ def log(*a):
 def bound(nbytes, flops, peak=PEAK_BF16):
     tb, tf = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def warm_up(torch, dev, seconds=0.5):
+    """Keep the card busy for `seconds` (bf16 products), so that the first
+    timings of a process do not meet its clocks still rising from idle."""
+    a = torch.randn(4096, 4096, device=dev, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(10):
+            a @ a
+        torch.cuda.synchronize()
 
 
 def time_ms(torch, fn, sets, iters=20):
@@ -415,32 +432,60 @@ def run_attention_checks(torch, dev, results):
             f"sha256 out {row['sha_out']} lse {row['sha_lse']}")
 
 
+INT8_SHAPES = [("qo", 896, 896), ("kv", 896, 128), ("gate_up", 896, 4864),
+               ("down", 4864, 896), ("head", 896, 151674)]      # (case, K, N)
+
+
+def int8_cases():
+    """(case, K, N, M, scale dtype) of phase 2's int8 forward: every serving
+    row (decode 1, verify 16, queries 30, prefill 640) and the int8-base
+    training rows (6 x 798 for the linears, one 32-position CE chunk x 6
+    for the tied head) with an fp32 scale; the decode row, the training
+    rows and the head again with a bf16 scale."""
+    import torch
+    lin, head = INT8_SHAPES[:4], INT8_SHAPES[4]
+    cases = [(n, K, N, M, torch.float32) for (n, K, N) in lin for M in (1, 16, 30, 640, 4788)]
+    cases += [(*head, M, torch.float32) for M in (1, 16, 192)]
+    cases += [(n, K, N, M, torch.bfloat16) for (n, K, N) in lin for M in (1, 4788)]
+    cases += [(*head, M, torch.bfloat16) for M in (1, 16, 192)]
+    return cases
+
+
+def int8_nbytes(K, N, M, sdt):
+    """Bytes an int8 forward call must move: x, w_q, the scale and y."""
+    return M * K * 2 + N * K + N * sdt.itemsize + M * N * 2
+
+
+def int8_inputs(torch, dev, index):
+    """The inputs of int8_cases()[index]: its first (x, w_q, scale) and its
+    timing sets, from a generator seeded by the case's index, so that one
+    case's inputs can be drawn alone. `scripts/fwd_digest.py` takes the
+    M = 1 cases' from here."""
+    from simlingo_tpu_torch.kernels import quantized_matmul as QM
+    _, K, N, M, sdt = int8_cases()[index]
+    gen = torch.Generator(device=dev).manual_seed(100 + index)
+
+    def make():
+        x = torch.randn(M, K, generator=gen, device=dev, dtype=torch.bfloat16)
+        w = torch.randn(N, K, generator=gen, device=dev) * 0.02
+        w_q, scale = QM.quantize_weight(w, axis=0)
+        return x, w_q, scale.to(sdt)
+    first = make()
+    return first, [make() for _ in range(n_sets(int8_nbytes(K, N, M, sdt)))]
+
+
 def run_int8_checks(torch, dev, results):
-    """int8_matmul at every serving row (decode 1, verify 16, queries 30,
-    prefill 640) and the int8-base training rows (6 x 798 for the linears,
-    one 32-position CE chunk x 6 for the tied head), against
-    int8_matmul_reference on the same bf16 x in fp32, held to the bound
-    stated at FWD_U and bit-identical across two calls, with the plan's
-    tile, reduction segments S and blocks; the training rows again with a
-    bf16 scale (the training step's frozen cast). Library: dequantize +
+    """int8_matmul at int8_cases(), against int8_matmul_reference on the
+    same bf16 x in fp32, held to the bound stated at FWD_U and
+    bit-identical across two calls, with the plan's tile, reduction
+    segments S and blocks (the GEMV: rows a warp, warps a block and
+    blocks, with gemv_kernel's ptxas registers). Library: dequantize +
     torch.matmul, timed only."""
     from simlingo_tpu_torch.kernels import quantized_matmul as QM
-    gen = torch.Generator(device=dev).manual_seed(1)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    shapes = [("qo", 896, 896), ("kv", 896, 128), ("gate_up", 896, 4864),
-              ("down", 4864, 896)]
-    cases = [(n, K, N, M, torch.float32) for (n, K, N) in shapes
-             for M in (1, 16, 30, 640, 4788)]
-    cases += [("head", 896, 151674, M, torch.float32) for M in (1, 16, 192)]
-    cases += [(n, K, N, 4788, torch.bfloat16) for (n, K, N) in shapes]
-    cases += [("head", 896, 151674, M, torch.bfloat16) for M in (1, 16, 192)]
-    for name, K, N, M, sdt in cases:
-        def make():
-            x = torch.randn(M, K, generator=gen, device=dev, dtype=torch.bfloat16)
-            w = torch.randn(N, K, generator=gen, device=dev) * 0.02
-            w_q, scale = QM.quantize_weight(w, axis=0)
-            return x, w_q, scale.to(sdt)
-        x, w_q, scale = make()
+    regs = ptxas_usage("int8_matmul")
+    for index, (name, K, N, M, sdt) in enumerate(int8_cases()):
+        (x, w_q, scale), sets = int8_inputs(torch, dev, index)
         out = QM.int8_matmul(x, w_q, scale)
         same = torch.equal(QM.int8_matmul(x, w_q, scale), out)   # no atomics: bit-identical
         torch.cuda.synchronize()
@@ -450,9 +495,7 @@ def run_int8_checks(torch, dev, results):
         err, ratio = _ratio(out, ref, FWD_U * ref.abs() + DX_SUM_U * K ** 0.5 * terms
                             + 1e-6 * rms)
         del terms
-        nbytes = M * K * 2 + N * K + N * scale.element_size() + M * N * 2
-        bms, bby = bound(nbytes, 2 * M * N * K)
-        sets = [make() for _ in range(n_sets(nbytes))]
+        bms, bby = bound(int8_nbytes(K, N, M, sdt), 2 * M * N * K)
         kernel_ms = time_ms(torch, QM.int8_matmul, sets)
         launch_ms = eager_ms(torch, QM.int8_matmul, sets)
         plain_ms = time_ms(torch, QM.int8_matmul_reference, sets[:2], iters=4)
@@ -461,8 +504,12 @@ def run_int8_checks(torch, dev, results):
             return x_ @ (w_.to(torch.bfloat16) * s_[:, None].to(torch.bfloat16)).t()
         library_ms = time_ms(torch, dequant_matmul, sets)
         del sets
+        extra = {}
         if M == 1:
-            tile, S, blocks = "gemv", 1, -(-N // 8)
+            plan = QM._gemv_plan(N, K, sms)
+            tile, S, blocks = f"gemv R={plan.rows} warps={plan.warps}", 1, plan.blocks
+            extra = dict(rows=plan.rows, warps=plan.warps,
+                         registers=regs.get(f"gemv_kernel<{plan.rows}>", (0, 0))[0])
         else:
             (bm, bn), S, _ = QM._fwd_plan(M, N, K, sms)
             tile, blocks = f"{bm}x{bn}", -(-M // bm) * -(-N // bn) * S
@@ -473,14 +520,15 @@ def run_int8_checks(torch, dev, results):
                    err_over_tol=ratio, bit_identical=same, ok=ok, kernel_ms=kernel_ms,
                    launch_ms=launch_ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bms, bound_by=bby,
-                   tile=tile, segments=S, blocks=blocks)
+                   tile=tile, segments=S, blocks=blocks, **extra)
         results.append(row)
         log(f"[kernel] int8_matmul    {name:8s} M={M:4d} K={K:5d} N={N:6d} "
             f"scale={row['scale']:8s} err={err:.3e} err/rms={row['err_over_rms']:.3e} "
             f"err/tol={ratio:.3f} (tol 2^-8 |ref| + 2^-20 sqrt(K) sum|terms|) "
             f"bit-identical={same} {'OK' if ok else 'FAIL'} kernel_ms={kernel_ms:.4f} "
             f"launch_ms={launch_ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-            f"bound_ms={bms:.4f} ({bby}) tile={tile} S={S} blocks={blocks}")
+            f"bound_ms={bms:.4f} ({bby}) tile={tile} S={S} blocks={blocks}"
+            + (f" registers={extra['registers']}" if extra else ""))
     torch.cuda.empty_cache()
 
 
@@ -1000,17 +1048,125 @@ SWEEP_SHAPES = [("qo", 16, 896, 896), ("gate_up", 16, 4864, 896), ("down", 16, 8
                 ("down", 4788, 896, 4864), ("gate_up", 4788, 4864, 896)]
 
 
+def gemv_forced_plans(N, K, sms):
+    """The GEMV plans that `gemv_sweep` times at one shape: the plan's
+    warps a block at every rows-a-warp R (2, 4, 8), on the blocks of one
+    wave of the plan's warps an SM as `_gemv_plan` spreads them; and at the
+    plan's own R, waves of 8, 16 and 64 warps an SM (at least one block an
+    SM) and one block a row group (no walk). The plan's own is among them."""
+    from simlingo_tpu_torch.kernels import quantized_matmul as QM
+    chosen = QM._gemv_plan(N, K, sms)
+
+    def grid(R, wave):
+        groups = -(-N // R)
+        rounds = -(-groups // (max(1, wave // chosen.warps) * sms)) if wave else 1
+        return QM.GemvPlan(R, chosen.warps, -(-groups // rounds))
+    plans = [grid(R, QM._GEMV_SM_WARPS) for R in QM._GEMV_ROWS]
+    plans += [grid(chosen.rows, wave) for wave in (8, 16, 64, 0)]
+    return list(dict.fromkeys(plans))
+
+
+def gemv_sweep(torch, dev, lib, sms, rows):
+    """The GEMV (M = 1) at the five path shapes, at `gemv_forced_plans`:
+    ms a call (CUDA-graph replay of 200 calls), blocks, err/tol (FWD_U's
+    bound) and which plan `_gemv_plan` picks. Appends to `rows`."""
+    from simlingo_tpu_torch.kernels import _build
+    from simlingo_tpu_torch.kernels import quantized_matmul as QM
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for name, K, N in INT8_SHAPES:
+        chosen = QM._gemv_plan(N, K, sms)
+
+        def make():
+            x = torch.randn(1, K, generator=gen, device=dev, dtype=torch.bfloat16)
+            w_q, scale = QM.quantize_weight(torch.randn(N, K, generator=gen, device=dev) * 0.02)
+            return x, w_q, scale
+        sets = [make() for _ in range(n_sets(K * 2 + N * K + N * 4 + N * 2))]
+        x, w_q, scale = sets[0]
+        ref = QM.int8_matmul_reference(x.float(), w_q, scale)
+        tol = (FWD_U * ref.abs() + DX_SUM_U * K ** 0.5
+               * QM.int8_matmul_reference(x.float(), w_q, scale, abs_terms=True)
+               + 1e-6 * float(ref.square().mean().sqrt()))
+        for plan in gemv_forced_plans(N, K, sms):
+            def run(x_, w_, s_, plan=plan):
+                y = torch.empty(1, N, dtype=torch.bfloat16, device=dev)
+                _build.check(lib.simlingo_int8_gemv(
+                    x_.data_ptr(), w_.data_ptr(), s_.data_ptr(), y.data_ptr(), N, K, 0, *plan,
+                    torch.cuda.current_stream(dev).cuda_stream), "int8_gemv")
+                return y
+            ratio = _ratio(run(x, w_q, scale), ref, tol)[1]
+            ms = time_ms(torch, run, sets, iters=200)
+            mine = plan == chosen
+            rows.append(dict(case=name, M=1, N=N, K=K, tile="gemv", rows=plan.rows,
+                             warps=plan.warps, blocks=plan.blocks,
+                             walk=plan.blocks < -(-N // plan.rows), ms=ms,
+                             err_over_tol=ratio, plan=mine))
+            log(f"[sweep] int8_gemv   {name:8s} M=    1 N={N:6d} K={K:5d} R={plan.rows} "
+                f"warps={plan.warps} blocks={plan.blocks:5d} "
+                f"ms={ms:.4f} err/tol={ratio:.3f}{'  <- plan' if mine else ''}")
+        del sets, ref, tol
+        torch.cuda.empty_cache()
+
+
+def sass_ops(lib_path, kernel="gemv_kernel"):
+    """{instantiation: [opcode, ...] in program order} of `kernel` in a
+    built library, from `cuobjdump -sass`."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                         check=True).stdout
+    ops, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = None
+            t = re.search(rf"{len(kernel)}{kernel}I(?:Li(\d+)E)?(\w)", m.group(1))
+            if t:
+                rows = f"{t.group(1)}," if t.group(1) else ""
+                name = f"{kernel}<{rows}{'float' if t.group(2) == 'f' else 'bf16'}>"
+                ops[name] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if name and m:
+            ops[name].append(m.group(1))
+    return ops
+
+
+def log_sass(tree, lib_path):
+    """gemv_kernel's static SASS counts in one tree's library, per 16 bytes
+    of weight: the dot's FFMAs are 16 a 16-byte load of codes, so code that
+    holds F FFMAs handles F / 16 such loads. Counted over the whole kernel
+    and over its hot span: from its first global load to its first warp
+    shuffle, the loads and dot products of a warp's first rows before their
+    reduction (the parent's whole loop: two chunks unrolled and one)."""
+    key = ("LDG", "PRMT", "I2F", "I2FP", "FADD", "FFMA", "LOP3", "SHF", "IMAD", "F2FP")
+    for name, ops in sorted(sass_ops(lib_path).items()):
+        loads = max(ops.count("FFMA") / 16, 1e-9)
+        first = next((i for i, op in enumerate(ops) if op == "LDG"), 0)
+        shfl = next((i for i, op in enumerate(ops) if op == "SHFL" and i > first), len(ops))
+        span = ops[first:shfl]
+        hot = max(span.count("FFMA") / 16, 1e-9)
+        hist = {op: ops.count(op) for op in sorted(set(ops))}
+        log(f"[sass] {tree} {name}: {len(ops)} instructions, {loads:.0f} 16-byte code "
+            f"loads in its loop bodies; per 16 bytes of weight: whole kernel "
+            f"{len(ops) / loads:.1f}, hot span {len(span) / hot:.1f} ({hot:.0f} loads: "
+            + ", ".join(f"{k} {span.count(k) / hot:.2f}" for k in key)
+            + ") | " + " ".join(f"{k}:{v}" for k, v in hist.items()))
+
+
 def int8_sweep(torch, dev) -> int:
-    """int8_matmul's kernel launched at every reduction split S the cluster
-    cap allows (whole steps, as the plan cuts them), at SWEEP_SHAPES: ms
-    per call (CUDA-graph replay, as phase 2 times), blocks, the worst
-    err/tol (FWD_U's bound) and which S `_fwd_plan` picks; rows also to
-    chiprun_out/int8_fwd_sweep.json. Information for the plan."""
+    """int8_matmul's kernels launched at every reduction split S the cluster
+    cap allows (whole steps, as the plan cuts them), at SWEEP_SHAPES, and
+    the GEMV at every plan of `gemv_sweep`: ms per call (CUDA-graph
+    replay, as phase 2 times), blocks, the worst err/tol (FWD_U's bound)
+    and which plan `_fwd_plan` / `_gemv_plan` picks; rows also to
+    chiprun_out/int8_fwd_sweep.json; then gemv_kernel's SASS counts.
+    Information for the plan."""
     from simlingo_tpu_torch.kernels import _build
     from simlingo_tpu_torch.kernels import quantized_matmul as QM
     lib, sms = QM._lib(), _build.sm_count(dev.index or 0)
     gen = torch.Generator(device=dev).manual_seed(3)
     rows = []
+    warm_up(torch, dev)
+    gemv_sweep(torch, dev, lib, sms, rows)
     for name, M, N, K in SWEEP_SHAPES:
         tile, plan_S, _ = QM._fwd_plan(M, N, K, sms)
         steps = -(-K // QM._fwd_geometry(M)[1])
@@ -1046,6 +1202,7 @@ def int8_sweep(torch, dev) -> int:
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "int8_fwd_sweep.json"), "w") as f:
         json.dump(rows, f, indent=1)
+    log_sass("this tree", _build.BUILD_ROOT / _build._digest() / "libint8_matmul.so")
     return 0 if all(r["err_over_tol"] <= 1.0 for r in rows) else 1
 
 
@@ -1108,8 +1265,24 @@ def fwd_digests(torch, dev, kernel):
     """{case: {output: sha12}} and {case: device ms a call} of one forward
     kernel of the tree whose `simlingo_tpu_torch` is imported, on phase
     2's inputs and timed calls: "flash_attn_fwd" at every attention case,
-    "fused_ce_fwd" at the training shape."""
+    "fused_ce_fwd" at the training shape, "int8_fwd" at the M = 1 cases
+    (the GEMV) with both scale dtypes, 200 calls a replay."""
     digests, ms = {}, {}
+    warm_up(torch, dev)
+    if kernel == "int8_fwd":
+        from simlingo_tpu_torch.kernels import quantized_matmul as QM
+        for index, (name, K, N, M, sdt) in enumerate(int8_cases()):
+            if M != 1:
+                continue
+            case = f"{name}_{str(sdt).replace('torch.', '')}"
+            (x, w_q, scale), sets = int8_inputs(torch, dev, index)
+            digests[case] = {"y": sha12(torch, QM.int8_matmul(x, w_q, scale))}
+            # 200 calls a replay: these kernels are ~0.002-0.005 ms, and the
+            # replay's own start costs a share of 20
+            ms[case] = time_ms(torch, QM.int8_matmul, sets, iters=200)
+            del sets
+            torch.cuda.empty_cache()
+        return digests, ms
     if kernel == "flash_attn_fwd":
         from simlingo_tpu_torch.kernels import flash_attention as FA
         for case, (q, k, v, valid), sets in attention_inputs(torch, dev):
@@ -1134,8 +1307,9 @@ def fwd_digests(torch, dev, kernel):
 
 
 # the cases whose bits must equal the parent's: the CE forward (its loop
-# kept each accumulator's order, PR 10) and the attention forward's tiled
-# path (its loop kept each row's order, PR 11)
+# keeps each accumulator's order) and the attention forward's tiled path
+# (its loop keeps each row's order); none of the GEMV's, whose order of
+# the sum may change (its bits across calls are held in phase 2)
 MUST_EQUAL = {"fused_ce_fwd": ("train",),
               "flash_attn_fwd": ("vit", "vit_train", "llm_prefill", "llm_train")}
 
@@ -1162,14 +1336,18 @@ def compare_fwd(parent, kernel) -> bool:
         a = [r["ms"][case] for r in mine]
         b = [r["ms"][case] for r in theirs]
         same = mine[0]["digests"][case] == theirs[0]["digests"][case]
-        must = case in MUST_EQUAL[kernel]
+        must = case in MUST_EQUAL.get(kernel, ())
         equal &= same or not must
         log(f"[ab] {kernel} {case:12s} ms this tree {a[0]:.4f} {a[1]:.4f} | parent "
             f"{b[0]:.4f} {b[1]:.4f} | ratio {sum(a) / sum(b):.3f} | bits "
             f"{'EQUAL' if same else 'DIFFERENT'}{' (must be equal)' if must else ''} "
             f"{mine[0]['digests'][case]} / {theirs[0]['digests'][case]}")
-    log(f"[digest] {kernel} cases {MUST_EQUAL[kernel]} against {parent}: "
-        f"{'EQUAL' if equal else 'DIFFERENT'}")
+    if kernel in MUST_EQUAL:
+        log(f"[digest] {kernel} cases {MUST_EQUAL[kernel]} against {parent}: "
+            f"{'EQUAL' if equal else 'DIFFERENT'}")
+    if kernel == "int8_fwd":
+        for run, what in ((theirs[0], "parent"), (mine[0], "this tree")):
+            log_sass(what, os.path.join(run["build"], "libint8_matmul.so"))
     return equal
 
 
@@ -1358,13 +1536,45 @@ def full_width(torch, dev):
     decode_ms = (tn - t1) / max(ntok - 1, 1)
     log(f"[full] plain generate: 1 token {t1:.2f} ms, {ntok} tokens {tn:.2f} ms "
         f"-> decode {decode_ms:.3f} ms/token")
+    gen_profile = profile_generate(torch, agent, di, runner)
     stats = dict(frame_ms_cot_plain=results[0]["latency_s"] * 1e3,
                  frame_ms_cot_spec=cot_spec,
                  frame_ms_drive_only=results[-1]["latency_s"] * 1e3,
                  tokens_per_frame=[len(r.get("language_tokens", [])) for r in results[:-1]],
                  spec_stats=agent.spec_stats, decode_ms_per_token=decode_ms,
-                 launches=launches)
+                 generate_profile=gen_profile, launches=launches)
     return ok, stats, agent, frame
+
+
+GEN_PROFILE_TOKENS = 11     # the profiled plain generate: 10 decode steps past the first token
+
+
+def profile_generate(torch, agent, di, runner):
+    """The plain generator profiled with 1 and GEN_PROFILE_TOKENS new
+    tokens (the same frame: prefill and queries cancel out): device busy
+    ms, and gemv_kernel's device ms and launches, a decoded token."""
+    prof, tokens = {}, {}
+    for n_new in (1, GEN_PROFILE_TOKENS):
+        gcfg = runner.GenerateConfig(max_new_tokens=n_new, eos_token_id=agent.tok.eos_token_id)
+        runner.generate_and_drive(agent.params, di, agent.model_cfg, gcfg)
+
+        def run(gcfg=gcfg, n_new=n_new):
+            out = runner.generate_and_drive(agent.params, di, agent.model_cfg, gcfg)
+            tokens[n_new] = int(out.language_lengths[0])
+        prof[n_new] = device_profile(torch, run, f"plain generate, {n_new} new token(s)")
+    steps = max(tokens[GEN_PROFILE_TOKENS] - tokens[1], 1)
+    a, b = prof[1], prof[GEN_PROFILE_TOKENS]
+    gemv = [p["hand"].get("gemv_kernel", {"ms": 0.0, "count": 0}) for p in (a, b)]
+    per = dict(tokens=tokens[GEN_PROFILE_TOKENS],
+               busy_ms=(b["device_busy_ms"] - a["device_busy_ms"]) / steps,
+               wall_ms=(b["wall_ms"] - a["wall_ms"]) / steps,
+               gemv_ms=(gemv[1]["ms"] - gemv[0]["ms"]) / steps,
+               gemv_launches=(gemv[1]["count"] - gemv[0]["count"]) / steps)
+    log(f"[profile] plain generate, a decoded token ({tokens[1]} vs "
+        f"{tokens[GEN_PROFILE_TOKENS]} tokens): device busy {per['busy_ms']:.4f} ms of "
+        f"{per['wall_ms']:.3f} ms wall (profiled); gemv_kernel {per['gemv_ms']:.4f} ms in "
+        f"{per['gemv_launches']:.1f} launches")
+    return dict(per_token=per, one_token=a, n_tokens=b)
 
 
 def device_profile(torch, fn, what):
@@ -1816,7 +2026,8 @@ def main() -> int:
                     help="build and check the kernels only (those named, else all: "
                          + ", ".join(sorted(KERNEL_CHECKS)) + ")")
     ap.add_argument("--int8-sweep", action="store_true",
-                    help="build, then time the int8 forward at every reduction split")
+                    help="build, then time the int8 forward at every reduction split "
+                         "and the GEMV at forced plans")
     ap.add_argument("--ce-sweep", action="store_true",
                     help="build, then time the fused CE backward at forced segment counts")
     ap.add_argument("--attn-sweep", action="store_true",
@@ -1825,7 +2036,7 @@ def main() -> int:
                     help="also hold the fused CE forward's and the tiled attention "
                          "forward's bits equal to those of the source tree at DIR (e.g. "
                          "a git archive of the parent commit), and time both forwards "
-                         "of both trees on phase 2's inputs")
+                         "and the int8 GEMV of both trees on phase 2's inputs")
     args = ap.parse_args()
 
     import torch
@@ -1862,7 +2073,8 @@ def main() -> int:
         return 1
     if args.parent:
         checked = set(args.kernels or KERNEL_CHECKS)
-        for check, kernel in (("fused_ce", "fused_ce_fwd"), ("flash_attn_fwd", "flash_attn_fwd")):
+        for check, kernel in (("fused_ce", "fused_ce_fwd"), ("flash_attn_fwd", "flash_attn_fwd"),
+                              ("int8_matmul", "int8_fwd")):
             if check in checked and not compare_fwd(args.parent, kernel):
                 return 1
     if args.kernels is not None:

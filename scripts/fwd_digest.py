@@ -5,9 +5,10 @@ Runs that tree's kernel (built from its csrc/ into its own build/) on the
 GPU on the inputs and timed calls of chip_smoke.py's phase 2, taken from
 the chip_smoke.py beside this script (`fwd_digests`), and prints one line
 `FWD_DIGEST <kernel> <tree> {"digests": {case: {output: sha12}}, "ms":
-{case: ms}}`. Two trees whose digests agree on one card compute the same
-bits. KERNEL is flash_attn_fwd (every attention case) or fused_ce_fwd
-(the training shape). The tree is the current directory:
+{case: ms}, "build": the directory of the tree's built libraries}`. Two trees whose digests agree on one card compute the same
+bits. KERNEL is flash_attn_fwd (every attention case), fused_ce_fwd
+(the training shape) or int8_fwd (the int8 GEMV's M = 1 cases). The tree
+is the current directory:
 
     git archive <parent> | tar -x -C build/parent
     (cd build/parent && python3 ../../scripts/fwd_digest.py flash_attn_fwd)
@@ -45,7 +46,10 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     digests, ms = smoke.fwd_digests(torch, torch.device("cuda"), sys.argv[1])
-    print("FWD_DIGEST", sys.argv[1], tree, json.dumps({"digests": digests, "ms": ms}), flush=True)
+    from simlingo_tpu_torch.kernels import _build
+    build = str(_build.BUILD_ROOT / _build._digest())
+    print("FWD_DIGEST", sys.argv[1], tree,
+          json.dumps({"digests": digests, "ms": ms, "build": build}), flush=True)
     return 0
 
 

@@ -13,10 +13,16 @@
 // and the training rows (M = 4788) the tensor-core operations.
 //
 // Design:
-//  * M = 1 (decode), gemv_kernel: one warp per output channel n. Each lane
-//    streams 16 int8 weights per 16-byte load, dequantizes in registers, and
-//    FMAs them against the activation row read through the read-only cache;
-//    a warp shuffle reduces, and the scale is applied once per output.
+//  * M = 1 (decode), gemv_kernel: the bytes, with little other work to hide
+//    their latency. A warp owns R rows (2-8) and a slice of K at a time;
+//    each lane issues its R 16-byte weight loads of the same 16 columns
+//    (streaming: read once) before it uses any, and widens each code by a
+//    byte permute and one fp32 subtraction (no I2F). The warps of a block
+//    split K and sum in shared memory in warp order. The blocks walk the
+//    row groups grid-stride, each lane holding its x chunk as fp32 for the
+//    whole walk and the next group's loads in flight while it sums the
+//    current one. The plan (R, warps, blocks) is the wrapper's,
+//    `_gemv_plan`.
 //  * 2 <= M <= 48 (verify, queries), gemm_kernel: 16 x 64 output tiles, 4
 //    warps, mma.m16n8k16 with fp32 accumulators. K streams in steps of 64
 //    through a 3-stage cp.async ring; the weight tile stays int8 in shared
@@ -107,38 +113,156 @@ constexpr int SMALL_RESIDENT = 8;      // its blocks an SM: <= 64 registers a th
 // holds. Beyond 2 an SM more segments only added per-block cost (the
 // forced-split sweep, chip_smoke.py --int8-sweep, in PERF.md).
 constexpr int LARGE_FILL = 2;
+// The GEMV: most warps a block (K slices), most rows a warp, and K columns
+// a 16-byte load of codes. Its instantiations take 2, 4
+// or 8 rows a warp.
+constexpr int GEMV_MAX_WARPS = 16;
+constexpr int GEMV_MAX_ROWS = 8;
+constexpr int GEMV_CHUNK = 16;
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
 
-template <typename ST>
-__global__ void __launch_bounds__(256)
-gemv_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
-            const ST* __restrict__ scale, bf16* __restrict__ y, int N, int K) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n = blockIdx.x * 8 + warp;
-  if (n >= N) return;
-  const int8_t* wr = w + (long long)n * K;
-  float acc = 0.f;
-
-#pragma unroll 2
-  for (int k0 = lane * 16; k0 < K; k0 += 32 * 16) {
-    const int4 wv = __ldg(reinterpret_cast<const int4*>(wr + k0));
-    const int8_t* wb = reinterpret_cast<const int8_t*>(&wv);
-    const uint4* xp = reinterpret_cast<const uint4*>(x + k0);
-    const uint4 xa = __ldg(xp), xb = __ldg(xp + 1);
-    const uint32_t xu[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+// Four int8 codes (lowest byte first) -> four fp32 values, exactly. A byte
+// permute makes each code c the fp32 2^23 + (c ^ 0x80) = 2^23 + 128 + c;
+// subtracting 2^23 + 128 leaves c. One PRMT (integer pipe) and one FADD a
+// code instead of an I2F, which runs at a quarter of their rate.
+__device__ __forceinline__ void int8x4_to_f32x4(uint32_t q, float (&f)[4]) {
+  const uint32_t u = q ^ 0x80808080u;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      acc = fmaf(__uint_as_float(xu[j] << 16), static_cast<float>(wb[2 * j]), acc);
-      acc = fmaf(__uint_as_float(xu[j] & 0xffff0000u),
-                 static_cast<float>(wb[2 * j + 1]), acc);
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + i)) - 8388736.f;
+}
+
+// R rows' 16-byte code chunks times 16 x values (fp32): acc[r] += the 16
+// products of row r, in column order.
+template <int R>
+__device__ __forceinline__ void dot_chunk(const uint4 (&q)[R], const float (&xf)[16],
+                                          float (&acc)[R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const uint32_t qw[4] = {q[r].x, q[r].y, q[r].z, q[r].w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float f[4];
+      int8x4_to_f32x4(qw[i], f);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[r] = fmaf(xf[4 * i + e], f[e], acc[r]);
     }
   }
+}
+
+// x[16 c .. 16 c + 15] widened to fp32 (bf16 is the top half of an fp32).
+__device__ __forceinline__ void load_x_chunk(const bf16* __restrict__ x, int c, float (&xf)[16]) {
+  const uint4* xp = reinterpret_cast<const uint4*>(x) + 2 * c;
+  const uint4 xa = __ldg(xp), xb = __ldg(xp + 1);
+  const uint32_t xu[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) y[n] = __float2bfloat16(acc * widen(scale[n]));
+  for (int j = 0; j < 8; ++j) {
+    xf[2 * j] = __uint_as_float(xu[j] << 16);
+    xf[2 * j + 1] = __uint_as_float(xu[j] & 0xffff0000u);
+  }
+}
+
+// Chunk c of the R rows from n0 (rows past N read row N - 1 and are never
+// stored), streaming: the weights are read once.
+template <int R>
+__device__ __forceinline__ void load_rows(const int8_t* __restrict__ w, int n0, int N, int K,
+                                          int c, uint4 (&q)[R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    q[r] = __ldcs(reinterpret_cast<const uint4*>(
+        w + static_cast<long long>(min(n0 + r, N - 1)) * K) + c);
+}
+
+// The GEMV (M = 1). A block of `warps` warps owns R consecutive weight rows
+// (a row group) at a time and walks the row groups grid-stride. K is cut
+// into P = warps slices of whole 16-column chunks, slice p = [p C / P,
+// (p + 1) C / P) of the C = K / 16 chunks; warp p takes slice p, the same
+// for every row group. Where each lane has at most one chunk of its slice
+// (C <= 32 P: every path shape), it widens its 16 x values to fp32 once for
+// the whole walk, and it issues the next row group's R 16-byte weight
+// loads before it computes the current one's, so that they are in flight
+// through the sums and barrier; else it loops over its chunks, loads
+// first. The branch is taken from C and P, so every warp of the block
+// takes the same one. (Two chunks a lane, half the warps, measured slower
+// at every path shape.) Codes are widened by a byte permute. The warp sums
+// by butterfly shuffles (every lane ends with the same bits) and the block
+// sums its warps' partials in shared memory in warp order: no atomics, the
+// same bits on every call. The fp32 sum times the widened scale is rounded
+// once to bf16.
+template <int R, typename ST>
+__global__ void __launch_bounds__(GEMV_MAX_WARPS * 32)
+gemv_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
+            const ST* __restrict__ scale, bf16* __restrict__ y, int N, int K) {
+  __shared__ float part[GEMV_MAX_WARPS][R];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = threadIdx.x;
+  const int P = blockDim.x >> 5, C = K / GEMV_CHUNK;
+  const int c0 = static_cast<unsigned>(warp * C) / P;   // warp * C < 2^31: K < 2^28, P <= 16
+  const int c1 = static_cast<unsigned>((warp + 1) * C) / P;
+  const int groups = (N + R - 1) / R;
+
+  // the warp sums of group g's partials acc[] -> y[g R ..], in a fixed order
+  auto finish = [&](int g, float (&acc)[R]) {
+    const int n0 = g * R;
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
+    if (lane == 0)
+#pragma unroll
+      for (int r = 0; r < R; ++r) part[warp][r] = acc[r];
+    __syncthreads();
+    if (t < R && n0 + t < N) {
+      float sum = part[0][t];
+      for (int i = 1; i < P; ++i) sum += part[i][t];
+      y[n0 + t] = __float2bfloat16(sum * widen(scale[n0 + t]));
+    }
+    __syncthreads();                       // part is free for the next row group
+  };
+
+  if (C <= 32 * P) {                       // the longest slice, ceil(C / P) chunks, <= 32
+    const int c = c0 + lane;
+    const bool mine = c < c1;              // lanes past the slice add zeros
+    uint4 next[R];                         // the first group's loads, then x's: both in flight
+#pragma unroll
+    for (int r = 0; r < R; ++r) next[r] = make_uint4(0u, 0u, 0u, 0u);
+    int g = blockIdx.x;
+    if (mine && g < groups) load_rows<R>(w, g * R, N, K, c, next);
+    float xf[16];
+    if (mine) {
+      load_x_chunk(x, c, xf);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) xf[j] = 0.f;
+    }
+    for (; g < groups; g += gridDim.x) {
+      uint4 q[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) q[r] = next[r];
+      if (mine && g + gridDim.x < groups) load_rows<R>(w, (g + gridDim.x) * R, N, K, c, next);
+      float acc[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = 0.f;
+      dot_chunk<R>(q, xf, acc);
+      finish(g, acc);
+    }
+    return;
+  }
+  for (int g = blockIdx.x; g < groups; g += gridDim.x) {
+    float acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = 0.f;
+    for (int c = c0 + lane; c < c1; c += 32) {
+      uint4 q[R];
+      load_rows<R>(w, g * R, N, K, c, q);
+      float xf[16];
+      load_x_chunk(x, c, xf);
+      dot_chunk<R>(q, xf, acc);
+    }
+    finish(g, acc);
+  }
 }
 
 // Eight bf16 outputs of one row, columns gc..gc+7 (`left` = N - gc of them
@@ -260,15 +384,11 @@ __device__ __forceinline__ void gemm_epilogue(unsigned char* smem, const float (
   cluster_epilogue<BM, BN, LD, THREADS>(F, scale, y, m0, n0, M, N, tid);
 }
 
-// Four int8 codes (lowest byte first) -> two bf16x2 words, exactly. A byte
-// permute makes each code c the fp32 2^23 + (c ^ 0x80) = 2^23 + 128 + c;
-// subtracting 2^23 + 128 leaves c, which bf16 holds exactly (|c| <= 127).
+// Four int8 codes (lowest byte first) -> two bf16x2 words, exactly (bf16
+// holds every |c| <= 127).
 __device__ __forceinline__ uint2 int8x4_to_bf16x4(uint32_t q) {
-  const uint32_t u = q ^ 0x80808080u;
   float f[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + i)) - 8388736.f;
+  int8x4_to_f32x4(q, f);
   return make_uint2(simlingo::pack_bf16x2(f[0], f[1]), simlingo::pack_bf16x2(f[2], f[3]));
 }
 
@@ -616,6 +736,24 @@ cudaError_t launch_gemm64(const bf16* x, const int8_t* w, const ST* s, bf16* y,
                           x, w, s, y, M, N, K, seg_steps);
 }
 
+// The GEMV's plan: R rows a warp (2, 4 or 8), `warps` K slices a block
+// (1..16) and `blocks` row-group blocks, which walk the row groups
+// grid-stride. Anything else is refused.
+template <typename ST>
+cudaError_t launch_gemv(const bf16* x, const int8_t* w, const ST* s, bf16* y, int N, int K,
+                        int R, int warps, int blocks, cudaStream_t st) {
+  if (warps < 1 || warps > GEMV_MAX_WARPS || blocks < 1 || N < 1 || K % GEMV_CHUNK != 0 ||
+      K >= (1 << 28))
+    return cudaErrorInvalidValue;
+  switch (R) {
+    case 2: gemv_kernel<2, ST><<<blocks, warps * 32, 0, st>>>(x, w, s, y, N, K); break;
+    case 4: gemv_kernel<4, ST><<<blocks, warps * 32, 0, st>>>(x, w, s, y, N, K); break;
+    case 8: gemv_kernel<8, ST><<<blocks, warps * 32, 0, st>>>(x, w, s, y, N, K); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 constexpr int DX_BM = 64;            // dx rows per block
 constexpr int DX_BN = 128;           // dx columns (weight columns) per block
 constexpr int DX_BR = 32;            // reduction step: weight rows per stage
@@ -845,10 +983,7 @@ cudaError_t launch_dx(const bf16* g, const int8_t* w, const float* s, float* par
 template <typename ST>
 cudaError_t run_forward(const bf16* x, const int8_t* w, const ST* s, bf16* y,
                         int M, int N, int K, int S, int seg_steps, cudaStream_t st) {
-  if (M == 1) {
-    gemv_kernel<ST><<<(N + 7) / 8, 256, 0, st>>>(x, w, s, y, N, K);
-    return cudaGetLastError();
-  }
+  if (M < 2) return cudaErrorInvalidValue;          // M = 1: simlingo_int8_gemv
   if (M <= SMALL_M) return launch_gemm<ST>(x, w, s, y, M, N, K, S, seg_steps, st);
   return launch_gemm64<ST>(x, w, s, y, M, N, K, S, seg_steps, st);
 }
@@ -856,9 +991,9 @@ cudaError_t run_forward(const bf16* x, const int8_t* w, const ST* s, bf16* y,
 }  // namespace
 
 // y[M,N] = bf16((x[M,K] . w_q[N,K]^T) * scale[N]); the scale fp32, or bf16
-// with scale_bf16 set. M > 1: the reduction in S segments of seg_steps
+// with scale_bf16 set. M >= 2: the reduction in S segments of seg_steps
 // steps each (the wrapper's plan, S <= 8; S = 1, seg_steps >= the steps of
-// K: no split). M == 1 takes the GEMV and ignores S.
+// K: no split). M = 1 is refused: it takes simlingo_int8_gemv.
 extern "C" int simlingo_int8_matmul(const void* x_, const void* w_, const void* s_,
                                     void* y_, int M, int N, int K, int scale_bf16,
                                     int S, int seg_steps, void* stream) {
@@ -872,14 +1007,32 @@ extern "C" int simlingo_int8_matmul(const void* x_, const void* w_, const void* 
   return static_cast<int>(e);
 }
 
+// y[N] = bf16((x[K] . w_q[N,K]^T) * scale[N]), M = 1, on the wrapper's plan:
+// R rows a warp, `warps` K slices a block, `blocks` row-group blocks (see
+// gemv_kernel). K % 16 == 0, x and w_q 16-byte aligned (the wrapper
+// checks).
+extern "C" int simlingo_int8_gemv(const void* x_, const void* w_, const void* s_, void* y_,
+                                  int N, int K, int scale_bf16, int R, int warps, int blocks,
+                                  void* stream) {
+  const auto* x = static_cast<const bf16*>(x_);
+  const auto* w = static_cast<const int8_t*>(w_);
+  auto* y = static_cast<bf16*>(y_);
+  auto st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      scale_bf16 ? launch_gemv(x, w, static_cast<const bf16*>(s_), y, N, K, R, warps, blocks, st)
+                 : launch_gemv(x, w, static_cast<const float*>(s_), y, N, K, R, warps, blocks, st);
+  return static_cast<int>(e);
+}
+
 // The forward's geometry, which the wrapper's plan is made for: for the
 // 16-row (gemm_kernel) and the 64-row (gemm64_kernel) variant each, output
 // tile rows and columns, reduction step (K columns) and blocks an SM that a
-// split fills; then the cluster cap and the largest M of the 16-row variant.
+// split fills; then the cluster cap and the largest M of the 16-row variant;
+// then the GEMV's most warps a block, most rows a warp and K columns a load.
 extern "C" void simlingo_int8_matmul_geometry(int* out) {
-  const int g[10] = {BM, BN, BK, SMALL_RESIDENT, T_BM, T_BN, T_BK, LARGE_FILL,
-                     MAX_CLUSTER, SMALL_M};
-  for (int i = 0; i < 10; ++i) out[i] = g[i];
+  const int g[13] = {BM, BN, BK, SMALL_RESIDENT, T_BM, T_BN, T_BK, LARGE_FILL,
+                     MAX_CLUSTER, SMALL_M, GEMV_MAX_WARPS, GEMV_MAX_ROWS, GEMV_CHUNK};
+  for (int i = 0; i < 13; ++i) out[i] = g[i];
 }
 
 // dx_kernel's geometry, which the wrapper's plan is made for: output tile

@@ -28,7 +28,8 @@ activation gradient's wrapper widens it first.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -148,6 +149,16 @@ _FWD_SMALL = ((16, 64), 64, 8)       # gemm_kernel, 2 <= M <= _FWD_SMALL_M
 _FWD_LARGE = ((64, 128), 32, 2)      # gemm64_kernel, M > _FWD_SMALL_M
 _FWD_CLUSTER = 8                     # most blocks in a cluster (portable)
 _FWD_SMALL_M = 48
+# The GEMV (M = 1): most warps a block, the rows a warp its instantiations
+# take, K columns a 16-byte load of codes (the library reports the first,
+# the largest of the second and the third); then the plan's warps an SM:
+# the row groups should give at least so many before rows a warp are cut,
+# and one wave of blocks, which walk the row groups, holds at most so many
+# (`chip_smoke.py --int8-sweep` measured both, PERF.md).
+_GEMV_WARPS = 16
+_GEMV_ROWS = (2, 4, 8)
+_GEMV_CHUNK = 16
+_GEMV_SM_WARPS = 32
 
 
 def _fwd_geometry(M: int):
@@ -173,6 +184,35 @@ def _fwd_plan(M: int, N: int, K: int, sms: int):
     return tile, -(-steps // per), per * step
 
 
+class GemvPlan(NamedTuple):
+    """gemv_kernel's grid: `rows` a warp, `warps` K slices a block, `blocks`
+    row-group blocks, which walk the row groups grid-stride."""
+    rows: int
+    warps: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=256)
+def _gemv_plan(N: int, K: int, sms: int) -> GemvPlan:
+    """Grid of gemv_kernel (M = 1).
+
+    K is cut into `warps` slices of whole 16-column chunks, as few as give
+    each lane at most one chunk a row (warps >= C / 32 of the C = K / 16
+    chunks: 2 at K = 896, 10 at 4864), at most _GEMV_WARPS (past K = 8192
+    the lanes loop over their chunks). The rows a warp are the most whose
+    row groups still give _GEMV_SM_WARPS warps an SM, and at least 2 (each
+    lane holds `rows` 16-byte loads in flight; 2 at every linear, 8 at the
+    tied head). The blocks walk the row groups in as few rounds as one wave
+    of _GEMV_SM_WARPS warps an SM allows, the groups spread evenly over
+    them (gate,up and down 2 rounds, the tied head 9)."""
+    warps = min(_GEMV_WARPS, -(-max(1, K // _GEMV_CHUNK) // 32))
+    rows = next((r for r in reversed(_GEMV_ROWS)
+                 if -(-N // r) * warps >= _GEMV_SM_WARPS * sms), _GEMV_ROWS[0])
+    groups = -(-N // rows)
+    rounds = -(-groups // max(1, _GEMV_SM_WARPS // warps * sms))
+    return GemvPlan(rows, warps, -(-groups // rounds))
+
+
 def _int8_matmul_cuda(x, w_q, scale):
     N, K = w_q.shape
     scale = _check("int8_matmul", x, w_q, scale, K)
@@ -184,14 +224,18 @@ def _int8_matmul_cuda(x, w_q, scale):
         return out.reshape(*lead, N)
     if x2.data_ptr() % 16:
         raise ValueError("int8_matmul kernel needs 16-byte aligned operands")
-    S, seg_steps = 1, 0                              # the GEMV (M = 1) takes no plan
-    if M > 1:
-        _, S, seg = _fwd_plan(M, N, K, _build.sm_count(x.device.index or 0))
-        seg_steps = seg // _fwd_geometry(M)[1]
-    rc = _lib().simlingo_int8_matmul(
-        x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        M, N, K, int(scale.dtype == torch.bfloat16), S, seg_steps,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    sms = _build.sm_count(x.device.index or 0)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    bf16_scale = int(scale.dtype == torch.bfloat16)
+    if M == 1:
+        rc = _lib().simlingo_int8_gemv(
+            x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            N, K, bf16_scale, *_gemv_plan(N, K, sms), stream)
+    else:
+        _, S, seg = _fwd_plan(M, N, K, sms)
+        rc = _lib().simlingo_int8_matmul(
+            x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            M, N, K, bf16_scale, S, seg // _fwd_geometry(M)[1], stream)
     _build.check(rc, "int8_matmul")
     int8_matmul.launches += 1
     return out.reshape(*lead, N)
@@ -254,13 +298,18 @@ int8_matmul.launches = 0
 int8_matmul_dx.launches = 0
 
 
+def _fwd_lib_geometry():
+    """The tuple simlingo_int8_matmul_geometry must report for the plans."""
+    return (*_FWD_SMALL[0], *_FWD_SMALL[1:], *_FWD_LARGE[0], *_FWD_LARGE[1:],
+            _FWD_CLUSTER, _FWD_SMALL_M, _GEMV_WARPS, max(_GEMV_ROWS), _GEMV_CHUNK)
+
+
 def _lib():
     lib = _build.load("int8_matmul")
     if lib.simlingo_int8_matmul.argtypes is None:
-        geometry = (ctypes.c_int * 10)()
+        geometry = (ctypes.c_int * 13)()
         lib.simlingo_int8_matmul_geometry(geometry)
-        want = (*_FWD_SMALL[0], *_FWD_SMALL[1:], *_FWD_LARGE[0], *_FWD_LARGE[1:],
-                _FWD_CLUSTER, _FWD_SMALL_M)
+        want = _fwd_lib_geometry()
         if tuple(geometry) != want:
             raise RuntimeError(
                 f"int8_matmul: the library's geometry {tuple(geometry)} differs "
@@ -275,6 +324,9 @@ def _lib():
         lib.simlingo_int8_matmul.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.simlingo_int8_matmul.restype = ctypes.c_int
+        lib.simlingo_int8_gemv.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.simlingo_int8_gemv.restype = ctypes.c_int
         lib.simlingo_int8_matmul_dx.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.simlingo_int8_matmul_dx.restype = ctypes.c_int

@@ -229,6 +229,33 @@ def test_int8_matmul_split_reduction_is_right_and_bit_identical(gpu, M, N, K, sc
 
 
 @pytest.mark.cuda
+# M = 1, the GEMV, on its plan: the decode shapes of the serving path (q,o;
+# k,v; gate,up; down; the tied head, whose blocks walk 9 row groups each)
+# and ragged ones (one row, a row group cut at N, K of one and of three
+# chunks, K = 4880); K past 512 x 16, where the lanes loop over the chunks
+# of their slice: K = 8208 (slices of 32 and 33 chunks: every warp of a
+# block loops), 16384 (2 chunks a lane), 81920 (10)
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,K", [(896, 896), (128, 896), (4864, 896), (896, 4864),
+                                 (151674, 896)]
+                         + [(N, K) for N in (1, 7, 129, 151674) for K in (16, 48, 4880)]
+                         + [(3, 8208), (100, 16384), (3, 81920)])
+def test_int8_gemv_is_right_and_bit_identical(gpu, N, K, scale_dtype):
+    g = torch.Generator(device=gpu).manual_seed(13)
+    x = torch.randn(1, K, generator=g, device=gpu).bfloat16()
+    w_q, scale = TQM.quantize_weight(torch.randn(N, K, generator=g, device=gpu) * 0.02)
+    scale = scale.to(scale_dtype)
+    before = TQM.int8_matmul.launches
+    out = TQM.int8_matmul(x, w_q, scale)
+    assert TQM.int8_matmul.launches == before + 1
+    again = TQM.int8_matmul(x, w_q, scale)
+    assert TQM.int8_matmul.launches == before + 2
+    assert torch.equal(out, again)
+    ref = TQM.int8_matmul_reference(x.float(), w_q, scale)
+    _within(out, ref, _fwd_tol(x, w_q, scale, ref), "int8_matmul")
+
+
+@pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(gpu):
     q = torch.randn(1, 4, 2, 32, device=gpu).bfloat16()
     with pytest.raises(ValueError, match="head_dim 64"):
