@@ -8,11 +8,13 @@
                                         # GEMV at forced plans
     python3 chip_smoke.py --ce-sweep    # the fused CE backward at forced segments S
     python3 chip_smoke.py --attn-sweep  # the attention forward at forced plans
-    python3 chip_smoke.py --parent DIR  # ... and the CE forward's and the tiled
-                                        # attention forward's bits against the
-                                        # tree at DIR, with both trees' times
-                                        # of those and of the int8 GEMV
-                                        # (scripts/fwd_digest.py)
+    python3 chip_smoke.py --norm-sweep  # the norm kernels at forced plans
+    python3 chip_smoke.py --parent DIR  # ... and the CE forward's, the tiled
+                                        # attention forward's and the norm
+                                        # forward's bits against the tree at
+                                        # DIR, with both trees' times of those,
+                                        # of the norm backward and of the
+                                        # int8 GEMV (scripts/fwd_digest.py)
 
 Phases, in order; any failure exits non-zero:
   1. build: compile csrc/*.cu with nvcc (all in parallel), print seconds;
@@ -28,8 +30,13 @@ Phases, in order; any failure exits non-zero:
      of that scratch -- bit-identical across two calls, with the device ms
      of its three kernels, their ptxas registers, the dK/dV instantiation
      and the scratch bytes; dropout: bit-equal, keep rate 0.9 +- 0.002, identity at
-     p = 0; LayerNorm / RMSNorm forward and backward at the ViT, projector,
-     LLM-training and serving rows, and the fused CE forward, backward and
+     p = 0; LayerNorm / RMSNorm forward and backward at the ViT, projector
+     and LLM-training rows (the LLM's also dx only, its frozen scale), the
+     forward at the serving rows (ViT 2 x 1025, projector 2 x 256, LLM 1 /
+     16 / 30 / 640), the backward bit-identical across two calls, with the
+     device ms of each of its kernels, its plan and its ptxas registers,
+     the library's backward as device time beside its eager time; the
+     fused CE forward, backward and
      dW backward at the training shape and a ragged one, each against the
      tolerance stated at BF16_SPACING (the backward also pass by pass: its
      dlogits scratch against ce_dlogits_reference, its dh and dW against
@@ -55,7 +62,11 @@ Phases, in order; any failure exits non-zero:
      speculative) on SimLingoConfig() with seeded random bf16 weights,
      FRAMES frames on a seeded 1024x512 frame, then one use_cot=False
      frame; launch counts of every kernel are reset just before and read
-     just after, with a profile of one speculative frame (device time by
+     just after; then the same frames again with SIMLINGO_LN_IMPL=pallas
+     (`gated_serving`: frame ms beside the ungated frames', the norm
+     kernels' launches a frame, tokens equal and waypoints within 2 % of
+     the ungated frames', a profile of one gated speculative frame); with
+     a profile of one speculative frame (device time by
      kernel class and by hand kernel; int8_matmul's calls in that frame
      against its forward kernels' launches, one each), and the plain
      generator profiled at 1 and GEN_PROFILE_TOKENS new tokens (device
@@ -73,7 +84,7 @@ Phases, in order; any failure exits non-zero:
      launch int8_matmul and int8_matmul_dx (counts logged against
      INT8_PER_STEP), its losses beside the bf16 base's (information only);
   6. the {"kernels": [...]} line (eleven kernels, launches per path: serve,
-     train, train_gated, train_int8), the nvidia-smi line, and the last
+     serve_gated, train, train_gated, train_int8), the nvidia-smi line, and the last
      line {"ok": true, "device": {...}}.
 Per-case results also go to chiprun_out/chip_smoke_cases.json, the paths'
 statistics to chip_smoke_agent.json, chip_smoke_train.json,
@@ -197,10 +208,9 @@ def eager_ms(torch, fn, sets, iters=20):
     return start.elapsed_time(end) / iters
 
 
-def kernel_split_ms(torch, fn, sets, names, iters=10):
-    """Device ms a launch of each named kernel of one wrapper, from
-    torch.profiler over `iters` eager calls cycling through the operand
-    sets (a kernel's device time does not depend on how it was launched)."""
+def _device_events(torch, fn, sets, iters):
+    """[(kernel name, device ms, launches)] of `iters` eager calls of fn
+    cycling through the operand sets (torch.profiler; kernels only)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn(*sets[0])
@@ -209,19 +219,35 @@ def kernel_split_ms(torch, fn, sets, names, iters=10):
         for i in range(iters):
             fn(*sets[i % len(sets)])
         torch.cuda.synchronize()
-    total = {name: [0.0, 0] for name in names}
+    events = []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
             continue
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "self_cuda_time_total", 0)
+        events.append((e.key, dev_us / 1e3, e.count))
+    return events
+
+
+def kernel_split_ms(torch, fn, sets, names, iters=10):
+    """Device ms a launch of each named kernel of one wrapper, from
+    torch.profiler over `iters` eager calls cycling through the operand
+    sets (a kernel's device time does not depend on how it was launched)."""
+    total = {name: [0.0, 0] for name in names}
+    for key, ms, count in _device_events(torch, fn, sets, iters):
         for name in names:
-            if re.search(rf"(^|[:\s]){name}\b", e.key):
-                total[name][0] += dev_us / 1e3
-                total[name][1] += e.count
+            if re.search(rf"(^|[:\s]){name}\b", key):
+                total[name][0] += ms
+                total[name][1] += count
     # per launch (one a call): the tracer may drop events of some calls
     return {name: ms / max(n, 1) for name, (ms, n) in total.items()}
+
+
+def device_sum_ms(torch, fn, sets, iters=10):
+    """Device ms a call summed over every kernel that one call launches:
+    the library's device time, launch gaps and host excluded."""
+    return sum(ms for _, ms, _ in _device_events(torch, fn, sets, iters)) / iters
 
 
 def ptxas_usage(stem):
@@ -771,116 +797,327 @@ def _ratio(got, ref, tol):
     return float(diff.max()), float((diff / tol).max())
 
 
+# the norm kernels of csrc/layernorm.cu, as the profiler names them
+NORM_KERNELS = ("norm_fwd_kernel", "norm_bwd_kernel", "norm_colsum_kernel")
+
+
 def norm_cases():
-    """(kernel family, case, rows, d, eps): the ViT's 48 LayerNorms and the
-    projector's, the LLM's 49 RMSNorms in training and at the serving rows
-    (decode 1, prefill 640)."""
-    return [("layernorm", "vit", 12 * 1025, 1024, 1e-6),
-            ("layernorm", "projector", 12 * 256, 4096, 1e-5),
-            ("rmsnorm", "llm_train", 6 * 798, 896, 1e-6),
-            ("rmsnorm", "serve_decode", 1, 896, 1e-6),
-            ("rmsnorm", "serve_prefill", 640, 896, 1e-6)]
+    """(kernel family, case, rows, d, eps, directions): the ViT's 48
+    LayerNorms and the projector's and the LLM's 49 RMSNorms in training
+    (the LLM's also as the gated step runs them: a frozen scale, dx only),
+    and the serving rows: the ViT's 2 tiles x 1025 and the projector's
+    2 x 256, the LLM's decode 1, verify 16, queries 30 and prefill 640."""
+    both, fwd, dx_only = ("fwd", "bwd"), ("fwd",), ("bwd_dx",)
+    return [("layernorm", "vit", 12 * 1025, 1024, 1e-6, both),
+            ("layernorm", "projector", 12 * 256, 4096, 1e-5, both),
+            ("rmsnorm", "llm_train", 6 * 798, 896, 1e-6, both),
+            ("rmsnorm", "llm_train_frozen", 6 * 798, 896, 1e-6, dx_only),
+            ("rmsnorm", "serve_decode", 1, 896, 1e-6, both),
+            ("rmsnorm", "serve_prefill", 640, 896, 1e-6, both),
+            ("layernorm", "serve_vit", 2 * 1025, 1024, 1e-6, fwd),
+            ("layernorm", "serve_projector", 2 * 256, 4096, 1e-5, fwd),
+            ("rmsnorm", "serve_verify", 16, 896, 1e-6, fwd),
+            ("rmsnorm", "serve_queries", 30, 896, 1e-6, fwd)]
+
+
+def _template_args(mangled):
+    """['4', '1', '1', 'bf16'] from the Itanium-mangled template arguments
+    'Li4ELi1ELb1E13__nv_bfloat16' (ints, bools, bf16 or float)."""
+    out = []
+    while mangled:
+        m = re.match(r"L[ib](\d+)E", mangled)
+        if m:
+            out.append(m.group(1))
+            mangled = mangled[m.end():]
+        elif mangled.startswith("13__nv_bfloat16"):
+            out.append("bf16")
+            mangled = mangled[len("13__nv_bfloat16"):]
+        elif mangled[0] == "f":
+            out.append("float")
+            mangled = mangled[1:]
+        else:
+            out.append(mangled)
+            break
+    return out
+
+
+def norm_ptxas():
+    """{instantiation: (registers, spill store bytes, stack frame bytes)} of
+    csrc/layernorm.cu's kernels from phase 1's `nvcc -Xptxas -v` log, the
+    template arguments spelled out (e.g. norm_bwd_kernel<4,1,1,bf16>)."""
+    from simlingo_tpu_torch.kernels import _build
+    path = _build.BUILD_ROOT / _build._digest() / "layernorm.build.log"
+    usage, name, spill, stack = {}, None, 0, 0
+    for line in path.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill, stack = m.group(1), 0, 0
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+        if m:
+            stack, spill = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            for k in NORM_KERNELS:
+                t = re.search(rf"{len(k)}{k}I(\w*?)EEv", name)
+                if t:
+                    usage[f"{k}<{','.join(_template_args(t.group(1)))}>"] = (
+                        int(m.group(1)), spill, stack)
+                    break
+            name = None
+    return usage
+
+
+def norm_make(torch, dev, gen, fam, n, d, eps):
+    """A function that draws one operand set of a norm case: bf16 x, dy,
+    scale and bias (as the compute copies of the path) and the plain
+    forward's fp32 statistics."""
+    from simlingo_tpu_torch.kernels import layernorm as TL
+
+    def make():
+        x = (2 * torch.randn(n, d, generator=gen, device=dev) + 0.3).bfloat16()
+        dy = torch.randn(n, d, generator=gen, device=dev).bfloat16()
+        scale = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).bfloat16()
+        bias = (0.1 * torch.randn(d, generator=gen, device=dev)).bfloat16()
+        if fam == "layernorm":
+            _, mean, rstd = TL.layernorm_fwd_plain(x, scale, bias, eps)
+        else:
+            _, rstd = TL.rmsnorm_fwd_plain(x, scale, eps)
+            mean = None
+        return x, scale, bias, dy, mean, rstd
+    return make
+
+
+def norm_calls(fam, eps, need_ds, fwd_plan=None, bwd_plan=None):
+    """(forward, backward, plain forward, plain backward), each taking one
+    operand set; the kernels through their wrappers, or at a forced plan."""
+    from simlingo_tpu_torch.kernels import layernorm as TL
+    ln = fam == "layernorm"
+
+    def kf(x, s, b, dy, m, r):
+        if fwd_plan is not None:
+            return TL._fwd_cuda(f"{fam}_fwd", x, s, b if ln else None, eps, not ln, fwd_plan)
+        return TL.layernorm_fwd(x, s, b, eps) if ln else TL.rmsnorm_fwd(x, s, eps)
+
+    def kb(x, s, b, dy, m, r):
+        if bwd_plan is not None:
+            return TL._bwd_cuda(f"{fam}_bwd", x, s, m, r, dy, need_ds, ln and need_ds,
+                                not ln, bwd_plan)
+        return (TL.layernorm_bwd(x, s, m, r, dy) if ln
+                else TL.rmsnorm_bwd(x, s, r, dy, need_ds))
+
+    def pf(x, s, b, dy, m, r):
+        return TL.layernorm_fwd_plain(x, s, b, eps) if ln else TL.rmsnorm_fwd_plain(x, s, eps)
+
+    def pb(x, s, b, dy, m, r):
+        return (TL.layernorm_bwd_plain(x, s, m, r, dy) if ln
+                else TL.rmsnorm_bwd_plain(x, s, r, dy, need_ds))
+    return kf, kb, pf, pb
+
+
+def norm_errors(fam, need_ds, args, y, got):
+    """(max |err|, err/tol) of a forward's y and of a backward's outputs
+    against the plain versions on the same operand set: y and dx within one
+    bf16 spacing, dscale / dbias within one spacing plus 1e-5 of the sum of
+    |terms| over the rows (BF16_SPACING)."""
+    x, scale, bias, dy, mean, rstd = args
+    pb = norm_calls(fam, None, need_ds)[3]
+
+    def spacing_tol(r):
+        r = r.float()
+        return BF16_SPACING * r.abs() + 1e-5 * float(r.square().mean().sqrt())
+    out = []
+    if y is not None:                            # (kernel's y, plain y)
+        out.append(_ratio(y[0], y[1], spacing_tol(y[1])))
+    if got is not None:
+        ref = pb(*args)
+        xhat = ((x.float() - mean[:, None]) * rstd[:, None] if fam == "layernorm"
+                else x.float() * rstd[:, None])
+        terms = [(dy.float() * xhat).abs().sum(0), dy.float().abs().sum(0)]
+        bwd = [_ratio(got[0], ref[0], spacing_tol(ref[0]))]
+        bwd += [_ratio(a, b, BF16_SPACING * b.float().abs() + 1e-5 * t)
+                for a, b, t in zip(got[1:], ref[1:], terms) if b is not None]
+        out.append((max(e for e, _ in bwd), max(r for _, r in bwd)))
+    return out
 
 
 def run_norm_checks(torch, dev, results):
     """layernorm / rmsnorm forward and backward against their plain
     versions on the same bf16 inputs (bf16 scale and bias, as the compute
-    copies of the path); library: F.layer_norm / F.rms_norm and their
-    autograd backward (eager)."""
+    copies of the path); the backward bit-identical across two calls;
+    the device ms of each kernel of a call (torch.profiler), the plan, and
+    the ptxas registers, spills and stack of every instantiation; library:
+    F.layer_norm / F.rms_norm (CUDA-graph replay, as the kernels) and
+    their autograd backward, as device time (the profiler's sum over its
+    kernels) and eager (host included)."""
     import torch.nn.functional as F
+    from simlingo_tpu_torch.kernels import _build
     from simlingo_tpu_torch.kernels import layernorm as TL
+    for inst, (regs, spill, stack) in sorted(norm_ptxas().items()):
+        log(f"[ptxas] {inst}: {regs} registers, {spill} bytes spill stores, "
+            f"{stack} bytes stack frame")
+    sms = _build.sm_count(dev.index or 0)
     gen = torch.Generator(device=dev).manual_seed(5)
-    for fam, name, n, d, eps in norm_cases():
+    for fam, name, n, d, eps, dirs in norm_cases():
         ln = fam == "layernorm"
-
-        def make():
-            x = (2 * torch.randn(n, d, generator=gen, device=dev) + 0.3).bfloat16()
-            dy = torch.randn(n, d, generator=gen, device=dev).bfloat16()
-            scale = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).bfloat16()
-            bias = (0.1 * torch.randn(d, generator=gen, device=dev)).bfloat16()
-            if ln:
-                _, mean, rstd = TL.layernorm_fwd_plain(x, scale, bias, eps)
-            else:
-                _, rstd = TL.rmsnorm_fwd_plain(x, scale, eps)
-                mean = None
-            return x, scale, bias, dy, mean, rstd
-
-        x, scale, bias, dy, mean, rstd = make()
-        if ln:
-            y = TL.layernorm_fwd(x, scale, bias, eps)[0]
-            ry = TL.layernorm_fwd_plain(x, scale, bias, eps)[0]
-            got = TL.layernorm_bwd(x, scale, mean, rstd, dy)
-            ref = TL.layernorm_bwd_plain(x, scale, mean, rstd, dy)
-            xhat = (x.float() - mean[:, None]) * rstd[:, None]
-            terms = [(dy.float() * xhat).abs().sum(0), dy.float().abs().sum(0)]
-        else:
-            y = TL.rmsnorm_fwd(x, scale, eps)[0]
-            ry = TL.rmsnorm_fwd_plain(x, scale, eps)[0]
-            got = TL.rmsnorm_bwd(x, scale, rstd, dy)
-            ref = TL.rmsnorm_bwd_plain(x, scale, rstd, dy)
-            xhat = x.float() * rstd[:, None]
-            terms = [(dy.float() * xhat).abs().sum(0)]
+        need_ds = "bwd" in dirs
+        make = norm_make(torch, dev, gen, fam, n, d, eps)
+        kf, kb, pf, pb = norm_calls(fam, eps, need_ds)
+        args = make()
+        y = kf(*args)[0], pf(*args)[0]
+        got, again = kb(*args), kb(*args)
         torch.cuda.synchronize()
-
-        def spacing_tol(r):
-            r = r.float()
-            return BF16_SPACING * r.abs() + 1e-5 * float(r.square().mean().sqrt())
-        fwd_err, fwd_ratio = _ratio(y, ry, spacing_tol(ry))
-        bwd = [_ratio(got[0], ref[0], spacing_tol(ref[0]))]
-        bwd += [_ratio(a, b, BF16_SPACING * b.float().abs() + 1e-5 * t)
-                for a, b, t in zip(got[1:], ref[1:], terms)]
-        bwd_err, bwd_ratio = max(e for e, _ in bwd), max(r for _, r in bwd)
+        same = all(a is None and b is None or torch.equal(a, b) for a, b in zip(got, again))
+        (fwd_err, fwd_ratio), (bwd_err, bwd_ratio) = norm_errors(fam, need_ds, args, y, got)
 
         # bytes each input read once, each output written once
         stat_b = (8 if ln else 4) * n
         par_b = (2 if ln else 1) * 2 * d
         fwd_bytes = 2 * n * d * 2 + par_b + stat_b
-        bwd_bytes = 3 * n * d * 2 + 2 * d + stat_b + par_b
+        bwd_bytes = 3 * n * d * 2 + 2 * d + stat_b + (par_b if need_ds else 0)
         fb = bound(fwd_bytes, (8 if ln else 4) * n * d, PEAK_FP32)
         bb = bound(bwd_bytes, (16 if ln else 12) * n * d, PEAK_FP32)
         sets = [make() for _ in range(n_sets(bwd_bytes))]
-        if ln:
-            kf = lambda x_, s_, b_, d_, m_, r_: TL.layernorm_fwd(x_, s_, b_, eps)      # noqa: E731
-            pf = lambda x_, s_, b_, d_, m_, r_: TL.layernorm_fwd_plain(x_, s_, b_, eps)  # noqa: E731
-            lf = lambda x_, s_, b_, d_, m_, r_: F.layer_norm(x_, (d,), s_, b_, eps)    # noqa: E731
-            kb = lambda x_, s_, b_, d_, m_, r_: TL.layernorm_bwd(x_, s_, m_, r_, d_)   # noqa: E731
-            pb = lambda x_, s_, b_, d_, m_, r_: TL.layernorm_bwd_plain(x_, s_, m_, r_, d_)  # noqa: E731
-        else:
-            kf = lambda x_, s_, b_, d_, m_, r_: TL.rmsnorm_fwd(x_, s_, eps)            # noqa: E731
-            pf = lambda x_, s_, b_, d_, m_, r_: TL.rmsnorm_fwd_plain(x_, s_, eps)      # noqa: E731
-            lf = lambda x_, s_, b_, d_, m_, r_: F.rms_norm(x_, (d,), s_, eps)          # noqa: E731
-            kb = lambda x_, s_, b_, d_, m_, r_: TL.rmsnorm_bwd(x_, s_, r_, d_)         # noqa: E731
-            pb = lambda x_, s_, b_, d_, m_, r_: TL.rmsnorm_bwd_plain(x_, s_, r_, d_)   # noqa: E731
-        # library backward: autograd through the library forward (eager)
-        xs = [t.detach().clone().requires_grad_(True) for t in (x, scale, bias)]
-        lib_out = (F.layer_norm(xs[0], (d,), xs[1], xs[2], eps) if ln
-                   else F.rms_norm(xs[0], (d,), xs[1], eps))
-        lib_in = xs if ln else xs[:2]
+        lf = ((lambda x_, s_, b_, d_, m_, r_: F.layer_norm(x_, (d,), s_, b_, eps)) if ln
+              else (lambda x_, s_, b_, d_, m_, r_: F.rms_norm(x_, (d,), s_, eps)))
+
+        # library backward: autograd through the library forward of each
+        # operand set (the scale's gradient only where the kernel gives it)
+        def lib_graph(x_, s_, b_, d_, m_, r_):
+            leaves = [x_.detach().clone().requires_grad_(True)]
+            leaves += [p.detach().clone().requires_grad_(True)
+                       for p in ((s_, b_) if ln else (s_,))] if need_ds else []
+            s_in = leaves[1] if need_ds else s_
+            out = (F.layer_norm(leaves[0], (d,), s_in, leaves[2] if need_ds else b_, eps)
+                   if ln else F.rms_norm(leaves[0], (d,), s_in, eps))
+            return out, leaves, d_
+        lib_sets = [lib_graph(*s) for s in sets]
+        lb = lambda o_, l_, d_: torch.autograd.grad(o_, l_, d_, retain_graph=True)  # noqa: E731
+        plans = {"fwd": TL._norm_fwd_plan(n, d, sms),
+                 "bwd": TL._norm_bwd_plan(n, d, sms, sums=need_ds)}
         rows = []
-        for kernel, fn, plain, lib, err, ratio, (bms, bby) in (
-                (f"{fam}_fwd", kf, pf, lf, fwd_err, fwd_ratio, fb),
-                (f"{fam}_bwd", kb, pb, None, bwd_err, bwd_ratio, bb)):
+        for kernel, fn, plain, err, ratio, (bms, bby) in (
+                (f"{fam}_fwd", kf, pf, fwd_err, fwd_ratio, fb),
+                (f"{fam}_bwd", kb, pb, bwd_err, bwd_ratio, bb)):
+            fwd = kernel.endswith("_fwd")
+            if not (("fwd" in dirs) if fwd else ("bwd" in dirs or "bwd_dx" in dirs)):
+                continue
             kernel_ms = time_ms(torch, fn, sets)
             plain_ms = time_ms(torch, plain, sets[:2], iters=4)
-            if lib is None:
-                library_ms, how = eager_ms(torch, lambda: torch.autograd.grad(
-                    lib_out, lib_in, dy, retain_graph=True), [()]), "eager"
+            split = {k: v for k, v in kernel_split_ms(torch, fn, sets, NORM_KERNELS).items()
+                     if v > 0}
+            row = dict(kernel=kernel, case=name, shape=f"[{n},{d}] bf16 eps={eps}"
+                       + ("" if fwd or need_ds else " dx only"),
+                       max_abs_err=err, err_over_tol=ratio, ok=ratio <= 1.0,
+                       kernel_ms=kernel_ms, plain_ms=plain_ms, split_ms=split,
+                       plan=plans["fwd" if fwd else "bwd"]._asdict(),
+                       bound_ms=bms, bound_by=bby)
+            if fwd:
+                row.update(library_ms=time_ms(torch, lf, sets), library_timing="graph")
             else:
-                library_ms, how = time_ms(torch, lib, sets), "graph"
-            rows.append(dict(kernel=kernel, case=name, shape=f"[{n},{d}] bf16 eps={eps}",
-                             max_abs_err=err, err_over_tol=ratio, ok=ratio <= 1.0,
-                             kernel_ms=kernel_ms, plain_ms=plain_ms,
-                             library_ms=library_ms, library_timing=how,
-                             bound_ms=bms, bound_by=bby))
-        del lib_out, xs, sets
+                row.update(library_ms=device_sum_ms(torch, lb, lib_sets),
+                           library_timing="device",
+                           library_eager_ms=eager_ms(torch, lb, lib_sets),
+                           bit_identical=same)
+                row["ok"] = row["ok"] and same
+            rows.append(row)
+        del lib_sets, sets
         for row in rows:
             results.append(row)
-            log(f"[kernel] {row['kernel']:14s} {name:13s} {row['shape']:28s} "
+            extra = ("" if row["kernel"].endswith("_fwd") else
+                     f"; eager {row['library_eager_ms']:.4f}; bit_identical={row['bit_identical']}")
+            log(f"[kernel] {row['kernel']:14s} {name:16s} {row['shape']:36s} "
                 f"err={row['max_abs_err']:.3e} err/tol={row['err_over_tol']:.3f} "
                 f"{'OK' if row['ok'] else 'FAIL'} kernel_ms={row['kernel_ms']:.4f} "
                 f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
-                f"({row['library_timing']}) bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
+                f"({row['library_timing']}{extra}) bound_ms={row['bound_ms']:.4f} "
+                f"({row['bound_by']}) plan={tuple(row['plan'].values())} split_ms="
+                + " ".join(f"{k} {v:.4f}" for k, v in row["split_ms"].items()))
     torch.cuda.empty_cache()
+
+
+def norm_forced_plans(n, d, sms, sums):
+    """The plans `norm_sweep` launches at one case, the plans' own among
+    them: forward blocks of one row group up to 256 threads, each with the
+    scale loaded early and late (blocks as `_norm_fwd_plan` counts them);
+    backward grids of 1 .. the co-resident blocks an SM."""
+    from simlingo_tpu_torch.kernels import layernorm as TL
+    tpr = 32 * TL._norm_width(d)[1]
+    fwd, threads = [], TL._THREADS
+    while threads >= tpr:
+        for early in (True, False):
+            fwd.append(TL.NormFwdPlan(threads, min(-(-n // (threads // tpr)),
+                                                   TL._FWD_BLOCKS_PER_SM * sms), early))
+        threads //= 2
+    rpb = TL._THREADS // tpr
+    bwd = [TL.NormBwdPlan(min(-(-n // rpb), per_sm * sms))
+           for per_sm in range(1, TL._bwd_resident(d, sums) + 1)]
+    return fwd, list(dict.fromkeys(bwd))
+
+
+def norm_sweep(torch, dev) -> int:
+    """The norm kernels at every forced plan of `norm_forced_plans`, at
+    every phase-2 norm case: ms a call (CUDA-graph replay of 20 calls, as
+    phase 2 times; 200 below 1 MB of operands), the device ms of each
+    kernel of a backward call (torch.profiler), err/tol against the plain
+    version (phase 2's bound) and which plan the plans pick; rows also to
+    chiprun_out/norm_sweep.json. Information for the plans."""
+    from simlingo_tpu_torch.kernels import _build
+    from simlingo_tpu_torch.kernels import layernorm as TL
+    sms = _build.sm_count(dev.index or 0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    warm_up(torch, dev)
+    for fam, name, n, d, eps, dirs in norm_cases():
+        ln = fam == "layernorm"
+        need_ds = "bwd" in dirs
+        make = norm_make(torch, dev, gen, fam, n, d, eps)
+        nbytes = 3 * n * d * 2
+        sets = [make() for _ in range(n_sets(nbytes))]
+        iters = 200 if nbytes < 1 << 20 else 20
+        fwd_plans, bwd_plans = norm_forced_plans(n, d, sms, need_ds)
+        todo = ([("fwd", p) for p in fwd_plans] if "fwd" in dirs else [])
+        todo += ([("bwd", p) for p in bwd_plans] if "bwd" in dirs or "bwd_dx" in dirs else [])
+        mine = {"fwd": TL._norm_fwd_plan(n, d, sms),
+                "bwd": TL._norm_bwd_plan(n, d, sms, sums=need_ds)}
+        for direction, plan in todo:
+            kf, kb, pf, _ = norm_calls(fam, eps, need_ds,
+                                       plan if direction == "fwd" else None,
+                                       plan if direction == "bwd" else None)
+            fn = kf if direction == "fwd" else kb
+            try:
+                out = fn(*sets[0])
+                torch.cuda.synchronize()
+            except RuntimeError as e:           # a plan the device refuses
+                log(f"[sweep] {fam}_{direction} {name:16s} {tuple(plan)} REFUSED: {e}")
+                rows.append(dict(kernel=f"{fam}_{direction}", case=name, plan=plan._asdict(),
+                                 refused=str(e), chosen=plan == mine[direction]))
+                continue
+            if direction == "fwd":
+                (err, ratio), = norm_errors(fam, need_ds, sets[0], (out[0], pf(*sets[0])[0]),
+                                            None)
+                split = {}
+            else:
+                (err, ratio), = norm_errors(fam, need_ds, sets[0], None, out)
+                split = {k: v for k, v in kernel_split_ms(torch, fn, sets, NORM_KERNELS).items()
+                         if v > 0}
+            ms = time_ms(torch, fn, sets, iters=iters)
+            chosen = plan == mine[direction]
+            rows.append(dict(kernel=f"{fam}_{direction}", case=name, shape=[n, d],
+                             plan=plan._asdict(), ms=ms, split_ms=split, err_over_tol=ratio,
+                             chosen=chosen))
+            log(f"[sweep] {fam}_{direction} {name:16s} [{n},{d}] {tuple(plan)} ms={ms:.4f} "
+                f"err/tol={ratio:.3f}"
+                + ("" if not split else " split " + " ".join(f"{k} {v:.4f}"
+                                                             for k, v in split.items()))
+                + ("  <- plan" if chosen else ""))
+        del sets
+        torch.cuda.empty_cache()
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "norm_sweep.json"), "w") as f:
+        json.dump(rows, f, indent=1)
+    bad = [r for r in rows if r.get("err_over_tol", 0.0) > 1.0 or
+           ("refused" in r and r["chosen"])]
+    return 0 if not bad else 1
 
 
 CE_SEED = 6
@@ -1266,7 +1503,9 @@ def fwd_digests(torch, dev, kernel):
     kernel of the tree whose `simlingo_tpu_torch` is imported, on phase
     2's inputs and timed calls: "flash_attn_fwd" at every attention case,
     "fused_ce_fwd" at the training shape, "int8_fwd" at the M = 1 cases
-    (the GEMV) with both scale dtypes, 200 calls a replay."""
+    (the GEMV) with both scale dtypes, 200 calls a replay; "norms" at
+    every norm case, "<case>_fwd" and "<case>_bwd" apart (200 calls a
+    replay below 1 MB of operands)."""
     digests, ms = {}, {}
     warm_up(torch, dev)
     if kernel == "int8_fwd":
@@ -1280,6 +1519,24 @@ def fwd_digests(torch, dev, kernel):
             # 200 calls a replay: these kernels are ~0.002-0.005 ms, and the
             # replay's own start costs a share of 20
             ms[case] = time_ms(torch, QM.int8_matmul, sets, iters=200)
+            del sets
+            torch.cuda.empty_cache()
+        return digests, ms
+    if kernel == "norms":
+        gen = torch.Generator(device=dev).manual_seed(5)
+        for fam, name, n, d, eps, dirs in norm_cases():
+            need_ds = "bwd" in dirs
+            make = norm_make(torch, dev, gen, fam, n, d, eps)
+            kf, kb, _, _ = norm_calls(fam, eps, need_ds)
+            args = make()
+            sets = [make() for _ in range(n_sets(3 * n * d * 2))]
+            iters = 200 if 3 * n * d * 2 < 1 << 20 else 20
+            for direction, fn in (("fwd", kf), ("bwd", kb)):
+                if not ((direction in dirs) or (direction == "bwd" and "bwd_dx" in dirs)):
+                    continue
+                digests[f"{name}_{direction}"] = {
+                    str(i): sha12(torch, t) for i, t in enumerate(fn(*args)) if t is not None}
+                ms[f"{name}_{direction}"] = time_ms(torch, fn, sets, iters=iters)
             del sets
             torch.cuda.empty_cache()
         return digests, ms
@@ -1311,7 +1568,8 @@ def fwd_digests(torch, dev, kernel):
 # (its loop keeps each row's order); none of the GEMV's, whose order of
 # the sum may change (its bits across calls are held in phase 2)
 MUST_EQUAL = {"fused_ce_fwd": ("train",),
-              "flash_attn_fwd": ("vit", "vit_train", "llm_prefill", "llm_train")}
+              "flash_attn_fwd": ("vit", "vit_train", "llm_prefill", "llm_train"),
+              "norms": tuple(f"{c[1]}_fwd" for c in norm_cases() if "fwd" in c[5])}
 
 
 def compare_fwd(parent, kernel) -> bool:
@@ -1455,9 +1713,11 @@ def small_model_agreement(torch, dev):
     return ok
 
 
-def full_width(torch, dev):
+def full_width(torch, dev, gated_pass=False):
     """The default LingoAgent at SimLingoConfig() width; returns (ok, stats,
-    the CoT agent, the frame)."""
+    the CoT agent, the frame). `gated_pass`: then the same agents again
+    with the norm gate on (`gated_serving`), its statistics under
+    stats["gated"]."""
     import numpy as np
     from simlingo_tpu_torch.agent.agent import AgentFrame, LingoAgent
     from simlingo_tpu_torch.agent.config import AgentConfig
@@ -1537,13 +1797,87 @@ def full_width(torch, dev):
     log(f"[full] plain generate: 1 token {t1:.2f} ms, {ntok} tokens {tn:.2f} ms "
         f"-> decode {decode_ms:.3f} ms/token")
     gen_profile = profile_generate(torch, agent, di, runner)
+    gated = None
+    if gated_pass:
+        good, gated = gated_serving(torch, agent, drive_agent, frame, results)
+        ok &= good
     stats = dict(frame_ms_cot_plain=results[0]["latency_s"] * 1e3,
                  frame_ms_cot_spec=cot_spec,
                  frame_ms_drive_only=results[-1]["latency_s"] * 1e3,
                  tokens_per_frame=[len(r.get("language_tokens", [])) for r in results[:-1]],
                  spec_stats=agent.spec_stats, decode_ms_per_token=decode_ms,
-                 generate_profile=gen_profile, launches=launches)
+                 generate_profile=gen_profile, launches=launches, gated=gated)
     return ok, stats, agent, frame
+
+
+# launches of the norm kernels a pass: the ViT's 24 x 2 LayerNorms and the
+# projector's; the LLM's 24 x 2 RMSNorms and the final one
+NORMS_PER_VIT_PASS = 49
+NORMS_PER_LLM_PASS = 49
+SERVE_GATE = {"SIMLINGO_LN_IMPL": "pallas"}
+
+
+def gated_serving(torch, agent, drive_agent, frame, ungated):
+    """The full-width agents of `full_width` again with SIMLINGO_LN_IMPL=
+    pallas set in the process environment (restored afterwards; the port
+    reads its gates at each call), from the state the ungated frames
+    started from (an empty draft corpus), so frame i is of the same kind:
+    frame ms by kind beside the ungated frames', the norm kernels'
+    launches a frame (NORMS_PER_VIT_PASS a frame; a multiple of
+    NORMS_PER_LLM_PASS), the tokens (equal to the ungated frames') and the
+    waypoints' max |diff| to the ungated frames' (at most 2 % of their max
+    |value|); then a profile of one gated speculative frame. Returns (ok,
+    statistics) with the launches of every kernel over the gated frames."""
+    import numpy as np
+    fns = kernel_fns()
+    norms = ("layernorm_fwd", "rmsnorm_fwd")
+    agent._spec_corpus, agent._draft_tables = [], None
+    ok, frames = True, []
+    with gates_set(SERVE_GATE):
+        for fn in fns.values():
+            fn.launches = 0
+        for i, ref in enumerate(ungated):
+            last = i == len(ungated) - 1
+            before = {k: fns[k].launches for k in norms}
+            r = (drive_agent if last else agent).run_step(frame)
+            n = {k: fns[k].launches - before[k] for k in norms}
+            kind = "drive_only" if last else "cot_plain" if i == 0 else "cot_spec"
+            scale = max(float(np.abs(ref["route"]).max()), float(np.abs(ref["speed_wps"]).max()))
+            diff = {w: float(np.abs(r[w] - ref[w]).max()) for w in ("route", "speed_wps")}
+            same_tokens = r.get("language_tokens", []) == ref.get("language_tokens", [])
+            good = (same_tokens and max(diff.values()) <= 0.02 * scale
+                    and n["layernorm_fwd"] == NORMS_PER_VIT_PASS
+                    and n["rmsnorm_fwd"] > 0 and n["rmsnorm_fwd"] % NORMS_PER_LLM_PASS == 0)
+            ok &= good
+            frames.append(dict(kind=kind, ms=r["latency_s"] * 1e3,
+                               ungated_ms=ref["latency_s"] * 1e3, launches=n,
+                               llm_passes=n["rmsnorm_fwd"] / NORMS_PER_LLM_PASS,
+                               tokens=len(r.get("language_tokens", [])),
+                               tokens_equal=same_tokens, max_abs_diff=diff,
+                               max_abs_ref=scale))
+            log(f"[gated] frame {i} {kind:10s} {r['latency_s'] * 1e3:9.2f} ms (ungated "
+                f"{ref['latency_s'] * 1e3:.2f})  launches layernorm_fwd "
+                f"{n['layernorm_fwd']} (expected {NORMS_PER_VIT_PASS}), rmsnorm_fwd "
+                f"{n['rmsnorm_fwd']} = {n['rmsnorm_fwd'] / NORMS_PER_LLM_PASS:g} LLM passes "
+                f"x {NORMS_PER_LLM_PASS}; tokens {len(r.get('language_tokens', []))} "
+                f"{'EQUAL' if same_tokens else 'DIFFERENT'} to the ungated frame's; "
+                f"route / speed max |diff| {diff['route']:.3e} / {diff['speed_wps']:.3e} "
+                f"(tol 0.02 x {scale:.3f}) {'OK' if good else 'FAIL'}")
+        launches = {k: fn.launches for k, fn in fns.items()}
+        profile = device_profile(torch, lambda: agent.run_step(frame),
+                                 "one gated speculative frame")
+    norm_ms = {k: profile["hand"].get(k, {"ms": 0.0, "count": 0})
+               for k in ("norm_fwd_kernel",)}
+    log(f"[gated] launches over the gated frames: {launches}")
+    log(f"[gated] the profiled gated speculative frame: norm_fwd_kernel "
+        f"{norm_ms['norm_fwd_kernel']['ms']:.4f} ms in {norm_ms['norm_fwd_kernel']['count']} "
+        f"launches; device busy {profile['device_busy_ms']:.2f} of {profile['wall_ms']:.2f} ms")
+    for name in norms:
+        if launches[name] <= 0:
+            log(f"[gated] FAIL: kernel {name} was not launched on the gated serving path")
+            ok = False
+    return ok, dict(frames=frames, launches=launches, profile=profile,
+                    spec_stats=agent.spec_stats[-len(ungated):])
 
 
 GEN_PROFILE_TOKENS = 11     # the profiled plain generate: 10 decode steps past the first token
@@ -1628,7 +1962,7 @@ def device_profile(torch, fn, what):
 HAND_KERNELS = ("flash_fwd_kernel", "flash_fwd_split_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel", "bwd_prep_kernel",
                 "dropout_kernel", "gemm_kernel", "gemm64_kernel", "gemv_kernel", "dx_kernel",
                 "dx_reduce_kernel",
-                "norm_fwd_kernel", "norm_bwd_kernel", "col_reduce_kernel", "ce_fwd_tile_kernel",
+                "norm_fwd_kernel", "norm_bwd_kernel", "norm_colsum_kernel", "ce_fwd_tile_kernel",
                 "ce_fwd_finalize_kernel", "ce_dlogits_kernel", "ce_dh_kernel",
                 "ce_dh_reduce_kernel", "ce_dw_kernel")
 
@@ -1686,11 +2020,12 @@ INT8_PER_STEP = {"int8_matmul": 24 * 7 + 5 * 2, "int8_matmul_dx": 24 * 7 + 5}
 
 
 class gates_set:
-    """Set the fused-kernel gates in the process environment (or leave
-    them unset) and restore the environment afterwards."""
+    """Set the fused-kernel gates in the process environment -- both
+    (on=True), those of a dict {name: value}, or none -- and restore the
+    environment afterwards."""
 
     def __init__(self, on):
-        self.env = GATES_ON if on else {}
+        self.env = GATES_ON if on is True else (on or {})
 
     def __enter__(self):
         self.saved = {k: os.environ.get(k) for k in GATES_ON}
@@ -1972,7 +2307,7 @@ def run_path_phases(torch, dev, cases) -> int:
             and small_training_agreement(torch, dev, gated=True)
             and small_training_agreement(torch, dev, int8_base=True)):
         return 1
-    ok, stats, agent, frame = full_width(torch, dev)
+    ok, stats, agent, frame = full_width(torch, dev, gated_pass=True)
     if not ok:
         return 1
     from simlingo_tpu_torch.kernels import quantized_matmul as QM
@@ -2001,7 +2336,8 @@ def run_path_phases(torch, dev, cases) -> int:
                      ("train_int8", int8_stats)):
         with open(os.path.join(ROOT, "chiprun_out", f"chip_smoke_{name}.json"), "w") as f:
             json.dump(dict(st, nvidia_smi=smi), f, indent=1)
-    launches = {"serve": stats["launches"], "train": train_stats["launches"],
+    launches = {"serve": stats["launches"], "serve_gated": stats["gated"]["launches"],
+                "train": train_stats["launches"],
                 "train_gated": gated_stats["launches"], "train_int8": int8_stats["launches"]}
     print(json.dumps(kernel_line(cases, launches)), flush=True)
     print(smi, flush=True)
@@ -2032,6 +2368,8 @@ def main() -> int:
                     help="build, then time the fused CE backward at forced segment counts")
     ap.add_argument("--attn-sweep", action="store_true",
                     help="build, then time the attention forward at forced plans")
+    ap.add_argument("--norm-sweep", action="store_true",
+                    help="build, then time the norm kernels at forced plans")
     ap.add_argument("--parent", metavar="DIR",
                     help="also hold the fused CE forward's and the tiled attention "
                          "forward's bits equal to those of the source tree at DIR (e.g. "
@@ -2058,6 +2396,8 @@ def main() -> int:
         return ce_sweep(torch, dev)
     if args.attn_sweep:
         return attn_sweep(torch, dev)
+    if args.norm_sweep:
+        return norm_sweep(torch, dev)
 
     # 2. kernels
     cases = []
@@ -2074,7 +2414,7 @@ def main() -> int:
     if args.parent:
         checked = set(args.kernels or KERNEL_CHECKS)
         for check, kernel in (("fused_ce", "fused_ce_fwd"), ("flash_attn_fwd", "flash_attn_fwd"),
-                              ("int8_matmul", "int8_fwd")):
+                              ("int8_matmul", "int8_fwd"), ("norms", "norms")):
             if check in checked and not compare_fwd(args.parent, kernel):
                 return 1
     if args.kernels is not None:

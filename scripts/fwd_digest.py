@@ -7,7 +7,8 @@ the chip_smoke.py beside this script (`fwd_digests`), and prints one line
 `FWD_DIGEST <kernel> <tree> {"digests": {case: {output: sha12}}, "ms":
 {case: ms}, "build": the directory of the tree's built libraries}`. Two trees whose digests agree on one card compute the same
 bits. KERNEL is flash_attn_fwd (every attention case), fused_ce_fwd
-(the training shape) or int8_fwd (the int8 GEMV's M = 1 cases). The tree
+(the training shape), int8_fwd (the int8 GEMV's M = 1 cases) or norms
+(every phase-2 norm case, forward and backward apart). The tree
 is the current directory:
 
     git archive <parent> | tar -x -C build/parent

@@ -19,12 +19,16 @@ skipped; JAX always computes it, and the trainable results are the same.
 
 Each of the four wrappers launches its kernel in `csrc/layernorm.cu` on a
 CUDA tensor (bf16 x, scale and bias in bf16 or fp32, d % 8 == 0, d <= 8192;
-anything else raises) and runs its plain version on a CPU tensor.
+anything else raises) and runs its plain version on a CPU tensor. The
+launches follow `_norm_fwd_plan` (block size, and the scale loaded early
+at few rows) and `_norm_bwd_plan` (a persistent grid whose partial column
+sums a second launch adds), mirrored by the .cu file's constants.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -99,17 +103,77 @@ def _check(what, x2, scale, bias=None):
                              f"{x2.device}, got {tuple(p.shape)} {p.dtype} {p.device}")
 
 
-def _rows_per_block(d: int) -> int:
-    """Rows a 256-thread block handles at once (csrc/layernorm.cu's table:
-    one warp a row up to d = 1024, then 2, 4, 8 warps)."""
-    return max(1, 8 // max(1, -(-d // 1024)))
+# The geometry of csrc/layernorm.cu that the plans assume; `_lib` refuses
+# a library that reports another (simlingo_norm_geometry).
+_THREADS = 256                   # the backward's block, the forward's largest
+_BWD_BLOCKS_PER_SM = 2           # co-resident backward blocks an SM
+_BWD_WIDE_BLOCKS_PER_SM = 1      # ... with sums at VPT 4
+_FWD_BLOCKS_PER_SM = 64          # the forward's grid cap an SM (grid-stride beyond)
+_FWD_MIN_THREADS = 64            # the forward's block at few rows
+_FWD_FEW_ROWS_PER_SM = 8         # ... and its scale loaded early, up to this
+
+
+def _geometry():
+    """The tuple simlingo_norm_geometry must report."""
+    return (_THREADS, _BWD_BLOCKS_PER_SM, _BWD_WIDE_BLOCKS_PER_SM, _FWD_BLOCKS_PER_SM, MAX_D)
+
+
+def _norm_width(d: int):
+    """(VPT, WPR): 8-value vectors a thread and warps a row, by row width
+    (csrc/layernorm.cu's dispatch: one warp a row up to d = 1024, then 2,
+    4, 8 warps)."""
+    nv = d // 8
+    for limit, vpt, wpr in ((32, 1, 1), (64, 2, 1), (128, 4, 1), (256, 4, 2),
+                            (512, 4, 4), (1024, 4, 8)):
+        if nv <= limit:
+            return vpt, wpr
+    raise ValueError(f"norm kernels take d <= {MAX_D}, got {d}")
+
+
+class NormFwdPlan(NamedTuple):
+    threads: int      # a block: threads // (32 WPR) rows at a time
+    blocks: int       # grid-stride over the rows beyond blocks x rows
+    early: bool       # the scale loaded before the first row, not after each row's sums
+
+
+class NormBwdPlan(NamedTuple):
+    blocks: int       # at most the co-resident ones; partial rows of the column sums
+
+
+def _norm_fwd_plan(n: int, d: int, sms: int) -> NormFwdPlan:
+    """Few rows (at most _FWD_FEW_ROWS_PER_SM an SM) are latency: the scale
+    loaded early, and small blocks (one row group, at least
+    _FWD_MIN_THREADS threads) that spread the rows over the SMs. Many rows
+    are bytes: the scale after each row's sums, at the registers and in
+    the 256-thread blocks of the design before the plan. Blocks enough for
+    every row, capped at _FWD_BLOCKS_PER_SM an SM (they then walk the
+    rows)."""
+    tpr = 32 * _norm_width(d)[1]
+    few = n <= _FWD_FEW_ROWS_PER_SM * sms
+    threads = max(_FWD_MIN_THREADS, tpr) if few else _THREADS
+    return NormFwdPlan(threads, min(-(-n // (threads // tpr)), _FWD_BLOCKS_PER_SM * sms), few)
+
+
+def _bwd_resident(d: int, sums: bool) -> int:
+    """Co-resident backward blocks an SM (csrc/layernorm.cu bwd_min_blocks,
+    the kernel's __launch_bounds__)."""
+    wide = sums and _norm_width(d)[0] == 4
+    return _BWD_WIDE_BLOCKS_PER_SM if wide else _BWD_BLOCKS_PER_SM
+
+
+def _norm_bwd_plan(n: int, d: int, sms: int, sums: bool = True) -> NormBwdPlan:
+    """A persistent grid: as many 256-thread blocks as the rows fill, at
+    most the co-resident ones. With sums and more than one block,
+    norm_colsum_kernel follows."""
+    rpb = _THREADS // (32 * _norm_width(d)[1])
+    return NormBwdPlan(min(-(-n // rpb), _bwd_resident(d, sums) * sms))
 
 
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _fwd_cuda(what, x2, scale, bias, eps, rms):
+def _fwd_cuda(what, x2, scale, bias, eps, rms, plan=None):
     _check(what, x2, scale, bias)
     x2, scale = _build.aligned16(x2), _build.aligned16(scale)
     bias = None if bias is None else _build.aligned16(bias)
@@ -119,16 +183,18 @@ def _fwd_cuda(what, x2, scale, bias, eps, rms):
     rstd = torch.empty(n, dtype=torch.float32, device=x2.device)
     if n == 0:
         return y, mean, rstd
+    plan = plan or _norm_fwd_plan(n, d, _build.sm_count(x2.device.index or 0))
     rc = _lib().simlingo_norm_fwd(
         x2.data_ptr(), scale.data_ptr(), None if bias is None else bias.data_ptr(),
         y.data_ptr(), None if mean is None else mean.data_ptr(), rstd.data_ptr(),
         n, d, ctypes.c_float(float(eps)), int(rms),
-        int(scale.dtype == torch.bfloat16), _stream(x2))
+        int(scale.dtype == torch.bfloat16), plan.threads, plan.blocks, int(plan.early),
+        _stream(x2))
     _build.check(rc, what)
     return y, mean, rstd
 
 
-def _bwd_cuda(what, x2, scale, mean, rstd, dy2, need_dscale, need_dbias, rms):
+def _bwd_cuda(what, x2, scale, mean, rstd, dy2, need_dscale, need_dbias, rms, plan=None):
     _check(what, x2, scale)
     if dy2.dtype != torch.bfloat16 or dy2.shape != x2.shape:
         raise ValueError(f"{what}: dy must be bf16 {tuple(x2.shape)}, got "
@@ -144,17 +210,20 @@ def _bwd_cuda(what, x2, scale, mean, rstd, dy2, need_dscale, need_dbias, rms):
     dbias = make(d, dtype=scale.dtype, device=dev) if need_dbias else None
     if n == 0:
         return dx, dscale, dbias
-    rpb = _rows_per_block(d)
-    grid = max(1, min(-(-n // rpb), 2 * _build.sm_count(dev.index or 0)))
-    part_s = torch.empty((grid, d), dtype=torch.float32, device=dev) if need_dscale else None
-    part_b = torch.empty((grid, d), dtype=torch.float32, device=dev) if need_dbias else None
+    plan = plan or _norm_bwd_plan(n, d, _build.sm_count(dev.index or 0),
+                                  sums=need_dscale or need_dbias)
+    part_s = (torch.empty((plan.blocks, d), dtype=torch.float32, device=dev)
+              if need_dscale else None)
+    part_b = (torch.empty((plan.blocks, d), dtype=torch.float32, device=dev)
+              if need_dbias else None)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
     rc = _lib().simlingo_norm_bwd(
         x2.data_ptr(), dy2.data_ptr(), scale.data_ptr(), ptr(mean), rstd.data_ptr(),
         dx.data_ptr(), ptr(part_s), ptr(part_b), ptr(dscale), ptr(dbias),
-        n, d, grid, int(rms), int(scale.dtype == torch.bfloat16), _stream(x2))
+        n, d, plan.blocks, int(rms),
+        int(scale.dtype == torch.bfloat16), _stream(x2))
     _build.check(rc, what)
     return dx, dscale, dbias
 
@@ -204,9 +273,14 @@ for _fn in (layernorm_fwd, rmsnorm_fwd, layernorm_bwd, rmsnorm_bwd):
 def _lib():
     lib = _build.load("layernorm")
     if lib.simlingo_norm_fwd.argtypes is None:
+        geometry = (ctypes.c_int * 5)()
+        lib.simlingo_norm_geometry(geometry)
+        if tuple(geometry) != _geometry():
+            raise RuntimeError(f"norm kernels: the library's geometry {tuple(geometry)} "
+                               f"differs from the plans' {_geometry()}")
         lib.simlingo_norm_fwd.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_float]
-            + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.simlingo_norm_fwd.restype = ctypes.c_int
         lib.simlingo_norm_bwd.argtypes = (
             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p])

@@ -515,6 +515,140 @@ def test_norm_kernels_match_plain(gpu, n, d, scale_dtype):
                                  TLN.rmsnorm_bwd)] == [c + k for c, k in zip(counts, (1, 1, 1, 2))]
 
 
+def _norm_case(gpu, n, d, seed=7):
+    g = torch.Generator(device=gpu).manual_seed(seed)
+    x = (3 * torch.randn(n, d, generator=g, device=gpu) + 0.5).bfloat16()
+    dy = torch.randn(n, d, generator=g, device=gpu).bfloat16()
+    scale = (torch.randn(d, generator=g, device=gpu) + 1).bfloat16()
+    bias = torch.randn(d, generator=g, device=gpu).bfloat16()
+    return x, dy, scale, bias
+
+
+def _norm_bwd_within(got, x, dy, scale, mean, rstd, rms):
+    """The backward's outputs against the plain version (the tolerances of
+    test_norm_kernels_match_plain)."""
+    if rms:
+        ref = TLN.rmsnorm_bwd_plain(x, scale, rstd, dy, got[1] is not None)
+        xhat = x.float() * rstd[:, None]
+    else:
+        ref = TLN.layernorm_bwd_plain(x, scale, mean, rstd, dy, got[1] is not None,
+                                      got[2] is not None)
+        xhat = (x.float() - mean[:, None]) * rstd[:, None]
+    _within(got[0], ref[0], _bf16_spacing_tol(ref[0]), "dx")
+    terms = ((dy.float() * xhat).abs().sum(0), dy.float().abs().sum(0))
+    for a, b, t, name in zip(got[1:], ref[1:], terms, ("dscale", "dbias")):
+        assert (a is None) == (b is None), name
+        if a is not None:
+            _within(a, b, 2.0 ** -7 * b.float().abs() + 1e-5 * t, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(4788, 896), (12300, 1024), (3072, 4096), (640, 896),
+                                 (1, 896), (2050, 1024), (777, 8192)])
+def test_norm_backward_is_bit_identical_across_calls(gpu, n, d):
+    """No atomics: both modes give the same bits call after call."""
+    x, dy, scale, bias = _norm_case(gpu, n, d)
+    _, mean, rstd = TLN.layernorm_fwd_plain(x, scale, bias, 1e-6)
+    _, rrstd = TLN.rmsnorm_fwd_plain(x, scale, 1e-6)
+    for call in (lambda: TLN.layernorm_bwd(x, scale, mean, rstd, dy),
+                 lambda: TLN.rmsnorm_bwd(x, scale, rrstd, dy),
+                 lambda: TLN.rmsnorm_bwd(x, scale, rrstd, dy, need_dscale=False)):
+        a, b = call(), call()
+        assert all((u is None and v is None) or torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 13, 300])
+def test_norm_kernels_at_the_widest_row(gpu, n):
+    """d = 8192: eight warps a row; the backward's shared memory (two
+    [1, 8192] fp32 slots) is above the 48 KB default."""
+    x, dy, scale, bias = _norm_case(gpu, n, 8192)
+    y, mean, rstd = TLN.layernorm_fwd(x, scale, bias, 1e-6)
+    ry, rmean, rrstd = TLN.layernorm_fwd_plain(x, scale, bias, 1e-6)
+    _within(y, ry, _bf16_spacing_tol(ry), "ln y")
+    _norm_bwd_within(TLN.layernorm_bwd(x, scale, rmean, rrstd, dy), x, dy, scale, rmean,
+                     rrstd, rms=False)
+    y, rstd = TLN.rmsnorm_fwd(x, scale, 1e-6)
+    ry, rrstd = TLN.rmsnorm_fwd_plain(x, scale, 1e-6)
+    _within(y, ry, _bf16_spacing_tol(ry), "rms y")
+    _norm_bwd_within(TLN.rmsnorm_bwd(x, scale, rrstd, dy), x, dy, scale, None, rrstd,
+                     rms=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(4789, 896), (12301, 1024), (3071, 4096), (641, 896),
+                                 (2051, 1024), (513, 4096), (17, 896), (31, 896)])
+def test_norm_kernels_at_rows_off_the_plans_multiple(gpu, n, d):
+    """Rows that are no multiple of a block's rows or of the persistent
+    grid's: the last rows of the walk, in both modes and both directions."""
+    x, dy, scale, bias = _norm_case(gpu, n, d)
+    y, mean, rstd = TLN.layernorm_fwd(x, scale, bias, 1e-6)
+    ry, rmean, rrstd = TLN.layernorm_fwd_plain(x, scale, bias, 1e-6)
+    _within(y, ry, _bf16_spacing_tol(ry), "ln y")
+    _norm_bwd_within(TLN.layernorm_bwd(x, scale, rmean, rrstd, dy), x, dy, scale, rmean,
+                     rrstd, rms=False)
+    y, rstd = TLN.rmsnorm_fwd(x, scale, 1e-6)
+    ry, rrstd = TLN.rmsnorm_fwd_plain(x, scale, 1e-6)
+    _within(y, ry, _bf16_spacing_tol(ry), "rms y")
+    for need in (True, False):
+        _norm_bwd_within(TLN.rmsnorm_bwd(x, scale, rrstd, dy, need_dscale=need), x, dy,
+                         scale, None, rrstd, rms=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(4788, 896), (640, 896), (1, 896), (12300, 1024),
+                                 (3072, 4096)])
+def test_norm_backward_frozen_and_summed_modes_agree(gpu, n, d):
+    """The frozen scale's dx-only launch gives the dx of the launch with
+    sums, bit for bit; the LayerNorm's gradients one at a time equal
+    those of both together."""
+    x, dy, scale, bias = _norm_case(gpu, n, d)
+    _, rrstd = TLN.rmsnorm_fwd_plain(x, scale, 1e-6)
+    dx, dscale = TLN.rmsnorm_bwd(x, scale, rrstd, dy)
+    frozen = TLN.rmsnorm_bwd(x, scale, rrstd, dy, need_dscale=False)
+    assert frozen[1] is None and torch.equal(frozen[0], dx)
+    _norm_bwd_within((dx, dscale), x, dy, scale, None, rrstd, rms=True)
+    _, mean, rstd = TLN.layernorm_fwd_plain(x, scale, bias, 1e-6)
+    both = TLN.layernorm_bwd(x, scale, mean, rstd, dy)
+    _norm_bwd_within(both, x, dy, scale, mean, rstd, rms=False)
+    only_s = TLN.layernorm_bwd(x, scale, mean, rstd, dy, need_dbias=False)
+    only_b = TLN.layernorm_bwd(x, scale, mean, rstd, dy, need_dscale=False)
+    none = TLN.layernorm_bwd(x, scale, mean, rstd, dy, need_dscale=False, need_dbias=False)
+    assert only_s[2] is None and torch.equal(only_s[1], both[1])
+    assert only_b[1] is None and torch.equal(only_b[2], both[2])
+    assert none[1] is None and none[2] is None
+    for got in (only_s, only_b, none):
+        assert torch.equal(got[0], both[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(4788, 896), (12300, 1024), (640, 896)])
+def test_norm_backward_replays_in_a_cuda_graph(gpu, n, d):
+    """A captured CUDA graph of the backward, replayed twice, gives the
+    eager call's bits: the column sums' launch needs no reset between
+    replays."""
+    x, dy, scale, bias = _norm_case(gpu, n, d)
+    _, mean, rstd = TLN.layernorm_fwd_plain(x, scale, bias, 1e-6)
+    _, rrstd = TLN.rmsnorm_fwd_plain(x, scale, 1e-6)
+    calls = (lambda: TLN.layernorm_bwd(x, scale, mean, rstd, dy),
+             lambda: TLN.rmsnorm_bwd(x, scale, rrstd, dy),
+             lambda: TLN.rmsnorm_bwd(x, scale, rrstd, dy, need_dscale=False))
+    for call in calls:
+        eager = call()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call()
+        for _ in range(2):
+            for t in out:
+                if t is not None:
+                    t.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert all((u is None and v is None) or torch.equal(u, v)
+                       for u, v in zip(out, eager))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,H,V", [(100, 128, 1111), (960, 896, 5003), (7, 64, 300),
                                    (130, 896, 40961)])
