@@ -19,7 +19,9 @@
 Phases, in order; any failure exits non-zero:
   1. build: compile csrc/*.cu with nvcc (all in parallel), print seconds;
   2. kernels: every hand-written kernel at every shape the serving and the
-     training paths give it, against its plain PyTorch version on the same
+     training paths give it (SimLingo-Base's too: attention `clip`
+     [32,577,16,64] and `base_llm` [16,333,8,64] causal, LayerNorm
+     [18464,1024], RMSNorm [5328,512] with dscale), against its plain PyTorch version on the same
      bf16 inputs (fp32 math) at |err| <= ATOL + RTOL |ref| (the attention
      forward also with its lse, bit-identical across two calls, its path
      -- tiled or split, the splits -- its kernel's ptxas registers and
@@ -58,6 +60,8 @@ Phases, in order; any failure exits non-zero:
      2e-2, grad norm to 5e-2 relative), then that step again with both
      fused-kernel gates on (SIMLINGO_CE_IMPL=pallas, SIMLINGO_LN_IMPL=pallas),
      and again on an int8 base LLM (which must launch int8_matmul_dx);
+     then a small head_dim-64 SimLingo-Base (`small_base_cfg`): its
+     waypoints and one two-group training step, GPU bf16 vs CPU fp32;
   4. full width, serving: the default LingoAgent (CoT, int8 LLM,
      speculative) on SimLingoConfig() with seeded random bf16 weights,
      FRAMES frames on a seeded 1024x512 frame, then one use_cot=False
@@ -83,12 +87,23 @@ Phases, in order; any failure exits non-zero:
      base LLM quantized to int8 (`bench.py` BENCH_INT8_BASE=1), which must
      launch int8_matmul and int8_matmul_dx (counts logged against
      INT8_PER_STEP), its losses beside the bf16 base's (information only);
-  6. the {"kernels": [...]} line (eleven kernels, launches per path: serve,
-     serve_gated, train, train_gated, train_int8), the nvidia-smi line, and the last
-     line {"ok": true, "device": {...}}.
+  6. SimLingo-Base at full width (SimLingoBaseConfig(): CLIP ViT-L/14-336,
+     LLaVA-NeXT features, the tiny LLaMA; seed 0): one counted forward at
+     batch 16 (flash_attn_fwd 35 launches), BASE_FWD_ITERS timed forwards
+     at batch 1 and at batch 16 and one profiled; then train_base_torch's
+     trainer on presets.simlingo_base() (batch 16): 1 warm-up step and
+     TRAIN_STEPS timed steps, launches counted over them against
+     BASE_PER_STEP exactly, peak memory, a profiled step; then the same
+     with SIMLINGO_LN_IMPL=pallas (BASE_GATED_PER_STEP), the losses side
+     by side within 2e-2;
+  7. the {"kernels": [...]} line (eleven kernels, launches per path: serve,
+     serve_gated, train, train_gated, train_int8, base_fwd, base_train,
+     base_train_gated), the nvidia-smi line, and the last line {"ok":
+     true, "device": {...}}.
 Per-case results also go to chiprun_out/chip_smoke_cases.json, the paths'
 statistics to chip_smoke_agent.json, chip_smoke_train.json,
-chip_smoke_train_gated.json and chip_smoke_train_int8.json.
+chip_smoke_train_gated.json, chip_smoke_train_int8.json and
+chip_smoke_base_{fwd,train,train_gated}.json.
 """
 
 from __future__ import annotations
@@ -314,6 +329,13 @@ def attention_cases():
     ]
 
 
+# SimLingo-Base at batch 16 (training; group 1, no key mask): the CLIP
+# tower's 2 tiles a sample, 577 tokens (24 x 24 patches + CLS), and the
+# tiny LLaMA's 300 + 1 + 2 + 30 = 333 tokens, causal
+BASE_ATTENTION = [("clip", 32, 577, 577, 16, 16, False, None, None, False),
+                  ("base_llm", 16, 333, 333, 8, 8, True, None, None, False)]
+
+
 def train_llm_valid(torch, dev):
     """kv_valid of the full-width training batch: [text | 30 queries] of
     synthetic_example(batch 6, seq_len 768, 2 tiles, seed 0)."""
@@ -347,7 +369,7 @@ def attention_inputs(torch, dev):
     D = 64
     cases = attention_cases() + [
         ("llm_train", 6, 798, 798, 14, 2, True, None, "train", False),
-        ("vit_train", 12, 1025, 1025, 16, 16, False, None, None, True)]
+        ("vit_train", 12, 1025, 1025, 16, 16, False, None, None, True)] + BASE_ATTENTION
     train_valid = train_llm_valid(torch, dev)
     for case in cases:
         B, T, S, HQ, HK, _, _, ranges, strided = case[1:]
@@ -418,6 +440,12 @@ def run_attention_checks(torch, dev, results):
         # visible (row, key) pairs: the work this data needs
         pairs, empty_rows, mask = visible_pairs(torch, dev, B, T, S, causal,
                                                 q_off, valid)
+        # the row nearest its bound, and how many keys it sees
+        slack = ((out.float() - ref).abs() - ATOL["flash_attn_fwd"]
+                 - RTOL * ref.abs()).amax(-1)                        # [B, T, HQ]
+        wb, wt = divmod(int(slack.amax(-1).argmax()), T)
+        worst_keys, worst_slack = int(mask[wb, wt].sum()), float(slack.max())
+        del slack
         flops = 4 * D * pairs * HQ
         bms, bby = bound(attention_bytes(case), flops)
         kernel = attention_call(FA, case)
@@ -436,7 +464,8 @@ def run_attention_checks(torch, dev, results):
                    shape=f"q[{B},{T},{HQ},{D}] kv[{B},{S},{HK},{D}]",
                    causal=causal, q_offset=q_off, empty_rows=empty_rows,
                    max_abs_err=err, err_over_rms=rel, lse_err=lse_err, ok=ok,
-                   bit_identical=same, path=plan.path,
+                   bit_identical=same, worst_row_keys=worst_keys,
+                   worst_slack=worst_slack, path=plan.path,
                    splits=plan.splits, tiles_per_split=plan.tiles_per_split,
                    grid=plan.grid, registers=regs[0], spill_bytes=regs[1],
                    sha_out=sha12(torch, out), sha_lse=sha12(torch, lse),
@@ -448,6 +477,7 @@ def run_attention_checks(torch, dev, results):
             f"err={err:.3e} err/rms={rel:.3e} (atol {ATOL['flash_attn_fwd']} "
             f"rtol {RTOL}) lse_err={lse_err:.2e} {'OK' if ok else 'FAIL'} "
             f"bit-identical across calls={same} empty_rows={empty_rows} "
+            f"worst row: {worst_keys} keys, |err| - tol {worst_slack:.2e} "
             f"kernel_ms={kernel_ms:.4f} "
             f"launch_ms={launch_ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
@@ -619,7 +649,8 @@ def run_int8_dx_checks(torch, dev, results):
 
 
 def run_attention_bwd_checks(torch, dev, results):
-    """flash_attn_bwd at the two training shapes, against
+    """flash_attn_bwd at the four training shapes (the LoRA step's LLM and
+    ViT, SimLingo-Base's CLIP and LLaMA), against
     attention_bwd_reference on the same bf16 inputs (and the kernel
     forward's o and lse), and pass by pass against attention_ds_reference
     and attention_dq_from_ds_reference; bit-identical across two calls;
@@ -635,8 +666,9 @@ def run_attention_bwd_checks(torch, dev, results):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, B, T, HQ, HK, causal, strided in (
             ("llm_train", 6, 798, 14, 2, True, False),
-            ("vit_train", 12, 1025, 16, 16, False, True)):
-        valid = train_valid if causal else None
+            ("vit_train", 12, 1025, 16, 16, False, True),
+            *((c[0], c[1], c[2], c[4], c[5], c[6], c[9]) for c in BASE_ATTENTION)):
+        valid = train_valid if name == "llm_train" else None
 
         def make():
             if strided:
@@ -805,8 +837,11 @@ def norm_cases():
     """(kernel family, case, rows, d, eps, directions): the ViT's 48
     LayerNorms and the projector's and the LLM's 49 RMSNorms in training
     (the LLM's also as the gated step runs them: a frozen scale, dx only),
-    and the serving rows: the ViT's 2 tiles x 1025 and the projector's
-    2 x 256, the LLM's decode 1, verify 16, queries 30 and prefill 640."""
+    SimLingo-Base's in training (CLIP's 47 LayerNorms over 32 x 577 rows,
+    the tiny LLaMA's 25 RMSNorms over 16 x 333 rows at d = 512, every
+    scale trained), and the serving rows: the ViT's 2 tiles x 1025 and the
+    projector's 2 x 256, the LLM's decode 1, verify 16, queries 30 and
+    prefill 640."""
     both, fwd, dx_only = ("fwd", "bwd"), ("fwd",), ("bwd_dx",)
     return [("layernorm", "vit", 12 * 1025, 1024, 1e-6, both),
             ("layernorm", "projector", 12 * 256, 4096, 1e-5, both),
@@ -814,6 +849,8 @@ def norm_cases():
             ("rmsnorm", "llm_train_frozen", 6 * 798, 896, 1e-6, dx_only),
             ("rmsnorm", "serve_decode", 1, 896, 1e-6, both),
             ("rmsnorm", "serve_prefill", 640, 896, 1e-6, both),
+            ("layernorm", "clip", 32 * 577, 1024, 1e-5, both),
+            ("rmsnorm", "base_llm", 16 * 333, 512, 1e-6, both),
             ("layernorm", "serve_vit", 2 * 1025, 1024, 1e-6, fwd),
             ("layernorm", "serve_projector", 2 * 256, 4096, 1e-5, fwd),
             ("rmsnorm", "serve_verify", 16, 896, 1e-6, fwd),
@@ -1568,7 +1605,8 @@ def fwd_digests(torch, dev, kernel):
 # (its loop keeps each row's order); none of the GEMV's, whose order of
 # the sum may change (its bits across calls are held in phase 2)
 MUST_EQUAL = {"fused_ce_fwd": ("train",),
-              "flash_attn_fwd": ("vit", "vit_train", "llm_prefill", "llm_train"),
+              "flash_attn_fwd": ("vit", "vit_train", "llm_prefill", "llm_train", "clip",
+                                 "base_llm"),
               "norms": tuple(f"{c[1]}_fwd" for c in norm_cases() if "fwd" in c[5])}
 
 
@@ -2252,18 +2290,272 @@ def compare_int8_base(plain, int8):
     log_side_by_side("[train_int8_ab]", "int8 base", plain, int8)
 
 
+# ---------------------------------------------------------------------------
+# Phases 3 and 6: SimLingo-Base (CarLLaVA)
+# ---------------------------------------------------------------------------
+
+# launches of a base forward: CLIP's 23 attention layers (24 + feature
+# layer -2 + 1) and the tiny LLaMA's 12; a training step the same forward
+# and backward, and gated (SIMLINGO_LN_IMPL=pallas) CLIP's pre-LN and
+# 2 x 23 LayerNorms and the LLaMA's 2 x 12 RMSNorms and its final one,
+# forward and backward (every scale trains)
+BASE_PER_FORWARD = {"flash_attn_fwd": 23 + 12}
+BASE_PER_STEP = {"flash_attn_fwd": 35, "flash_attn_bwd": 35}
+BASE_GATED_PER_STEP = dict(BASE_PER_STEP, layernorm_fwd=47, layernorm_bwd=47,
+                           rmsnorm_fwd=25, rmsnorm_bwd=25)
+BASE_GATE = {"SIMLINGO_LN_IMPL": "pallas"}
+BASE_FWD_ITERS = 3          # timed forwards at each batch size (after 1 warm-up)
+
+
+def small_base_cfg():
+    """SimLingo-Base at the kernels' head_dim 64 (the JAX tiny() has 16,
+    which they refuse): CLIP 128 wide, 2 heads, 3 layers (2 run) on
+    112-pixel tiles (65 tokens: a 1-row last tile, as 577), the LLaMA 128
+    wide, 2 heads, 2 layers (36 + 3 + 30 = 69 tokens: a 5-row last tile)."""
+    import dataclasses
+    from simlingo_tpu_torch.models import llama
+    from simlingo_tpu_torch.models.clip_vit import CLIPViTConfig
+    from simlingo_tpu_torch.models.simlingo_base import SimLingoBaseConfig
+    llm = dataclasses.replace(llama.llama_config("debug"), hidden_size=128, num_heads=2,
+                              num_kv_heads=2, head_dim=64, intermediate_size=256)
+    return SimLingoBaseConfig(clip=CLIPViTConfig(hidden_size=128, num_layers=3, num_heads=2,
+                                                 intermediate_size=256, image_size=112,
+                                                 patch_size=14, projector_hidden=256,
+                                                 projector_out=256),
+                              llm_config=llm)
+
+
+def small_base_agreement(torch, dev):
+    """`small_base_cfg` from one seed: the forward's waypoints on the GPU
+    (bf16, kernels) against the CPU plain path (fp32), then one base
+    training step on each (losses to 2e-2 relative, each group's grad norm
+    to 5e-2), which must launch both attention kernels."""
+    import copy
+    import numpy as np
+    from simlingo_tpu_torch.data.synthetic import base_batch
+    from simlingo_tpu_torch.models import simlingo_base
+    from simlingo_tpu_torch.train import base_step
+    from simlingo_tpu_torch.train import train_step as ts
+    cfg = small_base_cfg()
+    params = simlingo_base.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = base_batch(np.random.RandomState(1), 2, cfg.clip.image_size, device="cpu")
+    outs = []
+    with torch.no_grad():
+        for device, dtype in (("cpu", torch.float32), (dev, torch.bfloat16)):
+            p = ts.cast_for_compute(_to(params, device), dtype)
+            outs.append(simlingo_base.forward(p, *(x.to(device) for x in batch[:3]), cfg))
+    ref, got = ({k: v.float().cpu().numpy() for k, v in o.items()} for o in outs)
+    scale = max(float(np.abs(ref[k]).max()) for k in ref)
+    err = max(float(np.abs(got[k] - ref[k]).max()) for k in ref)
+    ok = err <= 0.05 * scale and all(np.isfinite(got[k]).all() for k in got)
+    log(f"[small] base forward waypoints GPU bf16 vs CPU fp32: max err {err:.3e} "
+        f"(tol 0.05 x max|ref| = {0.05 * scale:.3e}) {'OK' if ok else 'FAIL'}")
+    opt = ts.OptimizerConfig(lr=1e-4, total_steps=10, grad_clip=1.0)
+    fns = kernel_fns()
+    metrics = {}
+    for device, dtype in (("cpu", torch.float32), (dev, torch.bfloat16)):
+        state = base_step.init_base_state(_to(copy.deepcopy(params), device), opt)
+        step = base_step.make_base_train_step(cfg, opt, compute_dtype=dtype)
+        before = {k: fns[k].launches for k in BASE_PER_STEP}
+        metrics[str(device)] = {k: float(v) for k, v in
+                                step(state, [x.to(device) for x in batch]).items()}
+    new = {k: fns[k].launches - before[k] for k in BASE_PER_STEP}
+    cpu, gpu = metrics["cpu"], metrics[str(dev)]
+    for key, want in cpu.items():
+        tol = 5e-2 if key.startswith("grad_norm") else 2e-2
+        good = abs(gpu[key] - want) <= tol * abs(want)
+        ok &= good
+        log(f"[small] base train_step {key:17s} GPU bf16 {gpu[key]:.6f} vs CPU fp32 "
+            f"{want:.6f} (rel tol {tol}) {'OK' if good else 'FAIL'}")
+    good = all(new[k] == 4 for k in new)       # the CLIP's 2 layers and the LLaMA's 2
+    ok &= good
+    log(f"[small] base train_step attention launches on the GPU {new} (expected 4 each) "
+        f"{'OK' if good else 'FAIL'}")
+    return ok
+
+
+def _check_launches(tag, launches, per_unit, units, what):
+    """Launch counts against per_unit x units, exactly; logs each."""
+    ok = True
+    for name, per in per_unit.items():
+        want = per * units
+        good = launches.get(name, 0) == want
+        ok &= good
+        log(f"{tag} {name}: {launches.get(name, 0)} launches, expected {per} {what} x "
+            f"{units} = {want} {'OK' if good else 'FAIL'}")
+    return ok
+
+
+def base_forward(torch, dev):
+    """The base model's `forward` at full width (SimLingoBaseConfig(): CLIP
+    ViT-L/14-336, LLaVA-NeXT features, the tiny LLaMA) from seed-0 fp32
+    weights in a bf16 compute copy: one counted forward at batch 16, then
+    BASE_FWD_ITERS timed forwards at batch 1 (one frame, two 336 tiles)
+    and at batch 16."""
+    import numpy as np
+    from simlingo_tpu_torch.data.synthetic import base_batch
+    from simlingo_tpu_torch.models import simlingo_base
+    from simlingo_tpu_torch.models.simlingo_base import SimLingoBaseConfig
+    from simlingo_tpu_torch.train import train_step as ts
+    cfg = SimLingoBaseConfig()
+    S = cfg.clip.image_size
+    params = simlingo_base.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                       device=dev)
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"[base_fwd] SimLingoBaseConfig(): CLIP {cfg.clip.layers_run} of "
+        f"{cfg.clip.num_layers}x{cfg.clip.hidden_size} ({cfg.clip.num_heads} heads), "
+        f"projector {cfg.clip.projector_hidden}, LLaMA '{cfg.llm_variant}' "
+        f"{cfg.llm.num_layers}x{cfg.llm.hidden_size} ({cfg.llm.num_heads} heads); "
+        f"{n / 1e6:.1f} M fp32 params (seed 0), bf16 compute copy")
+    ok, stats = True, {}
+    with torch.no_grad():
+        cp = ts.cast_for_compute(params)
+        del params
+        batches = {B: base_batch(np.random.RandomState(B), B, S, device=dev) for B in (1, 16)}
+        for B in (1, 16):                                   # warm-up
+            simlingo_base.forward(cp, *batches[B][:3], cfg)
+        torch.cuda.synchronize()
+        fns = kernel_fns()
+        for fn in fns.values():
+            fn.launches = 0
+        out = simlingo_base.forward(cp, *batches[16][:3], cfg)        # the counted run
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in fns.items()}
+        ok &= _check_launches("[base_fwd]", launches, BASE_PER_FORWARD, 1, "a forward")
+        for key, shape in (("route", (16, 20, 2)), ("speed_wps", (16, 10, 2))):
+            good = tuple(out[key].shape) == shape and bool(torch.isfinite(out[key]).all())
+            ok &= good
+            log(f"[base_fwd] {key} {tuple(out[key].shape)} finite "
+                f"{'OK' if good else 'FAIL'}; last waypoint of sample 0 "
+                f"{out[key][0, -1].float().cpu().numpy().round(4).tolist()}")
+        for B in (1, 16):
+            ms = []
+            for _ in range(BASE_FWD_ITERS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                simlingo_base.forward(cp, *batches[B][:3], cfg)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            stats[f"batch{B}_ms"] = ms
+            log(f"[base_fwd] batch {B:2d} ({2 * B} tiles, T = 333): ms "
+                f"{[round(x, 3) for x in ms]} -> mean {sum(ms) / len(ms):.3f} ms, "
+                f"{B * 1e3 * len(ms) / sum(ms):.2f} samples/s")
+        stats["profile_batch16"] = device_profile(
+            torch, lambda: simlingo_base.forward(cp, *batches[16][:3], cfg),
+            "one base forward at batch 16")
+    del cp, batches
+    torch.cuda.empty_cache()
+    stats["launches"] = launches
+    return ok, stats
+
+
+def base_training(torch, dev, gated=False):
+    """`train_base_torch`'s trainer on presets.simlingo_base() (batch 16, a
+    new synthetic batch a step from seed 0): 1 warm-up step, TRAIN_STEPS
+    timed steps (launches counted over them), peak memory, and a profile
+    of one more step. `gated`: with SIMLINGO_LN_IMPL=pallas set in the
+    process environment (restored afterwards)."""
+    import dataclasses
+    from simlingo_tpu_torch.core.config import compose_base
+    from simlingo_tpu_torch.train import trainer
+    tag = "[base_train_gated]" if gated else "[base_train]"
+    kernels = kernel_fns()
+
+    def reset_after_warmup(step, _):
+        if step == 0:
+            torch.cuda.synchronize()
+            for fn in kernels.values():
+                fn.launches = 0
+
+    cfg = compose_base([f"max_steps={1 + TRAIN_STEPS}", "seed=0"])
+    log(f"{tag} presets.simlingo_base(): batch {cfg.data.batch_size}, 2 tiles of "
+        f"{cfg.model.clip.image_size}, vision lr x 0.1, no remat; "
+        f"AdamW {dataclasses.asdict(cfg.optimizer)}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with gates_set(BASE_GATE if gated else None):
+        res = trainer.train_base(cfg, device=dev, after_step=reset_after_warmup)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+        state, step_fn, batch = res["state"], res["step_fn"], res["batch"]
+        profile = device_profile(torch, lambda: step_fn(state, batch),
+                                 f"one base training step {tag}")
+    del state, step_fn, batch
+    timed = res["records"][1:]
+    ms = [r["ms"] for r in timed]
+    mean_ms = sum(ms) / len(ms)
+    ok = all(math.isfinite(r[k]) for r in res["records"]
+             for k in ("loss", "grad_norm_vision", "grad_norm_rest"))
+    log(f"{tag} timed steps: ms {[round(x, 2) for x in ms]} -> mean {mean_ms:.2f} ms/step, "
+        f"{cfg.data.batch_size * 1e3 / mean_ms:.3f} samples/s (batch drawn and copied "
+        f"before each: {[round(r['batch_ms'], 1) for r in timed]} ms)")
+    log(f"{tag} loss {[round(r['loss'], 5) for r in res['records']]} grad norms vision "
+        f"{[round(r['grad_norm_vision'], 4) for r in res['records']]} rest "
+        f"{[round(r['grad_norm_rest'], 4) for r in res['records']]} finite="
+        f"{'OK' if ok else 'FAIL'}")
+    log(f"{tag} peak memory {peak / 2 ** 30:.2f} GiB (max_memory_allocated)")
+    ok &= _check_launches(tag, launches, BASE_GATED_PER_STEP if gated else BASE_PER_STEP,
+                          TRAIN_STEPS, "a step")
+    if not gated:
+        log(f"{tag} norm kernels with the gate off: "
+            f"{ {k: launches[k] for k in NEW_KERNELS} } (expected 0)")
+    stats = dict(step_ms=ms, mean_step_ms=mean_ms,
+                 samples_per_s=cfg.data.batch_size * 1e3 / mean_ms,
+                 records=res["records"], peak_bytes=peak, launches=launches,
+                 launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
+                 profile=profile)
+    torch.cuda.empty_cache()
+    return ok, stats
+
+
+def compare_base_training(plain, gated):
+    """The ungated and the gated base steps side by side from the same seed
+    and batches: losses within 2e-2 relative."""
+    ok = True
+    for a, b in zip(plain["records"], gated["records"]):
+        good = abs(b["loss"] - a["loss"]) <= 2e-2 * abs(a["loss"])
+        ok &= good
+        log(f"[base_train_ab] step {a['step']}: loss {a['loss']:.5f} vs gated "
+            f"{b['loss']:.5f} (rel tol 2e-2) {'OK' if good else 'FAIL'}; ms "
+            f"{a['ms']:.2f} vs {b['ms']:.2f}")
+    log_side_by_side("[base_train_ab]", "gated", plain, gated)
+    return ok
+
+
+def run_base_phases(torch, dev, smi):
+    """Phase 6; returns (ok, {path: launches}) and writes
+    chiprun_out/chip_smoke_base*.json."""
+    ok, fwd = base_forward(torch, dev)
+    if not ok:
+        return False, None
+    ok, train = base_training(torch, dev)
+    if not ok:
+        return False, None
+    ok, gated = base_training(torch, dev, gated=True)
+    if not ok or not compare_base_training(train, gated):
+        return False, None
+    for name, st in (("base_fwd", fwd), ("base_train", train), ("base_train_gated", gated)):
+        with open(os.path.join(ROOT, "chiprun_out", f"chip_smoke_{name}.json"), "w") as f:
+            json.dump(dict(st, nvidia_smi=smi), f, indent=1)
+    return True, {"base_fwd": fwd["launches"], "base_train": train["launches"],
+                  "base_train_gated": gated["launches"]}
+
+
 def kernel_line(cases, launches):
     """One entry per ported kernel, at a representative shape of its path;
     launches: {path: {kernel: count}} from each path's counted run."""
     meta = {
         "flash_attn_fwd": ("simlingo_tpu_torch/csrc/flash_attn_fwd.cu",
-                           "simlingo_tpu/kernels/flash_attention.py:308", "llm_prefill"),
+                           [f"simlingo_tpu/kernels/flash_attention.py:{n}"
+                            for n in (308, 786, 114)], "llm_prefill"),
         "int8_matmul": ("simlingo_tpu_torch/csrc/int8_matmul.cu",
                         "simlingo_tpu/kernels/quantized_matmul.py:49", "gate_up"),
         "int8_matmul_dx": ("simlingo_tpu_torch/csrc/int8_matmul.cu",
                            "simlingo_tpu/kernels/quantized_matmul.py:81", "gate_up"),
         "flash_attn_bwd": ("simlingo_tpu_torch/csrc/flash_attn_bwd.cu",
-                           "simlingo_tpu/kernels/flash_attention.py:382", "llm_train"),
+                           [f"simlingo_tpu/kernels/flash_attention.py:{n}"
+                            for n in (382, 869, 205)], "llm_train"),
         "dropout": ("simlingo_tpu_torch/csrc/dropout.cu",
                     "simlingo_tpu/kernels/dropout.py:32", "lora_x_896"),
         "layernorm_fwd": ("simlingo_tpu_torch/csrc/layernorm.cu",
@@ -2305,7 +2597,8 @@ def smi_line():
 def run_path_phases(torch, dev, cases) -> int:
     if not (small_model_agreement(torch, dev) and small_training_agreement(torch, dev)
             and small_training_agreement(torch, dev, gated=True)
-            and small_training_agreement(torch, dev, int8_base=True)):
+            and small_training_agreement(torch, dev, int8_base=True)
+            and small_base_agreement(torch, dev)):
         return 1
     ok, stats, agent, frame = full_width(torch, dev, gated_pass=True)
     if not ok:
@@ -2331,14 +2624,19 @@ def run_path_phases(torch, dev, cases) -> int:
     if not ok:
         return 1
     compare_int8_base(train_stats, int8_stats)
+    torch.cuda.empty_cache()
     smi = smi_line()
+    ok, base_launches = run_base_phases(torch, dev, smi)
+    if not ok:
+        return 1
     for name, st in (("agent", stats), ("train", train_stats), ("train_gated", gated_stats),
                      ("train_int8", int8_stats)):
         with open(os.path.join(ROOT, "chiprun_out", f"chip_smoke_{name}.json"), "w") as f:
             json.dump(dict(st, nvidia_smi=smi), f, indent=1)
     launches = {"serve": stats["launches"], "serve_gated": stats["gated"]["launches"],
                 "train": train_stats["launches"],
-                "train_gated": gated_stats["launches"], "train_int8": int8_stats["launches"]}
+                "train_gated": gated_stats["launches"], "train_int8": int8_stats["launches"],
+                **base_launches}
     print(json.dumps(kernel_line(cases, launches)), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

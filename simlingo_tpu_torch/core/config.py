@@ -7,6 +7,9 @@ checkpoint and logging fields are not ported (ROADMAP A11-A13, A16).
 
 The default model is `presets.internvl2_1b(lora=True)`, the configuration
 the JAX training benchmark runs (`bench.py`), not `SimLingoConfig()`.
+`BaseTrainConfig` holds the fields `train_base.py` reads for SimLingo-Base;
+`compose_base` starts from `presets.simlingo_base()`, the YAML overlay
+that script composes.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Any, List, Optional
 
 from simlingo_tpu_torch.core import presets
 from simlingo_tpu_torch.models.simlingo import SimLingoConfig
+from simlingo_tpu_torch.models.simlingo_base import SimLingoBaseConfig
 from simlingo_tpu_torch.train.train_step import OptimizerConfig
 
 
@@ -34,6 +38,17 @@ class TrainConfig:
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     model: SimLingoConfig = dataclasses.field(
         default_factory=lambda: presets.internvl2_1b(lora=True))
+    optimizer: OptimizerConfig = dataclasses.field(default_factory=OptimizerConfig)
+
+
+@dataclasses.dataclass
+class BaseTrainConfig:
+    seed: int = 42
+    max_steps: int = -1                # <= 0: 100 steps
+    log_every_n_steps: int = 50
+    precision: str = "bf16"            # compute dtype (fp32 masters)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    model: SimLingoBaseConfig = dataclasses.field(default_factory=SimLingoBaseConfig)
     optimizer: OptimizerConfig = dataclasses.field(default_factory=OptimizerConfig)
 
 
@@ -64,12 +79,20 @@ def apply_override(cfg: Any, dotted: str, value: str) -> None:
     object.__setattr__(obj, last, _coerce(value, getattr(obj, last)))
 
 
-def compose(overrides: Optional[List[str]] = None) -> TrainConfig:
-    """TrainConfig defaults <- `key=value` overrides."""
-    cfg = TrainConfig()
+def _apply_all(cfg, overrides: Optional[List[str]]):
     for ov in overrides or []:
         key, sep, value = ov.partition("=")
         if not sep:
             raise ValueError(f"override {ov!r} is not key=value")
         apply_override(cfg, key, value)
     return cfg
+
+
+def compose(overrides: Optional[List[str]] = None) -> TrainConfig:
+    """TrainConfig defaults <- `key=value` overrides."""
+    return _apply_all(TrainConfig(), overrides)
+
+
+def compose_base(overrides: Optional[List[str]] = None) -> BaseTrainConfig:
+    """`presets.simlingo_base()` <- `key=value` overrides."""
+    return _apply_all(presets.simlingo_base(), overrides)

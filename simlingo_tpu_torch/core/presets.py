@@ -6,6 +6,10 @@ InternViT-300M-448px + Qwen2-0.5B, LoRA r=32 alpha=64 dropout 0.1 on all
 linears). The ViT uses the tanh form of GELU, as the JAX preset does.
 The port has no remat, so the preset is the JAX one with remat off (the
 training benchmark's default, `bench.py`).
+
+`simlingo_base` is the base trainer's configuration: the YAML overlay
+`configs/simlingo_base.yaml` that `train_base.py` composes, written out
+here because the port reads no YAML.
 """
 
 from __future__ import annotations
@@ -28,3 +32,13 @@ def internvl2_1b(lora: bool = True, vocab_size: int = 151674) -> SimLingoConfig:
         speed_wps_mode="2d",
         predict_route_as_wps=True,
     )
+
+
+def simlingo_base():
+    """`configs/simlingo_base.yaml:5-15` over the defaults: seed 42, AdamW
+    lr 1e-4, OneCycle pct_start 0.05, grad clip 1.0, batch 16; the model is
+    `SimLingoBaseConfig()` (LLaVA-NeXT CLIP tower, tiny LLaMA)."""
+    from simlingo_tpu_torch.core.config import BaseTrainConfig, DataConfig
+    from simlingo_tpu_torch.train.train_step import OptimizerConfig
+    return BaseTrainConfig(seed=42, data=DataConfig(batch_size=16),
+                           optimizer=OptimizerConfig(lr=1e-4, pct_start=0.05, grad_clip=1.0))

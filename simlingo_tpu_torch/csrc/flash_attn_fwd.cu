@@ -47,6 +47,13 @@
 // software-pipelined loop were measured slower: they need 149-255
 // registers, so fewer warps an SM hide the softmax's latency. PERF.md.)
 //
+// Each kernel comes in two builds, `FEW` (`attend`): the plan takes the
+// second where a row can see fewer than 64 keys by position (causal with
+// q_offset < 63, or S < 64: `_fwd_remainder`). There a tile that is not
+// whole, for a warp with a row whose weights sum to under L_FEW, adds P's
+// bf16 remainder in a second product; every other tile keeps the one-pass
+// loop's bits. The first build is the one-pass loop alone.
+//
 // Rows with no visible valid key return 0 and lse -inf; a split with no
 // visible key for a row merges as nothing (m = -inf, l = 0).
 //
@@ -77,6 +84,7 @@ constexpr int RING_BYTES = STAGES * STAGE_ELEMS * 2;  // 55296
 constexpr int MAX_CLUSTER = 8;           // splits: the portable cluster size
 constexpr int MAX_DEVICES = 64;
 constexpr int LDO = D + 4;               // fp32 partial rows (16-byte aligned)
+constexpr float L_FEW = 64.f;            // see `attend`: weight sums below it take P's remainder
 
 // One warp's view of the loop: the slots of a thread's two rows (g and g +
 // 8 of the warp's 16), the first slot any live row of the warp has, and
@@ -92,7 +100,8 @@ struct WarpRows {
 // block takes part in the copies and barriers, only tiles < w.it_end are
 // computed. Updates the running max m_run, sum l_run (this thread's share)
 // and the O accumulators. Ends behind a barrier with no copy in flight: the
-// ring is free.
+// ring is free. FEW: see the P V step below.
+template <bool FEW>
 __device__ __forceinline__ void attend(const bf16* __restrict__ kb, const bf16* __restrict__ vb,
                                        const uint8_t* __restrict__ valid_b,
                                        long long sks, long long svs, int S, int causal,
@@ -223,6 +232,50 @@ __device__ __forceinline__ void attend(const bf16* __restrict__ kb, const bf16* 
       oacc[dt][2] *= alpha[1]; oacc[dt][3] *= alpha[1];
     }
 
+    // A row whose weights sum to under L_FEW (one that sees few keys)
+    // carries the rounding of P to bf16 -- up to 2^-9 of a weight of up to
+    // 1 -- into its output. A row with fewer than 64 visible keys sees only
+    // tiles that are not whole; on such a tile, if a row of the warp has
+    // weights summing to under L_FEW so far, P V runs on P and on P's
+    // remainder, the bf16 of what that rounding dropped. Other tiles keep
+    // the one pass below (a row where a few of many keys dominate is not
+    // covered, nor one that a key mask leaves few keys: those keep the TPU
+    // kernel's one-pass bf16 P).
+    bool few = false;
+    if (FEW && !whole) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float l = l_run[r];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        few |= l > 0.f && l < L_FEW;
+      }
+      few = __any_sync(0xffffffffu, few);
+    }
+    if (few) {                           // each accumulator: P, then the remainder, per 16 keys
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t a[4], lo[4];
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const float* p = sc[2 * kk + (h >> 1)] + 2 * (h & 1);
+          a[h] = simlingo::pack_bf16x2(p[0], p[1]);
+          lo[h] = simlingo::pack_bf16x2(p[0] - __uint_as_float(a[h] << 16),
+                                        p[1] - __uint_as_float(a[h] & 0xffff0000u));
+        }
+#pragma unroll
+        for (int dp = 0; dp < 4; ++dp) {
+          uint32_t b[4];
+          simlingo::ldmatrix_x4_trans(b, Vt + (kk * 16 + (lane & 15)) * LDK + dp * 16 +
+                                             (lane >> 4) * 8);
+          simlingo::mma_bf16_16816(oacc[2 * dp], a, b[0], b[1]);
+          simlingo::mma_bf16_16816(oacc[2 * dp + 1], a, b[2], b[3]);
+          simlingo::mma_bf16_16816(oacc[2 * dp], lo, b[0], b[1]);
+          simlingo::mma_bf16_16816(oacc[2 * dp + 1], lo, b[2], b[3]);
+        }
+      }
+      continue;
+    }
     // O += P V: the S accumulators of n-tiles (2kk, 2kk+1) are exactly the
     // A-fragment of keys [16kk, 16kk+16); each O accumulator sums kk in order
 #pragma unroll
@@ -276,6 +329,7 @@ __device__ __forceinline__ void zero_state(float (&oacc)[8][4], float (&m_run)[2
 // ---------------------------------------------------------------------------
 
 // grid (row blocks, HQ, B)
+template <bool FEW>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const uint8_t* __restrict__ kv_valid,
@@ -310,7 +364,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   float oacc[8][4], m_run[2], l_run[2];
   zero_state(oacc, m_run, l_run);
-  attend(k + b * skb + hk * skh, v + b * svb + hk * svh,
+  attend<FEW>(k + b * skb + hk * skh, v + b * svb + hk * svh,
          kv_valid != nullptr ? kv_valid + (long long)b * S : nullptr,
          sks, svs, S, causal, 0, ntiles, w, qf, scale_log2,
          reinterpret_cast<bf16*>(smem_raw), okw, oacc, m_run, l_run);
@@ -339,6 +393,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // grid (splits, row blocks, B * HK), cluster (splits, 1, 1): block x attends
 // its packed rows to key tiles [x * tps, (x + 1) * tps).
+template <bool FEW>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const uint8_t* __restrict__ kv_valid,
@@ -387,7 +442,7 @@ flash_fwd_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float oacc[8][4], m_run[2], l_run[2];
   zero_state(oacc, m_run, l_run);
   if (it0 < it1)
-    attend(k + b * skb + hk * skh, v + b * svb + hk * svh,
+    attend<FEW>(k + b * skb + hk * skh, v + b * svb + hk * svh,
            kv_valid != nullptr ? kv_valid + (long long)b * S : nullptr,
            sks, svs, S, causal, it0, it1, w, qf, scale_log2,
            reinterpret_cast<bf16*>(smem_raw), okw, oacc, m_run, l_run);
@@ -482,11 +537,13 @@ cudaError_t launch_tiled(const bf16* q, const bf16* k, const bf16* v, const uint
                          long long sqb, long long sqt, long long sqh,
                          long long skb, long long sks, long long skh,
                          long long svb, long long svs, long long svh,
-                         int causal, int q_offset, float scale_log2, cudaStream_t st) {
-  static std::atomic<bool> ready[MAX_DEVICES];
-  cudaError_t e = prepare(reinterpret_cast<const void*>(flash_fwd_kernel), ready, nullptr);
+                         int causal, int q_offset, float scale_log2, bool few,
+                         cudaStream_t st) {
+  static std::atomic<bool> ready[2][MAX_DEVICES];
+  const auto kernel = few ? flash_fwd_kernel<true> : flash_fwd_kernel<false>;
+  cudaError_t e = prepare(reinterpret_cast<const void*>(kernel), ready[few], nullptr);
   if (e != cudaSuccess) return e;
-  flash_fwd_kernel<<<dim3((T + BQ - 1) / BQ, HQ, B), THREADS, RING_BYTES, st>>>(
+  kernel<<<dim3((T + BQ - 1) / BQ, HQ, B), THREADS, RING_BYTES, st>>>(
       q, k, v, valid, o, lse, T, S, HQ, HK, sqb, sqt, sqh, skb, sks, skh, svb, svs, svh,
       causal, q_offset, scale_log2);
   return cudaGetLastError();
@@ -498,8 +555,8 @@ cudaError_t launch_split(const bf16* q, const bf16* k, const bf16* v, const uint
                          long long skb, long long sks, long long skh,
                          long long svb, long long svs, long long svh,
                          int causal, int q_offset, float scale_log2, int splits, int tps,
-                         cudaStream_t st) {
-  static std::atomic<bool> ready[MAX_CLUSTER + 1][MAX_DEVICES];
+                         bool few, cudaStream_t st) {
+  static std::atomic<bool> ready[2][MAX_CLUSTER + 1][MAX_DEVICES];
   // the splits must cover every key tile of S
   if (splits < 1 || splits > MAX_CLUSTER || tps < 1 || splits * tps < (S + BKV - 1) / BKV)
     return cudaErrorInvalidValue;
@@ -516,10 +573,10 @@ cudaError_t launch_split(const bf16* q, const bf16* k, const bf16* v, const uint
   cfg.stream = st;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t e = prepare(reinterpret_cast<const void*>(flash_fwd_split_kernel), ready[splits],
-                          &cfg);
+  const auto kernel = few ? flash_fwd_split_kernel<true> : flash_fwd_split_kernel<false>;
+  cudaError_t e = prepare(reinterpret_cast<const void*>(kernel), ready[few][splits], &cfg);
   if (e != cudaSuccess) return e;
-  e = cudaLaunchKernelEx(&cfg, flash_fwd_split_kernel, q, k, v, valid, o, lse, T, S, HQ, HK,
+  e = cudaLaunchKernelEx(&cfg, kernel, q, k, v, valid, o, lse, T, S, HQ, HK,
                          sqb, sqt, sqh, skb, sks, skh, svb, svs, svh,
                          causal, q_offset, scale_log2, tps);
   if (e != cudaSuccess) return e;
@@ -537,14 +594,14 @@ extern "C" void simlingo_flash_attn_fwd_geometry(int* out) {
 }
 
 // splits == 0: the tiled path; else the split path with `splits` blocks of
-// `tps` key tiles a (row block, kv head, batch).
+// `tps` key tiles a (row block, kv head, batch); few != 0: the FEW build.
 extern "C" int simlingo_flash_attn_fwd(
     const void* q, const void* k, const void* v, const void* kv_valid, void* o,
     void* lse, int B, int T, int S, int HQ, int HK,
     long long sqb, long long sqt, long long sqh,
     long long skb, long long sks, long long skh,
     long long svb, long long svs, long long svh,
-    int causal, int q_offset, float scale, int splits, int tps, void* stream) {
+    int causal, int q_offset, float scale, int splits, int tps, int few, void* stream) {
   const float scale_log2 = scale * 1.4426950408889634f;
   const auto* q_ = static_cast<const bf16*>(q);
   const auto* k_ = static_cast<const bf16*>(k);
@@ -555,9 +612,9 @@ extern "C" int simlingo_flash_attn_fwd(
   const auto st = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
       splits == 0 ? launch_tiled(q_, k_, v_, m_, o_, l_, B, T, S, HQ, HK, sqb, sqt, sqh, skb, sks,
-                                 skh, svb, svs, svh, causal, q_offset, scale_log2, st)
+                                 skh, svb, svs, svh, causal, q_offset, scale_log2, few != 0, st)
                   : launch_split(q_, k_, v_, m_, o_, l_, B, T, S, HQ, HK, sqb, sqt, sqh, skb, sks,
                                  skh, svb, svs, svh, causal, q_offset, scale_log2, splits, tps,
-                                 st);
+                                 few != 0, st);
   return static_cast<int>(e);
 }

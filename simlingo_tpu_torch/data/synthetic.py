@@ -1,13 +1,17 @@
-"""Synthetic DrivingExample batches for tests, smoke runs and benchmarks.
+"""Synthetic batches for tests, smoke runs and benchmarks.
 
-Counterpart of `simlingo_tpu/data/synthetic.py:synthetic_example` (:20-73):
-a chat sequence with an `<IMG_CONTEXT>` block, two waypoint placeholders,
-an assistant-only loss mask and driving labels, at the production layout.
+`synthetic_example` is the counterpart of
+`simlingo_tpu/data/synthetic.py:synthetic_example` (:20-73): a chat
+sequence with an `<IMG_CONTEXT>` block, two waypoint placeholders, an
+assistant-only loss mask and driving labels, at the production layout.
+`base_batch` is SimLingo-Base's batch as `train_base.py:95-101` draws it.
 The arrays are drawn with numpy from the same `RandomState` sequence as
-the JAX function, so the same arguments give the same batch.
+the JAX code, so the same arguments give the same batch.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -68,3 +72,26 @@ def synthetic_example(cfg, batch: int, seq_len: int, num_patches: int = 2,
     dl = DrivingLabel(waypoints=t(waypoints), path=t(path),
                       waypoints_1d=t(waypoints_1d))
     return DrivingExample(driving_input=di, driving_label=dl)
+
+
+class BaseBatch(NamedTuple):
+    pixel_values: torch.Tensor   # [B, 2, S, S, 3] float32
+    speed: torch.Tensor          # [B] float32
+    target_points: torch.Tensor  # [B, 2, 2] float32
+    waypoints: torch.Tensor      # [B, 10, 2] float32
+    route: torch.Tensor          # [B, 20, 2] float32
+
+
+def base_batch(rng: np.random.RandomState, batch: int, image_size: int,
+               device="cuda") -> BaseBatch:
+    """One SimLingo-Base training batch, drawn from `rng` in the order of
+    `train_base.py:95-101`: two tiles of pixels x 0.5, speed, two target
+    points, cumulative-sum waypoints, then the route."""
+    dev = resolve_device(device)
+    B, S = batch, image_size
+    arrays = (rng.randn(B, 2, S, S, 3).astype(np.float32) * 0.5,
+              rng.rand(B).astype(np.float32) * 10,
+              rng.randn(B, 2, 2).astype(np.float32) * 10,
+              np.cumsum(rng.rand(B, 10, 2), 1).astype(np.float32),
+              np.cumsum(rng.rand(B, 20, 2), 1).astype(np.float32))
+    return BaseBatch(*(torch.from_numpy(a).to(dev) for a in arrays))

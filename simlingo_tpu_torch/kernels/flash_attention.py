@@ -8,7 +8,11 @@ two paths that `_fwd_plan` chooses between: the tiled path (blocks of 64
 query rows of one head) and, for a small T x group, the split path (a
 GQA group's heads packed into one block's rows as `_fwd_kernel_gqa` packs
 them, the keys cut into splits whose partials a thread-block cluster merges
-in split order; `attention_split_reference` is its plain version).
+in split order; `attention_split_reference` is its plain version). Where
+a row can see fewer than 64 keys by position (`_fwd_remainder`), the
+kernel's second build also takes P's bf16 remainder into the product with
+V on the tiles of rows whose weights sum to under 64, so such rows carry
+no rounding of their weights; elsewhere it is the one-pass loop.
 Backward (training): `csrc/flash_attn_bwd.cu` covers `_bwd_kernel_gqa`
 (:382), `_bwd_kernel_pair` (:869) and `_bwd_kernel` (:205) the same way,
 from the output and the forward's base-2 log-sum-exp (`attention_train`).
@@ -112,6 +116,7 @@ class FwdPlan(NamedTuple):
     kv_end: int               # keys [0, kv_end) some row may see
     key_ranges: tuple         # each split's keys [lo, hi), clipped to kv_end; tiled: one range
     grid: tuple               # the launch's (x, y, z)
+    remainder: bool           # the kernel's build with P's remainder (`_fwd_remainder`)
 
 
 @functools.lru_cache(maxsize=256)
@@ -134,21 +139,31 @@ def _fwd_launch(B, T, S, HQ, HK, sms=132, split_rows=SPLIT_MAX_ROWS, max_splits=
     return -(-n_kt // tps), tps
 
 
+def _fwd_remainder(S, causal, q_offset):
+    """Whether `flash_attn_fwd` launches the kernel's build that adds P's
+    bf16 remainder on the tiles of few-key rows: where a row can see fewer
+    than one tile of keys by position (causal from a slot under
+    _FWD_TILE - 1, or S under a tile). A key mask is not counted: such
+    rows keep the one-pass bf16 P of the TPU kernel (`p.astype`)."""
+    return (min(S, q_offset + 1) if causal else S) < _FWD_TILE
+
+
 def _fwd_plan(B, T, S, HQ, HK, causal, q_offset, sms=132, split_rows=SPLIT_MAX_ROWS,
               max_splits=SPLIT_MAX):
     """The blocks of `flash_attn_fwd` and the keys each split attends to
     (`_fwd_launch`)."""
     splits, tps = _fwd_launch(B, T, S, HQ, HK, sms, split_rows, max_splits)
     kv_end = max(0, min(S, q_offset + T)) if causal else S
+    few = _fwd_remainder(S, causal, q_offset)
     if splits:
         rows = (HQ // HK) * T
         span = tps * _FWD_TILE
         ranges = tuple((min(s * span, kv_end), min((s + 1) * span, kv_end))
                        for s in range(splits))
         grid = (splits, -(-rows // _FWD_ROWS), B * HK)
-        return FwdPlan("split", rows, grid[1], splits, tps, kv_end, ranges, grid)
+        return FwdPlan("split", rows, grid[1], splits, tps, kv_end, ranges, grid, few)
     grid = (-(-T // _FWD_ROWS), HQ, B)
-    return FwdPlan("tiled", T, grid[0], 0, 0, kv_end, ((0, kv_end),), grid)
+    return FwdPlan("tiled", T, grid[0], 0, 0, kv_end, ((0, kv_end),), grid, few)
 
 
 def _packed_rows(group, T):
@@ -265,7 +280,8 @@ def flash_attn_fwd(q, k, v, kv_valid=None, causal=True, scale=None,
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         int(bool(causal)), int(q_offset), ctypes.c_float(float(scale)),
-        splits, tps, torch.cuda.current_stream(q.device).cuda_stream)
+        splits, tps, int(_fwd_remainder(S, bool(causal), int(q_offset))),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attn_fwd")
     flash_attn_fwd.launches += 1
     return (out, lse) if return_lse else out
@@ -286,7 +302,7 @@ def _lib():
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 9
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_float]
-                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 

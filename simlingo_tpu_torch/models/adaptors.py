@@ -1,5 +1,7 @@
 """Driving adaptors: waypoint encoder, learned query tokens, decode heads,
-losses.
+losses; SimLingo-Base's speed and target-point token encoders
+(`init_vector_adaptor`, `init_wp_adaptor_base`, on min-max normalised
+inputs).
 
 Counterpart of `simlingo_tpu/models/adaptors.py`: 20 route queries + 10
 speed queries appended to the sequence; MLP heads emit per-step deltas, and
@@ -23,6 +25,41 @@ from simlingo_tpu_torch.models import layers as L
 
 NUM_ROUTE_QUERIES = 20
 NUM_SPEED_QUERIES = 10
+
+
+def norm_zero_one(x: torch.Tensor, min_max: Tuple[float, float]) -> torch.Tensor:
+    """Min-max normalise to [0, 1] (`simlingo_tpu/models/adaptors.py:34`)."""
+    return (x - min_max[0]) / (min_max[1] - min_max[0])
+
+
+def init_vector_adaptor(gen, input_size: int, token_size: int, hidden_size: int = 256,
+                        dtype=torch.float32, device="cpu") -> Dict[str, Any]:
+    """The base model's scalar / vector -> one token encoder: Linear(in,
+    hidden) -> ReLU -> Linear(hidden, token)."""
+    return L.mlp_stack_init(gen, [input_size, hidden_size, token_size], dtype=dtype,
+                            device=device)
+
+
+def vector_encode(p: Dict[str, Any], x: torch.Tensor,
+                  min_max: Optional[Tuple[float, float]] = None) -> torch.Tensor:
+    """[B, input_size] -> [B, 1, token]."""
+    if min_max is not None:
+        x = norm_zero_one(x, min_max)
+    return L.mlp_stack(p, x, F.relu)[:, None, :]
+
+
+def init_wp_adaptor_base(gen, token_size: int, hidden_size: int = 256,
+                         dtype=torch.float32, device="cpu") -> Dict[str, Any]:
+    """The base model's target-point encoder, 2 -> hidden -> token (ReLU)."""
+    return L.mlp_stack_init(gen, [2, hidden_size, token_size], dtype=dtype, device=device)
+
+
+def wp_encode_base(p: Dict[str, Any], coords: torch.Tensor,
+                   min_max: Optional[Tuple[float, float]] = None) -> torch.Tensor:
+    """[..., 2] -> [..., token]."""
+    if min_max is not None:
+        coords = norm_zero_one(coords, min_max)
+    return L.mlp_stack(p, coords, F.relu)
 
 
 def init_driving_adaptor(gen, hidden_size: int, mlp_dim: int = 256,
@@ -63,6 +100,10 @@ def query_tokens(p: Dict[str, Any], batch_size: int, dtype=None) -> torch.Tensor
     parts.append(p["speed_queries"].expand(batch_size, -1, -1))
     q = torch.cat(parts, dim=1)
     return q if dtype is None else q.to(dtype)
+
+
+def num_queries(p: Dict[str, Any]) -> int:
+    return NUM_SPEED_QUERIES + (NUM_ROUTE_QUERIES if "route_queries" in p else 0)
 
 
 def decode_predictions(p: Dict[str, Any], query_features: torch.Tensor

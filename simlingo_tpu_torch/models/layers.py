@@ -55,6 +55,13 @@ def rmsnorm_init(dim: int, dtype=torch.float32, device="cpu") -> Params:
     return {"scale": torch.ones(dim, dtype=dtype, device=device)}
 
 
+def gelu_mlp_init(gen, dim: int, hidden: int, dtype=torch.float32,
+                  device="cpu") -> Params:
+    """fc1 [hidden, dim] and fc2 [dim, hidden], each with a bias."""
+    return {"fc1": linear_init(gen, dim, hidden, True, dtype, device),
+            "fc2": linear_init(gen, hidden, dim, True, dtype, device)}
+
+
 def mlp_stack_init(gen, dims, use_bias=None, dtype=torch.float32,
                    device="cpu") -> Params:
     n = len(dims) - 1

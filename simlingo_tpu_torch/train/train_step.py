@@ -111,6 +111,14 @@ def cast_for_compute(params, dtype=torch.bfloat16):
                       else x, params)
 
 
+def clip_by_global_norm_(grads, clip: float) -> torch.Tensor:
+    """optax's clip_by_global_norm, in place: g * clip / ||g|| where ||g|| >=
+    clip. Returns the unclipped norm."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    torch._foreach_mul_(grads, torch.where(norm < clip, 1.0, clip / norm))
+    return norm
+
+
 @dataclasses.dataclass
 class TrainState:
     params: Dict[str, Any]                 # the whole tree (masters + frozen)
@@ -166,9 +174,7 @@ def make_train_step(model_cfg: SimLingoConfig, opt_cfg: OptimizerConfig,
             if x.grad is None:           # JAX differentiates to zeros here
                 x.grad = torch.zeros_like(x)
             grads.append(x.grad)
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        clip = opt_cfg.grad_clip
-        torch._foreach_mul_(grads, torch.where(norm < clip, 1.0, clip / norm))
+        norm = clip_by_global_norm_(grads, opt_cfg.grad_clip)
         state.optimizer.step()
         state.step += 1
         metrics = {k: v.detach() for k, v in out.loss_averages.items()}

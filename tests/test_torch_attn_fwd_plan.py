@@ -81,6 +81,19 @@ def test_the_grid_depends_on_S_and_not_on_q_offset(name, B, T, S, HQ, HK, causal
         assert a.grid == (a.row_blocks, HQ, B)
 
 
+# the shapes whose rows can see fewer than one tile of keys by position
+FEW_KEYS = {"prefill", "drive_only", "llm_train", "T1_S1", "q_offset_0"}
+
+
+@pytest.mark.parametrize("name,B,T,S,HQ,HK,causal,q_offset", SHAPES)
+def test_the_remainder_build_only_where_a_row_sees_under_a_tile(name, B, T, S, HQ, HK,
+                                                                causal, q_offset):
+    plan = TFA._fwd_plan(B, T, S, HQ, HK, causal, q_offset)
+    t = np.arange(T)
+    seen = np.minimum(S, np.maximum(0, q_offset + t + 1)) if causal else np.full(T, S)
+    assert plan.remainder == bool(seen.min() < TILE) == (name in FEW_KEYS)
+
+
 @pytest.mark.parametrize("name,B,T,S,HQ,HK,causal,q_offset", SHAPES)
 def test_row_blocks_cover_every_row(name, B, T, S, HQ, HK, causal, q_offset):
     plan = TFA._fwd_plan(B, T, S, HQ, HK, causal, q_offset)

@@ -10,10 +10,14 @@ bf16 kernels against the plain fp32 math on the same bf16 inputs, at
 rtol = 2e-2 and an atol of 2e-2 for int8_matmul (outputs of rms ~0.6) and
 2e-3 for attention over 77-129 keys (outputs of rms ~0.1); 4e-3 where causal
 rows see as few as one key: the kernel rounds each probability to bf16
-(2^-9 relative) before it weights a value of |v| up to ~4. The backward
+(2^-9 relative) before it weights a value of |v| up to ~4; at
+SimLingo-Base's shapes 2e-3 all the same, where the causal rows take the
+kernel's build with P's remainder (`_fwd_remainder`). The backward
 kernel's gradients are held at |err| <= 3e-2 rms(ref) + 2e-2 |ref|: it
 rounds P and dS to bf16 before the products, and each gradient sums
-over up to T terms. The dropout kernel equals its plain version bit for
+over up to T terms; at SimLingo-Base's shapes, with rows that see one
+to a few keys, at the rounding bound of `chip_smoke.py` instead, 2^-8
+(sum |terms| + |ref|). The dropout kernel equals its plain version bit for
 bit. The norm kernels' bf16 outputs (y, dx) are held to one bf16 spacing
 of the plain version's (2^-7 |ref| + 1e-5 rms): both round the same fp32
 math, summed in another order; their parameter gradients to 2^-7 |ref|
@@ -426,6 +430,44 @@ def test_flash_attn_bwd_kernel_matches_plain(gpu, T, S, HQ, HK, causal, strided,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,causal", [
+    (32, 577, 16, False),                      # CLIP at batch 16: 577 = 9 x 64 + 1
+    (16, 333, 8, True),                        # the tiny LLaMA: 333 = 5 x 64 + 13
+    (2, 577, 16, False), (3, 333, 8, True)])   # the same tails, dK/dV at 1 block an SM
+def test_attention_at_the_base_shapes(gpu, B, T, H, causal):
+    """Group 1 without a key mask (SimLingo-Base): the forward and its lse,
+    the backward (ragged last tiles in the forward and in the dS^T
+    scratch), both bit-identical across calls, through `attention_train`."""
+    sms = torch.cuda.get_device_properties(gpu).multi_processor_count
+    assert TFA._dkdv_blocks(B, T, H, sms) == (3 if B * H * -(-T // 64) >= 3 * sms else 1)
+    q, k, v, _, dout = _bwd_inputs(gpu, B, T, T, H, H, False, 0, seed=11)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    f0, b0 = TFA.flash_attn_fwd.launches, TFA.flash_attn_bwd.launches
+    out = TFA.attention_train(*leaves, None, causal)
+    got = torch.autograd.grad(out, leaves, dout)
+    assert (TFA.flash_attn_fwd.launches, TFA.flash_attn_bwd.launches) == (f0 + 1, b0 + 1)
+    args = (q.float(), k.float(), v.float(), None)
+    # phase 2's tolerance: causal rows from slot 0 take P's remainder
+    assert TFA._fwd_plan(B, T, T, H, H, causal, 0, sms=sms).remainder == causal
+    torch.testing.assert_close(out.detach().float(), TFA.attention_reference(*args, causal),
+                               atol=2e-3, rtol=2e-2)
+    again, lse = TFA.flash_attn_fwd(q, k, v, None, causal, None, None, return_lse=True)
+    assert torch.equal(again, out)
+    torch.testing.assert_close(lse, TFA.attention_lse_reference(q.float(), k.float(), None,
+                                                                causal), atol=1e-2, rtol=1e-3)
+    # the backward at the rounding bound of chip_smoke.py's phase 2: it
+    # rounds P and dS to bf16 (2^-8) before its products and its output
+    bwd_args = (*args, out.detach().float(), dout.float(), lse, causal)
+    ref = TFA.attention_bwd_reference(*bwd_args)
+    mag = TFA.attention_bwd_reference(*bwd_args, abs_terms=True)
+    for a, b, m, name in zip(got, ref, mag, "qkv"):
+        tol = 2.0 ** -8 * (m + b.abs()) + 1e-5 * float(b.square().mean().sqrt())
+        _within(a, b, tol, f"d{name}")
+    second = TFA.flash_attn_bwd(q, k, v, None, out, dout, lse, causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, second))
+
+
+@pytest.mark.cuda
 def test_flash_attn_bwd_is_bit_identical_across_calls(gpu):
     """No atomics: two calls give the same bits in dq, dk and dv."""
     q, k, v, valid, dout = _bwd_inputs(gpu, 3, 300, 300, 14, 2, False, 70, seed=8)
@@ -477,7 +519,8 @@ def _bf16_spacing_tol(ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d", [(1, 896), (777, 1024), (33, 4096), (5, 128), (300, 2048)])
+@pytest.mark.parametrize("n,d", [(1, 896), (777, 1024), (33, 4096), (5, 128), (300, 2048),
+                                 (5328, 512), (18464, 1024)])    # SimLingo-Base's rows
 @pytest.mark.parametrize("scale_dtype", [torch.bfloat16, torch.float32])
 def test_norm_kernels_match_plain(gpu, n, d, scale_dtype):
     g = torch.Generator(device=gpu).manual_seed(6)
@@ -544,7 +587,8 @@ def _norm_bwd_within(got, x, dy, scale, mean, rstd, rms):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,d", [(4788, 896), (12300, 1024), (3072, 4096), (640, 896),
-                                 (1, 896), (2050, 1024), (777, 8192)])
+                                 (1, 896), (2050, 1024), (777, 8192), (5328, 512),
+                                 (18464, 1024)])
 def test_norm_backward_is_bit_identical_across_calls(gpu, n, d):
     """No atomics: both modes give the same bits call after call."""
     x, dy, scale, bias = _norm_case(gpu, n, d)

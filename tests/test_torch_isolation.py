@@ -3,8 +3,8 @@
 A subprocess blocks those imports, imports every module of the port
 (the training modules included), drives the tiny agent and two training
 steps with LoRA dropout on the CPU, then two more with both fused-kernel
-gates on, and two on an int8 base LLM; an entry point built without
-`device` must refuse on a machine without a GPU.
+gates on, two on an int8 base LLM and two of the tiny SimLingo-Base; an
+entry point built without `device` must refuse on a machine without a GPU.
 """
 
 import subprocess
@@ -101,10 +101,18 @@ SCRIPT = textwrap.dedent("""
     assert abs(int8[0]["loss"] - recs[0]["loss"]) <= 1e-2 * abs(recs[0]["loss"])
     assert TQM.int8_matmul.launches == TQM.int8_matmul_dx.launches == 0
 
+    from simlingo_tpu_torch.core.config import compose_base
+    from simlingo_tpu_torch.models import simlingo_base
+    bcfg = compose_base(["max_steps=2", "data.batch_size=2", "precision=fp32"])
+    bcfg.model = simlingo_base.SimLingoBaseConfig.tiny()
+    base = trainer.train_base(bcfg, device="cpu")["records"]
+    assert len(base) == 2 and all(np.isfinite(r["loss"]) for r in base)
+
     if not torch.cuda.is_available():
         for build in (lambda: LingoAgent(params, cfg),
                       lambda: simlingo.init_params(cfg, torch.Generator()),
                       lambda: trainer.train(tcfg),
+                      lambda: trainer.train_base(bcfg),
                       lambda: synthetic_example(tiny, 1, 96)):
             try:
                 build()
