@@ -9,6 +9,7 @@
     python3 chip_smoke.py --ce-sweep    # the fused CE backward at forced segments S
     python3 chip_smoke.py --attn-sweep  # the attention forward at forced plans
     python3 chip_smoke.py --norm-sweep  # the norm kernels at forced plans
+    python3 chip_smoke.py --disk        # training from disk with checkpoints only
     python3 chip_smoke.py --parent DIR  # ... and the CE forward's, the tiled
                                         # attention forward's and the norm
                                         # forward's bits against the tree at
@@ -96,14 +97,34 @@ Phases, in order; any failure exits non-zero:
      BASE_PER_STEP exactly, peak memory, a profiled step; then the same
      with SIMLINGO_LN_IMPL=pallas (BASE_GATED_PER_STEP), the losses side
      by side within 2e-2;
-  7. the {"kernels": [...]} line (eleven kernels, launches per path: serve,
+  7. training from a dataset on disk (`disk_training`): the host probe
+     (Python modules, g++, libjpeg's and nvJPEG's headers, free space) and
+     the JPEG decoder in use; two training routes of 40 frames and a
+     validation route of 30 written under build/ (measurements, results,
+     commentary, VQA, dreamer, frames copied from tests/data/torch_frames);
+     trainer.train on configs/simlingo.yaml at full width (batch 6, 768
+     tokens, the 16 driving buckets and the dreamer mix, 8 prefetch
+     threads) for 1 + 5 steps with an async checkpoint at step 3,
+     validation and a final checkpoint: ms a step (median of steps 2-5),
+     host batch ms, prefetch wait ms, peak memory, the hand kernels'
+     launches a step over steps 2-5 against the count reckoned from the
+     shapes (disk_expected_per_step), exactly; a run resumed from step 3
+     whose losses, validation loss and final parameters must equal the
+     straight run's bit for bit, with one of its steps profiled (device
+     busy and idle); the checkpoint's bytes, blocking and async save and
+     restore times; a random trained-SimLingo torch checkpoint
+     (InternVL2-1B remote-code names, peft LoRA on q/v) loaded through
+     hf_checkpoint= (a qkv slice and a merged LoRA leaf checked against
+     the written tensors) and trained 2 steps;
+  8. the {"kernels": [...]} line (eleven kernels, launches per path: serve,
      serve_gated, train, train_gated, train_int8, base_fwd, base_train,
-     base_train_gated), the nvidia-smi line, and the last line {"ok":
-     true, "device": {...}}.
+     base_train_gated, train_disk), the nvidia-smi line, and the last line
+     {"ok": true, "device": {...}}.
 Per-case results also go to chiprun_out/chip_smoke_cases.json, the paths'
 statistics to chip_smoke_agent.json, chip_smoke_train.json,
-chip_smoke_train_gated.json, chip_smoke_train_int8.json and
-chip_smoke_base_{fwd,train,train_gated}.json.
+chip_smoke_train_gated.json, chip_smoke_train_int8.json,
+chip_smoke_base_{fwd,train,train_gated}.json and chip_smoke_train_disk.json.
+`--disk` runs the build and phase 7 alone.
 """
 
 from __future__ import annotations
@@ -1949,6 +1970,19 @@ def profile_generate(torch, agent, di, runner):
     return dict(per_token=per, one_token=a, n_tokens=b)
 
 
+def kernel_busy_ms(prof):
+    """The summed device time of the kernels in a profile (operator rows and
+    user annotations repeat their kernels' time, so they are left out)."""
+    from torch.autograd import DeviceType
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        total += max(dev_us if dev_us is not None else getattr(e, "self_cuda_time_total", 0), 0)
+    return total / 1e3
+
+
 def device_profile(torch, fn, what):
     """Device time by kernel over one call of fn (torch.profiler): wall,
     busy share and the top kernels."""
@@ -2178,7 +2212,7 @@ def _full_width_training(torch, dev, gated, int8_base):
                 fn.launches = 0
 
     cfg = compose([f"max_steps={1 + TRAIN_STEPS}", "data.batch_size=6",
-                   "data.max_text_len=768", "seed=0"])
+                   "data.max_text_len=768", "seed=0", "output_dir="])
     m = cfg.model
     log(f"{tag} presets.internvl2_1b(lora=True): ViT {m.vit.num_layers}x"
         f"{m.vit.hidden_size} ({m.vit.num_heads} heads, tanh GELU), Qwen2 "
@@ -2194,7 +2228,8 @@ def _full_width_training(torch, dev, gated, int8_base):
         params = simlingo.init_params(m, torch.Generator(device=dev).manual_seed(cfg.seed),
                                       device=dev)
         params["llm"] = quantize_llm(params["llm"])
-    res = trainer.train(cfg, params=params, device=dev, after_step=reset_after_warmup)
+    res = trainer.train(cfg, make_synthetic=True, params=params, device=dev,
+                        after_step=reset_after_warmup)
     del params
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in kernels.items()}
@@ -2542,6 +2577,441 @@ def run_base_phases(torch, dev, smi):
                   "base_train_gated": gated["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: training from a dataset on disk, with checkpoints
+# ---------------------------------------------------------------------------
+
+DISK_ROUTES = (("routes_training/Town12_Rep0_0", 40), ("routes_training/Town12_Rep0_1", 40),
+               ("routes_validation/Town13_Rep0_0", 30))
+DISK_STEPS = 6              # 1 warm-up + 5 timed steps; the resumed run starts at 3
+DISK_CKPT_EVERY = 3
+COMMENTARY = ("Follow the route at a steady speed.", "Keep the lane, the road ahead is clear.",
+              "Slow down slightly for the curve ahead.")
+VQA = (("What should the ego vehicle do?", "Keep driving along the lane."),
+       ("Is there a traffic light?", "There is no traffic light affecting the ego vehicle."),
+       ("What is the navigation command?", "The navigation command is to follow the road."))
+DREAMER = (("Drive a bit slower.", True, 0.8), ("Stop the car now.", False, 0.0),
+           ("Speed up a little.", True, 1.2))
+
+
+def host_probe():
+    """What the card's machine offers the data path: the Python modules it
+    may lack, g++, libjpeg's header, nvJPEG's header, and the free space of
+    the temporary directory."""
+    import importlib.util
+    import tempfile
+    mods = {m: importlib.util.find_spec(m) is not None
+            for m in ("cv2", "PIL", "yaml", "safetensors", "matplotlib", "transformers")}
+    gxx = shutil.which("g++")
+    ver = subprocess.run([gxx, "--version"], capture_output=True, text=True).stdout \
+        .splitlines()[0] if gxx else None
+    jpeglib = gxx is not None and subprocess.run(
+        [gxx, "-x", "c++", "-E", "-"], input="#include <jpeglib.h>\n", capture_output=True,
+        text=True).returncode == 0
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    nvjpeg = os.path.exists(os.path.join(cuda_home, "include", "nvjpeg.h"))
+    df = subprocess.run(["df", "-h", tempfile.gettempdir()], capture_output=True,
+                        text=True).stdout.strip().splitlines()[-1]
+    return dict(modules=mods, gxx=ver, jpeglib_h=jpeglib, nvjpeg_h=nvjpeg, df_tmp=df)
+
+
+def write_disk_routes(root, np):
+    """Two training routes of 40 frames and a validation route of 30 in the
+    dataset's layout: gz JSON measurements (a gentle left curve at 5 m/s,
+    4 Hz), results.json.gz, commentary, VQA and dreamer files, and rgb/ and
+    rgb_augmented/ frames copied from tests/data/torch_frames/."""
+    import glob
+    import gzip
+    frames = [open(p, "rb").read() for p in
+              sorted(glob.glob(os.path.join(ROOT, "tests", "data", "torch_frames", "*.jpg")))]
+    if len(frames) != 4:
+        raise RuntimeError(f"expected 4 frames in tests/data/torch_frames, found {len(frames)}")
+
+    def gz(path, obj):
+        with gzip.open(path, "wt") as f:
+            json.dump(obj, f)
+
+    for r, (rel, n) in enumerate(DISK_ROUTES):
+        route = os.path.join(root, "data", "simlingo", "v1", "b0", rel)
+        for sub in ("measurements", "rgb", "rgb_augmented", "commentary", "vqa", "dreamer"):
+            os.makedirs(os.path.join(route, sub))
+        for i in range(n):
+            yaw = 0.01 * i
+            x, y = 1.25 * i, 0.006 * i * i
+            c, s = math.cos(yaw), math.sin(yaw)
+            m = {"pos_global": [x, y], "theta": yaw, "speed": 5.0, "target_speed": 5.0,
+                 "speed_limit": 30.0, "target_point": [20.0, 0.8 + 0.01 * i],
+                 "target_point_next": [40.0, 2.5], "command": 4 if i % 10 else 1,
+                 "next_command": 4, "route": [[float(j), 0.03 * j] for j in range(1, 40)],
+                 "route_original": [[float(j), 0.02 * j] for j in range(1, 40)],
+                 "changed_route": False, "augmentation_translation": 0.5,
+                 "augmentation_rotation": 3.0,
+                 "ego_matrix": [[c, -s, 0, x], [s, c, 0, y], [0, 0, 1, 0], [0, 0, 0, 1]],
+                 "steer": 0.01, "throttle": 0.5, "brake": False}
+            stem = f"{i:04}"
+            gz(os.path.join(route, "measurements", f"{stem}.json.gz"), m)
+            for sub, k in (("rgb", i + r), ("rgb_augmented", i + r + 2)):
+                with open(os.path.join(route, sub, f"{stem}.jpg"), "wb") as f:
+                    f.write(frames[k % 4])
+            text = COMMENTARY[i % 3]
+            gz(os.path.join(route, "commentary", f"{stem}.json.gz"),
+               {"commentary": text, "commentary_template": text, "placeholder": {}})
+            q, a = VQA[i % 3]
+            gz(os.path.join(route, "vqa", f"{stem}.json.gz"),
+               {"QA": {"behaviour": [{"Q": q, "A": a}],
+                       "navigation": [{"Q": VQA[2][0], "A": VQA[2][1]}]},
+                "key_object_infos": {}})
+            options = [{"mode": "target_speed", "route": "org",
+                        "waypoints": [[1.25 * f * (k + 1), 0.0] for k in range(10)],
+                        "dreamer_instruction": [instr], "safe_to_execute": safe,
+                        "dreamer_answer_safety": "Ignore the instruction: it is unsafe. "
+                                                 "Waypoints:"}
+                       for instr, safe, f in DREAMER]
+            gz(os.path.join(route, "dreamer", f"{stem}.json.gz"), {"target_speed": options})
+        gz(os.path.join(route, "results.json.gz"),
+           {"scores": {"score_composed": 100.0, "score_route": 100.0}, "num_infractions": 0,
+            "infractions": {"min_speed_infractions": [], "outside_route_lanes": []}})
+
+
+def simlingo_state_dict(cfg, torch, dev, lora_targets=("q_proj", "v_proj"), lora_r=32):
+    """A random bf16 state dict of a trained SimLingo (RenzKa/simlingo's
+    layout: InternVL2-1B's remote-code vision tower and mlp1 projector, a
+    peft-wrapped Qwen2 with LoRA on `lora_targets`, the driving adaptors
+    and the waypoint encoder), its names and shapes from `cfg`."""
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def t(*shape):
+        return (torch.randn(*shape, generator=g, device=dev) * 0.02).to(torch.bfloat16)
+
+    v, l = cfg.vit, cfg.llm
+    H, I, P = v.hidden_size, v.intermediate_size, v.patch_size
+    sd = {}
+    vp = "vision_model.model.vision_model."
+    sd[vp + "embeddings.patch_embedding.weight"] = t(H, 3, P, P)
+    sd[vp + "embeddings.patch_embedding.bias"] = t(H)
+    sd[vp + "embeddings.class_embedding"] = t(1, 1, H)
+    sd[vp + "embeddings.position_embedding"] = t(1, (v.image_size // P) ** 2 + 1, H)
+    for i in range(v.num_layers):
+        lp = vp + f"encoder.layers.{i}."
+        for name, shape in (("attn.qkv.weight", (3 * H, H)), ("attn.qkv.bias", (3 * H,)),
+                            ("attn.proj.weight", (H, H)), ("attn.proj.bias", (H,)),
+                            ("norm1.weight", (H,)), ("norm1.bias", (H,)),
+                            ("norm2.weight", (H,)), ("norm2.bias", (H,)),
+                            ("ls1", (H,)), ("ls2", (H,)), ("mlp.fc1.weight", (I, H)),
+                            ("mlp.fc1.bias", (I,)), ("mlp.fc2.weight", (H, I)),
+                            ("mlp.fc2.bias", (H,))):
+            sd[lp + name] = t(*shape)
+    pin = int(H / v.downsample_ratio ** 2)
+    mp, O = "vision_model.model.mlp1.", v.projector_out
+    for name, shape in (("0.weight", (pin,)), ("0.bias", (pin,)), ("1.weight", (O, pin)),
+                        ("1.bias", (O,)), ("3.weight", (O, O)), ("3.bias", (O,))):
+        sd[mp + name] = t(*shape)
+    Hl, D = l.hidden_size, l.head_dim
+    pre = "language_model.model.base_model.model.model."
+    sd[pre + "embed_tokens.weight"] = t(l.vocab_size, Hl)
+    sd[pre + "norm.weight"] = t(Hl)
+    proj = {"q_proj": (l.num_heads * D, Hl, True), "k_proj": (l.num_kv_heads * D, Hl, True),
+            "v_proj": (l.num_kv_heads * D, Hl, True), "o_proj": (Hl, l.num_heads * D, False)}
+    for i in range(l.num_layers):
+        lp = pre + f"layers.{i}."
+        sd[lp + "input_layernorm.weight"] = t(Hl)
+        sd[lp + "post_attention_layernorm.weight"] = t(Hl)
+        mods = {f"self_attn.{k}": v_ for k, v_ in proj.items()}
+        mods.update({"mlp.gate_proj": (l.intermediate_size, Hl, False),
+                     "mlp.up_proj": (l.intermediate_size, Hl, False),
+                     "mlp.down_proj": (Hl, l.intermediate_size, False)})
+        for mod, (dout, din, bias) in mods.items():
+            if mod.split(".")[1] in lora_targets:
+                sd[f"{lp}{mod}.base_layer.weight"] = t(dout, din)
+                sd[f"{lp}{mod}.lora_A.default.weight"] = t(lora_r, din)
+                sd[f"{lp}{mod}.lora_B.default.weight"] = t(dout, lora_r)
+                if bias:
+                    sd[f"{lp}{mod}.base_layer.bias"] = t(dout)
+            else:
+                sd[f"{lp}{mod}.weight"] = t(dout, din)
+                if bias:
+                    sd[f"{lp}{mod}.bias"] = t(dout)
+    M = cfg.adaptor_mlp_dim
+    sd["adaptors.driving.query_embeds_wps"] = t(1, 20, Hl)
+    sd["adaptors.driving.query_embeds_speed"] = t(1, 10, Hl)
+    for i, (din, dout, bias) in enumerate(((Hl, 2 * M, True), (2 * M, M, True), (M, 2, False))):
+        sd[f"adaptors.driving.route_head.{2 * i}.weight"] = t(dout, din)
+        if bias:
+            sd[f"adaptors.driving.route_head.{2 * i}.bias"] = t(dout)
+    for i, (din, dout, bias) in enumerate(((Hl, M, True), (M, 2, False))):
+        sd[f"adaptors.driving.speed_wps_head.{2 * i}.weight"] = t(dout, din)
+        if bias:
+            sd[f"adaptors.driving.speed_wps_head.{2 * i}.bias"] = t(dout)
+    for i, (din, dout) in enumerate(((2, M), (M, 2 * M), (2 * M, Hl))):
+        sd[f"wp_encoder.mlp.{2 * i}.weight"] = t(dout, din)
+        sd[f"wp_encoder.mlp.{2 * i}.bias"] = t(dout)
+    return {k: x.cpu() for k, x in sd.items()}
+
+
+def disk_expected_per_step(m):
+    """Hand-kernel launches of one training step, reckoned from the shapes:
+    one attention forward and one backward a ViT layer (all 2 x batch tiles
+    in one call) and a LLM layer; three dropout launches (forward, the
+    backward's regenerated mask, dx) for each of the 7 LoRA adapters of a
+    LLM layer."""
+    n_attn = m.vit.num_layers + m.llm.num_layers
+    return {"flash_attn_fwd": n_attn, "flash_attn_bwd": n_attn, "dropout": 3 * 7 * m.llm.num_layers}
+
+
+def host_batch_ms(cfg, torch, dev, steps=(0, 1, 2)):
+    """A batch as the trainer's workers make it (picks, samples, collate,
+    the pinned copy), timed on this thread alone: ms of each part."""
+    import numpy as np
+    from simlingo_tpu_torch.data.collate import CollateConfig, collate, to_device
+    from simlingo_tpu_torch.data.sampler import WeightedBucketSampler
+    from simlingo_tpu_torch.data.tokenizer import SimLingoTokenizer
+    from simlingo_tpu_torch.train import trainer
+    buckets, datasets = trainer.build_buckets(cfg)
+    sampler, tok = WeightedBucketSampler(buckets, seed=cfg.seed), SimLingoTokenizer()
+    ccfg = CollateConfig(max_text_len=cfg.data.max_text_len,
+                         num_image_tokens=cfg.model.vit.tokens_per_patch_image
+                         * cfg.data.base.max_num_grid)
+    out = []
+    for step in steps:
+        t0 = time.perf_counter()
+        rng = np.random.RandomState(cfg.seed * 7919 + step)
+        samples = [datasets[b].get(i, rng)
+                   for b, i in sampler.batch_at(step, cfg.data.batch_size)]
+        t1 = time.perf_counter()
+        ex = collate(samples, tok, ccfg)
+        t2 = time.perf_counter()
+        to_device(ex, dev)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        out.append(dict(samples_ms=(t1 - t0) * 1e3, collate_ms=(t2 - t1) * 1e3,
+                        copy_ms=(t3 - t2) * 1e3))
+    return out
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def disk_training(torch, dev):
+    """`trainer.train` on routes on disk at full width (configs/simlingo.yaml:
+    presets.internvl2_1b(lora=True), batch 6, 768 tokens, the 16 driving
+    buckets and the dreamer mix): 1 + 5 steps with an async checkpoint at
+    step 3, validation and a final checkpoint; a second run resumed from
+    step 3 to step 6 whose losses and final parameters must equal the
+    straight run's; checkpoint size, save (blocking, async) and restore
+    times; then a random trained-SimLingo state dict (InternVL2-1B
+    remote-code names, peft LoRA) written as a .pt, loaded through
+    `hf_checkpoint=` (a sliced qkv leaf and a LoRA-merged leaf checked
+    against the written tensors) and trained 2 steps."""
+    import tempfile
+    import numpy as np
+    from simlingo_tpu_torch.core import checkpoint as ckpt
+    from simlingo_tpu_torch.core.config import compose
+    from simlingo_tpu_torch.data import imageio
+    from simlingo_tpu_torch.train import train_step as ts
+    from simlingo_tpu_torch.train import trainer
+    tag = "[train_disk]"
+    probe = host_probe()
+    log(f"{tag} host: {json.dumps(probe)}")
+    decoder = imageio.decoder()
+    log(f"{tag} JPEG decoder: {decoder[0]}"
+        + (f" (native loader unavailable: {decoder[1]})" if decoder[1] else ""))
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="disk_training_", dir=os.path.join(ROOT, "build"))
+    kernels = kernel_fns()
+    try:
+        t0 = time.perf_counter()
+        write_disk_routes(os.path.join(work, "db"), np)
+        log(f"{tag} routes written in {time.perf_counter() - t0:.2f} s: "
+            f"{[f'{rel} ({n} frames)' for rel, n in DISK_ROUTES]}")
+
+        def cfg_for(out, *extra):
+            return compose("configs/simlingo.yaml", [
+                f"data.data_root={os.path.join(work, 'db')}", "data.base.use_town13=false",
+                f"max_steps={DISK_STEPS}", f"checkpoint_every_n_steps={DISK_CKPT_EVERY}",
+                "val_max_batches=2", "data.num_workers=8", "log_every_n_steps=1",
+                "visualise_every_n_steps=0", f"output_dir={out}", "name=disk", *extra])
+
+        per_step = []
+
+        def count_steps(step, _):
+            if step == 0:
+                torch.cuda.synchronize()
+                for fn in kernels.values():
+                    fn.launches = 0
+            elif step == 4:                       # steps 2-5: no validation inside
+                per_step.append({k: fn.launches / 4 for k, fn in kernels.items()})
+
+        cfg = cfg_for(os.path.join(work, "straight"))
+        m = cfg.model
+        one_thread = host_batch_ms(cfg, torch, dev)
+        log(f"{tag} one batch on one thread (no training running): samples "
+            f"{[round(x['samples_ms'], 1) for x in one_thread]} ms, collate "
+            f"{[round(x['collate_ms'], 1) for x in one_thread]} ms, pack + copy "
+            f"{[round(x['copy_ms'], 1) for x in one_thread]} ms")
+        log(f"{tag} configs/simlingo.yaml: seed {cfg.seed}, batch {cfg.data.batch_size}, "
+            f"{cfg.data.max_text_len} tokens, {len(cfg.data.train_partitions)} driving buckets "
+            f"+ dreamer, workers {cfg.data.num_workers}, ViT {m.vit.num_layers}x"
+            f"{m.vit.hidden_size}, Qwen2 {m.llm.num_layers}x{m.llm.hidden_size}, LoRA r="
+            f"{m.llm.lora_r} dropout {m.llm.lora_dropout}; AdamW lr {cfg.optimizer.lr}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        straight = trainer.train(cfg, device=dev, after_step=count_steps)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+        recs = straight["records"]
+        ok = all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in recs)
+        ok &= len(recs) == DISK_STEPS and math.isfinite(straight["metrics"].get("val_loss", math.nan))
+        timed = recs[1:5]
+        med = lambda xs: sorted(xs)[len(xs) // 2] if len(xs) % 2 else \
+            sum(sorted(xs)[len(xs) // 2 - 1:len(xs) // 2 + 1]) / 2
+        stats = dict(
+            host=probe, decoder=decoder, one_thread_batch=one_thread, records=recs,
+            metrics=straight["metrics"],
+            run_s=run_s, median_step_ms=med([r["ms"] for r in timed]),
+            median_host_batch_ms=med([r["host_ms"] for r in recs]),
+            median_wait_ms=med([r["wait_ms"] for r in timed]), peak_bytes=peak,
+            launches=launches)
+        log(f"{tag} steps: ms {[round(r['ms'], 2) for r in recs]}; median of steps 2-5 "
+            f"{stats['median_step_ms']:.2f} ms ({cfg.data.batch_size * 1e3 / stats['median_step_ms']:.3f} "
+            f"samples/s); host batch ms {[round(r['host_ms'], 1) for r in recs]} (median "
+            f"{stats['median_host_batch_ms']:.1f}, 8 threads); prefetch wait ms "
+            f"{[round(r['wait_ms'], 2) for r in recs]} (median of steps 2-5 "
+            f"{stats['median_wait_ms']:.2f})")
+        log(f"{tag} loss {[round(r['loss'], 5) for r in recs]} grad_norm "
+            f"{[round(r['grad_norm'], 4) for r in recs]} val_loss "
+            f"{straight['metrics'].get('val_loss')} finite={'OK' if ok else 'FAIL'}; "
+            f"whole run {run_s:.2f} s; peak {peak / 2 ** 30:.2f} GiB")
+        want = disk_expected_per_step(m)
+        got = per_step[0] if per_step else {}
+        for name, n in want.items():
+            good = got.get(name) == n
+            ok &= good
+            log(f"{tag} {name}: {got.get(name)} launches a step over steps 2-5, reckoned "
+                f"{n} from the shapes {'OK' if good else 'FAIL'}")
+        log(f"{tag} launches over the whole run (warm-up, 5 steps, validation): {launches}")
+        stats["launches_per_step"] = got
+
+        # -- resume from step 3 in a fresh run directory --
+        res_out = os.path.join(work, "resumed")
+        src = os.path.join(work, "straight", "disk", "checkpoints",
+                           f"step_{DISK_CKPT_EVERY:08d}")
+        os.makedirs(os.path.join(res_out, "disk", "checkpoints"))
+        shutil.copytree(src, os.path.join(res_out, "disk", "checkpoints",
+                                          os.path.basename(src)))
+        stats["checkpoint_bytes"] = _dir_bytes(src)
+        prof = {}
+
+        def profile_window(step, _):
+            from torch.profiler import ProfilerActivity, profile
+            if step == DISK_CKPT_EVERY:
+                torch.cuda.synchronize()
+                prof["p"] = profile(activities=[ProfilerActivity.CUDA])
+                prof["p"].start()
+                prof["t0"] = time.perf_counter()
+            elif step == DISK_CKPT_EVERY + 1:
+                torch.cuda.synchronize()
+                prof["wall"] = (time.perf_counter() - prof["t0"]) * 1e3
+                prof["p"].stop()
+
+        resumed = trainer.train(cfg_for(res_out, "resume=true"), device=dev,
+                                after_step=profile_window)
+        rrecs = resumed["records"]
+        same = [a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+                for a, b in zip(recs[DISK_CKPT_EVERY:], rrecs)]
+        sp, rp = ts.flatten(straight["state"].params), ts.flatten(resumed["state"].params)
+        differ = [p for p, x in sp.items() if not torch.equal(x, rp[p])]
+        good = (len(rrecs) == DISK_STEPS - DISK_CKPT_EVERY and all(same) and not differ
+                and resumed["metrics"].get("val_loss") == straight["metrics"].get("val_loss"))
+        ok &= good
+        log(f"{tag} resumed at step {DISK_CKPT_EVERY}: loss {[r['loss'] for r in rrecs]} vs "
+            f"straight {[r['loss'] for r in recs[DISK_CKPT_EVERY:]]}; val_loss "
+            f"{resumed['metrics'].get('val_loss')} vs {straight['metrics'].get('val_loss')}; "
+            f"{len(differ)} of {len(sp)} parameter leaves differ {differ[:3]} "
+            f"{'OK (bit-identical)' if good else 'FAIL'}")
+        busy = kernel_busy_ms(prof["p"])
+        stats["profile_step"] = dict(wall_ms=prof["wall"], device_busy_ms=busy)
+        log(f"{tag} one resumed step from the prefetch queue to its loss (torch.profiler, "
+            f"CUDA only): wall {prof['wall']:.2f} ms, device busy {busy:.2f} ms "
+            f"({100 * busy / prof['wall']:.1f} %), idle {100 * (1 - busy / prof['wall']):.1f} %")
+
+        # -- checkpoint save / restore times on the straight run's state --
+        state = straight["state"]
+        del resumed, rp
+        cdir = os.path.join(work, "ckpt_timing")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = ckpt.save_checkpoint(cdir, state, 100)
+        stats["save_block_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(cdir, state, 101, block=False)
+        stats["save_async_return_ms"] = (time.perf_counter() - t0) * 1e3
+        ckpt.wait_for_checkpoints()
+        stats["save_async_total_ms"] = (time.perf_counter() - t0) * 1e3
+        before = {p: x.clone() for p, x in sp.items()}
+        t0 = time.perf_counter()
+        ckpt.restore_checkpoint(path, state)
+        torch.cuda.synchronize()
+        stats["restore_ms"] = (time.perf_counter() - t0) * 1e3
+        good = all(torch.equal(before[p], x) for p, x in ts.flatten(state.params).items())
+        ok &= good
+        log(f"{tag} checkpoint {stats['checkpoint_bytes'] / 1e9:.3f} GB "
+            f"({len(os.listdir(path))} files); save blocking {stats['save_block_ms']:.1f} ms, "
+            f"async {stats['save_async_return_ms']:.1f} ms to return (host copy) and "
+            f"{stats['save_async_total_ms']:.1f} ms to disk; restore {stats['restore_ms']:.1f} ms "
+            f"{'OK' if good else 'FAIL (restored state differs)'}")
+        del straight, state, sp, before
+        shutil.rmtree(os.path.join(work, "straight"))
+        shutil.rmtree(cdir)
+        torch.cuda.empty_cache()
+
+        # -- a trained-SimLingo torch checkpoint through hf_checkpoint= --
+        t0 = time.perf_counter()
+        sd = simlingo_state_dict(m, torch, dev)
+        hf_path = os.path.join(work, "pytorch_model.pt")
+        torch.save(sd, hf_path)
+        stats["hf_bytes"] = os.path.getsize(hf_path)
+        log(f"{tag} random trained-SimLingo state dict: {len(sd)} tensors, "
+            f"{stats['hf_bytes'] / 1e9:.3f} GB bf16, written in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        loaded = ts.flatten(ckpt.load_hf_checkpoint(hf_path, m))
+        stats["hf_load_ms"] = (time.perf_counter() - t0) * 1e3
+        H, lv, ll = m.vit.hidden_size, min(3, m.vit.num_layers - 1), min(5, m.llm.num_layers - 1)
+        qkv = sd[f"vision_model.model.vision_model.encoder.layers.{lv}.attn.qkv.weight"].float()
+        pre = f"language_model.model.base_model.model.model.layers.{ll}.self_attn.q_proj."
+        merged = sd[pre + "base_layer.weight"].float() + (m.llm.lora_alpha / m.llm.lora_r) * (
+            sd[pre + "lora_B.default.weight"].float() @ sd[pre + "lora_A.default.weight"].float())
+        err = float((loaded[f"llm/layers/{ll}/attn/q/w"] - merged).abs().max())
+        good = (torch.equal(loaded[f"vision/layers/{lv}/attn/k/w"], qkv[H:2 * H])
+                and err <= 1e-6 * float(merged.abs().max()))
+        ok &= good
+        log(f"{tag} load_hf_checkpoint {stats['hf_load_ms']:.1f} ms: vision k slice of the "
+            f"fused qkv equal, merged LoRA q_proj max err {err:.2e} "
+            f"{'OK' if good else 'FAIL'}")
+        frozen = loaded[f"llm/layers/{ll}/attn/q/w"].to(torch.bfloat16)
+        del sd, loaded
+        hf = trainer.train(cfg_for("", f"hf_checkpoint={hf_path}", "max_steps=2",
+                                   "val_every_n_epochs=0"), device=dev)
+        kept = torch.equal(hf["state"].params["llm"]["layers"][str(ll)]["attn"]["q"]["w"].cpu(),
+                           frozen)
+        good = kept and all(math.isfinite(r["loss"]) for r in hf["records"])
+        ok &= good
+        stats["hf_records"] = hf["records"]
+        log(f"{tag} 2 steps from the checkpoint: loss {[round(r['loss'], 5) for r in hf['records']]}"
+            f", frozen merged leaf kept {kept} {'OK' if good else 'FAIL'}")
+        del hf
+        torch.cuda.empty_cache()
+    finally:
+        ckpt.wait_for_checkpoints()
+        shutil.rmtree(work, ignore_errors=True)
+    return ok, stats
+
+
 def kernel_line(cases, launches):
     """One entry per ported kernel, at a representative shape of its path;
     launches: {path: {kernel: count}} from each path's counted run."""
@@ -2629,14 +3099,17 @@ def run_path_phases(torch, dev, cases) -> int:
     ok, base_launches = run_base_phases(torch, dev, smi)
     if not ok:
         return 1
+    ok, disk_stats = disk_training(torch, dev)
+    if not ok:
+        return 1
     for name, st in (("agent", stats), ("train", train_stats), ("train_gated", gated_stats),
-                     ("train_int8", int8_stats)):
+                     ("train_int8", int8_stats), ("train_disk", disk_stats)):
         with open(os.path.join(ROOT, "chiprun_out", f"chip_smoke_{name}.json"), "w") as f:
             json.dump(dict(st, nvidia_smi=smi), f, indent=1)
     launches = {"serve": stats["launches"], "serve_gated": stats["gated"]["launches"],
                 "train": train_stats["launches"],
                 "train_gated": gated_stats["launches"], "train_int8": int8_stats["launches"],
-                **base_launches}
+                **base_launches, "train_disk": disk_stats["launches"]}
     print(json.dumps(kernel_line(cases, launches)), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2668,6 +3141,8 @@ def main() -> int:
                     help="build, then time the attention forward at forced plans")
     ap.add_argument("--norm-sweep", action="store_true",
                     help="build, then time the norm kernels at forced plans")
+    ap.add_argument("--disk", action="store_true",
+                    help="build, then run the disk-training phase (7) only")
     ap.add_argument("--parent", metavar="DIR",
                     help="also hold the fused CE forward's and the tiled attention "
                          "forward's bits equal to those of the source tree at DIR (e.g. "
@@ -2696,6 +3171,13 @@ def main() -> int:
         return attn_sweep(torch, dev)
     if args.norm_sweep:
         return norm_sweep(torch, dev)
+    if args.disk:
+        ok, st = disk_training(torch, dev)
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_train_disk.json"), "w") as f:
+            json.dump(dict(st, nvidia_smi=smi_line()), f, indent=1)
+        log(f"[train_disk] {'OK' if ok else 'FAILED'} on {smi_line()}")
+        return 0 if ok else 1
 
     # 2. kernels
     cases = []

@@ -1,40 +1,85 @@
-"""Training configuration and dotted `key=value` overrides.
+"""Training configuration: typed dataclasses <- YAML experiment <- dotted overrides.
 
-Counterpart of the parts of `simlingo_tpu/core/config.py` that the
-synthetic training loop reads: `TrainConfig` and the CLI override rule
-(`_coerce`, `_apply`). The YAML overlay, the dataset options, mesh,
-checkpoint and logging fields are not ported (ROADMAP A11-A13, A16).
+Counterpart of `simlingo_tpu/core/config.py`: `MeshConfig`, `DataConfig`
+and `TrainConfig` (:20-70) with the same fields and defaults, `load_yaml`
+(:129: PyYAML, else JSON), `compose` (:139: defaults <- an experiment file
+such as `configs/simlingo.yaml` <- `key=value` overrides) and `to_dict`.
+`compose` also takes the list of overrides as its first argument.
 
-The default model is `presets.internvl2_1b(lora=True)`, the configuration
-the JAX training benchmark runs (`bench.py`), not `SimLingoConfig()`.
+Two differences from JAX: the default model is
+`presets.internvl2_1b(lora=True)`, the configuration the JAX training
+benchmark runs (`bench.py`), not `SimLingoConfig()`; and an unknown key
+raises KeyError. The port runs on one device: `MeshConfig` values that
+mean more than one (`check_single_device`) are refused by the trainer.
 `BaseTrainConfig` holds the fields `train_base.py` reads for SimLingo-Base;
-`compose_base` starts from `presets.simlingo_base()`, the YAML overlay
-that script composes.
+`compose_base` starts from `presets.simlingo_base()`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, List, Optional
+import os
+from typing import Any, Dict, List, Optional, Union
 
 from simlingo_tpu_torch.core import presets
+from simlingo_tpu_torch.data.driving_dataset import DrivingDatasetConfig
 from simlingo_tpu_torch.models.simlingo import SimLingoConfig
 from simlingo_tpu_torch.models.simlingo_base import SimLingoBaseConfig
 from simlingo_tpu_torch.train.train_step import OptimizerConfig
 
 
 @dataclasses.dataclass
+class MeshConfig:
+    dp: int = -1       # -1 => fill remaining devices
+    fsdp: int = 1
+    tp: int = 1
+    sp: int = 1
+    pp: int = 1
+    pp_microbatches: int = 0
+
+    def check_single_device(self) -> None:
+        """The port trains on one device (multi-device training: ROADMAP A13)."""
+        bad = {k: v for k, v in dataclasses.asdict(self).items()
+               if k != "pp_microbatches" and v != 1 and (k, v) != ("dp", -1)}
+        if bad:
+            raise ValueError(f"mesh {bad}: the port trains on one device "
+                             "(dp -1 or 1, every other axis 1)")
+
+
+@dataclasses.dataclass
 class DataConfig:
+    data_root: str = "database/simlingo"
+    bucket_path: Optional[str] = None
     batch_size: int = 6
+    num_workers: int = 8
+    # bucket name -> weight (None => one 'all' bucket)
+    train_partitions: Optional[Dict[str, float]] = None
+    train_partitions_dreamer: Optional[Dict[str, float]] = None
+    use_dreamer: bool = False
     max_text_len: int = 768
+    base: DrivingDatasetConfig = dataclasses.field(
+        default_factory=lambda: DrivingDatasetConfig(data_root=""))
 
 
 @dataclasses.dataclass
 class TrainConfig:
     seed: int = 42
-    max_steps: int = -1                # <= 0: 100 steps
+    name: str = "simlingo_tpu"
+    output_dir: str = "outputs"
+    max_epochs: int = 15
+    max_steps: int = -1                # <= 0: max_epochs (disk) or 100 (synthetic)
+    val_every_n_epochs: int = 2        # 0 disables the validation loop
+    val_max_batches: int = -1          # -1 = the whole validation split
+    checkpoint_every_n_steps: int = 2000
+    keep_checkpoints: int = 3
+    log_every_n_steps: int = 50
+    visualise_every_n_steps: int = 1000
     precision: str = "bf16"            # compute dtype (fp32 masters)
+    resume: bool = False
+    tokenizer_path: Optional[str] = None
+    hf_checkpoint: Optional[str] = None   # initial weights from an HF / torch file
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     model: SimLingoConfig = dataclasses.field(
         default_factory=lambda: presets.internvl2_1b(lora=True))
@@ -47,6 +92,7 @@ class BaseTrainConfig:
     max_steps: int = -1                # <= 0: 100 steps
     log_every_n_steps: int = 50
     precision: str = "bf16"            # compute dtype (fp32 masters)
+    output_dir: Optional[str] = None   # a final checkpoint in <output_dir>/checkpoints
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     model: SimLingoBaseConfig = dataclasses.field(default_factory=SimLingoBaseConfig)
     optimizer: OptimizerConfig = dataclasses.field(default_factory=OptimizerConfig)
@@ -67,16 +113,42 @@ def _coerce(value: str, current: Any) -> Any:
         return value
 
 
-def apply_override(cfg: Any, dotted: str, value: str) -> None:
-    """Set `a.b.c` from a string, coerced to the current value's type (frozen
-    dataclasses included, as the JAX `_apply` does)."""
+def apply_override(cfg: Any, dotted: str, value: Any) -> None:
+    """Set `a.b.c` on dataclasses (frozen ones too, as the JAX `_apply`
+    does) or dicts; a string is coerced to the current value's type."""
     *parents, last = dotted.split(".")
     obj = cfg
     for p in parents:
-        obj = getattr(obj, p)
+        if dataclasses.is_dataclass(obj) and hasattr(obj, p):
+            obj = getattr(obj, p)
+        elif isinstance(obj, dict) and p in obj:
+            obj = obj[p]
+        else:
+            raise KeyError(f"unknown config key {dotted!r}")
+    if isinstance(obj, dict):
+        obj[last] = value
+        return
     if not dataclasses.is_dataclass(obj) or not hasattr(obj, last):
         raise KeyError(f"unknown config key {dotted!r}")
-    object.__setattr__(obj, last, _coerce(value, getattr(obj, last)))
+    if isinstance(value, str):
+        value = _coerce(value, getattr(obj, last))
+    object.__setattr__(obj, last, value)
+
+
+def _apply_tree(cfg: Any, tree: Dict[str, Any], prefix: str = "") -> None:
+    """A nested mapping (a YAML file) onto the config: a dict descends where
+    the target is a dataclass and replaces a plain dict field whole."""
+    for k, v in tree.items():
+        dotted = f"{prefix}{k}"
+        if isinstance(v, dict):
+            target = cfg
+            for p in dotted.split("."):
+                target = getattr(target, p, None) if dataclasses.is_dataclass(target) \
+                    else None
+            if dataclasses.is_dataclass(target):
+                _apply_tree(cfg, v, dotted + ".")
+                continue
+        apply_override(cfg, dotted, v)
 
 
 def _apply_all(cfg, overrides: Optional[List[str]]):
@@ -88,11 +160,42 @@ def _apply_all(cfg, overrides: Optional[List[str]]):
     return cfg
 
 
-def compose(overrides: Optional[List[str]] = None) -> TrainConfig:
-    """TrainConfig defaults <- `key=value` overrides."""
-    return _apply_all(TrainConfig(), overrides)
+def load_yaml(path: str) -> Dict[str, Any]:
+    """PyYAML where it is installed, else the file read as JSON."""
+    try:
+        import yaml
+    except ImportError:
+        with open(path) as f:
+            return json.load(f)
+    with open(path) as f:
+        return yaml.safe_load(f) or {}
+
+
+def compose(experiment: Union[None, str, List[str]] = None,
+            overrides: Optional[List[str]] = None,
+            config_dir: str = "configs") -> TrainConfig:
+    """TrainConfig defaults <- configs/<experiment>.yaml (or a path) <-
+    `key=value` overrides. `compose([...])` takes the list as overrides."""
+    if isinstance(experiment, (list, tuple)):
+        experiment, overrides = None, list(experiment) + list(overrides or [])
+    cfg = TrainConfig()
+    if experiment:
+        path = experiment if os.path.isfile(experiment) else os.path.join(
+            config_dir, f"{experiment}.yaml")
+        _apply_tree(cfg, load_yaml(path))
+    return _apply_all(cfg, overrides)
 
 
 def compose_base(overrides: Optional[List[str]] = None) -> BaseTrainConfig:
     """`presets.simlingo_base()` <- `key=value` overrides."""
     return _apply_all(presets.simlingo_base(), overrides)
+
+
+def to_dict(cfg: Any) -> Any:
+    if dataclasses.is_dataclass(cfg):
+        return {f.name: to_dict(getattr(cfg, f.name)) for f in dataclasses.fields(cfg)}
+    if isinstance(cfg, dict):
+        return {k: to_dict(v) for k, v in cfg.items()}
+    if isinstance(cfg, (list, tuple)):
+        return [to_dict(v) for v in cfg]
+    return cfg

@@ -1,7 +1,9 @@
-"""On-device image preprocessing: hood crop -> cubic resize -> normalize -> tiles.
+"""Image preprocessing: hood crop -> cubic resize -> normalize -> tiles.
 
-Counterpart of `preprocess_device` in `simlingo_tpu/data/image_pipe.py`
-(:104-127). The resize reproduces `jax.image.resize(..., "cubic")`: Keys
+Counterpart of `simlingo_tpu/data/image_pipe.py`: `bottom_crop` (:28) and
+`preprocess_numpy` (:64), the CPU tile path (cv2 bicubic) that a dataset
+takes with `device_preprocess=False`, and `preprocess_device` (:104-127),
+the default, which takes raw uint8 frames on the device. The resize reproduces `jax.image.resize(..., "cubic")`: Keys
 cubic with a = -0.5, half-pixel centres, and -- on a downscale, such as the
 production frame's 1024 -> 896 width -- an antialiasing kernel widened by
 the scale factor, with weights normalized per output pixel. It runs as two
@@ -21,6 +23,12 @@ import torch
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+
+
+def bottom_crop(img: np.ndarray) -> np.ndarray:
+    """Remove the bottom 4.8/16 of the frame (the hood)."""
+    h = img.shape[0]
+    return img[: int(h - (h * 4.8) // 16)]
 
 
 def find_closest_aspect_ratio(aspect_ratio: float, target_ratios, width: int,
@@ -45,6 +53,29 @@ def select_grid(width: int, height: int, image_size: int = 448,
                     key=lambda x: x[0] * x[1])
     return find_closest_aspect_ratio(width / height, ratios, width, height,
                                      image_size)
+
+
+def preprocess_numpy(img: np.ndarray, image_size: int = 448,
+                     max_num: int = 2, use_thumbnail: bool = False,
+                     do_bottom_crop: bool = True) -> np.ndarray:
+    """uint8 HWC RGB frame -> [NP, image_size, image_size, 3] float32 tiles
+    (NP = 2 for the 1024 x 512 camera after the hood crop)."""
+    import cv2
+
+    if do_bottom_crop:
+        img = bottom_crop(img)
+    h, w = img.shape[:2]
+    gw, gh = select_grid(w, h, image_size, max_num=max_num)
+    resized = cv2.resize(img, (image_size * gw, image_size * gh),
+                         interpolation=cv2.INTER_CUBIC)
+    tiles = [resized[(i // gw) * image_size:(i // gw + 1) * image_size,
+                     (i % gw) * image_size:(i % gw + 1) * image_size]
+             for i in range(gw * gh)]
+    if use_thumbnail and len(tiles) > 1:
+        tiles.append(cv2.resize(img, (image_size, image_size),
+                                interpolation=cv2.INTER_CUBIC))
+    out = np.stack(tiles).astype(np.float32) / 255.0
+    return (out - IMAGENET_MEAN) / IMAGENET_STD
 
 
 def device_grid_for(width: int, height: int, image_size: int = 448,

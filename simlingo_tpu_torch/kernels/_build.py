@@ -9,6 +9,9 @@ The libraries go to `build/simlingo_tpu_torch/<hash>/` at the repository
 root, where <hash> covers the sources and the flags, so an edited kernel
 is rebuilt and an unchanged one is loaded from the cache. Nothing is built
 or imported when this module is imported: the first launch builds.
+
+`build_host` compiles a host library (csrc/*.cc, plain C interface) with
+g++ the same way, into `build/simlingo_tpu_torch/host-<hash>/`.
 """
 
 from __future__ import annotations
@@ -81,6 +84,40 @@ def build_all(verbose: bool = False) -> Dict[str, Path]:
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
     return paths
+
+
+HOST_FLAGS = ["-O3", "-march=native", "-ffast-math", "-funroll-loops", "-fPIC",
+              "-fopenmp", "-std=c++17", "-shared"]
+
+
+def build_host(name: str, libs=()) -> Path:
+    """Compile csrc/<name>.cc with g++ (cached by source and flags); returns
+    the library's path. Raises RuntimeError with the compiler's output when
+    the build fails."""
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found (set CXX)")
+    # -march=native: the key holds the CPU g++ targets, so a build/ directory
+    # copied to another machine is rebuilt there, not loaded
+    target = subprocess.run([cxx, "-march=native", "-Q", "--help=target"],
+                            capture_output=True, text=True).stdout
+    src = CSRC / f"{name}.cc"
+    h = hashlib.sha256(" ".join(HOST_FLAGS + list(libs)).encode())
+    h.update(target.encode())
+    h.update(src.read_bytes())
+    out_dir = BUILD_ROOT / f"host-{h.hexdigest()[:16]}"
+    path = out_dir / f"lib{name}.so"
+    if path.exists():
+        return path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"lib{name}.so.{os.getpid()}.{threading.get_ident()}.tmp"
+    proc = subprocess.run([cxx, *HOST_FLAGS, str(src), "-o", str(tmp), *libs],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed on {src.name} (exit {proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, path)
+    return path
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -183,3 +183,22 @@ def make_train_step(model_cfg: SimLingoConfig, opt_cfg: OptimizerConfig,
         return metrics
 
     return train_step
+
+
+def make_eval_step(model_cfg: SimLingoConfig, compute_dtype=torch.bfloat16
+                   ) -> Callable[[Dict[str, Any], DrivingExample],
+                                 Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]]:
+    """eval_step(params, batch) -> (metrics, predictions): `forward_loss`
+    without gradients or dropout, on the bf16 compute copy
+    (`simlingo_tpu/train/train_step.py:make_eval_step` :216); what
+    validation and visualisation run."""
+    def eval_step(params, batch: DrivingExample):
+        with torch.no_grad():
+            out, preds = simlingo.forward_loss(cast_for_compute(params, compute_dtype),
+                                               batch, model_cfg,
+                                               compute_dtype=compute_dtype)
+        metrics = dict(out.loss_averages)
+        metrics["loss"] = out.loss
+        return metrics, preds
+
+    return eval_step

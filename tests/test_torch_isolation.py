@@ -5,6 +5,11 @@ A subprocess blocks those imports, imports every module of the port
 steps with LoRA dropout on the CPU, then two more with both fused-kernel
 gates on, two on an int8 base LLM and two of the tiny SimLingo-Base; an
 entry point built without `device` must refuse on a machine without a GPU.
+A second subprocess, with the same imports blocked, trains the tiny model
+two steps from routes on disk (written by this process beforehand: the
+route writer uses the JAX package's label generators), saves, and resumes
+for a third; `train_torch.py` without `--device cpu` refuses where there
+is no GPU.
 """
 
 import subprocess
@@ -16,8 +21,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 
-SCRIPT = textwrap.dedent("""
-    import importlib, pkgutil, sys
+BLOCK = textwrap.dedent("""
+    import sys
 
     class Block:
         def find_spec(self, name, path=None, target=None):
@@ -28,6 +33,10 @@ SCRIPT = textwrap.dedent("""
             return None
 
     sys.meta_path.insert(0, Block())
+""")
+
+SCRIPT = BLOCK + textwrap.dedent("""
+    import importlib, pkgutil
     import numpy as np
     import torch
     import simlingo_tpu_torch
@@ -71,18 +80,18 @@ SCRIPT = textwrap.dedent("""
     from simlingo_tpu_torch.kernels import dropout as TD
     from simlingo_tpu_torch.train import trainer
     tcfg = compose(["max_steps=2", "data.batch_size=2", "data.max_text_len=96",
-                    "precision=fp32"])
+                    "precision=fp32", "output_dir="])
     tiny = simlingo.SimLingoConfig.tiny()
     tcfg.model = dataclasses.replace(tiny, llm=dataclasses.replace(
         tiny.llm, lora_r=4, lora_alpha=8, lora_dropout=0.1))
-    recs = trainer.train(tcfg, device="cpu")["records"]
+    recs = trainer.train(tcfg, make_synthetic=True, device="cpu")["records"]
     assert len(recs) == 2 and all(np.isfinite(r["loss"]) for r in recs)
     assert TD.dropout.launches == 0          # CPU tensors take the plain version
 
     import os
     from simlingo_tpu_torch.kernels import fused_ce as TCE, layernorm as TLN
     os.environ.update(SIMLINGO_CE_IMPL="pallas", SIMLINGO_LN_IMPL="pallas")
-    gated = trainer.train(tcfg, device="cpu")["records"]
+    gated = trainer.train(tcfg, make_synthetic=True, device="cpu")["records"]
     del os.environ["SIMLINGO_CE_IMPL"], os.environ["SIMLINGO_LN_IMPL"]
     assert len(gated) == 2 and all(np.isfinite(r["loss"]) for r in gated)
     assert abs(gated[0]["loss"] - recs[0]["loss"]) <= 1e-4 * abs(recs[0]["loss"])
@@ -95,7 +104,7 @@ SCRIPT = textwrap.dedent("""
     p8 = simlingo.init_params(tcfg.model, torch.Generator().manual_seed(tcfg.seed),
                               device="cpu")
     p8["llm"] = quantize_llm(p8["llm"])
-    int8 = trainer.train(tcfg, params=p8, device="cpu")["records"]
+    int8 = trainer.train(tcfg, make_synthetic=True, params=p8, device="cpu")["records"]
     assert len(int8) == 2 and all(np.isfinite([r["loss"], r["grad_norm"]]).all()
                                   for r in int8)
     assert abs(int8[0]["loss"] - recs[0]["loss"]) <= 1e-2 * abs(recs[0]["loss"])
@@ -111,7 +120,7 @@ SCRIPT = textwrap.dedent("""
     if not torch.cuda.is_available():
         for build in (lambda: LingoAgent(params, cfg),
                       lambda: simlingo.init_params(cfg, torch.Generator()),
-                      lambda: trainer.train(tcfg),
+                      lambda: trainer.train(tcfg, make_synthetic=True),
                       lambda: trainer.train_base(bcfg),
                       lambda: synthetic_example(tiny, 1, 96)):
             try:
@@ -148,3 +157,60 @@ def test_chip_smoke_refuses_without_gpu(tmp_path):
         stdout, _ = proc.communicate(timeout=120)
         assert proc.returncode != 0
         assert '"ok": true' not in stdout
+
+
+DISK_SCRIPT = BLOCK + textwrap.dedent("""
+    import dataclasses, json, os
+    import numpy as np
+    from simlingo_tpu_torch.core.config import compose
+    from simlingo_tpu_torch.data.tokenizer import SimLingoTokenizer
+    from simlingo_tpu_torch.models import simlingo
+    from simlingo_tpu_torch.models.qwen2 import Qwen2Config
+    from simlingo_tpu_torch.models.vit import ViTConfig
+    from simlingo_tpu_torch.train import trainer
+    from tests import torch_routes as R
+
+    root, out = sys.argv[1], sys.argv[2]
+    tok = SimLingoTokenizer()
+    model = simlingo.SimLingoConfig(
+        vit=ViTConfig(hidden_size=32, num_layers=1, num_heads=2, intermediate_size=64,
+                      image_size=56, patch_size=14, projector_out=32),
+        llm=Qwen2Config(vocab_size=tok.tk.vocab_size + 8, hidden_size=32, num_layers=1,
+                        num_heads=2, num_kv_heads=1, head_dim=16, intermediate_size=64,
+                        lora_r=4, lora_alpha=8, lora_dropout=0.1),
+        img_context_token_id=tok.img_context_id, max_answer_len=64)
+
+    def run(steps, *extra):
+        cfg = compose(R.data_overrides(root, os.path.join(root, "templates"), batch_size=2)
+                      + [f"max_steps={steps}", "precision=fp32", f"output_dir={out}",
+                         "val_max_batches=1", "visualise_every_n_steps=0", *extra])
+        cfg.model = model
+        return trainer.train(cfg, device="cpu")
+
+    first = run(2)
+    assert [r["step"] for r in first["records"]] == [1, 2]
+    assert all(np.isfinite(r["loss"]) for r in first["records"])
+    assert np.isfinite(first["metrics"]["val_loss"])
+    assert os.listdir(os.path.join(out, "simlingo_tpu", "checkpoints")) == ["step_00000002"]
+    again = run(3, "resume=true")
+    assert [r["step"] for r in again["records"]] == [3] and again["state"].step == 3
+    assert not any(m == "simlingo_tpu" or m.startswith(("simlingo_tpu.", "jax", "flax"))
+                   for m in sys.modules), "a blocked module got imported"
+    print("ok")
+""")
+
+
+def test_port_trains_from_disk_without_jax(tmp_path):
+    from tests import torch_routes as R
+    root = tmp_path / "routes"
+    root.mkdir()
+    R.write_dataset(str(root))
+    res = subprocess.run([sys.executable, "-c", DISK_SCRIPT, str(root), str(tmp_path / "out")],
+                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "resumed from" in res.stdout and res.stdout.strip().endswith("ok"), res.stdout
+    if not torch.cuda.is_available():
+        cli = subprocess.run([sys.executable, "train_torch.py", "--synthetic", "max_steps=1",
+                              "output_dir="], cwd=ROOT, capture_output=True, text=True,
+                             timeout=120)
+        assert cli.returncode != 0 and "no CUDA GPU" in cli.stderr, cli.stdout + cli.stderr

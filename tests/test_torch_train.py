@@ -226,12 +226,12 @@ def test_gated_slice_tracks_jax(setup, monkeypatch, check):
 def test_trainer_runs_synthetic_overrides_on_cpu(setup, capsys):
     jcfg, _, _ = setup
     cfg = compose(["max_steps=2", "data.batch_size=2", "data.max_text_len=96",
-                   "precision=fp32", "seed=7"])
+                   "precision=fp32", "seed=7", "output_dir="])
     assert (cfg.max_steps, cfg.data.batch_size, cfg.seed) == (2, 2, 7)
     assert cfg.model.llm.lora_r == 32 and cfg.model.vit.gelu_approximate
     cfg.model = dataclasses.replace(_port_cfg(jcfg), llm=dataclasses.replace(
         _port_cfg(jcfg).llm, lora_dropout=0.1))
-    res = trainer.train(cfg, device="cpu")
+    res = trainer.train(cfg, make_synthetic=True, device="cpu")
     recs = res["records"]
     assert [r["step"] for r in recs] == [1, 2]
     assert all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in recs)

@@ -9,9 +9,10 @@ LLaVA-NeXT CLIP ViT-L/14-336 tower + the tiny LLaMA, seed 42, AdamW lr
 1e-4 with the vision tower at 0.1x, each group clipped to 1.0, OneCycle,
 batch 16) from seeded random weights, a new synthetic batch a step, on the
 GPU. `--tiny` takes the debug-size model. Dotted `key=value` pairs
-override the config (core/config.py BaseTrainConfig). Only `--synthetic`
-exists (the disk data path is not ported), and no checkpoint is saved
-(ROADMAP A11).
+override the config (core/config.py BaseTrainConfig); `output_dir=DIR`
+saves the final state to DIR/checkpoints (core/checkpoint.py). Only
+`--synthetic` exists: the base stack's disk data path is not ported
+(ROADMAP A16).
 """
 
 import argparse
@@ -28,7 +29,8 @@ def main() -> int:
     ap.add_argument("overrides", nargs="*", help="dotted key=value overrides")
     args = ap.parse_args()
     if not args.synthetic:
-        ap.error("only --synthetic training is ported (the disk data path is not)")
+        ap.error("only --synthetic training is ported for SimLingo-Base "
+                 "(its disk data path is not)")
 
     from simlingo_tpu_torch.core.config import compose_base
     from simlingo_tpu_torch.models.simlingo_base import SimLingoBaseConfig

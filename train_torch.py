@@ -1,13 +1,22 @@
 #!/usr/bin/env python3
 """Training entry point of the PyTorch port (simlingo_tpu_torch).
 
+    python3 train_torch.py --experiment configs/simlingo.yaml \\
+        data.data_root=/path/to/database max_steps=1000
     python3 train_torch.py --synthetic max_steps=3 data.batch_size=6
+    python3 train_torch.py --device cpu ...          # the plain PyTorch path
 
-Trains `presets.internvl2_1b(lora=True)` (InternViT-300M + Qwen2-0.5B with
-LoRA r=32, dropout 0.1; base LLM frozen) from seeded random weights on a
-synthetic batch, on the GPU. Dotted `key=value` pairs override the
-TrainConfig (core/config.py), as in train.py. Only `--synthetic` exists:
-the disk data path is not ported yet.
+The counterpart of `train.py`: the TrainConfig (core/config.py; default
+model `presets.internvl2_1b(lora=True)`, InternViT-300M + Qwen2-0.5B with
+LoRA r=32, dropout 0.1, base LLM frozen) <- the experiment YAML <- dotted
+`key=value` overrides. By default it trains from the CARLA dataset under
+`data.data_root` (routes with measurements, rgb frames, commentary, VQA
+and dreamer files) with validation, metrics in
+`<output_dir>/<name>/metrics.jsonl` and checkpoints in
+`<output_dir>/<name>/checkpoints` (`resume=true` continues from the
+newest; `hf_checkpoint=PATH` starts from an InternVL2 / SimLingo torch
+checkpoint). `--synthetic` trains on one synthetic batch instead. Runs on
+the GPU unless `--device cpu`.
 """
 
 import argparse
@@ -16,18 +25,19 @@ import sys
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--experiment", default=None,
+                    help="configs/<name>.yaml (or a path) over the defaults")
     ap.add_argument("--synthetic", action="store_true",
-                    help="train on a synthetic batch (required)")
+                    help="train on a synthetic batch (no dataset needed)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("overrides", nargs="*", help="dotted key=value overrides")
     args = ap.parse_args()
-    if not args.synthetic:
-        ap.error("only --synthetic training is ported (the disk data path is not)")
 
     from simlingo_tpu_torch.core.config import compose
     from simlingo_tpu_torch.train import trainer
 
-    trainer.train(compose(args.overrides), device=args.device)
+    cfg = compose(args.experiment, args.overrides)
+    trainer.train(cfg, make_synthetic=args.synthetic, device=args.device)
     return 0
 
 
