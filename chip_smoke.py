@@ -9,7 +9,8 @@
     python3 chip_smoke.py --ce-sweep    # the fused CE backward at forced segments S
     python3 chip_smoke.py --attn-sweep  # the attention forward at forced plans
     python3 chip_smoke.py --norm-sweep  # the norm kernels at forced plans
-    python3 chip_smoke.py --disk        # training from disk with checkpoints only
+    python3 chip_smoke.py --disk        # training from disk with checkpoints, the
+                                        # leaderboard plugin and the evaluation only
     python3 chip_smoke.py --parent DIR  # ... and the CE forward's, the tiled
                                         # attention forward's and the norm
                                         # forward's bits against the tree at
@@ -22,8 +23,13 @@ Phases, in order; any failure exits non-zero:
   2. kernels: every hand-written kernel at every shape the serving and the
      training paths give it (SimLingo-Base's too: attention `clip`
      [32,577,16,64] and `base_llm` [16,333,8,64] causal, LayerNorm
-     [18464,1024], RMSNorm [5328,512] with dscale), against its plain PyTorch version on the same
-     bf16 inputs (fp32 math) at |err| <= ATOL + RTOL |ref| (the attention
+     [18464,1024], RMSNorm [5328,512] with dscale; the offline
+     evaluation's attention at batch 8 over left-padded prompts as
+     eval_language_torch.py collates phase 7's validation route:
+     `eval_prefill` q[8,T,14,64], `eval_decode` q[8,1,14,64] and
+     `eval_queries` q[8,30,14,64] against T + 130 cache slots, and
+     `eval_vit` [16,1025,16,64] on the batch's tiles), against its plain
+     PyTorch version on the same bf16 inputs (fp32 math) at |err| <= ATOL + RTOL |ref| (the attention
      forward also with its lse, bit-identical across two calls, its path
      -- tiled or split, the splits -- its kernel's ptxas registers and
      sha256 digests of out and lse; the attention
@@ -67,7 +73,7 @@ Phases, in order; any failure exits non-zero:
      speculative) on SimLingoConfig() with seeded random bf16 weights,
      FRAMES frames on a seeded 1024x512 frame, then one use_cot=False
      frame; launch counts of every kernel are reset just before and read
-     just after; then the same frames again with SIMLINGO_LN_IMPL=pallas
+     just after (and each frame's); then the same frames again with SIMLINGO_LN_IMPL=pallas
      (`gated_serving`: frame ms beside the ungated frames', the norm
      kernels' launches a frame, tokens equal and waypoints within 2 % of
      the ungated frames', a profile of one gated speculative frame); with
@@ -92,7 +98,7 @@ Phases, in order; any failure exits non-zero:
      LLaVA-NeXT features, the tiny LLaMA; seed 0): one counted forward at
      batch 16 (flash_attn_fwd 35 launches), BASE_FWD_ITERS timed forwards
      at batch 1 and at batch 16 and one profiled; then train_base_torch's
-     trainer on presets.simlingo_base() (batch 16): 1 warm-up step and
+     trainer on configs/simlingo_base.yaml (batch 16): 1 warm-up step and
      TRAIN_STEPS timed steps, launches counted over them against
      BASE_PER_STEP exactly, peak memory, a profiled step; then the same
      with SIMLINGO_LN_IMPL=pallas (BASE_GATED_PER_STEP), the losses side
@@ -116,15 +122,32 @@ Phases, in order; any failure exits non-zero:
      (InternVL2-1B remote-code names, peft LoRA on q/v) loaded through
      hf_checkpoint= (a qkv slice and a merged LoRA leaf checked against
      the written tensors) and trained 2 steps;
-  8. the {"kernels": [...]} line (eleven kernels, launches per path: serve,
+  8. the CARLA leaderboard plugin (`carla_plugin`, in phase 7's workspace):
+     agent/carla_agent.py under the test doubles of tests/carla_stubs.py,
+     setup() on phase 7's trained-SimLingo checkpoint (the default
+     AgentConfig), PLUGIN_TICKS ticks on phase 4's frame along a straight
+     plan (the first plain CoT, then speculative): tick ms, each tick's
+     launches (flash_attn_fwd and int8_matmul exactly as reckoned from its
+     work, no other kernel; phase 4's frame beside), the metric file
+     (SIMLINGO_METRIC_INFO: a line a tick, equal to the agent's outputs),
+     the scenario record's length and destroy()'s latency stats;
+  9. the offline evaluation (`eval_language`): eval_language_torch.py's
+     main on phase 7's validation route and the straight run's final
+     checkpoint, QA, commentary and Dreaming at batch 8, 100 new tokens,
+     bf16: samples/s, each batch's ms, one-token ms and decode ms/token,
+     flash_attn_fwd launches a batch exactly as reckoned from its work, the
+     first QA batch's prompt validity equal to phase 2's eval cases', the
+     JSONs written, the metrics;
+ 10. the {"kernels": [...]} line (eleven kernels, launches per path: serve,
      serve_gated, train, train_gated, train_int8, base_fwd, base_train,
-     base_train_gated, train_disk), the nvidia-smi line, and the last line
-     {"ok": true, "device": {...}}.
+     base_train_gated, train_disk, carla_plugin, eval_language), the
+     nvidia-smi line, and the last line {"ok": true, "device": {...}}.
 Per-case results also go to chiprun_out/chip_smoke_cases.json, the paths'
 statistics to chip_smoke_agent.json, chip_smoke_train.json,
 chip_smoke_train_gated.json, chip_smoke_train_int8.json,
-chip_smoke_base_{fwd,train,train_gated}.json and chip_smoke_train_disk.json.
-`--disk` runs the build and phase 7 alone.
+chip_smoke_base_{fwd,train,train_gated}.json, chip_smoke_train_disk.json,
+chip_smoke_carla_plugin.json and chip_smoke_eval_language.json. `--disk`
+runs the build and phases 7-9 alone.
 """
 
 from __future__ import annotations
@@ -357,6 +380,48 @@ BASE_ATTENTION = [("clip", 32, 577, 577, 16, 16, False, None, None, False),
                   ("base_llm", 16, 333, 333, 8, 8, True, None, None, False)]
 
 
+# the offline evaluation (phase 9): greedy batches of 8, 100 new tokens,
+# then the 30 driving queries, through Qwen2-0.5B's cache
+EVAL_BATCH = 8
+EVAL_NEW_TOKENS = 100
+EVAL_QUERIES = 30
+EVAL_MODES = ("QA", "commentary", "Dreaming")
+
+
+# the prompt key validity of the evaluation's first QA batch on phase 7's
+# validation route (DISK_ROUTES[2]), as `eval_language_torch.py` collates
+# it: EVAL_BATCH prompts left-padded to EVAL_PROMPT_LEN slots, with these
+# valid tokens a row. Phase 9 holds its first QA batch to it;
+# tests/test_torch_cuda.py reads it.
+EVAL_PROMPT_LEN = 768
+EVAL_PROMPT_TOKENS = (655, 617, 612, 612, 605, 617, 605, 605)
+
+
+def eval_prompt_valid(np):
+    """[EVAL_BATCH, EVAL_PROMPT_LEN] numpy bool: each row's last
+    EVAL_PROMPT_TOKENS slots valid."""
+    valid = np.zeros((EVAL_BATCH, EVAL_PROMPT_LEN), dtype=bool)
+    for b, n in enumerate(EVAL_PROMPT_TOKENS):
+        valid[b, EVAL_PROMPT_LEN - n:] = True
+    return valid
+
+
+def eval_attention_cases(prompt_valid):
+    """Phase 2's cases at the evaluation's shapes: the prefill of the
+    left-padded prompts, the last decode step and the queries, against the
+    cache of T_prompt + EVAL_NEW_TOKENS + EVAL_QUERIES slots ("eval", n: the
+    prompt's validity and the first n slots after it); and the ViT on the
+    batch's 2 tiles a sample."""
+    B, T = prompt_valid.shape
+    S = T + EVAL_NEW_TOKENS + EVAL_QUERIES
+    return [("eval_prefill", B, T, S, 14, 2, True, 0, ("eval", 0), False),
+            ("eval_decode", B, 1, S, 14, 2, True, T + EVAL_NEW_TOKENS - 1,
+             ("eval", EVAL_NEW_TOKENS), False),
+            ("eval_queries", B, EVAL_QUERIES, S, 14, 2, True, T + EVAL_NEW_TOKENS,
+             ("eval", EVAL_NEW_TOKENS + EVAL_QUERIES), False),
+            ("eval_vit", 2 * B, 1025, 1025, 16, 16, False, None, None, True)]
+
+
 def train_llm_valid(torch, dev):
     """kv_valid of the full-width training batch: [text | 30 queries] of
     synthetic_example(batch 6, seq_len 768, 2 tiles, seed 0)."""
@@ -381,16 +446,20 @@ def visible_pairs(torch, dev, B, T, S, causal, q_off, valid):
 
 
 def attention_inputs(torch, dev):
-    """For each phase-2 attention case (`attention_cases`, then the two
-    training shapes): the case, its first inputs (q, k, v, kv_valid) and
-    the timing sets, all drawn from one generator seeded 0. kv_valid is
-    bool, so a timed call includes the wrapper's conversion to uint8, as
-    it has since PR 6. `scripts/fwd_digest.py` takes its inputs from here."""
+    """For each phase-2 attention case (`attention_cases`, the two training
+    shapes, SimLingo-Base's and the evaluation's): the case, its first
+    inputs (q, k, v, kv_valid) and the timing sets, all drawn from one
+    generator seeded 0. kv_valid is bool, so a timed call includes the
+    wrapper's conversion to uint8, so times compare with earlier trees'.
+    `scripts/fwd_digest.py` takes its inputs from here."""
+    import numpy as np
     gen = torch.Generator(device=dev).manual_seed(0)
     D = 64
+    prompt_valid = torch.from_numpy(eval_prompt_valid(np)).to(dev)
     cases = attention_cases() + [
         ("llm_train", 6, 798, 798, 14, 2, True, None, "train", False),
-        ("vit_train", 12, 1025, 1025, 16, 16, False, None, None, True)] + BASE_ATTENTION
+        ("vit_train", 12, 1025, 1025, 16, 16, False, None, None, True)] + BASE_ATTENTION \
+        + eval_attention_cases(prompt_valid)
     train_valid = train_llm_valid(torch, dev)
     for case in cases:
         B, T, S, HQ, HK, _, _, ranges, strided = case[1:]
@@ -411,6 +480,11 @@ def attention_inputs(torch, dev):
             valid = None
             if ranges == "train":
                 valid = train_valid
+            elif isinstance(ranges, tuple):          # ("eval", generated slots valid)
+                T_prompt = prompt_valid.shape[1]
+                valid = torch.zeros(B, S, dtype=torch.bool, device=dev)
+                valid[:, :T_prompt] = prompt_valid
+                valid[:, T_prompt:T_prompt + ranges[1]] = True
             elif ranges is not None:
                 valid = torch.zeros(B, S, dtype=torch.bool, device=dev)
                 for lo, hi in ranges:
@@ -1649,7 +1723,7 @@ def compare_fwd(parent, kernel) -> bool:
         runs.setdefault(tree, []).append(json.loads(line.split(" ", 3)[3]))
     mine, theirs = runs[ROOT], runs[parent]
     equal = True
-    for case in mine[0]["ms"]:
+    for case in [c for c in mine[0]["ms"] if c in theirs[0]["ms"]]:
         a = [r["ms"][case] for r in mine]
         b = [r["ms"][case] for r in theirs]
         same = mine[0]["digests"][case] == theirs[0]["digests"][case]
@@ -1808,11 +1882,16 @@ def full_width(torch, dev, gated_pass=False):
     log(f"[full] agents built + warmed up in {time.perf_counter() - t0:.1f} s")
     frame = _frame(AgentFrame, np)
 
-    # the counted main path: CoT frames (plain, then speculative) + drive_only
+    # the counted main path: CoT frames (plain, then speculative) + drive_only,
+    # with each frame's launches
     FA.flash_attn_fwd.launches = 0
     QM.int8_matmul.launches = 0
-    results = [agent.run_step(frame) for _ in range(FRAMES)]
-    results.append(drive_agent.run_step(frame))
+    results, per_frame = [], []
+    for run in [agent.run_step] * FRAMES + [drive_agent.run_step]:
+        before = (FA.flash_attn_fwd.launches, QM.int8_matmul.launches)
+        results.append(run(frame))
+        per_frame.append({"flash_attn_fwd": FA.flash_attn_fwd.launches - before[0],
+                          "int8_matmul": QM.int8_matmul.launches - before[1]})
     launches = {"flash_attn_fwd": FA.flash_attn_fwd.launches,
                 "int8_matmul": QM.int8_matmul.launches}
 
@@ -1831,12 +1910,18 @@ def full_width(torch, dev, gated_pass=False):
             f"route[-1]={np.round(r['route'][-1], 4).tolist()}  "
             f"finite={'OK' if fin else 'FAIL'}")
     log(f"[full] speculative (rounds, gen_len) per frame: {agent.spec_stats}")
-    log(f"[full] launches on the main path: {launches}")
+    log(f"[full] launches on the main path: {launches}; a frame: {per_frame}")
     for name, n in launches.items():
         if n <= 0:
             log(f"[full] FAIL: kernel {name} was not launched on the main path")
             ok = False
-    cot_spec = [r["latency_s"] * 1e3 for r in results[1:-1]]
+    for i in range(FRAMES):
+        want = serve_launches(cfg, len(results[i].get("language_tokens", [])),
+                              None if i == 0 else agent.spec_stats[i - 1][0])
+        if per_frame[i] != want:
+            log(f"[full] FAIL: frame {i} launches {per_frame[i]}, reckoned {want}")
+            ok = False
+    cot_spec =[r["latency_s"] * 1e3 for r in results[1:-1]]
 
     # decode ms/token: the same frame through the plain generator with 100
     # vs 1 new tokens (prefill and queries cancel out)
@@ -1865,7 +1950,8 @@ def full_width(torch, dev, gated_pass=False):
                  frame_ms_drive_only=results[-1]["latency_s"] * 1e3,
                  tokens_per_frame=[len(r.get("language_tokens", [])) for r in results[:-1]],
                  spec_stats=agent.spec_stats, decode_ms_per_token=decode_ms,
-                 generate_profile=gen_profile, launches=launches, gated=gated)
+                 generate_profile=gen_profile, launches=launches,
+                 launches_per_frame=per_frame, gated=gated)
     return ok, stats, agent, frame
 
 
@@ -2485,10 +2571,10 @@ def base_forward(torch, dev):
 
 
 def base_training(torch, dev, gated=False):
-    """`train_base_torch`'s trainer on presets.simlingo_base() (batch 16, a
-    new synthetic batch a step from seed 0): 1 warm-up step, TRAIN_STEPS
-    timed steps (launches counted over them), peak memory, and a profile
-    of one more step. `gated`: with SIMLINGO_LN_IMPL=pallas set in the
+    """`train_base_torch`'s trainer on configs/simlingo_base.yaml (batch 16,
+    a new synthetic batch a step from seed 0; nothing written): 1 warm-up
+    step, TRAIN_STEPS timed steps (launches counted over them), peak
+    memory, and a profile of one more step. `gated`: with SIMLINGO_LN_IMPL=pallas set in the
     process environment (restored afterwards)."""
     import dataclasses
     from simlingo_tpu_torch.core.config import compose_base
@@ -2502,8 +2588,9 @@ def base_training(torch, dev, gated=False):
             for fn in kernels.values():
                 fn.launches = 0
 
-    cfg = compose_base([f"max_steps={1 + TRAIN_STEPS}", "seed=0"])
-    log(f"{tag} presets.simlingo_base(): batch {cfg.data.batch_size}, 2 tiles of "
+    cfg = compose_base("configs/simlingo_base.yaml",
+                       [f"max_steps={1 + TRAIN_STEPS}", "seed=0", "output_dir="])
+    log(f"{tag} configs/simlingo_base.yaml: batch {cfg.data.batch_size}, 2 tiles of "
         f"{cfg.model.clip.image_size}, vision lr x 0.1, no remat; "
         f"AdamW {dataclasses.asdict(cfg.optimizer)}")
     torch.cuda.empty_cache()
@@ -2615,11 +2702,12 @@ def host_probe():
     return dict(modules=mods, gxx=ver, jpeglib_h=jpeglib, nvjpeg_h=nvjpeg, df_tmp=df)
 
 
-def write_disk_routes(root, np):
-    """Two training routes of 40 frames and a validation route of 30 in the
-    dataset's layout: gz JSON measurements (a gentle left curve at 5 m/s,
-    4 Hz), results.json.gz, commentary, VQA and dreamer files, and rgb/ and
-    rgb_augmented/ frames copied from tests/data/torch_frames/."""
+def write_disk_routes(root, np, routes=DISK_ROUTES):
+    """`routes` (by default two training routes of 40 frames and a
+    validation route of 30) in the dataset's layout: gz JSON measurements
+    (a gentle left curve at 5 m/s, 4 Hz), results.json.gz, commentary, VQA
+    and dreamer files, and rgb/ and rgb_augmented/ frames copied from
+    tests/data/torch_frames/."""
     import glob
     import gzip
     frames = [open(p, "rb").read() for p in
@@ -2631,7 +2719,8 @@ def write_disk_routes(root, np):
         with gzip.open(path, "wt") as f:
             json.dump(obj, f)
 
-    for r, (rel, n) in enumerate(DISK_ROUTES):
+    for rel, n in routes:
+        r = [rel_ for rel_, _ in DISK_ROUTES].index(rel)
         route = os.path.join(root, "data", "simlingo", "v1", "b0", rel)
         for sub in ("measurements", "rgb", "rgb_augmented", "commentary", "vqa", "dreamer"):
             os.makedirs(os.path.join(route, sub))
@@ -2792,7 +2881,7 @@ def _dir_bytes(path):
     return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
 
 
-def disk_training(torch, dev):
+def disk_training(torch, dev, work):
     """`trainer.train` on routes on disk at full width (configs/simlingo.yaml:
     presets.internvl2_1b(lora=True), batch 6, 768 tokens, the 16 driving
     buckets and the dreamer mix): 1 + 5 steps with an async checkpoint at
@@ -2802,8 +2891,10 @@ def disk_training(torch, dev):
     times; then a random trained-SimLingo state dict (InternVL2-1B
     remote-code names, peft LoRA) written as a .pt, loaded through
     `hf_checkpoint=` (a sliced qkv leaf and a LoRA-merged leaf checked
-    against the written tensors) and trained 2 steps."""
-    import tempfile
+    against the written tensors) and trained 2 steps. All of it in `work`,
+    which the caller removes; returns (ok, stats, {"final_checkpoint":
+    the straight run's last step, "hf_checkpoint": the .pt}) for phases 8
+    and 9."""
     import numpy as np
     from simlingo_tpu_torch.core import checkpoint as ckpt
     from simlingo_tpu_torch.core.config import compose
@@ -2816,200 +2907,464 @@ def disk_training(torch, dev):
     decoder = imageio.decoder()
     log(f"{tag} JPEG decoder: {decoder[0]}"
         + (f" (native loader unavailable: {decoder[1]})" if decoder[1] else ""))
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    work = tempfile.mkdtemp(prefix="disk_training_", dir=os.path.join(ROOT, "build"))
     kernels = kernel_fns()
+    t0 = time.perf_counter()
+    write_disk_routes(os.path.join(work, "db"), np)
+    log(f"{tag} routes written in {time.perf_counter() - t0:.2f} s: "
+        f"{[f'{rel} ({n} frames)' for rel, n in DISK_ROUTES]}")
+
+    def cfg_for(out, *extra):
+        return compose("configs/simlingo.yaml", [
+            f"data.data_root={os.path.join(work, 'db')}", "data.base.use_town13=false",
+            f"max_steps={DISK_STEPS}", f"checkpoint_every_n_steps={DISK_CKPT_EVERY}",
+            "val_max_batches=2", "data.num_workers=8", "log_every_n_steps=1",
+            "visualise_every_n_steps=0", f"output_dir={out}", "name=disk", *extra])
+
+    per_step = []
+
+    def count_steps(step, _):
+        if step == 0:
+            torch.cuda.synchronize()
+            for fn in kernels.values():
+                fn.launches = 0
+        elif step == 4:                       # steps 2-5: no validation inside
+            per_step.append({k: fn.launches / 4 for k, fn in kernels.items()})
+
+    cfg = cfg_for(os.path.join(work, "straight"))
+    m = cfg.model
+    one_thread = host_batch_ms(cfg, torch, dev)
+    log(f"{tag} one batch on one thread (no training running): samples "
+        f"{[round(x['samples_ms'], 1) for x in one_thread]} ms, collate "
+        f"{[round(x['collate_ms'], 1) for x in one_thread]} ms, pack + copy "
+        f"{[round(x['copy_ms'], 1) for x in one_thread]} ms")
+    log(f"{tag} configs/simlingo.yaml: seed {cfg.seed}, batch {cfg.data.batch_size}, "
+        f"{cfg.data.max_text_len} tokens, {len(cfg.data.train_partitions)} driving buckets "
+        f"+ dreamer, workers {cfg.data.num_workers}, ViT {m.vit.num_layers}x"
+        f"{m.vit.hidden_size}, Qwen2 {m.llm.num_layers}x{m.llm.hidden_size}, LoRA r="
+        f"{m.llm.lora_r} dropout {m.llm.lora_dropout}; AdamW lr {cfg.optimizer.lr}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    straight = trainer.train(cfg, device=dev, after_step=count_steps)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    recs = straight["records"]
+    ok = all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in recs)
+    ok &= len(recs) == DISK_STEPS and math.isfinite(straight["metrics"].get("val_loss", math.nan))
+    timed = recs[1:5]
+    med = lambda xs: sorted(xs)[len(xs) // 2] if len(xs) % 2 else \
+        sum(sorted(xs)[len(xs) // 2 - 1:len(xs) // 2 + 1]) / 2
+    stats = dict(
+        host=probe, decoder=decoder, one_thread_batch=one_thread, records=recs,
+        metrics=straight["metrics"],
+        run_s=run_s, median_step_ms=med([r["ms"] for r in timed]),
+        median_host_batch_ms=med([r["host_ms"] for r in recs]),
+        median_wait_ms=med([r["wait_ms"] for r in timed]), peak_bytes=peak,
+        launches=launches)
+    log(f"{tag} steps: ms {[round(r['ms'], 2) for r in recs]}; median of steps 2-5 "
+        f"{stats['median_step_ms']:.2f} ms ({cfg.data.batch_size * 1e3 / stats['median_step_ms']:.3f} "
+        f"samples/s); host batch ms {[round(r['host_ms'], 1) for r in recs]} (median "
+        f"{stats['median_host_batch_ms']:.1f}, 8 threads); prefetch wait ms "
+        f"{[round(r['wait_ms'], 2) for r in recs]} (median of steps 2-5 "
+        f"{stats['median_wait_ms']:.2f})")
+    log(f"{tag} loss {[round(r['loss'], 5) for r in recs]} grad_norm "
+        f"{[round(r['grad_norm'], 4) for r in recs]} val_loss "
+        f"{straight['metrics'].get('val_loss')} finite={'OK' if ok else 'FAIL'}; "
+        f"whole run {run_s:.2f} s; peak {peak / 2 ** 30:.2f} GiB")
+    want = disk_expected_per_step(m)
+    got = per_step[0] if per_step else {}
+    for name, n in want.items():
+        good = got.get(name) == n
+        ok &= good
+        log(f"{tag} {name}: {got.get(name)} launches a step over steps 2-5, reckoned "
+            f"{n} from the shapes {'OK' if good else 'FAIL'}")
+    log(f"{tag} launches over the whole run (warm-up, 5 steps, validation): {launches}")
+    stats["launches_per_step"] = got
+
+    # -- resume from step 3 in a fresh run directory --
+    res_out = os.path.join(work, "resumed")
+    src = os.path.join(work, "straight", "disk", "checkpoints",
+                       f"step_{DISK_CKPT_EVERY:08d}")
+    os.makedirs(os.path.join(res_out, "disk", "checkpoints"))
+    shutil.copytree(src, os.path.join(res_out, "disk", "checkpoints",
+                                      os.path.basename(src)))
+    stats["checkpoint_bytes"] = _dir_bytes(src)
+    prof = {}
+
+    def profile_window(step, _):
+        from torch.profiler import ProfilerActivity, profile
+        if step == DISK_CKPT_EVERY:
+            torch.cuda.synchronize()
+            prof["p"] = profile(activities=[ProfilerActivity.CUDA])
+            prof["p"].start()
+            prof["t0"] = time.perf_counter()
+        elif step == DISK_CKPT_EVERY + 1:
+            torch.cuda.synchronize()
+            prof["wall"] = (time.perf_counter() - prof["t0"]) * 1e3
+            prof["p"].stop()
+
+    resumed = trainer.train(cfg_for(res_out, "resume=true"), device=dev,
+                            after_step=profile_window)
+    rrecs = resumed["records"]
+    same = [a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+            for a, b in zip(recs[DISK_CKPT_EVERY:], rrecs)]
+    sp, rp = ts.flatten(straight["state"].params), ts.flatten(resumed["state"].params)
+    differ = [p for p, x in sp.items() if not torch.equal(x, rp[p])]
+    good = (len(rrecs) == DISK_STEPS - DISK_CKPT_EVERY and all(same) and not differ
+            and resumed["metrics"].get("val_loss") == straight["metrics"].get("val_loss"))
+    ok &= good
+    log(f"{tag} resumed at step {DISK_CKPT_EVERY}: loss {[r['loss'] for r in rrecs]} vs "
+        f"straight {[r['loss'] for r in recs[DISK_CKPT_EVERY:]]}; val_loss "
+        f"{resumed['metrics'].get('val_loss')} vs {straight['metrics'].get('val_loss')}; "
+        f"{len(differ)} of {len(sp)} parameter leaves differ {differ[:3]} "
+        f"{'OK (bit-identical)' if good else 'FAIL'}")
+    busy = kernel_busy_ms(prof["p"])
+    stats["profile_step"] = dict(wall_ms=prof["wall"], device_busy_ms=busy)
+    log(f"{tag} one resumed step from the prefetch queue to its loss (torch.profiler, "
+        f"CUDA only): wall {prof['wall']:.2f} ms, device busy {busy:.2f} ms "
+        f"({100 * busy / prof['wall']:.1f} %), idle {100 * (1 - busy / prof['wall']):.1f} %")
+
+    # -- checkpoint save / restore times on the straight run's state --
+    state = straight["state"]
+    del resumed, rp
+    cdir = os.path.join(work, "ckpt_timing")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = ckpt.save_checkpoint(cdir, state, 100)
+    stats["save_block_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint(cdir, state, 101, block=False)
+    stats["save_async_return_ms"] = (time.perf_counter() - t0) * 1e3
+    ckpt.wait_for_checkpoints()
+    stats["save_async_total_ms"] = (time.perf_counter() - t0) * 1e3
+    before = {p: x.clone() for p, x in sp.items()}
+    t0 = time.perf_counter()
+    ckpt.restore_checkpoint(path, state)
+    torch.cuda.synchronize()
+    stats["restore_ms"] = (time.perf_counter() - t0) * 1e3
+    good = all(torch.equal(before[p], x) for p, x in ts.flatten(state.params).items())
+    ok &= good
+    log(f"{tag} checkpoint {stats['checkpoint_bytes'] / 1e9:.3f} GB "
+        f"({len(os.listdir(path))} files); save blocking {stats['save_block_ms']:.1f} ms, "
+        f"async {stats['save_async_return_ms']:.1f} ms to return (host copy) and "
+        f"{stats['save_async_total_ms']:.1f} ms to disk; restore {stats['restore_ms']:.1f} ms "
+        f"{'OK' if good else 'FAIL (restored state differs)'}")
+    del straight, state, sp, before
+    shutil.rmtree(cdir)
+    torch.cuda.empty_cache()
+
+    # -- a trained-SimLingo torch checkpoint through hf_checkpoint= --
+    t0 = time.perf_counter()
+    sd = simlingo_state_dict(m, torch, dev)
+    hf_path = os.path.join(work, "pytorch_model.pt")
+    torch.save(sd, hf_path)
+    stats["hf_bytes"] = os.path.getsize(hf_path)
+    log(f"{tag} random trained-SimLingo state dict: {len(sd)} tensors, "
+        f"{stats['hf_bytes'] / 1e9:.3f} GB bf16, written in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    loaded = ts.flatten(ckpt.load_hf_checkpoint(hf_path, m))
+    stats["hf_load_ms"] = (time.perf_counter() - t0) * 1e3
+    H, lv, ll = m.vit.hidden_size, min(3, m.vit.num_layers - 1), min(5, m.llm.num_layers - 1)
+    qkv = sd[f"vision_model.model.vision_model.encoder.layers.{lv}.attn.qkv.weight"].float()
+    pre = f"language_model.model.base_model.model.model.layers.{ll}.self_attn.q_proj."
+    merged = sd[pre + "base_layer.weight"].float() + (m.llm.lora_alpha / m.llm.lora_r) * (
+        sd[pre + "lora_B.default.weight"].float() @ sd[pre + "lora_A.default.weight"].float())
+    err = float((loaded[f"llm/layers/{ll}/attn/q/w"] - merged).abs().max())
+    good = (torch.equal(loaded[f"vision/layers/{lv}/attn/k/w"], qkv[H:2 * H])
+            and err <= 1e-6 * float(merged.abs().max()))
+    ok &= good
+    log(f"{tag} load_hf_checkpoint {stats['hf_load_ms']:.1f} ms: vision k slice of the "
+        f"fused qkv equal, merged LoRA q_proj max err {err:.2e} "
+        f"{'OK' if good else 'FAIL'}")
+    frozen = loaded[f"llm/layers/{ll}/attn/q/w"].to(torch.bfloat16)
+    del sd, loaded
+    hf = trainer.train(cfg_for("", f"hf_checkpoint={hf_path}", "max_steps=2",
+                               "val_every_n_epochs=0"), device=dev)
+    kept = torch.equal(hf["state"].params["llm"]["layers"][str(ll)]["attn"]["q"]["w"].cpu(),
+                       frozen)
+    good = kept and all(math.isfinite(r["loss"]) for r in hf["records"])
+    ok &= good
+    stats["hf_records"] = hf["records"]
+    log(f"{tag} 2 steps from the checkpoint: loss {[round(r['loss'], 5) for r in hf['records']]}"
+        f", frozen merged leaf kept {kept} {'OK' if good else 'FAIL'}")
+    del hf
+    torch.cuda.empty_cache()
+    final = os.path.join(work, "straight", "disk", "checkpoints", f"step_{DISK_STEPS:08d}")
+    return ok, stats, {"final_checkpoint": final, "hf_checkpoint": hf_path}
+
+
+# ---------------------------------------------------------------------------
+# Phases 8-9: the evaluation entry points, in phase 7's workspace
+# ---------------------------------------------------------------------------
+
+PLUGIN_TICKS = 4            # the first plain CoT, then speculative
+
+
+def serve_launches(m, gen_len, rounds=None):
+    """The hand kernels' launches of one serving frame of the int8 agent,
+    reckoned from its work. LLM passes: the prefill, each decode step
+    (plain: gen_len of them) or each speculative round and the flush, and
+    the queries. flash_attn_fwd: a launch a ViT layer (both tiles in one
+    call) and a launch an LLM layer a pass. int8_matmul: a launch a
+    quantized linear of a layer a pass, and one for the head each time
+    logits are taken (plain: before each decode step; speculative: after
+    the prefill and each round)."""
+    from simlingo_tpu_torch.core.quantize import _LLM_LINEARS
+    llm_passes = 1 + (gen_len if rounds is None else rounds + 1) + 1
+    heads = gen_len if rounds is None else rounds + 1
+    return {"flash_attn_fwd": m.vit.num_layers + m.llm.num_layers * llm_passes,
+            "int8_matmul": len(_LLM_LINEARS) * m.llm.num_layers * llm_passes + heads}
+
+
+def carla_plugin(torch, dev, hf_path, work, per_frame=None):
+    """Phase 8: the leaderboard plugin (`agent/carla_agent.py`) under the
+    CARLA test doubles of tests/carla_stubs.py: `setup()` on the random
+    trained-SimLingo checkpoint of phase 7 (presets.internvl2_1b(), the
+    default AgentConfig: CoT, int8 LLM, speculative), the metric file and
+    the scenario records on; PLUGIN_TICKS ticks on phase 4's frame (as the
+    camera's BGRA) along a straight plan at 4 m/s. Each tick's ms and
+    hand-kernel launches (held exactly to `serve_launches` of its work;
+    phase 4's frame, `per_frame`, beside where it ran), the metric file's
+    lines against the agent's outputs,
+    the records' length and `destroy()`'s latency stats."""
+    import gzip
+    import importlib
+    import importlib.util
+    import numpy as np
+    from simlingo_tpu_torch.agent.agent import AgentFrame
+    # by path: another installed `tests` package may shadow the repo's
+    spec = importlib.util.spec_from_file_location(
+        "carla_stubs", os.path.join(ROOT, "tests", "carla_stubs.py"))
+    stubs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(stubs)
+    tag = "[carla_plugin]"
+    kernels = kernel_fns()
+    env = {"SIMLINGO_METRIC_INFO": os.path.join(work, "plugin_metrics.jsonl"),
+           "SIMLINGO_RECORD_DIR": os.path.join(work, "plugin_records")}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    stubs.install_stubs()
+    import simlingo_tpu_torch.agent.carla_agent as plugin_mod
+    plugin_mod = importlib.reload(plugin_mod)
     try:
+        plugin = plugin_mod.SimLingoTorchAgent()
         t0 = time.perf_counter()
-        write_disk_routes(os.path.join(work, "db"), np)
-        log(f"{tag} routes written in {time.perf_counter() - t0:.2f} s: "
-            f"{[f'{rel} ({n} frames)' for rel, n in DISK_ROUTES]}")
-
-        def cfg_for(out, *extra):
-            return compose("configs/simlingo.yaml", [
-                f"data.data_root={os.path.join(work, 'db')}", "data.base.use_town13=false",
-                f"max_steps={DISK_STEPS}", f"checkpoint_every_n_steps={DISK_CKPT_EVERY}",
-                "val_max_batches=2", "data.num_workers=8", "log_every_n_steps=1",
-                "visualise_every_n_steps=0", f"output_dir={out}", "name=disk", *extra])
-
-        per_step = []
-
-        def count_steps(step, _):
-            if step == 0:
-                torch.cuda.synchronize()
-                for fn in kernels.values():
-                    fn.launches = 0
-            elif step == 4:                       # steps 2-5: no validation inside
-                per_step.append({k: fn.launches / 4 for k, fn in kernels.items()})
-
-        cfg = cfg_for(os.path.join(work, "straight"))
-        m = cfg.model
-        one_thread = host_batch_ms(cfg, torch, dev)
-        log(f"{tag} one batch on one thread (no training running): samples "
-            f"{[round(x['samples_ms'], 1) for x in one_thread]} ms, collate "
-            f"{[round(x['collate_ms'], 1) for x in one_thread]} ms, pack + copy "
-            f"{[round(x['copy_ms'], 1) for x in one_thread]} ms")
-        log(f"{tag} configs/simlingo.yaml: seed {cfg.seed}, batch {cfg.data.batch_size}, "
-            f"{cfg.data.max_text_len} tokens, {len(cfg.data.train_partitions)} driving buckets "
-            f"+ dreamer, workers {cfg.data.num_workers}, ViT {m.vit.num_layers}x"
-            f"{m.vit.hidden_size}, Qwen2 {m.llm.num_layers}x{m.llm.hidden_size}, LoRA r="
-            f"{m.llm.lora_r} dropout {m.llm.lora_dropout}; AdamW lr {cfg.optimizer.lr}")
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        for fn in kernels.values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        straight = trainer.train(cfg, device=dev, after_step=count_steps)
+        plugin.setup(hf_path, route_index=0)
         torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-        launches = {k: fn.launches for k, fn in kernels.items()}
-        peak = torch.cuda.max_memory_allocated()
-        recs = straight["records"]
-        ok = all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in recs)
-        ok &= len(recs) == DISK_STEPS and math.isfinite(straight["metrics"].get("val_loss", math.nan))
-        timed = recs[1:5]
-        med = lambda xs: sorted(xs)[len(xs) // 2] if len(xs) % 2 else \
-            sum(sorted(xs)[len(xs) // 2 - 1:len(xs) // 2 + 1]) / 2
-        stats = dict(
-            host=probe, decoder=decoder, one_thread_batch=one_thread, records=recs,
-            metrics=straight["metrics"],
-            run_s=run_s, median_step_ms=med([r["ms"] for r in timed]),
-            median_host_batch_ms=med([r["host_ms"] for r in recs]),
-            median_wait_ms=med([r["wait_ms"] for r in timed]), peak_bytes=peak,
-            launches=launches)
-        log(f"{tag} steps: ms {[round(r['ms'], 2) for r in recs]}; median of steps 2-5 "
-            f"{stats['median_step_ms']:.2f} ms ({cfg.data.batch_size * 1e3 / stats['median_step_ms']:.3f} "
-            f"samples/s); host batch ms {[round(r['host_ms'], 1) for r in recs]} (median "
-            f"{stats['median_host_batch_ms']:.1f}, 8 threads); prefetch wait ms "
-            f"{[round(r['wait_ms'], 2) for r in recs]} (median of steps 2-5 "
-            f"{stats['median_wait_ms']:.2f})")
-        log(f"{tag} loss {[round(r['loss'], 5) for r in recs]} grad_norm "
-            f"{[round(r['grad_norm'], 4) for r in recs]} val_loss "
-            f"{straight['metrics'].get('val_loss')} finite={'OK' if ok else 'FAIL'}; "
-            f"whole run {run_s:.2f} s; peak {peak / 2 ** 30:.2f} GiB")
-        want = disk_expected_per_step(m)
-        got = per_step[0] if per_step else {}
-        for name, n in want.items():
-            good = got.get(name) == n
-            ok &= good
-            log(f"{tag} {name}: {got.get(name)} launches a step over steps 2-5, reckoned "
-                f"{n} from the shapes {'OK' if good else 'FAIL'}")
-        log(f"{tag} launches over the whole run (warm-up, 5 steps, validation): {launches}")
-        stats["launches_per_step"] = got
+        setup_s = time.perf_counter() - t0
+        agent = plugin.agent
+        m, acfg = agent.model_cfg, agent.cfg
+        log(f"{tag} {plugin_mod.get_entry_point()}.setup({os.path.basename(hf_path)}) in "
+            f"{setup_s:.1f} s (load_hf_checkpoint, LoRA merged, int8 LLM, warm-up): "
+            f"AgentConfig() use_cot={acfg.use_cot} int8_llm={acfg.int8_llm} "
+            f"speculative_cot={acfg.speculative_cot} spec_k={acfg.spec_k} jpeg_roundtrip="
+            f"{acfg.jpeg_roundtrip}; initial_frames_delay {acfg.initial_frames_delay} set to 0 "
+            f"(the settling ticks infer nothing)")
+        acfg.initial_frames_delay = 0
+        plugin._global_plan_world_coord = [((4.0 * i, 0.0, 0.0), 4) for i in range(60)]
+        rgb = _frame(AgentFrame, np).rgb
+        bgra = np.concatenate([rgb[:, :, ::-1], np.full((*rgb.shape[:2], 1), 255, np.uint8)], -1)
+        outs, ticks = [], []
+        inner = agent.run_step
 
-        # -- resume from step 3 in a fresh run directory --
-        res_out = os.path.join(work, "resumed")
-        src = os.path.join(work, "straight", "disk", "checkpoints",
-                           f"step_{DISK_CKPT_EVERY:08d}")
-        os.makedirs(os.path.join(res_out, "disk", "checkpoints"))
-        shutil.copytree(src, os.path.join(res_out, "disk", "checkpoints",
-                                          os.path.basename(src)))
-        stats["checkpoint_bytes"] = _dir_bytes(src)
-        prof = {}
-
-        def profile_window(step, _):
-            from torch.profiler import ProfilerActivity, profile
-            if step == DISK_CKPT_EVERY:
-                torch.cuda.synchronize()
-                prof["p"] = profile(activities=[ProfilerActivity.CUDA])
-                prof["p"].start()
-                prof["t0"] = time.perf_counter()
-            elif step == DISK_CKPT_EVERY + 1:
-                torch.cuda.synchronize()
-                prof["wall"] = (time.perf_counter() - prof["t0"]) * 1e3
-                prof["p"].stop()
-
-        resumed = trainer.train(cfg_for(res_out, "resume=true"), device=dev,
-                                after_step=profile_window)
-        rrecs = resumed["records"]
-        same = [a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
-                for a, b in zip(recs[DISK_CKPT_EVERY:], rrecs)]
-        sp, rp = ts.flatten(straight["state"].params), ts.flatten(resumed["state"].params)
-        differ = [p for p, x in sp.items() if not torch.equal(x, rp[p])]
-        good = (len(rrecs) == DISK_STEPS - DISK_CKPT_EVERY and all(same) and not differ
-                and resumed["metrics"].get("val_loss") == straight["metrics"].get("val_loss"))
-        ok &= good
-        log(f"{tag} resumed at step {DISK_CKPT_EVERY}: loss {[r['loss'] for r in rrecs]} vs "
-            f"straight {[r['loss'] for r in recs[DISK_CKPT_EVERY:]]}; val_loss "
-            f"{resumed['metrics'].get('val_loss')} vs {straight['metrics'].get('val_loss')}; "
-            f"{len(differ)} of {len(sp)} parameter leaves differ {differ[:3]} "
-            f"{'OK (bit-identical)' if good else 'FAIL'}")
-        busy = kernel_busy_ms(prof["p"])
-        stats["profile_step"] = dict(wall_ms=prof["wall"], device_busy_ms=busy)
-        log(f"{tag} one resumed step from the prefetch queue to its loss (torch.profiler, "
-            f"CUDA only): wall {prof['wall']:.2f} ms, device busy {busy:.2f} ms "
-            f"({100 * busy / prof['wall']:.1f} %), idle {100 * (1 - busy / prof['wall']):.1f} %")
-
-        # -- checkpoint save / restore times on the straight run's state --
-        state = straight["state"]
-        del resumed, rp
-        cdir = os.path.join(work, "ckpt_timing")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        path = ckpt.save_checkpoint(cdir, state, 100)
-        stats["save_block_ms"] = (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        ckpt.save_checkpoint(cdir, state, 101, block=False)
-        stats["save_async_return_ms"] = (time.perf_counter() - t0) * 1e3
-        ckpt.wait_for_checkpoints()
-        stats["save_async_total_ms"] = (time.perf_counter() - t0) * 1e3
-        before = {p: x.clone() for p, x in sp.items()}
-        t0 = time.perf_counter()
-        ckpt.restore_checkpoint(path, state)
-        torch.cuda.synchronize()
-        stats["restore_ms"] = (time.perf_counter() - t0) * 1e3
-        good = all(torch.equal(before[p], x) for p, x in ts.flatten(state.params).items())
-        ok &= good
-        log(f"{tag} checkpoint {stats['checkpoint_bytes'] / 1e9:.3f} GB "
-            f"({len(os.listdir(path))} files); save blocking {stats['save_block_ms']:.1f} ms, "
-            f"async {stats['save_async_return_ms']:.1f} ms to return (host copy) and "
-            f"{stats['save_async_total_ms']:.1f} ms to disk; restore {stats['restore_ms']:.1f} ms "
-            f"{'OK' if good else 'FAIL (restored state differs)'}")
-        del straight, state, sp, before
-        shutil.rmtree(os.path.join(work, "straight"))
-        shutil.rmtree(cdir)
-        torch.cuda.empty_cache()
-
-        # -- a trained-SimLingo torch checkpoint through hf_checkpoint= --
-        t0 = time.perf_counter()
-        sd = simlingo_state_dict(m, torch, dev)
-        hf_path = os.path.join(work, "pytorch_model.pt")
-        torch.save(sd, hf_path)
-        stats["hf_bytes"] = os.path.getsize(hf_path)
-        log(f"{tag} random trained-SimLingo state dict: {len(sd)} tensors, "
-            f"{stats['hf_bytes'] / 1e9:.3f} GB bf16, written in {time.perf_counter() - t0:.2f} s")
-        t0 = time.perf_counter()
-        loaded = ts.flatten(ckpt.load_hf_checkpoint(hf_path, m))
-        stats["hf_load_ms"] = (time.perf_counter() - t0) * 1e3
-        H, lv, ll = m.vit.hidden_size, min(3, m.vit.num_layers - 1), min(5, m.llm.num_layers - 1)
-        qkv = sd[f"vision_model.model.vision_model.encoder.layers.{lv}.attn.qkv.weight"].float()
-        pre = f"language_model.model.base_model.model.model.layers.{ll}.self_attn.q_proj."
-        merged = sd[pre + "base_layer.weight"].float() + (m.llm.lora_alpha / m.llm.lora_r) * (
-            sd[pre + "lora_B.default.weight"].float() @ sd[pre + "lora_A.default.weight"].float())
-        err = float((loaded[f"llm/layers/{ll}/attn/q/w"] - merged).abs().max())
-        good = (torch.equal(loaded[f"vision/layers/{lv}/attn/k/w"], qkv[H:2 * H])
-                and err <= 1e-6 * float(merged.abs().max()))
-        ok &= good
-        log(f"{tag} load_hf_checkpoint {stats['hf_load_ms']:.1f} ms: vision k slice of the "
-            f"fused qkv equal, merged LoRA q_proj max err {err:.2e} "
-            f"{'OK' if good else 'FAIL'}")
-        frozen = loaded[f"llm/layers/{ll}/attn/q/w"].to(torch.bfloat16)
-        del sd, loaded
-        hf = trainer.train(cfg_for("", f"hf_checkpoint={hf_path}", "max_steps=2",
-                                   "val_every_n_epochs=0"), device=dev)
-        kept = torch.equal(hf["state"].params["llm"]["layers"][str(ll)]["attn"]["q"]["w"].cpu(),
-                           frozen)
-        good = kept and all(math.isfinite(r["loss"]) for r in hf["records"])
-        ok &= good
-        stats["hf_records"] = hf["records"]
-        log(f"{tag} 2 steps from the checkpoint: loss {[round(r['loss'], 5) for r in hf['records']]}"
-            f", frozen merged leaf kept {kept} {'OK' if good else 'FAIL'}")
-        del hf
-        torch.cuda.empty_cache()
+        def capture(frame):
+            outs.append(inner(frame))
+            return outs[-1]
+        agent.run_step = capture
+        for i in range(PLUGIN_TICKS):
+            data = {"rgb_front": (i, bgra), "gps": (i, stubs.gps_for_carla_xy(0.2 * i, 0.0)),
+                    "imu": (i, np.zeros(7)), "speed": (i, {"speed": 4.0})}
+            torch.cuda.synchronize()
+            for fn in kernels.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            ctrl = plugin.run_step(data, timestamp=0.05 * i)
+            torch.cuda.synchronize()
+            ticks.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                              launches={k: fn.launches for k, fn in kernels.items()
+                                        if fn.launches},
+                              control=[ctrl.steer, ctrl.throttle, ctrl.brake]))
+        spec = list(agent.spec_stats)
+        latency = agent.latency_stats()
+        plugin.destroy()
     finally:
-        ckpt.wait_for_checkpoints()
-        shutil.rmtree(work, ignore_errors=True)
-    return ok, stats
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        for name in ("carla", "leaderboard", "leaderboard.autoagents",
+                     "leaderboard.autoagents.autonomous_agent", "srunner",
+                     "srunner.scenariomanager", "srunner.scenariomanager.carla_data_provider"):
+            sys.modules.pop(name, None)
+        importlib.reload(plugin_mod)
+
+    ok = True
+    for i, (t, out) in enumerate(zip(ticks, outs)):
+        gen_len = len(out["language_tokens"])
+        rounds = None if i == 0 else spec[i - 1][0]
+        want = serve_launches(m, gen_len, rounds)
+        good = t["launches"] == want and math.isfinite(sum(t["control"]))
+        fin = (np.isfinite(out["route"]).all() and out["route"].shape == (20, 2)
+               and out["speed_wps"].shape == (10, 2))
+        ok &= good and bool(fin)
+        t.update(tokens=gen_len, rounds=rounds, reckoned=want)
+        same = "phase 4 not run"
+        if per_frame is not None:
+            p4_work = (per_frame["tokens"][i], None if i == 0 else per_frame["spec"][i - 1][0])
+            same = (f"phase 4's frame {i} (tokens, rounds) {p4_work}: "
+                    f"{per_frame['launches'][i]}")
+        log(f"{tag} tick {i} {'cot_plain' if i == 0 else 'cot_spec':9s} {t['ms']:9.2f} ms "
+            f"tokens={gen_len} rounds={rounds} control={[round(c, 4) for c in t['control']]} "
+            f"launches {t['launches']} (reckoned {want} {'OK' if good else 'FAIL'}); {same}")
+    with open(env["SIMLINGO_METRIC_INFO"]) as f:
+        lines = [json.loads(x) for x in f]
+    match = len(lines) == PLUGIN_TICKS and all(
+        ln["language"] == agent.tok.decode(out["language_tokens"]) and ln["steer"] == out["steer"]
+        and ln["throttle"] == out["throttle"] and ln["brake"] == out["brake"]
+        for ln, out in zip(lines, outs))
+    with gzip.open(os.path.join(env["SIMLINGO_RECORD_DIR"], "0", "records.json.gz"), "rt") as f:
+        record = json.load(f)
+    recorded = len(record["states"]) == len(record["ego_actions"]) == PLUGIN_TICKS
+    ok &= match and recorded
+    log(f"{tag} metric file: {len(lines)} lines for {PLUGIN_TICKS} ticks, each equal to the "
+        f"agent's output (language from its tokens, steer, throttle, brake) "
+        f"{'OK' if match else 'FAIL'}; latency_ms {[round(x['latency_ms'], 2) for x in lines]}")
+    log(f"{tag} records.json.gz: {len(record['states'])} states, "
+        f"{len(record['ego_actions'])} ego actions {'OK' if recorded else 'FAIL'}; "
+        f"destroy(): latency {latency}; speculative (rounds, gen_len) {spec}")
+    launches = {}
+    for t in ticks:
+        for k, n in t["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    return ok, dict(setup_s=setup_s, ticks=ticks, spec_stats=spec, latency=latency,
+                    metric_lines=lines, record_states=len(record["states"]),
+                    launches=launches)
+
+
+def eval_language(torch, dev, work, checkpoint):
+    """Phase 9: `eval_language_torch.py`'s main on phase 7's validation
+    route alone (a data root linking to it) and the straight run's final
+    checkpoint, in each mode (QA, commentary, Dreaming) at batch
+    EVAL_BATCH, EVAL_NEW_TOKENS new tokens, bf16. Each batch's
+    `generate_and_drive` is timed (synchronised) with its flash_attn_fwd
+    launches, held exactly to the count reckoned from its work (a ViT
+    launch a layer, then an LLM launch a layer for the prefill, each
+    decode step and the queries); then the same batch with one new token
+    (the ViT, prefill, one step and the queries), so decode ms/token =
+    (ms - one-token ms) / (steps - 1); the first batch also profiled at 1
+    and GEN_PROFILE_TOKENS new tokens (device busy a decoded token). The
+    JSONs written, the metrics and the dreamer results."""
+    import dataclasses
+    import numpy as np
+    import eval_language_torch as ELT
+    from simlingo_tpu_torch.infer import runner
+    tag = "[eval_language]"
+    rel = os.path.join("data", "simlingo", "v1", "b0", DISK_ROUTES[2][0])
+    root = os.path.join(work, "eval_db")
+    os.makedirs(os.path.dirname(os.path.join(root, rel)))
+    os.symlink(os.path.join(work, "db", rel), os.path.join(root, rel))
+    kernels = kernel_fns()
+    generate = runner.generate_and_drive
+    batches = []
+
+    def timed(params, di, model_cfg, gen_cfg, compute_dtype=torch.bfloat16, generator=None):
+        B = di.prompt_inference.ids.shape[0]
+        torch.cuda.synchronize()
+        before = {k: fn.launches for k, fn in kernels.items()}
+        t0 = time.perf_counter()
+        out = generate(params, di, model_cfg, gen_cfg, compute_dtype, generator)
+        steps = int(out.language_lengths.max())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: fn.launches - before[k] for k, fn in kernels.items()
+                    if fn.launches - before[k]}
+        t0 = time.perf_counter()
+        generate(params, di, model_cfg, dataclasses.replace(gen_cfg, max_new_tokens=1),
+                 compute_dtype, generator)
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t0) * 1e3
+        m = model_cfg
+        prompt_valid = di.prompt_inference.valid.cpu().numpy()
+        batches.append(dict(ms=ms, one_token_ms=one_ms, steps=steps, launches=launches,
+                            lengths=out.language_lengths.tolist(),
+                            shape=list(di.prompt_inference.ids.shape),
+                            prompt_tokens=prompt_valid.sum(1).tolist(),
+                            phase2_prompt=bool(np.array_equal(prompt_valid,
+                                                              eval_prompt_valid(np))),
+                            flash_reckoned=m.vit.num_layers + m.llm.num_layers * (steps + 2)))
+        if len(batches) == 1:        # the first batch: device time a decoded token
+            prof = [device_profile(torch, lambda n=n: generate(
+                params, di, model_cfg, dataclasses.replace(gen_cfg, max_new_tokens=n),
+                compute_dtype, generator), f"eval generate at batch {B}, {n} new token(s)")
+                for n in (1, GEN_PROFILE_TOKENS)]
+            per = (GEN_PROFILE_TOKENS - 1)
+            batches[0]["profile_per_token"] = dict(
+                busy_ms=(prof[1]["device_busy_ms"] - prof[0]["device_busy_ms"]) / per,
+                wall_ms=(prof[1]["wall_ms"] - prof[0]["wall_ms"]) / per,
+                one_token=prof[0], n_tokens=prof[1])
+            log(f"{tag} a decoded token at batch {B} (profiled, {GEN_PROFILE_TOKENS} vs 1 "
+                f"new tokens): device busy {batches[0]['profile_per_token']['busy_ms']:.3f} ms "
+                f"of {batches[0]['profile_per_token']['wall_ms']:.3f} ms wall")
+        return out
+
+    ok, modes = True, {}
+    runner.generate_and_drive = timed
+    try:
+        for mode in EVAL_MODES:
+            out_dir = os.path.join(work, f"eval_{mode}")
+            first = len(batches)
+            t0 = time.perf_counter()
+            res = ELT.main(["--checkpoint", checkpoint, "--mode", mode, "--data-root", root,
+                            "--output-dir", out_dir, "--batch-size", str(EVAL_BATCH)])
+            wall = time.perf_counter() - t0
+            mine = batches[first:]
+            with open(os.path.join(out_dir, "language_preds_all.json")) as f:
+                n = len(json.load(f))
+            files = sorted(os.listdir(out_dir))
+            gen_ms = sum(b["ms"] for b in mine)
+            stat = dict(samples=n, wall_s=wall, batches=mine, files=files,
+                        samples_per_s=n * 1e3 / gen_ms, metrics=res["metrics"],
+                        dreamer=res.get("dreamer"))
+            want = {"eval_results.json", "language_preds_all.json", "language_preds_cot.json",
+                    "language_preds_qa.json"} | ({"dreamer_results.json"} if mode == "Dreaming"
+                                                 else set())
+            good = n > 0 and want <= set(files) and all(
+                math.isfinite(v) for v in res["metrics"].values())
+            for b in mine:
+                flash = b["launches"].get("flash_attn_fwd", 0)
+                b["decode_ms_per_token"] = (b["ms"] - b["one_token_ms"]) / max(b["steps"] - 1, 1)
+                exact = flash == b["flash_reckoned"] and b["shape"][0] == EVAL_BATCH
+                good &= exact
+                log(f"{tag} {mode} batch {b['shape']}: {b['ms']:.2f} ms, {b['steps']} steps "
+                    f"(lengths {b['lengths']}); one new token {b['one_token_ms']:.2f} ms -> "
+                    f"decode {b['decode_ms_per_token']:.3f} ms/token at batch {b['shape'][0]}; "
+                    f"launches {b['launches']} (flash_attn_fwd reckoned "
+                    f"{b['flash_reckoned']} {'OK' if exact else 'FAIL'})")
+            if mode == "QA":        # the prompts phase 2's eval cases stand for
+                first_ok = bool(mine) and mine[0]["phase2_prompt"]
+                good &= first_ok
+                log(f"{tag} QA batch 0 prompt validity: {mine[0]['shape'] if mine else None}, "
+                    f"valid tokens {mine[0]['prompt_tokens'] if mine else None} against "
+                    f"phase 2's {[EVAL_BATCH, EVAL_PROMPT_LEN]}, {list(EVAL_PROMPT_TOKENS)} "
+                    f"{'EQUAL' if first_ok else 'DIFFERS: FAIL'}")
+            ok &= good
+            log(f"{tag} {mode}: {n} samples, {stat['samples_per_s']:.3f} samples/s in "
+                f"generate, main {wall:.2f} s (checkpoint restore, dataset, eval); files "
+                f"{files} {'OK' if good else 'FAIL'}; metrics {res['metrics']}"
+                + (f"; dreamer {res['dreamer']}" if "dreamer" in res else ""))
+            modes[mode] = stat
+    finally:
+        runner.generate_and_drive = generate
+    launches = {}
+    for b in batches:
+        for k, v in b["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return ok, dict(modes=modes, launches=launches)
 
 
 def kernel_line(cases, launches):
@@ -3064,6 +3419,31 @@ def smi_line():
                           text=True, check=True).stdout.strip().splitlines()[0]
 
 
+def disk_and_eval_phases(torch, dev, per_frame=None):
+    """Phases 7, 8 and 9 in one workspace under build/, removed after;
+    returns (ok, phase 7's stats, {"carla_plugin": ..., "eval_language":
+    ...}) with a phase's stats only where it ran."""
+    import tempfile
+    from simlingo_tpu_torch.core import checkpoint as ckpt
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="disk_training_", dir=os.path.join(ROOT, "build"))
+    after = {}
+    try:
+        ok, disk_stats, written = disk_training(torch, dev, work)
+        if ok:
+            ok, after["carla_plugin"] = carla_plugin(torch, dev, written["hf_checkpoint"],
+                                                     work, per_frame)
+            torch.cuda.empty_cache()
+        if ok:
+            ok, after["eval_language"] = eval_language(torch, dev, work,
+                                                       written["final_checkpoint"])
+            torch.cuda.empty_cache()
+    finally:
+        ckpt.wait_for_checkpoints()
+        shutil.rmtree(work, ignore_errors=True)
+    return ok, disk_stats, after
+
+
 def run_path_phases(torch, dev, cases) -> int:
     if not (small_model_agreement(torch, dev) and small_training_agreement(torch, dev)
             and small_training_agreement(torch, dev, gated=True)
@@ -3099,17 +3479,23 @@ def run_path_phases(torch, dev, cases) -> int:
     ok, base_launches = run_base_phases(torch, dev, smi)
     if not ok:
         return 1
-    ok, disk_stats = disk_training(torch, dev)
+    per_frame = dict(launches=stats["launches_per_frame"], tokens=stats["tokens_per_frame"],
+                     spec=stats["spec_stats"])
+    ok, disk_stats, eval_stats = disk_and_eval_phases(torch, dev, per_frame)
     if not ok:
         return 1
     for name, st in (("agent", stats), ("train", train_stats), ("train_gated", gated_stats),
-                     ("train_int8", int8_stats), ("train_disk", disk_stats)):
+                     ("train_int8", int8_stats), ("train_disk", disk_stats),
+                     ("carla_plugin", eval_stats["carla_plugin"]),
+                     ("eval_language", eval_stats["eval_language"])):
         with open(os.path.join(ROOT, "chiprun_out", f"chip_smoke_{name}.json"), "w") as f:
             json.dump(dict(st, nvidia_smi=smi), f, indent=1)
     launches = {"serve": stats["launches"], "serve_gated": stats["gated"]["launches"],
                 "train": train_stats["launches"],
                 "train_gated": gated_stats["launches"], "train_int8": int8_stats["launches"],
-                **base_launches, "train_disk": disk_stats["launches"]}
+                **base_launches, "train_disk": disk_stats["launches"],
+                "carla_plugin": eval_stats["carla_plugin"]["launches"],
+                "eval_language": eval_stats["eval_language"]["launches"]}
     print(json.dumps(kernel_line(cases, launches)), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3142,7 +3528,8 @@ def main() -> int:
     ap.add_argument("--norm-sweep", action="store_true",
                     help="build, then time the norm kernels at forced plans")
     ap.add_argument("--disk", action="store_true",
-                    help="build, then run the disk-training phase (7) only")
+                    help="build, then run the disk-training phase (7) and, in its "
+                         "workspace, the plugin (8) and the evaluation (9) only")
     ap.add_argument("--parent", metavar="DIR",
                     help="also hold the fused CE forward's and the tiled attention "
                          "forward's bits equal to those of the source tree at DIR (e.g. "
@@ -3172,11 +3559,12 @@ def main() -> int:
     if args.norm_sweep:
         return norm_sweep(torch, dev)
     if args.disk:
-        ok, st = disk_training(torch, dev)
+        ok, st, after = disk_and_eval_phases(torch, dev)
         os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-        with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_train_disk.json"), "w") as f:
-            json.dump(dict(st, nvidia_smi=smi_line()), f, indent=1)
-        log(f"[train_disk] {'OK' if ok else 'FAILED'} on {smi_line()}")
+        for name, stats in (("train_disk", st), *after.items()):
+            with open(os.path.join(ROOT, "chiprun_out", f"chip_smoke_{name}.json"), "w") as f:
+                json.dump(dict(stats, nvidia_smi=smi_line()), f, indent=1)
+        log(f"[train_disk] phases 7-9 {'OK' if ok else 'FAILED'} on {smi_line()}")
         return 0 if ok else 1
 
     # 2. kernels

@@ -7,12 +7,18 @@ or action-only) -> prefill + cached decode (plain greedy on the first CoT
 frame, speculative after it) + driving-query forward -> PID control, with
 stuck detection and creep. At construction LoRA is merged, the LLM is
 quantized to int8, and every floating weight except the int8 scales is cast
-to the compute dtype once.
+to the compute dtype once. With `SIMLINGO_METRIC_INFO` set, the file it
+names is opened for appending at construction and every inferred tick
+writes and flushes one JSON line: step, steer, throttle, brake, speed,
+latency_ms and language (`simlingo_tpu/agent/agent.py:130-133, 289-297`);
+`close()` closes it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -98,6 +104,14 @@ class LingoAgent:
         self.latencies: list = []
         self.last_control = (0.0, 0.0, False)
         self.last_language = ""
+        self.metric_path = os.environ.get("SIMLINGO_METRIC_INFO")
+        self._metric_file = open(self.metric_path, "a") if self.metric_path else None
+
+    def close(self) -> None:
+        """Close the metric file, if one is open."""
+        if self._metric_file is not None:
+            self._metric_file.close()
+            self._metric_file = None
 
     # ------------------------------------------------------------------
     def _preprocessed(self, di: DrivingInput) -> DrivingInput:
@@ -243,6 +257,12 @@ class LingoAgent:
         latency = time.perf_counter() - t0
         self.latencies.append(latency)
         self.last_control = (steer, throttle, brake)
+        if self._metric_file is not None:
+            self._metric_file.write(json.dumps({
+                "step": self.step_count, "steer": steer, "throttle": throttle,
+                "brake": brake, "speed": float(frame.speed),
+                "latency_ms": latency * 1e3, "language": self.last_language}) + "\n")
+            self._metric_file.flush()
         return {"steer": steer, "throttle": throttle, "brake": brake,
                 "route": route, "speed_wps": speed_wps,
                 "language": self.last_language,

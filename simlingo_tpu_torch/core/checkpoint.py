@@ -136,7 +136,9 @@ def _gc_checkpoints(ckpt_dir: str, keep: int) -> None:
 def restore_checkpoint(path: str, state):
     """Load a checkpoint into `state` in place (the parameters are copied
     into the existing tensors, so their devices and dtypes stay) and return
-    it. Raises on a missing, extra or differently shaped leaf."""
+    it. Raises on a missing, extra or differently shaped leaf. A state whose
+    `optimizer` is None takes the parameters and the step only (evaluation:
+    a template of the trained leaves' dtypes)."""
     saved = torch.load(os.path.join(path, "params.pt"), map_location="cpu",
                        weights_only=True)
     leaves = flatten(state.params)
@@ -151,8 +153,9 @@ def restore_checkpoint(path: str, state):
                                  f"{tuple(saved[p].shape)}, the state's {x.dtype} "
                                  f"{tuple(x.shape)}")
             x.copy_(saved[p])
-    state.optimizer.load_state_dict(torch.load(
-        os.path.join(path, "optimizer.pt"), map_location="cpu", weights_only=True))
+    if state.optimizer is not None:
+        state.optimizer.load_state_dict(torch.load(
+            os.path.join(path, "optimizer.pt"), map_location="cpu", weights_only=True))
     with open(os.path.join(path, "meta.json")) as f:
         state.step = int(json.load(f)["step"])
     return state

@@ -11,8 +11,10 @@ Two differences from JAX: the default model is
 benchmark runs (`bench.py`), not `SimLingoConfig()`; and an unknown key
 raises KeyError. The port runs on one device: `MeshConfig` values that
 mean more than one (`check_single_device`) are refused by the trainer.
-`BaseTrainConfig` holds the fields `train_base.py` reads for SimLingo-Base;
-`compose_base` starts from `presets.simlingo_base()`.
+`BaseTrainConfig` holds the fields of `TrainConfig` that `train_base.py`
+reads for SimLingo-Base, with the same defaults (its model is
+`SimLingoBaseConfig()`); `compose_base` composes it as `train_base.py:40`
+composes `TrainConfig` (defaults <- experiment <- overrides).
 """
 
 from __future__ import annotations
@@ -89,10 +91,14 @@ class TrainConfig:
 @dataclasses.dataclass
 class BaseTrainConfig:
     seed: int = 42
+    name: str = "simlingo_tpu"
+    # the run writes <output_dir>/<name>_base/config.json and its final
+    # checkpoint under checkpoints/ there; "" writes nothing
+    output_dir: str = "outputs"
+    max_epochs: int = 15               # read by no synthetic run (as in train_base.py)
     max_steps: int = -1                # <= 0: 100 steps
     log_every_n_steps: int = 50
     precision: str = "bf16"            # compute dtype (fp32 masters)
-    output_dir: Optional[str] = None   # a final checkpoint in <output_dir>/checkpoints
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     model: SimLingoBaseConfig = dataclasses.field(default_factory=SimLingoBaseConfig)
     optimizer: OptimizerConfig = dataclasses.field(default_factory=OptimizerConfig)
@@ -171,14 +177,9 @@ def load_yaml(path: str) -> Dict[str, Any]:
         return yaml.safe_load(f) or {}
 
 
-def compose(experiment: Union[None, str, List[str]] = None,
-            overrides: Optional[List[str]] = None,
-            config_dir: str = "configs") -> TrainConfig:
-    """TrainConfig defaults <- configs/<experiment>.yaml (or a path) <-
-    `key=value` overrides. `compose([...])` takes the list as overrides."""
+def _compose(cfg, experiment, overrides, config_dir):
     if isinstance(experiment, (list, tuple)):
         experiment, overrides = None, list(experiment) + list(overrides or [])
-    cfg = TrainConfig()
     if experiment:
         path = experiment if os.path.isfile(experiment) else os.path.join(
             config_dir, f"{experiment}.yaml")
@@ -186,9 +187,20 @@ def compose(experiment: Union[None, str, List[str]] = None,
     return _apply_all(cfg, overrides)
 
 
-def compose_base(overrides: Optional[List[str]] = None) -> BaseTrainConfig:
-    """`presets.simlingo_base()` <- `key=value` overrides."""
-    return _apply_all(presets.simlingo_base(), overrides)
+def compose(experiment: Union[None, str, List[str]] = None,
+            overrides: Optional[List[str]] = None,
+            config_dir: str = "configs") -> TrainConfig:
+    """TrainConfig defaults <- configs/<experiment>.yaml (or a path) <-
+    `key=value` overrides. `compose([...])` takes the list as overrides."""
+    return _compose(TrainConfig(), experiment, overrides, config_dir)
+
+
+def compose_base(experiment: Union[None, str, List[str]] = None,
+                 overrides: Optional[List[str]] = None,
+                 config_dir: str = "configs") -> BaseTrainConfig:
+    """BaseTrainConfig defaults <- an experiment (e.g.
+    configs/simlingo_base.yaml) <- overrides, as `compose`."""
+    return _compose(BaseTrainConfig(), experiment, overrides, config_dir)
 
 
 def to_dict(cfg: Any) -> Any:

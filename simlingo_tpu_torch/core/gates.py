@@ -1,12 +1,23 @@
 """Readers for the kernel gates the port honours (SIMLINGO_*).
 
-Counterpart of `simlingo_tpu/core/gates.py`, restricted to the two gates
-the port implements. They read the same environment variables, take the
-same values and have the same defaults as JAX, so one setting drives both
-packages (the parity tests rely on it):
+Counterpart of `simlingo_tpu/core/gates.py`, which reads five gates:
+SIMLINGO_ATTN_IMPL, SIMLINGO_CE_IMPL, SIMLINGO_DROPOUT_V2,
+SIMLINGO_LN_IMPL and SIMLINGO_LORA_FUSED. The port reads two of them, the
+two that choose between a hand kernel and the eager path. They read the
+same environment variables, take the same values and have the same
+defaults as JAX, so one setting drives both packages (the parity tests
+rely on it):
 
   SIMLINGO_CE_IMPL  xla | pallas | pallas_dw   (default xla)
   SIMLINGO_LN_IMPL  xla | pallas               (default xla)
+
+The other three mean nothing in the port, and `resolved()` does not
+report them: attention always runs the port's kernel on a CUDA tensor
+(SIMLINGO_ATTN_IMPL picks among JAX's backends), dropout is the port's
+one Philox kernel (SIMLINGO_DROPOUT_V2 picks among JAX's two), and the
+LoRA products are never fused with the base linear (SIMLINGO_LORA_FUSED,
+off in JAX, changes its group dropout masks). A printed gate state of
+the port is not JAX's.
 
 In the port, `pallas` means the hand-written CUDA kernel on a CUDA tensor
 and its plain PyTorch version on a CPU tensor (`kernels/fused_ce.py`,

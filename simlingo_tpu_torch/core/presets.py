@@ -7,12 +7,14 @@ linears). The ViT uses the tanh form of GELU, as the JAX preset does.
 The port has no remat, so the preset is the JAX one with remat off (the
 training benchmark's default, `bench.py`).
 
-`simlingo_base` is the base trainer's configuration: the YAML overlay
-`configs/simlingo_base.yaml` that `train_base.py` composes, written out
-here because the port reads no YAML.
+`simlingo_base` is the base trainer's configuration: the experiment
+`configs/simlingo_base.yaml` composed over `BaseTrainConfig()`, as
+`train_base.py --experiment configs/simlingo_base.yaml` composes it.
 """
 
 from __future__ import annotations
+
+import os
 
 from simlingo_tpu_torch.models.qwen2 import Qwen2Config
 from simlingo_tpu_torch.models.simlingo import SimLingoConfig
@@ -34,11 +36,13 @@ def internvl2_1b(lora: bool = True, vocab_size: int = 151674) -> SimLingoConfig:
     )
 
 
+SIMLINGO_BASE_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                  "..", "..", "configs", "simlingo_base.yaml")
+
+
 def simlingo_base():
-    """`configs/simlingo_base.yaml:5-15` over the defaults: seed 42, AdamW
+    """`configs/simlingo_base.yaml` over `BaseTrainConfig()`: seed 42, AdamW
     lr 1e-4, OneCycle pct_start 0.05, grad clip 1.0, batch 16; the model is
     `SimLingoBaseConfig()` (LLaVA-NeXT CLIP tower, tiny LLaMA)."""
-    from simlingo_tpu_torch.core.config import BaseTrainConfig, DataConfig
-    from simlingo_tpu_torch.train.train_step import OptimizerConfig
-    return BaseTrainConfig(seed=42, data=DataConfig(batch_size=16),
-                           optimizer=OptimizerConfig(lr=1e-4, pct_start=0.05, grad_clip=1.0))
+    from simlingo_tpu_torch.core.config import compose_base
+    return compose_base(os.path.normpath(SIMLINGO_BASE_YAML))

@@ -11,12 +11,22 @@ RoPE positions are content-relative (n_valid + step); causal masking is
 slot-order with q_offset = the chunk's first cache slot. The JAX
 `lax.while_loop` becomes a Python loop that stops when every row has
 emitted eos: one host sync per generated token.
+
+Token selection (`sample_categorical`) follows JAX's order and tie rules:
+the restriction masks the logits first (before the greedy argmax too);
+then, when sampling, top-k keeps every logit >= the k-th largest (ties
+included) before the temperature divides; top-p keeps the sorted tokens
+while the cumulative probability before them is <= top_p (the first one
+always) and then every logit >= the smallest kept one (ties included). The
+draw is the Gumbel-max form of a categorical, as `jax.random.categorical`,
+from a `torch.Generator` instead of a JAX key: the same distribution, not
+the same stream.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -31,12 +41,55 @@ class GenerateConfig:
     max_new_tokens: int = 100
     eos_token_id: int = 151645          # <|im_end|> for InternVL2-1B chat
     cache_dtype: torch.dtype = torch.bfloat16
+    temperature: float = 0.0            # <= 0: greedy argmax
+    top_k: int = 0                      # 0: off
+    top_p: float = 0.0                  # 0: off
+    # sample only token ids [lo, lo + n)
+    restrict_tokens: Optional[Tuple[int, int]] = None
 
 
-def sample_categorical(logits: torch.Tensor) -> torch.Tensor:
-    """Greedy token selection (argmax, first index on ties). Temperature,
-    top-k/top-p and token restriction are not ported in this slice."""
-    return torch.argmax(logits.float(), dim=-1)
+def restrict(logits: torch.Tensor, cfg: GenerateConfig) -> torch.Tensor:
+    """fp32 logits, -inf outside `cfg.restrict_tokens`."""
+    logits = logits.float()
+    if cfg.restrict_tokens is None:
+        return logits
+    lo, n = cfg.restrict_tokens
+    ids = torch.arange(logits.shape[-1], device=logits.device)
+    return logits.masked_fill((ids < lo) | (ids >= lo + n), float("-inf"))
+
+
+def filter_logits(logits: torch.Tensor, cfg: GenerateConfig) -> torch.Tensor:
+    """The logits whose softmax a sampling step draws from (temperature >
+    0): restricted, top-k thresholded, divided by the temperature, top-p
+    thresholded; -inf outside the support."""
+    logits = restrict(logits, cfg)
+    neg = float("-inf")
+    if cfg.top_k and cfg.top_k > 0:
+        k = min(cfg.top_k, logits.shape[-1])
+        kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+        logits = logits.masked_fill(logits < kth, neg)
+    logits = logits / max(cfg.temperature, 1e-9)
+    if cfg.top_p and cfg.top_p > 0.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+        keep = torch.roll(cum <= cfg.top_p, 1, dims=-1)
+        keep[..., 0] = True
+        kept_min = torch.where(keep, sorted_logits, float("inf")).amin(-1, keepdim=True)
+        logits = logits.masked_fill(logits < kept_min, neg)
+    return logits
+
+
+def sample_categorical(logits: torch.Tensor, cfg: GenerateConfig = GenerateConfig(),
+                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Next token ids [B] from logits [B, V]: the argmax (first index on
+    ties) of the restricted logits when cfg.temperature <= 0, else a draw
+    from softmax(filter_logits) with `generator` (on the logits' device)."""
+    if cfg.temperature <= 0.0:
+        return torch.argmax(restrict(logits, cfg), dim=-1)
+    logits = filter_logits(logits, cfg)
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    gumbel = -torch.log(-torch.log(u.clamp_(min=torch.finfo(torch.float32).tiny)))
+    return torch.argmax(logits + gumbel, dim=-1)
 
 
 def _prefill(params, di: DrivingInput, cfg: SimLingoConfig,
@@ -77,9 +130,12 @@ def _drive(params, cfg: SimLingoConfig, label, kv_valid, cache, gen_len,
 
 def generate_and_drive(params: Dict[str, Any], di: DrivingInput,
                        model_cfg: SimLingoConfig, gen_cfg: GenerateConfig,
-                       compute_dtype=torch.bfloat16) -> DrivingOutput:
-    """Greedy language generation + waypoint decoding.
-    `di.prompt_inference` must be LEFT-padded."""
+                       compute_dtype=torch.bfloat16,
+                       generator: Optional[torch.Generator] = None) -> DrivingOutput:
+    """Language generation (greedy unless gen_cfg samples) + waypoint
+    decoding. `di.prompt_inference` must be LEFT-padded. A sampling run
+    draws from `generator` (None: one seeded 0 on the logits' device, as
+    JAX's default key 0)."""
     cfg = model_cfg
     label = di.prompt_inference
     B, T_prompt = label.ids.shape
@@ -89,12 +145,14 @@ def generate_and_drive(params: Dict[str, Any], di: DrivingInput,
     dev = last_h.device
     n_valid = label.num_valid
 
+    if gen_cfg.temperature > 0.0 and generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
     tokens = torch.full((B, max_new), eos, dtype=torch.long, device=dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     step = 0
     while step < max_new and not bool(done.all()):      # one host sync per token
         logits = qwen2.logits_from_hidden(params["llm"], last_h, cfg.llm)
-        next_tok = sample_categorical(logits)
+        next_tok = sample_categorical(logits, gen_cfg, generator)
         next_tok = torch.where(done, torch.full_like(next_tok, eos), next_tok)
         tokens[:, step] = next_tok
         # the sampled token (eos included) joins the sequence

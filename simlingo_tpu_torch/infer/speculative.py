@@ -87,6 +87,8 @@ def generate_and_drive_spec(params: Dict[str, Any], di: DrivingInput,
     B, T_prompt = label.ids.shape
     if B != 1:
         raise ValueError("speculative decode serves the closed-loop agent (B=1)")
+    if gen_cfg.temperature > 0.0:
+        raise ValueError("speculative decode is greedy-only")
     max_new = gen_cfg.max_new_tokens
     k = max(2, min(spec_k, max_new))
     eos = gen_cfg.eos_token_id
@@ -95,7 +97,8 @@ def generate_and_drive_spec(params: Dict[str, Any], di: DrivingInput,
     last_h, kv_valid, cache = _prefill(params, di, cfg, gen_cfg, compute_dtype)
     dev = last_h.device
     n_valid = int(label.num_valid[0])
-    t0 = int(sample_categorical(qwen2.logits_from_hidden(llm, last_h, cfg.llm))[0])
+    t0 = int(sample_categorical(qwen2.logits_from_hidden(llm, last_h, cfg.llm),
+                                gen_cfg)[0])
     tokens = [eos] * max_new
     tokens[0] = t0
     pending, prev = t0, int(label.ids[0, -1])
@@ -112,7 +115,7 @@ def generate_and_drive_spec(params: Dict[str, Any], di: DrivingInput,
                                  causal=True, lora_params=params.get("lora"),
                                  cache=dict(cache, index=s))
         logits = qwen2.logits_from_hidden(llm, h.to(compute_dtype), cfg.llm)
-        true_next = sample_categorical(logits)[0].tolist()   # host sync
+        true_next = sample_categorical(logits, gen_cfg)[0].tolist()   # host sync
         # accepted drafts + the model's correction, cut at eos and budget
         acc = 0
         while acc < k - 1 and chunk[acc + 1] == true_next[acc]:

@@ -455,6 +455,12 @@ def train_base(cfg: BaseTrainConfig, params: Optional[Dict[str, Any]] = None,
     total = cfg.max_steps if cfg.max_steps > 0 else 100
     B, S = cfg.data.batch_size, cfg.model.clip.image_size
     rng = np.random.RandomState(cfg.seed)
+    # `train_base.py:89-92`: the run directory and its config.json
+    run_dir = os.path.join(cfg.output_dir, cfg.name + "_base") if cfg.output_dir else None
+    if run_dir:
+        os.makedirs(run_dir, exist_ok=True)
+        with open(os.path.join(run_dir, "config.json"), "w") as f:
+            json.dump(to_dict(cfg), f, indent=2, default=str)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     records = []
     for step in range(total):
@@ -475,9 +481,9 @@ def train_base(cfg: BaseTrainConfig, params: Optional[Dict[str, Any]] = None,
                   f"{ms:.1f} ms ({B * 1e3 / ms:.2f} samples/s)", flush=True)
         if after_step is not None:
             after_step(step, host)
-    if cfg.output_dir:
-        path = ckpt.save_checkpoint(os.path.join(cfg.output_dir, "checkpoints"), state, total)
+    if run_dir:
+        path = ckpt.save_checkpoint(os.path.join(run_dir, "checkpoints"), state, total)
         print(f"done: checkpoint {path}", flush=True)
     else:
-        print("done (no checkpoint saved: output_dir is not set)", flush=True)
+        print("done (no checkpoint saved: output_dir is empty)", flush=True)
     return dict(state=state, step_fn=step_fn, batch=batch, records=records)

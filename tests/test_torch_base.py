@@ -16,6 +16,8 @@ attention and its backward against JAX's Pallas `_fwd_kernel` /
 """
 
 import dataclasses
+import json
+import os
 import re
 import subprocess
 import sys
@@ -325,7 +327,35 @@ def test_preset_is_the_yaml_overlay():
                                      float(yaml["pct_start"]), float(yaml["grad_clip"]),
                                      int(yaml["batch_size"]))
     assert cfg.model == tbase.SimLingoBaseConfig() and base_step.VISION_LR_SCALE == 0.1
-    assert compose_base(["max_steps=2", "optimizer.lr=0.5"]).optimizer.lr == 0.5
+    assert cfg == compose_base("configs/simlingo_base.yaml")
+    assert (cfg.name, cfg.max_epochs) == ("simlingo_base", 30)
+    # without the experiment: TrainConfig()'s defaults, as train_base.py:40
+    plain = compose_base(["max_steps=2", "optimizer.lr=0.5"])
+    assert plain.optimizer.lr == 0.5 and plain.max_steps == 2
+    assert (plain.data.batch_size, plain.optimizer.grad_clip) == (6, 0.3)
+
+
+@pytest.mark.parametrize("experiment", [None, "configs/simlingo_base.yaml"])
+def test_compose_base_matches_train_base_compose(experiment):
+    """`train_base.py:40` composes JAX's TrainConfig; compose_base gives the
+    same value on every field both configs have (the model apart: the
+    base stack's), without and with the experiment."""
+    from simlingo_tpu.core.config import compose as jcompose
+    from simlingo_tpu.core.config import to_dict as jto_dict
+    from simlingo_tpu_torch.core.config import to_dict
+    from tests.test_torch_trainer_disk import _flat
+    ov = ["max_steps=3", "seed=7"]
+    j = _flat(jto_dict(jcompose(experiment, ov)))
+    t = _flat(to_dict(compose_base(experiment, ov)))
+    shared = {k for k in set(j) & set(t) if not k.startswith("model.")}
+    assert {"seed", "name", "output_dir", "max_epochs", "max_steps", "precision",
+            "data.batch_size", "optimizer.lr", "optimizer.grad_clip",
+            "data.base.use_qa"} <= shared
+    norm = lambda v: list(v) if isinstance(v, tuple) else v      # noqa: E731
+    assert {k: (j[k], t[k]) for k in shared if norm(j[k]) != norm(t[k])} == {}
+    want = (16, 1e-4, 1.0) if experiment else (6, 3e-5, 0.3)
+    cfg = compose_base(experiment, ov)
+    assert (cfg.data.batch_size, cfg.optimizer.lr, cfg.optimizer.grad_clip) == want
 
 
 # (name, B, T, HQ, causal, scratch bytes)
@@ -354,14 +384,21 @@ def test_norm_plans_at_the_full_width_shapes(n, d, fwd, bwd, dx_only):
     assert tuple(TLN._norm_bwd_plan(n, d, SMS, sums=False)) == dx_only
 
 
-def test_train_base_torch_runs_on_cpu_and_refuses_cuda_without_gpu():
-    run = [sys.executable, "train_base_torch.py", "--synthetic", "--tiny"]
+def test_train_base_torch_runs_on_cpu_and_refuses_cuda_without_gpu(tmp_path):
+    """The CLI as train_base.py runs: TrainConfig()'s defaults, and the run
+    directory outputs/<name>_base with config.json and the final
+    checkpoint, in the working directory."""
+    run = [sys.executable, str(ROOT / "train_base_torch.py"), "--synthetic", "--tiny"]
     res = subprocess.run(run + ["--device", "cpu", "max_steps=2", "data.batch_size=2"],
-                         cwd=ROOT, capture_output=True, text=True, timeout=240)
+                         cwd=tmp_path, capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stdout + res.stderr
     assert re.search(r"^step 1/2 loss=\d+\.\d{4}", res.stdout, re.M), res.stdout
-    assert "step 2/2 loss=" in res.stdout and "no checkpoint saved" in res.stdout
+    assert "step 2/2 loss=" in res.stdout and "done: checkpoint" in res.stdout
+    run_dir = tmp_path / "outputs" / "simlingo_tpu_base"
+    config = json.loads((run_dir / "config.json").read_text())
+    assert (config["optimizer"]["lr"], config["optimizer"]["grad_clip"]) == (3e-5, 0.3)
+    assert os.listdir(run_dir / "checkpoints") == ["step_00000002"]
     if not torch.cuda.is_available():
-        res = subprocess.run(run + ["max_steps=1"], cwd=ROOT, capture_output=True,
-                             text=True, timeout=240)
+        res = subprocess.run(run + ["max_steps=1", "output_dir="], cwd=tmp_path,
+                             capture_output=True, text=True, timeout=240)
         assert res.returncode != 0 and "no CUDA GPU" in res.stderr

@@ -10,6 +10,7 @@ listed), keep-N holds, async saves land, a restore gives back the state,
 and a failed final save keeps the trained state and reports it.
 """
 
+import json
 import os
 
 import pytest
@@ -175,8 +176,9 @@ def test_failed_final_save_keeps_the_state(tmp_path, monkeypatch, capsys):
 
 
 def test_train_base_saves_its_final_state(tmp_path):
-    """`train_base` shares the save and restore: with output_dir set, its
-    final two-group state lands in <output_dir>/checkpoints and restores."""
+    """`train_base` shares the save and restore: its config.json and final
+    two-group state land in <output_dir>/<name>_base (`train_base.py:89-92,
+    108-109`), and the state restores."""
     from simlingo_tpu_torch.core.config import compose_base
     from simlingo_tpu_torch.models import simlingo_base
     from simlingo_tpu_torch.train import base_step
@@ -184,7 +186,10 @@ def test_train_base_saves_its_final_state(tmp_path):
                         f"output_dir={tmp_path}"])
     cfg.model = simlingo_base.SimLingoBaseConfig.tiny()
     state = TT.train_base(cfg, device="cpu")["state"]
-    path = ckpt.latest_checkpoint(str(tmp_path / "checkpoints"))
+    run_dir = tmp_path / f"{cfg.name}_base"
+    with open(run_dir / "config.json") as f:
+        assert json.load(f)["data"]["batch_size"] == 1
+    path = ckpt.latest_checkpoint(str(run_dir / "checkpoints"))
     assert path.endswith("step_00000001")
     fresh = base_step.init_base_state(simlingo_base.init_params(
         cfg.model, torch.Generator().manual_seed(9), device="cpu"), cfg.optimizer)

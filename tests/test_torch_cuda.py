@@ -31,6 +31,10 @@ half a spacing of the fp32 |ref| plus 2^-20 sqrt(K) of the sum of |terms|
 (see _fwd_tol).
 """
 
+import importlib.util
+from pathlib import Path
+
+import numpy as np
 import pytest
 import torch
 
@@ -120,6 +124,54 @@ def test_flash_attn_fwd_split_path_matches_plain(gpu, T, q_offset):
         assert float(out[empty].float().abs().max()) == 0.0
 
 
+def _chip_smoke():
+    """chip_smoke.py, loaded by path (it imports torch only when run)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+# the offline evaluation's first QA batch on chip_smoke.py's validation
+# route (its eval_prompt_valid: 8 prompts left-padded to 768 slots), then
+# 100 generated slots and the 30 queries
+SMOKE = _chip_smoke()
+EVAL_T = SMOKE.EVAL_PROMPT_LEN
+EVAL_S = EVAL_T + SMOKE.EVAL_NEW_TOKENS + SMOKE.EVAL_QUERIES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,q_offset,after_prompt,path", [
+    (EVAL_T, 0, 0, "tiled"), (1, EVAL_T + 99, 100, "split"), (30, EVAL_T + 100, 130, "split")],
+    ids=["prefill", "decode", "queries"])
+def test_flash_attn_fwd_at_the_eval_shapes(gpu, T, q_offset, after_prompt, path):
+    """Batch 8 with left-padded key validity: the prefill (rows at the start
+    of a prompt see one key), the last decode step and the queries; out and
+    lse against the plain version, bit-identical across two calls."""
+    g = torch.Generator(device=gpu).manual_seed(8)
+    prompt_valid = torch.from_numpy(SMOKE.eval_prompt_valid(np)).to(gpu)
+    B = prompt_valid.shape[0]
+    q = torch.randn(B, T, 14, 64, generator=g, device=gpu).bfloat16()
+    k, v = (torch.randn(B, EVAL_S, 2, 64, generator=g, device=gpu).bfloat16() for _ in range(2))
+    valid = torch.zeros(B, EVAL_S, dtype=torch.bool, device=gpu)
+    valid[:, :EVAL_T] = prompt_valid
+    valid[:, EVAL_T:EVAL_T + after_prompt] = True
+    assert TFA._fwd_plan(B, T, EVAL_S, 14, 2, True, q_offset).path == path
+    before = TFA.flash_attn_fwd.launches
+    out, lse = TFA.flash_attn_fwd(q, k, v, valid, True, None, q_offset, return_lse=True)
+    again = TFA.flash_attn_fwd(q, k, v, valid, True, None, q_offset, return_lse=True)
+    torch.cuda.synchronize()
+    assert TFA.flash_attn_fwd.launches == before + 2
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    ref = TFA.attention_reference(q.float(), k.float(), v.float(), valid, True, None, q_offset)
+    torch.testing.assert_close(out.float(), ref, atol=2e-3, rtol=2e-2)
+    want_lse = TFA.attention_lse_reference(q.float(), k.float(), valid, True, None, q_offset)
+    finite = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(lse), finite)
+    torch.testing.assert_close(lse[finite], want_lse[finite], atol=1e-2, rtol=1e-3)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,q_offset", [(1, 700), (16, 690), (30, 740)])
 def test_flash_attn_fwd_split_path_is_bit_identical_across_calls(gpu, T, q_offset):
@@ -157,15 +209,17 @@ def test_flash_attn_fwd_forced_plans_match_plain(gpu, path, max_splits):
 
 
 @pytest.mark.cuda
-def test_flash_attn_fwd_vit_views_on_the_tiled_loop(gpu):
-    """The ViT at serving width: [2, 1025, 16, 64] views of one projection
-    on the tiled path's ring loop; the last row block holds one row (three
-    of its warps compute nothing) and the last key tile one key."""
-    plan = TFA._fwd_plan(2, 1025, 1025, 16, 16, False, 0)
-    assert plan.path == "tiled" and plan.grid == (17, 16, 2)
+@pytest.mark.parametrize("B", [2, 16], ids=["serving", "eval"])
+def test_flash_attn_fwd_vit_views_on_the_tiled_loop(gpu, B):
+    """The ViT: [B, 1025, 16, 64] views of one projection (B = 2 tiles when
+    serving, 16 for the offline evaluation's batch of 8) on the tiled
+    path's ring loop; the last row block holds one row (three of its warps
+    compute nothing) and the last key tile one key."""
+    plan = TFA._fwd_plan(B, 1025, 1025, 16, 16, False, 0)
+    assert plan.path == "tiled" and plan.grid == (17, 16, B)
     g = torch.Generator(device=gpu).manual_seed(8)
-    qkv = torch.randn(2, 1025, 3 * 16 * 64, generator=g, device=gpu).bfloat16()
-    q, k, v = (qkv[..., i * 1024:(i + 1) * 1024].view(2, 1025, 16, 64) for i in range(3))
+    qkv = torch.randn(B, 1025, 3 * 16 * 64, generator=g, device=gpu).bfloat16()
+    q, k, v = (qkv[..., i * 1024:(i + 1) * 1024].view(B, 1025, 16, 64) for i in range(3))
     out, lse = TFA.flash_attn_fwd(q, k, v, None, False, return_lse=True)
     ref = TFA.attention_reference(q.float(), k.float(), v.float(), None, False)
     torch.testing.assert_close(out.float(), ref, atol=2e-3, rtol=2e-2)

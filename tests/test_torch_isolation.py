@@ -5,11 +5,13 @@ A subprocess blocks those imports, imports every module of the port
 steps with LoRA dropout on the CPU, then two more with both fused-kernel
 gates on, two on an int8 base LLM and two of the tiny SimLingo-Base; an
 entry point built without `device` must refuse on a machine without a GPU.
-A second subprocess, with the same imports blocked, trains the tiny model
-two steps from routes on disk (written by this process beforehand: the
-route writer uses the JAX package's label generators), saves, and resumes
-for a third; `train_torch.py` without `--device cpu` refuses where there
-is no GPU.
+The first also drives the CARLA leaderboard plugin one tick under the
+test doubles of tests/carla_stubs.py. A second subprocess, with the same
+imports blocked, trains the tiny model two steps from routes on disk
+(written by this process beforehand: the route writer uses the JAX
+package's label generators), saves, resumes for a third, and evaluates
+the saved step through `eval_language_torch.py` (`run_language_eval`);
+`train_torch.py` without `--device cpu` refuses where there is no GPU.
 """
 
 import subprocess
@@ -74,6 +76,21 @@ SCRIPT = BLOCK + textwrap.dedent("""
         assert np.isfinite(r["route"]).all() and len(r["language_tokens"]) == 4
     assert len(agent.spec_stats) == 1
 
+    # the leaderboard plugin under the CARLA test doubles (numpy only)
+    from tests import carla_stubs as stubs
+    stubs.install_stubs()
+    from simlingo_tpu_torch.agent import carla_agent, route_planner
+    carla_agent = importlib.reload(carla_agent)       # imported above without CARLA
+    plugin = carla_agent.SimLingoTorchAgent.__new__(carla_agent.SimLingoTorchAgent)
+    plugin.agent, plugin.logger, plugin.initialized = agent, None, False
+    plugin.planner = route_planner.CarlaRoutePlanner()
+    plugin._global_plan_world_coord = [((4.0 * i, 0.0, 0.0), 4) for i in range(20)]
+    ctrl = plugin.run_step({"rgb_front": (0, np.zeros((512, 1024, 4), np.uint8)),
+                            "gps": (0, stubs.gps_for_carla_xy(0.5, 0.0)),
+                            "imu": (0, np.zeros(7)), "speed": (0, {"speed": 2.0})}, 0.0)
+    assert np.isfinite([ctrl.steer, ctrl.throttle, ctrl.brake]).all()
+    plugin.destroy()
+
     import dataclasses
     from simlingo_tpu_torch.core.config import compose
     from simlingo_tpu_torch.data.synthetic import synthetic_example
@@ -112,7 +129,8 @@ SCRIPT = BLOCK + textwrap.dedent("""
 
     from simlingo_tpu_torch.core.config import compose_base
     from simlingo_tpu_torch.models import simlingo_base
-    bcfg = compose_base(["max_steps=2", "data.batch_size=2", "precision=fp32"])
+    bcfg = compose_base(["max_steps=2", "data.batch_size=2", "precision=fp32",
+                         "output_dir="])
     bcfg.model = simlingo_base.SimLingoBaseConfig.tiny()
     base = trainer.train_base(bcfg, device="cpu")["records"]
     assert len(base) == 2 and all(np.isfinite(r["loss"]) for r in base)
@@ -194,6 +212,27 @@ DISK_SCRIPT = BLOCK + textwrap.dedent("""
     assert os.listdir(os.path.join(out, "simlingo_tpu", "checkpoints")) == ["step_00000002"]
     again = run(3, "resume=true")
     assert [r["step"] for r in again["records"]] == [3] and again["state"].step == 3
+
+    # eval_language_torch.py (run_language_eval inside) on the saved step,
+    # the preset swapped for the tiny model trained above
+    import eval_language_torch
+    from simlingo_tpu_torch.core import presets
+    presets.internvl2_1b = lambda: model
+    step = os.path.join(out, "simlingo_tpu", "checkpoints", "step_00000003")
+    preds = os.path.join(out, "preds")
+    # a data root holding the validation route alone: the CLI's split="val"
+    # (the last 1 % of the shuffled routes) is then that route
+    val_root = os.path.join(out, "val_root")
+    link = os.path.join(val_root, "data", "simlingo", R.VAL_ROUTE)
+    os.makedirs(os.path.dirname(link))
+    os.symlink(os.path.join(root, "data", "simlingo", R.VAL_ROUTE), link)
+    res = eval_language_torch.main(["--checkpoint", step, "--mode", "commentary",
+                                    "--data-root", val_root, "--batch-size", "2",
+                                    "--num-samples", "3", "--output-dir", preds,
+                                    "--device", "cpu"])
+    assert set(res["metrics"]) >= {"accuracy", "bleu_4", "cider"}
+    with open(os.path.join(preds, "language_preds_all.json")) as f:
+        assert len(json.load(f)) == 3
     assert not any(m == "simlingo_tpu" or m.startswith(("simlingo_tpu.", "jax", "flax"))
                    for m in sys.modules), "a blocked module got imported"
     print("ok")
