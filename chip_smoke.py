@@ -11,12 +11,16 @@
     python3 chip_smoke.py --norm-sweep  # the norm kernels at forced plans
     python3 chip_smoke.py --disk        # training from disk with checkpoints, the
                                         # leaderboard plugin and the evaluation only
+    python3 chip_smoke.py --base [CELL ...]  # the small SimLingo-Base agreement and
+                                        # the base cells' phases only (base,
+                                        # base_wide, base_resnet)
     python3 chip_smoke.py --parent DIR  # ... and the CE forward's, the tiled
-                                        # attention forward's and the norm
-                                        # forward's bits against the tree at
-                                        # DIR, with both trees' times of those,
-                                        # of the norm backward and of the
-                                        # int8 GEMV (scripts/fwd_digest.py)
+                                        # attention forward's, the attention
+                                        # backward's and the norm forward's
+                                        # bits against the tree at DIR, with
+                                        # both trees' times of those, of the
+                                        # norm backward and of the int8 GEMV
+                                        # (scripts/fwd_digest.py)
 
 Phases, in order; any failure exits non-zero:
   1. build: compile csrc/*.cu with nvcc (all in parallel), print seconds;
@@ -28,7 +32,11 @@ Phases, in order; any failure exits non-zero:
      eval_language_torch.py collates phase 7's validation route:
      `eval_prefill` q[8,T,14,64], `eval_decode` q[8,1,14,64] and
      `eval_queries` q[8,30,14,64] against T + 130 cache slots, and
-     `eval_vit` [16,1025,16,64] on the batch's tiles), against its plain
+     `eval_vit` [16,1025,16,64] on the batch's tiles; and the attention at
+     the other head dims, HEAD_DIM_ATTENTION: SimLingo-Base's LLaMA `large`
+     [16,333,16,128] causal, the split path and GQA at 128, JAX's tiny()
+     at 16 and presets.small_shardable at 32, each through its own
+     instance, forward and backward), against its plain
      PyTorch version on the same bf16 inputs (fp32 math) at |err| <= ATOL + RTOL |ref| (the attention
      forward also with its lse, bit-identical across two calls, its path
      -- tiled or split, the splits -- its kernel's ptxas registers and
@@ -67,8 +75,10 @@ Phases, in order; any failure exits non-zero:
      2e-2, grad norm to 5e-2 relative), then that step again with both
      fused-kernel gates on (SIMLINGO_CE_IMPL=pallas, SIMLINGO_LN_IMPL=pallas),
      and again on an int8 base LLM (which must launch int8_matmul_dx);
-     then a small head_dim-64 SimLingo-Base (`small_base_cfg`): its
-     waypoints and one two-group training step, GPU bf16 vs CPU fp32;
+     then JAX's SimLingoBaseConfig.tiny() (head dim 16 in both towers) and
+     the same with a ResNet-18 encoder (`small_base_cfgs`): their waypoints
+     and one two-group training step each, GPU bf16 vs CPU fp32, each
+     attention kernel launched once a layer;
   4. full width, serving: the default LingoAgent (CoT, int8 LLM,
      speculative) on SimLingoConfig() with seeded random bf16 weights,
      FRAMES frames on a seeded 1024x512 frame, then one use_cot=False
@@ -94,15 +104,20 @@ Phases, in order; any failure exits non-zero:
      base LLM quantized to int8 (`bench.py` BENCH_INT8_BASE=1), which must
      launch int8_matmul and int8_matmul_dx (counts logged against
      INT8_PER_STEP), its losses beside the bf16 base's (information only);
-  6. SimLingo-Base at full width (SimLingoBaseConfig(): CLIP ViT-L/14-336,
-     LLaVA-NeXT features, the tiny LLaMA; seed 0): one counted forward at
-     batch 16 (flash_attn_fwd 35 launches), BASE_FWD_ITERS timed forwards
-     at batch 1 and at batch 16 and one profiled; then train_base_torch's
-     trainer on configs/simlingo_base.yaml (batch 16): 1 warm-up step and
-     TRAIN_STEPS timed steps, launches counted over them against
-     BASE_PER_STEP exactly, peak memory, a profiled step; then the same
-     with SIMLINGO_LN_IMPL=pallas (BASE_GATED_PER_STEP), the losses side
-     by side within 2e-2;
+  6. SimLingo-Base at full width, three cells (BASE_CELLS, overrides of
+     configs/simlingo_base.yaml, seed 0): `base` (CLIP ViT-L/14-336 with
+     LLaVA-NeXT features, the tiny LLaMA), `base_wide` (the same with the
+     LLaMA `large`, 22 x 2048 at 16 heads of 128) and `base_resnet` (the
+     ResNet-18 encoder, the tiny LLaMA). Each: one counted forward at batch
+     16 (flash_attn_fwd 35 / 45 / 12 launches, `base_launches`, and by head
+     dim), BASE_FWD_ITERS timed forwards at batch 1 and at batch 16 and one
+     profiled; then train_base_torch's trainer at batch 16: 1 warm-up step
+     and TRAIN_STEPS timed steps, launches counted over them exactly, peak
+     memory, a profiled step (with the ResNet, one more step whose running
+     statistics must move exactly as AdamW moves them from their own
+     gradients, `bn_state_follows_adamw`); for `base` and `base_wide` the
+     same with SIMLINGO_LN_IMPL=pallas (LayerNorm 47, RMSNorm 25 / 45 a
+     step, forward and backward), the losses side by side within 2e-2;
   7. training from a dataset on disk (`disk_training`): the host probe
      (Python modules, g++, libjpeg's and nvJPEG's headers, free space) and
      the JPEG decoder in use; two training routes of 40 frames and a
@@ -139,15 +154,18 @@ Phases, in order; any failure exits non-zero:
      first QA batch's prompt validity equal to phase 2's eval cases', the
      JSONs written, the metrics;
  10. the {"kernels": [...]} line (eleven kernels, launches per path: serve,
-     serve_gated, train, train_gated, train_int8, base_fwd, base_train,
-     base_train_gated, train_disk, carla_plugin, eval_language), the
-     nvidia-smi line, and the last line {"ok": true, "device": {...}}.
+     serve_gated, train, train_gated, train_int8, the base cells' <cell>_fwd,
+     <cell>_train and <cell>_train_gated, train_disk, carla_plugin,
+     eval_language; the attention kernels also each built head dim's
+     instance at a phase-2 case and the base paths' launches by head dim),
+     the nvidia-smi line, and the last line {"ok": true, "device": {...}}.
 Per-case results also go to chiprun_out/chip_smoke_cases.json, the paths'
 statistics to chip_smoke_agent.json, chip_smoke_train.json,
 chip_smoke_train_gated.json, chip_smoke_train_int8.json,
-chip_smoke_base_{fwd,train,train_gated}.json, chip_smoke_train_disk.json,
+chip_smoke_<cell>_{fwd,train,train_gated}.json, chip_smoke_train_disk.json,
 chip_smoke_carla_plugin.json and chip_smoke_eval_language.json. `--disk`
-runs the build and phases 7-9 alone.
+runs the build and phases 7-9 alone, `--base` the build, the small
+SimLingo-Base agreement and phase 6.
 """
 
 from __future__ import annotations
@@ -311,7 +329,8 @@ def device_sum_ms(torch, fn, sets, iters=10):
 
 def ptxas_usage(stem):
     """{kernel: (registers, spill store bytes)} of csrc/<stem>.cu from the
-    `nvcc -Xptxas -v` log that phase 1 wrote beside the library."""
+    `nvcc -Xptxas -v` log that phase 1 wrote beside the library, a template's
+    arguments spelled out (e.g. flash_fwd_kernel<128,0>)."""
     from simlingo_tpu_torch.kernels import _build
     path = _build.BUILD_ROOT / _build._digest() / f"{stem}.build.log"
     usage, name, spill = {}, None, 0
@@ -326,9 +345,10 @@ def ptxas_usage(stem):
         if m and name:
             short = name
             for k in HAND_KERNELS:                   # the mangled name, template args
-                t = re.search(rf"{len(k)}{k}(?:ILi(\d+)E)?", name)
+                t = re.search(rf"{len(k)}{k}(?:I(\w*?)EEv)?", name)
                 if t:
-                    short = k + (f"<{t.group(1)}>" if t.group(1) else "")
+                    short = k + (f"<{','.join(_template_args(t.group(1)))}>"
+                                 if t.group(1) else "")
                     break
             usage[short] = (int(m.group(1)), spill)
             name = None
@@ -378,6 +398,33 @@ def attention_cases():
 # tiny LLaMA's 300 + 1 + 2 + 30 = 333 tokens, causal
 BASE_ATTENTION = [("clip", 32, 577, 577, 16, 16, False, None, None, False),
                   ("base_llm", 16, 333, 333, 8, 8, True, None, None, False)]
+
+# The attention cases at head dims other than 64 (every other case has 64),
+# appended after the others so that those keep their inputs: the LLaMA
+# `large` of `base_wide` (16 heads of 128) at batch 16; at D = 128 also the
+# split path (16 query rows against the 333 keys: one block a head with
+# 3 splits, and GQA 16 / 2 packed into 2 row blocks with 6 splits) and the
+# tiled path with GQA 16 / 2; JAX's SimLingoBaseConfig.tiny() at batch 2
+# (CLIP tiny: 4 tiles of 17 tokens, 4 heads of 16; the `debug` LLaMA: 43
+# tokens, 2 heads of 16); presets.small_shardable's ViT (4 tiles of 17
+# tokens, 4 heads of 32, read from its qkv projection) and LLM (8 / 2 heads
+# of 32, 128 tokens, the first 8 keys masked).
+HEAD_DIM_ATTENTION = [
+    ("base_large", 16, 333, 333, 16, 16, True, None, None, False, 128),
+    ("d128_split", 2, 16, 333, 16, 16, True, 317, [(10, 333)], False, 128),
+    ("d128_gqa_split", 2, 16, 333, 16, 2, True, 317, [(10, 333)], False, 128),
+    ("d128_gqa", 2, 333, 333, 16, 2, True, None, None, False, 128),
+    ("tiny_clip", 4, 17, 17, 4, 4, False, None, None, False, 16),
+    ("tiny_llm", 2, 43, 43, 2, 2, True, None, None, False, 16),
+    ("shardable_vit", 4, 17, 17, 4, 4, False, None, None, True, 32),
+    ("shardable_llm", 2, 128, 128, 8, 2, True, None, [(8, 128)], False, 32)]
+ATTN_HEAD_DIM = {c[0]: c[10] for c in HEAD_DIM_ATTENTION}
+
+
+def head_dim(case):
+    """The head dim of a phase-2 attention case (64 unless listed in
+    HEAD_DIM_ATTENTION)."""
+    return ATTN_HEAD_DIM.get(case[0], 64)
 
 
 # the offline evaluation (phase 9): greedy batches of 8, 100 new tokens,
@@ -454,15 +501,15 @@ def attention_inputs(torch, dev):
     `scripts/fwd_digest.py` takes its inputs from here."""
     import numpy as np
     gen = torch.Generator(device=dev).manual_seed(0)
-    D = 64
     prompt_valid = torch.from_numpy(eval_prompt_valid(np)).to(dev)
     cases = attention_cases() + [
         ("llm_train", 6, 798, 798, 14, 2, True, None, "train", False),
         ("vit_train", 12, 1025, 1025, 16, 16, False, None, None, True)] + BASE_ATTENTION \
-        + eval_attention_cases(prompt_valid)
+        + eval_attention_cases(prompt_valid) + [c[:10] for c in HEAD_DIM_ATTENTION]
     train_valid = train_llm_valid(torch, dev)
     for case in cases:
         B, T, S, HQ, HK, _, _, ranges, strided = case[1:]
+        D = head_dim(case)
 
         def make():
             if strided:      # ViT: heads are views of one [B, T, 3*H*D] projection
@@ -498,7 +545,8 @@ def attention_inputs(torch, dev):
 def attention_bytes(case):
     """Bytes a call must move: q, out, k, v (bf16) and kv_valid."""
     _, B, T, S, HQ, HK, _, _, ranges, _ = case
-    return 2 * (B * T * HQ * 64 * 2 + 2 * B * S * HK * 64) + (B * S if ranges else 0)
+    D = head_dim(case)
+    return 2 * (B * T * HQ * D * 2 + 2 * B * S * HK * D) + (B * S if ranges else 0)
 
 
 def attention_call(FA, case):
@@ -511,18 +559,20 @@ def run_attention_checks(torch, dev, results):
     import torch.nn.functional as F
     from simlingo_tpu_torch.kernels import flash_attention as FA
     from simlingo_tpu_torch.kernels import _build
-    D = 64
     regs_all = ptxas_usage("flash_attn_fwd")
     for case, (q, k, v, valid), sets in attention_inputs(torch, dev):
         name, B, T, S, HQ, HK, causal, q_off, _, _ = case
+        D = head_dim(case)
         out, lse = FA.flash_attn_fwd(q, k, v, valid, causal, None, q_off,
                                      return_lse=True)
         again = FA.flash_attn_fwd(q, k, v, valid, causal, None, q_off, return_lse=True)
         torch.cuda.synchronize()
         same = torch.equal(out, again[0]) and torch.equal(lse, again[1])
         off = S - T if q_off is None else q_off
-        plan = FA._fwd_plan(B, T, S, HQ, HK, causal, off, sms=_build.sm_count(dev.index or 0))
-        kname = "flash_fwd_split_kernel" if plan.path == "split" else "flash_fwd_kernel"
+        plan = FA._fwd_plan(B, T, S, HQ, HK, causal, off, sms=_build.sm_count(dev.index or 0),
+                            D=D)
+        kname = ("flash_fwd_split_kernel" if plan.path == "split" else "flash_fwd_kernel") \
+            + f"<{plan.head_dim},{int(plan.remainder)}>"
         regs = regs_all.get(kname, (0, 0))
         ref = FA.attention_reference(q.float(), k.float(), v.float(), valid,
                                      causal, None, q_off)
@@ -556,7 +606,7 @@ def run_attention_checks(torch, dev, results):
                 attn_mask=am, enable_gqa=HQ != HK)
         library_ms = time_ms(torch, sdpa, sets)
         row = dict(kernel="flash_attn_fwd", case=name,
-                   shape=f"q[{B},{T},{HQ},{D}] kv[{B},{S},{HK},{D}]",
+                   shape=f"q[{B},{T},{HQ},{D}] kv[{B},{S},{HK},{D}]", head_dim=D,
                    causal=causal, q_offset=q_off, empty_rows=empty_rows,
                    max_abs_err=err, err_over_rms=rel, lse_err=lse_err, ok=ok,
                    bit_identical=same, worst_row_keys=worst_keys,
@@ -660,7 +710,9 @@ def run_int8_checks(torch, dev, results):
             plan = QM._gemv_plan(N, K, sms)
             tile, S, blocks = f"gemv R={plan.rows} warps={plan.warps}", 1, plan.blocks
             extra = dict(rows=plan.rows, warps=plan.warps,
-                         registers=regs.get(f"gemv_kernel<{plan.rows}>", (0, 0))[0])
+                         registers=regs.get(f"gemv_kernel<{plan.rows},"
+                                            f"{'float' if sdt == torch.float32 else 'bf16'}>",
+                                            (0, 0))[0])
         else:
             (bm, bn), S, _ = QM._fwd_plan(M, N, K, sms)
             tile, blocks = f"{bm}x{bn}", -(-M // bm) * -(-N // bn) * S
@@ -743,26 +795,39 @@ def run_int8_dx_checks(torch, dev, results):
     torch.cuda.empty_cache()
 
 
-def run_attention_bwd_checks(torch, dev, results):
-    """flash_attn_bwd at the four training shapes (the LoRA step's LLM and
-    ViT, SimLingo-Base's CLIP and LLaMA), against
-    attention_bwd_reference on the same bf16 inputs (and the kernel
-    forward's o and lse), and pass by pass against attention_ds_reference
-    and attention_dq_from_ds_reference; bit-identical across two calls;
-    device ms of its three kernels and their ptxas registers; library:
-    autograd through SDPA's backward."""
-    import torch.nn.functional as F
+def attention_bwd_cases():
+    """(name, B, T, HQ, HK, causal, strided, D) of phase 2's attention
+    backward: the four training shapes of head dim 64 (the LoRA step's LLM
+    and ViT, SimLingo-Base's CLIP and LLaMA), then the self-attention
+    cases of HEAD_DIM_ATTENTION."""
+    return [("llm_train", 6, 798, 14, 2, True, False, 64),
+            ("vit_train", 12, 1025, 16, 16, False, True, 64),
+            *((c[0], c[1], c[2], c[4], c[5], c[6], c[9], head_dim(c)) for c in BASE_ATTENTION
+              + [c for c in HEAD_DIM_ATTENTION if c[2] == c[3]])]
+
+
+def attention_bwd_bytes(B, T, HQ, HK, D, masked):
+    """Bytes the backward must move: q, k, v, o, dout, lse and kv_valid
+    read, dq, dk, dv written."""
+    qsz, ksz = B * T * HQ * D, B * T * HK * D
+    return 2 * (3 * qsz + 2 * ksz) + 2 * (qsz + 2 * ksz) + 4 * B * HQ * T + (
+        B * T if masked else 0)
+
+
+def attention_bwd_inputs(torch, dev, dims=None):
+    """For each phase-2 backward case (`attention_bwd_cases`, those of head
+    dims `dims` if given: the others come last, so skipping them changes no
+    other case's inputs): the case, its kv_valid, its first inputs (q, k, v,
+    out, dout, lse; out and lse from the forward kernel) and its timing
+    sets, all drawn from one generator seeded 3. `scripts/fwd_digest.py`
+    takes its inputs from here."""
     from simlingo_tpu_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=dev).manual_seed(3)
-    D = 64
     train_valid = train_llm_valid(torch, dev)
-    regs = {k: v for k, v in ptxas_usage("flash_attn_bwd").items()
-            if k.split("<")[0] in BWD_KERNELS}
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for name, B, T, HQ, HK, causal, strided in (
-            ("llm_train", 6, 798, 14, 2, True, False),
-            ("vit_train", 12, 1025, 16, 16, False, True),
-            *((c[0], c[1], c[2], c[4], c[5], c[6], c[9]) for c in BASE_ATTENTION)):
+    for case in attention_bwd_cases():
+        name, B, T, HQ, HK, causal, strided, D = case
+        if dims is not None and D not in dims:
+            continue
         valid = train_valid if name == "llm_train" else None
 
         def make():
@@ -779,7 +844,29 @@ def run_attention_bwd_checks(torch, dev, results):
             dout = torch.randn(B, T, HQ, D, generator=gen, device=dev, dtype=torch.bfloat16)
             return q, k, v, out, dout, lse
 
-        q, k, v, out, dout, lse = make()
+        first = make()
+        nbytes = attention_bwd_bytes(B, T, HQ, HK, D, valid is not None)
+        yield case, valid, first, [make() for _ in range(n_sets(nbytes))]
+
+
+def run_attention_bwd_checks(torch, dev, results):
+    """flash_attn_bwd at every `attention_bwd_cases` shape, against
+    attention_bwd_reference on the same bf16 inputs (and the kernel
+    forward's o and lse), and pass by pass against attention_ds_reference
+    and attention_dq_from_ds_reference; bit-identical across two calls;
+    device ms of its three kernels and their ptxas registers; library:
+    autograd through SDPA's backward."""
+    import torch.nn.functional as F
+    from simlingo_tpu_torch.kernels import flash_attention as FA
+    regs_all = {k: v for k, v in ptxas_usage("flash_attn_bwd").items()
+                if k.split("<")[0] in BWD_KERNELS}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for case, valid, first, sets in attention_bwd_inputs(torch, dev):
+        name, B, T, HQ, HK, causal, _, D = case
+        # the instantiations of this head dim: bwd_dkdv_kernel<D,blocks>, ...
+        regs = {k: v for k, v in regs_all.items() if k.split("<")[1].split(",")[0].rstrip(">")
+                == str(FA._instance_dim(D))}
+        q, k, v, out, dout, lse = first
         *got, ds = FA.flash_attn_bwd(q, k, v, valid, out, dout, lse, causal, return_ds=True)
         same = all(torch.equal(a, b) for a, b in zip(       # no atomics: bit-identical
             FA.flash_attn_bwd(q, k, v, valid, out, dout, lse, causal), got))
@@ -800,7 +887,7 @@ def run_attention_bwd_checks(torch, dev, results):
         # the scratch path, pass by pass: the kernel's dS^T on the pairs it
         # writes against the plain first pass, and its dq against the plain
         # second pass over the kernel's own scratch (same bound)
-        plan = FA._bwd_plan(B, T, T, HQ, HK, causal, 0)
+        plan = FA._bwd_plan(B, T, T, HQ, HK, causal, 0, D)
         written = FA._pair_mask(plan.written, plan, FA._live_key_tiles(valid, B, T, dev))
         pass_ratio = []
         for want, terms, have in (
@@ -823,11 +910,7 @@ def run_attention_bwd_checks(torch, dev, results):
         digest = [sha12(torch, x) for x in got]
         pairs, empty_rows, mask = visible_pairs(torch, dev, B, T, T, causal, None, valid)
         flops = 10 * D * pairs * HQ          # S, dP, dV, dQ, dK: 2*D per pair each
-        qsz, ksz = B * T * HQ * D, B * T * HK * D
-        nbytes = 2 * (3 * qsz + 2 * ksz) + 2 * (qsz + 2 * ksz) + 4 * B * HQ * T + (
-            B * T if valid is not None else 0)
-        bms, bby = bound(nbytes, flops)
-        sets = [make() for _ in range(n_sets(nbytes))]
+        bms, bby = bound(attention_bwd_bytes(B, T, HQ, HK, D, valid is not None), flops)
 
         def kernel(q_, k_, v_, o_, d_, l_):
             return FA.flash_attn_bwd(q_, k_, v_, valid, o_, d_, l_, causal)
@@ -845,8 +928,8 @@ def run_attention_bwd_checks(torch, dev, results):
             lib_out, xs, lib_do, retain_graph=True), [()], iters=10)
         del lib_out, xs, sets
         row = dict(kernel="flash_attn_bwd", case=name,
-                   shape=f"q[{B},{T},{HQ},{D}] kv[{B},{T},{HK},{D}]", causal=causal,
-                   empty_rows=empty_rows, max_abs_err=err, err_over_rms=rel,
+                   shape=f"q[{B},{T},{HQ},{D}] kv[{B},{T},{HK},{D}]", head_dim=D,
+                   causal=causal, empty_rows=empty_rows, max_abs_err=err, err_over_rms=rel,
                    err_over_tol=ratio, bit_identical=same, ok=ok,
                    kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bms, bound_by=bby, split_ms=split, ptxas=regs,
@@ -854,7 +937,9 @@ def run_attention_bwd_checks(torch, dev, results):
                    pairs_per_head=[len(plan.written), plan.n_qt * plan.n_kt],
                    ds_pass_err_over_tol=pass_ratio[0], dq_pass_err_over_tol=pass_ratio[1],
                    dkdv_blocks=plan.n_kt * HK * B, dq_blocks=plan.n_qt * HQ * B,
-                   dkdv_kernel=f"bwd_dkdv_kernel<{FA._dkdv_blocks(B, T, HK, sms)}>",
+                   dkdv_kernel=f"bwd_dkdv_kernel<{plan.head_dim},"
+                               f"{FA._dkdv_blocks(B, T, HK, sms, D)}>",
+                   query_pass=plan.query_pass, dkdv_smem=plan.dkdv_smem,
                    digest=digest)
         results.append(row)
         log(f"[kernel] flash_attn_bwd {name:12s} {row['shape']:32s} err={err:.3e} "
@@ -1632,8 +1717,10 @@ def ce_sweep(torch, dev) -> int:
 
 def fwd_digests(torch, dev, kernel):
     """{case: {output: sha12}} and {case: device ms a call} of one forward
-    kernel of the tree whose `simlingo_tpu_torch` is imported, on phase
-    2's inputs and timed calls: "flash_attn_fwd" at every attention case,
+    kernel (or the attention backward) of the tree whose
+    `simlingo_tpu_torch` is imported, on phase 2's inputs and timed calls:
+    "flash_attn_fwd" and "flash_attn_bwd" at every attention case of the
+    head dims the tree builds,
     "fused_ce_fwd" at the training shape, "int8_fwd" at the M = 1 cases
     (the GEMV) with both scale dtypes, 200 calls a replay; "norms" at
     every norm case, "<case>_fwd" and "<case>_bwd" apart (200 calls a
@@ -1674,11 +1761,26 @@ def fwd_digests(torch, dev, kernel):
         return digests, ms
     if kernel == "flash_attn_fwd":
         from simlingo_tpu_torch.kernels import flash_attention as FA
+        dims = getattr(FA, "HEAD_DIMS", (64,))       # a tree before them built 64 only
         for case, (q, k, v, valid), sets in attention_inputs(torch, dev):
+            if head_dim(case) not in dims:
+                continue
             out, lse = FA.flash_attn_fwd(q, k, v, valid, case[6], None, case[7],
                                          return_lse=True)
             digests[case[0]] = {"out": sha12(torch, out), "lse": sha12(torch, lse)}
             ms[case[0]] = time_ms(torch, attention_call(FA, case), sets)
+            del sets
+            torch.cuda.empty_cache()
+    elif kernel == "flash_attn_bwd":
+        from simlingo_tpu_torch.kernels import flash_attention as FA
+        for case, valid, first, sets in attention_bwd_inputs(
+                torch, dev, getattr(FA, "HEAD_DIMS", (64,))):
+            causal = case[5]
+            digests[case[0]] = dict(zip(("dq", "dk", "dv"), (
+                sha12(torch, g) for g in FA.flash_attn_bwd(*first[:3], valid, *first[3:],
+                                                           causal))))
+            ms[case[0]] = time_ms(torch, lambda q_, k_, v_, o_, d_, l_: FA.flash_attn_bwd(
+                q_, k_, v_, valid, o_, d_, l_, causal), sets)
             del sets
             torch.cuda.empty_cache()
     elif kernel == "fused_ce_fwd":
@@ -1702,6 +1804,7 @@ def fwd_digests(torch, dev, kernel):
 MUST_EQUAL = {"fused_ce_fwd": ("train",),
               "flash_attn_fwd": ("vit", "vit_train", "llm_prefill", "llm_train", "clip",
                                  "base_llm"),
+              "flash_attn_bwd": ("llm_train", "vit_train", "clip", "base_llm"),
               "norms": tuple(f"{c[1]}_fwd" for c in norm_cases() if "fwd" in c[5])}
 
 
@@ -1810,7 +1913,7 @@ def _frame(AgentFrame, np, seed=0):
 
 
 def small_model_agreement(torch, dev):
-    """A small model with the kernels' head_dim 64: drive_only waypoints on
+    """A small model at head_dim 64, as at full width: drive_only waypoints on
     the GPU (bf16, kernels) against the CPU plain path (fp32)."""
     import numpy as np
     from simlingo_tpu_torch.agent.agent import AgentFrame, LingoAgent
@@ -2415,83 +2518,99 @@ def compare_int8_base(plain, int8):
 # Phases 3 and 6: SimLingo-Base (CarLLaVA)
 # ---------------------------------------------------------------------------
 
-# launches of a base forward: CLIP's 23 attention layers (24 + feature
-# layer -2 + 1) and the tiny LLaMA's 12; a training step the same forward
-# and backward, and gated (SIMLINGO_LN_IMPL=pallas) CLIP's pre-LN and
-# 2 x 23 LayerNorms and the LLaMA's 2 x 12 RMSNorms and its final one,
-# forward and backward (every scale trains)
-BASE_PER_FORWARD = {"flash_attn_fwd": 23 + 12}
-BASE_PER_STEP = {"flash_attn_fwd": 35, "flash_attn_bwd": 35}
-BASE_GATED_PER_STEP = dict(BASE_PER_STEP, layernorm_fwd=47, layernorm_bwd=47,
-                           rmsnorm_fwd=25, rmsnorm_bwd=25)
 BASE_GATE = {"SIMLINGO_LN_IMPL": "pallas"}
 BASE_FWD_ITERS = 3          # timed forwards at each batch size (after 1 warm-up)
+# SimLingo-Base's cells past the default (`base`: CLIP and the tiny LLaMA),
+# as overrides of configs/simlingo_base.yaml: `base_wide`, the LLaMA
+# `large` (22 x 2048, 16 heads of 128) behind the CLIP tower; `base_resnet`,
+# the ResNet-18 encoder (2 tiles of 11 x 11 tokens) and the tiny LLaMA
+BASE_CELLS = {"base": [], "base_wide": ["model.llm_variant=large"],
+              "base_resnet": ["model.encoder=resnet"]}
+BASE_GATED_CELLS = ("base", "base_wide")       # also run with SIMLINGO_LN_IMPL=pallas
 
 
-def small_base_cfg():
-    """SimLingo-Base at the kernels' head_dim 64 (the JAX tiny() has 16,
-    which they refuse): CLIP 128 wide, 2 heads, 3 layers (2 run) on
-    112-pixel tiles (65 tokens: a 1-row last tile, as 577), the LLaMA 128
-    wide, 2 heads, 2 layers (36 + 3 + 30 = 69 tokens: a 5-row last tile)."""
+def base_launches(cfg, gated=False):
+    """Hand-kernel launches of one base forward ({"flash_attn_fwd": ...})
+    or, with `gated`, of one training step with SIMLINGO_LN_IMPL=pallas:
+    attention in CLIP's layers_run layers (24 + feature layer -2 + 1 = 23)
+    and the LLaMA's; with the gate, CLIP's pre-LN and 2 LayerNorms a layer
+    and the LLaMA's 2 RMSNorms a layer and its final one, forward and
+    backward (every scale trains). Reckoned from the config: 35 / 45 / 12
+    attention launches a forward for `base` / `base_wide` / `base_resnet`."""
+    clip = cfg.clip.layers_run if cfg.encoder == "llavanext" else 0
+    attn = clip + cfg.llm.num_layers
+    if not gated:
+        return {"flash_attn_fwd": attn}
+    ln, rms = (1 + 2 * clip if clip else 0), 2 * cfg.llm.num_layers + 1
+    return {"flash_attn_fwd": attn, "flash_attn_bwd": attn, "layernorm_fwd": ln,
+            "layernorm_bwd": ln, "rmsnorm_fwd": rms, "rmsnorm_bwd": rms}
+
+
+def small_base_cfgs():
+    """The small SimLingo-Base configurations run GPU against CPU: JAX's
+    SimLingoBaseConfig.tiny() (CLIP 64 wide, 4 heads of 16, on 56-pixel
+    tiles: 17 tokens; the `debug` LLaMA, 2 heads of 16: 10 + 33 = 43
+    tokens) and the same with the ResNet-18 16 wide with 48-wide tokens
+    (2 x 2 tokens a tile, 8 + 33 = 41; `language_projection` to 32)."""
     import dataclasses
-    from simlingo_tpu_torch.models import llama
-    from simlingo_tpu_torch.models.clip_vit import CLIPViTConfig
+    from simlingo_tpu_torch.models.resnet import ResNetConfig
     from simlingo_tpu_torch.models.simlingo_base import SimLingoBaseConfig
-    llm = dataclasses.replace(llama.llama_config("debug"), hidden_size=128, num_heads=2,
-                              num_kv_heads=2, head_dim=64, intermediate_size=256)
-    return SimLingoBaseConfig(clip=CLIPViTConfig(hidden_size=128, num_layers=3, num_heads=2,
-                                                 intermediate_size=256, image_size=112,
-                                                 patch_size=14, projector_hidden=256,
-                                                 projector_out=256),
-                              llm_config=llm)
+    tiny = SimLingoBaseConfig.tiny()
+    return {"tiny": tiny,
+            "tiny_resnet": dataclasses.replace(tiny, encoder="resnet",
+                                               resnet=ResNetConfig(width=16, token_size=48))}
 
 
 def small_base_agreement(torch, dev):
-    """`small_base_cfg` from one seed: the forward's waypoints on the GPU
-    (bf16, kernels) against the CPU plain path (fp32), then one base
+    """Each of `small_base_cfgs` from one seed: the forward's waypoints on
+    the GPU (bf16, kernels) against the CPU plain path (fp32), then one base
     training step on each (losses to 2e-2 relative, each group's grad norm
-    to 5e-2), which must launch both attention kernels."""
+    to 5e-2), which must launch each attention kernel once a layer."""
     import copy
     import numpy as np
     from simlingo_tpu_torch.data.synthetic import base_batch
     from simlingo_tpu_torch.models import simlingo_base
     from simlingo_tpu_torch.train import base_step
     from simlingo_tpu_torch.train import train_step as ts
-    cfg = small_base_cfg()
-    params = simlingo_base.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    batch = base_batch(np.random.RandomState(1), 2, cfg.clip.image_size, device="cpu")
-    outs = []
-    with torch.no_grad():
-        for device, dtype in (("cpu", torch.float32), (dev, torch.bfloat16)):
-            p = ts.cast_for_compute(_to(params, device), dtype)
-            outs.append(simlingo_base.forward(p, *(x.to(device) for x in batch[:3]), cfg))
-    ref, got = ({k: v.float().cpu().numpy() for k, v in o.items()} for o in outs)
-    scale = max(float(np.abs(ref[k]).max()) for k in ref)
-    err = max(float(np.abs(got[k] - ref[k]).max()) for k in ref)
-    ok = err <= 0.05 * scale and all(np.isfinite(got[k]).all() for k in got)
-    log(f"[small] base forward waypoints GPU bf16 vs CPU fp32: max err {err:.3e} "
-        f"(tol 0.05 x max|ref| = {0.05 * scale:.3e}) {'OK' if ok else 'FAIL'}")
-    opt = ts.OptimizerConfig(lr=1e-4, total_steps=10, grad_clip=1.0)
-    fns = kernel_fns()
-    metrics = {}
-    for device, dtype in (("cpu", torch.float32), (dev, torch.bfloat16)):
-        state = base_step.init_base_state(_to(copy.deepcopy(params), device), opt)
-        step = base_step.make_base_train_step(cfg, opt, compute_dtype=dtype)
-        before = {k: fns[k].launches for k in BASE_PER_STEP}
-        metrics[str(device)] = {k: float(v) for k, v in
-                                step(state, [x.to(device) for x in batch]).items()}
-    new = {k: fns[k].launches - before[k] for k in BASE_PER_STEP}
-    cpu, gpu = metrics["cpu"], metrics[str(dev)]
-    for key, want in cpu.items():
-        tol = 5e-2 if key.startswith("grad_norm") else 2e-2
-        good = abs(gpu[key] - want) <= tol * abs(want)
+    ok = True
+    for name, cfg in small_base_cfgs().items():
+        tag = f"[small] {name}"
+        params = simlingo_base.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        batch = base_batch(np.random.RandomState(1), 2, cfg.clip.image_size, device="cpu")
+        outs = []
+        with torch.no_grad():
+            for device, dtype in (("cpu", torch.float32), (dev, torch.bfloat16)):
+                p = ts.cast_for_compute(_to(params, device), dtype)
+                outs.append(simlingo_base.forward(p, *(x.to(device) for x in batch[:3]), cfg))
+        ref, got = ({k: v.float().cpu().numpy() for k, v in o.items()} for o in outs)
+        scale = max(float(np.abs(ref[k]).max()) for k in ref)
+        err = max(float(np.abs(got[k] - ref[k]).max()) for k in ref)
+        good = err <= 0.05 * scale and all(np.isfinite(got[k]).all() for k in got)
         ok &= good
-        log(f"[small] base train_step {key:17s} GPU bf16 {gpu[key]:.6f} vs CPU fp32 "
-            f"{want:.6f} (rel tol {tol}) {'OK' if good else 'FAIL'}")
-    good = all(new[k] == 4 for k in new)       # the CLIP's 2 layers and the LLaMA's 2
-    ok &= good
-    log(f"[small] base train_step attention launches on the GPU {new} (expected 4 each) "
-        f"{'OK' if good else 'FAIL'}")
+        log(f"{tag} base forward waypoints GPU bf16 vs CPU fp32: max err {err:.3e} "
+            f"(tol 0.05 x max|ref| = {0.05 * scale:.3e}) {'OK' if good else 'FAIL'}")
+        opt = ts.OptimizerConfig(lr=1e-4, total_steps=10, grad_clip=1.0)
+        fns = kernel_fns()
+        metrics = {}
+        for device, dtype in (("cpu", torch.float32), (dev, torch.bfloat16)):
+            state = base_step.init_base_state(_to(copy.deepcopy(params), device), opt)
+            step = base_step.make_base_train_step(cfg, opt, compute_dtype=dtype)
+            before = {k: fns[k].launches for k in ("flash_attn_fwd", "flash_attn_bwd")}
+            metrics[str(device)] = {k: float(v) for k, v in
+                                    step(state, [x.to(device) for x in batch]).items()}
+        new = {k: fns[k].launches - before[k] for k in before}
+        cpu, gpu = metrics["cpu"], metrics[str(dev)]
+        for key, want in cpu.items():
+            tol = 5e-2 if key.startswith("grad_norm") else 2e-2
+            good = abs(gpu[key] - want) <= tol * abs(want)
+            ok &= good
+            log(f"{tag} base train_step {key:17s} GPU bf16 {gpu[key]:.6f} vs CPU fp32 "
+                f"{want:.6f} (rel tol {tol}) {'OK' if good else 'FAIL'}")
+        per = base_launches(cfg)["flash_attn_fwd"]
+        good = all(n == per for n in new.values())      # one a layer, forward and backward
+        ok &= good
+        log(f"{tag} base train_step attention launches on the GPU {new} (expected {per} "
+            f"each: head_dim {cfg.llm.head_dim}) {'OK' if good else 'FAIL'}")
     return ok
 
 
@@ -2507,26 +2626,53 @@ def _check_launches(tag, launches, per_unit, units, what):
     return ok
 
 
-def base_forward(torch, dev):
-    """The base model's `forward` at full width (SimLingoBaseConfig(): CLIP
-    ViT-L/14-336, LLaVA-NeXT features, the tiny LLaMA) from seed-0 fp32
-    weights in a bf16 compute copy: one counted forward at batch 16, then
+ATTN_KERNELS = ("flash_attn_fwd", "flash_attn_bwd")
+
+
+def dim_launches(fns):
+    """{attention kernel: {built head dim: launches so far}}."""
+    return {k: dict(fns[k].launches_by_dim) for k in ATTN_KERNELS}
+
+
+def dim_launches_since(fns, before):
+    """The attention kernels' launches by head dim since `before`."""
+    now = dim_launches(fns)
+    return {k: {d: n - before[k].get(d, 0) for d, n in now[k].items()
+                if n != before[k].get(d, 0)} for k in ATTN_KERNELS}
+
+
+def _base_cfg(cell, *extra):
+    """configs/simlingo_base.yaml with the cell's overrides (seed 0, nothing
+    written)."""
+    from simlingo_tpu_torch.core.config import compose_base
+    return compose_base("configs/simlingo_base.yaml",
+                        BASE_CELLS[cell] + ["seed=0", "output_dir=", *extra])
+
+
+def base_forward(torch, dev, cell="base"):
+    """The base model's `forward` at full width (the cell's config of
+    configs/simlingo_base.yaml: CLIP ViT-L/14-336 with LLaVA-NeXT features,
+    or the ResNet-18; the LLaMA `tiny` or `large`) from seed-0 fp32 weights
+    in a bf16 compute copy: one counted forward at batch 16, then
     BASE_FWD_ITERS timed forwards at batch 1 (one frame, two 336 tiles)
     and at batch 16."""
     import numpy as np
     from simlingo_tpu_torch.data.synthetic import base_batch
     from simlingo_tpu_torch.models import simlingo_base
-    from simlingo_tpu_torch.models.simlingo_base import SimLingoBaseConfig
     from simlingo_tpu_torch.train import train_step as ts
-    cfg = SimLingoBaseConfig()
+    tag = f"[{cell}_fwd]"
+    cfg = _base_cfg(cell).model
     S = cfg.clip.image_size
     params = simlingo_base.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                                        device=dev)
     n = sum(t.numel() for t in _leaves(params))
-    log(f"[base_fwd] SimLingoBaseConfig(): CLIP {cfg.clip.layers_run} of "
-        f"{cfg.clip.num_layers}x{cfg.clip.hidden_size} ({cfg.clip.num_heads} heads), "
-        f"projector {cfg.clip.projector_hidden}, LLaMA '{cfg.llm_variant}' "
-        f"{cfg.llm.num_layers}x{cfg.llm.hidden_size} ({cfg.llm.num_heads} heads); "
+    vision = (f"CLIP {cfg.clip.layers_run} of {cfg.clip.num_layers}x{cfg.clip.hidden_size} "
+              f"({cfg.clip.num_heads} heads), projector {cfg.clip.projector_hidden}"
+              if cfg.encoder == "llavanext" else
+              f"ResNet-{cfg.resnet.depth} width {cfg.resnet.width}, tokens "
+              f"{cfg.resnet.token_size}")
+    log(f"{tag} {vision}, LLaMA '{cfg.llm_variant}' {cfg.llm.num_layers}x"
+        f"{cfg.llm.hidden_size} ({cfg.llm.num_heads} heads of {cfg.llm.head_dim}); "
         f"{n / 1e6:.1f} M fp32 params (seed 0), bf16 compute copy")
     ok, stats = True, {}
     with torch.no_grad():
@@ -2539,14 +2685,18 @@ def base_forward(torch, dev):
         fns = kernel_fns()
         for fn in fns.values():
             fn.launches = 0
+        by_dim = dim_launches(fns)
         out = simlingo_base.forward(cp, *batches[16][:3], cfg)        # the counted run
         torch.cuda.synchronize()
         launches = {k: fn.launches for k, fn in fns.items()}
-        ok &= _check_launches("[base_fwd]", launches, BASE_PER_FORWARD, 1, "a forward")
+        by_dim = dim_launches_since(fns, by_dim)
+        ok &= _check_launches(tag, launches, base_launches(cfg), 1, "a forward")
+        log(f"{tag} attention launches by head dim: {by_dim['flash_attn_fwd']}")
+        T = simlingo_base.vision_tokens(cp, batches[1][0], cfg).shape[1] + 33
         for key, shape in (("route", (16, 20, 2)), ("speed_wps", (16, 10, 2))):
             good = tuple(out[key].shape) == shape and bool(torch.isfinite(out[key]).all())
             ok &= good
-            log(f"[base_fwd] {key} {tuple(out[key].shape)} finite "
+            log(f"{tag} {key} {tuple(out[key].shape)} finite "
                 f"{'OK' if good else 'FAIL'}; last waypoint of sample 0 "
                 f"{out[key][0, -1].float().cpu().numpy().round(4).tolist()}")
         for B in (1, 16):
@@ -2558,40 +2708,76 @@ def base_forward(torch, dev):
                 torch.cuda.synchronize()
                 ms.append((time.perf_counter() - t0) * 1e3)
             stats[f"batch{B}_ms"] = ms
-            log(f"[base_fwd] batch {B:2d} ({2 * B} tiles, T = 333): ms "
+            log(f"{tag} batch {B:2d} ({2 * B} tiles, T = {T}): ms "
                 f"{[round(x, 3) for x in ms]} -> mean {sum(ms) / len(ms):.3f} ms, "
                 f"{B * 1e3 * len(ms) / sum(ms):.2f} samples/s")
         stats["profile_batch16"] = device_profile(
             torch, lambda: simlingo_base.forward(cp, *batches[16][:3], cfg),
-            "one base forward at batch 16")
+            f"one {cell} forward at batch 16")
     del cp, batches
     torch.cuda.empty_cache()
-    stats["launches"] = launches
+    stats.update(launches=launches, launches_by_dim=by_dim, params=n, tokens=T)
     return ok, stats
 
 
-def base_training(torch, dev, gated=False):
-    """`train_base_torch`'s trainer on configs/simlingo_base.yaml (batch 16,
-    a new synthetic batch a step from seed 0; nothing written): 1 warm-up
-    step, TRAIN_STEPS timed steps (launches counted over them), peak
-    memory, and a profile of one more step. `gated`: with SIMLINGO_LN_IMPL=pallas set in the
-    process environment (restored afterwards)."""
+def bn_state_follows_adamw(torch, state, step_fn, batch, tag):
+    """One more step, checking the ResNet's running statistics: each moves
+    exactly as AdamW moves a parameter of the "rest" group from its own
+    (clipped) gradient, recomputed here from the optimizer's state before
+    the step, and nothing else touches them (the encoder runs with
+    training=False, so no batch statistic enters), as JAX's optax chain
+    treats the `bn_state` leaves of its parameter tree."""
+    from simlingo_tpu_torch.train import base_step
+    from simlingo_tpu_torch.train import train_step as ts
+    leaves = {p: x for p, x in ts.flatten(state.params).items() if p.startswith("bn_state/")}
+    group = state.optimizer.param_groups[base_step.GROUPS.index("rest")]
+    before = {p: (x.detach().clone(), {k: v.clone() for k, v in state.optimizer.state[x].items()})
+              for p, x in leaves.items()}
+    step_fn(state, batch)
+    torch.cuda.synchronize()
+    lr, (b1, b2), eps, wd = group["lr"], group["betas"], group["eps"], group["weight_decay"]
+    worst, grad = 0.0, 0.0
+    for p, x in leaves.items():
+        x0, st = before[p]
+        g, t = x.grad, float(st["step"]) + 1
+        m = b1 * st["exp_avg"] + (1 - b1) * g
+        v = b2 * st["exp_avg_sq"] + (1 - b2) * g * g
+        want = x0 * (1 - lr * wd) - (lr / (1 - b1 ** t)) * m / (
+            v.sqrt() / math.sqrt(1 - b2 ** t) + eps)
+        worst = max(worst, float(((x.detach() - want).abs() / (1e-6 * want.abs() + 1e-9)).max()))
+        grad = max(grad, float(g.abs().max()))
+    ok = worst <= 1.0 and grad > 0
+    log(f"{tag} bn_state: {len(leaves)} leaves, one step against AdamW replayed from their "
+        f"gradients (max |grad| {grad:.3e}, lr {lr:.3e}): err/tol {worst:.3f} (tol 1e-6 |x| "
+        f"+ 1e-9) {'OK' if ok else 'FAIL'}")
+    return ok
+
+
+def base_training(torch, dev, cell="base", gated=False):
+    """`train_base_torch`'s trainer on the cell's config of
+    configs/simlingo_base.yaml (batch 16, a new synthetic batch a step from
+    seed 0; nothing written): 1 warm-up step, TRAIN_STEPS timed steps
+    (launches counted over them), peak memory, and a profile of one more
+    step; with the ResNet, one step more checking its running statistics
+    (`bn_state_follows_adamw`). `gated`: with SIMLINGO_LN_IMPL=pallas set in
+    the process environment (restored afterwards)."""
     import dataclasses
-    from simlingo_tpu_torch.core.config import compose_base
     from simlingo_tpu_torch.train import trainer
-    tag = "[base_train_gated]" if gated else "[base_train]"
+    tag = f"[{cell}_train_gated]" if gated else f"[{cell}_train]"
     kernels = kernel_fns()
+    by_dim = {}
 
     def reset_after_warmup(step, _):
         if step == 0:
             torch.cuda.synchronize()
             for fn in kernels.values():
                 fn.launches = 0
+            by_dim.update(dim_launches(kernels))
 
-    cfg = compose_base("configs/simlingo_base.yaml",
-                       [f"max_steps={1 + TRAIN_STEPS}", "seed=0", "output_dir="])
-    log(f"{tag} configs/simlingo_base.yaml: batch {cfg.data.batch_size}, 2 tiles of "
-        f"{cfg.model.clip.image_size}, vision lr x 0.1, no remat; "
+    cfg = _base_cfg(cell, f"max_steps={1 + TRAIN_STEPS}")
+    log(f"{tag} configs/simlingo_base.yaml + {BASE_CELLS[cell]}: batch "
+        f"{cfg.data.batch_size}, 2 tiles of {cfg.model.clip.image_size}, encoder "
+        f"{cfg.model.encoder}, LLaMA '{cfg.model.llm_variant}', vision lr x 0.1, no remat; "
         f"AdamW {dataclasses.asdict(cfg.optimizer)}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2599,16 +2785,19 @@ def base_training(torch, dev, gated=False):
         res = trainer.train_base(cfg, device=dev, after_step=reset_after_warmup)
         torch.cuda.synchronize()
         launches = {k: fn.launches for k, fn in kernels.items()}
+        by_dim = dim_launches_since(kernels, by_dim)
         peak = torch.cuda.max_memory_allocated()
         state, step_fn, batch = res["state"], res["step_fn"], res["batch"]
         profile = device_profile(torch, lambda: step_fn(state, batch),
                                  f"one base training step {tag}")
+        ok = (bn_state_follows_adamw(torch, state, step_fn, batch, tag)
+              if cfg.model.encoder == "resnet" else True)
     del state, step_fn, batch
     timed = res["records"][1:]
     ms = [r["ms"] for r in timed]
     mean_ms = sum(ms) / len(ms)
-    ok = all(math.isfinite(r[k]) for r in res["records"]
-             for k in ("loss", "grad_norm_vision", "grad_norm_rest"))
+    ok &= all(math.isfinite(r[k]) for r in res["records"]
+              for k in ("loss", "grad_norm_vision", "grad_norm_rest"))
     log(f"{tag} timed steps: ms {[round(x, 2) for x in ms]} -> mean {mean_ms:.2f} ms/step, "
         f"{cfg.data.batch_size * 1e3 / mean_ms:.3f} samples/s (batch drawn and copied "
         f"before each: {[round(r['batch_ms'], 1) for r in timed]} ms)")
@@ -2617,51 +2806,62 @@ def base_training(torch, dev, gated=False):
         f"{[round(r['grad_norm_rest'], 4) for r in res['records']]} finite="
         f"{'OK' if ok else 'FAIL'}")
     log(f"{tag} peak memory {peak / 2 ** 30:.2f} GiB (max_memory_allocated)")
-    ok &= _check_launches(tag, launches, BASE_GATED_PER_STEP if gated else BASE_PER_STEP,
-                          TRAIN_STEPS, "a step")
+    per_step = base_launches(cfg.model, gated=True)
+    if not gated:
+        per_step = {k: per_step[k] for k in ("flash_attn_fwd", "flash_attn_bwd")}
+    ok &= _check_launches(tag, launches, per_step, TRAIN_STEPS, "a step")
+    log(f"{tag} attention launches by head dim over the timed steps: {by_dim}")
     if not gated:
         log(f"{tag} norm kernels with the gate off: "
             f"{ {k: launches[k] for k in NEW_KERNELS} } (expected 0)")
     stats = dict(step_ms=ms, mean_step_ms=mean_ms,
-                 samples_per_s=cfg.data.batch_size * 1e3 / mean_ms,
+                 samples_per_s=cfg.data.batch_size * 1e3 / mean_ms, batch=cfg.data.batch_size,
                  records=res["records"], peak_bytes=peak, launches=launches,
+                 launches_by_dim=by_dim,
                  launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
                  profile=profile)
     torch.cuda.empty_cache()
     return ok, stats
 
 
-def compare_base_training(plain, gated):
+def compare_base_training(plain, gated, cell="base"):
     """The ungated and the gated base steps side by side from the same seed
     and batches: losses within 2e-2 relative."""
     ok = True
     for a, b in zip(plain["records"], gated["records"]):
         good = abs(b["loss"] - a["loss"]) <= 2e-2 * abs(a["loss"])
         ok &= good
-        log(f"[base_train_ab] step {a['step']}: loss {a['loss']:.5f} vs gated "
+        log(f"[{cell}_train_ab] step {a['step']}: loss {a['loss']:.5f} vs gated "
             f"{b['loss']:.5f} (rel tol 2e-2) {'OK' if good else 'FAIL'}; ms "
             f"{a['ms']:.2f} vs {b['ms']:.2f}")
-    log_side_by_side("[base_train_ab]", "gated", plain, gated)
+    log_side_by_side(f"[{cell}_train_ab]", "gated", plain, gated)
     return ok
 
 
-def run_base_phases(torch, dev, smi):
-    """Phase 6; returns (ok, {path: launches}) and writes
-    chiprun_out/chip_smoke_base*.json."""
-    ok, fwd = base_forward(torch, dev)
-    if not ok:
-        return False, None
-    ok, train = base_training(torch, dev)
-    if not ok:
-        return False, None
-    ok, gated = base_training(torch, dev, gated=True)
-    if not ok or not compare_base_training(train, gated):
-        return False, None
-    for name, st in (("base_fwd", fwd), ("base_train", train), ("base_train_gated", gated)):
-        with open(os.path.join(ROOT, "chiprun_out", f"chip_smoke_{name}.json"), "w") as f:
-            json.dump(dict(st, nvidia_smi=smi), f, indent=1)
-    return True, {"base_fwd": fwd["launches"], "base_train": train["launches"],
-                  "base_train_gated": gated["launches"]}
+def run_base_phases(torch, dev, smi, cells=tuple(BASE_CELLS)):
+    """Phase 6 over SimLingo-Base's cells: each cell's forward, its
+    training steps and, for BASE_GATED_CELLS, the gated steps beside them;
+    returns (ok, {path: launches}, {path: attention launches by head dim})
+    and writes chiprun_out/chip_smoke_<cell>_{fwd,train,train_gated}.json."""
+    launches, by_dim = {}, {}
+    for cell in cells:
+        runs = {}
+        ok, runs[f"{cell}_fwd"] = base_forward(torch, dev, cell)
+        if not ok:
+            return False, None, None
+        ok, runs[f"{cell}_train"] = base_training(torch, dev, cell)
+        if not ok:
+            return False, None, None
+        if cell in BASE_GATED_CELLS:
+            ok, runs[f"{cell}_train_gated"] = base_training(torch, dev, cell, gated=True)
+            if not ok or not compare_base_training(runs[f"{cell}_train"],
+                                                   runs[f"{cell}_train_gated"], cell):
+                return False, None, None
+        for name, st in runs.items():
+            with open(os.path.join(ROOT, "chiprun_out", f"chip_smoke_{name}.json"), "w") as f:
+                json.dump(dict(st, nvidia_smi=smi), f, indent=1)
+            launches[name], by_dim[name] = st["launches"], st["launches_by_dim"]
+    return True, launches, by_dim
 
 
 # ---------------------------------------------------------------------------
@@ -3367,9 +3567,19 @@ def eval_language(torch, dev, work, checkpoint):
     return ok, dict(modes=modes, launches=launches)
 
 
-def kernel_line(cases, launches):
+# the attention kernels' representative phase-2 case at each built head dim
+ATTN_INSTANCE_CASES = {"flash_attn_fwd": {16: "tiny_llm", 32: "shardable_llm", 64: "llm_prefill",
+                                          128: "base_large"},
+                       "flash_attn_bwd": {16: "tiny_llm", 32: "shardable_llm", 64: "llm_train",
+                                          128: "base_large"}}
+
+
+def kernel_line(cases, launches, by_dim=None):
     """One entry per ported kernel, at a representative shape of its path;
-    launches: {path: {kernel: count}} from each path's counted run."""
+    launches: {path: {kernel: count}} from each path's counted run; by_dim:
+    {path: {attention kernel: {head dim: count}}} where a path counted them
+    (SimLingo-Base's). The attention kernels also list each built head
+    dim's instance at its representative phase-2 case."""
     meta = {
         "flash_attn_fwd": ("simlingo_tpu_torch/csrc/flash_attn_fwd.cu",
                            [f"simlingo_tpu/kernels/flash_attention.py:{n}"
@@ -3409,6 +3619,15 @@ def kernel_line(cases, launches):
                     "ms": rep["kernel_ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
                     "library_ms": rep["library_ms"], "shape": rep["shape"]})
+        if name in ATTN_INSTANCE_CASES:
+            out[-1]["instances"] = {
+                str(d): {k: c[k] for k in ("case", "shape", "kernel_ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")}
+                for d, case_name in ATTN_INSTANCE_CASES[name].items()
+                for c in mine if c["case"] == case_name}
+            out[-1]["launches_by_dim_by_path"] = {
+                path: {str(d): n for d, n in dims[name].items()}
+                for path, dims in (by_dim or {}).items()}
     return {"kernels": out}
 
 
@@ -3476,7 +3695,7 @@ def run_path_phases(torch, dev, cases) -> int:
     compare_int8_base(train_stats, int8_stats)
     torch.cuda.empty_cache()
     smi = smi_line()
-    ok, base_launches = run_base_phases(torch, dev, smi)
+    ok, base_launches, base_by_dim = run_base_phases(torch, dev, smi)
     if not ok:
         return 1
     per_frame = dict(launches=stats["launches_per_frame"], tokens=stats["tokens_per_frame"],
@@ -3496,7 +3715,7 @@ def run_path_phases(torch, dev, cases) -> int:
                 **base_launches, "train_disk": disk_stats["launches"],
                 "carla_plugin": eval_stats["carla_plugin"]["launches"],
                 "eval_language": eval_stats["eval_language"]["launches"]}
-    print(json.dumps(kernel_line(cases, launches)), flush=True)
+    print(json.dumps(kernel_line(cases, launches, base_by_dim)), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3527,6 +3746,10 @@ def main() -> int:
                     help="build, then time the attention forward at forced plans")
     ap.add_argument("--norm-sweep", action="store_true",
                     help="build, then time the norm kernels at forced plans")
+    ap.add_argument("--base", nargs="*", choices=sorted(BASE_CELLS), metavar="CELL",
+                    help="build, then the small SimLingo-Base agreement and the phases of "
+                         "the named base cells (all if none is named: "
+                         + ", ".join(BASE_CELLS) + ")")
     ap.add_argument("--disk", action="store_true",
                     help="build, then run the disk-training phase (7) and, in its "
                          "workspace, the plugin (8) and the evaluation (9) only")
@@ -3558,6 +3781,13 @@ def main() -> int:
         return attn_sweep(torch, dev)
     if args.norm_sweep:
         return norm_sweep(torch, dev)
+    if args.base is not None:
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        ok = small_base_agreement(torch, dev)
+        if ok:
+            ok, _, _ = run_base_phases(torch, dev, smi_line(), tuple(args.base or BASE_CELLS))
+        log(f"[base] phases 3 (SimLingo-Base) and 6 {'OK' if ok else 'FAILED'} on {smi_line()}")
+        return 0 if ok else 1
     if args.disk:
         ok, st, after = disk_and_eval_phases(torch, dev)
         os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -3582,6 +3812,7 @@ def main() -> int:
     if args.parent:
         checked = set(args.kernels or KERNEL_CHECKS)
         for check, kernel in (("fused_ce", "fused_ce_fwd"), ("flash_attn_fwd", "flash_attn_fwd"),
+                              ("flash_attn_bwd", "flash_attn_bwd"),
                               ("int8_matmul", "int8_fwd"), ("norms", "norms")):
             if check in checked and not compare_fwd(args.parent, kernel):
                 return 1

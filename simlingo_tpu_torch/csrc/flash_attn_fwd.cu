@@ -5,8 +5,16 @@
 // LLM: GQA, slot-order causality with a dynamic q_offset, kv_valid mask),
 // _fwd_kernel_pair (:786, the InternViT read from the flat [B,T,H*D]
 // projection) and _fwd_kernel (:114, plain MHA). q/k/v come as strided
-// [B, L, H, 64] views, so ViT projections and the KV cache are read in
+// [B, L, H, D] views, so ViT projections and the KV cache are read in
 // place.
+//
+// The head dim D is a template parameter, built at D = 16, 32, 64 and 128
+// (`HEAD_DIMS`): the CLIP tower and the LLMs use 64, SimLingo-Base's
+// LLaMA variants past `tiny` 128, the test configurations 16 and 32. The
+// wrapper zero-pads any other D <= 128 to the next of these. Tiles, rows a
+// block and the loop's order are the same at every D: only the number of
+// 16-wide d chunks of Q K^T, of 8-wide O accumulators and of 16-byte
+// copies a row changes, so D = 64 keeps its bits.
 //
 // What bounds it: the ViT (T = S = 1025), prefill (T = 640, S = 770) and
 // training calls are bound by tensor-core operations (4*T*S*D a head);
@@ -17,8 +25,10 @@
 // (kernels/flash_attention.py `_fwd_plan`); both are blocks of 4 warps of
 // 16 query rows, each warp's Q in registers as mma.m16n8k16 A-fragments.
 // K and V tiles of 64 keys stream through a 3-stage cp.async ring in
-// dynamic shared memory (55 KB; at under 170 registers a thread, 3 blocks
-// an SM); K's B-fragments come by ldmatrix.x4, V's by ldmatrix.x4.trans.
+// dynamic shared memory (3 * 2 * 64 * (D + 8) * 2 bytes: 55 KB at D = 64,
+// 3 blocks an SM at under 170 registers a thread; 102 KB at D = 128, 2
+// blocks an SM); K's B-fragments come by ldmatrix.x4, V's by
+// ldmatrix.x4.trans.
 //
 //  * flash_fwd_kernel (the tiled path: ViT, prefill, training): one block
 //    per (64-row query tile, query head, batch).
@@ -73,18 +83,30 @@ namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 using simlingo::ld32;
 
-constexpr int D = 64;
 constexpr int BQ = 64;                   // rows a block: 4 warps of 16
 constexpr int THREADS = 128;
 constexpr int BKV = 64;                  // keys a tile
-constexpr int LDK = D + 8;               // 144-byte rows: ldmatrix phases hit 32 banks
 constexpr int STAGES = 3;                // depth of the cp.async ring
-constexpr int STAGE_ELEMS = 2 * BKV * LDK;            // K [key][d], then V [key][d]
-constexpr int RING_BYTES = STAGES * STAGE_ELEMS * 2;  // 55296
 constexpr int MAX_CLUSTER = 8;           // splits: the portable cluster size
 constexpr int MAX_DEVICES = 64;
-constexpr int LDO = D + 4;               // fp32 partial rows (16-byte aligned)
 constexpr float L_FEW = 64.f;            // see `attend`: weight sums below it take P's remainder
+
+// The sizes that depend on the head dim D.
+template <int D>
+struct Dims {
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "D: the built head dims");
+  // (D + 8) * 2-byte rows: the 8 rows of an ldmatrix phase start 16 bytes
+  // apart modulo 128, so they hit 32 distinct banks
+  static constexpr int LDK = D + 8;
+  static constexpr int CH = D / 8;                        // 16-byte chunks a row
+  static constexpr int CH_LOG2 = D == 16 ? 1 : D == 32 ? 2 : D == 64 ? 3 : 4;
+  static constexpr int STAGE_ELEMS = 2 * BKV * LDK;       // K [key][d], then V [key][d]
+  static constexpr int RING_BYTES = STAGES * STAGE_ELEMS * 2;   // 55296 at D = 64
+  static constexpr int LDO = D + 4;                       // fp32 partial rows (16-byte aligned)
+  static_assert(BKV * CH % THREADS == 0, "whole copy rounds a tile");
+  // the split path's partials (O, m, l) reuse the ring
+  static_assert((BQ * LDO + 2 * BQ) * 4 <= RING_BYTES, "the partials fit the ring");
+};
 
 // One warp's view of the loop: the slots of a thread's two rows (g and g +
 // 8 of the warp's 16), the first slot any live row of the warp has, and
@@ -101,24 +123,26 @@ struct WarpRows {
 // computed. Updates the running max m_run, sum l_run (this thread's share)
 // and the O accumulators. Ends behind a barrier with no copy in flight: the
 // ring is free. FEW: see the P V step below.
-template <bool FEW>
+template <int D, bool FEW>
 __device__ __forceinline__ void attend(const bf16* __restrict__ kb, const bf16* __restrict__ vb,
                                        const uint8_t* __restrict__ valid_b,
                                        long long sks, long long svs, int S, int causal,
                                        int it0, int it1, const WarpRows& w,
-                                       const uint32_t (&qf)[4][4], float scale_log2,
+                                       const uint32_t (&qf)[D / 16][4], float scale_log2,
                                        bf16* ring, uint32_t (*okw)[2],
-                                       float (&oacc)[8][4], float (&m_run)[2],
+                                       float (&oacc)[D / 8][4], float (&m_run)[2],
                                        float (&l_run)[2]) {
+  constexpr int LDK = Dims<D>::LDK, CH = Dims<D>::CH, CH_LOG2 = Dims<D>::CH_LOG2;
+  constexpr int STAGE_ELEMS = Dims<D>::STAGE_ELEMS;
   const int tid = threadIdx.x, lane = tid & 31, t4 = lane & 3;
 
   auto load = [&](int stage, int kv0) {
     bf16* Ks = ring + stage * STAGE_ELEMS;
     bf16* Vs = Ks + BKV * LDK;
 #pragma unroll
-    for (int i = 0; i < BKV * (D / 8) / THREADS; ++i) {
+    for (int i = 0; i < BKV * CH / THREADS; ++i) {
       const int c = tid + i * THREADS;
-      const int key = c >> 3, dc = (c & 7) * 8, s = kv0 + key;
+      const int key = c >> CH_LOG2, dc = (c & (CH - 1)) * 8, s = kv0 + key;
       const bool in = s < S;
       simlingo::cp_async16(&Ks[key * LDK + dc], in ? kb + s * sks + dc : kb, in);
       simlingo::cp_async16(&Vs[key * LDK + dc], in ? vb + s * svs + dc : vb, in);
@@ -160,14 +184,14 @@ __device__ __forceinline__ void attend(const bf16* __restrict__ kb, const bf16* 
     const bf16* Kt = ring + st * STAGE_ELEMS;
     const bf16* Vt = Kt + BKV * LDK;
 
-    // S = Q K^T for 64 keys: 8 n-tiles of 8 keys, each summing d chunks 0..3 in order
+    // S = Q K^T for 64 keys: 8 n-tiles of 8 keys, each summing d chunks 0..D/16-1 in order
     float sc[8][4];
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int j = 0; j < 4; ++j) sc[nt][j] = 0.f;
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
+    for (int ks = 0; ks < D / 16; ++ks)
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         // matrices (keys 0-7, d 0-7), (keys 0-7, d 8-15), (keys 8-15, d 0-7), (keys 8-15, d 8-15)
@@ -227,7 +251,7 @@ __device__ __forceinline__ void attend(const bf16* __restrict__ kb, const bf16* 
 #pragma unroll
     for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rsum[r];
 #pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
+    for (int dt = 0; dt < D / 8; ++dt) {
       oacc[dt][0] *= alpha[0]; oacc[dt][1] *= alpha[0];
       oacc[dt][2] *= alpha[1]; oacc[dt][3] *= alpha[1];
     }
@@ -264,7 +288,7 @@ __device__ __forceinline__ void attend(const bf16* __restrict__ kb, const bf16* 
                                         p[1] - __uint_as_float(a[h] & 0xffff0000u));
         }
 #pragma unroll
-        for (int dp = 0; dp < 4; ++dp) {
+        for (int dp = 0; dp < D / 16; ++dp) {
           uint32_t b[4];
           simlingo::ldmatrix_x4_trans(b, Vt + (kk * 16 + (lane & 15)) * LDK + dp * 16 +
                                              (lane >> 4) * 8);
@@ -286,7 +310,7 @@ __device__ __forceinline__ void attend(const bf16* __restrict__ kb, const bf16* 
       a[2] = simlingo::pack_bf16x2(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
       a[3] = simlingo::pack_bf16x2(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
 #pragma unroll
-      for (int dp = 0; dp < 4; ++dp) {
+      for (int dp = 0; dp < D / 16; ++dp) {
         uint32_t b[4];                   // d columns 16dp..16dp+7, then 16dp+8..16dp+15
         simlingo::ldmatrix_x4_trans(b, Vt + (kk * 16 + (lane & 15)) * LDK + dp * 16 +
                                            (lane >> 4) * 8);
@@ -300,10 +324,11 @@ __device__ __forceinline__ void attend(const bf16* __restrict__ kb, const bf16* 
 }
 
 // Q A-fragments of a thread's two rows (zero where a row is not live).
+template <int D>
 __device__ __forceinline__ void load_q(const bf16* q0, const bf16* q1, bool r0, bool r1,
-                                       int t4, uint32_t (&qf)[4][4]) {
+                                       int t4, uint32_t (&qf)[D / 16][4]) {
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
+  for (int ks = 0; ks < D / 16; ++ks) {
     const int c = ks * 16 + t4 * 2;
     qf[ks][0] = r0 ? ld32(q0 + c) : 0u;
     qf[ks][1] = r1 ? ld32(q1 + c) : 0u;
@@ -314,10 +339,11 @@ __device__ __forceinline__ void load_q(const bf16* q0, const bf16* q1, bool r0, 
 
 __device__ __forceinline__ int tiles_to(int keys) { return keys > 0 ? (keys + BKV - 1) / BKV : 0; }
 
-__device__ __forceinline__ void zero_state(float (&oacc)[8][4], float (&m_run)[2],
+template <int D>
+__device__ __forceinline__ void zero_state(float (&oacc)[D / 8][4], float (&m_run)[2],
                                            float (&l_run)[2]) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < D / 8; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) oacc[i][j] = 0.f;
   m_run[0] = m_run[1] = -INFINITY;
@@ -329,7 +355,7 @@ __device__ __forceinline__ void zero_state(float (&oacc)[8][4], float (&m_run)[2
 // ---------------------------------------------------------------------------
 
 // grid (row blocks, HQ, B)
-template <bool FEW>
+template <int D, bool FEW>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const uint8_t* __restrict__ kv_valid,
@@ -350,8 +376,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int row0 = wrow + g;                     // this thread's rows: row0, row0 + 8
   const bf16* qb = q + b * sqb + h * sqh;
 
-  uint32_t qf[4][4];
-  load_q(qb + row0 * sqt, qb + (row0 + 8) * sqt, row0 < T, row0 + 8 < T, t4, qf);
+  uint32_t qf[D / 16][4];
+  load_q<D>(qb + row0 * sqt, qb + (row0 + 8) * sqt, row0 < T, row0 + 8 < T, t4, qf);
 
   // the block walks the tiles its last row sees; a warp whose rows all lie
   // past T computes none
@@ -362,9 +388,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   w.min_slot = q_offset + wrow;
   w.it_end = wrow < T ? ntiles : 0;
 
-  float oacc[8][4], m_run[2], l_run[2];
-  zero_state(oacc, m_run, l_run);
-  attend<FEW>(k + b * skb + hk * skh, v + b * svb + hk * svh,
+  float oacc[D / 8][4], m_run[2], l_run[2];
+  zero_state<D>(oacc, m_run, l_run);
+  attend<D, FEW>(k + b * skb + hk * skh, v + b * svb + hk * svh,
          kv_valid != nullptr ? kv_valid + (long long)b * S : nullptr,
          sks, svs, S, causal, 0, ntiles, w, qf, scale_log2,
          reinterpret_cast<bf16*>(smem_raw), okw, oacc, m_run, l_run);
@@ -381,7 +407,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       lse[((long long)b * HQ + h) * T + row] = l > 0.f ? m_run[r] + log2f(l) : -INFINITY;
     bf16* orow = o + (((long long)b * T + row) * HQ + h) * D;
 #pragma unroll
-    for (int dt = 0; dt < 8; ++dt)
+    for (int dt = 0; dt < D / 8; ++dt)
       *reinterpret_cast<uint32_t*>(orow + dt * 8 + t4 * 2) =
           simlingo::pack_bf16x2(oacc[dt][2 * r] * inv, oacc[dt][2 * r + 1] * inv);
   }
@@ -393,7 +419,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // grid (splits, row blocks, B * HK), cluster (splits, 1, 1): block x attends
 // its packed rows to key tiles [x * tps, (x + 1) * tps).
-template <bool FEW>
+template <int D, bool FEW>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const uint8_t* __restrict__ kv_valid,
@@ -405,6 +431,7 @@ flash_fwd_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        int causal, int q_offset, float scale_log2, int tps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ uint32_t okw[STAGES][2];
+  constexpr int LDO = Dims<D>::LDO;
 
   const int G = HQ / HK, R = G * T;
   const int split = blockIdx.x, pr0 = blockIdx.y * BQ;
@@ -431,18 +458,18 @@ flash_fwd_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   lo_t = __reduce_min_sync(0xffffffffu, lo_t);
   hi_t = __reduce_max_sync(0xffffffffu, hi_t);
-  uint32_t qf[4][4];
-  load_q(qp[0], qp[1], live[0], live[1], t4, qf);
+  uint32_t qf[D / 16][4];
+  load_q<D>(qp[0], qp[1], live[0], live[1], t4, qf);
 
   const int kv_end = causal ? min(S, q_offset + T) : S;    // the last slot of the group + 1
   const int it0 = split * tps, it1 = min(it0 + tps, tiles_to(kv_end));
   w.min_slot = q_offset + lo_t;
   w.it_end = hi_t >= 0 ? tiles_to(causal ? min(S, q_offset + hi_t + 1) : S) : 0;
 
-  float oacc[8][4], m_run[2], l_run[2];
-  zero_state(oacc, m_run, l_run);
+  float oacc[D / 8][4], m_run[2], l_run[2];
+  zero_state<D>(oacc, m_run, l_run);
   if (it0 < it1)
-    attend<FEW>(k + b * skb + hk * skh, v + b * svb + hk * svh,
+    attend<D, FEW>(k + b * skb + hk * skh, v + b * svb + hk * svh,
            kv_valid != nullptr ? kv_valid + (long long)b * S : nullptr,
            sks, svs, S, causal, it0, it1, w, qf, scale_log2,
            reinterpret_cast<bf16*>(smem_raw), okw, oacc, m_run, l_run);
@@ -458,7 +485,7 @@ flash_fwd_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const int lr = warp * 16 + g + r * 8;
 #pragma unroll
-    for (int dt = 0; dt < 8; ++dt)
+    for (int dt = 0; dt < D / 8; ++dt)
       *reinterpret_cast<float2*>(Op + lr * LDO + dt * 8 + t4 * 2) =
           make_float2(oacc[dt][2 * r], oacc[dt][2 * r + 1]);
     if (t4 == 0) {
@@ -515,12 +542,13 @@ flash_fwd_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // set before its first launch on a device. A cluster size is asked of the
 // occupancy calculator once; one that does not fit is refused
 // (cudaErrorInvalidConfiguration), with no fallback.
-cudaError_t prepare(const void* kernel, std::atomic<bool>* ready, const cudaLaunchConfig_t* cfg) {
+cudaError_t prepare(const void* kernel, int smem_bytes, std::atomic<bool>* ready,
+                    const cudaLaunchConfig_t* cfg) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < MAX_DEVICES && ready[dev].load(std::memory_order_relaxed)) return cudaSuccess;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, RING_BYTES);
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return e;
   if (cfg != nullptr) {
     int clusters = 0;
@@ -532,89 +560,112 @@ cudaError_t prepare(const void* kernel, std::atomic<bool>* ready, const cudaLaun
   return cudaSuccess;
 }
 
-cudaError_t launch_tiled(const bf16* q, const bf16* k, const bf16* v, const uint8_t* valid,
-                         bf16* o, float* lse, int B, int T, int S, int HQ, int HK,
-                         long long sqb, long long sqt, long long sqh,
-                         long long skb, long long sks, long long skh,
-                         long long svb, long long svs, long long svh,
-                         int causal, int q_offset, float scale_log2, bool few,
-                         cudaStream_t st) {
+// The launch's arguments, as the C entry point takes them.
+struct Args {
+  const bf16 *q, *k, *v;
+  const uint8_t* valid;
+  bf16* o;
+  float* lse;
+  int B, T, S, HQ, HK;
+  long long sqb, sqt, sqh, skb, sks, skh, svb, svs, svh;
+  int causal, q_offset;
+  float scale_log2;
+};
+
+template <int D>
+cudaError_t launch_tiled(const Args& a, bool few, cudaStream_t st) {
   static std::atomic<bool> ready[2][MAX_DEVICES];
-  const auto kernel = few ? flash_fwd_kernel<true> : flash_fwd_kernel<false>;
-  cudaError_t e = prepare(reinterpret_cast<const void*>(kernel), ready[few], nullptr);
+  constexpr int smem = Dims<D>::RING_BYTES;
+  const auto kernel = few ? flash_fwd_kernel<D, true> : flash_fwd_kernel<D, false>;
+  cudaError_t e = prepare(reinterpret_cast<const void*>(kernel), smem, ready[few], nullptr);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3((T + BQ - 1) / BQ, HQ, B), THREADS, RING_BYTES, st>>>(
-      q, k, v, valid, o, lse, T, S, HQ, HK, sqb, sqt, sqh, skb, sks, skh, svb, svs, svh,
-      causal, q_offset, scale_log2);
+  kernel<<<dim3((a.T + BQ - 1) / BQ, a.HQ, a.B), THREADS, smem, st>>>(
+      a.q, a.k, a.v, a.valid, a.o, a.lse, a.T, a.S, a.HQ, a.HK, a.sqb, a.sqt, a.sqh,
+      a.skb, a.sks, a.skh, a.svb, a.svs, a.svh, a.causal, a.q_offset, a.scale_log2);
   return cudaGetLastError();
 }
 
-cudaError_t launch_split(const bf16* q, const bf16* k, const bf16* v, const uint8_t* valid,
-                         bf16* o, float* lse, int B, int T, int S, int HQ, int HK,
-                         long long sqb, long long sqt, long long sqh,
-                         long long skb, long long sks, long long skh,
-                         long long svb, long long svs, long long svh,
-                         int causal, int q_offset, float scale_log2, int splits, int tps,
-                         bool few, cudaStream_t st) {
+template <int D>
+cudaError_t launch_split(const Args& a, int splits, int tps, bool few, cudaStream_t st) {
   static std::atomic<bool> ready[2][MAX_CLUSTER + 1][MAX_DEVICES];
+  constexpr int smem = Dims<D>::RING_BYTES;
   // the splits must cover every key tile of S
-  if (splits < 1 || splits > MAX_CLUSTER || tps < 1 || splits * tps < (S + BKV - 1) / BKV)
+  if (splits < 1 || splits > MAX_CLUSTER || tps < 1 || splits * tps < (a.S + BKV - 1) / BKV)
     return cudaErrorInvalidValue;
-  const int rows = (HQ / HK) * T;
+  const int rows = (a.HQ / a.HK) * a.T;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = splits;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, (rows + BQ - 1) / BQ, B * HK);
+  cfg.gridDim = dim3(splits, (rows + BQ - 1) / BQ, a.B * a.HK);
   cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = RING_BYTES;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const auto kernel = few ? flash_fwd_split_kernel<true> : flash_fwd_split_kernel<false>;
-  cudaError_t e = prepare(reinterpret_cast<const void*>(kernel), ready[few][splits], &cfg);
+  const auto kernel = few ? flash_fwd_split_kernel<D, true> : flash_fwd_split_kernel<D, false>;
+  cudaError_t e = prepare(reinterpret_cast<const void*>(kernel), smem, ready[few][splits], &cfg);
   if (e != cudaSuccess) return e;
-  e = cudaLaunchKernelEx(&cfg, kernel, q, k, v, valid, o, lse, T, S, HQ, HK,
-                         sqb, sqt, sqh, skb, sks, skh, svb, svs, svh,
-                         causal, q_offset, scale_log2, tps);
+  e = cudaLaunchKernelEx(&cfg, kernel, a.q, a.k, a.v, a.valid, a.o, a.lse, a.T, a.S, a.HQ,
+                         a.HK, a.sqb, a.sqt, a.sqh, a.skb, a.sks, a.skh, a.svb, a.svs, a.svh,
+                         a.causal, a.q_offset, a.scale_log2, tps);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch(const Args& a, int splits, int tps, bool few, cudaStream_t st) {
+  return splits == 0 ? launch_tiled<D>(a, few, st) : launch_split<D>(a, splits, tps, few, st);
+}
+
 }  // namespace
 
-// The constants the wrapper's plan (_fwd_plan) relies on: keys a tile,
-// rows a block, the largest cluster of splits.
-extern "C" void simlingo_flash_attn_fwd_geometry(int* out) {
+// The constants the wrapper's plan (_fwd_plan) relies on, for head dim D:
+// keys a tile, rows a block, the largest cluster of splits, and the
+// dynamic shared memory a block. Returns 0, or -1 for a D without an
+// instance (the wrapper pads those).
+extern "C" int simlingo_flash_attn_fwd_geometry(int head_dim, int* out) {
+  int smem = 0;
+  switch (head_dim) {
+    case 16: smem = Dims<16>::RING_BYTES; break;
+    case 32: smem = Dims<32>::RING_BYTES; break;
+    case 64: smem = Dims<64>::RING_BYTES; break;
+    case 128: smem = Dims<128>::RING_BYTES; break;
+    default: return -1;
+  }
   out[0] = BKV;
   out[1] = BQ;
   out[2] = MAX_CLUSTER;
+  out[3] = smem;
+  return 0;
 }
 
 // splits == 0: the tiled path; else the split path with `splits` blocks of
-// `tps` key tiles a (row block, kv head, batch); few != 0: the FEW build.
+// `tps` key tiles a (row block, kv head, batch); few != 0: the FEW build;
+// head_dim: 16, 32, 64 or 128 (else cudaErrorInvalidValue).
 extern "C" int simlingo_flash_attn_fwd(
     const void* q, const void* k, const void* v, const void* kv_valid, void* o,
     void* lse, int B, int T, int S, int HQ, int HK,
     long long sqb, long long sqt, long long sqh,
     long long skb, long long sks, long long skh,
     long long svb, long long svs, long long svh,
-    int causal, int q_offset, float scale, int splits, int tps, int few, void* stream) {
-  const float scale_log2 = scale * 1.4426950408889634f;
-  const auto* q_ = static_cast<const bf16*>(q);
-  const auto* k_ = static_cast<const bf16*>(k);
-  const auto* v_ = static_cast<const bf16*>(v);
-  const auto* m_ = static_cast<const uint8_t*>(kv_valid);
-  auto* o_ = static_cast<bf16*>(o);
-  auto* l_ = static_cast<float*>(lse);
+    int causal, int q_offset, float scale, int splits, int tps, int few, int head_dim,
+    void* stream) {
+  const Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+               static_cast<const bf16*>(v), static_cast<const uint8_t*>(kv_valid),
+               static_cast<bf16*>(o), static_cast<float*>(lse), B, T, S, HQ, HK,
+               sqb, sqt, sqh, skb, sks, skh, svb, svs, svh, causal, q_offset,
+               scale * 1.4426950408889634f};
   const auto st = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      splits == 0 ? launch_tiled(q_, k_, v_, m_, o_, l_, B, T, S, HQ, HK, sqb, sqt, sqh, skb, sks,
-                                 skh, svb, svs, svh, causal, q_offset, scale_log2, few != 0, st)
-                  : launch_split(q_, k_, v_, m_, o_, l_, B, T, S, HQ, HK, sqb, sqt, sqh, skb, sks,
-                                 skh, svb, svs, svh, causal, q_offset, scale_log2, splits, tps,
-                                 few != 0, st);
+  cudaError_t e = cudaErrorInvalidValue;
+  switch (head_dim) {
+    case 16: e = launch<16>(a, splits, tps, few != 0, st); break;
+    case 32: e = launch<32>(a, splits, tps, few != 0, st); break;
+    case 64: e = launch<64>(a, splits, tps, few != 0, st); break;
+    case 128: e = launch<128>(a, splits, tps, few != 0, st); break;
+    default: break;
+  }
   return static_cast<int>(e);
 }

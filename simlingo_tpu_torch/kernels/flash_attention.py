@@ -29,7 +29,17 @@ Semantics (as `attention_reference` in the JAX package, :71-107):
   * kv_valid [B, S] bool masks keys; a row with no visible valid key
     returns 0.
 
-On a CUDA tensor `attention` launches the kernel (bf16, D = 64); on a CPU
+Head dims: both CUDA files are built at D = 16, 32, 64 and 128
+(`HEAD_DIMS`; JAX's kernels read D from the shapes). Any other D <= 128 is
+zero-padded to the next of these (`_instance_dim`) before the launch, with
+the scale kept at the true D ** -0.5: zero q and k columns add nothing to
+q k^T, zero v and dO columns nothing to dO v^T or rowsum(dO o), and the
+padded output and gradient columns are cut off, so the result is that of
+D. No configuration of the repo takes that route (the CLIP tower and the
+LLMs use 64, SimLingo-Base's LLaMA variants past `tiny` 128, the test
+configurations 16 and 32). D > 128 raises on a CUDA tensor.
+
+On a CUDA tensor `attention` launches the kernel (bf16); on a CPU
 tensor it runs `attention_reference`. `attention_train` does the same for
 the forward and, in its backward, launches `flash_attn_bwd` on CUDA tensors
 and runs `attention_bwd_reference` on CPU tensors.
@@ -42,6 +52,7 @@ import functools
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from simlingo_tpu_torch.kernels import _build
 
@@ -93,11 +104,37 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_attn_fwd(q, k, v, kv_valid, causal, scale, q_offset)
 
 
-# The forward's geometry: keys a tile, query rows a block, the largest
-# cluster of splits; `_lib` refuses a library that reports others
-# (simlingo_flash_attn_fwd_geometry).
+# The head dims both CUDA files are built at; others up to the last are
+# zero-padded to the next of these.
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+def _instance_dim(D):
+    """The built head dim a launch at head dim D uses: D itself, or the
+    next one up, to which the wrapper zero-pads. Raises past 128."""
+    for d in HEAD_DIMS:
+        if D <= d:
+            return d
+    raise ValueError(f"flash attention kernels take head_dim up to {HEAD_DIMS[-1]}, got {D}")
+
+
+def _pad_d(x, d):
+    """x [..., D] zero-padded to [..., d] (a contiguous copy), or x where D == d."""
+    return x if x.shape[-1] == d else F.pad(x, (0, d - x.shape[-1]))
+
+
+# The forward's geometry at every D: keys a tile, query rows a block, the
+# largest cluster of splits; the dynamic shared memory a block is the
+# 3-stage K/V ring, `_fwd_smem_bytes`. `_lib` refuses a library that
+# reports others (simlingo_flash_attn_fwd_geometry).
 _FWD_GEOMETRY = (64, 64, 8)
 _FWD_TILE, _FWD_ROWS = _FWD_GEOMETRY[:2]
+
+
+def _fwd_smem_bytes(d):
+    """The forward's cp.async ring at built head dim d: 3 stages of a K
+    and a V tile, rows padded by 8 (55296 bytes at d = 64)."""
+    return 3 * 2 * _FWD_TILE * (d + 8) * 2
 # The split path takes a GQA group whose packed rows (group x T) number at
 # most this many: decode 7, verify 112, the queries 210 (Qwen2-0.5B, group
 # 7). Against the 770-key cache it beat the tiled path up to T = 256 (1792
@@ -117,6 +154,8 @@ class FwdPlan(NamedTuple):
     key_ranges: tuple         # each split's keys [lo, hi), clipped to kv_end; tiled: one range
     grid: tuple               # the launch's (x, y, z)
     remainder: bool           # the kernel's build with P's remainder (`_fwd_remainder`)
+    head_dim: int             # the built head dim launched (`_instance_dim`)
+    smem_bytes: int           # dynamic shared memory a block
 
 
 @functools.lru_cache(maxsize=256)
@@ -149,21 +188,25 @@ def _fwd_remainder(S, causal, q_offset):
 
 
 def _fwd_plan(B, T, S, HQ, HK, causal, q_offset, sms=132, split_rows=SPLIT_MAX_ROWS,
-              max_splits=SPLIT_MAX):
+              max_splits=SPLIT_MAX, D=64):
     """The blocks of `flash_attn_fwd` and the keys each split attends to
-    (`_fwd_launch`)."""
+    (`_fwd_launch`), at head dim D. The tiles and the grid do not depend on
+    D; the built head dim and the shared memory a block do."""
     splits, tps = _fwd_launch(B, T, S, HQ, HK, sms, split_rows, max_splits)
     kv_end = max(0, min(S, q_offset + T)) if causal else S
     few = _fwd_remainder(S, causal, q_offset)
+    d = _instance_dim(D)
     if splits:
         rows = (HQ // HK) * T
         span = tps * _FWD_TILE
         ranges = tuple((min(s * span, kv_end), min((s + 1) * span, kv_end))
                        for s in range(splits))
         grid = (splits, -(-rows // _FWD_ROWS), B * HK)
-        return FwdPlan("split", rows, grid[1], splits, tps, kv_end, ranges, grid, few)
+        return FwdPlan("split", rows, grid[1], splits, tps, kv_end, ranges, grid, few,
+                       d, _fwd_smem_bytes(d))
     grid = (-(-T // _FWD_ROWS), HQ, B)
-    return FwdPlan("tiled", T, grid[0], 0, 0, kv_end, ((0, kv_end),), grid, few)
+    return FwdPlan("tiled", T, grid[0], 0, 0, kv_end, ((0, kv_end),), grid, few,
+                   d, _fwd_smem_bytes(d))
 
 
 def _packed_rows(group, T):
@@ -236,13 +279,13 @@ def flash_attn_fwd(q, k, v, kv_valid=None, causal=True, scale=None,
     a call; sweeps and tests force another through its knobs `split_rows`
     and `max_splits`, so the plan always fits these shapes). q/k/v may be
     strided views (e.g. heads of a [B, T, H*D] projection, or a KV cache);
-    no copy is made. With `return_lse` also returns the base-2 log-sum-exp
-    [B, HQ, T] fp32 of the scaled logits (-inf where a row sees no valid
-    key)."""
+    no copy is made at a built head dim (`HEAD_DIMS`), and any other D <=
+    128 is zero-padded to the next one. With `return_lse` also returns the
+    base-2 log-sum-exp [B, HQ, T] fp32 of the scaled logits (-inf where a
+    row sees no valid key)."""
     B, T, HQ, D = q.shape
     _, S, HK, _ = k.shape
-    if D != 64:
-        raise ValueError(f"flash_attn_fwd kernel needs head_dim 64, got {D}")
+    d = _instance_dim(D)
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.dtype != torch.bfloat16:
             raise TypeError(f"flash_attn_fwd kernel takes bf16, {name} is {x.dtype}")
@@ -250,6 +293,7 @@ def flash_attn_fwd(q, k, v, kv_valid=None, causal=True, scale=None,
     if k.shape != v.shape or k.shape[0] != B or HQ % HK:
         raise ValueError(f"flash_attn_fwd: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    q, k, v = (_pad_d(x, d) for x in (q, k, v))
     # k/v tiles are read 16 bytes at a time
     for name, x in (("k", k), ("v", v)):
         if x.data_ptr() % 16 or any(s % 8 for s in x.stride()[:3]):
@@ -265,10 +309,11 @@ def flash_attn_fwd(q, k, v, kv_valid=None, causal=True, scale=None,
         kv_valid = kv_valid.to(device=q.device, dtype=torch.uint8)
         kv_valid = kv_valid.expand(B, S).contiguous()
         valid_ptr = kv_valid.data_ptr()
-    out = torch.empty((B, T, HQ, D), dtype=torch.bfloat16, device=q.device)
+    out = torch.empty((B, T, HQ, d), dtype=torch.bfloat16, device=q.device)
     lse = (torch.empty((B, HQ, T), dtype=torch.float32, device=q.device)
            if return_lse else None)
     if B * T == 0:
+        out = out[..., :D]
         return (out, lse) if return_lse else out
     splits, tps = _fwd_launch(B, T, S, HQ, HK, _build.sm_count(q.device.index or 0),
                               split_rows, max_splits)
@@ -280,29 +325,34 @@ def flash_attn_fwd(q, k, v, kv_valid=None, causal=True, scale=None,
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         int(bool(causal)), int(q_offset), ctypes.c_float(float(scale)),
-        splits, tps, int(_fwd_remainder(S, bool(causal), int(q_offset))),
+        splits, tps, int(_fwd_remainder(S, bool(causal), int(q_offset))), d,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attn_fwd")
     flash_attn_fwd.launches += 1
+    flash_attn_fwd.launches_by_dim[d] = flash_attn_fwd.launches_by_dim.get(d, 0) + 1
+    out = out[..., :D] if d != D else out
     return (out, lse) if return_lse else out
 
 
 flash_attn_fwd.launches = 0
+flash_attn_fwd.launches_by_dim = {}      # built head dim -> launches
 
 
 def _lib():
     lib = _build.load("flash_attn_fwd")
     fn = lib.simlingo_flash_attn_fwd
     if fn.argtypes is None:
-        geometry = (ctypes.c_int * 3)()
-        lib.simlingo_flash_attn_fwd_geometry(geometry)
-        if tuple(geometry) != _FWD_GEOMETRY:
-            raise RuntimeError(f"flash_attn_fwd: the library's geometry {tuple(geometry)} "
-                               f"differs from the plan's {_FWD_GEOMETRY}")
+        for d in HEAD_DIMS:
+            geometry = (ctypes.c_int * 4)()
+            rc = lib.simlingo_flash_attn_fwd_geometry(d, geometry)
+            want = (*_FWD_GEOMETRY, _fwd_smem_bytes(d))
+            if rc != 0 or tuple(geometry) != want:
+                raise RuntimeError(f"flash_attn_fwd: the library's geometry at D = {d} "
+                                   f"{tuple(geometry)} (rc {rc}) differs from the plan's {want}")
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 9
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_float]
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
@@ -386,13 +436,27 @@ def attention_bwd_reference(q, k, v, kv_valid, o, dout, lse, causal,
 
 
 # The backward's tiles (query rows, keys) and the resident blocks an SM of
-# the dK/dV kernel's capped instantiation; `_bwd_lib` refuses a library
-# that reports others (simlingo_flash_attn_bwd_geometry).
+# the dK/dV kernel's capped instantiation, which exists at D <= 64 only (at
+# 128 its 168-register cap would spill the dK / dV accumulators);
+# `_bwd_lib` refuses a library that reports others
+# (simlingo_flash_attn_bwd_geometry, with `_bwd_geometry`).
 _BWD_TILE = (64, 64)
 _DKDV_BLOCKS = 3
-# The dQ kernel keeps one flag a key tile in shared memory, beside 36 KB of
-# tiles, within the 48 KB a block gets without opting in.
+# The dQ kernel keeps one flag a key tile in shared memory, beside its tiles.
 _BWD_MAX_KEY_TILES = 8192
+
+
+def _bwd_geometry(d):
+    """What the backward library reports at built head dim d: (query rows,
+    keys) a tile, the capped dK/dV build's blocks an SM (0: none), the
+    query rows of one dK/dV register pass (S^T and dP^T are held for 32
+    rows at a time at d = 128, where dK and dV take 128 registers a
+    thread), and the dK/dV kernel's dynamic shared memory (K, V; Q and dO
+    double-buffered, rows padded by 8; the warps' dS^T rows; lse and
+    delta)."""
+    bq, bkv = _BWD_TILE
+    smem = (2 * bkv * (d + 8) + 4 * bq * (d + 8) + 4 * 16 * (bq + 8)) * 2 + 4 * bq * 4
+    return (bq, bkv, _DKDV_BLOCKS if d <= 64 else 0, 64 if d <= 64 else 32, smem)
 
 
 def _pair_live(qt, kt, T, causal, q_offset):
@@ -410,11 +474,15 @@ class BwdPlan(NamedTuple):
     ds_bytes: int
     written: frozenset        # (query tile, key tile) pairs the dK/dV kernel writes
     read: frozenset           # ... and those the dQ kernel reads
+    head_dim: int             # the built head dim launched (`_instance_dim`)
+    query_pass: int           # query rows of a dK/dV register pass
+    dkdv_smem: int            # the dK/dV kernel's dynamic shared memory a block
 
 
 @functools.lru_cache(maxsize=64)
-def _bwd_plan(B, T, S, HQ, HK, causal, q_offset):
-    """The scratch and the tile pairs of `flash_attn_bwd`.
+def _bwd_plan(B, T, S, HQ, HK, causal, q_offset, D=64):
+    """The scratch and the tile pairs of `flash_attn_bwd` at head dim D
+    (the scratch and the pairs do not depend on D).
 
     The dK/dV kernel of key tile kt walks the query tiles from the first
     whose pair is live to the last, writing dS^T for each; the dQ kernel of
@@ -435,17 +503,21 @@ def _bwd_plan(B, T, S, HQ, HK, causal, q_offset):
     read = {(qt, kt) for qt in range(n_qt) for kt in range(n_kt)
             if _pair_live(qt, kt, T, causal, q_offset)}
     shape = (B, HQ, n_kt, n_qt, bkv, bq)
+    d = _instance_dim(D)
+    _, _, _, query_pass, smem = _bwd_geometry(d)
     return BwdPlan(n_qt, n_kt, shape, 2 * B * HQ * n_kt * bkv * n_qt * bq,
-                   frozenset(written), frozenset(read))
+                   frozenset(written), frozenset(read), d, query_pass, smem)
 
 
-def _dkdv_blocks(B, S, HK, sms):
+def _dkdv_blocks(B, S, HK, sms, D=64):
     """The dK/dV kernel's instantiation: _DKDV_BLOCKS resident blocks an SM
     (registers capped) where its grid of (key tile, kv head, batch) blocks
-    fills that many on every SM (the ViT's 3264), else 1: ptxas's own
-    register count, 2 blocks an SM (the LLM's 156 blocks fill fewer)."""
+    fills that many on every SM (the ViT's 3264) and head dim D has that
+    build (D <= 64), else 1: ptxas's own register count (2 blocks an SM at
+    D = 64: the LLM's 156 blocks fill fewer)."""
     blocks = B * HK * -(-S // _BWD_TILE[1])
-    return _DKDV_BLOCKS if blocks >= _DKDV_BLOCKS * sms else 1
+    capped = _bwd_geometry(_instance_dim(D))[2]
+    return capped if capped and blocks >= capped * sms else 1
 
 
 def _live_key_tiles(kv_valid, B, S, device=None):
@@ -530,14 +602,12 @@ def flash_attn_bwd(q, k, v, kv_valid, o, dout, lse, causal=True, scale=None,
     live key tiles hold values)."""
     B, T, HQ, D = q.shape
     _, S, HK, _ = k.shape
-    if D != 64:
-        raise ValueError(f"flash_attn_bwd kernel needs head_dim 64, got {D}")
+    d = _instance_dim(D)
     for name, x in (("q", q), ("k", k), ("v", v), ("o", o), ("dout", dout)):
         if x.dtype != torch.bfloat16:
             raise TypeError(f"flash_attn_bwd kernel takes bf16, {name} is {x.dtype}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_bthd(name, x, D)
-        _aligned16(name, x)
     if k.shape != v.shape or k.shape[0] != B or HQ % HK or o.shape != q.shape \
             or dout.shape != q.shape or lse.shape != (B, HQ, T):
         raise ValueError(f"flash_attn_bwd: shapes q {tuple(q.shape)}, k "
@@ -546,22 +616,25 @@ def flash_attn_bwd(q, k, v, kv_valid, o, dout, lse, causal=True, scale=None,
     if lse.dtype != torch.float32:
         raise TypeError(f"flash_attn_bwd takes an fp32 lse, got {lse.dtype}")
     scale, q_offset = _defaults(q, k, scale, q_offset)
-    o, dout, lse = o.contiguous(), dout.contiguous(), lse.contiguous()
+    q, k, v = (_pad_d(x, d) for x in (q, k, v))
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _aligned16(name, x)
+    o, dout, lse = _pad_d(o, d).contiguous(), _pad_d(dout, d).contiguous(), lse.contiguous()
     valid_ptr = None
     if kv_valid is not None:
         kv_valid = kv_valid.to(device=q.device, dtype=torch.uint8)
         kv_valid = kv_valid.expand(B, S).contiguous()
         valid_ptr = kv_valid.data_ptr()
-    plan = _bwd_plan(B, T, S, HQ, HK, bool(causal), int(q_offset))
+    plan = _bwd_plan(B, T, S, HQ, HK, bool(causal), int(q_offset), D)
     if plan.n_kt > _BWD_MAX_KEY_TILES:
         raise ValueError(f"flash_attn_bwd kernel takes at most "
                          f"{_BWD_MAX_KEY_TILES * _BWD_TILE[1]} keys, got {S}")
-    dq = torch.empty((B, T, HQ, D), dtype=torch.bfloat16, device=q.device)
-    dk = torch.empty((B, S, HK, D), dtype=torch.bfloat16, device=q.device)
-    dv = torch.empty((B, S, HK, D), dtype=torch.bfloat16, device=q.device)
+    dq = torch.empty((B, T, HQ, d), dtype=torch.bfloat16, device=q.device)
+    dk = torch.empty((B, S, HK, d), dtype=torch.bfloat16, device=q.device)
+    dv = torch.empty((B, S, HK, d), dtype=torch.bfloat16, device=q.device)
     ds = torch.empty(plan.ds_shape, dtype=torch.bfloat16, device=q.device)
     if B * T * S == 0:
-        grads = (dq.zero_(), dk.zero_(), dv.zero_())
+        grads = tuple(g.zero_()[..., :D] for g in (dq, dk, dv))
         return (*grads, ds) if return_ds else grads
     delta = torch.empty((B, HQ, T), dtype=torch.float32, device=q.device)
     live = (torch.empty((B, plan.n_kt), dtype=torch.uint8, device=q.device)
@@ -575,29 +648,35 @@ def flash_attn_bwd(q, k, v, kv_valid, o, dout, lse, causal=True, scale=None,
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         int(bool(causal)), int(q_offset), ctypes.c_float(float(scale)),
-        _dkdv_blocks(B, S, HK, _build.sm_count(q.device.index or 0)),
+        _dkdv_blocks(B, S, HK, _build.sm_count(q.device.index or 0), D), d,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attn_bwd")
     flash_attn_bwd.launches += 1
+    flash_attn_bwd.launches_by_dim[d] = flash_attn_bwd.launches_by_dim.get(d, 0) + 1
+    if d != D:
+        dq, dk, dv = (g[..., :D] for g in (dq, dk, dv))
     return (dq, dk, dv, ds) if return_ds else (dq, dk, dv)
 
 
 flash_attn_bwd.launches = 0
+flash_attn_bwd.launches_by_dim = {}      # built head dim -> launches
 
 
 def _bwd_lib():
     lib = _build.load("flash_attn_bwd")
     fn = lib.simlingo_flash_attn_bwd
     if fn.argtypes is None:
-        geometry = (ctypes.c_int * 3)()
-        lib.simlingo_flash_attn_bwd_geometry(geometry)
-        if tuple(geometry) != (*_BWD_TILE, _DKDV_BLOCKS):
-            raise RuntimeError(f"flash_attn_bwd: the library's geometry {tuple(geometry)} "
-                               f"differs from the plan's {(*_BWD_TILE, _DKDV_BLOCKS)}")
+        for d in HEAD_DIMS:
+            geometry = (ctypes.c_int * 5)()
+            rc = lib.simlingo_flash_attn_bwd_geometry(d, geometry)
+            if rc != 0 or tuple(geometry) != _bwd_geometry(d):
+                raise RuntimeError(f"flash_attn_bwd: the library's geometry at D = {d} "
+                                   f"{tuple(geometry)} (rc {rc}) differs from the plan's "
+                                   f"{_bwd_geometry(d)}")
         fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 9
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                          ctypes.c_void_p])
+                          ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 

@@ -5,8 +5,8 @@ reference's from-scratch LlamaModel configs (the base model uses `tiny`)
 on continuous token embeddings only. LLaMA is a Qwen2 without qkv biases,
 so the decoder is the port's `models/qwen2.py` with qkv_bias=False and
 rope_theta 1e4; a 1-row embedding stands in for the removed vocabulary
-(never read). The variants past `tiny` have head_dim 128, which the
-attention kernels refuse (ROADMAP B8).
+(never read). The variants past `tiny` have head_dim 128 (`debug` 16),
+which the attention kernels are built at.
 """
 
 from __future__ import annotations

@@ -1,49 +1,56 @@
 """SimLingo-Base (CarLLaVA): the vision-only driving model.
 
-Counterpart of `simlingo_tpu/models/simlingo_base.py`: the LLaVA-NeXT CLIP
-tower -> linear `language_projection` -> [vision tokens | speed token |
-target-point tokens | 30 driving queries] -> the from-scratch tiny LLaMA
-(continuous tokens, no vocabulary, causal) -> the cumsum MLP heads;
-smooth-L1 losses. At the defaults (two 336 tiles, `tiny`) the sequence is
-300 + 1 + 2 + 30 = 333 tokens. The ResNet encoder is not ported (ROADMAP
-A14b).
+Counterpart of `simlingo_tpu/models/simlingo_base.py`: the vision
+encoder -- the LLaVA-NeXT CLIP tower, or the ResNet (`encoder="resnet"`,
+`models/resnet.py`) -- -> linear `language_projection` -> [vision tokens |
+speed token | target-point tokens | 30 driving queries] -> the
+from-scratch LLaMA (continuous tokens, no vocabulary, causal) -> the
+cumsum MLP heads; smooth-L1 losses. At the defaults (two 336 tiles,
+`tiny`) the sequence is 300 + 1 + 2 + 30 = 333 tokens; with the ResNet-18,
+2 x 11 x 11 + 33 = 275.
+
+The ResNet's running BatchNorm statistics sit in the parameter tree at
+`bn_state`, as in JAX. The encoder always runs with training=False, in
+`forward_loss` too, so they never take a batch's statistics; but they are
+read by the normalisation, so they have gradients, and the training step
+updates them as parameters of the "rest" group (AdamW, weight decay
+included), as JAX's optax chain does.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 
 from simlingo_tpu_torch.core.device import resolve_device
 from simlingo_tpu_torch.core.structs import TrainingOutput, summarise_losses
 from simlingo_tpu_torch.models import adaptors as A
-from simlingo_tpu_torch.models import clip_vit, llama, qwen2
+from simlingo_tpu_torch.models import clip_vit, llama, qwen2, resnet
 from simlingo_tpu_torch.models import layers as L
+
+ENCODERS = ("llavanext", "resnet")
 
 
 @dataclasses.dataclass(frozen=True)
 class SimLingoBaseConfig:
     llm_variant: str = "tiny"
-    encoder: str = "llavanext"           # 'resnet' is not ported (A14b)
+    encoder: str = "llavanext"           # 'llavanext' | 'resnet'
     clip: clip_vit.CLIPViTConfig = dataclasses.field(
         default_factory=clip_vit.CLIPViTConfig)
+    resnet: resnet.ResNetConfig = dataclasses.field(default_factory=resnet.ResNetConfig)
     speed_as_input: bool = True
     predict_route_as_wps: bool = True
     speed_wps_mode: str = "2d"
     adaptor_mlp_dim: int = 256
     new_layer_norm_minmax: bool = False
-    # None: llama_config(llm_variant); else this LLM (e.g. at head_dim 64)
-    llm_config: Optional[qwen2.Qwen2Config] = None
 
     def __post_init__(self):
         _check_encoder(self)
 
     @property
     def llm(self) -> qwen2.Qwen2Config:
-        if self.llm_config is not None:
-            return self.llm_config
         return llama.llama_config(self.llm_variant)
 
     @property
@@ -60,20 +67,20 @@ class SimLingoBaseConfig:
 
 
 def _check_encoder(cfg: SimLingoBaseConfig) -> None:
-    if cfg.encoder != "llavanext":
-        raise ValueError(f"SimLingoBaseConfig: encoder {cfg.encoder!r} is not ported "
-                         "(the ResNet encoder is ROADMAP item A14b); use 'llavanext'")
+    if cfg.encoder not in ENCODERS:
+        raise ValueError(f"SimLingoBaseConfig: encoder {cfg.encoder!r} is not one of "
+                         f"{ENCODERS}")
 
 
 def init_params(cfg: SimLingoBaseConfig, generator: torch.Generator, device="cuda",
                 dtype=torch.float32) -> Dict[str, Any]:
     """Random weights from `generator` (which must live on `device`), in the
-    tree of the JAX `init_params`; every leaf trains."""
+    tree of the JAX `init_params` (the ResNet's running statistics at
+    `bn_state`); every leaf trains."""
     _check_encoder(cfg)
     dev = resolve_device(device)
     kw = dict(dtype=dtype, device=dev)
     H = cfg.llm.hidden_size
-    C = cfg.clip.projector_out
     p: Dict[str, Any] = {
         "llm": qwen2.init_params(generator, cfg.llm, **kw),
         "adaptors": A.init_driving_adaptor(generator, H, cfg.adaptor_mlp_dim,
@@ -83,10 +90,15 @@ def init_params(cfg: SimLingoBaseConfig, generator: torch.Generator, device="cud
     }
     if cfg.speed_as_input:
         p["speed_encoder"] = A.init_vector_adaptor(generator, 1, H, 256, **kw)
-    p["vision"] = clip_vit.init_params(generator, cfg.clip, **kw)
-    p["image_newline"] = L._normal(generator, (C,), **kw)
-    p["temporal_encoding"] = L._normal(generator, (1, 1, C), **kw)
-    p["camera_encoding"] = L._normal(generator, (1, 1, C), **kw)
+    if cfg.encoder == "llavanext":
+        C = cfg.clip.projector_out
+        p["vision"] = clip_vit.init_params(generator, cfg.clip, **kw)
+        p["image_newline"] = L._normal(generator, (C,), **kw)
+        p["temporal_encoding"] = L._normal(generator, (1, 1, C), **kw)
+        p["camera_encoding"] = L._normal(generator, (1, 1, C), **kw)
+    else:
+        C = cfg.resnet.token_size
+        p["vision"], p["bn_state"] = resnet.init_params(cfg.resnet, generator, **kw)
     if C != H:
         p["language_projection"] = L.linear_init(generator, C, H, False, **kw)
     return p
@@ -94,11 +106,20 @@ def init_params(cfg: SimLingoBaseConfig, generator: torch.Generator, device="cud
 
 def vision_tokens(params, pixel_values: torch.Tensor, cfg: SimLingoBaseConfig
                   ) -> torch.Tensor:
-    """pixel_values [B, NP, S, S, 3] -> [B, n_tokens, H] projected tokens."""
-    feats = clip_vit.llava_features(params["vision"], pixel_values, cfg.clip,
-                                    params["image_newline"])
-    feats = (feats + params["temporal_encoding"].to(feats.dtype)
-             + params["camera_encoding"].to(feats.dtype))
+    """pixel_values [B, NP, S, S, 3] -> [B, n_tokens, H] projected tokens.
+    The ResNet runs on the B x NP tiles with training=False, as JAX's
+    `vision_tokens` calls it, in training too."""
+    if cfg.encoder == "llavanext":
+        feats = clip_vit.llava_features(params["vision"], pixel_values, cfg.clip,
+                                        params["image_newline"])
+        feats = (feats + params["temporal_encoding"].to(feats.dtype)
+                 + params["camera_encoding"].to(feats.dtype))
+    else:
+        B, NP = pixel_values.shape[:2]
+        feats, _ = resnet.encode(params["vision"], params["bn_state"],
+                                 pixel_values.reshape((B * NP,) + pixel_values.shape[2:]),
+                                 cfg.resnet, training=False)
+        feats = feats.reshape(B, -1, feats.shape[-1])
     if "language_projection" in params:
         feats = L.linear(params["language_projection"], feats)
     return feats

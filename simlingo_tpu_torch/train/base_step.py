@@ -12,6 +12,16 @@ schedule; AdamW's weight decay applies to every leaf, as
 `train/train_step.py` explains. fp32 masters, a bf16 compute copy made
 inside the forward (`cast_for_compute`) and fp32 gradients; the loss is
 `summarise_losses` of route_loss + speed_wps_loss.
+
+With the ResNet encoder, its running BatchNorm statistics (`bn_state/...`)
+are leaves of the "rest" group, as they are leaves of JAX's parameter tree
+(`simlingo_tpu/models/simlingo_base.py:83`). The encoder runs with
+training=False, so no batch statistic ever enters them; but the
+normalisation reads them, so `jax.value_and_grad` differentiates them, and
+optax's AdamW moves them by those gradients and decays them by lr x
+weight_decay every step. The port does the same: they require grad, and a
+leaf whose gradient stays None would take zeros (and the decay) as in JAX.
+This is the reference's behaviour, kept, not a fault to fix here.
 """
 
 from __future__ import annotations

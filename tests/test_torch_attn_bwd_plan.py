@@ -157,3 +157,61 @@ def test_two_pass_dq_matches_pallas_bt_hd_pair():
     out = TFA.attention_reference(tq, tk, tv, None, False)
     dq = _two_pass_dq(tq, tk, tv, None, out, tg, False)
     np.testing.assert_allclose(dq.reshape(B, T, H * D).numpy(), want, **TOL)
+
+
+# (D, built head dim, query rows of a dK/dV register pass, the capped
+# dK/dV build's blocks an SM (0: none), the dK/dV kernel's shared memory)
+HEAD_DIM_PLANS = [(16, 16, 64, 3, 28_672), (32, 32, 64, 3, 40_960), (64, 64, 64, 3, 65_536),
+                  (128, 128, 32, 0, 114_688),
+                  (8, 16, 64, 3, 28_672), (48, 64, 64, 3, 65_536), (80, 128, 32, 0, 114_688)]
+
+
+@pytest.mark.parametrize("D,built,query_pass,capped,smem", HEAD_DIM_PLANS)
+def test_the_plan_at_every_head_dim(D, built, query_pass, capped, smem):
+    """The scratch and its pairs do not depend on D (the plan at D = 64 is
+    the one of a call that names no D); a D without its own build takes the
+    next one up, zero-padded; at D = 128 S^T and dP^T are held 32 query rows
+    at a time and there is no capped build."""
+    args = (6, 798, 798, 14, 2, True, 0)
+    plan, today = TFA._bwd_plan(*args, D), TFA._bwd_plan(*args)
+    assert plan[:6] == today[:6] and plan.ds_bytes == 116_293_632
+    assert (today.head_dim, today.query_pass, today.dkdv_smem) == (64, 64, 65_536)
+    assert (plan.head_dim, plan.query_pass, plan.dkdv_smem) == (built, query_pass, smem)
+    assert TFA._bwd_geometry(built) == (BQ, BKV, capped, query_pass, smem)
+    # the capped build where it exists and the grid fills 3 blocks an SM (the ViT's 3264)
+    assert TFA._dkdv_blocks(12, 1025, 16, 132, D) == (3 if capped else 1)
+    assert TFA._dkdv_blocks(6, 798, 2, 132, D) == 1
+
+
+def test_a_head_dim_past_128_is_refused():
+    with pytest.raises(ValueError, match="head_dim up to 128"):
+        TFA._bwd_plan(1, 16, 16, 2, 2, True, 0, 160)
+    with pytest.raises(ValueError, match="head_dim up to 128"):
+        TFA._fwd_plan(1, 16, 16, 2, 2, True, 0, D=160)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_zero_padding_to_the_built_head_dim_is_exact(causal):
+    """The wrapper's route for a D without its own build: q, k, v, o and
+    dout zero-padded to the next built head dim, the scale kept at D ** -0.5,
+    the padded columns cut off. In the plain versions (fp32) the forward,
+    the lse and the three gradients are those of D."""
+    D, d = 40, TFA._instance_dim(40)
+    assert d == 64
+    rng = np.random.RandomState(D)
+    q, k, v, do = (torch.from_numpy(rng.randn(2, 37, 4, D).astype(np.float32)) for _ in range(4))
+    k, v = k[:, :, :2], v[:, :, :2]
+    out = TFA.attention_reference(q, k, v, None, causal)
+    lse = TFA.attention_lse_reference(q, k, None, causal)
+    grads = TFA.attention_bwd_reference(q, k, v, None, out, do, lse, causal)
+    qp, kp, vp, op, dop = (TFA._pad_d(x, d) for x in (q, k, v, out, do))
+    assert qp.shape[-1] == d and not qp[..., D:].any()
+    np.testing.assert_allclose(
+        TFA.attention_reference(qp, kp, vp, None, causal, D ** -0.5)[..., :D].numpy(),
+        out.numpy(), atol=1e-6, rtol=1e-6)
+    lse_p = TFA.attention_lse_reference(qp, kp, None, causal, D ** -0.5)
+    np.testing.assert_allclose(lse_p.numpy(), lse.numpy(), atol=1e-6, rtol=1e-6)
+    for g, gp in zip(grads, TFA.attention_bwd_reference(qp, kp, vp, None, op, dop, lse_p,
+                                                        causal, D ** -0.5)):
+        assert not gp[..., D:].any()
+        np.testing.assert_allclose(gp[..., :D].numpy(), g.numpy(), atol=1e-6, rtol=1e-6)

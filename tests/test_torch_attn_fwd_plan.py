@@ -244,3 +244,19 @@ def test_the_plan_refuses_split_counts_outside_one_portable_cluster(max_splits):
     assert TFA.SPLIT_MAX == TFA._FWD_GEOMETRY[2] == 8
     with pytest.raises(ValueError):
         TFA._fwd_plan(1, 1, 770, 14, 2, True, 769, split_rows=1 << 30, max_splits=max_splits)
+
+
+@pytest.mark.parametrize("D,built", [(16, 16), (32, 32), (64, 64), (128, 128), (8, 16),
+                                     (48, 64), (80, 128), (112, 128)])
+@pytest.mark.parametrize("name,B,T,S,HQ,HK,causal,q_offset",
+                         [c for c in SHAPES if c[0] in ("decode", "prefill", "vit", "llm_train")])
+def test_the_plan_at_every_head_dim(name, B, T, S, HQ, HK, causal, q_offset, D, built):
+    """The path, the splits and the grid do not depend on D (the plan at D
+    = 64 is the one of a call that names no D); a D without its own build
+    takes the next one up, zero-padded, with its 3-stage K/V ring."""
+    today = TFA._fwd_plan(B, T, S, HQ, HK, causal, q_offset)
+    plan = TFA._fwd_plan(B, T, S, HQ, HK, causal, q_offset, D=D)
+    assert plan[:9] == today[:9]
+    assert (today.head_dim, today.smem_bytes) == (64, 55_296)
+    assert (plan.head_dim, plan.smem_bytes) == (built, 3 * 2 * TILE * (built + 8) * 2)
+    assert TFA._instance_dim(D) == built in TFA.HEAD_DIMS

@@ -32,6 +32,7 @@ import torch
 
 from simlingo_tpu.kernels import flash_attention as JFA
 from simlingo_tpu.models import clip_vit as jclip
+from simlingo_tpu.models import resnet as jresnet
 from simlingo_tpu.models import simlingo_base as jbase
 from simlingo_tpu.parallel.mesh import _path_str
 from simlingo_tpu.train import train_step as jts
@@ -43,6 +44,7 @@ from simlingo_tpu_torch.kernels import flash_attention as TFA
 from simlingo_tpu_torch.kernels import layernorm as TLN
 from simlingo_tpu_torch.models import clip_vit as tclip
 from simlingo_tpu_torch.models import llama as tllama
+from simlingo_tpu_torch.models import resnet as tresnet
 from simlingo_tpu_torch.models import simlingo_base as tbase
 from simlingo_tpu_torch.train import base_step
 from simlingo_tpu_torch.train import train_step as tts
@@ -112,18 +114,19 @@ def test_params_tree_and_config_match_jax(setup):
     full = tbase.SimLingoBaseConfig()
     assert dataclasses.asdict(full.llm) == dataclasses.asdict(jbase.SimLingoBaseConfig().llm)
     assert (full.llm.head_dim, full.llm.num_kv_heads, full.clip.layers_run) == (64, 8, 23)
-    with pytest.raises(ValueError, match="A14b"):
-        tbase.SimLingoBaseConfig(encoder="resnet")
+    assert tbase.SimLingoBaseConfig(encoder="resnet").resnet == tresnet.ResNetConfig()
+    with pytest.raises(ValueError, match="encoder"):
+        tbase.SimLingoBaseConfig(encoder="vit")
 
 
-def test_an_explicit_llm_config_replaces_the_variant():
-    wide = dataclasses.replace(tllama.llama_config("debug"), hidden_size=128, num_heads=2,
-                               num_kv_heads=2, head_dim=64, intermediate_size=256)
-    cfg = tbase.SimLingoBaseConfig(clip=tclip.CLIPViTConfig.tiny(), llm_config=wide)
-    assert cfg.llm is wide
-    assert tbase.SimLingoBaseConfig.tiny().llm == tllama.llama_config("debug")
-    p = tbase.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    assert tuple(p["llm"]["embed"]["w"].shape) == (1, 128)
+@pytest.mark.parametrize("variant", sorted(tllama.CONFIGS))
+def test_every_llama_variant_matches_jax(variant):
+    """Each LLaMA variant is JAX's, at a head dim the attention kernels are
+    built at (16 for `debug`, 64 for `tiny`, 128 past it)."""
+    got = tbase.SimLingoBaseConfig(llm_variant=variant).llm
+    assert dataclasses.asdict(got) == dataclasses.asdict(
+        jbase.SimLingoBaseConfig(llm_variant=variant).llm)
+    assert got.head_dim in TFA.HEAD_DIMS
 
 
 def test_clip_encode_and_llava_features_match_jax(setup):
@@ -282,6 +285,120 @@ def test_three_base_steps_track_the_optax_chain(setup):
                                    atol=max(2e-4 * np.abs(w_mu).max(), 1e-10), err_msg=path)
         np.testing.assert_allclose(st["exp_avg_sq"].numpy(), w_nu, rtol=2e-4,
                                    atol=max(2e-4 * np.abs(w_nu).max(), 1e-18), err_msg=path)
+
+
+# ---------------------------------------------------------------------------
+# the ResNet encoder (encoder="resnet"): ResNet-18 16 wide, 48-wide tokens
+# (so `language_projection` to the debug LLaMA's 32), 64-pixel tiles: 2 x 2
+# tokens a tile, 8 + 33 = 41 tokens
+# ---------------------------------------------------------------------------
+
+RESNET_TILE = 64
+
+
+def _resnet_cfgs():
+    return (jbase.SimLingoBaseConfig(llm_variant="debug", encoder="resnet",
+                                     resnet=jresnet.ResNetConfig(width=16, token_size=48)),
+            tbase.SimLingoBaseConfig(llm_variant="debug", encoder="resnet",
+                                     resnet=tresnet.ResNetConfig(width=16, token_size=48)))
+
+
+@pytest.fixture(scope="module")
+def resnet_setup():
+    """(JAX config, port config, JAX params with running statistics away
+    from 0 / 1, three batches)."""
+    jcfg, tcfg = _resnet_cfgs()
+    params = jax.jit(jbase.init_params, static_argnums=1)(jax.random.PRNGKey(1), jcfg)
+    rng = np.random.RandomState(5)
+    params["bn_state"] = jax.tree_util.tree_map(
+        lambda x: x + 0.3 * np.abs(rng.randn(*x.shape)).astype(np.float32), params["bn_state"])
+    batches = [tuple(x.numpy() for x in base_batch(rng, 2, RESNET_TILE, device="cpu"))
+               for _ in range(3)]
+    return jcfg, tcfg, params, batches
+
+
+def test_resnet_params_tree_matches_jax(resnet_setup):
+    _, tcfg, params, _ = resnet_setup
+    tp = tts.flatten(params_from_jax(params, device="cpu"))
+    own = tts.flatten(tbase.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu"))
+    assert {p: tuple(x.shape) for p, x in tp.items()} == \
+        {p: tuple(x.shape) for p, x in own.items()}
+    assert tp["vision/stem/conv"].shape == (16, 3, 7, 7)                # [out, in, kh, kw]
+    assert tp["language_projection/w"].shape == (32, 48)
+    assert tp["bn_state/stages/3/0/down_bn/var"].shape == (128,)
+    assert not any(p.startswith(("image_newline", "temporal", "camera")) for p in own)
+    assert {base_step.group_of(p) for p in own if p.startswith("bn_state/")} == {"rest"}
+
+
+def test_resnet_forward_waypoints_match_jax(resnet_setup):
+    jcfg, tcfg, params, batches = resnet_setup
+    px, speed, tps = batches[0][:3]
+    want = jax.jit(lambda p, *a: jbase.forward(p, *a, jcfg))(params, px, speed, tps)
+    vis = tbase.vision_tokens(params_from_jax(params, device="cpu"), torch.from_numpy(px), tcfg)
+    assert vis.shape == (2, 2 * 2 * 2, 32)
+    got = tbase.forward(params_from_jax(params, device="cpu"), *_torch((px, speed, tps)), tcfg)
+    for key in want:
+        _close(got[key], want[key], key)
+
+
+def test_resnet_forward_loss_and_every_gradient_match_jax(resnet_setup):
+    """Every leaf's gradient, `bn_state`'s included: the encoder reads the
+    running statistics in evaluation mode, so both frameworks differentiate
+    them."""
+    jcfg, tcfg, params, batches = resnet_setup
+    (ref_loss, _), ref_grads = jax.jit(jax.value_and_grad(
+        _jax_loss(jcfg), has_aux=True))(params, *batches[0])
+    tp = tts.map_leaves(lambda _, x: x.requires_grad_(True),
+                        params_from_jax(params, device="cpu"))
+    out, _ = tbase.forward_loss(tp, *_torch(batches[0]), tcfg)
+    _close(out.loss, ref_loss)
+    out.loss.backward()
+    want = tts.flatten(params_from_jax(ref_grads, device="cpu"))
+    bn_grads = 0.0
+    for path, x in tts.flatten(tp).items():
+        w = want[path].numpy()
+        if path == "llm/embed/w":              # the removed vocabulary
+            assert x.grad is None and not w.any()
+            continue
+        np.testing.assert_allclose(x.grad.numpy(), w, rtol=2e-4,
+                                   atol=max(2e-4 * np.abs(w).max(), 1e-8), err_msg=path)
+        if path.startswith("bn_state/"):
+            bn_grads = max(bn_grads, float(np.abs(w).max()))
+    assert bn_grads > 1e-4
+
+
+def test_three_resnet_base_steps_track_the_optax_chain(resnet_setup):
+    """Three two-group steps against `train_base.py`'s optax chain: after
+    each, the losses and every leaf -- the running statistics, which AdamW
+    moves by their gradients and decays, included -- at 2e-4."""
+    jcfg, tcfg, params, batches = resnet_setup
+    opt_cfg = dict(lr=1e-3, total_steps=10, grad_clip=1.0)
+    opt = _optax_chain(params, jts.OptimizerConfig(**opt_cfg))
+    loss_fn = _jax_loss(jcfg)
+
+    @jax.jit
+    def jstep(p, o, *batch):
+        (loss, avg), grads = jax.value_and_grad(loss_fn, has_aux=True)(p, *batch)
+        updates, o = opt.update(grads, o, p)
+        return optax.apply_updates(p, updates), o, dict(avg, loss=loss)
+
+    jp, jo = params, opt.init(params)
+    state = base_step.init_base_state(params_from_jax(params, device="cpu"),
+                                      tts.OptimizerConfig(**opt_cfg))
+    step = base_step.make_base_train_step(tcfg, tts.OptimizerConfig(**opt_cfg),
+                                          compute_dtype=torch.float32)
+    start = {p: x.detach().clone() for p, x in tts.flatten(state.params).items()}
+    for batch in batches:
+        jp, jo, jm = jstep(jp, jo, *batch)
+        m = step(state, _torch(batch))
+        for key in ("loss", "route_loss", "speed_wps_loss"):
+            _close(m[key], jm[key], key)
+        want = tts.flatten(params_from_jax(jp, device="cpu"))
+        for path, x in tts.flatten(state.params).items():
+            _close(x, want[path].numpy(), path)
+    moved = max(float((x.detach() - start[p]).abs().max())
+                for p, x in tts.flatten(state.params).items() if p.startswith("bn_state/"))
+    assert moved > 1e-3                      # lr 1e-3: Adam steps, not the decay alone
 
 
 def test_group_of_is_the_vision_prefix():

@@ -28,7 +28,9 @@ bf16 at the same point, so a flip is at most one bf16 spacing. The int8
 activation gradient to one bf16 spacing of |ref| plus 2^-20 sqrt(N) of
 the sum of |terms| (see _dx_tol); the int8 forward's split reduction to
 half a spacing of the fp32 |ref| plus 2^-20 sqrt(K) of the sum of |terms|
-(see _fwd_tol).
+(see _fwd_tol). The attention kernels also at the other head dims they
+are built at (16, 32, 128) and at two they zero-pad (48, 80), and the
+refusal of one past 128.
 """
 
 import importlib.util
@@ -315,9 +317,12 @@ def test_int8_gemv_is_right_and_bit_identical(gpu, N, K, scale_dtype):
 
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(gpu):
-    q = torch.randn(1, 4, 2, 32, device=gpu).bfloat16()
-    with pytest.raises(ValueError, match="head_dim 64"):
+    q = torch.randn(1, 4, 2, 160, device=gpu).bfloat16()
+    with pytest.raises(ValueError, match="head_dim up to 128"):
         TFA.attention(q, q, q)
+    lse = torch.zeros(1, 2, 4, device=gpu)
+    with pytest.raises(ValueError, match="head_dim up to 128"):
+        TFA.flash_attn_bwd(q, q, q, None, q, q, lse)
     x = torch.randn(2, 24, device=gpu).bfloat16()
     w_q, scale = TQM.quantize_weight(torch.randn(8, 24, device=gpu))
     with pytest.raises(ValueError, match="K % 16"):
@@ -424,9 +429,31 @@ def _close_to_rms(got, ref, name):
     assert not bool(bad.any()), (name, float((got.float() - ref).abs().max()), rms)
 
 
-def _bwd_inputs(gpu, B, T, S, HQ, HK, strided, pad_left, seed=3):
+def _bwd_term_bounds(q, k, v, kv_valid, o, dout, lse, causal, ref):
+    """The backward's bf16 rounding bound, per gradient element, from the
+    terms of dS: the kernel rounds P and dS to bf16 (2^-8) before its
+    products and rounds its output, so |err| <= 2^-8 (sum |terms| + |ref|)
+    + 1e-5 rms(ref), with dS's terms P (|dO| |V| + |delta|) in place of
+    |dS|: dS = P (dP - delta) where dP and delta nearly cancel carries their
+    fp32 error, ~D 2^-24 of those terms, which |dS| does not count (at
+    [16, 333, 16, 128] dq reached 1.04 of the |dS| bound)."""
+    B, T, HQ, D = q.shape
+    S, HK = k.shape[1], k.shape[2]
+    scale = D ** -0.5
+    p, t = TFA._probs_and_ds(q, k, v, kv_valid, o, dout, lse, causal, scale, S - T,
+                             abs_terms=True)
+    kf = k.float().abs().repeat_interleave(HQ // HK, dim=2)
+    mags = (scale * torch.einsum("bhts,bshd->bthd", t, kf),
+            (scale * torch.einsum("bhts,bthd->bshd", t, q.float().abs()))
+            .view(B, S, HK, HQ // HK, D).sum(3),
+            torch.einsum("bhts,bthd->bshd", p, dout.float().abs())
+            .view(B, S, HK, HQ // HK, D).sum(3))
+    return [2.0 ** -8 * (m + r.abs()) + 1e-5 * float(r.square().mean().sqrt())
+            for m, r in zip(mags, ref)]
+
+
+def _bwd_inputs(gpu, B, T, S, HQ, HK, strided, pad_left, seed=3, D=64):
     g = torch.Generator(device=gpu).manual_seed(seed)
-    D = 64
     if strided:       # ViT: heads are views of one [B, T, 3*H*D] projection
         qkv = torch.randn(B, T, 3 * HQ * D, generator=g, device=gpu).bfloat16()
         q, k, v = (qkv[..., i * HQ * D:(i + 1) * HQ * D].view(B, T, HQ, D)
@@ -519,6 +546,68 @@ def test_attention_at_the_base_shapes(gpu, B, T, H, causal):
         _within(a, b, tol, f"d{name}")
     second = TFA.flash_attn_bwd(q, k, v, None, out, dout, lse, causal)
     assert all(torch.equal(a, b) for a, b in zip(got, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,B,T,HQ,HK,causal", [
+    (128, 16, 333, 16, 16, True),              # SimLingo-Base's LLaMA `large`
+    (128, 2, 150, 16, 2, True),                # GQA at 128
+    (16, 4, 17, 4, 4, False), (16, 2, 43, 2, 2, True),       # JAX's tiny() CLIP, LLaMA
+    (32, 4, 17, 4, 4, False), (32, 2, 128, 8, 2, True),      # presets.small_shardable
+    (48, 2, 70, 4, 4, False), (80, 2, 100, 4, 2, True)])     # zero-padded to 64 / 128
+def test_attention_at_every_head_dim(gpu, D, B, T, HQ, HK, causal):
+    """The forward and the backward through `attention_train` at a head dim
+    other than 64 (built, or zero-padded to the next built one): one launch
+    each, against the plain versions, both bit-identical across calls. The
+    forward at this file's atol; the dS^T scratch and the gradients at the
+    bf16 rounding bound of dS's terms (`_bwd_term_bounds`)."""
+    q, k, v, _, dout = _bwd_inputs(gpu, B, T, T, HQ, HK, False, 0, seed=D, D=D)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    f0, b0 = TFA.flash_attn_fwd.launches, TFA.flash_attn_bwd.launches
+    out = TFA.attention_train(*leaves, None, causal)
+    got = torch.autograd.grad(out, leaves, dout)
+    assert (TFA.flash_attn_fwd.launches, TFA.flash_attn_bwd.launches) == (f0 + 1, b0 + 1)
+    assert out.shape == (B, T, HQ, D) and all(g.shape == x.shape for g, x in zip(got, leaves))
+    args = (q.float(), k.float(), v.float(), None)
+    torch.testing.assert_close(out.detach().float(), TFA.attention_reference(*args, causal),
+                               atol=4e-3 if causal else 2e-3, rtol=2e-2)
+    again, lse = TFA.flash_attn_fwd(q, k, v, None, causal, None, None, return_lse=True)
+    assert torch.equal(again, out)
+    torch.testing.assert_close(lse, TFA.attention_lse_reference(q.float(), k.float(), None,
+                                                                causal), atol=1e-2, rtol=1e-3)
+    bwd_args = (*args, out.detach().float(), dout.float(), lse, causal)
+    ref = TFA.attention_bwd_reference(*bwd_args)
+    for a, b, tol, name in zip(got, ref, _bwd_term_bounds(*bwd_args, ref), "qkv"):
+        _within(a, b, tol, f"d{name}")
+    *second, ds = TFA.flash_attn_bwd(q, k, v, None, out, dout, lse, causal, return_ds=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, second))
+    plan = TFA._bwd_plan(B, T, T, HQ, HK, causal, 0, D)
+    written = TFA._pair_mask(plan.written, plan, TFA._live_key_tiles(None, B, T, gpu))
+    want = TFA.attention_ds_reference(*bwd_args)
+    terms = TFA.attention_ds_reference(*bwd_args, abs_terms=True)
+    tol = 2.0 ** -8 * (terms + want.abs()) + 1e-5 * float(want.square().mean().sqrt())
+    assert bool(((ds.float() - want).abs() <= tol)[written.expand_as(ds)].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("HK,max_splits", [(16, 8), (16, 2), (2, 8)])
+def test_flash_attn_fwd_split_path_at_head_dim_128(gpu, HK, max_splits):
+    """16 query rows against 333 keys at D = 128 take the split path; its
+    merge at several split counts against the plain version."""
+    g = torch.Generator(device=gpu).manual_seed(HK + max_splits)
+    q = torch.randn(2, 16, 16, 128, generator=g, device=gpu).bfloat16()
+    k, v = (torch.randn(2, 333, HK, 128, generator=g, device=gpu).bfloat16() for _ in range(2))
+    valid = torch.ones(2, 333, dtype=torch.bool, device=gpu)
+    valid[:, :10] = False
+    plan = TFA._fwd_plan(2, 16, 333, 16, HK, True, 317, split_rows=1 << 30,
+                         max_splits=max_splits, D=128)
+    assert plan.path == "split" and plan.head_dim == 128
+    out, lse = TFA.flash_attn_fwd(q, k, v, valid, True, None, 317, return_lse=True,
+                                  split_rows=1 << 30, max_splits=max_splits)
+    ref = TFA.attention_reference(q.float(), k.float(), v.float(), valid, True, None, 317)
+    torch.testing.assert_close(out.float(), ref, atol=2e-3, rtol=2e-2)
+    torch.testing.assert_close(lse, TFA.attention_lse_reference(
+        q.float(), k.float(), valid, True, None, 317), atol=1e-2, rtol=1e-3)
 
 
 @pytest.mark.cuda

@@ -3,7 +3,8 @@
 A subprocess blocks those imports, imports every module of the port
 (the training modules included), drives the tiny agent and two training
 steps with LoRA dropout on the CPU, then two more with both fused-kernel
-gates on, two on an int8 base LLM and two of the tiny SimLingo-Base; an
+gates on, two on an int8 base LLM and two of the tiny SimLingo-Base with
+each of its encoders (the CLIP tower, the ResNet); an
 entry point built without `device` must refuse on a machine without a GPU.
 The first also drives the CARLA leaderboard plugin one tick under the
 test doubles of tests/carla_stubs.py. A second subprocess, with the same
@@ -132,6 +133,11 @@ SCRIPT = BLOCK + textwrap.dedent("""
     bcfg = compose_base(["max_steps=2", "data.batch_size=2", "precision=fp32",
                          "output_dir="])
     bcfg.model = simlingo_base.SimLingoBaseConfig.tiny()
+    base = trainer.train_base(bcfg, device="cpu")["records"]
+    assert len(base) == 2 and all(np.isfinite(r["loss"]) for r in base)
+    from simlingo_tpu_torch.models.resnet import ResNetConfig
+    bcfg.model = dataclasses.replace(bcfg.model, encoder="resnet",
+                                     resnet=ResNetConfig(width=16, token_size=48))
     base = trainer.train_base(bcfg, device="cpu")["records"]
     assert len(base) == 2 and all(np.isfinite(r["loss"]) for r in base)
 

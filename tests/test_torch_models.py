@@ -15,10 +15,12 @@ import torch
 
 from simlingo_tpu.data import image_pipe as jpipe
 from simlingo_tpu.data.synthetic import synthetic_example
+from simlingo_tpu.models import llama as jllama
 from simlingo_tpu.models import qwen2 as jq
 from simlingo_tpu.models import vit as jvit
 from simlingo_tpu_torch.core.from_jax import params_from_jax
 from simlingo_tpu_torch.data import image_pipe as tpipe
+from simlingo_tpu_torch.models import llama as tllama
 from simlingo_tpu_torch.models import qwen2 as tq
 from simlingo_tpu_torch.models import vit as tvit
 
@@ -207,6 +209,42 @@ def test_vit_training_grads_match_jax():
     flat_w = _flat(params_from_jax(want, device="cpu"))
     for path, x in _flat(tp).items():
         _leaf_grads_close(x.grad.numpy(), flat_w[path].numpy(), path)
+
+
+def test_llama_at_head_dim_128_forward_and_grads_match_jax():
+    """SimLingo-Base's LLaMA `x-small` cut to 2 layers, nothing narrowed:
+    8 heads of 128, the head dim of every variant past `tiny` (`large`
+    runs on the card). The causal forward on continuous embeddings, and
+    the gradients of the embeddings and of every leaf through
+    attention_train."""
+    jcfg = dataclasses.replace(jllama.llama_config("x-small"), num_layers=2)
+    tcfg = dataclasses.replace(tllama.llama_config("x-small"), num_layers=2)
+    assert tcfg == _tcfg(jcfg, tq.Qwen2Config) and tcfg.head_dim == 128
+    params = jax.jit(jq.init_params, static_argnums=1)(jax.random.PRNGKey(4), jcfg)
+    rng = np.random.RandomState(9)
+    B, T = 2, 21
+    embeds = rng.randn(B, T, jcfg.hidden_size).astype(np.float32)
+    pos = np.broadcast_to(np.arange(T, dtype=np.int32), (B, T)).copy()
+    cot = rng.randn(B, T, jcfg.hidden_size).astype(np.float32)
+
+    def jloss(p, x):
+        out, _ = jq.forward(p, x, jcfg, jnp.asarray(pos), causal=True)
+        return (out * cot).sum(), out
+    (_, ref), (want_p, want_x) = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1),
+                                                            has_aux=True))(
+        params, jnp.asarray(embeds))
+    tp = _requires_grad(params_from_jax(params, device="cpu"))
+    x = torch.from_numpy(embeds).requires_grad_(True)
+    out, _ = tq.forward(tp, x, tcfg, torch.from_numpy(pos).long(), causal=True)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), **TOL)
+    (out * torch.from_numpy(cot)).sum().backward()
+    _leaf_grads_close(x.grad.numpy(), np.asarray(want_x), "embeds")
+    flat_w = _flat(params_from_jax(want_p, device="cpu"))
+    for path, leaf in _flat(tp).items():
+        if path == "embed/w":                    # the removed vocabulary
+            assert leaf.grad is None and not flat_w[path].numpy().any()
+            continue
+        _leaf_grads_close(leaf.grad.numpy(), flat_w[path].numpy(), path)
 
 
 def _flat(tree, prefix=""):
