@@ -68,14 +68,21 @@ Phases, in order; any failure exits non-zero:
      calls, with their grid: tile, reduction segments S and blocks);
      prints max error (absolute and over the output's rms, or over the
      tolerance), kernel / plain / library ms and the bound from bytes or
-     operations on this card;
+     operations on this card; and, for the record, the int4 product
+     (plain PyTorch, as JAX's is XLA: `run_int4_checks`) at the int8 rows'
+     serving shapes, its error against the dequantized product and its ms
+     beside the int8 kernel's;
   3. small-model agreement: a small D=128 model's drive_only waypoints on
      the GPU (bf16, kernels) against the CPU plain path (fp32), and one
      training step of the same model with LoRA r=4, dropout 0.1 (losses to
      2e-2, grad norm to 5e-2 relative), then that step again with both
      fused-kernel gates on (SIMLINGO_CE_IMPL=pallas, SIMLINGO_LN_IMPL=pallas),
      and again on an int8 base LLM (which must launch int8_matmul_dx);
-     then JAX's SimLingoBaseConfig.tiny() (head dim 16 in both towers) and
+     the same step on the GPU with remat (`small_remat_agreement`:
+     SMALL_REMAT_MODES), whose losses must equal the remat-off step's on
+     the GPU, launches exact; a small int4 model (`small_int4_cfg`, LLM
+     widths 256 / 512) whose drive_only waypoints GPU bf16 must agree with
+     CPU fp32; then JAX's SimLingoBaseConfig.tiny() (head dim 16 in both towers) and
      the same with a ResNet-18 encoder (`small_base_cfgs`): their waypoints
      and one two-group training step each, GPU bf16 vs CPU fp32, each
      attention kernel launched once a layer;
@@ -91,9 +98,14 @@ Phases, in order; any failure exits non-zero:
      kernel class and by hand kernel; int8_matmul's calls in that frame
      against its forward kernels' launches, one each), and the plain
      generator profiled at 1 and GEN_PROFILE_TOKENS new tokens (device
-     busy, gemv_kernel's ms and launches a decoded token);
+     busy, gemv_kernel's ms and launches a decoded token); then
+     `serve_int4`: the default AgentConfig with int4_llm=True on the same
+     weights and CoT frames (frame ms, tokens and decode ms/token beside
+     int8's, the LLM's weight bytes, flash_attn_fwd a frame exactly as
+     reckoned and no int8 launch);
   5. full width, training: train_torch's trainer on
-     presets.internvl2_1b(lora=True) (seed 0) and synthetic_example(batch 6,
+     presets.internvl2_1b(lora=True) with remat off, as `bench.py` runs it
+     (seed 0), and synthetic_example(batch 6,
      seq_len 768, 2 tiles): 1 warm-up step, then TRAIN_STEPS timed steps
      with the launch counts reset after the warm-up; peak memory, and a
      profile of one more step (device time by kernel class); then the
@@ -104,6 +116,11 @@ Phases, in order; any failure exits non-zero:
      base LLM quantized to int8 (`bench.py` BENCH_INT8_BASE=1), which must
      launch int8_matmul and int8_matmul_dx (counts logged against
      INT8_PER_STEP), its losses beside the bf16 base's (information only);
+     every run's attention and dropout launches held exactly to
+     `train_launches_per_step`; then `bench.py`'s remat modes (REMAT_MODES:
+     vision, llm, mlp, and both, JAX's default) ungated, each beside the
+     remat-off run (`compare_remat`: ms/step, peak memory, losses within
+     2e-2 and whether bit-identical, a profiled step each);
   6. SimLingo-Base at full width, three cells (BASE_CELLS, overrides of
      configs/simlingo_base.yaml, seed 0): `base` (CLIP ViT-L/14-336 with
      LLaVA-NeXT features, the tiny LLaMA), `base_wide` (the same with the
@@ -123,20 +140,22 @@ Phases, in order; any failure exits non-zero:
      the JPEG decoder in use; two training routes of 40 frames and a
      validation route of 30 written under build/ (measurements, results,
      commentary, VQA, dreamer, frames copied from tests/data/torch_frames);
-     trainer.train on configs/simlingo.yaml at full width (batch 6, 768
+     trainer.train on configs/simlingo.yaml (JAX's default model,
+     SimLingoConfig(): remat on, no LoRA) at full width (batch 6, 768
      tokens, the 16 driving buckets and the dreamer mix, 8 prefetch
      threads) for 1 + 5 steps with an async checkpoint at step 3,
      validation and a final checkpoint: ms a step (median of steps 2-5),
      host batch ms, prefetch wait ms, peak memory, the hand kernels'
      launches a step over steps 2-5 against the count reckoned from the
-     shapes (disk_expected_per_step), exactly; a run resumed from step 3
+     model (train_launches_per_step), exactly; a run resumed from step 3
      whose losses, validation loss and final parameters must equal the
      straight run's bit for bit, with one of its steps profiled (device
      busy and idle); the checkpoint's bytes, blocking and async save and
      restore times; a random trained-SimLingo torch checkpoint
      (InternVL2-1B remote-code names, peft LoRA on q/v) loaded through
-     hf_checkpoint= (a qkv slice and a merged LoRA leaf checked against
-     the written tensors) and trained 2 steps;
+     hf_checkpoint= into presets.internvl2_1b(lora=True) (a qkv slice and
+     a merged LoRA leaf checked against the written tensors) and trained 2
+     steps to a final checkpoint;
   8. the CARLA leaderboard plugin (`carla_plugin`, in phase 7's workspace):
      agent/carla_agent.py under the test doubles of tests/carla_stubs.py,
      setup() on phase 7's trained-SimLingo checkpoint (the default
@@ -147,21 +166,23 @@ Phases, in order; any failure exits non-zero:
      (SIMLINGO_METRIC_INFO: a line a tick, equal to the agent's outputs),
      the scenario record's length and destroy()'s latency stats;
   9. the offline evaluation (`eval_language`): eval_language_torch.py's
-     main on phase 7's validation route and the straight run's final
-     checkpoint, QA, commentary and Dreaming at batch 8, 100 new tokens,
+     main on phase 7's validation route and the final checkpoint of its
+     2-step run from the .pt, QA, commentary and Dreaming at batch 8, 100 new tokens,
      bf16: samples/s, each batch's ms, one-token ms and decode ms/token,
      flash_attn_fwd launches a batch exactly as reckoned from its work, the
      first QA batch's prompt validity equal to phase 2's eval cases', the
      JSONs written, the metrics;
  10. the {"kernels": [...]} line (eleven kernels, launches per path: serve,
-     serve_gated, train, train_gated, train_int8, the base cells' <cell>_fwd,
+     serve_gated, serve_int4, train, train_gated, train_int8,
+     train_remat_<mode>, the base cells' <cell>_fwd,
      <cell>_train and <cell>_train_gated, train_disk, carla_plugin,
      eval_language; the attention kernels also each built head dim's
      instance at a phase-2 case and the base paths' launches by head dim),
      the nvidia-smi line, and the last line {"ok": true, "device": {...}}.
 Per-case results also go to chiprun_out/chip_smoke_cases.json, the paths'
-statistics to chip_smoke_agent.json, chip_smoke_train.json,
-chip_smoke_train_gated.json, chip_smoke_train_int8.json,
+statistics to chip_smoke_agent.json (serve_int4's under "int4"),
+chip_smoke_train.json, chip_smoke_train_gated.json,
+chip_smoke_train_int8.json, chip_smoke_train_remat_<mode>.json,
 chip_smoke_<cell>_{fwd,train,train_gated}.json, chip_smoke_train_disk.json,
 chip_smoke_carla_plugin.json and chip_smoke_eval_language.json. `--disk`
 runs the build and phases 7-9 alone, `--base` the build, the small
@@ -732,6 +753,77 @@ def run_int8_checks(torch, dev, results):
             f"launch_ms={launch_ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
             f"bound_ms={bms:.4f} ({bby}) tile={tile} S={S} blocks={blocks}"
             + (f" registers={extra['registers']}" if extra else ""))
+    torch.cuda.empty_cache()
+
+
+INT4_SERVE_M = (1, 16, 30, 640)    # decode, verify, queries, prefill
+INT4_HEAD_M = (1, 16)
+
+
+def int4_cases():
+    """(case, K, N, M) of phase 2's int4 product: the int8 rows' serving
+    shapes (gate,up / down / q,o / k,v at INT4_SERVE_M, the tied head at
+    INT4_HEAD_M)."""
+    lin, head = INT8_SHAPES[:4], INT8_SHAPES[4]
+    return ([(n, K, N, M) for (n, K, N) in lin for M in INT4_SERVE_M]
+            + [(*head, M) for M in INT4_HEAD_M])
+
+
+def int4_nbytes(K, N, M):
+    """Bytes an int4 call must move: x, the packed codes, the fp32 group
+    scales and y."""
+    from simlingo_tpu_torch.kernels.quantized_matmul import INT4_GROUP
+    return M * K * 2 + N * K // 2 + N * (K // INT4_GROUP) * 4 + M * N * 2
+
+
+def run_int4_checks(torch, dev, results):
+    """int4_matmul at int4_cases(), for the record: plain PyTorch (JAX
+    computes int4 in XLA, `_int4_matmul_impl`, no Pallas kernel), so no
+    launch is counted. Its error against the fp32 product of the same bf16
+    x and the dequantized weight, held to 2^-8 (|ref| + sum|terms|) (the
+    M > 64 branch rounds the weight to bf16 once); its ms (CUDA-graph
+    replay, and launched eagerly) beside the int8 kernel's at the same
+    shape (fp32 scale; phase 2's int8 rows, where they ran), and the bound
+    of its bytes."""
+    from simlingo_tpu_torch.kernels import quantized_matmul as QM
+    int8_ms = {(c["case"], c["M"]): c["kernel_ms"] for c in results
+               if c["kernel"] == "int8_matmul" and c["scale"] == "float32"}
+    for index, (name, K, N, M) in enumerate(int4_cases()):
+        gen = torch.Generator(device=dev).manual_seed(300 + index)
+
+        def make():
+            x = torch.randn(M, K, generator=gen, device=dev, dtype=torch.bfloat16)
+            w = torch.randn(N, K, generator=gen, device=dev) * 0.02
+            return (x, *QM.quantize_weight4(w))
+        nbytes = int4_nbytes(K, N, M)
+        sets = [make() for _ in range(n_sets(nbytes))]
+        x, w_q, scale = sets[0]
+        out = QM.int4_matmul(x, w_q, scale)
+        torch.cuda.synchronize()
+        wd = QM.dequantize_weight4(w_q, scale, torch.float32)
+        ref = x.float() @ wd.t()
+        terms = x.float().abs() @ wd.abs().t()
+        rms = float(ref.square().mean().sqrt())
+        err, ratio = _ratio(out, ref, 2.0 ** -8 * (ref.abs() + terms) + 1e-6 * rms)
+        del wd, terms, ref
+        ms = time_ms(torch, QM.int4_matmul, sets)
+        launch_ms = eager_ms(torch, QM.int4_matmul, sets)
+        del sets
+        bms, bby = bound(nbytes, 2 * M * N * K)
+        ok = ratio <= 1.0 and bool(torch.isfinite(out).all())
+        row = dict(kernel="int4_matmul", route="plain", case=name,
+                   shape=f"M={M} K={K} N={N}", M=M, K=K, N=N, max_abs_err=err,
+                   err_over_rms=err / max(rms, 1e-30), err_over_tol=ratio, ok=ok,
+                   plain_ms=ms, launch_ms=launch_ms, int8_kernel_ms=int8_ms.get((name, M)),
+                   bound_ms=bms, bound_by=bby,
+                   branch="grouped" if M <= QM.INT4_GROUPED_MAX_M else "dense")
+        results.append(row)
+        i8 = row["int8_kernel_ms"]
+        log(f"[kernel] int4_matmul    {name:8s} M={M:4d} K={K:5d} N={N:6d} "
+            f"({row['branch']}) err={err:.3e} err/rms={row['err_over_rms']:.3e} "
+            f"err/tol={ratio:.3f} (tol 2^-8 (|ref| + sum|terms|)) {'OK' if ok else 'FAIL'} "
+            f"plain_ms={ms:.4f} launch_ms={launch_ms:.4f} int8 kernel_ms="
+            f"{'not run' if i8 is None else f'{i8:.4f}'} bound_ms={bms:.4f} ({bby})")
     torch.cuda.empty_cache()
 
 
@@ -1949,11 +2041,13 @@ def small_model_agreement(torch, dev):
     return ok
 
 
-def full_width(torch, dev, gated_pass=False):
+def full_width(torch, dev, gated_pass=False, int4_pass=False):
     """The default LingoAgent at SimLingoConfig() width; returns (ok, stats,
     the CoT agent, the frame). `gated_pass`: then the same agents again
     with the norm gate on (`gated_serving`), its statistics under
-    stats["gated"]."""
+    stats["gated"]. `int4_pass`: then the default AgentConfig with
+    int4_llm=True on the same weights and CoT frames (`serve_int4`), its
+    statistics under stats["int4"]."""
     import numpy as np
     from simlingo_tpu_torch.agent.agent import AgentFrame, LingoAgent
     from simlingo_tpu_torch.agent.config import AgentConfig
@@ -2048,14 +2142,106 @@ def full_width(torch, dev, gated_pass=False):
     if gated_pass:
         good, gated = gated_serving(torch, agent, drive_agent, frame, results)
         ok &= good
+    int4 = None
+    if int4_pass:
+        del drive_agent
+        torch.cuda.empty_cache()
+        good, int4 = serve_int4(torch, dev, params, cfg, agent, frame, results[:FRAMES],
+                                decode_ms)
+        ok &= good
+    del params
     stats = dict(frame_ms_cot_plain=results[0]["latency_s"] * 1e3,
                  frame_ms_cot_spec=cot_spec,
                  frame_ms_drive_only=results[-1]["latency_s"] * 1e3,
                  tokens_per_frame=[len(r.get("language_tokens", [])) for r in results[:-1]],
                  spec_stats=agent.spec_stats, decode_ms_per_token=decode_ms,
                  generate_profile=gen_profile, launches=launches,
-                 launches_per_frame=per_frame, gated=gated)
+                 launches_per_frame=per_frame, gated=gated, int4=int4)
     return ok, stats, agent, frame
+
+
+def llm_weight_bytes(params):
+    """Bytes of an agent's LLM tree (codes, scales, norms)."""
+    return sum(t.numel() * t.element_size() for t in _leaves(params["llm"]))
+
+
+def serve_int4(torch, dev, params, cfg, int8_agent, frame, int8_results, int8_decode_ms):
+    """Phase 4's int4 pass (`serve_int4`): the default AgentConfig with
+    int4_llm=True at full width on the same seed-0 weights, FRAMES CoT
+    frames on phase 4's frame (the first plain, then speculative): each
+    frame's ms and tokens beside the int8 agent's (the tokens differ:
+    another rounding of every LLM weight), the LLM's weight bytes int4 vs
+    int8, flash_attn_fwd a frame exactly as `serve_launches(bits=4)`
+    reckons it and no int8_matmul launch, and decode ms/token (the plain
+    generator at 1 and max_new_tokens new tokens) beside int8's."""
+    import numpy as np
+    from simlingo_tpu_torch.agent.agent import LingoAgent
+    from simlingo_tpu_torch.agent.config import AgentConfig
+    from simlingo_tpu_torch.infer import runner
+    from simlingo_tpu_torch.kernels import flash_attention as FA
+    from simlingo_tpu_torch.kernels import quantized_matmul as QM
+    tag = "[serve_int4]"
+    acfg = AgentConfig(initial_frames_delay=0, jpeg_roundtrip=False, int4_llm=True)
+    t0 = time.perf_counter()
+    agent = LingoAgent(params, cfg, acfg, device=dev)              # warm-up inside
+    torch.cuda.synchronize()
+    b4, b8 = llm_weight_bytes(agent.params), llm_weight_bytes(int8_agent.params)
+    log(f"{tag} int4 agent (group {QM.INT4_GROUP}) built + warmed up in "
+        f"{time.perf_counter() - t0:.1f} s; LLM weight bytes int4 {b4} vs int8 {b8} "
+        f"({b4 / b8:.3f})")
+    FA.flash_attn_fwd.launches = 0
+    QM.int8_matmul.launches = 0
+    results, per_frame = [], []
+    for _ in range(FRAMES):
+        before = (FA.flash_attn_fwd.launches, QM.int8_matmul.launches)
+        results.append(agent.run_step(frame))
+        per_frame.append({"flash_attn_fwd": FA.flash_attn_fwd.launches - before[0],
+                          "int8_matmul": QM.int8_matmul.launches - before[1]})
+    launches = {"flash_attn_fwd": FA.flash_attn_fwd.launches,
+                "int8_matmul": QM.int8_matmul.launches}
+    ok = launches["flash_attn_fwd"] > 0 and launches["int8_matmul"] == 0
+    for i, (r, r8) in enumerate(zip(results, int8_results)):
+        toks, toks8 = r.get("language_tokens", []), r8.get("language_tokens", [])
+        fin = (np.isfinite(r["route"]).all() and np.isfinite(r["speed_wps"]).all()
+               and r["route"].shape == (20, 2) and -1 <= r["steer"] <= 1)
+        want = serve_launches(cfg, len(toks), None if i == 0 else agent.spec_stats[i - 1][0],
+                              bits=4)
+        good = bool(fin) and per_frame[i] == want
+        ok &= good
+        log(f"{tag} frame {i} {'cot_plain' if i == 0 else 'cot_spec':9s} "
+            f"{r['latency_s'] * 1e3:9.2f} ms (int8 {r8['latency_s'] * 1e3:9.2f}) tokens "
+            f"{len(toks)} (int8 {len(toks8)}, equal {toks == toks8}) launches {per_frame[i]}"
+            f" reckoned {want} finite {bool(fin)} {'OK' if good else 'FAIL'}")
+    log(f"{tag} int4 tokens, frame 0: {results[0].get('language_tokens', [])}")
+    log(f"{tag} int8 tokens, frame 0: {int8_results[0].get('language_tokens', [])}")
+    log(f"{tag} speculative (rounds, gen_len) per frame: {agent.spec_stats}")
+    di = agent._preprocessed(agent.make_input(frame))
+    gen_ms = {}
+    for n_new in (1, acfg.max_new_tokens):
+        gcfg = runner.GenerateConfig(max_new_tokens=n_new, eos_token_id=agent.tok.eos_token_id)
+        runner.generate_and_drive(agent.params, di, agent.model_cfg, gcfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = runner.generate_and_drive(agent.params, di, agent.model_cfg, gcfg)
+        gen_ms[n_new] = ((time.perf_counter() - t0) * 1e3, int(out.language_lengths[0]))
+    (t1, _), (tn, ntok) = gen_ms[1], gen_ms[acfg.max_new_tokens]
+    decode_ms = (tn - t1) / max(ntok - 1, 1)
+    log(f"{tag} plain generate: 1 token {t1:.2f} ms, {ntok} tokens {tn:.2f} ms -> decode "
+        f"{decode_ms:.3f} ms/token (int8 {int8_decode_ms:.3f}); launches over the "
+        f"{FRAMES} frames {launches} {'OK' if ok else 'FAIL'}")
+    spec = agent.spec_stats
+    del agent
+    torch.cuda.empty_cache()
+    stats = dict(frame_ms=[r["latency_s"] * 1e3 for r in results],
+                 int8_frame_ms=[r["latency_s"] * 1e3 for r in int8_results],
+                 tokens_per_frame=[len(r.get("language_tokens", [])) for r in results],
+                 tokens_equal_int8=[r.get("language_tokens") == r8.get("language_tokens")
+                                    for r, r8 in zip(results, int8_results)],
+                 spec_stats=spec,
+                 decode_ms_per_token=decode_ms, int8_decode_ms_per_token=int8_decode_ms,
+                 llm_weight_bytes=b4, int8_llm_weight_bytes=b8,
+                 launches=launches, launches_per_frame=per_frame)
+    return ok, stats
 
 
 # launches of the norm kernels a pass: the ViT's 24 x 2 LayerNorms and the
@@ -2316,8 +2502,135 @@ def kernel_fns():
             "fused_ce_fwd": TC.fused_ce_fwd, "fused_ce_bwd": TC.fused_ce_bwd}
 
 
+def small_train_cfg(remat_vision=False, remat_llm=False):
+    """Phase 3's small training model: head dim 64 as at full width, LoRA
+    r=4 with dropout 0.1, remat as given (off unless asked)."""
+    from simlingo_tpu_torch.models import simlingo
+    from simlingo_tpu_torch.models.qwen2 import Qwen2Config
+    from simlingo_tpu_torch.models.vit import ViTConfig
+    return simlingo.SimLingoConfig(
+        vit=ViTConfig(hidden_size=128, num_layers=2, num_heads=2,
+                      intermediate_size=256, image_size=448, patch_size=56,
+                      projector_out=128, gelu_approximate=True),
+        llm=Qwen2Config(vocab_size=2048, hidden_size=128, num_layers=2, num_heads=2,
+                        num_kv_heads=1, head_dim=64, intermediate_size=256,
+                        lora_r=4, lora_alpha=8, lora_dropout=0.1),
+        img_context_token_id=2000, remat_vision=remat_vision, remat_llm=remat_llm)
+
+
+def small_train_params(torch, cfg):
+    """Its seed-0 weights on the CPU, every LoRA B nonzero (every adapter
+    in play)."""
+    from simlingo_tpu_torch.models import simlingo
+    params = simlingo.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    for ab in _leaves(params["lora"]):
+        ab.add_(0.01)
+    return params
+
+
+SMALL_REMAT_MODES = ((True, True), ("mlp", True))
+
+
+def small_remat_steps(torch, dev, modes=SMALL_REMAT_MODES, batch_seed=1, step_seed=1234):
+    """train_step of the small model on `dev` without remat and under each
+    (remat_vision, remat_llm) of `modes`, from the same params, batch and
+    seed; returns {mode: metrics (floats)}, mode (False, False) first."""
+    import copy
+    from simlingo_tpu_torch.data.synthetic import synthetic_example
+    from simlingo_tpu_torch.train import train_step as ts
+    params = small_train_params(torch, small_train_cfg())
+    opt = ts.OptimizerConfig(lr=1e-4, total_steps=10)
+    out = {}
+    for mode in ((False, False),) + tuple(modes):
+        cfg = small_train_cfg(*mode)
+        state = ts.init_train_state(_to(copy.deepcopy(params), dev), opt)
+        batch = synthetic_example(cfg, batch=2, seq_len=96, num_patches=2, seed=batch_seed,
+                                  device=dev)
+        step = ts.make_train_step(cfg, opt, compute_dtype=torch.bfloat16 if dev.type == "cuda"
+                                  else torch.float32)
+        out[mode] = {k: float(v) for k, v in step(state, batch, step_seed).items()}
+    return out
+
+
+def small_remat_agreement(torch, dev):
+    """The small step with remat (SMALL_REMAT_MODES) on the GPU: its losses
+    equal the step without remat on the same device (the forward's ops are
+    the same; recomputation happens in the backward, with the same dropout
+    masks), its grad norm within 1e-3 relative."""
+    fns = kernel_fns()
+    before = {k: fns[k].launches for k in ATTN_DROPOUT}
+    runs = small_remat_steps(torch, dev)
+    new = {k: fns[k].launches - n for k, n in before.items()}
+    ref = runs[(False, False)]
+    ok = True
+    for mode, got in runs.items():
+        if mode == (False, False):
+            continue
+        same = all(got[k] == ref[k] for k in ref if k != "grad_norm")
+        rel = abs(got["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"])
+        good = same and rel <= 1e-3
+        ok &= good
+        log(f"[small] remat {mode} train_step loss {got['loss']:.6f} vs remat off "
+            f"{ref['loss']:.6f}: losses equal {same}; grad_norm {got['grad_norm']:.6f} vs "
+            f"{ref['grad_norm']:.6f} (rel {rel:.2e}, tol 1e-3) {'OK' if good else 'FAIL'}")
+    want = {k: sum(train_launches_per_step(small_train_cfg(*mode))[k] for mode in runs)
+            for k in new}
+    good = new == want
+    ok &= good
+    log(f"[small] remat steps' launches (off, {', '.join(map(str, SMALL_REMAT_MODES))}): "
+        f"{new}, reckoned {want} {'OK' if good else 'FAIL'}")
+    return ok
+
+
+def small_int4_cfg(tok):
+    """A small model whose LLM reduction widths are multiples of 128 (the
+    LLM of presets.small_shardable: 256 / 512, head dim 32)."""
+    from simlingo_tpu_torch.models import simlingo
+    from simlingo_tpu_torch.models.qwen2 import Qwen2Config
+    from simlingo_tpu_torch.models.vit import ViTConfig
+    return simlingo.SimLingoConfig(
+        vit=ViTConfig(hidden_size=128, num_layers=2, num_heads=2, intermediate_size=256,
+                      image_size=448, patch_size=56, projector_out=256),
+        llm=Qwen2Config(vocab_size=tok.tk.vocab_size + 8, hidden_size=256, num_layers=2,
+                        num_heads=8, num_kv_heads=2, head_dim=32, intermediate_size=512),
+        img_context_token_id=tok.img_context_id)
+
+
+def small_int4_agreement(torch, dev):
+    """The small int4 model (`small_int4_cfg`): drive_only waypoints of a
+    LingoAgent with int4_llm=True on the GPU (bf16; the prompt's prefill
+    takes the dense branch, the queries the grouped one) against the CPU
+    (fp32)."""
+    import numpy as np
+    from simlingo_tpu_torch.agent.agent import AgentFrame, LingoAgent
+    from simlingo_tpu_torch.agent.config import AgentConfig
+    from simlingo_tpu_torch.data.tokenizer import SimLingoTokenizer
+    from simlingo_tpu_torch.models import simlingo
+    tok = SimLingoTokenizer()
+    cfg = small_int4_cfg(tok)
+    params = simlingo.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    acfg = dict(use_cot=False, int4_llm=True, initial_frames_delay=0, jpeg_roundtrip=False,
+                warmup_compile=False)
+    outs = []
+    for device, dtype in (("cpu", torch.float32), (dev, torch.bfloat16)):
+        agent = LingoAgent(params, cfg, AgentConfig(**acfg), tokenizer=tok,
+                           max_prompt_len=256, compute_dtype=dtype, device=device)
+        outs.append(agent.run_step(_frame(AgentFrame, np)))
+    q = agent.params["llm"]["layers"]["0"]["attn"]["q"]
+    ref, got = outs
+    scale = max(float(np.abs(ref["route"]).max()), float(np.abs(ref["speed_wps"]).max()))
+    err = max(float(np.abs(got["route"] - ref["route"]).max()),
+              float(np.abs(got["speed_wps"] - ref["speed_wps"]).max()))
+    ok = (err <= 0.05 * scale and np.isfinite(got["route"]).all()
+          and q["scale"].dim() == 2 and q["w_q"].shape[1] * 2 == cfg.llm.hidden_size)
+    log(f"[small] int4 LLM (w_q {tuple(q['w_q'].shape)}, scale {tuple(q['scale'].shape)}) "
+        f"drive_only waypoints GPU bf16 vs CPU fp32: max err {err:.3e} (tol 0.05 x "
+        f"max|ref| = {0.05 * scale:.3e}) {'OK' if ok else 'FAIL'}")
+    return ok
+
+
 def small_training_agreement(torch, dev, gated=False, int8_base=False):
-    """One train_step of a small D=128 model with LoRA r=4, dropout 0.1 on
+    """One train_step of the small model (`small_train_cfg`, no remat) on
     the GPU (bf16, kernels) and on the CPU (fp32, plain versions), from the
     same params, batch and seed: the dropout masks are the same on both
     sides (Philox of the flat index), so the losses and grad norm agree.
@@ -2326,21 +2639,9 @@ def small_training_agreement(torch, dev, gated=False, int8_base=False):
     import copy
     from simlingo_tpu_torch.core.quantize import quantize_llm
     from simlingo_tpu_torch.data.synthetic import synthetic_example
-    from simlingo_tpu_torch.models import simlingo
-    from simlingo_tpu_torch.models.qwen2 import Qwen2Config
-    from simlingo_tpu_torch.models.vit import ViTConfig
     from simlingo_tpu_torch.train import train_step as ts
-    cfg = simlingo.SimLingoConfig(
-        vit=ViTConfig(hidden_size=128, num_layers=2, num_heads=2,
-                      intermediate_size=256, image_size=448, patch_size=56,
-                      projector_out=128, gelu_approximate=True),
-        llm=Qwen2Config(vocab_size=2048, hidden_size=128, num_layers=2, num_heads=2,
-                        num_kv_heads=1, head_dim=64, intermediate_size=256,
-                        lora_r=4, lora_alpha=8, lora_dropout=0.1),
-        img_context_token_id=2000)
-    params = simlingo.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    for ab in _leaves(params["lora"]):
-        ab.add_(0.01)                        # nonzero B: every adapter in play
+    cfg = small_train_cfg()
+    params = small_train_params(torch, cfg)
     if int8_base:
         params["llm"] = quantize_llm(params["llm"])
     opt = ts.OptimizerConfig(lr=1e-4, total_steps=10)
@@ -2373,26 +2674,55 @@ def small_training_agreement(torch, dev, gated=False, int8_base=False):
     return ok
 
 
-def full_width_training(torch, dev, gated=False, int8_base=False):
-    """presets.internvl2_1b(lora=True) through the trainer: 1 warm-up step
-    and TRAIN_STEPS timed steps; launches counted over the timed steps.
-    `gated`: with both fused-kernel gates set in the process environment
-    (restored afterwards). `int8_base`: the same seed-0 params with the
-    frozen base LLM quantized to int8 before the trainer takes them
-    (`bench.py` BENCH_INT8_BASE=1)."""
+# bench.py's BENCH_REMAT modes (:221-235) -> (remat_vision, remat_llm);
+# "both" is SimLingoConfig()'s and presets.internvl2_1b's own (JAX's default)
+REMAT_MODES = {"vision": (True, False), "llm": (False, True), "mlp": ("mlp", False),
+               "both": (True, True)}
+ATTN_DROPOUT = ("flash_attn_fwd", "flash_attn_bwd", "dropout")
+
+
+def train_launches_per_step(m):
+    """The attention and dropout kernels' launches of one training step,
+    reckoned from the model: one attention forward and one backward a ViT
+    layer (all 2 x batch tiles in one call) and an LLM layer, the forward
+    once more a layer that remat recomputes whole (a ViT layer under
+    remat_vision=True, whose first region re-runs the attention for its
+    lse; an LLM layer under remat_llm); with LoRA dropout, three dropout
+    launches (forward, the backward's regenerated mask, dx) for each of the
+    7 adapters of an LLM layer, and one more each where the layer is
+    recomputed."""
+    V, L = m.vit.num_layers, m.llm.num_layers
+    drop = m.llm.lora_r > 0 and m.llm.lora_dropout > 0
+    return {"flash_attn_fwd": V * (2 if m.remat_vision is True else 1)
+            + L * (2 if m.remat_llm else 1),
+            "flash_attn_bwd": V + L,
+            "dropout": 7 * L * (4 if m.remat_llm else 3) if drop else 0}
+
+
+def full_width_training(torch, dev, gated=False, int8_base=False, remat=None):
+    """presets.internvl2_1b(lora=True) through the trainer, with remat off
+    unless `remat` names a REMAT_MODES mode (as `bench.py` runs it): 1
+    warm-up step and TRAIN_STEPS timed steps; launches counted over the
+    timed steps, the attention and dropout kernels' held exactly to
+    `train_launches_per_step`. `gated`: with both fused-kernel gates set in
+    the process environment (restored afterwards). `int8_base`: the same
+    seed-0 params with the frozen base LLM quantized to int8 before the
+    trainer takes them (`bench.py` BENCH_INT8_BASE=1)."""
     with gates_set(gated):
-        return _full_width_training(torch, dev, gated, int8_base)
+        return _full_width_training(torch, dev, gated, int8_base, remat)
 
 
-def _full_width_training(torch, dev, gated, int8_base):
+def _full_width_training(torch, dev, gated, int8_base, remat):
     import dataclasses
+    from simlingo_tpu_torch.core import presets
     from simlingo_tpu_torch.core.config import compose
     from simlingo_tpu_torch.core.quantize import quantize_llm
     from simlingo_tpu_torch.models import simlingo
     from simlingo_tpu_torch.train import trainer
 
     kernels = kernel_fns()
-    tag = "[train_gated]" if gated else "[train_int8]" if int8_base else "[train]"
+    tag = ("[train_gated]" if gated else "[train_int8]" if int8_base
+           else f"[train_remat_{remat}]" if remat else "[train]")
 
     def reset_after_warmup(step, _):
         if step == 0:
@@ -2402,13 +2732,17 @@ def _full_width_training(torch, dev, gated, int8_base):
 
     cfg = compose([f"max_steps={1 + TRAIN_STEPS}", "data.batch_size=6",
                    "data.max_text_len=768", "seed=0", "output_dir="])
+    rv, rl = REMAT_MODES[remat] if remat else (False, False)
+    cfg.model = dataclasses.replace(presets.internvl2_1b(lora=True), remat_vision=rv,
+                                    remat_llm=rl)
     m = cfg.model
     log(f"{tag} presets.internvl2_1b(lora=True): ViT {m.vit.num_layers}x"
         f"{m.vit.hidden_size} ({m.vit.num_heads} heads, tanh GELU), Qwen2 "
         f"{m.llm.num_layers}x{m.llm.hidden_size} vocab {m.llm.vocab_size}, LoRA r="
         f"{m.llm.lora_r} alpha={m.llm.lora_alpha} dropout={m.llm.lora_dropout}; "
         f"batch {cfg.data.batch_size}, seq {cfg.data.max_text_len} + "
-        f"{m.num_queries} queries, 2 tiles; no remat; "
+        f"{m.num_queries} queries, 2 tiles; remat_vision={m.remat_vision} "
+        f"remat_llm={m.remat_llm}; "
         f"AdamW {dataclasses.asdict(cfg.optimizer)}{'; int8 base LLM' if int8_base else ''}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2435,7 +2769,12 @@ def _full_width_training(torch, dev, gated, int8_base):
         f"{'OK' if ok else 'FAIL'}")
     log(f"{tag} peak memory {peak / 2 ** 30:.2f} GiB (max_memory_allocated)")
     log(f"{tag} launches over the {TRAIN_STEPS} timed steps: {launches}")
-    must = ["flash_attn_fwd", "flash_attn_bwd", "dropout"]
+    for name, n in train_launches_per_step(m).items():
+        good = launches[name] == n * TRAIN_STEPS
+        ok &= good
+        log(f"{tag} {name}: {launches[name]} launches, reckoned {n} a step x {TRAIN_STEPS} "
+            f"= {n * TRAIN_STEPS} {'OK' if good else 'FAIL'}")
+    must = list(ATTN_DROPOUT)
     if gated:
         must += list(NEW_KERNELS)
         for name, per_step in GATED_PER_STEP.items():
@@ -2460,14 +2799,37 @@ def _full_width_training(torch, dev, gated, int8_base):
         if launches[name] <= 0:
             log(f"{tag} FAIL: kernel {name} was not launched on the training path")
             ok = False
-    state, step_fn, batch = res["state"], res["step_fn"], res["batch"]
-    profile = device_profile(torch, lambda: step_fn(state, batch, 99),
-                             f"one training step {tag}")
     stats = dict(step_ms=ms, mean_step_ms=mean_ms,
                  samples_per_s=cfg.data.batch_size * 1e3 / mean_ms,
                  records=res["records"], peak_bytes=peak, launches=launches,
-                 profile=profile)
+                 remat_vision=m.remat_vision, remat_llm=m.remat_llm)
+    state, step_fn, batch = res["state"], res["step_fn"], res["batch"]
+    stats["profile"] = device_profile(torch, lambda: step_fn(state, batch, 99),
+                                      f"one training step {tag}")
     return ok, stats
+
+
+def compare_remat(plain, remat, mode):
+    """A remat mode's full-width steps beside the remat-off run's, from the
+    same seed-0 params, batch and dropout seeds: losses within 2e-2
+    relative (remat recomputes in the backward; the forward's ops are the
+    same, so step 1's loss should be bit-identical), whether each is
+    bit-identical, ms/step, peak memory and the profiled step's device
+    time by kernel class side by side."""
+    ok = True
+    for a, b in zip(plain["records"], remat["records"]):
+        good = abs(b["loss"] - a["loss"]) <= 2e-2 * abs(a["loss"])
+        ok &= good
+        log(f"[train_remat_{mode}] step {a['step']}: loss {b['loss']:.6f} vs remat off "
+            f"{a['loss']:.6f} (rel tol 2e-2; bit-identical {b['loss'] == a['loss']}) "
+            f"{'OK' if good else 'FAIL'}; grad_norm {b['grad_norm']:.6f} vs "
+            f"{a['grad_norm']:.6f} (bit-identical {b['grad_norm'] == a['grad_norm']}); "
+            f"ms {b['ms']:.2f} vs {a['ms']:.2f}")
+    log(f"[train_remat_{mode}] peak {remat['peak_bytes'] / 2 ** 30:.2f} vs "
+        f"{plain['peak_bytes'] / 2 ** 30:.2f} GiB (saves "
+        f"{(plain['peak_bytes'] - remat['peak_bytes']) / 2 ** 30:.2f} GiB)")
+    log_side_by_side(f"[train_remat_{mode}]", f"remat {mode}", plain, remat)
+    return ok
 
 
 def compare_training(plain, gated):
@@ -3037,16 +3399,6 @@ def simlingo_state_dict(cfg, torch, dev, lora_targets=("q_proj", "v_proj"), lora
     return {k: x.cpu() for k, x in sd.items()}
 
 
-def disk_expected_per_step(m):
-    """Hand-kernel launches of one training step, reckoned from the shapes:
-    one attention forward and one backward a ViT layer (all 2 x batch tiles
-    in one call) and a LLM layer; three dropout launches (forward, the
-    backward's regenerated mask, dx) for each of the 7 LoRA adapters of a
-    LLM layer."""
-    n_attn = m.vit.num_layers + m.llm.num_layers
-    return {"flash_attn_fwd": n_attn, "flash_attn_bwd": n_attn, "dropout": 3 * 7 * m.llm.num_layers}
-
-
 def host_batch_ms(cfg, torch, dev, steps=(0, 1, 2)):
     """A batch as the trainer's workers make it (picks, samples, collate,
     the pinned copy), timed on this thread alone: ms of each part."""
@@ -3082,21 +3434,25 @@ def _dir_bytes(path):
 
 
 def disk_training(torch, dev, work):
-    """`trainer.train` on routes on disk at full width (configs/simlingo.yaml:
-    presets.internvl2_1b(lora=True), batch 6, 768 tokens, the 16 driving
-    buckets and the dreamer mix): 1 + 5 steps with an async checkpoint at
-    step 3, validation and a final checkpoint; a second run resumed from
-    step 3 to step 6 whose losses and final parameters must equal the
-    straight run's; checkpoint size, save (blocking, async) and restore
-    times; then a random trained-SimLingo state dict (InternVL2-1B
-    remote-code names, peft LoRA) written as a .pt, loaded through
-    `hf_checkpoint=` (a sliced qkv leaf and a LoRA-merged leaf checked
-    against the written tensors) and trained 2 steps. All of it in `work`,
-    which the caller removes; returns (ok, stats, {"final_checkpoint":
-    the straight run's last step, "hf_checkpoint": the .pt}) for phases 8
-    and 9."""
+    """`trainer.train` on routes on disk at full width (configs/simlingo.yaml
+    composed as `train.py` composes it: JAX's default model
+    SimLingoConfig(), remat on in both towers, no LoRA, the exact GELU,
+    the base LLM frozen; batch 6, 768 tokens, the 16 driving buckets and
+    the dreamer mix): 1 + 5 steps with an async checkpoint at step 3,
+    validation and a final checkpoint; a second run resumed from step 3 to
+    step 6 whose losses and final parameters must equal the straight
+    run's; checkpoint size, save (blocking, async) and restore times; then
+    a random trained-SimLingo state dict (InternVL2-1B remote-code names,
+    peft LoRA) written as a .pt, loaded through `hf_checkpoint=` into
+    presets.internvl2_1b(lora=True), the model it holds (a sliced qkv leaf
+    and a LoRA-merged leaf checked against the written tensors), and
+    trained 2 steps to a final checkpoint. All of it in `work`, which the
+    caller removes; returns (ok, stats, {"final_checkpoint": that 2-step
+    run's checkpoint, which `eval_language_torch.py`'s preset reads,
+    "hf_checkpoint": the .pt}) for phases 8 and 9."""
     import numpy as np
     from simlingo_tpu_torch.core import checkpoint as ckpt
+    from simlingo_tpu_torch.core import presets
     from simlingo_tpu_torch.core.config import compose
     from simlingo_tpu_torch.data import imageio
     from simlingo_tpu_torch.train import train_step as ts
@@ -3139,9 +3495,11 @@ def disk_training(torch, dev, work):
         f"{[round(x['copy_ms'], 1) for x in one_thread]} ms")
     log(f"{tag} configs/simlingo.yaml: seed {cfg.seed}, batch {cfg.data.batch_size}, "
         f"{cfg.data.max_text_len} tokens, {len(cfg.data.train_partitions)} driving buckets "
-        f"+ dreamer, workers {cfg.data.num_workers}, ViT {m.vit.num_layers}x"
-        f"{m.vit.hidden_size}, Qwen2 {m.llm.num_layers}x{m.llm.hidden_size}, LoRA r="
-        f"{m.llm.lora_r} dropout {m.llm.lora_dropout}; AdamW lr {cfg.optimizer.lr}")
+        f"+ dreamer, workers {cfg.data.num_workers}; model (JAX's default) ViT "
+        f"{m.vit.num_layers}x{m.vit.hidden_size} (GELU {'tanh' if m.vit.gelu_approximate else 'exact'}"
+        f"), Qwen2 {m.llm.num_layers}x{m.llm.hidden_size}, LoRA r={m.llm.lora_r} dropout "
+        f"{m.llm.lora_dropout}, remat_vision={m.remat_vision} remat_llm={m.remat_llm}; "
+        f"AdamW lr {cfg.optimizer.lr}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
@@ -3175,7 +3533,7 @@ def disk_training(torch, dev, work):
         f"{[round(r['grad_norm'], 4) for r in recs]} val_loss "
         f"{straight['metrics'].get('val_loss')} finite={'OK' if ok else 'FAIL'}; "
         f"whole run {run_s:.2f} s; peak {peak / 2 ** 30:.2f} GiB")
-    want = disk_expected_per_step(m)
+    want = train_launches_per_step(m)
     got = per_step[0] if per_step else {}
     for name, n in want.items():
         good = got.get(name) == n
@@ -3258,6 +3616,7 @@ def disk_training(torch, dev, work):
     torch.cuda.empty_cache()
 
     # -- a trained-SimLingo torch checkpoint through hf_checkpoint= --
+    m = presets.internvl2_1b(lora=True)         # the model such a checkpoint holds
     t0 = time.perf_counter()
     sd = simlingo_state_dict(m, torch, dev)
     hf_path = os.path.join(work, "pytorch_model.pt")
@@ -3282,8 +3641,10 @@ def disk_training(torch, dev, work):
         f"{'OK' if good else 'FAIL'}")
     frozen = loaded[f"llm/layers/{ll}/attn/q/w"].to(torch.bfloat16)
     del sd, loaded
-    hf = trainer.train(cfg_for("", f"hf_checkpoint={hf_path}", "max_steps=2",
-                               "val_every_n_epochs=0"), device=dev)
+    hf_cfg = cfg_for(os.path.join(work, "hf"), f"hf_checkpoint={hf_path}", "max_steps=2",
+                     "val_every_n_epochs=0")
+    hf_cfg.model = m
+    hf = trainer.train(hf_cfg, device=dev)
     kept = torch.equal(hf["state"].params["llm"]["layers"][str(ll)]["attn"]["q"]["w"].cpu(),
                        frozen)
     good = kept and all(math.isfinite(r["loss"]) for r in hf["records"])
@@ -3293,7 +3654,8 @@ def disk_training(torch, dev, work):
         f", frozen merged leaf kept {kept} {'OK' if good else 'FAIL'}")
     del hf
     torch.cuda.empty_cache()
-    final = os.path.join(work, "straight", "disk", "checkpoints", f"step_{DISK_STEPS:08d}")
+    final = os.path.join(work, "hf", "disk", "checkpoints", f"step_{2:08d}")
+    ok &= os.path.isdir(final)
     return ok, stats, {"final_checkpoint": final, "hf_checkpoint": hf_path}
 
 
@@ -3304,20 +3666,22 @@ def disk_training(torch, dev, work):
 PLUGIN_TICKS = 4            # the first plain CoT, then speculative
 
 
-def serve_launches(m, gen_len, rounds=None):
-    """The hand kernels' launches of one serving frame of the int8 agent,
-    reckoned from its work. LLM passes: the prefill, each decode step
-    (plain: gen_len of them) or each speculative round and the flush, and
-    the queries. flash_attn_fwd: a launch a ViT layer (both tiles in one
-    call) and a launch an LLM layer a pass. int8_matmul: a launch a
-    quantized linear of a layer a pass, and one for the head each time
-    logits are taken (plain: before each decode step; speculative: after
-    the prefill and each round)."""
+def serve_launches(m, gen_len, rounds=None, bits=8):
+    """The hand kernels' launches of one serving frame of the int8 agent
+    (bits=8) or the int4 agent (bits=4), reckoned from its work. LLM
+    passes: the prefill, each decode step (plain: gen_len of them) or each
+    speculative round and the flush, and the queries. flash_attn_fwd: a
+    launch a ViT layer (both tiles in one call) and a launch an LLM layer a
+    pass. int8_matmul: a launch a quantized linear of a layer a pass, and
+    one for the head each time logits are taken (plain: before each decode
+    step; speculative: after the prefill and each round); none for int4,
+    whose product is plain PyTorch."""
     from simlingo_tpu_torch.core.quantize import _LLM_LINEARS
     llm_passes = 1 + (gen_len if rounds is None else rounds + 1) + 1
     heads = gen_len if rounds is None else rounds + 1
     return {"flash_attn_fwd": m.vit.num_layers + m.llm.num_layers * llm_passes,
-            "int8_matmul": len(_LLM_LINEARS) * m.llm.num_layers * llm_passes + heads}
+            "int8_matmul": (len(_LLM_LINEARS) * m.llm.num_layers * llm_passes + heads
+                            if bits == 8 else 0)}
 
 
 def carla_plugin(torch, dev, hf_path, work, per_frame=None):
@@ -3448,8 +3812,9 @@ def carla_plugin(torch, dev, hf_path, work, per_frame=None):
 
 def eval_language(torch, dev, work, checkpoint):
     """Phase 9: `eval_language_torch.py`'s main on phase 7's validation
-    route alone (a data root linking to it) and the straight run's final
-    checkpoint, in each mode (QA, commentary, Dreaming) at batch
+    route alone (a data root linking to it) and the final checkpoint of
+    phase 7's 2-step run from the trained-SimLingo .pt (the model of
+    `eval_language_torch.py`'s preset, LoRA unmerged), in each mode (QA, commentary, Dreaming) at batch
     EVAL_BATCH, EVAL_NEW_TOKENS new tokens, bf16. Each batch's
     `generate_and_drive` is timed (synchronised) with its flash_attn_fwd
     launches, held exactly to the count reckoned from its work (a ViT
@@ -3667,9 +4032,10 @@ def run_path_phases(torch, dev, cases) -> int:
     if not (small_model_agreement(torch, dev) and small_training_agreement(torch, dev)
             and small_training_agreement(torch, dev, gated=True)
             and small_training_agreement(torch, dev, int8_base=True)
+            and small_remat_agreement(torch, dev) and small_int4_agreement(torch, dev)
             and small_base_agreement(torch, dev)):
         return 1
-    ok, stats, agent, frame = full_width(torch, dev, gated_pass=True)
+    ok, stats, agent, frame = full_width(torch, dev, gated_pass=True, int4_pass=True)
     if not ok:
         return 1
     from simlingo_tpu_torch.kernels import quantized_matmul as QM
@@ -3694,6 +4060,12 @@ def run_path_phases(torch, dev, cases) -> int:
         return 1
     compare_int8_base(train_stats, int8_stats)
     torch.cuda.empty_cache()
+    remat_stats = {}
+    for mode in REMAT_MODES:
+        ok, remat_stats[mode] = full_width_training(torch, dev, remat=mode)
+        if not ok or not compare_remat(train_stats, remat_stats[mode], mode):
+            return 1
+        torch.cuda.empty_cache()
     smi = smi_line()
     ok, base_launches, base_by_dim = run_base_phases(torch, dev, smi)
     if not ok:
@@ -3704,14 +4076,17 @@ def run_path_phases(torch, dev, cases) -> int:
     if not ok:
         return 1
     for name, st in (("agent", stats), ("train", train_stats), ("train_gated", gated_stats),
-                     ("train_int8", int8_stats), ("train_disk", disk_stats),
+                     ("train_int8", int8_stats),
+                     *((f"train_remat_{m}", st) for m, st in remat_stats.items()),
+                     ("train_disk", disk_stats),
                      ("carla_plugin", eval_stats["carla_plugin"]),
                      ("eval_language", eval_stats["eval_language"])):
         with open(os.path.join(ROOT, "chiprun_out", f"chip_smoke_{name}.json"), "w") as f:
             json.dump(dict(st, nvidia_smi=smi), f, indent=1)
     launches = {"serve": stats["launches"], "serve_gated": stats["gated"]["launches"],
-                "train": train_stats["launches"],
+                "serve_int4": stats["int4"]["launches"], "train": train_stats["launches"],
                 "train_gated": gated_stats["launches"], "train_int8": int8_stats["launches"],
+                **{f"train_remat_{m}": st["launches"] for m, st in remat_stats.items()},
                 **base_launches, "train_disk": disk_stats["launches"],
                 "carla_plugin": eval_stats["carla_plugin"]["launches"],
                 "eval_language": eval_stats["eval_language"]["launches"]}
@@ -3728,8 +4103,9 @@ def run_path_phases(torch, dev, cases) -> int:
 # ---------------------------------------------------------------------------
 
 KERNEL_CHECKS = {"flash_attn_fwd": run_attention_checks, "int8_matmul": run_int8_checks,
-                 "int8_matmul_dx": run_int8_dx_checks, "flash_attn_bwd": run_attention_bwd_checks,
-                 "dropout": run_dropout_checks, "norms": run_norm_checks, "fused_ce": run_ce_checks}
+                 "int4_matmul": run_int4_checks, "int8_matmul_dx": run_int8_dx_checks,
+                 "flash_attn_bwd": run_attention_bwd_checks, "dropout": run_dropout_checks,
+                 "norms": run_norm_checks, "fused_ce": run_ce_checks}
 
 
 def main() -> int:

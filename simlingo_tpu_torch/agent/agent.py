@@ -6,8 +6,9 @@ resize to 448x896, normalize, 1x2 tiles) -> prompt (CoT commentary question
 or action-only) -> prefill + cached decode (plain greedy on the first CoT
 frame, speculative after it) + driving-query forward -> PID control, with
 stuck detection and creep. At construction LoRA is merged, the LLM is
-quantized to int8, and every floating weight except the int8 scales is cast
-to the compute dtype once. With `SIMLINGO_METRIC_INFO` set, the file it
+quantized to int8 (or, with `int4_llm`, to int4 with group-128 scales),
+and every floating weight except the quantization scales is cast to the
+compute dtype once. With `SIMLINGO_METRIC_INFO` set, the file it
 names is opened for appending at construction and every inferred tick
 writes and flushes one JSON line: step, steer, throttle, brake, speed,
 latency_ms and language (`simlingo_tpu/agent/agent.py:130-133, 289-297`);
@@ -53,7 +54,7 @@ class AgentFrame:
 
 def _prepare(tree, device, dtype, keep=False):
     """Move a parameter tree to `device`, casting floating leaves to dtype;
-    int8 scales (siblings of "w_q") stay fp32."""
+    int8 / int4 scales (siblings of "w_q") stay fp32."""
     if not isinstance(tree, dict):
         t = tree.to(device)
         return t if keep or not t.is_floating_point() else t.to(dtype)

@@ -2,7 +2,7 @@
 
 Copy of `simlingo_tpu/agent/config.py` (same fields and defaults):
 controller gains, brake/creep thresholds, camera geometry and the serving
-options (CoT commentary, int8 LLM, speculative CoT).
+options (CoT commentary, int8 or int4 LLM, speculative CoT).
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ class AgentConfig:
     eval_route_as: str = "target_point"
     use_cot: bool = True                 # commentary chain-of-thought per frame
     int8_llm: bool = True                # w8a16 weights for the (LoRA-merged) LLM
-    int4_llm: bool = False               # w4a16: not ported yet (ROADMAP A8)
+    int4_llm: bool = False               # w4a16, group-128 scales (opt-in; wins over int8)
     # n-gram drafts from the agent's own recent commentary, verified against
     # the model's argmax: tokens identical to plain greedy, fewer forwards.
     # The first CoT frame decodes plain (no draft corpus yet).

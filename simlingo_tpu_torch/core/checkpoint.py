@@ -94,11 +94,9 @@ def save_checkpoint(ckpt_dir: str, state, step: int, keep: Optional[int] = None,
     background thread after the previous one has finished."""
     global _writer
     path = os.path.abspath(os.path.join(ckpt_dir, f"step_{step:08d}"))
-    if os.path.isdir(path):          # periodic and final saves collide
-        return path
     wait_for_checkpoints()
-    if os.path.isdir(path):          # the save in flight was this step's
-        if keep is not None:
+    if os.path.isdir(path):          # periodic and final saves collide
+        if keep is not None:         # an async save prunes before it writes
             _gc_checkpoints(ckpt_dir, keep)
         return path
     os.makedirs(ckpt_dir, exist_ok=True)

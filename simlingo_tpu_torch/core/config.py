@@ -6,11 +6,15 @@ and `TrainConfig` (:20-70) with the same fields and defaults, `load_yaml`
 such as `configs/simlingo.yaml` <- `key=value` overrides) and `to_dict`.
 `compose` also takes the list of overrides as its first argument.
 
-Two differences from JAX: the default model is
-`presets.internvl2_1b(lora=True)`, the configuration the JAX training
-benchmark runs (`bench.py`), not `SimLingoConfig()`; and an unknown key
-raises KeyError. The port runs on one device: `MeshConfig` values that
-mean more than one (`check_single_device`) are refused by the trainer.
+The default model is `SimLingoConfig()`, as JAX's (:66): remat on in
+both towers, no LoRA, the exact GELU; `configs/simlingo.yaml` has no
+`model:` section, so `train_torch.py --experiment configs/simlingo.yaml`
+trains the model that `train.py` trains. `model.remat_vision` and
+`model.remat_llm` compose as JAX's do (a string onto the bool default is
+read as a bool, so "mlp" is set from code, as `bench.py` sets it). One
+difference from JAX: an unknown key raises KeyError. The port runs on one
+device: `MeshConfig` values that mean more than one
+(`check_single_device`) are refused by the trainer.
 `BaseTrainConfig` holds the fields of `TrainConfig` that `train_base.py`
 reads for SimLingo-Base, with the same defaults (its model is
 `SimLingoBaseConfig()`); `compose_base` composes it as `train_base.py:40`
@@ -24,7 +28,6 @@ import json
 import os
 from typing import Any, Dict, List, Optional, Union
 
-from simlingo_tpu_torch.core import presets
 from simlingo_tpu_torch.data.driving_dataset import DrivingDatasetConfig
 from simlingo_tpu_torch.models.simlingo import SimLingoConfig
 from simlingo_tpu_torch.models.simlingo_base import SimLingoBaseConfig
@@ -83,8 +86,7 @@ class TrainConfig:
     hf_checkpoint: Optional[str] = None   # initial weights from an HF / torch file
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
-    model: SimLingoConfig = dataclasses.field(
-        default_factory=lambda: presets.internvl2_1b(lora=True))
+    model: SimLingoConfig = dataclasses.field(default_factory=SimLingoConfig)
     optimizer: OptimizerConfig = dataclasses.field(default_factory=OptimizerConfig)
 
 

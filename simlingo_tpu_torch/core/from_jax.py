@@ -6,12 +6,14 @@ No JAX counterpart. Takes the JAX trees as nested dicts of array-likes
 Layout rule: JAX linears are stored [in, out] (`simlingo_tpu/models/
 layers.py:46-53`); the port stores torch's [out, in]. So every 2-D "w" /
 "w_q" of a linear is transposed -- int8 weights become [N, K] row-major,
-the one layout of every int8 product -- while embedding tables ("embed",
-[V, H]) keep their layout and their per-row scales. LoRA factors become the
-peft layout: a [in, r] -> [r, in], b [r, out] -> [out, r]. Conv kernels
-(the ResNet's, the only 4-D leaves) go from JAX's HWIO to torch's [out, in,
-kh, kw]; the ResNet's running statistics (`bn_state`) are carried as they
-are.
+the one layout of every int8 product; int4 codes, packed [K // 2, N]
+along K, become [N, K // 2] with each byte's pair kept, and their group
+scales [G, N] become [N, G] -- while embedding tables ("embed", [V, H])
+keep their layout and their per-row scales (int4: [V, H // 2], [V, G]).
+LoRA factors become the peft layout: a [in, r] -> [r, in], b [r, out] ->
+[out, r]. Conv kernels (the ResNet's, the only 4-D leaves) go from JAX's
+HWIO to torch's [out, in, kh, kw]; the ResNet's running statistics
+(`bn_state`) are carried as they are.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ def _convert(node, key: str, device):
             out[k] = _convert(v, k, device)
             continue
         t = _tensor(v, device)
-        if (is_linear and k in ("w", "w_q") and t.dim() == 2) or is_lora:
+        if (is_linear and k in ("w", "w_q", "scale") and t.dim() == 2) or is_lora:
             t = t.t().contiguous()
         elif t.dim() == 4:                # a conv kernel, HWIO
             t = t.permute(3, 2, 0, 1).contiguous()

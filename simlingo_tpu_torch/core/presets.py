@@ -3,9 +3,11 @@
 Counterpart of `simlingo_tpu/core/presets.py:internvl2_1b`: the reference
 production model (simlingo_seed1.yaml: OpenGVLab/InternVL2-1B =
 InternViT-300M-448px + Qwen2-0.5B, LoRA r=32 alpha=64 dropout 0.1 on all
-linears). The ViT uses the tanh form of GELU, as the JAX preset does.
-The port has no remat, so the preset is the JAX one with remat off (the
-training benchmark's default, `bench.py`).
+linears). The ViT uses the tanh form of GELU, as the JAX preset does,
+and remat stays on in both towers, `SimLingoConfig`'s default: the JAX
+preset does not turn it off (only `tiny()`, the tests' configs and
+`bench.py`'s default BENCH_REMAT=0 do, :221-225). A caller that mirrors
+`bench.py` passes this preset with `remat_vision=False, remat_llm=False`.
 
 `simlingo_base` is the base trainer's configuration: the experiment
 `configs/simlingo_base.yaml` composed over `BaseTrainConfig()`, as

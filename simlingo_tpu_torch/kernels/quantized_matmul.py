@@ -1,4 +1,5 @@
-"""w8a16 (int8-weight, bf16-activation) matmul, differentiable in x.
+"""w8a16 (int8-weight, bf16-activation) matmul, differentiable in x; and
+the w4a16 product of the int4 serving path (plain PyTorch, at the end).
 
 Counterpart of `simlingo_tpu/kernels/quantized_matmul.py`: the forward
 `_kernel` (:49, reached via `_int8_matmul_impl` :302) and the activation
@@ -32,6 +33,7 @@ import functools
 from typing import NamedTuple, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from simlingo_tpu_torch.kernels import _build
 
@@ -331,3 +333,139 @@ def _lib():
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.simlingo_int8_matmul_dx.restype = ctypes.c_int
     return lib
+
+
+# ---------------------------------------------------------------------------
+# w4a16: int4 codes with group-wise scales (serving), plain PyTorch
+# ---------------------------------------------------------------------------
+#
+# Counterpart of `simlingo_tpu/kernels/quantized_matmul.py:104-296`, which
+# computes int4 in XLA (grouped dots), not in a Pallas kernel; so does the
+# port, with no hand kernel. One layout, as for int8: the codes of w [N, K]
+# are nibble-packed along K into int8 [N, K // 2] (even k in the low
+# nibble) with one fp32 scale a (row, group of `group` columns), [N, G].
+# That is JAX's `transpose_rhs` layout; a JAX linear's [K // 2, N] codes
+# and [G, N] scales are its transpose (`core/from_jax.py`), byte for byte.
+
+INT4_GROUP = 128
+INT4_GROUPED_MAX_M = 64     # above: one dense product over a dequantized copy
+
+
+def _every_other(t: torch.Tensor, dim: int, start: int) -> torch.Tensor:
+    index = [slice(None)] * t.dim()
+    index[dim] = slice(start, None, 2)
+    return t[tuple(index)]
+
+
+def pack_int4(w_int: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """int4 codes (any integer dtype, values in [-8, 7]) -> packed int8 with
+    half the extent along `dim`: even index -> low nibble, odd -> high."""
+    w = w_int.to(torch.int8)
+    dim = dim % w.dim()
+    if w.shape[dim] % 2:
+        raise ValueError("pack_int4: the packed dim's extent must be even")
+    lo, hi = _every_other(w, dim, 0), _every_other(w, dim, 1)
+    return ((hi << 4) | (lo & 0xF)).to(torch.int8)
+
+
+def unpack_int4(p: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Packed int8 -> int8 codes interleaved along `dim` (inverse of
+    pack_int4); the arithmetic right shifts sign-extend."""
+    dim = dim % p.dim()
+    lo = (p << 4) >> 4
+    hi = p >> 4
+    st = torch.stack([lo, hi], dim=dim + 1)
+    return st.reshape(*p.shape[:dim], p.shape[dim] * 2, *p.shape[dim + 1:])
+
+
+def quantize_weight4(w: torch.Tensor, group: int = INT4_GROUP
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """w [N, K] -> (w_q packed int8 [N, K // 2], scale f32 [N, K // group]).
+
+    Symmetric round to nearest (half to even) onto [-7, 7] a (row, group),
+    scale = max(amax, 1e-8) / 7 in fp32: JAX's quantize_weight4 bit for bit
+    (its axis=1 result transposed, its axis=0 result as it is)."""
+    N, K = w.shape
+    if K % group or group % 2:
+        raise ValueError(f"quantize_weight4: K {K} must be a multiple of an "
+                         f"even group, got {group}")
+    wg = w.float().reshape(N, K // group, group)
+    # a divisor on the device: CUDA turns division by a host scalar into a
+    # product with its reciprocal, which can differ from JAX's quotient
+    seven = torch.tensor(7.0, device=w.device)
+    scale = torch.clamp(wg.abs().amax(dim=2), min=1e-8) / seven
+    codes = torch.clamp(torch.round(wg / scale[:, :, None]), -7, 7)
+    return pack_int4(codes.reshape(N, K), dim=1), scale
+
+
+def dequantize_weight4(w_q: torch.Tensor, scale: torch.Tensor,
+                       dtype=torch.bfloat16) -> torch.Tensor:
+    """(w_q [N, K // 2], scale [N, G]) -> the dense weight [N, K] in
+    `dtype`, scaled in fp32 first."""
+    w = unpack_int4(w_q, dim=1).float()
+    N, K = w.shape
+    G = scale.shape[1]
+    return (w.reshape(N, G, K // G) * scale.float()[:, :, None]).reshape(N, K).to(dtype)
+
+
+def int4_matmul(x: torch.Tensor, w_q: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """y[..., n] = sum_k x[..., k] dequant(w_q, scale)[n, k], in x's dtype.
+
+    At most INT4_GROUPED_MAX_M rows (decode, verify, the queries): one
+    product a group, each partial sum [G, M, N] in fp32 and scaled there,
+    then summed over the groups (JAX's `preferred_element_type` dot); more
+    rows: one product over the weight dequantized to x's dtype. Like
+    int8_matmul, differentiable in x only (frozen weights)."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _Int4Matmul.apply(x, w_q, scale)
+    return _int4_matmul_fwd(x, w_q, scale)
+
+
+def _int4_matmul_fwd(x, w_q, scale):
+    lead, K = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, K)
+    M = x2.shape[0]
+    N, G = scale.shape
+    if M > INT4_GROUPED_MAX_M:
+        y = F.linear(x2, dequantize_weight4(w_q, scale, x.dtype))
+    else:
+        k = K // G
+        xg = x2.float().reshape(M, G, k).transpose(0, 1)                   # [G, M, k]
+        wg = unpack_int4(w_q, dim=1).float().reshape(N, G, k).permute(1, 2, 0)  # [G, k, N]
+        y = (torch.bmm(xg, wg) * scale.float().t()[:, None, :]).sum(0)
+    return y.to(x.dtype).reshape(*lead, N)
+
+
+def int4_matmul_dx(g: torch.Tensor, w_q: torch.Tensor,
+                   scale: torch.Tensor) -> torch.Tensor:
+    """dx[..., k] = sum_n g[..., n] dequant(w_q, scale)[n, k] in fp32, cast
+    to g's dtype (JAX's `_int4_matmul_bwd` :274-296): at most
+    INT4_GROUPED_MAX_M rows, the scale folded into a per-group cotangent
+    and one product a group; more, a product over the fp32 dequantized
+    weight."""
+    lead, N = g.shape[:-1], g.shape[-1]
+    g2 = g.reshape(-1, N).float()
+    M = g2.shape[0]
+    G, K = scale.shape[1], w_q.shape[1] * 2
+    if M > INT4_GROUPED_MAX_M:
+        dx = g2 @ dequantize_weight4(w_q, scale, torch.float32)
+    else:
+        gs = g2[None] * scale.float().t()[:, None, :]                       # [G, M, N]
+        wv = unpack_int4(w_q, dim=1).float().reshape(N, G, K // G).transpose(0, 1)
+        dx = torch.bmm(gs, wv).transpose(0, 1).reshape(M, K)
+    return dx.to(g.dtype).reshape(*lead, K)
+
+
+class _Int4Matmul(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, w_q, scale):
+        ctx.save_for_backward(w_q, scale)
+        return _int4_matmul_fwd(x, w_q, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        w_q, scale = ctx.saved_tensors
+        dx = int4_matmul_dx(g, w_q, scale) if ctx.needs_input_grad[0] else None
+        return dx, None, None

@@ -18,7 +18,8 @@ import torch.nn.functional as F
 
 from simlingo_tpu_torch.core import gates
 from simlingo_tpu_torch.kernels import layernorm as fused_norm
-from simlingo_tpu_torch.kernels.quantized_matmul import int8_matmul
+from simlingo_tpu_torch.kernels.quantized_matmul import (int4_matmul, int8_matmul,
+                                                         unpack_int4)
 
 Params = Dict[str, Any]
 
@@ -75,10 +76,13 @@ def mlp_stack_init(gen, dims, use_bias=None, dtype=torch.float32,
 # ---------------------------------------------------------------------------
 
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """y = x W^T + b; an int8 weight {"w_q" [N, K], "scale" [N]} runs the
-    w8a16 kernel."""
+    """y = x W^T + b. A quantized weight is told by its scale's rank, as
+    JAX's (`layers.py:56-61`): int8 {"w_q" [N, K], "scale" [N]} runs the
+    w8a16 kernel, int4 {"w_q" [N, K // 2], "scale" [N, G]} the w4a16
+    product."""
     if "w_q" in p:
-        y = int8_matmul(x, p["w_q"], p["scale"])
+        qmm = int4_matmul if p["scale"].dim() == 2 else int8_matmul
+        y = qmm(x, p["w_q"], p["scale"])
         if "b" in p:
             y = y + p["b"].to(y.dtype)
         return y
@@ -87,10 +91,16 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def embed(p: Params, ids: torch.Tensor, dtype=None) -> torch.Tensor:
-    if "w_q" in p:      # per-row int8 table: gather rows, dequantize per row
+    if "w_q" in p:      # quantized table: gather rows, dequantize each
         ids = ids.clamp(0, p["w_q"].shape[0] - 1)
-        rows = p["w_q"][ids].to(dtype or torch.float32)
-        return rows * p["scale"][ids].to(rows.dtype)[..., None]
+        rows, sc = p["w_q"][ids], p["scale"][ids]
+        if sc.dim() == rows.dim():       # int4: packed rows, group scales [.., G]
+            rows = unpack_int4(rows, dim=-1).to(dtype or torch.float32)
+            H, G = rows.shape[-1], sc.shape[-1]
+            rows = rows.reshape(*rows.shape[:-1], G, H // G) * sc.to(rows.dtype)[..., None]
+            return rows.reshape(*rows.shape[:-2], H)
+        rows = rows.to(dtype or torch.float32)
+        return rows * sc.to(rows.dtype)[..., None]
     w = p["w"] if dtype is None else p["w"].to(dtype)
     return w[ids.clamp(0, w.shape[0] - 1)]
 
@@ -123,11 +133,45 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 # MLPs
 # ---------------------------------------------------------------------------
 
-def gelu_mlp(p: Params, x: torch.Tensor, approximate: bool = False
-             ) -> torch.Tensor:
-    """fc1 -> GELU (erf; tanh form if approximate) -> fc2."""
-    h = F.gelu(linear(p["fc1"], x), approximate="tanh" if approximate else "none")
-    return linear(p["fc2"], h)
+def gelu_mlp(p: Params, x: torch.Tensor, approximate: bool = False,
+             recompute_gelu: bool = False) -> torch.Tensor:
+    """fc1 -> GELU (erf; tanh form if approximate) -> fc2.
+
+    `recompute_gelu` (the ViT's remat="mlp") keeps the pre-GELU hidden for
+    the backward but not the GELU's output, which the backward recomputes
+    from it for fc2's weight gradient: JAX's
+    `save_anything_except_these_names("mlp_gelu_out")`
+    (`simlingo_tpu/models/layers.py:132-145`). Neither product re-runs."""
+    h = linear(p["fc1"], x)
+    approx = "tanh" if approximate else "none"
+    if recompute_gelu and torch.is_grad_enabled():
+        b = p["fc2"].get("b")
+        return _GeluLinear.apply(h, p["fc2"]["w"].to(h.dtype),
+                                 None if b is None else b.to(h.dtype), approx)
+    return linear(p["fc2"], F.gelu(h, approximate=approx))
+
+
+class _GeluLinear(torch.autograd.Function):
+    """F.linear(F.gelu(h), w, b), saving h (not the GELU's output) and w."""
+
+    @staticmethod
+    def forward(ctx, h, w, b, approximate: str):
+        ctx.save_for_backward(h, w)
+        ctx.approximate = approximate
+        return F.linear(F.gelu(h, approximate=approximate), w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        with torch.enable_grad():
+            hh = h.detach().requires_grad_(True)
+            act = F.gelu(hh, approximate=ctx.approximate)      # recomputed
+        need_h, need_w, need_b = ctx.needs_input_grad[:3]
+        g2 = g.reshape(-1, g.shape[-1])
+        dw = g2.t() @ act.detach().reshape(-1, act.shape[-1]) if need_w else None
+        db = g2.sum(0) if need_b else None
+        dh = torch.autograd.grad(act, hh, g @ w)[0] if need_h else None
+        return dh, dw, db, None
 
 
 def mlp_stack(p: Params, x: torch.Tensor, act, final_act: bool = False

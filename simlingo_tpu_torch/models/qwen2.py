@@ -5,7 +5,12 @@ embeddings, explicit position ids and key-validity mask, optional LoRA on
 every linear, and a preallocated KV cache for prefill + cached decode.
 Training (no cache, autograd on) runs attention through `attention_train`
 and, with `dropout_seed`, LoRA dropout through the two autograd Functions
-below, whose backwards regenerate the mask from the seed. The fused-LoRA
+below, whose backwards regenerate the mask from the seed. With `remat`
+each decoder layer is checkpointed (torch.utils.checkpoint, non-reentrant)
+and recomputed in the backward, as JAX's `jax.checkpoint` of `layer_fn`
+(:471): the recompute launches the attention forward and the dropout
+forwards again, and draws the same masks, since the seeds are host ints
+(`layer_seeds`). The fused-LoRA
 lever (`SIMLINGO_LORA_FUSED`, off in JAX) and the stacked / pipeline layer
 layouts are not ported.
 
@@ -21,10 +26,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from simlingo_tpu_torch.kernels.dropout import dropout
 from simlingo_tpu_torch.kernels.flash_attention import attention, attention_autograd
-from simlingo_tpu_torch.kernels.quantized_matmul import int8_matmul
+from simlingo_tpu_torch.kernels.quantized_matmul import int4_matmul, int8_matmul
 from simlingo_tpu_torch.models import layers as L
 
 
@@ -256,11 +262,20 @@ def _mlp_block(p, lora, x, cfg: Qwen2Config, seeds=None):
     return lr("down", F.silu(lr("gate", x)) * lr("up", x))
 
 
+def _decoder_layer(lp, lo, x, cfg: Qwen2Config, cos, sin, kv_valid, causal,
+                   layer_cache, cache_index, seeds):
+    x = x + _attn_block(lp["attn"], lo, L.rmsnorm(lp["ln1"], x, cfg.rms_norm_eps),
+                        cfg, cos, sin, kv_valid, causal, layer_cache, cache_index, seeds)
+    return x + _mlp_block(lp["mlp"], lo, L.rmsnorm(lp["ln2"], x, cfg.rms_norm_eps),
+                          cfg, seeds)
+
+
 def forward(params: Dict[str, Any], inputs_embeds: torch.Tensor,
             cfg: Qwen2Config, position_ids: torch.Tensor,
             kv_valid: Optional[torch.Tensor] = None, causal: bool = True,
             lora_params: Optional[Dict[str, Any]] = None,
             cache: Optional[Dict[str, Any]] = None,
+            remat: bool = False,
             dropout_seed: Optional[int] = None
             ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Decoder stack on pre-built embeddings [B, T, H].
@@ -268,6 +283,7 @@ def forward(params: Dict[str, Any], inputs_embeds: torch.Tensor,
     cache: {"layers": {i: {"k", "v"} [B, max_len, HK, D]}, "index": int}; the
     chunk is written at slot `index` and the returned cache (the same
     buffers) has index advanced by T. Returns (final-normed hidden, cache).
+    remat: recompute each layer in the backward (no cache, autograd on).
     dropout_seed: the step's seed; with LoRA and lora_dropout > 0 every
     adapter's input is dropped out (training).
     """
@@ -283,11 +299,14 @@ def forward(params: Dict[str, Any], inputs_embeds: torch.Tensor,
         layer_cache = cache["layers"][str(i)] if cache is not None else None
         seeds = (layer_seeds(dropout_seed, i) if dropout_seed is not None
                  and lo is not None and cfg.lora_dropout > 0 else None)
-        x = x + _attn_block(lp["attn"], lo, L.rmsnorm(lp["ln1"], x, cfg.rms_norm_eps),
-                            cfg, cos, sin, kv_valid, causal, layer_cache,
-                            cache_index, seeds)
-        x = x + _mlp_block(lp["mlp"], lo, L.rmsnorm(lp["ln2"], x, cfg.rms_norm_eps),
-                           cfg, seeds)
+        if remat and cache is None and torch.is_grad_enabled():
+            # the layer draws no torch random numbers: no RNG state to replay
+            x = checkpoint(_decoder_layer, lp, lo, x, cfg, cos, sin, kv_valid, causal,
+                           None, None, seeds, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = _decoder_layer(lp, lo, x, cfg, cos, sin, kv_valid, causal,
+                               layer_cache, cache_index, seeds)
     if cache is not None:
         cache = dict(cache, index=cache_index + inputs_embeds.shape[1])
     return L.rmsnorm(params["final_norm"], x, cfg.rms_norm_eps), cache
@@ -295,13 +314,16 @@ def forward(params: Dict[str, Any], inputs_embeds: torch.Tensor,
 
 def logits_from_hidden(params, hidden: torch.Tensor, cfg: Qwen2Config
                        ) -> torch.Tensor:
-    """LM head: tied to the [V, H] embedding unless an lm_head exists; an
-    int8 table runs the w8a16 kernel in the same [N, K] layout."""
+    """LM head: tied to the [V, H] embedding unless an lm_head exists; a
+    quantized table takes the same [N, K] layout as the linears (int8: the
+    w8a16 kernel; int4, its scale [V, G]: the w4a16 product, JAX's
+    :525-528)."""
     if "lm_head" in params:
         return L.linear(params["lm_head"], hidden)
     emb = params["embed"]
     if "w_q" in emb:
-        return int8_matmul(hidden, emb["w_q"], emb["scale"])
+        qmm = int4_matmul if emb["scale"].dim() == 2 else int8_matmul
+        return qmm(hidden, emb["w_q"], emb["scale"])
     return F.linear(hidden, emb["w"].to(hidden.dtype))
 
 

@@ -4,7 +4,13 @@ Counterpart of `simlingo_tpu/models/simlingo.py`: the hybrid sequence is
 token embeddings with waypoint placeholders spliced in (one-hot over padded
 (slot, coord) lists) and image features spliced at the `<IMG_CONTEXT>`
 positions (cumsum-gather), followed by the 30 driving queries;
-`forward_loss` is the training forward. There is no remat.
+`forward_loss` is the training forward. Remat is on by default, as in
+JAX (`simlingo_tpu/models/simlingo.py:45-46`): `remat_vision` (False,
+True or "mlp"; `vit.py`'s docstring) and `remat_llm` (every decoder layer
+recomputed in the backward; `qwen2.forward`). They change when values
+are computed, not what: losses and gradients equal remat off's. They act
+only while autograd records, so serving and evaluation never recompute.
+`tiny()` turns both off, as JAX's does.
 """
 
 from __future__ import annotations
@@ -30,6 +36,10 @@ class SimLingoConfig:
     predict_route_as_wps: bool = True
     adaptor_mlp_dim: int = 256
     freeze_vision: bool = False          # no gradient into the vision tower
+    # False | True (each layer keeps only the attention output) | "mlp"
+    # (only the MLP's GELU output is recomputed)
+    remat_vision: Any = True
+    remat_llm: bool = True
     # CE on the gathered (contiguous) answer positions; 0 => full-sequence CE
     max_answer_len: int = 160
 
@@ -42,7 +52,8 @@ class SimLingoConfig:
     def tiny() -> "SimLingoConfig":
         return SimLingoConfig(vit=vit.ViTConfig.tiny(),
                               llm=qwen2.Qwen2Config.tiny(),
-                              img_context_token_id=500)
+                              img_context_token_id=500,
+                              remat_vision=False, remat_llm=False)
 
 
 def init_params(cfg: SimLingoConfig, generator: torch.Generator,
@@ -91,7 +102,8 @@ def build_text_embeddings(params: Dict[str, Any], label: LanguageLabel,
                                              grid=grid)
         NP = pixel_values.shape[1]
         imgs = pixel_values.reshape((B * NP,) + tuple(pixel_values.shape[2:]))
-        feats = vit.extract_features(params["vision"], imgs, cfg.vit)
+        feats = vit.extract_features(params["vision"], imgs, cfg.vit,
+                                     remat=cfg.remat_vision)
         if cfg.freeze_vision:
             feats = feats.detach()
         n_img = NP * feats.shape[1]
@@ -137,7 +149,7 @@ def forward_loss(params: Dict[str, Any], example: DrivingExample,
     T = label.ids.shape[1]
     hidden, _ = qwen2.forward(params["llm"], embeds, cfg.llm, pos, kv_valid=valid,
                               causal=True, lora_params=params.get("lora"),
-                              dropout_seed=dropout_seed)
+                              remat=cfg.remat_llm, dropout_seed=dropout_seed)
     text_h, query_h = hidden[:, :T], hidden[:, T:]
 
     def logits_fn(h):

@@ -6,7 +6,23 @@ layers with layer scale, 0.5x pixel shuffle and the mlp1 projector. Images
 are NHWC. Attention reads q/k/v as [B, T, H, D] views of each projection's
 [B, T, H*D] output (no transpose copy), through kernels/flash_attention;
 in training (autograd on) through `attention_train`, whose backward kernel
-reads the same views. There is no remat.
+reads the same views.
+
+Remat (`encode(..., remat)`, JAX's :186-208), only while autograd records:
+  * True: each layer keeps for the backward only its input and the
+    attention output (JAX's `save_only_these_names("vit_attn_out")`). Two
+    regions are checkpointed (torch.utils.checkpoint, non-reentrant):
+    ln1 -> q, k, v -> attention, and the rest of the layer, which takes the
+    attention output as an input and so keeps it. A selective-checkpoint
+    policy keyed on ops cannot name that output: the kernel wrappers fill a
+    `torch.empty` through ctypes, which the dispatcher never sees. JAX's
+    backward re-runs the attention forward kernel to recover the unnamed
+    `lse` residual (its grad holds three Pallas calls a layer, two without
+    remat); the first region's recompute does the same, so the forward
+    kernel launches twice a layer a step.
+  * "mlp": everything is kept except the GELU's output, which fc2's
+    weight gradient recomputes from the kept pre-GELU hidden
+    (`layers.gelu_mlp(recompute_gelu=True)`); nothing else re-runs.
 """
 
 from __future__ import annotations
@@ -16,6 +32,7 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from simlingo_tpu_torch.kernels.flash_attention import attention_autograd
 from simlingo_tpu_torch.models import layers as L
@@ -99,7 +116,8 @@ def _patchify(images: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
     return x.reshape(B, g * g, ps * ps * C)
 
 
-def _vit_layer(p, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
+def _attention_out(p, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
+    """ln1 -> q, k, v (-> q/k norms) -> attention: [B, T, H]."""
     B, T, H = x.shape
     nh = cfg.num_heads
     hd = H // nh
@@ -113,22 +131,40 @@ def _vit_layer(p, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
     a = attention_autograd(q.view(B, T, nh, hd), k.view(B, T, nh, hd),
                            v.view(B, T, nh, hd), None, causal=False,
                            scale=hd ** -0.5)
-    a = L.linear(p["attn"]["o"], a.reshape(B, T, H))
+    return a.reshape(B, T, H)
+
+
+def _after_attention(p, x: torch.Tensor, a: torch.Tensor, cfg: ViTConfig,
+                     recompute_gelu: bool = False) -> torch.Tensor:
+    """o projection, layer-scaled residual, ln2 -> MLP, residual."""
+    a = L.linear(p["attn"]["o"], a)
     x = x + p["ls1"].to(a.dtype) * a
     m = L.gelu_mlp(p["mlp"], L.layernorm(p["ln2"], x, cfg.layer_norm_eps),
-                   approximate=cfg.gelu_approximate)
+                   approximate=cfg.gelu_approximate, recompute_gelu=recompute_gelu)
     return x + p["ls2"].to(m.dtype) * m
 
 
-def encode(params, images: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
-    """[B, H, W, 3] normalized images -> [B, T+1, hidden]."""
+def _vit_layer(p, x: torch.Tensor, cfg: ViTConfig, remat=False) -> torch.Tensor:
+    if remat == "mlp":
+        return _after_attention(p, x, _attention_out(p, x, cfg), cfg, recompute_gelu=True)
+    if remat and torch.is_grad_enabled():
+        # the regions draw no torch random numbers: no RNG state to replay
+        kw = dict(use_reentrant=False, preserve_rng_state=False)
+        a = checkpoint(_attention_out, p, x, cfg, **kw)
+        return checkpoint(_after_attention, p, x, a, cfg, **kw)
+    return _after_attention(p, x, _attention_out(p, x, cfg), cfg)
+
+
+def encode(params, images: torch.Tensor, cfg: ViTConfig, remat=False) -> torch.Tensor:
+    """[B, H, W, 3] normalized images -> [B, T+1, hidden]. `remat`: False,
+    True or "mlp" (module docstring)."""
     images = images.to(params["patch_embed"]["w"].dtype)
     x = L.linear(params["patch_embed"], _patchify(images, cfg))
     B = x.shape[0]
     cls = params["cls_token"].to(x.dtype).expand(B, 1, cfg.hidden_size)
     x = torch.cat([cls, x], dim=1) + params["pos_embed"].to(x.dtype)
     for i in range(cfg.num_layers):
-        x = _vit_layer(params["layers"][str(i)], x, cfg)
+        x = _vit_layer(params["layers"][str(i)], x, cfg, remat)
     return x
 
 
@@ -140,11 +176,11 @@ def pixel_shuffle(x: torch.Tensor, scale: float) -> torch.Tensor:
     return x.permute(0, 2, 1, 3)
 
 
-def extract_features(params, images: torch.Tensor, cfg: ViTConfig
+def extract_features(params, images: torch.Tensor, cfg: ViTConfig, remat=False
                      ) -> torch.Tensor:
-    """ViT -> drop CLS -> pixel shuffle -> mlp1 projector.
+    """ViT (with `remat`) -> drop CLS -> pixel shuffle -> mlp1 projector.
     [B, H, W, 3] -> [B, tokens_per_patch_image, llm_hidden]."""
-    feats = encode(params, images, cfg)[:, 1:]
+    feats = encode(params, images, cfg, remat=remat)[:, 1:]
     B, T, C = feats.shape
     g = cfg.grid
     feats = pixel_shuffle(feats.reshape(B, g, g, C), cfg.downsample_ratio)

@@ -145,6 +145,19 @@ def test_save_restore_atomic_keep_and_async(tmp_path):
         assert torch.equal(x, other.trainable[p]), p
 
 
+def test_final_save_after_a_finished_async_write_keeps_n(tmp_path):
+    """The trainer's final save of the step an async save already wrote:
+    keep-N holds whether or not that write had finished first."""
+    _, state = _tiny_state()
+    d = str(tmp_path / "ckpts")
+    for s in (1, 2):
+        ckpt.save_checkpoint(d, state, s, keep=2)
+    ckpt.save_checkpoint(d, state, 3, keep=2, block=False)
+    ckpt.wait_for_checkpoints()                  # the write landed first
+    ckpt.save_checkpoint(d, state, 3, keep=2)    # the final save collides
+    assert sorted(os.listdir(d)) == ["step_00000002", "step_00000003"]
+
+
 def test_async_error_surfaces(tmp_path, monkeypatch):
     _, state = _tiny_state()
     d = str(tmp_path / "ckpts")

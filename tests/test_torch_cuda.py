@@ -30,7 +30,9 @@ the sum of |terms| (see _dx_tol); the int8 forward's split reduction to
 half a spacing of the fp32 |ref| plus 2^-20 sqrt(K) of the sum of |terms|
 (see _fwd_tol). The attention kernels also at the other head dims they
 are built at (16, 32, 128) and at two they zero-pad (48, 80), and the
-refusal of one past 128.
+refusal of one past 128. The int4 product (plain PyTorch) on the GPU
+against its CPU fp32 path to 2^-8 (|ref| + sum|terms|), and
+`chip_smoke.py`'s phase-3 int4 agent and remat steps.
 """
 
 import importlib.util
@@ -904,3 +906,53 @@ def test_fused_kernels_refuse_what_they_do_not_take(gpu):
                          torch.ones(8, device=gpu), False)
     with pytest.raises(ValueError, match="H % 32"):
         TCE.fused_ce_fwd(h[:, :80], labels, w[:, :80])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 16, 30, 65, 640])
+def test_int4_matmul_on_the_gpu_matches_the_cpu_path(gpu, M):
+    """The int4 product (plain PyTorch) in bf16 on the GPU against its CPU
+    fp32 path, forward and activation gradient, both branches: within
+    2^-8 (|ref| + sum|terms|); the GPU quantizes to the CPU's codes."""
+    g = torch.Generator().manual_seed(M)
+    K, N = 896, 1152
+    w = torch.randn(N, K, generator=g) * 0.02
+    w_q, scale = TQM.quantize_weight4(w)
+    w_q_gpu, scale_gpu = TQM.quantize_weight4(w.to(gpu))
+    assert torch.equal(w_q_gpu.cpu(), w_q) and torch.equal(scale_gpu.cpu(), scale)
+    x = torch.randn(M, K, generator=g).bfloat16()
+    dy = torch.randn(M, N, generator=g).bfloat16()
+    xg = x.to(gpu).requires_grad_(True)
+    y = TQM.int4_matmul(xg, w_q_gpu, scale_gpu)
+    y.backward(dy.to(gpu))
+    xc = x.float().requires_grad_(True)
+    ref = TQM.int4_matmul(xc, w_q, scale)
+    ref.backward(dy.float())
+    wd = TQM.dequantize_weight4(w_q, scale, torch.float32).abs()
+    for got, want, terms in ((y.detach(), ref.detach(), x.float().abs() @ wd.t()),
+                             (xg.grad, xc.grad, dy.float().abs() @ wd)):
+        assert got.dtype == torch.bfloat16
+        err = (got.float().cpu() - want).abs()
+        assert bool((err <= 2.0 ** -8 * (want.abs() + terms) + 1e-6).all()), float(err.max())
+
+
+@pytest.mark.cuda
+def test_small_int4_agent_on_the_gpu_agrees_with_the_cpu(gpu):
+    """chip_smoke.py phase 3's int4 case: drive_only waypoints of the small
+    int4 agent, GPU bf16 against CPU fp32."""
+    assert _chip_smoke().small_int4_agreement(torch, gpu)
+
+
+@pytest.mark.cuda
+def test_remat_step_on_the_gpu_equals_remat_off(gpu):
+    """chip_smoke.py phase 3's remat steps (LoRA dropout 0.1): the losses
+    of each mode equal the remat-off step's on the GPU, the grad norm to
+    1e-3 relative."""
+    runs = _chip_smoke().small_remat_steps(torch, gpu)
+    ref = runs[(False, False)]
+    assert len(runs) == 3
+    for mode, got in runs.items():
+        for key in ref:
+            if key != "grad_norm":
+                assert got[key] == ref[key], (mode, key)
+        assert got["grad_norm"] == pytest.approx(ref["grad_norm"], rel=1e-3), mode

@@ -122,11 +122,11 @@ def test_quantize_weight_bit_identical(axis):
 
 def test_quantize_llm_bit_identical_through_bridge():
     """Port-quantizing the bridged fp tree == bridging the JAX-quantized
-    tree, leaf for leaf (int8 codes in the port's [N, K] layout)."""
+    tree, leaf for leaf: int8 codes in the port's [N, K] layout, and int4
+    (group 32, which divides the tiny widths) packed [N, K // 2] with
+    [N, G] scales; another width is refused."""
     llm = jax.jit(jq.init_params, static_argnums=1)(jax.random.PRNGKey(0),
                                                     jq.Qwen2Config.tiny())
-    want = params_from_jax(JQ.quantize_llm(llm), device="cpu")
-    got = TQ.quantize_llm(params_from_jax(llm, device="cpu"))
 
     def walk(a, b, path=""):
         assert a.keys() == b.keys(), path
@@ -136,10 +136,14 @@ def test_quantize_llm_bit_identical_through_bridge():
             else:
                 assert a[key].dtype == b[key].dtype, f"{path}/{key}"
                 assert torch.equal(a[key], b[key]), f"{path}/{key}"
-    walk(got, want)
-    assert got["layers"]["0"]["mlp"]["gate"]["w_q"].shape == (128, 64)  # [N, K]
-    with pytest.raises(NotImplementedError, match="A8"):
-        TQ.quantize_llm(params_from_jax(llm, device="cpu"), bits=4)
+    for bits, group, gate_shape in ((8, 128, (128, 64)), (4, 32, (128, 32))):
+        want = params_from_jax(JQ.quantize_llm(llm, bits, group), device="cpu")
+        got = TQ.quantize_llm(params_from_jax(llm, device="cpu"), bits, group)
+        walk(got, want)
+        assert got["layers"]["0"]["mlp"]["gate"]["w_q"].shape == gate_shape  # [N, K*bits/8]
+    assert got["layers"]["0"]["mlp"]["gate"]["scale"].shape == (128, 2)      # [N, G]
+    with pytest.raises(ValueError, match="bits"):
+        TQ.quantize_llm(params_from_jax(llm, device="cpu"), bits=2)
 
 
 # ---------------------------------------------------------------------------

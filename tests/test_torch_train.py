@@ -228,7 +228,8 @@ def test_trainer_runs_synthetic_overrides_on_cpu(setup, capsys):
     cfg = compose(["max_steps=2", "data.batch_size=2", "data.max_text_len=96",
                    "precision=fp32", "seed=7", "output_dir="])
     assert (cfg.max_steps, cfg.data.batch_size, cfg.seed) == (2, 2, 7)
-    assert cfg.model.llm.lora_r == 32 and cfg.model.vit.gelu_approximate
+    # JAX's default model (SimLingoConfig(): remat on, no LoRA, exact GELU)
+    assert cfg.model == tsim.SimLingoConfig() and cfg.model.llm.lora_r == 0
     cfg.model = dataclasses.replace(_port_cfg(jcfg), llm=dataclasses.replace(
         _port_cfg(jcfg).llm, lora_dropout=0.1))
     res = trainer.train(cfg, make_synthetic=True, device="cpu")

@@ -18,7 +18,6 @@ import numpy as np
 import pytest
 import torch
 
-from simlingo_tpu.core import presets as jpresets
 from simlingo_tpu.core.config import compose as jcompose
 from simlingo_tpu.core.config import to_dict as jto_dict
 from simlingo_tpu.data.tokenizer import SimLingoTokenizer
@@ -143,15 +142,15 @@ def _flat(d, prefix=""):
 
 def test_compose_experiment_matches_jax():
     """configs/simlingo.yaml through both composers: every field both
-    configs have is equal (the model against JAX's internvl2_1b preset, the
-    port's default model), as are the overrides on top."""
+    configs have is equal (the model too: both default to SimLingoConfig(),
+    remat on, no LoRA), as are the overrides on top."""
     ov = ["max_steps=7", "data.base.use_town13=false", "optimizer.lr=1e-4"]
     jcfg, tcfg = jcompose("configs/simlingo.yaml", ov), compose("configs/simlingo.yaml", ov)
     j, t = _flat(jto_dict(jcfg)), _flat(to_dict(tcfg))
-    j.update(_flat(jto_dict(jpresets.internvl2_1b(lora=True)), "model."))
     shared = set(j) & set(t)
     assert len(shared) > 80 and {"data.train_partitions", "data.base.pred_len", "seed",
-                                 "model.llm.lora_r", "optimizer.lr"} <= shared
+                                 "model.llm.lora_r", "model.remat_vision", "model.remat_llm",
+                                 "optimizer.lr"} <= shared
     diff = {k: (j[k], t[k]) for k in shared
             if (list(j[k]) if isinstance(j[k], tuple) else j[k])
             != (list(t[k]) if isinstance(t[k], tuple) else t[k])}

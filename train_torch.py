@@ -7,9 +7,9 @@
     python3 train_torch.py --device cpu ...          # the plain PyTorch path
 
 The counterpart of `train.py`: the TrainConfig (core/config.py; default
-model `presets.internvl2_1b(lora=True)`, InternViT-300M + Qwen2-0.5B with
-LoRA r=32, dropout 0.1, base LLM frozen) <- the experiment YAML <- dotted
-`key=value` overrides. By default it trains from the CARLA dataset under
+model `SimLingoConfig()`, as JAX's: InternViT-300M + Qwen2-0.5B, remat on
+in both towers, no LoRA, the exact GELU, base LLM frozen) <- the
+experiment YAML <- dotted `key=value` overrides. By default it trains from the CARLA dataset under
 `data.data_root` (routes with measurements, rgb frames, commentary, VQA
 and dreamer files) with validation, metrics in
 `<output_dir>/<name>/metrics.jsonl` and checkpoints in
