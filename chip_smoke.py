@@ -11,6 +11,7 @@
     python3 chip_smoke.py --norm-sweep  # the norm kernels at forced plans
     python3 chip_smoke.py --disk        # training from disk with checkpoints, the
                                         # leaderboard plugin and the evaluation only
+    python3 chip_smoke.py --mesh        # the multi-GPU training phase only
     python3 chip_smoke.py --base [CELL ...]  # the small SimLingo-Base agreement and
                                         # the base cells' phases only (base,
                                         # base_wide, base_resnet)
@@ -36,7 +37,10 @@ Phases, in order; any failure exits non-zero:
      the other head dims, HEAD_DIM_ATTENTION: SimLingo-Base's LLaMA `large`
      [16,333,16,128] causal, the split path and GQA at 128, JAX's tiny()
      at 16 and presets.small_shardable at 32, each through its own
-     instance, forward and backward), against its plain
+     instance, forward and backward; and a tp = 2 rank's shapes,
+     TP_ATTENTION: Qwen2's 7 query heads over 1 kv head and 8 of the ViT's
+     16, forward and backward, the int8 base's halved N / K,
+     INT8_TP_SHAPES, forward and dx), against its plain
      PyTorch version on the same bf16 inputs (fp32 math) at |err| <= ATOL + RTOL |ref| (the attention
      forward also with its lse, bit-identical across two calls, its path
      -- tiled or split, the splits -- its kernel's ptxas registers and
@@ -47,7 +51,9 @@ Phases, in order; any failure exits non-zero:
      of that scratch -- bit-identical across two calls, with the device ms
      of its three kernels, their ptxas registers, the dK/dV instantiation
      and the scratch bytes; dropout: bit-equal, keep rate 0.9 +- 0.002, identity at
-     p = 0; LayerNorm / RMSNorm forward and backward at the ViT, projector
+     p = 0, the one-process layout's digests equal to DROPOUT_DIGESTS, and
+     at a rank's blocks (DROPOUT_CASES: dp's rows, tp's columns) the
+     one-process mask cut to the block; LayerNorm / RMSNorm forward and backward at the ViT, projector
      and LLM-training rows (the LLM's also dx only, its frozen scale), the
      forward at the serving rows (ViT 2 x 1025, projector 2 x 256, LLM 1 /
      16 / 30 / 640), the backward bit-identical across two calls, with the
@@ -121,6 +127,24 @@ Phases, in order; any failure exits non-zero:
      vision, llm, mlp, and both, JAX's default) ungated, each beside the
      remat-off run (`compare_remat`: ms/step, peak memory, losses within
      2e-2 and whether bit-identical, a profiled step each);
+  5b. multi-GPU training (`mesh_training`): multihost.initialize at world
+     1 over NCCL with one all-reduce; the one-process runs at global batch
+     6: the trainer, ungated and gated, and two controls, each the
+     one-process step with a run's reductions: `halves` (the batch as two
+     accumulated halves of 3 rows, as dp and fsdp split it) and `tp` (the
+     gated step with every tp-split product cut in two as tp = 2 cuts it:
+     row-parallel linears as two bf16 partial products summed in bf16);
+     then 2 ranks (`--mesh-rank`, one a GPU over NCCL where there are two,
+     else both on this GPU over gloo, named explicitly, with every
+     collective staged through host memory, which they print) run
+     MESH_RUNS in turn, 3 steps each, dropout on: `mesh_dp2` and
+     `mesh_fsdp2` (batch 3 a rank) held to `halves`, `mesh_tp2` (batch 6,
+     both gates) to `tp`: step 1's loss and grad norm and the trainable
+     leaves after step 3 within MESH_MULT x the control's own difference
+     from the one-process trainer, measured in the same call; launches
+     exact; with ms/step, peak memory, collective bytes and ms a step
+     (staged: host ms; NCCL: its kernels' device ms, torch.profiler) and
+     launches per rank; a rank's failure or MESH_TIMEOUT fails the script;
   6. SimLingo-Base at full width, three cells (BASE_CELLS, overrides of
      configs/simlingo_base.yaml, seed 0): `base` (CLIP ViT-L/14-336 with
      LLaVA-NeXT features, the tiny LLaMA), `base_wide` (the same with the
@@ -174,7 +198,8 @@ Phases, in order; any failure exits non-zero:
      JSONs written, the metrics;
  10. the {"kernels": [...]} line (eleven kernels, launches per path: serve,
      serve_gated, serve_int4, train, train_gated, train_int8,
-     train_remat_<mode>, the base cells' <cell>_fwd,
+     train_remat_<mode>, mesh_dp2 / mesh_fsdp2 / mesh_tp2 (both ranks'),
+     the base cells' <cell>_fwd,
      <cell>_train and <cell>_train_gated, train_disk, carla_plugin,
      eval_language; the attention kernels also each built head dim's
      instance at a phase-2 case and the base paths' launches by head dim),
@@ -183,15 +208,17 @@ Per-case results also go to chiprun_out/chip_smoke_cases.json, the paths'
 statistics to chip_smoke_agent.json (serve_int4's under "int4"),
 chip_smoke_train.json, chip_smoke_train_gated.json,
 chip_smoke_train_int8.json, chip_smoke_train_remat_<mode>.json,
+chip_smoke_mesh_training.json (the ranks' logs chip_smoke_mesh_rank*.log),
 chip_smoke_<cell>_{fwd,train,train_gated}.json, chip_smoke_train_disk.json,
 chip_smoke_carla_plugin.json and chip_smoke_eval_language.json. `--disk`
 runs the build and phases 7-9 alone, `--base` the build, the small
-SimLingo-Base agreement and phase 6.
+SimLingo-Base agreement and phase 6, `--mesh` the build and phase 5b.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import math
@@ -441,6 +468,12 @@ HEAD_DIM_ATTENTION = [
     ("shardable_llm", 2, 128, 128, 8, 2, True, None, [(8, 128)], False, 32)]
 ATTN_HEAD_DIM = {c[0]: c[10] for c in HEAD_DIM_ATTENTION}
 
+# tp = 2 (`mesh_tp2`): a rank's half of the heads, Qwen2's 7 query heads over
+# its 1 kv head (the GQA group of 7 kept) and 8 of the ViT's 16; last in
+# every list, so every other case keeps its inputs
+TP_ATTENTION = [("llm_train_tp2", 6, 798, 798, 7, 1, True, None, "train", False),
+                ("vit_train_tp2", 12, 1025, 1025, 8, 8, False, None, None, True)]
+
 
 def head_dim(case):
     """The head dim of a phase-2 attention case (64 unless listed in
@@ -526,7 +559,8 @@ def attention_inputs(torch, dev):
     cases = attention_cases() + [
         ("llm_train", 6, 798, 798, 14, 2, True, None, "train", False),
         ("vit_train", 12, 1025, 1025, 16, 16, False, None, None, True)] + BASE_ATTENTION \
-        + eval_attention_cases(prompt_valid) + [c[:10] for c in HEAD_DIM_ATTENTION]
+        + eval_attention_cases(prompt_valid) + [c[:10] for c in HEAD_DIM_ATTENTION] \
+        + TP_ATTENTION
     train_valid = train_llm_valid(torch, dev)
     for case in cases:
         B, T, S, HQ, HK, _, _, ranges, strided = case[1:]
@@ -656,6 +690,10 @@ def run_attention_checks(torch, dev, results):
 
 INT8_SHAPES = [("qo", 896, 896), ("kv", 896, 128), ("gate_up", 896, 4864),
                ("down", 4864, 896), ("head", 896, 151674)]      # (case, K, N)
+# a tp = 2 rank's int8-base linears (column-parallel N halved, row-parallel
+# K halved), at the training rows with the bf16 scale, last in the list
+INT8_TP_SHAPES = [("q_tp2", 896, 448), ("kv_tp2", 896, 64), ("o_tp2", 448, 896),
+                  ("gate_up_tp2", 896, 2432), ("down_tp2", 2432, 896)]
 
 
 def int8_cases():
@@ -663,13 +701,15 @@ def int8_cases():
     row (decode 1, verify 16, queries 30, prefill 640) and the int8-base
     training rows (6 x 798 for the linears, one 32-position CE chunk x 6
     for the tied head) with an fp32 scale; the decode row, the training
-    rows and the head again with a bf16 scale."""
+    rows and the head again with a bf16 scale; a tp = 2 rank's linears
+    (INT8_TP_SHAPES) at the training rows, bf16 scale."""
     import torch
     lin, head = INT8_SHAPES[:4], INT8_SHAPES[4]
     cases = [(n, K, N, M, torch.float32) for (n, K, N) in lin for M in (1, 16, 30, 640, 4788)]
     cases += [(*head, M, torch.float32) for M in (1, 16, 192)]
     cases += [(n, K, N, M, torch.bfloat16) for (n, K, N) in lin for M in (1, 4788)]
     cases += [(*head, M, torch.bfloat16) for M in (1, 16, 192)]
+    cases += [(n, K, N, 4788, torch.bfloat16) for (n, K, N) in INT8_TP_SHAPES]
     return cases
 
 
@@ -830,9 +870,10 @@ def run_int4_checks(torch, dev, results):
 def int8_dx_cases():
     """(case, M, N, K) of int8_matmul_dx on the int8-base training path:
     g [M, N] through w_q [N, K]; the linears at 6 x 798 rows, the tied head
-    per 32-position CE chunk (6 x 32 rows)."""
+    per 32-position CE chunk (6 x 32 rows), then a tp = 2 rank's linears."""
     return [("qo", 4788, 896, 896), ("kv", 4788, 128, 896), ("gate_up", 4788, 4864, 896),
-            ("down", 4788, 896, 4864), ("head", 192, 151674, 896)]
+            ("down", 4788, 896, 4864), ("head", 192, 151674, 896),
+            *((n, 4788, N, K) for n, K, N in INT8_TP_SHAPES)]
 
 
 def run_int8_dx_checks(torch, dev, results):
@@ -891,11 +932,11 @@ def attention_bwd_cases():
     """(name, B, T, HQ, HK, causal, strided, D) of phase 2's attention
     backward: the four training shapes of head dim 64 (the LoRA step's LLM
     and ViT, SimLingo-Base's CLIP and LLaMA), then the self-attention
-    cases of HEAD_DIM_ATTENTION."""
+    cases of HEAD_DIM_ATTENTION, then TP_ATTENTION's."""
     return [("llm_train", 6, 798, 14, 2, True, False, 64),
             ("vit_train", 12, 1025, 16, 16, False, True, 64),
             *((c[0], c[1], c[2], c[4], c[5], c[6], c[9], head_dim(c)) for c in BASE_ATTENTION
-              + [c for c in HEAD_DIM_ATTENTION if c[2] == c[3]])]
+              + [c for c in HEAD_DIM_ATTENTION if c[2] == c[3]] + TP_ATTENTION)]
 
 
 def attention_bwd_bytes(B, T, HQ, HK, D, masked):
@@ -920,7 +961,7 @@ def attention_bwd_inputs(torch, dev, dims=None):
         name, B, T, HQ, HK, causal, strided, D = case
         if dims is not None and D not in dims:
             continue
-        valid = train_valid if name == "llm_train" else None
+        valid = train_valid if name in ("llm_train", "llm_train_tp2") else None
 
         def make():
             if strided:
@@ -1053,47 +1094,75 @@ def run_attention_bwd_checks(torch, dev, results):
             f"{' '.join(digest)}")
 
 
+# dropout at a rank's block of a multi-GPU step (`block` = row0, col0, width
+# of the one-process [rows, width] tensor): dp = 2's second rank (the rows
+# 3 x 798 on), and tp = 2's second rank at the row-parallel inputs of o
+# (448 of 896 columns) and down (2432 of 4864)
+DROPOUT_CASES = (("lora_x_896", (6, 798, 896), None), ("lora_h_4864", (6, 798, 4864), None),
+                 ("lora_x_896_dp2", (3, 798, 896), (3 * 798, 0, 896)),
+                 ("lora_x_448_tp2", (6, 798, 448), (0, 448, 896)),
+                 ("lora_h_2432_tp2", (6, 798, 2432), (0, 2432, 4864)))
+# sha12 of the zero-offset outputs on these inputs, recorded on an H100 from
+# the tree before the blocks (commit c489a34, `--kernels dropout --parent`):
+# the one-process mask keeps its bits
+DROPOUT_DIGESTS = {"lora_x_896": "6ba5e5e7cad2", "lora_h_4864": "31b358bad4c2"}
+
+
 def run_dropout_checks(torch, dev, results):
-    """dropout at the LoRA inputs of the training path: bit-equal to
-    dropout_plain, keep rate 0.9 +- 0.002, identity at p = 0; library:
-    F.dropout."""
+    """dropout at the LoRA inputs of the training path and at a rank's
+    blocks (DROPOUT_CASES): bit-equal to dropout_plain (which, for a block,
+    must equal the one-process mask cut to it), keep rate 0.9 +- 0.002,
+    identity at p = 0, the zero-offset outputs' digests equal to
+    DROPOUT_DIGESTS; library: F.dropout."""
     import torch.nn.functional as F
     from simlingo_tpu_torch.kernels import dropout as DO
     gen = torch.Generator(device=dev).manual_seed(4)
     seed, rate = 0x243F6A8885A308D3, 0.1
-    for name, C in (("lora_x_896", 896), ("lora_h_4864", 4864)):
-        shape = (6, 798, C)
-
+    for name, shape, block in DROPOUT_CASES:
         def make():
             return (torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16),)
         (x,) = make()
-        out = DO.dropout(x, seed, rate)
+        out = DO.dropout(x, seed, rate, block)
         torch.cuda.synchronize()
-        ref = DO.dropout_plain(x, seed, rate)
-        keep = DO.dropout(torch.ones_like(x), seed, rate) != 0
-        keep_ref = DO.keep_mask(x.numel(), seed, rate, dev).view(shape)
+        ref = DO.dropout_plain(x, seed, rate, block)
+        keep = DO.dropout(torch.ones_like(x), seed, rate, block) != 0
+        keep_ref = DO.keep_mask(x.numel(), seed, rate, dev, block, shape[-1]).view(shape)
+        cut = True
+        if block is not None:       # the one-process mask restricted to the block
+            rows = x.numel() // shape[-1]
+            whole = DO.keep_mask((block[0] + rows) * block[2], seed, rate, dev).view(
+                -1, block[2])[block[0]:, block[1]:block[1] + shape[-1]]
+            cut = torch.equal(whole.reshape(shape), keep_ref)
         rate_kept = float(keep.float().mean())
-        identity = torch.equal(DO.dropout(x, seed, 0.0), x)
-        ok = (torch.equal(out, ref) and torch.equal(keep, keep_ref) and identity
-              and abs(rate_kept - (1 - rate)) <= 0.002)
+        identity = torch.equal(DO.dropout(x, seed, 0.0, block), x)
+        digest = sha12(torch, out)
+        recorded = DROPOUT_DIGESTS.get(name)
+        ok = (torch.equal(out, ref) and torch.equal(keep, keep_ref) and identity and cut
+              and abs(rate_kept - (1 - rate)) <= 0.002
+              and (recorded is None or digest == recorded))
         err = float((out.float() - ref.float()).abs().max())
         nbytes = 2 * 2 * x.numel()
         bms, bby = bound(nbytes, 0)
         sets = [make() for _ in range(n_sets(nbytes))]
-        kernel_ms = time_ms(torch, lambda x_: DO.dropout(x_, seed, rate), sets)
-        plain_ms = time_ms(torch, lambda x_: DO.dropout_plain(x_, seed, rate), sets[:2],
+        kernel_ms = time_ms(torch, lambda x_: DO.dropout(x_, seed, rate, block), sets)
+        plain_ms = time_ms(torch, lambda x_: DO.dropout_plain(x_, seed, rate, block), sets[:2],
                            iters=2)
         library_ms = time_ms(torch, lambda x_: F.dropout(x_, rate, training=True), sets)
-        row = dict(kernel="dropout", case=name, shape=f"[6,798,{C}] bf16 p={rate}",
+        row = dict(kernel="dropout", case=name,
+                   shape=f"[{','.join(map(str, shape))}] bf16 p={rate}" + (
+                       f" block {block}" if block else ""),
                    max_abs_err=err, err_over_rms=0.0, bit_equal=torch.equal(out, ref),
-                   keep_rate=rate_kept, identity_at_0=identity, ok=ok,
+                   keep_rate=rate_kept, identity_at_0=identity, block=block,
+                   one_process_mask_cut=cut, sha_out=digest, recorded_digest=recorded, ok=ok,
                    kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bms, bound_by=bby)
         results.append(row)
-        log(f"[kernel] dropout        {name:12s} {row['shape']:24s} bit_equal="
+        log(f"[kernel] dropout        {name:16s} {row['shape']:44s} bit_equal="
             f"{row['bit_equal']} keep_rate={rate_kept:.5f} identity_at_0={identity} "
-            f"{'OK' if ok else 'FAIL'} kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={library_ms:.4f} (F.dropout) bound_ms={bms:.4f} ({bby})")
+            f"one-process mask cut to the block={cut} sha256 {digest} (recorded "
+            f"{recorded}) {'OK' if ok else 'FAIL'} kernel_ms={kernel_ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (F.dropout) "
+            f"bound_ms={bms:.4f} ({bby})")
 
 
 def _ratio(got, ref, tol):
@@ -1816,9 +1885,24 @@ def fwd_digests(torch, dev, kernel):
     "fused_ce_fwd" at the training shape, "int8_fwd" at the M = 1 cases
     (the GEMV) with both scale dtypes, 200 calls a replay; "norms" at
     every norm case, "<case>_fwd" and "<case>_bwd" apart (200 calls a
-    replay below 1 MB of operands)."""
+    replay below 1 MB of operands); "dropout" at phase 2's zero-offset
+    cases, 200 calls a replay."""
     digests, ms = {}, {}
     warm_up(torch, dev)
+    if kernel == "dropout":
+        from simlingo_tpu_torch.kernels import dropout as DO
+        gen = torch.Generator(device=dev).manual_seed(4)
+        seed, rate = 0x243F6A8885A308D3, 0.1
+        for name, shape, block in DROPOUT_CASES:
+            x = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+            sets = [(torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16),)
+                    for _ in range(n_sets(4 * x.numel()))]
+            if block is None:        # a tree before the offsets has only these
+                digests[name] = {"out": sha12(torch, DO.dropout(x, seed, rate))}
+                ms[name] = time_ms(torch, lambda x_: DO.dropout(x_, seed, rate), sets,
+                                   iters=200)
+            del sets
+        return digests, ms
     if kernel == "int8_fwd":
         from simlingo_tpu_torch.kernels import quantized_matmul as QM
         for index, (name, K, N, M, sdt) in enumerate(int8_cases()):
@@ -1893,7 +1977,7 @@ def fwd_digests(torch, dev, kernel):
 # keeps each accumulator's order) and the attention forward's tiled path
 # (its loop keeps each row's order); none of the GEMV's, whose order of
 # the sum may change (its bits across calls are held in phase 2)
-MUST_EQUAL = {"fused_ce_fwd": ("train",),
+MUST_EQUAL = {"fused_ce_fwd": ("train",), "dropout": ("lora_x_896", "lora_h_4864"),
               "flash_attn_fwd": ("vit", "vit_train", "llm_prefill", "llm_train", "clip",
                                  "base_llm"),
               "flash_attn_bwd": ("llm_train", "vit_train", "clip", "base_llm"),
@@ -4066,6 +4150,10 @@ def run_path_phases(torch, dev, cases) -> int:
         if not ok or not compare_remat(train_stats, remat_stats[mode], mode):
             return 1
         torch.cuda.empty_cache()
+    ok, mesh_stats = mesh_training(torch, dev)
+    if not ok:
+        return 1
+    torch.cuda.empty_cache()
     smi = smi_line()
     ok, base_launches, base_by_dim = run_base_phases(torch, dev, smi)
     if not ok:
@@ -4078,7 +4166,7 @@ def run_path_phases(torch, dev, cases) -> int:
     for name, st in (("agent", stats), ("train", train_stats), ("train_gated", gated_stats),
                      ("train_int8", int8_stats),
                      *((f"train_remat_{m}", st) for m, st in remat_stats.items()),
-                     ("train_disk", disk_stats),
+                     ("mesh_training", mesh_stats), ("train_disk", disk_stats),
                      ("carla_plugin", eval_stats["carla_plugin"]),
                      ("eval_language", eval_stats["eval_language"])):
         with open(os.path.join(ROOT, "chiprun_out", f"chip_smoke_{name}.json"), "w") as f:
@@ -4087,6 +4175,7 @@ def run_path_phases(torch, dev, cases) -> int:
                 "serve_int4": stats["int4"]["launches"], "train": train_stats["launches"],
                 "train_gated": gated_stats["launches"], "train_int8": int8_stats["launches"],
                 **{f"train_remat_{m}": st["launches"] for m, st in remat_stats.items()},
+                **{run: st["launches"] for run, st in mesh_stats["runs"].items()},
                 **base_launches, "train_disk": disk_stats["launches"],
                 "carla_plugin": eval_stats["carla_plugin"]["launches"],
                 "eval_language": eval_stats["eval_language"]["launches"]}
@@ -4096,6 +4185,499 @@ def run_path_phases(torch, dev, cases) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+# ---------------------------------------------------------------------------
+# multi-GPU training: the dp x fsdp x tp mesh (`mesh_training`)
+# ---------------------------------------------------------------------------
+
+# (run, (dp, fsdp, tp), batch a data rank, gated, control): internvl2_1b(
+# lora=True), remat off, dropout on, seed 0; a global batch of 6 in every run
+MESH_RUNS = (("mesh_dp2", (2, 1, 1), 3, False, "halves"),
+             ("mesh_fsdp2", (1, 2, 1), 3, False, "halves"),
+             ("mesh_tp2", (1, 1, 2), 6, True, "tp"))
+MESH_STEPS = 3
+MESH_TIMEOUT = 420          # seconds the ranks may take for the three runs, spawn to exit
+# A run is held to its control, the one-process step that makes the run's
+# reductions (`control_step`), within MESH_MULT times the control's own
+# difference from the one-process trainer: the size of the rounding those
+# reductions change, measured in the same call on the same data
+MESH_MULT = 4.0
+
+
+def mesh_cfg(batch, shape=(1, 1, 1)):
+    import dataclasses
+    from simlingo_tpu_torch.core import presets
+    from simlingo_tpu_torch.core.config import compose
+    d, f, t = shape
+    cfg = compose([f"max_steps={MESH_STEPS}", f"data.batch_size={batch}",
+                   "data.max_text_len=768", "seed=0", "output_dir=", "log_every_n_steps=1",
+                   f"mesh.dp={d}", f"mesh.fsdp={f}", f"mesh.tp={t}"])
+    cfg.model = dataclasses.replace(presets.internvl2_1b(lora=True), remat_vision=False,
+                                    remat_llm=False)
+    return cfg
+
+
+class _TPOfOne:
+    """The mesh `forward_loss` is given by the `tp` control: a tp group of
+    one rank (its collectives the identity), so that the model takes its
+    tp code paths, every split linear through `layers.tp_params`."""
+    batch_size = 1
+
+    def __init__(self):
+        from simlingo_tpu_torch.parallel.mesh import Comm
+        self.tp = Comm()
+
+
+class _HalfTP:
+    """Rank `rank` of a tp group of 2 whose reduction the caller makes
+    (`tp2_products`): the identity here."""
+    size = 2
+
+    def __init__(self, rank):
+        self.rank = rank
+
+    def all_reduce(self, x):
+        return x
+
+
+@contextlib.contextmanager
+def tp2_products(torch):
+    """The model, given `_TPOfOne`, with each tp-split product cut as tp = 2
+    cuts it, in one process. A row-parallel linear (o, down, fc2, the
+    projector's fc2) is two bf16 partials over the halves of its input
+    features, each with its LoRA delta where it has one (A's columns of
+    the half, dropout placed as the rank places it), summed in bf16, then
+    the bias, as `row_finish` adds it. A column-parallel one (q, k, v,
+    gate, up, fc1, the projector's fc1) is the two halves of its output
+    features, each a product of its own, so its input's gradient sums two
+    partials."""
+    import torch.nn.functional as F
+    from simlingo_tpu_torch.models import layers as L
+    from simlingo_tpu_torch.models import qwen2 as Q
+    tp_params, linear = L.tp_params, L.linear
+    lora_linear, mlp_block = Q._linear_maybe_lora, Q._mlp_block
+
+    def split_params(p, role, tp):
+        q = tp_params(p, role, tp)
+        return dict(q, tp2_role=role) if tp is not None and tp.size == 1 else q
+
+    def split_linear(p, x):
+        if "tp2_role" not in p:
+            return linear(p, x)
+        if "w_q" in p:
+            raise ValueError("the tp control runs bf16 weights only")
+        w = p["w"].to(x.dtype)
+        if p["tp2_role"] == "row":
+            h = w.shape[1] // 2
+            return (F.linear(x[..., :h].contiguous(), w[:, :h].contiguous())
+                    + F.linear(x[..., h:].contiguous(), w[:, h:].contiguous()))
+        n = w.shape[0] // 2
+        b = p["b"].to(x.dtype) if "b" in p else None
+        return torch.cat([F.linear(x, w[:n], None if b is None else b[:n]),
+                          F.linear(x, w[n:], None if b is None else b[n:])], -1)
+
+    def finish(parts, p):
+        y = parts[0] + parts[1]
+        return y + p["b"].to(y.dtype) if "b" in p else y
+
+    def split_lora_linear(p, lora, x, cfg, seed=None, tp=None, role="column", row0=0):
+        if tp is None or tp.size != 1 or role != "row":
+            return lora_linear(p, lora, x, cfg, seed, tp, role, row0)
+        h = x.shape[-1] // 2
+        return finish([lora_linear({"w": p["w"][:, i * h:(i + 1) * h]}, lora,
+                                   x[..., i * h:(i + 1) * h].contiguous(), cfg, seed,
+                                   _HalfTP(i), "row", row0) for i in range(2)], p)
+
+    def split_mlp_block(p, lora, x, cfg, seeds=None, tp=None, row0=0):
+        down = lora.get("down") if lora else None
+        if (tp is None or tp.size != 1 or down is None or seeds is None
+                or cfg.lora_dropout <= 0):
+            return mlp_block(p, lora, x, cfg, seeds, tp, row0)
+        # the fused SwiGLU LoRA path of `qwen2._mlp_block`, a rank's half each
+        x = L.tp_copy(x, tp)
+        xg, xu = (split_lora_linear(p[n], lora.get(n), x, cfg, seeds[n], tp, "column", row0)
+                  for n in ("gate", "up"))
+        h = xg.shape[-1] // 2
+        a, b = down["a"].to(x.dtype), down["b"].to(x.dtype)
+        parts = []
+        for i in range(2):
+            half, tpi = slice(i * h, (i + 1) * h), _HalfTP(i)
+            g, u = xg[..., half].contiguous(), xu[..., half].contiguous()
+            y = F.linear(F.silu(g) * u, p["down"]["w"][:, half].contiguous().to(g.dtype))
+            parts.append(y + (cfg.lora_alpha / cfg.lora_r) * Q._LoraDropDeltaGLU.apply(
+                g, u, L.tp_slice(a, 1, tpi), b, seeds["down"], cfg.lora_dropout,
+                Q._drop_block(g, row0, tpi, "row")))
+        return finish(parts, p["down"])
+
+    L.tp_params, L.linear = split_params, split_linear
+    Q._linear_maybe_lora, Q._mlp_block = split_lora_linear, split_mlp_block
+    try:
+        yield
+    finally:
+        L.tp_params, L.linear = tp_params, linear
+        Q._linear_maybe_lora, Q._mlp_block = lora_linear, mlp_block
+
+
+def control_step(torch, state, ex, seed, model_cfg, opt_cfg, control):
+    """One training step of a MESH_RUNS control in one process; returns its
+    metrics. "halves": the batch as two accumulated halves, each
+    loss average divided by the whole batch's count and the two losses
+    summed in fp32 (what a dp = 2 or fsdp = 2 step computes); "tp": the
+    whole batch through `tp2_products`."""
+    from simlingo_tpu_torch.models import simlingo
+    from simlingo_tpu_torch.parallel import mesh as M
+    from simlingo_tpu_torch.train import train_step as ts
+    bf16 = torch.bfloat16
+    for group in state.optimizer.param_groups:
+        group["lr"] = ts.onecycle_schedule(opt_cfg)(state.step)
+    state.optimizer.zero_grad(set_to_none=True)
+    if control == "tp":
+        with tp2_products(torch):
+            out, _ = simlingo.forward_loss(ts.cast_for_compute(state.params, bf16), ex,
+                                           model_cfg, dropout_seed=seed, compute_dtype=bf16,
+                                           mesh=_TPOfOne())
+            out.loss.backward()
+        loss = out.loss.detach().float()
+    else:
+        with torch.no_grad():
+            whole, _ = simlingo.forward_loss(ts.cast_for_compute(state.params, bf16), ex,
+                                             model_cfg, dropout_seed=seed, compute_dtype=bf16)
+        counts = torch.stack([whole.loss_counts[k].float() for k in whole.loss_averages])
+        del whole
+        loss = 0.0
+        rows = ex.driving_input.prompt.ids.shape[0] // 2
+        for h in range(2):
+            part = M.put_batch(ex, M.Mesh(2, 1, 1, rank=h))
+            out, _ = simlingo.forward_loss(ts.cast_for_compute(state.params, bf16), part,
+                                           model_cfg, dropout_seed=seed, compute_dtype=bf16,
+                                           batch_offset=rows * h, count_reduce=lambda c: counts)
+            out.loss.backward()
+            loss = loss + out.loss.detach().float()
+    grads = []
+    for x in state.trainable.values():
+        if x.grad is None:
+            x.grad = torch.zeros_like(x)
+        grads.append(x.grad)
+    norm = ts.clip_by_global_norm_(grads, opt_cfg.grad_clip)
+    state.optimizer.step()
+    state.step += 1
+    return {"loss": float(loss), "grad_norm": float(norm)}
+
+
+def mesh_reference(torch, dev, gated=False, control=None, want_p0=False):
+    """A one-process run at global batch 6, seed 0: the trainer, or with
+    `control` ("halves", "tp") the same steps through `control_step`:
+    (per-step records, trainable leaves after the last step, and the
+    initial ones where `want_p0`), the leaves fp32 on the host."""
+    from simlingo_tpu_torch.data.synthetic import synthetic_example
+    from simlingo_tpu_torch.models import simlingo
+    from simlingo_tpu_torch.train import train_step as ts
+    from simlingo_tpu_torch.train import trainer
+    with gates_set(gated):
+        cfg = mesh_cfg(6)
+        m = cfg.model
+        params = simlingo.init_params(m, torch.Generator(device=dev).manual_seed(cfg.seed),
+                                      device=dev)
+        p0 = ({p: x.detach().to("cpu", torch.float32, copy=True)
+               for p, x in ts.flatten(params).items() if ts.production_trainable(p)}
+              if want_p0 else None)
+        if control:
+            state = ts.init_train_state(params, cfg.optimizer)
+            del params
+            ex = synthetic_example(m, batch=6, seq_len=cfg.data.max_text_len, num_patches=2,
+                                   device=dev)
+            recs = [control_step(torch, state, ex, trainer.step_seed(cfg.seed, i), m,
+                                 cfg.optimizer, control) for i in range(MESH_STEPS)]
+        else:
+            res = trainer.train(cfg, make_synthetic=True, params=params, device=dev)
+            del params
+            state, recs = res["state"], res["records"]
+            del res
+        p3 = {p: x.detach().float().cpu() for p, x in state.trainable.items()}
+    del state
+    torch.cuda.empty_cache()
+    return recs, p3, p0
+
+
+def _update_err(p3, ref, p0):
+    """||p3 - ref|| / ||ref - p0|| over every trainable element."""
+    num = sum(float((p3[p] - ref[p]).double().square().sum()) for p in ref)
+    den = sum(float((ref[p] - p0[p]).double().square().sum()) for p in ref)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def mesh_rank() -> int:
+    """One rank of the mesh runs (a child of `mesh_training`; its place
+    from torchrun's variables): the trainer on each MESH_RUNS mesh in turn,
+    then the run's statistics (and, on the primary, the trainable leaves
+    gathered) into SIMLINGO_MESH_WORK. NCCL where every rank has a GPU of
+    its own, else gloo, named to `initialize` (NCCL refuses two ranks on
+    one GPU); over NCCL the trainer runs under torch.profiler, which times
+    the collectives' kernels."""
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from simlingo_tpu_torch.parallel import mesh as M
+    from simlingo_tpu_torch.parallel import multihost
+    from simlingo_tpu_torch.train import trainer
+    work = os.environ["SIMLINGO_MESH_WORK"]
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world, gpus = int(os.environ["WORLD_SIZE"]), torch.cuda.device_count()
+    backend = "nccl" if world <= gpus else "gloo"
+    multihost.initialize(device="cuda", backend=backend)
+    rank = multihost.rank()
+    if rank == 0:
+        print(f"{world} ranks on {gpus} GPU(s): backend {backend}"
+              f"{' (the ranks share a GPU)' if backend == 'gloo' else ''}", flush=True)
+    kernels = kernel_fns()
+    for run, shape, batch, gated, _ in MESH_RUNS:
+        for fn in kernels.values():
+            fn.launches = 0
+        with gates_set(gated):
+            cfg = mesh_cfg(batch, shape)
+            torch.cuda.reset_peak_memory_stats()
+            prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                    if backend == "nccl" else contextlib.nullcontext())
+            with prof:
+                t0 = time.perf_counter()
+                res = trainer.train(cfg, make_synthetic=True, device=dev)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        nccl_ms = None
+        if backend == "nccl":
+            nccl_ms = sum(max(getattr(e, "self_device_time_total", 0), 0)
+                          for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA and "nccl" in e.key.lower()) / 1e3
+        state = res["state"]
+        mesh = state.mesh
+        stats = dict(run=run, rank=rank, coords=mesh.coords, backend=dist.get_backend(),
+                     staged=mesh.staged, device=torch.cuda.current_device(), train_s=wall,
+                     records=res["records"], peak_bytes=torch.cuda.max_memory_allocated(),
+                     launches={k: fn.launches for k, fn in kernels.items()},
+                     comm=mesh.comm_stats(), nccl_device_ms=nccl_ms)
+        p3 = {p: M.gather_leaf(x.detach(), state.layouts[p], mesh).float().cpu()
+              for p, x in state.trainable.items()}
+        if rank == 0:
+            torch.save(p3, os.path.join(work, f"{run}_p3.pt"))
+        with open(os.path.join(work, f"{run}_rank{rank}.json"), "w") as f:
+            json.dump(stats, f)
+        del res, state, mesh, p3
+        torch.cuda.empty_cache()
+        multihost.sync_hosts()
+    multihost.shutdown()
+    return 0
+
+
+def spawn_mesh_ranks(work, world=2):
+    """Start `world` ranks (`chip_smoke.py --mesh-rank`), join them within
+    MESH_TIMEOUT, kill their process groups on the way out; returns (ok,
+    the ranks' logs' tails)."""
+    import signal
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    procs, logs = [], []
+    for r in range(world):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK=str(r),
+                   SIMLINGO_MESH_WORK=work)
+        path = os.path.join(ROOT, "chiprun_out", f"chip_smoke_mesh_rank{r}.log")
+        logs.append(path)
+        with open(path, "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--mesh-rank"],
+                cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT,
+                start_new_session=True))
+    deadline = time.monotonic() + MESH_TIMEOUT
+    timed_out = False
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+    except subprocess.TimeoutExpired:
+        timed_out = True
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    tails = []
+    for r, (p, path) in enumerate(zip(procs, logs)):
+        with open(path) as f:
+            tails.append(f"--- mesh rank {r}: exit {p.returncode} ---\n" + f.read()[-4000:])
+    ok = not timed_out and all(p.returncode == 0 for p in procs)
+    if timed_out:
+        log(f"[mesh] FAIL: the ranks outlasted {MESH_TIMEOUT} s and were killed")
+    return ok, tails
+
+
+def nccl_world_one(torch, dev):
+    """multihost.initialize at world 1 over NCCL (explicit coordinator) and
+    one all-reduce: the NCCL path runs on any machine."""
+    import socket
+    import torch.distributed as dist
+    from simlingo_tpu_torch.parallel import multihost
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    t0 = time.perf_counter()
+    started = multihost.initialize(f"127.0.0.1:{port}", 1, 0, device="cuda")
+    backend = dist.get_backend()
+    x = torch.arange(4, dtype=torch.float32, device=dev)
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    ok = started and backend == "nccl" and x.tolist() == [0.0, 1.0, 2.0, 3.0]
+    multihost.shutdown()
+    log(f"[mesh] world-1 init over {backend}: all-reduce {x.tolist()} in "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms (init included) {'OK' if ok else 'FAIL'}")
+    return ok
+
+
+def _differences(recs, p3, ref_recs, ref_p3, p0):
+    """Step 1's |loss| and |grad norm| differences and, after the last
+    step, ||p3 - ref|| / ||ref - p0|| over the trainable leaves."""
+    return {"loss": abs(recs[0]["loss"] - ref_recs[0]["loss"]),
+            "grad_norm": abs(recs[0]["grad_norm"] - ref_recs[0]["grad_norm"]),
+            "update": _update_err(p3, ref_p3, p0)}
+
+
+def mesh_training(torch, dev):
+    """The phase `mesh_training`: the world-1 NCCL init; the one-process
+    runs (the trainer ungated and gated, the `halves` and `tp` controls);
+    then each MESH_RUNS run on 2 ranks (one a GPU over NCCL where there
+    are 2 GPUs, else both on this one over gloo, each collective staged
+    through host memory), held to its control: step 1's loss and grad
+    norm, and the trainable leaves after step MESH_STEPS (||run - control||
+    / ||control - init||), each within MESH_MULT x the control's own
+    difference from the trainer (`_differences`); every rank's attention,
+    dropout (and, gated, norm and CE) launches held to
+    `train_launches_per_step` exactly. The 2 ranks run the three runs in
+    turn in one spawn. Returns (ok, stats)."""
+    import shutil
+    import tempfile
+    ok = nccl_world_one(torch, dev)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref, ref_p3, p0 = mesh_reference(torch, dev, want_p0=True)
+    gref, gref_p3, _ = mesh_reference(torch, dev, gated=True)
+    plain = {False: (ref, ref_p3), True: (gref, gref_p3)}
+    controls, base = {}, {}
+    for control, gated in (("halves", False), ("tp", True)):
+        recs, p3, _ = mesh_reference(torch, dev, gated=gated, control=control)
+        controls[control] = (recs, p3, gated)
+        base[control] = _differences(recs, p3, *plain[gated], p0)
+    log(f"[mesh] one-process runs (global batch 6, {MESH_STEPS} steps) in "
+        f"{time.perf_counter() - t0:.1f} s: the trainer: loss {[r['loss'] for r in ref]} "
+        f"grad_norm {[r['grad_norm'] for r in ref]}; gated: loss {[r['loss'] for r in gref]} "
+        f"grad_norm {[r['grad_norm'] for r in gref]}")
+    for control, (recs, _, gated) in controls.items():
+        b = base[control]
+        log(f"[mesh] control {control}{' (gated)' if gated else ''}: loss "
+            f"{[r['loss'] for r in recs]} grad_norm {[r['grad_norm'] for r in recs]}; its "
+            f"difference from the trainer{' (gated)' if gated else ''}: step-1 loss "
+            f"{b['loss']:.3e}, grad norm {b['grad_norm']:.3e}, leaves after step "
+            f"{MESH_STEPS} {b['update']:.3e} of the update")
+    world = 2
+    gpus = torch.cuda.device_count()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="mesh_training_", dir=os.path.join(ROOT, "build"))
+    stats = {"references": dict(loss=[r["loss"] for r in ref],
+                                grad_norm=[r["grad_norm"] for r in ref],
+                                gated_loss=[r["loss"] for r in gref],
+                                gated_grad_norm=[r["grad_norm"] for r in gref],
+                                **{f"{c}_loss": [r["loss"] for r in v[0]]
+                                   for c, v in controls.items()},
+                                **{f"{c}_grad_norm": [r["grad_norm"] for r in v[0]]
+                                   for c, v in controls.items()},
+                                control_difference=base),
+             "runs": {}}
+    try:
+        t1 = time.perf_counter()
+        good, tails = spawn_mesh_ranks(work, world)
+        stats["ranks_wall_s"] = time.perf_counter() - t1
+        if not good:
+            for t in tails:
+                log(t)
+            log("[mesh] FAIL: a rank failed")
+            return False, stats
+        log(f"[mesh] {world} ranks ran the {len(MESH_RUNS)} runs in {stats['ranks_wall_s']:.1f} s "
+            f"(spawn to exit; logs chiprun_out/chip_smoke_mesh_rank*.log)")
+        for run, shape, batch, gated, control in MESH_RUNS:
+            ranks = []
+            for r in range(world):
+                with open(os.path.join(work, f"{run}_rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            p3 = torch.load(os.path.join(work, f"{run}_p3.pt"), weights_only=True)
+            recs = ranks[0]["records"]
+            got = _differences(recs, p3, *controls[control][:2], p0)
+            to_plain = _differences(recs, p3, *plain[gated], p0)
+            tol = {k: MESH_MULT * base[control][k] for k in got}
+            within = {k: got[k] <= tol[k] for k in got}
+            same = all([(x["loss"], x["grad_norm"]) for x in r["records"]]
+                       == [(x["loss"], x["grad_norm"]) for x in recs] for r in ranks)
+            per_step = train_launches_per_step(mesh_cfg(batch).model)
+            if gated:
+                per_step = dict(per_step, **GATED_PER_STEP)
+            exact = {k: all(r["launches"][k] == n * MESH_STEPS for r in ranks)
+                     for k, n in per_step.items()}
+            good = all(within.values()) and same and all(exact.values())
+            ok &= good
+            ms = [r["ms"] for r in recs[1:]]
+            mean_ms = sum(ms) / len(ms)
+            comm = {r["rank"]: {g: dict(calls=c["calls"] / MESH_STEPS,
+                                        mbytes=c["bytes"] / MESH_STEPS / 1e6,
+                                        ms=c["ms"] / MESH_STEPS)
+                                for g, c in r["comm"].items() if c["calls"]}
+                    for r in ranks}
+            nccl_ms = {r["rank"]: r["nccl_device_ms"] / MESH_STEPS for r in ranks
+                       if r["nccl_device_ms"] is not None}
+            log(f"[{run}] mesh dp x fsdp x tp = {shape} on {world} ranks "
+                f"({'one GPU each' if gpus >= world else 'sharing GPU 0'}), backend "
+                f"{ranks[0]['backend']}{', collectives staged through host memory' if ranks[0]['staged'] else ''}; "
+                f"batch {batch} a data rank (global 6), gated={gated}; the trainer "
+                f"{ranks[0]['train_s']:.1f} s (init and {MESH_STEPS} steps)")
+            log(f"[{run}] loss {[r['loss'] for r in recs]} grad_norm "
+                f"{[r['grad_norm'] for r in recs]}; every rank the same metrics: {same}")
+            for k in got:
+                log(f"[{run}] {k}: |mesh - control {control}| {got[k]:.3e} vs tolerance "
+                    f"{tol[k]:.3e} ({MESH_MULT} x the control's difference from the trainer "
+                    f"{base[control][k]:.3e}) {'OK' if within[k] else 'FAIL'}; |mesh - the "
+                    f"trainer| {to_plain[k]:.3e}")
+            log(f"[{run}] ms/step (mean of steps 2-{MESH_STEPS}) {mean_ms:.2f}"
+                f"{' (ranks share one GPU: not a scaling figure)' if gpus < world else ''}; "
+                f"peak GiB per rank {[round(r['peak_bytes'] / 2 ** 30, 2) for r in ranks]}")
+            for r, c in comm.items():
+                if r in nccl_ms:
+                    log(f"[{run}] rank {r} collectives a step: " + ", ".join(
+                        f"{g} {v['calls']:.0f} calls {v['mbytes']:.1f} MB" for g, v in c.items())
+                        + f"; NCCL kernels {nccl_ms[r]:.2f} device ms a step (torch.profiler, "
+                        f"the {MESH_STEPS} steps profiled)")
+                else:
+                    log(f"[{run}] rank {r} collectives a step (staged: host ms, device "
+                        f"synchronised around each): " + ", ".join(
+                            f"{g} {v['calls']:.0f} calls {v['mbytes']:.1f} MB {v['ms']:.1f} ms"
+                            for g, v in c.items()))
+            for r in ranks:
+                log(f"[{run}] rank {r['rank']} hand-kernel launches over {MESH_STEPS} steps: "
+                    f"{ {k: v for k, v in r['launches'].items() if v} }")
+            log(f"[{run}] launches a step a rank against train_launches_per_step "
+                f"{per_step}: {'OK' if all(exact.values()) else 'FAIL ' + str(exact)}")
+            stats["runs"][run] = dict(shape=shape, batch=batch, gated=gated, control=control,
+                                      ranks=ranks, differences=got, tolerance=tol,
+                                      differences_from_trainer=to_plain,
+                                      nccl_device_ms_per_step=nccl_ms,
+                                      within=within, mean_step_ms=mean_ms, comm_per_step=comm,
+                                      launches={k: sum(r["launches"][k] for r in ranks)
+                                                for k in ranks[0]["launches"]})
+            if not good:
+                return False, stats
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return ok, stats
 
 
 # ---------------------------------------------------------------------------
@@ -4129,6 +4711,9 @@ def main() -> int:
     ap.add_argument("--disk", action="store_true",
                     help="build, then run the disk-training phase (7) and, in its "
                          "workspace, the plugin (8) and the evaluation (9) only")
+    ap.add_argument("--mesh", action="store_true",
+                    help="build, then run the multi-GPU training phase (mesh_training) only")
+    ap.add_argument("--mesh-rank", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--parent", metavar="DIR",
                     help="also hold the fused CE forward's and the tiled attention "
                          "forward's bits equal to those of the source tree at DIR (e.g. "
@@ -4140,6 +4725,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 2
+    if args.mesh_rank:              # one rank of mesh_training, which built the kernels
+        return mesh_rank()
     from simlingo_tpu_torch.kernels import _build
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4164,6 +4751,13 @@ def main() -> int:
             ok, _, _ = run_base_phases(torch, dev, smi_line(), tuple(args.base or BASE_CELLS))
         log(f"[base] phases 3 (SimLingo-Base) and 6 {'OK' if ok else 'FAILED'} on {smi_line()}")
         return 0 if ok else 1
+    if args.mesh:
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        ok, st = mesh_training(torch, dev)
+        with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_mesh_training.json"), "w") as f:
+            json.dump(dict(st, nvidia_smi=smi_line()), f, indent=1)
+        log(f"[mesh] phase mesh_training {'OK' if ok else 'FAILED'} on {smi_line()}")
+        return 0 if ok else 1
     if args.disk:
         ok, st, after = disk_and_eval_phases(torch, dev)
         os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -4187,7 +4781,8 @@ def main() -> int:
         return 1
     if args.parent:
         checked = set(args.kernels or KERNEL_CHECKS)
-        for check, kernel in (("fused_ce", "fused_ce_fwd"), ("flash_attn_fwd", "flash_attn_fwd"),
+        for check, kernel in (("dropout", "dropout"),
+                              ("fused_ce", "fused_ce_fwd"), ("flash_attn_fwd", "flash_attn_fwd"),
                               ("flash_attn_bwd", "flash_attn_bwd"),
                               ("int8_matmul", "int8_fwd"), ("norms", "norms")):
             if check in checked and not compare_fwd(args.parent, kernel):

@@ -8,8 +8,9 @@ the chip_smoke.py beside this script (`fwd_digests`), and prints one line
 {case: ms}, "build": the directory of the tree's built libraries}`. Two trees whose digests agree on one card compute the same
 bits. KERNEL is flash_attn_fwd (every attention case), flash_attn_bwd
 (every attention backward case; both at the head dims the tree builds),
-fused_ce_fwd (the training shape), int8_fwd (the int8 GEMV's M = 1 cases)
-or norms (every phase-2 norm case, forward and backward apart). The tree
+fused_ce_fwd (the training shape), int8_fwd (the int8 GEMV's M = 1 cases),
+norms (every phase-2 norm case, forward and backward apart) or dropout
+(phase 2's zero-offset cases). The tree
 is the current directory:
 
     git archive <parent> | tar -x -C build/parent

@@ -16,7 +16,13 @@ Counterpart of `simlingo_tpu/core/checkpoint.py` (`save_checkpoint` :45,
     collection runs after a blocking save, and before an async one once
     the previous write has finished (never on a partial directory);
   * the data order needs no state: the sampler is a pure function of
-    (seed, step), so the step alone resumes it (data/sampler.py).
+    (seed, step), so the step alone resumes it (data/sampler.py);
+  * a state of a multi-GPU mesh (`state.mesh`) saves the same format: the
+    shards of every leaf and AdamW moment are gathered (a collective every
+    rank calls) and only the primary writes, as JAX writes its run
+    artifacts on the primary (`trainer.py:294-301`); restore reads the
+    whole tree on every rank and keeps the rank's shards, so a run saved
+    on N ranks resumes on M.
 
 `load_hf_checkpoint` reads a `.bin` / `.pt` with `torch.load(weights_only=
 True)` and a `.safetensors` with `read_safetensors`, the port's own reader
@@ -34,6 +40,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from simlingo_tpu_torch.parallel import mesh as meshlib
+from simlingo_tpu_torch.parallel import multihost
 from simlingo_tpu_torch.train.train_step import flatten
 
 _writer: Optional[threading.Thread] = None
@@ -52,8 +60,30 @@ def wait_for_checkpoints() -> None:
         raise err
 
 
-def _host_copy(state) -> Dict[str, Any]:
-    """The state's tensors on the host (a synchronous device-to-host copy)."""
+def _param_paths(state):
+    """The optimizer's parameter index -> the leaf's path."""
+    paths = {id(x): p for p, x in flatten(state.params).items()}
+    return [paths[id(x)] for g in state.optimizer.param_groups for x in g["params"]]
+
+
+def _host_copy(state) -> Optional[Dict[str, Any]]:
+    """The state's tensors on the host (a synchronous device-to-host copy);
+    of a mesh, the whole tree gathered (collective; None off the primary)."""
+    mesh = getattr(state, "mesh", None)
+    if mesh is not None:
+        lays = state.layouts
+        params = {p: meshlib.gather_leaf(x.detach(), lays[p], mesh).cpu()
+                  for p, x in flatten(state.params).items()}
+        opt = state.optimizer.state_dict()
+        for i, path in enumerate(_param_paths(state)):
+            entry = opt["state"].get(i, {})
+            for k in ("exp_avg", "exp_avg_sq"):
+                if k in entry:
+                    entry[k] = meshlib.gather_leaf(entry[k], lays[path], mesh).cpu()
+        if not multihost.is_primary():
+            return None
+        return {"params": params, "optimizer": opt, "step": int(state.step)}
+
     def cpu(x):
         if isinstance(x, torch.Tensor):
             return x.detach().to("cpu", copy=True)
@@ -95,12 +125,21 @@ def save_checkpoint(ckpt_dir: str, state, step: int, keep: Optional[int] = None,
     global _writer
     path = os.path.abspath(os.path.join(ckpt_dir, f"step_{step:08d}"))
     wait_for_checkpoints()
-    if os.path.isdir(path):          # periodic and final saves collide
-        if keep is not None:         # an async save prunes before it writes
+    primary = multihost.is_primary()
+    exists = os.path.isdir(path) if primary else False
+    mesh = getattr(state, "mesh", None)
+    if mesh is not None:             # the primary's view decides on every rank
+        flag = torch.tensor([float(exists)], device=next(iter(flatten(state.params).values())).device)
+        exists = bool(mesh.comm["world"].all_reduce(flag).item())
+    if exists:                       # periodic and final saves collide
+        if keep is not None and primary:   # an async save prunes before it writes
             _gc_checkpoints(ckpt_dir, keep)
         return path
-    os.makedirs(ckpt_dir, exist_ok=True)
+    if primary:
+        os.makedirs(ckpt_dir, exist_ok=True)
     host = _host_copy(state)
+    if host is None:                 # a mesh's other ranks: the primary writes
+        return path
     if block:
         _write(path, host)
         if keep is not None:
@@ -136,24 +175,34 @@ def restore_checkpoint(path: str, state):
     into the existing tensors, so their devices and dtypes stay) and return
     it. Raises on a missing, extra or differently shaped leaf. A state whose
     `optimizer` is None takes the parameters and the step only (evaluation:
-    a template of the trained leaves' dtypes)."""
+    a template of the trained leaves' dtypes). A mesh's state takes its
+    rank's shards of the whole tree."""
     saved = torch.load(os.path.join(path, "params.pt"), map_location="cpu",
                        weights_only=True)
     leaves = flatten(state.params)
+    mesh, lays = getattr(state, "mesh", None), getattr(state, "layouts", None)
     if set(saved) != set(leaves):
         raise ValueError(f"checkpoint {path}: leaves differ from the state's: "
                          f"missing {sorted(set(leaves) - set(saved))[:4]}, "
                          f"extra {sorted(set(saved) - set(leaves))[:4]}")
     with torch.no_grad():
         for p, x in leaves.items():
-            if saved[p].shape != x.shape or saved[p].dtype != x.dtype:
+            shape = lays[p].shape if mesh is not None else tuple(x.shape)
+            if tuple(saved[p].shape) != shape or saved[p].dtype != x.dtype:
                 raise ValueError(f"checkpoint {path}: {p} is {saved[p].dtype} "
                                  f"{tuple(saved[p].shape)}, the state's {x.dtype} "
-                                 f"{tuple(x.shape)}")
-            x.copy_(saved[p])
+                                 f"{shape}")
+            x.copy_(saved[p] if mesh is None else meshlib.shard_leaf(saved[p], lays[p], mesh))
     if state.optimizer is not None:
-        state.optimizer.load_state_dict(torch.load(
-            os.path.join(path, "optimizer.pt"), map_location="cpu", weights_only=True))
+        opt = torch.load(os.path.join(path, "optimizer.pt"), map_location="cpu",
+                         weights_only=True)
+        if mesh is not None:
+            for i, p in enumerate(_param_paths(state)):
+                entry = opt["state"].get(i, {})
+                for k in ("exp_avg", "exp_avg_sq"):
+                    if k in entry:
+                        entry[k] = meshlib.shard_leaf(entry[k], lays[p], mesh)
+        state.optimizer.load_state_dict(opt)
     with open(os.path.join(path, "meta.json")) as f:
         state.step = int(json.load(f)["step"])
     return state

@@ -12,13 +12,15 @@ both towers, no LoRA, the exact GELU; `configs/simlingo.yaml` has no
 trains the model that `train.py` trains. `model.remat_vision` and
 `model.remat_llm` compose as JAX's do (a string onto the bool default is
 read as a bool, so "mlp" is set from code, as `bench.py` sets it). One
-difference from JAX: an unknown key raises KeyError. The port runs on one
-device: `MeshConfig` values that mean more than one
-(`check_single_device`) are refused by the trainer.
+difference from JAX: an unknown key raises KeyError. `MeshConfig`'s dp,
+fsdp and tp lay the trainer's ranks out (`parallel/mesh.py`; dp -1 fills
+the processes); sp and pp above 1 are refused (`check_supported`,
+ROADMAP A13b).
 `BaseTrainConfig` holds the fields of `TrainConfig` that `train_base.py`
 reads for SimLingo-Base, with the same defaults (its model is
-`SimLingoBaseConfig()`); `compose_base` composes it as `train_base.py:40`
-composes `TrainConfig` (defaults <- experiment <- overrides).
+`SimLingoBaseConfig()`, its mesh dp x fsdp); `compose_base` composes it
+as `train_base.py:40` composes `TrainConfig` (defaults <- experiment <-
+overrides).
 """
 
 from __future__ import annotations
@@ -43,13 +45,13 @@ class MeshConfig:
     pp: int = 1
     pp_microbatches: int = 0
 
-    def check_single_device(self) -> None:
-        """The port trains on one device (multi-device training: ROADMAP A13)."""
-        bad = {k: v for k, v in dataclasses.asdict(self).items()
-               if k != "pp_microbatches" and v != 1 and (k, v) != ("dp", -1)}
+    def check_supported(self) -> None:
+        """The port lays ranks out over dp, fsdp and tp; sequence (sp) and
+        pipeline (pp) parallelism are ROADMAP A13b."""
+        bad = {k: v for k, v in (("sp", self.sp), ("pp", self.pp)) if v != 1}
         if bad:
-            raise ValueError(f"mesh {bad}: the port trains on one device "
-                             "(dp -1 or 1, every other axis 1)")
+            raise ValueError(f"mesh {bad}: sequence and pipeline parallelism are not "
+                             "ported yet (ROADMAP A13b); use dp, fsdp and tp")
 
 
 @dataclasses.dataclass
@@ -101,6 +103,7 @@ class BaseTrainConfig:
     max_steps: int = -1                # <= 0: 100 steps
     log_every_n_steps: int = 50
     precision: str = "bf16"            # compute dtype (fp32 masters)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     model: SimLingoBaseConfig = dataclasses.field(default_factory=SimLingoBaseConfig)
     optimizer: OptimizerConfig = dataclasses.field(default_factory=OptimizerConfig)

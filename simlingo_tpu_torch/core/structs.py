@@ -10,7 +10,7 @@ infos): the training step does not read it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -72,16 +72,28 @@ class TrainingOutput:
     loss_counts: Dict[str, torch.Tensor]    # {} -> [] int32
 
 
-def summarise_losses(loss_values: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+def summarise_losses(loss_values: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
+                     count_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
                      ) -> TrainingOutput:
     """{key: (values, count mask)} -> TrainingOutput: each key's average is
     sum(values * mask) / max(sum(mask), 1); the total loss is the
-    unweighted sum of the per-key averages."""
+    unweighted sum of the per-key averages.
+
+    `count_reduce` takes this batch's counts (a float32 vector in key order)
+    to the global batch's: a rank of a multi-GPU step holds part of the
+    batch, and its averages are its share of the global averages (their
+    sum over the ranks), so a step over dp ranks equals the one-process
+    step whatever rows each rank holds. The counts returned are the
+    global ones."""
+    masks = {k: m.to(v.dtype) for k, (v, m) in loss_values.items()}
+    ns = {k: m.sum() for k, m in masks.items()}
+    if count_reduce is not None and ns:
+        total = count_reduce(torch.stack([n.detach().float() for n in ns.values()]))
+        ns = {k: t.to(ns[k].dtype) for k, t in zip(ns, total.unbind())}
     averages, counts = {}, {}
-    for key, (values, count_mask) in loss_values.items():
-        count_mask = count_mask.to(values.dtype)
-        n = count_mask.sum()
-        averages[key] = (values * count_mask).sum() / torch.clamp(n, min=1.0)
+    for key, (values, _) in loss_values.items():
+        n = ns[key]
+        averages[key] = (values * masks[key]).sum() / torch.clamp(n, min=1.0)
         counts[key] = n.to(torch.int32)
     loss = sum(averages.values()) if averages else torch.zeros(())
     return TrainingOutput(loss=loss, loss_averages=averages, loss_counts=counts)

@@ -11,6 +11,16 @@
 // kernels/dropout.py:dropout_plain computes the identical Philox in int64
 // torch arithmetic: the two agree bit for bit.
 //
+// A rank of a multi-GPU step draws the one-process mask restricted to its
+// block (dropout_block_kernel, entry simlingo_dropout_block): element i of
+// the local [rows, cols] tensor takes the index base + i (its batch rows
+// start at flat index base), or, strided, (row0 + i / cols) * width + col0
+// + i % cols (its columns are a slice of a row-parallel linear's input).
+// The wrapper keeps each thread's 8 elements at a multiple of 4 of the
+// index (cols % 8, col0 % 4, width % 4 == 0 where strided; base % 4 == 0).
+// dropout_kernel, the one-process layout, is a kernel of its own, so that
+// its code, bits and time stay those it had before the blocks.
+//
 // What bounds it: bytes -- one read and one write of 2 B per element (17.1
 // MB for a [6,798,896] call, 93 MB for [6,798,4864]). Philox costs ~10
 // integer multiply rounds per 4 elements, far below the ALU rate. Design:
@@ -81,7 +91,75 @@ dropout_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ 
   }
 }
 
+template <bool kStrided>
+__global__ void __launch_bounds__(256)
+dropout_block_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out,
+                     long long n, uint32_t k0, uint32_t k1, uint32_t thresh, float inv_keep,
+                     long long base, unsigned groups_per_row, long long col0,
+                     long long width) {
+  const long long groups = n / 8;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long gi = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+       gi < groups; gi += stride) {
+    const uint4 raw = reinterpret_cast<const uint4*>(x)[gi];
+    const __nv_bfloat16* xv = reinterpret_cast<const __nv_bfloat16*>(&raw);
+    unsigned long long idx;                 // the index of this thread's first element
+    if (kStrided) {                         // base is row0 here
+      const unsigned g = static_cast<unsigned>(gi);
+      const unsigned r = g / groups_per_row;
+      idx = static_cast<unsigned long long>(base + r) * width + col0
+            + static_cast<unsigned long long>(g - r * groups_per_row) * 8;
+    } else {
+      idx = static_cast<unsigned long long>(base) + static_cast<unsigned long long>(gi) * 8;
+    }
+    const U4 r0 = draw(idx >> 2, k0, k1);
+    const U4 r1 = draw((idx >> 2) + 1, k0, k1);
+    const uint32_t bits[8] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
+    uint4 res;
+    __nv_bfloat16* ov = reinterpret_cast<__nv_bfloat16*>(&res);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) ov[j] = apply(xv[j], bits[j], thresh, inv_keep);
+    reinterpret_cast<uint4*>(out)[gi] = res;
+  }
+  // ragged tail (not strided: cols % 8 == 0 leaves none there)
+  const long long i = groups * 8 + blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (!kStrided && blockIdx.x == 0 && i < n) {
+    const unsigned long long g = static_cast<unsigned long long>(base + i);
+    const U4 r = draw(g >> 2, k0, k1);
+    out[i] = apply(x[i], lane_of(r, static_cast<int>(g & 3)), thresh, inv_keep);
+  }
+}
+
+long long grid_for(long long n, int threads) {
+  long long blocks = (n / 8 + threads - 1) / threads;
+  if (blocks < 1) blocks = 1;
+  if (blocks > 132 * 16) blocks = 132 * 16;      // grid-stride: 16 blocks per SM
+  return blocks;
+}
+
 }  // namespace
+
+// The block layouts: a, b, c are the flat base where not strided (b, c
+// unused), row0, col0 and width where strided.
+extern "C" int simlingo_dropout_block(const void* x, void* out, long long n, uint32_t k0,
+                                      uint32_t k1, uint32_t thresh, float inv_keep,
+                                      long long cols, long long a, long long b, long long c,
+                                      int strided, void* stream) {
+  const int threads = 256;
+  const auto blocks = static_cast<unsigned>(grid_for(n, threads));
+  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (strided) {
+    if (cols % 8 || n / 8 > 0xFFFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+    dropout_block_kernel<true><<<blocks, threads, 0, s>>>(
+        xp, op, n, k0, k1, thresh, inv_keep, a, static_cast<unsigned>(cols / 8), b, c);
+  } else {
+    dropout_block_kernel<false><<<blocks, threads, 0, s>>>(
+        xp, op, n, k0, k1, thresh, inv_keep, a, 0u, 0, 0);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int simlingo_dropout(const void* x, void* out, long long n, uint32_t k0,
                                 uint32_t k1, uint32_t thresh, float inv_keep,

@@ -15,7 +15,17 @@ stream differs from the TPU's and from JAX's CPU path (threefry); what
 carries over is the contract: the keep rate, the scaling, one mask per
 seed, and a backward that regenerates the forward's mask from the seed.
 
-On a CUDA tensor `dropout` launches `csrc/dropout.cu`; on a CPU tensor it
+A rank of a multi-GPU step holds a block of the tensor that one process
+would hold: its batch rows (dp, fsdp) and, for a row-parallel linear's
+input, its columns (tp). `block=(row0, col0, width)` places the local
+tensor, viewed as [rows, cols] with cols its last dimension, at row row0
+and column col0 of a [*, width] whole, and element i takes the index
+(row0 + i // cols) * width + col0 + i % cols: each rank draws the
+one-process mask restricted to its block. With no block (or (0, 0,
+cols)) the index is i and the mask keeps its bits.
+
+On a CUDA tensor `dropout` launches `csrc/dropout.cu` (`dropout_kernel`,
+or `dropout_block_kernel` for a block); on a CPU tensor it
 runs `dropout_plain`, which computes the same Philox in int64 torch
 arithmetic, so kernel and plain version give bit-identical results.
 """
@@ -73,9 +83,20 @@ def philox4x32(counter, key):
     return c0, c1, c2, c3
 
 
-def keep_mask(numel: int, seed: int, rate: float, device="cpu") -> torch.Tensor:
-    """[numel] bool: which flat elements the seed keeps."""
+def global_index(numel: int, cols: int, block=None, device="cpu") -> torch.Tensor:
+    """[numel] int64: each local element's index in the whole tensor."""
     idx = torch.arange(numel, dtype=torch.int64, device=device)
+    if block is None:
+        return idx
+    row0, col0, width = block
+    return (row0 + idx // cols) * width + col0 + idx % cols
+
+
+def keep_mask(numel: int, seed: int, rate: float, device="cpu", block=None,
+              cols: int = 1) -> torch.Tensor:
+    """[numel] bool: which flat elements the seed keeps (of a local block of
+    `cols` columns placed by `block`, module docstring)."""
+    idx = global_index(numel, cols, block, device)
     ctr = idx >> 2
     zero = torch.zeros_like(ctr)
     words = philox4x32((ctr & _MASK32, ctr >> 32, zero, zero), _split_seed(seed))
@@ -85,21 +106,50 @@ def keep_mask(numel: int, seed: int, rate: float, device="cpu") -> torch.Tensor:
     return bits >= threshold(rate)
 
 
-def dropout_plain(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+def dropout_plain(x: torch.Tensor, seed: int, rate: float, block=None) -> torch.Tensor:
     """The plain version: the same mask and arithmetic as the kernel."""
-    keep = keep_mask(x.numel(), seed, rate, x.device).view(x.shape)
+    cols = x.shape[-1] if x.dim() else 1
+    keep = keep_mask(x.numel(), seed, rate, x.device, block, cols).view(x.shape)
     # inv_keep is float32-exact, so the fp32 product equals the kernel's
     return (x.float() * inv_keep(rate)).to(x.dtype).masked_fill(~keep, 0)
 
 
-def dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
-    """x * mask(seed) / (1 - rate); no autograd (see `hw_dropout`)."""
+def _normal_block(block, cols: int):
+    """None where the block is the identity placement."""
+    if block is None or tuple(block) == (0, 0, cols):
+        return None
+    return tuple(int(v) for v in block)
+
+
+def dropout(x: torch.Tensor, seed: int, rate: float, block=None) -> torch.Tensor:
+    """x * mask(seed) / (1 - rate); no autograd (see `hw_dropout`).
+    `block`: where x lies in the whole tensor (module docstring)."""
+    block = _normal_block(block, x.shape[-1] if x.dim() else 1)
     if x.device.type == "cpu":
-        return dropout_plain(x, seed, rate)
-    return _dropout_cuda(x, seed, rate)
+        return dropout_plain(x, seed, rate, block)
+    return _dropout_cuda(x, seed, rate, block)
 
 
-def _dropout_cuda(x, seed, rate):
+def _kernel_placement(cols: int, block):
+    """The block kernel's (a, b, c, strided): element i's index is a + i
+    (strided 0), or (a + i // cols) * c + b + i % cols (strided 1: a, b, c
+    = row0, col0, width). Each thread's 8 elements must start at a
+    multiple of 4 of the index (one Philox block a 4), which these checks
+    keep."""
+    row0, col0, width = block
+    if row0 < 0 or col0 < 0 or col0 + cols > width:
+        raise ValueError(f"dropout block {block} does not hold {cols} columns")
+    if col0 == 0 and width == cols:
+        if (row0 * width) % 4:
+            raise ValueError(f"dropout kernel: row offset x width {row0 * width} % 4 != 0")
+        return row0 * width, 0, 0, 0
+    if cols % 8 or col0 % 4 or width % 4:
+        raise ValueError(f"dropout kernel: a column block needs cols % 8 == 0 and col0, "
+                         f"width % 4 == 0 (cols {cols}, block {block})")
+    return row0, col0, width, 1
+
+
+def _dropout_cuda(x, seed, rate, block=None):
     if x.dtype != torch.bfloat16:
         raise TypeError(f"dropout kernel takes bf16, got {x.dtype}")
     if not 0.0 <= rate < 1.0:
@@ -110,10 +160,16 @@ def _dropout_cuda(x, seed, rate):
     if n == 0:
         return out
     k0, k1 = _split_seed(seed)
-    rc = _lib().simlingo_dropout(
-        x.data_ptr(), out.data_ptr(), n, k0, k1, threshold(rate),
-        ctypes.c_float(inv_keep(rate)),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    lib = _lib()
+    if block is None:                # the one-process layout: its own kernel
+        rc = lib.simlingo_dropout(x.data_ptr(), out.data_ptr(), n, k0, k1, threshold(rate),
+                                  ctypes.c_float(inv_keep(rate)), stream)
+    else:
+        cols = x.shape[-1]
+        rc = lib.simlingo_dropout_block(
+            x.data_ptr(), out.data_ptr(), n, k0, k1, threshold(rate),
+            ctypes.c_float(inv_keep(rate)), cols, *_kernel_placement(cols, block), stream)
     _build.check(rc, "dropout")
     dropout.launches += 1
     return out
@@ -127,25 +183,26 @@ class _HWDropout(torch.autograd.Function):
     to the gradient, regenerated from the seed (no mask is stored)."""
 
     @staticmethod
-    def forward(ctx, x, seed: int, rate: float):
-        ctx.seed, ctx.rate = seed, rate
-        return dropout(x, seed, rate)
+    def forward(ctx, x, seed: int, rate: float, block=None):
+        ctx.seed, ctx.rate, ctx.block = seed, rate, block
+        return dropout(x, seed, rate, block)
 
     @staticmethod
     def backward(ctx, g):
-        return dropout(g, ctx.seed, ctx.rate), None, None
+        return dropout(g, ctx.seed, ctx.rate, ctx.block), None, None, None
 
 
-def hw_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
-    return _HWDropout.apply(x, seed, rate)
+def hw_dropout(x: torch.Tensor, seed: int, rate: float, block=None) -> torch.Tensor:
+    return _HWDropout.apply(x, seed, rate, block)
 
 
 def _lib():
     lib = _build.load("dropout")
-    fn = lib.simlingo_dropout
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
-                       ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    if lib.simlingo_dropout.argtypes is None:
+        head = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint32,
+                ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float]
+        lib.simlingo_dropout.argtypes = head + [ctypes.c_void_p]
+        lib.simlingo_dropout_block.argtypes = head + [ctypes.c_longlong] * 4 + [
+            ctypes.c_int, ctypes.c_void_p]
+        lib.simlingo_dropout.restype = lib.simlingo_dropout_block.restype = ctypes.c_int
     return lib

@@ -6,6 +6,16 @@ JAX key names, but linear weights are stored torch-style [out, in]
 at apply time; norms compute in fp32 and cast back. With
 SIMLINGO_LN_IMPL=pallas (`core/gates.py`) the norms run the fused kernels
 of `kernels/layernorm.py`, as `simlingo_tpu/models/layers.py:90-110` does.
+
+Tensor parallelism (`parallel/mesh.py`; no JAX counterpart, where XLA
+partitions the same products): `tp` is the tp group's `Comm`, or None to
+run unsplit. A column-parallel linear takes a replicated input, passed
+once through `tp_copy` (identity forward, gradient all-reduced over tp),
+and gives this rank's output features; a row-parallel linear takes this
+rank's input features, all-reduces its partial output (`tp_reduce`) and
+then adds the bias. `tp_params` cuts what is stored replicated to the
+rank's slice: a quantized weight (JAX's rules keep it unsplit) and a
+column-parallel bias that is not stored split.
 """
 
 from __future__ import annotations
@@ -106,6 +116,90 @@ def embed(p: Params, ids: torch.Tensor, dtype=None) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Tensor parallelism
+# ---------------------------------------------------------------------------
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.all_reduce(g.contiguous().clone()), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp.all_reduce(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def tp_copy(x: torch.Tensor, tp) -> torch.Tensor:
+    """The replicated input of column-parallel linears."""
+    return x if tp is None else _CopyToTP.apply(x, tp)
+
+
+def tp_reduce(x: torch.Tensor, tp) -> torch.Tensor:
+    """A row-parallel partial output summed over tp."""
+    return x if tp is None else _ReduceFromTP.apply(x, tp)
+
+
+def tp_slice(x: torch.Tensor, dim: int, tp) -> torch.Tensor:
+    """This tp rank's 1/tp of `dim` (a view)."""
+    n = x.shape[dim] // tp.size
+    return x.narrow(dim, tp.rank * n, n)
+
+
+def tp_params(p: Params, role: str, tp) -> Params:
+    """A linear's parameters as this tp rank uses them: role "column"
+    (output features split) or "row" (input features split; the bias is
+    left out, `row_linear` adds it after the reduction)."""
+    if tp is None:
+        return p
+    q = dict(p)
+    if "w_q" in p:                       # stored replicated
+        if role == "column":
+            q["w_q"], q["scale"] = tp_slice(p["w_q"], 0, tp), tp_slice(p["scale"], 0, tp)
+        elif p["scale"].dim() == 2:
+            raise ValueError("an int4 weight does not split over tp along its input")
+        else:
+            q["w_q"] = tp_slice(p["w_q"], 1, tp).contiguous()
+        n_out = q["w_q"].shape[0]
+    else:
+        n_out = p["w"].shape[0]
+    if role == "row":
+        q.pop("b", None)
+    elif "b" in p and p["b"].shape[0] != n_out:
+        q["b"] = tp_slice(p["b"], 0, tp)
+    return q
+
+
+def column_linear(p: Params, x: torch.Tensor, tp) -> torch.Tensor:
+    """x (replicated, through `tp_copy`) -> this rank's output features."""
+    return linear(tp_params(p, "column", tp), x)
+
+
+def row_finish(y: torch.Tensor, p: Params, tp) -> torch.Tensor:
+    """A row-parallel linear's partial output -> the whole output: summed
+    over tp, then the bias of `p`."""
+    y = tp_reduce(y, tp)
+    return y + p["b"].to(y.dtype) if "b" in p else y
+
+
+def row_linear(p: Params, x: torch.Tensor, tp) -> torch.Tensor:
+    """x (this rank's input features) -> the whole output."""
+    if tp is None:
+        return linear(p, x)
+    return row_finish(linear(tp_params(p, "row", tp), x), p, tp)
+
+
+# ---------------------------------------------------------------------------
 # Norms (fp32 internals)
 # ---------------------------------------------------------------------------
 
@@ -134,21 +228,25 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def gelu_mlp(p: Params, x: torch.Tensor, approximate: bool = False,
-             recompute_gelu: bool = False) -> torch.Tensor:
-    """fc1 -> GELU (erf; tanh form if approximate) -> fc2.
+             recompute_gelu: bool = False, tp=None) -> torch.Tensor:
+    """fc1 -> GELU (erf; tanh form if approximate) -> fc2; under `tp` fc1
+    column-parallel and fc2 row-parallel.
 
     `recompute_gelu` (the ViT's remat="mlp") keeps the pre-GELU hidden for
     the backward but not the GELU's output, which the backward recomputes
     from it for fc2's weight gradient: JAX's
     `save_anything_except_these_names("mlp_gelu_out")`
     (`simlingo_tpu/models/layers.py:132-145`). Neither product re-runs."""
-    h = linear(p["fc1"], x)
+    h = column_linear(p["fc1"], tp_copy(x, tp), tp)
     approx = "tanh" if approximate else "none"
+    fc2 = tp_params(p["fc2"], "row", tp)
     if recompute_gelu and torch.is_grad_enabled():
-        b = p["fc2"].get("b")
-        return _GeluLinear.apply(h, p["fc2"]["w"].to(h.dtype),
-                                 None if b is None else b.to(h.dtype), approx)
-    return linear(p["fc2"], F.gelu(h, approximate=approx))
+        b = fc2.get("b")
+        y = _GeluLinear.apply(h, fc2["w"].to(h.dtype), None if b is None else b.to(h.dtype),
+                              approx)
+    else:
+        y = linear(fc2, F.gelu(h, approximate=approx))
+    return y if tp is None else row_finish(y, p["fc2"], tp)
 
 
 class _GeluLinear(torch.autograd.Function):

@@ -14,6 +14,17 @@ forwards again, and draws the same masks, since the seeds are host ints
 lever (`SIMLINGO_LORA_FUSED`, off in JAX) and the stacked / pipeline layer
 layouts are not ported.
 
+Tensor parallelism (`tp`, `models/layers.py`): at tp = t each rank holds
+num_heads / t query heads and num_kv_heads / t kv heads (GQA groups
+kept whole; q, k, v column-parallel, o row-parallel) and
+intermediate_size / t of the SwiGLU (gate, up column, down row). A LoRA
+adapter of a column-parallel linear uses the rank's rows of B, one of a
+row-parallel linear the rank's columns of A; its delta joins the partial
+output before the reduction. Dropout masks are placed in the whole
+tensor (`kernels/dropout.py` blocks): the rank's batch rows
+(`batch_offset`) and, at a row-parallel input, its columns, so every
+rank draws the one-process mask of its block.
+
 Architecture constants (Qwen2-0.5B-Instruct inside InternVL2-1B): hidden
 896, 24 layers, 14 query heads / 2 kv heads, head_dim 64, intermediate
 4864, RMSNorm eps 1e-6, rope_theta 1e6, SwiGLU, qkv bias, tied embeddings.
@@ -144,21 +155,22 @@ def _lora_grads(xl, a, b, g):
 class _LoraDropDelta(torch.autograd.Function):
     """(dropout(x) A^T) B^T (`qwen2.py:_lora_drop_delta` :149). The only
     tensor saved is x itself; the backward regenerates the mask from the
-    seed and applies it to the gradient of the dropped input."""
+    seed and applies it to the gradient of the dropped input. `block`
+    places x in the whole tensor (`kernels/dropout.py`)."""
 
     @staticmethod
-    def forward(ctx, x, a, b, seed: int, rate: float):
+    def forward(ctx, x, a, b, seed: int, rate: float, block=None):
         ctx.save_for_backward(x, a, b)
-        ctx.seed, ctx.rate = seed, rate
-        return F.linear(F.linear(dropout(x, seed, rate), a), b)
+        ctx.seed, ctx.rate, ctx.block = seed, rate, block
+        return F.linear(F.linear(dropout(x, seed, rate, block), a), b)
 
     @staticmethod
     def backward(ctx, g):
         x, a, b = ctx.saved_tensors
-        xl = dropout(x, ctx.seed, ctx.rate)               # regenerated
+        xl = dropout(x, ctx.seed, ctx.rate, ctx.block)    # regenerated
         da, db, gb = _lora_grads(xl, a, b, g)
-        dx = dropout(gb @ a, ctx.seed, ctx.rate)          # mask and scale are linear
-        return dx, da, db, None, None
+        dx = dropout(gb @ a, ctx.seed, ctx.rate, ctx.block)   # mask and scale are linear
+        return dx, da, db, None, None, None
 
 
 class _LoraDropDeltaGLU(torch.autograd.Function):
@@ -167,11 +179,11 @@ class _LoraDropDeltaGLU(torch.autograd.Function):
     product is recomputed in the backward from xg and xu, never saved."""
 
     @staticmethod
-    def forward(ctx, xg, xu, a, b, seed: int, rate: float):
+    def forward(ctx, xg, xu, a, b, seed: int, rate: float, block=None):
         ctx.save_for_backward(xg, xu, a, b)
-        ctx.seed, ctx.rate = seed, rate
+        ctx.seed, ctx.rate, ctx.block = seed, rate, block
         h = F.silu(xg) * xu
-        return F.linear(F.linear(dropout(h, seed, rate), a), b)
+        return F.linear(F.linear(dropout(h, seed, rate, block), a), b)
 
     @staticmethod
     def backward(ctx, g):
@@ -179,12 +191,12 @@ class _LoraDropDeltaGLU(torch.autograd.Function):
         xg32 = xg.float()
         sg = torch.sigmoid(xg32)
         s = (xg32 * sg).to(xg.dtype)                      # silu(xg)
-        xl = dropout(s * xu, ctx.seed, ctx.rate)
+        xl = dropout(s * xu, ctx.seed, ctx.rate, ctx.block)
         da, db, gb = _lora_grads(xl, a, b, g)
-        dh = dropout(gb @ a, ctx.seed, ctx.rate)
+        dh = dropout(gb @ a, ctx.seed, ctx.rate, ctx.block)
         # d silu(z)/dz = sigmoid(z) (1 + z (1 - sigmoid(z)))
         dsilu = (sg * (1 + xg32 * (1 - sg))).to(xg.dtype)
-        return dh * xu * dsilu, dh * s, da, db, None, None
+        return dh * xu * dsilu, dh * s, da, db, None, None, None
 
 
 def _splitmix64(z: int) -> int:
@@ -204,30 +216,51 @@ def layer_seeds(step_seed: int, layer_idx: int) -> Dict[str, int]:
             for j, name in enumerate(LORA_TARGETS)}
 
 
-def _linear_maybe_lora(p, lora, x, cfg: Qwen2Config, seed=None):
-    y = L.linear(p, x)
+def _drop_block(x: torch.Tensor, row0: int, tp, role: str):
+    """Where x lies in the one-process tensor: rows from row0, and at a
+    row-parallel input under tp, this rank's columns."""
+    cols = x.shape[-1]
+    if tp is not None and role == "row":
+        return (row0, tp.rank * cols, cols * tp.size)
+    return (row0, 0, cols)
+
+
+def _linear_maybe_lora(p, lora, x, cfg: Qwen2Config, seed=None, tp=None,
+                       role: str = "column", row0: int = 0):
+    """The base linear plus the LoRA delta. Under `tp`, `role` "column"
+    (x replicated; this rank's output features) or "row" (x this rank's
+    input features; the partial output all-reduced, then the bias)."""
+    y = L.linear(L.tp_params(p, role, tp), x)
     if lora is not None:
         scale = cfg.lora_alpha / cfg.lora_r
         a, b = lora["a"].to(x.dtype), lora["b"].to(x.dtype)
+        if tp is not None:
+            a, b = (a, L.tp_slice(b, 0, tp)) if role == "column" else (L.tp_slice(a, 1, tp), b)
         if seed is not None and cfg.lora_dropout > 0:
-            y = y + scale * _LoraDropDelta.apply(x, a, b, seed, cfg.lora_dropout)
+            y = y + scale * _LoraDropDelta.apply(x, a, b, seed, cfg.lora_dropout,
+                                                 _drop_block(x, row0, tp, role))
         else:
             y = y + scale * F.linear(F.linear(x, a), b)
-    return y
+    return L.row_finish(y, p, tp) if tp is not None and role == "row" else y
 
 
 def _attn_block(p, lora, x, cfg: Qwen2Config, cos, sin, kv_valid, causal,
-                cache=None, cache_index=None, seeds=None):
+                cache=None, cache_index=None, seeds=None, tp=None, row0=0):
     B, T, _ = x.shape
-    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    if tp is not None and cache is not None:
+        raise ValueError("the KV cache (serving) does not run under tp")
+    x = L.tp_copy(x, tp)
 
     def lr(name):
         return _linear_maybe_lora(p[name], lora.get(name) if lora else None,
-                                  x, cfg, seeds[name] if seeds else None)
+                                  x, cfg, seeds[name] if seeds else None, tp, "column", row0)
 
-    q = L.apply_rope(lr("q").view(B, T, nh, hd), cos, sin)
-    k = L.apply_rope(lr("k").view(B, T, nkv, hd), cos, sin)
-    v = lr("v").view(B, T, nkv, hd)
+    q, k, v = lr("q"), lr("k"), lr("v")
+    nh, nkv = q.shape[-1] // hd, k.shape[-1] // hd      # this rank's heads
+    q = L.apply_rope(q.view(B, T, nh, hd), cos, sin)
+    k = L.apply_rope(k.view(B, T, nkv, hd), cos, sin)
+    v = v.view(B, T, nkv, hd)
     if cache is not None:
         # The chunk's K/V are written into the preallocated cache IN PLACE
         # (JAX returns an updated copy via dynamic_update_slice); the chunk
@@ -244,30 +277,36 @@ def _attn_block(p, lora, x, cfg: Qwen2Config, cos, sin, kv_valid, causal,
         out = attention_autograd(q, k, v, kv_valid, causal=causal)
     return _linear_maybe_lora(p["o"], lora.get("o") if lora else None,
                               out.reshape(B, T, nh * hd), cfg,
-                              seeds["o"] if seeds else None)
+                              seeds["o"] if seeds else None, tp, "row", row0)
 
 
-def _mlp_block(p, lora, x, cfg: Qwen2Config, seeds=None):
-    def lr(name, inp):
+def _mlp_block(p, lora, x, cfg: Qwen2Config, seeds=None, tp=None, row0=0):
+    x = L.tp_copy(x, tp)
+
+    def lr(name, inp, role):
         return _linear_maybe_lora(p[name], lora.get(name) if lora else None,
-                                  inp, cfg, seeds[name] if seeds else None)
+                                  inp, cfg, seeds[name] if seeds else None, tp, role, row0)
 
     down = lora.get("down") if lora else None
     if down is not None and seeds is not None and cfg.lora_dropout > 0:
-        xg, xu = lr("gate", x), lr("up", x)
-        y = L.linear(p["down"], F.silu(xg) * xu)
-        return y + (cfg.lora_alpha / cfg.lora_r) * _LoraDropDeltaGLU.apply(
-            xg, xu, down["a"].to(x.dtype), down["b"].to(x.dtype),
-            seeds["down"], cfg.lora_dropout)
-    return lr("down", F.silu(lr("gate", x)) * lr("up", x))
+        xg, xu = lr("gate", x, "column"), lr("up", x, "column")
+        a, b = down["a"].to(x.dtype), down["b"].to(x.dtype)
+        if tp is not None:
+            a = L.tp_slice(a, 1, tp)
+        y = L.linear(L.tp_params(p["down"], "row", tp), F.silu(xg) * xu)
+        y = y + (cfg.lora_alpha / cfg.lora_r) * _LoraDropDeltaGLU.apply(
+            xg, xu, a, b, seeds["down"], cfg.lora_dropout, _drop_block(xg, row0, tp, "row"))
+        return y if tp is None else L.row_finish(y, p["down"], tp)
+    return lr("down", F.silu(lr("gate", x, "column")) * lr("up", x, "column"), "row")
 
 
 def _decoder_layer(lp, lo, x, cfg: Qwen2Config, cos, sin, kv_valid, causal,
-                   layer_cache, cache_index, seeds):
+                   layer_cache, cache_index, seeds, tp=None, row0=0):
     x = x + _attn_block(lp["attn"], lo, L.rmsnorm(lp["ln1"], x, cfg.rms_norm_eps),
-                        cfg, cos, sin, kv_valid, causal, layer_cache, cache_index, seeds)
+                        cfg, cos, sin, kv_valid, causal, layer_cache, cache_index, seeds,
+                        tp, row0)
     return x + _mlp_block(lp["mlp"], lo, L.rmsnorm(lp["ln2"], x, cfg.rms_norm_eps),
-                          cfg, seeds)
+                          cfg, seeds, tp, row0)
 
 
 def forward(params: Dict[str, Any], inputs_embeds: torch.Tensor,
@@ -276,7 +315,8 @@ def forward(params: Dict[str, Any], inputs_embeds: torch.Tensor,
             lora_params: Optional[Dict[str, Any]] = None,
             cache: Optional[Dict[str, Any]] = None,
             remat: bool = False,
-            dropout_seed: Optional[int] = None
+            dropout_seed: Optional[int] = None,
+            tp=None, batch_offset: int = 0
             ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Decoder stack on pre-built embeddings [B, T, H].
 
@@ -286,6 +326,8 @@ def forward(params: Dict[str, Any], inputs_embeds: torch.Tensor,
     remat: recompute each layer in the backward (no cache, autograd on).
     dropout_seed: the step's seed; with LoRA and lora_dropout > 0 every
     adapter's input is dropped out (training).
+    tp: the tp group or None; batch_offset: the first batch row of this
+    rank's rows in the one-process batch (dropout masks).
     """
     x = inputs_embeds
     inv_freq = L.rope_frequencies(cfg.head_dim, cfg.rope_theta, x.device)
@@ -293,6 +335,7 @@ def forward(params: Dict[str, Any], inputs_embeds: torch.Tensor,
     if kv_valid is not None:     # the kernel's mask type, made once for all layers
         kv_valid = kv_valid.to(torch.uint8).contiguous()
     cache_index = int(cache["index"]) if cache is not None else None
+    row0 = batch_offset * x.shape[1]
     for i in range(cfg.num_layers):
         lp = params["layers"][str(i)]
         lo = lora_params["layers"].get(str(i)) if lora_params else None
@@ -302,11 +345,11 @@ def forward(params: Dict[str, Any], inputs_embeds: torch.Tensor,
         if remat and cache is None and torch.is_grad_enabled():
             # the layer draws no torch random numbers: no RNG state to replay
             x = checkpoint(_decoder_layer, lp, lo, x, cfg, cos, sin, kv_valid, causal,
-                           None, None, seeds, use_reentrant=False,
+                           None, None, seeds, tp, row0, use_reentrant=False,
                            preserve_rng_state=False)
         else:
             x = _decoder_layer(lp, lo, x, cfg, cos, sin, kv_valid, causal,
-                               layer_cache, cache_index, seeds)
+                               layer_cache, cache_index, seeds, tp, row0)
     if cache is not None:
         cache = dict(cache, index=cache_index + inputs_embeds.shape[1])
     return L.rmsnorm(params["final_norm"], x, cfg.rms_norm_eps), cache

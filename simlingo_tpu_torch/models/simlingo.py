@@ -11,6 +11,11 @@ recomputed in the backward; `qwen2.forward`). They change when values
 are computed, not what: losses and gradients equal remat off's. They act
 only while autograd records, so serving and evaluation never recompute.
 `tiny()` turns both off, as JAX's does.
+
+On a dp x fsdp x tp mesh (`parallel/mesh.py`) `forward_loss(mesh=...)`
+runs this rank's part: its batch rows, the towers split over tp, dropout
+masks placed at its rows, and each loss average its share of the global
+batch's (`summarise_losses(count_reduce=...)`).
 """
 
 from __future__ import annotations
@@ -77,7 +82,7 @@ def init_params(cfg: SimLingoConfig, generator: torch.Generator,
 
 def build_text_embeddings(params: Dict[str, Any], label: LanguageLabel,
                           pixel_values: Optional[torch.Tensor],
-                          cfg: SimLingoConfig, dtype=None) -> torch.Tensor:
+                          cfg: SimLingoConfig, dtype=None, tp=None) -> torch.Tensor:
     """Token embeddings with waypoint + image features spliced in.
     pixel_values: [B, NP, H, W, 3] normalized, [B, H, W, 3] uint8 raw
     frames (preprocessed here), or None (text only)."""
@@ -103,7 +108,7 @@ def build_text_embeddings(params: Dict[str, Any], label: LanguageLabel,
         NP = pixel_values.shape[1]
         imgs = pixel_values.reshape((B * NP,) + tuple(pixel_values.shape[2:]))
         feats = vit.extract_features(params["vision"], imgs, cfg.vit,
-                                     remat=cfg.remat_vision)
+                                     remat=cfg.remat_vision, tp=tp)
         if cfg.freeze_vision:
             feats = feats.detach()
         n_img = NP * feats.shape[1]
@@ -122,10 +127,10 @@ def text_positions(label: LanguageLabel) -> torch.Tensor:
 
 
 def assemble_sequence(params, label: LanguageLabel, pixel_values,
-                      cfg: SimLingoConfig, dtype=None
+                      cfg: SimLingoConfig, dtype=None, tp=None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """[text | driving queries]: (embeds [B, T+Q, H], valid, position ids)."""
-    text = build_text_embeddings(params, label, pixel_values, cfg, dtype)
+    text = build_text_embeddings(params, label, pixel_values, cfg, dtype, tp)
     B = text.shape[0]
     queries = A.query_tokens(params["adaptors"], B, dtype=text.dtype)
     Q = queries.shape[1]
@@ -138,18 +143,29 @@ def assemble_sequence(params, label: LanguageLabel, pixel_values,
 
 def forward_loss(params: Dict[str, Any], example: DrivingExample,
                  cfg: SimLingoConfig, dropout_seed: Optional[int] = None,
-                 compute_dtype=torch.float32
+                 compute_dtype=torch.float32, mesh=None,
+                 batch_offset: Optional[int] = None, count_reduce=None
                  ) -> Tuple[TrainingOutput, Dict[str, torch.Tensor]]:
     """Training forward: language CE + route / speed smooth-L1 ->
-    (TrainingOutput, predictions). `dropout_seed` turns LoRA dropout on."""
+    (TrainingOutput, predictions). `dropout_seed` turns LoRA dropout on.
+    `mesh`: this rank's part of a multi-GPU step (module docstring), whose
+    rows start at batch row `batch_offset` of the global batch and whose
+    counts `count_reduce` makes global; both default to the mesh's."""
     di = example.driving_input
     label = di.prompt
+    tp = mesh.tp if mesh is not None else None
+    if mesh is not None and mesh.batch_size > 1:
+        if batch_offset is None:
+            batch_offset = mesh.batch_index * label.ids.shape[0]
+        if count_reduce is None:
+            count_reduce = mesh.comm["batch"].all_reduce
     embeds, valid, pos = assemble_sequence(params, label, di.pixel_values, cfg,
-                                           dtype=compute_dtype)
+                                           dtype=compute_dtype, tp=tp)
     T = label.ids.shape[1]
     hidden, _ = qwen2.forward(params["llm"], embeds, cfg.llm, pos, kv_valid=valid,
                               causal=True, lora_params=params.get("lora"),
-                              remat=cfg.remat_llm, dropout_seed=dropout_seed)
+                              remat=cfg.remat_llm, dropout_seed=dropout_seed, tp=tp,
+                              batch_offset=batch_offset or 0)
     text_h, query_h = hidden[:, :T], hidden[:, T:]
 
     def logits_fn(h):
@@ -176,4 +192,4 @@ def forward_loss(params: Dict[str, Any], example: DrivingExample,
     d_losses, preds = A.driving_loss(params["adaptors"], query_h, route_label,
                                      speed_label)
     losses.update(d_losses)
-    return summarise_losses(losses), preds
+    return summarise_losses(losses, count_reduce), preds

@@ -155,10 +155,12 @@ def forward(params, pixel_values: torch.Tensor, speed: torch.Tensor,
 
 
 def forward_loss(params, pixel_values, speed, target_points, waypoints_label,
-                 route_label, cfg: SimLingoBaseConfig
+                 route_label, cfg: SimLingoBaseConfig, count_reduce=None
                  ) -> Tuple[TrainingOutput, Dict[str, torch.Tensor]]:
+    """Route + speed-waypoint losses; `count_reduce` as
+    `summarise_losses`'s (a rank's share of a multi-GPU batch)."""
     hidden = _query_states(params, pixel_values, speed, target_points, cfg)
     losses, preds = A.driving_loss(params["adaptors"], hidden,
                                    route_label if cfg.predict_route_as_wps else None,
                                    waypoints_label[:, :A.NUM_SPEED_QUERIES])
-    return summarise_losses(losses), preds
+    return summarise_losses(losses, count_reduce), preds

@@ -23,6 +23,11 @@ Remat (`encode(..., remat)`, JAX's :186-208), only while autograd records:
   * "mlp": everything is kept except the GELU's output, which fc2's
     weight gradient recomputes from the kept pre-GELU hidden
     (`layers.gelu_mlp(recompute_gelu=True)`); nothing else re-runs.
+
+Tensor parallelism (`tp`, `models/layers.py`): each rank holds
+num_heads / tp heads (q, k, v column-parallel, o row-parallel) and
+intermediate_size / tp of the MLP (fc1 column, fc2 row); the projector's
+fc1 / fc2 likewise. The embeddings, norms and layer scales run replicated.
 """
 
 from __future__ import annotations
@@ -116,55 +121,60 @@ def _patchify(images: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
     return x.reshape(B, g * g, ps * ps * C)
 
 
-def _attention_out(p, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
-    """ln1 -> q, k, v (-> q/k norms) -> attention: [B, T, H]."""
+def _attention_out(p, x: torch.Tensor, cfg: ViTConfig, tp=None) -> torch.Tensor:
+    """ln1 -> q, k, v (-> q/k norms) -> attention: [B, T, H] (under tp,
+    this rank's heads: [B, T, H / tp])."""
     B, T, H = x.shape
-    nh = cfg.num_heads
-    hd = H // nh
-    h = L.layernorm(p["ln1"], x, cfg.layer_norm_eps)
-    q = L.linear(p["attn"]["q"], h)
-    k = L.linear(p["attn"]["k"], h)
-    v = L.linear(p["attn"]["v"], h)
+    hd = H // cfg.num_heads
+    h = L.tp_copy(L.layernorm(p["ln1"], x, cfg.layer_norm_eps), tp)
+    q = L.column_linear(p["attn"]["q"], h, tp)
+    k = L.column_linear(p["attn"]["k"], h, tp)
+    v = L.column_linear(p["attn"]["v"], h, tp)
+    nh = q.shape[-1] // hd
     if cfg.use_qk_norm:
+        if tp is not None:
+            raise ValueError("use_qk_norm normalises over all heads: not split over tp")
         q = L.rmsnorm(p["q_norm"], q, cfg.layer_norm_eps)
         k = L.rmsnorm(p["k_norm"], k, cfg.layer_norm_eps)
     a = attention_autograd(q.view(B, T, nh, hd), k.view(B, T, nh, hd),
                            v.view(B, T, nh, hd), None, causal=False,
                            scale=hd ** -0.5)
-    return a.reshape(B, T, H)
+    return a.reshape(B, T, nh * hd)
 
 
 def _after_attention(p, x: torch.Tensor, a: torch.Tensor, cfg: ViTConfig,
-                     recompute_gelu: bool = False) -> torch.Tensor:
+                     recompute_gelu: bool = False, tp=None) -> torch.Tensor:
     """o projection, layer-scaled residual, ln2 -> MLP, residual."""
-    a = L.linear(p["attn"]["o"], a)
+    a = L.row_linear(p["attn"]["o"], a, tp)
     x = x + p["ls1"].to(a.dtype) * a
     m = L.gelu_mlp(p["mlp"], L.layernorm(p["ln2"], x, cfg.layer_norm_eps),
-                   approximate=cfg.gelu_approximate, recompute_gelu=recompute_gelu)
+                   approximate=cfg.gelu_approximate, recompute_gelu=recompute_gelu, tp=tp)
     return x + p["ls2"].to(m.dtype) * m
 
 
-def _vit_layer(p, x: torch.Tensor, cfg: ViTConfig, remat=False) -> torch.Tensor:
+def _vit_layer(p, x: torch.Tensor, cfg: ViTConfig, remat=False, tp=None) -> torch.Tensor:
     if remat == "mlp":
-        return _after_attention(p, x, _attention_out(p, x, cfg), cfg, recompute_gelu=True)
+        return _after_attention(p, x, _attention_out(p, x, cfg, tp), cfg,
+                                recompute_gelu=True, tp=tp)
     if remat and torch.is_grad_enabled():
         # the regions draw no torch random numbers: no RNG state to replay
         kw = dict(use_reentrant=False, preserve_rng_state=False)
-        a = checkpoint(_attention_out, p, x, cfg, **kw)
-        return checkpoint(_after_attention, p, x, a, cfg, **kw)
-    return _after_attention(p, x, _attention_out(p, x, cfg), cfg)
+        a = checkpoint(_attention_out, p, x, cfg, tp, **kw)
+        return checkpoint(_after_attention, p, x, a, cfg, False, tp, **kw)
+    return _after_attention(p, x, _attention_out(p, x, cfg, tp), cfg, tp=tp)
 
 
-def encode(params, images: torch.Tensor, cfg: ViTConfig, remat=False) -> torch.Tensor:
+def encode(params, images: torch.Tensor, cfg: ViTConfig, remat=False, tp=None
+           ) -> torch.Tensor:
     """[B, H, W, 3] normalized images -> [B, T+1, hidden]. `remat`: False,
-    True or "mlp" (module docstring)."""
+    True or "mlp" (module docstring); `tp`: the tp group or None."""
     images = images.to(params["patch_embed"]["w"].dtype)
     x = L.linear(params["patch_embed"], _patchify(images, cfg))
     B = x.shape[0]
     cls = params["cls_token"].to(x.dtype).expand(B, 1, cfg.hidden_size)
     x = torch.cat([cls, x], dim=1) + params["pos_embed"].to(x.dtype)
     for i in range(cfg.num_layers):
-        x = _vit_layer(params["layers"][str(i)], x, cfg, remat)
+        x = _vit_layer(params["layers"][str(i)], x, cfg, remat, tp)
     return x
 
 
@@ -176,15 +186,15 @@ def pixel_shuffle(x: torch.Tensor, scale: float) -> torch.Tensor:
     return x.permute(0, 2, 1, 3)
 
 
-def extract_features(params, images: torch.Tensor, cfg: ViTConfig, remat=False
-                     ) -> torch.Tensor:
+def extract_features(params, images: torch.Tensor, cfg: ViTConfig, remat=False,
+                     tp=None) -> torch.Tensor:
     """ViT (with `remat`) -> drop CLS -> pixel shuffle -> mlp1 projector.
     [B, H, W, 3] -> [B, tokens_per_patch_image, llm_hidden]."""
-    feats = encode(params, images, cfg, remat=remat)[:, 1:]
+    feats = encode(params, images, cfg, remat=remat, tp=tp)[:, 1:]
     B, T, C = feats.shape
     g = cfg.grid
     feats = pixel_shuffle(feats.reshape(B, g, g, C), cfg.downsample_ratio)
     feats = feats.reshape(B, -1, feats.shape[-1])
-    h = L.layernorm(params["projector"]["ln"], feats, 1e-5)
-    h = F.gelu(L.linear(params["projector"]["fc1"], h))
-    return L.linear(params["projector"]["fc2"], h)
+    h = L.tp_copy(L.layernorm(params["projector"]["ln"], feats, 1e-5), tp)
+    h = F.gelu(L.column_linear(params["projector"]["fc1"], h, tp))
+    return L.row_linear(params["projector"]["fc2"], h, tp)

@@ -22,12 +22,16 @@ optax's AdamW moves them by those gradients and decays them by lr x
 weight_decay every step. The port does the same: they require grad, and a
 leaf whose gradient stays None would take zeros (and the decay) as in JAX.
 This is the reference's behaviour, kept, not a fault to fix here.
+
+Over dp x fsdp (`init_base_state(mesh=...)`; tp is refused, ROADMAP A13b)
+the state holds this rank's shards and the step runs as `train_step.py`'s
+sharded step, each group clipped by its own norm over every rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -51,9 +55,16 @@ class BaseTrainState:
     groups: Dict[str, List[torch.Tensor]]   # group -> its leaves
     optimizer: torch.optim.Optimizer        # one param group a group, in GROUPS order
     step: int = 0
+    mesh: Optional[Any] = None              # more than one rank: shards of each leaf
+    layouts: Optional[Dict[str, Any]] = None
 
 
-def init_base_state(params, opt_cfg: ts.OptimizerConfig) -> BaseTrainState:
+def init_base_state(params, opt_cfg: ts.OptimizerConfig, mesh=None) -> BaseTrainState:
+    """With a `mesh` of more than one rank, `params` is the full tree and
+    the state holds this rank's shards (dp x fsdp only)."""
+    if mesh is not None and mesh.shape["tp"] > 1:
+        raise ValueError("SimLingo-Base trains over dp and fsdp; its tp joins ROADMAP A13b")
+    params, lays = ts.shard_for_mesh(params, mesh)
     params = ts.map_leaves(lambda _, x: x.detach().requires_grad_(True), params)
     groups: Dict[str, List[torch.Tensor]] = {g: [] for g in GROUPS}
     for path, x in ts.flatten(params).items():
@@ -61,7 +72,8 @@ def init_base_state(params, opt_cfg: ts.OptimizerConfig) -> BaseTrainState:
     opt = torch.optim.AdamW([{"params": groups[g]} for g in GROUPS], lr=opt_cfg.lr,
                             betas=opt_cfg.betas, eps=1e-8,
                             weight_decay=opt_cfg.weight_decay)
-    return BaseTrainState(params=params, groups=groups, optimizer=opt)
+    return BaseTrainState(params=params, groups=groups, optimizer=opt,
+                          mesh=mesh if lays is not None else None, layouts=lays)
 
 
 def make_base_train_step(model_cfg: SimLingoBaseConfig, opt_cfg: ts.OptimizerConfig,
@@ -79,17 +91,38 @@ def make_base_train_step(model_cfg: SimLingoBaseConfig, opt_cfg: ts.OptimizerCon
         for name, group in zip(GROUPS, state.optimizer.param_groups):
             group["lr"] = schedules[name](state.step)
         state.optimizer.zero_grad(set_to_none=True)
-        out, _ = simlingo_base.forward_loss(ts.cast_for_compute(state.params, compute_dtype),
-                                            *batch, model_cfg)
-        out.loss.backward()
+        mesh = state.mesh
+        if mesh is None:
+            out, _ = simlingo_base.forward_loss(
+                ts.cast_for_compute(state.params, compute_dtype), *batch, model_cfg)
+            out.loss.backward()
+        else:
+            trainable = ts.flatten(state.params)
+            tree, leaves = ts.sharded_compute_tree(state.params, state.layouts, mesh,
+                                                   trainable, compute_dtype)
+            out, _ = simlingo_base.forward_loss(
+                tree, *batch, model_cfg,
+                count_reduce=mesh.comm["batch"].all_reduce if mesh.batch_size > 1 else None)
+            out.loss.backward()
+            del tree
+            reduced = ts.reduce_sharded_grads(leaves, state.layouts, mesh)
+            del leaves
+            for path, x in trainable.items():
+                x.grad = reduced[path]
         metrics = {k: v.detach() for k, v in out.loss_averages.items()}
         metrics["loss"] = out.loss.detach()
+        metrics = ts.reduce_metrics(metrics, mesh)
+        paths = {id(x): p for p, x in ts.flatten(state.params).items()}
         for name, leaves in state.groups.items():
             for x in leaves:
                 if x.grad is None:       # unused leaves: JAX differentiates to zeros
                     x.grad = torch.zeros_like(x)
+            counted = comm = None
+            if mesh is not None:
+                counted = [ts.norm_counted(state.layouts[paths[id(x)]], mesh) for x in leaves]
+                comm = mesh.comm["world"]
             metrics[f"grad_norm_{name}"] = ts.clip_by_global_norm_(
-                [x.grad for x in leaves], opt_cfg.grad_clip)
+                [x.grad for x in leaves], opt_cfg.grad_clip, counted, comm)
         state.optimizer.step()
         state.step += 1
         return metrics

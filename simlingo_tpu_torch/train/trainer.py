@@ -15,8 +15,19 @@ the same batches and dropout seeds as one run straight through: the
 picks and the per-step `RandomState(seed * 7919 + step)` depend on the
 step only, and the dropout seed is `step_seed(seed, step)`.
 
-Differences from JAX: the port runs on one device (`MeshConfig`); an
-empty `output_dir` writes nothing (no run directory, no checkpoint); the
+On several ranks (one process a rank, started by torchrun or SLURM:
+`parallel/multihost.py`) the trainer lays `cfg.mesh`'s dp x fsdp x tp over
+them (`parallel/mesh.py`), as `trainer.py:234-271, 330-346` does:
+`batch_size` is per rank of dp x fsdp (Lightning's per-GPU semantics), so
+the global batch is batch_size x dp x fsdp, and data rank r of n draws
+`sampler.batch_at(step, B n)[r B:(r + 1) B]` with augmentations from
+`RandomState(seed * 7919 + step * n + r)` (JAX's `make_batch`; tp ranks
+share their data rank's batch); the metrics, validation and grad norm are
+the global batch's; `config.json`, the logs and the printed summary come
+from the primary alone, and checkpoints are gathered there
+(`core/checkpoint.py`).
+
+Differences from JAX: an empty `output_dir` writes nothing (no run directory, no checkpoint); the
 model's `<IMG_CONTEXT>` id is taken from the tokenizer where they differ
 (the byte-level fallback tokenizer has its own ids); where a checkpoint
 lacks a subtree (a raw InternVL2 one has no driving adaptors), it keeps
@@ -25,13 +36,16 @@ the step's ms, its batch's host ms and the prefetch wait.
 
 `train_base` is the loop of `train_base.py` (SimLingo-Base): a fresh
 `base_batch` a step from `RandomState(seed)`, the two-group step of
-`train/base_step.py`, and a final checkpoint where `output_dir` is set.
+`train/base_step.py`, and a final checkpoint where `output_dir` is set;
+over dp x fsdp each rank draws the global batch of batch_size x dp x fsdp
+rows and keeps its own.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import threading
 import time
@@ -46,6 +60,8 @@ from simlingo_tpu_torch.core.config import BaseTrainConfig, TrainConfig, to_dict
 from simlingo_tpu_torch.core.device import resolve_device
 from simlingo_tpu_torch.data.synthetic import base_batch, synthetic_example
 from simlingo_tpu_torch.models import simlingo, simlingo_base
+from simlingo_tpu_torch.parallel import mesh as meshlib
+from simlingo_tpu_torch.parallel import multihost
 from simlingo_tpu_torch.train import base_step
 from simlingo_tpu_torch.train import train_step as ts
 
@@ -214,16 +230,25 @@ def build_buckets(cfg: TrainConfig):
 
 
 def _print_model_summary(state: ts.TrainState) -> None:
-    """Parameters and trainable parameters by tower."""
+    """Parameters and trainable parameters by tower (the whole model's)."""
+    def numel(p, x):
+        return math.prod(state.layouts[p].shape) if state.layouts else x.numel()
     print("model summary (params / trainable):", flush=True)
     total = total_t = 0
     for name, sub in sorted(state.params.items()):
         leaves = ts.flatten(sub, name + "/") if isinstance(sub, dict) else {name: sub}
-        n = sum(x.numel() for x in leaves.values())
-        n_t = sum(x.numel() for p, x in leaves.items() if p in state.trainable)
+        n = sum(numel(p, x) for p, x in leaves.items())
+        n_t = sum(numel(p, x) for p, x in leaves.items() if p in state.trainable)
         total, total_t = total + n, total_t + n_t
         print(f"  {name:<10s} {n / 1e6:9.2f} M  {n_t / 1e6:9.2f} M", flush=True)
     print(f"  {'total':<10s} {total / 1e6:9.2f} M  {total_t / 1e6:9.2f} M", flush=True)
+
+
+def _make_mesh(cfg, dev) -> "meshlib.Mesh":
+    """Join the job's processes (a no-op in one) and lay `cfg.mesh` over them."""
+    cfg.mesh.check_supported()
+    multihost.initialize(device=dev.type)
+    return meshlib.make_mesh(cfg.mesh.dp, cfg.mesh.fsdp, cfg.mesh.tp, device=dev)
 
 
 def _initial_params(cfg: TrainConfig, model_cfg, dev) -> Dict[str, Any]:
@@ -254,11 +279,18 @@ def train(cfg: TrainConfig, make_synthetic: bool = False,
     """Train to max_steps (<= 0: max_epochs of the sampler's epoch, or 100
     synthetic steps). Returns the state, the step function, the last
     batch, the per-step records ({step, ms, host_ms, wait_ms, loss,
-    grad_norm, ...}), the last logged metrics and total_steps."""
+    grad_norm, ...}), the last logged metrics and total_steps. On several
+    ranks `params` is the full tree (every rank's the same) and the state
+    returned holds this rank's shards."""
     dev = resolve_device(device)
-    cfg.mesh.check_single_device()
+    mesh = _make_mesh(cfg, dev)
+    primary = multihost.is_primary()
+    say = print if primary else (lambda *a, **k: None)
     np.random.seed(cfg.seed)
-    print(f"gates {gates.resolved()}", flush=True)
+    say(f"gates {gates.resolved()}", flush=True)
+    if mesh.world > 1:
+        say(f"mesh dp={mesh.shape['dp']} fsdp={mesh.shape['fsdp']} tp={mesh.shape['tp']} "
+            f"over {mesh.world} ranks", flush=True)
     compute_dtype = torch.bfloat16 if cfg.precision == "bf16" else torch.float32
     model_cfg = cfg.model
     tok = None
@@ -269,23 +301,25 @@ def train(cfg: TrainConfig, make_synthetic: bool = False,
             raise ValueError(f"tokenizer vocabulary {tok.tk.vocab_size} > the model's "
                              f"{model_cfg.llm.vocab_size}")
         if tok.img_context_id != model_cfg.img_context_token_id:
-            print(f"<IMG_CONTEXT> is id {tok.img_context_id} in the tokenizer "
+            say(f"<IMG_CONTEXT> is id {tok.img_context_id} in the tokenizer "
                   f"({model_cfg.img_context_token_id} in the config): using the "
                   f"tokenizer's", flush=True)
             model_cfg = dataclasses.replace(model_cfg, img_context_token_id=tok.img_context_id)
 
+    meshlib.check_tp(model_cfg, mesh.shape["tp"])
     if params is None:
         params = _initial_params(cfg, model_cfg, dev)
-    state = ts.init_train_state(params, cfg.optimizer, trainable_fn)
+    state = ts.init_train_state(params, cfg.optimizer, trainable_fn, mesh=mesh)
     del params
-    _print_model_summary(state)
+    if primary:
+        _print_model_summary(state)
     lr_schedule = ts.onecycle_schedule(cfg.optimizer)
     step_fn = ts.make_train_step(model_cfg, cfg.optimizer, compute_dtype, trainable_fn)
 
     run_dir = os.path.join(cfg.output_dir, cfg.name) if cfg.output_dir else None
     ckpt_dir = os.path.join(run_dir, "checkpoints") if run_dir else None
     logger = MultiLogger([])
-    if run_dir:
+    if run_dir and primary:
         os.makedirs(run_dir, exist_ok=True)
         with open(os.path.join(run_dir, "config.json"), "w") as f:
             json.dump(to_dict(cfg), f, indent=2, default=str)
@@ -298,13 +332,14 @@ def train(cfg: TrainConfig, make_synthetic: bool = False,
         if latest:
             ckpt.restore_checkpoint(latest, state)
             start_step = state.step
-            print(f"resumed from {latest} at step {start_step}", flush=True)
+            say(f"resumed from {latest} at step {start_step}", flush=True)
 
-    # ---- data ----
-    B = cfg.data.batch_size
+    # ---- data: this data rank's B rows of a global batch of B x nb ----
+    B, nb, bi = cfg.data.batch_size, mesh.batch_size, mesh.batch_index
     if make_synthetic:
-        synthetic = Batch(synthetic_example(model_cfg, batch=B, seq_len=cfg.data.max_text_len,
-                                            num_patches=2, device=dev), None, None, 0.0)
+        synthetic = Batch(meshlib.put_batch(synthetic_example(
+            model_cfg, batch=B * nb, seq_len=cfg.data.max_text_len, num_patches=2,
+            device=dev), mesh), None, None, 0.0)
 
         def make_batch(step):
             return synthetic
@@ -317,14 +352,15 @@ def train(cfg: TrainConfig, make_synthetic: bool = False,
         ccfg = CollateConfig(max_text_len=cfg.data.max_text_len,
                              num_image_tokens=(model_cfg.vit.tokens_per_patch_image
                                                * cfg.data.base.max_num_grid))
-        steps_per_epoch = max(1, sampler.num_samples // B)
+        steps_per_epoch = max(1, sampler.num_samples // (B * nb))
         total_steps = cfg.max_steps if cfg.max_steps > 0 else steps_per_epoch * cfg.max_epochs
         copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
 
         def make_batch(step):
             t0 = time.perf_counter()
-            rng = np.random.RandomState(cfg.seed * 7919 + step)
-            samples = [datasets[b].get(i, rng) for b, i in sampler.batch_at(step, B)]
+            rng = np.random.RandomState(cfg.seed * 7919 + step * nb + bi)
+            picks = sampler.batch_at(step, B * nb)[bi * B:(bi + 1) * B]
+            samples = [datasets[b].get(i, rng) for b, i in picks]
             ex, buf = to_device(collate(samples, tok, ccfg), dev, copy_stream)
             ready = None
             if buf is not None:
@@ -340,29 +376,31 @@ def train(cfg: TrainConfig, make_synthetic: bool = False,
             cfg.data.base, data_root=cfg.data.data_root, split="val", bucket_name="all",
             bucket_path=None, commentary_augmentation=False, qa_augmentation=False,
             img_shift_augmentation=False, img_augmentation=False))
-        if len(val_ds) >= B:
+        if len(val_ds) >= B * nb:
             val_interval = steps_per_epoch * cfg.val_every_n_epochs
         else:
             val_ds = None
     viz = None
-    if cfg.visualise_every_n_steps > 0 and run_dir:
+    viz_every = cfg.visualise_every_n_steps if run_dir else 0
+    if viz_every > 0 and primary:
         from simlingo_tpu_torch.train.visualise import VisualiseCallback
-        viz = VisualiseCallback(cfg.visualise_every_n_steps, os.path.join(run_dir, "viz"),
+        viz = VisualiseCallback(viz_every, os.path.join(run_dir, "viz"),
                                 logger=logger, tokenizer=tok)
     eval_step = (ts.make_eval_step(model_cfg, compute_dtype)
-                 if viz is not None or val_ds is not None else None)
+                 if viz_every > 0 or val_ds is not None else None)
 
     def run_validation() -> Dict[str, float]:
-        """Mean forward-loss metrics over the validation split (no grads)."""
-        n_batches = len(val_ds) // B
+        """Mean forward-loss metrics over the validation split (no grads),
+        batches of B x nb rows, this data rank's B of each."""
+        n_batches = len(val_ds) // (B * nb)
         if cfg.val_max_batches > 0:
             n_batches = min(n_batches, cfg.val_max_batches)
         sums: Dict[str, float] = {}
-        for bi in range(n_batches):
-            rng_v = np.random.RandomState(9973 + bi)
-            samples = [val_ds.get(bi * B + j, rng_v) for j in range(B)]
+        for vb in range(n_batches):
+            rng_v = np.random.RandomState(9973 + vb)
+            samples = [val_ds.get((vb * nb + bi) * B + j, rng_v) for j in range(B)]
             ex, _ = to_device(collate(samples, tok, ccfg), dev)
-            metrics, _ = eval_step(state.params, ex)
+            metrics, _ = eval_step(state, ex)
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + float(v)
         return {f"val_{k}": v / max(n_batches, 1) for k, v in sums.items()}
@@ -390,30 +428,31 @@ def train(cfg: TrainConfig, make_synthetic: bool = False,
                     or step + 1 == total_steps:
                 dt = time.perf_counter() - t_log
                 t_log = time.perf_counter()
-                host["samples_per_sec"] = B * (step - logged) / dt
+                host["samples_per_sec"] = B * nb * (step - logged) / dt
                 logged = step
                 host["lr"] = float(lr_schedule(step))
                 logger.log(step + 1, host)
                 last_metrics = dict(host)
-                print(f"step {step + 1}/{total_steps} loss={host['loss']:.4f} "
+                say(f"step {step + 1}/{total_steps} loss={host['loss']:.4f} "
                       f"grad_norm={host['grad_norm']:.4f} {ms:.1f} ms "
                       f"({host['samples_per_sec']:.2f} samples/s)", flush=True)
             if ckpt_dir and cfg.checkpoint_every_n_steps > 0 \
                     and (step + 1) % cfg.checkpoint_every_n_steps == 0:
                 ckpt.save_checkpoint(ckpt_dir, state, step + 1, keep=cfg.keep_checkpoints,
                                      block=False)
-            if viz is not None and (step + 1) % viz.every == 0:
-                try:
-                    _, preds = eval_step(state.params, batch)
-                    viz.maybe_plot(step + 1, batch, preds)
-                except Exception as e:      # noqa: BLE001 -- never kills a run
-                    print(f"visualise failed: {e}", flush=True)
+            if viz_every > 0 and (step + 1) % viz_every == 0:
+                _, preds = eval_step(state, batch)       # collective on a mesh
+                if viz is not None:
+                    try:
+                        viz.maybe_plot(step + 1, batch, preds)
+                    except Exception as e:      # noqa: BLE001 -- never kills a run
+                        print(f"visualise failed: {e}", flush=True)
             if val_ds is not None and ((val_interval > 0 and (step + 1) % val_interval == 0)
                                        or step + 1 == total_steps):
                 vm = run_validation()
                 logger.log(step + 1, vm)
                 last_metrics.update(vm)
-                print(f"step {step + 1}: val_loss={vm['val_loss']:.4f} "
+                say(f"step {step + 1}: val_loss={vm['val_loss']:.4f} "
                       f"({len(val_ds)} val samples)", flush=True)
             if after_step is not None:
                 after_step(step, host)
@@ -441,23 +480,30 @@ def train_base(cfg: BaseTrainConfig, params: Optional[Dict[str, Any]] = None,
     ({step, ms, batch_ms, loss, route_loss, speed_wps_loss, grad_norm_*}):
     ms is the step alone, batch_ms the batch's draw and copy before it."""
     dev = resolve_device(device)
-    print(f"gates {gates.resolved()}", flush=True)
+    mesh = _make_mesh(cfg, dev)
+    primary = multihost.is_primary()
+    say = print if primary else (lambda *a, **k: None)
+    say(f"gates {gates.resolved()}", flush=True)
     compute_dtype = torch.bfloat16 if cfg.precision == "bf16" else torch.float32
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(cfg.seed)
         params = simlingo_base.init_params(cfg.model, gen, device=dev)
-    state = base_step.init_base_state(params, cfg.optimizer)
+    sizes = {g: sum(x.numel() for p, x in ts.flatten(params).items()
+                    if base_step.group_of(p) == g) / 1e6 for g in base_step.GROUPS}
+    state = base_step.init_base_state(params, cfg.optimizer, mesh=mesh)
     del params
-    sizes = {g: sum(x.numel() for x in xs) / 1e6 for g, xs in state.groups.items()}
-    print(f"params {sum(sizes.values()):.2f} M (vision {sizes['vision']:.2f} M at lr x "
-          f"{base_step.VISION_LR_SCALE}, rest {sizes['rest']:.2f} M)", flush=True)
+    say(f"params {sum(sizes.values()):.2f} M (vision {sizes['vision']:.2f} M at lr x "
+        f"{base_step.VISION_LR_SCALE}, rest {sizes['rest']:.2f} M)"
+        + (f"; mesh dp={mesh.shape['dp']} fsdp={mesh.shape['fsdp']}" if mesh.world > 1 else ""),
+        flush=True)
     step_fn = base_step.make_base_train_step(cfg.model, cfg.optimizer, compute_dtype)
     total = cfg.max_steps if cfg.max_steps > 0 else 100
     B, S = cfg.data.batch_size, cfg.model.clip.image_size
+    nb = mesh.batch_size
     rng = np.random.RandomState(cfg.seed)
     # `train_base.py:89-92`: the run directory and its config.json
     run_dir = os.path.join(cfg.output_dir, cfg.name + "_base") if cfg.output_dir else None
-    if run_dir:
+    if run_dir and primary:
         os.makedirs(run_dir, exist_ok=True)
         with open(os.path.join(run_dir, "config.json"), "w") as f:
             json.dump(to_dict(cfg), f, indent=2, default=str)
@@ -465,7 +511,7 @@ def train_base(cfg: BaseTrainConfig, params: Optional[Dict[str, Any]] = None,
     records = []
     for step in range(total):
         t0 = time.perf_counter()
-        batch = base_batch(rng, B, S, device=dev)
+        batch = meshlib.put_batch(base_batch(rng, B * nb, S, device=dev), mesh)
         sync()
         t1 = time.perf_counter()
         metrics = step_fn(state, batch)
@@ -475,15 +521,15 @@ def train_base(cfg: BaseTrainConfig, params: Optional[Dict[str, Any]] = None,
         records.append(dict(step=step + 1, ms=ms, batch_ms=(t1 - t0) * 1e3, **host))
         if (step + 1) % cfg.log_every_n_steps == 0 or step == 0 or step + 1 == total:
             # `train_base.py:104-106` logs speed_wps_loss as the loss
-            print(f"step {step + 1}/{total} loss={host['speed_wps_loss']:.4f} "
-                  f"(total {host['loss']:.4f}, grad norms vision "
-                  f"{host['grad_norm_vision']:.4f} rest {host['grad_norm_rest']:.4f}) "
-                  f"{ms:.1f} ms ({B * 1e3 / ms:.2f} samples/s)", flush=True)
+            say(f"step {step + 1}/{total} loss={host['speed_wps_loss']:.4f} "
+                f"(total {host['loss']:.4f}, grad norms vision "
+                f"{host['grad_norm_vision']:.4f} rest {host['grad_norm_rest']:.4f}) "
+                f"{ms:.1f} ms ({B * nb * 1e3 / ms:.2f} samples/s)", flush=True)
         if after_step is not None:
             after_step(step, host)
     if run_dir:
         path = ckpt.save_checkpoint(os.path.join(run_dir, "checkpoints"), state, total)
-        print(f"done: checkpoint {path}", flush=True)
+        say(f"done: checkpoint {path}", flush=True)
     else:
-        print("done (no checkpoint saved: output_dir is empty)", flush=True)
+        say("done (no checkpoint saved: output_dir is empty)", flush=True)
     return dict(state=state, step_fn=step_fn, batch=batch, records=records)

@@ -18,7 +18,8 @@ rounds P and dS to bf16 before the products, and each gradient sums
 over up to T terms; at SimLingo-Base's shapes, with rows that see one
 to a few keys, at the rounding bound of `chip_smoke.py` instead, 2^-8
 (sum |terms| + |ref|). The dropout kernel equals its plain version bit for
-bit. The norm kernels' bf16 outputs (y, dx) are held to one bf16 spacing
+bit, at a rank's blocks of a multi-GPU step too (dp rows, tp columns), where
+its mask is the one-process mask cut to the block. The norm kernels' bf16 outputs (y, dx) are held to one bf16 spacing
 of the plain version's (2^-7 |ref| + 1e-5 rms): both round the same fp32
 math, summed in another order; their parameter gradients to 2^-7 |ref|
 plus 1e-5 of the sum of |terms| over the rows. The fused CE's ce to
@@ -60,7 +61,8 @@ def gpu():
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,S,HQ,HK,causal,q_offset", [
     (70, 90, 14, 2, True, 0), (1, 90, 14, 2, True, 60),
-    (129, 129, 4, 4, False, None)])
+    (129, 129, 4, 4, False, None),
+    (150, 150, 7, 1, True, None), (129, 129, 8, 8, False, None)])     # tp = 2's heads
 def test_flash_attn_fwd_kernel_matches_plain(gpu, T, S, HQ, HK, causal, q_offset):
     g = torch.Generator(device=gpu).manual_seed(0)
     q = torch.randn(2, T, HQ, 64, generator=g, device=gpu).bfloat16()
@@ -348,7 +350,10 @@ def _dx_tol(g, w_q, scale, ref):
 # a bf16 scale (the training step's frozen cast)
 @pytest.mark.parametrize("M,N,K,scale_dtype", [
     (200, 304, 896, torch.float32), (77, 130, 64, torch.float32),
-    (4788, 128, 896, torch.bfloat16)])
+    (4788, 128, 896, torch.bfloat16),
+    # a tp = 2 rank's q, k / v and o of the int8 base
+    (4788, 448, 896, torch.bfloat16), (4788, 64, 896, torch.bfloat16),
+    (4788, 896, 448, torch.bfloat16)])
 def test_int8_matmul_gives_x_its_gradient_through_the_dx_kernel(gpu, M, N, K, scale_dtype):
     """C1: on a CUDA tensor that needs a gradient, the output carries an
     autograd node and x.grad comes from the int8_matmul_dx kernel."""
@@ -478,7 +483,9 @@ def _bwd_inputs(gpu, B, T, S, HQ, HK, strided, pad_left, seed=3, D=64):
     (64, 64, 2, 1, True, False, 7),
     (150, 150, 14, 2, True, False, 70),        # key tile 0 of sample 0: no valid key
     (100, 170, 4, 2, True, False, 7),          # q_offset = S - T = 70, T % 64 != 0
-    (832, 832, 16, 16, False, True, 0)])       # 416 dK/dV blocks: the 3-an-SM instantiation
+    (832, 832, 16, 16, False, True, 0),        # 416 dK/dV blocks: the 3-an-SM instantiation
+    (150, 150, 7, 1, True, False, 7),          # tp = 2: Qwen2's 7 query heads over 1 kv head
+    (130, 130, 8, 8, False, True, 0)])         # tp = 2: 8 of the ViT's 16 heads
 def test_flash_attn_bwd_kernel_matches_plain(gpu, T, S, HQ, HK, causal, strided, pad_left):
     B = 2
     sms = torch.cuda.get_device_properties(gpu).multi_processor_count
@@ -651,6 +658,39 @@ def test_dropout_kernel_bit_identical_to_plain(gpu, numel, offset):
     if numel > 10 ** 6:
         assert abs(float(keep.float().mean()) - 0.9) < 0.002
     assert torch.equal(TD.dropout(x, seed, 0.0), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,block", [
+    ((3, 798, 896), (3 * 798, 0, 896)),        # dp = 2's second rank: its rows
+    ((6, 16, 448), (0, 448, 896)),             # tp = 2's second rank at o's input
+    ((4, 10, 2432), (40, 2432, 4864)),         # dp and tp at down's input
+    ((5, 7, 24), (7, 8, 40))])                 # a column block of 3 groups of 8
+def test_dropout_kernel_blocks_are_the_one_process_mask(gpu, shape, block):
+    g = torch.Generator(device=gpu).manual_seed(6)
+    x = torch.randn(shape, generator=g, device=gpu).bfloat16()
+    seed = 0x1234_5678_9ABC_DEF0
+    before = TD.dropout.launches
+    out = TD.dropout(x, seed, 0.1, block)
+    assert TD.dropout.launches == before + 1
+    assert torch.equal(out, TD.dropout_plain(x, seed, 0.1, block))
+    row0, col0, width = block
+    rows = x.numel() // shape[-1]
+    whole = TD.keep_mask((row0 + rows) * width, seed, 0.1, gpu).view(-1, width)
+    keep = TD.dropout(torch.ones_like(x), seed, 0.1, block) != 0
+    assert torch.equal(keep.reshape(rows, -1), whole[row0:, col0:col0 + shape[-1]])
+    assert torch.equal(TD.dropout(x, seed, 0.0, block), x)
+
+
+@pytest.mark.cuda
+def test_dropout_kernel_refuses_blocks_it_cannot_place(gpu):
+    """A block whose threads' 8 elements would not start at a multiple of 4
+    of the index raises (no quiet fallback)."""
+    x = torch.ones(4, 12, device=gpu, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="cols % 8"):
+        TD.dropout(x, 1, 0.1, (0, 12, 24))              # 12 columns: not whole groups of 8
+    with pytest.raises(ValueError, match="% 4"):
+        TD.dropout(torch.ones(4, 10, device=gpu, dtype=torch.bfloat16), 1, 0.1, (1, 0, 10))
 
 
 def _within(got, ref, tol, name):

@@ -1,7 +1,8 @@
 """simlingo_tpu_torch stands alone: it imports no jax, flax or simlingo_tpu.
 
 A subprocess blocks those imports, imports every module of the port
-(the training modules included), drives the tiny agent and two training
+(the training modules and `parallel/` included: the one-process
+`multihost.initialize` is a no-op and `make_mesh` a mesh of one), drives the tiny agent and two training
 steps with LoRA dropout on the CPU, then two more with both fused-kernel
 gates on, two on an int8 base LLM and two of the tiny SimLingo-Base with
 each of its encoders (the CLIP tower, the ResNet); an
@@ -48,6 +49,10 @@ SCRIPT = BLOCK + textwrap.dedent("""
     for n in names:
         importlib.import_module(n)
     print("imported", len(names))
+    assert {"simlingo_tpu_torch.parallel.mesh",
+            "simlingo_tpu_torch.parallel.multihost"} <= set(names)
+    from simlingo_tpu_torch.parallel import mesh as PM, multihost as PH
+    assert PH.initialize(device="cpu") is False and PM.make_mesh(device="cpu").world == 1
 
     from simlingo_tpu_torch.agent.agent import AgentFrame, LingoAgent
     from simlingo_tpu_torch.agent.config import AgentConfig

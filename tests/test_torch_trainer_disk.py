@@ -159,10 +159,12 @@ def test_compose_experiment_matches_jax():
     assert len(tcfg.data.train_partitions) == 16 and tcfg.data.use_dreamer
     with pytest.raises(KeyError):
         compose("configs/simlingo.yaml", ["data.base.no_such_key=1"])
-    tcfg.mesh.check_single_device()                      # dp -1: the one device
-    for bad in ("mesh.fsdp=2", "mesh.dp=4", "mesh.sp=2"):
-        with pytest.raises(ValueError, match="one device"):
-            compose([bad]).mesh.check_single_device()
+    tcfg.mesh.check_supported()                          # dp -1: every process
+    for good in ("mesh.fsdp=2", "mesh.dp=4", "mesh.tp=2"):
+        compose([good]).mesh.check_supported()
+    for bad in ("mesh.sp=2", "mesh.pp=2"):
+        with pytest.raises(ValueError, match="A13b"):
+            compose([bad]).mesh.check_supported()
 
 
 def test_visualise_writes_the_figures(dataset, tmp_path, capsys):

@@ -17,7 +17,8 @@ and batch 16 (`presets.simlingo_base()`). The run writes
 `<output_dir>/<name>_base/config.json` and its final state under
 `checkpoints/` there (core/checkpoint.py), output_dir `outputs` by
 default; `output_dir=` (empty) writes nothing. Only `--synthetic` exists:
-`train_base.py` draws synthetic batches on every run too.
+`train_base.py` draws synthetic batches on every run too. Under torchrun
+or SLURM it trains over `mesh.dp` x `mesh.fsdp` (tp is refused).
 """
 
 import argparse

@@ -16,7 +16,11 @@ and dreamer files) with validation, metrics in
 `<output_dir>/<name>/checkpoints` (`resume=true` continues from the
 newest; `hf_checkpoint=PATH` starts from an InternVL2 / SimLingo torch
 checkpoint). `--synthetic` trains on one synthetic batch instead. Runs on
-the GPU unless `--device cpu`.
+the GPU unless `--device cpu`. On several GPUs, one process a GPU under
+torchrun or SLURM, with `mesh.dp` / `mesh.fsdp` / `mesh.tp` (dp -1 fills
+the processes; `data.batch_size` is per rank of dp x fsdp):
+
+    torchrun --nproc-per-node 8 train_torch.py --synthetic mesh.fsdp=2 mesh.tp=2
 """
 
 import argparse
