@@ -40,7 +40,12 @@ Phases, in order; any failure exits non-zero:
      instance, forward and backward; and a tp = 2 rank's shapes,
      TP_ATTENTION: Qwen2's 7 query heads over 1 kv head and 8 of the ViT's
      16, forward and backward, the int8 base's halved N / K,
-     INT8_TP_SHAPES, forward and dx), against its plain
+     INT8_TP_SHAPES, forward and dx; and the sp = 2 ring's chunks,
+     RING_ATTENTION, q[6,399,14,64] kv[6,399,2,64], the causal diagonal
+     and the non-causal earlier chunk with its key validity, and in
+     `run_ring_checks` both ranks' chunks merged by lse against the whole
+     sequence's attention, the backward of rank 1's chunks fed the ring's
+     global o / lse, and the ring's summed dq / dk / dv), against its plain
      PyTorch version on the same bf16 inputs (fp32 math) at |err| <= ATOL + RTOL |ref| (the attention
      forward also with its lse, bit-identical across two calls, its path
      -- tiled or split, the splits -- its kernel's ptxas registers and
@@ -52,8 +57,9 @@ Phases, in order; any failure exits non-zero:
      of its three kernels, their ptxas registers, the dK/dV instantiation
      and the scratch bytes; dropout: bit-equal, keep rate 0.9 +- 0.002, identity at
      p = 0, the one-process layout's digests equal to DROPOUT_DIGESTS, and
-     at a rank's blocks (DROPOUT_CASES: dp's rows, tp's columns) the
-     one-process mask cut to the block; LayerNorm / RMSNorm forward and backward at the ViT, projector
+     at a rank's blocks (DROPOUT_CASES: dp's rows, tp's columns, sp's
+     slabs of 399 of every 798 rows) the one-process mask cut to the
+     block, and the unsegmented blocks' digests equal to DROPOUT_DIGESTS; LayerNorm / RMSNorm forward and backward at the ViT, projector
      and LLM-training rows (the LLM's also dx only, its frozen scale), the
      forward at the serving rows (ViT 2 x 1025, projector 2 x 256, LLM 1 /
      16 / 30 / 640), the backward bit-identical across two calls, with the
@@ -139,12 +145,21 @@ Phases, in order; any failure exits non-zero:
      collective staged through host memory, which they print) run
      MESH_RUNS in turn, 3 steps each, dropout on: `mesh_dp2` and
      `mesh_fsdp2` (batch 3 a rank) held to `halves`, `mesh_tp2` (batch 6,
-     both gates) to `tp`: step 1's loss and grad norm and the trainable
-     leaves after step 3 within MESH_MULT x the control's own difference
-     from the one-process trainer, measured in the same call; launches
-     exact; with ms/step, peak memory, collective bytes and ms a step
-     (staged: host ms; NCCL: its kernels' device ms, torch.profiler) and
-     launches per rank; a rank's failure or MESH_TIMEOUT fails the script;
+     both gates) to `tp`, `mesh_sp2` (the 798 positions as two slabs of
+     399, attention the ring) to `seq_halves` (the two sequence halves in
+     one process, `seq_halves_losses`: the ring's chunk kernels merged by
+     lse, each gradient the halves' sum), `mesh_pp2` (two GPipe stages of
+     12 layers, 2 microbatches of 3 rows, stage remat on) to `halves`:
+     step 1's loss and grad norm and the trainable leaves after step 3
+     within MESH_MULT x the control's own difference from the one-process
+     trainer, measured in the same call; each rank's launches exactly as
+     `mesh_launches_per_step` reckons them from the schedule; with
+     ms/step, peak memory, collective and send / receive bytes and ms a
+     step by group (staged: host ms; NCCL: its kernels' device ms,
+     torch.profiler) and launches per rank; then the ring-off run
+     (`mesh_sp2` on 767 + 30 positions, which do not divide) must raise
+     the trainer's RuntimeError on both ranks; a rank's failure or
+     MESH_TIMEOUT fails the script;
   6. SimLingo-Base at full width, three cells (BASE_CELLS, overrides of
      configs/simlingo_base.yaml, seed 0): `base` (CLIP ViT-L/14-336 with
      LLaVA-NeXT features, the tiny LLaMA), `base_wide` (the same with the
@@ -198,7 +213,8 @@ Phases, in order; any failure exits non-zero:
      JSONs written, the metrics;
  10. the {"kernels": [...]} line (eleven kernels, launches per path: serve,
      serve_gated, serve_int4, train, train_gated, train_int8,
-     train_remat_<mode>, mesh_dp2 / mesh_fsdp2 / mesh_tp2 (both ranks'),
+     train_remat_<mode>, mesh_dp2 / mesh_fsdp2 / mesh_tp2 / mesh_sp2 /
+     mesh_pp2 (both ranks'),
      the base cells' <cell>_fwd,
      <cell>_train and <cell>_train_gated, train_disk, carla_plugin,
      eval_language; the attention kernels also each built head dim's
@@ -474,6 +490,14 @@ ATTN_HEAD_DIM = {c[0]: c[10] for c in HEAD_DIM_ATTENTION}
 TP_ATTENTION = [("llm_train_tp2", 6, 798, 798, 7, 1, True, None, "train", False),
                 ("vit_train_tp2", 12, 1025, 1025, 8, 8, False, None, None, True)]
 
+# sp = 2 (`mesh_sp2`): the ring's chunks of the training sequence, q[6,399]
+# against one rank's keys: the causal diagonal, and the non-causal earlier
+# chunk (rank 1's queries against rank 0's keys), each with the chunk's key
+# validity (the first 399 slots of the training batch); last in the list
+RING_ATTENTION = [("ring_diag", 6, 399, 399, 14, 2, True, None, ("slab", 0), False),
+                  ("ring_prev", 6, 399, 399, 14, 2, False, None, ("slab", 0), False)]
+RING_SLAB = 399
+
 
 def head_dim(case):
     """The head dim of a phase-2 attention case (64 unless listed in
@@ -560,7 +584,7 @@ def attention_inputs(torch, dev):
         ("llm_train", 6, 798, 798, 14, 2, True, None, "train", False),
         ("vit_train", 12, 1025, 1025, 16, 16, False, None, None, True)] + BASE_ATTENTION \
         + eval_attention_cases(prompt_valid) + [c[:10] for c in HEAD_DIM_ATTENTION] \
-        + TP_ATTENTION
+        + TP_ATTENTION + RING_ATTENTION
     train_valid = train_llm_valid(torch, dev)
     for case in cases:
         B, T, S, HQ, HK, _, _, ranges, strided = case[1:]
@@ -582,6 +606,8 @@ def attention_inputs(torch, dev):
             valid = None
             if ranges == "train":
                 valid = train_valid
+            elif isinstance(ranges, tuple) and ranges[0] == "slab":     # a ring chunk's keys
+                valid = train_valid[:, ranges[1] * S:(ranges[1] + 1) * S].contiguous()
             elif isinstance(ranges, tuple):          # ("eval", generated slots valid)
                 T_prompt = prompt_valid.shape[1]
                 valid = torch.zeros(B, S, dtype=torch.bool, device=dev)
@@ -1092,20 +1118,145 @@ def run_attention_bwd_checks(torch, dev, results):
             f"{plan.n_qt * plan.n_kt}; err/tol of the dS pass {pass_ratio[0]:.3f}, "
             f"of dq from the kernel's dS {pass_ratio[1]:.3f}; sha256 of dq, dk, dv "
             f"{' '.join(digest)}")
+    run_ring_checks(torch, dev, results)
+
+
+def run_ring_checks(torch, dev, results):
+    """The ring of `mesh_sp2` (sp = 2, `parallel/sequence.py`) at the training
+    batch's shapes, both ranks in one process: the forward's two key
+    chunks merged by their lse (`_merge`, the kernel's chunks) against
+    attention_reference of the whole sequence ("ring_merge"); and the
+    backward of rank 1's query slab, chunk by chunk (the causal diagonal,
+    the earlier chunk), fed the ring's global o and lse, against
+    attention_bwd_reference on the same inputs (err/tol as the backward's
+    other cases; times, bound by the chunk's visible pairs, SDPA's backward
+    on the chunk as the library). The whole ring's summed gradients are
+    held to the plain recurrence in tests/test_torch_cuda.py."""
+    import torch.nn.functional as F
+    from simlingo_tpu_torch.kernels import flash_attention as FA
+    from simlingo_tpu_torch.parallel import sequence as SQ
+    gen = torch.Generator(device=dev).manual_seed(5)
+    B, T, HQ, HK, D, n = 6, 2 * RING_SLAB, 14, 2, 64, RING_SLAB
+    valid = train_llm_valid(torch, dev)
+
+    def make():
+        q = torch.randn(B, T, HQ, D, generator=gen, device=dev, dtype=torch.bfloat16)
+        k, v = (torch.randn(B, T, HK, D, generator=gen, device=dev, dtype=torch.bfloat16)
+                for _ in range(2))
+        dout = torch.randn(B, T, HQ, D, generator=gen, device=dev, dtype=torch.bfloat16)
+        return q, k, v, dout
+
+    def sl(x, i):
+        return x[:, i * n:(i + 1) * n].contiguous()
+
+    def ring_forward(q, k, v):
+        """Each rank's (o, lse): rank i folds its diagonal, then the earlier
+        chunks, as the ring meets them."""
+        outs = []
+        for i in range(2):
+            o = torch.zeros(B, n, HQ, D, device=dev)
+            lse = torch.full((B, HQ, n), float("-inf"), device=dev)
+            for src in range(i, -1, -1):
+                o_c, lse_c = FA.flash_attn_fwd(sl(q, i), sl(k, src), sl(v, src), sl(valid, src),
+                                               src == i, None, None, return_lse=True)
+                o, lse = SQ._merge(o, lse, o_c, lse_c)
+            outs.append((o.to(torch.bfloat16), lse))
+        return outs
+
+    q, k, v, dout = make()
+    outs = ring_forward(q, k, v)
+    torch.cuda.synchronize()
+    o = torch.cat([x[0] for x in outs], 1)
+    lse = torch.cat([x[1] for x in outs], 2)
+    ref = FA.attention_reference(q.float(), k.float(), v.float(), valid, True)
+    err, rel, ok = max_violation("flash_attn_fwd", o, ref)
+    ref_lse = FA.attention_lse_reference(q.float(), k.float(), valid, True)
+    fin = torch.isfinite(ref_lse)
+    lse_err = float((lse[fin] - ref_lse[fin]).abs().max())
+    ok = ok and torch.equal(torch.isfinite(lse), fin) and lse_err <= 1e-2
+    results.append(dict(kernel="flash_attn_fwd", case="ring_merge",
+                        shape=f"q[{B},{T},{HQ},{D}] as 2 slabs of {n}", max_abs_err=err,
+                        err_over_rms=rel, lse_err=lse_err, ok=ok))
+    log(f"[kernel] flash_attn_fwd ring_merge   q[{B},{T},{HQ},{D}] as 2 slabs of {n}: the "
+        f"chunks merged by lse against attention_reference of the whole sequence err={err:.3e} "
+        f"err/rms={rel:.3e} lse_err={lse_err:.2e} {'OK' if ok else 'FAIL'}")
+
+    # the backward of rank 1's slab, chunk by chunk
+    o1, lse1 = outs[1]
+    q1, d1 = sl(q, 1), sl(dout, 1)
+    for name, src, causal in (("ring_bwd_diag", 1, True), ("ring_bwd_prev", 0, False)):
+        kc, vc, vac = sl(k, src), sl(v, src), sl(valid, src)
+        got = FA.flash_attn_bwd(q1, kc, vc, vac, o1, d1, lse1, causal)
+        same = all(torch.equal(a, b) for a, b in zip(
+            FA.flash_attn_bwd(q1, kc, vc, vac, o1, d1, lse1, causal), got))
+        args = (q1.float(), kc.float(), vc.float(), vac, o1.float(), d1.float(), lse1, causal)
+        ref = FA.attention_bwd_reference(*args)
+        mag = FA.attention_bwd_reference(*args, abs_terms=True)
+        ok, err, rel, ratio = same, 0.0, 0.0, 0.0
+        for a, b, m in zip(got, ref, mag):
+            diff = (a.float() - b).abs()
+            rms = float(b.square().mean().sqrt())
+            tol = BF16_U * (m + b.abs()) + 1e-5 * rms
+            ok &= bool((diff <= tol).all())
+            err, rel = max(err, float(diff.max())), max(rel, float(diff.max()) / max(rms, 1e-30))
+            ratio = max(ratio, float((diff / tol).max()))
+        del ref, mag
+        pairs, empty_rows, mask = visible_pairs(torch, dev, B, n, n, causal, 0, vac)
+        bms, bby = bound(attention_bwd_bytes(B, n, HQ, HK, D, True), 10 * D * pairs * HQ)
+
+        def chunk_sets():
+            out = []
+            for _ in range(n_sets(attention_bwd_bytes(B, n, HQ, HK, D, True))):
+                qq, kk, vv, dd = make()
+                out.append((sl(qq, 1), sl(kk, src), sl(vv, src), o1, sl(dd, 1), lse1))
+            return out
+        sets = chunk_sets()
+
+        def kernel(q_, k_, v_, o_, d_, l_):
+            return FA.flash_attn_bwd(q_, k_, v_, vac, o_, d_, l_, causal)
+        kernel_ms = time_ms(torch, kernel, sets)
+        plain_ms = time_ms(torch, lambda q_, k_, v_, o_, d_, l_: FA.attention_bwd_reference(
+            q_, k_, v_, vac, o_, d_, l_, causal), sets[:2], iters=2)
+        xs = [x.detach().clone().requires_grad_(True) for x in (q1, kc, vc)]
+        lib_out = F.scaled_dot_product_attention(
+            *(x.transpose(1, 2) for x in xs), attn_mask=mask[:, None], enable_gqa=True)
+        library_ms = eager_ms(torch, lambda: torch.autograd.grad(
+            lib_out, xs, d1.transpose(1, 2), retain_graph=True), [()], iters=10)
+        del lib_out, xs, sets
+        row = dict(kernel="flash_attn_bwd", case=name,
+                   shape=f"q[{B},{n},{HQ},{D}] kv[{B},{n},{HK},{D}]", head_dim=D, causal=causal,
+                   empty_rows=empty_rows, max_abs_err=err, err_over_rms=rel, err_over_tol=ratio,
+                   bit_identical=same, ok=ok, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bms, bound_by=bby,
+                   digest=[sha12(torch, x) for x in got])
+        results.append(row)
+        log(f"[kernel] flash_attn_bwd {name:12s} {row['shape']:32s} the ring's global o / lse "
+            f"err={err:.3e} err/rms={rel:.3e} err/tol={ratio:.3f} bit-identical={same} "
+            f"{'OK' if ok else 'FAIL'} kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={library_ms:.4f} (SDPA backward on the chunk) bound_ms={bms:.4f} "
+            f"({bby})")
 
 
 # dropout at a rank's block of a multi-GPU step (`block` = row0, col0, width
 # of the one-process [rows, width] tensor): dp = 2's second rank (the rows
 # 3 x 798 on), and tp = 2's second rank at the row-parallel inputs of o
 # (448 of 896 columns) and down (2432 of 4864)
+# and sp = 2's two slabs (`block` + (seg, stride): each rank's 399 positions
+# of every 798-position row), at both LoRA input widths, last in the list
 DROPOUT_CASES = (("lora_x_896", (6, 798, 896), None), ("lora_h_4864", (6, 798, 4864), None),
                  ("lora_x_896_dp2", (3, 798, 896), (3 * 798, 0, 896)),
                  ("lora_x_448_tp2", (6, 798, 448), (0, 448, 896)),
-                 ("lora_h_2432_tp2", (6, 798, 2432), (0, 2432, 4864)))
-# sha12 of the zero-offset outputs on these inputs, recorded on an H100 from
-# the tree before the blocks (commit c489a34, `--kernels dropout --parent`):
-# the one-process mask keeps its bits
-DROPOUT_DIGESTS = {"lora_x_896": "6ba5e5e7cad2", "lora_h_4864": "31b358bad4c2"}
+                 ("lora_h_2432_tp2", (6, 798, 2432), (0, 2432, 4864)),
+                 *((f"lora_{w}_sp2_{i}", (6, 399, n), (399 * i, 0, n, 399, 798))
+                   for w, n in (("x", 896), ("h", 4864)) for i in range(2)))
+# sha12 of the outputs on these inputs, recorded on an H100: the
+# zero-offset ones from the tree before the blocks (commit c489a34,
+# `--kernels dropout --parent`), the dp / tp blocks' from commit 97fed2a
+# (its full run): the one-process mask and the unsegmented blocks keep
+# their bits
+DROPOUT_DIGESTS = {"lora_x_896": "6ba5e5e7cad2", "lora_h_4864": "31b358bad4c2",
+                   "lora_x_896_dp2": "001bd854b171", "lora_x_448_tp2": "2ef793699634",
+                   "lora_h_2432_tp2": "a04f884a8346"}
 
 
 def run_dropout_checks(torch, dev, results):
@@ -1129,9 +1280,12 @@ def run_dropout_checks(torch, dev, results):
         keep_ref = DO.keep_mask(x.numel(), seed, rate, dev, block, shape[-1]).view(shape)
         cut = True
         if block is not None:       # the one-process mask restricted to the block
-            rows = x.numel() // shape[-1]
-            whole = DO.keep_mask((block[0] + rows) * block[2], seed, rate, dev).view(
-                -1, block[2])[block[0]:, block[1]:block[1] + shape[-1]]
+            rows = torch.arange(x.numel() // shape[-1], device=dev)
+            if len(block) == 5:     # segments of seg rows, stride apart
+                rows = (rows // block[3]) * block[4] + rows % block[3]
+            rows = rows + block[0]
+            whole = DO.keep_mask((int(rows.max()) + 1) * block[2], seed, rate, dev).view(
+                -1, block[2])[rows, block[1]:block[1] + shape[-1]]
             cut = torch.equal(whole.reshape(shape), keep_ref)
         rate_kept = float(keep.float().mean())
         identity = torch.equal(DO.dropout(x, seed, 0.0, block), x)
@@ -4191,13 +4345,21 @@ def run_path_phases(torch, dev, cases) -> int:
 # multi-GPU training: the dp x fsdp x tp mesh (`mesh_training`)
 # ---------------------------------------------------------------------------
 
-# (run, (dp, fsdp, tp), batch a data rank, gated, control): internvl2_1b(
-# lora=True), remat off, dropout on, seed 0; a global batch of 6 in every run
-MESH_RUNS = (("mesh_dp2", (2, 1, 1), 3, False, "halves"),
-             ("mesh_fsdp2", (1, 2, 1), 3, False, "halves"),
-             ("mesh_tp2", (1, 1, 2), 6, True, "tp"))
+# (run, (dp, fsdp, tp, sp, pp), batch a data rank, gated, control):
+# internvl2_1b(lora=True), remat off, dropout on, seed 0; a global batch of
+# 6 in every run; mesh_pp2 at its default 2 microbatches of 3 rows, stage
+# remat on (`pipeline.enable`'s default, as JAX's)
+MESH_RUNS = (("mesh_dp2", (2, 1, 1, 1, 1), 3, False, "halves"),
+             ("mesh_fsdp2", (1, 2, 1, 1, 1), 3, False, "halves"),
+             ("mesh_tp2", (1, 1, 2, 1, 1), 6, True, "tp"),
+             ("mesh_sp2", (1, 1, 1, 2, 1), 6, False, "seq_halves"),
+             ("mesh_pp2", (1, 1, 1, 1, 2), 6, False, "halves"))
+MESH_AXES = ("dp", "fsdp", "tp", "sp", "pp")
+# the ring-off run: mesh_sp2 on a sequence of 767 + 30 = 797 positions,
+# which does not divide over sp = 2: the trainer must raise after step 1
+RING_OFF_TEXT_LEN = 767
 MESH_STEPS = 3
-MESH_TIMEOUT = 420          # seconds the ranks may take for the three runs, spawn to exit
+MESH_TIMEOUT = 600          # seconds the ranks may take for every run, spawn to exit
 # A run is held to its control, the one-process step that makes the run's
 # reductions (`control_step`), within MESH_MULT times the control's own
 # difference from the one-process trainer: the size of the rounding those
@@ -4205,14 +4367,14 @@ MESH_TIMEOUT = 420          # seconds the ranks may take for the three runs, spa
 MESH_MULT = 4.0
 
 
-def mesh_cfg(batch, shape=(1, 1, 1)):
+def mesh_cfg(batch, shape=(1, 1, 1, 1, 1), text_len=768):
     import dataclasses
     from simlingo_tpu_torch.core import presets
     from simlingo_tpu_torch.core.config import compose
-    d, f, t = shape
     cfg = compose([f"max_steps={MESH_STEPS}", f"data.batch_size={batch}",
-                   "data.max_text_len=768", "seed=0", "output_dir=", "log_every_n_steps=1",
-                   f"mesh.dp={d}", f"mesh.fsdp={f}", f"mesh.tp={t}"])
+                   f"data.max_text_len={text_len}", "seed=0", "output_dir=",
+                   "log_every_n_steps=1"]
+                  + [f"mesh.{a}={n}" for a, n in zip(MESH_AXES, shape)])
     cfg.model = dataclasses.replace(presets.internvl2_1b(lora=True), remat_vision=False,
                                     remat_llm=False)
     return cfg
@@ -4319,12 +4481,153 @@ def tp2_products(torch):
         Q._linear_maybe_lora, Q._mlp_block = lora_linear, mlp_block
 
 
+def seq_halves_losses(torch, params, ex, seed, m, dtype=None):
+    """The `seq_halves` control's forward: what the two ranks of an sp = 2
+    step compute, in one process. Each "rank" i casts the masters and
+    builds the whole sequence (the ViT included) itself, and runs the LLM
+    on its half of the positions; the layers run half 0 then half 1, so
+    that half 1's attention finds half 0's keys: half 0 is the causal
+    diagonal (`attention_train`, what the ring gives rank 0), half 1 the
+    ring's two chunks merged by lse in ring order, and its backward the
+    ring's per-chunk backwards against the global o / lse, dq summed in
+    fp32, the earlier chunk's dk / dv handed to half 0's keys. Each half
+    computes the loss terms of its positions (the queries' on half 1),
+    every average over the whole batch's counts. Returns the two
+    TrainingOutputs; their losses' sum is the step's loss. `dtype`: the
+    compute dtype (bf16; the CPU test takes fp32)."""
+    from simlingo_tpu_torch.core.structs import summarise_losses
+    from simlingo_tpu_torch.kernels import flash_attention as FA
+    from simlingo_tpu_torch.models import adaptors as A
+    from simlingo_tpu_torch.models import layers as L
+    from simlingo_tpu_torch.models import qwen2 as Q
+    from simlingo_tpu_torch.models import simlingo
+    from simlingo_tpu_torch.parallel import sequence as SQ
+    from simlingo_tpu_torch.train import train_step as ts
+    bf16 = dtype or torch.bfloat16
+
+    def chunk_fwd(q, k, v, va, causal):
+        if q.is_cuda:
+            return FA.flash_attn_fwd(q, k, v, va, causal, None, None, return_lse=True)
+        return (FA.attention_reference(q, k, v, va, causal),      # CPU tests
+                FA.attention_lse_reference(q, k, va, causal))
+
+    def chunk_bwd(q, k, v, va, o, dout, lse, causal):
+        if q.is_cuda:
+            return FA.flash_attn_bwd(q, k, v, va, o, dout, lse, causal)
+        return [g.to(x.dtype) for g, x in zip(FA.attention_bwd_reference(
+            q, k, v, va, o, dout, lse, causal), (q, k, v))]
+
+    class TwoChunks(torch.autograd.Function):
+        """Rank 1's ring: its diagonal, then rank 0's keys."""
+
+        @staticmethod
+        def forward(ctx, q, k, v, va, k0, v0, va0):
+            o = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+            lse = torch.full((q.shape[0], q.shape[2], q.shape[1]), float("-inf"),
+                             device=q.device)
+            for kc, vc, vac, diag in ((k, v, va, True), (k0, v0, va0, False)):
+                o, lse = SQ._merge(o, lse, *chunk_fwd(q, kc, vc, vac, diag))
+            o = o.to(q.dtype)
+            ctx.save_for_backward(q, k, v, va, k0, v0, va0, o, lse)
+            return o
+
+        @staticmethod
+        def backward(ctx, dout):
+            q, k, v, va, k0, v0, va0, o, lse = ctx.saved_tensors
+            dout = dout.contiguous()
+            g1 = chunk_bwd(q, k, v, va, o, dout, lse, True)
+            g0 = chunk_bwd(q, k0, v0, va0, o, dout, lse, False)
+            dq = (g1[0].float() + g0[0].float()).to(q.dtype)
+            return dq, g1[1], g1[2], None, g0[1], g0[2], None
+
+    label = ex.driving_input.prompt
+    B, T = label.ids.shape
+    cfg = m.llm
+    halves = []
+    for i in range(2):
+        tree = ts.cast_for_compute(params, bf16)
+        embeds, valid, pos = simlingo.assemble_sequence(tree, label, ex.driving_input.pixel_values,
+                                                        m, dtype=bf16)
+        n = embeds.shape[1] // 2
+        cut = slice(i * n, (i + 1) * n)
+        inv = L.rope_frequencies(cfg.head_dim, cfg.rope_theta, embeds.device)
+        halves.append(dict(tree=tree, x=embeds[:, cut], valid=valid[:, cut].to(torch.uint8)
+                           .contiguous(), cs=L.rope_cos_sin(pos[:, cut], inv)))
+    keys = {}
+
+    def attention(q, k, v, kv_valid=None, causal=True, scale=None, q_offset=None):
+        if not keys:                  # half 0: its diagonal; its keys kept for half 1
+            keys.update(k=k, v=v, va=kv_valid)
+            return FA.attention_train(q, k, v, kv_valid, causal)
+        k0, v0, va0 = keys.pop("k"), keys.pop("v"), keys.pop("va")
+        return TwoChunks.apply(q, k, v, kv_valid, k0, v0, va0)
+
+    orig = Q.attention_autograd
+    Q.attention_autograd = attention
+    try:
+        for li in range(cfg.num_layers):
+            seeds = Q.layer_seeds(seed, li) if cfg.lora_dropout > 0 else None
+            for i, h in enumerate(halves):
+                lo = h["tree"]["lora"]["layers"][str(li)]
+                h["x"] = Q._decoder_layer(h["tree"]["llm"]["layers"][str(li)], lo, h["x"], cfg,
+                                          *h["cs"], h["valid"], True, None, None, seeds, None,
+                                          (i * n, n, 2 * n))
+    finally:
+        Q.attention_autograd = orig
+    dl = ex.driving_label
+    losses = []
+    for i, h in enumerate(halves):
+        tree = h["tree"]
+        hidden = L.rmsnorm(tree["llm"]["final_norm"], h["x"], cfg.rms_norm_eps)
+        hg, labels, valid_g = A.gather_answer_states(hidden, label.ids, label.loss_mask,
+                                                     m.max_answer_len, i * n)
+        part = A.language_loss_gathered(
+            hg, labels, valid_g, lambda x, t=tree: Q.logits_from_hidden(t["llm"], x, cfg),
+            head_w=tree["llm"]["embed"]["w"])
+        d_losses, _ = A.driving_loss(tree["adaptors"], hidden[:, -m.num_queries:], dl.path,
+                                     dl.waypoints[:, :A.NUM_SPEED_QUERIES])
+        if i == 0:
+            d_losses = {k: (v, torch.zeros_like(c)) for k, (v, c) in d_losses.items()}
+        part.update(d_losses)
+        losses.append(part)
+    counts = sum(torch.stack([c.float().sum() for _, c in part.values()]) for part in losses)
+    return [summarise_losses(part, lambda _: counts) for part in losses]
+
+
+def mesh_launches_per_step(m, shape, coords, batch):
+    """A rank's attention and dropout launches a step on a mesh of `shape`
+    (dp, fsdp, tp, sp, pp), reckoned from the schedule: under sp the causal
+    ring folds i + 1 key chunks on rank i (a later rank's chunk is
+    skipped), forward and backward; under pp a stage runs its L / pp layers
+    on each of M microbatches, and stage remat re-runs each pass in the
+    backward (the forward twice, dropout four times an adapter), while the
+    ViT's backward runs on stage 0 alone (the only stage whose input has a
+    cotangent). Elsewhere `train_launches_per_step`."""
+    sp, pp = shape[3], shape[4]
+    if sp == 1 and pp == 1:
+        return train_launches_per_step(m)
+    V, L = m.vit.num_layers, m.llm.num_layers
+    drop = m.llm.lora_r > 0 and m.llm.lora_dropout > 0
+    chunks = coords["sp"] + 1 if sp > 1 else 1
+    if pp > 1:
+        micro = next(d for d in range(min(pp, batch), 0, -1)   # `_num_microbatches` at 0
+                     if batch % d == 0)
+        runs, again = L // pp * micro, True
+    else:
+        runs, again = L, bool(m.remat_llm)
+    return {"flash_attn_fwd": V * (2 if m.remat_vision is True else 1)
+            + runs * chunks * (2 if again else 1),
+            "flash_attn_bwd": (V if pp == 1 or coords["pp"] == 0 else 0) + runs * chunks,
+            "dropout": 7 * runs * (4 if again else 3) if drop else 0}
+
+
 def control_step(torch, state, ex, seed, model_cfg, opt_cfg, control):
     """One training step of a MESH_RUNS control in one process; returns its
     metrics. "halves": the batch as two accumulated halves, each
     loss average divided by the whole batch's count and the two losses
     summed in fp32 (what a dp = 2 or fsdp = 2 step computes); "tp": the
-    whole batch through `tp2_products`."""
+    whole batch through `tp2_products`; "seq_halves": the two sequence
+    halves of an sp = 2 step (`seq_halves_losses`)."""
     from simlingo_tpu_torch.models import simlingo
     from simlingo_tpu_torch.parallel import mesh as M
     from simlingo_tpu_torch.train import train_step as ts
@@ -4332,7 +4635,12 @@ def control_step(torch, state, ex, seed, model_cfg, opt_cfg, control):
     for group in state.optimizer.param_groups:
         group["lr"] = ts.onecycle_schedule(opt_cfg)(state.step)
     state.optimizer.zero_grad(set_to_none=True)
-    if control == "tp":
+    if control == "seq_halves":
+        outs = seq_halves_losses(torch, state.params, ex, seed, model_cfg)
+        (outs[0].loss + outs[1].loss).backward()
+        loss = outs[0].loss.detach().float() + outs[1].loss.detach().float()
+        del outs
+    elif control == "tp":
         with tp2_products(torch):
             out, _ = simlingo.forward_loss(ts.cast_for_compute(state.params, bf16), ex,
                                            model_cfg, dropout_seed=seed, compute_dtype=bf16,
@@ -4459,8 +4767,8 @@ def mesh_rank() -> int:
                      records=res["records"], peak_bytes=torch.cuda.max_memory_allocated(),
                      launches={k: fn.launches for k, fn in kernels.items()},
                      comm=mesh.comm_stats(), nccl_device_ms=nccl_ms)
-        p3 = {p: M.gather_leaf(x.detach(), state.layouts[p], mesh).float().cpu()
-              for p, x in state.trainable.items()}
+        p3 = {p: x.float().cpu() for p, x in M.gather_tree(
+            {p: x.detach() for p, x in state.trainable.items()}, state.layouts, mesh).items()}
         if rank == 0:
             torch.save(p3, os.path.join(work, f"{run}_p3.pt"))
         with open(os.path.join(work, f"{run}_rank{rank}.json"), "w") as f:
@@ -4468,6 +4776,18 @@ def mesh_rank() -> int:
         del res, state, mesh, p3
         torch.cuda.empty_cache()
         multihost.sync_hosts()
+    # the ring-off run: sp = 2 on a sequence that does not divide
+    cfg = mesh_cfg(6, dict((r[0], r[1]) for r in MESH_RUNS)["mesh_sp2"],
+                   text_len=RING_OFF_TEXT_LEN)
+    try:
+        trainer.train(cfg, make_synthetic=True, device=dev)
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    with open(os.path.join(work, f"ring_off_rank{rank}.json"), "w") as f:
+        json.dump({"raised": raised}, f)
+    torch.cuda.empty_cache()
+    multihost.sync_hosts()
     multihost.shutdown()
     return 0
 
@@ -4566,7 +4886,7 @@ def mesh_training(torch, dev):
     gref, gref_p3, _ = mesh_reference(torch, dev, gated=True)
     plain = {False: (ref, ref_p3), True: (gref, gref_p3)}
     controls, base = {}, {}
-    for control, gated in (("halves", False), ("tp", True)):
+    for control, gated in (("halves", False), ("tp", True), ("seq_halves", False)):
         recs, p3, _ = mesh_reference(torch, dev, gated=gated, control=control)
         controls[control] = (recs, p3, gated)
         base[control] = _differences(recs, p3, *plain[gated], p0)
@@ -4619,11 +4939,13 @@ def mesh_training(torch, dev):
             within = {k: got[k] <= tol[k] for k in got}
             same = all([(x["loss"], x["grad_norm"]) for x in r["records"]]
                        == [(x["loss"], x["grad_norm"]) for x in recs] for r in ranks)
-            per_step = train_launches_per_step(mesh_cfg(batch).model)
-            if gated:
-                per_step = dict(per_step, **GATED_PER_STEP)
-            exact = {k: all(r["launches"][k] == n * MESH_STEPS for r in ranks)
-                     for k, n in per_step.items()}
+            per_rank = []
+            for r in ranks:
+                want = mesh_launches_per_step(mesh_cfg(batch).model, shape, r["coords"], batch)
+                per_rank.append(dict(want, **GATED_PER_STEP) if gated else want)
+            per_step = per_rank[0]
+            exact = {k: all(r["launches"][k] == want[k] * MESH_STEPS
+                            for r, want in zip(ranks, per_rank)) for k in per_step}
             good = all(within.values()) and same and all(exact.values())
             ok &= good
             ms = [r["ms"] for r in recs[1:]]
@@ -4635,7 +4957,7 @@ def mesh_training(torch, dev):
                     for r in ranks}
             nccl_ms = {r["rank"]: r["nccl_device_ms"] / MESH_STEPS for r in ranks
                        if r["nccl_device_ms"] is not None}
-            log(f"[{run}] mesh dp x fsdp x tp = {shape} on {world} ranks "
+            log(f"[{run}] mesh dp x fsdp x tp x sp x pp = {shape} on {world} ranks "
                 f"({'one GPU each' if gpus >= world else 'sharing GPU 0'}), backend "
                 f"{ranks[0]['backend']}{', collectives staged through host memory' if ranks[0]['staged'] else ''}; "
                 f"batch {batch} a data rank (global 6), gated={gated}; the trainer "
@@ -4664,10 +4986,11 @@ def mesh_training(torch, dev):
             for r in ranks:
                 log(f"[{run}] rank {r['rank']} hand-kernel launches over {MESH_STEPS} steps: "
                     f"{ {k: v for k, v in r['launches'].items() if v} }")
-            log(f"[{run}] launches a step a rank against train_launches_per_step "
-                f"{per_step}: {'OK' if all(exact.values()) else 'FAIL ' + str(exact)}")
+            log(f"[{run}] launches a step a rank against mesh_launches_per_step "
+                f"{per_rank}: {'OK' if all(exact.values()) else 'FAIL ' + str(exact)}")
             stats["runs"][run] = dict(shape=shape, batch=batch, gated=gated, control=control,
                                       ranks=ranks, differences=got, tolerance=tol,
+                                      launches_per_step_expected=per_rank,
                                       differences_from_trainer=to_plain,
                                       nccl_device_ms_per_step=nccl_ms,
                                       within=within, mean_step_ms=mean_ms, comm_per_step=comm,
@@ -4675,6 +4998,15 @@ def mesh_training(torch, dev):
                                                 for k in ranks[0]["launches"]})
             if not good:
                 return False, stats
+        raised = []
+        for r in range(world):
+            with open(os.path.join(work, f"ring_off_rank{r}.json")) as f:
+                raised.append(json.load(f)["raised"])
+        good = all(m is not None and "ring-routed" in m for m in raised)
+        ok &= good
+        stats["ring_off"] = dict(text_len=RING_OFF_TEXT_LEN, raised=raised)
+        log(f"[mesh_sp2] ring-off run (a sequence of {RING_OFF_TEXT_LEN} + 30, odd): the "
+            f"trainer raised on every rank: {good} ({raised[0]!r}) {'OK' if good else 'FAIL'}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return ok, stats

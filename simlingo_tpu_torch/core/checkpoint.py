@@ -20,9 +20,12 @@ Counterpart of `simlingo_tpu/core/checkpoint.py` (`save_checkpoint` :45,
   * a state of a multi-GPU mesh (`state.mesh`) saves the same format: the
     shards of every leaf and AdamW moment are gathered (a collective every
     rank calls) and only the primary writes, as JAX writes its run
-    artifacts on the primary (`trainer.py:294-301`); restore reads the
-    whole tree on every rank and keeps the rank's shards, so a run saved
-    on N ranks resumes on M.
+    artifacts on the primary (`trainer.py:294-301`); under pp the stages'
+    layers (and their moments) are gathered too, and the optimizer's
+    entries are numbered in the whole tree's order, as one process numbers
+    them; restore reads the whole tree on every rank and keeps the rank's
+    shards (a stage: its layers' alone), so a run saved on N ranks, at
+    any mesh, resumes on M.
 
 `load_hf_checkpoint` reads a `.bin` / `.pt` with `torch.load(weights_only=
 True)` and a `.safetensors` with `read_safetensors`, the port's own reader
@@ -66,20 +69,38 @@ def _param_paths(state):
     return [paths[id(x)] for g in state.optimizer.param_groups for x in g["params"]]
 
 
+def _whole_order(state, mine):
+    """The optimizer's paths in the whole tree (every pp stage's, in the
+    order of the layouts: one process's order) from this rank's `mine`;
+    collective over pp."""
+    if state.mesh.shape["pp"] == 1:
+        return mine
+    held = {p for part in state.mesh.comm["pp"].all_gather_object(mine) for p in part}
+    return [p for p in state.layouts if p in held]
+
+
 def _host_copy(state) -> Optional[Dict[str, Any]]:
     """The state's tensors on the host (a synchronous device-to-host copy);
     of a mesh, the whole tree gathered (collective; None off the primary)."""
     mesh = getattr(state, "mesh", None)
     if mesh is not None:
         lays = state.layouts
-        params = {p: meshlib.gather_leaf(x.detach(), lays[p], mesh).cpu()
-                  for p, x in flatten(state.params).items()}
+        params = {p: x.cpu() for p, x in meshlib.gather_tree(
+            {p: x.detach() for p, x in flatten(state.params).items()}, lays, mesh).items()}
         opt = state.optimizer.state_dict()
-        for i, path in enumerate(_param_paths(state)):
-            entry = opt["state"].get(i, {})
+        mine = _param_paths(state)
+        entries = {}
+        for i, path in enumerate(mine):
+            entry = dict(opt["state"].get(i, {}))
             for k in ("exp_avg", "exp_avg_sq"):
                 if k in entry:
                     entry[k] = meshlib.gather_leaf(entry[k], lays[path], mesh).cpu()
+            entries[path] = entry
+        entries = meshlib.gather_stages(entries, mesh)
+        order = _whole_order(state, mine)
+        if order is not mine:          # one param group, numbered as in one process
+            opt["param_groups"] = [dict(opt["param_groups"][0], params=list(range(len(order))))]
+        opt["state"] = {i: entries[p] for i, p in enumerate(order) if entries.get(p)}
         if not multihost.is_primary():
             return None
         return {"params": params, "optimizer": opt, "step": int(state.step)}
@@ -181,10 +202,11 @@ def restore_checkpoint(path: str, state):
                        weights_only=True)
     leaves = flatten(state.params)
     mesh, lays = getattr(state, "mesh", None), getattr(state, "layouts", None)
-    if set(saved) != set(leaves):
+    whole = set(lays) if mesh is not None else set(leaves)
+    if set(saved) != whole:
         raise ValueError(f"checkpoint {path}: leaves differ from the state's: "
-                         f"missing {sorted(set(leaves) - set(saved))[:4]}, "
-                         f"extra {sorted(set(saved) - set(leaves))[:4]}")
+                         f"missing {sorted(whole - set(saved))[:4]}, "
+                         f"extra {sorted(set(saved) - whole)[:4]}")
     with torch.no_grad():
         for p, x in leaves.items():
             shape = lays[p].shape if mesh is not None else tuple(x.shape)
@@ -197,11 +219,21 @@ def restore_checkpoint(path: str, state):
         opt = torch.load(os.path.join(path, "optimizer.pt"), map_location="cpu",
                          weights_only=True)
         if mesh is not None:
-            for i, p in enumerate(_param_paths(state)):
-                entry = opt["state"].get(i, {})
+            mine = _param_paths(state)
+            order = _whole_order(state, mine)
+            index = {p: i for i, p in enumerate(order)}
+            local = {}
+            for i, p in enumerate(mine):
+                entry = dict(opt["state"].get(index[p], {}))
                 for k in ("exp_avg", "exp_avg_sq"):
                     if k in entry:
                         entry[k] = meshlib.shard_leaf(entry[k], lays[p], mesh)
+                if entry:
+                    local[i] = entry
+            opt["state"] = local
+            if order is not mine:
+                opt["param_groups"] = [dict(opt["param_groups"][0],
+                                            params=list(range(len(mine))))]
         state.optimizer.load_state_dict(opt)
     with open(os.path.join(path, "meta.json")) as f:
         state.step = int(json.load(f)["step"])

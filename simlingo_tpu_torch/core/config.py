@@ -13,9 +13,10 @@ trains the model that `train.py` trains. `model.remat_vision` and
 `model.remat_llm` compose as JAX's do (a string onto the bool default is
 read as a bool, so "mlp" is set from code, as `bench.py` sets it). One
 difference from JAX: an unknown key raises KeyError. `MeshConfig`'s dp,
-fsdp and tp lay the trainer's ranks out (`parallel/mesh.py`; dp -1 fills
-the processes); sp and pp above 1 are refused (`check_supported`,
-ROADMAP A13b).
+fsdp, tp, sp and pp lay the trainer's ranks out (`parallel/mesh.py`; dp -1
+fills the processes); sp cuts the LLM's sequence (`parallel/sequence.py`),
+pp its layers, over `pp_microbatches` microbatches
+(`parallel/pipeline.py`).
 `BaseTrainConfig` holds the fields of `TrainConfig` that `train_base.py`
 reads for SimLingo-Base, with the same defaults (its model is
 `SimLingoBaseConfig()`, its mesh dp x fsdp); `compose_base` composes it
@@ -46,12 +47,17 @@ class MeshConfig:
     pp_microbatches: int = 0
 
     def check_supported(self) -> None:
-        """The port lays ranks out over dp, fsdp and tp; sequence (sp) and
-        pipeline (pp) parallelism are ROADMAP A13b."""
-        bad = {k: v for k, v in (("sp", self.sp), ("pp", self.pp)) if v != 1}
-        if bad:
-            raise ValueError(f"mesh {bad}: sequence and pipeline parallelism are not "
-                             "ported yet (ROADMAP A13b); use dp, fsdp and tp")
+        """The port lays ranks out over all five axes (`parallel/mesh.py`):
+        every size but dp's -1 (fill) must be at least 1, and
+        pp_microbatches (0: one a stage, as JAX's `_num_microbatches`)
+        at least 0."""
+        bad = {k: v for k, v in (("dp", self.dp), ("fsdp", self.fsdp), ("tp", self.tp),
+                                 ("sp", self.sp), ("pp", self.pp))
+               if v < 1 and not (k == "dp" and v == -1)}
+        if bad or self.pp_microbatches < 0:
+            raise ValueError(f"mesh {bad or {'pp_microbatches': self.pp_microbatches}}: "
+                             "axis sizes are >= 1 (dp -1 fills the processes), "
+                             "pp_microbatches >= 0")
 
 
 @dataclasses.dataclass

@@ -13,7 +13,11 @@ keep their layout and their per-row scales (int4: [V, H // 2], [V, G]).
 LoRA factors become the peft layout: a [in, r] -> [r, in], b [r, out] ->
 [out, r]. Conv kernels (the ResNet's, the only 4-D leaves) go from JAX's
 HWIO to torch's [out, in, kh, kw]; the ResNet's running statistics
-(`bn_state`) are carried as they are.
+(`bn_state`) are carried as they are. JAX's stacked layer layout (its
+pipeline-parallel trees, `llm/layers/<leaf>` and `lora/layers/<leaf>` with
+a leading layer dim) is unstacked with numpy into the dict of layers
+first (`parallel/pipeline.unstack_layer_tree`), so a stacked tree gives
+the port the tree its dict layout gives.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 from simlingo_tpu_torch.core.device import resolve_device
 from simlingo_tpu_torch.core.structs import (DrivingExample, DrivingInput,
                                              DrivingLabel, LanguageLabel)
+from simlingo_tpu_torch.parallel.pipeline import is_stacked, unstack_layer_tree
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -54,9 +59,22 @@ def _convert(node, key: str, device):
     return out
 
 
+def _unstacked(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The tree with every stacked "layers" subtree of an LLM tower (the
+    whole tree's "llm" and "lora", or a bare Qwen2 tree's) in the dict
+    layout."""
+    def fix(node):
+        if isinstance(node, dict) and node.get("layers") and is_stacked(node["layers"]):
+            return dict(node, layers=unstack_layer_tree(node["layers"]))
+        return node
+    out = fix(tree)
+    return {k: fix(v) if k in ("llm", "lora") else v for k, v in out.items()}
+
+
 def params_from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
-    """JAX parameter tree -> the port's tree; every leaf keeps its dtype."""
-    return _convert(tree, "", resolve_device(device))
+    """JAX parameter tree (dict or stacked layer layout) -> the port's tree;
+    every leaf keeps its dtype."""
+    return _convert(_unstacked(tree), "", resolve_device(device))
 
 
 def label_from_jax(label, device="cuda") -> LanguageLabel:

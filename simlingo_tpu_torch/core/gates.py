@@ -16,8 +16,11 @@ report them: attention always runs the port's kernel on a CUDA tensor
 (SIMLINGO_ATTN_IMPL picks among JAX's backends), dropout is the port's
 one Philox kernel (SIMLINGO_DROPOUT_V2 picks among JAX's two), and the
 LoRA products are never fused with the base linear (SIMLINGO_LORA_FUSED,
-off in JAX, changes its group dropout masks). A printed gate state of
-the port is not JAX's.
+off in JAX, changes its group dropout masks). Nor does the port read
+JAX's SIMLINGO_SP_ATTN (`simlingo_tpu/kernels/flash_attention.py:1336-1340`),
+whose "0" computes attention on a replicated sequence under sequence
+parallelism: the port's sp always runs the ring (`parallel/sequence.py`).
+A printed gate state of the port is not JAX's.
 
 In the port, `pallas` means the hand-written CUDA kernel on a CUDA tensor
 and its plain PyTorch version on a CPU tensor (`kernels/fused_ce.py`,

@@ -13,11 +13,15 @@
 //
 // A rank of a multi-GPU step draws the one-process mask restricted to its
 // block (dropout_block_kernel, entry simlingo_dropout_block): element i of
-// the local [rows, cols] tensor takes the index base + i (its batch rows
-// start at flat index base), or, strided, (row0 + i / cols) * width + col0
-// + i % cols (its columns are a slice of a row-parallel linear's input).
-// The wrapper keeps each thread's 8 elements at a multiple of 4 of the
-// index (cols % 8, col0 % 4, width % 4 == 0 where strided; base % 4 == 0).
+// the local [rows, cols] tensor takes the index base + i (mode 0: its
+// batch rows start at flat index base), (row0 + i / cols) * width + col0
+// + i % cols (mode 1, strided: its columns are a slice of a row-parallel
+// linear's input), or, with local row r = i / cols, (row0 + (r / seg) *
+// stride + r % seg) * width + col0 + i % cols (mode 2, segmented: under
+// sequence parallelism a rank's rows are a slab of seg positions out of
+// every stride of the one-process [B * T, cols] view). The wrapper keeps
+// each thread's 8 elements at a multiple of 4 of the index (cols % 8,
+// col0 % 4, width % 4 == 0 in modes 1 and 2; base % 4 == 0 in mode 0).
 // dropout_kernel, the one-process layout, is a kernel of its own, so that
 // its code, bits and time stay those it had before the blocks.
 //
@@ -91,12 +95,12 @@ dropout_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ 
   }
 }
 
-template <bool kStrided>
+template <int kMode>
 __global__ void __launch_bounds__(256)
 dropout_block_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out,
                      long long n, uint32_t k0, uint32_t k1, uint32_t thresh, float inv_keep,
                      long long base, unsigned groups_per_row, long long col0,
-                     long long width) {
+                     long long width, unsigned seg, long long seg_stride) {
   const long long groups = n / 8;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long gi = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
@@ -104,10 +108,17 @@ dropout_block_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restr
     const uint4 raw = reinterpret_cast<const uint4*>(x)[gi];
     const __nv_bfloat16* xv = reinterpret_cast<const __nv_bfloat16*>(&raw);
     unsigned long long idx;                 // the index of this thread's first element
-    if (kStrided) {                         // base is row0 here
+    if (kMode == 1) {                       // base is row0 here
       const unsigned g = static_cast<unsigned>(gi);
       const unsigned r = g / groups_per_row;
       idx = static_cast<unsigned long long>(base + r) * width + col0
+            + static_cast<unsigned long long>(g - r * groups_per_row) * 8;
+    } else if (kMode == 2) {                // row0, and the row's segment
+      const unsigned g = static_cast<unsigned>(gi);
+      const unsigned r = g / groups_per_row;
+      const unsigned q = r / seg;
+      const long long row = base + static_cast<long long>(q) * seg_stride + (r - q * seg);
+      idx = static_cast<unsigned long long>(row) * width + col0
             + static_cast<unsigned long long>(g - r * groups_per_row) * 8;
     } else {
       idx = static_cast<unsigned long long>(base) + static_cast<unsigned long long>(gi) * 8;
@@ -121,9 +132,9 @@ dropout_block_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restr
     for (int j = 0; j < 8; ++j) ov[j] = apply(xv[j], bits[j], thresh, inv_keep);
     reinterpret_cast<uint4*>(out)[gi] = res;
   }
-  // ragged tail (not strided: cols % 8 == 0 leaves none there)
+  // ragged tail (mode 0 only: cols % 8 == 0 leaves none in the others)
   const long long i = groups * 8 + blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (!kStrided && blockIdx.x == 0 && i < n) {
+  if (kMode == 0 && blockIdx.x == 0 && i < n) {
     const unsigned long long g = static_cast<unsigned long long>(base + i);
     const U4 r = draw(g >> 2, k0, k1);
     out[i] = apply(x[i], lane_of(r, static_cast<int>(g & 3)), thresh, inv_keep);
@@ -139,24 +150,36 @@ long long grid_for(long long n, int threads) {
 
 }  // namespace
 
-// The block layouts: a, b, c are the flat base where not strided (b, c
-// unused), row0, col0 and width where strided.
+// The block layouts: a, b, c are the flat base in mode 0 (b, c unused),
+// row0, col0 and width in modes 1 and 2; seg and stride are mode 2's.
 extern "C" int simlingo_dropout_block(const void* x, void* out, long long n, uint32_t k0,
                                       uint32_t k1, uint32_t thresh, float inv_keep,
                                       long long cols, long long a, long long b, long long c,
-                                      int strided, void* stream) {
+                                      int mode, long long seg, long long stride,
+                                      void* stream) {
   const int threads = 256;
   const auto blocks = static_cast<unsigned>(grid_for(n, threads));
   const auto* xp = static_cast<const __nv_bfloat16*>(x);
   auto* op = static_cast<__nv_bfloat16*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (strided) {
+  if (mode == 1 || mode == 2) {
     if (cols % 8 || n / 8 > 0xFFFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-    dropout_block_kernel<true><<<blocks, threads, 0, s>>>(
-        xp, op, n, k0, k1, thresh, inv_keep, a, static_cast<unsigned>(cols / 8), b, c);
+    const auto gpr = static_cast<unsigned>(cols / 8);
+    if (mode == 1) {
+      dropout_block_kernel<1><<<blocks, threads, 0, s>>>(
+          xp, op, n, k0, k1, thresh, inv_keep, a, gpr, b, c, 0u, 0);
+    } else {
+      if (seg < 1 || seg > 0xFFFFFFFFLL || stride < seg)
+        return static_cast<int>(cudaErrorInvalidValue);
+      dropout_block_kernel<2><<<blocks, threads, 0, s>>>(
+          xp, op, n, k0, k1, thresh, inv_keep, a, gpr, b, c, static_cast<unsigned>(seg),
+          stride);
+    }
+  } else if (mode == 0) {
+    dropout_block_kernel<0><<<blocks, threads, 0, s>>>(
+        xp, op, n, k0, k1, thresh, inv_keep, a, 0u, 0, 0, 0u, 0);
   } else {
-    dropout_block_kernel<false><<<blocks, threads, 0, s>>>(
-        xp, op, n, k0, k1, thresh, inv_keep, a, 0u, 0, 0);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

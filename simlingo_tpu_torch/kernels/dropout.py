@@ -16,16 +16,26 @@ carries over is the contract: the keep rate, the scaling, one mask per
 seed, and a backward that regenerates the forward's mask from the seed.
 
 A rank of a multi-GPU step holds a block of the tensor that one process
-would hold: its batch rows (dp, fsdp) and, for a row-parallel linear's
-input, its columns (tp). `block=(row0, col0, width)` places the local
-tensor, viewed as [rows, cols] with cols its last dimension, at row row0
-and column col0 of a [*, width] whole, and element i takes the index
-(row0 + i // cols) * width + col0 + i % cols: each rank draws the
-one-process mask restricted to its block. With no block (or (0, 0,
-cols)) the index is i and the mask keeps its bits.
+would hold: its batch rows (dp, fsdp), for a row-parallel linear's input
+its columns (tp), and under sp a slab of each sequence. `block=(row0,
+col0, width)` places the local tensor, viewed as [rows, cols] with cols
+its last dimension, at row row0 and column col0 of a [*, width] whole:
+element i takes the index (row0 + i // cols) * width + col0 + i % cols.
+`block=(row0, col0, width, seg, stride)` places its rows in segments:
+local row r is row row0 + (r // seg) * stride + r % seg of the whole, so
+a rank's [B, T/sp, H] slab of a [B, T, H] tensor (seg T/sp, stride T,
+row0 its first row) takes the rows the one-process [B * T, H] view gives
+its positions. Either way each rank draws the one-process mask
+restricted to its block. With no block (or (0, 0, cols)) the index is i
+and the mask keeps its bits. A pipeline microbatch is a plain row offset,
+so pipelined masks are the one-process masks too. Two differences from
+JAX by design: JAX folds the microbatch into its key
+(`simlingo_tpu/models/qwen2.py:376-386`), so its pipelined masks differ
+from its own unpipelined ones; and the port's streams never equal JAX's
+(Philox here, threefry there).
 
 On a CUDA tensor `dropout` launches `csrc/dropout.cu` (`dropout_kernel`,
-or `dropout_block_kernel` for a block); on a CPU tensor it
+or `dropout_block_kernel` for a block, segmented or not); on a CPU tensor it
 runs `dropout_plain`, which computes the same Philox in int64 torch
 arithmetic, so kernel and plain version give bit-identical results.
 """
@@ -88,8 +98,12 @@ def global_index(numel: int, cols: int, block=None, device="cpu") -> torch.Tenso
     idx = torch.arange(numel, dtype=torch.int64, device=device)
     if block is None:
         return idx
-    row0, col0, width = block
-    return (row0 + idx // cols) * width + col0 + idx % cols
+    row0, col0, width = block[:3]
+    rows = idx // cols
+    if len(block) == 5:                  # segments of seg rows, stride apart
+        seg, stride = block[3:]
+        rows = (rows // seg) * stride + rows % seg
+    return (row0 + rows) * width + col0 + idx % cols
 
 
 def keep_mask(numel: int, seed: int, rate: float, device="cpu", block=None,
@@ -115,10 +129,14 @@ def dropout_plain(x: torch.Tensor, seed: int, rate: float, block=None) -> torch.
 
 
 def _normal_block(block, cols: int):
-    """None where the block is the identity placement."""
-    if block is None or tuple(block) == (0, 0, cols):
+    """None where the block is the identity placement; a segmented block
+    whose segments abut (seg == stride) is a plain one."""
+    if block is None:
         return None
-    return tuple(int(v) for v in block)
+    block = tuple(int(v) for v in block)
+    if len(block) == 5 and block[3] == block[4]:
+        block = block[:3]
+    return None if block == (0, 0, cols) else block
 
 
 def dropout(x: torch.Tensor, seed: int, rate: float, block=None) -> torch.Tensor:
@@ -131,22 +149,26 @@ def dropout(x: torch.Tensor, seed: int, rate: float, block=None) -> torch.Tensor
 
 
 def _kernel_placement(cols: int, block):
-    """The block kernel's (a, b, c, strided): element i's index is a + i
-    (strided 0), or (a + i // cols) * c + b + i % cols (strided 1: a, b, c
-    = row0, col0, width). Each thread's 8 elements must start at a
-    multiple of 4 of the index (one Philox block a 4), which these checks
-    keep."""
-    row0, col0, width = block
+    """The block kernel's (a, b, c, mode, seg, stride): element i's index is
+    a + i (mode 0), (a + i // cols) * c + b + i % cols (mode 1: a, b, c =
+    row0, col0, width), or, with local row r = i // cols, (a + (r // seg)
+    * stride + r % seg) * c + b + i % cols (mode 2, segmented). Each
+    thread's 8 elements must start at a multiple of 4 of the index (one
+    Philox block a 4), which these checks keep."""
+    row0, col0, width = block[:3]
+    seg, stride = block[3:] if len(block) == 5 else (0, 0)
     if row0 < 0 or col0 < 0 or col0 + cols > width:
         raise ValueError(f"dropout block {block} does not hold {cols} columns")
-    if col0 == 0 and width == cols:
+    if seg and (seg < 1 or stride < seg):
+        raise ValueError(f"dropout block {block}: segments of {seg} rows {stride} apart")
+    if not seg and col0 == 0 and width == cols:
         if (row0 * width) % 4:
             raise ValueError(f"dropout kernel: row offset x width {row0 * width} % 4 != 0")
-        return row0 * width, 0, 0, 0
+        return row0 * width, 0, 0, 0, 0, 0
     if cols % 8 or col0 % 4 or width % 4:
-        raise ValueError(f"dropout kernel: a column block needs cols % 8 == 0 and col0, "
-                         f"width % 4 == 0 (cols {cols}, block {block})")
-    return row0, col0, width, 1
+        raise ValueError(f"dropout kernel: a column block or segment needs cols % 8 == 0 "
+                         f"and col0, width % 4 == 0 (cols {cols}, block {block})")
+    return row0, col0, width, 2 if seg else 1, seg, stride
 
 
 def _dropout_cuda(x, seed, rate, block=None):
@@ -203,6 +225,6 @@ def _lib():
                 ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float]
         lib.simlingo_dropout.argtypes = head + [ctypes.c_void_p]
         lib.simlingo_dropout_block.argtypes = head + [ctypes.c_longlong] * 4 + [
-            ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
         lib.simlingo_dropout.restype = lib.simlingo_dropout_block.restype = ctypes.c_int
     return lib

@@ -42,7 +42,9 @@ configurations 16 and 32). D > 128 raises on a CUDA tensor.
 On a CUDA tensor `attention` launches the kernel (bf16); on a CPU
 tensor it runs `attention_reference`. `attention_train` does the same for
 the forward and, in its backward, launches `flash_attn_bwd` on CUDA tensors
-and runs `attention_bwd_reference` on CPU tensors.
+and runs `attention_bwd_reference` on CPU tensors. `attention_autograd`
+hands the LLM's slabs to the ring under sequence parallelism
+(`parallel/sequence.py`), which launches both kernels a chunk.
 """
 
 from __future__ import annotations
@@ -719,7 +721,13 @@ def attention_train(q, k, v, kv_valid=None, causal=True, scale=None,
 def attention_autograd(q, k, v, kv_valid=None, causal=True, scale=None,
                        q_offset=None):
     """`attention_train` when autograd records through q/k/v (training),
-    else the serving `attention` (no lse written, nothing saved)."""
+    else the serving `attention` (no lse written, nothing saved). Under
+    sequence parallelism, a self-attention call of the LLM's slab without
+    q_offset runs as the ring instead (`parallel/sequence.py`; JAX's
+    dispatch, `simlingo_tpu/kernels/flash_attention.py:1329-1345`)."""
+    from simlingo_tpu_torch.parallel import sequence
+    if sequence.routes(q, k, q_offset):
+        return sequence.ring_attention(q, k, v, kv_valid, causal, scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return attention_train(q, k, v, kv_valid, causal, scale, q_offset)

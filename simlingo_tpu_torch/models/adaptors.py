@@ -144,20 +144,26 @@ def driving_loss(p: Dict[str, Any], query_features: torch.Tensor,
 
 
 def gather_answer_states(hidden: torch.Tensor, ids: torch.Tensor,
-                         loss_mask: torch.Tensor, max_answer_len: int
+                         loss_mask: torch.Tensor, max_answer_len: int, lo: int = 0
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The hidden states that predict answer tokens. The loss region is
     contiguous, so each sample takes [start - 1, start - 1 + A) where start
-    is its first masked slot. Returns (hidden_g [B, A, H], labels [B, A],
-    valid [B, A])."""
-    B, T, H = hidden.shape
+    is its first masked slot. `hidden` [B, Tl, H] holds positions [lo, lo +
+    Tl) of each row (all of them by default; a sequence-parallel slab
+    otherwise): a state it does not hold is not valid, so each answer
+    token's CE is counted by exactly one slab. Returns (hidden_g [B, A, H],
+    labels [B, A], valid [B, A])."""
+    B, Tl, H = hidden.shape
+    T = ids.shape[1]
     n_ans = loss_mask.sum(dim=1)
     start = loss_mask.int().argmax(dim=1)                  # first True (0 if none)
     offs = torch.arange(max_answer_len, device=hidden.device)[None, :]
     pred_idx = (start[:, None] - 1 + offs).clamp(0, T - 1)
     label_idx = (start[:, None] + offs).clamp(0, T - 1)
-    hidden_g = torch.gather(hidden, 1, pred_idx[..., None].expand(-1, -1, H))
-    return hidden_g, torch.gather(ids, 1, label_idx), offs < n_ans[:, None]
+    held = (pred_idx >= lo) & (pred_idx < lo + Tl)
+    local = (pred_idx - lo).clamp(0, Tl - 1)
+    hidden_g = torch.gather(hidden, 1, local[..., None].expand(-1, -1, H))
+    return hidden_g, torch.gather(ids, 1, label_idx), (offs < n_ans[:, None]) & held
 
 
 def _masked_ce(logits_fn, h, labels, valid):

@@ -11,8 +11,9 @@ and recomputed in the backward, as JAX's `jax.checkpoint` of `layer_fn`
 (:471): the recompute launches the attention forward and the dropout
 forwards again, and draws the same masks, since the seeds are host ints
 (`layer_seeds`). The fused-LoRA
-lever (`SIMLINGO_LORA_FUSED`, off in JAX) and the stacked / pipeline layer
-layouts are not ported.
+lever (`SIMLINGO_LORA_FUSED`, off in JAX) is not ported, and the layers
+stay a dict of layers (JAX's stacked layout is read by
+`core/from_jax.py`).
 
 Tensor parallelism (`tp`, `models/layers.py`): at tp = t each rank holds
 num_heads / t query heads and num_kv_heads / t kv heads (GQA groups
@@ -25,6 +26,18 @@ tensor (`kernels/dropout.py` blocks): the rank's batch rows
 (`batch_offset`) and, at a row-parallel input, its columns, so every
 rank draws the one-process mask of its block.
 
+Sequence parallelism (`slab`, `parallel/sequence.py`): the inputs are this
+rank's slab of every row; RoPE takes the slab's positions, attention runs
+as the ring over the sp group, and each dropout mask is placed at the
+slab's rows of the one-process tensor (segments of T / sp rows, T apart).
+Pipeline parallelism (`parallel/pipeline.py`): with the pp context set
+and no cache, `forward` runs only this stage's layers, keyed by their
+global index, as a GPipe pipeline over microbatches, each microbatch's
+dropout masks placed at its rows; the layers' own remat is the stage's
+(`pipeline.enable(remat=...)`), as JAX's stacked forward ignores `remat`.
+A stage's tree (not every layer) refuses the KV cache, as JAX's assert
+(:444-446) refuses the stacked layout.
+
 Architecture constants (Qwen2-0.5B-Instruct inside InternVL2-1B): hidden
 896, 24 layers, 14 query heads / 2 kv heads, head_dim 64, intermediate
 4864, RMSNorm eps 1e-6, rope_theta 1e6, SwiGLU, qkv bias, tied embeddings.
@@ -32,6 +45,7 @@ Architecture constants (Qwen2-0.5B-Instruct inside InternVL2-1B): hidden
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
@@ -43,6 +57,8 @@ from simlingo_tpu_torch.kernels.dropout import dropout
 from simlingo_tpu_torch.kernels.flash_attention import attention, attention_autograd
 from simlingo_tpu_torch.kernels.quantized_matmul import int4_matmul, int8_matmul
 from simlingo_tpu_torch.models import layers as L
+from simlingo_tpu_torch.parallel import pipeline, sequence
+from simlingo_tpu_torch.parallel.mesh import flatten, unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,17 +232,20 @@ def layer_seeds(step_seed: int, layer_idx: int) -> Dict[str, int]:
             for j, name in enumerate(LORA_TARGETS)}
 
 
-def _drop_block(x: torch.Tensor, row0: int, tp, role: str):
-    """Where x lies in the one-process tensor: rows from row0, and at a
-    row-parallel input under tp, this rank's columns."""
+def _drop_block(x: torch.Tensor, rows, tp, role: str):
+    """Where x lies in the one-process tensor (`kernels/dropout.py`): its
+    rows, an int row0 or (row0, seg, stride) (a slab of seg rows out of
+    every stride), and at a row-parallel input under tp, this rank's
+    columns."""
     cols = x.shape[-1]
-    if tp is not None and role == "row":
-        return (row0, tp.rank * cols, cols * tp.size)
-    return (row0, 0, cols)
+    row0, seg, stride = (rows, 0, 0) if isinstance(rows, int) else rows
+    col0, width = (tp.rank * cols, cols * tp.size) if tp is not None and role == "row" \
+        else (0, cols)
+    return (row0, col0, width, seg, stride) if seg != stride else (row0, col0, width)
 
 
 def _linear_maybe_lora(p, lora, x, cfg: Qwen2Config, seed=None, tp=None,
-                       role: str = "column", row0: int = 0):
+                       role: str = "column", rows=0):
     """The base linear plus the LoRA delta. Under `tp`, `role` "column"
     (x replicated; this rank's output features) or "row" (x this rank's
     input features; the partial output all-reduced, then the bias)."""
@@ -238,14 +257,14 @@ def _linear_maybe_lora(p, lora, x, cfg: Qwen2Config, seed=None, tp=None,
             a, b = (a, L.tp_slice(b, 0, tp)) if role == "column" else (L.tp_slice(a, 1, tp), b)
         if seed is not None and cfg.lora_dropout > 0:
             y = y + scale * _LoraDropDelta.apply(x, a, b, seed, cfg.lora_dropout,
-                                                 _drop_block(x, row0, tp, role))
+                                                 _drop_block(x, rows, tp, role))
         else:
             y = y + scale * F.linear(F.linear(x, a), b)
     return L.row_finish(y, p, tp) if tp is not None and role == "row" else y
 
 
 def _attn_block(p, lora, x, cfg: Qwen2Config, cos, sin, kv_valid, causal,
-                cache=None, cache_index=None, seeds=None, tp=None, row0=0):
+                cache=None, cache_index=None, seeds=None, tp=None, rows=0):
     B, T, _ = x.shape
     hd = cfg.head_dim
     if tp is not None and cache is not None:
@@ -254,7 +273,7 @@ def _attn_block(p, lora, x, cfg: Qwen2Config, cos, sin, kv_valid, causal,
 
     def lr(name):
         return _linear_maybe_lora(p[name], lora.get(name) if lora else None,
-                                  x, cfg, seeds[name] if seeds else None, tp, "column", row0)
+                                  x, cfg, seeds[name] if seeds else None, tp, "column", rows)
 
     q, k, v = lr("q"), lr("k"), lr("v")
     nh, nkv = q.shape[-1] // hd, k.shape[-1] // hd      # this rank's heads
@@ -277,15 +296,15 @@ def _attn_block(p, lora, x, cfg: Qwen2Config, cos, sin, kv_valid, causal,
         out = attention_autograd(q, k, v, kv_valid, causal=causal)
     return _linear_maybe_lora(p["o"], lora.get("o") if lora else None,
                               out.reshape(B, T, nh * hd), cfg,
-                              seeds["o"] if seeds else None, tp, "row", row0)
+                              seeds["o"] if seeds else None, tp, "row", rows)
 
 
-def _mlp_block(p, lora, x, cfg: Qwen2Config, seeds=None, tp=None, row0=0):
+def _mlp_block(p, lora, x, cfg: Qwen2Config, seeds=None, tp=None, rows=0):
     x = L.tp_copy(x, tp)
 
     def lr(name, inp, role):
         return _linear_maybe_lora(p[name], lora.get(name) if lora else None,
-                                  inp, cfg, seeds[name] if seeds else None, tp, role, row0)
+                                  inp, cfg, seeds[name] if seeds else None, tp, role, rows)
 
     down = lora.get("down") if lora else None
     if down is not None and seeds is not None and cfg.lora_dropout > 0:
@@ -295,18 +314,22 @@ def _mlp_block(p, lora, x, cfg: Qwen2Config, seeds=None, tp=None, row0=0):
             a = L.tp_slice(a, 1, tp)
         y = L.linear(L.tp_params(p["down"], "row", tp), F.silu(xg) * xu)
         y = y + (cfg.lora_alpha / cfg.lora_r) * _LoraDropDeltaGLU.apply(
-            xg, xu, a, b, seeds["down"], cfg.lora_dropout, _drop_block(xg, row0, tp, "row"))
+            xg, xu, a, b, seeds["down"], cfg.lora_dropout, _drop_block(xg, rows, tp, "row"))
         return y if tp is None else L.row_finish(y, p["down"], tp)
     return lr("down", F.silu(lr("gate", x, "column")) * lr("up", x, "column"), "row")
 
 
 def _decoder_layer(lp, lo, x, cfg: Qwen2Config, cos, sin, kv_valid, causal,
-                   layer_cache, cache_index, seeds, tp=None, row0=0):
-    x = x + _attn_block(lp["attn"], lo, L.rmsnorm(lp["ln1"], x, cfg.rms_norm_eps),
-                        cfg, cos, sin, kv_valid, causal, layer_cache, cache_index, seeds,
-                        tp, row0)
+                   layer_cache, cache_index, seeds, tp=None, rows=0, slab=False):
+    """One layer; `slab`: x is a sequence-parallel slab, whose attention runs
+    as the ring (entered here, so that a recompute in the backward, by
+    remat or the pipeline, routes as the forward did)."""
+    with sequence.slab_region() if slab else contextlib.nullcontext():
+        x = x + _attn_block(lp["attn"], lo, L.rmsnorm(lp["ln1"], x, cfg.rms_norm_eps),
+                            cfg, cos, sin, kv_valid, causal, layer_cache, cache_index, seeds,
+                            tp, rows)
     return x + _mlp_block(lp["mlp"], lo, L.rmsnorm(lp["ln2"], x, cfg.rms_norm_eps),
-                          cfg, seeds, tp, row0)
+                          cfg, seeds, tp, rows)
 
 
 def forward(params: Dict[str, Any], inputs_embeds: torch.Tensor,
@@ -316,7 +339,8 @@ def forward(params: Dict[str, Any], inputs_embeds: torch.Tensor,
             cache: Optional[Dict[str, Any]] = None,
             remat: bool = False,
             dropout_seed: Optional[int] = None,
-            tp=None, batch_offset: int = 0
+            tp=None, batch_offset: int = 0,
+            slab: Optional[Tuple[int, int]] = None
             ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Decoder stack on pre-built embeddings [B, T, H].
 
@@ -328,31 +352,86 @@ def forward(params: Dict[str, Any], inputs_embeds: torch.Tensor,
     adapter's input is dropped out (training).
     tp: the tp group or None; batch_offset: the first batch row of this
     rank's rows in the one-process batch (dropout masks).
+    slab: (i, n): the inputs are slab i of n of each row's sequence
+    (sequence parallelism; attention runs as the ring).
+    Under the pp context (no cache) the tree holds this stage's layers and
+    the forward runs them as a pipeline (module docstring).
     """
     x = inputs_embeds
+    T = x.shape[1]
     inv_freq = L.rope_frequencies(cfg.head_dim, cfg.rope_theta, x.device)
     cos, sin = L.rope_cos_sin(position_ids, inv_freq)
     if kv_valid is not None:     # the kernel's mask type, made once for all layers
         kv_valid = kv_valid.to(torch.uint8).contiguous()
+    if len(params["layers"]) < cfg.num_layers and (cache is not None
+                                                   or pipeline.active_axis() is None):
+        raise ValueError(f"a pipeline stage's tree ({len(params['layers'])} of "
+                         f"{cfg.num_layers} layers) runs only inside the pipeline: it "
+                         "has no KV-cache decode path")
     cache_index = int(cache["index"]) if cache is not None else None
-    row0 = batch_offset * x.shape[1]
-    for i in range(cfg.num_layers):
-        lp = params["layers"][str(i)]
-        lo = lora_params["layers"].get(str(i)) if lora_params else None
-        layer_cache = cache["layers"][str(i)] if cache is not None else None
-        seeds = (layer_seeds(dropout_seed, i) if dropout_seed is not None
-                 and lo is not None and cfg.lora_dropout > 0 else None)
-        if remat and cache is None and torch.is_grad_enabled():
-            # the layer draws no torch random numbers: no RNG state to replay
-            x = checkpoint(_decoder_layer, lp, lo, x, cfg, cos, sin, kv_valid, causal,
-                           None, None, seeds, tp, row0, use_reentrant=False,
-                           preserve_rng_state=False)
-        else:
-            x = _decoder_layer(lp, lo, x, cfg, cos, sin, kv_valid, causal,
-                               layer_cache, cache_index, seeds, tp, row0)
+    T_all, off = (T * slab[1], T * slab[0]) if slab is not None else (T, 0)
+
+    def rows(b0: int):
+        """The dropout rows of batch rows from b0 on (`_drop_block`)."""
+        return (b0 * T_all + off, T, T_all)
+
+    def seeds_of(i, lo):
+        return (layer_seeds(dropout_seed, i) if dropout_seed is not None
+                and lo is not None and cfg.lora_dropout > 0 else None)
+
+    ring = slab is not None
+    if cache is None and pipeline.active_axis() is not None:
+        x = _pipelined(params, lora_params, x, cfg, cos, sin, kv_valid, causal,
+                       seeds_of, tp, rows, batch_offset, ring)
+    else:
+        for i in range(cfg.num_layers):
+            lp = params["layers"][str(i)]
+            lo = lora_params["layers"].get(str(i)) if lora_params else None
+            layer_cache = cache["layers"][str(i)] if cache is not None else None
+            seeds = seeds_of(i, lo)
+            if remat and cache is None and torch.is_grad_enabled():
+                # the layer draws no torch random numbers: no RNG state to replay
+                x = checkpoint(_decoder_layer, lp, lo, x, cfg, cos, sin, kv_valid,
+                               causal, None, None, seeds, tp, rows(batch_offset), ring,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = _decoder_layer(lp, lo, x, cfg, cos, sin, kv_valid, causal,
+                                   layer_cache, cache_index, seeds, tp, rows(batch_offset),
+                                   ring)
     if cache is not None:
         cache = dict(cache, index=cache_index + inputs_embeds.shape[1])
     return L.rmsnorm(params["final_norm"], x, cfg.rms_norm_eps), cache
+
+
+def _pipelined(params, lora_params, x, cfg: Qwen2Config, cos, sin, kv_valid, causal,
+               seeds_of, tp, rows, batch_offset, ring):
+    """This stage's layers over the pipeline (`parallel/pipeline.py`): stage
+    s of S holds layers [s L / S, (s + 1) L / S)."""
+    pp = pipeline.comm()
+    per = cfg.num_layers // pp.size
+    ids = [str(i) for i in range(pp.rank * per, (pp.rank + 1) * per)]
+    pairs = [(f"p/{i}/{path}", t) for i in ids for path, t in flatten(params["layers"][i]).items()]
+    if lora_params:
+        pairs += [(f"l/{i}/{path}", t) for i in ids
+                  for path, t in flatten(lora_params["layers"].get(i, {})).items()]
+    names = [n for n, _ in pairs]
+    mb = x.shape[0] // pipeline.microbatches(x.shape[0])
+
+    def stage(x_mb, m, flat):
+        tree = unflatten(dict(zip(names, flat)))
+        sl = slice(m * mb, (m + 1) * mb)
+        valid_m = kv_valid[sl] if kv_valid is not None else None
+        for i in ids:
+            lo = tree.get("l", {}).get(i)
+            x_mb = _decoder_layer(tree["p"][i], lo, x_mb, cfg, cos[sl], sin[sl], valid_m,
+                                  causal, None, None, seeds_of(int(i), lo), tp,
+                                  rows(batch_offset + m * mb), ring)
+        return x_mb
+
+    # a later stage reads its input from the previous stage, not from x:
+    # no cotangent for x there (so the ViT's backward runs on stage 0 alone)
+    return pipeline.pipeline_layers(stage, x if pp.rank == 0 else x.detach(),
+                                    [t for _, t in pairs])
 
 
 def logits_from_hidden(params, hidden: torch.Tensor, cfg: Qwen2Config

@@ -12,10 +12,19 @@ are computed, not what: losses and gradients equal remat off's. They act
 only while autograd records, so serving and evaluation never recompute.
 `tiny()` turns both off, as JAX's does.
 
-On a dp x fsdp x tp mesh (`parallel/mesh.py`) `forward_loss(mesh=...)`
-runs this rank's part: its batch rows, the towers split over tp, dropout
-masks placed at its rows, and each loss average its share of the global
-batch's (`summarise_losses(count_reduce=...)`).
+On a dp x fsdp x tp x sp x pp mesh (`parallel/mesh.py`)
+`forward_loss(mesh=...)` runs this rank's part: its batch rows, the towers
+split over tp, dropout masks placed at its rows, and each loss average
+its share of the global batch's (`summarise_losses(count_reduce=...)`).
+Under sequence parallelism (`parallel/sequence.py`) every sp rank builds
+the whole sequence and runs the LLM on its slab;
+each loss term is computed by the rank that holds its position (an
+answer token's CE where its predicting state lies, the driving losses on
+the last sp rank, which holds the queries), so the losses and counts
+summed over dp x fsdp x sp are the global batch's. Under pipeline
+parallelism (`parallel/pipeline.py`) every stage ends with the final
+hidden and computes the losses; only the last stage's head is
+differentiated (`pipeline.anchor`).
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from simlingo_tpu_torch.core.structs import (DrivingExample, LanguageLabel,
                                              TrainingOutput, summarise_losses)
 from simlingo_tpu_torch.models import adaptors as A
 from simlingo_tpu_torch.models import qwen2, vit
+from simlingo_tpu_torch.parallel import pipeline, sequence
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,26 +164,38 @@ def forward_loss(params: Dict[str, Any], example: DrivingExample,
     di = example.driving_input
     label = di.prompt
     tp = mesh.tp if mesh is not None else None
-    if mesh is not None and mesh.batch_size > 1:
-        if batch_offset is None:
-            batch_offset = mesh.batch_index * label.ids.shape[0]
-        if count_reduce is None:
-            count_reduce = mesh.comm["batch"].all_reduce
+    if mesh is not None and mesh.batch_size > 1 and batch_offset is None:
+        batch_offset = mesh.batch_index * label.ids.shape[0]
     embeds, valid, pos = assemble_sequence(params, label, di.pixel_values, cfg,
                                            dtype=compute_dtype, tp=tp)
     T = label.ids.shape[1]
+    slab = sequence.slab_of(embeds.shape[1])
+    lo, hi = 0, embeds.shape[1]
+    if slab is not None:
+        n = embeds.shape[1] // slab[1]
+        lo, hi = slab[0] * n, (slab[0] + 1) * n
+        if hi - lo <= cfg.num_queries:
+            raise ValueError(f"sp={slab[1]}: a slab of {hi - lo} positions cannot hold "
+                             f"the {cfg.num_queries} driving queries and a text position")
+        embeds, valid, pos = embeds[:, lo:hi], valid[:, lo:hi], pos[:, lo:hi]
+    if mesh is not None and count_reduce is None and (mesh.batch_size > 1 or slab is not None):
+        count_reduce = mesh.comm["loss"].all_reduce
     hidden, _ = qwen2.forward(params["llm"], embeds, cfg.llm, pos, kv_valid=valid,
                               causal=True, lora_params=params.get("lora"),
                               remat=cfg.remat_llm, dropout_seed=dropout_seed, tp=tp,
-                              batch_offset=batch_offset or 0)
-    text_h, query_h = hidden[:, :T], hidden[:, T:]
+                              batch_offset=batch_offset or 0, slab=slab)
+    anchor = pipeline.anchor(hidden)
+    if anchor is not None:
+        hidden = hidden.detach()
+    last = hi == T + cfg.num_queries            # this rank holds the queries
+    text_h, query_h = hidden[:, :T - lo], hidden[:, hidden.shape[1] - cfg.num_queries:]
 
     def logits_fn(h):
         return qwen2.logits_from_hidden(params["llm"], h, cfg.llm)
 
     if cfg.max_answer_len > 0:
         hg, labels_g, valid_g = A.gather_answer_states(
-            text_h, label.ids, label.loss_mask, cfg.max_answer_len)
+            text_h, label.ids, label.loss_mask, cfg.max_answer_len, lo)
         # the tied [V, H] head enables the fused CE (SIMLINGO_CE_IMPL=pallas);
         # an lm_head or an int8 table keeps the chunked CE
         emb = params["llm"]["embed"]
@@ -181,6 +203,8 @@ def forward_loss(params: Dict[str, Any], example: DrivingExample,
         losses = A.language_loss_gathered(hg, labels_g, valid_g, logits_fn,
                                           head_w=head_w)
     else:
+        if slab is not None:
+            raise ValueError("sequence parallelism needs the gathered CE (max_answer_len > 0)")
         losses = A.language_loss(logits_fn(text_h), label.ids, label.loss_mask)
 
     dl = example.driving_label
@@ -191,5 +215,13 @@ def forward_loss(params: Dict[str, Any], example: DrivingExample,
         speed_label = dl.waypoints_1d[:, :A.NUM_SPEED_QUERIES, :1]
     d_losses, preds = A.driving_loss(params["adaptors"], query_h, route_label,
                                      speed_label)
+    if not last:                # another sp rank holds the queries: no terms here
+        d_losses = {k: (v, torch.zeros_like(m)) for k, (v, m) in d_losses.items()}
     losses.update(d_losses)
-    return summarise_losses(losses, count_reduce), preds
+    out = summarise_losses(losses, count_reduce)
+    if anchor is not None:      # not the last stage: the head's value, not its graph
+        out.loss = out.loss.detach() + anchor
+    if slab is not None:        # the last sp rank's predictions, on every sp rank
+        comm = sequence.active_axis()[0].comm["sp"]
+        preds = {k: comm.all_reduce(v.detach() * float(last)) for k, v in preds.items()}
+    return out, preds

@@ -1,5 +1,5 @@
-"""The dp x fsdp x tp mesh over torch.distributed ranks: layout rules,
-sharding of parameter trees, per-rank batches and the collectives.
+"""The dp x fsdp x tp x sp x pp mesh over torch.distributed ranks: layout
+rules, sharding of parameter trees, per-rank batches and the collectives.
 
 Counterpart of `simlingo_tpu/parallel/mesh.py`. JAX declares shardings
 and XLA inserts the collectives; the port runs one process per rank and
@@ -14,13 +14,25 @@ calls them itself:
     gate, up, the projector's fc1) take a replicated input and give local
     features, row-parallel ones (o, fc2, down, the projector's fc2) take
     local features and all-reduce their partial outputs
-    (`models/layers.py`).
+    (`models/layers.py`);
+  * sp: the LLM's sequence cut into contiguous slabs, attention as a ring
+    over the sp group (`parallel/sequence.py`); parameters never mention
+    it, and every gradient is a partial sum over sp;
+  * pp: the LLM's layers cut into contiguous stages, run as a GPipe
+    pipeline over microbatches (`parallel/pipeline.py`); a stage holds
+    only its layers (and their LoRA factors and AdamW moments), every
+    other leaf is replicated over pp.
 
-Ranks are ordered dp-major: rank = (dp_i * fsdp + fsdp_i) * tp + tp_i, the
-device order of JAX's `make_mesh` (:49-51). `PARTITION_RULES`,
-`spec_for_path` and `_shardable` are a copy of JAX's (:57-116), specs as
-tuples in JAX's [in, out] layout; `leaf_layout` maps them onto the port's
-layout (linears and LoRA factors transposed, `core/from_jax.py`).
+Ranks are ordered dp-major, pp innermost: rank = (((dp_i * fsdp + fsdp_i)
+* tp + tp_i) * sp + sp_i) * pp + pp_i, the device order of JAX's
+`make_mesh` (:31-54). `PARTITION_RULES`, `spec_for_path` and `_shardable`
+are a copy of JAX's (:57-116), specs as tuples in JAX's [in, out] layout;
+`leaf_layout` maps them onto the port's layout (linears and LoRA factors
+transposed, `core/from_jax.py`). The port keeps the LLM's layers as a
+dict of layers, so JAX's stacked-layer rules (`P("pp", "fsdp", "tp")`
+...) read as: layer i of L belongs to stage i // (L / pp)
+(`LeafLayout.stage`), and within its stage it is split over fsdp and tp
+as the unstacked rules split it.
 
 How each leaf is stored and used (`LeafLayout.tp_use`):
   * "local": stored as its tp shard and used as it is (the split heads
@@ -40,19 +52,21 @@ One difference from JAX: the port splits whole heads, so tp must divide
 the kv-head count of Qwen2 (2 at full width) and the ViT's heads (16);
 `check_tp` refuses other tp (JAX shards by divisibility alone). A batch
 whose rows do not divide over dp x fsdp is refused (JAX replicates it).
+pp must divide the LLM's layer count, as JAX asserts (`check_pp`).
 
 With one process, `make_mesh()` gives a mesh of one rank whose
 collectives are the identity. On a gloo group holding CUDA tensors (several
-ranks sharing one GPU) every collective is staged through host memory:
-copied to the CPU, run, copied back (`Comm.staged`). Each `Comm` counts its
-calls and bytes, and a staged one also times every collective on the host
-(the device synchronised around it); NCCL's collectives are kernels, which
-a profiler times.
+ranks sharing one GPU) every collective, and every send and receive, is
+staged through host memory: copied to the CPU, run, copied back
+(`Comm.staged`). Each `Comm` counts its calls and bytes, and a staged one
+also times every operation on the host (the device synchronised around
+it); NCCL's collectives are kernels, which a profiler times.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import re
 import time
 import warnings
@@ -63,7 +77,7 @@ import torch.distributed as dist
 
 from simlingo_tpu_torch.parallel import multihost
 
-AXES = ("dp", "fsdp", "tp")
+AXES = ("dp", "fsdp", "tp", "sp", "pp")
 
 warnings.filterwarnings("ignore", message=r".*(all_gather_into_tensor|reduce_scatter_tensor)"
                         r"` is deprecated", category=FutureWarning)
@@ -75,14 +89,19 @@ warnings.filterwarnings("ignore", message=r".*(all_gather_into_tensor|reduce_sca
 
 class Comm:
     """Sum-collectives over one process group of `size` ranks (identity at
-    size 1): all-reduce, and all-gather / reduce-scatter along a dimension.
-    `stats` counts calls and bytes (of the whole tensor a collective
-    reduces or assembles: all-reduce's, all-gather's output,
-    reduce-scatter's input) and, where the group is staged, host ms (the
-    device synchronised before and after)."""
+    size 1): all-reduce, and all-gather / reduce-scatter along a dimension;
+    broadcast; and point-to-point sends and receives (`send`, `recv`,
+    `sendrecv`), whose peers are indices in the group. `ranks` are the
+    group's global ranks. `stats` counts calls and bytes (of the whole
+    tensor a collective reduces or assembles: all-reduce's, all-gather's
+    output, reduce-scatter's input; of the tensor sent or received) and,
+    where the group is staged, host ms (the device synchronised before and
+    after)."""
 
-    def __init__(self, group=None, size: int = 1, rank: int = 0, staged: bool = False):
+    def __init__(self, group=None, size: int = 1, rank: int = 0, staged: bool = False,
+                 ranks: Optional[Sequence[int]] = None):
         self.group, self.size, self.rank, self.staged = group, size, rank, staged
+        self.ranks = list(ranks) if ranks is not None else list(range(size))
         self.stats = dict(calls=0, bytes=0, ms=0.0)
 
     def _run(self, fn, src: torch.Tensor, dst: Optional[torch.Tensor] = None) -> None:
@@ -104,6 +123,48 @@ class Comm:
         if src.is_cuda:
             torch.cuda.synchronize(src.device)
         self.stats["ms"] += (time.perf_counter() - t0) * 1e3
+
+    def send(self, x: torch.Tensor, dst: int) -> None:
+        """Send x to the group's rank `dst` (blocking)."""
+        x = x.contiguous()
+        self._run(lambda t: dist.send(t, self.ranks[dst], group=self.group), x)
+
+    def recv(self, shape, dtype, device, src: int) -> torch.Tensor:
+        """A tensor of `shape` and `dtype` received from the group's rank
+        `src` (blocking)."""
+        out = torch.empty(shape, dtype=dtype, device=device)
+        self._run(lambda t: dist.recv(t, self.ranks[src], group=self.group), out)
+        return out
+
+    def sendrecv(self, x: torch.Tensor, dst: int, src: int) -> torch.Tensor:
+        """Send x to rank `dst` and receive a tensor like it from rank `src`
+        at once (one batched pair, so a ring of sends cannot deadlock)."""
+        x = x.contiguous()
+        out = torch.empty_like(x)
+
+        def pair(s, o):
+            ops = [dist.P2POp(dist.isend, s, self.ranks[dst], self.group),
+                   dist.P2POp(dist.irecv, o, self.ranks[src], self.group)]
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        self._run(pair, x, out)
+        return out
+
+    def broadcast(self, x: torch.Tensor, src: int) -> torch.Tensor:
+        """x of the group's rank `src` on every rank, in place; returns x."""
+        if self.size > 1:
+            self._run(lambda t: dist.broadcast(t, self.ranks[src], group=self.group), x)
+        return x
+
+    def all_gather_object(self, obj) -> list:
+        """Every rank's picklable `obj`, in group order (counted as a call;
+        its bytes are the pickles', which are not counted)."""
+        if self.size == 1:
+            return [obj]
+        out = [None] * self.size
+        self.stats["calls"] += 1
+        dist.all_gather_object(out, obj, group=self.group)
+        return out
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """Sum over the group, in place; returns x."""
@@ -185,22 +246,29 @@ def _by_dtype(xs: Sequence[torch.Tensor]) -> list:
 # ---------------------------------------------------------------------------
 
 class Mesh:
-    """This rank's place in a dp x fsdp x tp mesh, and one `Comm` an axis
-    plus "batch" (dp x fsdp: the ranks that split the batch) and "world"."""
+    """This rank's place in a dp x fsdp x tp x sp x pp mesh, and one `Comm`
+    an axis plus "batch" (dp x fsdp: the ranks that split the batch),
+    "loss" (dp x fsdp x sp: the ranks whose losses and counts sum to the
+    global batch's) and "world"."""
+
+    GROUPS = AXES + ("batch", "loss", "world")
 
     def __init__(self, dp: int, fsdp: int, tp: int, rank: int = 0, groups=None,
-                 staged: bool = False):
-        self.shape = {"dp": dp, "fsdp": fsdp, "tp": tp}
-        self.world = dp * fsdp * tp
+                 staged: bool = False, sp: int = 1, pp: int = 1):
+        self.shape = {"dp": dp, "fsdp": fsdp, "tp": tp, "sp": sp, "pp": pp}
+        self.world = dp * fsdp * tp * sp * pp
         self.rank = rank
-        self.coords = {"dp": rank // (fsdp * tp), "fsdp": (rank // tp) % fsdp,
-                       "tp": rank % tp}
+        self.coords = {}
+        rest = rank
+        for a in reversed(AXES):
+            rest, self.coords[a] = divmod(rest, self.shape[a])
+        self.coords = {a: self.coords[a] for a in AXES}
         self.staged = staged
         groups = groups or {}
         self.comm: Dict[str, Comm] = {}
-        for name in ("dp", "fsdp", "tp", "batch", "world"):
+        for name in self.GROUPS:
             ranks = group_ranks(self.shape, name, self.coords)
-            self.comm[name] = Comm(groups.get(name), len(ranks), ranks.index(rank), staged)
+            self.comm[name] = Comm(groups.get(name), len(ranks), ranks.index(rank), staged, ranks)
 
     @property
     def batch_size(self) -> int:
@@ -221,53 +289,54 @@ class Mesh:
                 if name != "world" or c.stats["calls"]}
 
     def __repr__(self) -> str:
-        return (f"Mesh(dp={self.shape['dp']}, fsdp={self.shape['fsdp']}, "
-                f"tp={self.shape['tp']}, rank={self.rank} at {self.coords})")
+        return ("Mesh(" + ", ".join(f"{a}={self.shape[a]}" for a in AXES)
+                + f", rank={self.rank} at {self.coords})")
 
 
-def _rank_of(shape, d, f, t) -> int:
-    return (d * shape["fsdp"] + f) * shape["tp"] + t
+def _rank_of(shape, coords) -> int:
+    rank = 0
+    for a in AXES:
+        rank = rank * shape[a] + coords[a]
+    return rank
 
 
 def group_ranks(shape, name: str, coords) -> list:
     """The ranks sharing every coordinate with `coords` except those of
-    axis `name` (batch: dp and fsdp; world: all)."""
-    free = {"dp": ("dp",), "fsdp": ("fsdp",), "tp": ("tp",), "batch": ("dp", "fsdp"),
-            "world": AXES}[name]
+    axis `name` (batch: dp and fsdp; loss: dp, fsdp and sp; world: all)."""
+    free = {"batch": ("dp", "fsdp"), "loss": ("dp", "fsdp", "sp"),
+            "world": AXES}.get(name, (name,))
     ranges = [range(shape[a]) if a in free else [coords[a]] for a in AXES]
-    return sorted(_rank_of(shape, d, f, t) for d in ranges[0] for f in ranges[1]
-                  for t in ranges[2])
+    return sorted(_rank_of(shape, dict(zip(AXES, c))) for c in itertools.product(*ranges))
 
 
-def make_mesh(dp: int = -1, fsdp: int = 1, tp: int = 1, device="cuda") -> Mesh:
+def make_mesh(dp: int = -1, fsdp: int = 1, tp: int = 1, sp: int = 1, pp: int = 1,
+              device="cuda") -> Mesh:
     """The mesh over the processes of the default group (one process: a mesh
     of one). dp = -1 fills the world; the product must equal it (JAX
     :46-49). Every rank builds every group, in the same order."""
     world = multihost.world_size()
     if dp == -1:
-        dp = world // (fsdp * tp)
-    if dp < 1 or dp * fsdp * tp != world:
-        raise ValueError(f"mesh {dp}x{fsdp}x{tp} != {world} processes")
+        dp = world // (fsdp * tp * sp * pp)
+    if dp < 1 or dp * fsdp * tp * sp * pp != world:
+        raise ValueError(f"mesh {dp}x{fsdp}x{tp}x{sp}x{pp} != {world} processes")
     rank = multihost.rank()
     staged = (world > 1 and torch.device(device).type == "cuda"
               and dist.get_backend() == "gloo")
+    shape = {"dp": dp, "fsdp": fsdp, "tp": tp, "sp": sp, "pp": pp}
     groups: Dict[str, Any] = {}
     if world > 1:
-        shape = {"dp": dp, "fsdp": fsdp, "tp": tp}
-        for name in ("dp", "fsdp", "tp", "batch"):
+        for name in Mesh.GROUPS[:-1]:
             seen = set()
-            for d in range(dp):
-                for f in range(fsdp):
-                    for t in range(tp):
-                        ranks = tuple(group_ranks(shape, name, {"dp": d, "fsdp": f, "tp": t}))
-                        if len(ranks) == 1 or ranks in seen:
-                            continue
-                        seen.add(ranks)
-                        g = dist.new_group(list(ranks))
-                        if rank in ranks:
-                            groups[name] = g
+            for c in itertools.product(*(range(shape[a]) for a in AXES)):
+                ranks = tuple(group_ranks(shape, name, dict(zip(AXES, c))))
+                if len(ranks) == 1 or ranks in seen:
+                    continue
+                seen.add(ranks)
+                g = dist.new_group(list(ranks))
+                if rank in ranks:
+                    groups[name] = g
         groups["world"] = dist.group.WORLD
-    mesh = Mesh(dp, fsdp, tp, rank, groups, staged)
+    mesh = Mesh(dp, fsdp, tp, rank, groups, staged, sp, pp)
     if staged and multihost.is_primary():
         print(f"mesh {mesh.shape}: gloo on CUDA tensors, every collective staged "
               "through host memory (several ranks share one GPU)", flush=True)
@@ -353,11 +422,30 @@ class LeafLayout:
     fsdp_dim: Optional[int]
     tp_dim: Optional[int]
     tp_use: str                  # "local", "gather", "partial" or "full"
+    stage: Optional[int] = None  # the pp stage holding it; None: every stage
 
 
-def leaf_layout(path: str, shape, sizes: Dict[str, int]) -> LeafLayout:
+# an LLM layer's leaves and its LoRA factors: the leaves a pp stage owns
+STAGED = re.compile(r"^(llm|lora)/layers/(\d+)/")
+
+
+def stage_of(path: str, num_layers: int, pp: int) -> Optional[int]:
+    """The pp stage that holds leaf `path` (None: replicated over pp):
+    layer i of `num_layers` lies on stage i // (num_layers / pp)."""
+    m = STAGED.match(path)
+    if m is None or pp == 1:
+        return None
+    return int(m.group(2)) // (num_layers // pp)
+
+
+def num_layers_of(paths) -> int:
+    """The LLM's layer count, from the paths of a full tree."""
+    return 1 + max((int(m.group(2)) for m in map(STAGED.match, paths) if m), default=-1)
+
+
+def leaf_layout(path: str, shape, sizes: Dict[str, int], num_layers: int = 0) -> LeafLayout:
     """How the leaf `path` of full shape `shape` (the port's layout) lies on
-    a mesh of `sizes`."""
+    a mesh of `sizes`, whose LLM has `num_layers` layers."""
     spec = tuple(spec_for_path(path)) + (None,) * (len(shape) - len(spec_for_path(path)))
     if transposed(path, len(shape)):
         spec = spec[::-1]
@@ -371,7 +459,8 @@ def leaf_layout(path: str, shape, sizes: Dict[str, int]) -> LeafLayout:
         use = "partial"
     else:
         use = "full"
-    return LeafLayout(tuple(shape), spec, fsdp_dim, tp_dim, use)
+    return LeafLayout(tuple(shape), spec, fsdp_dim, tp_dim, use,
+                      stage_of(path, num_layers, sizes.get("pp", 1)))
 
 
 def _column_bias(path: str) -> bool:
@@ -385,7 +474,23 @@ def _column_bias(path: str) -> bool:
 
 def layouts(tree: Dict[str, Any], mesh: Mesh) -> Dict[str, LeafLayout]:
     """path -> LeafLayout for a full (unsharded) flat tree {path: tensor}."""
-    return {p: leaf_layout(p, tuple(x.shape), mesh.shape) for p, x in tree.items()}
+    n = num_layers_of(tree)
+    if mesh.shape["pp"] > 1 and n % mesh.shape["pp"]:
+        raise ValueError(f"pp={mesh.shape['pp']} must divide the LLM's {n} layers")
+    return {p: leaf_layout(p, tuple(x.shape), mesh.shape, n) for p, x in tree.items()}
+
+
+def held(lay: LeafLayout, mesh: Mesh) -> bool:
+    """Whether this rank holds (a shard of) the leaf: every leaf but the
+    layers of other pp stages."""
+    return lay.stage is None or lay.stage == mesh.coords["pp"]
+
+
+def check_pp(model_cfg, pp: int) -> None:
+    """Refuse a pp that does not divide the LLM's layers (JAX asserts it,
+    `simlingo_tpu/parallel/pipeline.py:170`)."""
+    if model_cfg.llm.num_layers % pp:
+        raise ValueError(f"pp={pp} must divide the LLM's {model_cfg.llm.num_layers} layers")
 
 
 def check_tp(model_cfg, tp: int) -> None:
@@ -456,18 +561,41 @@ def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def shard_params(params: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
-    """A full parameter tree -> this rank's tree of local shards."""
+    """A full parameter tree -> this rank's tree of local shards (a pp
+    stage's tree holds only its own layers, keyed by their global index)."""
     flat = flatten(params)
     lays = layouts(flat, mesh)
-    return unflatten({p: shard_leaf(x, lays[p], mesh) for p, x in flat.items()})
+    return unflatten({p: shard_leaf(x, lays[p], mesh) for p, x in flat.items()
+                      if held(lays[p], mesh)})
+
+
+def gather_stages(flat: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
+    """{path: value} of this rank's stage -> every stage's, on every rank
+    (collective over pp; the values are pickled, so a tensor arrives on the
+    host); the identity at pp = 1."""
+    if mesh.shape["pp"] == 1:
+        return flat
+    host = {p: (x.detach().cpu() if isinstance(x, torch.Tensor) else x) for p, x in flat.items()}
+    out: Dict[str, Any] = {}
+    for part in mesh.comm["pp"].all_gather_object(host):
+        out.update(part)
+    return out
+
+
+def gather_tree(flat: Dict[str, torch.Tensor], lays: Dict[str, LeafLayout],
+                mesh: Mesh, order=None) -> Dict[str, torch.Tensor]:
+    """This rank's shards {path: shard} -> every leaf whole, on every rank
+    (collective over fsdp, tp and pp), in the order of `lays` (or of
+    `order`). Leaves of another pp stage arrive on the host."""
+    whole = gather_stages({p: gather_leaf(x, lays[p], mesh) for p, x in flat.items()}, mesh)
+    return {p: whole[p] for p in (order if order is not None else lays) if p in whole}
 
 
 def gather_params(local: Dict[str, Any], lays: Dict[str, LeafLayout],
                   mesh: Mesh) -> Dict[str, Any]:
     """Inverse of `shard_params`: the full tree on every rank (collective).
     `lays`: `layouts` of the full tree."""
-    return unflatten({p: gather_leaf(x, lays[p], mesh)
-                       for p, x in flatten(local).items()})
+    return unflatten(gather_tree(flatten(local), lays, mesh))
 
 
 def local_rows(n: int, mesh: Mesh) -> Tuple[int, int]:

@@ -23,9 +23,10 @@ weight_decay every step. The port does the same: they require grad, and a
 leaf whose gradient stays None would take zeros (and the decay) as in JAX.
 This is the reference's behaviour, kept, not a fault to fix here.
 
-Over dp x fsdp (`init_base_state(mesh=...)`; tp is refused, ROADMAP A13b)
-the state holds this rank's shards and the step runs as `train_step.py`'s
-sharded step, each group clipped by its own norm over every rank.
+Over dp x fsdp (`init_base_state(mesh=...)`; tp is refused, ROADMAP
+A13d, and so are sp and pp, which cut the SimLingo LLM) the state holds
+this rank's shards and the step runs as `train_step.py`'s sharded step,
+each group clipped by its own norm over every rank.
 """
 
 from __future__ import annotations
@@ -63,7 +64,10 @@ def init_base_state(params, opt_cfg: ts.OptimizerConfig, mesh=None) -> BaseTrain
     """With a `mesh` of more than one rank, `params` is the full tree and
     the state holds this rank's shards (dp x fsdp only)."""
     if mesh is not None and mesh.shape["tp"] > 1:
-        raise ValueError("SimLingo-Base trains over dp and fsdp; its tp joins ROADMAP A13b")
+        raise ValueError("SimLingo-Base trains over dp and fsdp; its tp is ROADMAP A13d")
+    if mesh is not None and (mesh.shape["sp"] > 1 or mesh.shape["pp"] > 1):
+        raise ValueError("SimLingo-Base trains over dp and fsdp; sp and pp cut the "
+                         "SimLingo LLM's sequence and layers only")
     params, lays = ts.shard_for_mesh(params, mesh)
     params = ts.map_leaves(lambda _, x: x.detach().requires_grad_(True), params)
     groups: Dict[str, List[torch.Tensor]] = {g: [] for g in GROUPS}

@@ -18,17 +18,19 @@ Under SIMLINGO_CE_IMPL=pallas the fused CE gives the tied head no dW, so
 as JAX does (`simlingo_tpu/train/train_step.py:160-179`); pallas_dw
 builds.
 
-On a dp x fsdp x tp mesh (`parallel/mesh.py`; JAX's XLA partitioning of
-the same step) `init_train_state(mesh=...)` keeps this rank's shards of
-the masters, the frozen leaves and (through them) the AdamW moments, and
-the step runs `sharded_compute_tree` (each leaf cast, its fsdp shards
-and, for the tp-gathered leaves, its tp shards all-gathered; the
-trainable ones made autograd leaves), the rank's forward and backward,
-`reduce_sharded_grads` (tp-partial gradients all-reduced over tp, fsdp
-leaves' reduce-scattered over fsdp then all-reduced over dp, the rest
-all-reduced over dp x fsdp: sums, as each rank's loss is its share of
-the global batch's) and the global norm over every shard, a replicated
-leaf counted once (`norm_counted`).
+On a dp x fsdp x tp x sp x pp mesh (`parallel/mesh.py`; JAX's XLA
+partitioning of the same step) `init_train_state(mesh=...)` keeps this
+rank's shards of the masters, the frozen leaves and (through them) the
+AdamW moments (a pp stage: of its own layers only), and the step runs
+`sharded_compute_tree` (each leaf cast, its fsdp shards and, for the
+tp-gathered leaves, its tp shards all-gathered; the trainable ones made
+autograd leaves), the rank's forward and backward, `reduce_sharded_grads`
+(tp-partial gradients all-reduced over tp, fsdp leaves' reduce-scattered
+over fsdp then all-reduced over dp and sp, the rest all-reduced over dp x
+fsdp x sp: sums, as each rank's loss is its share of the global batch's
+and, under sp, of its positions'; then a leaf replicated over pp summed
+over pp, a stage's layer leaves being its own) and the global norm over
+every shard, a replicated leaf counted once (`norm_counted`).
 """
 
 from __future__ import annotations
@@ -132,10 +134,12 @@ def clip_by_global_norm_(grads, clip: float, counted=None, comm=None) -> torch.T
 def norm_counted(lay: "meshlib.LeafLayout", mesh: "meshlib.Mesh") -> bool:
     """Whether this rank's shard of the leaf enters the global norm: every
     element once over the world (a leaf replicated on an axis counts at
-    index 0 of that axis; dp holds the same reduced grads everywhere)."""
+    index 0 of that axis; dp and sp hold the same reduced grads
+    everywhere; a pp stage's layers are its own)."""
     c = mesh.coords
-    return (c["dp"] == 0 and (lay.fsdp_dim is not None or c["fsdp"] == 0)
-            and (lay.tp_dim is not None or c["tp"] == 0))
+    return (c["dp"] == 0 and c["sp"] == 0 and (lay.fsdp_dim is not None or c["fsdp"] == 0)
+            and (lay.tp_dim is not None or c["tp"] == 0)
+            and (lay.stage is not None or c["pp"] == 0))
 
 
 def sharded_compute_tree(params, layouts, mesh, trainable, dtype=torch.bfloat16):
@@ -178,16 +182,19 @@ def reduce_sharded_grads(leaves, layouts, mesh) -> Dict[str, torch.Tensor]:
     grads.update(zip(split, mesh.comm["fsdp"].reduce_scatter_many(
         [grads[p] for p in split], [layouts[p].fsdp_dim for p in split])))
     mesh.comm["dp"].all_reduce_flat([grads[p] for p in split])
-    mesh.comm["batch"].all_reduce_flat([g for p, g in grads.items() if p not in set(split)])
+    mesh.comm["sp"].all_reduce_flat([grads[p] for p in split])
+    mesh.comm["loss"].all_reduce_flat([g for p, g in grads.items() if p not in set(split)])
+    mesh.comm["pp"].all_reduce_flat([g for p, g in grads.items() if layouts[p].stage is None])
     return grads
 
 
 def reduce_metrics(metrics: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
-    """Each rank's shares of the loss averages summed over dp x fsdp."""
-    if mesh is None or mesh.batch_size == 1:
+    """Each rank's shares of the loss averages summed over dp x fsdp x sp
+    (every pp stage holds the whole batch's)."""
+    if mesh is None or mesh.comm["loss"].size == 1:
         return metrics
     keys = list(metrics)
-    total = mesh.comm["batch"].all_reduce(torch.stack([metrics[k].float() for k in keys]))
+    total = mesh.comm["loss"].all_reduce(torch.stack([metrics[k].float() for k in keys]))
     return dict(zip(keys, total.unbind()))
 
 

@@ -16,13 +16,17 @@ picks and the per-step `RandomState(seed * 7919 + step)` depend on the
 step only, and the dropout seed is `step_seed(seed, step)`.
 
 On several ranks (one process a rank, started by torchrun or SLURM:
-`parallel/multihost.py`) the trainer lays `cfg.mesh`'s dp x fsdp x tp over
-them (`parallel/mesh.py`), as `trainer.py:234-271, 330-346` does:
+`parallel/multihost.py`) the trainer lays `cfg.mesh`'s dp x fsdp x tp x sp
+x pp over them (`parallel/mesh.py`), as `trainer.py:234-271, 330-346`
+does, with the sequence and pipeline contexts (`parallel/sequence.py`,
+`parallel/pipeline.py`) set for the run and cleared when it ends, however
+it ends (JAX :195-203, 237-247); sp or pp that never engaged in the first
+step raise RuntimeError (JAX :405-424):
 `batch_size` is per rank of dp x fsdp (Lightning's per-GPU semantics), so
 the global batch is batch_size x dp x fsdp, and data rank r of n draws
 `sampler.batch_at(step, B n)[r B:(r + 1) B]` with augmentations from
-`RandomState(seed * 7919 + step * n + r)` (JAX's `make_batch`; tp ranks
-share their data rank's batch); the metrics, validation and grad norm are
+`RandomState(seed * 7919 + step * n + r)` (JAX's `make_batch`; tp, sp and
+pp ranks share their data rank's batch); the metrics, validation and grad norm are
 the global batch's; `config.json`, the logs and the printed summary come
 from the primary alone, and checkpoints are gathered there
 (`core/checkpoint.py`).
@@ -61,7 +65,7 @@ from simlingo_tpu_torch.core.device import resolve_device
 from simlingo_tpu_torch.data.synthetic import base_batch, synthetic_example
 from simlingo_tpu_torch.models import simlingo, simlingo_base
 from simlingo_tpu_torch.parallel import mesh as meshlib
-from simlingo_tpu_torch.parallel import multihost
+from simlingo_tpu_torch.parallel import multihost, pipeline, sequence
 from simlingo_tpu_torch.train import base_step
 from simlingo_tpu_torch.train import train_step as ts
 
@@ -229,16 +233,16 @@ def build_buckets(cfg: TrainConfig):
     return buckets, [by_name[b.name] for b in buckets]
 
 
-def _print_model_summary(state: ts.TrainState) -> None:
+def _print_model_summary(state: ts.TrainState, trainable_fn) -> None:
     """Parameters and trainable parameters by tower (the whole model's)."""
-    def numel(p, x):
-        return math.prod(state.layouts[p].shape) if state.layouts else x.numel()
+    shapes = ({p: lay.shape for p, lay in state.layouts.items()} if state.layouts else
+              {p: tuple(x.shape) for p, x in ts.flatten(state.params).items()})
     print("model summary (params / trainable):", flush=True)
     total = total_t = 0
-    for name, sub in sorted(state.params.items()):
-        leaves = ts.flatten(sub, name + "/") if isinstance(sub, dict) else {name: sub}
-        n = sum(numel(p, x) for p, x in leaves.items())
-        n_t = sum(numel(p, x) for p, x in leaves.items() if p in state.trainable)
+    for name in sorted({p.split("/")[0] for p in shapes}):
+        leaves = {p: math.prod(sh) for p, sh in shapes.items() if p.split("/")[0] == name}
+        n = sum(leaves.values())
+        n_t = sum(k for p, k in leaves.items() if trainable_fn(p))
         total, total_t = total + n, total_t + n_t
         print(f"  {name:<10s} {n / 1e6:9.2f} M  {n_t / 1e6:9.2f} M", flush=True)
     print(f"  {'total':<10s} {total / 1e6:9.2f} M  {total_t / 1e6:9.2f} M", flush=True)
@@ -248,7 +252,8 @@ def _make_mesh(cfg, dev) -> "meshlib.Mesh":
     """Join the job's processes (a no-op in one) and lay `cfg.mesh` over them."""
     cfg.mesh.check_supported()
     multihost.initialize(device=dev.type)
-    return meshlib.make_mesh(cfg.mesh.dp, cfg.mesh.fsdp, cfg.mesh.tp, device=dev)
+    m = cfg.mesh
+    return meshlib.make_mesh(m.dp, m.fsdp, m.tp, m.sp, m.pp, device=dev)
 
 
 def _initial_params(cfg: TrainConfig, model_cfg, dev) -> Dict[str, Any]:
@@ -282,15 +287,25 @@ def train(cfg: TrainConfig, make_synthetic: bool = False,
     grad_norm, ...}), the last logged metrics and total_steps. On several
     ranks `params` is the full tree (every rank's the same) and the state
     returned holds this rank's shards."""
+    try:
+        return _train(cfg, make_synthetic, params, device, after_step, trainable_fn)
+    finally:
+        sequence.disable()      # never leak the sp context past train()
+        pipeline.disable()      # ... nor the pp context
+
+
+def _train(cfg, make_synthetic, params, device, after_step, trainable_fn):
     dev = resolve_device(device)
     mesh = _make_mesh(cfg, dev)
+    sequence.enable(mesh)
+    pipeline.enable(mesh, microbatches=cfg.mesh.pp_microbatches)
     primary = multihost.is_primary()
     say = print if primary else (lambda *a, **k: None)
     np.random.seed(cfg.seed)
     say(f"gates {gates.resolved()}", flush=True)
     if mesh.world > 1:
-        say(f"mesh dp={mesh.shape['dp']} fsdp={mesh.shape['fsdp']} tp={mesh.shape['tp']} "
-            f"over {mesh.world} ranks", flush=True)
+        say("mesh " + " ".join(f"{a}={n}" for a, n in mesh.shape.items())
+            + f" over {mesh.world} ranks", flush=True)
     compute_dtype = torch.bfloat16 if cfg.precision == "bf16" else torch.float32
     model_cfg = cfg.model
     tok = None
@@ -307,12 +322,13 @@ def train(cfg: TrainConfig, make_synthetic: bool = False,
             model_cfg = dataclasses.replace(model_cfg, img_context_token_id=tok.img_context_id)
 
     meshlib.check_tp(model_cfg, mesh.shape["tp"])
+    meshlib.check_pp(model_cfg, mesh.shape["pp"])
     if params is None:
         params = _initial_params(cfg, model_cfg, dev)
     state = ts.init_train_state(params, cfg.optimizer, trainable_fn, mesh=mesh)
     del params
     if primary:
-        _print_model_summary(state)
+        _print_model_summary(state, trainable_fn)
     lr_schedule = ts.onecycle_schedule(cfg.optimizer)
     step_fn = ts.make_train_step(model_cfg, cfg.optimizer, compute_dtype, trainable_fn)
 
@@ -420,6 +436,8 @@ def train(cfg: TrainConfig, make_synthetic: bool = False,
             sync()
             t1 = time.perf_counter()
             metrics = step_fn(state, batch, step_seed(cfg.seed, step))
+            if step == start_step:
+                _check_engaged(mesh)
             host = {k: float(v) for k, v in metrics.items()}
             ms = (time.perf_counter() - t1) * 1e3
             records.append(dict(step=step + 1, ms=ms, host_ms=got.host_ms,
@@ -469,6 +487,20 @@ def train(cfg: TrainConfig, make_synthetic: bool = False,
             last_metrics["final_checkpoint_error"] = repr(e)
     return dict(state=state, step_fn=step_fn, batch=batch, records=records,
                 metrics=last_metrics, total_steps=total_steps, model_cfg=model_cfg)
+
+
+def _check_engaged(mesh) -> None:
+    """Fail loudly where sp or pp is configured but the first step never
+    used it (JAX `trainer.py:405-424`): the ranks would train replicated."""
+    if sequence.active_axis() is not None and sequence.trace_count() == 0:
+        raise RuntimeError(
+            f"mesh.sp={mesh.shape['sp']} but no attention call ring-routed in the first "
+            "step; check that the LLM sequence length divides sp "
+            "(parallel/sequence.py dispatch rules)")
+    if pipeline.active_axis() is not None and pipeline.trace_count() == 0:
+        raise RuntimeError(
+            f"mesh.pp={mesh.shape['pp']} but the first step never entered the layer "
+            "pipeline (parallel/pipeline.py)")
 
 
 def train_base(cfg: BaseTrainConfig, params: Optional[Dict[str, Any]] = None,

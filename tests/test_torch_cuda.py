@@ -18,8 +18,13 @@ rounds P and dS to bf16 before the products, and each gradient sums
 over up to T terms; at SimLingo-Base's shapes, with rows that see one
 to a few keys, at the rounding bound of `chip_smoke.py` instead, 2^-8
 (sum |terms| + |ref|). The dropout kernel equals its plain version bit for
-bit, at a rank's blocks of a multi-GPU step too (dp rows, tp columns), where
-its mask is the one-process mask cut to the block. The norm kernels' bf16 outputs (y, dx) are held to one bf16 spacing
+bit, at a rank's blocks of a multi-GPU step too (dp rows, tp columns, sp
+slabs), where its mask is the one-process mask cut to the block. The ring
+of sequence parallelism (its ranks on threads) launches both attention
+kernels a chunk; its output agrees with its plain recurrence at the
+forward's tolerance above, its gradients (at most n chunk partials an
+element) with the whole sequence's plain backward within n times the
+rounding bound. The norm kernels' bf16 outputs (y, dx) are held to one bf16 spacing
 of the plain version's (2^-7 |ref| + 1e-5 rms): both round the same fp32
 math, summed in another order; their parameter gradients to 2^-7 |ref|
 plus 1e-5 of the sum of |terms| over the rows. The fused CE's ce to
@@ -680,6 +685,85 @@ def test_dropout_kernel_blocks_are_the_one_process_mask(gpu, shape, block):
     keep = TD.dropout(torch.ones_like(x), seed, 0.1, block) != 0
     assert torch.equal(keep.reshape(rows, -1), whole[row0:, col0:col0 + shape[-1]])
     assert torch.equal(TD.dropout(x, seed, 0.0, block), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,block", [
+    ((6, 399, 896), (0, 0, 896, 399, 798)),           # sp = 2's first slab
+    ((6, 399, 4864), (399, 0, 4864, 399, 798)),       # its second, at down's input
+    ((3, 16, 448), (3 * 64 + 16, 448, 896, 16, 64)),  # dp, tp and sp = 4's second slab
+    ((2, 5, 16), (5, 0, 16, 5, 10))])                 # odd segments
+def test_dropout_kernel_segments_are_the_one_process_mask(gpu, shape, block):
+    """A rank's sequence slab (`block` + (seg, stride)): the kernel equals
+    its plain version, and its mask is the one-process mask at the slab's
+    rows."""
+    g = torch.Generator(device=gpu).manual_seed(7)
+    x = torch.randn(shape, generator=g, device=gpu).bfloat16()
+    seed = 0x1234_5678_9ABC_DEF0
+    before = TD.dropout.launches
+    out = TD.dropout(x, seed, 0.1, block)
+    assert TD.dropout.launches == before + 1
+    assert torch.equal(out, TD.dropout_plain(x, seed, 0.1, block))
+    row0, col0, width, seg, stride = block
+    r = torch.arange(x.numel() // shape[-1], device=gpu)
+    rows = row0 + (r // seg) * stride + r % seg
+    whole = TD.keep_mask((int(rows.max()) + 1) * width, seed, 0.1, gpu).view(-1, width)
+    keep = TD.dropout(torch.ones_like(x), seed, 0.1, block) != 0
+    assert torch.equal(keep.reshape(len(r), -1), whole[rows, col0:col0 + shape[-1]])
+
+
+def _ring_inputs(gpu, B, slab, HQ, HK, n, seed=9, D=64):
+    g = torch.Generator(device=gpu).manual_seed(seed)
+    T = slab * n
+    q = torch.randn(B, T, HQ, D, generator=g, device=gpu).bfloat16()
+    k, v = (torch.randn(B, T, HK, D, generator=g, device=gpu).bfloat16() for _ in range(2))
+    dout = torch.randn(B, T, HQ, D, generator=g, device=gpu).bfloat16()
+    lengths = torch.tensor([T - 7 * b for b in range(B)], device=gpu)
+    valid = torch.arange(T, device=gpu)[None, :] < lengths[:, None]     # right-padded rows
+    return q, k, v, valid, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,slab,HQ,HK,n,causal", [
+    (2, 64, 4, 2, 2, True), (2, 64, 4, 2, 2, False), (2, 70, 4, 2, 3, True),
+    (6, 399, 14, 2, 2, True)], ids=["small", "small_noncausal", "sp3", "chunk"])
+def test_ring_attention_kernels_match_the_plain_recurrence(gpu, B, slab, HQ, HK, n, causal):
+    """`parallel/sequence.py`'s ring, its n ranks on threads of this process:
+    on CUDA tensors every chunk launches the attention kernels (rank i of a
+    causal ring folds i + 1 chunks, forward and backward), and the output
+    and gradients agree with the ring on fp32 CPU copies, the plain
+    recurrence (JAX's `_chunk_update`; the output) and
+    `attention_bwd_reference` of the whole sequence fed the ring's own o
+    and lse (the gradients). Each gradient element sums at most n chunk
+    partials, each a kernel output within the backward's rounding bound
+    (`_bwd_term_bounds`), so the sum is held to n times that bound."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_ranks", Path(__file__).resolve().parent / "torch_ranks.py")
+    R = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(R)
+    q, k, v, valid, dout = _ring_inputs(gpu, B, slab, HQ, HK, n)
+
+    def cut(x):
+        return list(x.chunk(n, 1))
+    f0, b0 = TFA.flash_attn_fwd.launches, TFA.flash_attn_bwd.launches
+    got = R.ring_threads(cut(q), cut(k), cut(v), cut(valid), cut(dout), causal)
+    torch.cuda.synchronize()
+    chunks = n * (n + 1) // 2 if causal else n * n
+    assert TFA.flash_attn_fwd.launches - f0 == chunks
+    assert TFA.flash_attn_bwd.launches - b0 == chunks
+    cpu = [x.float().cpu() for x in (q, k, v, dout)]
+    want = R.ring_threads(cut(cpu[0]), cut(cpu[1]), cut(cpu[2]), cut(valid.cpu()),
+                          cut(cpu[3]), causal)
+    o = torch.cat([r[0] for r in got], 1)
+    o_ref = torch.cat([r[0] for r in want], 1)
+    assert bool(((o.float().cpu() - o_ref).abs() <= 2e-3 + 2e-2 * o_ref.abs()).all())
+    assert torch.allclose(o_ref, TFA.attention_reference(*cpu[:3], valid.cpu(), causal),
+                          atol=1e-5)
+    lse = torch.cat([r[2] for r in got], 2)
+    args = (q.float(), k.float(), v.float(), valid, o.float(), dout.float(), lse, causal)
+    ref = TFA.attention_bwd_reference(*args)
+    for j, (tol, name) in enumerate(zip(_bwd_term_bounds(*args, ref), ("dq", "dk", "dv"))):
+        _within(torch.cat([r[1][j] for r in got], 1), ref[j], n * tol, name)
 
 
 @pytest.mark.cuda

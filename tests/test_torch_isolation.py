@@ -2,7 +2,8 @@
 
 A subprocess blocks those imports, imports every module of the port
 (the training modules and `parallel/` included: the one-process
-`multihost.initialize` is a no-op and `make_mesh` a mesh of one), drives the tiny agent and two training
+`multihost.initialize` is a no-op, `make_mesh` a mesh of one, and the
+sequence and pipeline contexts no-ops on it), drives the tiny agent and two training
 steps with LoRA dropout on the CPU, then two more with both fused-kernel
 gates on, two on an int8 base LLM and two of the tiny SimLingo-Base with
 each of its encoders (the CLIP tower, the ResNet); an
@@ -50,9 +51,16 @@ SCRIPT = BLOCK + textwrap.dedent("""
         importlib.import_module(n)
     print("imported", len(names))
     assert {"simlingo_tpu_torch.parallel.mesh",
-            "simlingo_tpu_torch.parallel.multihost"} <= set(names)
+            "simlingo_tpu_torch.parallel.multihost",
+            "simlingo_tpu_torch.parallel.sequence",
+            "simlingo_tpu_torch.parallel.pipeline"} <= set(names)
     from simlingo_tpu_torch.parallel import mesh as PM, multihost as PH
+    from simlingo_tpu_torch.parallel import pipeline as PP, sequence as PS
     assert PH.initialize(device="cpu") is False and PM.make_mesh(device="cpu").world == 1
+    one = PM.make_mesh(device="cpu")
+    PS.enable(one)
+    PP.enable(one)
+    assert PS.active_axis() is None and PP.active_axis() is None     # no-ops at size 1
 
     from simlingo_tpu_torch.agent.agent import AgentFrame, LingoAgent
     from simlingo_tpu_torch.agent.config import AgentConfig

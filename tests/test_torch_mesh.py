@@ -113,7 +113,7 @@ def test_shards_put_back_together_are_the_tree(shape):
 
         def block(fi, ti):
             r = next(i for i, m in enumerate(meshes)
-                     if m.coords == {"dp": 0, "fsdp": fi, "tp": ti})
+                     if m.coords == {"dp": 0, "fsdp": fi, "tp": ti, "sp": 0, "pp": 0})
             return shards[r][p]
         rows = []
         for fi in range(f if lay.fsdp_dim is not None else 1):

@@ -23,7 +23,9 @@ JAX runs here on the 8 virtual CPU devices. Four spawns:
     exactly; a run resumed at world 2 from a world-2 checkpoint equals the
     straight run bit for bit; that checkpoint restores at world 1 to the
     gathered state exactly.
-Refusals (sp, pp, an indivisible tp) and the dropout blocks need no spawn.
+sp and pp accepted, the refusals (an indivisible tp, SimLingo-Base's tp, sp
+and pp) and the dropout blocks need no spawn (sp and pp themselves:
+tests/test_torch_{sequence,pipeline}_parallel.py).
 """
 
 import dataclasses
@@ -412,8 +414,15 @@ def test_disk_checkpoint_of_world_2_restores_at_world_1(disk):
 # ---------------------------------------------------------------------------
 
 def test_sp_pp_and_indivisible_tp_are_refused():
-    for bad in ("mesh.sp=2", "mesh.pp=2"):
-        with pytest.raises(ValueError, match="A13b"):
+    """sp and pp compose with dp, fsdp and tp and are accepted (sizes below
+    1 are not); an indivisible tp, and SimLingo-Base's tp (ROADMAP A13d),
+    sp and pp, are refused."""
+    for good in (["mesh.sp=2"], ["mesh.pp=2"], ["mesh.sp=2", "mesh.pp=2"],
+                 ["mesh.dp=2", "mesh.fsdp=2", "mesh.tp=2", "mesh.sp=2", "mesh.pp=2",
+                  "mesh.pp_microbatches=4"]):
+        compose(good).mesh.check_supported()
+    for bad in ("mesh.sp=0", "mesh.pp=0", "mesh.pp_microbatches=-1"):
+        with pytest.raises(ValueError, match=">= 1"):
             compose([bad]).mesh.check_supported()
     cfg = tsim.SimLingoConfig.tiny()        # 4 ViT heads, 2 kv heads
     M.check_tp(cfg, 2)
@@ -425,9 +434,12 @@ def test_sp_pp_and_indivisible_tp_are_refused():
         M.check_tp(tsim.SimLingoConfig(), 4)
     with pytest.raises(ValueError, match="processes"):
         M.make_mesh(2, 1, 1, device="cpu")  # one process here
-    with pytest.raises(ValueError, match="tp"):
-        from simlingo_tpu_torch.train import base_step
+    from simlingo_tpu_torch.train import base_step
+    with pytest.raises(ValueError, match="A13d"):
         base_step.init_base_state({}, ts.OptimizerConfig(), mesh=M.Mesh(1, 1, 2))
+    for mesh in (M.Mesh(1, 1, 1, sp=2), M.Mesh(1, 1, 1, pp=2)):
+        with pytest.raises(ValueError, match="sp and pp"):
+            base_step.init_base_state({}, ts.OptimizerConfig(), mesh=mesh)
 
 
 @pytest.mark.parametrize("shape", [(6, 10, 16), (4, 7, 24)])
@@ -458,9 +470,11 @@ def test_dropout_kernel_placement_of_the_blocks():
     kernel), a flat base for rows
     alone, (row0, col0, width) strided for columns, and a refusal where a
     thread's 8 elements would not start at a multiple of 4 of the index."""
-    assert DO._kernel_placement(896, (3 * 798, 0, 896)) == (3 * 798 * 896, 0, 0, 0)
-    assert DO._kernel_placement(448, (0, 448, 896)) == (0, 448, 896, 1)
-    assert DO._kernel_placement(2432, (40, 2432, 4864)) == (40, 2432, 4864, 1)
+    assert DO._kernel_placement(896, (3 * 798, 0, 896)) == (3 * 798 * 896, 0, 0, 0, 0, 0)
+    assert DO._kernel_placement(448, (0, 448, 896)) == (0, 448, 896, 1, 0, 0)
+    assert DO._kernel_placement(2432, (40, 2432, 4864)) == (40, 2432, 4864, 1, 0, 0)
+    # sp = 2's second slab (segments of 399 rows, 798 apart): mode 2
+    assert DO._kernel_placement(896, (399, 0, 896, 399, 798)) == (399, 0, 896, 2, 399, 798)
     assert DO._normal_block((0, 0, 896), 896) is None
     for cols, block, msg in ((12, (0, 12, 24), "cols % 8"), (10, (1, 0, 10), "% 4"),
                              (448, (0, 512, 896), "does not hold")):

@@ -162,9 +162,9 @@ def test_compose_experiment_matches_jax():
     tcfg.mesh.check_supported()                          # dp -1: every process
     for good in ("mesh.fsdp=2", "mesh.dp=4", "mesh.tp=2"):
         compose([good]).mesh.check_supported()
-    for bad in ("mesh.sp=2", "mesh.pp=2"):
-        with pytest.raises(ValueError, match="A13b"):
-            compose([bad]).mesh.check_supported()
+    for good in ("mesh.sp=2", "mesh.pp=2"):                # they compose (A13b)
+        compose([good]).mesh.check_supported()
+    compose(["mesh.sp=2", "mesh.pp=2", "mesh.tp=2"]).mesh.check_supported()
 
 
 def test_visualise_writes_the_figures(dataset, tmp_path, capsys):

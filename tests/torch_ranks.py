@@ -107,6 +107,61 @@ def thin_answers(loss_mask: np.ndarray, row: int = 1, keep: int = 2) -> np.ndarr
     return m
 
 
+class ThreadComm:
+    """The sp group's `sendrecv` between threads of one process (rank r's
+    mailbox is a queue that only rank r - 1 of the ring fills): drives
+    `parallel.sequence._Ring`'s forward and backward on n threads without
+    autograd's engine (its device thread would serve the ranks in turn)."""
+
+    def __init__(self, boxes, rank):
+        self.boxes, self.rank, self.size = boxes, rank, len(boxes)
+
+    def sendrecv(self, x, dst, src):
+        self.boxes[dst].put(x.clone())
+        return self.boxes[self.rank].get(timeout=120)
+
+
+class _Ctx:
+    """A stand-in for autograd's ctx: what `_Ring.forward` saves."""
+
+    def save_for_backward(self, *xs):
+        self.saved_tensors = xs
+
+
+def ring_threads(qs, ks, vs, valids, douts, causal, scale=None):
+    """`parallel.sequence._Ring` on len(qs) threads, rank i given slab i:
+    [(o_i, (dq_i, dk_i, dv_i), lse_i)] in rank order."""
+    import queue
+    import threading
+
+    import torch
+    from simlingo_tpu_torch.parallel import sequence as SQ
+    n = len(qs)
+    boxes = [queue.Queue() for _ in range(n)]
+    out, errors = [None] * n, []
+    scale = qs[0].shape[-1] ** -0.5 if scale is None else scale
+
+    def rank(i):
+        try:
+            ctx, comm = _Ctx(), ThreadComm(boxes, i)
+            valid = valids[i].to(torch.uint8).contiguous()
+            o = SQ._Ring.forward(ctx, qs[i], ks[i], vs[i], valid, causal, scale, comm)
+            ctx.args = (causal, scale, comm)
+            out[i] = (o, SQ._Ring.backward(ctx, douts[i])[:3], ctx.saved_tensors[5])
+        except BaseException as e:      # noqa: BLE001 -- re-raised below
+            errors.append(e)
+            for b in boxes:             # unblock the other ranks
+                b.put(torch.zeros(0))
+    threads = [threading.Thread(target=rank, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if errors:
+        raise errors[0]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Child side
 # ---------------------------------------------------------------------------
@@ -148,7 +203,7 @@ def case_hello(rank, world, workdir):
     np.savez(os.path.join(workdir, f"hello{rank}.npz"), sum=x.numpy(),
              primary=multihost.is_primary(), local=local["x"].numpy(),
              meta=local["meta"].numpy(), assembled=assembled.numpy(),
-             coords=np.array([mesh.coords[a] for a in M.AXES]))
+             coords=np.array([mesh.coords[a] for a in ("dp", "fsdp", "tp")]))
 
 
 def case_steps(rank, world, workdir):
@@ -277,7 +332,7 @@ def case_mesh222(rank, world, workdir):
     local = state.params["llm"]["layers"]["0"]["mlp"]["gate"]["w"]
     np.savez(os.path.join(workdir, f"mesh222_{rank}.npz"), loss=float(m["loss"]),
              grad_norm=float(m["grad_norm"]), gate_local=np.array(local.shape),
-             coords=np.array([mesh.coords[a] for a in M.AXES]))
+             coords=np.array([mesh.coords[a] for a in ("dp", "fsdp", "tp")]))
 
 
 def case_disk(rank, world, workdir):
@@ -321,8 +376,215 @@ def case_disk(rank, world, workdir):
     torch.save(out, os.path.join(workdir, f"disk{rank}.pt"))
 
 
+# ---------------------------------------------------------------------------
+# Sequence and pipeline parallelism (tests/test_torch_{sequence,pipeline}_parallel.py)
+# ---------------------------------------------------------------------------
+
+def _contexts(mesh, microbatches=0, remat=True):
+    """The trainer's sp / pp contexts on `mesh` (a context manager)."""
+    import contextlib
+    from simlingo_tpu_torch.parallel import pipeline as PL
+    from simlingo_tpu_torch.parallel import sequence as SQ
+    stack = contextlib.ExitStack()
+    stack.enter_context(SQ.sequence_parallel(mesh))
+    stack.enter_context(PL.pipeline_parallel(mesh, microbatches=microbatches, remat=remat))
+    return stack
+
+
+def _ring_case(mesh, workdir, causal):
+    """The ring of the sp group on ring.npz's whole-sequence inputs: output
+    and gradients of sum(out * w), each rank its slab, gathered."""
+    import torch
+    from simlingo_tpu_torch.parallel import sequence as SQ
+    sp = mesh.comm["sp"]
+    z = {k: torch.from_numpy(v) for k, v in np.load(os.path.join(workdir, "ring.npz")).items()}
+    n = z["q"].shape[1] // sp.size
+
+    def slab(x):
+        return x[:, sp.rank * n:(sp.rank + 1) * n].contiguous()
+    q, k, v = (slab(z[name]).requires_grad_(True) for name in ("q", "k", "v"))
+    out = SQ.ring_attention(q, k, v, slab(z["valid"]), causal, comm=sp)
+    (out * slab(z["w"])).sum().backward()
+    return {name: sp.all_gather(x.detach(), 1).numpy()
+            for name, x in (("o", out), ("dq", q.grad), ("dk", k.grad), ("dv", v.grad))}
+
+
+def _mesh_step(mesh, workdir, batch):
+    """One make_train_step step of the tiny model (every leaf trainable) on
+    `mesh` with the sp / pp contexts: metrics, the whole tree after it."""
+    import torch
+    from simlingo_tpu_torch.core.from_jax import params_from_jax
+    from simlingo_tpu_torch.data.synthetic import synthetic_example
+    from simlingo_tpu_torch.parallel import mesh as M
+    from simlingo_tpu_torch.parallel import pipeline as PL
+    from simlingo_tpu_torch.parallel import sequence as SQ
+    from simlingo_tpu_torch.train import train_step as ts
+    cfg = _port_model({})
+    opt = ts.OptimizerConfig(lr=1e-3, total_steps=50, grad_clip=1.0)
+    ex = synthetic_example(cfg, batch=batch, seq_len=96, num_patches=1, device="cpu")
+    with _contexts(mesh):
+        state = ts.init_train_state(params_from_jax(load_tree(os.path.join(workdir, "tiny.npz")),
+                                                    device="cpu"), opt, lambda p: True, mesh=mesh)
+        m = ts.make_train_step(cfg, opt, compute_dtype=torch.float32)(
+            state, M.put_batch(ex, mesh), 0)
+        traces = (SQ.trace_count(), PL.trace_count())
+    held = sorted(ts.flatten(state.params))
+    return dict(metrics={k: float(v) for k, v in m.items()}, params=_gathered(state),
+                traces=traces, held=held)
+
+
+def _dropout_losses(mesh, workdir):
+    """The LoRA model's forward losses with dropout 0.1 at seed 1234 on
+    `mesh` (frozen leaves bf16, as a state holds them)."""
+    import torch
+    from simlingo_tpu_torch.core.from_jax import params_from_jax
+    from simlingo_tpu_torch.data.synthetic import synthetic_example
+    from simlingo_tpu_torch.models import simlingo as tsim
+    from simlingo_tpu_torch.parallel import mesh as M
+    from simlingo_tpu_torch.train import train_step as ts
+    cfg = _port_model(dict(lora_r=4, lora_alpha=8, lora_dropout=0.1))
+    ex = synthetic_example(cfg, batch=4, seq_len=96, num_patches=1, seed=3, device="cpu")
+    with _contexts(mesh):
+        state = ts.init_train_state(params_from_jax(load_tree(os.path.join(workdir, "lora.npz")),
+                                                    device="cpu"), ts.OptimizerConfig(),
+                                    mesh=mesh)
+        tree, _ = ts.sharded_compute_tree(state.params, state.layouts, mesh, {}, torch.float32)
+        with torch.no_grad():
+            o, _ = tsim.forward_loss(tree, M.put_batch(ex, mesh), cfg, dropout_seed=1234,
+                                     mesh=mesh)
+    return {k: float(v) for k, v in ts.reduce_metrics(dict(o.loss_averages, loss=o.loss),
+                                                      mesh).items()}
+
+
+def _trainer(overrides, workdir, output_dir=""):
+    """train_torch's trainer on its synthetic batch (the LoRA model):
+    [{loss, grad_norm}] a step, and the state."""
+    from simlingo_tpu_torch.core.config import compose
+    from simlingo_tpu_torch.core.from_jax import params_from_jax
+    from simlingo_tpu_torch.train import trainer
+    spec = _mesh_case_dir(workdir)
+    cfg = compose(spec["trainer"] + overrides + [f"output_dir={output_dir}"])
+    cfg.model = _port_model(dict(lora_r=4, lora_alpha=8, lora_dropout=0.0))
+    res = trainer.train(cfg, make_synthetic=True, device="cpu",
+                        params=params_from_jax(load_tree(os.path.join(workdir, "lora.npz")),
+                                               device="cpu"))
+    return [{k: r[k] for k in ("loss", "grad_norm")} for r in res["records"]], res["state"]
+
+
+def case_sp2(rank, world, workdir):
+    """sp = 2: the ring (both causal modes), the dispatch, one step, the
+    dropout losses, the trainer, and the trainer on a sequence that does not
+    divide."""
+    import torch
+    from simlingo_tpu_torch.kernels import flash_attention as FA
+    from simlingo_tpu_torch.parallel import mesh as M
+    from simlingo_tpu_torch.parallel import sequence as SQ
+    mesh = M.make_mesh(1, 1, 1, 2, 1, device="cpu")
+    out = {"ring": {c: _ring_case(mesh, workdir, c) for c in (True, False)}}
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(2, 32, 4, 16, generator=g)
+    k, v = torch.randn(2, 32, 2, 16, generator=g), torch.randn(2, 32, 2, 16, generator=g)
+    d = {}
+    with SQ.sequence_parallel(mesh):
+        d["active"] = SQ.active_axis() is not None
+        with SQ.slab_region():
+            FA.attention_autograd(q, k, v, None, True)
+            d["routed"] = SQ.trace_count()
+            FA.attention_autograd(q[:, -1:], k, v, None, True, q_offset=31)   # a cache: never
+            d["with_offset"] = SQ.trace_count()
+        FA.attention_autograd(q, k, v, None, True)          # outside the LLM's slab region
+        d["outside"] = SQ.trace_count()
+        d["slab_of"] = (SQ.slab_of(63), SQ.slab_of(64))
+    d["restored"] = SQ.active_axis() is None
+    out["dispatch"] = d
+    out["step"] = _mesh_step(mesh, workdir, 2)
+    out["drop"] = _dropout_losses(mesh, workdir)
+    out["trainer"], _ = _trainer(["mesh.sp=2", "data.batch_size=4"], workdir)
+    try:
+        _trainer(["mesh.sp=2", "data.batch_size=4", "data.max_text_len=97", "max_steps=1"],
+                 workdir)
+        out["raised"] = None
+    except RuntimeError as e:
+        out["raised"] = str(e)
+    out["restored_after_raise"] = SQ.active_axis() is None
+    if rank == 0:
+        torch.save(out, os.path.join(workdir, "sp2.pt"))
+
+
+def case_sp4(rank, world, workdir):
+    """4 ranks: the ring at sp = 4 (both causal modes); one step at tp = 2 x
+    sp = 2."""
+    import torch
+    from simlingo_tpu_torch.parallel import mesh as M
+    out = {"ring": {c: _ring_case(M.make_mesh(1, 1, 1, 4, 1, device="cpu"), workdir, c)
+                    for c in (True, False)}}
+    out["tp2_sp2"] = _mesh_step(M.make_mesh(1, 1, 2, 2, 1, device="cpu"), workdir, 2)
+    if rank == 0:
+        torch.save(out, os.path.join(workdir, "sp4.pt"))
+
+
+def _pipeline_case(mesh, workdir, name, microbatches, remat):
+    """qwen2.forward of pl_<name>.npz's inputs under the pp context: the
+    output (every stage's) and, with LoRA, the gradients of mean(out^2)
+    for the stage's layer and LoRA leaves, every stage's gathered."""
+    import torch
+    from simlingo_tpu_torch.core.from_jax import params_from_jax
+    from simlingo_tpu_torch.models import qwen2 as Q
+    from simlingo_tpu_torch.parallel import mesh as M
+    z = load_tree(os.path.join(workdir, f"pl_{name}.npz"))
+    cfg = Q.Qwen2Config(**_mesh_case_dir(workdir)[f"pl_{name}"])
+    params = params_from_jax(z["params"], device="cpu")
+    lora = params_from_jax(z["lora"], device="cpu") if "lora" in z else None
+    leaves = {f"layers/{p}": x for p, x in M.flatten(params["layers"]).items()}
+    if lora is not None:
+        leaves.update({f"lora/{p}": x for p, x in M.flatten(lora["layers"]).items()})
+    for x in leaves.values():
+        x.requires_grad_(True)
+    with _contexts(mesh, microbatches, remat):
+        out, _ = Q.forward(params, torch.from_numpy(z["x"]), cfg, torch.from_numpy(z["pos"]),
+                           kv_valid=torch.from_numpy(z["valid"]), causal=True,
+                           lora_params=lora)
+        (out.float() ** 2).mean().backward()
+    grads = M.gather_stages({p: x.grad for p, x in leaves.items() if x.grad is not None}, mesh)
+    return dict(out=out.detach().numpy(), grads={p: g.numpy() for p, g in grads.items()})
+
+
+def case_pp2(rank, world, workdir):
+    """pp = 2: the pipeline's forward and gradients (microbatches 0 and 4,
+    remat on and off, the indivisible batch), one step, the dropout losses,
+    the trainer and its final checkpoint."""
+    import torch
+    from simlingo_tpu_torch.parallel import mesh as M
+    mesh = M.make_mesh(1, 1, 1, 1, 2, device="cpu")
+    out = {f"pipe_{mb}_{int(remat)}": _pipeline_case(mesh, workdir, "lora", mb, remat)
+           for mb, remat in ((0, True), (4, True), (0, False))}
+    out["pipe_b3"] = _pipeline_case(mesh, workdir, "b3", 0, True)
+    out["step"] = _mesh_step(mesh, workdir, 4)
+    out["drop"] = _dropout_losses(mesh, workdir)
+    out["trainer"], state = _trainer(["mesh.pp=2", "data.batch_size=4", "name=pp2"], workdir,
+                                     os.path.join(workdir, "runs"))
+    out["final"] = _gathered(state)
+    out["held"] = sorted(M.flatten(state.params))
+    if rank == 0:
+        torch.save(out, os.path.join(workdir, "pp2.pt"))
+
+
+def case_pp4(rank, world, workdir):
+    """4 ranks: the pipeline at pp = 4 (a layer a stage); one step at fsdp =
+    2 x pp = 2 and at sp = 2 x pp = 2."""
+    import torch
+    from simlingo_tpu_torch.parallel import mesh as M
+    out = {"pipe_pp4": _pipeline_case(M.make_mesh(1, 1, 1, 1, 4, device="cpu"), workdir, "lora",
+                                      0, True)}
+    out["fsdp2_pp2"] = _mesh_step(M.make_mesh(1, 2, 1, 1, 2, device="cpu"), workdir, 4)
+    out["sp2_pp2"] = _mesh_step(M.make_mesh(1, 1, 1, 2, 2, device="cpu"), workdir, 4)
+    if rank == 0:
+        torch.save(out, os.path.join(workdir, "pp4.pt"))
+
+
 CASES = {"hello": case_hello, "steps": case_steps, "mesh222": case_mesh222,
-         "disk": case_disk}
+         "disk": case_disk, "sp2": case_sp2, "sp4": case_sp4, "pp2": case_pp2,
+         "pp4": case_pp4}
 
 
 def main(argv) -> int:

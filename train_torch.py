@@ -17,10 +17,17 @@ and dreamer files) with validation, metrics in
 newest; `hf_checkpoint=PATH` starts from an InternVL2 / SimLingo torch
 checkpoint). `--synthetic` trains on one synthetic batch instead. Runs on
 the GPU unless `--device cpu`. On several GPUs, one process a GPU under
-torchrun or SLURM, with `mesh.dp` / `mesh.fsdp` / `mesh.tp` (dp -1 fills
-the processes; `data.batch_size` is per rank of dp x fsdp):
+torchrun or SLURM, with `mesh.dp` / `mesh.fsdp` / `mesh.tp` / `mesh.sp` /
+`mesh.pp` (ranks ordered as JAX's `make_mesh(dp, fsdp, tp, sp, pp)`, pp
+innermost; dp -1 fills the processes; `data.batch_size` is per rank of dp
+x fsdp). sp cuts the LLM's sequence into slabs, attention a ring over
+them; the sequence (text + 30 queries) must divide sp, or the first step
+raises. pp cuts the LLM's layers into GPipe stages over
+`mesh.pp_microbatches` microbatches (0: one a stage), each stage's pass
+recomputed in the backward; pp must divide the layers:
 
     torchrun --nproc-per-node 8 train_torch.py --synthetic mesh.fsdp=2 mesh.tp=2
+    torchrun --nproc-per-node 8 train_torch.py --synthetic mesh.sp=2 mesh.pp=2 mesh.tp=2
 """
 
 import argparse
@@ -34,7 +41,9 @@ def main() -> int:
     ap.add_argument("--synthetic", action="store_true",
                     help="train on a synthetic batch (no dataset needed)")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("overrides", nargs="*", help="dotted key=value overrides")
+    ap.add_argument("overrides", nargs="*",
+                    help="dotted key=value overrides, e.g. max_steps=3 mesh.sp=2 mesh.pp=2 "
+                         "mesh.pp_microbatches=4 (the mesh: dp, fsdp, tp, sp, pp)")
     args = ap.parse_args()
 
     from simlingo_tpu_torch.core.config import compose
