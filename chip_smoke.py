@@ -10,8 +10,10 @@
     python3 chip_smoke.py --attn-sweep  # the attention forward at forced plans
     python3 chip_smoke.py --norm-sweep  # the norm kernels at forced plans
     python3 chip_smoke.py --disk        # training from disk with checkpoints, the
-                                        # leaderboard plugin and the evaluation only
+                                        # leaderboard plugin, the evaluation and
+                                        # the microsim only
     python3 chip_smoke.py --mesh        # the multi-GPU training phase only
+    python3 chip_smoke.py --microsim    # the closed-loop microsim phase only
     python3 chip_smoke.py --base [CELL ...]  # the small SimLingo-Base agreement and
                                         # the base cells' phases only (base,
                                         # base_wide, base_resnet)
@@ -211,13 +213,26 @@ Phases, in order; any failure exits non-zero:
      flash_attn_fwd launches a batch exactly as reckoned from its work, the
      first QA batch's prompt validity equal to phase 2's eval cases', the
      JSONs written, the metrics;
- 10. the {"kernels": [...]} line (eleven kernels, launches per path: serve,
+ 10. closed-loop evaluation in the microsim (`microsim`, in phase 7's
+     workspace, on its trained-SimLingo .pt): sim/suite.load_model_agent
+     (presets.internvl2_1b(), the default AgentConfig, bf16) driving
+     MICROSIM_ROUTE through sim/runner.run_route for MICROSIM_TICKS ticks
+     with the replay recorder on: each tick's ms split into camera, agent
+     (synchronised) and world (tick, scripted scenarios, criteria), p50 /
+     max beside phase 8's ticks, each tick's launches exactly as reckoned
+     from its work, one speculative tick profiled (launches by hand
+     kernel), the record through driving_score.merge_route_results and
+     b2d_benchmarks.ability_benchmark; then one job that
+     start_eval_torch.py --microsim builds (MICROSIM_JOB) run by the
+     babysitter and merged by start_eval_torch.summarize (merge_route_dir,
+     merged.json), failing on a failed or retried job;
+ 11. the {"kernels": [...]} line (eleven kernels, launches per path: serve,
      serve_gated, serve_int4, train, train_gated, train_int8,
      train_remat_<mode>, mesh_dp2 / mesh_fsdp2 / mesh_tp2 / mesh_sp2 /
      mesh_pp2 (both ranks'),
      the base cells' <cell>_fwd,
      <cell>_train and <cell>_train_gated, train_disk, carla_plugin,
-     eval_language; the attention kernels also each built head dim's
+     eval_language, microsim; the attention kernels also each built head dim's
      instance at a phase-2 case and the base paths' launches by head dim),
      the nvidia-smi line, and the last line {"ok": true, "device": {...}}.
 Per-case results also go to chiprun_out/chip_smoke_cases.json, the paths'
@@ -226,9 +241,11 @@ chip_smoke_train.json, chip_smoke_train_gated.json,
 chip_smoke_train_int8.json, chip_smoke_train_remat_<mode>.json,
 chip_smoke_mesh_training.json (the ranks' logs chip_smoke_mesh_rank*.log),
 chip_smoke_<cell>_{fwd,train,train_gated}.json, chip_smoke_train_disk.json,
-chip_smoke_carla_plugin.json and chip_smoke_eval_language.json. `--disk`
-runs the build and phases 7-9 alone, `--base` the build, the small
-SimLingo-Base agreement and phase 6, `--mesh` the build and phase 5b.
+chip_smoke_carla_plugin.json, chip_smoke_eval_language.json and
+chip_smoke_microsim.json. `--disk` runs the build and phases 7-10 alone,
+`--base` the build, the small SimLingo-Base agreement and phase 6, `--mesh`
+the build and phase 5b, `--microsim` the build and phase 10 on a random
+trained-SimLingo checkpoint written as phase 7 writes it.
 """
 
 from __future__ import annotations
@@ -258,7 +275,9 @@ RTOL = 2e-2
 # The backward rounds P and dS to bf16 (unit roundoff 2^-8) before its
 # products, and its output to bf16: each gradient element is held to
 # |err| <= 2^-8 (sum |terms| + |ref|) + 1e-5 rms(ref), the rounding bound
-# (the sum of |terms| comes from attention_bwd_reference(abs_terms=True)).
+# (`attention_bwd_bound`: dS's terms are P (|dO| |V| + |delta|), as in the
+# dS pass's own bound, and not |dS|, which omits the fp32 error of the
+# nearly cancelling dP - delta).
 # An rms-scaled atol does not fit: in early causal rows a few large terms
 # cancel to a small gradient, and their rounding shows against it.
 BF16_U = 2.0 ** -8
@@ -965,6 +984,27 @@ def attention_bwd_cases():
               + [c for c in HEAD_DIM_ATTENTION if c[2] == c[3]] + TP_ATTENTION)]
 
 
+def bwd_readings(torch, FA, got, args, ref):
+    """err/tol of each backward gradient in `got` (dq, dk, dv) about `ref`
+    = attention_bwd_reference(*args): "terms" against the kernel's rounding
+    bound `attention_bwd_bound` (held: 2^-8 (sum |terms| + |ref|) + 1e-5
+    rms(ref), dS's terms P (|dO| |V| + |delta|), the bound of phase 2's dS
+    pass carried through the products), "ds" against the same with |dS| in
+    their place (`attention_bwd_reference(abs_terms=True)`, printed
+    beside: it omits the fp32 error of dP - delta, and one kernel can
+    exceed it); with the largest |err| and |err| / rms(ref)."""
+    out = {"terms": [], "ds": [], "err": 0.0, "rel": 0.0}
+    for a, b, m, t in zip(got, ref, FA.attention_bwd_reference(*args, abs_terms=True),
+                          FA.attention_bwd_bound(*args, ref)):
+        diff = (a.float() - b).abs()
+        rms = float(b.square().mean().sqrt())
+        out["terms"].append(float((diff / t).max()))
+        out["ds"].append(float((diff / (BF16_U * (m + b.abs()) + 1e-5 * rms)).max()))
+        out["err"] = max(out["err"], float(diff.max()))
+        out["rel"] = max(out["rel"], float(diff.max()) / max(rms, 1e-30))
+    return out
+
+
 def attention_bwd_bytes(B, T, HQ, HK, D, masked):
     """Bytes the backward must move: q, k, v, o, dout, lse and kv_valid
     read, dq, dk, dv written."""
@@ -1032,17 +1072,10 @@ def run_attention_bwd_checks(torch, dev, results):
         torch.cuda.synchronize()
         args = (q.float(), k.float(), v.float(), valid, out.float(), dout.float(),
                 lse, causal)
-        ref = FA.attention_bwd_reference(*args)
-        mag = FA.attention_bwd_reference(*args, abs_terms=True)
-        ok, err, rel, ratio = same, 0.0, 0.0, 0.0
-        for a, b, m in zip(got, ref, mag):
-            diff = (a.float() - b).abs()
-            rms = float(b.square().mean().sqrt())
-            tol = BF16_U * (m + b.abs()) + 1e-5 * rms
-            ok &= bool((diff <= tol).all())
-            err, rel = max(err, float(diff.max())), max(rel, float(diff.max()) / rms)
-            ratio = max(ratio, float((diff / tol).max()))
-        del mag, ref
+        reads = bwd_readings(torch, FA, got, args, FA.attention_bwd_reference(*args))
+        err, rel, ratio, ratio_ds = (reads["err"], reads["rel"], max(reads["terms"]),
+                                     max(reads["ds"]))
+        ok = same and ratio <= 1.0
         # the scratch path, pass by pass: the kernel's dS^T on the pairs it
         # writes against the plain first pass, and its dq against the plain
         # second pass over the kernel's own scratch (same bound)
@@ -1089,7 +1122,7 @@ def run_attention_bwd_checks(torch, dev, results):
         row = dict(kernel="flash_attn_bwd", case=name,
                    shape=f"q[{B},{T},{HQ},{D}] kv[{B},{T},{HK},{D}]", head_dim=D,
                    causal=causal, empty_rows=empty_rows, max_abs_err=err, err_over_rms=rel,
-                   err_over_tol=ratio, bit_identical=same, ok=ok,
+                   err_over_tol=ratio, err_over_tol_ds=ratio_ds, bit_identical=same, ok=ok,
                    kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bms, bound_by=bby, split_ms=split, ptxas=regs,
                    ds_bytes=plan.ds_bytes, ds_floor_ms=2 * plan.ds_bytes / PEAK_BYTES * 1e3,
@@ -1102,8 +1135,8 @@ def run_attention_bwd_checks(torch, dev, results):
                    digest=digest)
         results.append(row)
         log(f"[kernel] flash_attn_bwd {name:12s} {row['shape']:32s} err={err:.3e} "
-            f"err/rms={rel:.3e} err/tol={ratio:.3f} (tol 2^-8 (sum|terms| + |ref|)) "
-            f"bit-identical={same} "
+            f"err/rms={rel:.3e} err/tol={ratio:.3f} (attention_bwd_bound; |dS| terms "
+            f"{ratio_ds:.3f}) bit-identical={same} "
             f"{'OK' if ok else 'FAIL'} kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms={library_ms:.4f} (SDPA backward) bound_ms={bms:.4f} ({bby}) "
             f"dK/dV blocks={row['dkdv_blocks']} ({row['dkdv_kernel']}) "
@@ -1130,8 +1163,17 @@ def run_ring_checks(torch, dev, results):
     the earlier chunk), fed the ring's global o and lse, against
     attention_bwd_reference on the same inputs (err/tol as the backward's
     other cases; times, bound by the chunk's visible pairs, SDPA's backward
-    on the chunk as the library). The whole ring's summed gradients are
-    held to the plain recurrence in tests/test_torch_cuda.py."""
+    on the chunk as the library); and the whole ring's backward
+    ("ring_bwd_sum": `_Ring` itself, its two ranks on threads of this
+    process as tests/torch_ranks.ring_threads runs them), each chunk's
+    fp32 partials (`out_dtype=torch.float32`) summed and rounded once,
+    against attention_bwd_reference of the whole sequence fed the ring's
+    o / lse, held with one kernel on the whole sequence and the same o /
+    lse to the single-kernel rows' bound over the whole sequence's terms
+    (`bwd_readings`: `attention_bwd_bound`, err/tol <= 1; the |dS|-terms
+    reading beside); times: the ring's three chunk
+    backwards and sums in one stream, the fp32 instance beside the bf16
+    one on the earlier chunk."""
     import torch.nn.functional as F
     from simlingo_tpu_torch.kernels import flash_attention as FA
     from simlingo_tpu_torch.parallel import sequence as SQ
@@ -1190,17 +1232,10 @@ def run_ring_checks(torch, dev, results):
         same = all(torch.equal(a, b) for a, b in zip(
             FA.flash_attn_bwd(q1, kc, vc, vac, o1, d1, lse1, causal), got))
         args = (q1.float(), kc.float(), vc.float(), vac, o1.float(), d1.float(), lse1, causal)
-        ref = FA.attention_bwd_reference(*args)
-        mag = FA.attention_bwd_reference(*args, abs_terms=True)
-        ok, err, rel, ratio = same, 0.0, 0.0, 0.0
-        for a, b, m in zip(got, ref, mag):
-            diff = (a.float() - b).abs()
-            rms = float(b.square().mean().sqrt())
-            tol = BF16_U * (m + b.abs()) + 1e-5 * rms
-            ok &= bool((diff <= tol).all())
-            err, rel = max(err, float(diff.max())), max(rel, float(diff.max()) / max(rms, 1e-30))
-            ratio = max(ratio, float((diff / tol).max()))
-        del ref, mag
+        reads = bwd_readings(torch, FA, got, args, FA.attention_bwd_reference(*args))
+        err, rel, ratio, ratio_ds = (reads["err"], reads["rel"], max(reads["terms"]),
+                                     max(reads["ds"]))
+        ok = same and ratio <= 1.0
         pairs, empty_rows, mask = visible_pairs(torch, dev, B, n, n, causal, 0, vac)
         bms, bby = bound(attention_bwd_bytes(B, n, HQ, HK, D, True), 10 * D * pairs * HQ)
 
@@ -1226,15 +1261,102 @@ def run_ring_checks(torch, dev, results):
         row = dict(kernel="flash_attn_bwd", case=name,
                    shape=f"q[{B},{n},{HQ},{D}] kv[{B},{n},{HK},{D}]", head_dim=D, causal=causal,
                    empty_rows=empty_rows, max_abs_err=err, err_over_rms=rel, err_over_tol=ratio,
-                   bit_identical=same, ok=ok, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                   err_over_tol_ds=ratio_ds, bit_identical=same, ok=ok, kernel_ms=kernel_ms,
+                   plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bms, bound_by=bby,
                    digest=[sha12(torch, x) for x in got])
         results.append(row)
         log(f"[kernel] flash_attn_bwd {name:12s} {row['shape']:32s} the ring's global o / lse "
-            f"err={err:.3e} err/rms={rel:.3e} err/tol={ratio:.3f} bit-identical={same} "
+            f"err={err:.3e} err/rms={rel:.3e} err/tol={ratio:.3f} (attention_bwd_bound; |dS| "
+            f"terms {ratio_ds:.3f}) bit-identical={same} "
             f"{'OK' if ok else 'FAIL'} kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms={library_ms:.4f} (SDPA backward on the chunk) bound_ms={bms:.4f} "
             f"({bby})")
+
+    # the ring's summed gradients, through `_Ring` on two threads
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_ranks", os.path.join(ROOT, "tests", "torch_ranks.py"))
+    ranks = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ranks)
+    q, k, v, dout = make()
+    b0 = FA.flash_attn_bwd.launches
+    got = ranks.ring_threads(*([sl(x, i) for i in range(2)] for x in (q, k, v, valid, dout)),
+                             True)
+    torch.cuda.synchronize()
+    launched = FA.flash_attn_bwd.launches - b0
+    o = torch.cat([r[0] for r in got], 1)
+    lse = torch.cat([r[2] for r in got], 2)
+    grads = [torch.cat([r[1][j] for r in got], 1) for j in range(3)]
+    args = (q.float(), k.float(), v.float(), valid, o.float(), dout.float(), lse, True)
+    ref = FA.attention_bwd_reference(*args)
+    # the ring's sum and one kernel on the whole sequence with the same o /
+    # lse, held alike: to the single-kernel rows' bound over the whole
+    # sequence's terms
+    reads = bwd_readings(torch, FA, grads, args, ref)
+    single = bwd_readings(torch, FA, FA.flash_attn_bwd(q, k, v, valid, o, dout, lse, True),
+                          args, ref)
+    ratios, err, rel = reads["terms"], reads["err"], reads["rel"]
+    readings = {"ring_terms": ratios, "ring_ds": reads["ds"], "single_terms": single["terms"],
+                "single_ds": single["ds"]}
+    ok = (launched == 3 and all(a.dtype == torch.bfloat16 for a in grads)
+          and max(ratios) <= 1.0 and max(single["terms"]) <= 1.0)
+    del ref
+    pairs, empty_rows, mask = visible_pairs(torch, dev, B, T, T, True, 0, valid)
+    bms, bby = bound(attention_bwd_bytes(B, T, HQ, HK, D, True), 10 * D * pairs * HQ)
+    vas = [sl(valid, i) for i in range(2)]
+
+    def ring_bwd(q_, k_, v_, o_, d_, l_):
+        """The ring's arithmetic without its passes: rank 0's diagonal, rank
+        1's diagonal and earlier chunk, their fp32 partials summed by slab
+        (dq of slab 1 from two chunks, dk / dv of slab 0 from two)."""
+        qs, ks, vs, os_, ds_ = ([sl(x, i) for i in range(2)] for x in (q_, k_, v_, o_, d_))
+        ls = [l_[:, :, i * n:(i + 1) * n].contiguous() for i in range(2)]
+        g = {(i, src): SQ.chunk_grads(qs[i], ks[src], vs[src], vas[src], os_[i], ds_[i],
+                                      ls[i], i == src)
+             for i, src in ((0, 0), (1, 1), (1, 0))}
+        return (g[0, 0][0], g[1, 1][0] + g[1, 0][0], g[0, 0][1] + g[1, 0][1],
+                g[0, 0][2] + g[1, 0][2], g[1, 1][1], g[1, 1][2])
+    sets = [(q, k, v, o, dout, lse)]
+    for _ in range(n_sets(attention_bwd_bytes(B, T, HQ, HK, D, True)) - 1):
+        qq, kk, vv, dd = make()
+        sets.append((qq, kk, vv, o, dd, lse))
+    kernel_ms = time_ms(torch, ring_bwd, sets)
+    prev = (sl(q, 1), sl(k, 0), sl(v, 0), vas[0], sl(o, 1), sl(dout, 1),
+            lse[:, :, n:].contiguous(), False)
+    chunk_ms = {str(dt).split(".")[1]: time_ms(
+        torch, lambda *a, dt=dt: FA.flash_attn_bwd(*a, out_dtype=dt), [prev])
+        for dt in (torch.bfloat16, torch.float32)}
+    plain_ms = time_ms(torch, lambda q_, k_, v_, o_, d_, l_: FA.attention_bwd_reference(
+        q_, k_, v_, valid, o_, d_, l_, True), sets[:2], iters=2)
+    xs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(
+        *(x.transpose(1, 2) for x in xs), attn_mask=mask[:, None], enable_gqa=True)
+    library_ms = eager_ms(torch, lambda: torch.autograd.grad(
+        lib_out, xs, dout.transpose(1, 2), retain_graph=True), [()], iters=10)
+    del lib_out, xs, sets
+    row = dict(kernel="flash_attn_bwd", case="ring_bwd_sum",
+               shape=f"q[{B},{T},{HQ},{D}] kv[{B},{T},{HK},{D}] as 2 slabs of {n}",
+               head_dim=D, causal=True, empty_rows=empty_rows, max_abs_err=err,
+               err_over_rms=rel, err_over_tol=max(ratios), err_over_tol_dq_dk_dv=ratios,
+               readings_dq_dk_dv=readings,
+               launches=launched, ok=ok, kernel_ms=kernel_ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bms, bound_by=bby,
+               chunk_ms_by_out_dtype=chunk_ms, digest=[sha12(torch, x) for x in grads])
+    results.append(row)
+    log(f"[kernel] flash_attn_bwd ring_bwd_sum {row['shape']}: _Ring's summed fp32 partials "
+        f"({launched} chunk launches), rounded once, against the whole sequence's plain "
+        f"backward err={err:.3e} err/rms={rel:.3e} err/tol dq / dk / dv "
+        f"{' / '.join(f'{r:.3f}' for r in ratios)} (attention_bwd_bound over the whole "
+        f"sequence, as the single-kernel rows) {'OK' if ok else 'FAIL'}; one kernel on the "
+        f"whole sequence and the same o / lse "
+        f"{' / '.join(f'{r:.3f}' for r in readings['single_terms'])}; with |dS| terms the "
+        f"ring {' / '.join(f'{r:.3f}' for r in readings['ring_ds'])}, the one kernel "
+        f"{' / '.join(f'{r:.3f}' for r in readings['single_ds'])}; "
+        f"kernel_ms={kernel_ms:.4f} (three chunk backwards + sums) plain_ms={plain_ms:.4f} "
+        f"library_ms={library_ms:.4f} (SDPA backward, whole sequence) bound_ms={bms:.4f} "
+        f"({bby}); the earlier chunk bf16 "
+        f"{chunk_ms['bfloat16']:.4f} ms, fp32 partials {chunk_ms['float32']:.4f} ms")
 
 
 # dropout at a rank's block of a multi-GPU step (`block` = row0, col0, width
@@ -4170,6 +4292,232 @@ def eval_language(torch, dev, work, checkpoint):
     return ok, dict(modes=modes, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: closed-loop evaluation in the microsim, in phase 7's workspace
+# ---------------------------------------------------------------------------
+
+MICROSIM_ROUTE = "micro_02_accident"     # straight town, Accident at 110 m, no NPCs
+MICROSIM_TICKS = 40                      # 2 s of game time: the first plain CoT, then speculative
+MICROSIM_PROFILE_TICK = 5                # a speculative tick, profiled (not timed)
+# the babysat job: route, --max-steps. Past the default AgentConfig's 40
+# settling ticks, so the model runs (plain CoT, then speculative); on a
+# scenario route, so that merged.json carries the ability breakdown
+MICROSIM_JOB = ("micro_02_accident", 42)
+MICROSIM_JOB_INFERENCE = 2               # ticks of the job that run the model
+MICROSIM_JOB_TIMEOUT = 600               # seconds the babysitter lets the job run
+
+
+def _p50_max(xs):
+    xs = sorted(xs)
+    return (xs[len(xs) // 2], xs[-1]) if xs else (float("nan"), float("nan"))
+
+
+def microsim(torch, dev, hf_path, work, plugin=None):
+    """Phase 10: closed-loop evaluation in the microsim. (a) In process:
+    `sim/suite.load_model_agent` on phase 7's trained-SimLingo .pt
+    (presets.internvl2_1b() and the default AgentConfig: CoT, int8 LLM,
+    speculative; bf16; initial_frames_delay set to 0, as phase 8 does),
+    `sim/runner.run_route` on MICROSIM_ROUTE for MICROSIM_TICKS ticks with
+    the replay recorder on: each tick's host ms split into the camera's
+    render, the agent's step (ending in a synchronize) and the rest (world
+    tick, scripted scenarios, criteria, the recorder's log), beside phase
+    8's plugin ticks (`plugin`); each tick's launches held exactly to
+    `serve_launches` of its work; the launches of one profiled speculative
+    tick by hand kernel; the record's status, scores and infractions, run
+    through `driving_score.merge_route_results` and
+    `b2d_benchmarks.ability_benchmark`. (b) Through the babysitter: the one
+    job `start_eval_torch.py --microsim --agent-kind model` builds for
+    MICROSIM_JOB's route, with its --max-steps, under `Babysitter` +
+    `LocalBackend`, then `start_eval_torch.summarize` (merge_route_dir, the
+    ability breakdown, merged.json); a failed or retried job fails the
+    phase, as do a job whose agent ran the model on fewer than
+    MICROSIM_JOB_INFERENCE ticks or launched no attention or int8 kernel
+    (the suite's `agent:` line), and a merged.json without the ability
+    breakdown or whose breakdown differs from `ability_benchmark` /
+    `driving_efficiency` of the job's records."""
+    import start_eval_torch as SE
+    from simlingo_tpu_torch.eval import b2d_benchmarks as B2D
+    from simlingo_tpu_torch.eval import driving_score as DS
+    from simlingo_tpu_torch.orchestration.babysitter import Babysitter, LocalBackend
+    from simlingo_tpu_torch.sim import runner as R
+    from simlingo_tpu_torch.sim import suite as SU
+    tag = "[microsim]"
+    kernels = kernel_fns()
+    t0 = time.perf_counter()
+    agent = SU.load_model_agent(hf_path, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    m, acfg = agent.model_cfg, agent.cfg
+    log(f"{tag} load_model_agent({os.path.basename(hf_path)}) in {setup_s:.1f} s: "
+        f"use_cot={acfg.use_cot} int8_llm={acfg.int8_llm} speculative_cot="
+        f"{acfg.speculative_cot} spec_k={acfg.spec_k} compute {agent.compute_dtype}; "
+        f"initial_frames_delay {acfg.initial_frames_delay} set to 0")
+    acfg.initial_frames_delay = 0
+    spec = next(s for s in SU.SUITES["micro"]() if s["route_id"] == MICROSIM_ROUTE)
+    ticks, cur, prof = [], {}, {}
+    inner = agent.run_step
+
+    def run_step(frame):
+        before = {k: fn.launches for k, fn in kernels.items()}
+        t = time.perf_counter()
+        if len(ticks) == MICROSIM_PROFILE_TICK:
+            box = []
+            prof.update(device_profile(torch, lambda: box.append(inner(frame)),
+                                       f"microsim tick {len(ticks)}"))
+            out = box[0]
+        else:
+            out = inner(frame)
+        torch.cuda.synchronize()
+        cur.update(agent_ms=(time.perf_counter() - t) * 1e3,
+                   tokens=len(out["language_tokens"]),
+                   launches={k: fn.launches - before[k] for k, fn in kernels.items()
+                             if fn.launches - before[k]})
+        return out
+    agent.run_step = run_step
+
+    def make(world, route, scen):
+        driver = R.ModelDriver(agent, world, route)
+        render, step = driver.camera.render, driver.step
+
+        def timed_render(w, **kw):
+            t = time.perf_counter()
+            out = render(w, **kw)
+            cur["camera_ms"] = (time.perf_counter() - t) * 1e3
+            return out
+
+        def timed_step():
+            cur.clear()
+            cur["t0"] = time.perf_counter()
+            out = step()
+            cur["t_step"] = time.perf_counter()
+            return out
+        driver.camera.render, driver.step = timed_render, timed_step
+        return driver
+
+    def on_tick(world, criteria):
+        t = time.perf_counter()
+        ticks.append(dict(camera_ms=cur["camera_ms"], agent_ms=cur["agent_ms"],
+                          world_ms=(t - cur["t_step"]) * 1e3, ms=(t - cur["t0"]) * 1e3,
+                          tokens=cur["tokens"], launches=cur["launches"],
+                          control=list(world.ego.control)))
+
+    record_dir = os.path.join(work, "microsim_records")
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rec = R.run_route(spec, make, max_steps=MICROSIM_TICKS, record_dir=record_dir,
+                      on_tick=on_tick)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+    agent.run_step = inner
+    spec_stats = list(agent.spec_stats)
+    agent.close()
+    del agent
+    torch.cuda.empty_cache()
+
+    ok = len(ticks) == MICROSIM_TICKS == len(spec_stats) + 1
+    for i, t in enumerate(ticks):
+        rounds = None if i == 0 else spec_stats[i - 1][0]
+        want = serve_launches(m, t["tokens"], rounds)
+        good = t["launches"] == want and all(math.isfinite(c) for c in t["control"])
+        ok &= good
+        t.update(rounds=rounds, reckoned=want)
+        kind = "cot_plain" if i == 0 else "profiled" if i == MICROSIM_PROFILE_TICK else "cot_spec"
+        log(f"{tag} tick {i:2d} {kind:9s} {t['ms']:9.2f} ms: "
+            f"camera {t['camera_ms']:.2f}, agent {t['agent_ms']:.2f}, world {t['world_ms']:.2f}; "
+            f"tokens={t['tokens']} rounds={rounds} control="
+            f"{[round(c, 4) for c in t['control']]} launches {t['launches']} "
+            f"({'= reckoned' if good else f'reckoned {want}: FAIL'})")
+    spec_ticks = [t for i, t in enumerate(ticks) if i not in (0, MICROSIM_PROFILE_TICK)]
+    split = {k: _p50_max([t[k] for t in spec_ticks])
+             for k in ("ms", "camera_ms", "agent_ms", "world_ms")}
+    beside = "phase 8 not run"
+    if plugin is not None:
+        beside = (f"phase 8's speculative plugin ticks p50 / max "
+                  f"{'%.2f / %.2f' % _p50_max([t['ms'] for t in plugin['ticks'][1:]])} ms")
+    log(f"{tag} {len(spec_ticks)} speculative ticks (the profiled one left out) p50 / max: "
+        f"tick {split['ms'][0]:.2f} / {split['ms'][1]:.2f} "
+        f"ms = camera {split['camera_ms'][0]:.2f} / {split['camera_ms'][1]:.2f} + agent "
+        f"{split['agent_ms'][0]:.2f} / {split['agent_ms'][1]:.2f} + world "
+        f"{split['world_ms'][0]:.2f} / {split['world_ms'][1]:.2f}; the first (plain CoT) "
+        f"{ticks[0]['ms']:.2f} ms (agent {ticks[0]['agent_ms']:.2f}); {beside}")
+    if prof:
+        per = {k: v["count"] for k, v in prof["hand"].items()}
+        t = ticks[MICROSIM_PROFILE_TICK]
+        log(f"{tag} launches in profiled tick {MICROSIM_PROFILE_TICK} by hand kernel {per} "
+            f"(counted {t['launches']}; device busy {prof['device_busy_ms']:.2f} of "
+            f"{prof['wall_ms']:.2f} ms)")
+    rec_path = os.path.join(work, "microsim_route.json")
+    with open(rec_path, "w") as f:
+        json.dump({"_checkpoint": {"records": [rec]}}, f)
+    merged = DS.merge_route_results([rec_path])
+    ability = B2D.ability_benchmark([rec])
+    import gzip
+    with gzip.open(os.path.join(record_dir, MICROSIM_ROUTE, "records.json.gz"), "rt") as f:
+        replay = json.load(f)
+    good = (rec["route_id"] == MICROSIM_ROUTE and merged["num_routes"] == 1
+            and math.isfinite(merged["driving_score"])
+            and rec["meta"]["scenario_type"] == "Accident"
+            and sum(ability["ability_counts"][k][1] for k in ability["ability_counts"]) >= 1
+            and len(replay["states"]) == MICROSIM_TICKS
+            and rec["meta"]["duration_game"] == round(MICROSIM_TICKS * 0.05, 3))
+    ok &= good
+    log(f"{tag} {MICROSIM_ROUTE} after {len(ticks)} ticks ({wall_s:.1f} s): status "
+        f"{rec['status']!r}, scores {rec['scores']}, infractions "
+        f"{ {k: v for k, v in rec['infractions'].items() if v} }; merge_route_results "
+        f"driving_score {merged['driving_score']} success_rate {merged['success_rate']}; "
+        f"ability_benchmark {ability['ability']} counts {ability['ability_counts']}; replay "
+        f"record {len(replay['states'])} states {'OK' if good else 'FAIL'}")
+    log(f"{tag} launches over the route {launches}")
+
+    # (b) one babysat start_eval_torch job
+    route, steps = MICROSIM_JOB
+    out_dir = os.path.join(work, "microsim_eval")
+    args = SE.parse_args(["--microsim", "--agent-kind", "model", "--checkpoint", hf_path,
+                          "--output-dir", out_dir, "--max-jobs", "1"])
+    os.makedirs(out_dir, exist_ok=True)
+    job = next(j for j in SE.build_jobs(args) if j.name == route)
+    job.cmd = job.cmd + ["--max-steps", str(steps)]
+    log(f"{tag} babysat job: {' '.join(job.cmd)}")
+    t0 = time.perf_counter()
+    sitter = Babysitter([job], LocalBackend(), max_concurrent=1, poll_interval_s=0.5,
+                        hang_timeout_s=MICROSIM_JOB_TIMEOUT)
+    counts = sitter.run()
+    job_s = time.perf_counter() - t0
+    with open(job.log_path, errors="replace") as f:
+        job_log = f.read()
+    summary = SE.summarize(out_dir)
+    with open(os.path.join(out_dir, "merged.json")) as f:
+        written = json.load(f)
+    with open(os.path.join(out_dir, f"{route}.json")) as f:
+        job_records = json.load(f)["_checkpoint"]["records"]
+    want_ability = B2D.ability_benchmark(job_records)
+    want_eff = B2D.driving_efficiency(job_records)
+    ran = re.search(r"^agent: (\d+) inference ticks of (\d+) on cuda; hand-kernel launches "
+                    r"flash_attn_fwd (\d+) int8_matmul (\d+)$", job_log, re.M)
+    ran = tuple(int(x) for x in ran.groups()) if ran else None
+    good = (counts == {"running": 0, "finished": 1, "failed": 0, "pending": 0}
+            and job.retries == 0 and summary["num_routes"] == 1 and written == summary
+            and math.isfinite(summary["driving_score"])
+            and ran is not None and ran[:2] == (MICROSIM_JOB_INFERENCE, steps)
+            and min(ran[2:]) > 0
+            and written.get("ability") == json.loads(json.dumps(want_ability["ability"]))
+            and written.get("driving_efficiency") == want_eff)
+    ok &= good
+    log(f"{tag} job {route}: {job_s:.1f} s, counts {counts}, retries {job.retries}; the job's "
+        f"agent (inference ticks, ticks, flash_attn_fwd, int8_matmul launches) {ran}; "
+        f"merge_route_dir -> merged.json: driving_score {summary['driving_score']} "
+        f"success_rate {summary['success_rate']} num_routes {summary['num_routes']} ability "
+        f"{written.get('ability')} driving_efficiency {written.get('driving_efficiency')} "
+        f"{'OK' if good else 'FAIL'}; the job's log ends:\n" + job_log[-1500:])
+    return ok, dict(setup_s=setup_s, wall_s=wall_s, ticks=ticks, spec_stats=spec_stats,
+                    split_p50_max=split, profile=prof, record=rec, merged=merged,
+                    ability=ability, launches=launches,
+                    job=dict(cmd=job.cmd, seconds=job_s, counts=counts, retries=job.retries,
+                             summary=summary))
+
+
 # the attention kernels' representative phase-2 case at each built head dim
 ATTN_INSTANCE_CASES = {"flash_attn_fwd": {16: "tiny_llm", 32: "shardable_llm", 64: "llm_prefill",
                                           128: "base_large"},
@@ -4242,9 +4590,9 @@ def smi_line():
 
 
 def disk_and_eval_phases(torch, dev, per_frame=None):
-    """Phases 7, 8 and 9 in one workspace under build/, removed after;
+    """Phases 7, 8, 9 and 10 in one workspace under build/, removed after;
     returns (ok, phase 7's stats, {"carla_plugin": ..., "eval_language":
-    ...}) with a phase's stats only where it ran."""
+    ..., "microsim": ...}) with a phase's stats only where it ran."""
     import tempfile
     from simlingo_tpu_torch.core import checkpoint as ckpt
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -4260,10 +4608,31 @@ def disk_and_eval_phases(torch, dev, per_frame=None):
             ok, after["eval_language"] = eval_language(torch, dev, work,
                                                        written["final_checkpoint"])
             torch.cuda.empty_cache()
+        if ok:
+            ok, after["microsim"] = microsim(torch, dev, written["hf_checkpoint"], work,
+                                             after["carla_plugin"])
+            torch.cuda.empty_cache()
     finally:
         ckpt.wait_for_checkpoints()
         shutil.rmtree(work, ignore_errors=True)
     return ok, disk_stats, after
+
+
+def microsim_only(torch, dev):
+    """`--microsim`: phase 10 alone, on a random trained-SimLingo .pt
+    written as phase 7 writes it (no training), in a workspace under
+    build/, removed after."""
+    import tempfile
+    from simlingo_tpu_torch.core import presets
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="microsim_", dir=os.path.join(ROOT, "build"))
+    try:
+        hf_path = os.path.join(work, "pytorch_model.pt")
+        torch.save(simlingo_state_dict(presets.internvl2_1b(lora=True), torch, dev), hf_path)
+        torch.cuda.empty_cache()
+        return microsim(torch, dev, hf_path, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def run_path_phases(torch, dev, cases) -> int:
@@ -4322,7 +4691,8 @@ def run_path_phases(torch, dev, cases) -> int:
                      *((f"train_remat_{m}", st) for m, st in remat_stats.items()),
                      ("mesh_training", mesh_stats), ("train_disk", disk_stats),
                      ("carla_plugin", eval_stats["carla_plugin"]),
-                     ("eval_language", eval_stats["eval_language"])):
+                     ("eval_language", eval_stats["eval_language"]),
+                     ("microsim", eval_stats["microsim"])):
         with open(os.path.join(ROOT, "chiprun_out", f"chip_smoke_{name}.json"), "w") as f:
             json.dump(dict(st, nvidia_smi=smi), f, indent=1)
     launches = {"serve": stats["launches"], "serve_gated": stats["gated"]["launches"],
@@ -4332,7 +4702,8 @@ def run_path_phases(torch, dev, cases) -> int:
                 **{run: st["launches"] for run, st in mesh_stats["runs"].items()},
                 **base_launches, "train_disk": disk_stats["launches"],
                 "carla_plugin": eval_stats["carla_plugin"]["launches"],
-                "eval_language": eval_stats["eval_language"]["launches"]}
+                "eval_language": eval_stats["eval_language"]["launches"],
+                "microsim": eval_stats["microsim"]["launches"]}
     print(json.dumps(kernel_line(cases, launches, base_by_dim)), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4487,10 +4858,11 @@ def seq_halves_losses(torch, params, ex, seed, m, dtype=None):
     builds the whole sequence (the ViT included) itself, and runs the LLM
     on its half of the positions; the layers run half 0 then half 1, so
     that half 1's attention finds half 0's keys: half 0 is the causal
-    diagonal (`attention_train`, what the ring gives rank 0), half 1 the
-    ring's two chunks merged by lse in ring order, and its backward the
-    ring's per-chunk backwards against the global o / lse, dq summed in
-    fp32, the earlier chunk's dk / dv handed to half 0's keys. Each half
+    diagonal (what the ring gives rank 0), half 1 the ring's two chunks
+    merged by lse in ring order, and the backward the ring's own
+    (`sequence.chunk_grads` a chunk against the global o / lse, fp32
+    partials; dq summed in fp32; half 0's dk / dv, from both halves,
+    summed in fp32 on its fp32 keys; each rounded once). Each half
     computes the loss terms of its positions (the queries' on half 1),
     every average over the whole batch's counts. Returns the two
     TrainingOutputs; their losses' sum is the step's loss. `dtype`: the
@@ -4511,34 +4883,38 @@ def seq_halves_losses(torch, params, ex, seed, m, dtype=None):
         return (FA.attention_reference(q, k, v, va, causal),      # CPU tests
                 FA.attention_lse_reference(q, k, va, causal))
 
-    def chunk_bwd(q, k, v, va, o, dout, lse, causal):
-        if q.is_cuda:
-            return FA.flash_attn_bwd(q, k, v, va, o, dout, lse, causal)
-        return [g.to(x.dtype) for g, x in zip(FA.attention_bwd_reference(
-            q, k, v, va, o, dout, lse, causal), (q, k, v))]
-
-    class TwoChunks(torch.autograd.Function):
-        """Rank 1's ring: its diagonal, then rank 0's keys."""
+    class Chunks(torch.autograd.Function):
+        """A half's ring in one process: its queries against its key chunks
+        (k, v fp32, va) in ring order, the causal diagonal first, merged by
+        lse; the backward is the ring's (`SQ.chunk_grads`: fp32 partials,
+        dq summed in ring order and rounded once, each chunk's dk / dv
+        handed back unrounded to its fp32 keys)."""
 
         @staticmethod
-        def forward(ctx, q, k, v, va, k0, v0, va0):
+        def forward(ctx, q, *kvs):
             o = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
             lse = torch.full((q.shape[0], q.shape[2], q.shape[1]), float("-inf"),
                              device=q.device)
-            for kc, vc, vac, diag in ((k, v, va, True), (k0, v0, va0, False)):
-                o, lse = SQ._merge(o, lse, *chunk_fwd(q, kc, vc, vac, diag))
+            for c in range(0, len(kvs), 3):
+                kc, vc, vac = kvs[c:c + 3]
+                o, lse = SQ._merge(o, lse, *chunk_fwd(q, kc.to(q.dtype), vc.to(q.dtype), vac,
+                                                      c == 0))
             o = o.to(q.dtype)
-            ctx.save_for_backward(q, k, v, va, k0, v0, va0, o, lse)
+            ctx.save_for_backward(q, o, lse, *kvs)
             return o
 
         @staticmethod
         def backward(ctx, dout):
-            q, k, v, va, k0, v0, va0, o, lse = ctx.saved_tensors
+            q, o, lse, *kvs = ctx.saved_tensors
             dout = dout.contiguous()
-            g1 = chunk_bwd(q, k, v, va, o, dout, lse, True)
-            g0 = chunk_bwd(q, k0, v0, va0, o, dout, lse, False)
-            dq = (g1[0].float() + g0[0].float()).to(q.dtype)
-            return dq, g1[1], g1[2], None, g0[1], g0[2], None
+            dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+            grads = []
+            for c in range(0, len(kvs), 3):
+                kc, vc, vac = kvs[c:c + 3]
+                g = SQ.chunk_grads(q, kc.to(q.dtype), vc.to(q.dtype), vac, o, dout, lse, c == 0)
+                dq += g[0]
+                grads += [g[1], g[2], None]
+            return (dq.to(q.dtype), *grads)
 
     label = ex.driving_input.prompt
     B, T = label.ids.shape
@@ -4556,11 +4932,13 @@ def seq_halves_losses(torch, params, ex, seed, m, dtype=None):
     keys = {}
 
     def attention(q, k, v, kv_valid=None, causal=True, scale=None, q_offset=None):
+        # fp32 keys: half 0's sum its two halves' fp32 partials and round once
+        k, v = k.float(), v.float()
         if not keys:                  # half 0: its diagonal; its keys kept for half 1
             keys.update(k=k, v=v, va=kv_valid)
-            return FA.attention_train(q, k, v, kv_valid, causal)
+            return Chunks.apply(q, k, v, kv_valid)
         k0, v0, va0 = keys.pop("k"), keys.pop("v"), keys.pop("va")
-        return TwoChunks.apply(q, k, v, kv_valid, k0, v0, va0)
+        return Chunks.apply(q, k, v, kv_valid, k0, v0, va0)
 
     orig = Q.attention_autograd
     Q.attention_autograd = attention
@@ -5042,9 +5420,13 @@ def main() -> int:
                          + ", ".join(BASE_CELLS) + ")")
     ap.add_argument("--disk", action="store_true",
                     help="build, then run the disk-training phase (7) and, in its "
-                         "workspace, the plugin (8) and the evaluation (9) only")
+                         "workspace, the plugin (8), the evaluation (9) and the "
+                         "microsim (10) only")
     ap.add_argument("--mesh", action="store_true",
                     help="build, then run the multi-GPU training phase (mesh_training) only")
+    ap.add_argument("--microsim", action="store_true",
+                    help="build, then run the closed-loop microsim phase (10) only, on a "
+                         "random trained-SimLingo checkpoint")
     ap.add_argument("--mesh-rank", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--parent", metavar="DIR",
                     help="also hold the fused CE forward's and the tiled attention "
@@ -5090,13 +5472,20 @@ def main() -> int:
             json.dump(dict(st, nvidia_smi=smi_line()), f, indent=1)
         log(f"[mesh] phase mesh_training {'OK' if ok else 'FAILED'} on {smi_line()}")
         return 0 if ok else 1
+    if args.microsim:
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        ok, st = microsim_only(torch, dev)
+        with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_microsim.json"), "w") as f:
+            json.dump(dict(st, nvidia_smi=smi_line()), f, indent=1)
+        log(f"[microsim] phase 10 {'OK' if ok else 'FAILED'} on {smi_line()}")
+        return 0 if ok else 1
     if args.disk:
         ok, st, after = disk_and_eval_phases(torch, dev)
         os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
         for name, stats in (("train_disk", st), *after.items()):
             with open(os.path.join(ROOT, "chiprun_out", f"chip_smoke_{name}.json"), "w") as f:
                 json.dump(dict(stats, nvidia_smi=smi_line()), f, indent=1)
-        log(f"[train_disk] phases 7-9 {'OK' if ok else 'FAILED'} on {smi_line()}")
+        log(f"[train_disk] phases 7-10 {'OK' if ok else 'FAILED'} on {smi_line()}")
         return 0 if ok else 1
 
     # 2. kernels

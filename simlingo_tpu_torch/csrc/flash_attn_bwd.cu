@@ -1,6 +1,10 @@
 // Flash attention backward for Hopper (sm_90a): dQ, dK, dV from the saved
 // output O and the forward's base-2 log-sum-exp. bf16 in and out, fp32
-// accumulation.
+// accumulation; or, where a caller sums several of them (the ring of
+// parallel/sequence.py adds one backward a key chunk), dQ, dK, dV stored
+// as the fp32 accumulators (times the scale), unrounded: the same
+// kernels instantiated with OutT = float, which differ only in their
+// stores. The bf16 instances (OutT = bf16) are unchanged by that.
 //
 // Replaces the Pallas TPU backward kernels of
 // simlingo_tpu/kernels/flash_attention.py: _bwd_kernel_gqa (:382, the Qwen2
@@ -187,14 +191,14 @@ bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
 
 // MIN_BLOCKS: resident blocks an SM that ptxas must fit (3 caps the
 // registers at 168); 1 leaves the count to ptxas (2 blocks an SM).
-template <int D, int MIN_BLOCKS>
+template <int D, int MIN_BLOCKS, typename OutT>
 __global__ void __launch_bounds__(128, MIN_BLOCKS)
 bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const uint8_t* __restrict__ kv_valid,
                 const uint8_t* __restrict__ live,
                 const bf16* __restrict__ dout, const float* __restrict__ lse,
                 const float* __restrict__ delta, bf16* __restrict__ ds,
-                bf16* __restrict__ dk, bf16* __restrict__ dv,
+                OutT* __restrict__ dk, OutT* __restrict__ dv,
                 int T, int S, int HQ, int HK,
                 long long sqb, long long sqt, long long sqh,
                 long long skb, long long sks, long long skh,
@@ -366,14 +370,21 @@ bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int key = key0 + r * 8;
     if (key >= S) continue;
-    bf16* dkrow = dk + (((long long)b * S + key) * HK + hk) * D;
-    bf16* dvrow = dv + (((long long)b * S + key) * HK + hk) * D;
+    OutT* dkrow = dk + (((long long)b * S + key) * HK + hk) * D;
+    OutT* dvrow = dv + (((long long)b * S + key) * HK + hk) * D;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(dkrow + dt * 8 + t4 * 2) = simlingo::pack_bf16x2(
-          dkacc[dt][2 * r] * scale, dkacc[dt][2 * r + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dvrow + dt * 8 + t4 * 2) = simlingo::pack_bf16x2(
-          dvacc[dt][2 * r], dvacc[dt][2 * r + 1]);
+      if constexpr (std::is_same<OutT, float>::value) {
+        *reinterpret_cast<float2*>(dkrow + dt * 8 + t4 * 2) =
+            make_float2(dkacc[dt][2 * r] * scale, dkacc[dt][2 * r + 1] * scale);
+        *reinterpret_cast<float2*>(dvrow + dt * 8 + t4 * 2) =
+            make_float2(dvacc[dt][2 * r], dvacc[dt][2 * r + 1]);
+      } else {
+        *reinterpret_cast<uint32_t*>(dkrow + dt * 8 + t4 * 2) = simlingo::pack_bf16x2(
+            dkacc[dt][2 * r] * scale, dkacc[dt][2 * r + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dvrow + dt * 8 + t4 * 2) = simlingo::pack_bf16x2(
+            dvacc[dt][2 * r], dvacc[dt][2 * r + 1]);
+      }
     }
   }
 }
@@ -384,10 +395,10 @@ bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // (the loop is bound by reading the scratch; deeper rings were no faster).
 constexpr int DQ_STAGES = 2;
 
-template <int D>
+template <int D, typename OutT>
 __global__ void __launch_bounds__(128)
 bwd_dq_kernel(const bf16* __restrict__ ds, const bf16* __restrict__ k,
-              const uint8_t* __restrict__ live, bf16* __restrict__ dq,
+              const uint8_t* __restrict__ live, OutT* __restrict__ dq,
               int T, int S, int HQ, int HK, long long skb, long long sks, long long skh,
               int causal, int q_offset, float scale) {
   constexpr int LDK = Dims<D>::LDK, CH = Dims<D>::CH, CH_LOG2 = Dims<D>::CH_LOG2;
@@ -472,6 +483,22 @@ bwd_dq_kernel(const bf16* __restrict__ ds, const bf16* __restrict__ k,
     }
   }
 
+  if constexpr (std::is_same<OutT, float>::value) {
+    // fp32: each thread stores its accumulator pairs, rows g and g + 8 of
+    // the warp's 16, 8 bytes at a time
+    const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = q0 + warp * 16 + g + r * 8;
+      if (t >= T) continue;
+      float* row = dq + (((long long)b * T + t) * HQ + h) * D;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(row + n * 8 + t4 * 2) =
+            make_float2(dqacc[n][2 * r] * scale, dqacc[n][2 * r + 1] * scale);
+    }
+    return;
+  }
   // scale, round to bf16 and stage the warp's 16 rows x D through the ring
   // (once every warp is past its last tile) for 16-byte row stores
   __syncthreads();
@@ -491,7 +518,7 @@ bwd_dq_kernel(const bf16* __restrict__ ds, const bf16* __restrict__ k,
     const int c = lane + 32 * i, r = c >> CH_LOG2, cc = (c & (CH - 1)) * 8;
     const int t = q0 + warp * 16 + r;
     if (t < T)
-      *reinterpret_cast<uint4*>(dq + (((long long)b * T + t) * HQ + h) * D + cc) =
+      *reinterpret_cast<uint4*>(reinterpret_cast<bf16*>(dq) + (((long long)b * T + t) * HQ + h) * D + cc) =
           *reinterpret_cast<const uint4*>(&stage_dq[r * LDK + cc]);
   }
 }
@@ -508,7 +535,7 @@ cudaError_t raise_smem(const void* kernel, int bytes, std::atomic<bool>* raised)
   return cudaSuccess;
 }
 
-template <int D>
+template <int D, typename OutT>
 int launch(const void* q, const void* k, const void* v, const void* kv_valid,
            const void* o, const void* dout, const void* lse, void* delta, void* live,
            void* ds, void* dq, void* dk, void* dv, int B, int T, int S, int HQ, int HK,
@@ -532,8 +559,8 @@ int launch(const void* q, const void* k, const void* v, const void* kv_valid,
   // the capped build where the caller asks for it and D has one
   const int capped = Dims<D>::CAPPED != 0 && dkdv_blocks == Dims<D>::CAPPED;
   if (dkdv_blocks != 1 && !capped) return cudaErrorInvalidValue;
-  auto dkdv = capped ? bwd_dkdv_kernel<D, (Dims<D>::CAPPED ? Dims<D>::CAPPED : 1)>
-                     : bwd_dkdv_kernel<D, 1>;
+  auto dkdv = capped ? bwd_dkdv_kernel<D, (Dims<D>::CAPPED ? Dims<D>::CAPPED : 1), OutT>
+                     : bwd_dkdv_kernel<D, 1, OutT>;
   static std::atomic<bool> raised[2][MAX_DEVICES];
   cudaError_t e = raise_smem(reinterpret_cast<const void*>(dkdv), Dims<D>::DKDV_SMEM,
                              raised[capped]);
@@ -542,18 +569,19 @@ int launch(const void* q, const void* k, const void* v, const void* kv_valid,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const uint8_t*>(kv_valid), live_r,
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(ds), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), T, S, HQ, HK, sqb, sqt, sqh, skb, sks, skh,
+      static_cast<const float*>(delta), static_cast<bf16*>(ds), static_cast<OutT*>(dk),
+      static_cast<OutT*>(dv), T, S, HQ, HK, sqb, sqt, sqh, skb, sks, skh,
       svb, svs, svh, causal, q_offset, scale, scale_log2);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
   static std::atomic<bool> raised_dq[MAX_DEVICES];
   constexpr int dq_max = DQ_STAGES * Dims<D>::DQ_STAGE * 2 + MAX_KEY_TILES;
-  e = raise_smem(reinterpret_cast<const void*>(bwd_dq_kernel<D>), dq_max, raised_dq);
+  e = raise_smem(reinterpret_cast<const void*>(bwd_dq_kernel<D, OutT>), dq_max, raised_dq);
   if (e != cudaSuccess) return e;
-  bwd_dq_kernel<D><<<dim3(n_qt, HQ, B), 128, DQ_STAGES * Dims<D>::DQ_STAGE * 2 + n_kt, st>>>(
+  bwd_dq_kernel<D, OutT><<<dim3(n_qt, HQ, B), 128, DQ_STAGES * Dims<D>::DQ_STAGE * 2 + n_kt,
+                           st>>>(
       static_cast<const bf16*>(ds), static_cast<const bf16*>(k), live_r,
-      static_cast<bf16*>(dq), T, S, HQ, HK, skb, sks, skh, causal, q_offset, scale);
+      static_cast<OutT*>(dq), T, S, HQ, HK, skb, sks, skh, causal, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -588,7 +616,8 @@ extern "C" int simlingo_flash_attn_bwd_geometry(int head_dim, int* out) {
 // S and T in tiles of 64); lse [B, HQ, T] from the forward; o, dout, dq
 // contiguous [B, T, HQ, D]; dk, dv contiguous [B, S, HK, D]. All
 // allocated by the caller. dkdv_blocks: 1, or the capped build's blocks;
-// head_dim: 16, 32, 64 or 128 (else cudaErrorInvalidValue).
+// head_dim: 16, 32, 64 or 128 (else cudaErrorInvalidValue); out_fp32: 0
+// for bf16 dq / dk / dv, 1 for fp32 ones (unrounded partials).
 extern "C" int simlingo_flash_attn_bwd(
     const void* q, const void* k, const void* v, const void* kv_valid,
     const void* o, const void* dout, const void* lse, void* delta, void* live,
@@ -596,15 +625,21 @@ extern "C" int simlingo_flash_attn_bwd(
     long long sqb, long long sqt, long long sqh,
     long long skb, long long sks, long long skh,
     long long svb, long long svs, long long svh,
-    int causal, int q_offset, float scale, int dkdv_blocks, int head_dim, void* stream) {
+    int causal, int q_offset, float scale, int dkdv_blocks, int head_dim, int out_fp32,
+    void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SIMLINGO_BWD_ARGS q, k, v, kv_valid, o, dout, lse, delta, live, ds, dq, dk, dv, B, T, S, \
     HQ, HK, sqb, sqt, sqh, skb, sks, skh, svb, svs, svh, causal, q_offset, scale, dkdv_blocks, st
-  switch (head_dim) {
-    case 16: return launch<16>(SIMLINGO_BWD_ARGS);
-    case 32: return launch<32>(SIMLINGO_BWD_ARGS);
-    case 64: return launch<64>(SIMLINGO_BWD_ARGS);
-    case 128: return launch<128>(SIMLINGO_BWD_ARGS);
+  if (out_fp32 != 0 && out_fp32 != 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (head_dim * 2 + out_fp32) {
+    case 32: return launch<16, bf16>(SIMLINGO_BWD_ARGS);
+    case 64: return launch<32, bf16>(SIMLINGO_BWD_ARGS);
+    case 128: return launch<64, bf16>(SIMLINGO_BWD_ARGS);
+    case 256: return launch<128, bf16>(SIMLINGO_BWD_ARGS);
+    case 33: return launch<16, float>(SIMLINGO_BWD_ARGS);
+    case 65: return launch<32, float>(SIMLINGO_BWD_ARGS);
+    case 129: return launch<64, float>(SIMLINGO_BWD_ARGS);
+    case 257: return launch<128, float>(SIMLINGO_BWD_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef SIMLINGO_BWD_ARGS

@@ -437,6 +437,30 @@ def attention_bwd_reference(q, k, v, kv_valid, o, dout, lse, causal,
             dv.view(B, S, HK, group, D).sum(3))
 
 
+def attention_bwd_bound(q, k, v, kv_valid, o, dout, lse, causal, ref, scale=None,
+                        q_offset=None):
+    """Per gradient element, the bf16 rounding bound of `flash_attn_bwd`'s
+    (dq, dk, dv) about `ref` (`attention_bwd_reference` on the same
+    inputs): 2^-8 (sum |terms| + |ref|) + 1e-5 rms(ref), with dS's terms
+    P (|dO| |V| + |delta|) in place of |dS|. The kernel rounds P and dS to
+    bf16 before its products and rounds its output; dS = P (dP - delta),
+    where dP and delta nearly cancel, also carries their fp32 error, ~D
+    2^-24 of those terms, which |dS| (`abs_terms=True`) does not count."""
+    B, T, HQ, D = q.shape
+    S, HK = k.shape[1], k.shape[2]
+    scale, q_offset = _defaults(q, k, scale, q_offset)
+    p, t = _probs_and_ds(q, k, v, kv_valid, o, dout, lse, causal, scale, q_offset,
+                         abs_terms=True)
+    kf = k.float().abs().repeat_interleave(HQ // HK, dim=2)
+    mags = (scale * torch.einsum("bhts,bshd->bthd", t, kf),
+            (scale * torch.einsum("bhts,bthd->bshd", t, q.float().abs()))
+            .view(B, S, HK, HQ // HK, D).sum(3),
+            torch.einsum("bhts,bthd->bshd", p, dout.float().abs())
+            .view(B, S, HK, HQ // HK, D).sum(3))
+    return [2.0 ** -8 * (m + r.abs()) + 1e-5 * float(r.square().mean().sqrt())
+            for m, r in zip(mags, ref)]
+
+
 # The backward's tiles (query rows, keys) and the resident blocks an SM of
 # the dK/dV kernel's capped instantiation, which exists at D <= 64 only (at
 # 128 its 168-register cap would spill the dK / dV accumulators);
@@ -596,12 +620,14 @@ def _aligned16(name, x):
 
 
 def flash_attn_bwd(q, k, v, kv_valid, o, dout, lse, causal=True, scale=None,
-                   q_offset=None, return_ds=False):
-    """Launch the CUDA backward: (dq [B,T,HQ,D], dk, dv [B,S,HK,D]) bf16.
-    q/k/v may be strided views as in the forward; o and dout are made
-    contiguous; lse is the forward's [B, HQ, T] fp32. With `return_ds`,
-    also the bf16 dS^T scratch (`_bwd_plan`; only the pairs it writes for
-    live key tiles hold values)."""
+                   q_offset=None, return_ds=False, out_dtype=torch.bfloat16):
+    """Launch the CUDA backward: (dq [B,T,HQ,D], dk, dv [B,S,HK,D]) in
+    `out_dtype`: bf16, or fp32 for partials that a caller sums before it
+    rounds (the ring of `parallel/sequence.py`: the same kernels, storing
+    their fp32 accumulators unrounded). q/k/v may be strided views as in
+    the forward; o and dout are made contiguous; lse is the forward's [B,
+    HQ, T] fp32. With `return_ds`, also the bf16 dS^T scratch (`_bwd_plan`;
+    only the pairs it writes for live key tiles hold values)."""
     B, T, HQ, D = q.shape
     _, S, HK, _ = k.shape
     d = _instance_dim(D)
@@ -617,6 +643,8 @@ def flash_attn_bwd(q, k, v, kv_valid, o, dout, lse, causal=True, scale=None,
                          f"{tuple(dout.shape)}, lse {tuple(lse.shape)}")
     if lse.dtype != torch.float32:
         raise TypeError(f"flash_attn_bwd takes an fp32 lse, got {lse.dtype}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"flash_attn_bwd writes bf16 or fp32 gradients, not {out_dtype}")
     scale, q_offset = _defaults(q, k, scale, q_offset)
     q, k, v = (_pad_d(x, d) for x in (q, k, v))
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -631,9 +659,9 @@ def flash_attn_bwd(q, k, v, kv_valid, o, dout, lse, causal=True, scale=None,
     if plan.n_kt > _BWD_MAX_KEY_TILES:
         raise ValueError(f"flash_attn_bwd kernel takes at most "
                          f"{_BWD_MAX_KEY_TILES * _BWD_TILE[1]} keys, got {S}")
-    dq = torch.empty((B, T, HQ, d), dtype=torch.bfloat16, device=q.device)
-    dk = torch.empty((B, S, HK, d), dtype=torch.bfloat16, device=q.device)
-    dv = torch.empty((B, S, HK, d), dtype=torch.bfloat16, device=q.device)
+    dq = torch.empty((B, T, HQ, d), dtype=out_dtype, device=q.device)
+    dk = torch.empty((B, S, HK, d), dtype=out_dtype, device=q.device)
+    dv = torch.empty((B, S, HK, d), dtype=out_dtype, device=q.device)
     ds = torch.empty(plan.ds_shape, dtype=torch.bfloat16, device=q.device)
     if B * T * S == 0:
         grads = tuple(g.zero_()[..., :D] for g in (dq, dk, dv))
@@ -651,7 +679,7 @@ def flash_attn_bwd(q, k, v, kv_valid, o, dout, lse, causal=True, scale=None,
         v.stride(0), v.stride(1), v.stride(2),
         int(bool(causal)), int(q_offset), ctypes.c_float(float(scale)),
         _dkdv_blocks(B, S, HK, _build.sm_count(q.device.index or 0), D), d,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        int(out_dtype == torch.float32), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attn_bwd")
     flash_attn_bwd.launches += 1
     flash_attn_bwd.launches_by_dim[d] = flash_attn_bwd.launches_by_dim.get(d, 0) + 1
@@ -678,7 +706,7 @@ def _bwd_lib():
         fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 9
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_void_p])
+                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 

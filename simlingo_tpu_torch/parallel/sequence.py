@@ -18,11 +18,14 @@ the pass still runs, so the ring stays full.
     `attention_reference` gives it, and the merge of two -inf makes no
     NaN. On a CPU tensor the plain version runs: JAX's `_chunk_update`
     recurrence (:107-136) in fp32 over the same chunks.
-  * Backward: per chunk, `flash_attn_bwd` (CPU: `attention_bwd_reference`)
-    against the ring's global output and lse, so delta and P are the
-    whole row's. dQ accumulates in fp32 on its rank; each chunk's dK / dV
-    accumulate in fp32 as they travel the ring, which brings them back to
-    the chunk's owner after sp passes.
+  * Backward: per chunk, `chunk_grads`: `flash_attn_bwd` (CPU:
+    `attention_bwd_reference`) against the ring's global output and lse,
+    so delta and P are the whole row's. On a CUDA tensor the kernels hand
+    back fp32 partials (`out_dtype=torch.float32`, unrounded), so each
+    gradient is rounded once, after the sum, as a single kernel rounds its
+    own; JAX differentiates its fp32 recurrence. dQ accumulates in fp32 on
+    its rank; each chunk's dK / dV accumulate in fp32 as they travel the
+    ring, which brings them back to the chunk's owner after sp passes.
 
 `enable(mesh)` (the trainer, or the `sequence_parallel` context in tests)
 makes the context; `kernels/flash_attention.attention_autograd` routes a
@@ -175,6 +178,18 @@ def _merge(o, lse, o_c, lse_c):
 # The ring
 # ---------------------------------------------------------------------------
 
+def chunk_grads(q, kc, vc, vac, o, dout, lse, diag, scale=None):
+    """One chunk's backward against the ring's global o / lse: (dq, dk, dv)
+    partials in fp32, unrounded (CUDA: `flash_attn_bwd(..., out_dtype=
+    torch.float32)`; CPU: `attention_bwd_reference`). The ring sums them
+    and rounds each gradient once."""
+    if q.is_cuda:
+        return FA.flash_attn_bwd(q, kc, vc, vac, o, dout, lse, diag, scale, None,
+                                 out_dtype=torch.float32)
+    return [g.float() for g in FA.attention_bwd_reference(q, kc, vc, vac, o, dout, lse, diag,
+                                                          scale, None)]
+
+
 def _pack(*xs):
     """One flat buffer of xs (a single pass of the ring), and their shapes."""
     dt = xs[0].dtype
@@ -240,7 +255,6 @@ class _Ring(torch.autograd.Function):
         q, k, v, valid, o, lse = ctx.saved_tensors
         causal, scale, comm = ctx.args
         n, i = comm.size, comm.rank
-        cuda = q.device.type == "cuda"
         dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
         dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
         dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
@@ -249,15 +263,10 @@ class _Ring(torch.autograd.Function):
         for s in range(n):
             src = (i - s) % n
             if not (causal and src > i):
-                diag = causal and src == i
-                if cuda:
-                    g = FA.flash_attn_bwd(q, kc, vc, vac, o, dout, lse, diag, scale, None)
-                else:
-                    g = FA.attention_bwd_reference(q, kc, vc, vac, o, dout, lse, diag, scale,
-                                                   None)
-                dq += g[0].float()
-                dk += g[1].float()
-                dv += g[2].float()
+                g = chunk_grads(q, kc, vc, vac, o, dout, lse, causal and src == i, scale)
+                dq += g[0]
+                dk += g[1]
+                dv += g[2]
             # the chunk and its dK / dV partials move on; the last pass
             # brings the partials home
             if s < n - 1:

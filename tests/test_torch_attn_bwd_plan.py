@@ -215,3 +215,26 @@ def test_zero_padding_to_the_built_head_dim_is_exact(causal):
                                                         causal, D ** -0.5)):
         assert not gp[..., D:].any()
         np.testing.assert_allclose(gp[..., :D].numpy(), g.numpy(), atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("causal,D", [(True, 64), (False, 16)])
+def test_the_backward_bound_holds_dS_terms_and_the_output_rounding(causal, D):
+    """`attention_bwd_bound`, the rounding bound every backward check on the
+    card shares, is at least the |dS|-terms bound (|dS| <= P (|dO| |V| +
+    |delta|)) and holds the plain gradients rounded to bf16."""
+    g = torch.Generator().manual_seed(D)
+    B, T, HQ, HK = 2, 70, 4, 2
+    q = torch.randn(B, T, HQ, D, generator=g)
+    k, v = (torch.randn(B, T, HK, D, generator=g) for _ in range(2))
+    dout = torch.randn(B, T, HQ, D, generator=g)
+    valid = torch.ones(B, T, dtype=torch.bool)
+    valid[0, :5] = False
+    o = TFA.attention_reference(q, k, v, valid, causal)
+    lse = TFA.attention_lse_reference(q, k, valid, causal)
+    args = (q, k, v, valid, o, dout, lse, causal)
+    ref = TFA.attention_bwd_reference(*args)
+    bounds = TFA.attention_bwd_bound(*args, ref)
+    for r, m, t in zip(ref, TFA.attention_bwd_reference(*args, abs_terms=True), bounds):
+        rms = float(r.square().mean().sqrt())
+        assert bool((t >= 2.0 ** -8 * (m + r.abs()) + 1e-5 * rms).all())
+        assert bool(((r.bfloat16().float() - r).abs() <= t).all())

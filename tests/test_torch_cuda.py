@@ -22,9 +22,10 @@ bit, at a rank's blocks of a multi-GPU step too (dp rows, tp columns, sp
 slabs), where its mask is the one-process mask cut to the block. The ring
 of sequence parallelism (its ranks on threads) launches both attention
 kernels a chunk; its output agrees with its plain recurrence at the
-forward's tolerance above, its gradients (at most n chunk partials an
-element) with the whole sequence's plain backward within n times the
-rounding bound. The norm kernels' bf16 outputs (y, dx) are held to one bf16 spacing
+forward's tolerance above, its gradients (sums of fp32 chunk partials,
+rounded once) with the whole sequence's plain backward within the
+single kernel's rounding bound over the whole sequence's terms; the fp32
+partials round to the bf16 instance's output. The norm kernels' bf16 outputs (y, dx) are held to one bf16 spacing
 of the plain version's (2^-7 |ref| + 1e-5 rms): both round the same fp32
 math, summed in another order; their parameter gradients to 2^-7 |ref|
 plus 1e-5 of the sum of |terms| over the rows. The fused CE's ce to
@@ -441,29 +442,6 @@ def _close_to_rms(got, ref, name):
     assert not bool(bad.any()), (name, float((got.float() - ref).abs().max()), rms)
 
 
-def _bwd_term_bounds(q, k, v, kv_valid, o, dout, lse, causal, ref):
-    """The backward's bf16 rounding bound, per gradient element, from the
-    terms of dS: the kernel rounds P and dS to bf16 (2^-8) before its
-    products and rounds its output, so |err| <= 2^-8 (sum |terms| + |ref|)
-    + 1e-5 rms(ref), with dS's terms P (|dO| |V| + |delta|) in place of
-    |dS|: dS = P (dP - delta) where dP and delta nearly cancel carries their
-    fp32 error, ~D 2^-24 of those terms, which |dS| does not count (at
-    [16, 333, 16, 128] dq reached 1.04 of the |dS| bound)."""
-    B, T, HQ, D = q.shape
-    S, HK = k.shape[1], k.shape[2]
-    scale = D ** -0.5
-    p, t = TFA._probs_and_ds(q, k, v, kv_valid, o, dout, lse, causal, scale, S - T,
-                             abs_terms=True)
-    kf = k.float().abs().repeat_interleave(HQ // HK, dim=2)
-    mags = (scale * torch.einsum("bhts,bshd->bthd", t, kf),
-            (scale * torch.einsum("bhts,bthd->bshd", t, q.float().abs()))
-            .view(B, S, HK, HQ // HK, D).sum(3),
-            torch.einsum("bhts,bthd->bshd", p, dout.float().abs())
-            .view(B, S, HK, HQ // HK, D).sum(3))
-    return [2.0 ** -8 * (m + r.abs()) + 1e-5 * float(r.square().mean().sqrt())
-            for m, r in zip(mags, ref)]
-
-
 def _bwd_inputs(gpu, B, T, S, HQ, HK, strided, pad_left, seed=3, D=64):
     g = torch.Generator(device=gpu).manual_seed(seed)
     if strided:       # ViT: heads are views of one [B, T, 3*H*D] projection
@@ -574,7 +552,7 @@ def test_attention_at_every_head_dim(gpu, D, B, T, HQ, HK, causal):
     other than 64 (built, or zero-padded to the next built one): one launch
     each, against the plain versions, both bit-identical across calls. The
     forward at this file's atol; the dS^T scratch and the gradients at the
-    bf16 rounding bound of dS's terms (`_bwd_term_bounds`)."""
+    bf16 rounding bound of dS's terms (`attention_bwd_bound`)."""
     q, k, v, _, dout = _bwd_inputs(gpu, B, T, T, HQ, HK, False, 0, seed=D, D=D)
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     f0, b0 = TFA.flash_attn_fwd.launches, TFA.flash_attn_bwd.launches
@@ -591,7 +569,7 @@ def test_attention_at_every_head_dim(gpu, D, B, T, HQ, HK, causal):
                                                                 causal), atol=1e-2, rtol=1e-3)
     bwd_args = (*args, out.detach().float(), dout.float(), lse, causal)
     ref = TFA.attention_bwd_reference(*bwd_args)
-    for a, b, tol, name in zip(got, ref, _bwd_term_bounds(*bwd_args, ref), "qkv"):
+    for a, b, tol, name in zip(got, ref, TFA.attention_bwd_bound(*bwd_args, ref), "qkv"):
         _within(a, b, tol, f"d{name}")
     *second, ds = TFA.flash_attn_bwd(q, k, v, None, out, dout, lse, causal, return_ds=True)
     assert all(torch.equal(a, b) for a, b in zip(got, second))
@@ -734,9 +712,10 @@ def test_ring_attention_kernels_match_the_plain_recurrence(gpu, B, slab, HQ, HK,
     and gradients agree with the ring on fp32 CPU copies, the plain
     recurrence (JAX's `_chunk_update`; the output) and
     `attention_bwd_reference` of the whole sequence fed the ring's own o
-    and lse (the gradients). Each gradient element sums at most n chunk
-    partials, each a kernel output within the backward's rounding bound
-    (`_bwd_term_bounds`), so the sum is held to n times that bound."""
+    and lse (the gradients). Each chunk's backward hands back fp32
+    partials (`out_dtype=torch.float32`) and the ring rounds their sum once,
+    so the sum is held to the single kernel's rounding bound
+    (`attention_bwd_bound`) over the whole sequence's terms."""
     spec = importlib.util.spec_from_file_location(
         "torch_ranks", Path(__file__).resolve().parent / "torch_ranks.py")
     R = importlib.util.module_from_spec(spec)
@@ -762,8 +741,33 @@ def test_ring_attention_kernels_match_the_plain_recurrence(gpu, B, slab, HQ, HK,
     lse = torch.cat([r[2] for r in got], 2)
     args = (q.float(), k.float(), v.float(), valid, o.float(), dout.float(), lse, causal)
     ref = TFA.attention_bwd_reference(*args)
-    for j, (tol, name) in enumerate(zip(_bwd_term_bounds(*args, ref), ("dq", "dk", "dv"))):
-        _within(torch.cat([r[1][j] for r in got], 1), ref[j], n * tol, name)
+    bounds = TFA.attention_bwd_bound(*args, ref)
+    for j, (tol, name) in enumerate(zip(bounds, ("dq", "dk", "dv"))):
+        _within(torch.cat([r[1][j] for r in got], 1), ref[j], tol, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,B,T,S,HQ,HK,causal,strided", [
+    (64, 2, 150, 150, 14, 2, True, False),     # the LLM's GQA, key validity
+    (64, 6, 399, 399, 14, 2, False, False),    # a ring's earlier chunk
+    (64, 2, 832, 832, 16, 16, False, True),    # the 3-an-SM dK/dV instance (ViT views)
+    (128, 2, 150, 150, 16, 2, True, False), (32, 2, 128, 128, 8, 2, True, False),
+    (16, 4, 17, 17, 4, 4, False, False)])
+def test_bwd_fp32_partials_round_to_the_bf16_instance(gpu, D, B, T, S, HQ, HK, causal,
+                                                      strided):
+    """`flash_attn_bwd(out_dtype=torch.float32)` stores the same
+    accumulators (times the scale) unrounded: rounded to bf16 they are the
+    bf16 instance's output bit for bit, one launch each."""
+    q, k, v, valid, dout = _bwd_inputs(gpu, B, T, S, HQ, HK, strided, 7, D=D)
+    out, lse = TFA.flash_attn_fwd(q, k, v, valid, causal, None, None, return_lse=True)
+    before = TFA.flash_attn_bwd.launches
+    bf = TFA.flash_attn_bwd(q, k, v, valid, out, dout, lse, causal)
+    f32 = TFA.flash_attn_bwd(q, k, v, valid, out, dout, lse, causal, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert TFA.flash_attn_bwd.launches == before + 2
+    for a, b, name in zip(f32, bf, ("dq", "dk", "dv")):
+        assert a.dtype == torch.float32 and b.dtype == torch.bfloat16 and a.shape == b.shape
+        assert torch.equal(a.bfloat16(), b), (name, float((a - b.float()).abs().max()))
 
 
 @pytest.mark.cuda
@@ -1065,6 +1069,42 @@ def test_small_int4_agent_on_the_gpu_agrees_with_the_cpu(gpu):
     """chip_smoke.py phase 3's int4 case: drive_only waypoints of the small
     int4 agent, GPU bf16 against CPU fp32."""
     assert _chip_smoke().small_int4_agreement(torch, gpu)
+
+
+@pytest.mark.cuda
+def test_microsim_tick_of_the_tiny_model_on_the_gpu_agrees_with_the_cpu(gpu):
+    """One tick of `sim/runner.run_route` on MicroBench's accident route
+    with `sim/suite.load_model_agent`'s tiny model: bf16 on the GPU
+    (through the attention and int8 kernels) against fp32 on the CPU. The
+    same camera frame; the waypoints within the serving tolerance of
+    chip_smoke.py's phase 3 (0.05 max|ref|); the same record status."""
+    from simlingo_tpu_torch.sim import runner, suite
+    spec = next(s for s in suite.MICROBENCH if s["route_id"] == "micro_02_accident")
+    outs = []
+    for device in ("cpu", gpu):
+        agent = suite.load_model_agent(None, tiny=True, device=device)
+        seen, inner = [], agent.run_step
+
+        def step(frame, inner=inner, seen=seen):
+            seen.append((frame.rgb, inner(frame)))
+            return seen[-1][1]
+        agent.run_step = step
+        before = (TFA.flash_attn_fwd.launches, TQM.int8_matmul.launches)
+        rec = runner.run_route(spec, runner.model_factory(agent), max_steps=1)
+        torch.cuda.synchronize()
+        launched = (TFA.flash_attn_fwd.launches - before[0],
+                    TQM.int8_matmul.launches - before[1])
+        outs.append((seen, rec, launched))
+    (cpu_seen, cpu_rec, cpu_n), (gpu_seen, gpu_rec, gpu_n) = outs
+    assert cpu_n == (0, 0) and min(gpu_n) > 0
+    assert len(cpu_seen) == len(gpu_seen) == 1
+    (frame, ref), (frame_g, got) = cpu_seen[0], gpu_seen[0]
+    assert np.array_equal(frame, frame_g)
+    scale = max(float(np.abs(ref["route"]).max()), float(np.abs(ref["speed_wps"]).max()))
+    for key in ("route", "speed_wps"):
+        assert np.isfinite(got[key]).all()
+        assert float(np.abs(got[key] - ref[key]).max()) <= 0.05 * scale, key
+    assert gpu_rec["status"] == cpu_rec["status"]
 
 
 @pytest.mark.cuda

@@ -9,7 +9,9 @@ gates on, two on an int8 base LLM and two of the tiny SimLingo-Base with
 each of its encoders (the CLIP tower, the ResNet); an
 entry point built without `device` must refuse on a machine without a GPU.
 The first also drives the CARLA leaderboard plugin one tick under the
-test doubles of tests/carla_stubs.py. A second subprocess, with the same
+test doubles of tests/carla_stubs.py, imports `start_eval_torch.py` and
+builds its microsim jobs, and runs the microsim suite's CLI (the tiny
+model, two ticks of a MicroBench route on the CPU). A second subprocess, with the same
 imports blocked, trains the tiny model two steps from routes on disk
 (written by this process beforehand: the route writer uses the JAX
 package's label generators), saves, resumes for a third, and evaluates
@@ -53,7 +55,15 @@ SCRIPT = BLOCK + textwrap.dedent("""
     assert {"simlingo_tpu_torch.parallel.mesh",
             "simlingo_tpu_torch.parallel.multihost",
             "simlingo_tpu_torch.parallel.sequence",
-            "simlingo_tpu_torch.parallel.pipeline"} <= set(names)
+            "simlingo_tpu_torch.parallel.pipeline",
+            "simlingo_tpu_torch.utils.geometry", "simlingo_tpu_torch.expert.idm",
+            "simlingo_tpu_torch.expert.route_planner", "simlingo_tpu_torch.sim.map",
+            "simlingo_tpu_torch.sim.actors", "simlingo_tpu_torch.sim.world",
+            "simlingo_tpu_torch.sim.camera", "simlingo_tpu_torch.sim.criteria",
+            "simlingo_tpu_torch.sim.scenarios", "simlingo_tpu_torch.sim.runner",
+            "simlingo_tpu_torch.sim.suite", "simlingo_tpu_torch.eval.driving_score",
+            "simlingo_tpu_torch.eval.b2d_benchmarks",
+            "simlingo_tpu_torch.orchestration.babysitter"} <= set(names)
     from simlingo_tpu_torch.parallel import mesh as PM, multihost as PH
     from simlingo_tpu_torch.parallel import pipeline as PP, sequence as PS
     assert PH.initialize(device="cpu") is False and PM.make_mesh(device="cpu").world == 1
@@ -104,6 +114,20 @@ SCRIPT = BLOCK + textwrap.dedent("""
                             "imu": (0, np.zeros(7)), "speed": (0, {"speed": 2.0})}, 0.0)
     assert np.isfinite([ctrl.steer, ctrl.throttle, ctrl.brake]).all()
     plugin.destroy()
+
+    # closed-loop evaluation: start_eval_torch's jobs and the microsim suite
+    import tempfile
+    import start_eval_torch
+    from simlingo_tpu_torch.sim import suite
+    jobs = start_eval_torch.build_jobs(start_eval_torch.parse_args(
+        ["--microsim", "--agent-kind", "tiny-model", "--device", "cpu"]))
+    assert len(jobs) == 51 and jobs[0].cmd[:3] == ["python", "-m",
+                                                   "simlingo_tpu_torch.sim.suite"]
+    with tempfile.TemporaryDirectory() as tmp:
+        summary = suite.main(["--agent", "tiny-model", "--device", "cpu", "--routes",
+                              "micro_02_accident", "--max-steps", "2",
+                              "--out", tmp + "/micro.json"])
+    assert summary["num_routes"] == 1 and np.isfinite(summary["driving_score"])
 
     import dataclasses
     from simlingo_tpu_torch.core.config import compose
@@ -156,6 +180,7 @@ SCRIPT = BLOCK + textwrap.dedent("""
 
     if not torch.cuda.is_available():
         for build in (lambda: LingoAgent(params, cfg),
+                      lambda: suite.load_model_agent(None),
                       lambda: simlingo.init_params(cfg, torch.Generator()),
                       lambda: trainer.train(tcfg, make_synthetic=True),
                       lambda: trainer.train_base(bcfg),
