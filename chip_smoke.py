@@ -13,6 +13,7 @@
                                         # leaderboard plugin, the evaluation and
                                         # the microsim only
     python3 chip_smoke.py --mesh        # the multi-GPU training phase only
+    python3 chip_smoke.py --lora-fused  # phase 5's ungated run and train_lora_fused
     python3 chip_smoke.py --microsim    # the closed-loop microsim phase only
     python3 chip_smoke.py --base [CELL ...]  # the small SimLingo-Base agreement and
                                         # the base cells' phases only (base,
@@ -42,7 +43,9 @@ Phases, in order; any failure exits non-zero:
      instance, forward and backward; and a tp = 2 rank's shapes,
      TP_ATTENTION: Qwen2's 7 query heads over 1 kv head and 8 of the ViT's
      16, forward and backward, the int8 base's halved N / K,
-     INT8_TP_SHAPES, forward and dx; and the sp = 2 ring's chunks,
+     INT8_TP_SHAPES, forward and dx; SimLingo-Base's at tp = 2,
+     BASE_TP_ATTENTION: CLIP [32,577,8,64] and the LLaMA [16,333,4,64]
+     causal, forward and backward; and the sp = 2 ring's chunks,
      RING_ATTENTION, q[6,399,14,64] kv[6,399,2,64], the causal diagonal
      and the non-causal earlier chunk with its key validity, and in
      `run_ring_checks` both ranks' chunks merged by lse against the whole
@@ -134,7 +137,14 @@ Phases, in order; any failure exits non-zero:
      `train_launches_per_step`; then `bench.py`'s remat modes (REMAT_MODES:
      vision, llm, mlp, and both, JAX's default) ungated, each beside the
      remat-off run (`compare_remat`: ms/step, peak memory, losses within
-     2e-2 and whether bit-identical, a profiled step each);
+     2e-2 and whether bit-identical, a profiled step each); then
+     `train_lora_fused`, the ungated run with SIMLINGO_LORA_FUSED=1 (the
+     q / k / v and gate / up adapters as groups, one dropout launch a
+     group: 24 x 4 x 3 = 288 dropout launches a step against 504, held
+     exactly), beside the ungated run (ms/step, busy, peak memory by
+     `log_side_by_side`), and its dropout-off pair (`lora_fused_pair`: the
+     loss and grad norm on the run's state with the groups fused and
+     unfused, within PAIR_TOL);
   5b. multi-GPU training (`mesh_training`): multihost.initialize at world
      1 over NCCL with one all-reduce; the one-process runs at global batch
      6: the trainer, ungated and gated, and two controls, each the
@@ -151,11 +161,18 @@ Phases, in order; any failure exits non-zero:
      399, attention the ring) to `seq_halves` (the two sequence halves in
      one process, `seq_halves_losses`: the ring's chunk kernels merged by
      lse, each gradient the halves' sum), `mesh_pp2` (two GPipe stages of
-     12 layers, 2 microbatches of 3 rows, stage remat on) to `halves`:
-     step 1's loss and grad norm and the trainable leaves after step 3
-     within MESH_MULT x the control's own difference from the one-process
-     trainer, measured in the same call; each rank's launches exactly as
-     `mesh_launches_per_step` reckons them from the schedule; with
+     12 layers, 2 microbatches of 3 rows, stage remat on) to `halves`,
+     and in the same spawn `base_tp2` (SimLingo-Base's `base` cell, global
+     batch 16, CLIP and the LLaMA split over tp = 2, ungated) to its own
+     `tp` control (`base_tp_control`: the one-process base trainer with
+     every split product cut as tp = 2 cuts it) and the one-process
+     `train_base` (`base_mesh_reference`): step 1's loss and grad norm
+     (the base model's: both group norms) and the trained leaves after
+     step 3 within MESH_MULT x the control's own difference from the
+     one-process run, measured in the same call; each rank's launches
+     exactly as `mesh_launches_per_step` reckons them from the schedule
+     (`base_tp2`: attention 35 forward and 35 backward a step, at CLIP
+     q[32,577,8,64] and the LLaMA q[16,333,4,64]); with
      ms/step, peak memory, collective and send / receive bytes and ms a
      step by group (staged: host ms; NCCL: its kernels' device ms,
      torch.profiler) and launches per rank; then the ring-off run
@@ -228,8 +245,8 @@ Phases, in order; any failure exits non-zero:
      merged.json), failing on a failed or retried job;
  11. the {"kernels": [...]} line (eleven kernels, launches per path: serve,
      serve_gated, serve_int4, train, train_gated, train_int8,
-     train_remat_<mode>, mesh_dp2 / mesh_fsdp2 / mesh_tp2 / mesh_sp2 /
-     mesh_pp2 (both ranks'),
+     train_remat_<mode>, train_lora_fused, mesh_dp2 / mesh_fsdp2 /
+     mesh_tp2 / mesh_sp2 / mesh_pp2 / base_tp2 (both ranks'),
      the base cells' <cell>_fwd,
      <cell>_train and <cell>_train_gated, train_disk, carla_plugin,
      eval_language, microsim; the attention kernels also each built head dim's
@@ -239,12 +256,14 @@ Per-case results also go to chiprun_out/chip_smoke_cases.json, the paths'
 statistics to chip_smoke_agent.json (serve_int4's under "int4"),
 chip_smoke_train.json, chip_smoke_train_gated.json,
 chip_smoke_train_int8.json, chip_smoke_train_remat_<mode>.json,
-chip_smoke_mesh_training.json (the ranks' logs chip_smoke_mesh_rank*.log),
+chip_smoke_train_lora_fused.json, chip_smoke_mesh_training.json (the ranks'
+logs chip_smoke_mesh_rank*.log),
 chip_smoke_<cell>_{fwd,train,train_gated}.json, chip_smoke_train_disk.json,
 chip_smoke_carla_plugin.json, chip_smoke_eval_language.json and
 chip_smoke_microsim.json. `--disk` runs the build and phases 7-10 alone,
 `--base` the build, the small SimLingo-Base agreement and phase 6, `--mesh`
-the build and phase 5b, `--microsim` the build and phase 10 on a random
+the build and phase 5b, `--lora-fused` the build, phase 5's ungated run
+and `train_lora_fused`, `--microsim` the build and phase 10 on a random
 trained-SimLingo checkpoint written as phase 7 writes it.
 """
 
@@ -517,6 +536,12 @@ RING_ATTENTION = [("ring_diag", 6, 399, 399, 14, 2, True, None, ("slab", 0), Fal
                   ("ring_prev", 6, 399, 399, 14, 2, False, None, ("slab", 0), False)]
 RING_SLAB = 399
 
+# SimLingo-Base at tp = 2 (`base_tp2`): a rank's half of the heads, CLIP's 8
+# of 16 and the tiny LLaMA's 4 of 8; last in every list, so every other
+# case keeps its inputs
+BASE_TP_ATTENTION = [("clip_tp2", 32, 577, 577, 8, 8, False, None, None, False),
+                     ("base_llm_tp2", 16, 333, 333, 4, 4, True, None, None, False)]
+
 
 def head_dim(case):
     """The head dim of a phase-2 attention case (64 unless listed in
@@ -603,7 +628,7 @@ def attention_inputs(torch, dev):
         ("llm_train", 6, 798, 798, 14, 2, True, None, "train", False),
         ("vit_train", 12, 1025, 1025, 16, 16, False, None, None, True)] + BASE_ATTENTION \
         + eval_attention_cases(prompt_valid) + [c[:10] for c in HEAD_DIM_ATTENTION] \
-        + TP_ATTENTION + RING_ATTENTION
+        + TP_ATTENTION + RING_ATTENTION + BASE_TP_ATTENTION
     train_valid = train_llm_valid(torch, dev)
     for case in cases:
         B, T, S, HQ, HK, _, _, ranges, strided = case[1:]
@@ -977,11 +1002,12 @@ def attention_bwd_cases():
     """(name, B, T, HQ, HK, causal, strided, D) of phase 2's attention
     backward: the four training shapes of head dim 64 (the LoRA step's LLM
     and ViT, SimLingo-Base's CLIP and LLaMA), then the self-attention
-    cases of HEAD_DIM_ATTENTION, then TP_ATTENTION's."""
+    cases of HEAD_DIM_ATTENTION, then TP_ATTENTION's and BASE_TP_ATTENTION's."""
     return [("llm_train", 6, 798, 14, 2, True, False, 64),
             ("vit_train", 12, 1025, 16, 16, False, True, 64),
             *((c[0], c[1], c[2], c[4], c[5], c[6], c[9], head_dim(c)) for c in BASE_ATTENTION
-              + [c for c in HEAD_DIM_ATTENTION if c[2] == c[3]] + TP_ATTENTION)]
+              + [c for c in HEAD_DIM_ATTENTION if c[2] == c[3]] + TP_ATTENTION
+              + BASE_TP_ATTENTION)]
 
 
 def bwd_readings(torch, FA, got, args, ref):
@@ -2813,6 +2839,13 @@ def _to(tree, dev):
 # ---------------------------------------------------------------------------
 
 GATES_ON = {"SIMLINGO_CE_IMPL": "pallas", "SIMLINGO_LN_IMPL": "pallas"}
+# the fused LoRA groups (`train_lora_fused`): q / k / v and gate / up each
+# one dropout launch; every gate `gates_set` sets or clears
+LORA_FUSED = {"SIMLINGO_LORA_FUSED": "1"}
+GATE_NAMES = (*GATES_ON, *LORA_FUSED)
+# the dropout-off pair of `train_lora_fused` (`lora_fused_pair`): fused
+# against unfused, relative, each 2^-6 (four bf16 roundings)
+PAIR_TOL = {"loss": 2.0 ** -6, "grad_norm": 2.0 ** -6}
 NEW_KERNELS = ("layernorm_fwd", "layernorm_bwd", "rmsnorm_fwd", "rmsnorm_bwd",
                "fused_ce_fwd", "fused_ce_bwd")
 # launches per training step with both gates on: the ViT's 24 x 2 LayerNorms
@@ -2827,16 +2860,16 @@ INT8_PER_STEP = {"int8_matmul": 24 * 7 + 5 * 2, "int8_matmul_dx": 24 * 7 + 5}
 
 
 class gates_set:
-    """Set the fused-kernel gates in the process environment -- both
-    (on=True), those of a dict {name: value}, or none -- and restore the
-    environment afterwards."""
+    """Set the gates in the process environment -- both fused-kernel gates
+    (on=True), those of a dict {name: value}, or none -- clearing every
+    other of GATE_NAMES, and restore the environment afterwards."""
 
     def __init__(self, on):
         self.env = GATES_ON if on is True else (on or {})
 
     def __enter__(self):
-        self.saved = {k: os.environ.get(k) for k in GATES_ON}
-        for k in GATES_ON:
+        self.saved = {k: os.environ.get(k) for k in GATE_NAMES}
+        for k in GATE_NAMES:
             os.environ.pop(k, None)
         os.environ.update(self.env)
 
@@ -3041,6 +3074,14 @@ REMAT_MODES = {"vision": (True, False), "llm": (False, True), "mlp": ("mlp", Fal
 ATTN_DROPOUT = ("flash_attn_fwd", "flash_attn_bwd", "dropout")
 
 
+def dropped_inputs_per_layer():
+    """The LoRA inputs an LLM layer drops out, each by its own mask: the 7
+    adapters', or with SIMLINGO_LORA_FUSED=1 (read now) 4: the q / k / v
+    group's, o's, the gate / up group's and down's."""
+    from simlingo_tpu_torch.core import gates
+    return 4 if gates.lora_fused() else 7
+
+
 def train_launches_per_step(m):
     """The attention and dropout kernels' launches of one training step,
     reckoned from the model: one attention forward and one backward a ViT
@@ -3048,18 +3089,20 @@ def train_launches_per_step(m):
     once more a layer that remat recomputes whole (a ViT layer under
     remat_vision=True, whose first region re-runs the attention for its
     lse; an LLM layer under remat_llm); with LoRA dropout, three dropout
-    launches (forward, the backward's regenerated mask, dx) for each of the
-    7 adapters of an LLM layer, and one more each where the layer is
-    recomputed."""
+    launches (forward, the backward's regenerated mask, dx) for each input
+    an LLM layer drops (`dropped_inputs_per_layer`: 7, or 4 with the fused
+    LoRA groups), and one more each where the layer is recomputed."""
     V, L = m.vit.num_layers, m.llm.num_layers
     drop = m.llm.lora_r > 0 and m.llm.lora_dropout > 0
     return {"flash_attn_fwd": V * (2 if m.remat_vision is True else 1)
             + L * (2 if m.remat_llm else 1),
             "flash_attn_bwd": V + L,
-            "dropout": 7 * L * (4 if m.remat_llm else 3) if drop else 0}
+            "dropout": dropped_inputs_per_layer() * L * (4 if m.remat_llm else 3)
+            if drop else 0}
 
 
-def full_width_training(torch, dev, gated=False, int8_base=False, remat=None):
+def full_width_training(torch, dev, gated=False, int8_base=False, remat=None,
+                        lora_fused=False):
     """presets.internvl2_1b(lora=True) through the trainer, with remat off
     unless `remat` names a REMAT_MODES mode (as `bench.py` runs it): 1
     warm-up step and TRAIN_STEPS timed steps; launches counted over the
@@ -3067,12 +3110,14 @@ def full_width_training(torch, dev, gated=False, int8_base=False, remat=None):
     `train_launches_per_step`. `gated`: with both fused-kernel gates set in
     the process environment (restored afterwards). `int8_base`: the same
     seed-0 params with the frozen base LLM quantized to int8 before the
-    trainer takes them (`bench.py` BENCH_INT8_BASE=1)."""
-    with gates_set(gated):
-        return _full_width_training(torch, dev, gated, int8_base, remat)
+    trainer takes them (`bench.py` BENCH_INT8_BASE=1). `lora_fused`: with
+    SIMLINGO_LORA_FUSED=1 set instead (`train_lora_fused`), then the
+    dropout-off pair on the run's state (`lora_fused_pair`)."""
+    with gates_set(LORA_FUSED if lora_fused else gated):
+        return _full_width_training(torch, dev, gated, int8_base, remat, lora_fused)
 
 
-def _full_width_training(torch, dev, gated, int8_base, remat):
+def _full_width_training(torch, dev, gated, int8_base, remat, lora_fused=False):
     import dataclasses
     from simlingo_tpu_torch.core import presets
     from simlingo_tpu_torch.core.config import compose
@@ -3082,7 +3127,8 @@ def _full_width_training(torch, dev, gated, int8_base, remat):
 
     kernels = kernel_fns()
     tag = ("[train_gated]" if gated else "[train_int8]" if int8_base
-           else f"[train_remat_{remat}]" if remat else "[train]")
+           else f"[train_remat_{remat}]" if remat
+           else "[train_lora_fused]" if lora_fused else "[train]")
 
     def reset_after_warmup(step, _):
         if step == 0:
@@ -3103,7 +3149,8 @@ def _full_width_training(torch, dev, gated, int8_base, remat):
         f"batch {cfg.data.batch_size}, seq {cfg.data.max_text_len} + "
         f"{m.num_queries} queries, 2 tiles; remat_vision={m.remat_vision} "
         f"remat_llm={m.remat_llm}; "
-        f"AdamW {dataclasses.asdict(cfg.optimizer)}{'; int8 base LLM' if int8_base else ''}")
+        f"AdamW {dataclasses.asdict(cfg.optimizer)}{'; int8 base LLM' if int8_base else ''}"
+        f"{'; SIMLINGO_LORA_FUSED=1' if lora_fused else ''}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     params = None
@@ -3166,7 +3213,60 @@ def _full_width_training(torch, dev, gated, int8_base, remat):
     state, step_fn, batch = res["state"], res["step_fn"], res["batch"]
     stats["profile"] = device_profile(torch, lambda: step_fn(state, batch, 99),
                                       f"one training step {tag}")
+    if lora_fused:
+        good, stats["dropout_off_pair"] = lora_fused_pair(torch, state, batch, m)
+        ok &= good
     return ok, stats
+
+
+def lora_fused_pair(torch, state, batch, m):
+    """The dropout-off pair of `train_lora_fused`: on the run's state after
+    its steps (the LoRA B factors are zero at step 1, so a step-1 forward
+    would not reach the group's B products) and its batch, the loss and
+    the global norm of the trainable gradients without dropout, with the
+    LoRA groups fused and unfused; held within PAIR_TOL relative (bf16
+    products of one A, then the n B, against n pairs of products)."""
+    from simlingo_tpu_torch.models import simlingo
+    from simlingo_tpu_torch.train import train_step as ts
+    bf16 = torch.bfloat16
+    got = {}
+    for name, env in (("unfused", None), ("fused", LORA_FUSED)):
+        with gates_set(env):
+            state.optimizer.zero_grad(set_to_none=True)
+            out, _ = simlingo.forward_loss(ts.cast_for_compute(state.params, bf16), batch, m,
+                                           compute_dtype=bf16)
+            out.loss.backward()
+            grads = [x.grad if x.grad is not None else torch.zeros_like(x)
+                     for x in state.trainable.values()]
+            got[name] = {"loss": float(out.loss.detach()),
+                         "grad_norm": float(torch.linalg.vector_norm(
+                             torch.stack(torch._foreach_norm(grads))))}
+            del out, grads
+            state.optimizer.zero_grad(set_to_none=True)
+    ok = True
+    for key, tol in PAIR_TOL.items():
+        a, b = got["unfused"][key], got["fused"][key]
+        good = math.isfinite(b) and abs(b - a) <= tol * abs(a)
+        ok &= good
+        log(f"[train_lora_fused] dropout-off pair {key}: fused {b:.6f} vs unfused {a:.6f} "
+            f"(rel diff {abs(b - a) / abs(a):.3e}, tol {tol:.3e}; bit-identical {a == b}) "
+            f"{'OK' if good else 'FAIL'}")
+    return ok, got
+
+
+def compare_lora_fused(plain, fused):
+    """The fused LoRA groups' full-width steps beside phase 5's ungated run
+    (same seed-0 params and batch; the masks differ by design, so the
+    losses are information only): ms/step, peak memory, device time by
+    kernel class, and the dropout launches a step."""
+    n = {k: st["launches"]["dropout"] // TRAIN_STEPS for k, st in
+         (("plain", plain), ("fused", fused))}
+    log(f"[train_lora_fused] dropout launches a step {n['fused']} vs phase 5's {n['plain']}")
+    for a, b in zip(plain["records"], fused["records"]):
+        log(f"[train_lora_fused] step {a['step']}: loss {b['loss']:.5f} vs unfused "
+            f"{a['loss']:.5f}; grad_norm {b['grad_norm']:.5f} vs {a['grad_norm']:.5f}; "
+            f"ms {b['ms']:.2f} vs {a['ms']:.2f}")
+    log_side_by_side("[train_lora_fused]", "fused", plain, fused)
 
 
 def compare_remat(plain, remat, mode):
@@ -4673,6 +4773,11 @@ def run_path_phases(torch, dev, cases) -> int:
         if not ok or not compare_remat(train_stats, remat_stats[mode], mode):
             return 1
         torch.cuda.empty_cache()
+    ok, fused_stats = full_width_training(torch, dev, lora_fused=True)
+    if not ok:
+        return 1
+    compare_lora_fused(train_stats, fused_stats)
+    torch.cuda.empty_cache()
     ok, mesh_stats = mesh_training(torch, dev)
     if not ok:
         return 1
@@ -4689,7 +4794,7 @@ def run_path_phases(torch, dev, cases) -> int:
     for name, st in (("agent", stats), ("train", train_stats), ("train_gated", gated_stats),
                      ("train_int8", int8_stats),
                      *((f"train_remat_{m}", st) for m, st in remat_stats.items()),
-                     ("mesh_training", mesh_stats), ("train_disk", disk_stats),
+                     ("train_lora_fused", fused_stats), ("mesh_training", mesh_stats), ("train_disk", disk_stats),
                      ("carla_plugin", eval_stats["carla_plugin"]),
                      ("eval_language", eval_stats["eval_language"]),
                      ("microsim", eval_stats["microsim"])):
@@ -4699,6 +4804,7 @@ def run_path_phases(torch, dev, cases) -> int:
                 "serve_int4": stats["int4"]["launches"], "train": train_stats["launches"],
                 "train_gated": gated_stats["launches"], "train_int8": int8_stats["launches"],
                 **{f"train_remat_{m}": st["launches"] for m, st in remat_stats.items()},
+                "train_lora_fused": fused_stats["launches"],
                 **{run: st["launches"] for run, st in mesh_stats["runs"].items()},
                 **base_launches, "train_disk": disk_stats["launches"],
                 "carla_plugin": eval_stats["carla_plugin"]["launches"],
@@ -4726,6 +4832,11 @@ MESH_RUNS = (("mesh_dp2", (2, 1, 1, 1, 1), 3, False, "halves"),
              ("mesh_sp2", (1, 1, 1, 2, 1), 6, False, "seq_halves"),
              ("mesh_pp2", (1, 1, 1, 1, 2), 6, False, "halves"))
 MESH_AXES = ("dp", "fsdp", "tp", "sp", "pp")
+# SimLingo-Base at tp = 2 (`base_tp2`, A13d): `base`'s configuration
+# (CLIP ViT-L/14-336, 23 layers run; the tiny LLaMA), global batch 16,
+# MESH_STEPS steps, ungated, in the same spawn, against the `tp` control
+BASE_TP_RUN, BASE_TP_SHAPE, BASE_TP_CONTROL = "base_tp2", (1, 1, 2, 1, 1), "tp"
+BASE_KEYS = ("loss", "grad_norm_vision", "grad_norm_rest")
 # the ring-off run: mesh_sp2 on a sequence of 767 + 30 = 797 positions,
 # which does not divide over sp = 2: the trainer must raise after step 1
 RING_OFF_TEXT_LEN = 767
@@ -4749,6 +4860,13 @@ def mesh_cfg(batch, shape=(1, 1, 1, 1, 1), text_len=768):
     cfg.model = dataclasses.replace(presets.internvl2_1b(lora=True), remat_vision=False,
                                     remat_llm=False)
     return cfg
+
+
+def base_mesh_cfg(shape=(1, 1, 1, 1, 1)):
+    """`base`'s configuration (configs/simlingo_base.yaml: batch 16 a data
+    rank) for MESH_STEPS steps on a mesh of `shape`."""
+    return _base_cfg("base", f"max_steps={MESH_STEPS}",
+                     *(f"mesh.{a}={n}" for a, n in zip(MESH_AXES, shape)))
 
 
 class _TPOfOne:
@@ -4784,7 +4902,10 @@ def tp2_products(torch):
     the bias, as `row_finish` adds it. A column-parallel one (q, k, v,
     gate, up, fc1, the projector's fc1) is the two halves of its output
     features, each a product of its own, so its input's gradient sums two
-    partials."""
+    partials. Every split linear of the ViT, Qwen2, SimLingo-Base's CLIP
+    tower and projector, and its LLaMA (`base_tp_control`) goes through
+    `layers.tp_params`, so all are cut. The fused LoRA groups are not
+    (the mesh runs leave SIMLINGO_LORA_FUSED off)."""
     import torch.nn.functional as F
     from simlingo_tpu_torch.models import layers as L
     from simlingo_tpu_torch.models import qwen2 as Q
@@ -4850,6 +4971,21 @@ def tp2_products(torch):
     finally:
         L.tp_params, L.linear = tp_params, linear
         Q._linear_maybe_lora, Q._mlp_block = lora_linear, mlp_block
+
+
+@contextlib.contextmanager
+def base_tp_control(torch):
+    """The `tp` control of `base_tp2`: SimLingo-Base's one-process trainer
+    with its forward given a tp group of one rank, so that CLIP and the
+    LLaMA take their tp code paths, under `tp2_products`."""
+    from simlingo_tpu_torch.models import simlingo_base as SB
+    real, tp = SB.forward_loss, _TPOfOne().tp
+    SB.forward_loss = lambda *a, **k: real(*a, **dict(k, tp=tp))
+    try:
+        with tp2_products(torch):
+            yield
+    finally:
+        SB.forward_loss = real
 
 
 def seq_halves_losses(torch, params, ex, seed, m, dtype=None):
@@ -4996,7 +5132,7 @@ def mesh_launches_per_step(m, shape, coords, batch):
     return {"flash_attn_fwd": V * (2 if m.remat_vision is True else 1)
             + runs * chunks * (2 if again else 1),
             "flash_attn_bwd": (V if pp == 1 or coords["pp"] == 0 else 0) + runs * chunks,
-            "dropout": 7 * runs * (4 if again else 3) if drop else 0}
+            "dropout": dropped_inputs_per_layer() * runs * (4 if again else 3) if drop else 0}
 
 
 def control_step(torch, state, ex, seed, model_cfg, opt_cfg, control):
@@ -5086,6 +5222,30 @@ def mesh_reference(torch, dev, gated=False, control=None, want_p0=False):
     return recs, p3, p0
 
 
+def base_mesh_reference(torch, dev, control=False, want_p0=False):
+    """`base` in one process at global batch 16, seed 0, MESH_STEPS steps:
+    `train_base`, or with `control` the same under `base_tp_control`:
+    (per-step records, every leaf after the last step, and the initial
+    ones where `want_p0`), fp32 on the host."""
+    from simlingo_tpu_torch.models import simlingo_base
+    from simlingo_tpu_torch.train import train_step as ts
+    from simlingo_tpu_torch.train import trainer
+    cfg = base_mesh_cfg()
+    params = simlingo_base.init_params(cfg.model,
+                                       torch.Generator(device=dev).manual_seed(cfg.seed),
+                                       device=dev)
+    p0 = ({p: x.detach().to("cpu", torch.float32, copy=True)
+           for p, x in ts.flatten(params).items()} if want_p0 else None)
+    with base_tp_control(torch) if control else contextlib.nullcontext():
+        res = trainer.train_base(cfg, params=params, device=dev)
+    del params
+    recs = res["records"]
+    p3 = {p: x.detach().float().cpu() for p, x in ts.flatten(res["state"].params).items()}
+    del res
+    torch.cuda.empty_cache()
+    return recs, p3, p0
+
+
 def _update_err(p3, ref, p0):
     """||p3 - ref|| / ||ref - p0|| over every trainable element."""
     num = sum(float((p3[p] - ref[p]).double().square().sum()) for p in ref)
@@ -5095,18 +5255,20 @@ def _update_err(p3, ref, p0):
 
 def mesh_rank() -> int:
     """One rank of the mesh runs (a child of `mesh_training`; its place
-    from torchrun's variables): the trainer on each MESH_RUNS mesh in turn,
-    then the run's statistics (and, on the primary, the trainable leaves
-    gathered) into SIMLINGO_MESH_WORK. NCCL where every rank has a GPU of
-    its own, else gloo, named to `initialize` (NCCL refuses two ranks on
-    one GPU); over NCCL the trainer runs under torch.profiler, which times
-    the collectives' kernels."""
+    from torchrun's variables): the trainer on each MESH_RUNS mesh in turn
+    and SimLingo-Base's on `base_tp2`'s, each run's statistics (and, on the
+    primary, the trained leaves gathered) into SIMLINGO_MESH_WORK. NCCL
+    where every rank has a GPU of its own, else gloo, named to
+    `initialize` (NCCL refuses two ranks on one GPU); over NCCL the
+    trainer runs under torch.profiler, which times the collectives'
+    kernels."""
     import torch
     import torch.distributed as dist
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from simlingo_tpu_torch.parallel import mesh as M
     from simlingo_tpu_torch.parallel import multihost
+    from simlingo_tpu_torch.train import train_step as ts
     from simlingo_tpu_torch.train import trainer
     work = os.environ["SIMLINGO_MESH_WORK"]
     dev = torch.device("cuda")
@@ -5120,19 +5282,20 @@ def mesh_rank() -> int:
         print(f"{world} ranks on {gpus} GPU(s): backend {backend}"
               f"{' (the ranks share a GPU)' if backend == 'gloo' else ''}", flush=True)
     kernels = kernel_fns()
-    for run, shape, batch, gated, _ in MESH_RUNS:
+
+    def one_run(run, train):
+        """One run of the trainer `train()` on this rank: its statistics, and
+        its trained leaves gathered onto the primary, into SIMLINGO_MESH_WORK."""
         for fn in kernels.values():
             fn.launches = 0
-        with gates_set(gated):
-            cfg = mesh_cfg(batch, shape)
-            torch.cuda.reset_peak_memory_stats()
-            prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-                    if backend == "nccl" else contextlib.nullcontext())
-            with prof:
-                t0 = time.perf_counter()
-                res = trainer.train(cfg, make_synthetic=True, device=dev)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                if backend == "nccl" else contextlib.nullcontext())
+        with prof:
+            t0 = time.perf_counter()
+            res = train()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         nccl_ms = None
         if backend == "nccl":
             nccl_ms = sum(max(getattr(e, "self_device_time_total", 0), 0)
@@ -5145,15 +5308,22 @@ def mesh_rank() -> int:
                      records=res["records"], peak_bytes=torch.cuda.max_memory_allocated(),
                      launches={k: fn.launches for k, fn in kernels.items()},
                      comm=mesh.comm_stats(), nccl_device_ms=nccl_ms)
+        trained = getattr(state, "trainable", None) or ts.flatten(state.params)
         p3 = {p: x.float().cpu() for p, x in M.gather_tree(
-            {p: x.detach() for p, x in state.trainable.items()}, state.layouts, mesh).items()}
+            {p: x.detach() for p, x in trained.items()}, state.layouts, mesh).items()}
         if rank == 0:
             torch.save(p3, os.path.join(work, f"{run}_p3.pt"))
         with open(os.path.join(work, f"{run}_rank{rank}.json"), "w") as f:
             json.dump(stats, f)
-        del res, state, mesh, p3
+        del res, state, mesh, p3, trained
         torch.cuda.empty_cache()
         multihost.sync_hosts()
+
+    for run, shape, batch, gated, _ in MESH_RUNS:
+        with gates_set(gated):
+            cfg = mesh_cfg(batch, shape)
+            one_run(run, lambda: trainer.train(cfg, make_synthetic=True, device=dev))
+    one_run(BASE_TP_RUN, lambda: trainer.train_base(base_mesh_cfg(BASE_TP_SHAPE), device=dev))
     # the ring-off run: sp = 2 on a sequence that does not divide
     cfg = mesh_cfg(6, dict((r[0], r[1]) for r in MESH_RUNS)["mesh_sp2"],
                    text_len=RING_OFF_TEXT_LEN)
@@ -5235,26 +5405,100 @@ def nccl_world_one(torch, dev):
     return ok
 
 
-def _differences(recs, p3, ref_recs, ref_p3, p0):
-    """Step 1's |loss| and |grad norm| differences and, after the last
-    step, ||p3 - ref|| / ||ref - p0|| over the trainable leaves."""
-    return {"loss": abs(recs[0]["loss"] - ref_recs[0]["loss"]),
-            "grad_norm": abs(recs[0]["grad_norm"] - ref_recs[0]["grad_norm"]),
-            "update": _update_err(p3, ref_p3, p0)}
+def _differences(recs, p3, ref_recs, ref_p3, p0, keys=("loss", "grad_norm")):
+    """Step 1's differences in `keys` (the loss and the grad norm; the base
+    model's two group norms) and, after the last step, ||p3 - ref|| /
+    ||ref - p0|| over the trained leaves ("update")."""
+    return dict({k: abs(recs[0][k] - ref_recs[0][k]) for k in keys},
+                update=_update_err(p3, ref_p3, p0))
+
+
+def _hold_run(run, shape, batch, gated, control, ranks, p3, ctl, plain, p0, base, per_rank,
+              keys, gpus):
+    """A mesh run's ranks held to its control `ctl` (records, leaves): its
+    differences within MESH_MULT x the control's own difference from the
+    one-process run `plain` (`base`), every rank the same metrics, and
+    each rank's launches a step exactly `per_rank`'s. Logs it all; returns
+    (ok, the run's statistics)."""
+    world = len(ranks)
+    recs = ranks[0]["records"]
+    got = _differences(recs, p3, *ctl, p0, keys)
+    to_plain = _differences(recs, p3, *plain, p0, keys)
+    tol = {k: MESH_MULT * base[k] for k in got}
+    within = {k: got[k] <= tol[k] for k in got}
+    same = all([tuple(x[k] for k in keys) for x in r["records"]]
+               == [tuple(x[k] for k in keys) for x in recs] for r in ranks)
+    exact = {k: all(r["launches"][k] == want[k] * MESH_STEPS
+                    for r, want in zip(ranks, per_rank)) for k in per_rank[0]}
+    ok = all(within.values()) and same and all(exact.values())
+    ms = [r["ms"] for r in recs[1:]]
+    mean_ms = sum(ms) / len(ms)
+    comm = {r["rank"]: {g: dict(calls=c["calls"] / MESH_STEPS, mbytes=c["bytes"] / MESH_STEPS / 1e6,
+                                ms=c["ms"] / MESH_STEPS)
+                        for g, c in r["comm"].items() if c["calls"]}
+            for r in ranks}
+    nccl_ms = {r["rank"]: r["nccl_device_ms"] / MESH_STEPS for r in ranks
+               if r["nccl_device_ms"] is not None}
+    log(f"[{run}] mesh dp x fsdp x tp x sp x pp = {shape} on {world} ranks "
+        f"({'one GPU each' if gpus >= world else 'sharing GPU 0'}), backend "
+        f"{ranks[0]['backend']}{', collectives staged through host memory' if ranks[0]['staged'] else ''}; "
+        f"batch {batch} a data rank, gated={gated}; the trainer "
+        f"{ranks[0]['train_s']:.1f} s (init and {MESH_STEPS} steps)")
+    log(f"[{run}] " + " ".join(f"{k} {[r[k] for r in recs]}" for k in keys)
+        + f"; every rank the same metrics: {same}")
+    for k in got:
+        log(f"[{run}] {k}: |mesh - control {control}| {got[k]:.3e} vs tolerance "
+            f"{tol[k]:.3e} ({MESH_MULT} x the control's difference from the one-process run "
+            f"{base[k]:.3e}) {'OK' if within[k] else 'FAIL'}; |mesh - the one-process run| "
+            f"{to_plain[k]:.3e}")
+    log(f"[{run}] ms/step (mean of steps 2-{MESH_STEPS}) {mean_ms:.2f}"
+        f"{' (ranks share one GPU: not a scaling figure)' if gpus < world else ''}; "
+        f"peak GiB per rank {[round(r['peak_bytes'] / 2 ** 30, 2) for r in ranks]}")
+    for r, c in comm.items():
+        if r in nccl_ms:
+            log(f"[{run}] rank {r} collectives a step: " + ", ".join(
+                f"{g} {v['calls']:.0f} calls {v['mbytes']:.1f} MB" for g, v in c.items())
+                + f"; NCCL kernels {nccl_ms[r]:.2f} device ms a step (torch.profiler, "
+                f"the {MESH_STEPS} steps profiled)")
+        else:
+            log(f"[{run}] rank {r} collectives a step (staged: host ms, device "
+                f"synchronised around each): " + ", ".join(
+                    f"{g} {v['calls']:.0f} calls {v['mbytes']:.1f} MB {v['ms']:.1f} ms"
+                    for g, v in c.items()))
+    for r in ranks:
+        log(f"[{run}] rank {r['rank']} hand-kernel launches over {MESH_STEPS} steps: "
+            f"{ {k: v for k, v in r['launches'].items() if v} }")
+    log(f"[{run}] launches a step a rank against the reckoning {per_rank}: "
+        f"{'OK' if all(exact.values()) else 'FAIL ' + str(exact)}")
+    return ok, dict(shape=shape, batch=batch, gated=gated, control=control, ranks=ranks,
+                    differences=got, tolerance=tol, launches_per_step_expected=per_rank,
+                    differences_from_trainer=to_plain, nccl_device_ms_per_step=nccl_ms,
+                    within=within, mean_step_ms=mean_ms, comm_per_step=comm,
+                    launches={k: sum(r["launches"][k] for r in ranks)
+                              for k in ranks[0]["launches"]})
+
+
+def _log_control(run, control, recs, b, keys, what="the trainer"):
+    log(f"[{run}] control {control}: " + " ".join(f"{k} {[r[k] for r in recs]}" for k in keys)
+        + f"; its difference from {what}: step-1 "
+        + ", ".join(f"{k} {b[k]:.3e}" for k in keys)
+        + f", leaves after step {MESH_STEPS} {b['update']:.3e} of the update")
 
 
 def mesh_training(torch, dev):
     """The phase `mesh_training`: the world-1 NCCL init; the one-process
-    runs (the trainer ungated and gated, the `halves` and `tp` controls);
-    then each MESH_RUNS run on 2 ranks (one a GPU over NCCL where there
-    are 2 GPUs, else both on this one over gloo, each collective staged
-    through host memory), held to its control: step 1's loss and grad
-    norm, and the trainable leaves after step MESH_STEPS (||run - control||
-    / ||control - init||), each within MESH_MULT x the control's own
-    difference from the trainer (`_differences`); every rank's attention,
-    dropout (and, gated, norm and CE) launches held to
-    `train_launches_per_step` exactly. The 2 ranks run the three runs in
-    turn in one spawn. Returns (ok, stats)."""
+    runs (the trainer ungated and gated, the `halves`, `tp` and
+    `seq_halves` controls; SimLingo-Base's trainer and its `tp` control);
+    then each MESH_RUNS run and `base_tp2` on 2 ranks (one a GPU over NCCL
+    where there are 2 GPUs, else both on this one over gloo, each
+    collective staged through host memory), held to its control: step 1's
+    loss and grad norm (the base model's: both group norms), and the
+    trained leaves after step MESH_STEPS (||run - control|| / ||control -
+    init||), each within MESH_MULT x the control's own difference from the
+    one-process run (`_differences`); every rank's attention, dropout
+    (and, gated, norm and CE) launches held exactly to
+    `mesh_launches_per_step` (`base_tp2`: `base_launches`). The 2 ranks
+    run every run in turn in one spawn. Returns (ok, stats)."""
     import shutil
     import tempfile
     ok = nccl_world_one(torch, dev)
@@ -5268,17 +5512,21 @@ def mesh_training(torch, dev):
         recs, p3, _ = mesh_reference(torch, dev, gated=gated, control=control)
         controls[control] = (recs, p3, gated)
         base[control] = _differences(recs, p3, *plain[gated], p0)
+    t1 = time.perf_counter()
+    bref, bref_p3, bp0 = base_mesh_reference(torch, dev, want_p0=True)
+    bctl, bctl_p3, _ = base_mesh_reference(torch, dev, control=True)
+    bbase = _differences(bctl, bctl_p3, bref, bref_p3, bp0, BASE_KEYS)
     log(f"[mesh] one-process runs (global batch 6, {MESH_STEPS} steps) in "
-        f"{time.perf_counter() - t0:.1f} s: the trainer: loss {[r['loss'] for r in ref]} "
+        f"{t1 - t0:.1f} s: the trainer: loss {[r['loss'] for r in ref]} "
         f"grad_norm {[r['grad_norm'] for r in ref]}; gated: loss {[r['loss'] for r in gref]} "
         f"grad_norm {[r['grad_norm'] for r in gref]}")
     for control, (recs, _, gated) in controls.items():
-        b = base[control]
-        log(f"[mesh] control {control}{' (gated)' if gated else ''}: loss "
-            f"{[r['loss'] for r in recs]} grad_norm {[r['grad_norm'] for r in recs]}; its "
-            f"difference from the trainer{' (gated)' if gated else ''}: step-1 loss "
-            f"{b['loss']:.3e}, grad norm {b['grad_norm']:.3e}, leaves after step "
-            f"{MESH_STEPS} {b['update']:.3e} of the update")
+        _log_control("mesh", control + (" (gated)" if gated else ""), recs, base[control],
+                     ("loss", "grad_norm"), "the trainer" + (" (gated)" if gated else ""))
+    log(f"[{BASE_TP_RUN}] one-process `base` runs (global batch 16, {MESH_STEPS} steps) in "
+        f"{time.perf_counter() - t1:.1f} s: train_base: " + " ".join(
+            f"{k} {[r[k] for r in bref]}" for k in BASE_KEYS))
+    _log_control(BASE_TP_RUN, BASE_TP_CONTROL, bctl, bbase, BASE_KEYS, "train_base")
     world = 2
     gpus = torch.cuda.device_count()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -5291,8 +5539,19 @@ def mesh_training(torch, dev):
                                    for c, v in controls.items()},
                                 **{f"{c}_grad_norm": [r["grad_norm"] for r in v[0]]
                                    for c, v in controls.items()},
-                                control_difference=base),
+                                control_difference=base,
+                                base={k: [r[k] for r in bref] for k in BASE_KEYS},
+                                base_tp={k: [r[k] for r in bctl] for k in BASE_KEYS},
+                                base_control_difference=bbase),
              "runs": {}}
+
+    def load_ranks(run):
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(work, f"{run}_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        return ranks, torch.load(os.path.join(work, f"{run}_p3.pt"), weights_only=True)
+
     try:
         t1 = time.perf_counter()
         good, tails = spawn_mesh_ranks(work, world)
@@ -5302,80 +5561,30 @@ def mesh_training(torch, dev):
                 log(t)
             log("[mesh] FAIL: a rank failed")
             return False, stats
-        log(f"[mesh] {world} ranks ran the {len(MESH_RUNS)} runs in {stats['ranks_wall_s']:.1f} s "
-            f"(spawn to exit; logs chiprun_out/chip_smoke_mesh_rank*.log)")
+        log(f"[mesh] {world} ranks ran the {len(MESH_RUNS)} runs and {BASE_TP_RUN} in "
+            f"{stats['ranks_wall_s']:.1f} s (spawn to exit; logs "
+            f"chiprun_out/chip_smoke_mesh_rank*.log)")
         for run, shape, batch, gated, control in MESH_RUNS:
-            ranks = []
-            for r in range(world):
-                with open(os.path.join(work, f"{run}_rank{r}.json")) as f:
-                    ranks.append(json.load(f))
-            p3 = torch.load(os.path.join(work, f"{run}_p3.pt"), weights_only=True)
-            recs = ranks[0]["records"]
-            got = _differences(recs, p3, *controls[control][:2], p0)
-            to_plain = _differences(recs, p3, *plain[gated], p0)
-            tol = {k: MESH_MULT * base[control][k] for k in got}
-            within = {k: got[k] <= tol[k] for k in got}
-            same = all([(x["loss"], x["grad_norm"]) for x in r["records"]]
-                       == [(x["loss"], x["grad_norm"]) for x in recs] for r in ranks)
+            ranks, p3 = load_ranks(run)
             per_rank = []
             for r in ranks:
                 want = mesh_launches_per_step(mesh_cfg(batch).model, shape, r["coords"], batch)
                 per_rank.append(dict(want, **GATED_PER_STEP) if gated else want)
-            per_step = per_rank[0]
-            exact = {k: all(r["launches"][k] == want[k] * MESH_STEPS
-                            for r, want in zip(ranks, per_rank)) for k in per_step}
-            good = all(within.values()) and same and all(exact.values())
+            good, stats["runs"][run] = _hold_run(
+                run, shape, batch, gated, control, ranks, p3, controls[control][:2],
+                plain[gated], p0, base[control], per_rank, ("loss", "grad_norm"), gpus)
             ok &= good
-            ms = [r["ms"] for r in recs[1:]]
-            mean_ms = sum(ms) / len(ms)
-            comm = {r["rank"]: {g: dict(calls=c["calls"] / MESH_STEPS,
-                                        mbytes=c["bytes"] / MESH_STEPS / 1e6,
-                                        ms=c["ms"] / MESH_STEPS)
-                                for g, c in r["comm"].items() if c["calls"]}
-                    for r in ranks}
-            nccl_ms = {r["rank"]: r["nccl_device_ms"] / MESH_STEPS for r in ranks
-                       if r["nccl_device_ms"] is not None}
-            log(f"[{run}] mesh dp x fsdp x tp x sp x pp = {shape} on {world} ranks "
-                f"({'one GPU each' if gpus >= world else 'sharing GPU 0'}), backend "
-                f"{ranks[0]['backend']}{', collectives staged through host memory' if ranks[0]['staged'] else ''}; "
-                f"batch {batch} a data rank (global 6), gated={gated}; the trainer "
-                f"{ranks[0]['train_s']:.1f} s (init and {MESH_STEPS} steps)")
-            log(f"[{run}] loss {[r['loss'] for r in recs]} grad_norm "
-                f"{[r['grad_norm'] for r in recs]}; every rank the same metrics: {same}")
-            for k in got:
-                log(f"[{run}] {k}: |mesh - control {control}| {got[k]:.3e} vs tolerance "
-                    f"{tol[k]:.3e} ({MESH_MULT} x the control's difference from the trainer "
-                    f"{base[control][k]:.3e}) {'OK' if within[k] else 'FAIL'}; |mesh - the "
-                    f"trainer| {to_plain[k]:.3e}")
-            log(f"[{run}] ms/step (mean of steps 2-{MESH_STEPS}) {mean_ms:.2f}"
-                f"{' (ranks share one GPU: not a scaling figure)' if gpus < world else ''}; "
-                f"peak GiB per rank {[round(r['peak_bytes'] / 2 ** 30, 2) for r in ranks]}")
-            for r, c in comm.items():
-                if r in nccl_ms:
-                    log(f"[{run}] rank {r} collectives a step: " + ", ".join(
-                        f"{g} {v['calls']:.0f} calls {v['mbytes']:.1f} MB" for g, v in c.items())
-                        + f"; NCCL kernels {nccl_ms[r]:.2f} device ms a step (torch.profiler, "
-                        f"the {MESH_STEPS} steps profiled)")
-                else:
-                    log(f"[{run}] rank {r} collectives a step (staged: host ms, device "
-                        f"synchronised around each): " + ", ".join(
-                            f"{g} {v['calls']:.0f} calls {v['mbytes']:.1f} MB {v['ms']:.1f} ms"
-                            for g, v in c.items()))
-            for r in ranks:
-                log(f"[{run}] rank {r['rank']} hand-kernel launches over {MESH_STEPS} steps: "
-                    f"{ {k: v for k, v in r['launches'].items() if v} }")
-            log(f"[{run}] launches a step a rank against mesh_launches_per_step "
-                f"{per_rank}: {'OK' if all(exact.values()) else 'FAIL ' + str(exact)}")
-            stats["runs"][run] = dict(shape=shape, batch=batch, gated=gated, control=control,
-                                      ranks=ranks, differences=got, tolerance=tol,
-                                      launches_per_step_expected=per_rank,
-                                      differences_from_trainer=to_plain,
-                                      nccl_device_ms_per_step=nccl_ms,
-                                      within=within, mean_step_ms=mean_ms, comm_per_step=comm,
-                                      launches={k: sum(r["launches"][k] for r in ranks)
-                                                for k in ranks[0]["launches"]})
             if not good:
                 return False, stats
+        ranks, p3 = load_ranks(BASE_TP_RUN)
+        want = {k: n for k, n in base_launches(base_mesh_cfg().model, gated=True).items()
+                if k in ATTN_KERNELS}
+        good, stats["runs"][BASE_TP_RUN] = _hold_run(
+            BASE_TP_RUN, BASE_TP_SHAPE, 16, False, BASE_TP_CONTROL, ranks, p3,
+            (bctl, bctl_p3), (bref, bref_p3), bp0, bbase, [want] * world, BASE_KEYS, gpus)
+        ok &= good
+        if not good:
+            return False, stats
         raised = []
         for r in range(world):
             with open(os.path.join(work, f"ring_off_rank{r}.json")) as f:
@@ -5422,6 +5631,9 @@ def main() -> int:
                     help="build, then run the disk-training phase (7) and, in its "
                          "workspace, the plugin (8), the evaluation (9) and the "
                          "microsim (10) only")
+    ap.add_argument("--lora-fused", action="store_true",
+                    help="build, then phase 5's ungated training run and `train_lora_fused` "
+                         "(SIMLINGO_LORA_FUSED=1) beside it only")
     ap.add_argument("--mesh", action="store_true",
                     help="build, then run the multi-GPU training phase (mesh_training) only")
     ap.add_argument("--microsim", action="store_true",
@@ -5464,6 +5676,20 @@ def main() -> int:
         if ok:
             ok, _, _ = run_base_phases(torch, dev, smi_line(), tuple(args.base or BASE_CELLS))
         log(f"[base] phases 3 (SimLingo-Base) and 6 {'OK' if ok else 'FAILED'} on {smi_line()}")
+        return 0 if ok else 1
+    if args.lora_fused:
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        ok, plain = full_width_training(torch, dev)
+        if ok:
+            torch.cuda.empty_cache()
+            ok, fused = full_width_training(torch, dev, lora_fused=True)
+        if ok:
+            compare_lora_fused(plain, fused)
+            with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_train_lora_fused.json"),
+                      "w") as f:
+                json.dump(dict(fused, nvidia_smi=smi_line()), f, indent=1)
+        log(f"[lora_fused] phase 5's train and train_lora_fused {'OK' if ok else 'FAILED'} on "
+            f"{smi_line()}")
         return 0 if ok else 1
     if args.mesh:
         os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -19,7 +19,7 @@ pp its layers, over `pp_microbatches` microbatches
 (`parallel/pipeline.py`).
 `BaseTrainConfig` holds the fields of `TrainConfig` that `train_base.py`
 reads for SimLingo-Base, with the same defaults (its model is
-`SimLingoBaseConfig()`, its mesh dp x fsdp); `compose_base` composes it
+`SimLingoBaseConfig()`, its mesh dp x fsdp x tp); `compose_base` composes it
 as `train_base.py:40` composes `TrainConfig` (defaults <- experiment <-
 overrides).
 """

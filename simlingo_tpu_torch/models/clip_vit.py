@@ -8,6 +8,14 @@ feature grid), a 2x2 average pool and the image-newline column. Images
 are NHWC. Attention reads q/k/v as [B, T, H, D] views of the three
 projections (group 1) through `attention_autograd`, so training runs the
 backward kernel too. There is no remat.
+
+Tensor parallelism (`tp`, `models/layers.py`), as `models/vit.py` and
+JAX's `PARTITION_RULES` (`simlingo_tpu/parallel/mesh.py:57-92`) split
+the tower: each rank holds num_heads / tp heads (q, k, v column-parallel,
+their replicated biases cut at use; o row-parallel) and
+intermediate_size / tp of the MLP (fc1 column, fc2 row); the projector's
+fc1 is column-parallel and its fc2 row-parallel. The patch and position
+embeddings, the norms and the class token are replicated.
 """
 
 from __future__ import annotations
@@ -81,21 +89,23 @@ def init_params(gen: torch.Generator, cfg: CLIPViTConfig, dtype=torch.float32,
     return p
 
 
-def _clip_layer(p, x: torch.Tensor, cfg: CLIPViTConfig) -> torch.Tensor:
+def _clip_layer(p, x: torch.Tensor, cfg: CLIPViTConfig, tp=None) -> torch.Tensor:
     B, T, H = x.shape
-    nh = cfg.num_heads
-    hd = H // nh
-    h = L.layernorm(p["ln1"], x, cfg.layer_norm_eps)
-    q, k, v = (L.linear(p["attn"][n], h).view(B, T, nh, hd) for n in ("q", "k", "v"))
+    hd = H // cfg.num_heads
+    h = L.tp_copy(L.layernorm(p["ln1"], x, cfg.layer_norm_eps), tp)
+    q, k, v = (L.column_linear(p["attn"][n], h, tp) for n in ("q", "k", "v"))
+    nh = q.shape[-1] // hd                              # this rank's heads
+    q, k, v = (t.view(B, T, nh, hd) for t in (q, k, v))
     a = attention_autograd(q, k, v, None, causal=False)
-    x = x + L.linear(p["attn"]["o"], a.reshape(B, T, H))
-    h = L.layernorm(p["ln2"], x, cfg.layer_norm_eps)
-    h = L.linear(p["mlp"]["fc2"], quick_gelu(L.linear(p["mlp"]["fc1"], h)))
-    return x + h
+    x = x + L.row_linear(p["attn"]["o"], a.reshape(B, T, nh * hd), tp)
+    h = L.tp_copy(L.layernorm(p["ln2"], x, cfg.layer_norm_eps), tp)
+    h = quick_gelu(L.column_linear(p["mlp"]["fc1"], h, tp))
+    return x + L.row_linear(p["mlp"]["fc2"], h, tp)
 
 
-def encode(params, images: torch.Tensor, cfg: CLIPViTConfig) -> torch.Tensor:
-    """[B, H, W, 3] -> hidden states of `feature_layer` [B, T+1, hidden]."""
+def encode(params, images: torch.Tensor, cfg: CLIPViTConfig, tp=None) -> torch.Tensor:
+    """[B, H, W, 3] -> hidden states of `feature_layer` [B, T+1, hidden];
+    `tp`: the tp group or None."""
     images = images.to(params["patch_embed"]["w"].dtype)
     x = L.linear(params["patch_embed"], _patchify(images, cfg))
     B = x.shape[0]
@@ -103,20 +113,20 @@ def encode(params, images: torch.Tensor, cfg: CLIPViTConfig) -> torch.Tensor:
     x = torch.cat([cls, x], dim=1) + params["pos_embed"].to(x.dtype)
     x = L.layernorm(params["pre_ln"], x, cfg.layer_norm_eps)
     for i in range(cfg.layers_run):
-        x = _clip_layer(params["layers"][str(i)], x, cfg)
+        x = _clip_layer(params["layers"][str(i)], x, cfg, tp)
     return x
 
 
 def llava_features(params, pixel_values: torch.Tensor, cfg: CLIPViTConfig,
-                   newline: torch.Tensor, downsample: int = 2) -> torch.Tensor:
+                   newline: torch.Tensor, downsample: int = 2, tp=None) -> torch.Tensor:
     """AnyRes 1 x NP: pixel_values [B, NP, S, S, 3] -> [B, n_tokens,
     projector_out], n_tokens = (g / d) (NP g / d + 1) with the image-newline
     column appended (300 at two 336 tiles)."""
     B, NP = pixel_values.shape[:2]
     g, d = cfg.grid, downsample
     feats = encode(params, pixel_values.reshape((B * NP,) + pixel_values.shape[2:]),
-                   cfg)[:, 1:]                                   # drop CLS
-    h = L.gelu_mlp(params["projector"], feats)                   # [B*NP, g*g, C]
+                   cfg, tp)[:, 1:]                               # drop CLS
+    h = L.gelu_mlp(params["projector"], feats, tp=tp)            # [B*NP, g*g, C]
     C = h.shape[-1]
     h = h.view(B, NP, g, g, C).transpose(1, 2).reshape(B, g, NP * g, C)
     h = h.view(B, g // d, d, NP * g // d, d, C).mean(dim=(2, 4))

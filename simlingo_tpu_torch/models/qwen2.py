@@ -10,10 +10,21 @@ each decoder layer is checkpointed (torch.utils.checkpoint, non-reentrant)
 and recomputed in the backward, as JAX's `jax.checkpoint` of `layer_fn`
 (:471): the recompute launches the attention forward and the dropout
 forwards again, and draws the same masks, since the seeds are host ints
-(`layer_seeds`). The fused-LoRA
-lever (`SIMLINGO_LORA_FUSED`, off in JAX) is not ported, and the layers
-stay a dict of layers (JAX's stacked layout is read by
-`core/from_jax.py`).
+(`layer_seeds`). The layers stay a dict of layers (JAX's stacked layout
+is read by `core/from_jax.py`).
+
+Fused LoRA groups (`SIMLINGO_LORA_FUSED=1`, `core/gates.py`; JAX's
+`_fused_lora_delta` :241): where q, k and v (or gate and up) all have
+adapters, the group's deltas come from one input through
+`_LoraGroupDelta` or, without dropout, its plain products: one product
+with the concatenated A [n r, in], then one with each adapter's B. JAX
+multiplies by a block-diagonal B instead, whose off-diagonal zeros add
+nothing; building it on every call would cost a `zeros` and n copies. With
+dropout the group's input is dropped once, with the group's first seed
+(`seeds["q"]`, `seeds["gate"]`), so the adapters share one mask, as in
+JAX; `down` keeps its own (`_LoraDropDeltaGLU`). A group costs three
+dropout launches a step (forward, the backward's regenerated mask, dx)
+where its adapters cost 3 n, so a layer takes 4 x 3 where it took 7 x 3.
 
 Tensor parallelism (`tp`, `models/layers.py`): at tp = t each rank holds
 num_heads / t query heads and num_kv_heads / t kv heads (GQA groups
@@ -53,6 +64,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from simlingo_tpu_torch.core import gates
 from simlingo_tpu_torch.kernels.dropout import dropout
 from simlingo_tpu_torch.kernels.flash_attention import attention, attention_autograd
 from simlingo_tpu_torch.kernels.quantized_matmul import int4_matmul, int8_matmul
@@ -168,27 +180,6 @@ def _lora_grads(xl, a, b, g):
     return da, db, gb
 
 
-class _LoraDropDelta(torch.autograd.Function):
-    """(dropout(x) A^T) B^T (`qwen2.py:_lora_drop_delta` :149). The only
-    tensor saved is x itself; the backward regenerates the mask from the
-    seed and applies it to the gradient of the dropped input. `block`
-    places x in the whole tensor (`kernels/dropout.py`)."""
-
-    @staticmethod
-    def forward(ctx, x, a, b, seed: int, rate: float, block=None):
-        ctx.save_for_backward(x, a, b)
-        ctx.seed, ctx.rate, ctx.block = seed, rate, block
-        return F.linear(F.linear(dropout(x, seed, rate, block), a), b)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, a, b = ctx.saved_tensors
-        xl = dropout(x, ctx.seed, ctx.rate, ctx.block)    # regenerated
-        da, db, gb = _lora_grads(xl, a, b, g)
-        dx = dropout(gb @ a, ctx.seed, ctx.rate, ctx.block)   # mask and scale are linear
-        return dx, da, db, None, None, None
-
-
 class _LoraDropDeltaGLU(torch.autograd.Function):
     """(dropout(silu(xg) * xu) A^T) B^T for the `down` adapter
     (`qwen2.py:_lora_drop_delta_glu` :183): the [B, T, intermediate]
@@ -213,6 +204,76 @@ class _LoraDropDeltaGLU(torch.autograd.Function):
         # d silu(z)/dz = sigmoid(z) (1 + z (1 - sigmoid(z)))
         dsilu = (sg * (1 + xg32 * (1 - sg))).to(xg.dtype)
         return dh * xu * dsilu, dh * s, da, db, None, None, None
+
+
+def _cat(ts, dim=0):
+    return ts[0] if len(ts) == 1 else torch.cat(ts, dim)
+
+
+class _LoraGroupDelta(torch.autograd.Function):
+    """The deltas (dropout(x) A_i^T) B_i^T of n >= 1 adapters that read one
+    input x, with one mask for them (`qwen2.py:_lora_drop_delta` :149; a
+    group of n, `_fused_lora_delta` :241). x is dropped by one launch; one
+    product with A = [A_1; ...; A_n] [n r, in] gives every adapter's rank-r
+    projection, and one product with each B_i its delta. The backward
+    regenerates the mask from the seed (x is the only activation saved),
+    takes dA of the group in one product, and drops the one dx by the same
+    mask: three dropout launches for the n adapters. `block` places x in
+    the whole tensor (`kernels/dropout.py`). Inputs after `block`: the n A
+    factors (peft layout [r, in]), then the n B factors ([out_i, r]);
+    returns n deltas."""
+
+    @staticmethod
+    def forward(ctx, x, seed: int, rate: float, block, *factors):
+        n = len(factors) // 2
+        a, bs = _cat(factors[:n]), factors[n:]
+        r = factors[0].shape[0]
+        u = F.linear(dropout(x, seed, rate, block), a)
+        ctx.save_for_backward(x, a, *bs)
+        ctx.seed, ctx.rate, ctx.block, ctx.r = seed, rate, block, r
+        return tuple(F.linear(u[..., i * r:(i + 1) * r], b) for i, b in enumerate(bs))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        x, a, *bs = ctx.saved_tensors
+        r = ctx.r
+        xl = dropout(x, ctx.seed, ctx.rate, ctx.block)    # regenerated
+        xl2 = xl.reshape(-1, xl.shape[-1])
+        u = xl2 @ a.t()                                   # [rows, n r]
+        gb = _cat([g @ b for g, b in zip(gs, bs)], -1)    # [..., n r]
+        da = gb.reshape(-1, gb.shape[-1]).t() @ xl2       # [n r, in]
+        dbs = [g.reshape(-1, g.shape[-1]).t() @ u[:, i * r:(i + 1) * r]
+               for i, g in enumerate(gs)]                 # [out_i, r]
+        dx = dropout(gb @ a, ctx.seed, ctx.rate, ctx.block)   # mask and scale are linear
+        return (dx, None, None, None, *da.split(r), *dbs)
+
+
+def _lora_group(p, lora, names, x, cfg: Qwen2Config, seed=None, tp=None, rows=0):
+    """The column-parallel linears `names` of one input x, each its base
+    output plus its delta of the group (`_LoraGroupDelta`; without dropout
+    the same products, plain). Under `tp` each B is cut to this rank's
+    output rows; x is replicated over tp, so the group's mask is the same
+    on every tp rank."""
+    a = [lora[n]["a"].to(x.dtype) for n in names]
+    b = [lora[n]["b"].to(x.dtype) for n in names]
+    if tp is not None:
+        b = [L.tp_slice(t, 0, tp) for t in b]
+    if seed is not None and cfg.lora_dropout > 0:
+        deltas = _LoraGroupDelta.apply(x, seed, cfg.lora_dropout,
+                                       _drop_block(x, rows, tp, "column"), *a, *b)
+    else:
+        r = a[0].shape[0]
+        u = F.linear(x, torch.cat(a))
+        deltas = [F.linear(u[..., i * r:(i + 1) * r], t) for i, t in enumerate(b)]
+    scale = cfg.lora_alpha / cfg.lora_r
+    return [L.linear(L.tp_params(p[n], "column", tp), x) + scale * d
+            for n, d in zip(names, deltas)]
+
+
+def _grouped(lora, names) -> bool:
+    """Whether the adapters `names` run as one group: the gate on and each
+    of them present (JAX :288-289, :340-341)."""
+    return bool(lora) and all(lora.get(n) is not None for n in names) and gates.lora_fused()
 
 
 def _splitmix64(z: int) -> int:
@@ -256,8 +317,8 @@ def _linear_maybe_lora(p, lora, x, cfg: Qwen2Config, seed=None, tp=None,
         if tp is not None:
             a, b = (a, L.tp_slice(b, 0, tp)) if role == "column" else (L.tp_slice(a, 1, tp), b)
         if seed is not None and cfg.lora_dropout > 0:
-            y = y + scale * _LoraDropDelta.apply(x, a, b, seed, cfg.lora_dropout,
-                                                 _drop_block(x, rows, tp, role))
+            y = y + scale * _LoraGroupDelta.apply(x, seed, cfg.lora_dropout,
+                                                  _drop_block(x, rows, tp, role), a, b)[0]
         else:
             y = y + scale * F.linear(F.linear(x, a), b)
     return L.row_finish(y, p, tp) if tp is not None and role == "row" else y
@@ -275,7 +336,11 @@ def _attn_block(p, lora, x, cfg: Qwen2Config, cos, sin, kv_valid, causal,
         return _linear_maybe_lora(p[name], lora.get(name) if lora else None,
                                   x, cfg, seeds[name] if seeds else None, tp, "column", rows)
 
-    q, k, v = lr("q"), lr("k"), lr("v")
+    if _grouped(lora, ("q", "k", "v")):
+        q, k, v = _lora_group(p, lora, ("q", "k", "v"), x, cfg, seeds["q"] if seeds else None,
+                              tp, rows)
+    else:
+        q, k, v = lr("q"), lr("k"), lr("v")
     nh, nkv = q.shape[-1] // hd, k.shape[-1] // hd      # this rank's heads
     q = L.apply_rope(q.view(B, T, nh, hd), cos, sin)
     k = L.apply_rope(k.view(B, T, nkv, hd), cos, sin)
@@ -306,9 +371,13 @@ def _mlp_block(p, lora, x, cfg: Qwen2Config, seeds=None, tp=None, rows=0):
         return _linear_maybe_lora(p[name], lora.get(name) if lora else None,
                                   inp, cfg, seeds[name] if seeds else None, tp, role, rows)
 
+    if _grouped(lora, ("gate", "up")):
+        xg, xu = _lora_group(p, lora, ("gate", "up"), x, cfg, seeds["gate"] if seeds else None,
+                             tp, rows)
+    else:
+        xg, xu = lr("gate", x, "column"), lr("up", x, "column")
     down = lora.get("down") if lora else None
     if down is not None and seeds is not None and cfg.lora_dropout > 0:
-        xg, xu = lr("gate", x, "column"), lr("up", x, "column")
         a, b = down["a"].to(x.dtype), down["b"].to(x.dtype)
         if tp is not None:
             a = L.tp_slice(a, 1, tp)
@@ -316,7 +385,7 @@ def _mlp_block(p, lora, x, cfg: Qwen2Config, seeds=None, tp=None, rows=0):
         y = y + (cfg.lora_alpha / cfg.lora_r) * _LoraDropDeltaGLU.apply(
             xg, xu, a, b, seeds["down"], cfg.lora_dropout, _drop_block(xg, rows, tp, "row"))
         return y if tp is None else L.row_finish(y, p["down"], tp)
-    return lr("down", F.silu(lr("gate", x, "column")) * lr("up", x, "column"), "row")
+    return lr("down", F.silu(xg) * xu, "row")
 
 
 def _decoder_layer(lp, lo, x, cfg: Qwen2Config, cos, sin, kv_valid, causal,

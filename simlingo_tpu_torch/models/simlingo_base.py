@@ -15,6 +15,11 @@ The ResNet's running BatchNorm statistics sit in the parameter tree at
 read by the normalisation, so they have gradients, and the training step
 updates them as parameters of the "rest" group (AdamW, weight decay
 included), as JAX's optax chain does.
+
+Under tensor parallelism (`tp`, a group of the mesh) CLIP and its
+projector split as `models/clip_vit.py` says and the LLaMA as
+`models/qwen2.py` splits Qwen2; the ResNet, `language_projection`, the
+encodings and the heads run whole on every rank.
 """
 
 from __future__ import annotations
@@ -104,14 +109,15 @@ def init_params(cfg: SimLingoBaseConfig, generator: torch.Generator, device="cud
     return p
 
 
-def vision_tokens(params, pixel_values: torch.Tensor, cfg: SimLingoBaseConfig
+def vision_tokens(params, pixel_values: torch.Tensor, cfg: SimLingoBaseConfig, tp=None
                   ) -> torch.Tensor:
     """pixel_values [B, NP, S, S, 3] -> [B, n_tokens, H] projected tokens.
     The ResNet runs on the B x NP tiles with training=False, as JAX's
-    `vision_tokens` calls it, in training too."""
+    `vision_tokens` calls it, in training too; under `tp` it runs whole on
+    every rank (JAX's rules replicate it), CLIP split."""
     if cfg.encoder == "llavanext":
         feats = clip_vit.llava_features(params["vision"], pixel_values, cfg.clip,
-                                        params["image_newline"])
+                                        params["image_newline"], tp=tp)
         feats = (feats + params["temporal_encoding"].to(feats.dtype)
                  + params["camera_encoding"].to(feats.dtype))
     else:
@@ -125,10 +131,10 @@ def vision_tokens(params, pixel_values: torch.Tensor, cfg: SimLingoBaseConfig
     return feats
 
 
-def _query_states(params, pixel_values, speed, target_points, cfg: SimLingoBaseConfig
-                  ) -> torch.Tensor:
+def _query_states(params, pixel_values, speed, target_points, cfg: SimLingoBaseConfig,
+                  tp=None) -> torch.Tensor:
     """The LLM's final hidden states at the driving queries [B, n_q, H]."""
-    vis = vision_tokens(params, pixel_values, cfg)
+    vis = vision_tokens(params, pixel_values, cfg, tp)
     B = vis.shape[0]
     parts = [vis]
     if cfg.speed_as_input:
@@ -140,26 +146,27 @@ def _query_states(params, pixel_values, speed, target_points, cfg: SimLingoBaseC
     x = torch.cat(parts, dim=1)
     T = x.shape[1]
     pos = torch.arange(T, device=x.device).expand(B, T)
-    hidden, _ = qwen2.forward(params["llm"], x, cfg.llm, pos, causal=True)
+    hidden, _ = qwen2.forward(params["llm"], x, cfg.llm, pos, causal=True, tp=tp)
     return hidden[:, -A.num_queries(params["adaptors"]):]
 
 
 def forward(params, pixel_values: torch.Tensor, speed: torch.Tensor,
-            target_points: torch.Tensor, cfg: SimLingoBaseConfig
+            target_points: torch.Tensor, cfg: SimLingoBaseConfig, tp=None
             ) -> Dict[str, torch.Tensor]:
     """Waypoint / route predictions. speed [B]; target_points [B, P, 2]
-    (the reference feeds two target points)."""
+    (the reference feeds two target points). `tp`: the tp group or None."""
     return A.decode_predictions(params["adaptors"],
                                 _query_states(params, pixel_values, speed,
-                                              target_points, cfg))
+                                              target_points, cfg, tp))
 
 
 def forward_loss(params, pixel_values, speed, target_points, waypoints_label,
-                 route_label, cfg: SimLingoBaseConfig, count_reduce=None
+                 route_label, cfg: SimLingoBaseConfig, count_reduce=None, tp=None
                  ) -> Tuple[TrainingOutput, Dict[str, torch.Tensor]]:
     """Route + speed-waypoint losses; `count_reduce` as
-    `summarise_losses`'s (a rank's share of a multi-GPU batch)."""
-    hidden = _query_states(params, pixel_values, speed, target_points, cfg)
+    `summarise_losses`'s (a rank's share of a multi-GPU batch); `tp`: the
+    tp group (CLIP and the LLaMA split over it) or None."""
+    hidden = _query_states(params, pixel_values, speed, target_points, cfg, tp)
     losses, preds = A.driving_loss(params["adaptors"], hidden,
                                    route_label if cfg.predict_route_as_wps else None,
                                    waypoints_label[:, :A.NUM_SPEED_QUERIES])

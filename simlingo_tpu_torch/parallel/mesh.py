@@ -49,8 +49,12 @@ How each leaf is stored and used (`LeafLayout.tp_use`):
   * "full": replicated and used whole.
 
 One difference from JAX: the port splits whole heads, so tp must divide
-the kv-head count of Qwen2 (2 at full width) and the ViT's heads (16);
-`check_tp` refuses other tp (JAX shards by divisibility alone). A batch
+the kv-head count of Qwen2 (2 at full width) and the ViT's heads (16),
+or SimLingo-Base's CLIP heads (16) and LLaMA heads (8 in `tiny`);
+`check_tp` refuses other tp (JAX shards by divisibility alone). A leaf
+whose split dimension tp does not divide is replicated, as JAX's
+`_shardable` replicates it: SimLingo-Base's `llm/embed/w` [1, 512] (no
+vocabulary) is "full", never read. A batch
 whose rows do not divide over dp x fsdp is refused (JAX replicates it).
 pp must divide the LLM's layer count, as JAX asserts (`check_pp`).
 
@@ -494,13 +498,23 @@ def check_pp(model_cfg, pp: int) -> None:
 
 
 def check_tp(model_cfg, tp: int) -> None:
-    """Refuse a tp the port cannot split by whole heads and widths."""
+    """Refuse a tp the port cannot split by whole heads and widths: of
+    SimLingo's ViT and Qwen2, or of SimLingo-Base's CLIP tower (a config
+    with `clip`; the ResNet, replicated, puts no condition) and LLaMA."""
     if tp == 1:
         return
-    v, q = model_cfg.vit, model_cfg.llm
-    need = {"the ViT's heads": v.num_heads, "the ViT's MLP width": v.intermediate_size,
-            "the projector's width": v.projector_out, "Qwen2's kv heads": q.num_kv_heads,
-            "Qwen2's MLP width": q.intermediate_size}
+    q = model_cfg.llm
+    if hasattr(model_cfg, "clip"):
+        need = {"the LLaMA's heads": q.num_heads}
+        if model_cfg.encoder == "llavanext":
+            c = model_cfg.clip
+            need.update({"CLIP's heads": c.num_heads, "CLIP's MLP width": c.intermediate_size,
+                         "the projector's width": c.projector_hidden})
+    else:
+        v = model_cfg.vit
+        need = {"the ViT's heads": v.num_heads, "the ViT's MLP width": v.intermediate_size,
+                "the projector's width": v.projector_out}
+    need.update({"the LLM's kv heads": q.num_kv_heads, "the LLM's MLP width": q.intermediate_size})
     bad = {k: n for k, n in need.items() if n % tp}
     if bad:
         raise ValueError(f"tp={tp} must divide {bad}: the port splits whole heads and "

@@ -23,10 +23,16 @@ weight_decay every step. The port does the same: they require grad, and a
 leaf whose gradient stays None would take zeros (and the decay) as in JAX.
 This is the reference's behaviour, kept, not a fault to fix here.
 
-Over dp x fsdp (`init_base_state(mesh=...)`; tp is refused, ROADMAP
-A13d, and so are sp and pp, which cut the SimLingo LLM) the state holds
-this rank's shards and the step runs as `train_step.py`'s sharded step,
-each group clipped by its own norm over every rank.
+Over dp x fsdp x tp (`init_base_state(mesh=...)`; sp and pp, which cut
+the SimLingo LLM, are refused, as JAX's `train_base.py:46-47` refuses sp)
+the state holds this rank's shards and the step runs as `train_step.py`'s
+sharded step: CLIP and the LLaMA split over the tp group
+(`models/clip_vit.py`, `models/qwen2.py`; the ResNet replicated), the
+partial gradients of the replicated column biases all-reduced over tp,
+and each group clipped by its own norm over every rank, a replicated leaf
+counted once (`norm_counted`; the ResNet's `bn_state` stays in the "rest"
+group, the same on every tp rank). `parallel/mesh.check_tp` names the tp
+the model splits.
 """
 
 from __future__ import annotations
@@ -62,11 +68,9 @@ class BaseTrainState:
 
 def init_base_state(params, opt_cfg: ts.OptimizerConfig, mesh=None) -> BaseTrainState:
     """With a `mesh` of more than one rank, `params` is the full tree and
-    the state holds this rank's shards (dp x fsdp only)."""
-    if mesh is not None and mesh.shape["tp"] > 1:
-        raise ValueError("SimLingo-Base trains over dp and fsdp; its tp is ROADMAP A13d")
+    the state holds this rank's shards (dp x fsdp x tp)."""
     if mesh is not None and (mesh.shape["sp"] > 1 or mesh.shape["pp"] > 1):
-        raise ValueError("SimLingo-Base trains over dp and fsdp; sp and pp cut the "
+        raise ValueError("SimLingo-Base trains over dp, fsdp and tp; sp and pp cut the "
                          "SimLingo LLM's sequence and layers only")
     params, lays = ts.shard_for_mesh(params, mesh)
     params = ts.map_leaves(lambda _, x: x.detach().requires_grad_(True), params)
@@ -106,7 +110,8 @@ def make_base_train_step(model_cfg: SimLingoBaseConfig, opt_cfg: ts.OptimizerCon
                                                    trainable, compute_dtype)
             out, _ = simlingo_base.forward_loss(
                 tree, *batch, model_cfg,
-                count_reduce=mesh.comm["batch"].all_reduce if mesh.batch_size > 1 else None)
+                count_reduce=mesh.comm["batch"].all_reduce if mesh.batch_size > 1 else None,
+                tp=mesh.tp)
             out.loss.backward()
             del tree
             reduced = ts.reduce_sharded_grads(leaves, state.layouts, mesh)

@@ -42,7 +42,7 @@ the step's ms, its batch's host ms and the prefetch wait.
 `base_batch` a step from `RandomState(seed)`, the two-group step of
 `train/base_step.py`, and a final checkpoint where `output_dir` is set;
 over dp x fsdp each rank draws the global batch of batch_size x dp x fsdp
-rows and keeps its own.
+rows and keeps its own; tp ranks share their data rank's rows.
 """
 
 from __future__ import annotations
@@ -517,6 +517,7 @@ def train_base(cfg: BaseTrainConfig, params: Optional[Dict[str, Any]] = None,
     say = print if primary else (lambda *a, **k: None)
     say(f"gates {gates.resolved()}", flush=True)
     compute_dtype = torch.bfloat16 if cfg.precision == "bf16" else torch.float32
+    meshlib.check_tp(cfg.model, mesh.shape["tp"])
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(cfg.seed)
         params = simlingo_base.init_params(cfg.model, gen, device=dev)
@@ -526,7 +527,8 @@ def train_base(cfg: BaseTrainConfig, params: Optional[Dict[str, Any]] = None,
     del params
     say(f"params {sum(sizes.values()):.2f} M (vision {sizes['vision']:.2f} M at lr x "
         f"{base_step.VISION_LR_SCALE}, rest {sizes['rest']:.2f} M)"
-        + (f"; mesh dp={mesh.shape['dp']} fsdp={mesh.shape['fsdp']}" if mesh.world > 1 else ""),
+        + (f"; mesh dp={mesh.shape['dp']} fsdp={mesh.shape['fsdp']} tp={mesh.shape['tp']}"
+           if mesh.world > 1 else ""),
         flush=True)
     step_fn = base_step.make_base_train_step(cfg.model, cfg.optimizer, compute_dtype)
     total = cfg.max_steps if cfg.max_steps > 0 else 100

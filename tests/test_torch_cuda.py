@@ -19,7 +19,9 @@ over up to T terms; at SimLingo-Base's shapes, with rows that see one
 to a few keys, at the rounding bound of `chip_smoke.py` instead, 2^-8
 (sum |terms| + |ref|). The dropout kernel equals its plain version bit for
 bit, at a rank's blocks of a multi-GPU step too (dp rows, tp columns, sp
-slabs), where its mask is the one-process mask cut to the block. The ring
+slabs), where its mask is the one-process mask cut to the block, and
+in a fused LoRA group, one launch for the group's input and two in its
+backward. The ring
 of sequence parallelism (its ranks on threads) launches both attention
 kernels a chunk; its output agrees with its plain recurrence at the
 forward's tolerance above, its gradients (sums of fp32 chunk partials,
@@ -688,6 +690,37 @@ def test_dropout_kernel_segments_are_the_one_process_mask(gpu, shape, block):
     whole = TD.keep_mask((int(rows.max()) + 1) * width, seed, 0.1, gpu).view(-1, width)
     keep = TD.dropout(torch.ones_like(x), seed, 0.1, block) != 0
     assert torch.equal(keep.reshape(len(r), -1), whole[rows, col0:col0 + shape[-1]])
+
+
+@pytest.mark.cuda
+def test_fused_lora_group_drops_its_input_once(gpu, monkeypatch):
+    """The q / k / v group of SIMLINGO_LORA_FUSED=1 (`qwen2._LoraGroupDelta`)
+    at the training path's [6, 798, 896]: one dropout launch in the
+    forward and two in the backward (the regenerated mask, dx), each equal
+    to `dropout_plain` of its input bit for bit, the backward's mask the
+    forward's."""
+    from simlingo_tpu_torch.models import qwen2 as TQ
+    g = torch.Generator(device=gpu).manual_seed(8)
+    x = torch.randn(6, 798, 896, generator=g, device=gpu).bfloat16().requires_grad_(True)
+    outs = (896, 128, 128)                       # q, k, v of Qwen2-0.5B, LoRA r 32
+    a = [(torch.randn(32, 896, generator=g, device=gpu) * 0.03).bfloat16().requires_grad_(True)
+         for _ in outs]
+    b = [(torch.randn(n, 32, generator=g, device=gpu) * 0.03).bfloat16().requires_grad_(True)
+         for n in outs]
+    seed, rate = 0x0F1E_2D3C_4B5A_6978, 0.1
+    calls = []
+    monkeypatch.setattr(TQ, "dropout", lambda t, *args: calls.append(
+        (t.detach().clone(), args, TD.dropout(t, *args))) or calls[-1][2])
+    before = TD.dropout.launches
+    deltas = TQ._LoraGroupDelta.apply(x, seed, rate, None, *a, *b)
+    assert TD.dropout.launches == before + 1 and len(deltas) == 3
+    sum((d.float() * (i + 1)).sum() for i, d in enumerate(deltas)).backward()
+    assert TD.dropout.launches == before + 3 and len(calls) == 3
+    for inp, args, out in calls:
+        assert args == (seed, rate, None)
+        assert torch.equal(out, TD.dropout_plain(inp, seed, rate))
+    assert torch.equal(calls[1][2], calls[0][2])            # the mask regenerated
+    assert x.grad is not None and all(t.grad is not None for t in a + b)
 
 
 def _ring_inputs(gpu, B, slab, HQ, HK, n, seed=9, D=64):

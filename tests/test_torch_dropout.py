@@ -84,7 +84,7 @@ def _lora_inputs(seed=0, B=2, T=5, din=24, dout=16, r=4):
 def test_lora_drop_delta_matches_autograd_with_explicit_mask():
     x, _, a, b, g = _lora_inputs()
     seed, rate = 11, 0.25
-    got = tq._LoraDropDelta.apply(x, a, b, seed, rate)
+    got = tq._LoraGroupDelta.apply(x, seed, rate, None, a, b)[0]     # one adapter
     keep = TD.keep_mask(x.numel(), seed, rate).view(x.shape)
     want = F.linear(F.linear(torch.where(keep, x * TD.inv_keep(rate), 0.0), a), b)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)

@@ -16,15 +16,17 @@ JAX runs here on the 8 virtual CPU devices. Four spawns:
     and tp = 2 losses equal the one-process loss of the same seed (1e-5:
     the masks are the one-process masks restricted to each block); and
     SimLingo-Base's two-group step at dp = 2 and fsdp = 2 against JAX's
-    `train_base.py` step on the same mesh (2e-4); the trainer's bf16 tp = 2
-    step against `chip_smoke.py`'s tp control;
+    `train_base.py` step on the same mesh (2e-4) and at tp = 2 against
+    JAX's step on a tp = 2 mesh; with SIMLINGO_LORA_FUSED=1 the tp = 2
+    dropout loss equals the one-process fused loss; the trainer's bf16
+    tp = 2 step against `chip_smoke.py`'s tp control;
   * 2 ranks, the trainer on routes on disk: each rank's collated batch
     equals JAX's per-process batch at process_count 2 (`trainer.py:334-346`)
     exactly; a run resumed at world 2 from a world-2 checkpoint equals the
     straight run bit for bit; that checkpoint restores at world 1 to the
     gathered state exactly.
-sp and pp accepted, the refusals (an indivisible tp, SimLingo-Base's tp, sp
-and pp) and the dropout blocks need no spawn (sp and pp themselves:
+sp and pp accepted, the refusals (an indivisible tp, SimLingo-Base's sp and
+pp; its tp = 2 accepted) and the dropout blocks need no spawn (sp and pp themselves:
 tests/test_torch_{sequence,pipeline}_parallel.py).
 """
 
@@ -218,11 +220,14 @@ def test_dp2_rows_with_different_answer_counts(steps, jax_lora_steps):
     _check_steps(steps["got"]["thin_dp2"], metrics, final)
 
 
-def test_lora_dropout_masks_match_one_process(steps):
+def test_lora_dropout_masks_match_one_process(steps, monkeypatch):
     """LoRA dropout 0.1 at one seed: the dp = 2 and tp = 2 losses equal the
     one-process loss, which they do only where every rank drew the
     one-process mask of its block (rows for dp; rows and, at o / down,
-    columns for tp)."""
+    columns for tp); with SIMLINGO_LORA_FUSED=1 the tp = 2 loss equals
+    the one-process fused loss (a group's mask is the same on both
+    ranks)."""
+    monkeypatch.delenv("SIMLINGO_LORA_FUSED", raising=False)
     cfg, params = steps["lora"]
     pcfg = _port_cfg(dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm,
                                                                        lora_dropout=0.1)))
@@ -237,6 +242,18 @@ def test_lora_dropout_masks_match_one_process(steps):
         np.testing.assert_allclose(got["loss"], float(want.loss), rtol=1e-5, err_msg=mesh)
         for k, v in want.loss_averages.items():
             np.testing.assert_allclose(got[k], float(v), rtol=1e-5, err_msg=f"{mesh} {k}")
+    # the fused LoRA groups: one mask a group, the same on both tp ranks
+    os.environ["SIMLINGO_LORA_FUSED"] = "1"
+    try:
+        with torch.no_grad():
+            fused, _ = tsim.forward_loss(tree, ex, pcfg, dropout_seed=1234)
+    finally:
+        os.environ.pop("SIMLINGO_LORA_FUSED")
+    assert abs(float(fused.loss) - float(want.loss)) > 1e-6      # the masks changed
+    got = steps["got"]["drop_tp2_fused"]
+    np.testing.assert_allclose(got["loss"], float(fused.loss), rtol=1e-5)
+    for k, v in fused.loss_averages.items():
+        np.testing.assert_allclose(got[k], float(v), rtol=1e-5, err_msg=f"tp2 fused {k}")
 
 
 @pytest.mark.parametrize("mesh", ["dp2", "tp2"])
@@ -283,13 +300,13 @@ def test_chip_smoke_tp_control_reproduces_the_tp2_forward(steps):
     assert abs(got - control) <= 0.1 * abs(control - plain), (got, control, plain)
 
 
-@pytest.mark.parametrize("mesh", ["dp2", "fsdp2"])
+@pytest.mark.parametrize("mesh", ["dp2", "fsdp2", "tp2"])
 def test_base_two_group_steps_match_jax_on_the_same_mesh(steps, mesh):
     cfg, params = steps["base"]
     opt = _optax_chain(params, jts.OptimizerConfig(**BASE_OPT))
     loss_fn = _jax_loss(cfg)
     jm_ = jmesh.make_mesh(dp=2 if mesh == "dp2" else 1, fsdp=2 if mesh == "fsdp2" else 1,
-                          tp=1, devices=jax.devices()[:2])
+                          tp=2 if mesh == "tp2" else 1, devices=jax.devices()[:2])
     p = jmesh.shard_params(params, jm_)
     o = opt.init(p)
 
@@ -310,6 +327,41 @@ def test_base_two_group_steps_match_jax_on_the_same_mesh(steps, mesh):
     got = steps["got"][f"base_{mesh}"]
     _check_steps(got, want, _flat_port(jax.device_get(p)),
                  keys=("loss", "route_loss", "speed_wps_loss"))
+
+
+def test_chip_smoke_base_tp_control_reproduces_the_base_tp2_steps(steps):
+    """chip_smoke.py holds `base_tp2` to its `tp` control
+    (`base_tp_control`: SimLingo-Base's one-process step with CLIP and the
+    LLaMA on their tp code paths, each split product cut in two). Here, in
+    fp32 on the tiny config, the control's three steps equal the world-2
+    tp = 2 steps at 1e-5, and they ran the cut products."""
+    import chip_smoke
+    from simlingo_tpu_torch.data.synthetic import base_batch
+    from simlingo_tpu_torch.models import layers as L
+    from simlingo_tpu_torch.models.simlingo_base import SimLingoBaseConfig
+    from simlingo_tpu_torch.train import base_step
+    _, params = steps["base"]
+    cfg, opt = SimLingoBaseConfig.tiny(), ts.OptimizerConfig(**BASE_OPT)
+    state = base_step.init_base_state(params_from_jax(params, device="cpu"), opt)
+    step = base_step.make_base_train_step(cfg, opt, torch.float32)
+    rng = np.random.RandomState(3)
+    roles = []
+    with chip_smoke.base_tp_control(torch):
+        split = L.linear
+        L.linear = lambda p, x: roles.append(p.get("tp2_role")) or split(p, x)
+        try:
+            metrics = [{k: float(v) for k, v in step(state, base_batch(
+                rng, 4, cfg.clip.image_size, device="cpu")).items()} for _ in range(3)]
+        finally:
+            L.linear = split
+    assert {"row", "column"} <= set(roles)
+    got = steps["got"]["base_tp2"]
+    for m, g in zip(metrics, got["metrics"]):
+        for k in ("loss", "grad_norm_vision", "grad_norm_rest"):
+            np.testing.assert_allclose(m[k], g[k], rtol=1e-5, err_msg=k)
+    for path, x in ts.flatten(state.params).items():
+        np.testing.assert_allclose(x.detach().numpy(), got["params"][path].numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=path)
 
 
 # ---------------------------------------------------------------------------
@@ -415,8 +467,9 @@ def test_disk_checkpoint_of_world_2_restores_at_world_1(disk):
 
 def test_sp_pp_and_indivisible_tp_are_refused():
     """sp and pp compose with dp, fsdp and tp and are accepted (sizes below
-    1 are not); an indivisible tp, and SimLingo-Base's tp (ROADMAP A13d),
-    sp and pp, are refused."""
+    1 are not); an indivisible tp is refused, and so are SimLingo-Base's sp
+    and pp. SimLingo-Base takes tp = 2 on its tiny config and refuses a tp
+    that does not divide its heads (CLIP 4, the `debug` LLaMA 2)."""
     for good in (["mesh.sp=2"], ["mesh.pp=2"], ["mesh.sp=2", "mesh.pp=2"],
                  ["mesh.dp=2", "mesh.fsdp=2", "mesh.tp=2", "mesh.sp=2", "mesh.pp=2",
                   "mesh.pp_microbatches=4"]):
@@ -434,9 +487,15 @@ def test_sp_pp_and_indivisible_tp_are_refused():
         M.check_tp(tsim.SimLingoConfig(), 4)
     with pytest.raises(ValueError, match="processes"):
         M.make_mesh(2, 1, 1, device="cpu")  # one process here
+    from simlingo_tpu_torch.models.simlingo_base import SimLingoBaseConfig
     from simlingo_tpu_torch.train import base_step
-    with pytest.raises(ValueError, match="A13d"):
-        base_step.init_base_state({}, ts.OptimizerConfig(), mesh=M.Mesh(1, 1, 2))
+    base_step.init_base_state({}, ts.OptimizerConfig(), mesh=M.Mesh(1, 1, 2))
+    tiny = SimLingoBaseConfig.tiny()
+    M.check_tp(tiny, 2)
+    with pytest.raises(ValueError, match="whole heads") as err:
+        M.check_tp(tiny, 4)
+    assert "the LLaMA's heads" in str(err.value) and "CLIP" not in str(err.value)
+    M.check_tp(SimLingoBaseConfig(), 2)
     for mesh in (M.Mesh(1, 1, 1, sp=2), M.Mesh(1, 1, 1, pp=2)):
         with pytest.raises(ValueError, match="sp and pp"):
             base_step.init_base_state({}, ts.OptimizerConfig(), mesh=mesh)

@@ -7,7 +7,8 @@ is tested in test_torch_dropout.py. Compared: the synthetic batch (exact),
 the bridged LoRA tree, `forward_loss` (per-key losses and total at 2e-4),
 the trainable gradients (rtol 2e-4, atol 2e-4 max|g| per leaf), the
 OneCycle schedule, and three AdamW/OneCycle steps of `make_train_step`
-(params at 2e-4); the last three again with both fused-kernel gates on.
+(params at 2e-4); the last three again with both fused-kernel gates on,
+and again with the fused LoRA groups (SIMLINGO_LORA_FUSED=1).
 """
 
 import dataclasses
@@ -26,6 +27,7 @@ from simlingo_tpu_torch.core.from_jax import example_from_jax, params_from_jax
 from simlingo_tpu_torch.data.synthetic import synthetic_example
 from simlingo_tpu_torch.models import adaptors as TA
 from simlingo_tpu_torch.models import layers as TL
+from simlingo_tpu_torch.models import qwen2 as TQ
 from simlingo_tpu_torch.models import simlingo as tsim
 from simlingo_tpu_torch.models.qwen2 import Qwen2Config
 from simlingo_tpu_torch.models.vit import ViTConfig
@@ -201,16 +203,29 @@ def _check_three_train_steps(setup):
     assert moved > 1e-3, moved                   # the updates were applied
 
 
-@pytest.mark.parametrize("check", ["forward_loss", "grads", "steps"])
-def test_gated_slice_tracks_jax(setup, monkeypatch, check):
-    """The same comparisons with SIMLINGO_CE_IMPL=pallas and
-    SIMLINGO_LN_IMPL=pallas in both packages: JAX runs its Pallas kernels
-    (interpret mode), the port the plain versions of its kernels."""
-    monkeypatch.setenv("SIMLINGO_CE_IMPL", "pallas")
-    monkeypatch.setenv("SIMLINGO_LN_IMPL", "pallas")
+GATED_CASES = [(check, gate) for gate in ("kernels", "lora_fused")
+               for check in ("forward_loss", "grads", "steps")]
+
+
+@pytest.mark.parametrize("check,gate", GATED_CASES,
+                         ids=[c if g == "kernels" else f"{c}-{g}" for c, g in GATED_CASES])
+def test_gated_slice_tracks_jax(setup, monkeypatch, check, gate):
+    """The same comparisons with a gate set in both packages. "kernels":
+    SIMLINGO_CE_IMPL=pallas and SIMLINGO_LN_IMPL=pallas, where JAX runs
+    its Pallas kernels (interpret mode) and the port the plain versions of
+    its kernels. "lora_fused": SIMLINGO_LORA_FUSED=1, where both run the
+    q / k / v and gate / up adapters as groups (JAX's `_fused_lora_delta`,
+    the port's `_lora_group`)."""
     calls = []
-    for module, name in ((TL.fused_norm, "layernorm_fused"),
-                         (TL.fused_norm, "rmsnorm_fused"), (TA, "fused_ce")):
+    if gate == "kernels":
+        monkeypatch.setenv("SIMLINGO_CE_IMPL", "pallas")
+        monkeypatch.setenv("SIMLINGO_LN_IMPL", "pallas")
+        hooks = ((TL.fused_norm, "layernorm_fused"), (TL.fused_norm, "rmsnorm_fused"),
+                 (TA, "fused_ce"))
+    else:
+        monkeypatch.setenv("SIMLINGO_LORA_FUSED", "1")
+        hooks = ((TQ, "_lora_group"),)
+    for module, name in hooks:
         real = getattr(module, name)
         monkeypatch.setattr(module, name, lambda *a, _n=name, _f=real:
                             calls.append(_n) or _f(*a))
@@ -220,7 +235,7 @@ def test_gated_slice_tracks_jax(setup, monkeypatch, check):
         _check_trainable_grads(setup)
     else:
         _check_three_train_steps(setup)
-    assert {"layernorm_fused", "rmsnorm_fused", "fused_ce"} <= set(calls)
+    assert {name for _, name in hooks} <= set(calls)
 
 
 def test_trainer_runs_synthetic_overrides_on_cpu(setup, capsys):

@@ -262,23 +262,26 @@ def case_steps(rank, world, workdir):
         out[name] = dict(metrics=metrics, params=_gathered(state),
                          local_rows=int(local.driving_input.prompt.ids.shape[0]))
 
-    # 3. LoRA dropout 0.1 on: one forward at dp2 and tp2 (masks placed by block)
+    # 3. LoRA dropout 0.1 on: one forward at dp2 and tp2 (masks placed by
+    #    block), and at tp2 with the fused LoRA groups (SIMLINGO_LORA_FUSED=1)
     dcfg = _port_model(dict(lora_r=4, lora_alpha=8, lora_dropout=0.1))
-    for name in ("dp2", "tp2"):
-        mesh = mesh_of(name)
+    for name in ("dp2", "tp2", "tp2_fused"):
+        mesh = mesh_of(name.replace("_fused", ""))
         state = ts.init_train_state(params_from_jax(lparams, device="cpu"), opt, mesh=mesh)
         tree, _ = ts.sharded_compute_tree(state.params, state.layouts, mesh, {}, torch.float32)
+        os.environ["SIMLINGO_LORA_FUSED"] = "1" if name.endswith("_fused") else "0"
         with torch.no_grad():
             o, _ = tsim.forward_loss(tree, M.put_batch(lex, mesh), dcfg, dropout_seed=1234,
                                      mesh=mesh)
+        os.environ.pop("SIMLINGO_LORA_FUSED")
         out[f"drop_{name}"] = {k: float(v) for k, v in ts.reduce_metrics(
             dict(o.loss_averages, loss=o.loss), mesh).items()}
 
-    # 4. SimLingo-Base: three two-group steps at dp2 and fsdp2
+    # 4. SimLingo-Base: three two-group steps at dp2, fsdp2 and tp2
     bcfg = tbase.SimLingoBaseConfig.tiny()
     bparams = load_tree(os.path.join(workdir, "base.npz"))
     bopt = ts.OptimizerConfig(**spec["base_opt"])
-    for name in ("dp2", "fsdp2"):
+    for name in ("dp2", "fsdp2", "tp2"):
         mesh = mesh_of(name)
         state = base_step.init_base_state(params_from_jax(bparams, device="cpu"), bopt,
                                           mesh=mesh)

@@ -18,7 +18,10 @@ and batch 16 (`presets.simlingo_base()`). The run writes
 `checkpoints/` there (core/checkpoint.py), output_dir `outputs` by
 default; `output_dir=` (empty) writes nothing. Only `--synthetic` exists:
 `train_base.py` draws synthetic batches on every run too. Under torchrun
-or SLURM it trains over `mesh.dp` x `mesh.fsdp` (tp is refused).
+or SLURM it trains over `mesh.dp` x `mesh.fsdp` x `mesh.tp` (CLIP and the
+LLaMA split over tp; sp and pp are refused):
+
+    torchrun --nproc-per-node 2 train_base_torch.py --synthetic mesh.tp=2
 """
 
 import argparse
