@@ -10,11 +10,12 @@
     python3 chip_smoke.py --attn-sweep  # the attention forward at forced plans
     python3 chip_smoke.py --norm-sweep  # the norm kernels at forced plans
     python3 chip_smoke.py --disk        # training from disk with checkpoints, the
-                                        # leaderboard plugin, the evaluation and
-                                        # the microsim only
+                                        # leaderboard plugin, the evaluation, the
+                                        # microsim and the expert collection only
     python3 chip_smoke.py --mesh        # the multi-GPU training phase only
     python3 chip_smoke.py --lora-fused  # phase 5's ungated run and train_lora_fused
     python3 chip_smoke.py --microsim    # the closed-loop microsim phase only
+    python3 chip_smoke.py --collect     # the expert-collection phase (10b) only
     python3 chip_smoke.py --base [CELL ...]  # the small SimLingo-Base agreement and
                                         # the base cells' phases only (base,
                                         # base_wide, base_resnet)
@@ -243,13 +244,29 @@ Phases, in order; any failure exits non-zero:
      start_eval_torch.py --microsim builds (MICROSIM_JOB) run by the
      babysitter and merged by start_eval_torch.summarize (merge_route_dir,
      merged.json), failing on a failed or retried job;
+ 10b. expert data collection (`collect`, in phase 7's workspace, on its
+     .pt): the port's sim/runner.ExpertDriver collects COLLECT_ROUTES (a
+     parked obstacle; an NPC ahead in the ego's lane) with the default
+     1024x512 camera, data_save_freq 5, seed 0, into the trainer's Town*
+     layout: each route's ticks, saved frames, status (Completed or
+     Perfect) and tick ms p50 / max split into expert, camera and write,
+     both routes through data/index's quality gate; trainer.train on them
+     (configs/simlingo.yaml, JAX's default model, batch 6, the language
+     tasks and the dreamer mix off) for COLLECT_STEPS steps: ms a step,
+     peak memory, finite losses, attention launches a step exactly as
+     train_launches_per_step reckons them (`collect_train`); then
+     agent/replay.replay_route of the first route through
+     sim/suite.load_model_agent (the default AgentConfig, bf16) for
+     REPLAY_FRAMES frames: each frame's ms and launches exactly as
+     serve_launches reckons them, beside phase 8's ticks, and the agent's
+     controls beside the expert's (`collect_replay`);
  11. the {"kernels": [...]} line (eleven kernels, launches per path: serve,
      serve_gated, serve_int4, train, train_gated, train_int8,
      train_remat_<mode>, train_lora_fused, mesh_dp2 / mesh_fsdp2 /
      mesh_tp2 / mesh_sp2 / mesh_pp2 / base_tp2 (both ranks'),
      the base cells' <cell>_fwd,
      <cell>_train and <cell>_train_gated, train_disk, carla_plugin,
-     eval_language, microsim; the attention kernels also each built head dim's
+     eval_language, microsim, collect_train, collect_replay; the attention kernels also each built head dim's
      instance at a phase-2 case and the base paths' launches by head dim),
      the nvidia-smi line, and the last line {"ok": true, "device": {...}}.
 Per-case results also go to chiprun_out/chip_smoke_cases.json, the paths'
@@ -259,12 +276,14 @@ chip_smoke_train_int8.json, chip_smoke_train_remat_<mode>.json,
 chip_smoke_train_lora_fused.json, chip_smoke_mesh_training.json (the ranks'
 logs chip_smoke_mesh_rank*.log),
 chip_smoke_<cell>_{fwd,train,train_gated}.json, chip_smoke_train_disk.json,
-chip_smoke_carla_plugin.json, chip_smoke_eval_language.json and
-chip_smoke_microsim.json. `--disk` runs the build and phases 7-10 alone,
+chip_smoke_carla_plugin.json, chip_smoke_eval_language.json,
+chip_smoke_microsim.json and chip_smoke_collect.json. `--disk` runs the
+build and phases 7-10b alone,
 `--base` the build, the small SimLingo-Base agreement and phase 6, `--mesh`
 the build and phase 5b, `--lora-fused` the build, phase 5's ungated run
 and `train_lora_fused`, `--microsim` the build and phase 10 on a random
-trained-SimLingo checkpoint written as phase 7 writes it.
+trained-SimLingo checkpoint written as phase 7 writes it, `--collect` the
+build and phase 10b on such a checkpoint.
 """
 
 from __future__ import annotations
@@ -4130,15 +4149,20 @@ def serve_launches(m, gen_len, rounds=None, bits=8):
     """The hand kernels' launches of one serving frame of the int8 agent
     (bits=8) or the int4 agent (bits=4), reckoned from its work. LLM
     passes: the prefill, each decode step (plain: gen_len of them) or each
-    speculative round and the flush, and the queries. flash_attn_fwd: a
-    launch a ViT layer (both tiles in one call) and a launch an LLM layer a
-    pass. int8_matmul: a launch a quantized linear of a layer a pass, and
-    one for the head each time logits are taken (plain: before each decode
-    step; speculative: after the prefill and each round); none for int4,
-    whose product is plain PyTorch."""
+    speculative round and the flush, and the queries; a drive-only frame
+    (gen_len None: no commentary) one pass, the prompt with the queries.
+    flash_attn_fwd: a launch a ViT layer (both tiles in one call) and a
+    launch an LLM layer a pass. int8_matmul: a launch a quantized linear of
+    a layer a pass, and one for the head each time logits are taken
+    (plain: before each decode step; speculative: after the prefill and
+    each round; drive-only: never); none for int4, whose product is plain
+    PyTorch."""
     from simlingo_tpu_torch.core.quantize import _LLM_LINEARS
-    llm_passes = 1 + (gen_len if rounds is None else rounds + 1) + 1
-    heads = gen_len if rounds is None else rounds + 1
+    if gen_len is None:
+        llm_passes, heads = 1, 0
+    else:
+        llm_passes = 1 + (gen_len if rounds is None else rounds + 1) + 1
+        heads = gen_len if rounds is None else rounds + 1
     return {"flash_attn_fwd": m.vit.num_layers + m.llm.num_layers * llm_passes,
             "int8_matmul": (len(_LLM_LINEARS) * m.llm.num_layers * llm_passes + heads
                             if bits == 8 else 0)}
@@ -4618,6 +4642,258 @@ def microsim(torch, dev, hf_path, work, plugin=None):
                              summary=summary))
 
 
+# ---------------------------------------------------------------------------
+# Phase 10b: expert data collection in the microsim, trained on and replayed
+# ---------------------------------------------------------------------------
+
+# the two collected routes (seed 0, the default 1024x512 camera,
+# data_save_freq 5): a parked obstacle the expert bypasses, and an NPC
+# ahead in the ego's lane (lane 0) at 5 m/s
+COLLECT_ROUTES = (
+    {"town": "straight", "start_s": 5.0, "end_s": 120.0, "route_id": "collect_obstacle",
+     "scenarios": [{"type": "ParkedObstacle", "at_s": 70.0}]},
+    {"town": "straight", "start_s": 5.0, "end_s": 120.0, "route_id": "collect_npc",
+     "npcs": [{"at_s": 35.0, "lane": 0, "speed": 5.0}]})
+COLLECT_LAYOUT = "data/simlingo/v1/b0/routes_training"     # the trainer's Town* layout
+COLLECT_STEPS = 3                        # training on them: 1 warm-up + 2 timed steps
+REPLAY_FRAMES = 4                        # the first plain CoT, then speculative
+
+
+def collect_routes(work):
+    """(ok, stats, dataset root): COLLECT_ROUTES through the port's
+    `sim/runner.expert_factory` (ExpertDriver + DataCollector), each
+    tick's host ms split into expert (the scenarios, AutoPilot and the
+    observation), camera (the RGB and augmented renders of a save tick)
+    and write (the collector's files), beside the world's own tick; then
+    the index's quality gate."""
+    from simlingo_tpu_torch.data.index import build_index, route_passes_quality_gate
+    from simlingo_tpu_torch.sim import runner as R
+    tag = "[collect]"
+    root = os.path.join(work, "collect_db")
+    ok, routes = True, {}
+    for spec in COLLECT_ROUTES:
+        name = f"Town12_{spec['route_id']}"
+        ticks, cur = [], {}
+        factory = R.expert_factory(save_root=os.path.join(root, COLLECT_LAYOUT), seed=0,
+                                   dir_name_fmt=name)
+
+        def timed(key, fn):
+            def call(*a, **kw):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    cur[key] = cur.get(key, 0.0) + (time.perf_counter() - t) * 1e3
+            return call
+
+        def make(world, route, scen, factory=factory):
+            driver = factory(world, route, scen)
+            driver.camera.render = timed("camera_ms", driver.camera.render)
+            driver.collector.expert.tick = timed("autopilot_ms", driver.collector.expert.tick)
+            driver.collector.tick = timed("collector_ms", driver.collector.tick)
+            step = driver.step
+
+            def timed_step():
+                cur.clear()
+                cur["t0"] = time.perf_counter()
+                out = step()
+                cur["t_step"] = time.perf_counter()
+                return out
+            driver.step = timed_step
+            return driver
+
+        def on_tick(world, criteria):
+            t = time.perf_counter()
+            step_ms = (cur["t_step"] - cur["t0"]) * 1e3
+            camera, write = cur.get("camera_ms", 0.0), cur["collector_ms"] - cur["autopilot_ms"]
+            ticks.append(dict(ms=(t - cur["t0"]) * 1e3, expert_ms=step_ms - camera - write,
+                              camera_ms=camera, write_ms=write, world_ms=(t - cur["t_step"]) * 1e3,
+                              saved="camera_ms" in cur))
+
+        t0 = time.perf_counter()
+        rec = R.run_route(spec, make, seed=0, on_tick=on_tick)
+        wall_s = time.perf_counter() - t0
+        path = os.path.join(root, COLLECT_LAYOUT, name)
+        frames = len(os.listdir(os.path.join(path, "rgb")))
+        # tick 0 is left out of the split: it pays the process's first
+        # imports (the IDM's scipy RK45 where an actor leads: ~1.7 s)
+        saved = [t for t in ticks[1:] if t["saved"]]
+        split = {k: _p50_max([t[k] for t in ticks[1:]]) for k in ("ms", "expert_ms", "world_ms")}
+        split.update({k: _p50_max([t[k] for t in saved]) for k in ("camera_ms", "write_ms")})
+        gate = route_passes_quality_gate(path)
+        good = (rec["status"] in ("Completed", "Perfect") and gate
+                and frames == len(saved) + ticks[0]["saved"]
+                and frames == -(-len(ticks) // 5)
+                and len(os.listdir(os.path.join(path, "rgb_augmented"))) == frames
+                and len(os.listdir(os.path.join(path, "measurements"))) == frames)
+        ok &= good
+        routes[name] = dict(record=rec, ticks=len(ticks), frames=frames, wall_s=wall_s,
+                            split_p50_max=split, first_tick=ticks[0], gate=gate,
+                            totals={k: sum(t[k] for t in ticks)
+                                    for k in ("expert_ms", "camera_ms", "write_ms", "world_ms")})
+        log(f"{tag} {name}: {len(ticks)} ticks in {wall_s:.1f} s, {frames} frames saved, status "
+            f"{rec['status']!r}, scores {rec['scores']}, infractions "
+            f"{ {k: len(v) for k, v in rec['infractions'].items() if v} }, quality gate "
+            f"{'passed' if gate else 'FAILED'} {'OK' if good else 'FAIL'}")
+        first = ticks[0]
+        log(f"{tag} {name} the first tick {first['ms']:.2f} ms (expert {first['expert_ms']:.2f}, "
+            f"camera {first['camera_ms']:.2f}, write {first['write_ms']:.2f}) left out; the "
+            f"others' p50 / max ms: tick {split['ms'][0]:.2f} / {split['ms'][1]:.2f} = "
+            f"expert {split['expert_ms'][0]:.2f} / {split['expert_ms'][1]:.2f} (every tick) + "
+            f"camera {split['camera_ms'][0]:.2f} / {split['camera_ms'][1]:.2f} + write "
+            f"{split['write_ms'][0]:.2f} / {split['write_ms'][1]:.2f} (the {len(saved)} save "
+            f"ticks; the others render and write nothing) + world {split['world_ms'][0]:.2f} / "
+            f"{split['world_ms'][1]:.2f}; totals {json.dumps({k: round(v, 1) for k, v in routes[name]['totals'].items()})}")
+    idx = build_index(root, split="train", use_town13=False, pred_len=11)
+    kept = sorted({os.path.basename(os.fsdecode(r)) for r in idx.route_dirs})
+    good = kept == sorted(routes)
+    ok &= good
+    log(f"{tag} build_index kept {kept}, {len(idx)} samples {'OK' if good else 'FAIL'}")
+    return ok, dict(routes=routes, index_samples=len(idx), index_routes=kept), root
+
+
+def collect_training(torch, dev, root):
+    """`trainer.train` on the collected routes at full width: configs/
+    simlingo.yaml (JAX's default model, SimLingoConfig(); batch 6), the
+    language tasks and the dreamer mix switched off (their labels come
+    with the label generators), COLLECT_STEPS steps: ms a step over the
+    timed ones, peak memory, finite losses, and the hand kernels' launches
+    a step held exactly to `train_launches_per_step`."""
+    from simlingo_tpu_torch.core.config import compose
+    from simlingo_tpu_torch.train import trainer
+    tag = "[collect_train]"
+    kernels = kernel_fns()
+    cfg = compose("configs/simlingo.yaml", [
+        f"data.data_root={root}", "data.base.use_town13=false",
+        "data.base.use_commentary=false", "data.base.use_qa=false", "data.use_dreamer=false",
+        f"max_steps={COLLECT_STEPS}", "val_every_n_epochs=0", "data.num_workers=8",
+        "log_every_n_steps=1", "visualise_every_n_steps=0", "output_dir=", "name=collect"])
+    m = cfg.model
+    per_step = []
+
+    def count_steps(step, _):
+        if step == 0:
+            torch.cuda.synchronize()
+            for fn in kernels.values():
+                fn.launches = 0
+        elif step == COLLECT_STEPS - 1:
+            per_step.append({k: fn.launches / (COLLECT_STEPS - 1) for k, fn in kernels.items()
+                             if fn.launches})
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = trainer.train(cfg, device=dev, after_step=count_steps)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+    peak = torch.cuda.max_memory_allocated()
+    recs = out["records"]
+    timed = recs[1:]
+    ok = len(recs) == COLLECT_STEPS and all(
+        math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in recs)
+    ms = sum(r["ms"] for r in timed) / len(timed)
+    log(f"{tag} configs/simlingo.yaml, language and dreamer off: batch {cfg.data.batch_size}, "
+        f"{cfg.data.max_text_len} tokens; ViT {m.vit.num_layers}x{m.vit.hidden_size}, Qwen2 "
+        f"{m.llm.num_layers}x{m.llm.hidden_size}, LoRA r={m.llm.lora_r}, remat_vision="
+        f"{m.remat_vision} remat_llm={m.remat_llm}")
+    log(f"{tag} steps: ms {[round(r['ms'], 2) for r in recs]}, the {len(timed)} timed "
+        f"{ms:.2f} ms a step ({cfg.data.batch_size * 1e3 / ms:.3f} samples/s); host batch ms "
+        f"{[round(r['host_ms'], 1) for r in recs]}; loss {[round(r['loss'], 5) for r in recs]} "
+        f"grad_norm {[round(r['grad_norm'], 4) for r in recs]} "
+        f"{'finite' if ok else 'FAIL'}; peak {peak / 2 ** 30:.2f} GiB; whole run {run_s:.1f} s")
+    want = {k: n for k, n in train_launches_per_step(m).items() if n}
+    got = per_step[0] if per_step else {}
+    good = got == want
+    ok &= good
+    log(f"{tag} launches a step over steps 2-{COLLECT_STEPS}: {got}, reckoned {want} "
+        f"(train_launches_per_step) {'OK' if good else 'FAIL'}; over the run {launches}")
+    return ok, dict(records=recs, ms_per_step=ms, peak_bytes=peak, run_s=run_s,
+                    launches=launches, launches_per_step=got)
+
+
+def collect_replay(torch, dev, hf_path, route_dir, plugin=None):
+    """`agent/replay.replay_route` of the first collected route through
+    `sim/suite.load_model_agent` (phase 7's .pt, the default AgentConfig:
+    CoT, int8 LLM, speculative; bf16; initial_frames_delay set to 0, as
+    phase 8 does) for REPLAY_FRAMES frames: each frame's ms and launches,
+    held exactly to `serve_launches` of its work, beside phase 8's ticks;
+    the agent's controls beside the expert's recorded ones (reported, not
+    held: the weights are random)."""
+    import numpy as np
+    from simlingo_tpu_torch.agent.replay import replay_route
+    from simlingo_tpu_torch.sim import suite as SU
+    tag = "[collect_replay]"
+    kernels = kernel_fns()
+    t0 = time.perf_counter()
+    agent = SU.load_model_agent(hf_path, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    m = agent.model_cfg
+    agent.cfg.initial_frames_delay = 0
+    frames, inner = [], agent.run_step
+
+    def run_step(frame):
+        before = {k: fn.launches for k, fn in kernels.items()}
+        t = time.perf_counter()
+        out = inner(frame)
+        torch.cuda.synchronize()
+        frames.append(dict(ms=(time.perf_counter() - t) * 1e3, tokens=len(out["language_tokens"]),
+                           launches={k: fn.launches - before[k] for k, fn in kernels.items()
+                                     if fn.launches - before[k]}))
+        return out
+    agent.run_step = run_step
+    for fn in kernels.values():
+        fn.launches = 0
+    outs = replay_route(agent, route_dir, max_frames=REPLAY_FRAMES)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+    agent.run_step = inner
+    spec_stats = list(agent.spec_stats)
+    agent.close()
+    del agent
+    torch.cuda.empty_cache()
+    ok = len(outs) == len(frames) == REPLAY_FRAMES == len(spec_stats) + 1
+    for i, (f, out) in enumerate(zip(frames, outs)):
+        rounds = None if i == 0 else spec_stats[i - 1][0]
+        want = serve_launches(m, f["tokens"], rounds)
+        fin = bool(np.isfinite(out["route"]).all() and np.isfinite(out["speed_wps"]).all())
+        good = f["launches"] == want and fin and out["frame"] == i
+        ok &= good
+        exp = out["expert"]
+        f.update(rounds=rounds, reckoned=want, control=[out["steer"], out["throttle"],
+                                                        bool(out["brake"])], expert=exp)
+        beside = "phase 8 not run"
+        if plugin is not None and i < len(plugin["ticks"]):
+            p = plugin["ticks"][i]
+            beside = f"phase 8's tick {i} {p['ms']:.2f} ms, launches {p['launches']}"
+        log(f"{tag} frame {out['frame']} {'cot_plain' if i == 0 else 'cot_spec':9s} "
+            f"{f['ms']:9.2f} ms: tokens={f['tokens']} rounds={rounds} launches {f['launches']} "
+            f"({'= reckoned' if good else f'reckoned {want}: FAIL'}); {beside}; agent steer / "
+            f"throttle / brake {out['steer']:.4f} / {out['throttle']:.4f} / {bool(out['brake'])}, "
+            f"the expert's {exp['steer']:.4f} / {exp['throttle']:.4f} / {exp['brake']}")
+    log(f"{tag} load_model_agent in {setup_s:.1f} s; launches over the replay {launches}")
+    return ok, dict(setup_s=setup_s, frames=frames, spec_stats=spec_stats, launches=launches)
+
+
+def collect(torch, dev, hf_path, work, plugin=None):
+    """Phase 10b: collect COLLECT_ROUTES with the expert, train on them
+    (`collect_train`), replay the first through the default agent
+    (`collect_replay`); all in `work`, which the caller removes."""
+    t0 = time.perf_counter()
+    ok, routes, root = collect_routes(work)
+    stats = dict(collect=routes)
+    if ok:
+        ok, stats["train"] = collect_training(torch, dev, root)
+    if ok:
+        first = os.path.join(root, COLLECT_LAYOUT, f"Town12_{COLLECT_ROUTES[0]['route_id']}")
+        ok, stats["replay"] = collect_replay(torch, dev, hf_path, first, plugin)
+    stats["seconds"] = time.perf_counter() - t0
+    log(f"[collect] phase 10b {'OK' if ok else 'FAILED'} in {stats['seconds']:.1f} s")
+    return ok, stats
+
+
 # the attention kernels' representative phase-2 case at each built head dim
 ATTN_INSTANCE_CASES = {"flash_attn_fwd": {16: "tiny_llm", 32: "shardable_llm", 64: "llm_prefill",
                                           128: "base_large"},
@@ -4690,9 +4966,10 @@ def smi_line():
 
 
 def disk_and_eval_phases(torch, dev, per_frame=None):
-    """Phases 7, 8, 9 and 10 in one workspace under build/, removed after;
-    returns (ok, phase 7's stats, {"carla_plugin": ..., "eval_language":
-    ..., "microsim": ...}) with a phase's stats only where it ran."""
+    """Phases 7, 8, 9, 10 and 10b in one workspace under build/, removed
+    after; returns (ok, phase 7's stats, {"carla_plugin": ...,
+    "eval_language": ..., "microsim": ..., "collect": ...}) with a phase's
+    stats only where it ran."""
     import tempfile
     from simlingo_tpu_torch.core import checkpoint as ckpt
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -4712,16 +4989,20 @@ def disk_and_eval_phases(torch, dev, per_frame=None):
             ok, after["microsim"] = microsim(torch, dev, written["hf_checkpoint"], work,
                                              after["carla_plugin"])
             torch.cuda.empty_cache()
+        if ok:
+            ok, after["collect"] = collect(torch, dev, written["hf_checkpoint"], work,
+                                           after["carla_plugin"])
+            torch.cuda.empty_cache()
     finally:
         ckpt.wait_for_checkpoints()
         shutil.rmtree(work, ignore_errors=True)
     return ok, disk_stats, after
 
 
-def microsim_only(torch, dev):
-    """`--microsim`: phase 10 alone, on a random trained-SimLingo .pt
-    written as phase 7 writes it (no training), in a workspace under
-    build/, removed after."""
+def microsim_only(torch, dev, phase=None):
+    """`--microsim` / `--collect`: phase 10 (or `phase`, e.g. 10b's
+    `collect`) alone, on a random trained-SimLingo .pt written as phase 7
+    writes it (no training), in a workspace under build/, removed after."""
     import tempfile
     from simlingo_tpu_torch.core import presets
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -4730,7 +5011,7 @@ def microsim_only(torch, dev):
         hf_path = os.path.join(work, "pytorch_model.pt")
         torch.save(simlingo_state_dict(presets.internvl2_1b(lora=True), torch, dev), hf_path)
         torch.cuda.empty_cache()
-        return microsim(torch, dev, hf_path, work)
+        return (phase or microsim)(torch, dev, hf_path, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4797,7 +5078,7 @@ def run_path_phases(torch, dev, cases) -> int:
                      ("train_lora_fused", fused_stats), ("mesh_training", mesh_stats), ("train_disk", disk_stats),
                      ("carla_plugin", eval_stats["carla_plugin"]),
                      ("eval_language", eval_stats["eval_language"]),
-                     ("microsim", eval_stats["microsim"])):
+                     ("microsim", eval_stats["microsim"]), ("collect", eval_stats["collect"])):
         with open(os.path.join(ROOT, "chiprun_out", f"chip_smoke_{name}.json"), "w") as f:
             json.dump(dict(st, nvidia_smi=smi), f, indent=1)
     launches = {"serve": stats["launches"], "serve_gated": stats["gated"]["launches"],
@@ -4809,7 +5090,9 @@ def run_path_phases(torch, dev, cases) -> int:
                 **base_launches, "train_disk": disk_stats["launches"],
                 "carla_plugin": eval_stats["carla_plugin"]["launches"],
                 "eval_language": eval_stats["eval_language"]["launches"],
-                "microsim": eval_stats["microsim"]["launches"]}
+                "microsim": eval_stats["microsim"]["launches"],
+                "collect_train": eval_stats["collect"]["train"]["launches"],
+                "collect_replay": eval_stats["collect"]["replay"]["launches"]}
     print(json.dumps(kernel_line(cases, launches, base_by_dim)), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5629,8 +5912,8 @@ def main() -> int:
                          + ", ".join(BASE_CELLS) + ")")
     ap.add_argument("--disk", action="store_true",
                     help="build, then run the disk-training phase (7) and, in its "
-                         "workspace, the plugin (8), the evaluation (9) and the "
-                         "microsim (10) only")
+                         "workspace, the plugin (8), the evaluation (9), the "
+                         "microsim (10) and the expert collection (10b) only")
     ap.add_argument("--lora-fused", action="store_true",
                     help="build, then phase 5's ungated training run and `train_lora_fused` "
                          "(SIMLINGO_LORA_FUSED=1) beside it only")
@@ -5638,6 +5921,9 @@ def main() -> int:
                     help="build, then run the multi-GPU training phase (mesh_training) only")
     ap.add_argument("--microsim", action="store_true",
                     help="build, then run the closed-loop microsim phase (10) only, on a "
+                         "random trained-SimLingo checkpoint")
+    ap.add_argument("--collect", action="store_true",
+                    help="build, then run the expert-collection phase (10b) only, on a "
                          "random trained-SimLingo checkpoint")
     ap.add_argument("--mesh-rank", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--parent", metavar="DIR",
@@ -5705,13 +5991,20 @@ def main() -> int:
             json.dump(dict(st, nvidia_smi=smi_line()), f, indent=1)
         log(f"[microsim] phase 10 {'OK' if ok else 'FAILED'} on {smi_line()}")
         return 0 if ok else 1
+    if args.collect:
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        ok, st = microsim_only(torch, dev, collect)
+        with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_collect.json"), "w") as f:
+            json.dump(dict(st, nvidia_smi=smi_line()), f, indent=1)
+        log(f"[collect] phase 10b {'OK' if ok else 'FAILED'} on {smi_line()}")
+        return 0 if ok else 1
     if args.disk:
         ok, st, after = disk_and_eval_phases(torch, dev)
         os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
         for name, stats in (("train_disk", st), *after.items()):
             with open(os.path.join(ROOT, "chiprun_out", f"chip_smoke_{name}.json"), "w") as f:
                 json.dump(dict(stats, nvidia_smi=smi_line()), f, indent=1)
-        log(f"[train_disk] phases 7-10 {'OK' if ok else 'FAILED'} on {smi_line()}")
+        log(f"[train_disk] phases 7-10b {'OK' if ok else 'FAILED'} on {smi_line()}")
         return 0 if ok else 1
 
     # 2. kernels

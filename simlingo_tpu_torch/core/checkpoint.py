@@ -119,11 +119,14 @@ def _host_copy(state) -> Optional[Dict[str, Any]]:
 
 
 def _write(path: str, host: Dict[str, Any]) -> None:
+    """params.pt, optimizer.pt (where `host` has an optimizer state: a
+    converted save may not, `convert_orbax_torch.py`) and meta.json."""
     tmp = f"{path}.tmp-{os.getpid()}"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
     torch.save(host["params"], os.path.join(tmp, "params.pt"))
-    torch.save(host["optimizer"], os.path.join(tmp, "optimizer.pt"))
+    if "optimizer" in host:
+        torch.save(host["optimizer"], os.path.join(tmp, "optimizer.pt"))
     with open(os.path.join(tmp, "meta.json"), "w") as f:
         json.dump({"step": host["step"]}, f)
     os.rename(tmp, path)

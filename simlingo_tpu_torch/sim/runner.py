@@ -1,19 +1,22 @@
-"""Microsim route runner: closed-loop evaluation.
+"""Microsim route runner: closed-loop evaluation + expert data collection.
 
-Copy of `simlingo_tpu/sim/runner.py` without its expert driver: the
-leaderboard equivalent (Bench2Drive/leaderboard/leaderboard/
-leaderboard_evaluator.py + scenarios/scenario_manager.py): build the world
-and scenarios from a route spec, tick the agent against it, score with the
-criteria, and write a leaderboard-format result JSON that
-eval/driving_score.py merges/parses.
+Copy of `simlingo_tpu/sim/runner.py`: the leaderboard equivalent
+(Bench2Drive/leaderboard/leaderboard/leaderboard_evaluator.py +
+scenarios/scenario_manager.py): build the world and scenarios from a route
+spec, tick the agent against it, score with the criteria, and write a
+leaderboard-format result JSON that eval/driving_score.py merges/parses.
+Two drivers are provided:
 
+  ExpertDriver  -- the privileged PDM-Lite expert (expert/autopilot.py via
+                   agent/data_agent.DataCollector when saving), used for
+                   in-repo dataset collection: the microsim replaces the
+                   CARLA plumbing of agent/carla_data_agent.py. Host
+                   numpy only; its files are byte-equal to JAX's for the
+                   same route and seed.
   ModelDriver   -- the trained model (agent/agent.LingoAgent, on the GPU
                    unless it was built for the CPU) fed by the synthetic
                    camera, used for closed-loop evaluation: the microsim
                    replaces agent/carla_agent.py.
-
-The privileged expert (`ExpertDriver`, `expert_factory`) and the data
-collection it drives are not ported yet.
 
 Route specs are plain dicts (JSON-friendly):
   {"town": "straight" | "crossing" | "curved",
@@ -151,6 +154,280 @@ def _set_planner_route(planner, world: SimWorld,
                           parking_exit=True)
     else:
         planner.set_route(np.asarray(route, float))
+
+
+class ExpertDriver:
+    """Privileged expert closing the loop (collection-capable).
+
+    Mirrors agent/carla_data_agent.py's wiring with the microsim as the
+    privileged world: dense route via expert/route_planner, scenario
+    records into expert/scenarios.ScenarioManager, ego-frame actor dicts
+    into expert/autopilot.AutoPilot.
+    """
+
+    def __init__(self, world: SimWorld, route: np.ndarray,
+                 scenario_records: Sequence[Dict] = (),
+                 save_path: Optional[str] = None,
+                 data_save_freq: int = 5, seed: int = 0,
+                 camera: Optional[Camera] = None,
+                 target_speed: float = 8.0):
+        from simlingo_tpu_torch.expert.route_planner import PrivilegedRoutePlanner
+        from simlingo_tpu_torch.expert.scenarios import ScenarioManager
+
+        self.world = world
+        self.planner = PrivilegedRoutePlanner()
+        _set_planner_route(self.planner, world, route)
+        self.scenarios = ScenarioManager(self.planner)
+        self.scenario_records = list(scenario_records)
+        self.target_speed = target_speed
+        self._active_turn_cmd: Optional[int] = None
+        self.camera = camera
+        self.collector = None
+        if save_path is not None:
+            from simlingo_tpu_torch.agent.data_agent import DataCollector
+            self.collector = DataCollector(save_path,
+                                           data_save_freq=data_save_freq,
+                                           seed=seed, save_lidar=False)
+            self.camera = self.camera or Camera()
+        else:
+            from simlingo_tpu_torch.expert.autopilot import AutoPilot
+            self.expert = AutoPilot()
+
+    def _actors_ego_frame(self) -> List[Dict]:
+        from simlingo_tpu_torch.utils.geometry import inverse_conversion_2d
+        ego = self.world.ego
+        out = []
+        for a in self.world.actors:
+            if a is ego or not a.alive:
+                continue
+            rel = inverse_conversion_2d(a.position, ego.position, ego.yaw)
+            if np.linalg.norm(rel) >= 50:
+                continue
+            steer, throttle, brake = a.control
+            out.append({
+                "position": rel.tolist(),
+                "yaw": float(a.yaw - ego.yaw),
+                "speed": float(a.speed),
+                "type_id": a.type_id, "base_type": a.base_type,
+                "id": a.actor_id,
+                "extent": [float(a.extent[0]), float(a.extent[1])],
+                "steer": float(steer), "throttle": float(throttle),
+                "brake": bool(brake > 0.5),
+            })
+        return out
+
+    def _light_info(self) -> Tuple[Optional[str], Optional[float]]:
+        ego = self.world.ego
+        lane = self.world.map.closest_lane(ego.position)
+        light = self.world.light_for_lane(lane.lane_id, ego.position)
+        if light is None:
+            return None, None
+        s_ego, _ = lane.project(ego.position)
+        s_line, _ = lane.project(light.spot.position)
+        d = s_line - s_ego
+        if d < -2.0 or d > 60.0:
+            return None, None
+        return light.state, max(d, 0.0)
+
+    def _stop_info(self) -> Tuple[Optional[float], Optional[int]]:
+        ego = self.world.ego
+        lane = self.world.map.closest_lane(ego.position)
+        for stop in self.world.map.stops:
+            if stop.lane_id != lane.lane_id:
+                continue
+            s_ego, _ = lane.project(ego.position)
+            s_stop, _ = lane.project(stop.position)
+            d = s_stop - s_ego
+            if -2.0 < d < 50.0:
+                return max(d, 0.0), stop.sign_id
+        return None, None
+
+    def _traffic_boxes(self) -> List[Dict]:
+        """Traffic-light / stop-sign boxes for the label generators
+        (reference data_agent get_bounding_boxes adds traffic_light and
+        stop_sign entries with affects_ego + state)."""
+        from simlingo_tpu_torch.utils.geometry import inverse_conversion_2d
+        ego = self.world.ego
+        lane = self.world.map.closest_lane(ego.position)
+        s_ego, _ = lane.project(ego.position)
+        out: List[Dict] = []
+        for light in self.world.lights:
+            rel = inverse_conversion_2d(light.spot.position, ego.position,
+                                        ego.yaw)
+            if np.linalg.norm(rel) >= 60:
+                continue
+            same = light.spot.lane_id == lane.lane_id
+            s_line, _ = lane.project(light.spot.position)
+            out.append({
+                "class": "traffic_light",
+                "type_id": "traffic.traffic_light",
+                "position": rel.tolist(),
+                "yaw": float(light.spot.yaw - ego.yaw),
+                "extent": [1.5, 6.0], "id": 10000 + light.spot.light_id,
+                "state": light.state,
+                "affects_ego": bool(same and -2.0 < s_line - s_ego < 45.0),
+            })
+        for stop in self.world.map.stops:
+            rel = inverse_conversion_2d(stop.position, ego.position,
+                                        ego.yaw)
+            if np.linalg.norm(rel) >= 60:
+                continue
+            same = stop.lane_id == lane.lane_id
+            s_stop, _ = lane.project(stop.position)
+            out.append({
+                "class": "stop_sign", "type_id": "traffic.stop",
+                "position": rel.tolist(),
+                "yaw": float(stop.yaw - ego.yaw),
+                "extent": list(stop.trigger_extent),
+                "id": 20000 + stop.sign_id,
+                "affects_ego": bool(same and -2.0 < s_stop - s_ego < 40.0),
+            })
+        return out
+
+    def _junction_command(self, inp: Dict, wp: Dict) -> int:
+        """Derive the navigation command from route geometry: a junction
+        within ~40 m of route ahead plus a >45-deg total heading change ->
+        turn left (1) / right (2), straight through -> 3; else the
+        planner's command (reference routes carry RoadOption per
+        waypoint; the microsim derives them).
+
+        Turn commands are STICKY for the whole junction traversal: once
+        issued, the command holds until the ego has left the junction and
+        the remaining heading change has played out -- otherwise the
+        second half of the arc (remaining turn < 45 deg) would flip to
+        'go straight' while steering hard (labels must match the
+        maneuver, not the residual geometry)."""
+        route = np.asarray(inp["route"])[:400]          # ego frame, 0.1 m
+        if len(route) < 20:
+            return int(inp["command"])
+        d0 = route[10] - route[0]
+        d1 = route[-1] - route[-10]
+        turn = math.remainder(math.atan2(d1[1], d1[0])
+                              - math.atan2(d0[1], d0[0]), 2 * math.pi)
+        # junction proximity: probe the GLOBAL dense route ahead (a single
+        # fixed-offset probe can overshoot a 14 m junction)
+        planner = self.planner
+        ahead = planner.route[planner.idx:
+                              planner.idx + 400:40]     # every 4 m, 40 m
+        near_junction = bool(wp["is_junction"]) or any(
+            self.world.map.in_junction(p) for p in ahead)
+        if self._active_turn_cmd is not None:
+            if not near_junction and abs(turn) < math.radians(10):
+                self._active_turn_cmd = None
+            else:
+                return self._active_turn_cmd
+        if near_junction and turn > math.pi / 4:
+            self._active_turn_cmd = 1
+            return 1
+        if near_junction and turn < -math.pi / 4:
+            self._active_turn_cmd = 2
+            return 2
+        return 3 if near_junction else int(inp["command"])
+
+    def step(self) -> Tuple[float, float, float]:
+        from simlingo_tpu_torch.expert.autopilot import ExpertObservation
+
+        world, ego = self.world, self.world.ego
+        actors = self._actors_ego_frame()
+        self.scenarios.set_active(self.scenario_records)
+        oncoming = [a for a in actors if abs(
+            math.remainder(a["yaw"], 2 * math.pi)) > 2.0]
+        scenario_result = self.scenarios.tick(
+            self.target_speed, ego.speed, ego.position, oncoming)
+        inp = self.planner.ego_inputs(ego.position, ego.yaw)
+        light_state, light_distance = self._light_info()
+        stop_distance, stop_id = self._stop_info()
+        wp = world.map.waypoint(ego.position)
+        obs = ExpertObservation(
+            pos_global=ego.position.copy(), theta=ego.yaw,
+            speed=ego.speed, speed_limit=wp["speed_limit"],
+            route=inp["route"], route_original=inp["route_original"],
+            target_point=inp["target_point"],
+            target_point_next=inp["target_point_next"],
+            actors=actors, light_state=light_state,
+            light_distance=light_distance,
+            stop_sign_distance=stop_distance, stop_sign_id=stop_id,
+            junction=bool(wp["is_junction"]),
+            command=self._junction_command(inp, wp),
+            near_lane_change=self.planner.near_lane_change(),
+            changed_route=inp["changed_route"])
+        if self.collector is not None:
+            lane_info = self._lane_info(wp)
+            boxes = (actors + self._traffic_boxes()
+                     + [dict(lane_info, **{"class": "ego_info"})])
+            # render only on save frames (collector persists at 4 Hz);
+            # the augmented view is a REAL second camera at the sampled
+            # shifted pose (reference data_agent.py:389-402), so the
+            # saved augmentation labels match the rendered geometry
+            rgb = rgb_aug = semantics = depth = None
+            aug = self.collector.sample_camera_augmentation()
+            if self.collector.tick_count % self.collector.data_save_freq \
+                    == 0:
+                frames = self.camera.render(
+                    world, with_labels=self.collector.save_labels)
+                rgb = frames["rgb"]
+                semantics = frames.get("semantics")
+                depth = frames.get("depth")
+                # the augmented view is a virtual ego displaced by the
+                # sampled translation along ego-y and rotated by the
+                # sampled yaw, with the SAME camera mount -- matching the
+                # training-label transform exactly
+                # (data/measurements.rotate_translate: p' = R(-yaw) @
+                # (p - (0, trans)))
+                trans = float(aug["translation"])
+                vpos = ego.position + trans * np.array(
+                    [-math.sin(ego.yaw), math.cos(ego.yaw)])
+                vyaw = ego.yaw + math.radians(aug["rotation"])
+                rgb_aug = self.camera.render(world,
+                                             pose=(vpos, vyaw))["rgb"]
+            out = self.collector.tick(
+                obs, rgb=rgb, rgb_augmented=rgb_aug,
+                boxes=boxes, scenario_result=scenario_result,
+                semantics=semantics, depth=depth,
+                extra_measurements=lane_info, aug=aug)
+        else:
+            out = self.expert.tick(obs, scenario_result=scenario_result)
+        return (float(out["steer"]), float(out["throttle"]),
+                float(out["brake"]))
+
+    def _lane_info(self, wp: Dict) -> Dict:
+        lane = self.world.map.lanes[wp["lane_id"]]
+        n_same, left_of_ego = 1, 0
+        probe = lane
+        while probe.left is not None:
+            probe = self.world.map.lanes[probe.left]
+            n_same += 1
+            left_of_ego += 1
+        probe = lane
+        while probe.right is not None:
+            nxt = self.world.map.lanes[probe.right]
+            if nxt.lane_type != "driving":
+                break
+            probe = nxt
+            n_same += 1
+        n_opp = 1 if lane.opposite is not None else 0
+        return {
+            "is_in_junction": bool(wp["is_junction"]),
+            "lane_marking_left": lane.marking_left,
+            "lane_marking_right": lane.marking_right,
+            "distance_to_junction": None,
+            "num_lanes_same_direction": n_same,
+            "num_lanes_opposite_direction": n_opp,
+            "ego_lane_number": left_of_ego,
+        }
+
+    def destroy(self, record: Optional[Dict] = None) -> None:
+        """Write results.json.gz with the route's REAL outcome so the
+        dataset quality gate (data/index.py) sees the same scores the
+        leaderboard would record."""
+        if self.collector is None:
+            return
+        if record is None:
+            self.collector.destroy()
+        else:
+            self.collector.destroy(
+                route_completion=record["scores"]["score_route"],
+                infractions=record["infractions"])
 
 
 class ModelDriver:
@@ -305,6 +582,25 @@ def run_routes(specs: Sequence[Dict], driver_factory,
         with open(out_path, "w") as f:
             json.dump(checkpoint, f, indent=1)
     return checkpoint
+
+
+def expert_factory(save_root: Optional[str] = None, seed: int = 0,
+                   dir_name_fmt: str = "route_{i:03}",
+                   **kw) -> Callable:
+    """dir_name_fmt: per-route directory name under save_root; use e.g.
+    "Town12_micro_{i:03}" to land in the training pipeline's expected
+    layout (data/simlingo/v1/*/routes_training/Town*)."""
+    counter = {"i": 0}
+
+    def make(world, route, scen_records):
+        save_path = None
+        if save_root is not None:
+            save_path = os.path.join(save_root,
+                                     dir_name_fmt.format(i=counter["i"]))
+            counter["i"] += 1
+        return ExpertDriver(world, route, scen_records,
+                            save_path=save_path, seed=seed, **kw)
+    return make
 
 
 def model_factory(agent, **kw) -> Callable:

@@ -1,13 +1,21 @@
 """MicroBench: the microsim's standing route suite + CLI.
 
-Copy of `simlingo_tpu/sim/suite.py` for the port's model agent. A
-Bench2Drive-style benchmark that runs entirely in-repo: one route per
-scenario type (reference Bench2Drive ships 220 routes over 44 scenario
-types; this suite covers the framework's full scenario inventory once per
-type, in both clean and NPC-traffic variants). Results are leaderboard-
-format JSON consumed by eval/driving_score.py.
+Copy of `simlingo_tpu/sim/suite.py`. A Bench2Drive-style benchmark that
+runs entirely in-repo: one route per scenario type (reference Bench2Drive
+ships 220 routes over 44 scenario types; this suite covers the framework's
+full scenario inventory once per type, in both clean and NPC-traffic
+variants). Results are leaderboard-format JSON consumed by
+eval/driving_score.py.
 
-CLI (the agent runs on the GPU unless `--device cpu`):
+CLI (a model agent runs on the GPU unless `--device cpu`; the expert is
+host numpy and ignores `--device`):
+  # privileged expert, full suite, scores to stdout + JSON
+  python -m simlingo_tpu_torch.sim.suite --agent expert --out results/micro.json
+
+  # expert with dataset collection (the in-repo data-collection path):
+  # one Town12_<route_id> directory a route under DIR
+  python -m simlingo_tpu_torch.sim.suite --agent expert --collect DIR
+
   # trained model closed-loop (HF-layout or trained-SimLingo checkpoint)
   python -m simlingo_tpu_torch.sim.suite --agent model --checkpoint ckpt/ \
       --out results/model.json
@@ -15,9 +23,6 @@ CLI (the agent runs on the GPU unless `--device cpu`):
   # a tiny random model, on the CPU (pipeline smoke)
   python -m simlingo_tpu_torch.sim.suite --agent tiny-model --device cpu \
       --routes micro_00_free --max-steps 3
-
-The privileged expert (JAX's `--agent expert` and `--collect`) is not
-ported yet.
 """
 
 from __future__ import annotations
@@ -312,12 +317,16 @@ def main(argv=None) -> Dict:
     from simlingo_tpu_torch.eval.driving_score import merge_route_results
     from simlingo_tpu_torch.kernels import flash_attention as FA
     from simlingo_tpu_torch.kernels import quantized_matmul as QM
-    from simlingo_tpu_torch.sim.runner import model_factory, run_routes
+    from simlingo_tpu_torch.sim.runner import (expert_factory, model_factory,
+                                               run_routes)
 
     ap = argparse.ArgumentParser(description="MicroBench closed-loop suite")
-    ap.add_argument("--agent", choices=("model", "tiny-model"), default="model")
+    ap.add_argument("--agent", choices=("expert", "model", "tiny-model"),
+                    default="expert")
     ap.add_argument("--checkpoint", default=None,
                     help="checkpoint for --agent model (load_hf_checkpoint)")
+    ap.add_argument("--collect", default=None,
+                    help="dataset root: save expert sensor data per route")
     ap.add_argument("--out", default=None, help="result JSON path")
     ap.add_argument("--suite", choices=sorted(SUITES), default="micro",
                     help="micro: 51 routes, one per scenario type; "
@@ -331,7 +340,7 @@ def main(argv=None) -> Dict:
                          "(scenario_logger render_replay_frames / "
                          "make_infraction_gifs input)")
     ap.add_argument("--device", default="cuda",
-                    help="the agent's device: cuda (default) or cpu")
+                    help="a model agent's device: cuda (default) or cpu")
     args = ap.parse_args(argv)
 
     specs = SUITES[args.suite]()
@@ -340,16 +349,40 @@ def main(argv=None) -> Dict:
         specs = [s for s in specs if s["route_id"] in wanted
                  or any(w in s["route_id"] for w in wanted)]
     out_path = args.out or "microbench_results.json"
-    agent = load_model_agent(args.checkpoint, tiny=args.agent == "tiny-model",
-                             device=args.device)
-    checkpoint = run_routes(specs, model_factory(agent), out_path=out_path,
-                            max_steps=args.max_steps, record_dir=args.record)
-    agent.close()
-    # the ticks that ran the model (the first initial_frames_delay settle),
-    # and the hand kernels they launched (none on the CPU)
-    print(f"agent: {len(agent.latencies)} inference ticks of {agent.step_count} on "
-          f"{args.device}; hand-kernel launches flash_attn_fwd {FA.flash_attn_fwd.launches} "
-          f"int8_matmul {QM.int8_matmul.launches}")
+    if args.agent == "expert" and args.collect:
+        # collection: one dataset dir per route, named for the training
+        # pipeline's layout (data/simlingo/*/*/routes_training/Town*) --
+        # per-spec factories so each route gets its own directory
+        records = []
+        for i, spec in enumerate(specs):
+            factory = expert_factory(
+                save_root=args.collect,
+                dir_name_fmt=f"Town12_{spec['route_id']}")
+            records.extend(run_routes(
+                [spec], factory, seed=i, max_steps=args.max_steps,
+                record_dir=args.record)["_checkpoint"]["records"])
+        checkpoint = {"_checkpoint": {"records": records}}
+        os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+        with open(out_path, "w") as f:
+            json.dump(checkpoint, f, indent=1)
+    elif args.agent == "expert":
+        checkpoint = run_routes(specs, expert_factory(), out_path=out_path,
+                                max_steps=args.max_steps,
+                                record_dir=args.record)
+    else:
+        agent = load_model_agent(args.checkpoint,
+                                 tiny=args.agent == "tiny-model",
+                                 device=args.device)
+        checkpoint = run_routes(specs, model_factory(agent), out_path=out_path,
+                                max_steps=args.max_steps,
+                                record_dir=args.record)
+        agent.close()
+        # the ticks that ran the model (the first initial_frames_delay
+        # settle), and the hand kernels they launched (none on the CPU)
+        print(f"agent: {len(agent.latencies)} inference ticks of "
+              f"{agent.step_count} on {args.device}; hand-kernel launches "
+              f"flash_attn_fwd {FA.flash_attn_fwd.launches} "
+              f"int8_matmul {QM.int8_matmul.launches}")
     records = checkpoint["_checkpoint"]["records"]
     for r in records:
         inf = {k: len(v) for k, v in r["infractions"].items() if v}

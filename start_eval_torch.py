@@ -17,9 +17,11 @@ efficiency breakdown, into `<output-dir>/merged.json`.
     python start_eval_torch.py --checkpoint <ckpt> --routes-dir <xml dir> \\
         --carla-root $CARLA_ROOT --max-jobs 4
 
+    # the privileged expert in the microsim (host numpy, no model)
+    python start_eval_torch.py --microsim --agent-kind expert
+
 Each microsim job runs `python -m simlingo_tpu_torch.sim.suite` on
-`--device` (default cuda). The privileged expert (`--agent-kind expert`)
-is not ported yet and is refused.
+`--device` (default cuda; the expert's jobs ignore it).
 """
 
 import argparse
@@ -46,8 +48,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "babysat MicroBench route per job")
     ap.add_argument("--agent-kind", default="model",
                     choices=("model", "tiny-model", "expert"),
-                    help="microsim agent (tiny-model for smokes; expert is "
-                         "not ported yet)")
+                    help="microsim agent (tiny-model/expert for smokes)")
     ap.add_argument("--suite", default="micro",
                     help="microsim suite: micro (51 routes) or b2d220 "
                          "(Bench2Drive protocol, 44 types x 5 variants)")
@@ -64,10 +65,6 @@ def build_jobs(args) -> List:
 
     jobs = []
     if args.microsim:
-        if args.agent_kind == "expert":
-            raise NotImplementedError(
-                "--agent-kind expert: the privileged expert driver is not "
-                "ported yet (ROADMAP A16b); use --agent-kind model or tiny-model")
         from simlingo_tpu_torch.sim.suite import SUITES
         for spec in SUITES[args.suite]():
             name = spec["route_id"]

@@ -1153,3 +1153,50 @@ def test_remat_step_on_the_gpu_equals_remat_off(gpu):
             if key != "grad_norm":
                 assert got[key] == ref[key], (mode, key)
         assert got["grad_norm"] == pytest.approx(ref["grad_norm"], rel=1e-3), mode
+
+
+@pytest.mark.cuda
+def test_replay_of_a_collected_route_on_the_gpu(gpu, tmp_path):
+    """`agent/replay.replay_route` of a route the port's expert collected
+    (2 saved frames), through `sim/suite.load_model_agent`'s tiny model
+    (int8 LLM, drive-only, as JAX's `load_model_agent` builds it): each
+    frame's launches on the GPU exactly as `chip_smoke.serve_launches`
+    reckons a drive-only frame (the ViT's layers, one LLM pass, no head);
+    each frame's waypoints within 0.05 max|ref| of the CPU's in fp32, as
+    the microsim tick above; the expert's recorded controls beside. (The
+    default agent's CoT frames are replayed at full width by
+    `chip_smoke.py` phase 10b.)"""
+    from simlingo_tpu_torch.agent.replay import replay_route
+    from simlingo_tpu_torch.sim import runner, suite
+    spec = {"town": "straight", "start_s": 5.0, "end_s": 60.0, "route_id": "replay"}
+    rec = runner.run_route(spec, runner.expert_factory(save_root=str(tmp_path), seed=0),
+                           max_steps=10)
+    route = tmp_path / "route_000"
+    assert rec["meta"]["duration_game"] == 0.5 and len(list((route / "rgb").iterdir())) == 2
+    cs = _chip_smoke()
+    outs = {}
+    for device in ("cpu", gpu):
+        agent = suite.load_model_agent(None, tiny=True, device=device)
+        agent.cfg.initial_frames_delay = 0
+        per, inner = [], agent.run_step
+
+        def step(frame, inner=inner, per=per):
+            before = (TFA.flash_attn_fwd.launches, TQM.int8_matmul.launches)
+            out = inner(frame)
+            torch.cuda.synchronize()
+            per.append({"flash_attn_fwd": TFA.flash_attn_fwd.launches - before[0],
+                        "int8_matmul": TQM.int8_matmul.launches - before[1]})
+            return out
+        agent.run_step = step
+        assert not agent.cfg.use_cot and agent.cfg.int8_llm
+        outs[str(device)] = (replay_route(agent, str(route)), per, agent.model_cfg)
+    (cpu_out, cpu_per, _), (gpu_out, gpu_per, m) = outs["cpu"], outs[str(gpu)]
+    assert [o["frame"] for o in gpu_out] == [o["frame"] for o in cpu_out] == [0, 1]
+    assert cpu_per == [{"flash_attn_fwd": 0, "int8_matmul": 0}] * 2
+    assert gpu_per == [cs.serve_launches(m, None)] * 2
+    for ref, got in zip(cpu_out, gpu_out):
+        scale = max(float(np.abs(ref["route"]).max()), float(np.abs(ref["speed_wps"]).max()))
+        for key in ("route", "speed_wps"):
+            assert np.isfinite(got[key]).all()
+            assert float(np.abs(got[key] - ref[key]).max()) <= 0.05 * scale, key
+        assert got["expert"] == ref["expert"] and got["expert"]["throttle"] is not None

@@ -9,7 +9,7 @@ smoothness, and equal CLI output. The babysitter is held to JAX's tests
 (retries, resume past done files, crash signatures). `start_eval_torch.py`
 builds JAX's `start_eval.py` job list with the package swapped (the
 suite module, the CARLA plugin's path) and `--device` added to each
-microsim job, and refuses the expert; and one microsim job runs end to end
+microsim job, the expert's too; and one microsim job runs end to end
 on the CPU through the babysitter (`--agent tiny-model --device cpu
 --max-steps 3`), merged by `summarize` into merged.json.
 """
@@ -238,8 +238,10 @@ def _jax_jobs(monkeypatch, tmp_path, argv):
 @pytest.mark.parametrize("argv", [
     ["--microsim", "--checkpoint", "ckpt/model.pt"],
     ["--microsim", "--agent-kind", "tiny-model", "--suite", "b2d220", "--max-retries", "1"],
+    ["--microsim", "--agent-kind", "expert"],
     ["--checkpoint", "ckpt/model.pt", "--routes-dir", "ROUTES", "--max-jobs", "3",
-     "--base-port", "3000"]], ids=["microsim_model", "microsim_b2d220_tiny", "carla"])
+     "--base-port", "3000"]], ids=["microsim_model", "microsim_b2d220_tiny", "microsim_expert",
+                                   "carla"])
 @pytest.mark.parametrize("device", ["cuda", "cpu"])
 def test_start_eval_torch_builds_jaxs_jobs(monkeypatch, tmp_path, argv, device):
     routes = tmp_path / "routes"
@@ -267,14 +269,20 @@ def test_start_eval_torch_builds_jaxs_jobs(monkeypatch, tmp_path, argv, device):
 
 
 def test_start_eval_torch_refuses_the_expert(tmp_path):
+    """The expert is ported now and no longer refused: start_eval_torch
+    builds its microsim jobs (one a route, `--agent expert`, no checkpoint)
+    and the suite runs it, as JAX's do."""
     SE = _load("start_eval_torch")
     args = SE.parse_args(["--microsim", "--agent-kind", "expert",
                           "--output-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        SE.build_jobs(args)
+    jobs = SE.build_jobs(args)
+    assert len(jobs) == 51
+    assert all(j.cmd[j.cmd.index("--agent") + 1] == "expert" and "--checkpoint" not in j.cmd
+               for j in jobs)
     from simlingo_tpu_torch.sim import suite
-    with pytest.raises(SystemExit):
-        suite.main(["--agent", "expert"])
+    summary = suite.main(["--agent", "expert", "--routes", "micro_00_free", "--max-steps",
+                          "5", "--out", str(tmp_path / "expert.json")])
+    assert summary["num_routes"] == 1
 
 
 def test_one_microsim_job_end_to_end_on_the_cpu(tmp_path, monkeypatch):

@@ -11,7 +11,13 @@ entry point built without `device` must refuse on a machine without a GPU.
 The first also drives the CARLA leaderboard plugin one tick under the
 test doubles of tests/carla_stubs.py, imports `start_eval_torch.py` and
 builds its microsim jobs, and runs the microsim suite's CLI (the tiny
-model, two ticks of a MicroBench route on the CPU). A second subprocess, with the same
+model, two ticks of a MicroBench route on the CPU); it collects a short
+route with the expert and replays it through the tiny agent, runs the
+suite's expert with `--collect`, builds `start_eval_torch.py`'s expert
+jobs, and builds `convert_orbax_torch.py`'s template train state (the
+script imports orbax only inside the conversion). A further check reads
+the converter's imports: orbax, numpy, torch, the standard library and
+the port, nothing of the JAX package. A second subprocess, with the same
 imports blocked, trains the tiny model two steps from routes on disk
 (written by this process beforehand: the route writer uses the JAX
 package's label generators), saves, resumes for a third, and evaluates
@@ -63,7 +69,13 @@ SCRIPT = BLOCK + textwrap.dedent("""
             "simlingo_tpu_torch.sim.scenarios", "simlingo_tpu_torch.sim.runner",
             "simlingo_tpu_torch.sim.suite", "simlingo_tpu_torch.eval.driving_score",
             "simlingo_tpu_torch.eval.b2d_benchmarks",
-            "simlingo_tpu_torch.orchestration.babysitter"} <= set(names)
+            "simlingo_tpu_torch.orchestration.babysitter",
+            "simlingo_tpu_torch.expert.forecast", "simlingo_tpu_torch.expert.autopilot",
+            "simlingo_tpu_torch.expert.scenarios", "simlingo_tpu_torch.agent.lidar",
+            "simlingo_tpu_torch.agent.data_agent",
+            "simlingo_tpu_torch.agent.carla_data_agent",
+            "simlingo_tpu_torch.agent.replay",
+            "simlingo_tpu_torch.labels.bev_renderer"} <= set(names)
     from simlingo_tpu_torch.parallel import mesh as PM, multihost as PH
     from simlingo_tpu_torch.parallel import pipeline as PP, sequence as PS
     assert PH.initialize(device="cpu") is False and PM.make_mesh(device="cpu").world == 1
@@ -116,6 +128,7 @@ SCRIPT = BLOCK + textwrap.dedent("""
     plugin.destroy()
 
     # closed-loop evaluation: start_eval_torch's jobs and the microsim suite
+    import os
     import tempfile
     import start_eval_torch
     from simlingo_tpu_torch.sim import suite
@@ -128,6 +141,30 @@ SCRIPT = BLOCK + textwrap.dedent("""
                               "micro_02_accident", "--max-steps", "2",
                               "--out", tmp + "/micro.json"])
     assert summary["num_routes"] == 1 and np.isfinite(summary["driving_score"])
+
+    # expert collection, then a replay of it through the tiny agent; the
+    # suite's expert with --collect; the orbax converter's port half
+    from simlingo_tpu_torch.agent.replay import replay_route
+    from simlingo_tpu_torch.sim.runner import expert_factory, run_route
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = run_route({"town": "straight", "start_s": 5.0, "end_s": 60.0,
+                         "route_id": "iso"}, expert_factory(save_root=tmp, seed=0),
+                        max_steps=10)
+        assert sorted(os.listdir(tmp + "/route_000/rgb")) == ["0000.jpg", "0001.jpg"]
+        out = replay_route(agent, tmp + "/route_000")
+        assert [o["frame"] for o in out] == [0, 1]
+        assert all(np.isfinite([o["steer"], o["throttle"]]).all() for o in out)
+        summary = suite.main(["--agent", "expert", "--routes", "micro_00_free",
+                              "--max-steps", "10", "--collect", tmp + "/c",
+                              "--out", tmp + "/expert.json"])
+        assert summary["num_routes"] == 1
+        assert os.listdir(tmp + "/c") == ["Town12_micro_00_free"]
+    assert len(start_eval_torch.build_jobs(start_eval_torch.parse_args(
+        ["--microsim", "--agent-kind", "expert"]))) == 51
+    import convert_orbax_torch
+    from simlingo_tpu_torch.core.config import TrainConfig
+    template = convert_orbax_torch._template(TrainConfig())
+    assert len(template.optimizer.param_groups[0]["params"]) == len(template.trainable)
 
     import dataclasses
     from simlingo_tpu_torch.core.config import compose
@@ -202,6 +239,22 @@ def test_port_imports_no_jax_and_runs_agent_on_cpu():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.strip().endswith("ok"), res.stdout
+
+
+def test_orbax_converter_imports_nothing_of_the_jax_package():
+    """convert_orbax_torch.py's imports, anywhere in the file: orbax (and
+    through it jax), numpy, torch, the standard library and the port."""
+    import ast
+    tree = ast.parse((ROOT / "convert_orbax_torch.py").read_text())
+    tops = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            tops |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            tops.add(node.module.split(".")[0])
+    assert {"orbax", "simlingo_tpu_torch"} <= tops
+    assert tops <= {"orbax", "numpy", "torch", "simlingo_tpu_torch", "__future__",
+                    "argparse", "json", "os", "shutil", "sys", "typing"}, tops
 
 
 def test_chip_smoke_refuses_without_gpu(tmp_path):
