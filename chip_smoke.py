@@ -250,11 +250,24 @@ Phases, in order; any failure exits non-zero:
      1024x512 camera, data_save_freq 5, seed 0, into the trainer's Town*
      layout: each route's ticks, saved frames, status (Completed or
      Perfect) and tick ms p50 / max split into expert, camera and write,
-     both routes through data/index's quality gate; trainer.train on them
-     (configs/simlingo.yaml, JAX's default model, batch 6, the language
-     tasks and the dreamer mix off) for COLLECT_STEPS steps: ms a step,
-     peak memory, finite losses, attention launches a step exactly as
-     train_launches_per_step reckons them (`collect_train`); then
+     both routes through data/index's quality gate; the port's label
+     generators over them (collect_dataset_torch.run_label_generation:
+     per route the ms of commentary, VQA and dreamer and the files each
+     wrote, the buckets' classes; failing where a route has no VQA or no
+     commentary file, or no buckets file: `collect_label`); trainer.train
+     on them (configs/simlingo.yaml as it stands, JAX's default model,
+     batch 6; commentary, QA, the dreamer mix and the 16 buckets on, the
+     generated buckets as bucket_path; a 1024-token window for the
+     byte-level tokenizer's prompts) for COLLECT_STEPS steps: the
+     buckets, datasets and answer tokens of each step's batch, the
+     language and waypoint losses, ms a step, peak memory, finite losses,
+     attention launches a step exactly as train_launches_per_step reckons
+     them, the trainer's final checkpoint and the trained model written
+     as a trained-SimLingo .pt (`collect_train`); that .pt through
+     sim/suite.load_model_agent (the trained model's configuration, the
+     default AgentConfig, bf16) in closed loop on LOOP_ROUTE for LOOP_TICKS ticks: each tick's ms split into
+     camera, agent and world, launches exactly as serve_launches reckons
+     them, the record's scores finite (`collect_loop`); then
      agent/replay.replay_route of the first route through
      sim/suite.load_model_agent (the default AgentConfig, bf16) for
      REPLAY_FRAMES frames: each frame's ms and launches exactly as
@@ -266,7 +279,8 @@ Phases, in order; any failure exits non-zero:
      mesh_tp2 / mesh_sp2 / mesh_pp2 / base_tp2 (both ranks'),
      the base cells' <cell>_fwd,
      <cell>_train and <cell>_train_gated, train_disk, carla_plugin,
-     eval_language, microsim, collect_train, collect_replay; the attention kernels also each built head dim's
+     eval_language, microsim, collect_train, collect_loop, collect_replay; the attention
+     kernels also each built head dim's
      instance at a phase-2 case and the base paths' launches by head dim),
      the nvidia-smi line, and the last line {"ok": true, "device": {...}}.
 Per-case results also go to chiprun_out/chip_smoke_cases.json, the paths'
@@ -536,10 +550,22 @@ HEAD_DIM_ATTENTION = [
     ("d128_gqa_split", 2, 16, 333, 16, 2, True, 317, [(10, 333)], False, 128),
     ("d128_gqa", 2, 333, 333, 16, 2, True, None, None, False, 128),
     ("tiny_clip", 4, 17, 17, 4, 4, False, None, None, False, 16),
-    ("tiny_llm", 2, 43, 43, 2, 2, True, None, None, False, 16),
-    ("shardable_vit", 4, 17, 17, 4, 4, False, None, None, True, 32),
-    ("shardable_llm", 2, 128, 128, 8, 2, True, None, [(8, 128)], False, 32)]
-ATTN_HEAD_DIM = {c[0]: c[10] for c in HEAD_DIM_ATTENTION}
+    ("tiny_llm", 2, 43, 43, 2, 2, True, None, None, False, 16)]
+
+
+def head_dim_attention():
+    """HEAD_DIM_ATTENTION, then presets.small_shardable's two cases, their
+    shapes read from the preset: the ViT's 4 tiles of (S / P)^2 + 1
+    tokens, and the LLM at 128 tokens, the first 8 keys masked."""
+    from simlingo_tpu_torch.core.presets import small_shardable
+    m = small_shardable()
+    v, l = m.vit, m.llm
+    n = (v.image_size // v.patch_size) ** 2 + 1
+    return HEAD_DIM_ATTENTION + [
+        ("shardable_vit", 4, n, n, v.num_heads, v.num_heads, False, None, None, True,
+         v.hidden_size // v.num_heads),
+        ("shardable_llm", 2, 128, 128, l.num_heads, l.num_kv_heads, True, None, [(8, 128)],
+         False, l.head_dim)]
 
 # tp = 2 (`mesh_tp2`): a rank's half of the heads, Qwen2's 7 query heads over
 # its 1 kv head (the GQA group of 7 kept) and 8 of the ViT's 16; last in
@@ -564,8 +590,8 @@ BASE_TP_ATTENTION = [("clip_tp2", 32, 577, 577, 8, 8, False, None, None, False),
 
 def head_dim(case):
     """The head dim of a phase-2 attention case (64 unless listed in
-    HEAD_DIM_ATTENTION)."""
-    return ATTN_HEAD_DIM.get(case[0], 64)
+    `head_dim_attention`)."""
+    return {c[0]: c[10] for c in head_dim_attention()}.get(case[0], 64)
 
 
 # the offline evaluation (phase 9): greedy batches of 8, 100 new tokens,
@@ -646,7 +672,7 @@ def attention_inputs(torch, dev):
     cases = attention_cases() + [
         ("llm_train", 6, 798, 798, 14, 2, True, None, "train", False),
         ("vit_train", 12, 1025, 1025, 16, 16, False, None, None, True)] + BASE_ATTENTION \
-        + eval_attention_cases(prompt_valid) + [c[:10] for c in HEAD_DIM_ATTENTION] \
+        + eval_attention_cases(prompt_valid) + [c[:10] for c in head_dim_attention()] \
         + TP_ATTENTION + RING_ATTENTION + BASE_TP_ATTENTION
     train_valid = train_llm_valid(torch, dev)
     for case in cases:
@@ -1021,11 +1047,11 @@ def attention_bwd_cases():
     """(name, B, T, HQ, HK, causal, strided, D) of phase 2's attention
     backward: the four training shapes of head dim 64 (the LoRA step's LLM
     and ViT, SimLingo-Base's CLIP and LLaMA), then the self-attention
-    cases of HEAD_DIM_ATTENTION, then TP_ATTENTION's and BASE_TP_ATTENTION's."""
+    cases of `head_dim_attention`, then TP_ATTENTION's and BASE_TP_ATTENTION's."""
     return [("llm_train", 6, 798, 14, 2, True, False, 64),
             ("vit_train", 12, 1025, 16, 16, False, True, 64),
             *((c[0], c[1], c[2], c[4], c[5], c[6], c[9], head_dim(c)) for c in BASE_ATTENTION
-              + [c for c in HEAD_DIM_ATTENTION if c[2] == c[3]] + TP_ATTENTION
+              + [c for c in head_dim_attention() if c[2] == c[3]] + TP_ATTENTION
               + BASE_TP_ATTENTION)]
 
 
@@ -2996,15 +3022,16 @@ def small_remat_agreement(torch, dev):
 
 def small_int4_cfg(tok):
     """A small model whose LLM reduction widths are multiples of 128 (the
-    LLM of presets.small_shardable: 256 / 512, head dim 32)."""
+    LLM of presets.small_shardable: 256 / 512, head dim 32, over the
+    tokenizer's vocabulary)."""
+    import dataclasses
+    from simlingo_tpu_torch.core.presets import small_shardable
     from simlingo_tpu_torch.models import simlingo
-    from simlingo_tpu_torch.models.qwen2 import Qwen2Config
     from simlingo_tpu_torch.models.vit import ViTConfig
     return simlingo.SimLingoConfig(
         vit=ViTConfig(hidden_size=128, num_layers=2, num_heads=2, intermediate_size=256,
                       image_size=448, patch_size=56, projector_out=256),
-        llm=Qwen2Config(vocab_size=tok.tk.vocab_size + 8, hidden_size=256, num_layers=2,
-                        num_heads=8, num_kv_heads=2, head_dim=32, intermediate_size=512),
+        llm=dataclasses.replace(small_shardable().llm, vocab_size=tok.tk.vocab_size + 8),
         img_context_token_id=tok.img_context_id)
 
 
@@ -4436,6 +4463,97 @@ def _p50_max(xs):
     return (xs[len(xs) // 2], xs[-1]) if xs else (float("nan"), float("nan"))
 
 
+def drive_closed_loop(torch, agent, spec, ticks, record_dir=None, profile_tick=None):
+    """`sim/runner.run_route` of `spec` through `model_factory(agent)` for
+    `ticks` ticks: each tick's host ms split into the camera's render, the
+    agent's step (ending in a synchronize) and the rest (world tick,
+    scripted scenarios, criteria, the recorder's log), with the tokens,
+    the hand kernels' launches of its agent step and the control applied;
+    tick `profile_tick`'s agent step runs under `device_profile`. Returns
+    (record, ticks, that profile, wall s, launches over the route)."""
+    from simlingo_tpu_torch.sim import runner as R
+    kernels = kernel_fns()
+    out_ticks, cur, prof = [], {}, {}
+    inner, factory = agent.run_step, R.model_factory(agent)
+
+    def run_step(frame):
+        before = {k: fn.launches for k, fn in kernels.items()}
+        t = time.perf_counter()
+        if len(out_ticks) == profile_tick:
+            box = []
+            prof.update(device_profile(torch, lambda: box.append(inner(frame)),
+                                       f"closed-loop tick {len(out_ticks)}"))
+            out = box[0]
+        else:
+            out = inner(frame)
+        torch.cuda.synchronize()
+        cur.update(agent_ms=(time.perf_counter() - t) * 1e3,
+                   tokens=len(out["language_tokens"]),
+                   launches={k: fn.launches - before[k] for k, fn in kernels.items()
+                             if fn.launches - before[k]})
+        return out
+
+    def make(world, route, scen):
+        driver = factory(world, route, scen)
+        render, step = driver.camera.render, driver.step
+
+        def timed_render(w, **kw):
+            t = time.perf_counter()
+            out = render(w, **kw)
+            cur["camera_ms"] = (time.perf_counter() - t) * 1e3
+            return out
+
+        def timed_step():
+            cur.clear()
+            cur["t0"] = time.perf_counter()
+            out = step()
+            cur["t_step"] = time.perf_counter()
+            return out
+        driver.camera.render, driver.step = timed_render, timed_step
+        return driver
+
+    def on_tick(world, criteria):
+        t = time.perf_counter()
+        out_ticks.append(dict(camera_ms=cur["camera_ms"], agent_ms=cur["agent_ms"],
+                              world_ms=(t - cur["t_step"]) * 1e3, ms=(t - cur["t0"]) * 1e3,
+                              tokens=cur["tokens"], launches=cur["launches"],
+                              control=list(world.ego.control)))
+
+    agent.run_step = run_step
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    try:
+        rec = R.run_route(spec, make, max_steps=ticks, record_dir=record_dir, on_tick=on_tick)
+        torch.cuda.synchronize()
+    finally:
+        agent.run_step = inner
+    wall_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+    return rec, out_ticks, prof, wall_s, launches
+
+
+def held_ticks(tag, m, ticks, spec_stats, n_ticks, profile_tick=None):
+    """Each tick of `drive_closed_loop` (the first plain CoT, then
+    speculative: `spec_stats` holds a round count a speculative tick)
+    logged, its launches held exactly to `serve_launches` of its work and
+    its control finite; True if all are and there are `n_ticks`."""
+    ok = len(ticks) == n_ticks == len(spec_stats) + 1
+    for i, t in enumerate(ticks):
+        rounds = None if i == 0 else spec_stats[i - 1][0]
+        want = serve_launches(m, t["tokens"], rounds)
+        good = t["launches"] == want and all(math.isfinite(c) for c in t["control"])
+        ok &= good
+        t.update(rounds=rounds, reckoned=want)
+        kind = "cot_plain" if i == 0 else "profiled" if i == profile_tick else "cot_spec"
+        log(f"{tag} tick {i:2d} {kind:9s} {t['ms']:9.2f} ms: "
+            f"camera {t['camera_ms']:.2f}, agent {t['agent_ms']:.2f}, world {t['world_ms']:.2f}; "
+            f"tokens={t['tokens']} rounds={rounds} control="
+            f"{[round(c, 4) for c in t['control']]} launches {t['launches']} "
+            f"({'= reckoned' if good else f'reckoned {want}: FAIL'})")
+    return ok
+
+
 def microsim(torch, dev, hf_path, work, plugin=None):
     """Phase 10: closed-loop evaluation in the microsim. (a) In process:
     `sim/suite.load_model_agent` on phase 7's trained-SimLingo .pt
@@ -4463,10 +4581,8 @@ def microsim(torch, dev, hf_path, work, plugin=None):
     from simlingo_tpu_torch.eval import b2d_benchmarks as B2D
     from simlingo_tpu_torch.eval import driving_score as DS
     from simlingo_tpu_torch.orchestration.babysitter import Babysitter, LocalBackend
-    from simlingo_tpu_torch.sim import runner as R
     from simlingo_tpu_torch.sim import suite as SU
     tag = "[microsim]"
-    kernels = kernel_fns()
     t0 = time.perf_counter()
     agent = SU.load_model_agent(hf_path, device=dev)
     torch.cuda.synchronize()
@@ -4478,81 +4594,15 @@ def microsim(torch, dev, hf_path, work, plugin=None):
         f"initial_frames_delay {acfg.initial_frames_delay} set to 0")
     acfg.initial_frames_delay = 0
     spec = next(s for s in SU.SUITES["micro"]() if s["route_id"] == MICROSIM_ROUTE)
-    ticks, cur, prof = [], {}, {}
-    inner = agent.run_step
-
-    def run_step(frame):
-        before = {k: fn.launches for k, fn in kernels.items()}
-        t = time.perf_counter()
-        if len(ticks) == MICROSIM_PROFILE_TICK:
-            box = []
-            prof.update(device_profile(torch, lambda: box.append(inner(frame)),
-                                       f"microsim tick {len(ticks)}"))
-            out = box[0]
-        else:
-            out = inner(frame)
-        torch.cuda.synchronize()
-        cur.update(agent_ms=(time.perf_counter() - t) * 1e3,
-                   tokens=len(out["language_tokens"]),
-                   launches={k: fn.launches - before[k] for k, fn in kernels.items()
-                             if fn.launches - before[k]})
-        return out
-    agent.run_step = run_step
-
-    def make(world, route, scen):
-        driver = R.ModelDriver(agent, world, route)
-        render, step = driver.camera.render, driver.step
-
-        def timed_render(w, **kw):
-            t = time.perf_counter()
-            out = render(w, **kw)
-            cur["camera_ms"] = (time.perf_counter() - t) * 1e3
-            return out
-
-        def timed_step():
-            cur.clear()
-            cur["t0"] = time.perf_counter()
-            out = step()
-            cur["t_step"] = time.perf_counter()
-            return out
-        driver.camera.render, driver.step = timed_render, timed_step
-        return driver
-
-    def on_tick(world, criteria):
-        t = time.perf_counter()
-        ticks.append(dict(camera_ms=cur["camera_ms"], agent_ms=cur["agent_ms"],
-                          world_ms=(t - cur["t_step"]) * 1e3, ms=(t - cur["t0"]) * 1e3,
-                          tokens=cur["tokens"], launches=cur["launches"],
-                          control=list(world.ego.control)))
-
     record_dir = os.path.join(work, "microsim_records")
-    for fn in kernels.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    rec = R.run_route(spec, make, max_steps=MICROSIM_TICKS, record_dir=record_dir,
-                      on_tick=on_tick)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in kernels.items() if fn.launches}
-    agent.run_step = inner
+    rec, ticks, prof, wall_s, launches = drive_closed_loop(
+        torch, agent, spec, MICROSIM_TICKS, record_dir=record_dir,
+        profile_tick=MICROSIM_PROFILE_TICK)
     spec_stats = list(agent.spec_stats)
     agent.close()
     del agent
     torch.cuda.empty_cache()
-
-    ok = len(ticks) == MICROSIM_TICKS == len(spec_stats) + 1
-    for i, t in enumerate(ticks):
-        rounds = None if i == 0 else spec_stats[i - 1][0]
-        want = serve_launches(m, t["tokens"], rounds)
-        good = t["launches"] == want and all(math.isfinite(c) for c in t["control"])
-        ok &= good
-        t.update(rounds=rounds, reckoned=want)
-        kind = "cot_plain" if i == 0 else "profiled" if i == MICROSIM_PROFILE_TICK else "cot_spec"
-        log(f"{tag} tick {i:2d} {kind:9s} {t['ms']:9.2f} ms: "
-            f"camera {t['camera_ms']:.2f}, agent {t['agent_ms']:.2f}, world {t['world_ms']:.2f}; "
-            f"tokens={t['tokens']} rounds={rounds} control="
-            f"{[round(c, 4) for c in t['control']]} launches {t['launches']} "
-            f"({'= reckoned' if good else f'reckoned {want}: FAIL'})")
+    ok = held_ticks(tag, m, ticks, spec_stats, MICROSIM_TICKS, MICROSIM_PROFILE_TICK)
     spec_ticks = [t for i, t in enumerate(ticks) if i not in (0, MICROSIM_PROFILE_TICK)]
     split = {k: _p50_max([t[k] for t in spec_ticks])
              for k in ("ms", "camera_ms", "agent_ms", "world_ms")}
@@ -4656,7 +4706,18 @@ COLLECT_ROUTES = (
      "npcs": [{"at_s": 35.0, "lane": 0, "speed": 5.0}]})
 COLLECT_LAYOUT = "data/simlingo/v1/b0/routes_training"     # the trainer's Town* layout
 COLLECT_STEPS = 3                        # training on them: 1 warm-up + 2 timed steps
+# the labelled training's token window. Without the InternVL2 tokenizer
+# (no download) the byte-level fallback spells a text byte a token, so
+# prompts of the collected routes' labels run past the yaml's 768 beside
+# the 512 image tokens (at 768 the first three steps drew one of 802, and
+# JAX's collate raises on it as the port's does). The window is the one
+# cut of the yaml's data.
+COLLECT_TEXT_LEN = 1024
 REPLAY_FRAMES = 4                        # the first plain CoT, then speculative
+# the trained model's closed loop: a straight route without scenarios, as
+# tests/test_microsim_full_loop.py drives its trained agent
+LOOP_ROUTE = {"town": "straight", "start_s": 5.0, "end_s": 100.0, "route_id": "collect_loop"}
+LOOP_TICKS = 8                           # the first plain CoT, then speculative
 
 
 def collect_routes(work):
@@ -4752,23 +4813,65 @@ def collect_routes(work):
     return ok, dict(routes=routes, index_samples=len(idx), index_routes=kept), root
 
 
-def collect_training(torch, dev, root):
-    """`trainer.train` on the collected routes at full width: configs/
-    simlingo.yaml (JAX's default model, SimLingoConfig(); batch 6), the
-    language tasks and the dreamer mix switched off (their labels come
-    with the label generators), COLLECT_STEPS steps: ms a step over the
-    timed ones, peak memory, finite losses, and the hand kernels' launches
-    a step held exactly to `train_launches_per_step`."""
+def collect_label(root):
+    """(ok, stats): `collect_dataset_torch.run_label_generation` over the
+    collected root: per route the ms of each generator (commentary, VQA,
+    dreamer) and the files it wrote, then the buckets' classes and
+    assignments. Fails where a route has no VQA or no commentary file, or
+    where `bucketsv2_simlingo/buckets_paths.pkl` is missing."""
+    import collect_dataset_torch as CDT
+    tag = "[collect_label]"
+    t0 = time.perf_counter()
+    stats = CDT.run_label_generation(root)
+    stats["seconds"] = time.perf_counter() - t0
+    ok = len(stats["routes"]) == len(COLLECT_ROUTES)
+    for route, gens in stats["routes"].items():
+        good = gens["vqa"]["files"] > 0 and gens["commentary"]["files"] > 0
+        ok &= good
+        log(f"{tag} {os.path.basename(route)}: " + ", ".join(
+            f"{name} {g['ms']:.1f} ms -> {g['files']} files" for name, g in gens.items())
+            + f" {'OK' if good else 'FAIL: no VQA or no commentary'}")
+    pkl = os.path.join(stats["bucket_dir"], "buckets_paths.pkl")
+    good = os.path.isfile(pkl)
+    ok &= good
+    classes = stats["buckets"]
+    log(f"{tag} buckets in {stats['buckets_ms']:.1f} ms: {len(classes)} classes, "
+        f"{sum(classes.values())} assignments {json.dumps(dict(sorted(classes.items())))}; "
+        f"{os.path.relpath(pkl, root)} {'written' if good else 'MISSING'}; labelling "
+        f"{stats['seconds']:.2f} s in all")
+    return ok, stats
+
+
+def collect_training(torch, dev, root, work):
+    """`trainer.train` on the labelled routes at full width:
+    configs/simlingo.yaml as it stands (JAX's default model,
+    SimLingoConfig(); batch 6; commentary, QA and the dreamer mix on; the
+    16 driving buckets) with `data.bucket_path` the generated buckets, and
+    only the data root, use_town13=false, the steps and the output
+    directory overridden (and, under the byte-level fallback tokenizer, the
+    token window: COLLECT_TEXT_LEN), COLLECT_STEPS steps: the buckets and
+    datasets each step's batch drew from and its answer tokens (the
+    trainer's own step records), the logged language and waypoint losses,
+    ms a step over the timed ones, peak memory, finite losses, and the
+    hand kernels' launches a step held exactly to
+    `train_launches_per_step`. The trained parameters are then written as
+    a trained-SimLingo .pt (`checkpoint.save_hf_checkpoint`), the form
+    phase 7's .pt takes to phases 8-10; returns (ok, stats, the .pt, the
+    trained model's configuration)."""
+    from simlingo_tpu_torch.core import checkpoint as ckpt
     from simlingo_tpu_torch.core.config import compose
+    from simlingo_tpu_torch.data.tokenizer import SimLingoTokenizer
     from simlingo_tpu_torch.train import trainer
     tag = "[collect_train]"
     kernels = kernel_fns()
+    bucket_dir = os.path.join(root, "bucketsv2_simlingo")
     cfg = compose("configs/simlingo.yaml", [
-        f"data.data_root={root}", "data.base.use_town13=false",
-        "data.base.use_commentary=false", "data.base.use_qa=false", "data.use_dreamer=false",
-        f"max_steps={COLLECT_STEPS}", "val_every_n_epochs=0", "data.num_workers=8",
-        "log_every_n_steps=1", "visualise_every_n_steps=0", "output_dir=", "name=collect"])
-    m = cfg.model
+        f"data.data_root={root}", f"data.bucket_path={bucket_dir}",
+        "data.base.use_town13=false", f"max_steps={COLLECT_STEPS}",
+        f"output_dir={os.path.join(work, 'collect_runs')}"])
+    if SimLingoTokenizer(cfg.tokenizer_path).is_fallback:
+        cfg.data.max_text_len = COLLECT_TEXT_LEN
+    m, d = cfg.model, cfg.data
     per_step = []
 
     def count_steps(step, _):
@@ -4779,6 +4882,7 @@ def collect_training(torch, dev, root):
         elif step == COLLECT_STEPS - 1:
             per_step.append({k: fn.launches / (COLLECT_STEPS - 1) for k, fn in kernels.items()
                              if fn.launches})
+
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
@@ -4792,16 +4896,36 @@ def collect_training(torch, dev, root):
     recs = out["records"]
     timed = recs[1:]
     ok = len(recs) == COLLECT_STEPS and all(
-        math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in recs)
+        math.isfinite(r[k]) for r in recs
+        for k in ("loss", "grad_norm", "language_loss", "route_loss", "speed_wps_loss"))
     ms = sum(r["ms"] for r in timed) / len(timed)
-    log(f"{tag} configs/simlingo.yaml, language and dreamer off: batch {cfg.data.batch_size}, "
-        f"{cfg.data.max_text_len} tokens; ViT {m.vit.num_layers}x{m.vit.hidden_size}, Qwen2 "
-        f"{m.llm.num_layers}x{m.llm.hidden_size}, LoRA r={m.llm.lora_r}, remat_vision="
-        f"{m.remat_vision} remat_llm={m.remat_llm}")
+    log(f"{tag} configs/simlingo.yaml: batch {d.batch_size}, {d.max_text_len} tokens, "
+        f"commentary={d.base.use_commentary} qa={d.base.use_qa} dreamer={d.use_dreamer}, "
+        f"bucket_path {os.path.relpath(d.bucket_path, root)}, {len(d.train_partitions)} driving "
+        f"buckets; ViT {m.vit.num_layers}x{m.vit.hidden_size}, Qwen2 {m.llm.num_layers}x"
+        f"{m.llm.hidden_size}, LoRA r={m.llm.lora_r}, remat_vision={m.remat_vision} "
+        f"remat_llm={m.remat_llm}")
+    good = (d.base.use_commentary and d.base.use_qa and d.use_dreamer
+            and all(r.get("buckets") for r in recs))
+    ok &= good
+    draws = []
+    for r in recs:
+        dreamer = sum(n for k, n in r["buckets"].items() if k.endswith("_dreamer"))
+        draws.append(dict(buckets=r["buckets"], answer_tokens=r["answer_tokens"],
+                          longest_prompt=r["longest_prompt"],
+                          datasets={"driving": sum(r["buckets"].values()) - dreamer,
+                                    "dreamer": dreamer}))
+        log(f"{tag} step {r['step']}: buckets {r['buckets']}, datasets "
+            f"{draws[-1]['datasets']}, answer tokens {r['answer_tokens']}, longest prompt "
+            f"{r['longest_prompt']} of {d.max_text_len}; loss {r['loss']:.5f} (language "
+            f"{r['language_loss']:.5f}, route {r['route_loss']:.5f}, speed_wps "
+            f"{r['speed_wps_loss']:.5f}), grad_norm {r['grad_norm']:.4f}")
+    log(f"{tag} answer tokens over the run {sum(b['answer_tokens'] for b in draws)}; "
+        f"dreamer samples drawn {sum(b['datasets']['dreamer'] for b in draws)} (reported, "
+        f"not held: the draw is the seed's){'' if good else ': FAIL (language off or no draw)'}")
     log(f"{tag} steps: ms {[round(r['ms'], 2) for r in recs]}, the {len(timed)} timed "
-        f"{ms:.2f} ms a step ({cfg.data.batch_size * 1e3 / ms:.3f} samples/s); host batch ms "
-        f"{[round(r['host_ms'], 1) for r in recs]}; loss {[round(r['loss'], 5) for r in recs]} "
-        f"grad_norm {[round(r['grad_norm'], 4) for r in recs]} "
+        f"{ms:.2f} ms a step ({d.batch_size * 1e3 / ms:.3f} samples/s); host batch ms "
+        f"{[round(r['host_ms'], 1) for r in recs]}; "
         f"{'finite' if ok else 'FAIL'}; peak {peak / 2 ** 30:.2f} GiB; whole run {run_s:.1f} s")
     want = {k: n for k, n in train_launches_per_step(m).items() if n}
     got = per_step[0] if per_step else {}
@@ -4809,8 +4933,22 @@ def collect_training(torch, dev, root):
     ok &= good
     log(f"{tag} launches a step over steps 2-{COLLECT_STEPS}: {got}, reckoned {want} "
         f"(train_launches_per_step) {'OK' if good else 'FAIL'}; over the run {launches}")
+    t0 = time.perf_counter()
+    trained = out["model_cfg"]
+    pt = ckpt.save_hf_checkpoint(os.path.join(work, "collect_model.pt"), out["state"].params,
+                                 trained)
+    save_s = time.perf_counter() - t0
+    ckpt.wait_for_checkpoints()
+    final = ckpt.latest_checkpoint(os.path.join(work, "collect_runs", cfg.name, "checkpoints"))
+    good = final is not None and final.endswith(f"step_{COLLECT_STEPS:08d}")
+    ok &= good
+    log(f"{tag} the trainer's final checkpoint {os.path.relpath(final, work) if final else None}; "
+        f"the trained model as a trained-SimLingo .pt: {os.path.getsize(pt) / 1e9:.3f} GB "
+        f"in {save_s:.2f} s {'OK' if good else 'FAIL'}")
+    del out
     return ok, dict(records=recs, ms_per_step=ms, peak_bytes=peak, run_s=run_s,
-                    launches=launches, launches_per_step=got)
+                    launches=launches, launches_per_step=got, draws=draws,
+                    pt_bytes=os.path.getsize(pt), pt_save_s=save_s), pt, trained
 
 
 def collect_replay(torch, dev, hf_path, route_dir, plugin=None):
@@ -4877,15 +5015,73 @@ def collect_replay(torch, dev, hf_path, route_dir, plugin=None):
     return ok, dict(setup_s=setup_s, frames=frames, spec_stats=spec_stats, launches=launches)
 
 
-def collect(torch, dev, hf_path, work, plugin=None):
-    """Phase 10b: collect COLLECT_ROUTES with the expert, train on them
-    (`collect_train`), replay the first through the default agent
-    (`collect_replay`); all in `work`, which the caller removes."""
+def collect_loop(torch, dev, pt_path, model_cfg, microsim_ticks=None):
+    """The trained model in closed loop: `sim/suite.load_model_agent` on
+    `collect_training`'s .pt with the trained model's configuration
+    (`model_cfg`, held equal to the agent's) and the default AgentConfig
+    (CoT, int8 LLM, speculative; bf16; initial_frames_delay set to 0),
+    `drive_closed_loop` of LOOP_ROUTE for LOOP_TICKS ticks: each tick's ms
+    split into camera, agent and world, launches held exactly to
+    `serve_launches`, beside phase 10's speculative ticks (`microsim_ticks`,
+    the profiled one left out); the record's scores finite, not held to a
+    value (the weights are nearly random)."""
+    from simlingo_tpu_torch.sim import suite as SU
+    tag = "[collect_loop]"
+    t0 = time.perf_counter()
+    agent = SU.load_model_agent(pt_path, device=dev, model_cfg=model_cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    m = agent.model_cfg
+    ok = m == model_cfg
+    agent.cfg.initial_frames_delay = 0
+    rec, ticks, _, wall_s, launches = drive_closed_loop(torch, agent, LOOP_ROUTE, LOOP_TICKS)
+    spec_stats = list(agent.spec_stats)
+    agent.close()
+    del agent
+    torch.cuda.empty_cache()
+    ok &= held_ticks(tag, m, ticks, spec_stats, LOOP_TICKS)
+    split = {k: _p50_max([t[k] for t in ticks[1:]])
+             for k in ("ms", "camera_ms", "agent_ms", "world_ms")}
+    beside = "phase 10 not run"
+    if microsim_ticks:
+        spec = [t["ms"] for i, t in enumerate(microsim_ticks)
+                if i not in (0, MICROSIM_PROFILE_TICK)]
+        beside = f"phase 10's speculative ticks p50 / max {'%.2f / %.2f' % _p50_max(spec)} ms"
+    log(f"{tag} load_model_agent({os.path.basename(pt_path)}) in {setup_s:.1f} s, the "
+        f"trained configuration (ViT gelu_approximate={m.vit.gelu_approximate}, LoRA "
+        f"r={m.llm.lora_r}) {'OK' if m == model_cfg else 'FAIL: not the trained model'}; "
+        f"{len(ticks) - 1} speculative ticks p50 / max: tick {split['ms'][0]:.2f} / "
+        f"{split['ms'][1]:.2f} ms = camera {split['camera_ms'][0]:.2f} / "
+        f"{split['camera_ms'][1]:.2f} + agent {split['agent_ms'][0]:.2f} / "
+        f"{split['agent_ms'][1]:.2f} + world {split['world_ms'][0]:.2f} / "
+        f"{split['world_ms'][1]:.2f}; the first (plain CoT) {ticks[0]['ms']:.2f} ms; {beside}")
+    good = (all(math.isfinite(v) for v in rec["scores"].values())
+            and rec["meta"]["duration_game"] == round(LOOP_TICKS * 0.05, 3))
+    ok &= good
+    log(f"{tag} {LOOP_ROUTE['route_id']} after {len(ticks)} ticks ({wall_s:.1f} s): status "
+        f"{rec['status']!r}, scores {rec['scores']} {'finite' if good else 'FAIL'}; "
+        f"launches over the route {launches}")
+    return ok, dict(setup_s=setup_s, wall_s=wall_s, ticks=ticks, spec_stats=spec_stats,
+                    split_p50_max=split, record=rec, launches=launches)
+
+
+def collect(torch, dev, hf_path, work, plugin=None, microsim_ticks=None):
+    """Phase 10b: collect COLLECT_ROUTES with the expert, label them
+    (`collect_label`), train on them with language, dreamer and buckets on
+    (`collect_train`), drive the trained model in closed loop
+    (`collect_loop`), replay the first route through the default agent on
+    `hf_path` (`collect_replay`); all in `work`, which the caller
+    removes."""
     t0 = time.perf_counter()
     ok, routes, root = collect_routes(work)
     stats = dict(collect=routes)
     if ok:
-        ok, stats["train"] = collect_training(torch, dev, root)
+        ok, stats["label"] = collect_label(root)
+    if ok:
+        ok, stats["train"], pt, trained = collect_training(torch, dev, root, work)
+        torch.cuda.empty_cache()
+    if ok:
+        ok, stats["loop"] = collect_loop(torch, dev, pt, trained, microsim_ticks)
     if ok:
         first = os.path.join(root, COLLECT_LAYOUT, f"Town12_{COLLECT_ROUTES[0]['route_id']}")
         ok, stats["replay"] = collect_replay(torch, dev, hf_path, first, plugin)
@@ -4991,7 +5187,7 @@ def disk_and_eval_phases(torch, dev, per_frame=None):
             torch.cuda.empty_cache()
         if ok:
             ok, after["collect"] = collect(torch, dev, written["hf_checkpoint"], work,
-                                           after["carla_plugin"])
+                                           after["carla_plugin"], after["microsim"]["ticks"])
             torch.cuda.empty_cache()
     finally:
         ckpt.wait_for_checkpoints()
@@ -5092,6 +5288,7 @@ def run_path_phases(torch, dev, cases) -> int:
                 "eval_language": eval_stats["eval_language"]["launches"],
                 "microsim": eval_stats["microsim"]["launches"],
                 "collect_train": eval_stats["collect"]["train"]["launches"],
+                "collect_loop": eval_stats["collect"]["loop"]["launches"],
                 "collect_replay": eval_stats["collect"]["replay"]["launches"]}
     print(json.dumps(kernel_line(cases, launches, base_by_dim)), flush=True)
     print(smi, flush=True)

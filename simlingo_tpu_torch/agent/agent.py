@@ -54,9 +54,10 @@ class AgentFrame:
 
 def _prepare(tree, device, dtype, keep=False):
     """Move a parameter tree to `device`, casting floating leaves to dtype;
-    int8 / int4 scales (siblings of "w_q") stay fp32."""
+    int8 / int4 scales (siblings of "w_q") stay fp32. Leaves are detached:
+    a trainer's parameters serve as they are."""
     if not isinstance(tree, dict):
-        t = tree.to(device)
+        t = tree.detach().to(device)
         return t if keep or not t.is_floating_point() else t.to(dtype)
     quantized = "w_q" in tree
     return {k: _prepare(v, device, dtype, keep=quantized and k == "scale")

@@ -27,6 +27,10 @@ Counterpart of `simlingo_tpu/core/checkpoint.py` (`save_checkpoint` :45,
     shards (a stage: its layers' alone), so a run saved on N ranks, at
     any mesh, resumes on M.
 
+`save_hf_checkpoint` writes a trained model's parameters as the `.pt` of
+a trained SimLingo (`hf_convert.simlingo_to_torch`), the form that
+`load_hf_checkpoint` and `sim/suite.load_model_agent` read.
+
 `load_hf_checkpoint` reads a `.bin` / `.pt` with `torch.load(weights_only=
 True)` and a `.safetensors` with `read_safetensors`, the port's own reader
 of that format (the `safetensors` package is not needed).
@@ -331,6 +335,18 @@ def load_hf_checkpoint(path: str, cfg, lora_merge: bool = True,
     if lora_tree is not None and lora_tree["layers"]:
         params["lora"] = lora_tree
     return params
+
+
+def save_hf_checkpoint(path: str, params, cfg) -> str:
+    """`params` (a SimLingo tree, any device) -> `path`, a torch state dict
+    in the trained-SimLingo layout, every tensor a contiguous CPU copy in
+    its leaf's own dtype."""
+    from simlingo_tpu_torch.core.hf_convert import simlingo_to_torch
+    sd = {k: v.detach().to("cpu").contiguous()
+          for k, v in simlingo_to_torch(params, cfg).items()}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(sd, path)
+    return path
 
 
 def _mlp_stack(sd, prefix: str, layer_indices) -> Dict[str, Any]:

@@ -204,3 +204,78 @@ def merge_lora_inplace(sd: Dict[str, Any], alpha: float, r: int) -> Dict[str, An
         else:
             out[k] = v
     return {_clean(k): v for k, v in out.items()}
+
+
+# ---------------------------------------------------------------------------
+# the port's tree -> a trained-SimLingo state dict
+# ---------------------------------------------------------------------------
+
+def _put_linear(sd: Dict[str, Any], prefix: str, p: Mapping[str, Any]) -> None:
+    sd[f"{prefix}.weight"] = p["w"]
+    if "b" in p:
+        sd[f"{prefix}.bias"] = p["b"]
+
+
+def simlingo_to_torch(params: Mapping[str, Any], cfg) -> Dict[str, Any]:
+    """The inverse of `checkpoint.load_hf_checkpoint` on a trained SimLingo
+    (DrivingModel names: `vision_model.model.*` with the remote-code fused
+    qkv and the mlp1 projector, `language_model.model.model.*`, the
+    driving adaptors and the waypoint encoder). A `params["lora"]` tree is
+    merged into the LLM's linears (`qwen2.merge_lora`: W += alpha / r * B A),
+    so the dict holds no peft names. Tensors keep their device and dtype."""
+    sd: Dict[str, Any] = {}
+    v, vc = params["vision"], cfg.vit
+    vp = "vision_model.model.vision_model."
+    w = v["patch_embed"]["w"]               # [out, (kh, kw, in)] -> OIHW
+    P = vc.patch_size
+    sd[vp + "embeddings.patch_embedding.weight"] = \
+        w.reshape(w.shape[0], P, P, -1).permute(0, 3, 1, 2).contiguous()
+    sd[vp + "embeddings.patch_embedding.bias"] = v["patch_embed"]["b"]
+    sd[vp + "embeddings.class_embedding"] = v["cls_token"]
+    sd[vp + "embeddings.position_embedding"] = v["pos_embed"]
+    for i in range(vc.num_layers):
+        lay, lp = v["layers"][str(i)], vp + f"encoder.layers.{i}."
+        a = lay["attn"]
+        sd[lp + "attn.qkv.weight"] = torch.cat([a[n]["w"] for n in "qkv"])
+        if "b" in a["q"]:
+            sd[lp + "attn.qkv.bias"] = torch.cat([a[n]["b"] for n in "qkv"])
+        _put_linear(sd, lp + "attn.proj", a["o"])
+        for n in ("1", "2"):
+            sd[lp + f"norm{n}.weight"] = lay[f"ln{n}"]["scale"]
+            sd[lp + f"norm{n}.bias"] = lay[f"ln{n}"]["bias"]
+            sd[lp + f"ls{n}"] = lay[f"ls{n}"]
+            _put_linear(sd, lp + f"mlp.fc{n}", lay["mlp"][f"fc{n}"])
+    pr, mp = v["projector"], "vision_model.model.mlp1."
+    sd[mp + "0.weight"], sd[mp + "0.bias"] = pr["ln"]["scale"], pr["ln"]["bias"]
+    _put_linear(sd, mp + "1", pr["fc1"])
+    _put_linear(sd, mp + "3", pr["fc2"])
+
+    l, lc = params["llm"], cfg.llm
+    if params.get("lora", {}).get("layers"):
+        from simlingo_tpu_torch.models.qwen2 import merge_lora
+        l = merge_lora(l, params["lora"], lc)
+    pre = "language_model.model.model."
+    sd[pre + "embed_tokens.weight"] = l["embed"]["w"]
+    sd[pre + "norm.weight"] = l["final_norm"]["scale"]
+    if "lm_head" in l:
+        sd[pre + "lm_head.weight"] = l["lm_head"]["w"]
+    for i in range(lc.num_layers):
+        lay, lp = l["layers"][str(i)], pre + f"layers.{i}."
+        sd[lp + "input_layernorm.weight"] = lay["ln1"]["scale"]
+        sd[lp + "post_attention_layernorm.weight"] = lay["ln2"]["scale"]
+        for n in "qkvo":
+            _put_linear(sd, f"{lp}self_attn.{n}_proj", lay["attn"][n])
+        for n in ("gate", "up", "down"):
+            _put_linear(sd, f"{lp}mlp.{n}_proj", lay["mlp"][n])
+
+    ad = params["adaptors"]
+    if "route_queries" in ad:
+        sd["adaptors.driving.query_embeds_wps"] = ad["route_queries"]
+        for j, idx in enumerate((0, 2, 4)):
+            _put_linear(sd, f"adaptors.driving.route_head.{idx}", ad["route_head"][f"l{j}"])
+    sd["adaptors.driving.query_embeds_speed"] = ad["speed_queries"]
+    for j, idx in enumerate((0, 2)):
+        _put_linear(sd, f"adaptors.driving.speed_wps_head.{idx}", ad["speed_head"][f"l{j}"])
+    for j, idx in enumerate((0, 2, 4)):
+        _put_linear(sd, f"wp_encoder.mlp.{idx}", params["wp_encoder"][f"l{j}"])
+    return sd

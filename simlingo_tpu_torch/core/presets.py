@@ -9,6 +9,11 @@ preset does not turn it off (only `tiny()`, the tests' configs and
 `bench.py`'s default BENCH_REMAT=0 do, :221-225). A caller that mirrors
 `bench.py` passes this preset with `remat_vision=False, remat_llm=False`.
 
+`production_shaped` and `small_shardable` are the JAX presets of the same
+names (:37, :56): every width at InternVL2-1B's size with the depth and
+the ViT raster cut, and a small model whose dimensions divide a
+(dp, fsdp=2, tp=2) mesh.
+
 `simlingo_base` is the base trainer's configuration: the experiment
 `configs/simlingo_base.yaml` composed over `BaseTrainConfig()`, as
 `train_base.py --experiment configs/simlingo_base.yaml` composes it.
@@ -16,6 +21,7 @@ preset does not turn it off (only `tiny()`, the tests' configs and
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 from simlingo_tpu_torch.models.qwen2 import Qwen2Config
@@ -36,6 +42,33 @@ def internvl2_1b(lora: bool = True, vocab_size: int = 151674) -> SimLingoConfig:
         speed_wps_mode="2d",
         predict_route_as_wps=True,
     )
+
+
+def production_shaped(num_layers: int = 2,
+                      image_size: int = 224) -> SimLingoConfig:
+    """InternVL2-1B's widths (ViT hidden 1024 / mlp 4096 / 16 heads, Qwen2
+    hidden 896 / mlp 4864 / 14 q + 2 kv heads, vocab 151674, LoRA r=32)
+    at `num_layers` in each tower and a `image_size` raster, remat off."""
+    full = internvl2_1b(lora=True)
+    return dataclasses.replace(
+        full,
+        vit=dataclasses.replace(full.vit, num_layers=num_layers,
+                                image_size=image_size),
+        llm=dataclasses.replace(full.llm, num_layers=num_layers),
+        remat_vision=False, remat_llm=False)
+
+
+def small_shardable() -> SimLingoConfig:
+    """A small model whose dimensions divide a (dp, fsdp=2, tp=2) mesh."""
+    return SimLingoConfig(
+        vit=ViTConfig(hidden_size=128, num_layers=2, num_heads=4,
+                      intermediate_size=256, image_size=56, patch_size=14,
+                      projector_out=256),
+        llm=Qwen2Config(vocab_size=2048, hidden_size=256, num_layers=2,
+                        num_heads=8, num_kv_heads=2, head_dim=32,
+                        intermediate_size=512),
+        img_context_token_id=1000,
+        remat_vision=False, remat_llm=False)
 
 
 SIMLINGO_BASE_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)),

@@ -57,6 +57,8 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.sl_preprocess_jpeg_batch.restype = ctypes.c_int
         lib.sl_preprocess_jpeg_batch.argtypes = batch + [ctypes.c_int] * 6 + [
             ctypes.POINTER(ctypes.c_float)]
+        lib.sl_decode_crop_batch.restype = ctypes.c_int
+        lib.sl_decode_crop_batch.argtypes = batch + [ctypes.c_int] * 3 + [_U8P]
         if lib.sl_version() != 1:
             _native_error = f"loader version {lib.sl_version()} != 1"
             return None
@@ -113,6 +115,24 @@ def decode_jpeg_batch(blobs: Sequence[bytes], h: int, w: int) -> np.ndarray:
                                   out.ctypes.data_as(_U8P), h, w)
     if rc != 0:
         raise ValueError(f"sl_decode_jpeg_batch failed rc={rc}")
+    return out
+
+
+def decode_crop_batch(blobs: Sequence[bytes], src_h: int, src_w: int,
+                      do_bottom_crop: bool = True) -> np.ndarray:
+    """n same-sized JPEG byte strings -> [n, ch, w, 3] uint8 RGB with the
+    hood cropped off (ch = src_h - (src_h * 4.8) // 16), or uncropped
+    (native; `native/__init__.py:decode_crop_batch` :149)."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(f"the native loader is unavailable: {_native_error}")
+    ch = int(src_h - (src_h * 4.8) // 16) if do_bottom_crop else src_h
+    out = np.empty((len(blobs), ch, src_w, 3), np.uint8)
+    ptrs, lens = _buffers(blobs)
+    rc = lib.sl_decode_crop_batch(ptrs, lens, len(blobs), src_h, src_w,
+                                  1 if do_bottom_crop else 0, out.ctypes.data_as(_U8P))
+    if rc != 0:
+        raise ValueError(f"sl_decode_crop_batch failed rc={rc}")
     return out
 
 

@@ -5,6 +5,8 @@
 sequence with an `<IMG_CONTEXT>` block, two waypoint placeholders, an
 assistant-only loss mask and driving labels, at the production layout.
 `base_batch` is SimLingo-Base's batch as `train_base.py:95-101` draws it.
+`synthesize_route` is `synthetic.py:synthesize_route` (:76): a route on
+disk in the collector's layout, the same bytes for the same seed.
 The arrays are drawn with numpy from the same `RandomState` sequence as
 the JAX code, so the same arguments give the same batch.
 """
@@ -95,3 +97,48 @@ def base_batch(rng: np.random.RandomState, batch: int, image_size: int,
               np.cumsum(rng.rand(B, 10, 2), 1).astype(np.float32),
               np.cumsum(rng.rand(B, 20, 2), 1).astype(np.float32))
     return BaseBatch(*(torch.from_numpy(a).to(dev) for a in arrays))
+
+
+def synthesize_route(root: str, rel: str, n_frames: int = 40,
+                     seed: int = 0, image_hw=(512, 1024)) -> str:
+    """Write a minimal on-disk route in the collector's layout (JPEG frames +
+    measurements + results) -- a straight 5 m/s drive. Exercises the full
+    JPEG-decode -> measurement-parse -> collate path without a simulator.
+    """
+    import gzip
+    import json
+    import os
+
+    import cv2
+
+    rng = np.random.RandomState(seed)
+    route = os.path.join(root, "data", "simlingo", rel)
+    os.makedirs(os.path.join(route, "measurements"), exist_ok=True)
+    os.makedirs(os.path.join(route, "rgb"), exist_ok=True)
+    for i in range(n_frames):
+        x = 1.25 * i
+        ego = [[1, 0, 0, x], [0, 1, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1]]
+        m = {
+            "pos_global": [x, 0.0], "theta": 0.0, "speed": 5.0,
+            "target_speed": 5.0, "speed_limit": 30.0,
+            "target_point": [20.0, 0.5], "target_point_next": [40.0, 1.0],
+            "command": 4, "next_command": 4,
+            "route": [[float(j), 0.02 * j] for j in range(1, 40)],
+            "route_original": [[float(j), 0.0] for j in range(1, 40)],
+            "changed_route": False,
+            "augmentation_translation": 0.3, "augmentation_rotation": 2.0,
+            "ego_matrix": ego,
+            "steer": 0.0, "throttle": 0.5, "brake": False,
+        }
+        with gzip.open(os.path.join(route, "measurements",
+                                    f"{i:04}.json.gz"), "wt") as f:
+            json.dump(m, f)
+        img = rng.randint(0, 255, (*image_hw, 3), np.uint8)
+        cv2.imwrite(os.path.join(route, "rgb", f"{i:04}.jpg"), img)
+    results = {"scores": {"score_composed": 100.0, "score_route": 100.0},
+               "num_infractions": 0,
+               "infractions": {"min_speed_infractions": [],
+                               "outside_route_lanes": []}}
+    with gzip.open(os.path.join(route, "results.json.gz"), "wt") as f:
+        json.dump(results, f)
+    return route

@@ -271,10 +271,11 @@ SUITES = {"micro": lambda: MICROBENCH, "b2d220": microbench220}
 
 
 def load_model_agent(checkpoint: Optional[str], tiny: bool = False,
-                     device="cuda"):
+                     device="cuda", model_cfg=None):
     """Build a LingoAgent from a checkpoint (`core/checkpoint.
-    load_hf_checkpoint`: presets.internvl2_1b() and the default
-    AgentConfig, in bf16), or a tiny random model for pipeline smoke tests
+    load_hf_checkpoint`: the model of `model_cfg`, by default
+    presets.internvl2_1b(), and the default AgentConfig, in bf16), or a
+    tiny random model for pipeline smoke tests
     (its weights drawn on the CPU, so that they do not depend on the
     device; fp32 on the CPU, bf16 on the GPU, where the kernels take
     bf16)."""
@@ -308,7 +309,7 @@ def load_model_agent(checkpoint: Optional[str], tiny: bool = False,
                           device=dev)
     from simlingo_tpu_torch.core import checkpoint as ckpt
     from simlingo_tpu_torch.core.presets import internvl2_1b
-    cfg = internvl2_1b()
+    cfg = model_cfg if model_cfg is not None else internvl2_1b()
     params = ckpt.load_hf_checkpoint(checkpoint, cfg)
     return LingoAgent(params, cfg, AgentConfig(), tokenizer=tok, device=dev)
 

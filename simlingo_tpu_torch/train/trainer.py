@@ -36,7 +36,9 @@ model's `<IMG_CONTEXT>` id is taken from the tokenizer where they differ
 (the byte-level fallback tokenizer has its own ids); where a checkpoint
 lacks a subtree (a raw InternVL2 one has no driving adaptors), it keeps
 its seeded init; and every step's loss is read back, so each record has
-the step's ms, its batch's host ms and the prefetch wait.
+the step's ms, its batch's host ms and the prefetch wait, and a batch
+from disk also what it drew: its samples' buckets (`buckets`, name:
+count), its answer tokens and its longest prompt.
 
 `train_base` is the loop of `train_base.py` (SimLingo-Base): a fresh
 `base_batch` a step from `RandomState(seed)`, the two-group step of
@@ -53,6 +55,7 @@ import math
 import os
 import threading
 import time
+from collections import Counter
 from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -197,6 +200,7 @@ class Batch(NamedTuple):
     buffer: Optional[torch.Tensor]     # its one device buffer (CUDA), else None
     ready: Optional[torch.cuda.Event]  # recorded after the copy (CUDA), else None
     host_ms: float                     # the worker's time to draw, collate and copy
+    drawn: Optional[Dict[str, Any]] = None   # buckets, answer tokens, longest prompt
 
 
 def _take(batch: Batch):
@@ -377,12 +381,17 @@ def _train(cfg, make_synthetic, params, device, after_step, trainable_fn):
             rng = np.random.RandomState(cfg.seed * 7919 + step * nb + bi)
             picks = sampler.batch_at(step, B * nb)[bi * B:(bi + 1) * B]
             samples = [datasets[b].get(i, rng) for b, i in picks]
-            ex, buf = to_device(collate(samples, tok, ccfg), dev, copy_stream)
+            ex = collate(samples, tok, ccfg)
+            prompt = ex.driving_input.prompt
+            drawn = dict(buckets=dict(Counter(buckets[b].name for b, _ in picks)),
+                         answer_tokens=int(prompt.loss_mask.sum()),
+                         longest_prompt=int(prompt.valid.sum(1).max()))
+            ex, buf = to_device(ex, dev, copy_stream)
             ready = None
             if buf is not None:
                 ready = torch.cuda.Event()
                 ready.record(copy_stream)
-            return Batch(ex, buf, ready, (time.perf_counter() - t0) * 1e3)
+            return Batch(ex, buf, ready, (time.perf_counter() - t0) * 1e3, drawn)
 
     # ---- validation: the routes_validation split, augmentations off ----
     val_ds, val_interval = None, 0
@@ -441,7 +450,7 @@ def _train(cfg, make_synthetic, params, device, after_step, trainable_fn):
             host = {k: float(v) for k, v in metrics.items()}
             ms = (time.perf_counter() - t1) * 1e3
             records.append(dict(step=step + 1, ms=ms, host_ms=got.host_ms,
-                                wait_ms=(t1 - t0) * 1e3, **host))
+                                wait_ms=(t1 - t0) * 1e3, **host, **(got.drawn or {})))
             if step == start_step or (step + 1) % max(cfg.log_every_n_steps, 1) == 0 \
                     or step + 1 == total_steps:
                 dt = time.perf_counter() - t_log

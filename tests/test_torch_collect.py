@@ -54,7 +54,7 @@ from simlingo_tpu_torch.orchestration.babysitter import Babysitter, LocalBackend
 from simlingo_tpu_torch.sim import runner as trun
 from simlingo_tpu_torch.sim import suite as tsuite
 from tests import carla_stubs as stubs
-from tests.test_torch_expert import ported_module
+from tests.torch_ported import ported_module
 from tests.test_torch_train import _port_cfg
 
 ROOT = Path(__file__).resolve().parents[1]

@@ -1200,3 +1200,83 @@ def test_replay_of_a_collected_route_on_the_gpu(gpu, tmp_path):
             assert np.isfinite(got[key]).all()
             assert float(np.abs(got[key] - ref[key]).max()) <= 0.05 * scale, key
         assert got["expert"] == ref["expert"] and got["expert"]["throttle"] is not None
+
+
+@pytest.mark.cuda
+def test_labelled_training_step_and_loop_tick_on_the_gpu(gpu, tmp_path):
+    """The collect-label-train-drive loop at tiny size: a synthesized route
+    labelled by `collect_dataset_torch.run_label_generation` (commentary,
+    VQA, dreamer, the buckets), one step of configs/simlingo.yaml with
+    language, the dreamer mix and the buckets on, from one init: bf16 on
+    the GPU (attention kernels launched) against fp32 on the CPU (none),
+    the losses within 2e-2 and the grad norm within 5e-2, as chip_smoke.py
+    phase 3 holds its small step. Then each trained model through
+    `save_hf_checkpoint` / `load_hf_checkpoint` drives one microsim tick,
+    the GPU's waypoints within 0.05 max|ref| of the CPU's."""
+    from simlingo_tpu_torch.agent.agent import LingoAgent
+    from simlingo_tpu_torch.agent.config import AgentConfig
+    from simlingo_tpu_torch.core import checkpoint as ckpt
+    from simlingo_tpu_torch.core.config import compose
+    from simlingo_tpu_torch.data.synthetic import synthesize_route
+    from simlingo_tpu_torch.data.tokenizer import SimLingoTokenizer
+    from simlingo_tpu_torch.models import simlingo
+    from simlingo_tpu_torch.models.qwen2 import Qwen2Config
+    from simlingo_tpu_torch.models.vit import ViTConfig
+    from simlingo_tpu_torch.sim import runner
+    from simlingo_tpu_torch.train import train_step as ts
+    from simlingo_tpu_torch.train import trainer
+    spec = importlib.util.spec_from_file_location(
+        "collect_dataset_torch", Path(__file__).resolve().parents[1] / "collect_dataset_torch.py")
+    CDT = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(CDT)
+    synthesize_route(str(tmp_path), "v1/b0/routes_training/Town12_cuda", n_frames=40)
+    labels = CDT.run_label_generation(str(tmp_path))
+    assert sum(labels["buckets"].values()) > 0
+    tok = SimLingoTokenizer()
+    model = simlingo.SimLingoConfig(
+        vit=ViTConfig(hidden_size=32, num_layers=1, num_heads=2, intermediate_size=64,
+                      image_size=56, patch_size=14, projector_out=32),
+        llm=Qwen2Config(vocab_size=tok.tk.vocab_size + 8, hidden_size=32, num_layers=1,
+                        num_heads=2, num_kv_heads=1, head_dim=16, intermediate_size=64),
+        img_context_token_id=tok.img_context_id, remat_vision=False, remat_llm=False)
+    runs = {}
+    for device, precision in (("cpu", "fp32"), (gpu, "bf16")):
+        cfg = compose("configs/simlingo.yaml", [
+            f"data.data_root={tmp_path}", f"data.bucket_path={tmp_path}/bucketsv2_simlingo",
+            "data.base.use_town13=false", "max_steps=1", "output_dir=", "seed=3",
+            f"precision={precision}", "data.batch_size=2", "data.num_workers=2",
+            "data.base.image_size=56", "val_every_n_epochs=0", "visualise_every_n_steps=0"])
+        cfg.model = model
+        params = ts.map_leaves(lambda _, x: x.to(device), simlingo.init_params(
+            model, torch.Generator().manual_seed(0), device="cpu"))
+        before = TFA.flash_attn_fwd.launches
+        out = trainer.train(cfg, params=params, device=device)
+        runs[str(device)] = (out, TFA.flash_attn_fwd.launches - before)
+    (ref, cpu_n), (got, gpu_n) = runs["cpu"], runs[str(gpu)]
+    assert cpu_n == 0 and gpu_n > 0
+    for key in ("loss", "language_loss", "route_loss", "speed_wps_loss", "grad_norm"):
+        want, have = ref["records"][0][key], got["records"][0][key]
+        assert np.isfinite(have) and abs(have - want) <= (
+            5e-2 if key == "grad_norm" else 2e-2) * abs(want), (key, have, want)
+    assert ref["records"][0]["language_loss"] > 0
+    drive = {"town": "straight", "start_s": 5.0, "end_s": 60.0, "route_id": "loop"}
+    outs = {}
+    for device, dtype in (("cpu", torch.float32), (gpu, torch.bfloat16)):
+        path = ckpt.save_hf_checkpoint(str(tmp_path / f"{device}.pt"),
+                                       runs[str(device)][0]["state"].params, model)
+        agent = LingoAgent(ckpt.load_hf_checkpoint(path, model), model,
+                           AgentConfig(use_cot=False, initial_frames_delay=0), tokenizer=tok,
+                           max_prompt_len=256, compute_dtype=dtype, device=device)
+        seen, inner = [], agent.run_step
+
+        def step(frame, inner=inner, seen=seen):
+            seen.append(inner(frame))
+            return seen[-1]
+        agent.run_step = step
+        runner.run_route(drive, runner.model_factory(agent), max_steps=1)
+        outs[str(device)] = seen
+    (ref_out,), (got_out,) = outs["cpu"], outs[str(gpu)]
+    scale = max(float(np.abs(ref_out["route"]).max()), float(np.abs(ref_out["speed_wps"]).max()))
+    for key in ("route", "speed_wps"):
+        assert np.isfinite(got_out[key]).all()
+        assert float(np.abs(got_out[key] - ref_out[key]).max()) <= 0.05 * scale, key

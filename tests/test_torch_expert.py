@@ -19,10 +19,7 @@ The modules are numpy copies. Two kinds of check:
 import dataclasses
 import inspect
 import math
-import re
 import sys
-import types
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -41,39 +38,14 @@ from simlingo_tpu_torch.expert import forecast as tfc
 from simlingo_tpu_torch.expert import route_planner as trp
 from simlingo_tpu_torch.expert import scenarios as tsc
 from simlingo_tpu_torch.labels import bev_renderer as tbev
+from tests.torch_ported import jax_test_names, ported_module
 
-ROOT = Path(__file__).resolve().parents[1]
 JAX_TESTS = ("test_expert", "test_scenarios")
-
-
-def ported_module(name: str, renames=()) -> types.ModuleType:
-    """tests/<name>.py with every `simlingo_tpu.` read as the port's (and
-    each (old, new) of `renames` replaced); the classes, functions and
-    modules it imports are the port's."""
-    path = ROOT / "tests" / f"{name}.py"
-    src = re.sub(r"\bsimlingo_tpu\.", "simlingo_tpu_torch.", path.read_text())
-    for old, new in renames:
-        src = src.replace(old, new)
-    mod = types.ModuleType(f"_ported_{name}")
-    mod.__file__ = str(path)
-    exec(compile(src, mod.__file__, "exec"), mod.__dict__)
-    for v in vars(mod).values():
-        if isinstance(v, (type, types.FunctionType, types.ModuleType)):
-            origin = getattr(v, "__module__", None) or v.__name__
-            assert not str(origin).startswith("simlingo_tpu."), origin
-    return mod
-
-
-def _jax_test_names():
-    return [(name, t) for name in JAX_TESTS for t in re.findall(
-        r"^def (test_\w+)\(", (ROOT / "tests" / f"{name}.py").read_text(), re.M)]
-
-
 _PORTED = {}
 
 
-@pytest.mark.parametrize("module,test", _jax_test_names(),
-                         ids=[f"{m}::{t}" for m, t in _jax_test_names()])
+@pytest.mark.parametrize("module,test", jax_test_names(*JAX_TESTS),
+                         ids=[f"{m}::{t}" for m, t in jax_test_names(*JAX_TESTS)])
 def test_jax_expert_tests_through_the_port(module, test, tmp_path):
     if module not in _PORTED:
         _PORTED[module] = ported_module(module)

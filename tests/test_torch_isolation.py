@@ -23,8 +23,15 @@ imports blocked, trains the tiny model two steps from routes on disk
 package's label generators), saves, resumes for a third, and evaluates
 the saved step through `eval_language_torch.py` (`run_language_eval`);
 `train_torch.py` without `--device cpu` refuses where there is no GPU.
+A third, with the same imports blocked, imports `collect_dataset_torch.py`,
+writes a route with `synthesize_route` and labels it through the script's
+`--labels-only` (commentary, VQA, dreamer, the buckets), builds the
+script's microsim jobs, splits a route XML with `labels/route_tools` over
+the microsim's `MicrosimRouteMap`, decodes its frames with
+`decode_crop_batch` and times a call with `utils/profiling`.
 """
 
+import os
 import subprocess
 import sys
 import textwrap
@@ -75,7 +82,12 @@ SCRIPT = BLOCK + textwrap.dedent("""
             "simlingo_tpu_torch.agent.data_agent",
             "simlingo_tpu_torch.agent.carla_data_agent",
             "simlingo_tpu_torch.agent.replay",
-            "simlingo_tpu_torch.labels.bev_renderer"} <= set(names)
+            "simlingo_tpu_torch.labels.bev_renderer",
+            "simlingo_tpu_torch.sim.route_map", "simlingo_tpu_torch.utils.profiling"} \
+        | {f"simlingo_tpu_torch.labels.{m}" for m in (
+            "vqa_scene", "vqa_vehicles", "vqa_ego", "vqa_road", "vqa", "commentary",
+            "dreamer_instructions", "dreamer_gen", "buckets", "augment_templates",
+            "dataset_tools", "route_tools")} <= set(names)
     from simlingo_tpu_torch.parallel import mesh as PM, multihost as PH
     from simlingo_tpu_torch.parallel import pipeline as PP, sequence as PS
     assert PH.initialize(device="cpu") is False and PM.make_mesh(device="cpu").world == 1
@@ -350,3 +362,54 @@ def test_port_trains_from_disk_without_jax(tmp_path):
                               "output_dir="], cwd=ROOT, capture_output=True, text=True,
                              timeout=120)
         assert cli.returncode != 0 and "no CUDA GPU" in cli.stderr, cli.stdout + cli.stderr
+
+
+LABEL_SCRIPT = BLOCK + textwrap.dedent("""
+    import os
+    import numpy as np
+    import collect_dataset_torch
+    from simlingo_tpu_torch.data import imageio
+    from simlingo_tpu_torch.data.synthetic import synthesize_route
+    from simlingo_tpu_torch.labels import route_tools
+    from simlingo_tpu_torch.sim import map as simmap
+    from simlingo_tpu_torch.sim.route_map import MicrosimRouteMap
+    from simlingo_tpu_torch.utils import profiling
+
+    root = sys.argv[1]
+    rd = synthesize_route(root, "v1/b0/routes_training/Town12_iso", n_frames=30,
+                          image_hw=(64, 128))
+    stats = collect_dataset_torch.main(["--labels-only", "--save-root", root])
+    assert list(stats["routes"]) == [rd]
+    assert all(stats["routes"][rd][k]["files"] > 0 for k in ("commentary", "vqa"))
+    assert os.path.isfile(os.path.join(root, "bucketsv2_simlingo", "buckets_paths.pkl"))
+    assert sum(stats["buckets"].values()) > 0
+    jobs = collect_dataset_torch.microsim_jobs(os.path.join(root, "m"), "micro")
+    assert len(jobs) == 51 and jobs[0].cmd[:3] == ["python", "-m",
+                                                   "simlingo_tpu_torch.sim.suite"]
+
+    rmap = MicrosimRouteMap(simmap.crossing_town())
+    route = route_tools.ParsedRoute(
+        town="Micro", waypoints=np.array([[-100.0, -1.75, 0.0], [100.0, -1.75, 0.0]]),
+        scenarios=[], trigger_points=np.zeros((0, 3)), weather_begin=[0.0] * 9,
+        weather_end=[0.0] * 9)
+    route.build_trace(rmap)
+    assert route.trace.shape[1] == 3 and len(route.trace) > 150
+
+    blobs = [open(os.path.join(rd, "rgb", n), "rb").read()
+             for n in sorted(os.listdir(os.path.join(rd, "rgb")))[:2]]
+    if imageio.decoder()[0] == "native":
+        assert imageio.decode_crop_batch(blobs, 64, 128).shape == (2, 45, 128, 3)
+    assert set(profiling.timed(lambda: np.ones(3), iters=2, warmup=1)) == {
+        "p50_ms", "p90_ms", "mean_ms", "min_ms"}
+    assert not any(m == "simlingo_tpu" or m.startswith(("simlingo_tpu.", "jax", "flax"))
+                   for m in sys.modules), "a blocked module got imported"
+    print("ok")
+""")
+
+
+def test_labelling_imports_no_jax(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "OPENAI_API_KEY"}
+    res = subprocess.run([sys.executable, "-c", LABEL_SCRIPT, str(tmp_path)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300, env=env)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.strip().endswith("ok"), res.stdout
