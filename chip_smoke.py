@@ -14,6 +14,9 @@
                                         # microsim and the expert collection only
     python3 chip_smoke.py --mesh        # the multi-GPU training phase only
     python3 chip_smoke.py --lora-fused  # phase 5's ungated run and train_lora_fused
+    python3 chip_smoke.py --fp32        # the fp32 builds' phase-2 cases, the small
+                                        # fp32 steps, phase 5's ungated run and
+                                        # train_fp32 / train_fp32_ln beside it
     python3 chip_smoke.py --microsim    # the closed-loop microsim phase only
     python3 chip_smoke.py --collect     # the expert-collection phase (10b) only
     python3 chip_smoke.py --base [CELL ...]  # the small SimLingo-Base agreement and
@@ -89,13 +92,28 @@ Phases, in order; any failure exits non-zero:
      operations on this card; and, for the record, the int4 product
      (plain PyTorch, as JAX's is XLA: `run_int4_checks`) at the int8 rows'
      serving shapes, its error against the dequantized product and its ms
-     beside the int8 kernel's;
+     beside the int8 kernel's; and the fp32 builds of precision=fp32
+     training (`run_fp32_checks`): the attention forward (with lse) and
+     backward at FP32_ATTENTION's cases (the ViT's and the LLM's training
+     shapes, the queries' q offset with masks, head dims 128 / 16 / 32)
+     against the plain version in fp64 on the same fp32 inputs, within the
+     fp32 form of their rounding bounds (`fp32_unit`; err/rms, the fp32
+     plain version's and a TF32 plain version's readings beside), the dS^T
+     scratch (fp32) and dq from it pass by pass, bit-identical across two
+     calls, with the device ms of the three kernels, their registers and
+     the scratch bytes; dropout at DROPOUT_CASES, bit-equal, its keep mask
+     equal to the bf16 instance's; the norms at the training rows within
+     FP32_SUM_U's bound; each with kernel / plain / library (fp32) ms and
+     the bound at 67 TFLOP/s fp32 or 3.35 TB/s;
   3. small-model agreement: a small D=128 model's drive_only waypoints on
      the GPU (bf16, kernels) against the CPU plain path (fp32), and one
      training step of the same model with LoRA r=4, dropout 0.1 (losses to
      2e-2, grad norm to 5e-2 relative), then that step again with both
      fused-kernel gates on (SIMLINGO_CE_IMPL=pallas, SIMLINGO_LN_IMPL=pallas),
      and again on an int8 base LLM (which must launch int8_matmul_dx);
+     the same step at fp32 on the GPU (`fp32_small_agreements`: the fp32
+     instances, every launch theirs) against the CPU's, gates off and with
+     SIMLINGO_LN_IMPL=pallas, losses and grad norm within FP32_STEP_TOL;
      the same step on the GPU with remat (`small_remat_agreement`:
      SMALL_REMAT_MODES), whose losses must equal the remat-off step's on
      the GPU, launches exact; a small int4 model (`small_int4_cfg`, LLM
@@ -127,6 +145,12 @@ Phases, in order; any failure exits non-zero:
      seq_len 768, 2 tiles): 1 warm-up step, then TRAIN_STEPS timed steps
      with the launch counts reset after the warm-up; peak memory, and a
      profile of one more step (device time by kernel class); then the
+     same at precision=fp32 (`fp32_training`): `train_fp32` (gates off) and
+     `train_fp32_ln` (SIMLINGO_LN_IMPL=pallas: the norms 49 + 49 a step,
+     LN_PER_STEP), every attention, dropout and norm launch an fp32
+     instance's and held exactly, step 1's loss within 2e-2 of the bf16
+     run's and the LN-gated run's losses within FP32_STEP_TOL of the
+     ungated fp32 run's (`compare_fp32`); then the
      same run with both gates set in the process environment (restored
      afterwards), which must launch the six norm and CE kernels (their
      counts are logged against GATED_PER_STEP), and the two runs side by
@@ -156,7 +180,7 @@ Phases, in order; any failure exits non-zero:
      then 2 ranks (`--mesh-rank`, one a GPU over NCCL where there are two,
      else both on this GPU over gloo, named explicitly, with every
      collective staged through host memory, which they print) run
-     MESH_RUNS in turn, 3 steps each, dropout on: `mesh_dp2` and
+     MESH_RUNS in turn, MESH_STEPS steps each, dropout on: `mesh_dp2` and
      `mesh_fsdp2` (batch 3 a rank) held to `halves`, `mesh_tp2` (batch 6,
      both gates) to `tp`, `mesh_sp2` (the 798 positions as two slabs of
      399, attention the ring) to `seq_halves` (the two sequence halves in
@@ -169,7 +193,7 @@ Phases, in order; any failure exits non-zero:
      every split product cut as tp = 2 cuts it) and the one-process
      `train_base` (`base_mesh_reference`): step 1's loss and grad norm
      (the base model's: both group norms) and the trained leaves after
-     step 3 within MESH_MULT x the control's own difference from the
+     the last step within MESH_MULT x the control's own difference from the
      one-process run, measured in the same call; each rank's launches
      exactly as `mesh_launches_per_step` reckons them from the schedule
      (`base_tp2`: attention 35 forward and 35 backward a step, at CLIP
@@ -274,18 +298,23 @@ Phases, in order; any failure exits non-zero:
      serve_launches reckons them, beside phase 8's ticks, and the agent's
      controls beside the expert's (`collect_replay`);
  11. the {"kernels": [...]} line (eleven kernels, launches per path: serve,
-     serve_gated, serve_int4, train, train_gated, train_int8,
+     serve_gated, serve_int4, train, train_fp32, train_fp32_ln,
+     train_gated, train_int8,
      train_remat_<mode>, train_lora_fused, mesh_dp2 / mesh_fsdp2 /
      mesh_tp2 / mesh_sp2 / mesh_pp2 / base_tp2 (both ranks'),
      the base cells' <cell>_fwd,
      <cell>_train and <cell>_train_gated, train_disk, carla_plugin,
      eval_language, microsim, collect_train, collect_loop, collect_replay; the attention
      kernels also each built head dim's
-     instance at a phase-2 case and the base paths' launches by head dim),
+     instance at a phase-2 case and the base paths' launches by head dim;
+     the kernels with an fp32 build also their fp32 instance under "fp32":
+     its representative case, FP32_LINE_CASES, and its launches on
+     train_fp32 / train_fp32_ln),
      the nvidia-smi line, and the last line {"ok": true, "device": {...}}.
 Per-case results also go to chiprun_out/chip_smoke_cases.json, the paths'
 statistics to chip_smoke_agent.json (serve_int4's under "int4"),
-chip_smoke_train.json, chip_smoke_train_gated.json,
+chip_smoke_train.json, chip_smoke_train_fp32.json, chip_smoke_train_fp32_ln.json,
+chip_smoke_train_gated.json,
 chip_smoke_train_int8.json, chip_smoke_train_remat_<mode>.json,
 chip_smoke_train_lora_fused.json, chip_smoke_mesh_training.json (the ranks'
 logs chip_smoke_mesh_rank*.log),
@@ -293,7 +322,9 @@ chip_smoke_<cell>_{fwd,train,train_gated}.json, chip_smoke_train_disk.json,
 chip_smoke_carla_plugin.json, chip_smoke_eval_language.json,
 chip_smoke_microsim.json and chip_smoke_collect.json. `--disk` runs the
 build and phases 7-10b alone,
-`--base` the build, the small SimLingo-Base agreement and phase 6, `--mesh`
+`--base` the build, the small SimLingo-Base agreement and phase 6, `--fp32`
+the build, phase 2's fp32 cases (to chip_smoke_cases_fp32.json), the
+small fp32 steps, phase 5's ungated run and the two fp32 cells, `--mesh`
 the build and phase 5b, `--lora-fused` the build, phase 5's ungated run
 and `train_lora_fused`, `--microsim` the build and phase 10 on a random
 trained-SimLingo checkpoint written as phase 7 writes it, `--collect` the
@@ -659,23 +690,31 @@ def visible_pairs(torch, dev, B, T, S, causal, q_off, valid):
     return int(mask.sum()), int((~mask.any(-1)).sum()), mask
 
 
+def phase2_attention_cases():
+    """Every phase-2 attention case, in the order `attention_inputs` draws
+    their inputs: `attention_cases`, the two training shapes, SimLingo-Base's,
+    the evaluation's, the other head dims', tp = 2's, the ring's, the base's
+    at tp = 2."""
+    import numpy as np
+    return attention_cases() + [
+        ("llm_train", 6, 798, 798, 14, 2, True, None, "train", False),
+        ("vit_train", 12, 1025, 1025, 16, 16, False, None, None, True)] + BASE_ATTENTION \
+        + eval_attention_cases(eval_prompt_valid(np)) \
+        + [c[:10] for c in head_dim_attention()] \
+        + TP_ATTENTION + RING_ATTENTION + BASE_TP_ATTENTION
+
+
 def attention_inputs(torch, dev):
-    """For each phase-2 attention case (`attention_cases`, the two training
-    shapes, SimLingo-Base's and the evaluation's): the case, its first
-    inputs (q, k, v, kv_valid) and the timing sets, all drawn from one
-    generator seeded 0. kv_valid is bool, so a timed call includes the
-    wrapper's conversion to uint8, so times compare with earlier trees'.
-    `scripts/fwd_digest.py` takes its inputs from here."""
+    """For each phase-2 attention case (`phase2_attention_cases`): the
+    case, its first inputs (q, k, v, kv_valid) and the timing sets, all
+    drawn from one generator seeded 0. kv_valid is bool, so a timed call
+    includes the wrapper's conversion to uint8, so times compare with
+    earlier trees'. `scripts/fwd_digest.py` takes its inputs from here."""
     import numpy as np
     gen = torch.Generator(device=dev).manual_seed(0)
     prompt_valid = torch.from_numpy(eval_prompt_valid(np)).to(dev)
-    cases = attention_cases() + [
-        ("llm_train", 6, 798, 798, 14, 2, True, None, "train", False),
-        ("vit_train", 12, 1025, 1025, 16, 16, False, None, None, True)] + BASE_ATTENTION \
-        + eval_attention_cases(prompt_valid) + [c[:10] for c in head_dim_attention()] \
-        + TP_ATTENTION + RING_ATTENTION + BASE_TP_ATTENTION
     train_valid = train_llm_valid(torch, dev)
-    for case in cases:
+    for case in phase2_attention_cases():
         B, T, S, HQ, HK, _, _, ranges, strided = case[1:]
         D = head_dim(case)
 
@@ -1560,6 +1599,9 @@ def _template_args(mangled):
         elif mangled[0] == "f":
             out.append("float")
             mangled = mangled[1:]
+        elif re.match(r"S\d*_", mangled):        # a repeated type: the last one named
+            out.append([a for a in out if a in ("bf16", "float")][-1])
+            mangled = mangled[re.match(r"S\d*_", mangled).end():]
         else:
             out.append(mangled)
             break
@@ -1758,6 +1800,482 @@ def run_norm_checks(torch, dev, results):
                 f"({row['bound_by']}) plan={tuple(row['plan'].values())} split_ms="
                 + " ".join(f"{k} {v:.4f}" for k, v in row["split_ms"].items()))
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 2, fp32: the fp32 builds of training at precision=fp32
+# ---------------------------------------------------------------------------
+
+# The fp32 builds against their plain versions. Attention: the kernels
+# compute the logits, P V and the five backward products as fp32 FMAs (no
+# TF32, no bf16 rounding). The plain version is evaluated in fp64 on the
+# same fp32 inputs (`attention_reference` and the backward's plain passes
+# promote fp64 inputs), so the bound holds the kernel's own rounding: the
+# bf16 bounds' form with fp32's unit, `fp32_unit(n)` for a sum of n
+# products (`attention_fwd_bound_fp32`; the backward's
+# `attention_bwd_bound` at those units; the passes likewise). max|err| /
+# rms(ref) is printed beside: fp32 arithmetic does not reach 1e-5 of rms
+# at these shapes (the fp32 plain version reads 1.5-3.5e-5 against fp64 at
+# the ViT's and the LLaMA's on an H100: PERF.md), so it is not the bound. The
+# fp32 plain version's and a TF32 plain version's err/tol are printed too:
+# TF32's rounding (2^-11) must exceed the bound, the fp32 kernel must not.
+# Norms: kernel and plain version compute the same fp32 arithmetic; the
+# row statistics (mean, variance, and the backward's two row means) sum d
+# values in another order, a random walk of d roundings of 2^-24 each,
+# with a margin of 4: y and dx are held to 2^-22 sqrt(d) (|ref| + rms(ref))
+# (the fp32 form of the bf16 bound's one spacing of |ref| plus a term of
+# rms(ref)); dscale / dbias, sums over n rows, to 2^-22 sqrt(n) sum|terms|
+# + 2^-23 |ref|. The margin: a numpy model of the fp32 kernels read at
+# most 0.07 of these bounds at the training shapes, and inputs rounded to
+# TF32 at least 2.8 (margin 16 would pass TF32 at 1025 keys).
+FP32_SUM_U = 2.0 ** -22
+
+
+def _case(name):
+    """The phase-2 attention case named `name`, with its head dim last."""
+    case = [c for c in phase2_attention_cases() if c[0] == name][0]
+    return (*case, head_dim(case))
+
+
+# Attention at fp32: the training shapes of the LoRA step (the ViT's
+# non-causal [12,1025,16,64] read from its qkv projection, the LLM's causal
+# GQA with the training batch's key validity), a causal case with key masks
+# and a q_offset (the queries against a 770-slot cache), and each built
+# head dim (128: the LLaMA `large`; 16: JAX's tiny(); 32:
+# small_shardable's LLM), forward and backward.
+FP32_ATTENTION = ("vit_train", "llm_train", "llm_queries", "base_large", "tiny_llm",
+                  "shardable_llm")
+FP32_ATTN_INSTANCES = {16: "tiny_llm_fp32", 32: "shardable_llm_fp32", 64: "llm_train_fp32",
+                       128: "base_large_fp32"}
+BWD_F32_KERNELS = ("bwd_prep_f32_kernel", "bwd_dkdv_f32_kernel", "bwd_dq_f32_kernel")
+
+
+def fp32_attention_inputs(torch, dev):
+    """For each FP32_ATTENTION case: the case, its kv_valid, its first fp32
+    inputs (q, k, v, dout; the ViT's q/k/v strided views of one [B, T, 3 H
+    D] projection) and its timing sets, from one generator seeded 11."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    train_valid = train_llm_valid(torch, dev)
+    for name in FP32_ATTENTION:
+        case = _case(name)
+        _, B, T, S, HQ, HK, causal, q_off, ranges, strided, D = case
+        valid = None
+        if ranges == "train":
+            valid = train_valid
+        elif ranges is not None:
+            valid = torch.zeros(B, S, dtype=torch.bool, device=dev)
+            for lo, hi in ranges:
+                valid[:, lo:hi] = True
+
+        def make():
+            if strided:
+                qkv = torch.randn(B, T, 3 * HQ * D, generator=gen, device=dev)
+                q, k, v = (qkv[..., i * HQ * D:(i + 1) * HQ * D].view(B, T, HQ, D)
+                           for i in range(3))
+            else:
+                q = torch.randn(B, T, HQ, D, generator=gen, device=dev)
+                k, v = (torch.randn(B, S, HK, D, generator=gen, device=dev) for _ in range(2))
+            return q, k, v, torch.randn(B, T, HQ, D, generator=gen, device=dev)
+        first = make()
+        nbytes = 4 * (2 * B * T * HQ * D + 2 * B * S * HK * D)
+        yield case, valid, first, [make() for _ in range(min(8, n_sets(nbytes)))]
+
+
+def _rel(got, ref, mask=None):
+    """(max |got - ref|, that over rms(ref)), over `mask` where given."""
+    diff = (got.double() - ref.double()).abs()
+    ref = ref.double()
+    if mask is not None:
+        diff, ref = diff[mask], ref[mask]
+    rms = float(ref.square().mean().sqrt()) if ref.numel() else 0.0
+    err = float(diff.max()) if diff.numel() else 0.0
+    return err, err / max(rms, 1e-30)
+
+
+def fp32_unit(n):
+    """The fp32 form of a rounding bound's unit for a sum of n products: a
+    random walk of n roundings of 2^-24 each, with a margin of 4
+    (FP32_SUM_U sqrt(n))."""
+    return FP32_SUM_U * math.sqrt(n)
+
+
+def _logit_mags(torch, FA, q, k, valid, causal, q_off):
+    """(P, A) [B, HQ, T, S] in fp64: the softmax and scale sum_d |q_d| |k_d|
+    (what the fp32 rounding of a logit scales with), 0 on hidden pairs."""
+    HQ, HK = q.shape[2], k.shape[2]
+    scale, off = FA._defaults(q, k, None, q_off)
+    logits, mask = FA._scaled_logits(q, k, valid, causal, scale, off)
+    p = torch.softmax(logits.masked_fill(~mask, float("-inf")), -1).nan_to_num(0.0)
+    a = scale * torch.einsum("bthd,bshd->bhts", q.abs(),
+                             k.abs().repeat_interleave(HQ // HK, dim=2))
+    return p, a.masked_fill(~mask, 0.0)
+
+
+def attention_fwd_bound_fp32(torch, FA, q, k, v, valid, causal, q_off, ref):
+    """Per output element, the fp32 form of the forward's rounding bound
+    about `ref` (the plain version in fp64 on the same inputs): each logit
+    carries fp32_unit(D) A (A = scale sum |q| |k|), so P a relative error
+    of that, and O = sum P V the sum's own fp32_unit(S): |err| <= u (sum_s
+    P |V| (1 + A) + |ref| (1 + max_s A)) + 1e-6 rms(ref), u =
+    fp32_unit(S + D). A TF32 product (2^-11) or a bf16 P (2^-9) exceeds
+    it."""
+    HQ, HK, D, S = q.shape[2], k.shape[2], q.shape[3], k.shape[1]
+    p, a = _logit_mags(torch, FA, q, k, valid, causal, q_off)
+    terms = torch.einsum("bhts,bshd->bthd", p * (1 + a),
+                         v.abs().repeat_interleave(HQ // HK, dim=2))
+    amax = a.amax(-1).transpose(1, 2)[..., None]
+    rms = float(ref.square().mean().sqrt())
+    return fp32_unit(S + D) * (terms + ref.abs() * (1 + amax)) + 1e-6 * rms
+
+
+def _err_over_tol(got, ref, tol, mask=None):
+    """(max |got - ref|, max |got - ref| / tol), over `mask` where given."""
+    diff = (got.double() - ref.double()).abs()
+    ratio = diff / tol
+    if mask is not None:
+        diff, ratio = diff[mask], ratio[mask]
+    return (float(diff.max()) if diff.numel() else 0.0,
+            float(ratio.max()) if ratio.numel() else 0.0)
+
+
+def run_fp32_attention_checks(torch, dev, results):
+    """The fp32 builds of flash_attn_fwd / flash_attn_bwd, against the
+    plain versions in fp64 on the same fp32 inputs, each within the fp32
+    form of its rounding bound (`attention_fwd_bound_fp32`,
+    `attention_bwd_bound` at fp32_unit, the passes likewise); err/rms, the
+    fp32 plain version's and a TF32 plain version's readings beside."""
+    import torch.nn.functional as F
+    from simlingo_tpu_torch.kernels import flash_attention as FA
+    regs_f = ptxas_usage("flash_attn_fwd")
+    regs_b = ptxas_usage("flash_attn_bwd")
+
+    def tf32(fn, *a):
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return fn(*a)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    for case, valid, first, sets in fp32_attention_inputs(torch, dev):
+        name, B, T, S, HQ, HK, causal, q_off, _, _, D = case
+        name = f"{name}_fp32"
+        q, k, v, dout = first
+        d = FA._instance_dim(D)
+        off = S - T if q_off is None else q_off
+        f64 = [x.double() for x in (q, k, v)]
+        pairs, empty_rows, mask = visible_pairs(torch, dev, B, T, S, causal, q_off, valid)
+        # forward
+        out, lse = FA.flash_attn_fwd(q, k, v, valid, causal, None, q_off, return_lse=True)
+        again = FA.flash_attn_fwd(q, k, v, valid, causal, None, q_off, return_lse=True)
+        torch.cuda.synchronize()
+        same = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        ref = FA.attention_reference(*f64, valid, causal, None, q_off)
+        tol = attention_fwd_bound_fp32(torch, FA, *f64, valid, causal, q_off, ref)
+        err, ratio = _err_over_tol(out, ref, tol)
+        rel = _rel(out, ref)[1]
+        plain32 = _err_over_tol(FA.attention_reference(q, k, v, valid, causal, None, q_off),
+                                ref, tol)[1]
+        tf32_ratio = _err_over_tol(tf32(FA.attention_reference, q, k, v, valid, causal, None,
+                                        q_off), ref, tol)[1]
+        del tol
+        ref_lse = FA.attention_lse_reference(f64[0], f64[1], valid, causal, None, q_off)
+        fin = torch.isfinite(ref_lse)
+        # the lse: a logit's bound in base 2, relative to 1 + |lse|
+        lse_rel = float(((lse.double() - ref_lse).abs() / (1 + ref_lse.abs()))[fin].max()) \
+            if fin.any() else 0.0
+        ok = (out.dtype == torch.float32 and same and ratio <= 1.0
+              and lse_rel <= fp32_unit(S + D) and torch.equal(torch.isfinite(lse), fin))
+        del ref, ref_lse
+        plan = FA._fwd_plan(B, T, S, HQ, HK, causal, off, D=D, dtype=torch.float32)
+        kname = f"flash_fwd_f32_kernel<{d}>"
+        fwd_bytes = 4 * (2 * B * T * HQ * D + 2 * B * S * HK * D) + (B * S if valid is not None
+                                                                     else 0)
+        bms, bby = bound(fwd_bytes, 4 * D * pairs * HQ, PEAK_FP32)
+        fsets = [s[:3] for s in sets]
+        kernel_ms = time_ms(torch, lambda q_, k_, v_: FA.flash_attn_fwd(
+            q_, k_, v_, valid, causal, None, q_off), fsets)
+        plain_ms = time_ms(torch, lambda q_, k_, v_: FA.attention_reference(
+            q_, k_, v_, valid, causal, None, q_off), fsets[:2], iters=2)
+        am = mask[:, None] if causal or valid is not None else None
+        library_ms = time_ms(torch, lambda q_, k_, v_: F.scaled_dot_product_attention(
+            q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2), attn_mask=am,
+            enable_gqa=HQ != HK), fsets)
+        row = dict(kernel="flash_attn_fwd", dtype="fp32", case=name,
+                   shape=f"q[{B},{T},{HQ},{D}] kv[{B},{S},{HK},{D}] fp32", head_dim=D,
+                   causal=causal, q_offset=q_off, empty_rows=empty_rows, max_abs_err=err,
+                   err_over_tol=ratio, err_over_rms=rel, lse_err_rel=lse_rel,
+                   plain_fp32_err_over_tol=plain32, tf32_err_over_tol=tf32_ratio,
+                   ok=ok, bit_identical=same, path=plan.path, grid=plan.grid,
+                   smem_bytes=plan.smem_bytes, registers=regs_f.get(kname, (0, 0))[0],
+                   spill_bytes=regs_f.get(kname, (0, 0))[1], kernel_ms=kernel_ms,
+                   plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms, bound_by=bby)
+        results.append(row)
+        log(f"[kernel] flash_attn_fwd {name:20s} {row['shape']:38s} err={err:.3e} "
+            f"err/tol={ratio:.3f} (the fp32 bound about the fp64 plain version; the fp32 "
+            f"plain version {plain32:.3f}, a TF32 one {tf32_ratio:.1f}) err/rms={rel:.3e} "
+            f"lse err/(1+|lse|)={lse_rel:.2e} bit-identical={same} "
+            f"{'OK' if ok else 'FAIL'} kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={library_ms:.4f} (SDPA fp32) bound_ms={bms:.4f} ({bby}) {kname} "
+            f"registers={row['registers']} spill={row['spill_bytes']} smem={plan.smem_bytes}")
+        # backward, from the fp32 forward's o and lse
+        *grads, ds = FA.flash_attn_bwd(q, k, v, valid, out, dout, lse, causal, None, q_off,
+                                       return_ds=True)
+        again = FA.flash_attn_bwd(q, k, v, valid, out, dout, lse, causal, None, q_off)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(grads, again))
+        del again
+        args64 = (*f64, valid, out.double(), dout.double(), lse, causal, None, q_off)
+        refs = FA.attention_bwd_reference(*args64)
+        # dq sums over the keys, dk / dv over the group's rows; dS's terms over D
+        units = (fp32_unit(S + D),) + (fp32_unit(T * HQ // HK + D),) * 2
+        tols = FA.attention_bwd_bound(*args64[:8], refs, None, q_off, u=units, rms_slack=1e-6)
+        reads = [_err_over_tol(a, b, t) for a, b, t in zip(grads, refs, tols)]
+        rels = [_rel(a, b)[1] for a, b in zip(grads, refs)]
+        plain32 = [_err_over_tol(a, b, t)[1] for a, b, t in zip(
+            FA.attention_bwd_reference(q, k, v, valid, out, dout, lse, causal, None, q_off),
+            refs, tols)]
+        tf32s = [_err_over_tol(a, b, t)[1] for a, b, t in zip(
+            tf32(FA.attention_bwd_reference, q, k, v, valid, out, dout, lse, causal, None,
+                 q_off), refs, tols)]
+        del refs, tols
+        # the passes: the dS^T scratch on the pairs it writes (dS's terms P (|dO| |V| +
+        # |delta|) and its logit's A), dq from the kernel's own scratch (scale |dS| |K|)
+        bplan = FA._bwd_plan(B, T, S, HQ, HK, causal, off, D, torch.float32)
+        written = FA._pair_mask(bplan.written, bplan, FA._live_key_tiles(valid, B, S, dev))
+        written = written.expand(ds.shape)
+        ds_ref = FA.attention_ds_reference(*args64)
+        ds_tol = FA.attention_ds_reference(*args64, abs_terms=True)
+        _, a = _logit_mags(torch, FA, f64[0], f64[1], valid, causal, q_off)
+        a = _to_scratch(torch, a, bplan)
+        ds_tol = fp32_unit(3 * D) * (ds_tol + ds_ref.abs() * (1 + a))
+        del a
+        ds_ratio = _err_over_tol(ds, ds_ref, ds_tol + 1e-6 * float(
+            ds_ref[written].square().mean().sqrt()), written)[1]
+        del ds_ref, ds_tol
+        dq_ref = FA.attention_dq_from_ds_reference(ds.double(), f64[1], valid, T, causal,
+                                                   None, q_off)
+        dq_terms = FA.attention_dq_from_ds_reference(ds.double(), f64[1], valid, T, causal,
+                                                     None, q_off, abs_terms=True)
+        dq_ratio = _err_over_tol(grads[0], dq_ref, fp32_unit(S) * (dq_terms + dq_ref.abs())
+                                 + 1e-6 * float(dq_ref.square().mean().sqrt()))[1]
+        del written, ds, dq_ref, dq_terms
+        ratios = [r for _, r in reads]
+        ok_b = (all(g.dtype == torch.float32 for g in grads) and same
+                and max(ratios + [ds_ratio, dq_ratio]) <= 1.0)
+        bwd_bytes = 4 * (4 * B * T * HQ * D + 4 * B * S * HK * D + B * HQ * T) + (
+            B * S if valid is not None else 0)
+        bms, bby = bound(bwd_bytes, 10 * D * pairs * HQ, PEAK_FP32)
+
+        def kernel(q_, k_, v_, d_, o_=out, l_=lse):
+            return FA.flash_attn_bwd(q_, k_, v_, valid, o_, d_, l_, causal, None, q_off)
+        kernel_ms = time_ms(torch, kernel, sets)
+        split = kernel_split_ms(torch, kernel, sets, BWD_F32_KERNELS)
+        plain_ms = time_ms(torch, lambda q_, k_, v_, d_: FA.attention_bwd_reference(
+            q_, k_, v_, valid, out, d_, lse, causal, None, q_off), sets[:2], iters=2)
+        xs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*(x.transpose(1, 2) for x in xs),
+                                                 attn_mask=am, enable_gqa=HQ != HK)
+        library_ms = eager_ms(torch, lambda: torch.autograd.grad(
+            lib_out, xs, dout.transpose(1, 2), retain_graph=True), [()], iters=10)
+        del lib_out, xs
+        regs = {k_: v_ for k_, v_ in regs_b.items()
+                if k_.split("<")[0] in BWD_F32_KERNELS and k_.endswith(f"<{d}>")}
+        row = dict(kernel="flash_attn_bwd", dtype="fp32", case=name,
+                   shape=f"q[{B},{T},{HQ},{D}] kv[{B},{S},{HK},{D}] fp32", head_dim=D,
+                   causal=causal, q_offset=q_off, empty_rows=empty_rows,
+                   max_abs_err=max(e for e, _ in reads), err_over_tol=max(ratios),
+                   err_over_tol_dq_dk_dv=ratios, err_over_rms_dq_dk_dv=rels,
+                   err_over_rms=max(rels), plain_fp32_err_over_tol=plain32,
+                   tf32_err_over_tol=tf32s, ds_pass_err_over_tol=ds_ratio,
+                   dq_pass_err_over_tol=dq_ratio, bit_identical=same, ok=ok_b,
+                   kernel_ms=kernel_ms, split_ms=split, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bms, bound_by=bby,
+                   ds_bytes=bplan.ds_bytes, ds_dtype=str(bplan.ds_dtype),
+                   dkdv_smem=bplan.dkdv_smem, ptxas=regs)
+        results.append(row)
+        log(f"[kernel] flash_attn_bwd {name:20s} {row['shape']:38s} err/tol dq dk dv "
+            f"{' '.join(f'{r:.3f}' for r in ratios)} (the fp32 plain version "
+            f"{' '.join(f'{r:.3f}' for r in plain32)}, a TF32 one "
+            f"{' '.join(f'{r:.1f}' for r in tf32s)}); err/rms "
+            f"{' '.join(f'{r:.2e}' for r in rels)}; dS^T pass {ds_ratio:.3f}, dq from the "
+            f"kernel's dS {dq_ratio:.3f} bit-identical={same} {'OK' if ok_b else 'FAIL'} "
+            f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+            f"(SDPA fp32 backward) bound_ms={bms:.4f} ({bby})")
+        log(f"[kernel] flash_attn_bwd {name:20s} device ms a call by kernel: "
+            + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in split.items())
+            + f" | fp32 dS^T scratch {bplan.ds_bytes} bytes, dK/dV smem {bplan.dkdv_smem}"
+            + " | ptxas registers (spill bytes): "
+            + ", ".join(f"{k_} {r} ({sp})" for k_, (r, sp) in regs.items()))
+        del sets, out, lse, grads
+        torch.cuda.empty_cache()
+
+
+def _to_scratch(torch, x, plan):
+    """x [B, HQ, T, S] in the dS^T scratch's layout (`attention_ds_reference`:
+    key-major tiles, 0 past S and T)."""
+    B, HQ, T, S = x.shape
+    out = torch.zeros((B, HQ, plan.n_kt * 64, plan.n_qt * 64), dtype=x.dtype, device=x.device)
+    out[:, :, :S, :T] = x.transpose(2, 3)
+    return out.view(B, HQ, plan.n_kt, 64, plan.n_qt, 64).permute(0, 1, 2, 4, 3, 5).contiguous()
+
+
+def run_fp32_dropout_checks(torch, dev, results):
+    """dropout's fp32 instances at DROPOUT_CASES: bit-equal to dropout_plain
+    on fp32 inputs, the keep mask equal to the bf16 instance's at the same
+    seed and flat index, keep rate 0.9 +- 0.002; library: F.dropout fp32."""
+    import torch.nn.functional as F
+    from simlingo_tpu_torch.kernels import dropout as DO
+    gen = torch.Generator(device=dev).manual_seed(12)
+    seed, rate = 0x243F6A8885A308D3, 0.1
+    for name, shape, block in DROPOUT_CASES:
+        def make():
+            return (torch.randn(shape, generator=gen, device=dev),)
+        (x,) = make()
+        out = DO.dropout(x, seed, rate, block)
+        ref = DO.dropout_plain(x, seed, rate, block)
+        # the keep masks of both instances at this seed, from inputs of ones
+        keep = DO.dropout(torch.ones_like(x), seed, rate, block) != 0
+        keep16 = DO.dropout(torch.ones_like(x, dtype=torch.bfloat16), seed, rate, block) != 0
+        torch.cuda.synchronize()
+        same_mask = torch.equal(keep, keep16)
+        keep_rate = float(keep.float().mean())
+        ok = (out.dtype == torch.float32 and torch.equal(out, ref) and same_mask
+              and abs(keep_rate - (1 - rate)) <= 0.002)
+        nbytes = 2 * 4 * x.numel()
+        bms, bby = bound(nbytes, 0)
+        sets = [make() for _ in range(n_sets(nbytes))]
+        kernel_ms = time_ms(torch, lambda x_: DO.dropout(x_, seed, rate, block), sets)
+        plain_ms = time_ms(torch, lambda x_: DO.dropout_plain(x_, seed, rate, block), sets[:2],
+                           iters=2)
+        library_ms = time_ms(torch, lambda x_: F.dropout(x_, rate, training=True), sets)
+        row = dict(kernel="dropout", dtype="fp32", case=f"{name}_fp32",
+                   shape=f"[{','.join(map(str, shape))}] fp32 p={rate}" + (
+                       f" block {block}" if block else ""),
+                   max_abs_err=float((out - ref).abs().max()), err_over_rms=0.0,
+                   bit_equal=torch.equal(out, ref), mask_equals_bf16=same_mask,
+                   keep_rate=keep_rate, ok=ok, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bms, bound_by=bby)
+        results.append(row)
+        log(f"[kernel] dropout        {name + '_fp32':20s} {row['shape']:44s} bit_equal="
+            f"{row['bit_equal']} mask equal to the bf16 instance's={same_mask} keep_rate="
+            f"{keep_rate:.5f} {'OK' if ok else 'FAIL'} kernel_ms={kernel_ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (F.dropout fp32) "
+            f"bound_ms={bms:.4f} ({bby})")
+
+
+# The norms at fp32: the LoRA step's training rows (the ViT's LayerNorm,
+# the projector's, the LLM's RMSNorm with its scale trained and frozen)
+FP32_NORMS = (("layernorm", "vit", 12 * 1025, 1024, 1e-6, ("fwd", "bwd")),
+              ("layernorm", "projector", 12 * 256, 4096, 1e-5, ("fwd", "bwd")),
+              ("rmsnorm", "llm_train", 6 * 798, 896, 1e-6, ("fwd", "bwd")),
+              ("rmsnorm", "llm_train_frozen", 6 * 798, 896, 1e-6, ("bwd_dx",)))
+
+
+def run_fp32_norm_checks(torch, dev, results):
+    """The norm kernels' fp32 instances (fp32 x, dy and scale, as the
+    compute copies at precision=fp32) against their plain versions on the
+    same inputs, within FP32_SUM_U's bound; the backward bit-identical
+    across two calls; library: F.layer_norm / F.rms_norm fp32 (graph) and
+    their autograd backward (device time)."""
+    import torch.nn.functional as F
+    from simlingo_tpu_torch.kernels import _build
+    from simlingo_tpu_torch.kernels import layernorm as TL
+    sms = _build.sm_count(dev.index or 0)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    for fam, name, n, d, eps, dirs in FP32_NORMS:
+        ln = fam == "layernorm"
+        need_ds = "bwd" in dirs
+
+        def make():
+            x = 2 * torch.randn(n, d, generator=gen, device=dev) + 0.3
+            dy = torch.randn(n, d, generator=gen, device=dev)
+            scale = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
+            bias = 0.1 * torch.randn(d, generator=gen, device=dev)
+            if ln:
+                _, mean, rstd = TL.layernorm_fwd_plain(x, scale, bias, eps)
+            else:
+                (_, rstd), mean = TL.rmsnorm_fwd_plain(x, scale, eps), None
+            return x, scale, bias, dy, mean, rstd
+        kf, kb, pf, pb = norm_calls(fam, eps, need_ds)
+        args = make()
+        x, scale, bias, dy, mean, rstd = args
+        row_tol = FP32_SUM_U * math.sqrt(d)
+
+        def tol_rows(r):
+            return row_tol * (r.abs() + float(r.square().mean().sqrt()))
+        y, yp = kf(*args)[0], pf(*args)[0]
+        got, again = kb(*args), kb(*args)
+        torch.cuda.synchronize()
+        same = all(a is None and b is None or torch.equal(a, b) for a, b in zip(got, again))
+        ref = pb(*args)
+        xhat = (x - mean[:, None]) * rstd[:, None] if ln else x * rstd[:, None]
+        terms = [(dy * xhat).abs().sum(0), dy.abs().sum(0)]
+        fwd_read = _ratio(y, yp, tol_rows(yp))
+        bwd_reads = [_ratio(got[0], ref[0], tol_rows(ref[0]))]
+        bwd_reads += [_ratio(a, b, FP32_SUM_U * math.sqrt(n) * t + 2.0 ** -23 * b.abs())
+                      for a, b, t in zip(got[1:], ref[1:], terms) if b is not None]
+        fwd_bytes = 2 * n * d * 4 + (2 if ln else 1) * 4 * d + (8 if ln else 4) * n
+        bwd_bytes = 3 * n * d * 4 + 4 * d + (8 if ln else 4) * n + (
+            (2 if ln else 1) * 4 * d if need_ds else 0)
+        fb = bound(fwd_bytes, (8 if ln else 4) * n * d, PEAK_FP32)
+        bb = bound(bwd_bytes, (16 if ln else 12) * n * d, PEAK_FP32)
+        sets = [make() for _ in range(min(8, n_sets(bwd_bytes)))]
+        lf = ((lambda x_, s_, b_, d_, m_, r_: F.layer_norm(x_, (d,), s_, b_, eps)) if ln
+              else (lambda x_, s_, b_, d_, m_, r_: F.rms_norm(x_, (d,), s_, eps)))
+
+        def lib_graph(x_, s_, b_, d_, m_, r_):
+            leaves = [x_.detach().clone().requires_grad_(True)]
+            leaves += [p.detach().clone().requires_grad_(True)
+                       for p in ((s_, b_) if ln else (s_,))] if need_ds else []
+            s_in = leaves[1] if need_ds else s_
+            out = (F.layer_norm(leaves[0], (d,), s_in, leaves[2] if need_ds else b_, eps)
+                   if ln else F.rms_norm(leaves[0], (d,), s_in, eps))
+            return out, leaves, d_
+        lib_sets = [lib_graph(*s) for s in sets]
+        lb = lambda o_, l_, d_: torch.autograd.grad(o_, l_, d_, retain_graph=True)  # noqa: E731
+        plans = {"fwd": TL._norm_fwd_plan(n, d, sms, torch.float32),
+                 "bwd": TL._norm_bwd_plan(n, d, sms, sums=need_ds, dtype=torch.float32)}
+        for kernel, fn, plain, (err, ratio), (bms, bby) in (
+                (f"{fam}_fwd", kf, pf, fwd_read, fb),
+                (f"{fam}_bwd", kb, pb, (max(e for e, _ in bwd_reads),
+                                        max(r for _, r in bwd_reads)), bb)):
+            fwd = kernel.endswith("_fwd")
+            if not (("fwd" in dirs) if fwd else ("bwd" in dirs or "bwd_dx" in dirs)):
+                continue
+            out_t = y if fwd else got[0]
+            row = dict(kernel=kernel, dtype="fp32", case=f"{name}_fp32",
+                       shape=f"[{n},{d}] fp32 eps={eps}" + ("" if fwd or need_ds
+                                                            else " dx only"),
+                       max_abs_err=err, err_over_tol=ratio,
+                       ok=ratio <= 1.0 and out_t.dtype == torch.float32 and (fwd or same),
+                       kernel_ms=time_ms(torch, fn, sets),
+                       plain_ms=time_ms(torch, plain, sets[:2], iters=4),
+                       split_ms={k_: v_ for k_, v_ in kernel_split_ms(
+                           torch, fn, sets, NORM_KERNELS).items() if v_ > 0},
+                       plan=plans["fwd" if fwd else "bwd"]._asdict(), bound_ms=bms,
+                       bound_by=bby)
+            if fwd:
+                row.update(library_ms=time_ms(torch, lf, sets), library_timing="graph")
+            else:
+                row.update(library_ms=device_sum_ms(torch, lb, lib_sets),
+                           library_timing="device", bit_identical=same)
+            results.append(row)
+            log(f"[kernel] {kernel:14s} {name + '_fp32':20s} {row['shape']:36s} "
+                f"err={err:.3e} err/tol={ratio:.3f} (FP32_SUM_U) "
+                f"{'OK' if row['ok'] else 'FAIL'} kernel_ms={row['kernel_ms']:.4f} "
+                f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+                f"({row['library_timing']}) bound_ms={bms:.4f} ({bby}) "
+                f"plan={tuple(row['plan'].values())} split_ms="
+                + " ".join(f"{k_} {v_:.4f}" for k_, v_ in row["split_ms"].items()))
+        del lib_sets, sets
+    torch.cuda.empty_cache()
+
+
+def run_fp32_checks(torch, dev, results):
+    """Phase 2 at fp32: the fp32 instances of the attention, dropout and
+    norm kernels (precision=fp32 training)."""
+    run_fp32_attention_checks(torch, dev, results)
+    run_fp32_dropout_checks(torch, dev, results)
+    run_fp32_norm_checks(torch, dev, results)
 
 
 def norm_forced_plans(n, d, sms, sums):
@@ -2838,6 +3356,8 @@ def device_profile(torch, fn, what):
 
 
 HAND_KERNELS = ("flash_fwd_kernel", "flash_fwd_split_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel", "bwd_prep_kernel",
+                "flash_fwd_f32_kernel", "bwd_prep_f32_kernel", "bwd_dkdv_f32_kernel",
+                "bwd_dq_f32_kernel",
                 "dropout_kernel", "gemm_kernel", "gemm64_kernel", "gemv_kernel", "dx_kernel",
                 "dx_reduce_kernel",
                 "norm_fwd_kernel", "norm_bwd_kernel", "norm_colsum_kernel", "ce_fwd_tile_kernel",
@@ -3068,13 +3588,21 @@ def small_int4_agreement(torch, dev):
     return ok
 
 
-def small_training_agreement(torch, dev, gated=False, int8_base=False):
+# The small step at fp32 on the card against the CPU's: the same fp32
+# arithmetic (TF32 off), summed in other orders, relative
+FP32_STEP_TOL = 1e-4
+FP32_LN_GATE = {"SIMLINGO_LN_IMPL": "pallas"}
+
+
+def small_training_agreement(torch, dev, gated=False, int8_base=False, fp32=False):
     """One train_step of the small model (`small_train_cfg`, no remat) on
     the GPU (bf16, kernels) and on the CPU (fp32, plain versions), from the
     same params, batch and seed: the dropout masks are the same on both
     sides (Philox of the flat index), so the losses and grad norm agree.
-    `gated`: with both fused-kernel gates on, on both sides. `int8_base`:
-    the base LLM quantized to int8 (core/quantize.quantize_llm) first."""
+    `gated`: with both fused-kernel gates on, on both sides (or a dict of
+    gates). `int8_base`: the base LLM quantized to int8
+    (core/quantize.quantize_llm) first. `fp32`: the GPU step at fp32 too
+    (the kernels' fp32 instances), held to FP32_STEP_TOL."""
     import copy
     from simlingo_tpu_torch.core.quantize import quantize_llm
     from simlingo_tpu_torch.data.synthetic import synthetic_example
@@ -3086,29 +3614,41 @@ def small_training_agreement(torch, dev, gated=False, int8_base=False):
     opt = ts.OptimizerConfig(lr=1e-4, total_steps=10)
     metrics = {}
     fns = kernel_fns()
-    watched = NEW_KERNELS + INT8_KERNELS
-    tag = "gated " if gated else "int8-base " if int8_base else ""
+    watched = NEW_KERNELS + INT8_KERNELS + ATTN_DROPOUT
+    tag = ("fp32 " if fp32 else "") + ("gated " if gated else "int8-base " if int8_base
+                                       else "")
+    gpu_dtype = torch.float32 if fp32 else torch.bfloat16
     with gates_set(gated):
-        for device, dtype in (("cpu", torch.float32), (dev, torch.bfloat16)):
+        for device, dtype in (("cpu", torch.float32), (dev, gpu_dtype)):
             state = ts.init_train_state(_to(copy.deepcopy(params), device), opt)
             batch = synthetic_example(cfg, batch=2, seq_len=96, num_patches=2, seed=1,
                                       device=device)
             step = ts.make_train_step(cfg, opt, compute_dtype=dtype)
             before = {k: fns[k].launches for k in watched}
+            before32 = {k: getattr(fns[k], "launches_fp32", 0) for k in watched}
             metrics[str(device)] = {k: float(v) for k, v in step(state, batch, 1234).items()}
     new = {k: fns[k].launches - before[k] for k in watched}
+    new32 = {k: getattr(fns[k], "launches_fp32", 0) - before32[k] for k in watched}
     ref, got = metrics["cpu"], metrics[str(dev)]
     ok = True
     for key, want in ref.items():
-        tol = 5e-2 if key == "grad_norm" else 2e-2
-        good = abs(got[key] - want) <= tol * abs(want)
+        tol = FP32_STEP_TOL if fp32 else 5e-2 if key == "grad_norm" else 2e-2
+        good = math.isfinite(got[key]) and abs(got[key] - want) <= tol * abs(want)
         ok &= good
-        log(f"[small] {tag}train_step {key:15s} GPU bf16 {got[key]:.6f} vs CPU fp32 "
-            f"{want:.6f} (rel tol {tol}) {'OK' if good else 'FAIL'}")
-    log(f"[small] {tag}train_step launches of the fused and int8 kernels on the GPU: {new}")
-    for name in (NEW_KERNELS if gated else ()) + (INT8_KERNELS if int8_base else ()):
-        if new[name] <= 0:
-            log(f"[small] FAIL: kernel {name} was not launched in the {tag}step")
+        log(f"[small] {tag}train_step {key:15s} GPU {'fp32' if fp32 else 'bf16'} "
+            f"{got[key]:.7f} vs CPU fp32 {want:.7f} (rel diff "
+            f"{abs(got[key] - want) / max(abs(want), 1e-30):.2e}, tol {tol}) "
+            f"{'OK' if good else 'FAIL'}")
+    log(f"[small] {tag}train_step launches on the GPU: {new}"
+        + (f"; of them fp32 instances: {new32}" if fp32 else ""))
+    must = (NEW_KERNELS if gated is True else ()) + (INT8_KERNELS if int8_base else ())
+    if fp32:
+        must = ATTN_DROPOUT + (("layernorm_fwd", "layernorm_bwd", "rmsnorm_fwd", "rmsnorm_bwd")
+                               if gated else ())
+    for name in must:
+        if new[name] <= 0 or (fp32 and new32[name] != new[name]):
+            log(f"[small] FAIL: kernel {name} was not launched (at fp32: only its fp32 "
+                f"instance) in the {tag}step")
             ok = False
     return ok
 
@@ -3147,8 +3687,12 @@ def train_launches_per_step(m):
             if drop else 0}
 
 
+# the norm kernels' launches a step with SIMLINGO_LN_IMPL=pallas alone
+LN_PER_STEP = {k: GATED_PER_STEP[k] for k in NEW_KERNELS[:4]}
+
+
 def full_width_training(torch, dev, gated=False, int8_base=False, remat=None,
-                        lora_fused=False):
+                        lora_fused=False, fp32_gates=None):
     """presets.internvl2_1b(lora=True) through the trainer, with remat off
     unless `remat` names a REMAT_MODES mode (as `bench.py` runs it): 1
     warm-up step and TRAIN_STEPS timed steps; launches counted over the
@@ -3158,12 +3702,19 @@ def full_width_training(torch, dev, gated=False, int8_base=False, remat=None,
     seed-0 params with the frozen base LLM quantized to int8 before the
     trainer takes them (`bench.py` BENCH_INT8_BASE=1). `lora_fused`: with
     SIMLINGO_LORA_FUSED=1 set instead (`train_lora_fused`), then the
-    dropout-off pair on the run's state (`lora_fused_pair`)."""
+    dropout-off pair on the run's state (`lora_fused_pair`). `fp32_gates`
+    (a dict of gates, maybe empty): the run at precision=fp32 with those
+    gates (`train_fp32`, `train_fp32_ln`): every launch of the attention,
+    dropout and norm kernels must be its fp32 instance's, the norms' held
+    exactly to LN_PER_STEP where the LN gate is set."""
+    if fp32_gates is not None:
+        with gates_set(fp32_gates):
+            return _full_width_training(torch, dev, False, False, None, fp32=fp32_gates)
     with gates_set(LORA_FUSED if lora_fused else gated):
         return _full_width_training(torch, dev, gated, int8_base, remat, lora_fused)
 
 
-def _full_width_training(torch, dev, gated, int8_base, remat, lora_fused=False):
+def _full_width_training(torch, dev, gated, int8_base, remat, lora_fused=False, fp32=None):
     import dataclasses
     from simlingo_tpu_torch.core import presets
     from simlingo_tpu_torch.core.config import compose
@@ -3174,16 +3725,21 @@ def _full_width_training(torch, dev, gated, int8_base, remat, lora_fused=False):
     kernels = kernel_fns()
     tag = ("[train_gated]" if gated else "[train_int8]" if int8_base
            else f"[train_remat_{remat}]" if remat
-           else "[train_lora_fused]" if lora_fused else "[train]")
+           else "[train_lora_fused]" if lora_fused
+           else ("[train_fp32_ln]" if fp32 else "[train_fp32]") if fp32 is not None
+           else "[train]")
 
     def reset_after_warmup(step, _):
         if step == 0:
             torch.cuda.synchronize()
             for fn in kernels.values():
                 fn.launches = 0
+                if hasattr(fn, "launches_fp32"):
+                    fn.launches_fp32 = 0
 
     cfg = compose([f"max_steps={1 + TRAIN_STEPS}", "data.batch_size=6",
-                   "data.max_text_len=768", "seed=0", "output_dir="])
+                   "data.max_text_len=768", "seed=0", "output_dir="]
+                  + (["precision=fp32"] if fp32 is not None else []))
     rv, rl = REMAT_MODES[remat] if remat else (False, False)
     cfg.model = dataclasses.replace(presets.internvl2_1b(lora=True), remat_vision=rv,
                                     remat_llm=rl)
@@ -3196,7 +3752,8 @@ def _full_width_training(torch, dev, gated, int8_base, remat, lora_fused=False):
         f"{m.num_queries} queries, 2 tiles; remat_vision={m.remat_vision} "
         f"remat_llm={m.remat_llm}; "
         f"AdamW {dataclasses.asdict(cfg.optimizer)}{'; int8 base LLM' if int8_base else ''}"
-        f"{'; SIMLINGO_LORA_FUSED=1' if lora_fused else ''}")
+        f"{'; SIMLINGO_LORA_FUSED=1' if lora_fused else ''}; precision {cfg.precision}"
+        + (f", gates {fp32}" if fp32 else ""))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     params = None
@@ -3209,6 +3766,8 @@ def _full_width_training(torch, dev, gated, int8_base, remat, lora_fused=False):
     del params
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in kernels.items()}
+    launches_fp32 = {k: fn.launches_fp32 for k, fn in kernels.items()
+                     if hasattr(fn, "launches_fp32")}
     peak = torch.cuda.max_memory_allocated()
     timed = res["records"][1:]
     ms = [r["ms"] for r in timed]
@@ -3228,7 +3787,22 @@ def _full_width_training(torch, dev, gated, int8_base, remat, lora_fused=False):
         log(f"{tag} {name}: {launches[name]} launches, reckoned {n} a step x {TRAIN_STEPS} "
             f"= {n * TRAIN_STEPS} {'OK' if good else 'FAIL'}")
     must = list(ATTN_DROPOUT)
-    if gated:
+    if fp32 is not None:
+        ln_on = bool(fp32)
+        must += list(LN_PER_STEP) if ln_on else []
+        log(f"{tag} fp32 instances' launches over the timed steps: {launches_fp32}")
+        for name, n in launches_fp32.items():
+            good = n == launches[name]
+            ok &= good
+            log(f"{tag} {name}: {n} of {launches[name]} launches by the fp32 instance "
+                f"{'OK' if good else 'FAIL'}")
+        for name, per_step in LN_PER_STEP.items():
+            want = per_step * TRAIN_STEPS if ln_on else 0
+            good = launches[name] == want
+            ok &= good
+            log(f"{tag} {name}: {launches[name]} launches, expected {want} "
+                f"{'OK' if good else 'FAIL'}")
+    elif gated:
         must += list(NEW_KERNELS)
         for name, per_step in GATED_PER_STEP.items():
             want = per_step * TRAIN_STEPS
@@ -3255,6 +3829,7 @@ def _full_width_training(torch, dev, gated, int8_base, remat, lora_fused=False):
     stats = dict(step_ms=ms, mean_step_ms=mean_ms,
                  samples_per_s=cfg.data.batch_size * 1e3 / mean_ms,
                  records=res["records"], peak_bytes=peak, launches=launches,
+                 launches_fp32=launches_fp32, precision=cfg.precision,
                  remat_vision=m.remat_vision, remat_llm=m.remat_llm)
     state, step_fn, batch = res["state"], res["step_fn"], res["batch"]
     stats["profile"] = device_profile(torch, lambda: step_fn(state, batch, 99),
@@ -3335,6 +3910,32 @@ def compare_remat(plain, remat, mode):
         f"{plain['peak_bytes'] / 2 ** 30:.2f} GiB (saves "
         f"{(plain['peak_bytes'] - remat['peak_bytes']) / 2 ** 30:.2f} GiB)")
     log_side_by_side(f"[train_remat_{mode}]", f"remat {mode}", plain, remat)
+    return ok
+
+
+def compare_fp32(plain, fp32, fp32_ln):
+    """`train_fp32` and `train_fp32_ln` beside phase 5's bf16 run, from the
+    same seed-0 params, batch and dropout seeds: step 1's loss (same
+    params) within the bf16 agreement's 2e-2 of the bf16 run's; the LN-gated
+    fp32 run's losses and grad norms within FP32_STEP_TOL of the ungated
+    fp32 run's (the same fp32 math, the norms' sums in another order);
+    ms/step, peak memory and device time by kernel class side by side."""
+    ok = True
+    a, b = plain["records"][0], fp32["records"][0]
+    good = abs(b["loss"] - a["loss"]) <= 2e-2 * abs(a["loss"])
+    ok &= good
+    log(f"[train_fp32] step 1 loss {b['loss']:.6f} vs phase 5's bf16 {a['loss']:.6f} (rel "
+        f"diff {abs(b['loss'] - a['loss']) / abs(a['loss']):.2e}, tol 2e-2) "
+        f"{'OK' if good else 'FAIL'}; grad_norm {b['grad_norm']:.6f} vs {a['grad_norm']:.6f}")
+    for a, b in zip(fp32["records"], fp32_ln["records"]):
+        for key in ("loss", "grad_norm"):
+            good = abs(b[key] - a[key]) <= FP32_STEP_TOL * abs(a[key])
+            ok &= good
+            log(f"[train_fp32_ln] step {a['step']} {key} {b[key]:.7f} vs train_fp32 "
+                f"{a[key]:.7f} (rel diff {abs(b[key] - a[key]) / abs(a[key]):.2e}, tol "
+                f"{FP32_STEP_TOL}) {'OK' if good else 'FAIL'}")
+    log_side_by_side("[train_fp32]", "fp32", plain, fp32)
+    log_side_by_side("[train_fp32_ln]", "fp32 LN-gated", fp32, fp32_ln)
     return ok
 
 
@@ -4448,7 +5049,7 @@ def eval_language(torch, dev, work, checkpoint):
 # ---------------------------------------------------------------------------
 
 MICROSIM_ROUTE = "micro_02_accident"     # straight town, Accident at 110 m, no NPCs
-MICROSIM_TICKS = 40                      # 2 s of game time: the first plain CoT, then speculative
+MICROSIM_TICKS = 20                      # 1 s of game time: the first plain CoT, then speculative
 MICROSIM_PROFILE_TICK = 5                # a speculative tick, profiled (not timed)
 # the babysat job: route, --max-steps. Past the default AgentConfig's 40
 # settling ticks, so the model runs (plain CoT, then speculative); on a
@@ -5097,12 +5698,24 @@ ATTN_INSTANCE_CASES = {"flash_attn_fwd": {16: "tiny_llm", 32: "shardable_llm", 6
                                           128: "base_large"}}
 
 
+# the fp32 instances' representative phase-2 cases, and the paths that
+# launch them (every launch of these kernels there is an fp32 instance's)
+FP32_LINE_CASES = {"flash_attn_fwd": "vit_train_fp32", "flash_attn_bwd": "llm_train_fp32",
+                   "dropout": "lora_x_896_fp32", "layernorm_fwd": "vit_fp32",
+                   "layernorm_bwd": "vit_fp32", "rmsnorm_fwd": "llm_train_fp32",
+                   "rmsnorm_bwd": "llm_train_fp32"}
+FP32_PATHS = ("train_fp32", "train_fp32_ln")
+
+
 def kernel_line(cases, launches, by_dim=None):
     """One entry per ported kernel, at a representative shape of its path;
     launches: {path: {kernel: count}} from each path's counted run; by_dim:
     {path: {attention kernel: {head dim: count}}} where a path counted them
     (SimLingo-Base's). The attention kernels also list each built head
-    dim's instance at its representative phase-2 case."""
+    dim's instance at its representative phase-2 case. A kernel with an
+    fp32 build also lists it under "fp32" (its representative fp32 case,
+    FP32_LINE_CASES, with the same keys, and its launches on FP32_PATHS),
+    the attention kernels each head dim's fp32 instance too."""
     meta = {
         "flash_attn_fwd": ("simlingo_tpu_torch/csrc/flash_attn_fwd.cu",
                            [f"simlingo_tpu/kernels/flash_attention.py:{n}"
@@ -5142,6 +5755,22 @@ def kernel_line(cases, launches, by_dim=None):
                     "ms": rep["kernel_ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
                     "library_ms": rep["library_ms"], "shape": rep["shape"]})
+        if name in FP32_LINE_CASES:
+            f = [c for c in mine if c["case"] == FP32_LINE_CASES[name]][0]
+            fp32_paths = {p: launches[p].get(name, 0) for p in FP32_PATHS if p in launches}
+            out[-1]["fp32"] = {
+                "case": f["case"], "shape": f["shape"], "launches": sum(fp32_paths.values()),
+                "launches_by_path": fp32_paths,
+                "max_abs_err": max(c["max_abs_err"] for c in mine if c.get("dtype") == "fp32"),
+                "ms": f["kernel_ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+                "bound_by": f["bound_by"], "library_ms": f["library_ms"]}
+            if name in ATTN_INSTANCE_CASES:
+                out[-1]["fp32"]["instances"] = {
+                    str(d): {k: c[k] for k in ("case", "shape", "kernel_ms", "plain_ms",
+                                               "bound_ms", "bound_by", "library_ms",
+                                               "err_over_rms")}
+                    for d, case_name in FP32_ATTN_INSTANCES.items()
+                    for c in mine if c["case"] == case_name}
         if name in ATTN_INSTANCE_CASES:
             out[-1]["instances"] = {
                 str(d): {k: c[k] for k in ("case", "shape", "kernel_ms", "plain_ms", "bound_ms",
@@ -5212,13 +5841,50 @@ def microsim_only(torch, dev, phase=None):
         shutil.rmtree(work, ignore_errors=True)
 
 
-def run_path_phases(torch, dev, cases) -> int:
+def fp32_small_agreements(torch, dev):
+    """Phase 3 at fp32: the small step on the card's fp32 kernels against
+    the CPU's fp32 plain step, gates off and with the LN gate."""
+    return (small_training_agreement(torch, dev, fp32=True)
+            and small_training_agreement(torch, dev, gated=FP32_LN_GATE, fp32=True))
+
+
+def fp32_training(torch, dev, plain):
+    """Phase 5 at fp32: `train_fp32` (gates off) and `train_fp32_ln`
+    (SIMLINGO_LN_IMPL=pallas), each beside phase 5's bf16 run `plain`
+    (`compare_fp32`); returns (ok, {cell: stats})."""
+    torch.cuda.empty_cache()
+    ok, fp32 = full_width_training(torch, dev, fp32_gates={})
+    if not ok:
+        return False, {"train_fp32": fp32}
+    torch.cuda.empty_cache()
+    ok, fp32_ln = full_width_training(torch, dev, fp32_gates=FP32_LN_GATE)
+    runs = {"train_fp32": fp32, "train_fp32_ln": fp32_ln}
+    ok = ok and compare_fp32(plain, fp32, fp32_ln)
+    torch.cuda.empty_cache()
+    return ok, runs
+
+
+class phase_clock:
+    """Logs the seconds since the run began at each phase's end."""
+
+    def __init__(self):
+        self.t0 = self.last = time.perf_counter()
+
+    def __call__(self, what):
+        now = time.perf_counter()
+        log(f"[time] {what}: {now - self.last:.1f} s (at {now - self.t0:.1f} s)")
+        self.last = now
+
+
+def run_path_phases(torch, dev, cases, clock) -> int:
     if not (small_model_agreement(torch, dev) and small_training_agreement(torch, dev)
             and small_training_agreement(torch, dev, gated=True)
             and small_training_agreement(torch, dev, int8_base=True)
+            and fp32_small_agreements(torch, dev)
             and small_remat_agreement(torch, dev) and small_int4_agreement(torch, dev)
             and small_base_agreement(torch, dev)):
         return 1
+    clock("phase 3 (small-model agreements)")
     ok, stats, agent, frame = full_width(torch, dev, gated_pass=True, int4_pass=True)
     if not ok:
         return 1
@@ -5231,9 +5897,14 @@ def run_path_phases(torch, dev, cases) -> int:
     log(f"[profile] int8_matmul calls in the profiled frame {calls}, forward-kernel "
         f"launches {fwd} {'OK' if fwd == calls else 'DIFFERS'} (one launch a call)")
     del agent, frame
+    clock("phase 4 (serving)")
     ok, train_stats = full_width_training(torch, dev)
     if not ok:
         return 1
+    ok, fp32_runs = fp32_training(torch, dev, train_stats)
+    if not ok:
+        return 1
+    clock("phase 5: train, train_fp32, train_fp32_ln")
     torch.cuda.empty_cache()
     ok, gated_stats = full_width_training(torch, dev, gated=True)
     if not ok or not compare_training(train_stats, gated_stats):
@@ -5255,20 +5926,25 @@ def run_path_phases(torch, dev, cases) -> int:
         return 1
     compare_lora_fused(train_stats, fused_stats)
     torch.cuda.empty_cache()
+    clock("phase 5: the gated, int8, remat and fused-LoRA runs")
     ok, mesh_stats = mesh_training(torch, dev)
     if not ok:
         return 1
+    clock("phase 5b (mesh)")
     torch.cuda.empty_cache()
     smi = smi_line()
     ok, base_launches, base_by_dim = run_base_phases(torch, dev, smi)
     if not ok:
         return 1
+    clock("phase 6 (SimLingo-Base)")
     per_frame = dict(launches=stats["launches_per_frame"], tokens=stats["tokens_per_frame"],
                      spec=stats["spec_stats"])
     ok, disk_stats, eval_stats = disk_and_eval_phases(torch, dev, per_frame)
     if not ok:
         return 1
-    for name, st in (("agent", stats), ("train", train_stats), ("train_gated", gated_stats),
+    clock("phases 7-10b (disk, plugin, evaluation, microsim, collection)")
+    for name, st in (("agent", stats), ("train", train_stats), *fp32_runs.items(),
+                     ("train_gated", gated_stats),
                      ("train_int8", int8_stats),
                      *((f"train_remat_{m}", st) for m, st in remat_stats.items()),
                      ("train_lora_fused", fused_stats), ("mesh_training", mesh_stats), ("train_disk", disk_stats),
@@ -5279,6 +5955,7 @@ def run_path_phases(torch, dev, cases) -> int:
             json.dump(dict(st, nvidia_smi=smi), f, indent=1)
     launches = {"serve": stats["launches"], "serve_gated": stats["gated"]["launches"],
                 "serve_int4": stats["int4"]["launches"], "train": train_stats["launches"],
+                **{name: st["launches"] for name, st in fp32_runs.items()},
                 "train_gated": gated_stats["launches"], "train_int8": int8_stats["launches"],
                 **{f"train_remat_{m}": st["launches"] for m, st in remat_stats.items()},
                 "train_lora_fused": fused_stats["launches"],
@@ -5320,7 +5997,10 @@ BASE_KEYS = ("loss", "grad_norm_vision", "grad_norm_rest")
 # the ring-off run: mesh_sp2 on a sequence of 767 + 30 = 797 positions,
 # which does not divide over sp = 2: the trainer must raise after step 1
 RING_OFF_TEXT_LEN = 767
-MESH_STEPS = 3
+# steps a mesh run takes: the checks read step 1 and the last step; 2 (not
+# 3) keeps the full run inside its time limit, as the ranks' host-bound
+# staging makes this the phase that varies most between calls
+MESH_STEPS = 2
 MESH_TIMEOUT = 600          # seconds the ranks may take for every run, spawn to exit
 # A run is held to its control, the one-process step that makes the run's
 # reductions (`control_step`), within MESH_MULT times the control's own
@@ -6086,7 +6766,8 @@ def mesh_training(torch, dev):
 KERNEL_CHECKS = {"flash_attn_fwd": run_attention_checks, "int8_matmul": run_int8_checks,
                  "int4_matmul": run_int4_checks, "int8_matmul_dx": run_int8_dx_checks,
                  "flash_attn_bwd": run_attention_bwd_checks, "dropout": run_dropout_checks,
-                 "norms": run_norm_checks, "fused_ce": run_ce_checks}
+                 "norms": run_norm_checks, "fused_ce": run_ce_checks,
+                 "fp32": run_fp32_checks}
 
 
 def main() -> int:
@@ -6111,6 +6792,10 @@ def main() -> int:
                     help="build, then run the disk-training phase (7) and, in its "
                          "workspace, the plugin (8), the evaluation (9), the "
                          "microsim (10) and the expert collection (10b) only")
+    ap.add_argument("--fp32", action="store_true",
+                    help="build, then the fp32 builds' phase-2 cases, the small fp32 "
+                         "training agreements, phase 5's ungated run and `train_fp32` / "
+                         "`train_fp32_ln` beside it only")
     ap.add_argument("--lora-fused", action="store_true",
                     help="build, then phase 5's ungated training run and `train_lora_fused` "
                          "(SIMLINGO_LORA_FUSED=1) beside it only")
@@ -6143,8 +6828,10 @@ def main() -> int:
 
     # 1. build
     t0 = time.perf_counter()
+    clock = phase_clock()
     _build.build_all(verbose=True)
     log(f"[build] {time.perf_counter() - t0:.2f} s (nvcc in parallel)")
+    clock("phase 1 (build)")
     if args.int8_sweep:
         return int8_sweep(torch, dev)
     if args.ce_sweep:
@@ -6159,6 +6846,27 @@ def main() -> int:
         if ok:
             ok, _, _ = run_base_phases(torch, dev, smi_line(), tuple(args.base or BASE_CELLS))
         log(f"[base] phases 3 (SimLingo-Base) and 6 {'OK' if ok else 'FAILED'} on {smi_line()}")
+        return 0 if ok else 1
+    if args.fp32:
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        cases = []
+        run_fp32_checks(torch, dev, cases)
+        with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_cases_fp32.json"), "w") as f:
+            json.dump(cases, f, indent=1)
+        bad = [c["case"] for c in cases if not c["ok"]]
+        ok = not bad and fp32_small_agreements(torch, dev)
+        if bad:
+            log(f"[kernel] FAILED: {bad}")
+        if ok:
+            ok, plain = full_width_training(torch, dev)
+        if ok:
+            ok, runs = fp32_training(torch, dev, plain)
+            for name, st in runs.items():
+                with open(os.path.join(ROOT, "chiprun_out", f"chip_smoke_{name}.json"),
+                          "w") as f:
+                    json.dump(dict(st, nvidia_smi=smi_line()), f, indent=1)
+        log(f"[fp32] phase 2 at fp32, the small fp32 steps, train_fp32 and train_fp32_ln "
+            f"{'OK' if ok else 'FAILED'} on {smi_line()}")
         return 0 if ok else 1
     if args.lora_fused:
         os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -6228,7 +6936,8 @@ def main() -> int:
         log(f"[kernel] all cases within tolerance on {smi_line()}")
         return 0
 
-    return run_path_phases(torch, dev, cases)
+    clock("phase 2 (kernels)")
+    return run_path_phases(torch, dev, cases, clock)
 
 
 if __name__ == "__main__":

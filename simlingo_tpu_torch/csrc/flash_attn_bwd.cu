@@ -4,7 +4,9 @@
 // parallel/sequence.py adds one backward a key chunk), dQ, dK, dV stored
 // as the fp32 accumulators (times the scale), unrounded: the same
 // kernels instantiated with OutT = float, which differ only in their
-// stores. The bf16 instances (OutT = bf16) are unchanged by that.
+// stores. The bf16 instances (OutT = bf16) are unchanged by that. fp32
+// operands (training at precision=fp32) take the fp32 build below: the
+// same launches, pairs and tiles, fp32 FMA products, an fp32 scratch.
 //
 // Replaces the Pallas TPU backward kernels of
 // simlingo_tpu/kernels/flash_attention.py: _bwd_kernel_gqa (:382, the Qwen2
@@ -122,6 +124,23 @@ __device__ __forceinline__ bool pair_live(bool key_tile_live, int qt, int kt,
          (!causal || kt * BKV <= q_offset + min(qt * BQ + BQ - 1, T - 1));
 }
 
+// The prep kernels' blocks past the rows' (block i of them): one warp a
+// key tile, live[b * n_kt + kt] = any valid key in [64 kt, 64 kt + 64).
+__device__ __forceinline__ void flag_live_tiles(const uint8_t* __restrict__ kv_valid,
+                                                uint8_t* __restrict__ live, int S, int n_kt,
+                                                long long tiles, long long block) {
+  const int lane = threadIdx.x & 31;
+  const long long i = block * 8LL + (threadIdx.x >> 5);          // (b, kt)
+  if (i >= tiles) return;
+  const long long b = i / n_kt;
+  const int k0 = static_cast<int>(i % n_kt) * BKV;
+  const uint8_t* vr = kv_valid + b * S;
+  const bool any = (k0 + lane < S && vr[k0 + lane]) ||
+                   (k0 + 32 + lane < S && vr[k0 + 32 + lane]);
+  const unsigned m = __ballot_sync(0xffffffffu, any);
+  if (lane == 0) live[i] = m != 0u;
+}
+
 // Rows (b, t, h) first, 8 lanes a row with 16-byte loads: delta[b, h, t] =
 // sum_d dO * O, with dO and O contiguous [B, T, HQ, D]. Then, with
 // kv_valid, one warp a key tile: live[b * n_kt + kt] = any valid key in
@@ -141,17 +160,8 @@ bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
                 uint8_t* __restrict__ live, int T, int S, int HQ, int n_kt,
                 long long rows, long long tiles) {
   const long long row_blocks = (rows + 31) / 32;
-  const int lane = threadIdx.x & 31;
   if (blockIdx.x >= row_blocks) {
-    const long long i = (blockIdx.x - row_blocks) * 8LL + (threadIdx.x >> 5);   // (b, kt)
-    if (i >= tiles) return;
-    const long long b = i / n_kt;
-    const int k0 = static_cast<int>(i % n_kt) * BKV;
-    const uint8_t* vr = kv_valid + b * S;
-    const bool any = (k0 + lane < S && vr[k0 + lane]) ||
-                     (k0 + 32 + lane < S && vr[k0 + 32 + lane]);
-    const unsigned m = __ballot_sync(0xffffffffu, any);
-    if (lane == 0) live[i] = m != 0u;
+    flag_live_tiles(kv_valid, live, S, n_kt, tiles, blockIdx.x - row_blocks);
     return;
   }
   const long long w = blockIdx.x * 32LL + (threadIdx.x >> 3);
@@ -523,6 +533,425 @@ bwd_dq_kernel(const bf16* __restrict__ ds, const bf16* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// the fp32 build (training at precision=fp32)
+// ---------------------------------------------------------------------------
+//
+// JAX's backward keeps P and dS in the operand dtype (:262, :267), so at
+// fp32 every product is an fp32 product: here fp32 FMAs (no TF32, no bf16
+// rounding), with the same three launches, pairs and tile order as the
+// bf16 build and an fp32 dS^T scratch (4 bytes an element: 909,115,392 B
+// at the ViT's [12,1025,16,64], 232,587,264 B at the LLM's GQA shape).
+// Gradients come out in fp32. No atomics: the same bits every call.
+//
+//   1. bwd_prep_f32_kernel: delta = rowsum(dO * O), 8 lanes a row, and the
+//      key tiles' live flags (as the bf16 prep).
+//   2. bwd_dkdv_f32_kernel: one block per (64-key tile, kv head, batch), NT
+//      threads (128; 256 at D = 128). Thread (kg = tid / RG, rl = tid % RG)
+//      owns keys 4 kg .. 4 kg + 3 and, of each 64-row query tile, rows rl +
+//      RG j: S^T = K Q^T and dP^T = V dO^T as 4 x RPT register tiles (two
+//      d loops, 16-byte shared loads; Q and dO rows D + 4 floats apart, so a
+//      quarter-warp phase hits 8 distinct bank groups). P^T = exp2(s scale
+//      log2(e) - lse) and dS^T = P^T (dP^T - delta) go to shared memory
+//      (a key group's rows are read only by its own warp: __syncwarp); dV
+//      += P^T dO and dK += dS^T Q then sum the 64 rows in order into each
+//      thread's keys x columns VW rl + RG VW u + w, the accumulators in
+//      registers across the group's heads and query tiles. Each warp also
+//      copies its keys' dS^T rows to the scratch tile.
+//   3. bwd_dq_f32_kernel: one block of 128 threads per (64-row query tile,
+//      query head, batch): dQ = scale dS K over the live key tiles, the dS^T
+//      tile and the K tile double-buffered by cp.async; thread (rg, kg)
+//      owns rows 4 rg .. 4 rg + 3 and columns VW kg + 8 VW u + w.
+//
+// Each accumulator sums a tile (64 rows for dK / dV, 64 keys for dQ) from
+// 0 and then adds it to its running sum: one running sum over the LLM's 7
+// heads x 798 rows measured 4x the error against an fp64 reference (a numpy
+// model of dV at 7 heads x 300 causal rows: 2.0e-5 against 4.7e-6 of
+// rms(dV)).
+//
+// What bounds it: fp32 operations, 10 T S D a head (S, dP, dV, dK, dQ), at
+// 67 TFLOP/s without tensor cores; the scratch (8 bytes an element over
+// both passes) is far below that.
+template <int D>
+struct F32Dims {
+  static constexpr int LD = D + 4;                 // fp32 rows of K, V, Q, dO
+  static constexpr int LDP = BQ + 4;               // P^T / dS^T rows [key][query]
+  static constexpr int NT = D > 64 ? 256 : 128;    // dK/dV threads
+  static constexpr int RG = NT / 16;               // lanes of a key group
+  static constexpr int RPT = BQ / RG;              // query rows a thread
+  static constexpr int VW = D / RG >= 4 ? 4 : 2;   // dK / dV vector
+  static constexpr int NU = D / (RG * VW);         // vectors a key a thread
+  // dQ: 128 threads, 8 lanes a row group
+  static constexpr int QVW = D >= 32 ? 4 : 2;
+  static constexpr int QNU = D / (8 * QVW);
+  // dK/dV: K, V, Q, dO rows; P^T and dS^T; lse and delta
+  static constexpr int DKDV_SMEM = (4 * BKV * LD + 2 * BKV * LDP + 2 * BQ) * 4;
+  // dQ: a stage is a dS^T tile [key][query] and a K tile [key][d]
+  static constexpr int DQ_STAGE = BKV * BQ + BKV * LD;     // floats
+  static_assert(RG * VW * NU == D && 8 * QVW * QNU == D, "the lanes cover a row");
+};
+
+template <int VW>
+__device__ __forceinline__ void lds_f32(const float* p, float (&v)[VW]) {
+  if constexpr (VW == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
+  }
+}
+
+template <int VW>
+__device__ __forceinline__ void stg_f32(float* p, const float (&v)[VW], float scale) {
+  if constexpr (VW == 4) {
+    *reinterpret_cast<float4*>(p) =
+        make_float4(v[0] * scale, v[1] * scale, v[2] * scale, v[3] * scale);
+  } else {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0] * scale, v[1] * scale);
+  }
+}
+
+// delta[b, h, t] = sum_d dO * O for contiguous fp32 [B, T, HQ, D] rows: 8
+// lanes a row, lane p the elements [p D / 8, (p + 1) D / 8) in order, then
+// a butterfly over lanes 4, 2, 1; and the live flags.
+template <int D>
+__global__ void __launch_bounds__(256)
+bwd_prep_f32_kernel(const float* __restrict__ o, const float* __restrict__ dout,
+                    float* __restrict__ delta, const uint8_t* __restrict__ kv_valid,
+                    uint8_t* __restrict__ live, int T, int S, int HQ, int n_kt,
+                    long long rows, long long tiles) {
+  const long long row_blocks = (rows + 31) / 32;
+  if (blockIdx.x >= row_blocks) {
+    flag_live_tiles(kv_valid, live, S, n_kt, tiles, blockIdx.x - row_blocks);
+    return;
+  }
+  const long long w = blockIdx.x * 32LL + (threadIdx.x >> 3);
+  const int part = threadIdx.x & 7;
+  constexpr int PER = D / 8, VW = PER >= 4 ? 4 : 2;
+  float acc = 0.f;
+  if (w < rows) {
+#pragma unroll
+    for (int c = 0; c < PER; c += VW) {
+      float a[VW], e[VW];
+      lds_f32<VW>(o + w * D + part * PER + c, a);         // (a global load here)
+      lds_f32<VW>(dout + w * D + part * PER + c, e);
+#pragma unroll
+      for (int j = 0; j < VW; ++j) acc = fmaf(a[j], e[j], acc);
+    }
+  }
+#pragma unroll
+  for (int m = 4; m > 0; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  if (part == 0 && w < rows) {
+    const int h = static_cast<int>(w % HQ);
+    const long long bt = w / HQ;
+    delta[((bt / T) * HQ + h) * T + bt % T] = acc;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32Dims<D>::NT)
+bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const uint8_t* __restrict__ kv_valid,
+                    const uint8_t* __restrict__ live,
+                    const float* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ ds,
+                    float* __restrict__ dk, float* __restrict__ dv,
+                    int T, int S, int HQ, int HK,
+                    long long sqb, long long sqt, long long sqh,
+                    long long skb, long long sks, long long skh,
+                    long long svb, long long svs, long long svh,
+                    int causal, int q_offset, float scale, float scale_log2) {
+  using Dm = F32Dims<D>;
+  constexpr int LD = Dm::LD, LDP = Dm::LDP, NT = Dm::NT, RG = Dm::RG, RPT = Dm::RPT;
+  constexpr int VW = Dm::VW, NU = Dm::NU;
+  extern __shared__ __align__(16) float smem_f[];
+  float* Ks = smem_f;                                // [key][d]
+  float* Vs = Ks + BKV * LD;
+  float* Qs = Vs + BKV * LD;                         // [query][d]
+  float* dOs = Qs + BQ * LD;
+  float* PT = dOs + BQ * LD;                         // [key][query]
+  float* dST = PT + BKV * LDP;
+  float* lse_s = dST + BKV * LDP;                    // [query]
+  float* delta_s = lse_s + BQ;
+
+  const int kt = blockIdx.x, k0 = kt * BKV, hk = blockIdx.y, b = blockIdx.z;
+  const int group = HQ / HK;
+  const int n_qt = (T + BQ - 1) / BQ, n_kt = (S + BKV - 1) / BKV;
+  const int tid = threadIdx.x, kg = tid / RG, rl = tid % RG, kl0 = 4 * kg;
+  const float* kb = k + b * skb + hk * skh;
+  const float* vb = v + b * svb + hk * svh;
+
+  bool key_ok[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s = k0 + kl0 + i;
+    key_ok[i] = s < S && (kv_valid == nullptr || kv_valid[(long long)b * S + s]);
+  }
+  const bool tile_live = live == nullptr || live[(long long)b * n_kt + kt];
+  int qt_lo = 0;
+  while (qt_lo < n_qt && !pair_live(tile_live, qt_lo, kt, T, causal, q_offset)) ++qt_lo;
+  const int n_qtv = n_qt - qt_lo;
+  const int n_it = group * n_qtv;
+
+  float dkacc[4][D / RG], dvacc[4][D / RG];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < D / RG; ++c) dkacc[i][c] = dvacc[i][c] = 0.f;
+
+  if (n_it > 0) {
+    for (int c = tid; c < BKV * (D / 4); c += NT) {        // keys past S as 0
+      const int key = c / (D / 4), dc = (c % (D / 4)) * 4, s = k0 + key;
+      const bool in = s < S;
+      simlingo::cp_async16(&Ks[key * LD + dc], in ? kb + s * sks + dc : kb, in);
+      simlingo::cp_async16(&Vs[key * LD + dc], in ? vb + s * svs + dc : vb, in);
+    }
+  }
+  for (int it = 0; it < n_it; ++it) {
+    const int h = hk * group + it / n_qtv;
+    const int qt = qt_lo + it % n_qtv, q0 = qt * BQ;
+    const float* qb = q + b * sqb + h * sqh;
+    const float* db = dout + ((long long)b * T * HQ + h) * D;
+    __syncthreads();                   // the previous tile's Q, dO, P^T, dS^T are read
+    for (int c = tid; c < BQ * (D / 4); c += NT) {         // rows past T as 0
+      const int row = c / (D / 4), dc = (c % (D / 4)) * 4, t = q0 + row;
+      const bool in = t < T;
+      simlingo::cp_async16(&Qs[row * LD + dc], in ? qb + t * sqt + dc : qb, in);
+      simlingo::cp_async16(&dOs[row * LD + dc], in ? db + (long long)t * HQ * D + dc : db, in);
+    }
+    simlingo::cp_async_commit();
+    if (tid < BQ) {
+      const int t = q0 + tid;
+      const long long i = ((long long)b * HQ + h) * T + t;
+      lse_s[tid] = t < T ? lse_as_read(lse[i]) : INFINITY;
+      delta_s[tid] = t < T ? delta[i] : 0.f;
+    }
+    simlingo::cp_async_wait<0>();
+    __syncthreads();
+
+    // S^T and dP^T over the thread's 4 keys x RPT rows, d in order
+    float sc[4][RPT], dp[4][RPT];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) sc[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+      float a[4][4], x[RPT][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) lds_f32<4>(&Ks[(kl0 + i) * LD + d], a[i]);
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) lds_f32<4>(&Qs[(rl + RG * j) * LD + d], x[j]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < RPT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[i][j] = fmaf(a[i][e], x[j][e], sc[i][j]);
+    }
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+      float a[4][4], x[RPT][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) lds_f32<4>(&Vs[(kl0 + i) * LD + d], a[i]);
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) lds_f32<4>(&dOs[(rl + RG * j) * LD + d], x[j]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < RPT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dp[i][j] = fmaf(a[i][e], x[j][e], dp[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        const int row = rl + RG * j, key = k0 + kl0 + i;
+        const bool ok = key_ok[i] && (!causal || key <= q0 + row + q_offset);
+        const float p = ok ? exp2f(sc[i][j] * scale_log2 - lse_s[row]) : 0.f;
+        PT[(kl0 + i) * LDP + row] = p;
+        dST[(kl0 + i) * LDP + row] = p * (dp[i][j] - delta_s[row]);
+      }
+    __syncwarp();                      // the key group's rows are written
+
+    // dV += P^T dO, dK += dS^T Q: the tile's 64 rows in order from 0, then
+    // added to the running sums (see F32Dims)
+    float tk[4][D / RG], tv[4][D / RG];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < D / RG; ++c) tk[i][c] = tv[i][c] = 0.f;
+#pragma unroll 2
+    for (int r = 0; r < BQ; r += 4) {
+      float p4[4][4], s4[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        lds_f32<4>(&PT[(kl0 + i) * LDP + r], p4[i]);
+        lds_f32<4>(&dST[(kl0 + i) * LDP + r], s4[i]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float ov[NU][VW], qv[NU][VW];
+#pragma unroll
+        for (int u = 0; u < NU; ++u) {
+          lds_f32<VW>(&dOs[(r + e) * LD + VW * rl + RG * VW * u], ov[u]);
+          lds_f32<VW>(&Qs[(r + e) * LD + VW * rl + RG * VW * u], qv[u]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int u = 0; u < NU; ++u)
+#pragma unroll
+            for (int w = 0; w < VW; ++w) {
+              tv[i][u * VW + w] = fmaf(p4[i][e], ov[u][w], tv[i][u * VW + w]);
+              tk[i][u * VW + w] = fmaf(s4[i][e], qv[u][w], tk[i][u * VW + w]);
+            }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < D / RG; ++c) {
+        dkacc[i][c] += tk[i][c];
+        dvacc[i][c] += tv[i][c];
+      }
+    // the warp's keys of dS^T tile (kt, qt): [key][64 queries], contiguous
+    {
+      constexpr int KEYS_W = 32 / RG * 4;
+      const int warp = tid >> 5, lane = tid & 31;
+      float* dsw = ds + ((((long long)b * HQ + h) * n_kt + kt) * n_qt + qt) * (BKV * BQ) +
+                   warp * KEYS_W * BQ;
+#pragma unroll
+      for (int c = lane; c < KEYS_W * (BQ / 4); c += 32) {
+        const int key = c / (BQ / 4), cc = (c % (BQ / 4)) * 4;
+        *reinterpret_cast<float4*>(dsw + key * BQ + cc) =
+            *reinterpret_cast<const float4*>(&dST[(warp * KEYS_W + key) * LDP + cc]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + kl0 + i;
+    if (key >= S) continue;
+    float* dkrow = dk + (((long long)b * S + key) * HK + hk) * D;
+    float* dvrow = dv + (((long long)b * S + key) * HK + hk) * D;
+#pragma unroll
+    for (int u = 0; u < NU; ++u) {
+      float a[VW], e[VW];
+#pragma unroll
+      for (int w = 0; w < VW; ++w) {
+        a[w] = dkacc[i][u * VW + w];
+        e[w] = dvacc[i][u * VW + w];
+      }
+      stg_f32<VW>(dkrow + VW * rl + RG * VW * u, a, scale);
+      stg_f32<VW>(dvrow + VW * rl + RG * VW * u, e, 1.f);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(128)
+bwd_dq_f32_kernel(const float* __restrict__ ds, const float* __restrict__ k,
+                  const uint8_t* __restrict__ live, float* __restrict__ dq,
+                  int T, int S, int HQ, int HK, long long skb, long long sks, long long skh,
+                  int causal, int q_offset, float scale) {
+  using Dm = F32Dims<D>;
+  constexpr int LD = Dm::LD, VW = Dm::QVW, NU = Dm::QNU, STAGE = Dm::DQ_STAGE;
+  extern __shared__ __align__(16) float dq_smem_f[];
+  float* ring = dq_smem_f;                            // stage: [key][query] dS^T, [key][d] K
+  uint8_t* live_s = reinterpret_cast<uint8_t*>(ring + 2 * STAGE);
+
+  const int qt = blockIdx.x, q0 = qt * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (HQ / HK);
+  const int n_qt = (T + BQ - 1) / BQ, n_kt = (S + BKV - 1) / BKV;
+  const int tid = threadIdx.x, rg = tid >> 3, kg = tid & 7, r0 = 4 * rg;
+  const float* dsb = ds + (((long long)b * HQ + h) * n_kt * n_qt + qt) * (BKV * BQ);
+  const float* kb = k + b * skb + hk * skh;
+
+  for (int i = tid; i < n_kt; i += 128)
+    live_s[i] = live == nullptr || live[(long long)b * n_kt + i];
+  __syncthreads();
+  auto next_tile = [&](int kt) {
+    for (++kt; kt < n_kt; ++kt)
+      if (pair_live(live_s[kt], qt, kt, T, causal, q_offset)) break;
+    return kt;
+  };
+  auto load_tile = [&](int stage, int kt) {
+    float* dSs = ring + stage * STAGE;
+    float* Ks = dSs + BKV * BQ;
+    const float* tile = dsb + (long long)kt * n_qt * (BKV * BQ);
+    for (int c = tid; c < BKV * BQ / 4; c += 128)
+      simlingo::cp_async16(&dSs[c * 4], tile + c * 4, true);
+    for (int c = tid; c < BKV * (D / 4); c += 128) {
+      const int key = c / (D / 4), dc = (c % (D / 4)) * 4, s = kt * BKV + key;
+      const bool in = s < S;
+      simlingo::cp_async16(&Ks[key * LD + dc], in ? kb + s * sks + dc : kb, in);
+    }
+  };
+
+  float dqacc[4][D / 8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) dqacc[i][c] = 0.f;
+
+  int kt = next_tile(-1);
+  if (kt < n_kt) load_tile(0, kt);
+  simlingo::cp_async_commit();
+  for (int it = 0; kt < n_kt; ++it) {
+    const int kt_next = next_tile(kt);
+    __syncthreads();                                // stage it - 1 is free
+    if (kt_next < n_kt) load_tile((it + 1) & 1, kt_next);
+    simlingo::cp_async_commit();
+    simlingo::cp_async_wait<1>();                   // tile `it` has landed
+    __syncthreads();
+    const float* dSt = ring + (it & 1) * STAGE;
+    const float* Kt = dSt + BKV * BQ;
+    float tq[4][D / 8];                             // the tile's 64 keys from 0
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) tq[i][c] = 0.f;
+#pragma unroll 4
+    for (int key = 0; key < BKV; ++key) {
+      float d4[4], kv[NU][VW];
+      lds_f32<4>(&dSt[key * BQ + r0], d4);
+#pragma unroll
+      for (int u = 0; u < NU; ++u) lds_f32<VW>(&Kt[key * LD + VW * kg + 8 * VW * u], kv[u]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int u = 0; u < NU; ++u)
+#pragma unroll
+          for (int w = 0; w < VW; ++w)
+            tq[i][u * VW + w] = fmaf(d4[i], kv[u][w], tq[i][u * VW + w]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) dqacc[i][c] += tq[i][c];
+    kt = kt_next;
+  }
+  simlingo::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = q0 + r0 + i;
+    if (t >= T) continue;
+    float* row = dq + (((long long)b * T + t) * HQ + h) * D;
+#pragma unroll
+    for (int u = 0; u < NU; ++u) {
+      float a[VW];
+#pragma unroll
+      for (int w = 0; w < VW; ++w) a[w] = dqacc[i][u * VW + w];
+      stg_f32<VW>(row + VW * kg + 8 * VW * u, a, scale);
+    }
+  }
+}
+
 // Opt a kernel in to `bytes` of dynamic shared memory, once a device.
 cudaError_t raise_smem(const void* kernel, int bytes, std::atomic<bool>* raised) {
   int dev = 0;
@@ -585,39 +1014,88 @@ int launch(const void* q, const void* k, const void* v, const void* kv_valid,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, const void* kv_valid,
+               const void* o, const void* dout, const void* lse, void* delta, void* live,
+               void* ds, void* dq, void* dk, void* dv, int B, int T, int S, int HQ, int HK,
+               long long sqb, long long sqt, long long sqh,
+               long long skb, long long sks, long long skh,
+               long long svb, long long svs, long long svh,
+               int causal, int q_offset, float scale, int dkdv_blocks, cudaStream_t st) {
+  using Dm = F32Dims<D>;
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const int n_kt = (S + BKV - 1) / BKV, n_qt = (T + BQ - 1) / BQ;
+  if (n_kt > MAX_KEY_TILES || dkdv_blocks != 1) return cudaErrorInvalidValue;
+  const long long rows = (long long)B * T * HQ;
+  const long long tiles = kv_valid != nullptr ? (long long)B * n_kt : 0;
+  bwd_prep_f32_kernel<D><<<static_cast<unsigned>((rows + 31) / 32 + (tiles + 7) / 8), 256, 0,
+                           st>>>(
+      static_cast<const float*>(o), static_cast<const float*>(dout),
+      static_cast<float*>(delta), static_cast<const uint8_t*>(kv_valid),
+      static_cast<uint8_t*>(live), T, S, HQ, n_kt, rows, tiles);
+  int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  const uint8_t* live_r = kv_valid != nullptr ? static_cast<const uint8_t*>(live) : nullptr;
+  static std::atomic<bool> raised[MAX_DEVICES];
+  cudaError_t e = raise_smem(reinterpret_cast<const void*>(bwd_dkdv_f32_kernel<D>),
+                             Dm::DKDV_SMEM, raised);
+  if (e != cudaSuccess) return e;
+  bwd_dkdv_f32_kernel<D><<<dim3(n_kt, HK, B), Dm::NT, Dm::DKDV_SMEM, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const uint8_t*>(kv_valid), live_r,
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(ds), static_cast<float*>(dk),
+      static_cast<float*>(dv), T, S, HQ, HK, sqb, sqt, sqh, skb, sks, skh,
+      svb, svs, svh, causal, q_offset, scale, scale_log2);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  static std::atomic<bool> raised_dq[MAX_DEVICES];
+  constexpr int dq_max = 2 * Dm::DQ_STAGE * 4 + MAX_KEY_TILES;
+  e = raise_smem(reinterpret_cast<const void*>(bwd_dq_f32_kernel<D>), dq_max, raised_dq);
+  if (e != cudaSuccess) return e;
+  bwd_dq_f32_kernel<D><<<dim3(n_qt, HQ, B), 128, 2 * Dm::DQ_STAGE * 4 + n_kt, st>>>(
+      static_cast<const float*>(ds), static_cast<const float*>(k), live_r,
+      static_cast<float*>(dq), T, S, HQ, HK, skb, sks, skh, causal, q_offset, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// The constants the wrapper's plan (_bwd_plan) relies on, for head dim D:
-// query rows and keys a tile, the resident dK/dV blocks an SM of the
-// capped build (0: none), the query rows of a dK/dV register pass and the
+// The constants the wrapper's plan (_bwd_plan) relies on, for head dim D
+// and the operand type (fp32 != 0: the fp32 build): query rows and keys a
+// tile, the resident dK/dV blocks an SM of the capped build (0: none; the
+// fp32 build has none), the query rows of a dK/dV register pass and the
 // dK/dV kernel's dynamic shared memory. Returns 0, or -1 for a D without
 // an instance (the wrapper pads those).
-extern "C" int simlingo_flash_attn_bwd_geometry(int head_dim, int* out) {
-  auto fill = [out](auto dims) {
+extern "C" int simlingo_flash_attn_bwd_geometry(int head_dim, int fp32, int* out) {
+  auto fill = [out, fp32](auto dims, auto f32) {
     using Dm = decltype(dims);
+    using Fm = decltype(f32);
     out[0] = BQ;
     out[1] = BKV;
-    out[2] = Dm::CAPPED;
-    out[3] = Dm::QP;
-    out[4] = Dm::DKDV_SMEM;
+    out[2] = fp32 ? 0 : Dm::CAPPED;
+    out[3] = fp32 ? BQ : Dm::QP;
+    out[4] = fp32 ? Fm::DKDV_SMEM : Dm::DKDV_SMEM;
     return 0;
   };
   switch (head_dim) {
-    case 16: return fill(Dims<16>{});
-    case 32: return fill(Dims<32>{});
-    case 64: return fill(Dims<64>{});
-    case 128: return fill(Dims<128>{});
+    case 16: return fill(Dims<16>{}, F32Dims<16>{});
+    case 32: return fill(Dims<32>{}, F32Dims<32>{});
+    case 64: return fill(Dims<64>{}, F32Dims<64>{});
+    case 128: return fill(Dims<128>{}, F32Dims<128>{});
     default: return -1;
   }
 }
 
 // delta: fp32 scratch [B, HQ, T]; live: uint8 scratch [B, n_kt], null
-// without kv_valid; ds: bf16 scratch [B, HQ, n_kt, n_qt, 64, 64] (n_kt, n_qt:
-// S and T in tiles of 64); lse [B, HQ, T] from the forward; o, dout, dq
-// contiguous [B, T, HQ, D]; dk, dv contiguous [B, S, HK, D]. All
-// allocated by the caller. dkdv_blocks: 1, or the capped build's blocks;
-// head_dim: 16, 32, 64 or 128 (else cudaErrorInvalidValue); out_fp32: 0
-// for bf16 dq / dk / dv, 1 for fp32 ones (unrounded partials).
+// without kv_valid; ds: scratch [B, HQ, n_kt, n_qt, 64, 64] (n_kt, n_qt:
+// S and T in tiles of 64), bf16, or fp32 with in_fp32; lse [B, HQ, T] from
+// the forward; o, dout, dq contiguous [B, T, HQ, D]; dk, dv contiguous [B,
+// S, HK, D]. All allocated by the caller. dkdv_blocks: 1, or the capped
+// build's blocks; head_dim: 16, 32, 64 or 128 (else cudaErrorInvalidValue);
+// in_fp32: 0 for bf16 q, k, v, o, dout, 1 for fp32 ones (the fp32 build,
+// which writes fp32 dq / dk / dv: out_fp32 must be 1); out_fp32: 0 for
+// bf16 dq / dk / dv, 1 for fp32 ones (for bf16 inputs: unrounded partials).
 extern "C" int simlingo_flash_attn_bwd(
     const void* q, const void* k, const void* v, const void* kv_valid,
     const void* o, const void* dout, const void* lse, void* delta, void* live,
@@ -626,11 +1104,21 @@ extern "C" int simlingo_flash_attn_bwd(
     long long skb, long long sks, long long skh,
     long long svb, long long svs, long long svh,
     int causal, int q_offset, float scale, int dkdv_blocks, int head_dim, int out_fp32,
-    void* stream) {
+    int in_fp32, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SIMLINGO_BWD_ARGS q, k, v, kv_valid, o, dout, lse, delta, live, ds, dq, dk, dv, B, T, S, \
     HQ, HK, sqb, sqt, sqh, skb, sks, skh, svb, svs, svh, causal, q_offset, scale, dkdv_blocks, st
   if (out_fp32 != 0 && out_fp32 != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (in_fp32 != 0) {
+    if (out_fp32 != 1) return static_cast<int>(cudaErrorInvalidValue);
+    switch (head_dim) {
+      case 16: return launch_f32<16>(SIMLINGO_BWD_ARGS);
+      case 32: return launch_f32<32>(SIMLINGO_BWD_ARGS);
+      case 64: return launch_f32<64>(SIMLINGO_BWD_ARGS);
+      case 128: return launch_f32<128>(SIMLINGO_BWD_ARGS);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   switch (head_dim * 2 + out_fp32) {
     case 32: return launch<16, bf16>(SIMLINGO_BWD_ARGS);
     case 64: return launch<32, bf16>(SIMLINGO_BWD_ARGS);

@@ -1,4 +1,6 @@
-// Flash attention forward for Hopper (sm_90a), bf16 in/out, fp32 softmax.
+// Flash attention forward for Hopper (sm_90a), bf16 in/out, fp32 softmax;
+// and an fp32 build (fp32 in/out, fp32 FMA products) for training at
+// precision=fp32, tiled path only (`flash_fwd_f32_kernel`, below).
 //
 // Replaces the Pallas TPU forward kernels of
 // simlingo_tpu/kernels/flash_attention.py: _fwd_kernel_gqa (:308, the Qwen2
@@ -538,6 +540,257 @@ flash_fwd_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cluster.sync();                  // the partials live until every block has read them
 }
 
+// ---------------------------------------------------------------------------
+// the fp32 build (training at precision=fp32): the tiled path only
+// ---------------------------------------------------------------------------
+//
+// JAX trains at fp32 through the same Pallas kernels (`trainer.py:248`
+// turns precision "fp32" into compute_dtype float32; the kernels keep
+// their operands in the input dtype: q pre-scaled by scale * log2(e) and
+// rounded to it, :128 / :317; P cast to it before P V, :262), so at fp32
+// the logits and P V are fp32 products. Here they are fp32 FMAs (no TF32,
+// no bf16 rounding). P has no bf16 remainder to add, so there is no FEW
+// build at fp32, and the split path (serving's decode, bf16 only) has no
+// fp32 build: the wrapper's plan sends every fp32 call here.
+//
+// One block of 128 threads per (64-row query tile, query head, batch), as
+// the bf16 tiled path. Thread (rg = tid / 8, kg = tid % 8) owns rows 4 rg
+// .. 4 rg + 3 of the block (so a warp owns 16 rows) and, of each 64-key
+// tile, keys kg + 8 j (j < 8): its 4 x 8 logits are a register tile that
+// reads 4 Q rows and 8 K rows, 16 bytes at a time, from shared memory for
+// every 4 d (128 FMAs for 12 loads). Rows of D + 4 floats put the 8 lanes of
+// a quarter-warp phase on 8 distinct 16-byte bank groups (the K rows kg + 8
+// j are D + 4 floats apart; the Q rows are one address a phase). The row's
+// max and sum over a tile's 64 keys go through shuffles over the 8 lanes of
+// a row group. P goes through shared memory (a row group's rows are read
+// only by its own warp: __syncwarp), and O += P V gives each thread its
+// rows' columns VW kg + 8 VW u + w (u < NU, w < VW): the 8 lanes read 8
+// neighbouring vectors of a V row. K and V tiles stream through a 2-stage
+// cp.async ring. A tile's P V goes to a tile-local accumulator (64 keys
+// summed from 0) that is then added to the rescaled running O: summing
+// 1025 keys into one running accumulator measured twice the error against
+// an fp64 reference (a numpy model of this loop at the ViT's 1025 keys:
+// 5.8e-6 against 2.7e-6 of rms(O)). Each logit and each O accumulator sums
+// in a fixed order (d ascending; keys ascending), so the bits do not change
+// from run to run.
+//
+// What bounds it: fp32 operations, 4 T S D a head, at 67 TFLOP/s without
+// tensor cores (the ViT's [12,1025,16,64] forward is 51.6 GFLOP, 0.77 ms);
+// the shared-memory reads of the register tiles above come next.
+constexpr int F32_STAGES = 2;
+constexpr int F32_LDP = BKV + 4;         // P rows in shared memory
+
+template <int D>
+struct F32Dims {
+  static constexpr int LD = D + 4;                        // fp32 rows of Q, K, V
+  static constexpr int VW = D >= 32 ? 4 : 2;              // an O vector's floats
+  static constexpr int NU = D / (8 * VW);                 // O vectors a row a thread
+  static constexpr int Q_FLOATS = BQ * LD;
+  static constexpr int STAGE_FLOATS = 2 * BKV * LD;       // K [key][d], then V [key][d]
+  // Q, the ring, P: 104,448 bytes at D = 64, 186,368 at D = 128
+  static constexpr int SMEM_BYTES = (Q_FLOATS + F32_STAGES * STAGE_FLOATS + BQ * F32_LDP) * 4;
+  static_assert(8 * VW * NU == D, "the 8 lanes of a row group cover the row");
+};
+
+template <int VW>
+__device__ __forceinline__ void lds_f32(const float* p, float (&v)[VW]) {
+  if constexpr (VW == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
+  }
+}
+
+template <int VW>
+__device__ __forceinline__ void stg_f32(float* p, const float (&v)[VW]) {
+  if constexpr (VW == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  }
+}
+
+// grid (row blocks, HQ, B)
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const uint8_t* __restrict__ kv_valid,
+                     float* __restrict__ o, float* __restrict__ lse,
+                     int T, int S, int HQ, int HK,
+                     long long sqb, long long sqt, long long sqh,
+                     long long skb, long long sks, long long skh,
+                     long long svb, long long svs, long long svh,
+                     int causal, int q_offset, float scale_log2) {
+  using Dm = F32Dims<D>;
+  constexpr int LD = Dm::LD, VW = Dm::VW, NU = Dm::NU;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* ring = Qs + Dm::Q_FLOATS;
+  float* Ps = ring + F32_STAGES * Dm::STAGE_FLOATS;
+
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (HQ / HK);
+  const int tid = threadIdx.x, rg = tid >> 3, kg = tid & 7, r0 = 4 * rg;
+  const float* qb = q + b * sqb + h * sqh;
+  const float* kb = k + b * skb + hk * skh;
+  const float* vb = v + b * svb + hk * svh;
+  const uint8_t* valid_b = kv_valid != nullptr ? kv_valid + (long long)b * S : nullptr;
+
+  // Q scaled by scale * log2(e) in fp32, rows past T as 0
+  for (int c = tid; c < BQ * D; c += THREADS) {
+    const int r = c / D, d = c % D, t = q0 + r;
+    Qs[r * LD + d] = t < T ? qb[t * sqt + d] * scale_log2 : 0.f;
+  }
+  // the block walks the tiles its last row sees; a warp computes those its
+  // own last row sees (none where its rows all lie past T)
+  const int ntiles = tiles_to(causal ? min(S, q_offset + min(q0 + BQ, T)) : S);
+  const int wrow = q0 + (tid >> 5) * 16;
+  const int it_end = wrow < T ? tiles_to(causal ? min(S, q_offset + min(wrow + 16, T)) : S) : 0;
+
+  auto load = [&](int stage, int kv0) {
+    float* Ks = ring + stage * Dm::STAGE_FLOATS;
+    float* Vs = Ks + BKV * LD;
+    for (int c = tid; c < BKV * (D / 4); c += THREADS) {
+      const int key = c / (D / 4), dc = (c % (D / 4)) * 4, s = kv0 + key;
+      const bool in = s < S;                       // keys past S: zero-filled
+      simlingo::cp_async16(&Ks[key * LD + dc], in ? kb + s * sks + dc : kb, in);
+      simlingo::cp_async16(&Vs[key * LD + dc], in ? vb + s * svs + dc : vb, in);
+    }
+  };
+
+  float oacc[4][D / 8], m_run[4], l_run[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_run[i] = -INFINITY;
+    l_run[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) oacc[i][c] = 0.f;
+  }
+  if (ntiles > 0) load(0, 0);
+  simlingo::cp_async_commit();
+  for (int it = 0; it < ntiles; ++it) {
+    __syncthreads();                    // every warp is done with tile it - 1's stage
+    if (it + 1 < ntiles) load((it + 1) % F32_STAGES, (it + 1) * BKV);
+    simlingo::cp_async_commit();
+    simlingo::cp_async_wait<1>();       // tile it has landed
+    __syncthreads();
+    if (it >= it_end) continue;
+    const float* Kt = ring + (it % F32_STAGES) * Dm::STAGE_FLOATS;
+    const float* Vt = Kt + BKV * LD;
+    const int kv0 = it * BKV;
+
+    // the 4 x 8 logits (base 2), each summing d = 0..D-1 in order
+    float s[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float qv[4][4], kv[8][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) lds_f32<4>(&Qs[(r0 + i) * LD + d], qv[i]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) lds_f32<4>(&Kt[(kg + 8 * j) * LD + d], kv[j]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[i][j] = fmaf(qv[i][e], kv[j][e], s[i][j]);
+    }
+    bool key_ok[8];
+    float a_tile[4];                    // each row's rescale of the running O
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int key = kv0 + kg + 8 * j;
+      key_ok[j] = key < S && (valid_b == nullptr || valid_b[key] != 0);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int slot = q_offset + q0 + r0 + i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const bool ok = key_ok[j] && (!causal || kv0 + kg + 8 * j <= slot);
+        s[i][j] = ok ? s[i][j] : -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m_run[i], mx);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;   // nothing visible yet
+      const float alpha = exp2f(m_run[i] - m_use);
+      m_run[i] = m_new;
+      float rsum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p = exp2f(s[i][j] - m_use);
+        rsum += p;
+        Ps[(r0 + i) * F32_LDP + kg + 8 * j] = p;
+      }
+      l_run[i] = l_run[i] * alpha + rsum;
+      a_tile[i] = alpha;
+    }
+    __syncwarp();                       // P of the warp's rows is written
+
+    // O = alpha O + P V, the tile's 64 keys in ascending order from 0
+    float tacc[4][D / 8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) tacc[i][c] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < BKV; kk += 4) {
+      float pv[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) lds_f32<4>(&Ps[(r0 + i) * F32_LDP + kk], pv[i]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float vv[NU][VW];
+#pragma unroll
+        for (int u = 0; u < NU; ++u) lds_f32<VW>(&Vt[(kk + e) * LD + VW * kg + 8 * VW * u], vv[u]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int u = 0; u < NU; ++u)
+#pragma unroll
+            for (int w = 0; w < VW; ++w)
+              tacc[i][u * VW + w] = fmaf(pv[i][e], vv[u][w], tacc[i][u * VW + w]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) oacc[i][c] = fmaf(oacc[i][c], a_tile[i], tacc[i][c]);
+    __syncwarp();                       // P is rewritten by the next tile
+  }
+  simlingo::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l += __shfl_xor_sync(0xffffffffu, l, 4);
+    const int row = q0 + r0 + i;
+    if (row >= T) continue;
+    if (lse != nullptr && kg == 0)
+      lse[((long long)b * HQ + h) * T + row] = l > 0.f ? m_run[i] + log2f(l) : -INFINITY;
+    float* orow = o + (((long long)b * T + row) * HQ + h) * D;
+#pragma unroll
+    for (int u = 0; u < NU; ++u) {
+      float out[VW];
+#pragma unroll
+      for (int w = 0; w < VW; ++w) out[w] = l > 0.f ? oacc[i][u * VW + w] / l : 0.f;
+      stg_f32<VW>(orow + VW * kg + 8 * VW * u, out);
+    }
+  }
+}
+
 // The dynamic shared-memory limit is a per-device attribute of a kernel:
 // set before its first launch on a device. A cluster size is asked of the
 // occupancy calculator once; one that does not fit is refused
@@ -616,23 +869,41 @@ cudaError_t launch_split(const Args& a, int splits, int tps, bool few, cudaStrea
 }
 
 template <int D>
-cudaError_t launch(const Args& a, int splits, int tps, bool few, cudaStream_t st) {
+cudaError_t launch_f32(const Args& a, cudaStream_t st) {
+  static std::atomic<bool> ready[MAX_DEVICES];
+  constexpr int smem = F32Dims<D>::SMEM_BYTES;
+  cudaError_t e = prepare(reinterpret_cast<const void*>(flash_fwd_f32_kernel<D>), smem, ready,
+                          nullptr);
+  if (e != cudaSuccess) return e;
+  flash_fwd_f32_kernel<D><<<dim3((a.T + BQ - 1) / BQ, a.HQ, a.B), THREADS, smem, st>>>(
+      reinterpret_cast<const float*>(a.q), reinterpret_cast<const float*>(a.k),
+      reinterpret_cast<const float*>(a.v), a.valid, reinterpret_cast<float*>(a.o), a.lse,
+      a.T, a.S, a.HQ, a.HK, a.sqb, a.sqt, a.sqh, a.skb, a.sks, a.skh, a.svb, a.svs, a.svh,
+      a.causal, a.q_offset, a.scale_log2);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(const Args& a, int splits, int tps, bool few, bool fp32, cudaStream_t st) {
+  if (fp32)        // the tiled path alone, no FEW build
+    return splits == 0 && !few ? launch_f32<D>(a, st) : cudaErrorInvalidValue;
   return splits == 0 ? launch_tiled<D>(a, few, st) : launch_split<D>(a, splits, tps, few, st);
 }
 
 }  // namespace
 
-// The constants the wrapper's plan (_fwd_plan) relies on, for head dim D:
-// keys a tile, rows a block, the largest cluster of splits, and the
-// dynamic shared memory a block. Returns 0, or -1 for a D without an
-// instance (the wrapper pads those).
-extern "C" int simlingo_flash_attn_fwd_geometry(int head_dim, int* out) {
+// The constants the wrapper's plan (_fwd_plan) relies on, for head dim D
+// and the operand type (fp32 != 0: the fp32 build): keys a tile, rows a
+// block, the largest cluster of splits, and the dynamic shared memory a
+// block. Returns 0, or -1 for a D without an instance (the wrapper pads
+// those).
+extern "C" int simlingo_flash_attn_fwd_geometry(int head_dim, int fp32, int* out) {
   int smem = 0;
   switch (head_dim) {
-    case 16: smem = Dims<16>::RING_BYTES; break;
-    case 32: smem = Dims<32>::RING_BYTES; break;
-    case 64: smem = Dims<64>::RING_BYTES; break;
-    case 128: smem = Dims<128>::RING_BYTES; break;
+    case 16: smem = fp32 ? F32Dims<16>::SMEM_BYTES : Dims<16>::RING_BYTES; break;
+    case 32: smem = fp32 ? F32Dims<32>::SMEM_BYTES : Dims<32>::RING_BYTES; break;
+    case 64: smem = fp32 ? F32Dims<64>::SMEM_BYTES : Dims<64>::RING_BYTES; break;
+    case 128: smem = fp32 ? F32Dims<128>::SMEM_BYTES : Dims<128>::RING_BYTES; break;
     default: return -1;
   }
   out[0] = BKV;
@@ -644,15 +915,17 @@ extern "C" int simlingo_flash_attn_fwd_geometry(int head_dim, int* out) {
 
 // splits == 0: the tiled path; else the split path with `splits` blocks of
 // `tps` key tiles a (row block, kv head, batch); few != 0: the FEW build;
-// head_dim: 16, 32, 64 or 128 (else cudaErrorInvalidValue).
+// fp32 != 0: q, k, v and o are fp32 (the tiled path's fp32 build; splits
+// and few must be 0); head_dim: 16, 32, 64 or 128 (else
+// cudaErrorInvalidValue).
 extern "C" int simlingo_flash_attn_fwd(
     const void* q, const void* k, const void* v, const void* kv_valid, void* o,
     void* lse, int B, int T, int S, int HQ, int HK,
     long long sqb, long long sqt, long long sqh,
     long long skb, long long sks, long long skh,
     long long svb, long long svs, long long svh,
-    int causal, int q_offset, float scale, int splits, int tps, int few, int head_dim,
-    void* stream) {
+    int causal, int q_offset, float scale, int splits, int tps, int few, int fp32,
+    int head_dim, void* stream) {
   const Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                static_cast<const bf16*>(v), static_cast<const uint8_t*>(kv_valid),
                static_cast<bf16*>(o), static_cast<float*>(lse), B, T, S, HQ, HK,
@@ -661,10 +934,10 @@ extern "C" int simlingo_flash_attn_fwd(
   const auto st = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaErrorInvalidValue;
   switch (head_dim) {
-    case 16: e = launch<16>(a, splits, tps, few != 0, st); break;
-    case 32: e = launch<32>(a, splits, tps, few != 0, st); break;
-    case 64: e = launch<64>(a, splits, tps, few != 0, st); break;
-    case 128: e = launch<128>(a, splits, tps, few != 0, st); break;
+    case 16: e = launch<16>(a, splits, tps, few != 0, fp32 != 0, st); break;
+    case 32: e = launch<32>(a, splits, tps, few != 0, fp32 != 0, st); break;
+    case 64: e = launch<64>(a, splits, tps, few != 0, fp32 != 0, st); break;
+    case 128: e = launch<128>(a, splits, tps, few != 0, fp32 != 0, st); break;
     default: break;
   }
   return static_cast<int>(e);

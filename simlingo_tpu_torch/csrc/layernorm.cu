@@ -4,8 +4,9 @@
 // _ln_fwd_kernel (:54), _rms_fwd_kernel (:71), _ln_bwd_kernel (:84) and
 // _rms_bwd_kernel (:110), reached through layernorm_fused (:138) and
 // rmsnorm_fused (:212) when SIMLINGO_LN_IMPL=pallas. Contract: bf16 x and
-// y (and dy, dx), a scale (and bias) in bf16 or fp32 upcast here, fp32
-// statistics. The forward saves the per-row mean (LayerNorm) and rstd in
+// y (and dy, dx), or fp32 ones for training at precision=fp32 (JAX's
+// kernels work in x's dtype, :63, :76, :94, :118), a scale (and bias) in
+// bf16 or fp32 upcast here, fp32 statistics. The forward saves the per-row mean (LayerNorm) and rstd in
 // fp32; the backward takes them and returns dx in bf16 and the parameter
 // gradients summed over all rows in fp32, written in the scale's dtype.
 //
@@ -19,7 +20,11 @@
 //
 // Layout: a group of TPR = 32 * WPR threads owns one row; each thread
 // holds VPT vectors of 8 bf16 (16-byte loads, neighbouring threads on
-// neighbouring addresses), so the row is read once. d = 896 and 1024 take
+// neighbouring addresses), so the row is read once. The fp32 instances
+// (XT = float) take vectors of 8 fp32 (two 16-byte loads) and twice the
+// warps a row past d = 512, so that a thread holds the registers it holds
+// at bf16 (`SIMLINGO_NORM_DISPATCH_F32`, kernels/layernorm.py
+// `_norm_width`). d = 896 and 1024 take
 // one warp a row (4 vectors a thread), d = 4096 four warps a row, d = 128
 // half a warp. Variance is computed in two passes over the registers -- mean
 // first, then the mean of (x - mean)^2 -- as both JAX paths do (E[x^2] -
@@ -72,8 +77,9 @@ constexpr int SUM_UNROLL = 8;            // partial rows loaded at once by the c
 // The backward's occupancy, by instantiation (its __launch_bounds__): with
 // sums at VPT 4 a thread holds 32 (RMSNorm) or 64 fp32 sums, two rows of x
 // and dy and the scale, more than 128 registers.
-__host__ __device__ constexpr int bwd_min_blocks(int vpt, bool sums) {
-  return (sums && vpt == 4) ? BWD_WIDE_BLOCKS_PER_SM : BWD_BLOCKS_PER_SM;
+// At fp32 a thread's rows take twice the registers: with sums, one block.
+__host__ __device__ constexpr int bwd_min_blocks(int vpt, bool sums, bool fp32) {
+  return (sums && (vpt == 4 || fp32)) ? BWD_WIDE_BLOCKS_PER_SM : BWD_BLOCKS_PER_SM;
 }
 
 __device__ __forceinline__ void unpack8(const uint4& r, float (&f)[8]) {
@@ -117,6 +123,17 @@ template <> struct Vec8<float> {
     f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
   }
 };
+
+// Eight values of a row (x, dy) to fp32, and eight fp32 results out in
+// the row's type (y, dx).
+__device__ __forceinline__ void store8(bf16* p, int c, const float (&f)[8]) {
+  reinterpret_cast<uint4*>(p)[c] = pack8(f);
+}
+
+__device__ __forceinline__ void store8(float* p, int c, const float (&f)[8]) {
+  reinterpret_cast<float4*>(p)[2 * c] = make_float4(f[0], f[1], f[2], f[3]);
+  reinterpret_cast<float4*>(p)[2 * c + 1] = make_float4(f[4], f[5], f[6], f[7]);
+}
 
 // Eight values of the scale or bias straight into fp32 registers.
 template <typename ST>
@@ -168,15 +185,16 @@ __device__ __forceinline__ float row_sum(float v, float* red) {
 
 // The forward's occupancy: without EARLY, at most the registers of the
 // design before the plans (48 RMSNorm, 64 LayerNorm at VPT 4), so the
-// LLM's 4788 training rows (599 blocks of 8) fit one wave of blocks.
-__host__ __device__ constexpr int fwd_min_blocks(bool rms, bool early) {
-  return early ? 1 : (rms ? 5 : 4);
+// LLM's 4788 training rows (599 blocks of 8) fit one wave of blocks; fp32
+// rows (twice the registers a vector) at most 128.
+__host__ __device__ constexpr int fwd_min_blocks(bool rms, bool early, bool fp32) {
+  return early ? 1 : fp32 ? 2 : (rms ? 5 : 4);
 }
 
-template <int VPT, int WPR, bool RMS, bool EARLY, typename ST>
-__global__ void __launch_bounds__(THREADS, fwd_min_blocks(RMS, EARLY))
-norm_fwd_kernel(const bf16* __restrict__ x, const ST* __restrict__ scale,
-                const ST* __restrict__ bias, bf16* __restrict__ y,
+template <int VPT, int WPR, bool RMS, bool EARLY, typename ST, typename XT>
+__global__ void __launch_bounds__(THREADS, fwd_min_blocks(RMS, EARLY, sizeof(XT) == 4))
+norm_fwd_kernel(const XT* __restrict__ x, const ST* __restrict__ scale,
+                const ST* __restrict__ bias, XT* __restrict__ y,
                 float* __restrict__ mean_out, float* __restrict__ rstd_out,
                 int n, int d, float eps) {
   constexpr int TPR = 32 * WPR;
@@ -200,7 +218,6 @@ norm_fwd_kernel(const bf16* __restrict__ x, const ST* __restrict__ scale,
        base += static_cast<long long>(gridDim.x) * rpb) {
     const long long row = base + grp;
     const bool live = row < n;
-    const uint4* xr = reinterpret_cast<const uint4*>(x + row * d);
     float v[VPT][8];
     bool ok[VPT];
     float s = 0.f;
@@ -209,7 +226,7 @@ norm_fwd_kernel(const bf16* __restrict__ x, const ST* __restrict__ scale,
       const int c = lr + k * TPR;
       ok[k] = live && c < nv;
       if (ok[k]) {
-        unpack8(xr[c], v[k]);
+        load8(x + row * d, c, v[k]);
       } else {
 #pragma unroll
         for (int e = 0; e < 8; ++e) v[k][e] = 0.f;
@@ -231,7 +248,6 @@ norm_fwd_kernel(const bf16* __restrict__ x, const ST* __restrict__ scale,
       }
     const float var = row_sum<WPR>(q, red) / static_cast<float>(d);
     const float rstd = 1.f / sqrtf(var + eps);
-    uint4* yr = reinterpret_cast<uint4*>(y + row * d);
 #pragma unroll
     for (int k = 0; k < VPT; ++k) {
       if (!ok[k]) continue;
@@ -247,7 +263,7 @@ norm_fwd_kernel(const bf16* __restrict__ x, const ST* __restrict__ scale,
 #pragma unroll
         for (int e = 0; e < 8; ++e) out[e] = (v[k][e] - mean) * rstd * s8[e] + b8[e];
       }
-      yr[c] = pack8(out);
+      store8(y + row * d, c, out);
     }
     if (live && lr == 0) {
       if constexpr (!RMS) mean_out[row] = mean;
@@ -257,15 +273,15 @@ norm_fwd_kernel(const bf16* __restrict__ x, const ST* __restrict__ scale,
 }
 
 // One row's operands of a thread, as loaded.
-template <int VPT>
+template <int VPT, typename XT>
 struct RowIn {
-  uint4 x[VPT], dy[VPT];
+  Vec8<XT> x[VPT], dy[VPT];
   float mean, rstd;
 };
 
-template <int VPT, int TPR, bool RMS>
-__device__ __forceinline__ void load_row(RowIn<VPT>& r, const bf16* __restrict__ x,
-                                         const bf16* __restrict__ dy,
+template <int VPT, int TPR, bool RMS, typename XT>
+__device__ __forceinline__ void load_row(RowIn<VPT, XT>& r, const XT* __restrict__ x,
+                                         const XT* __restrict__ dy,
                                          const float* __restrict__ mean_in,
                                          const float* __restrict__ rstd_in, long long row,
                                          int n, int d, int lr) {
@@ -273,14 +289,12 @@ __device__ __forceinline__ void load_row(RowIn<VPT>& r, const bf16* __restrict__
   const int nv = d >> 3;
   r.mean = (RMS || !live) ? 0.f : mean_in[row];
   r.rstd = live ? rstd_in[row] : 0.f;
-  const uint4* xr = reinterpret_cast<const uint4*>(x + row * d);
-  const uint4* dyr = reinterpret_cast<const uint4*>(dy + row * d);
 #pragma unroll
   for (int k = 0; k < VPT; ++k) {
     const int c = lr + k * TPR;
     if (live && c < nv) {
-      r.x[k] = xr[c];
-      r.dy[k] = dyr[c];
+      r.x[k].load(x + row * d, c);
+      r.dy[k].load(dy + row * d, c);
     }
   }
 }
@@ -352,11 +366,11 @@ __device__ __forceinline__ void column_sums(const float* part_s, const float* pa
   }
 }
 
-template <int VPT, int WPR, bool RMS, bool SUMS, typename ST>
-__global__ void __launch_bounds__(THREADS, bwd_min_blocks(VPT, SUMS))
-norm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+template <int VPT, int WPR, bool RMS, bool SUMS, typename ST, typename XT>
+__global__ void __launch_bounds__(THREADS, bwd_min_blocks(VPT, SUMS, sizeof(XT) == 4))
+norm_bwd_kernel(const XT* __restrict__ x, const XT* __restrict__ dy,
                 const ST* __restrict__ scale, const float* __restrict__ mean_in,
-                const float* __restrict__ rstd_in, bf16* __restrict__ dx,
+                const float* __restrict__ rstd_in, XT* __restrict__ dx,
                 float* __restrict__ part_s, float* __restrict__ part_b,
                 ST* __restrict__ out_s, ST* __restrict__ out_b, int n, int d) {
   constexpr int TPR = 32 * WPR, RPB = THREADS / TPR;
@@ -380,12 +394,12 @@ norm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
     for (int e = 0; e < 8; ++e) acc_b[k][e] = 0.f;
 
   long long base = static_cast<long long>(blockIdx.x) * RPB;
-  RowIn<VPT> cur;
+  RowIn<VPT, XT> cur;
   load_row<VPT, TPR, RMS>(cur, x, dy, mean_in, rstd_in, base + grp, n, d, lr);
   for (; base < n; base += stride) {
     const long long row = base + grp;
     const bool live = row < n;
-    RowIn<VPT> nxt;                          // the next row's loads, in flight
+    RowIn<VPT, XT> nxt;                      // the next row's loads, in flight
     load_row<VPT, TPR, RMS>(nxt, x, dy, mean_in, rstd_in, row + stride, n, d, lr);
     const float mean = cur.mean, rstd = cur.rstd;
     float m1 = 0.f, m2 = 0.f;
@@ -393,8 +407,8 @@ norm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
     for (int k = 0; k < VPT; ++k) {
       if (!(live && lr + k * TPR < nv)) continue;
       float xv[8], dv[8], s8[8];
-      unpack8(cur.x[k], xv);
-      unpack8(cur.dy[k], dv);
+      cur.x[k].get(xv);
+      cur.dy[k].get(dv);
       sc[k].get(s8);
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
@@ -415,14 +429,13 @@ norm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
       m1 /= static_cast<float>(d);
       m2 /= static_cast<float>(d);
     }
-    uint4* dxr = reinterpret_cast<uint4*>(dx + row * d);
 #pragma unroll
     for (int k = 0; k < VPT; ++k) {
       const int c = lr + k * TPR;
       if (!(live && c < nv)) continue;
       float xv[8], dv[8], s8[8], out[8];
-      unpack8(cur.x[k], xv);
-      unpack8(cur.dy[k], dv);
+      cur.x[k].get(xv);
+      cur.dy[k].get(dv);
       sc[k].get(s8);
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
@@ -430,7 +443,7 @@ norm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
         const float dxhat = dv[e] * s8[e];
         out[e] = RMS ? rstd * (dxhat - xhat * m2) : rstd * (dxhat - m1 - xhat * m2);
       }
-      dxr[c] = pack8(out);
+      store8(dx + row * d, c, out);
     }
     cur = nxt;
   }
@@ -486,25 +499,25 @@ norm_colsum_kernel(const float* __restrict__ part_s, const float* __restrict__ p
   column_sums<TWO, ST>(part_s, part_b, out_s, out_b, G, d, blockIdx.x, gridDim.x, red);
 }
 
-template <int VPT, int WPR, bool RMS, bool EARLY, typename ST>
+template <int VPT, int WPR, bool RMS, bool EARLY, typename ST, typename XT>
 int launch_fwd(const void* x, const void* scale, const void* bias, void* y,
                void* mean, void* rstd, int n, int d, float eps, int threads, int blocks,
                cudaStream_t st) {
   if (threads < 32 * WPR || threads % (32 * WPR) != 0 || threads > THREADS || blocks < 1)
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  norm_fwd_kernel<VPT, WPR, RMS, EARLY, ST><<<blocks, threads, 0, st>>>(
-      static_cast<const bf16*>(x), static_cast<const ST*>(scale),
-      static_cast<const ST*>(bias), static_cast<bf16*>(y),
+  norm_fwd_kernel<VPT, WPR, RMS, EARLY, ST, XT><<<blocks, threads, 0, st>>>(
+      static_cast<const XT*>(x), static_cast<const ST*>(scale),
+      static_cast<const ST*>(bias), static_cast<XT*>(y),
       static_cast<float*>(mean), static_cast<float*>(rstd), n, d, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int VPT, int WPR, bool RMS, bool SUMS, typename ST>
+template <int VPT, int WPR, bool RMS, bool SUMS, typename ST, typename XT>
 int launch_bwd(const void* x, const void* dy, const void* scale, const void* mean,
                const void* rstd, void* dx, void* ps, void* pb, void* dscale, void* dbias,
                int n, int d, int blocks, cudaStream_t st) {
   constexpr int RPB = THREADS / (32 * WPR);
-  auto kern = norm_bwd_kernel<VPT, WPR, RMS, SUMS, ST>;
+  auto kern = norm_bwd_kernel<VPT, WPR, RMS, SUMS, ST, XT>;
   size_t smem = 0;
   if constexpr (SUMS) {
     smem = static_cast<size_t>(RMS ? 1 : 2) * RPB * d * sizeof(float);
@@ -517,9 +530,9 @@ int launch_bwd(const void* x, const void* dy, const void* scale, const void* mea
     }
   }
   kern<<<blocks, THREADS, smem, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(dy),
+      static_cast<const XT*>(x), static_cast<const XT*>(dy),
       static_cast<const ST*>(scale), static_cast<const float*>(mean),
-      static_cast<const float*>(rstd), static_cast<bf16*>(dx), static_cast<float*>(ps),
+      static_cast<const float*>(rstd), static_cast<XT*>(dx), static_cast<float*>(ps),
       static_cast<float*>(pb), static_cast<ST*>(dscale), static_cast<ST*>(dbias), n, d);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || !SUMS || blocks == 1) return static_cast<int>(e);
@@ -555,42 +568,88 @@ int launch_bwd(const void* x, const void* dy, const void* scale, const void* mea
     return static_cast<int>(cudaErrorInvalidValue);                            \
   } while (0)
 
-template <bool RMS, bool EARLY, typename ST>
+// The same for fp32 rows: twice the warps a row for 512 < d <= 4096 (64 <
+// nv <= 512), so a thread holds at most 2 vectors there.
+#define SIMLINGO_NORM_DISPATCH_F32(EXPR)                                       \
+  do {                                                                         \
+    const int nv = d / 8;                                                      \
+    if (nv <= 32) { constexpr int VPT_ = 1, WPR_ = 1; return EXPR; }           \
+    if (nv <= 64) { constexpr int VPT_ = 2, WPR_ = 1; return EXPR; }           \
+    if (nv <= 128) { constexpr int VPT_ = 2, WPR_ = 2; return EXPR; }          \
+    if (nv <= 256) { constexpr int VPT_ = 2, WPR_ = 4; return EXPR; }          \
+    if (nv <= 512) { constexpr int VPT_ = 2, WPR_ = 8; return EXPR; }          \
+    if (nv <= 1024) { constexpr int VPT_ = 4, WPR_ = 8; return EXPR; }         \
+    return static_cast<int>(cudaErrorInvalidValue);                            \
+  } while (0)
+
+template <bool RMS, bool EARLY, typename ST, typename XT>
 int fwd_by_width(const void* x, const void* scale, const void* bias, void* y,
                  void* mean, void* rstd, int n, int d, float eps, int threads, int blocks,
                  cudaStream_t st) {
-  SIMLINGO_NORM_DISPATCH((launch_fwd<VPT_, WPR_, RMS, EARLY, ST>(
-      x, scale, bias, y, mean, rstd, n, d, eps, threads, blocks, st)));
+  if constexpr (sizeof(XT) == 4) {
+    SIMLINGO_NORM_DISPATCH_F32((launch_fwd<VPT_, WPR_, RMS, EARLY, ST, XT>(
+        x, scale, bias, y, mean, rstd, n, d, eps, threads, blocks, st)));
+  } else {
+    SIMLINGO_NORM_DISPATCH((launch_fwd<VPT_, WPR_, RMS, EARLY, ST, XT>(
+        x, scale, bias, y, mean, rstd, n, d, eps, threads, blocks, st)));
+  }
 }
 
-template <bool RMS, typename ST>
+template <bool RMS, typename ST, typename XT>
 int fwd_by_mode(const void* x, const void* scale, const void* bias, void* y, void* mean,
                 void* rstd, int n, int d, float eps, int threads, int blocks, int early,
                 cudaStream_t st) {
   if (early)
-    return fwd_by_width<RMS, true, ST>(x, scale, bias, y, mean, rstd, n, d, eps, threads,
-                                       blocks, st);
-  return fwd_by_width<RMS, false, ST>(x, scale, bias, y, mean, rstd, n, d, eps, threads,
-                                      blocks, st);
+    return fwd_by_width<RMS, true, ST, XT>(x, scale, bias, y, mean, rstd, n, d, eps,
+                                           threads, blocks, st);
+  return fwd_by_width<RMS, false, ST, XT>(x, scale, bias, y, mean, rstd, n, d, eps, threads,
+                                          blocks, st);
 }
 
-template <bool RMS, bool SUMS, typename ST>
+template <bool RMS, typename XT>
+int fwd_by_scale(const void* x, const void* scale, const void* bias, void* y, void* mean,
+                 void* rstd, int n, int d, float eps, int scale_bf16, int threads, int blocks,
+                 int early, cudaStream_t st) {
+  if (scale_bf16)
+    return fwd_by_mode<RMS, bf16, XT>(x, scale, bias, y, mean, rstd, n, d, eps, threads,
+                                      blocks, early, st);
+  return fwd_by_mode<RMS, float, XT>(x, scale, bias, y, mean, rstd, n, d, eps, threads,
+                                     blocks, early, st);
+}
+
+template <bool RMS, bool SUMS, typename ST, typename XT>
 int bwd_by_width(const void* x, const void* dy, const void* scale, const void* mean,
                  const void* rstd, void* dx, void* ps, void* pb, void* dscale,
                  void* dbias, int n, int d, int blocks, cudaStream_t st) {
-  SIMLINGO_NORM_DISPATCH((launch_bwd<VPT_, WPR_, RMS, SUMS, ST>(
-      x, dy, scale, mean, rstd, dx, ps, pb, dscale, dbias, n, d, blocks, st)));
+  if constexpr (sizeof(XT) == 4) {
+    SIMLINGO_NORM_DISPATCH_F32((launch_bwd<VPT_, WPR_, RMS, SUMS, ST, XT>(
+        x, dy, scale, mean, rstd, dx, ps, pb, dscale, dbias, n, d, blocks, st)));
+  } else {
+    SIMLINGO_NORM_DISPATCH((launch_bwd<VPT_, WPR_, RMS, SUMS, ST, XT>(
+        x, dy, scale, mean, rstd, dx, ps, pb, dscale, dbias, n, d, blocks, st)));
+  }
 }
 
-template <bool RMS, typename ST>
+template <bool RMS, typename ST, typename XT>
 int bwd_by_mode(const void* x, const void* dy, const void* scale, const void* mean,
                 const void* rstd, void* dx, void* ps, void* pb, void* dscale, void* dbias,
                 int n, int d, int blocks, cudaStream_t st) {
   if (ps != nullptr || pb != nullptr)
-    return bwd_by_width<RMS, true, ST>(x, dy, scale, mean, rstd, dx, ps, pb, dscale, dbias,
-                                       n, d, blocks, st);
-  return bwd_by_width<RMS, false, ST>(x, dy, scale, mean, rstd, dx, ps, pb, dscale, dbias,
+    return bwd_by_width<RMS, true, ST, XT>(x, dy, scale, mean, rstd, dx, ps, pb, dscale,
+                                           dbias, n, d, blocks, st);
+  return bwd_by_width<RMS, false, ST, XT>(x, dy, scale, mean, rstd, dx, ps, pb, dscale,
+                                          dbias, n, d, blocks, st);
+}
+
+template <bool RMS, typename XT>
+int bwd_by_scale(const void* x, const void* dy, const void* scale, const void* mean,
+                 const void* rstd, void* dx, void* ps, void* pb, void* dscale, void* dbias,
+                 int n, int d, int blocks, int scale_bf16, cudaStream_t st) {
+  if (scale_bf16)
+    return bwd_by_mode<RMS, bf16, XT>(x, dy, scale, mean, rstd, dx, ps, pb, dscale, dbias,
                                       n, d, blocks, st);
+  return bwd_by_mode<RMS, float, XT>(x, dy, scale, mean, rstd, dx, ps, pb, dscale, dbias,
+                                     n, d, blocks, st);
 }
 
 }  // namespace
@@ -604,50 +663,47 @@ extern "C" int simlingo_norm_geometry(int* out) {
 }
 
 // rms: 0 LayerNorm, 1 RMSNorm; scale_bf16: 1 if scale (and bias) are bf16,
-// 0 if fp32. mean is ignored (may be null) for RMSNorm, bias likewise.
-// threads, blocks, early: the plan (_norm_fwd_plan): threads a multiple
-// of the row group's 32 * WPR, at most THREADS.
+// 0 if fp32; x_fp32: 1 if x and y are fp32, 0 if bf16. mean is ignored
+// (may be null) for RMSNorm, bias likewise. threads, blocks, early: the
+// plan (_norm_fwd_plan): threads a multiple of the row group's 32 * WPR,
+// at most THREADS.
 extern "C" int simlingo_norm_fwd(const void* x, const void* scale, const void* bias,
                                  void* y, void* mean, void* rstd, int n, int d,
-                                 float eps, int rms, int scale_bf16, int threads,
+                                 float eps, int rms, int scale_bf16, int x_fp32, int threads,
                                  int blocks, int early, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d % 8 != 0 || d > MAX_D) return static_cast<int>(cudaErrorInvalidValue);
-  if (rms) {
-    if (scale_bf16)
-      return fwd_by_mode<true, bf16>(x, scale, bias, y, mean, rstd, n, d, eps, threads,
-                                     blocks, early, st);
-    return fwd_by_mode<true, float>(x, scale, bias, y, mean, rstd, n, d, eps, threads,
-                                    blocks, early, st);
-  }
-  if (scale_bf16)
-    return fwd_by_mode<false, bf16>(x, scale, bias, y, mean, rstd, n, d, eps, threads,
-                                    blocks, early, st);
-  return fwd_by_mode<false, float>(x, scale, bias, y, mean, rstd, n, d, eps, threads,
-                                   blocks, early, st);
+#define SIMLINGO_NORM_FWD(RMS_, XT_)                                                     \
+  fwd_by_scale<RMS_, XT_>(x, scale, bias, y, mean, rstd, n, d, eps, scale_bf16, threads, \
+                          blocks, early, st)
+  if (x_fp32)
+    return rms ? SIMLINGO_NORM_FWD(true, float) : SIMLINGO_NORM_FWD(false, float);
+  return rms ? SIMLINGO_NORM_FWD(true, bf16) : SIMLINGO_NORM_FWD(false, bf16);
+#undef SIMLINGO_NORM_FWD
 }
 
 // part_scale / part_bias: fp32 [blocks, d] scratch, or null to skip that
 // gradient (dscale / dbias are then not written); both null: dx only.
 // blocks: the plan (_norm_bwd_plan). With a gradient to sum and more than
 // one block, norm_colsum_kernel follows; one block writes its sums itself.
+// x_fp32: 1 if x, dy and dx are fp32, 0 if bf16.
 extern "C" int simlingo_norm_bwd(const void* x, const void* dy, const void* scale,
                                  const void* mean, const void* rstd, void* dx,
                                  void* part_scale, void* part_bias, void* dscale,
                                  void* dbias, int n, int d, int blocks, int rms,
-                                 int scale_bf16, void* stream) {
+                                 int scale_bf16, int x_fp32, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d % 8 != 0 || d > MAX_D || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (rms) {
-    if (scale_bf16)
-      return bwd_by_mode<true, bf16>(x, dy, scale, mean, rstd, dx, part_scale, nullptr,
-                                     dscale, nullptr, n, d, blocks, st);
-    return bwd_by_mode<true, float>(x, dy, scale, mean, rstd, dx, part_scale, nullptr,
-                                    dscale, nullptr, n, d, blocks, st);
+    if (x_fp32)
+      return bwd_by_scale<true, float>(x, dy, scale, mean, rstd, dx, part_scale, nullptr,
+                                       dscale, nullptr, n, d, blocks, scale_bf16, st);
+    return bwd_by_scale<true, bf16>(x, dy, scale, mean, rstd, dx, part_scale, nullptr,
+                                    dscale, nullptr, n, d, blocks, scale_bf16, st);
   }
-  if (scale_bf16)
-    return bwd_by_mode<false, bf16>(x, dy, scale, mean, rstd, dx, part_scale, part_bias,
-                                    dscale, dbias, n, d, blocks, st);
-  return bwd_by_mode<false, float>(x, dy, scale, mean, rstd, dx, part_scale, part_bias,
-                                   dscale, dbias, n, d, blocks, st);
+  if (x_fp32)
+    return bwd_by_scale<false, float>(x, dy, scale, mean, rstd, dx, part_scale, part_bias,
+                                      dscale, dbias, n, d, blocks, scale_bf16, st);
+  return bwd_by_scale<false, bf16>(x, dy, scale, mean, rstd, dx, part_scale, part_bias,
+                                   dscale, dbias, n, d, blocks, scale_bf16, st);
 }

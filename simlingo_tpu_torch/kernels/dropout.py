@@ -10,7 +10,9 @@ function of (seed, flat element index) through Philox4x32-10:
     u32     = Philox4x32-10(counter, key)[i % 4]
     keep    = u32 >= round(rate * 2^32)
 
-and a kept element becomes bf16(float(x) * float32(1 / (1 - rate))). The
+and a kept element becomes T(float(x) * float32(1 / (1 - rate))), T the
+input's dtype: bf16, or fp32 at precision=fp32 (JAX's kernel works in its
+input's dtype, `dropout.py:44`); the mask does not depend on T. The
 stream differs from the TPU's and from JAX's CPU path (threefry); what
 carries over is the contract: the keep rate, the scaling, one mask per
 seed, and a backward that regenerates the forward's mask from the seed.
@@ -35,7 +37,8 @@ from its own unpipelined ones; and the port's streams never equal JAX's
 (Philox here, threefry there).
 
 On a CUDA tensor `dropout` launches `csrc/dropout.cu` (`dropout_kernel`,
-or `dropout_block_kernel` for a block, segmented or not); on a CPU tensor it
+or `dropout_block_kernel` for a block, segmented or not; bf16 or fp32,
+any other dtype raises); on a CPU tensor it
 runs `dropout_plain`, which computes the same Philox in int64 torch
 arithmetic, so kernel and plain version give bit-identical results.
 """
@@ -172,8 +175,9 @@ def _kernel_placement(cols: int, block):
 
 
 def _dropout_cuda(x, seed, rate, block=None):
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"dropout kernel takes bf16, got {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"dropout kernel takes bf16 or fp32, got {x.dtype}")
+    fp32 = x.dtype == torch.float32
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
     x = _build.aligned16(x)                # the kernel reads 16 bytes a thread
@@ -186,18 +190,22 @@ def _dropout_cuda(x, seed, rate, block=None):
     lib = _lib()
     if block is None:                # the one-process layout: its own kernel
         rc = lib.simlingo_dropout(x.data_ptr(), out.data_ptr(), n, k0, k1, threshold(rate),
-                                  ctypes.c_float(inv_keep(rate)), stream)
+                                  ctypes.c_float(inv_keep(rate)), int(fp32), stream)
     else:
         cols = x.shape[-1]
         rc = lib.simlingo_dropout_block(
             x.data_ptr(), out.data_ptr(), n, k0, k1, threshold(rate),
-            ctypes.c_float(inv_keep(rate)), cols, *_kernel_placement(cols, block), stream)
+            ctypes.c_float(inv_keep(rate)), cols, *_kernel_placement(cols, block), int(fp32),
+            stream)
     _build.check(rc, "dropout")
     dropout.launches += 1
+    if fp32:
+        dropout.launches_fp32 += 1
     return out
 
 
 dropout.launches = 0
+dropout.launches_fp32 = 0      # of them, the fp32 instances'
 
 
 class _HWDropout(torch.autograd.Function):
@@ -223,8 +231,8 @@ def _lib():
     if lib.simlingo_dropout.argtypes is None:
         head = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint32,
                 ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float]
-        lib.simlingo_dropout.argtypes = head + [ctypes.c_void_p]
+        lib.simlingo_dropout.argtypes = head + [ctypes.c_int, ctypes.c_void_p]
         lib.simlingo_dropout_block.argtypes = head + [ctypes.c_longlong] * 4 + [
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
         lib.simlingo_dropout.restype = lib.simlingo_dropout_block.restype = ctypes.c_int
     return lib

@@ -39,8 +39,10 @@ D. No configuration of the repo takes that route (the CLIP tower and the
 LLMs use 64, SimLingo-Base's LLaMA variants past `tiny` 128, the test
 configurations 16 and 32). D > 128 raises on a CUDA tensor.
 
-On a CUDA tensor `attention` launches the kernel (bf16); on a CPU
-tensor it runs `attention_reference`. `attention_train` does the same for
+On a CUDA tensor `attention` launches the kernel (bf16, or fp32 for
+training at precision=fp32: the fp32 builds of both files, tiled path
+only, fp32 products; any other dtype raises); on a CPU tensor it runs
+`attention_reference`. `attention_train` does the same for
 the forward and, in its backward, launches `flash_attn_bwd` on CUDA tensors
 and runs `attention_bwd_reference` on CPU tensors. `attention_autograd`
 hands the LLM's slabs to the ring under sequence parallelism
@@ -62,11 +64,18 @@ NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 
 
+def _w(x):
+    """x in the plain versions' working type: fp32, or fp64 for fp64 inputs
+    (a reference that holds an fp32 kernel to its own rounding)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_valid: Optional[torch.Tensor], causal: bool,
                         scale: Optional[float] = None,
                         q_offset: Optional[int] = None) -> torch.Tensor:
-    """Plain version in fp32: masked softmax(scale * q k^T) v."""
+    """Plain version in fp32 (fp64 for fp64 inputs): masked softmax(scale *
+    q k^T) v."""
     B, T, HQ, D = q.shape
     _, S, HK, _ = k.shape
     group = HQ // HK
@@ -74,9 +83,9 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = D ** -0.5
     if q_offset is None:
         q_offset = S - T
-    qf = q.float() * scale
-    kf = k.float().repeat_interleave(group, dim=2)
-    vf = v.float().repeat_interleave(group, dim=2)
+    qf = _w(q) * scale
+    kf = _w(k).repeat_interleave(group, dim=2)
+    vf = _w(v).repeat_interleave(group, dim=2)
     logits = torch.einsum("bthd,bshd->bhts", qf, kf)
     mask = torch.ones((B, 1, T, S), dtype=torch.bool, device=q.device)
     if causal:
@@ -126,16 +135,24 @@ def _pad_d(x, d):
 
 
 # The forward's geometry at every D: keys a tile, query rows a block, the
-# largest cluster of splits; the dynamic shared memory a block is the
-# 3-stage K/V ring, `_fwd_smem_bytes`. `_lib` refuses a library that
-# reports others (simlingo_flash_attn_fwd_geometry).
+# largest cluster of splits; the dynamic shared memory a block is
+# `_fwd_smem_bytes`. `_lib` refuses a library that reports others
+# (simlingo_flash_attn_fwd_geometry, at each D and dtype).
 _FWD_GEOMETRY = (64, 64, 8)
 _FWD_TILE, _FWD_ROWS = _FWD_GEOMETRY[:2]
+# the dtypes the kernels take; fp32 has the tiled path only
+DTYPES = (torch.bfloat16, torch.float32)
 
 
-def _fwd_smem_bytes(d):
-    """The forward's cp.async ring at built head dim d: 3 stages of a K
-    and a V tile, rows padded by 8 (55296 bytes at d = 64)."""
+def _fwd_smem_bytes(d, dtype=torch.bfloat16):
+    """The forward's dynamic shared memory a block at built head dim d.
+    bf16: the cp.async ring, 3 stages of a K and a V tile, rows padded by 8
+    (55,296 bytes at d = 64). fp32: Q, a 2-stage ring of K and V tiles
+    (rows of d + 4 floats) and P [64][68] (104,448 bytes at d = 64, 186,368
+    at d = 128; 3 stages would pass the 232,448 a block may have at 128)."""
+    if dtype == torch.float32:
+        return (_FWD_ROWS * (d + 4) + 2 * 2 * _FWD_TILE * (d + 4)
+                + _FWD_ROWS * (_FWD_TILE + 4)) * 4
     return 3 * 2 * _FWD_TILE * (d + 8) * 2
 # The split path takes a GQA group whose packed rows (group x T) number at
 # most this many: decode 7, verify 112, the queries 210 (Qwen2-0.5B, group
@@ -158,19 +175,25 @@ class FwdPlan(NamedTuple):
     remainder: bool           # the kernel's build with P's remainder (`_fwd_remainder`)
     head_dim: int             # the built head dim launched (`_instance_dim`)
     smem_bytes: int           # dynamic shared memory a block
+    dtype: torch.dtype = torch.bfloat16   # the operands' (and the build's)
 
 
 @functools.lru_cache(maxsize=256)
-def _fwd_launch(B, T, S, HQ, HK, sms=132, split_rows=SPLIT_MAX_ROWS, max_splits=SPLIT_MAX):
+def _fwd_launch(B, T, S, HQ, HK, sms=132, split_rows=SPLIT_MAX_ROWS, max_splits=SPLIT_MAX,
+                dtype=torch.bfloat16):
     """(splits, key tiles a split) of `flash_attn_fwd`, from the shapes
     alone (the grid does not depend on q_offset); 0 splits is the tiled
     path. The split path cuts the key tiles of S into at most `max_splits`
     runs of equal length, fewer where its blocks would pass one an SM; it
     is taken where a group's packed rows group x T are at most
     `split_rows` and at least two splits fit (the ViT's 1025 rows of 32
-    heads fill the card with one)."""
+    heads fill the card with one). fp32 takes the tiled path at every T:
+    the split path serves decode, which runs bf16 only (a plan rule, not
+    a fallback)."""
     if not 1 <= max_splits <= SPLIT_MAX:
         raise ValueError(f"flash_attn_fwd: max_splits {max_splits} not in [1, {SPLIT_MAX}]")
+    if dtype == torch.float32:
+        return 0, 0
     n_kt = max(1, -(-S // _FWD_TILE))
     fit = sms // (-(-(HQ // HK) * T // _FWD_ROWS) * B * HK)      # splits of one block an SM
     if (HQ // HK) * T > split_rows or fit < 2 <= n_kt:
@@ -190,13 +213,14 @@ def _fwd_remainder(S, causal, q_offset):
 
 
 def _fwd_plan(B, T, S, HQ, HK, causal, q_offset, sms=132, split_rows=SPLIT_MAX_ROWS,
-              max_splits=SPLIT_MAX, D=64):
+              max_splits=SPLIT_MAX, D=64, dtype=torch.bfloat16):
     """The blocks of `flash_attn_fwd` and the keys each split attends to
-    (`_fwd_launch`), at head dim D. The tiles and the grid do not depend on
-    D; the built head dim and the shared memory a block do."""
-    splits, tps = _fwd_launch(B, T, S, HQ, HK, sms, split_rows, max_splits)
+    (`_fwd_launch`), at head dim D and the operands' dtype. The tiles and
+    the grid do not depend on D; the built head dim and the shared memory
+    a block do. fp32: the tiled path, no remainder build (P is fp32)."""
+    splits, tps = _fwd_launch(B, T, S, HQ, HK, sms, split_rows, max_splits, dtype)
     kv_end = max(0, min(S, q_offset + T)) if causal else S
-    few = _fwd_remainder(S, causal, q_offset)
+    few = dtype != torch.float32 and _fwd_remainder(S, causal, q_offset)
     d = _instance_dim(D)
     if splits:
         rows = (HQ // HK) * T
@@ -205,10 +229,10 @@ def _fwd_plan(B, T, S, HQ, HK, causal, q_offset, sms=132, split_rows=SPLIT_MAX_R
                        for s in range(splits))
         grid = (splits, -(-rows // _FWD_ROWS), B * HK)
         return FwdPlan("split", rows, grid[1], splits, tps, kv_end, ranges, grid, few,
-                       d, _fwd_smem_bytes(d))
+                       d, _fwd_smem_bytes(d), dtype)
     grid = (-(-T // _FWD_ROWS), HQ, B)
     return FwdPlan("tiled", T, grid[0], 0, 0, kv_end, ((0, kv_end),), grid, few,
-                   d, _fwd_smem_bytes(d))
+                   d, _fwd_smem_bytes(d, dtype), dtype)
 
 
 def _packed_rows(group, T):
@@ -268,6 +292,16 @@ def attention_split_reference(q, k, v, kv_valid, causal, scale=None, q_offset=No
     return out, lse
 
 
+def _check_dtypes(what, tensors):
+    """The operands' one dtype: bf16 or fp32, the same for all."""
+    dtype = tensors[0][1].dtype
+    for name, x in tensors:
+        if x.dtype not in DTYPES or x.dtype != dtype:
+            raise TypeError(f"{what} kernel takes bf16 or fp32 (all operands alike), "
+                            f"{name} is {x.dtype} ({tensors[0][0]} {dtype})")
+    return dtype
+
+
 def _check_bthd(name, x, D):
     if x.dim() != 4 or x.shape[-1] != D or x.stride(-1) != 1:
         raise ValueError(f"flash_attn_fwd: {name} must be [B, L, H, {D}] with "
@@ -282,25 +316,27 @@ def flash_attn_fwd(q, k, v, kv_valid=None, causal=True, scale=None,
     and `max_splits`, so the plan always fits these shapes). q/k/v may be
     strided views (e.g. heads of a [B, T, H*D] projection, or a KV cache);
     no copy is made at a built head dim (`HEAD_DIMS`), and any other D <=
-    128 is zero-padded to the next one. With `return_lse` also returns the
-    base-2 log-sum-exp [B, HQ, T] fp32 of the scaled logits (-inf where a
-    row sees no valid key)."""
+    128 is zero-padded to the next one. bf16 or fp32 operands (fp32: the
+    fp32 build, tiled path); the output in their dtype. With `return_lse`
+    also returns the base-2 log-sum-exp [B, HQ, T] fp32 of the scaled
+    logits (-inf where a row sees no valid key)."""
     B, T, HQ, D = q.shape
     _, S, HK, _ = k.shape
     d = _instance_dim(D)
+    dtype = _check_dtypes("flash_attn_fwd", (("q", q), ("k", k), ("v", v)))
+    fp32 = dtype == torch.float32
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"flash_attn_fwd kernel takes bf16, {name} is {x.dtype}")
         _check_bthd(name, x, D)
     if k.shape != v.shape or k.shape[0] != B or HQ % HK:
         raise ValueError(f"flash_attn_fwd: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     q, k, v = (_pad_d(x, d) for x in (q, k, v))
     # k/v tiles are read 16 bytes at a time
+    per16 = 16 // k.element_size()
     for name, x in (("k", k), ("v", v)):
-        if x.data_ptr() % 16 or any(s % 8 for s in x.stride()[:3]):
+        if x.data_ptr() % 16 or any(s % per16 for s in x.stride()[:3]):
             raise ValueError(f"flash_attn_fwd: {name} rows must be 16-byte aligned")
-    if q.data_ptr() % 4 or any(s % 2 for s in q.stride()[:3]):
+    if q.data_ptr() % 4 or (not fp32 and any(s % 2 for s in q.stride()[:3])):
         raise ValueError("flash_attn_fwd: q rows must be 4-byte aligned")
     if scale is None:
         scale = D ** -0.5
@@ -311,14 +347,15 @@ def flash_attn_fwd(q, k, v, kv_valid=None, causal=True, scale=None,
         kv_valid = kv_valid.to(device=q.device, dtype=torch.uint8)
         kv_valid = kv_valid.expand(B, S).contiguous()
         valid_ptr = kv_valid.data_ptr()
-    out = torch.empty((B, T, HQ, d), dtype=torch.bfloat16, device=q.device)
+    out = torch.empty((B, T, HQ, d), dtype=dtype, device=q.device)
     lse = (torch.empty((B, HQ, T), dtype=torch.float32, device=q.device)
            if return_lse else None)
     if B * T == 0:
         out = out[..., :D]
         return (out, lse) if return_lse else out
     splits, tps = _fwd_launch(B, T, S, HQ, HK, _build.sm_count(q.device.index or 0),
-                              split_rows, max_splits)
+                              split_rows, max_splits, dtype)
+    few = not fp32 and _fwd_remainder(S, bool(causal), int(q_offset))
     lib = _lib()
     rc = lib.simlingo_flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_ptr, out.data_ptr(),
@@ -327,17 +364,20 @@ def flash_attn_fwd(q, k, v, kv_valid=None, causal=True, scale=None,
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         int(bool(causal)), int(q_offset), ctypes.c_float(float(scale)),
-        splits, tps, int(_fwd_remainder(S, bool(causal), int(q_offset))), d,
+        splits, tps, int(few), int(fp32), d,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attn_fwd")
     flash_attn_fwd.launches += 1
     flash_attn_fwd.launches_by_dim[d] = flash_attn_fwd.launches_by_dim.get(d, 0) + 1
+    if fp32:
+        flash_attn_fwd.launches_fp32 += 1
     out = out[..., :D] if d != D else out
     return (out, lse) if return_lse else out
 
 
 flash_attn_fwd.launches = 0
 flash_attn_fwd.launches_by_dim = {}      # built head dim -> launches
+flash_attn_fwd.launches_fp32 = 0         # of them, the fp32 build's
 
 
 def _lib():
@@ -345,16 +385,19 @@ def _lib():
     fn = lib.simlingo_flash_attn_fwd
     if fn.argtypes is None:
         for d in HEAD_DIMS:
-            geometry = (ctypes.c_int * 4)()
-            rc = lib.simlingo_flash_attn_fwd_geometry(d, geometry)
-            want = (*_FWD_GEOMETRY, _fwd_smem_bytes(d))
-            if rc != 0 or tuple(geometry) != want:
-                raise RuntimeError(f"flash_attn_fwd: the library's geometry at D = {d} "
-                                   f"{tuple(geometry)} (rc {rc}) differs from the plan's {want}")
+            for dtype in DTYPES:
+                geometry = (ctypes.c_int * 4)()
+                rc = lib.simlingo_flash_attn_fwd_geometry(d, int(dtype == torch.float32),
+                                                          geometry)
+                want = (*_FWD_GEOMETRY, _fwd_smem_bytes(d, dtype))
+                if rc != 0 or tuple(geometry) != want:
+                    raise RuntimeError(f"flash_attn_fwd: the library's {dtype} geometry at "
+                                       f"D = {d} {tuple(geometry)} (rc {rc}) differs from "
+                                       f"the plan's {want}")
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 9
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_float]
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
@@ -364,11 +407,12 @@ def _lib():
 # ---------------------------------------------------------------------------
 
 def _scaled_logits(q, k, kv_valid, causal, scale, q_offset):
-    """fp32 scale * q k^T [B, HQ, T, S] and the visibility mask."""
+    """scale * q k^T [B, HQ, T, S] (fp32; fp64 for fp64 inputs) and the
+    visibility mask."""
     B, T, HQ, D = q.shape
     _, S, HK, _ = k.shape
-    kf = k.float().repeat_interleave(HQ // HK, dim=2)
-    logits = torch.einsum("bthd,bshd->bhts", q.float() * scale, kf)
+    kf = _w(k).repeat_interleave(HQ // HK, dim=2)
+    logits = torch.einsum("bthd,bshd->bhts", _w(q) * scale, kf)
     mask = torch.ones((B, 1, T, S), dtype=torch.bool, device=q.device)
     if causal:
         q_slot = torch.arange(T, device=q.device)[:, None] + q_offset
@@ -394,18 +438,19 @@ def attention_lse_reference(q, k, kv_valid, causal, scale=None, q_offset=None):
 
 def _probs_and_ds(q, k, v, kv_valid, o, dout, lse, causal, scale, q_offset,
                   abs_terms=False):
-    """The backward's P and dS [B, HQ, T, S] fp32: P = exp2(s * log2(e) -
+    """The backward's P and dS [B, HQ, T, S] fp32 (fp64 for fp64 inputs):
+    P = exp2(s * log2(e) -
     lse) on visible pairs (0 where lse = -inf), delta = rowsum(dO * O), dS =
     P (dO V^T - delta); with `abs_terms`, P (|dO| |V|^T + |delta|) in
     place of dS, the sum of |term| of each of its elements."""
     group = q.shape[2] // k.shape[2]
     logits, mask = _scaled_logits(q, k, kv_valid, causal, scale, q_offset)
-    lse = torch.where(lse == float("-inf"), float("inf"), lse.float())
+    lse = torch.where(lse == float("-inf"), float("inf"), lse.to(logits.dtype))
     p = torch.where(mask, torch.exp2(logits * LOG2E - lse[..., None]),
                     torch.zeros((), device=q.device))
-    do = dout.float()
-    vf = v.float().repeat_interleave(group, dim=2)
-    delta = (do * o.float()).sum(-1).transpose(1, 2)            # [B, HQ, T]
+    do = _w(dout)
+    vf = _w(v).repeat_interleave(group, dim=2)
+    delta = (do * _w(o)).sum(-1).transpose(1, 2)                # [B, HQ, T]
     if abs_terms:
         return p, p * (torch.einsum("bthd,bshd->bhts", do.abs(), vf.abs())
                        + delta.abs()[..., None])
@@ -415,7 +460,8 @@ def _probs_and_ds(q, k, v, kv_valid, o, dout, lse, causal, scale, q_offset,
 def attention_bwd_reference(q, k, v, kv_valid, o, dout, lse, causal,
                             scale=None, q_offset=None, abs_terms=False):
     """Plain version of `flash_attn_bwd`, the kernel's algorithm in fp32
-    (`_probs_and_ds`); returns (dq, dk, dv) fp32 with dk/dv summed over
+    (fp64 for fp64 inputs; `_probs_and_ds`); returns (dq, dk, dv) in that
+    type with dk/dv summed over
     each kv head's query-head group. Rows with lse = -inf give 0.
     With `abs_terms`, returns instead the sum of |term| of each gradient
     element (|dS| |K|, |dS| |Q|, P |dO|): the kernel rounds dS and P to
@@ -426,39 +472,42 @@ def attention_bwd_reference(q, k, v, kv_valid, o, dout, lse, causal,
     group = HQ // HK
     scale, q_offset = _defaults(q, k, scale, q_offset)
     p, ds = _probs_and_ds(q, k, v, kv_valid, o, dout, lse, causal, scale, q_offset)
-    do = dout.float()
-    kf = k.float().repeat_interleave(group, dim=2)
+    do = _w(dout)
+    kf = _w(k).repeat_interleave(group, dim=2)
     if abs_terms:
         ds, kf, q, do = ds.abs(), kf.abs(), q.abs(), do.abs()
     dq = scale * torch.einsum("bhts,bshd->bthd", ds, kf)
-    dk = scale * torch.einsum("bhts,bthd->bshd", ds, q.float())
+    dk = scale * torch.einsum("bhts,bthd->bshd", ds, _w(q))
     dv = torch.einsum("bhts,bthd->bshd", p, do)
     return (dq, dk.view(B, S, HK, group, D).sum(3),
             dv.view(B, S, HK, group, D).sum(3))
 
 
 def attention_bwd_bound(q, k, v, kv_valid, o, dout, lse, causal, ref, scale=None,
-                        q_offset=None):
+                        q_offset=None, u=2.0 ** -8, rms_slack=1e-5):
     """Per gradient element, the bf16 rounding bound of `flash_attn_bwd`'s
     (dq, dk, dv) about `ref` (`attention_bwd_reference` on the same
     inputs): 2^-8 (sum |terms| + |ref|) + 1e-5 rms(ref), with dS's terms
     P (|dO| |V| + |delta|) in place of |dS|. The kernel rounds P and dS to
     bf16 before its products and rounds its output; dS = P (dP - delta),
     where dP and delta nearly cancel, also carries their fp32 error, ~D
-    2^-24 of those terms, which |dS| (`abs_terms=True`) does not count."""
+    2^-24 of those terms, which |dS| (`abs_terms=True`) does not count.
+    `u` (one unit, or one a gradient) and `rms_slack` give the same bound's
+    form for another arithmetic (the fp32 build's)."""
     B, T, HQ, D = q.shape
     S, HK = k.shape[1], k.shape[2]
     scale, q_offset = _defaults(q, k, scale, q_offset)
     p, t = _probs_and_ds(q, k, v, kv_valid, o, dout, lse, causal, scale, q_offset,
                          abs_terms=True)
-    kf = k.float().abs().repeat_interleave(HQ // HK, dim=2)
+    kf = _w(k).abs().repeat_interleave(HQ // HK, dim=2)
     mags = (scale * torch.einsum("bhts,bshd->bthd", t, kf),
-            (scale * torch.einsum("bhts,bthd->bshd", t, q.float().abs()))
+            (scale * torch.einsum("bhts,bthd->bshd", t, _w(q).abs()))
             .view(B, S, HK, HQ // HK, D).sum(3),
-            torch.einsum("bhts,bthd->bshd", p, dout.float().abs())
+            torch.einsum("bhts,bthd->bshd", p, _w(dout).abs())
             .view(B, S, HK, HQ // HK, D).sum(3))
-    return [2.0 ** -8 * (m + r.abs()) + 1e-5 * float(r.square().mean().sqrt())
-            for m, r in zip(mags, ref)]
+    units = u if isinstance(u, (tuple, list)) else (u, u, u)
+    return [un * (m + r.abs()) + rms_slack * float(r.square().mean().sqrt())
+            for un, m, r in zip(units, mags, ref)]
 
 
 # The backward's tiles (query rows, keys) and the resident blocks an SM of
@@ -472,15 +521,19 @@ _DKDV_BLOCKS = 3
 _BWD_MAX_KEY_TILES = 8192
 
 
-def _bwd_geometry(d):
+def _bwd_geometry(d, dtype=torch.bfloat16):
     """What the backward library reports at built head dim d: (query rows,
     keys) a tile, the capped dK/dV build's blocks an SM (0: none), the
-    query rows of one dK/dV register pass (S^T and dP^T are held for 32
-    rows at a time at d = 128, where dK and dV take 128 registers a
-    thread), and the dK/dV kernel's dynamic shared memory (K, V; Q and dO
-    double-buffered, rows padded by 8; the warps' dS^T rows; lse and
-    delta)."""
+    query rows of one dK/dV register pass, and the dK/dV kernel's dynamic
+    shared memory. bf16: S^T and dP^T are held for 32 rows at a time at d
+    = 128, where dK and dV take 128 registers a thread; the shared memory
+    holds K, V; Q and dO double-buffered, rows padded by 8; the warps' dS^T
+    rows; lse and delta. fp32: no capped build, all 64 rows a pass (in
+    register tiles of 4 keys x 8 or 4 rows a thread); K, V, Q and dO rows
+    of d + 4 floats, P^T and dS^T [64][68], lse and delta."""
     bq, bkv = _BWD_TILE
+    if dtype == torch.float32:
+        return (bq, bkv, 0, bq, (4 * bkv * (d + 4) + 2 * bkv * (bq + 4) + 2 * bq) * 4)
     smem = (2 * bkv * (d + 8) + 4 * bq * (d + 8) + 4 * 16 * (bq + 8)) * 2 + 4 * bq * 4
     return (bq, bkv, _DKDV_BLOCKS if d <= 64 else 0, 64 if d <= 64 else 32, smem)
 
@@ -496,19 +549,21 @@ def _pair_live(qt, kt, T, causal, q_offset):
 class BwdPlan(NamedTuple):
     n_qt: int                 # query tiles of _BWD_TILE[0] rows
     n_kt: int                 # key tiles of _BWD_TILE[1] keys
-    ds_shape: tuple           # (B, HQ, n_kt, n_qt, keys, rows): the bf16 dS^T scratch
+    ds_shape: tuple           # (B, HQ, n_kt, n_qt, keys, rows): the dS^T scratch
     ds_bytes: int
     written: frozenset        # (query tile, key tile) pairs the dK/dV kernel writes
     read: frozenset           # ... and those the dQ kernel reads
     head_dim: int             # the built head dim launched (`_instance_dim`)
     query_pass: int           # query rows of a dK/dV register pass
     dkdv_smem: int            # the dK/dV kernel's dynamic shared memory a block
+    ds_dtype: torch.dtype = torch.bfloat16   # the scratch's: the operands' dtype
 
 
 @functools.lru_cache(maxsize=64)
-def _bwd_plan(B, T, S, HQ, HK, causal, q_offset, D=64):
-    """The scratch and the tile pairs of `flash_attn_bwd` at head dim D
-    (the scratch and the pairs do not depend on D).
+def _bwd_plan(B, T, S, HQ, HK, causal, q_offset, D=64, dtype=torch.bfloat16):
+    """The scratch and the tile pairs of `flash_attn_bwd` at head dim D and
+    the operands' dtype (the pairs do not depend on either; the scratch
+    holds dS in that dtype, as JAX keeps dS in the operand dtype).
 
     The dK/dV kernel of key tile kt walks the query tiles from the first
     whose pair is live to the last, writing dS^T for each; the dQ kernel of
@@ -530,19 +585,20 @@ def _bwd_plan(B, T, S, HQ, HK, causal, q_offset, D=64):
             if _pair_live(qt, kt, T, causal, q_offset)}
     shape = (B, HQ, n_kt, n_qt, bkv, bq)
     d = _instance_dim(D)
-    _, _, _, query_pass, smem = _bwd_geometry(d)
-    return BwdPlan(n_qt, n_kt, shape, 2 * B * HQ * n_kt * bkv * n_qt * bq,
-                   frozenset(written), frozenset(read), d, query_pass, smem)
+    _, _, _, query_pass, smem = _bwd_geometry(d, dtype)
+    elem = 4 if dtype == torch.float32 else 2
+    return BwdPlan(n_qt, n_kt, shape, elem * B * HQ * n_kt * bkv * n_qt * bq,
+                   frozenset(written), frozenset(read), d, query_pass, smem, dtype)
 
 
-def _dkdv_blocks(B, S, HK, sms, D=64):
+def _dkdv_blocks(B, S, HK, sms, D=64, dtype=torch.bfloat16):
     """The dK/dV kernel's instantiation: _DKDV_BLOCKS resident blocks an SM
     (registers capped) where its grid of (key tile, kv head, batch) blocks
     fills that many on every SM (the ViT's 3264) and head dim D has that
-    build (D <= 64), else 1: ptxas's own register count (2 blocks an SM at
-    D = 64: the LLM's 156 blocks fill fewer)."""
+    build (bf16, D <= 64), else 1: ptxas's own register count (2 blocks an
+    SM at D = 64: the LLM's 156 blocks fill fewer)."""
     blocks = B * HK * -(-S // _BWD_TILE[1])
-    capped = _bwd_geometry(_instance_dim(D))[2]
+    capped = _bwd_geometry(_instance_dim(D), dtype)[2]
     return capped if capped and blocks >= capped * sms else 1
 
 
@@ -578,7 +634,8 @@ def attention_ds_reference(q, k, v, kv_valid, o, dout, lse, causal,
                            scale=None, q_offset=None, abs_terms=False):
     """Plain first pass of `flash_attn_bwd`: dS^T fp32 in the scratch
     layout its dK/dV kernel writes (`_bwd_plan`: key-major tiles), 0 past S
-    and T (the kernel rounds it to bf16). With `abs_terms`, the sum of
+    and T (the bf16 kernel rounds it to bf16; the fp32 one keeps it). With
+    `abs_terms`, the sum of
     |term| of each element instead (`_probs_and_ds`)."""
     B, T, HQ, _ = q.shape
     _, S, HK, _ = k.shape
@@ -587,7 +644,7 @@ def attention_ds_reference(q, k, v, kv_valid, o, dout, lse, causal,
                           abs_terms)
     plan = _bwd_plan(B, T, S, HQ, HK, bool(causal), q_offset)
     bq, bkv = _BWD_TILE
-    out = torch.zeros((B, HQ, plan.n_kt * bkv, plan.n_qt * bq), dtype=torch.float32,
+    out = torch.zeros((B, HQ, plan.n_kt * bkv, plan.n_qt * bq), dtype=ds.dtype,
                       device=q.device)
     out[:, :, :S, :T] = ds.transpose(2, 3)
     return out.view(B, HQ, plan.n_kt, bkv, plan.n_qt, bq).permute(0, 1, 2, 4, 3, 5).contiguous()
@@ -606,34 +663,37 @@ def attention_dq_from_ds_reference(ds, k, kv_valid, T, causal, scale=None,
     q_offset = S - T if q_offset is None else q_offset
     plan = _bwd_plan(B, T, S, HQ, HK, bool(causal), q_offset)
     read = _pair_mask(plan.read, plan, _live_key_tiles(kv_valid, B, S, ds.device))
-    dst = _ds_matrix(torch.where(read, ds.float(), torch.zeros((), device=ds.device)))
+    dst = _ds_matrix(torch.where(read, _w(ds), torch.zeros((), device=ds.device)))
     dst = dst[:, :, :S, :T]
-    kf = k.float().repeat_interleave(HQ // HK, dim=2)
+    kf = _w(k).repeat_interleave(HQ // HK, dim=2)
     if abs_terms:
         dst, kf = dst.abs(), kf.abs()
     return scale * torch.einsum("bhst,bshd->bthd", dst, kf)
 
 
 def _aligned16(name, x):
-    if x.data_ptr() % 16 or any(s % 8 for s in x.stride()[:3]):
+    if x.data_ptr() % 16 or any(s % (16 // x.element_size()) for s in x.stride()[:3]):
         raise ValueError(f"flash_attn_bwd: {name} rows must be 16-byte aligned")
 
 
 def flash_attn_bwd(q, k, v, kv_valid, o, dout, lse, causal=True, scale=None,
-                   q_offset=None, return_ds=False, out_dtype=torch.bfloat16):
+                   q_offset=None, return_ds=False, out_dtype=None):
     """Launch the CUDA backward: (dq [B,T,HQ,D], dk, dv [B,S,HK,D]) in
-    `out_dtype`: bf16, or fp32 for partials that a caller sums before it
-    rounds (the ring of `parallel/sequence.py`: the same kernels, storing
-    their fp32 accumulators unrounded). q/k/v may be strided views as in
-    the forward; o and dout are made contiguous; lse is the forward's [B,
-    HQ, T] fp32. With `return_ds`, also the bf16 dS^T scratch (`_bwd_plan`;
+    `out_dtype` (None: the operands' dtype). bf16 operands: bf16
+    gradients, or fp32 for partials that a caller sums before it rounds
+    (the ring of `parallel/sequence.py`: the same kernels, storing their
+    fp32 accumulators unrounded). fp32 operands: the fp32 build, fp32
+    gradients. q/k/v may be strided views as in the forward; o and dout are
+    made contiguous; lse is the forward's [B, HQ, T] fp32. With
+    `return_ds`, also the dS^T scratch in the operands' dtype (`_bwd_plan`;
     only the pairs it writes for live key tiles hold values)."""
     B, T, HQ, D = q.shape
     _, S, HK, _ = k.shape
     d = _instance_dim(D)
-    for name, x in (("q", q), ("k", k), ("v", v), ("o", o), ("dout", dout)):
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"flash_attn_bwd kernel takes bf16, {name} is {x.dtype}")
+    dtype = _check_dtypes("flash_attn_bwd", (("q", q), ("k", k), ("v", v), ("o", o),
+                                             ("dout", dout)))
+    fp32 = dtype == torch.float32
+    out_dtype = dtype if out_dtype is None else out_dtype
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_bthd(name, x, D)
     if k.shape != v.shape or k.shape[0] != B or HQ % HK or o.shape != q.shape \
@@ -643,26 +703,28 @@ def flash_attn_bwd(q, k, v, kv_valid, o, dout, lse, causal=True, scale=None,
                          f"{tuple(dout.shape)}, lse {tuple(lse.shape)}")
     if lse.dtype != torch.float32:
         raise TypeError(f"flash_attn_bwd takes an fp32 lse, got {lse.dtype}")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"flash_attn_bwd writes bf16 or fp32 gradients, not {out_dtype}")
+    if out_dtype not in (torch.bfloat16, torch.float32) or (fp32 and out_dtype != dtype):
+        raise TypeError(f"flash_attn_bwd writes bf16 or fp32 gradients of bf16 operands, "
+                        f"fp32 ones of fp32 operands; not {out_dtype} of {dtype}")
     scale, q_offset = _defaults(q, k, scale, q_offset)
     q, k, v = (_pad_d(x, d) for x in (q, k, v))
     for name, x in (("q", q), ("k", k), ("v", v)):
         _aligned16(name, x)
-    o, dout, lse = _pad_d(o, d).contiguous(), _pad_d(dout, d).contiguous(), lse.contiguous()
+    o, dout = (_build.aligned16(_pad_d(x, d)) for x in (o, dout))
+    lse = lse.contiguous()
     valid_ptr = None
     if kv_valid is not None:
         kv_valid = kv_valid.to(device=q.device, dtype=torch.uint8)
         kv_valid = kv_valid.expand(B, S).contiguous()
         valid_ptr = kv_valid.data_ptr()
-    plan = _bwd_plan(B, T, S, HQ, HK, bool(causal), int(q_offset), D)
+    plan = _bwd_plan(B, T, S, HQ, HK, bool(causal), int(q_offset), D, dtype)
     if plan.n_kt > _BWD_MAX_KEY_TILES:
         raise ValueError(f"flash_attn_bwd kernel takes at most "
                          f"{_BWD_MAX_KEY_TILES * _BWD_TILE[1]} keys, got {S}")
     dq = torch.empty((B, T, HQ, d), dtype=out_dtype, device=q.device)
     dk = torch.empty((B, S, HK, d), dtype=out_dtype, device=q.device)
     dv = torch.empty((B, S, HK, d), dtype=out_dtype, device=q.device)
-    ds = torch.empty(plan.ds_shape, dtype=torch.bfloat16, device=q.device)
+    ds = torch.empty(plan.ds_shape, dtype=dtype, device=q.device)
     if B * T * S == 0:
         grads = tuple(g.zero_()[..., :D] for g in (dq, dk, dv))
         return (*grads, ds) if return_ds else grads
@@ -678,11 +740,14 @@ def flash_attn_bwd(q, k, v, kv_valid, o, dout, lse, causal=True, scale=None,
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         int(bool(causal)), int(q_offset), ctypes.c_float(float(scale)),
-        _dkdv_blocks(B, S, HK, _build.sm_count(q.device.index or 0), D), d,
-        int(out_dtype == torch.float32), torch.cuda.current_stream(q.device).cuda_stream)
+        _dkdv_blocks(B, S, HK, _build.sm_count(q.device.index or 0), D, dtype), d,
+        int(out_dtype == torch.float32), int(fp32),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attn_bwd")
     flash_attn_bwd.launches += 1
     flash_attn_bwd.launches_by_dim[d] = flash_attn_bwd.launches_by_dim.get(d, 0) + 1
+    if fp32:
+        flash_attn_bwd.launches_fp32 += 1
     if d != D:
         dq, dk, dv = (g[..., :D] for g in (dq, dk, dv))
     return (dq, dk, dv, ds) if return_ds else (dq, dk, dv)
@@ -690,6 +755,7 @@ def flash_attn_bwd(q, k, v, kv_valid, o, dout, lse, causal=True, scale=None,
 
 flash_attn_bwd.launches = 0
 flash_attn_bwd.launches_by_dim = {}      # built head dim -> launches
+flash_attn_bwd.launches_fp32 = 0         # of them, the fp32 build's
 
 
 def _bwd_lib():
@@ -697,16 +763,18 @@ def _bwd_lib():
     fn = lib.simlingo_flash_attn_bwd
     if fn.argtypes is None:
         for d in HEAD_DIMS:
-            geometry = (ctypes.c_int * 5)()
-            rc = lib.simlingo_flash_attn_bwd_geometry(d, geometry)
-            if rc != 0 or tuple(geometry) != _bwd_geometry(d):
-                raise RuntimeError(f"flash_attn_bwd: the library's geometry at D = {d} "
-                                   f"{tuple(geometry)} (rc {rc}) differs from the plan's "
-                                   f"{_bwd_geometry(d)}")
+            for dtype in DTYPES:
+                geometry = (ctypes.c_int * 5)()
+                rc = lib.simlingo_flash_attn_bwd_geometry(d, int(dtype == torch.float32),
+                                                          geometry)
+                if rc != 0 or tuple(geometry) != _bwd_geometry(d, dtype):
+                    raise RuntimeError(f"flash_attn_bwd: the library's {dtype} geometry at "
+                                       f"D = {d} {tuple(geometry)} (rc {rc}) differs from "
+                                       f"the plan's {_bwd_geometry(d, dtype)}")
         fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 9
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 

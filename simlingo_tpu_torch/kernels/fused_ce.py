@@ -187,7 +187,9 @@ def ce_dw_from_scratch_reference(dl, h2, V, abs_terms=False):
 def _check(what, h2, labels, w, widths=None):
     for name, x in (("h2", h2), ("w", w)):
         if x.dtype != torch.bfloat16:
-            raise TypeError(f"{what} kernel takes bf16 {name}, got {x.dtype}")
+            queued = (" (the fused CE at fp32 is queued: ROADMAP C5b)"
+                      if x.dtype == torch.float32 else "")
+            raise TypeError(f"{what} kernel takes bf16 {name}, got {x.dtype}{queued}")
     if h2.dim() != 2 or w.dim() != 2 or h2.shape[1] != w.shape[1] \
             or labels.shape != h2.shape[:1]:
         raise ValueError(f"{what}: shapes h2 {tuple(h2.shape)}, labels "

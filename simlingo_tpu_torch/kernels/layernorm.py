@@ -1,5 +1,5 @@
-"""Fused LayerNorm / RMSNorm, forward and backward: bf16 in and out, fp32
-statistics.
+"""Fused LayerNorm / RMSNorm, forward and backward: bf16 (or, for training
+at precision=fp32, fp32) in and out, fp32 statistics.
 
 Counterpart of `simlingo_tpu/kernels/layernorm.py`: `layernorm_fused`
 (:138) and `rmsnorm_fused` (:212), custom VJPs over `_ln_fwd_kernel` (:54),
@@ -18,8 +18,9 @@ autograd does not ask for (the LLM's frozen RMSNorm scales under LoRA) is
 skipped; JAX always computes it, and the trainable results are the same.
 
 Each of the four wrappers launches its kernel in `csrc/layernorm.cu` on a
-CUDA tensor (bf16 x, scale and bias in bf16 or fp32, d % 8 == 0, d <= 8192;
-anything else raises) and runs its plain version on a CPU tensor. The
+CUDA tensor (bf16 or fp32 x, dy alike, scale and bias in bf16 or fp32, d %
+8 == 0, d <= 8192; anything else raises) and runs its plain version on a
+CPU tensor. The
 launches follow `_norm_fwd_plan` (block size, and the scale loaded early
 at few rows) and `_norm_bwd_plan` (a persistent grid whose partial column
 sums a second launch adds), mirrored by the .cu file's constants.
@@ -87,9 +88,12 @@ def rmsnorm_bwd_plain(x2, scale, rstd, dy2, need_dscale=True):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+DTYPES = (torch.bfloat16, torch.float32)
+
+
 def _check(what, x2, scale, bias=None):
-    if x2.dtype != torch.bfloat16:
-        raise TypeError(f"{what} kernel takes bf16 x, got {x2.dtype}")
+    if x2.dtype not in DTYPES:
+        raise TypeError(f"{what} kernel takes bf16 or fp32 x, got {x2.dtype}")
     n, d = x2.shape
     if d % 8 or d > MAX_D:
         raise ValueError(f"{what} kernel needs d % 8 == 0 and d <= {MAX_D}, got {d}")
@@ -118,13 +122,20 @@ def _geometry():
     return (_THREADS, _BWD_BLOCKS_PER_SM, _BWD_WIDE_BLOCKS_PER_SM, _FWD_BLOCKS_PER_SM, MAX_D)
 
 
-def _norm_width(d: int):
+# (vectors of 8 a row up to, VPT, WPR): csrc/layernorm.cu's dispatch tables
+_WIDTHS = {torch.bfloat16: ((32, 1, 1), (64, 2, 1), (128, 4, 1), (256, 4, 2),
+                            (512, 4, 4), (1024, 4, 8)),
+           torch.float32: ((32, 1, 1), (64, 2, 1), (128, 2, 2), (256, 2, 4),
+                           (512, 2, 8), (1024, 4, 8))}
+
+
+def _norm_width(d: int, dtype=torch.bfloat16):
     """(VPT, WPR): 8-value vectors a thread and warps a row, by row width
-    (csrc/layernorm.cu's dispatch: one warp a row up to d = 1024, then 2,
-    4, 8 warps)."""
+    and the rows' dtype (csrc/layernorm.cu's dispatch: bf16 one warp a row
+    up to d = 1024, then 2, 4, 8 warps; fp32 rows, whose vectors take twice
+    the registers, twice the warps for 512 < d <= 4096)."""
     nv = d // 8
-    for limit, vpt, wpr in ((32, 1, 1), (64, 2, 1), (128, 4, 1), (256, 4, 2),
-                            (512, 4, 4), (1024, 4, 8)):
+    for limit, vpt, wpr in _WIDTHS[dtype]:
         if nv <= limit:
             return vpt, wpr
     raise ValueError(f"norm kernels take d <= {MAX_D}, got {d}")
@@ -140,33 +151,34 @@ class NormBwdPlan(NamedTuple):
     blocks: int       # at most the co-resident ones; partial rows of the column sums
 
 
-def _norm_fwd_plan(n: int, d: int, sms: int) -> NormFwdPlan:
+def _norm_fwd_plan(n: int, d: int, sms: int, dtype=torch.bfloat16) -> NormFwdPlan:
     """Few rows (at most _FWD_FEW_ROWS_PER_SM an SM) are latency: the scale
     loaded early, and small blocks (one row group, at least
     _FWD_MIN_THREADS threads) that spread the rows over the SMs. Many rows
     are bytes: the scale after each row's sums, at the registers and in
     the 256-thread blocks of the design before the plan. Blocks enough for
     every row, capped at _FWD_BLOCKS_PER_SM an SM (they then walk the
-    rows)."""
-    tpr = 32 * _norm_width(d)[1]
+    rows). The rows' dtype sets the row group (`_norm_width`)."""
+    tpr = 32 * _norm_width(d, dtype)[1]
     few = n <= _FWD_FEW_ROWS_PER_SM * sms
     threads = max(_FWD_MIN_THREADS, tpr) if few else _THREADS
     return NormFwdPlan(threads, min(-(-n // (threads // tpr)), _FWD_BLOCKS_PER_SM * sms), few)
 
 
-def _bwd_resident(d: int, sums: bool) -> int:
+def _bwd_resident(d: int, sums: bool, dtype=torch.bfloat16) -> int:
     """Co-resident backward blocks an SM (csrc/layernorm.cu bwd_min_blocks,
-    the kernel's __launch_bounds__)."""
-    wide = sums and _norm_width(d)[0] == 4
+    the kernel's __launch_bounds__): with sums, one at VPT 4 or fp32."""
+    wide = sums and (_norm_width(d, dtype)[0] == 4 or dtype == torch.float32)
     return _BWD_WIDE_BLOCKS_PER_SM if wide else _BWD_BLOCKS_PER_SM
 
 
-def _norm_bwd_plan(n: int, d: int, sms: int, sums: bool = True) -> NormBwdPlan:
+def _norm_bwd_plan(n: int, d: int, sms: int, sums: bool = True,
+                   dtype=torch.bfloat16) -> NormBwdPlan:
     """A persistent grid: as many 256-thread blocks as the rows fill, at
     most the co-resident ones. With sums and more than one block,
     norm_colsum_kernel follows."""
-    rpb = _THREADS // (32 * _norm_width(d)[1])
-    return NormBwdPlan(min(-(-n // rpb), _bwd_resident(d, sums) * sms))
+    rpb = _THREADS // (32 * _norm_width(d, dtype)[1])
+    return NormBwdPlan(min(-(-n // rpb), _bwd_resident(d, sums, dtype) * sms))
 
 
 def _stream(t):
@@ -183,21 +195,21 @@ def _fwd_cuda(what, x2, scale, bias, eps, rms, plan=None):
     rstd = torch.empty(n, dtype=torch.float32, device=x2.device)
     if n == 0:
         return y, mean, rstd
-    plan = plan or _norm_fwd_plan(n, d, _build.sm_count(x2.device.index or 0))
+    plan = plan or _norm_fwd_plan(n, d, _build.sm_count(x2.device.index or 0), x2.dtype)
     rc = _lib().simlingo_norm_fwd(
         x2.data_ptr(), scale.data_ptr(), None if bias is None else bias.data_ptr(),
         y.data_ptr(), None if mean is None else mean.data_ptr(), rstd.data_ptr(),
         n, d, ctypes.c_float(float(eps)), int(rms),
-        int(scale.dtype == torch.bfloat16), plan.threads, plan.blocks, int(plan.early),
-        _stream(x2))
+        int(scale.dtype == torch.bfloat16), int(x2.dtype == torch.float32), plan.threads,
+        plan.blocks, int(plan.early), _stream(x2))
     _build.check(rc, what)
     return y, mean, rstd
 
 
 def _bwd_cuda(what, x2, scale, mean, rstd, dy2, need_dscale, need_dbias, rms, plan=None):
     _check(what, x2, scale)
-    if dy2.dtype != torch.bfloat16 or dy2.shape != x2.shape:
-        raise ValueError(f"{what}: dy must be bf16 {tuple(x2.shape)}, got "
+    if dy2.dtype != x2.dtype or dy2.shape != x2.shape:
+        raise ValueError(f"{what}: dy must be {x2.dtype} {tuple(x2.shape)}, got "
                          f"{dy2.dtype} {tuple(dy2.shape)}")
     x2, dy2, scale = _build.aligned16(x2), _build.aligned16(dy2), _build.aligned16(scale)
     rstd = rstd.float().contiguous()
@@ -211,7 +223,7 @@ def _bwd_cuda(what, x2, scale, mean, rstd, dy2, need_dscale, need_dbias, rms, pl
     if n == 0:
         return dx, dscale, dbias
     plan = plan or _norm_bwd_plan(n, d, _build.sm_count(dev.index or 0),
-                                  sums=need_dscale or need_dbias)
+                                  sums=need_dscale or need_dbias, dtype=x2.dtype)
     part_s = (torch.empty((plan.blocks, d), dtype=torch.float32, device=dev)
               if need_dscale else None)
     part_b = (torch.empty((plan.blocks, d), dtype=torch.float32, device=dev)
@@ -223,7 +235,7 @@ def _bwd_cuda(what, x2, scale, mean, rstd, dy2, need_dscale, need_dbias, rms, pl
         x2.data_ptr(), dy2.data_ptr(), scale.data_ptr(), ptr(mean), rstd.data_ptr(),
         dx.data_ptr(), ptr(part_s), ptr(part_b), ptr(dscale), ptr(dbias),
         n, d, plan.blocks, int(rms),
-        int(scale.dtype == torch.bfloat16), _stream(x2))
+        int(scale.dtype == torch.bfloat16), int(x2.dtype == torch.float32), _stream(x2))
     _build.check(rc, what)
     return dx, dscale, dbias
 
@@ -233,7 +245,7 @@ def layernorm_fwd(x2, scale, bias, eps):
     if x2.device.type == "cpu":
         return layernorm_fwd_plain(x2, scale, bias, eps)
     out = _fwd_cuda("layernorm_fwd", x2, scale, bias, eps, rms=False)
-    layernorm_fwd.launches += 1
+    _count(layernorm_fwd, x2)
     return out
 
 
@@ -242,7 +254,7 @@ def rmsnorm_fwd(x2, scale, eps):
     if x2.device.type == "cpu":
         return rmsnorm_fwd_plain(x2, scale, eps)
     y, _, rstd = _fwd_cuda("rmsnorm_fwd", x2, scale, None, eps, rms=True)
-    rmsnorm_fwd.launches += 1
+    _count(rmsnorm_fwd, x2)
     return y, rstd
 
 
@@ -252,7 +264,7 @@ def layernorm_bwd(x2, scale, mean, rstd, dy2, need_dscale=True, need_dbias=True)
         return layernorm_bwd_plain(x2, scale, mean, rstd, dy2, need_dscale, need_dbias)
     out = _bwd_cuda("layernorm_bwd", x2, scale, mean, rstd, dy2, need_dscale,
                     need_dbias, rms=False)
-    layernorm_bwd.launches += 1
+    _count(layernorm_bwd, x2)
     return out
 
 
@@ -262,12 +274,20 @@ def rmsnorm_bwd(x2, scale, rstd, dy2, need_dscale=True):
         return rmsnorm_bwd_plain(x2, scale, rstd, dy2, need_dscale)
     dx, dscale, _ = _bwd_cuda("rmsnorm_bwd", x2, scale, None, rstd, dy2, need_dscale,
                               False, rms=True)
-    rmsnorm_bwd.launches += 1
+    _count(rmsnorm_bwd, x2)
     return dx, dscale
+
+
+def _count(fn, x2):
+    """One launch of `fn`'s kernel (and of its fp32 instance, for fp32 rows)."""
+    fn.launches += 1
+    if x2.dtype == torch.float32:
+        fn.launches_fp32 += 1
 
 
 for _fn in (layernorm_fwd, rmsnorm_fwd, layernorm_bwd, rmsnorm_bwd):
     _fn.launches = 0
+    _fn.launches_fp32 = 0
 
 
 def _lib():
@@ -280,10 +300,10 @@ def _lib():
                                f"differs from the plans' {_geometry()}")
         lib.simlingo_norm_fwd.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_float]
-            + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+            + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.simlingo_norm_fwd.restype = ctypes.c_int
         lib.simlingo_norm_bwd.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.simlingo_norm_bwd.restype = ctypes.c_int
     return lib
 

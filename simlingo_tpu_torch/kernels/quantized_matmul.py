@@ -127,7 +127,9 @@ def _check(what, a, w_q, scale, width):
     dim."""
     N = w_q.shape[0]
     if a.dtype != torch.bfloat16:
-        raise TypeError(f"{what} kernel takes bf16 activations, got {a.dtype}")
+        queued = (" (fp32 activations are queued: ROADMAP C5c)"
+                  if a.dtype == torch.float32 else "")
+        raise TypeError(f"{what} kernel takes bf16 activations, got {a.dtype}{queued}")
     if w_q.dtype != torch.int8 or w_q.dim() != 2 or not w_q.is_contiguous():
         raise TypeError(f"{what} kernel takes a contiguous int8 [N, K] weight")
     if scale.dtype not in (torch.float32, torch.bfloat16) or scale.shape != (N,):

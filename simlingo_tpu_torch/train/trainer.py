@@ -64,7 +64,7 @@ import torch
 from simlingo_tpu_torch.core import checkpoint as ckpt
 from simlingo_tpu_torch.core import gates
 from simlingo_tpu_torch.core.config import BaseTrainConfig, TrainConfig, to_dict
-from simlingo_tpu_torch.core.device import resolve_device
+from simlingo_tpu_torch.core.device import fp32_products, resolve_device
 from simlingo_tpu_torch.data.synthetic import base_batch, synthetic_example
 from simlingo_tpu_torch.models import simlingo, simlingo_base
 from simlingo_tpu_torch.parallel import mesh as meshlib
@@ -292,7 +292,11 @@ def train(cfg: TrainConfig, make_synthetic: bool = False,
     ranks `params` is the full tree (every rank's the same) and the state
     returned holds this rank's shards."""
     try:
-        return _train(cfg, make_synthetic, params, device, after_step, trainable_fn)
+        with fp32_products(cfg.precision, device) as exact:
+            if exact and multihost.is_primary():
+                print("precision fp32: TF32 off (cuBLAS matmuls, cuDNN convolutions) for "
+                      "the run", flush=True)
+            return _train(cfg, make_synthetic, params, device, after_step, trainable_fn)
     finally:
         sequence.disable()      # never leak the sp context past train()
         pipeline.disable()      # ... nor the pp context

@@ -1051,7 +1051,7 @@ def test_fused_kernels_refuse_what_they_do_not_take(gpu):
     x = torch.randn(4, 64, device=gpu)
     scale = torch.ones(64, device=gpu)
     with pytest.raises(TypeError, match="bf16"):
-        TLN.layernorm_fwd(x, scale, scale, 1e-6)                 # fp32 x
+        TLN.layernorm_fwd(x.half(), scale, scale, 1e-6)          # fp16 x (fp32 has a build)
     with pytest.raises(ValueError, match="d % 8"):
         TLN.rmsnorm_fwd(torch.randn(4, 60, device=gpu).bfloat16(),
                         torch.ones(60, device=gpu), 1e-6)
@@ -1280,3 +1280,224 @@ def test_labelled_training_step_and_loop_tick_on_the_gpu(gpu, tmp_path):
     for key in ("route", "speed_wps"):
         assert np.isfinite(got_out[key]).all()
         assert float(np.abs(got_out[key] - ref_out[key]).max()) <= 0.05 * scale, key
+
+
+# ---------------------------------------------------------------------------
+# the fp32 builds (training at precision=fp32)
+# ---------------------------------------------------------------------------
+# Attention: fp32 FMA kernels against the plain version evaluated in fp64
+# on the same fp32 inputs, within the fp32 form of the rounding bounds that
+# chip_smoke.py holds phase 2 to (`attention_fwd_bound_fp32`,
+# `attention_bwd_bound` at `fp32_unit`; a TF32 product exceeds them).
+# Norms: the fp32 form of their bound, 2^-22 sqrt(d) (|ref| + rms(ref)) for
+# y and dx, 2^-22 sqrt(n) sum|terms| + 2^-23 |ref| for the parameter sums.
+# Dropout: bit-equal, its mask the bf16 instance's.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,B,T,S,HQ,HK,causal,q_offset,pad_left,strided", [
+    (64, 2, 150, 150, 14, 2, True, None, 7, False),      # the LLM: GQA, ragged T, a left pad
+    (64, 2, 130, 130, 4, 4, False, None, 0, True),       # the ViT: strided views
+    (64, 1, 30, 770, 14, 2, True, 740, 40, False),       # the queries: a q offset, masks
+    (16, 2, 43, 43, 2, 2, True, None, 0, False),         # JAX's tiny()
+    (32, 2, 128, 128, 8, 2, True, None, 8, False),       # small_shardable's LLM
+    (128, 2, 100, 100, 16, 2, True, None, 5, False),     # the LLaMA `large`'s head dim
+    (48, 1, 70, 70, 2, 2, False, None, 0, False),        # zero-padded to the 64 build
+    (64, 2, 150, 150, 4, 2, True, None, 70, False)])     # a key tile without a valid key
+def test_fp32_attention_kernels_match_plain(gpu, D, B, T, S, HQ, HK, causal, q_offset,
+                                            pad_left, strided):
+    smoke = _chip_smoke()
+    g = torch.Generator(device=gpu).manual_seed(D + T)
+    if strided:
+        qkv = torch.randn(B, T, 3 * HQ * D, generator=g, device=gpu)
+        q, k, v = (qkv[..., i * HQ * D:(i + 1) * HQ * D].view(B, T, HQ, D) for i in range(3))
+        valid = None
+    else:
+        q = torch.randn(B, T, HQ, D, generator=g, device=gpu)
+        k, v = (torch.randn(B, S, HK, D, generator=g, device=gpu) for _ in range(2))
+        valid = torch.ones(B, S, dtype=torch.bool, device=gpu)
+        valid[0, :pad_left] = False
+    dout = torch.randn(B, T, HQ, D, generator=g, device=gpu)
+    n32 = (TFA.flash_attn_fwd.launches_fp32, TFA.flash_attn_bwd.launches_fp32)
+    out, lse = TFA.flash_attn_fwd(q, k, v, valid, causal, None, q_offset, return_lse=True)
+    f64 = [x.double() for x in (q, k, v)]
+    ref = TFA.attention_reference(*f64, valid, causal, None, q_offset)
+    tol = smoke.attention_fwd_bound_fp32(torch, TFA, *f64, valid, causal, q_offset, ref)
+    assert out.dtype == torch.float32 and smoke._err_over_tol(out, ref, tol)[1] <= 1.0
+    ref_lse = TFA.attention_lse_reference(f64[0], f64[1], valid, causal, None, q_offset)
+    fin = torch.isfinite(ref_lse)
+    assert torch.equal(torch.isfinite(lse), fin)
+    assert float(((lse.double() - ref_lse).abs() / (1 + ref_lse.abs()))[fin].max()) <= \
+        smoke.fp32_unit(S + D)
+    *got, ds = TFA.flash_attn_bwd(q, k, v, valid, out, dout, lse, causal, None, q_offset,
+                                  return_ds=True)
+    again = TFA.flash_attn_bwd(q, k, v, valid, out, dout, lse, causal, None, q_offset)
+    torch.cuda.synchronize()
+    assert (TFA.flash_attn_fwd.launches_fp32, TFA.flash_attn_bwd.launches_fp32) == (
+        n32[0] + 1, n32[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))     # no atomics
+    args = (*f64, valid, out.double(), dout.double(), lse, causal, None, q_offset)
+    refs = TFA.attention_bwd_reference(*args)
+    units = (smoke.fp32_unit(S + D),) + (smoke.fp32_unit(T * HQ // HK + D),) * 2
+    tols = TFA.attention_bwd_bound(*args[:8], refs, None, q_offset, u=units, rms_slack=1e-6)
+    for a, b, t, name in zip(got, refs, tols, ("dq", "dk", "dv")):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        assert smoke._err_over_tol(a, b, t)[1] <= 1.0, name
+    off = S - T if q_offset is None else q_offset
+    plan = TFA._bwd_plan(B, T, S, HQ, HK, causal, off, D, torch.float32)
+    assert ds.dtype == torch.float32 and ds.shape == plan.ds_shape
+    dq = TFA.attention_dq_from_ds_reference(ds.double(), f64[1], valid, T, causal, None,
+                                            q_offset)
+    terms = TFA.attention_dq_from_ds_reference(ds.double(), f64[1], valid, T, causal, None,
+                                               q_offset, abs_terms=True)
+    assert smoke._err_over_tol(got[0], dq, smoke.fp32_unit(S) * (terms + dq.abs()) + 1e-9)[1] \
+        <= 1.0
+
+
+@pytest.mark.cuda
+def test_fp32_attention_autograd_launches_the_fp32_builds(gpu):
+    """attention_train on fp32 tensors: both fp32 builds, fp32 gradients."""
+    g = torch.Generator(device=gpu).manual_seed(2)
+    q, k, v = (torch.randn(2, 70, 4, 64, generator=g, device=gpu).requires_grad_(True)
+               for _ in range(3))
+    n = (TFA.flash_attn_fwd.launches_fp32, TFA.flash_attn_bwd.launches_fp32)
+    TFA.attention_autograd(q, k, v, None, True).square().sum().backward()
+    assert (TFA.flash_attn_fwd.launches_fp32, TFA.flash_attn_bwd.launches_fp32) == (
+        n[0] + 1, n[1] + 1)
+    assert all(x.grad.dtype == torch.float32 for x in (q, k, v))
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        TFA.flash_attn_fwd(q.detach(), k.detach().bfloat16(), v.detach())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,block", [((6, 798, 896), None), ((1003,), None),
+                                         ((3, 798, 896), (3 * 798, 0, 896)),
+                                         ((6, 798, 448), (0, 448, 896)),
+                                         ((6, 399, 896), (399, 0, 896, 399, 798))])
+def test_fp32_dropout_is_bit_identical_to_plain_with_the_bf16_mask(gpu, shape, block):
+    g = torch.Generator(device=gpu).manual_seed(9)
+    x = torch.randn(shape, generator=g, device=gpu) + 5.0          # no zeros
+    n32 = TD.dropout.launches_fp32
+    out = TD.dropout(x, 0x1234567, 0.1, block)
+    out16 = TD.dropout(x.bfloat16(), 0x1234567, 0.1, block)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and TD.dropout.launches_fp32 == n32 + 1
+    assert torch.equal(out, TD.dropout_plain(x, 0x1234567, 0.1, block))
+    assert torch.equal(out != 0, out16 != 0)
+    assert torch.equal(out[out != 0], x[out != 0] * TD.inv_keep(0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(1, 896), (4788, 896), (777, 1024), (3072, 4096), (5, 128),
+                                 (300, 2048), (13, 8192), (12300, 1024)])
+def test_fp32_norm_kernels_match_plain(gpu, n, d):
+    g = torch.Generator(device=gpu).manual_seed(n + d)
+    x = 2 * torch.randn(n, d, generator=g, device=gpu) + 0.3
+    dy = torch.randn(n, d, generator=g, device=gpu)
+    scale = 1 + 0.1 * torch.randn(d, generator=g, device=gpu)
+    bias = 0.1 * torch.randn(d, generator=g, device=gpu)
+    row = 2.0 ** -22 * d ** 0.5
+
+    def rows_tol(r):
+        return row * (r.abs() + float(r.square().mean().sqrt()))
+    n32 = [f.launches_fp32 for f in (TLN.layernorm_fwd, TLN.layernorm_bwd, TLN.rmsnorm_fwd,
+                                     TLN.rmsnorm_bwd)]
+    y, mean, rstd = TLN.layernorm_fwd(x, scale, bias, 1e-6)
+    ry, rmean, rrstd = TLN.layernorm_fwd_plain(x, scale, bias, 1e-6)
+    assert y.dtype == torch.float32
+    _within(y, ry, rows_tol(ry), "ln y")
+    got = TLN.layernorm_bwd(x, scale, rmean, rrstd, dy)
+    again = TLN.layernorm_bwd(x, scale, rmean, rrstd, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = TLN.layernorm_bwd_plain(x, scale, rmean, rrstd, dy)
+    xhat = (x - rmean[:, None]) * rrstd[:, None]
+    _within(got[0], ref[0], rows_tol(ref[0]), "ln dx")
+    for a, b, t, name in zip(got[1:], ref[1:], ((dy * xhat).abs().sum(0), dy.abs().sum(0)),
+                             ("dscale", "dbias")):
+        _within(a, b, 2.0 ** -22 * n ** 0.5 * t + 2.0 ** -23 * b.abs(), name)
+    y, rstd = TLN.rmsnorm_fwd(x, scale, 1e-6)
+    ry, rrstd = TLN.rmsnorm_fwd_plain(x, scale, 1e-6)
+    _within(y, ry, rows_tol(ry), "rms y")
+    dx, dscale = TLN.rmsnorm_bwd(x, scale, rrstd, dy)
+    rdx, rdscale = TLN.rmsnorm_bwd_plain(x, scale, rrstd, dy)
+    _within(dx, rdx, rows_tol(rdx), "rms dx")
+    _within(dscale, rdscale, 2.0 ** -22 * n ** 0.5 * (dy * x * rrstd[:, None]).abs().sum(0)
+            + 2.0 ** -23 * rdscale.abs(), "rms dscale")
+    frozen = TLN.rmsnorm_bwd(x, scale, rrstd, dy, need_dscale=False)
+    assert frozen[1] is None and torch.equal(frozen[0], dx)
+    assert [f.launches_fp32 for f in (TLN.layernorm_fwd, TLN.layernorm_bwd, TLN.rmsnorm_fwd,
+                                      TLN.rmsnorm_bwd)] == [c + k for c, k in
+                                                             zip(n32, (1, 2, 1, 2))]
+
+
+@pytest.mark.cuda
+def test_fp32_refusals_name_the_queued_items(gpu):
+    """The fused CE and the int8 matmul have no fp32 build yet: at fp32 they
+    raise, naming their queued items; no fp32 call falls back."""
+    h = torch.randn(8, 96, device=gpu)
+    w = torch.randn(50, 96, device=gpu)
+    labels = torch.zeros(8, dtype=torch.long, device=gpu)
+    with pytest.raises(TypeError, match="C5b"):
+        TCE.fused_ce_fwd(h, labels, w)
+    w_q, scale = TQM.quantize_weight(torch.randn(32, 64, device=gpu))
+    with pytest.raises(TypeError, match="C5c"):
+        TQM.int8_matmul(torch.randn(4, 64, device=gpu), w_q, scale)
+    with pytest.raises(TypeError, match="C5c"):
+        TQM.int8_matmul_dx(torch.randn(4, 32, device=gpu), w_q, scale)
+
+
+@pytest.mark.cuda
+def test_small_training_step_at_fp32_on_the_gpu_agrees_with_the_cpu(gpu):
+    """chip_smoke.py phase 3's fp32 steps: the small step on the card's fp32
+    kernels against the CPU's fp32 plain step, gates off and with the LN
+    gate, losses and grad norm within 1e-4 relative."""
+    smoke = _chip_smoke()
+    assert smoke.fp32_small_agreements(torch, gpu)
+
+
+@pytest.mark.cuda
+def test_labelled_training_step_at_fp32_on_the_gpu_agrees_with_the_cpu(gpu, tmp_path):
+    """The labelled step of `test_labelled_training_step_and_loop_tick_on_the_gpu`
+    at precision=fp32 on the card (the fp32 attention and dropout builds,
+    TF32 off for the run) beside its CPU fp32 run, at 1e-4 relative."""
+    from simlingo_tpu_torch.data.tokenizer import SimLingoTokenizer
+    from simlingo_tpu_torch.data.synthetic import synthesize_route
+    from simlingo_tpu_torch.models import simlingo
+    from simlingo_tpu_torch.models.qwen2 import Qwen2Config
+    from simlingo_tpu_torch.models.vit import ViTConfig
+    from simlingo_tpu_torch.core.config import compose
+    from simlingo_tpu_torch.train import train_step as ts
+    from simlingo_tpu_torch.train import trainer
+    spec = importlib.util.spec_from_file_location(
+        "collect_dataset_torch", Path(__file__).resolve().parents[1] / "collect_dataset_torch.py")
+    CDT = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(CDT)
+    synthesize_route(str(tmp_path), "v1/b0/routes_training/Town12_cuda", n_frames=40)
+    assert sum(CDT.run_label_generation(str(tmp_path))["buckets"].values()) > 0
+    tok = SimLingoTokenizer()
+    model = simlingo.SimLingoConfig(
+        vit=ViTConfig(hidden_size=32, num_layers=1, num_heads=2, intermediate_size=64,
+                      image_size=56, patch_size=14, projector_out=32),
+        llm=Qwen2Config(vocab_size=tok.tk.vocab_size + 8, hidden_size=32, num_layers=1,
+                        num_heads=2, num_kv_heads=1, head_dim=16, intermediate_size=64),
+        img_context_token_id=tok.img_context_id, remat_vision=False, remat_llm=False)
+    runs = {}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    for device in ("cpu", gpu):
+        cfg = compose("configs/simlingo.yaml", [
+            f"data.data_root={tmp_path}", f"data.bucket_path={tmp_path}/bucketsv2_simlingo",
+            "data.base.use_town13=false", "max_steps=1", "output_dir=", "seed=3",
+            "precision=fp32", "data.batch_size=2", "data.num_workers=2",
+            "data.base.image_size=56", "val_every_n_epochs=0", "visualise_every_n_steps=0"])
+        cfg.model = model
+        params = ts.map_leaves(lambda _, x: x.to(device), simlingo.init_params(
+            model, torch.Generator().manual_seed(0), device="cpu"))
+        before = TFA.flash_attn_fwd.launches_fp32
+        out = trainer.train(cfg, params=params, device=device)
+        runs[str(device)] = (out, TFA.flash_attn_fwd.launches_fp32 - before)
+    assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == tf32
+    (ref, cpu_n), (got, gpu_n) = runs["cpu"], runs[str(gpu)]
+    assert cpu_n == 0 and gpu_n > 0
+    for key in ("loss", "language_loss", "route_loss", "speed_wps_loss", "grad_norm"):
+        want, have = ref["records"][0][key], got["records"][0][key]
+        assert np.isfinite(have) and abs(have - want) <= 1e-4 * abs(want), (key, have, want)

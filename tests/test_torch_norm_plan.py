@@ -17,6 +17,7 @@ import re
 from pathlib import Path
 
 import pytest
+import torch
 
 from simlingo_tpu_torch.kernels import layernorm as TLN
 
@@ -181,27 +182,36 @@ def test_the_library_reports_the_plans_geometry():
 
 
 def test_the_width_table_is_the_sources():
-    """(VPT, WPR) by row width: csrc/layernorm.cu's dispatch, line by line."""
+    """(VPT, WPR) by row width: csrc/layernorm.cu's dispatch, line by line,
+    for bf16 rows (SIMLINGO_NORM_DISPATCH) and fp32 rows
+    (SIMLINGO_NORM_DISPATCH_F32)."""
     text = SOURCE.read_text()
-    rows = re.findall(r"if \(nv <= (\d+)\) \{ constexpr int VPT_ = (\d+), WPR_ = (\d+);", text)
-    assert len(rows) == 6
-    for limit, vpt, wpr in rows:
-        for nv in (int(limit), max(1, int(limit) // 2 + 1)):
-            assert TLN._norm_width(8 * nv) == (int(vpt), int(wpr))
-    with pytest.raises(ValueError):
-        TLN._norm_width(TLN.MAX_D + 8)
+    for macro, dtype in (("SIMLINGO_NORM_DISPATCH", torch.bfloat16),
+                         ("SIMLINGO_NORM_DISPATCH_F32", torch.float32)):
+        body = re.search(rf"#define {macro}\(EXPR\)(.*?)while \(0\)", text, re.S).group(1)
+        rows = re.findall(r"if \(nv <= (\d+)\) \{ constexpr int VPT_ = (\d+), WPR_ = (\d+);",
+                          body)
+        assert len(rows) == 6
+        for limit, vpt, wpr in rows:
+            for nv in (int(limit), max(1, int(limit) // 2 + 1)):
+                assert TLN._norm_width(8 * nv, dtype) == (int(vpt), int(wpr))
+        with pytest.raises(ValueError):
+            TLN._norm_width(TLN.MAX_D + 8, dtype)
 
 
 def test_the_backward_occupancy_is_the_sources():
-    """_bwd_resident mirrors bwd_min_blocks, the kernel's __launch_bounds__."""
-    body = re.search(r"bwd_min_blocks\(int vpt, bool sums\) \{\s*"
-                     r"return \(sums && vpt == (\d+)\) \? (\w+) : (\w+);",
+    """_bwd_resident mirrors bwd_min_blocks, the kernel's __launch_bounds__
+    (wide with sums at the wide VPT, and with sums on fp32 rows)."""
+    body = re.search(r"bwd_min_blocks\(int vpt, bool sums, bool fp32\) \{\s*"
+                     r"return \(sums && \(vpt == (\d+) \|\| fp32\)\) \? (\w+) : (\w+);",
                      SOURCE.read_text())
     assert body is not None
     consts, _ = _source_constants()
     wide_vpt, wide, narrow = int(body.group(1)), consts[body.group(2)], consts[body.group(3)]
-    for d in WIDTHS:
-        vpt = TLN._norm_width(d)[0]
-        for sums in SUMS:
-            want = wide if (sums and vpt == wide_vpt) else narrow
-            assert TLN._bwd_resident(d, sums) == want
+    for dtype in (torch.bfloat16, torch.float32):
+        fp32 = dtype == torch.float32
+        for d in WIDTHS:
+            vpt = TLN._norm_width(d, dtype)[0]
+            for sums in SUMS:
+                want = wide if (sums and (vpt == wide_vpt or fp32)) else narrow
+                assert TLN._bwd_resident(d, sums, dtype) == want

@@ -5,6 +5,7 @@
         data.data_root=/path/to/database max_steps=1000
     python3 train_torch.py --synthetic max_steps=3 data.batch_size=6
     python3 train_torch.py --device cpu ...          # the plain PyTorch path
+    python3 train_torch.py --synthetic precision=fp32  # fp32 compute on the GPU
 
 The counterpart of `train.py`: the TrainConfig (core/config.py; default
 model `SimLingoConfig()`, as JAX's: InternViT-300M + Qwen2-0.5B, remat on
@@ -16,7 +17,11 @@ and dreamer files) with validation, metrics in
 `<output_dir>/<name>/checkpoints` (`resume=true` continues from the
 newest; `hf_checkpoint=PATH` starts from an InternVL2 / SimLingo torch
 checkpoint). `--synthetic` trains on one synthetic batch instead. Runs on
-the GPU unless `--device cpu`. On several GPUs, one process a GPU under
+the GPU unless `--device cpu`. `precision=fp32` computes in fp32 as JAX's
+trainer does: on the GPU the attention, LoRA dropout and norm kernels run
+their fp32 builds, and TF32 is off for the run (cuBLAS and cuDNN); the
+fused CE (`SIMLINGO_CE_IMPL`) and the int8 base have no fp32 build yet and
+raise at fp32. On several GPUs, one process a GPU under
 torchrun or SLURM, with `mesh.dp` / `mesh.fsdp` / `mesh.tp` / `mesh.sp` /
 `mesh.pp` (ranks ordered as JAX's `make_mesh(dp, fsdp, tp, sp, pp)`, pp
 innermost; dp -1 fills the processes; `data.batch_size` is per rank of dp
