@@ -15,8 +15,9 @@
     python3 chip_smoke.py --mesh        # the multi-GPU training phase only
     python3 chip_smoke.py --lora-fused  # phase 5's ungated run and train_lora_fused
     python3 chip_smoke.py --fp32        # the fp32 builds' phase-2 cases, the small
-                                        # fp32 steps, phase 5's ungated run and
-                                        # train_fp32 / train_fp32_ln beside it
+                                        # fp32 steps, phase 5's ungated run,
+                                        # train_fp32 / _ln / _gated / _int8
+                                        # beside it, then serve_fp32
     python3 chip_smoke.py --microsim    # the closed-loop microsim phase only
     python3 chip_smoke.py --collect     # the expert-collection phase (10b) only
     python3 chip_smoke.py --base [CELL ...]  # the small SimLingo-Base agreement and
@@ -24,11 +25,11 @@
                                         # base_wide, base_resnet)
     python3 chip_smoke.py --parent DIR  # ... and the CE forward's, the tiled
                                         # attention forward's, the attention
-                                        # backward's and the norm forward's
-                                        # bits against the tree at DIR, with
-                                        # both trees' times of those, of the
-                                        # norm backward and of the int8 GEMV
-                                        # (scripts/fwd_digest.py)
+                                        # backward's, the norm forward's and
+                                        # the bf16 int8 forward's bits against
+                                        # the tree at DIR, with both trees'
+                                        # times of those and of the norm
+                                        # backward (scripts/fwd_digest.py)
 
 Phases, in order; any failure exits non-zero:
   1. build: compile csrc/*.cu with nvcc (all in parallel), print seconds;
@@ -103,7 +104,12 @@ Phases, in order; any failure exits non-zero:
      calls, with the device ms of the three kernels, their registers and
      the scratch bytes; dropout at DROPOUT_CASES, bit-equal, its keep mask
      equal to the bf16 instance's; the norms at the training rows within
-     FP32_SUM_U's bound; each with kernel / plain / library (fp32) ms and
+     FP32_SUM_U's bound; the fused CE at FP32_CE_CASES (`run_fp32_ce_checks`:
+     ce / logz, dh, dW and the fp32 dlogits scratch pass by pass, each
+     within its fp32 bound against the fp64 plain version, a width of 100
+     zero-padded) and the int8 forward and gradient at the int8 base's
+     training rows, K 100 and an odd N (`run_fp32_int8_checks`; `--fp32`
+     adds serving's rows); each with kernel / plain / library (fp32) ms and
      the bound at 67 TFLOP/s fp32 or 3.35 TB/s;
   3. small-model agreement: a small D=128 model's drive_only waypoints on
      the GPU (bf16, kernels) against the CPU plain path (fp32), and one
@@ -112,8 +118,9 @@ Phases, in order; any failure exits non-zero:
      fused-kernel gates on (SIMLINGO_CE_IMPL=pallas, SIMLINGO_LN_IMPL=pallas),
      and again on an int8 base LLM (which must launch int8_matmul_dx);
      the same step at fp32 on the GPU (`fp32_small_agreements`: the fp32
-     instances, every launch theirs) against the CPU's, gates off and with
-     SIMLINGO_LN_IMPL=pallas, losses and grad norm within FP32_STEP_TOL;
+     instances, every launch theirs) against the CPU's, gates off, with
+     SIMLINGO_LN_IMPL=pallas, with both gates (the fused CE) and on the
+     int8 base, losses and grad norm within FP32_STEP_TOL;
      the same step on the GPU with remat (`small_remat_agreement`:
      SMALL_REMAT_MODES), whose losses must equal the remat-off step's on
      the GPU, launches exact; a small int4 model (`small_int4_cfg`, LLM
@@ -146,11 +153,13 @@ Phases, in order; any failure exits non-zero:
      with the launch counts reset after the warm-up; peak memory, and a
      profile of one more step (device time by kernel class); then the
      same at precision=fp32 (`fp32_training`): `train_fp32` (gates off) and
-     `train_fp32_ln` (SIMLINGO_LN_IMPL=pallas: the norms 49 + 49 a step,
-     LN_PER_STEP), every attention, dropout and norm launch an fp32
-     instance's and held exactly, step 1's loss within 2e-2 of the bf16
-     run's and the LN-gated run's losses within FP32_STEP_TOL of the
-     ungated fp32 run's (`compare_fp32`); then the
+     `train_fp32_gated` (both gates: the norms 49 + 49 a step and the fused
+     CE 1 + 1, `fp32_per_step`), every attention, dropout, norm and CE
+     launch an fp32 instance's and held exactly, step 1's loss within 2e-2
+     of the bf16 run's and the gated run's losses within FP32_STEP_TOL of
+     the ungated fp32 run's (`compare_fp32`; `--fp32` adds `train_fp32_ln`,
+     `train_fp32_int8` on the int8 base, its int8 launches held to
+     INT8_PER_STEP, and `serve_fp32`); then the
      same run with both gates set in the process environment (restored
      afterwards), which must launch the six norm and CE kernels (their
      counts are logged against GATED_PER_STEP), and the two runs side by
@@ -298,7 +307,7 @@ Phases, in order; any failure exits non-zero:
      serve_launches reckons them, beside phase 8's ticks, and the agent's
      controls beside the expert's (`collect_replay`);
  11. the {"kernels": [...]} line (eleven kernels, launches per path: serve,
-     serve_gated, serve_int4, train, train_fp32, train_fp32_ln,
+     serve_gated, serve_int4, train, train_fp32, train_fp32_gated,
      train_gated, train_int8,
      train_remat_<mode>, train_lora_fused, mesh_dp2 / mesh_fsdp2 /
      mesh_tp2 / mesh_sp2 / mesh_pp2 / base_tp2 (both ranks'),
@@ -309,11 +318,11 @@ Phases, in order; any failure exits non-zero:
      instance at a phase-2 case and the base paths' launches by head dim;
      the kernels with an fp32 build also their fp32 instance under "fp32":
      its representative case, FP32_LINE_CASES, and its launches on
-     train_fp32 / train_fp32_ln),
+     FP32_PATHS: the fp32 cells run and phase 3's small fp32 steps),
      the nvidia-smi line, and the last line {"ok": true, "device": {...}}.
 Per-case results also go to chiprun_out/chip_smoke_cases.json, the paths'
 statistics to chip_smoke_agent.json (serve_int4's under "int4"),
-chip_smoke_train.json, chip_smoke_train_fp32.json, chip_smoke_train_fp32_ln.json,
+chip_smoke_train.json, chip_smoke_train_fp32.json, chip_smoke_train_fp32_gated.json,
 chip_smoke_train_gated.json,
 chip_smoke_train_int8.json, chip_smoke_train_remat_<mode>.json,
 chip_smoke_train_lora_fused.json, chip_smoke_mesh_training.json (the ranks'
@@ -324,7 +333,8 @@ chip_smoke_microsim.json and chip_smoke_collect.json. `--disk` runs the
 build and phases 7-10b alone,
 `--base` the build, the small SimLingo-Base agreement and phase 6, `--fp32`
 the build, phase 2's fp32 cases (to chip_smoke_cases_fp32.json), the
-small fp32 steps, phase 5's ungated run and the two fp32 cells, `--mesh`
+small fp32 steps, phase 5's ungated run, the four fp32 training cells and
+`serve_fp32` (each to chip_smoke_<cell>.json), `--mesh`
 the build and phase 5b, `--lora-fused` the build, phase 5's ungated run
 and `train_lora_fused`, `--microsim` the build and phase 10 on a random
 trained-SimLingo checkpoint written as phase 7 writes it, `--collect` the
@@ -926,8 +936,8 @@ def run_int8_checks(torch, dev, results):
             tile, S, blocks = f"gemv R={plan.rows} warps={plan.warps}", 1, plan.blocks
             extra = dict(rows=plan.rows, warps=plan.warps,
                          registers=regs.get(f"gemv_kernel<{plan.rows},"
-                                            f"{'float' if sdt == torch.float32 else 'bf16'}>",
-                                            (0, 0))[0])
+                                            f"{'float' if sdt == torch.float32 else 'bf16'},"
+                                            f"bf16>", (0, 0))[0])
         else:
             (bm, bn), S, _ = QM._fwd_plan(M, N, K, sms)
             tile, blocks = f"{bm}x{bn}", -(-M // bm) * -(-N // bn) * S
@@ -2270,12 +2280,329 @@ def run_fp32_norm_checks(torch, dev, results):
     torch.cuda.empty_cache()
 
 
-def run_fp32_checks(torch, dev, results):
+# The fused CE at fp32: the training shape (6 x 160 answer positions, the
+# tied 151674-row head), with and without dW; a ragged one (N, V off the
+# tiles, labels out of range); a width that is zero-padded (H 100)
+FP32_CE_CASES = (("train", 960, 896, 151674, False), ("train_dw", 960, 896, 151674, True),
+                 ("ragged", 100, 128, 1111, True), ("width_100", 100, 100, 1111, True))
+CE_F32_KERNELS = ("ce_fwd_tile_f32_kernel", "ce_fwd_finalize_kernel", "ce_dlogits_f32_kernel",
+                  "ce_dh_f32_kernel", "f32_reduce_kernel", "ce_dw_f32_kernel")
+CE_BWD_F32_KERNELS = ("ce_dlogits_f32_kernel", "ce_dh_f32_kernel", "f32_reduce_kernel",
+                      "ce_dw_f32_kernel")
+
+
+def _rms(x):
+    return float(x.double().square().mean().sqrt())
+
+
+def run_fp32_ce_checks(torch, dev, results):
+    """fused_ce's fp32 build at FP32_CE_CASES against the plain versions in
+    fp64 on the same fp32 inputs: ce and logz within fp32_unit(H) times
+    their |h| |w| sums (`fused_ce_fwd_plain(abs_terms=True)`) plus
+    fp32_unit(V) (the V exponentials' sum) and 2^-22 |ref|; dh within
+    fp32_unit(H + V) (sum |terms| + |ref|), dW within fp32_unit(H + N) of
+    the same, each + 1e-6 rms(ref); pass by pass, the fp32 dlogits scratch
+    within fp32_unit(H) (|ref| + g p A) (A the logit's |h| |w| sum) and
+    exactly 0 past V, dh and dW within fp32_unit(V) / fp32_unit(N) of the
+    plain products of the kernel's own scratch; bit-identical across two
+    calls. Library: F.cross_entropy(F.linear(h, w)) at fp32, TF32 off, and
+    its autograd backward (eager)."""
+    import torch.nn.functional as F
+    from simlingo_tpu_torch.kernels import fused_ce as TC
+    gen = torch.Generator(device=dev).manual_seed(14)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    regs = {k: v for k, v in ptxas_usage("fused_ce").items()
+            if k.split("<")[0] in CE_F32_KERNELS}
+    for name, N, H, V, with_dw in FP32_CE_CASES:
+        case = f"{name}_fp32"
+        h = torch.randn(N, H, generator=gen, device=dev)
+        w = 0.02 * torch.randn(V, H, generator=gen, device=dev)
+        labels = torch.randint(0, V, (N,), generator=gen, device=dev)
+        if not name.startswith("train"):
+            labels[0], labels[-1] = -100, V
+        g = (torch.rand(N, generator=gen, device=dev) < 0.8).float() / (0.8 * N)
+        h64, w64, g64 = h.double(), w.double(), g.double()
+        # forward
+        logz, ce = TC.fused_ce_fwd(h, labels, w)
+        again = TC.fused_ce_fwd(h, labels, w)
+        torch.cuda.synchronize()
+        same_f = torch.equal(again[0], logz) and torch.equal(again[1], ce)
+        rlogz, rce = TC.fused_ce_fwd_plain(h64, labels, w64)
+        lz_terms, ce_terms = TC.fused_ce_fwd_plain(h64, labels, w64, abs_terms=True)
+
+        def fwd_tol(ref, terms):
+            return fp32_unit(H) * terms + fp32_unit(V) + 2.0 ** -22 * ref.abs()
+        ce_tol, lz_tol = fwd_tol(rce, ce_terms), fwd_tol(rlogz, lz_terms)
+        del lz_terms, ce_terms
+        fwd_reads = [_err_over_tol(ce, rce, ce_tol), _err_over_tol(logz, rlogz, lz_tol)]
+        lz32, ce32 = TC.fused_ce_fwd_plain(h, labels, w)
+        fwd_plain32 = max(_err_over_tol(ce32, rce, ce_tol)[1],
+                          _err_over_tol(lz32, rlogz, lz_tol)[1])
+        fwd_rel = _rel(ce, rce)[1]
+        fwd_digest = {"ce": sha12(torch, ce), "logz": sha12(torch, logz)}
+        del rlogz, rce, ce_tol, lz_tol, ce32
+        # backward, from the fp32 plain logz on both sides
+        dh, dwk, dl = TC.fused_ce_bwd(h, labels, w, lz32, g, with_dw, return_scratch=True)
+        again = TC.fused_ce_bwd(h, labels, w, lz32, g, with_dw)
+        torch.cuda.synchronize()
+        same_b = torch.equal(again[0], dh) and (not with_dw or torch.equal(again[1], dwk))
+        del again
+        args64 = (h64, labels, w64, lz32.double(), g64)
+        rdh, rdw = TC.fused_ce_bwd_plain(*args64, with_dw)
+        mdh, mdw = TC.fused_ce_bwd_plain(*args64, with_dw, abs_terms=True)
+        p32dh, p32dw = TC.fused_ce_bwd_plain(h, labels, w, lz32, g, with_dw)
+        bwd_reads, bwd_plain32, bwd_rels = [], [], []
+        for got, ref, terms, n, plain in ((dh, rdh, mdh, H + V, p32dh),
+                                          (dwk, rdw, mdw, H + N, p32dw)):
+            if got is None:
+                continue
+            tol = fp32_unit(n) * (terms + ref.abs()) + 1e-6 * _rms(ref)
+            bwd_reads.append(_err_over_tol(got, ref, tol))
+            bwd_plain32.append(_err_over_tol(plain, ref, tol)[1])
+            bwd_rels.append(_rel(got, ref)[1])
+            del tol
+        del rdh, rdw, mdh, mdw, p32dh, p32dw
+        # the passes: the fp32 scratch, then dh / dW from the kernel's own scratch
+        plan = TC._bwd_plan(N, -(-H // TC.WIDTH_STEP) * TC.WIDTH_STEP, V, sms, torch.float32)
+        ref_dl = TC.ce_dlogits_reference(*args64, plan)[:, :V]
+        pa = (torch.exp(h64 @ w64.t() - args64[3][:, None]) * (h64.abs() @ w64.abs().t())
+              * g64.abs()[:, None])
+        pass_ratio = {"dl": _err_over_tol(dl[:, :V], ref_dl,
+                                          fp32_unit(H) * (ref_dl.abs() + pa) + 1e-30)[1]}
+        pad_zero = bool((dl[:, V:] == 0).all())
+        del ref_dl, pa
+        dl64 = dl.double()
+        want = TC.ce_dh_from_scratch_reference(dl64, w64, plan)
+        terms = TC.ce_dh_from_scratch_reference(dl64, w64, plan, abs_terms=True)
+        pass_ratio["dh"] = _err_over_tol(dh, want, fp32_unit(V) * (terms + want.abs())
+                                         + 1e-6 * _rms(want))[1]
+        if with_dw:
+            want = TC.ce_dw_from_scratch_reference(dl64, h64, V)
+            terms = TC.ce_dw_from_scratch_reference(dl64, h64, V, abs_terms=True)
+            pass_ratio["dw"] = _err_over_tol(dwk, want, fp32_unit(N) * (terms + want.abs())
+                                             + 1e-6 * _rms(want))[1]
+        del want, terms, dl64, dl
+        bwd_digest = {k: sha12(torch, x) for k, x in (("dh", dh), ("dw", dwk)) if x is not None}
+        # times
+        nhv = 2 * N * H * V
+        fb = bound(4 * (N * H + V * H) + 8 * N + 8 * N, nhv, PEAK_FP32)
+        bb = bound(4 * (N * H + V * H) + 16 * N + 4 * N * H + (4 * V * H if with_dw else 0),
+                   (3 if with_dw else 2) * nhv, PEAK_FP32)
+        sets = [(h, labels, w, lz32, g)]
+        lib_labels = labels.clamp(0, V - 1)
+        rows = []
+        if name != "train_dw":          # the forward is the same for both train cases
+            rows.append(dict(
+                kernel="fused_ce_fwd", err=max(e for e, _ in fwd_reads),
+                ratio=max(r for _, r in fwd_reads), plain32=fwd_plain32, rel=fwd_rel,
+                same=same_f, digest=fwd_digest, bound=fb, library_timing="graph",
+                kernel_ms=time_ms(torch, lambda h_, l_, w_, z_, g_: TC.fused_ce_fwd(
+                    h_, l_, w_), sets, iters=10),
+                plain_ms=time_ms(torch, lambda h_, l_, w_, z_, g_: TC.fused_ce_fwd_plain(
+                    h_, l_, w_), sets, iters=2),
+                library_ms=time_ms(torch, lambda h_, l_, w_, z_, g_: F.cross_entropy(
+                    F.linear(h_, w_), lib_labels, reduction="none"), sets, iters=10),
+                split_ms=kernel_split_ms(torch, lambda h_, l_, w_, z_, g_: TC.fused_ce_fwd(
+                    h_, l_, w_), sets, CE_F32_KERNELS[:2], iters=3)))
+
+        def bwd(h_, l_, w_, z_, g_):
+            return TC.fused_ce_bwd(h_, l_, w_, z_, g_, with_dw)
+        hx = h.detach().clone().requires_grad_(True)
+        wx = w.detach().clone().requires_grad_(with_dw)
+        lib_out = F.cross_entropy(F.linear(hx, wx), lib_labels, reduction="none")
+        lib_in = [hx, wx] if with_dw else [hx]
+        rows.append(dict(
+            kernel="fused_ce_bwd", err=max(e for e, _ in bwd_reads),
+            ratio=max(r for _, r in bwd_reads), plain32=max(bwd_plain32), rel=max(bwd_rels),
+            same=same_b, digest=bwd_digest, bound=bb, library_timing="eager",
+            pass_err_over_tol=pass_ratio, scratch_pad_zero=pad_zero,
+            kernel_ms=time_ms(torch, bwd, sets, iters=10),
+            plain_ms=time_ms(torch, lambda h_, l_, w_, z_, g_: TC.fused_ce_bwd_plain(
+                h_, l_, w_, z_, g_, with_dw), sets, iters=2),
+            library_ms=eager_ms(torch, lambda: torch.autograd.grad(
+                lib_out, lib_in, g, retain_graph=True), [()], iters=5),
+            split_ms=kernel_split_ms(torch, bwd, sets, CE_BWD_F32_KERNELS, iters=3),
+            scratch_bytes=plan.scratch_bytes, S=plan.S))
+        del lib_out, hx, wx, sets
+        for r in rows:
+            bms, bby = r.pop("bound")
+            with_w = with_dw and r["kernel"] == "fused_ce_bwd"
+            ok = (r["ratio"] <= 1.0 and r["same"]
+                  and all(x <= 1.0 for x in r.get("pass_err_over_tol", {}).values())
+                  and r.get("scratch_pad_zero", True))
+            row = dict(kernel=r["kernel"], dtype="fp32", case=case,
+                       shape=f"N={N} H={H} V={V}{' +dW' if with_w else ''} fp32",
+                       max_abs_err=r["err"], err_over_tol=r["ratio"], err_over_rms=r["rel"],
+                       plain_fp32_err_over_tol=r["plain32"], bit_identical=r["same"], ok=ok,
+                       kernel_ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+                       library_ms=r["library_ms"], library_timing=r["library_timing"],
+                       bound_ms=bms, bound_by=bby, split_ms=r["split_ms"], digest=r["digest"],
+                       ptxas=regs, **{k: r[k] for k in ("pass_err_over_tol", "scratch_pad_zero",
+                                                        "scratch_bytes", "S") if k in r})
+            results.append(row)
+            log(f"[kernel] {row['kernel']:14s} {case:18s} {row['shape']:34s} "
+                f"err={row['max_abs_err']:.3e} err/tol={row['err_over_tol']:.3f} (the fp32 "
+                f"bound about the fp64 plain version; the fp32 plain version "
+                f"{r['plain32']:.3f}) err/rms={r['rel']:.3e} bit-identical={r['same']} "
+                f"{'OK' if ok else 'FAIL'} kernel_ms={row['kernel_ms']:.4f} "
+                f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+                f"({row['library_timing']}, fp32) bound_ms={bms:.4f} ({bby})")
+            log(f"[kernel] {row['kernel']:14s} {case:18s} device ms a call by kernel: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in r["split_ms"].items())
+                + (f" | err/tol by pass: " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in r["pass_err_over_tol"].items())
+                   + f", scratch zero past V {r['scratch_pad_zero']} | fp32 dlogits scratch "
+                   f"{r['scratch_bytes']} bytes, S={r['S']}"
+                   if "pass_err_over_tol" in r else "")
+                + " | sha256 " + " ".join(f"{k} {v}" for k, v in r["digest"].items())
+                + " | ptxas registers (spill bytes): "
+                + ", ".join(f"{k} {n} ({sp})" for k, (n, sp) in regs.items()))
+        del h, w, h64, w64, dh, dwk
+        torch.cuda.empty_cache()
+
+
+INT8_F32_KERNELS = ("gemv_kernel", "gemm_f32_kernel", "dx_f32_kernel", "f32_reduce_kernel")
+# serving's rows (decode, verify, queries, prefill), run by `--fp32`
+FP32_SERVE_M = (1, 16, 30, 640)
+
+
+def fp32_int8_cases(serving):
+    """(case, K, N, M, scale dtype) of the int8 forward at fp32: the int8
+    base's training rows (6 x 798 at the linears, a 32-position CE chunk x
+    6 at the tied head) with the training step's bf16 scale, and a K of
+    100 (zero-padded to 112); with `serving`, also serving's rows
+    (FP32_SERVE_M; the head at 1 and 16) with the agent's fp32 scale."""
+    import torch
+    lin, head = INT8_SHAPES[:4], INT8_SHAPES[4]
+    cases = [(f"{n}_fp32", K, N, 4788, torch.bfloat16) for n, K, N in lin]
+    cases += [("head_fp32", *head[1:], 192, torch.bfloat16), ("k100_fp32", 100, 896, 640,
+                                                              torch.float32)]
+    if serving:
+        cases += [(f"{n}_fp32", K, N, M, torch.float32) for n, K, N in lin for M in FP32_SERVE_M]
+        cases += [("head_fp32", *head[1:], M, torch.float32) for M in (1, 16)]
+    return cases
+
+
+def fp32_int8_dx_cases():
+    """(case, M, N, K) of int8_matmul_dx at fp32: the int8 base's training
+    path (int8_dx_cases without the tp = 2 ranks), and an odd N with a K of
+    100 (zero-padded)."""
+    return [(f"{n}_fp32", M, N, K) for n, M, N, K in int8_dx_cases()[:5]] + [
+        ("n101_k100_fp32", 640, 101, 100)]
+
+
+def run_fp32_int8_checks(torch, dev, results, serving=False):
+    """int8_matmul and int8_matmul_dx at fp32 (`fp32_int8_cases`,
+    `fp32_int8_dx_cases`) against their plain versions in fp64 on the same
+    fp32 inputs: within fp32_unit(K) (forward) or fp32_unit(N) (dx) times
+    (sum |terms| + |ref|) + 1e-6 rms(ref), bit-identical across two calls,
+    with the plan (`_f32_plan`'s segments; the GEMV's at M = 1). Library:
+    dequantize + F.linear (forward) or (g * scale) @ w_q (dx) at fp32, TF32
+    off."""
+    import torch.nn.functional as F
+    from simlingo_tpu_torch.kernels import quantized_matmul as QM
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    regs = {k: v for k, v in ptxas_usage("int8_matmul").items()
+            if k.split("<")[0] in INT8_F32_KERNELS and (not k.startswith("gemv")
+                                                         or k.endswith(",float>"))}
+    gen = torch.Generator(device=dev).manual_seed(15)
+
+    def weights(N, K, sdt):
+        w_q, scale = QM.quantize_weight(0.02 * torch.randn(N, K, generator=gen, device=dev))
+        return w_q, scale.to(sdt)
+    for name, K, N, M, sdt in fp32_int8_cases(serving):
+        nbytes = M * K * 4 + N * K + N * sdt.itemsize + M * N * 4
+
+        def make():
+            return (torch.randn(M, K, generator=gen, device=dev), *weights(N, K, sdt))
+        x, w_q, scale = make()
+        out = QM.int8_matmul(x, w_q, scale)
+        same = torch.equal(QM.int8_matmul(x, w_q, scale), out)
+        torch.cuda.synchronize()
+        ref = QM.int8_matmul_reference(x.double(), w_q, scale)
+        tol = (fp32_unit(K) * (QM.int8_matmul_reference(x.double(), w_q, scale, abs_terms=True)
+                               + ref.abs()) + 1e-6 * _rms(ref))
+        err, ratio = _err_over_tol(out, ref, tol)
+        plain32 = _err_over_tol(QM.int8_matmul_reference(x, w_q, scale), ref, tol)[1]
+        rel = _rel(out, ref)[1]
+        del ref, tol
+        sets = [(x, w_q, scale)] + [make() for _ in range(n_sets(nbytes) - 1)]
+        bms, bby = bound(nbytes, 2 * M * N * K, PEAK_FP32)
+        if M == 1:
+            plan = QM._gemv_plan(N, -(-K // 16) * 16, sms)
+            grid = f"gemv R={plan.rows} warps={plan.warps} blocks={plan.blocks}"
+        else:
+            S, seg = QM._f32_plan(M, N, -(-K // 16) * 16, sms)
+            grid = f"128x128 S={S} seg={seg} blocks={-(-M // 128) * -(-N // 128) * S}"
+        row = dict(kernel="int8_matmul", dtype="fp32", case=name, shape=f"M={M} K={K} N={N} fp32",
+                   M=M, K=K, N=N, scale=str(sdt).replace("torch.", ""), max_abs_err=err,
+                   err_over_tol=ratio, err_over_rms=rel, plain_fp32_err_over_tol=plain32,
+                   bit_identical=same, ok=ratio <= 1.0 and same and out.dtype == torch.float32,
+                   kernel_ms=time_ms(torch, QM.int8_matmul, sets),
+                   plain_ms=time_ms(torch, QM.int8_matmul_reference, sets[:2], iters=4),
+                   library_ms=time_ms(torch, lambda x_, w_, s_: F.linear(
+                       x_, w_.float() * s_.float()[:, None]), sets),
+                   bound_ms=bms, bound_by=bby, grid=grid, ptxas=regs)
+        del sets
+        results.append(row)
+        log(f"[kernel] int8_matmul    {name:14s} M={M:4d} K={K:5d} N={N:6d} scale="
+            f"{row['scale']:8s} err={err:.3e} err/tol={ratio:.3f} (fp32_unit(K); the fp32 "
+            f"plain version {plain32:.3f}) err/rms={rel:.3e} bit-identical={same} "
+            f"{'OK' if row['ok'] else 'FAIL'} kernel_ms={row['kernel_ms']:.4f} "
+            f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} (dequantize + "
+            f"F.linear fp32) bound_ms={bms:.4f} ({bby}) {grid}")
+    for name, M, N, K in fp32_int8_dx_cases():
+        nbytes = M * N * 4 + N * K + N * 2 + M * K * 4
+
+        def make():
+            return (torch.randn(M, N, generator=gen, device=dev), *weights(N, K, torch.bfloat16))
+        g, w_q, scale = make()
+        dx = QM.int8_matmul_dx(g, w_q, scale)
+        same = torch.equal(QM.int8_matmul_dx(g, w_q, scale), dx)
+        torch.cuda.synchronize()
+        ref = QM.int8_matmul_dx_reference(g.double(), w_q, scale)
+        tol = (fp32_unit(N) * (QM.int8_matmul_dx_reference(g.double(), w_q, scale,
+                                                            abs_terms=True) + ref.abs())
+               + 1e-6 * _rms(ref))
+        err, ratio = _err_over_tol(dx, ref, tol)
+        plain32 = _err_over_tol(QM.int8_matmul_dx_reference(g, w_q, scale), ref, tol)[1]
+        rel = _rel(dx, ref)[1]
+        del ref, tol
+        sets = [(g, w_q, scale)] + [make() for _ in range(n_sets(nbytes) - 1)]
+        bms, bby = bound(nbytes, 2 * M * N * K, PEAK_FP32)
+        S, seg = QM._f32_plan(M, -(-K // 16) * 16, N, sms)
+        grid = f"128x128 S={S} seg={seg} blocks={-(-M // 128) * -(-K // 128) * S}"
+        row = dict(kernel="int8_matmul_dx", dtype="fp32", case=name,
+                   shape=f"M={M} N={N} K={K} fp32", M=M, N=N, K=K, max_abs_err=err,
+                   err_over_tol=ratio, err_over_rms=rel, plain_fp32_err_over_tol=plain32,
+                   bit_identical=same, ok=ratio <= 1.0 and same and dx.dtype == torch.float32,
+                   kernel_ms=time_ms(torch, QM.int8_matmul_dx, sets),
+                   plain_ms=time_ms(torch, QM.int8_matmul_dx_reference, sets[:2], iters=4),
+                   library_ms=time_ms(torch, lambda g_, w_, s_: (g_ * s_.float()) @ w_.float(),
+                                      sets),
+                   bound_ms=bms, bound_by=bby, grid=grid, ptxas=regs)
+        del sets
+        results.append(row)
+        log(f"[kernel] int8_matmul_dx {name:14s} M={M:4d} N={N:6d} K={K:5d} err={err:.3e} "
+            f"err/tol={ratio:.3f} (fp32_unit(N); the fp32 plain version {plain32:.3f}) "
+            f"err/rms={rel:.3e} bit-identical={same} {'OK' if row['ok'] else 'FAIL'} "
+            f"kernel_ms={row['kernel_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+            f"library_ms={row['library_ms']:.4f} ((g * scale) @ w_q fp32) bound_ms={bms:.4f} "
+            f"({bby}) {grid}")
+    log("[kernel] int8 fp32 build ptxas registers (spill bytes): "
+        + ", ".join(f"{k} {n} ({sp})" for k, (n, sp) in regs.items()))
+    torch.cuda.empty_cache()
+
+
+def run_fp32_checks(torch, dev, results, serving=False):
     """Phase 2 at fp32: the fp32 instances of the attention, dropout and
-    norm kernels (precision=fp32 training)."""
+    norm kernels (precision=fp32 training), the fused CE's and the int8
+    products' (with `serving`, also at serving's rows)."""
     run_fp32_attention_checks(torch, dev, results)
     run_fp32_dropout_checks(torch, dev, results)
     run_fp32_norm_checks(torch, dev, results)
+    run_fp32_ce_checks(torch, dev, results)
+    run_fp32_int8_checks(torch, dev, results, serving)
 
 
 def norm_forced_plans(n, d, sms, sums):
@@ -2570,7 +2897,7 @@ def gemv_sweep(torch, dev, lib, sms, rows):
             def run(x_, w_, s_, plan=plan):
                 y = torch.empty(1, N, dtype=torch.bfloat16, device=dev)
                 _build.check(lib.simlingo_int8_gemv(
-                    x_.data_ptr(), w_.data_ptr(), s_.data_ptr(), y.data_ptr(), N, K, 0, *plan,
+                    x_.data_ptr(), w_.data_ptr(), s_.data_ptr(), y.data_ptr(), N, K, 0, 0, *plan,
                     torch.cuda.current_stream(dev).cuda_stream), "int8_gemv")
                 return y
             ratio = _ratio(run(x, w_q, scale), ref, tol)[1]
@@ -2589,7 +2916,9 @@ def gemv_sweep(torch, dev, lib, sms, rows):
 
 def sass_ops(lib_path, kernel="gemv_kernel"):
     """{instantiation: [opcode, ...] in program order} of `kernel` in a
-    built library, from `cuobjdump -sass`."""
+    built library, from `cuobjdump -sass`: its bf16-activation instances
+    (gemv_kernel<R, ST> in a tree with no fp32 build, <R, ST, bf16> since),
+    named <R, ST>."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
                          check=True).stdout
@@ -2598,10 +2927,10 @@ def sass_ops(lib_path, kernel="gemv_kernel"):
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = None
-            t = re.search(rf"{len(kernel)}{kernel}I(?:Li(\d+)E)?(\w)", m.group(1))
-            if t:
-                rows = f"{t.group(1)}," if t.group(1) else ""
-                name = f"{kernel}<{rows}{'float' if t.group(2) == 'f' else 'bf16'}>"
+            t = re.search(rf"{len(kernel)}{kernel}I(\w*?)EEv", m.group(1))
+            args = _template_args(t.group(1)) if t else []
+            if t and not (len(args) > 2 and args[2] == "float"):
+                name = f"{kernel}<{','.join(args[:2])}>"
                 ops[name] = []
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
@@ -2722,7 +3051,7 @@ def ce_sweep(torch, dev) -> int:
             dh = torch.empty_like(h_)
             _build.check(lib.simlingo_fused_ce_bwd(
                 h_.data_ptr(), w_.data_ptr(), l_.data_ptr(), z_.data_ptr(), g_.data_ptr(),
-                dl.data_ptr(), part.data_ptr(), dh.data_ptr(), None, N, H, V, S, per,
+                dl.data_ptr(), part.data_ptr(), dh.data_ptr(), None, N, H, V, S, per, 0,
                 torch.cuda.current_stream(dev).cuda_stream), "fused_ce_bwd")
             return dh
         ratio = _ratio(run(*sets[0]), rdh, tol)[1]
@@ -2747,8 +3076,8 @@ def fwd_digests(torch, dev, kernel):
     `simlingo_tpu_torch` is imported, on phase 2's inputs and timed calls:
     "flash_attn_fwd" and "flash_attn_bwd" at every attention case of the
     head dims the tree builds,
-    "fused_ce_fwd" at the training shape, "int8_fwd" at the M = 1 cases
-    (the GEMV) with both scale dtypes, 200 calls a replay; "norms" at
+    "fused_ce_fwd" at the training shape, "int8_fwd" at every phase-2 int8
+    forward case (200 calls a replay at M = 1, the GEMV); "norms" at
     every norm case, "<case>_fwd" and "<case>_bwd" apart (200 calls a
     replay below 1 MB of operands); "dropout" at phase 2's zero-offset
     cases, 200 calls a replay."""
@@ -2771,14 +3100,12 @@ def fwd_digests(torch, dev, kernel):
     if kernel == "int8_fwd":
         from simlingo_tpu_torch.kernels import quantized_matmul as QM
         for index, (name, K, N, M, sdt) in enumerate(int8_cases()):
-            if M != 1:
-                continue
-            case = f"{name}_{str(sdt).replace('torch.', '')}"
+            case = f"{name}_{M}_{str(sdt).replace('torch.', '')}"
             (x, w_q, scale), sets = int8_inputs(torch, dev, index)
             digests[case] = {"y": sha12(torch, QM.int8_matmul(x, w_q, scale))}
             # 200 calls a replay: these kernels are ~0.002-0.005 ms, and the
             # replay's own start costs a share of 20
-            ms[case] = time_ms(torch, QM.int8_matmul, sets, iters=200)
+            ms[case] = time_ms(torch, QM.int8_matmul, sets, iters=200 if M == 1 else 20)
             del sets
             torch.cuda.empty_cache()
         return digests, ms
@@ -2839,10 +3166,12 @@ def fwd_digests(torch, dev, kernel):
 
 
 # the cases whose bits must equal the parent's: the CE forward (its loop
-# keeps each accumulator's order) and the attention forward's tiled path
-# (its loop keeps each row's order); none of the GEMV's, whose order of
-# the sum may change (its bits across calls are held in phase 2)
+# keeps each accumulator's order), the attention forward's tiled path (its
+# loop keeps each row's order) and every bf16 int8 forward case (the fp32
+# build left the bf16 kernels' arithmetic as it was; "*": every case; a PR
+# that reorders a sum takes its cases out)
 MUST_EQUAL = {"fused_ce_fwd": ("train",), "dropout": ("lora_x_896", "lora_h_4864"),
+              "int8_fwd": "*",
               "flash_attn_fwd": ("vit", "vit_train", "llm_prefill", "llm_train", "clip",
                                  "base_llm"),
               "flash_attn_bwd": ("llm_train", "vit_train", "clip", "base_llm"),
@@ -2871,7 +3200,7 @@ def compare_fwd(parent, kernel) -> bool:
         a = [r["ms"][case] for r in mine]
         b = [r["ms"][case] for r in theirs]
         same = mine[0]["digests"][case] == theirs[0]["digests"][case]
-        must = case in MUST_EQUAL.get(kernel, ())
+        must = MUST_EQUAL.get(kernel) == "*" or case in MUST_EQUAL.get(kernel, ())
         equal &= same or not must
         log(f"[ab] {kernel} {case:12s} ms this tree {a[0]:.4f} {a[1]:.4f} | parent "
             f"{b[0]:.4f} {b[1]:.4f} | ratio {sum(a) / sum(b):.3f} | bits "
@@ -3362,7 +3691,9 @@ HAND_KERNELS = ("flash_fwd_kernel", "flash_fwd_split_kernel", "bwd_dkdv_kernel",
                 "dx_reduce_kernel",
                 "norm_fwd_kernel", "norm_bwd_kernel", "norm_colsum_kernel", "ce_fwd_tile_kernel",
                 "ce_fwd_finalize_kernel", "ce_dlogits_kernel", "ce_dh_kernel",
-                "ce_dh_reduce_kernel", "ce_dw_kernel")
+                "ce_dh_reduce_kernel", "ce_dw_kernel", "ce_fwd_tile_f32_kernel",
+                "ce_dlogits_f32_kernel", "ce_dh_f32_kernel", "ce_dw_f32_kernel",
+                "gemm_f32_kernel", "dx_f32_kernel", "f32_reduce_kernel")
 
 
 INT8_FWD_KERNELS = ("gemv_kernel", "gemm_kernel", "gemm64_kernel")
@@ -3592,6 +3923,8 @@ def small_int4_agreement(torch, dev):
 # arithmetic (TF32 off), summed in other orders, relative
 FP32_STEP_TOL = 1e-4
 FP32_LN_GATE = {"SIMLINGO_LN_IMPL": "pallas"}
+# the small steps' launches by tag (`small_training_agreement`)
+SMALL_LAUNCHES = {}
 
 
 def small_training_agreement(torch, dev, gated=False, int8_base=False, fp32=False):
@@ -3602,7 +3935,8 @@ def small_training_agreement(torch, dev, gated=False, int8_base=False, fp32=Fals
     `gated`: with both fused-kernel gates on, on both sides (or a dict of
     gates). `int8_base`: the base LLM quantized to int8
     (core/quantize.quantize_llm) first. `fp32`: the GPU step at fp32 too
-    (the kernels' fp32 instances), held to FP32_STEP_TOL."""
+    (the kernels' fp32 instances, every launch theirs), held to
+    FP32_STEP_TOL. Each run's launches go to SMALL_LAUNCHES under its tag."""
     import copy
     from simlingo_tpu_torch.core.quantize import quantize_llm
     from simlingo_tpu_torch.data.synthetic import synthetic_example
@@ -3615,8 +3949,8 @@ def small_training_agreement(torch, dev, gated=False, int8_base=False, fp32=Fals
     metrics = {}
     fns = kernel_fns()
     watched = NEW_KERNELS + INT8_KERNELS + ATTN_DROPOUT
-    tag = ("fp32 " if fp32 else "") + ("gated " if gated else "int8-base " if int8_base
-                                       else "")
+    tag = ("fp32 " if fp32 else "") + ("gated " if gated is True else "ln-gated " if gated
+                                       else "int8-base " if int8_base else "")
     gpu_dtype = torch.float32 if fp32 else torch.bfloat16
     with gates_set(gated):
         for device, dtype in (("cpu", torch.float32), (dev, gpu_dtype)):
@@ -3641,10 +3975,13 @@ def small_training_agreement(torch, dev, gated=False, int8_base=False, fp32=Fals
             f"{'OK' if good else 'FAIL'}")
     log(f"[small] {tag}train_step launches on the GPU: {new}"
         + (f"; of them fp32 instances: {new32}" if fp32 else ""))
+    SMALL_LAUNCHES["small_" + ("fp32_" if fp32 else "") + (
+        "gated" if gated is True else "ln" if gated else "int8" if int8_base else "plain")] = dict(
+        launches=new, launches_fp32=new32)
     must = (NEW_KERNELS if gated is True else ()) + (INT8_KERNELS if int8_base else ())
     if fp32:
-        must = ATTN_DROPOUT + (("layernorm_fwd", "layernorm_bwd", "rmsnorm_fwd", "rmsnorm_bwd")
-                               if gated else ())
+        must = ATTN_DROPOUT + (NEW_KERNELS if gated is True else NEW_KERNELS[:4] if gated
+                               else ()) + (INT8_KERNELS if int8_base else ())
     for name in must:
         if new[name] <= 0 or (fp32 and new32[name] != new[name]):
             log(f"[small] FAIL: kernel {name} was not launched (at fp32: only its fp32 "
@@ -3689,6 +4026,22 @@ def train_launches_per_step(m):
 
 # the norm kernels' launches a step with SIMLINGO_LN_IMPL=pallas alone
 LN_PER_STEP = {k: GATED_PER_STEP[k] for k in NEW_KERNELS[:4]}
+CE_PER_STEP = {k: GATED_PER_STEP[k] for k in NEW_KERNELS[4:]}
+
+
+def fp32_cell(gates, int8_base=False):
+    """The name of a precision=fp32 training cell with `gates` set."""
+    return ("train_fp32_int8" if int8_base else "train_fp32_gated"
+            if "SIMLINGO_CE_IMPL" in gates else "train_fp32_ln" if gates else "train_fp32")
+
+
+def fp32_per_step(gates, int8_base=False):
+    """The norm, CE and int8 kernels' launches a step of a precision=fp32
+    cell (the others' 0)."""
+    per_step = dict(LN_PER_STEP) if "SIMLINGO_LN_IMPL" in gates else {}
+    per_step.update(CE_PER_STEP if "SIMLINGO_CE_IMPL" in gates else {})
+    per_step.update(INT8_PER_STEP if int8_base else {})
+    return per_step
 
 
 def full_width_training(torch, dev, gated=False, int8_base=False, remat=None,
@@ -3704,12 +4057,14 @@ def full_width_training(torch, dev, gated=False, int8_base=False, remat=None,
     SIMLINGO_LORA_FUSED=1 set instead (`train_lora_fused`), then the
     dropout-off pair on the run's state (`lora_fused_pair`). `fp32_gates`
     (a dict of gates, maybe empty): the run at precision=fp32 with those
-    gates (`train_fp32`, `train_fp32_ln`): every launch of the attention,
-    dropout and norm kernels must be its fp32 instance's, the norms' held
-    exactly to LN_PER_STEP where the LN gate is set."""
+    gates, on the int8 base with `int8_base` (`fp32_cell` names it): every
+    launch of the attention, dropout, norm, CE and int8 kernels must be its
+    fp32 instance's, the norms' held exactly to LN_PER_STEP where the LN
+    gate is set, the CE's to GATED_PER_STEP where the CE gate is, the int8
+    products' to INT8_PER_STEP on the int8 base, and none elsewhere."""
     if fp32_gates is not None:
         with gates_set(fp32_gates):
-            return _full_width_training(torch, dev, False, False, None, fp32=fp32_gates)
+            return _full_width_training(torch, dev, False, int8_base, None, fp32=fp32_gates)
     with gates_set(LORA_FUSED if lora_fused else gated):
         return _full_width_training(torch, dev, gated, int8_base, remat, lora_fused)
 
@@ -3723,10 +4078,10 @@ def _full_width_training(torch, dev, gated, int8_base, remat, lora_fused=False, 
     from simlingo_tpu_torch.train import trainer
 
     kernels = kernel_fns()
-    tag = ("[train_gated]" if gated else "[train_int8]" if int8_base
+    tag = (f"[{fp32_cell(fp32, int8_base)}]" if fp32 is not None
+           else "[train_gated]" if gated else "[train_int8]" if int8_base
            else f"[train_remat_{remat}]" if remat
            else "[train_lora_fused]" if lora_fused
-           else ("[train_fp32_ln]" if fp32 else "[train_fp32]") if fp32 is not None
            else "[train]")
 
     def reset_after_warmup(step, _):
@@ -3788,16 +4143,16 @@ def _full_width_training(torch, dev, gated, int8_base, remat, lora_fused=False, 
             f"= {n * TRAIN_STEPS} {'OK' if good else 'FAIL'}")
     must = list(ATTN_DROPOUT)
     if fp32 is not None:
-        ln_on = bool(fp32)
-        must += list(LN_PER_STEP) if ln_on else []
+        per_step = fp32_per_step(fp32, int8_base)
+        must += list(per_step)
         log(f"{tag} fp32 instances' launches over the timed steps: {launches_fp32}")
         for name, n in launches_fp32.items():
             good = n == launches[name]
             ok &= good
             log(f"{tag} {name}: {n} of {launches[name]} launches by the fp32 instance "
                 f"{'OK' if good else 'FAIL'}")
-        for name, per_step in LN_PER_STEP.items():
-            want = per_step * TRAIN_STEPS if ln_on else 0
+        for name in NEW_KERNELS + INT8_KERNELS:
+            want = per_step.get(name, 0) * TRAIN_STEPS
             good = launches[name] == want
             ok &= good
             log(f"{tag} {name}: {launches[name]} launches, expected {want} "
@@ -3812,14 +4167,14 @@ def _full_width_training(torch, dev, gated, int8_base, remat, lora_fused=False, 
     else:
         log(f"{tag} fused kernels with the gates off: "
             f"{ {k: launches[k] for k in NEW_KERNELS} } (expected 0)")
-    if int8_base:
+    if int8_base and fp32 is None:
         must += list(INT8_KERNELS)
         for name, per_step in INT8_PER_STEP.items():
             want = per_step * TRAIN_STEPS
             log(f"{tag} {name}: {launches[name]} launches, expected {per_step} per "
                 f"step x {TRAIN_STEPS} = {want} "
                 f"{'OK' if launches[name] == want else 'DIFFERS'}")
-    else:
+    elif fp32 is None:
         log(f"{tag} int8 kernels on the bf16 base: "
             f"{ {k: launches[k] for k in INT8_KERNELS} } (expected 0)")
     for name in must:
@@ -3913,13 +4268,16 @@ def compare_remat(plain, remat, mode):
     return ok
 
 
-def compare_fp32(plain, fp32, fp32_ln):
-    """`train_fp32` and `train_fp32_ln` beside phase 5's bf16 run, from the
-    same seed-0 params, batch and dropout seeds: step 1's loss (same
-    params) within the bf16 agreement's 2e-2 of the bf16 run's; the LN-gated
-    fp32 run's losses and grad norms within FP32_STEP_TOL of the ungated
-    fp32 run's (the same fp32 math, the norms' sums in another order);
-    ms/step, peak memory and device time by kernel class side by side."""
+def compare_fp32(plain, fp32, others):
+    """The precision=fp32 cells beside phase 5's bf16 run `plain`, from the
+    same seed-0 params, batch and dropout seeds: `train_fp32`'s step-1 loss
+    (same params) within the bf16 agreement's 2e-2 of the bf16 run's; each
+    gated cell of `others` ({cell: stats}: `train_fp32_ln`,
+    `train_fp32_gated`) with its losses and grad norms within
+    FP32_STEP_TOL of `train_fp32`'s (the same fp32 math, the norms' and
+    the CE's sums in another order); `train_fp32_int8`'s step-1 loss beside
+    `train_fp32`'s (information only: int8 rounds the frozen LLM); ms/step,
+    peak memory and device time by kernel class side by side."""
     ok = True
     a, b = plain["records"][0], fp32["records"][0]
     good = abs(b["loss"] - a["loss"]) <= 2e-2 * abs(a["loss"])
@@ -3927,15 +4285,22 @@ def compare_fp32(plain, fp32, fp32_ln):
     log(f"[train_fp32] step 1 loss {b['loss']:.6f} vs phase 5's bf16 {a['loss']:.6f} (rel "
         f"diff {abs(b['loss'] - a['loss']) / abs(a['loss']):.2e}, tol 2e-2) "
         f"{'OK' if good else 'FAIL'}; grad_norm {b['grad_norm']:.6f} vs {a['grad_norm']:.6f}")
-    for a, b in zip(fp32["records"], fp32_ln["records"]):
-        for key in ("loss", "grad_norm"):
-            good = abs(b[key] - a[key]) <= FP32_STEP_TOL * abs(a[key])
-            ok &= good
-            log(f"[train_fp32_ln] step {a['step']} {key} {b[key]:.7f} vs train_fp32 "
-                f"{a[key]:.7f} (rel diff {abs(b[key] - a[key]) / abs(a[key]):.2e}, tol "
-                f"{FP32_STEP_TOL}) {'OK' if good else 'FAIL'}")
     log_side_by_side("[train_fp32]", "fp32", plain, fp32)
-    log_side_by_side("[train_fp32_ln]", "fp32 LN-gated", fp32, fp32_ln)
+    for cell, other in others.items():
+        if cell == "train_fp32_int8":
+            a, b = fp32["records"][0], other["records"][0]
+            log(f"[{cell}] step 1 loss {b['loss']:.6f} vs train_fp32 {a['loss']:.6f} (rel diff "
+                f"{abs(b['loss'] - a['loss']) / abs(a['loss']):.2e}; the int8 base: "
+                f"information only); grad_norm {b['grad_norm']:.6f} vs {a['grad_norm']:.6f}")
+        else:
+            for a, b in zip(fp32["records"], other["records"]):
+                for key in ("loss", "grad_norm"):
+                    good = abs(b[key] - a[key]) <= FP32_STEP_TOL * abs(a[key])
+                    ok &= good
+                    log(f"[{cell}] step {a['step']} {key} {b[key]:.7f} vs train_fp32 "
+                        f"{a[key]:.7f} (rel diff {abs(b[key] - a[key]) / abs(a[key]):.2e}, "
+                        f"tol {FP32_STEP_TOL}) {'OK' if good else 'FAIL'}")
+        log_side_by_side(f"[{cell}]", cell, fp32, other)
     return ok
 
 
@@ -5703,13 +6068,21 @@ ATTN_INSTANCE_CASES = {"flash_attn_fwd": {16: "tiny_llm", 32: "shardable_llm", 6
 FP32_LINE_CASES = {"flash_attn_fwd": "vit_train_fp32", "flash_attn_bwd": "llm_train_fp32",
                    "dropout": "lora_x_896_fp32", "layernorm_fwd": "vit_fp32",
                    "layernorm_bwd": "vit_fp32", "rmsnorm_fwd": "llm_train_fp32",
-                   "rmsnorm_bwd": "llm_train_fp32"}
-FP32_PATHS = ("train_fp32", "train_fp32_ln")
+                   "rmsnorm_bwd": "llm_train_fp32", "int8_matmul": "gate_up_fp32",
+                   "int8_matmul_dx": "gate_up_fp32", "fused_ce_fwd": "train_fp32",
+                   "fused_ce_bwd": "train_fp32"}
+# the paths whose launches the fp32 entries count: phase 5's fp32 cells
+# (`--fp32` also runs train_fp32_ln, train_fp32_int8 and serve_fp32) and
+# phase 3's small fp32 steps (the int8 base's only there in the full run)
+FP32_PATHS = ("train_fp32", "train_fp32_ln", "train_fp32_gated", "train_fp32_int8",
+              "serve_fp32", "small_fp32_plain", "small_fp32_ln", "small_fp32_gated",
+              "small_fp32_int8")
 
 
-def kernel_line(cases, launches, by_dim=None):
+def kernel_line(cases, launches, by_dim=None, small=None):
     """One entry per ported kernel, at a representative shape of its path;
-    launches: {path: {kernel: count}} from each path's counted run; by_dim:
+    launches: {path: {kernel: count}} from each path's counted run; small:
+    the same of phase 3's small steps, counted only under "fp32"; by_dim:
     {path: {attention kernel: {head dim: count}}} where a path counted them
     (SimLingo-Base's). The attention kernels also list each built head
     dim's instance at its representative phase-2 case. A kernel with an
@@ -5757,7 +6130,8 @@ def kernel_line(cases, launches, by_dim=None):
                     "library_ms": rep["library_ms"], "shape": rep["shape"]})
         if name in FP32_LINE_CASES:
             f = [c for c in mine if c["case"] == FP32_LINE_CASES[name]][0]
-            fp32_paths = {p: launches[p].get(name, 0) for p in FP32_PATHS if p in launches}
+            paths = {**(small or {}), **launches}
+            fp32_paths = {p: paths[p].get(name, 0) for p in FP32_PATHS if p in paths}
             out[-1]["fp32"] = {
                 "case": f["case"], "shape": f["shape"], "launches": sum(fp32_paths.values()),
                 "launches_by_path": fp32_paths,
@@ -5843,25 +6217,115 @@ def microsim_only(torch, dev, phase=None):
 
 def fp32_small_agreements(torch, dev):
     """Phase 3 at fp32: the small step on the card's fp32 kernels against
-    the CPU's fp32 plain step, gates off and with the LN gate."""
+    the CPU's fp32 plain step, gates off, with the LN gate, with both gates
+    (the fused CE) and on the int8 base."""
     return (small_training_agreement(torch, dev, fp32=True)
-            and small_training_agreement(torch, dev, gated=FP32_LN_GATE, fp32=True))
+            and small_training_agreement(torch, dev, gated=FP32_LN_GATE, fp32=True)
+            and small_training_agreement(torch, dev, gated=True, fp32=True)
+            and small_training_agreement(torch, dev, int8_base=True, fp32=True))
 
 
-def fp32_training(torch, dev, plain):
-    """Phase 5 at fp32: `train_fp32` (gates off) and `train_fp32_ln`
-    (SIMLINGO_LN_IMPL=pallas), each beside phase 5's bf16 run `plain`
-    (`compare_fp32`); returns (ok, {cell: stats})."""
+# phase 5's precision=fp32 cells after `train_fp32`: (gates, int8 base)
+FP32_CELLS = {"train_fp32_ln": (FP32_LN_GATE, False), "train_fp32_gated": (GATES_ON, False),
+              "train_fp32_int8": ({}, True)}
+
+
+def fp32_training(torch, dev, plain, cells=("train_fp32_gated",)):
+    """Phase 5 at fp32: `train_fp32` (gates off), then each of `cells`
+    (FP32_CELLS), beside phase 5's bf16 run `plain` (`compare_fp32`);
+    returns (ok, {cell: stats})."""
     torch.cuda.empty_cache()
     ok, fp32 = full_width_training(torch, dev, fp32_gates={})
-    if not ok:
-        return False, {"train_fp32": fp32}
-    torch.cuda.empty_cache()
-    ok, fp32_ln = full_width_training(torch, dev, fp32_gates=FP32_LN_GATE)
-    runs = {"train_fp32": fp32, "train_fp32_ln": fp32_ln}
-    ok = ok and compare_fp32(plain, fp32, fp32_ln)
+    runs = {"train_fp32": fp32}
+    for cell in cells:
+        if not ok:
+            return False, runs
+        torch.cuda.empty_cache()
+        gates, int8_base = FP32_CELLS[cell]
+        ok, runs[cell] = full_width_training(torch, dev, int8_base=int8_base, fp32_gates=gates)
+    ok = ok and compare_fp32(plain, fp32, {c: runs[c] for c in cells})
     torch.cuda.empty_cache()
     return ok, runs
+
+
+def serve_fp32(torch, dev):
+    """`serve_fp32`: LingoAgent(compute_dtype=torch.float32) at
+    SimLingoConfig() width with the default AgentConfig (CoT, int8 LLM,
+    speculative), seed-0 fp32 weights, FRAMES CoT frames on phase 4's frame
+    (the first plain, then speculative): frame ms, tokens, decode ms/token
+    (the plain generator at max_new_tokens vs 1 new token), peak memory;
+    each frame's launches of flash_attn_fwd and int8_matmul held to
+    `serve_launches`, every one an fp32 instance's; waypoints finite.
+    Returns (ok, stats)."""
+    import numpy as np
+    from simlingo_tpu_torch.agent.agent import AgentFrame, LingoAgent
+    from simlingo_tpu_torch.agent.config import AgentConfig
+    from simlingo_tpu_torch.infer import runner
+    from simlingo_tpu_torch.kernels import flash_attention as FA
+    from simlingo_tpu_torch.kernels import quantized_matmul as QM
+    from simlingo_tpu_torch.models import simlingo
+
+    cfg = simlingo.SimLingoConfig()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = simlingo.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                  device=dev, dtype=torch.float32)
+    acfg = AgentConfig(initial_frames_delay=0, jpeg_roundtrip=False)
+    t0 = time.perf_counter()
+    agent = LingoAgent(params, cfg, acfg, compute_dtype=torch.float32, device=dev)
+    del params
+    torch.cuda.synchronize()
+    log(f"[serve_fp32] SimLingoConfig(), LingoAgent(compute_dtype=torch.float32) on the "
+        f"default AgentConfig (int8_llm={acfg.int8_llm}, speculative_cot="
+        f"{acfg.speculative_cot}); built + warmed up in {time.perf_counter() - t0:.1f} s")
+    frame = _frame(AgentFrame, np)
+    fns = {"flash_attn_fwd": FA.flash_attn_fwd, "int8_matmul": QM.int8_matmul}
+    for fn in fns.values():
+        fn.launches = fn.launches_fp32 = 0
+    ok, results, per_frame = True, [], []
+    for i in range(FRAMES):
+        before = {k: (fn.launches, fn.launches_fp32) for k, fn in fns.items()}
+        r = agent.run_step(frame)
+        results.append(r)
+        got = {k: fn.launches - before[k][0] for k, fn in fns.items()}
+        got32 = {k: fn.launches_fp32 - before[k][1] for k, fn in fns.items()}
+        per_frame.append(got)
+        want = serve_launches(cfg, len(r.get("language_tokens", [])),
+                              None if i == 0 else agent.spec_stats[i - 1][0])
+        fin = bool(np.isfinite(r["route"]).all() and np.isfinite(r["speed_wps"]).all()
+                   and r["route"].shape == (20, 2))
+        good = fin and got == want and got32 == got
+        ok &= good
+        log(f"[serve_fp32] frame {i} {'cot_plain' if i == 0 else 'cot_spec':9s} "
+            f"{r['latency_s'] * 1e3:9.2f} ms tokens={len(r.get('language_tokens', []))} "
+            f"route[-1]={np.round(r['route'][-1], 4).tolist()} launches {got} (fp32 "
+            f"instances {got32}), reckoned {want} {'OK' if good else 'FAIL'}")
+    di = agent._preprocessed(agent.make_input(frame))
+    gen_ms = {}
+    for n_new in (1, acfg.max_new_tokens):
+        gcfg = runner.GenerateConfig(max_new_tokens=n_new, eos_token_id=agent.tok.eos_token_id)
+        runner.generate_and_drive(agent.params, di, agent.model_cfg, gcfg,
+                                  compute_dtype=torch.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = runner.generate_and_drive(agent.params, di, agent.model_cfg, gcfg,
+                                        compute_dtype=torch.float32)
+        gen_ms[n_new] = ((time.perf_counter() - t0) * 1e3, int(out.language_lengths[0]))
+    (t1, _), (tn, ntok) = gen_ms[1], gen_ms[acfg.max_new_tokens]
+    decode_ms = (tn - t1) / max(ntok - 1, 1)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[serve_fp32] speculative (rounds, gen_len) per frame: {agent.spec_stats}; plain "
+        f"generate: 1 token {t1:.2f} ms, {ntok} tokens {tn:.2f} ms -> decode {decode_ms:.3f} "
+        f"ms/token; peak memory {peak / 2 ** 30:.2f} GiB")
+    launches = {k: sum(f[k] for f in per_frame) for k in fns}
+    stats = dict(frame_ms_cot_plain=results[0]["latency_s"] * 1e3,
+                 frame_ms_cot_spec=[r["latency_s"] * 1e3 for r in results[1:]],
+                 tokens_per_frame=[len(r.get("language_tokens", [])) for r in results],
+                 spec_stats=agent.spec_stats, decode_ms_per_token=decode_ms, peak_bytes=peak,
+                 launches=launches, launches_per_frame=per_frame)
+    del agent
+    torch.cuda.empty_cache()
+    return ok, stats
 
 
 class phase_clock:
@@ -5904,7 +6368,7 @@ def run_path_phases(torch, dev, cases, clock) -> int:
     ok, fp32_runs = fp32_training(torch, dev, train_stats)
     if not ok:
         return 1
-    clock("phase 5: train, train_fp32, train_fp32_ln")
+    clock("phase 5: train, train_fp32, train_fp32_gated")
     torch.cuda.empty_cache()
     ok, gated_stats = full_width_training(torch, dev, gated=True)
     if not ok or not compare_training(train_stats, gated_stats):
@@ -5967,7 +6431,8 @@ def run_path_phases(torch, dev, cases, clock) -> int:
                 "collect_train": eval_stats["collect"]["train"]["launches"],
                 "collect_loop": eval_stats["collect"]["loop"]["launches"],
                 "collect_replay": eval_stats["collect"]["replay"]["launches"]}
-    print(json.dumps(kernel_line(cases, launches, base_by_dim)), flush=True)
+    small = {k: v["launches"] for k, v in SMALL_LAUNCHES.items()}
+    print(json.dumps(kernel_line(cases, launches, base_by_dim, small)), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6768,13 +7233,19 @@ KERNEL_CHECKS = {"flash_attn_fwd": run_attention_checks, "int8_matmul": run_int8
                  "flash_attn_bwd": run_attention_bwd_checks, "dropout": run_dropout_checks,
                  "norms": run_norm_checks, "fused_ce": run_ce_checks,
                  "fp32": run_fp32_checks}
+# parts of "fp32", run only where `--kernels` names them
+PART_CHECKS = {"fp32_ce": run_fp32_ce_checks,
+               "fp32_int8": lambda torch, dev, results: run_fp32_int8_checks(
+                   torch, dev, results, serving=True)}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernels", nargs="*", choices=sorted(KERNEL_CHECKS), metavar="NAME",
+    ap.add_argument("--kernels", nargs="*", choices=sorted({*KERNEL_CHECKS, *PART_CHECKS}),
+                    metavar="NAME",
                     help="build and check the kernels only (those named, else all: "
-                         + ", ".join(sorted(KERNEL_CHECKS)) + ")")
+                         + ", ".join(sorted(KERNEL_CHECKS)) + "; or parts of fp32: "
+                         + ", ".join(sorted(PART_CHECKS)) + ")")
     ap.add_argument("--int8-sweep", action="store_true",
                     help="build, then time the int8 forward at every reduction split "
                          "and the GEMV at forced plans")
@@ -6793,9 +7264,10 @@ def main() -> int:
                          "workspace, the plugin (8), the evaluation (9), the "
                          "microsim (10) and the expert collection (10b) only")
     ap.add_argument("--fp32", action="store_true",
-                    help="build, then the fp32 builds' phase-2 cases, the small fp32 "
-                         "training agreements, phase 5's ungated run and `train_fp32` / "
-                         "`train_fp32_ln` beside it only")
+                    help="build, then the fp32 builds' phase-2 cases (with serving's int8 "
+                         "rows), the small fp32 training agreements, phase 5's ungated run "
+                         "and the fp32 cells beside it (" + ", ".join(
+                             ("train_fp32", *FP32_CELLS)) + "), then serve_fp32 only")
     ap.add_argument("--lora-fused", action="store_true",
                     help="build, then phase 5's ungated training run and `train_lora_fused` "
                          "(SIMLINGO_LORA_FUSED=1) beside it only")
@@ -6809,10 +7281,11 @@ def main() -> int:
                          "random trained-SimLingo checkpoint")
     ap.add_argument("--mesh-rank", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--parent", metavar="DIR",
-                    help="also hold the fused CE forward's and the tiled attention "
-                         "forward's bits equal to those of the source tree at DIR (e.g. "
-                         "a git archive of the parent commit), and time both forwards "
-                         "and the int8 GEMV of both trees on phase 2's inputs")
+                    help="also hold the bits of the checked kernels' MUST_EQUAL cases "
+                         "(the fused CE forward, the tiled attention forward, every bf16 "
+                         "int8 forward case, ...) equal to those of the source tree at "
+                         "DIR (e.g. a git archive of the parent commit), and time both "
+                         "trees on phase 2's inputs")
     args = ap.parse_args()
 
     import torch
@@ -6850,22 +7323,29 @@ def main() -> int:
     if args.fp32:
         os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
         cases = []
-        run_fp32_checks(torch, dev, cases)
+        run_fp32_checks(torch, dev, cases, serving=True)
         with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_cases_fp32.json"), "w") as f:
             json.dump(cases, f, indent=1)
         bad = [c["case"] for c in cases if not c["ok"]]
-        ok = not bad and fp32_small_agreements(torch, dev)
         if bad:
             log(f"[kernel] FAILED: {bad}")
+        clock("phase 2 at fp32")
+        ok = not bad and fp32_small_agreements(torch, dev)
+        clock("phase 3 at fp32")
+        runs = {}
         if ok:
             ok, plain = full_width_training(torch, dev)
         if ok:
-            ok, runs = fp32_training(torch, dev, plain)
-            for name, st in runs.items():
-                with open(os.path.join(ROOT, "chiprun_out", f"chip_smoke_{name}.json"),
-                          "w") as f:
-                    json.dump(dict(st, nvidia_smi=smi_line()), f, indent=1)
-        log(f"[fp32] phase 2 at fp32, the small fp32 steps, train_fp32 and train_fp32_ln "
+            ok, runs = fp32_training(torch, dev, plain, tuple(FP32_CELLS))
+            clock("phase 5 at fp32")
+        if ok:
+            ok, runs["serve_fp32"] = serve_fp32(torch, dev)
+            clock("serve_fp32")
+        for name, st in runs.items():
+            with open(os.path.join(ROOT, "chiprun_out", f"chip_smoke_{name}.json"), "w") as f:
+                json.dump(dict(st, nvidia_smi=smi_line()), f, indent=1)
+        log(f"[fp32] phase 2 at fp32, the small fp32 steps, "
+            f"{', '.join(('train_fp32', *FP32_CELLS))} and serve_fp32 "
             f"{'OK' if ok else 'FAILED'} on {smi_line()}")
         return 0 if ok else 1
     if args.lora_fused:
@@ -6914,8 +7394,8 @@ def main() -> int:
 
     # 2. kernels
     cases = []
-    for name, check in KERNEL_CHECKS.items():
-        if not args.kernels or name in args.kernels:
+    for name, check in {**KERNEL_CHECKS, **PART_CHECKS}.items():
+        if (not args.kernels and name in KERNEL_CHECKS) or name in (args.kernels or ()):
             check(torch, dev, cases)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_cases.json"), "w") as f:

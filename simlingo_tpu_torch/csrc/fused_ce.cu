@@ -70,10 +70,24 @@
 // (JAX zeroes w's pad rows: 0 * NaN would poison dh); columns past V are
 // -inf in the max and the sum and 0 in dlogits. A tile whose columns are
 // all past V keeps m = -inf, and the merge skips it (no exp(-inf + inf)).
+//
+// The fp32 build (precision=fp32: fp32 h and w). JAX's kernels work in their
+// operands' dtype, so at fp32 the logits and both products are fp32 and
+// dlogits is rounded to w's dtype, fp32: nothing is rounded below fp32.
+// The same passes and grids as bf16's, each on the fp32 tile product of
+// f32_tile.cuh (fp32 FMA, no tensor cores): ce_fwd_tile_f32_kernel writes
+// the same (max, sum) partials, which ce_fwd_finalize_kernel merges as it
+// does bf16's; ce_dlogits_f32_kernel writes an fp32 scratch dl [N, Vpad]
+// (582.5 MB at the training shape), ce_dh_f32_kernel the fp32 segment
+// partials of the wrapper's plan, f32_reduce_kernel sums them in order
+// into an fp32 dh, ce_dw_f32_kernel dW = dl^T h. Any H: the loads are
+// 4 bytes a thread. What bounds it: fp32 operations, 2 N H V a product
+// (3.90 ms at 67 TFLOP/s at the training shape).
 
 #include <atomic>
 
 #include "common.cuh"
+#include "f32_tile.cuh"
 
 namespace {
 
@@ -512,6 +526,143 @@ ce_dw_kernel(const bf16* __restrict__ dl, const bf16* __restrict__ h, bf16* __re
   }
 }
 
+// ---------------------------------------------------------------------------
+// the fp32 build
+// ---------------------------------------------------------------------------
+
+using simlingo::f32::row_of;
+static_assert(simlingo::f32::BM == FBM && simlingo::f32::BN == FBN && GM == FBM && GN == FBN,
+              "the fp32 build's tiles are the bf16 grids' tiles");
+
+// The logits tile h w^T of rows [m0, m0 + 128) and columns [v0, v0 + 128),
+// fp32 (f32_tile.cuh: acc[i][j] is row m0 + row_of(i, ty), column v0 +
+// row_of(j, tx)).
+__device__ __forceinline__ void logits_tile_f32(const float* __restrict__ h,
+                                                const float* __restrict__ w, int m0, int v0,
+                                                int N, int H, int V, float (&acc)[8][8]) {
+  simlingo::f32::tile<true, true>(simlingo::f32::F32{h, H}, N, simlingo::f32::F32{w, H}, V,
+                                  m0, v0, 0, H, acc);
+}
+
+// The forward's partials, as ce_fwd_tile_kernel's: each row's max m_s and
+// sum l_s = sum exp(logit - m_s) over the tile's columns below V (the 16
+// lanes of a row group reduce by shuffles in a fixed order), and the gold
+// logit from the one thread that holds the label's column.
+__global__ void __launch_bounds__(simlingo::f32::THREADS, 2)
+ce_fwd_tile_f32_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                       const long long* __restrict__ labels, float* __restrict__ part_m,
+                       float* __restrict__ part_l, float* __restrict__ gold,
+                       int N, int H, int V) {
+  const int m0 = blockIdx.x * FBM, v0 = blockIdx.y * FBN;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  float acc[8][8];
+  logits_tile_f32(h, w, m0, v0, N, H, V, acc);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + row_of(i, ty);
+    const long long lab = row < N ? labels[row] : -1;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = v0 + row_of(j, tx);
+      if (col < V) mx = fmaxf(mx, acc[i][j]);
+      if (col == lab) gold[row] = acc[i][j];          // one thread in the grid
+    }
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float l = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (v0 + row_of(j, tx) < V) l += expf(acc[i][j] - mx);
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+    if (tx == 0 && row < N) {
+      const long long at = static_cast<long long>(blockIdx.y) * N + row;
+      part_m[at] = mx;
+      part_l[at] = l;
+    }
+  }
+}
+
+// dl[row, v0 .. v0 + 127] = (exp(logit - logz) - onehot) g in fp32 for the
+// block's rows below N, 0 in the columns past V; 16 bytes a store.
+__global__ void __launch_bounds__(simlingo::f32::THREADS, 2)
+ce_dlogits_f32_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                      const long long* __restrict__ labels, const float* __restrict__ logz,
+                      const float* __restrict__ gco, float* __restrict__ dl,
+                      int N, int H, int V, int vpad) {
+  const int m0 = blockIdx.x * FBM, v0 = blockIdx.y * FBN;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  float acc[8][8];
+  logits_tile_f32(h, w, m0, v0, N, H, V, acc);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + row_of(i, ty);
+    if (row >= N) continue;
+    const float lz = logz[row], gg = gco[row];
+    const long long lab = labels[row];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int v = v0 + half * 64 + 4 * tx;
+      float d[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = expf(acc[i][4 * half + c] - lz);
+        d[c] = v + c < V ? (p - (v + c == lab ? 1.f : 0.f)) * gg : 0.f;
+      }
+      *reinterpret_cast<float4*>(dl + static_cast<long long>(row) * vpad + v) =
+          make_float4(d[0], d[1], d[2], d[3]);
+    }
+  }
+}
+
+// fp32 partial part[s] of the 128 x 128 tile (blockIdx.y, blockIdx.x) of dh
+// over segment s = blockIdx.z (as ce_dh_kernel's); the columns of dl past V
+// are 0 and w has no rows there, so the segment stops at V.
+__global__ void __launch_bounds__(simlingo::f32::THREADS, 2)
+ce_dh_f32_kernel(const float* __restrict__ dl, const float* __restrict__ w,
+                 float* __restrict__ part, int N, int H, int V, int vpad, int seg_steps) {
+  const int n0 = blockIdx.x * GN, m0 = blockIdx.y * GM, s = blockIdx.z;
+  const int k0 = s * seg_steps * VSTEP;
+  const int k1 = min(min(vpad, k0 + seg_steps * VSTEP), V);
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  float acc[8][8];
+  simlingo::f32::tile<true, false>(simlingo::f32::F32{dl, vpad}, N, simlingo::f32::F32{w, H}, H,
+                                   m0, n0, k0, k1, acc);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + row_of(i, ty);
+    if (row >= N) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = n0 + row_of(j, tx);
+      if (col < H) part[(static_cast<long long>(s) * N + row) * H + col] = acc[i][j];
+    }
+  }
+}
+
+// dW rows [m0, m0 + 128) (vocabulary), columns [n0, n0 + 128) of H, over
+// all N rows of dl and h, fp32.
+__global__ void __launch_bounds__(simlingo::f32::THREADS, 2)
+ce_dw_f32_kernel(const float* __restrict__ dl, const float* __restrict__ h,
+                 float* __restrict__ dw, int N, int H, int V, int vpad) {
+  const int n0 = blockIdx.x * GN, m0 = blockIdx.y * GM;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  float acc[8][8];
+  simlingo::f32::tile<false, false>(simlingo::f32::F32{dl, vpad}, V, simlingo::f32::F32{h, H}, H,
+                                    m0, n0, 0, N, acc);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + row_of(i, ty);
+    if (row >= V) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = n0 + row_of(j, tx);
+      if (col < H) dw[static_cast<long long>(row) * H + col] = acc[i][j];
+    }
+  }
+}
+
 // The dynamic shared-memory limit above 48 KB is a per-device attribute of
 // a kernel: raised at its first launch on each device.
 cudaError_t raise_smem(const void* kernel, int bytes, std::atomic<bool>* raised) {
@@ -527,20 +678,28 @@ cudaError_t raise_smem(const void* kernel, int bytes, std::atomic<bool>* raised)
 }  // namespace
 
 // ce [N] and logz [N] fp32. Scratch: part_m, part_l [ceil(V/128), N] fp32,
-// gold [N] fp32. Needs H % 32 == 0.
+// gold [N] fp32. bf16 h and w (H % 32 == 0), or with fp32 set fp32 h and w.
 extern "C" int simlingo_fused_ce_fwd(const void* h, const void* w, const void* labels,
                                      void* part_m, void* part_l, void* gold, void* logz,
-                                     void* ce, int N, int H, int V, void* stream) {
+                                     void* ce, int N, int H, int V, int fp32, void* stream) {
   static std::atomic<bool> raised[MAX_DEVICES];
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nvt = (V + FBN - 1) / FBN;
-  cudaError_t e = raise_smem(reinterpret_cast<const void*>(ce_fwd_tile_kernel), F_SMEM, raised);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  ce_fwd_tile_kernel<<<dim3((N + FBM - 1) / FBM, nvt), 256, F_SMEM, st>>>(
-      static_cast<const bf16*>(h), static_cast<const bf16*>(w),
-      static_cast<const long long*>(labels), static_cast<float*>(part_m),
-      static_cast<float*>(part_l), static_cast<float*>(gold), N, H, V);
-  e = cudaGetLastError();
+  const dim3 grid((N + FBM - 1) / FBM, nvt);
+  if (fp32) {
+    ce_fwd_tile_f32_kernel<<<grid, simlingo::f32::THREADS, 0, st>>>(
+        static_cast<const float*>(h), static_cast<const float*>(w),
+        static_cast<const long long*>(labels), static_cast<float*>(part_m),
+        static_cast<float*>(part_l), static_cast<float*>(gold), N, H, V);
+  } else {
+    cudaError_t e = raise_smem(reinterpret_cast<const void*>(ce_fwd_tile_kernel), F_SMEM, raised);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ce_fwd_tile_kernel<<<grid, 256, F_SMEM, st>>>(
+        static_cast<const bf16*>(h), static_cast<const bf16*>(w),
+        static_cast<const long long*>(labels), static_cast<float*>(part_m),
+        static_cast<float*>(part_l), static_cast<float*>(gold), N, H, V);
+  }
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   ce_fwd_finalize_kernel<<<(N + 31) / 32, 256, 0, st>>>(
       static_cast<const float*>(part_m), static_cast<const float*>(part_l),
@@ -559,19 +718,52 @@ extern "C" void simlingo_fused_ce_bwd_geometry(int* out) {
   out[3] = G_RESIDENT;
 }
 
-// dh [N, H] bf16; dw [V, H] bf16 or null (no dW). Scratch: dl [N, Vpad]
-// bf16, Vpad = 128 ceil(V / 128); part [S, N, H] fp32, S segments of
-// seg_steps 128-column steps each (the wrapper's plan: none empty). Needs
-// H % 32 == 0, 16-byte aligned rows.
+// The fp32 build's backward: the bf16 one's passes on fp32 h, w, dl, dh, dw.
+static int fused_ce_bwd_f32(const float* h, const float* w, const long long* labels,
+                            const float* logz, const float* g, float* dl, float* part, float* dh,
+                            float* dw, int N, int H, int V, int vpad, int S, int seg_steps,
+                            cudaStream_t st) {
+  const int T = simlingo::f32::THREADS;
+  ce_dlogits_f32_kernel<<<dim3((N + FBM - 1) / FBM, vpad / FBN), T, 0, st>>>(
+      h, w, labels, logz, g, dl, N, H, V, vpad);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ce_dh_f32_kernel<<<dim3((H + GN - 1) / GN, (N + GM - 1) / GM, S), T, 0, st>>>(
+      dl, w, part, N, H, V, vpad, seg_steps);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long count = static_cast<long long>(N) * H;
+  long long blocks = (count + 255) / 256;
+  if (blocks > 132 * 8) blocks = 132 * 8;
+  simlingo::f32::f32_reduce_kernel<float><<<static_cast<unsigned>(blocks), 256, 0, st>>>(
+      part, nullptr, dh, count, H, S);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || dw == nullptr) return static_cast<int>(e);
+  ce_dw_f32_kernel<<<dim3((H + GN - 1) / GN, vpad / GM), T, 0, st>>>(dl, h, dw, N, H, V, vpad);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dh [N, H]; dw [V, H] or null (no dW). Scratch: dl [N, Vpad], Vpad = 128
+// ceil(V / 128); part [S, N, H] fp32, S segments of seg_steps 128-column
+// steps each (the wrapper's plan: none empty). bf16 h, w, dl, dh and dw
+// (H % 32 == 0, 16-byte aligned rows), or with fp32 set all fp32.
 extern "C" int simlingo_fused_ce_bwd(const void* h, const void* w, const void* labels,
                                      const void* logz, const void* g, void* dl, void* part,
                                      void* dh, void* dw, int N, int H, int V, int S,
-                                     int seg_steps, void* stream) {
+                                     int seg_steps, int fp32, void* stream) {
   static std::atomic<bool> dl_raised[MAX_DEVICES], dh_raised[MAX_DEVICES],
       dw_raised[MAX_DEVICES];
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (H % 32 != 0 || S < 1 || seg_steps < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if ((!fp32 && H % 32 != 0) || S < 1 || seg_steps < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int vpad = (V + VSTEP - 1) / VSTEP * VSTEP;
+  if (fp32)
+    return fused_ce_bwd_f32(static_cast<const float*>(h), static_cast<const float*>(w),
+                            static_cast<const long long*>(labels),
+                            static_cast<const float*>(logz), static_cast<const float*>(g),
+                            static_cast<float*>(dl), static_cast<float*>(part),
+                            static_cast<float*>(dh), static_cast<float*>(dw), N, H, V, vpad, S,
+                            seg_steps, st);
   const bf16* hp = static_cast<const bf16*>(h);
   const bf16* wp = static_cast<const bf16*>(w);
   bf16* dlp = static_cast<bf16*>(dl);

@@ -92,12 +92,34 @@
 //  * The plan (S and the segment length) is made by the Python wrapper,
 //    which reads this file's geometry from simlingo_int8_matmul_dx_geometry
 //    and refuses a library whose geometry differs from its own.
+//
+// The fp32 build (fp32 x or g: training at precision=fp32, serving at
+// compute_dtype float32). JAX's int8_matmul computes in x's dtype: at fp32
+// the product of x and the widened codes is an fp32 sum, times the scale;
+// its VJP's gs = (g * scale).astype(g.dtype) (:86) rounds nothing below
+// fp32. So:
+//  * M = 1: gemv_kernel with fp32 x and y (XT = float): it widened bf16 x
+//    to fp32 already; only its loads and its store change. Bound by the
+//    weight bytes, as bf16's.
+//  * M >= 2, gemm_f32_kernel: the fp32 tile product of f32_tile.cuh (128 x
+//    128 tiles, fp32 FMA, the int8 codes widened exactly as they are
+//    loaded), y = sum times the scale widened to fp32.
+//  * dx_f32_kernel: dx = (g * scale) w_q, g * scale an fp32 product as it
+//    is loaded, fp32 sums.
+//  Both split the reduction where the tiles alone give fewer than two
+//  blocks an SM (the wrapper's plan, `_f32_plan`: at most 16 segments);
+//  then each block writes an fp32 partial [S, M, cols] and
+//  f32_reduce_kernel sums s = 0..S-1 in order (and scales the forward's).
+//  What bounds them: fp32 operations, 2 M N K (0.623 ms at 67 TFLOP/s at
+//  gate,up and the 4788 training rows). Any K and N: the loads are 4
+//  bytes a thread.
 
 #include <atomic>
 
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "f32_tile.cuh"
 
 namespace {
 
@@ -152,7 +174,23 @@ __device__ __forceinline__ void dot_chunk(const uint4 (&q)[R], const float (&xf)
   }
 }
 
-// x[16 c .. 16 c + 15] widened to fp32 (bf16 is the top half of an fp32).
+// x[16 c .. 16 c + 15] widened to fp32 (bf16 is the top half of an fp32),
+// or as it is (fp32).
+__device__ __forceinline__ void load_x_chunk(const float* __restrict__ x, int c, float (&xf)[16]) {
+  const float4* xp = reinterpret_cast<const float4*>(x) + 4 * c;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float4 v = __ldg(xp + j);
+    xf[4 * j] = v.x;
+    xf[4 * j + 1] = v.y;
+    xf[4 * j + 2] = v.z;
+    xf[4 * j + 3] = v.w;
+  }
+}
+
+__device__ __forceinline__ void store_out(bf16* y, float v) { *y = __float2bfloat16(v); }
+__device__ __forceinline__ void store_out(float* y, float v) { *y = v; }
+
 __device__ __forceinline__ void load_x_chunk(const bf16* __restrict__ x, int c, float (&xf)[16]) {
   const uint4* xp = reinterpret_cast<const uint4*>(x) + 2 * c;
   const uint4 xa = __ldg(xp), xb = __ldg(xp + 1);
@@ -190,11 +228,11 @@ __device__ __forceinline__ void load_rows(const int8_t* __restrict__ w, int n0, 
 // by butterfly shuffles (every lane ends with the same bits) and the block
 // sums its warps' partials in shared memory in warp order: no atomics, the
 // same bits on every call. The fp32 sum times the widened scale is rounded
-// once to bf16.
-template <int R, typename ST>
+// once to bf16 (XT bf16) or stored as it is (XT float: x and y fp32).
+template <int R, typename ST, typename XT>
 __global__ void __launch_bounds__(GEMV_MAX_WARPS * 32)
-gemv_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
-            const ST* __restrict__ scale, bf16* __restrict__ y, int N, int K) {
+gemv_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
+            const ST* __restrict__ scale, XT* __restrict__ y, int N, int K) {
   __shared__ float part[GEMV_MAX_WARPS][R];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = threadIdx.x;
   const int P = blockDim.x >> 5, C = K / GEMV_CHUNK;
@@ -217,7 +255,7 @@ gemv_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
     if (t < R && n0 + t < N) {
       float sum = part[0][t];
       for (int i = 1; i < P; ++i) sum += part[i][t];
-      y[n0 + t] = __float2bfloat16(sum * widen(scale[n0 + t]));
+      store_out(y + n0 + t, sum * widen(scale[n0 + t]));
     }
     __syncthreads();                       // part is free for the next row group
   };
@@ -739,16 +777,16 @@ cudaError_t launch_gemm64(const bf16* x, const int8_t* w, const ST* s, bf16* y,
 // The GEMV's plan: R rows a warp (2, 4 or 8), `warps` K slices a block
 // (1..16) and `blocks` row-group blocks, which walk the row groups
 // grid-stride. Anything else is refused.
-template <typename ST>
-cudaError_t launch_gemv(const bf16* x, const int8_t* w, const ST* s, bf16* y, int N, int K,
+template <typename ST, typename XT>
+cudaError_t launch_gemv(const XT* x, const int8_t* w, const ST* s, XT* y, int N, int K,
                         int R, int warps, int blocks, cudaStream_t st) {
   if (warps < 1 || warps > GEMV_MAX_WARPS || blocks < 1 || N < 1 || K % GEMV_CHUNK != 0 ||
       K >= (1 << 28))
     return cudaErrorInvalidValue;
   switch (R) {
-    case 2: gemv_kernel<2, ST><<<blocks, warps * 32, 0, st>>>(x, w, s, y, N, K); break;
-    case 4: gemv_kernel<4, ST><<<blocks, warps * 32, 0, st>>>(x, w, s, y, N, K); break;
-    case 8: gemv_kernel<8, ST><<<blocks, warps * 32, 0, st>>>(x, w, s, y, N, K); break;
+    case 2: gemv_kernel<2, ST, XT><<<blocks, warps * 32, 0, st>>>(x, w, s, y, N, K); break;
+    case 4: gemv_kernel<4, ST, XT><<<blocks, warps * 32, 0, st>>>(x, w, s, y, N, K); break;
+    case 8: gemv_kernel<8, ST, XT><<<blocks, warps * 32, 0, st>>>(x, w, s, y, N, K); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
@@ -980,6 +1018,95 @@ cudaError_t launch_dx(const bf16* g, const int8_t* w, const float* s, float* par
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// the fp32 build: M >= 2 and the activation gradient
+// ---------------------------------------------------------------------------
+
+using simlingo::f32::row_of;
+constexpr int F32_SPLIT_MAX = 16;    // most reduction segments of the fp32 products
+
+// The fp32 tile (blockIdx.y, blockIdx.x) of y = x w_q^T over K columns [z
+// seg, (z + 1) seg), z = blockIdx.z: with part set, the fp32 partial
+// part[z]; else y = the sum times the widened scale.
+template <typename ST>
+__global__ void __launch_bounds__(simlingo::f32::THREADS, 2)
+gemm_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
+                const ST* __restrict__ scale, float* __restrict__ part, float* __restrict__ y,
+                int M, int N, int K, int seg) {
+  const int n0 = blockIdx.x * simlingo::f32::BN, m0 = blockIdx.y * simlingo::f32::BM;
+  const int z = blockIdx.z, k0 = z * seg, k1 = min(K, k0 + seg);
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  float acc[8][8];
+  simlingo::f32::tile<true, true>(simlingo::f32::F32{x, K}, M, simlingo::f32::I8{w, K}, N, m0,
+                                  n0, k0, k1, acc);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + row_of(i, ty);
+    if (row >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = n0 + row_of(j, tx);
+      if (col >= N) continue;
+      if (part != nullptr)
+        part[(static_cast<long long>(z) * M + row) * N + col] = acc[i][j];
+      else
+        y[static_cast<long long>(row) * N + col] = acc[i][j] * widen(scale[col]);
+    }
+  }
+}
+
+// The fp32 tile (blockIdx.y, blockIdx.x) of dx = (g * scale) w_q over the
+// weight rows [z seg, (z + 1) seg): with part set, the fp32 partial
+// part[z]; else dx.
+__global__ void __launch_bounds__(simlingo::f32::THREADS, 2)
+dx_f32_kernel(const float* __restrict__ g, const int8_t* __restrict__ w,
+              const float* __restrict__ scale, float* __restrict__ part, float* __restrict__ dx,
+              int M, int N, int K, int seg) {
+  const int n0 = blockIdx.x * simlingo::f32::BN, m0 = blockIdx.y * simlingo::f32::BM;
+  const int z = blockIdx.z, r0 = z * seg, r1 = min(N, r0 + seg);
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  float acc[8][8];
+  simlingo::f32::tile<true, false>(simlingo::f32::Scaled{g, N, scale}, M,
+                                   simlingo::f32::I8{w, K}, K, m0, n0, r0, r1, acc);
+  float* out = part != nullptr ? part + static_cast<long long>(z) * M * K : dx;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + row_of(i, ty);
+    if (row >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = n0 + row_of(j, tx);
+      if (col < K) out[static_cast<long long>(row) * K + col] = acc[i][j];
+    }
+  }
+}
+
+// The split's second pass: out = sum_s part[s] (times the scale, where given).
+template <typename ST>
+cudaError_t reduce_f32(const float* part, const ST* scale, float* out, int rows, int cols, int S,
+                       cudaStream_t st) {
+  const long long count = static_cast<long long>(rows) * cols;
+  long long blocks = (count + 255) / 256;
+  if (blocks > 132 * 8) blocks = 132 * 8;
+  simlingo::f32::f32_reduce_kernel<ST><<<static_cast<unsigned>(blocks), 256, 0, st>>>(
+      part, scale, out, count, cols, S);
+  return cudaGetLastError();
+}
+
+template <typename ST>
+cudaError_t run_forward_f32(const float* x, const int8_t* w, const ST* s, float* part, float* y,
+                            int M, int N, int K, int S, int seg, cudaStream_t st) {
+  if (S < 1 || S > F32_SPLIT_MAX || seg < 1 || (S > 1 && part == nullptr))
+    return cudaErrorInvalidValue;
+  const dim3 grid((N + simlingo::f32::BN - 1) / simlingo::f32::BN,
+                  (M + simlingo::f32::BM - 1) / simlingo::f32::BM, S);
+  gemm_f32_kernel<ST><<<grid, simlingo::f32::THREADS, 0, st>>>(
+      x, w, s, S > 1 ? part : nullptr, y, M, N, K, seg);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || S == 1) return e;
+  return reduce_f32<ST>(part, s, y, M, N, S, st);
+}
+
 template <typename ST>
 cudaError_t run_forward(const bf16* x, const int8_t* w, const ST* s, bf16* y,
                         int M, int N, int K, int S, int seg_steps, cudaStream_t st) {
@@ -1012,16 +1139,73 @@ extern "C" int simlingo_int8_matmul(const void* x_, const void* w_, const void* 
 // gemv_kernel). K % 16 == 0, x and w_q 16-byte aligned (the wrapper
 // checks).
 extern "C" int simlingo_int8_gemv(const void* x_, const void* w_, const void* s_, void* y_,
-                                  int N, int K, int scale_bf16, int R, int warps, int blocks,
-                                  void* stream) {
-  const auto* x = static_cast<const bf16*>(x_);
+                                  int N, int K, int scale_bf16, int x_fp32, int R, int warps,
+                                  int blocks, void* stream) {
   const auto* w = static_cast<const int8_t*>(w_);
-  auto* y = static_cast<bf16*>(y_);
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (x_fp32) {              // fp32 x and y
+    const auto* x = static_cast<const float*>(x_);
+    auto* y = static_cast<float*>(y_);
+    e = scale_bf16 ? launch_gemv(x, w, static_cast<const bf16*>(s_), y, N, K, R, warps, blocks, st)
+                   : launch_gemv(x, w, static_cast<const float*>(s_), y, N, K, R, warps, blocks, st);
+  } else {
+    const auto* x = static_cast<const bf16*>(x_);
+    auto* y = static_cast<bf16*>(y_);
+    e = scale_bf16 ? launch_gemv(x, w, static_cast<const bf16*>(s_), y, N, K, R, warps, blocks, st)
+                   : launch_gemv(x, w, static_cast<const float*>(s_), y, N, K, R, warps, blocks, st);
+  }
+  return static_cast<int>(e);
+}
+
+// The fp32 build, M >= 2: y[M,N] = (x[M,K] . w_q[N,K]^T) * scale[N], x and y
+// fp32, the scale fp32 or bf16 (scale_bf16). S segments of seg K columns
+// (the wrapper's plan, S <= 16, seg a multiple of 8): with S > 1 the blocks
+// write fp32 partials to part [S, M, N], which f32_reduce_kernel sums.
+extern "C" int simlingo_int8_matmul_f32(const void* x_, const void* w_, const void* s_,
+                                        void* part_, void* y_, int M, int N, int K,
+                                        int scale_bf16, int S, int seg, void* stream) {
+  const auto* x = static_cast<const float*>(x_);
+  const auto* w = static_cast<const int8_t*>(w_);
+  auto* part = static_cast<float*>(part_);
+  auto* y = static_cast<float*>(y_);
   auto st = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
-      scale_bf16 ? launch_gemv(x, w, static_cast<const bf16*>(s_), y, N, K, R, warps, blocks, st)
-                 : launch_gemv(x, w, static_cast<const float*>(s_), y, N, K, R, warps, blocks, st);
+      scale_bf16
+          ? run_forward_f32(x, w, static_cast<const bf16*>(s_), part, y, M, N, K, S, seg, st)
+          : run_forward_f32(x, w, static_cast<const float*>(s_), part, y, M, N, K, S, seg, st);
   return static_cast<int>(e);
+}
+
+// The fp32 build of the activation gradient: dx[M,K] = (g[M,N] * scale[N])
+// . w_q[N,K], g, the scale and dx fp32. S segments of seg weight rows (S <=
+// 16): with S > 1 the blocks write fp32 partials to part [S, M, K], which
+// f32_reduce_kernel sums.
+extern "C" int simlingo_int8_matmul_dx_f32(const void* g_, const void* w_, const void* s_,
+                                           void* part_, void* dx_, int M, int N, int K, int S,
+                                           int seg, void* stream) {
+  auto* part = static_cast<float*>(part_);
+  auto* dx = static_cast<float*>(dx_);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (S < 1 || S > F32_SPLIT_MAX || seg < 1 || (S > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((K + simlingo::f32::BN - 1) / simlingo::f32::BN,
+                  (M + simlingo::f32::BM - 1) / simlingo::f32::BM, S);
+  dx_f32_kernel<<<grid, simlingo::f32::THREADS, 0, st>>>(
+      static_cast<const float*>(g_), static_cast<const int8_t*>(w_),
+      static_cast<const float*>(s_), S > 1 ? part : nullptr, dx, M, N, K, seg);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || S == 1) return static_cast<int>(e);
+  return static_cast<int>(reduce_f32<float>(part, nullptr, dx, M, K, S, st));
+}
+
+// The fp32 build's geometry, which the wrapper's plan (`_f32_plan`) is made
+// for: tile rows and columns, the reduction step, the most segments.
+extern "C" void simlingo_int8_f32_geometry(int* out) {
+  out[0] = simlingo::f32::BM;
+  out[1] = simlingo::f32::BN;
+  out[2] = simlingo::f32::BK;
+  out[3] = F32_SPLIT_MAX;
 }
 
 // The forward's geometry, which the wrapper's plan is made for: for the

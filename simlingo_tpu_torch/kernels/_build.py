@@ -142,6 +142,22 @@ def aligned16(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def wide(t):
+    """`t` in the plain versions' working type: fp32, or fp64 for fp64
+    inputs (the references that hold an fp32 kernel to its own rounding)."""
+    import torch
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def count_launch(fn, dtype):
+    """One launch of wrapper `fn`'s kernel, and of its fp32 build where
+    `dtype` is fp32 (`fn.launches`, `fn.launches_fp32`)."""
+    import torch
+    fn.launches += 1
+    if dtype == torch.float32:
+        fn.launches_fp32 += 1
+
+
 @functools.lru_cache(maxsize=None)
 def sm_count(index: int) -> int:
     """Streaming multiprocessors of CUDA device `index`."""

@@ -18,19 +18,24 @@ With compute_dw False the gradient of w is zeros (JAX `_fused_ce_bwd`
 :207-210), or None where autograd does not ask for it. With compute_dw
 True, dW is computed where autograd asks for it.
 
-On a CUDA tensor `fused_ce_fwd` / `fused_ce_bwd` launch `csrc/fused_ce.cu`
-(bf16 h and w, H % 32 == 0 forward and H in BWD_WIDTHS backward, 16-byte
-aligned rows; anything else raises); on a CPU tensor they run their plain
-versions. Labels may come as any integer type: the wrapper hands the
-kernel int64.
+On a CUDA tensor `fused_ce_fwd` / `fused_ce_bwd` launch `csrc/fused_ce.cu`:
+its bf16 build for bf16 h and w, its fp32 build (fp32 FMA products, no
+tensor cores; counted also in `launches_fp32`) for fp32 h and w; any other
+dtype, or h and w of two dtypes, raises. A width H that is not a multiple
+of 32 is zero-padded to one (`_pad_width`: zero columns add nothing to a
+logit, and their dh / dW columns are cut off); the path's H = 896 takes no
+copy. On a CPU tensor they run their plain versions. Labels may come as
+any integer type: the wrapper hands the kernel int64.
 
 The backward on the card is a scratch and two tiled products (`_bwd_plan`
-sizes them): dlogits is written once, in w's dtype, to dl [N, Vpad]
+sizes them; the same grids at both dtypes): dlogits is written once, in
+w's dtype (582.5 MB at fp32 at the training shape), to dl [N, Vpad]
 (Vpad = 128 ceil(V / 128), zero past V); dh = dl w goes per vocabulary
 segment (S segments of whole 128-column steps) into fp32 partials
 [S, N, H], summed in segment order; dW = dl^T h. `ce_dlogits_reference`,
 `ce_dh_from_scratch_reference` and `ce_dw_from_scratch_reference` are those
-passes in plain PyTorch.
+passes in plain PyTorch. The plain versions compute in fp32, or in fp64 for
+fp64 inputs (the card's references for the fp32 build).
 """
 
 from __future__ import annotations
@@ -42,7 +47,8 @@ import torch
 
 from simlingo_tpu_torch.kernels import _build
 
-BWD_WIDTHS = (64, 128, 256, 512, 896)     # the widths the backward is held to
+DTYPES = (torch.bfloat16, torch.float32)   # the kernels' builds
+WIDTH_STEP = 32                           # H is zero-padded to a multiple of it
 _FWD_TILE = 128                           # vocabulary columns per forward block
 # csrc/fused_ce.cu's backward geometry (simlingo_fused_ce_bwd_geometry):
 _VSTEP = 128                              # vocabulary columns a dlogits tile, a segment step
@@ -56,34 +62,45 @@ _DH_MAX_SEGMENTS = 16                     # cap on S: fp32 partials [S, N, H]
 # ---------------------------------------------------------------------------
 
 def _logits(h2, w):
-    return h2.float() @ w.float().t()
+    return _build.wide(h2) @ _build.wide(w).t()
 
 
-def fused_ce_fwd_plain(h2, labels, w):
-    """(logz [N], ce [N]) fp32."""
+def fused_ce_fwd_plain(h2, labels, w, abs_terms=False):
+    """(logz [N], ce [N]) fp32 (fp64 for fp64 inputs). With `abs_terms`,
+    returns instead the sums of |h| |w| that a logit's rounding scales
+    with, as (logz's: sum_v p_v sum_k |h_k| |w_vk|, ce's: that plus the
+    gold logit's): the fp32 rounding of ce is at most fp32_unit(H) times
+    them plus the sum of V exponentials' fp32_unit(V)."""
     V = w.shape[0]
     logits = _logits(h2, w)
     logz = torch.logsumexp(logits, dim=-1)
     labels = labels.long()
     ok = (labels >= 0) & (labels < V)
-    gold = logits.gather(1, labels.clamp(0, V - 1)[:, None])[:, 0]
-    return logz, logz - torch.where(ok, gold, torch.zeros((), device=h2.device))
+    at = labels.clamp(0, V - 1)[:, None]
+    zero = torch.zeros((), dtype=logz.dtype, device=h2.device)
+    if abs_terms:
+        a = _build.wide(h2).abs() @ _build.wide(w).abs().t()
+        lz_terms = (torch.softmax(logits, dim=-1) * a).sum(-1)
+        return lz_terms, lz_terms + torch.where(ok, a.gather(1, at)[:, 0], zero)
+    gold = logits.gather(1, at)[:, 0]
+    return logz, logz - torch.where(ok, gold, zero)
 
 
 def _dlogits_plain(h2, labels, w, logz, g):
     V = w.shape[0]
     p = torch.exp(_logits(h2, w) - logz[:, None])
     onehot = labels.long()[:, None] == torch.arange(V, device=h2.device)[None]
-    return (p - onehot.float()) * g.float()[:, None]
+    return (p - onehot.to(p.dtype)) * _build.wide(g)[:, None]
 
 
 def fused_ce_bwd_plain(h2, labels, w, logz, g, compute_dw, abs_terms=False):
     """(dh in h's dtype, dW in w's dtype or None). dlogits is rounded to
     w's dtype before both products, as the kernels do. With `abs_terms`,
-    returns instead fp32 |dlogits| |w| and |dlogits|^T |h|: the sums of
-    |term| that bound the kernel's rounding error."""
-    dl = _dlogits_plain(h2, labels, w, logz, g).to(w.dtype).float()
-    hf, wf = h2.float(), w.float()
+    returns instead |dlogits| |w| and |dlogits|^T |h| (fp32, or fp64 for
+    fp64 inputs): the sums of |term| that bound the kernel's rounding error
+    (at fp32, fp32_unit(H + V) and fp32_unit(H + N) times them)."""
+    dl = _build.wide(_dlogits_plain(h2, labels, w, logz, g).to(w.dtype))
+    hf, wf = _build.wide(h2), _build.wide(w)
     if abs_terms:
         dl, hf, wf = dl.abs(), hf.abs(), wf.abs()
     dh = dl @ wf
@@ -119,8 +136,9 @@ def _segments(steps: int, S: int):
     return -(-steps // per), per
 
 
-def _bwd_plan(N: int, H: int, V: int, sms: int) -> BwdPlan:
-    """The backward's scratch and grids. dh's reduction (the vocabulary)
+def _bwd_plan(N: int, H: int, V: int, sms: int, dtype=torch.bfloat16) -> BwdPlan:
+    """The backward's scratch (dl in w's dtype, `dtype`) and grids, the
+    same grids at both dtypes. dh's reduction (the vocabulary)
     is cut into S segments of whole 128-column steps, the segment the
     grid's slowest axis, so the tiles of one segment (fewer than a wave of
     _DH_RESIDENT blocks an SM) run together. Where the tiles alone fill a
@@ -139,7 +157,8 @@ def _bwd_plan(N: int, H: int, V: int, sms: int) -> BwdPlan:
     S, per = _segments(steps, S)
     segments = tuple((s * per * _VSTEP, min(steps, (s + 1) * per) * _VSTEP)
                      for s in range(S))
-    return BwdPlan(vpad=vpad, scratch_shape=(N, vpad), scratch_bytes=2 * N * vpad,
+    return BwdPlan(vpad=vpad, scratch_shape=(N, vpad),
+                   scratch_bytes=dtype.itemsize * N * vpad,
                    dlogits_blocks=-(-N // _FWD_TILE) * steps, S=S, seg_steps=per,
                    segments=segments, part_shape=(S, N, H), dh_blocks=tiles * S,
                    dw_blocks=-(-H // bn) * (vpad // bm))
@@ -157,11 +176,11 @@ def ce_dlogits_reference(h2, labels, w, logz, g, plan):
 def ce_dh_from_scratch_reference(dl, w, plan, abs_terms=False):
     """The second pass, plain: fp32 partials dl[:, seg] w[seg] per segment
     (w zero past V, as the kernel zero-fills it), summed in segment order;
-    fp32 [N, H] (|dl| |w| with `abs_terms`)."""
+    fp32 [N, H], fp64 for fp64 inputs (|dl| |w| with `abs_terms`)."""
     V, H = w.shape
-    wf = torch.zeros((plan.vpad, H), dtype=torch.float32, device=w.device)
-    wf[:V] = w.float()
-    dlf = dl.float()
+    dlf = _build.wide(dl)
+    wf = torch.zeros((plan.vpad, H), dtype=dlf.dtype, device=w.device)
+    wf[:V] = _build.wide(w)
     if abs_terms:
         dlf, wf = dlf.abs(), wf.abs()
     out = None
@@ -174,7 +193,7 @@ def ce_dh_from_scratch_reference(dl, w, plan, abs_terms=False):
 def ce_dw_from_scratch_reference(dl, h2, V, abs_terms=False):
     """The dW pass, plain: dl[:, :V]^T h, fp32 [V, H] (|dl|^T |h| with
     `abs_terms`); the columns of dl past V are never read."""
-    dlf, hf = dl[:, :V].float(), h2.float()
+    dlf, hf = _build.wide(dl[:, :V]), _build.wide(h2)
     if abs_terms:
         dlf, hf = dlf.abs(), hf.abs()
     return dlf.t() @ hf
@@ -184,21 +203,27 @@ def ce_dw_from_scratch_reference(dl, h2, V, abs_terms=False):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check(what, h2, labels, w, widths=None):
+def _check(what, h2, labels, w):
     for name, x in (("h2", h2), ("w", w)):
-        if x.dtype != torch.bfloat16:
-            queued = (" (the fused CE at fp32 is queued: ROADMAP C5b)"
-                      if x.dtype == torch.float32 else "")
-            raise TypeError(f"{what} kernel takes bf16 {name}, got {x.dtype}{queued}")
+        if x.dtype not in DTYPES:
+            raise TypeError(f"{what} kernel takes bf16 or fp32 {name}, got {x.dtype}")
+    if h2.dtype != w.dtype:
+        raise TypeError(f"{what} kernel takes h2 and w of one dtype, got {h2.dtype} "
+                        f"and {w.dtype}")
     if h2.dim() != 2 or w.dim() != 2 or h2.shape[1] != w.shape[1] \
             or labels.shape != h2.shape[:1]:
         raise ValueError(f"{what}: shapes h2 {tuple(h2.shape)}, labels "
                          f"{tuple(labels.shape)}, w {tuple(w.shape)}")
+
+
+def _pad_width(h2, w):
+    """h2 and w with H zero-padded to a multiple of WIDTH_STEP, each 16-byte
+    aligned; the same tensors (or aligned copies) where H is one already."""
     H = h2.shape[1]
-    if widths is None and H % 32:
-        raise ValueError(f"{what} kernel needs H % 32 == 0, got {H}")
-    if widths is not None and H not in widths:
-        raise ValueError(f"{what} kernel takes H in {widths}, got {H}")
+    pad = -H % WIDTH_STEP
+    if pad:
+        h2, w = (torch.nn.functional.pad(x, (0, pad)) for x in (h2, w))
+    return _build.aligned16(h2), _build.aligned16(w)
 
 
 def fused_ce_fwd(h2, labels, w):
@@ -206,7 +231,8 @@ def fused_ce_fwd(h2, labels, w):
     if h2.device.type == "cpu":
         return fused_ce_fwd_plain(h2, labels, w)
     _check("fused_ce_fwd", h2, labels, w)
-    h2, w = _build.aligned16(h2), _build.aligned16(w)
+    fp32 = h2.dtype == torch.float32
+    h2, w = _pad_width(h2, w)
     labels = labels.to(torch.int64).contiguous()
     N, H = h2.shape
     V = w.shape[0]
@@ -221,9 +247,9 @@ def fused_ce_fwd(h2, labels, w):
     rc = _lib().simlingo_fused_ce_fwd(
         h2.data_ptr(), w.data_ptr(), labels.data_ptr(), part[0].data_ptr(),
         part[1].data_ptr(), gold.data_ptr(), logz.data_ptr(), ce.data_ptr(),
-        N, H, V, torch.cuda.current_stream(dev).cuda_stream)
+        N, H, V, int(fp32), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "fused_ce_fwd")
-    fused_ce_fwd.launches += 1
+    _build.count_launch(fused_ce_fwd, h2.dtype)
     return logz, ce
 
 
@@ -234,8 +260,10 @@ def fused_ce_bwd(h2, labels, w, logz, g, compute_dw, return_scratch=False):
         if return_scratch:
             raise ValueError("fused_ce_bwd: the scratch exists on the card only")
         return fused_ce_bwd_plain(h2, labels, w, logz, g, compute_dw)
-    _check("fused_ce_bwd", h2, labels, w, BWD_WIDTHS)
-    h2, w = _build.aligned16(h2), _build.aligned16(w)
+    _check("fused_ce_bwd", h2, labels, w)
+    fp32 = h2.dtype == torch.float32
+    width = h2.shape[1]
+    h2, w = _pad_width(h2, w)
     labels = labels.to(torch.int64).contiguous()
     logz = logz.float().contiguous()
     g = g.float().contiguous()
@@ -244,34 +272,40 @@ def fused_ce_bwd(h2, labels, w, logz, g, compute_dw, return_scratch=False):
     dev = h2.device
     dh = torch.empty_like(h2)
     dw = torch.empty_like(w) if compute_dw else None
+    dl = None
     if N == 0:
-        out = (dh, None if dw is None else dw.zero_())
-        return (*out, None) if return_scratch else out
-    plan = _bwd_plan(N, H, V, _build.sm_count(dev.index or 0))
-    dl = torch.empty(plan.scratch_shape, dtype=torch.bfloat16, device=dev)
-    part = torch.empty(plan.part_shape, dtype=torch.float32, device=dev)
-    rc = _lib().simlingo_fused_ce_bwd(
-        h2.data_ptr(), w.data_ptr(), labels.data_ptr(), logz.data_ptr(), g.data_ptr(),
-        dl.data_ptr(), part.data_ptr(), dh.data_ptr(),
-        None if dw is None else dw.data_ptr(), N, H, V, plan.S, plan.seg_steps,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "fused_ce_bwd")
-    fused_ce_bwd.launches += 1
+        dw = None if dw is None else dw.zero_()
+    else:
+        plan = _bwd_plan(N, H, V, _build.sm_count(dev.index or 0), w.dtype)
+        dl = torch.empty(plan.scratch_shape, dtype=w.dtype, device=dev)
+        part = torch.empty(plan.part_shape, dtype=torch.float32, device=dev)
+        rc = _lib().simlingo_fused_ce_bwd(
+            h2.data_ptr(), w.data_ptr(), labels.data_ptr(), logz.data_ptr(), g.data_ptr(),
+            dl.data_ptr(), part.data_ptr(), dh.data_ptr(),
+            None if dw is None else dw.data_ptr(), N, H, V, plan.S, plan.seg_steps,
+            int(fp32), torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(rc, "fused_ce_bwd")
+        _build.count_launch(fused_ce_bwd, h2.dtype)
+    if H != width:
+        dh = dh[:, :width].contiguous()
+        dw = None if dw is None else dw[:, :width].contiguous()
     return (dh, dw, dl) if return_scratch else (dh, dw)
 
 
 fused_ce_fwd.launches = 0
+fused_ce_fwd.launches_fp32 = 0           # of them, the fp32 build's
 fused_ce_bwd.launches = 0
+fused_ce_bwd.launches_fp32 = 0
 
 
 def _lib():
     lib = _build.load("fused_ce")
     if lib.simlingo_fused_ce_fwd.argtypes is None:
         lib.simlingo_fused_ce_fwd.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.simlingo_fused_ce_fwd.restype = ctypes.c_int
         lib.simlingo_fused_ce_bwd.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.simlingo_fused_ce_bwd.restype = ctypes.c_int
         lib.simlingo_fused_ce_bwd_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.simlingo_fused_ce_bwd_geometry.restype = None

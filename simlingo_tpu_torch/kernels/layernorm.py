@@ -245,7 +245,7 @@ def layernorm_fwd(x2, scale, bias, eps):
     if x2.device.type == "cpu":
         return layernorm_fwd_plain(x2, scale, bias, eps)
     out = _fwd_cuda("layernorm_fwd", x2, scale, bias, eps, rms=False)
-    _count(layernorm_fwd, x2)
+    _build.count_launch(layernorm_fwd, x2.dtype)
     return out
 
 
@@ -254,7 +254,7 @@ def rmsnorm_fwd(x2, scale, eps):
     if x2.device.type == "cpu":
         return rmsnorm_fwd_plain(x2, scale, eps)
     y, _, rstd = _fwd_cuda("rmsnorm_fwd", x2, scale, None, eps, rms=True)
-    _count(rmsnorm_fwd, x2)
+    _build.count_launch(rmsnorm_fwd, x2.dtype)
     return y, rstd
 
 
@@ -264,7 +264,7 @@ def layernorm_bwd(x2, scale, mean, rstd, dy2, need_dscale=True, need_dbias=True)
         return layernorm_bwd_plain(x2, scale, mean, rstd, dy2, need_dscale, need_dbias)
     out = _bwd_cuda("layernorm_bwd", x2, scale, mean, rstd, dy2, need_dscale,
                     need_dbias, rms=False)
-    _count(layernorm_bwd, x2)
+    _build.count_launch(layernorm_bwd, x2.dtype)
     return out
 
 
@@ -274,15 +274,8 @@ def rmsnorm_bwd(x2, scale, rstd, dy2, need_dscale=True):
         return rmsnorm_bwd_plain(x2, scale, rstd, dy2, need_dscale)
     dx, dscale, _ = _bwd_cuda("rmsnorm_bwd", x2, scale, None, rstd, dy2, need_dscale,
                               False, rms=True)
-    _count(rmsnorm_bwd, x2)
+    _build.count_launch(rmsnorm_bwd, x2.dtype)
     return dx, dscale
-
-
-def _count(fn, x2):
-    """One launch of `fn`'s kernel (and of its fp32 instance, for fp32 rows)."""
-    fn.launches += 1
-    if x2.dtype == torch.float32:
-        fn.launches_fp32 += 1
 
 
 for _fn in (layernorm_fwd, rmsnorm_fwd, layernorm_bwd, rmsnorm_bwd):

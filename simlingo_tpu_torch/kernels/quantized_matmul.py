@@ -19,11 +19,17 @@ float0 and zeros, :96-97). The autograd Function saves only w_q and
 scale, never a dequantized copy, so no bf16 copy of a frozen layer lives
 from forward to backward (JAX's optimisation-barrier comment, :88-93).
 On a CUDA tensor both products launch the hand-written kernels
-(`csrc/int8_matmul.cu`); on a CPU tensor they run their plain versions.
-The scale may be fp32 or bf16 (the training step stores frozen leaves in
-bf16, as JAX does); the kernels multiply by it widened to fp32, the value
-JAX multiplies by. The forward kernel reads a bf16 scale itself; the
-activation gradient's wrapper widens it first.
+(`csrc/int8_matmul.cu`): the bf16 build for bf16 x or g, the fp32 build
+(fp32 FMA products, no tensor cores; counted also in `launches_fp32`) for
+fp32 x or g, with the output in the activation's dtype; any other dtype
+raises. On a CPU tensor they run their plain versions, which compute in
+fp32, or in fp64 for fp64 inputs (the card's references for the fp32
+build). The scale may be fp32 or bf16 (the training step stores frozen
+leaves in bf16, as JAX does); the kernels multiply by it widened to fp32,
+the value JAX multiplies by. The forward kernel reads a bf16 scale itself;
+the activation gradient's wrapper widens it first. A K that is not a
+multiple of 16 (and, for the gradient, an odd N) is zero-padded in the
+wrapper (`_pad_operands`); no path shape takes a copy.
 """
 
 from __future__ import annotations
@@ -55,14 +61,16 @@ def quantize_weight(w: torch.Tensor, axis: int = 0
 def int8_matmul_reference(x: torch.Tensor, w_q: torch.Tensor,
                           scale: torch.Tensor, abs_terms: bool = False
                           ) -> torch.Tensor:
-    """Plain version: fp32 product of x and the int8 codes, scaled per
-    output channel, cast back to x's dtype. With `abs_terms`, returns
-    instead the fp32 sums of |term| (|x| |w_q| |scale|), which bound the
-    error of summing in another order."""
+    """Plain version: fp32 product of x and the int8 codes (fp64 for fp64
+    x), scaled per output channel, cast back to x's dtype. With
+    `abs_terms`, returns instead the sums of |term| (|x| |w_q| |scale|),
+    which bound the error of summing in another order (at fp32,
+    fp32_unit(K) times them)."""
+    xw = _build.wide(x)
     if abs_terms:
-        return (x.float().abs() @ w_q.float().abs().t()) * scale.float().abs()
-    acc = x.float() @ w_q.float().t()
-    return (acc * scale.float()).to(x.dtype)
+        return (xw.abs() @ w_q.to(xw.dtype).abs().t()) * scale.to(xw.dtype).abs()
+    acc = xw @ w_q.to(xw.dtype).t()
+    return (acc * scale.to(xw.dtype)).to(x.dtype)
 
 
 def int8_matmul_dx_reference(g: torch.Tensor, w_q: torch.Tensor,
@@ -70,20 +78,23 @@ def int8_matmul_dx_reference(g: torch.Tensor, w_q: torch.Tensor,
                              ) -> torch.Tensor:
     """Plain version of the activation gradient: g * scale rounded to g's
     dtype (the kernel's and JAX's rounding point, :86), then an fp32
-    product with the int8 codes, cast to g's dtype. With `abs_terms`,
-    returns instead the fp32 sums of |term| (|g * scale| |w_q|), which
-    bound the error of summing in another order."""
-    gs = (g.float() * scale.float()).to(g.dtype).float()
+    product with the int8 codes (fp64 for fp64 g), cast to g's dtype. With
+    `abs_terms`, returns instead the sums of |term| (|g * scale| |w_q|),
+    which bound the error of summing in another order (at fp32,
+    fp32_unit(N) times them)."""
+    gw = _build.wide(g)
+    gs = _build.wide((gw * scale.to(gw.dtype)).to(g.dtype))
     if abs_terms:
-        return gs.abs() @ w_q.float().abs()
-    return (gs @ w_q.float()).to(g.dtype)
+        return gs.abs() @ w_q.to(gs.dtype).abs()
+    return (gs @ w_q.to(gs.dtype)).to(g.dtype)
 
 
 def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
                 scale: torch.Tensor) -> torch.Tensor:
     """y[..., n] = sum_k x[..., k] * w_q[n, k] * scale[n].
 
-    x [..., K] (bf16 on the GPU), w_q int8 [N, K], scale f32 or bf16 [N].
+    x [..., K] (bf16 or fp32 on the GPU), w_q int8 [N, K], scale f32 or
+    bf16 [N]; y in x's dtype.
     Records an autograd node only when x needs a gradient (training);
     serving calls the forward kernel directly."""
     if x.requires_grad and torch.is_grad_enabled():
@@ -93,9 +104,11 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
 
 def int8_matmul_dx(g: torch.Tensor, w_q: torch.Tensor,
                    scale: torch.Tensor) -> torch.Tensor:
-    """dx[..., k] = sum_n bf16(g[..., n] * scale[n]) * w_q[n, k].
+    """dx[..., k] = sum_n rnd(g[..., n] * scale[n]) * w_q[n, k], rnd the
+    rounding to g's dtype.
 
-    g [..., N] (bf16 on the GPU), w_q int8 [N, K], scale f32 or bf16 [N]."""
+    g [..., N] (bf16 or fp32 on the GPU), w_q int8 [N, K], scale f32 or
+    bf16 [N]; dx in g's dtype."""
     if g.device.type == "cpu":
         return int8_matmul_dx_reference(g, w_q, scale)
     return _int8_matmul_dx_cuda(g, w_q, scale)
@@ -121,27 +134,26 @@ def _int8_matmul_fwd(x, w_q, scale):
     return _int8_matmul_cuda(x, w_q, scale)
 
 
+DTYPES = (torch.bfloat16, torch.float32)   # the kernels' builds (activations)
+
+
 def _check(what, a, w_q, scale, width):
-    """Checks shared by both kernels; returns the scale contiguous, in its
-    dtype. `a` is the activation (x) or the cotangent (g), `width` its last
-    dim."""
+    """Checks shared by both kernels. `a` is the activation (x) or the
+    cotangent (g), `width` its last dim."""
     N = w_q.shape[0]
-    if a.dtype != torch.bfloat16:
-        queued = (" (fp32 activations are queued: ROADMAP C5c)"
-                  if a.dtype == torch.float32 else "")
-        raise TypeError(f"{what} kernel takes bf16 activations, got {a.dtype}{queued}")
+    if a.dtype not in DTYPES:
+        raise TypeError(f"{what} kernel takes bf16 or fp32 activations, got {a.dtype}")
     if w_q.dtype != torch.int8 or w_q.dim() != 2 or not w_q.is_contiguous():
         raise TypeError(f"{what} kernel takes a contiguous int8 [N, K] weight")
     if scale.dtype not in (torch.float32, torch.bfloat16) or scale.shape != (N,):
         raise TypeError(f"{what} kernel takes a float32 or bfloat16 [N] scale")
     if not (a.device == w_q.device == scale.device):
         raise ValueError(f"{what}: tensors on different devices")
-    if a.shape[-1] != width or w_q.shape[1] % 16 != 0:
-        raise ValueError(f"{what} kernel needs K % 16 == 0 and a [..., {width}] "
-                         f"operand; got {tuple(a.shape)}, w_q {tuple(w_q.shape)}")
+    if a.shape[-1] != width:
+        raise ValueError(f"{what} kernel needs a [..., {width}] operand; got "
+                         f"{tuple(a.shape)}, w_q {tuple(w_q.shape)}")
     if w_q.data_ptr() % 16:
         raise ValueError(f"{what} kernel needs a 16-byte aligned weight")
-    return scale.contiguous()
 
 
 # The forward kernels' geometry; `_lib` refuses a library that reports
@@ -217,13 +229,57 @@ def _gemv_plan(N: int, K: int, sms: int) -> GemvPlan:
     return GemvPlan(rows, warps, -(-groups // rounds))
 
 
+# The fp32 build's geometry (simlingo_int8_f32_geometry): output tile (rows,
+# columns), reduction step, most segments of a split.
+_F32_TILE = (128, 128)
+_F32_STEP = 8
+_F32_SPLIT = 16
+
+
+def _f32_plan(M: int, N: int, K: int, sms: int):
+    """Grid of the fp32 build's products (gemm_f32_kernel: y [M, N] over
+    K; dx_f32_kernel: dx [M, K] over N, called with its own (M, K, N)):
+    (S segments, seg reduction columns). S = 1 where the output tiles alone
+    give two blocks an SM (the training rows' linears but k,v, the tied
+    head's forward); below that, the reduction is cut into S <= _F32_SPLIT
+    segments of whole steps, as many as the SMs take two blocks of
+    (training k,v: 6; the head's dx: 16; serving's M <= 640 rows), each
+    block writing an fp32 partial that f32_reduce_kernel sums in order."""
+    tiles = -(-M // _F32_TILE[0]) * -(-N // _F32_TILE[1])
+    steps = max(1, -(-K // _F32_STEP))
+    S = 1 if tiles >= 2 * sms else max(1, min(steps, _F32_SPLIT, 2 * sms // tiles))
+    per = -(-steps // S)
+    return -(-steps // per), per * _F32_STEP
+
+
+def _pad_operands(a, w_q, scale, grad, even_n=False):
+    """a, w_q [N, K] and scale [N] with K zero-padded to a multiple of 16:
+    in the forward (a = x [M, K]) a's columns too; in the gradient (`grad`:
+    a = g [M, N]) only w_q's, whose padded dx columns the caller cuts off,
+    and with `even_n` N to an even count (a's columns, w_q's rows, scale's
+    entries). Zeros add nothing to any sum; only a shape that needs it
+    takes a copy."""
+    pk = -w_q.shape[1] % 16
+    pn = w_q.shape[0] % 2 if even_n else 0
+    if pk or pn:
+        w_q = F.pad(w_q, (0, pk, 0, pn))
+    if grad and pn:
+        a, scale = F.pad(a, (0, pn)), F.pad(scale, (0, pn))
+    elif not grad and pk:
+        a = F.pad(a, (0, pk))
+    return a, w_q, scale
+
+
 def _int8_matmul_cuda(x, w_q, scale):
     N, K = w_q.shape
-    scale = _check("int8_matmul", x, w_q, scale, K)
+    _check("int8_matmul", x, w_q, scale, K)
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, K).contiguous()
+    fp32 = x.dtype == torch.float32
+    x2, w_q, scale = _pad_operands(x.reshape(-1, K), w_q, scale.contiguous(), grad=False)
+    x2 = x2.contiguous()
+    Kp = w_q.shape[1]
     M = x2.shape[0]
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return out.reshape(*lead, N)
     if x2.data_ptr() % 16:
@@ -234,14 +290,21 @@ def _int8_matmul_cuda(x, w_q, scale):
     if M == 1:
         rc = _lib().simlingo_int8_gemv(
             x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            N, K, bf16_scale, *_gemv_plan(N, K, sms), stream)
+            N, Kp, bf16_scale, int(fp32), *_gemv_plan(N, Kp, sms), stream)
+    elif fp32:
+        S, seg = _f32_plan(M, N, Kp, sms)
+        part = torch.empty((S, M, N), dtype=torch.float32, device=x.device) if S > 1 else None
+        rc = _lib().simlingo_int8_matmul_f32(
+            x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+            None if part is None else part.data_ptr(), out.data_ptr(),
+            M, N, Kp, bf16_scale, S, seg, stream)
     else:
-        _, S, seg = _fwd_plan(M, N, K, sms)
+        _, S, seg = _fwd_plan(M, N, Kp, sms)
         rc = _lib().simlingo_int8_matmul(
             x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            M, N, K, bf16_scale, S, seg // _fwd_geometry(M)[1], stream)
+            M, N, Kp, bf16_scale, S, seg // _fwd_geometry(M)[1], stream)
     _build.check(rc, "int8_matmul")
-    int8_matmul.launches += 1
+    _build.count_launch(int8_matmul, x.dtype)
     return out.reshape(*lead, N)
 
 
@@ -271,35 +334,51 @@ def _dx_plan(M: int, N: int, K: int, sms: int):
 
 def _int8_matmul_dx_cuda(g, w_q, scale):
     N, K = w_q.shape
-    scale = _check("int8_matmul_dx", g, w_q, scale, N).float()
-    if N % 2:
-        raise ValueError(f"int8_matmul_dx kernel needs an even N, got {N}")
+    _check("int8_matmul_dx", g, w_q, scale, N)
     lead = g.shape[:-1]
-    g2 = g.reshape(-1, N).contiguous()
+    fp32 = g.dtype == torch.float32
+    # the bf16 kernel copies g rows 4 bytes at a time: N even
+    g2, w_q, scale = _pad_operands(g.reshape(-1, N), w_q, scale.float().contiguous(),
+                                   grad=True, even_n=not fp32)
+    g2 = g2.contiguous()
     if g2.data_ptr() % 4:
         g2 = g2.clone()
+    Np, Kp = w_q.shape
     M = g2.shape[0]
-    out = torch.empty((M, K), dtype=torch.bfloat16, device=g.device)
-    if M == 0:
-        return out.reshape(*lead, K)
-    _, S, seg = _dx_plan(M, N, K, _build.sm_count(g.device.index or 0))
-    part = torch.empty((S, M, K), dtype=torch.float32, device=g.device) if S > 1 else None
-    # 16-byte copies of g rows where every row start is 16-byte aligned;
-    # the vocabulary width (151674) takes the 4-byte copies, measured faster
-    # than one zero-padded copy of g and 16-byte copies (PERF.md)
-    vec16 = int(N % 8 == 0 and g2.data_ptr() % 16 == 0)
-    rc = _lib().simlingo_int8_matmul_dx(
-        g2.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
-        None if part is None else part.data_ptr(), out.data_ptr(),
-        M, N, K, vec16, S, seg // _DX_STEP,
-        torch.cuda.current_stream(g.device).cuda_stream)
-    _build.check(rc, "int8_matmul_dx")
-    int8_matmul_dx.launches += 1
-    return out.reshape(*lead, K)
+    out = torch.empty((M, Kp), dtype=g.dtype, device=g.device)
+    if M > 0:
+        sms = _build.sm_count(g.device.index or 0)
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        if fp32:
+            S, seg = _f32_plan(M, Kp, Np, sms)
+            part = (torch.empty((S, M, Kp), dtype=torch.float32, device=g.device)
+                    if S > 1 else None)
+            rc = _lib().simlingo_int8_matmul_dx_f32(
+                g2.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+                None if part is None else part.data_ptr(), out.data_ptr(),
+                M, Np, Kp, S, seg, stream)
+        else:
+            _, S, seg = _dx_plan(M, Np, Kp, sms)
+            part = (torch.empty((S, M, Kp), dtype=torch.float32, device=g.device)
+                    if S > 1 else None)
+            # 16-byte copies of g rows where every row start is 16-byte
+            # aligned; the vocabulary width (151674) takes the 4-byte copies,
+            # measured faster than one zero-padded copy of g and 16-byte
+            # copies (PERF.md)
+            vec16 = int(Np % 8 == 0 and g2.data_ptr() % 16 == 0)
+            rc = _lib().simlingo_int8_matmul_dx(
+                g2.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+                None if part is None else part.data_ptr(), out.data_ptr(),
+                M, Np, Kp, vec16, S, seg // _DX_STEP, stream)
+        _build.check(rc, "int8_matmul_dx")
+        _build.count_launch(int8_matmul_dx, g.dtype)
+    return (out if Kp == K else out[:, :K].contiguous()).reshape(*lead, K)
 
 
 int8_matmul.launches = 0
+int8_matmul.launches_fp32 = 0            # of them, the fp32 build's
 int8_matmul_dx.launches = 0
+int8_matmul_dx.launches_fp32 = 0
 
 
 def _fwd_lib_geometry():
@@ -325,11 +404,24 @@ def _lib():
                 f"int8_matmul_dx: the library's tile, step and resident blocks "
                 f"{tuple(geometry)} differ from the plan's "
                 f"{(*_DX_TILE, _DX_STEP, _DX_RESIDENT)}")
+        geometry = (ctypes.c_int * 4)()
+        lib.simlingo_int8_f32_geometry(geometry)
+        if tuple(geometry) != (*_F32_TILE, _F32_STEP, _F32_SPLIT):
+            raise RuntimeError(
+                f"int8_matmul: the library's fp32 tile, step and most segments "
+                f"{tuple(geometry)} differ from the plan's "
+                f"{(*_F32_TILE, _F32_STEP, _F32_SPLIT)}")
         lib.simlingo_int8_matmul.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.simlingo_int8_matmul.restype = ctypes.c_int
+        lib.simlingo_int8_matmul_f32.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.simlingo_int8_matmul_f32.restype = ctypes.c_int
+        lib.simlingo_int8_matmul_dx_f32.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        lib.simlingo_int8_matmul_dx_f32.restype = ctypes.c_int
         lib.simlingo_int8_gemv.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         lib.simlingo_int8_gemv.restype = ctypes.c_int
         lib.simlingo_int8_matmul_dx.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])

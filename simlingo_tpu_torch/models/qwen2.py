@@ -354,7 +354,9 @@ def _attn_block(p, lora, x, cfg: Qwen2Config, cos, sin, kv_valid, causal,
                              f"cache of {cache['k'].shape[1]} slots")
         cache["k"][:, cache_index:cache_index + T] = k.to(cache["k"].dtype)
         cache["v"][:, cache_index:cache_index + T] = v.to(cache["v"].dtype)
-        k, v = cache["k"], cache["v"]
+        # the cache keeps its dtype (bf16 by default, as JAX's); at an fp32
+        # compute dtype its values widen exactly to q's, as JAX promotes them
+        k, v = cache["k"].to(q.dtype), cache["v"].to(q.dtype)
         # q rows occupy slots [cache_index, cache_index + T)
         out = attention(q, k, v, kv_valid, causal=causal, q_offset=cache_index)
     else:

@@ -39,7 +39,11 @@ the sum of |terms| (see _dx_tol); the int8 forward's split reduction to
 half a spacing of the fp32 |ref| plus 2^-20 sqrt(K) of the sum of |terms|
 (see _fwd_tol). The attention kernels also at the other head dims they
 are built at (16, 32, 128) and at two they zero-pad (48, 80), and the
-refusal of one past 128. The int4 product (plain PyTorch) on the GPU
+refusal of one past 128. The fp32 builds of the fused CE and the int8
+products are held to their plain versions in fp64 within chip_smoke.py's
+fp32 bounds (2^-22 sqrt(n) of the sum of |terms| and |ref|), and the bf16
+builds at widths the wrappers zero-pad (H 100, K 100, N 101) to the bf16
+bounds above. The int4 product (plain PyTorch) on the GPU
 against its CPU fp32 path to 2^-8 (|ref| + sum|terms|), and
 `chip_smoke.py`'s phase-3 int4 agent and remat steps.
 """
@@ -335,9 +339,9 @@ def test_kernels_refuse_what_they_do_not_take(gpu):
     lse = torch.zeros(1, 2, 4, device=gpu)
     with pytest.raises(ValueError, match="head_dim up to 128"):
         TFA.flash_attn_bwd(q, q, q, None, q, q, lse)
-    x = torch.randn(2, 24, device=gpu).bfloat16()
+    x = torch.randn(2, 24, device=gpu).half()        # K 24 is zero-padded; fp16 is not taken
     w_q, scale = TQM.quantize_weight(torch.randn(8, 24, device=gpu))
-    with pytest.raises(ValueError, match="K % 16"):
+    with pytest.raises(TypeError, match="bf16 or fp32"):
         TQM.int8_matmul(x, w_q, scale)
 
 
@@ -425,15 +429,14 @@ def test_int8_matmul_dx_split_reduction_is_right_and_bit_identical(gpu, M, N, K)
 
 @pytest.mark.cuda
 def test_int8_matmul_dx_refuses_what_it_does_not_take(gpu):
-    w_q, scale = TQM.quantize_weight(torch.randn(33, 64, device=gpu))
-    with pytest.raises(ValueError, match="even N"):
-        TQM.int8_matmul_dx(torch.randn(4, 33, device=gpu).bfloat16(), w_q, scale)
+    # an odd N and a K off 16 are zero-padded (test_bf16_kernels_take_padded_widths),
+    # fp32 g takes the fp32 build (test_fp32_int8_matmul_dx_matches_plain)
     w_q, scale = TQM.quantize_weight(torch.randn(32, 64, device=gpu))
     with pytest.raises(TypeError, match="scale"):
         TQM.int8_matmul_dx(torch.randn(4, 32, device=gpu).bfloat16(), w_q, scale.half())
-    with pytest.raises(TypeError, match="bf16"):
-        TQM.int8_matmul_dx(torch.randn(4, 32, device=gpu), w_q, scale)
-    with pytest.raises(ValueError, match="K % 16"):
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        TQM.int8_matmul_dx(torch.randn(4, 32, device=gpu).half(), w_q, scale)
+    with pytest.raises(ValueError, match="operand"):
         TQM.int8_matmul_dx(torch.randn(4, 33, device=gpu).bfloat16(), w_q, scale)
 
 
@@ -1060,13 +1063,15 @@ def test_fused_kernels_refuse_what_they_do_not_take(gpu):
     h = torch.randn(8, 96, device=gpu).bfloat16()
     w = torch.randn(50, 96, device=gpu).bfloat16()
     labels = torch.zeros(8, dtype=torch.long, device=gpu)
-    with pytest.raises(TypeError, match="bf16"):
+    # any H is zero-padded and fp32 has a build; mixed dtypes, fp16 and
+    # mismatched shapes are refused
+    with pytest.raises(TypeError, match="one dtype"):
         TCE.fused_ce_fwd(h.float(), labels, w)
-    with pytest.raises(ValueError, match="H in"):
-        TCE.fused_ce_bwd(h, labels, w, torch.zeros(8, device=gpu),
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        TCE.fused_ce_bwd(h.half(), labels, w.half(), torch.zeros(8, device=gpu),
                          torch.ones(8, device=gpu), False)
-    with pytest.raises(ValueError, match="H % 32"):
-        TCE.fused_ce_fwd(h[:, :80], labels, w[:, :80])
+    with pytest.raises(ValueError, match="shapes"):
+        TCE.fused_ce_fwd(h[:, :80], labels[:4], w[:, :80])
 
 
 @pytest.mark.cuda
@@ -1430,27 +1435,143 @@ def test_fp32_norm_kernels_match_plain(gpu, n, d):
                                                              zip(n32, (1, 2, 1, 2))]
 
 
+def _fp32_unit(n):
+    """chip_smoke.py's `fp32_unit`: a sum of n fp32 products, 2^-22 sqrt(n)."""
+    return 2.0 ** -22 * n ** 0.5
+
+
+def _within64(got, ref, tol, name):
+    diff = (got.double() - ref.double()).abs()
+    assert bool((diff <= tol).all()), (name, float(diff.max()), float((diff / tol).max()))
+
+
 @pytest.mark.cuda
-def test_fp32_refusals_name_the_queued_items(gpu):
-    """The fused CE and the int8 matmul have no fp32 build yet: at fp32 they
-    raise, naming their queued items; no fp32 call falls back."""
-    h = torch.randn(8, 96, device=gpu)
-    w = torch.randn(50, 96, device=gpu)
-    labels = torch.zeros(8, dtype=torch.long, device=gpu)
-    with pytest.raises(TypeError, match="C5b"):
-        TCE.fused_ce_fwd(h, labels, w)
-    w_q, scale = TQM.quantize_weight(torch.randn(32, 64, device=gpu))
-    with pytest.raises(TypeError, match="C5c"):
-        TQM.int8_matmul(torch.randn(4, 64, device=gpu), w_q, scale)
-    with pytest.raises(TypeError, match="C5c"):
-        TQM.int8_matmul_dx(torch.randn(4, 32, device=gpu), w_q, scale)
+@pytest.mark.parametrize("N,H,V,compute_dw", [(100, 128, 1111, True), (300, 896, 5000, False),
+                                              (37, 100, 1111, True), (129, 64, 257, True)])
+def test_fp32_fused_ce_matches_plain(gpu, N, H, V, compute_dw):
+    """The fused CE's fp32 build (H 100 zero-padded to 128) against the
+    plain versions in fp64 on the same fp32 inputs, within chip_smoke.py's
+    fp32 bounds: ce fp32_unit(H) (|h| |w| sums) + fp32_unit(V) + 2^-22
+    |ref|; dh fp32_unit(H + V), dW fp32_unit(H + N) of (sum |terms| +
+    |ref|); bit-identical across two calls, counted in launches_fp32."""
+    g_ = torch.Generator(device=gpu).manual_seed(N + V)
+    h = torch.randn(N, H, generator=g_, device=gpu)
+    w = 0.05 * torch.randn(V, H, generator=g_, device=gpu)
+    labels = torch.randint(0, V, (N,), generator=g_, device=gpu)
+    labels[0], labels[-1] = -100, V
+    g = torch.rand(N, generator=g_, device=gpu) / N
+    n32 = (TCE.fused_ce_fwd.launches_fp32, TCE.fused_ce_bwd.launches_fp32)
+    logz, ce = TCE.fused_ce_fwd(h, labels, w)
+    h64, w64 = h.double(), w.double()
+    rlogz, rce = TCE.fused_ce_fwd_plain(h64, labels, w64)
+    lz_terms, ce_terms = TCE.fused_ce_fwd_plain(h64, labels, w64, abs_terms=True)
+    for got, ref, terms, name in ((ce, rce, ce_terms, "ce"), (logz, rlogz, lz_terms, "logz")):
+        assert got.dtype == torch.float32
+        _within64(got, ref, _fp32_unit(H) * terms + _fp32_unit(V) + 2.0 ** -22 * ref.abs(), name)
+    dh, dw = TCE.fused_ce_bwd(h, labels, w, logz, g, compute_dw)
+    again = TCE.fused_ce_bwd(h, labels, w, logz, g, compute_dw)
+    torch.cuda.synchronize()
+    assert torch.equal(dh, again[0]) and (dw is None or torch.equal(dw, again[1]))
+    args = (h64, labels, w64, logz.double(), g.double(), compute_dw)
+    rdh, rdw = TCE.fused_ce_bwd_plain(*args)
+    mdh, mdw = TCE.fused_ce_bwd_plain(*args, abs_terms=True)
+    assert dh.dtype == torch.float32 and dh.shape == (N, H)
+    _within64(dh, rdh, _fp32_unit(H + V) * (mdh + rdh.abs()) + 1e-12, "dh")
+    if compute_dw:
+        assert dw.dtype == torch.float32 and dw.shape == (V, H)
+        _within64(dw, rdw, _fp32_unit(H + N) * (mdw + rdw.abs()) + 1e-12, "dW")
+    else:
+        assert dw is None
+    assert (TCE.fused_ce_fwd.launches_fp32, TCE.fused_ce_bwd.launches_fp32) == (
+        n32[0] + 1, n32[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,scale", [(1, 896, 4864, "fp32"), (16, 896, 896, "fp32"),
+                                         (300, 4864, 896, "bf16"), (192, 896, 20000, "bf16"),
+                                         (30, 100, 96, "fp32"), (1, 100, 96, "bf16")])
+def test_fp32_int8_matmul_matches_plain(gpu, M, K, N, scale):
+    """int8_matmul's fp32 build (the GEMV at M = 1, else the fp32 tile
+    product, split where the tiles are few; K 100 zero-padded to 112)
+    against the plain version in fp64 on the same fp32 x, within
+    fp32_unit(K) (sum |terms| + |ref|); bit-identical, counted."""
+    g_ = torch.Generator(device=gpu).manual_seed(M + K + N)
+    x = torch.randn(M, K, generator=g_, device=gpu)
+    w_q, s = TQM.quantize_weight(0.02 * torch.randn(N, K, generator=g_, device=gpu))
+    s = s.bfloat16() if scale == "bf16" else s
+    n32 = TQM.int8_matmul.launches_fp32
+    y = TQM.int8_matmul(x, w_q, s)
+    again = TQM.int8_matmul(x, w_q, s)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.float32 and y.shape == (M, N) and torch.equal(y, again)
+    ref = TQM.int8_matmul_reference(x.double(), w_q, s)
+    terms = TQM.int8_matmul_reference(x.double(), w_q, s, abs_terms=True)
+    _within64(y, ref, _fp32_unit(K) * (terms + ref.abs()) + 1e-12, "y")
+    assert TQM.int8_matmul.launches_fp32 == n32 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,K", [(300, 896, 4864), (192, 20001, 896), (640, 101, 100),
+                                   (4, 4864, 896)])
+def test_fp32_int8_matmul_dx_matches_plain(gpu, M, N, K):
+    """int8_matmul_dx's fp32 build (odd N taken as it is, K 100
+    zero-padded) against the plain version in fp64 on the same fp32 g and
+    a bf16 scale, within fp32_unit(N) (sum |terms| + |ref|); bit-identical,
+    counted."""
+    g_ = torch.Generator(device=gpu).manual_seed(M + N + K)
+    g = torch.randn(M, N, generator=g_, device=gpu)
+    w_q, s = TQM.quantize_weight(0.02 * torch.randn(N, K, generator=g_, device=gpu))
+    s = s.bfloat16()
+    n32 = TQM.int8_matmul_dx.launches_fp32
+    dx = TQM.int8_matmul_dx(g, w_q, s)
+    again = TQM.int8_matmul_dx(g, w_q, s)
+    torch.cuda.synchronize()
+    assert dx.dtype == torch.float32 and dx.shape == (M, K) and torch.equal(dx, again)
+    ref = TQM.int8_matmul_dx_reference(g.double(), w_q, s)
+    terms = TQM.int8_matmul_dx_reference(g.double(), w_q, s, abs_terms=True)
+    _within64(dx, ref, _fp32_unit(N) * (terms + ref.abs()) + 1e-12, "dx")
+    assert TQM.int8_matmul_dx.launches_fp32 == n32 + 2
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_take_padded_widths(gpu):
+    """The bf16 builds at widths they are not built for, zero-padded by the
+    wrappers: the fused CE at H 100 (to 128), the int8 forward at K 100 (to
+    112), its gradient at N 101 and K 100 (to 102 and 112), each against
+    its plain version on the same bf16 inputs at the bf16 bounds above."""
+    g_ = torch.Generator(device=gpu).manual_seed(7)
+    h = torch.randn(60, 100, generator=g_, device=gpu).bfloat16()
+    w = (0.05 * torch.randn(1111, 100, generator=g_, device=gpu)).bfloat16()
+    labels = torch.randint(0, 1111, (60,), generator=g_, device=gpu)
+    g = torch.rand(60, generator=g_, device=gpu) / 60
+    logz, ce = TCE.fused_ce_fwd(h, labels, w)
+    rlogz, rce = TCE.fused_ce_fwd_plain(h, labels, w)
+    _within(ce, rce, 2e-3 + 1e-5 * rce.abs(), "ce H 100")
+    dh, dw = TCE.fused_ce_bwd(h, labels, w, rlogz, g, True)
+    assert dh.shape == (60, 100) and dw.shape == (1111, 100) and dh.dtype == torch.bfloat16
+    for got, ref, terms, name in zip((dh, dw), TCE.fused_ce_bwd_plain(h, labels, w, rlogz, g, True),
+                                     TCE.fused_ce_bwd_plain(h, labels, w, rlogz, g, True,
+                                                            abs_terms=True), ("dh", "dW")):
+        _within(got, ref, 2.0 ** -7 * (terms + ref.float().abs()) + 1e-6, f"{name} H 100")
+    x = torch.randn(40, 100, generator=g_, device=gpu).bfloat16()
+    w_q, s = TQM.quantize_weight(0.02 * torch.randn(101, 100, generator=g_, device=gpu))
+    y = TQM.int8_matmul(x, w_q, s)
+    ref = TQM.int8_matmul_reference(x.float(), w_q, s)
+    assert y.shape == (40, 101) and y.dtype == torch.bfloat16
+    _within(y, ref, _fwd_tol(x, w_q, s, ref), "y K 100")
+    gy = torch.randn(40, 101, generator=g_, device=gpu).bfloat16()
+    dx = TQM.int8_matmul_dx(gy, w_q, s)
+    ref = TQM.int8_matmul_dx_reference(gy, w_q, s)
+    assert dx.shape == (40, 100) and dx.dtype == torch.bfloat16
+    _within(dx, ref, _dx_tol(gy, w_q, s, ref), "dx N 101 K 100")
 
 
 @pytest.mark.cuda
 def test_small_training_step_at_fp32_on_the_gpu_agrees_with_the_cpu(gpu):
     """chip_smoke.py phase 3's fp32 steps: the small step on the card's fp32
-    kernels against the CPU's fp32 plain step, gates off and with the LN
-    gate, losses and grad norm within 1e-4 relative."""
+    kernels against the CPU's fp32 plain step, gates off, with the LN gate,
+    with both gates (the fused CE) and on the int8 base, losses and grad
+    norm within 1e-4 relative, every launch an fp32 instance's."""
     smoke = _chip_smoke()
     assert smoke.fp32_small_agreements(torch, gpu)
 

@@ -157,7 +157,7 @@ def test_the_library_reports_the_plans_geometry():
 
 def test_the_kernel_is_instantiated_for_every_row_count():
     text = SOURCE.read_text()
-    cases = [int(a) for a, b in re.findall(r"case (\d+): gemv_kernel<(\d+), ST>", text)
+    cases = [int(a) for a, b in re.findall(r"case (\d+): gemv_kernel<(\d+), ST, XT>", text)
              if a == b]
     assert tuple(cases) == TQM._GEMV_ROWS
     assert max(TQM._GEMV_ROWS) == _source_constants()[0]["GEMV_MAX_ROWS"]
