@@ -27,9 +27,12 @@
                                         # attention forward's, the attention
                                         # backward's, the norm forward's and
                                         # the bf16 int8 forward's bits against
-                                        # the tree at DIR, with both trees'
-                                        # times of those and of the norm
-                                        # backward (scripts/fwd_digest.py)
+                                        # the tree at DIR (with fp32 checks,
+                                        # also the fp32 CE forward's and int8
+                                        # gradient's and the bf16 backwards'),
+                                        # with both trees' times of those and
+                                        # of the norm backward and the split
+                                        # builds (scripts/fwd_digest.py)
 
 Phases, in order; any failure exits non-zero:
   1. build: compile csrc/*.cu with nvcc (all in parallel), print seconds;
@@ -110,7 +113,11 @@ Phases, in order; any failure exits non-zero:
      zero-padded) and the int8 forward and gradient at the int8 base's
      training rows, K 100 and an odd N (`run_fp32_int8_checks`; `--fp32`
      adds serving's rows); each with kernel / plain / library (fp32) ms and
-     the bound at 67 TFLOP/s fp32 or 3.35 TB/s;
+     the bound at 67 TFLOP/s fp32 or 3.35 TB/s (the split builds of the CE
+     backward and the int8 forward: their TF32 products at 495 TFLOP/s,
+     or for the int8 forward three bf16 products at 989 where cheaper, the
+     FMA bound beside; their err/tol also held to SPLIT_VS_TF32 of a TF32
+     plain version's), failing where one of their kernels spills;
   3. small-model agreement: a small D=128 model's drive_only waypoints on
      the GPU (bf16, kernels) against the CPU plain path (fp32), and one
      training step of the same model with LoRA r=4, dropout 0.1 (losses to
@@ -398,6 +405,7 @@ DX_SUM_U = 2.0 ** -20
 # rtol 2e-2 would pass a dropped segment of K = 4864.
 FWD_U = 2.0 ** -8
 PEAK_FP32 = 67e12           # non-tensor fp32 FLOP/s (norm arithmetic)
+PEAK_TF32 = 495e12          # tensor-core TF32 FLOP/s: the split fp32 products
 FRAMES = 4                  # CoT frames: the first plain, then speculative
 TRAIN_STEPS = 3             # timed full-width training steps (after 1 warm-up)
 L2_BYTES = 64 << 20         # rotate operand sets past the 50 MB L2
@@ -2285,10 +2293,36 @@ def run_fp32_norm_checks(torch, dev, results):
 # tiles, labels out of range); a width that is zero-padded (H 100)
 FP32_CE_CASES = (("train", 960, 896, 151674, False), ("train_dw", 960, 896, 151674, True),
                  ("ragged", 100, 128, 1111, True), ("width_100", 100, 100, 1111, True))
-CE_F32_KERNELS = ("ce_fwd_tile_f32_kernel", "ce_fwd_finalize_kernel", "ce_dlogits_f32_kernel",
-                  "ce_dh_f32_kernel", "f32_reduce_kernel", "ce_dw_f32_kernel")
-CE_BWD_F32_KERNELS = ("ce_dlogits_f32_kernel", "ce_dh_f32_kernel", "f32_reduce_kernel",
-                      "ce_dw_f32_kernel")
+CE_F32_KERNELS = ("ce_fwd_tile_f32_kernel", "ce_fwd_finalize_kernel",
+                  "ce_dlogits_split_kernel", "ce_dh_split_kernel", "f32_reduce_kernel",
+                  "ce_dw_split_kernel")
+CE_BWD_F32_KERNELS = ("ce_dlogits_split_kernel", "ce_dh_split_kernel", "f32_reduce_kernel",
+                      "ce_dw_split_kernel")
+# TF32 products a product of the split tile (csrc/f32_tc_tile.cuh): big x big,
+# big x small, small x big; against int8 codes (exact in TF32) two
+SPLIT_TERMS, SPLIT_TERMS_INT8 = 3, 2
+# bf16 products of the same fp32 accuracy against int8 codes (exact in
+# bf16): x as three bf16 parts, at twice TF32's rate
+SPLIT_BF16_TERMS_INT8 = 3
+# A split build's err/tol must sit this far below a TF32 plain version's on
+# the same inputs and bound: the split keeps ~22 bits of each operand where
+# TF32 keeps 11, so a build that dropped its small terms reads about 1 and
+# fails (a CPU model of the split reads 5e-4 to 2e-3:
+# tests/test_torch_fp32_split.py). The fp32 bounds alone cannot tell the
+# two apart at every shape: at int8 down (K 4864) one TF32 product passes.
+# The TF32 plain version rounds its operands explicitly (`tf32_round`) and
+# multiplies with TF32 off: cuBLAS's TF32 mode runs some small or
+# one-row shapes without TF32.
+SPLIT_VS_TF32 = 1 / 16
+
+
+def split_int8_bound(nbytes, M, N, K):
+    """The int8 forward's split bound at M >= 2: its bytes, or the cheaper
+    of the two fp32-accurate tensor-core schemes against the int8 codes
+    (SPLIT_TERMS_INT8 TF32 products at PEAK_TF32; SPLIT_BF16_TERMS_INT8
+    bf16 products at PEAK_BF16), whichever takes longer."""
+    return min(bound(nbytes, SPLIT_TERMS_INT8 * 2 * M * N * K, PEAK_TF32),
+               bound(nbytes, SPLIT_BF16_TERMS_INT8 * 2 * M * N * K, PEAK_BF16))
 
 
 def _rms(x):
@@ -2305,14 +2339,20 @@ def run_fp32_ce_checks(torch, dev, results):
     within fp32_unit(H) (|ref| + g p A) (A the logit's |h| |w| sum) and
     exactly 0 past V, dh and dW within fp32_unit(V) / fp32_unit(N) of the
     plain products of the kernel's own scratch; bit-identical across two
-    calls. Library: F.cross_entropy(F.linear(h, w)) at fp32, TF32 off, and
-    its autograd backward (eager)."""
+    calls; no kernel of the build spills; the backward's err/tol, and each
+    pass's, at most SPLIT_VS_TF32 of a TF32 plain version's on the same
+    inputs (printed beside). The backward's bound counts
+    its split products' TF32 operations (SPLIT_TERMS each), the fp32 FMA
+    bound beside it. Library: F.cross_entropy(F.linear(h, w)) at fp32, TF32 off,
+    and its autograd backward (eager)."""
     import torch.nn.functional as F
     from simlingo_tpu_torch.kernels import fused_ce as TC
+    from simlingo_tpu_torch.kernels import split_model as SM
     gen = torch.Generator(device=dev).manual_seed(14)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     regs = {k: v for k, v in ptxas_usage("fused_ce").items()
             if k.split("<")[0] in CE_F32_KERNELS}
+    spilled = any(sp for _, sp in regs.values())
     for name, N, H, V, with_dw in FP32_CE_CASES:
         case = f"{name}_fp32"
         h = torch.randn(N, H, generator=gen, device=dev)
@@ -2351,43 +2391,64 @@ def run_fp32_ce_checks(torch, dev, results):
         rdh, rdw = TC.fused_ce_bwd_plain(*args64, with_dw)
         mdh, mdw = TC.fused_ce_bwd_plain(*args64, with_dw, abs_terms=True)
         p32dh, p32dw = TC.fused_ce_bwd_plain(h, labels, w, lz32, g, with_dw)
+        # the TF32 plain version: each of the three products one TF32 product
+        plan = TC._bwd_plan(N, -(-H // TC.WIDTH_STEP) * TC.WIDTH_STEP, V, sms, torch.float32)
+        hr, wr = SM.tf32_round(h), SM.tf32_round(w)
+        t32dl = TC.ce_dlogits_reference(hr, labels, wr, lz32, g, plan)
+        t32dh = TC.ce_dh_from_scratch_reference(SM.tf32_round(t32dl), wr, plan)
+        t32dw = (TC.ce_dw_from_scratch_reference(SM.tf32_round(t32dl), hr, V) if with_dw
+                 else None)
         bwd_reads, bwd_plain32, bwd_rels = [], [], []
-        for got, ref, terms, n, plain in ((dh, rdh, mdh, H + V, p32dh),
-                                          (dwk, rdw, mdw, H + N, p32dw)):
+        # a TF32 plain version's err/tol, and the split's err/tol over it
+        tf32_ratio, vs_tf32 = {}, {}
+        for out, got, ref, terms, n, plain, t32 in (
+                ("dh", dh, rdh, mdh, H + V, p32dh, t32dh),
+                ("dw", dwk, rdw, mdw, H + N, p32dw, t32dw)):
             if got is None:
                 continue
             tol = fp32_unit(n) * (terms + ref.abs()) + 1e-6 * _rms(ref)
             bwd_reads.append(_err_over_tol(got, ref, tol))
             bwd_plain32.append(_err_over_tol(plain, ref, tol)[1])
             bwd_rels.append(_rel(got, ref)[1])
+            tf32_ratio[out] = _err_over_tol(t32, ref, tol)[1]
+            vs_tf32[out] = bwd_reads[-1][1] / max(tf32_ratio[out], 1e-30)
             del tol
-        del rdh, rdw, mdh, mdw, p32dh, p32dw
+        del rdh, rdw, mdh, mdw, p32dh, p32dw, t32dh, t32dw
         # the passes: the fp32 scratch, then dh / dW from the kernel's own scratch
-        plan = TC._bwd_plan(N, -(-H // TC.WIDTH_STEP) * TC.WIDTH_STEP, V, sms, torch.float32)
         ref_dl = TC.ce_dlogits_reference(*args64, plan)[:, :V]
         pa = (torch.exp(h64 @ w64.t() - args64[3][:, None]) * (h64.abs() @ w64.abs().t())
               * g64.abs()[:, None])
-        pass_ratio = {"dl": _err_over_tol(dl[:, :V], ref_dl,
-                                          fp32_unit(H) * (ref_dl.abs() + pa) + 1e-30)[1]}
+        pass_ratio, pass_tf32, pass_vs_tf32 = {}, {}, {}
+
+        def hold(key, got, want, tol, t32):
+            """The pass `key` within tol, beside its TF32 control."""
+            pass_ratio[key] = _err_over_tol(got, want, tol)[1]
+            pass_tf32[key] = _err_over_tol(t32, want, tol)[1]
+            pass_vs_tf32[key] = pass_ratio[key] / max(pass_tf32[key], 1e-30)
+        hold("dl", dl[:, :V], ref_dl, fp32_unit(H) * (ref_dl.abs() + pa) + 1e-30, t32dl[:, :V])
+        del t32dl
+        dlr = SM.tf32_round(dl)
         pad_zero = bool((dl[:, V:] == 0).all())
         del ref_dl, pa
         dl64 = dl.double()
         want = TC.ce_dh_from_scratch_reference(dl64, w64, plan)
         terms = TC.ce_dh_from_scratch_reference(dl64, w64, plan, abs_terms=True)
-        pass_ratio["dh"] = _err_over_tol(dh, want, fp32_unit(V) * (terms + want.abs())
-                                         + 1e-6 * _rms(want))[1]
+        hold("dh", dh, want, fp32_unit(V) * (terms + want.abs()) + 1e-6 * _rms(want),
+             TC.ce_dh_from_scratch_reference(dlr, wr, plan))
         if with_dw:
             want = TC.ce_dw_from_scratch_reference(dl64, h64, V)
             terms = TC.ce_dw_from_scratch_reference(dl64, h64, V, abs_terms=True)
-            pass_ratio["dw"] = _err_over_tol(dwk, want, fp32_unit(N) * (terms + want.abs())
-                                             + 1e-6 * _rms(want))[1]
-        del want, terms, dl64, dl
-        bwd_digest = {k: sha12(torch, x) for k, x in (("dh", dh), ("dw", dwk)) if x is not None}
+            hold("dw", dwk, want, fp32_unit(N) * (terms + want.abs()) + 1e-6 * _rms(want),
+                 TC.ce_dw_from_scratch_reference(dlr, hr, V))
+        del want, terms, dl64, dl, dlr, hr, wr
         # times
         nhv = 2 * N * H * V
         fb = bound(4 * (N * H + V * H) + 8 * N + 8 * N, nhv, PEAK_FP32)
-        bb = bound(4 * (N * H + V * H) + 16 * N + 4 * N * H + (4 * V * H if with_dw else 0),
-                   (3 if with_dw else 2) * nhv, PEAK_FP32)
+        # the backward's products on the split tile: SPLIT_TERMS TF32 products
+        # each (its bound), beside the same work in fp32 FMA
+        bb_bytes = 4 * (N * H + V * H) + 16 * N + 4 * N * H + (4 * V * H if with_dw else 0)
+        bb = bound(bb_bytes, SPLIT_TERMS * (3 if with_dw else 2) * nhv, PEAK_TF32)
+        bb_fma = bound(bb_bytes, (3 if with_dw else 2) * nhv, PEAK_FP32)
         sets = [(h, labels, w, lz32, g)]
         lib_labels = labels.clamp(0, V - 1)
         rows = []
@@ -2414,21 +2475,26 @@ def run_fp32_ce_checks(torch, dev, results):
         rows.append(dict(
             kernel="fused_ce_bwd", err=max(e for e, _ in bwd_reads),
             ratio=max(r for _, r in bwd_reads), plain32=max(bwd_plain32), rel=max(bwd_rels),
-            same=same_b, digest=bwd_digest, bound=bb, library_timing="eager",
+            same=same_b, bound=bb, library_timing="eager",
             pass_err_over_tol=pass_ratio, scratch_pad_zero=pad_zero,
+            tf32_err_over_tol=tf32_ratio, over_tf32=vs_tf32,
+            pass_tf32_err_over_tol=pass_tf32, pass_over_tf32=pass_vs_tf32,
             kernel_ms=time_ms(torch, bwd, sets, iters=10),
             plain_ms=time_ms(torch, lambda h_, l_, w_, z_, g_: TC.fused_ce_bwd_plain(
                 h_, l_, w_, z_, g_, with_dw), sets, iters=2),
             library_ms=eager_ms(torch, lambda: torch.autograd.grad(
                 lib_out, lib_in, g, retain_graph=True), [()], iters=5),
             split_ms=kernel_split_ms(torch, bwd, sets, CE_BWD_F32_KERNELS, iters=3),
-            scratch_bytes=plan.scratch_bytes, S=plan.S))
+            scratch_bytes=plan.scratch_bytes, S=plan.S, fma_bound_ms=bb_fma[0]))
         del lib_out, hx, wx, sets
         for r in rows:
             bms, bby = r.pop("bound")
             with_w = with_dw and r["kernel"] == "fused_ce_bwd"
-            ok = (r["ratio"] <= 1.0 and r["same"]
+            ok = (r["ratio"] <= 1.0 and r["same"] and not spilled
                   and all(x <= 1.0 for x in r.get("pass_err_over_tol", {}).values())
+                  and all(x <= SPLIT_VS_TF32 for x in (
+                      *r.get("over_tf32", {}).values(),
+                      *r.get("pass_over_tf32", {}).values()))
                   and r.get("scratch_pad_zero", True))
             row = dict(kernel=r["kernel"], dtype="fp32", case=case,
                        shape=f"N={N} H={H} V={V}{' +dW' if with_w else ''} fp32",
@@ -2436,32 +2502,44 @@ def run_fp32_ce_checks(torch, dev, results):
                        plain_fp32_err_over_tol=r["plain32"], bit_identical=r["same"], ok=ok,
                        kernel_ms=r["kernel_ms"], plain_ms=r["plain_ms"],
                        library_ms=r["library_ms"], library_timing=r["library_timing"],
-                       bound_ms=bms, bound_by=bby, split_ms=r["split_ms"], digest=r["digest"],
-                       ptxas=regs, **{k: r[k] for k in ("pass_err_over_tol", "scratch_pad_zero",
-                                                        "scratch_bytes", "S") if k in r})
+                       bound_ms=bms, bound_by=bby, split_ms=r["split_ms"], ptxas=regs,
+                       **{k: r[k] for k in ("digest", "pass_err_over_tol", "scratch_pad_zero",
+                                            "scratch_bytes", "S", "fma_bound_ms",
+                                            "tf32_err_over_tol", "over_tf32",
+                                            "pass_tf32_err_over_tol", "pass_over_tf32")
+                          if k in r})
             results.append(row)
             log(f"[kernel] {row['kernel']:14s} {case:18s} {row['shape']:34s} "
                 f"err={row['max_abs_err']:.3e} err/tol={row['err_over_tol']:.3f} (the fp32 "
                 f"bound about the fp64 plain version; the fp32 plain version "
-                f"{r['plain32']:.3f}) err/rms={r['rel']:.3e} bit-identical={r['same']} "
+                f"{r['plain32']:.3f}"
+                + ("".join(f", {k} a TF32 one {r['tf32_err_over_tol'][k]:.1f}, the split "
+                           f"{r['over_tf32'][k]:.2e} of it"
+                           for k in r.get("tf32_err_over_tol", {}))
+                   ) + f") err/rms={r['rel']:.3e} bit-identical={r['same']} "
                 f"{'OK' if ok else 'FAIL'} kernel_ms={row['kernel_ms']:.4f} "
                 f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
-                f"({row['library_timing']}, fp32) bound_ms={bms:.4f} ({bby})")
+                f"({row['library_timing']}, fp32) bound_ms={bms:.4f} ({bby}"
+                + (f"; split, {SPLIT_TERMS} TF32 products; fp32 FMA "
+                   f"{r['fma_bound_ms']:.4f})" if "fma_bound_ms" in r else ")"))
             log(f"[kernel] {row['kernel']:14s} {case:18s} device ms a call by kernel: "
                 + ", ".join(f"{k} {v:.4f}" for k, v in r["split_ms"].items())
-                + (f" | err/tol by pass: " + ", ".join(
-                    f"{k} {v:.3f}" for k, v in r["pass_err_over_tol"].items())
+                + (f" | err/tol by pass (a TF32 one's; the split's over it): " + ", ".join(
+                    f"{k} {v:.3f} ({r['pass_tf32_err_over_tol'][k]:.1f}; "
+                    f"{r['pass_over_tf32'][k]:.2e})"
+                    for k, v in r["pass_err_over_tol"].items())
                    + f", scratch zero past V {r['scratch_pad_zero']} | fp32 dlogits scratch "
                    f"{r['scratch_bytes']} bytes, S={r['S']}"
                    if "pass_err_over_tol" in r else "")
-                + " | sha256 " + " ".join(f"{k} {v}" for k, v in r["digest"].items())
+                + (" | sha256 " + " ".join(f"{k} {v}" for k, v in r["digest"].items())
+                   if "digest" in r else "")
                 + " | ptxas registers (spill bytes): "
                 + ", ".join(f"{k} {n} ({sp})" for k, (n, sp) in regs.items()))
         del h, w, h64, w64, dh, dwk
         torch.cuda.empty_cache()
 
 
-INT8_F32_KERNELS = ("gemv_kernel", "gemm_f32_kernel", "dx_f32_kernel", "f32_reduce_kernel")
+INT8_F32_KERNELS = ("gemv_kernel", "gemm_split_kernel", "dx_f32_kernel", "f32_reduce_kernel")
 # serving's rows (decode, verify, queries, prefill), run by `--fp32`
 FP32_SERVE_M = (1, 16, 30, 640)
 
@@ -2496,15 +2574,20 @@ def run_fp32_int8_checks(torch, dev, results, serving=False):
     `fp32_int8_dx_cases`) against their plain versions in fp64 on the same
     fp32 inputs: within fp32_unit(K) (forward) or fp32_unit(N) (dx) times
     (sum |terms| + |ref|) + 1e-6 rms(ref), bit-identical across two calls,
-    with the plan (`_f32_plan`'s segments; the GEMV's at M = 1). Library:
-    dequantize + F.linear (forward) or (g * scale) @ w_q (dx) at fp32, TF32
-    off."""
+    with the plan (`_split_plan`'s segments for the forward, `_f32_plan`'s
+    for dx; the GEMV's at M = 1); no kernel of the build spills; at M >= 2
+    the forward's err/tol at most SPLIT_VS_TF32 of a TF32 plain version's
+    (printed beside). The forward's bound at M >= 2
+    is `split_int8_bound`, the fp32 FMA bound beside it. Library: dequantize +
+    F.linear (forward) or (g * scale) @ w_q (dx) at fp32, TF32 off."""
     import torch.nn.functional as F
     from simlingo_tpu_torch.kernels import quantized_matmul as QM
+    from simlingo_tpu_torch.kernels import split_model as SM
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     regs = {k: v for k, v in ptxas_usage("int8_matmul").items()
             if k.split("<")[0] in INT8_F32_KERNELS and (not k.startswith("gemv")
                                                          or k.endswith(",float>"))}
+    spilled = any(sp for _, sp in regs.values())
     gen = torch.Generator(device=dev).manual_seed(15)
 
     def weights(N, K, sdt):
@@ -2524,33 +2607,46 @@ def run_fp32_int8_checks(torch, dev, results, serving=False):
                                + ref.abs()) + 1e-6 * _rms(ref))
         err, ratio = _err_over_tol(out, ref, tol)
         plain32 = _err_over_tol(QM.int8_matmul_reference(x, w_q, scale), ref, tol)[1]
+        # a TF32 plain version's err/tol, and the split's err/tol over it
+        tf32_ratio = _err_over_tol(QM.int8_matmul_reference(SM.tf32_round(x), w_q, scale),
+                                   ref, tol)[1]
+        vs_tf32 = ratio / max(tf32_ratio, 1e-30)
         rel = _rel(out, ref)[1]
         del ref, tol
         sets = [(x, w_q, scale)] + [make() for _ in range(n_sets(nbytes) - 1)]
-        bms, bby = bound(nbytes, 2 * M * N * K, PEAK_FP32)
+        fma_ms = bound(nbytes, 2 * M * N * K, PEAK_FP32)[0]
         if M == 1:
+            bms, bby = bound(nbytes, 2 * M * N * K, PEAK_FP32)
             plan = QM._gemv_plan(N, -(-K // 16) * 16, sms)
             grid = f"gemv R={plan.rows} warps={plan.warps} blocks={plan.blocks}"
         else:
-            S, seg = QM._f32_plan(M, N, -(-K // 16) * 16, sms)
-            grid = f"128x128 S={S} seg={seg} blocks={-(-M // 128) * -(-N // 128) * S}"
+            bms, bby = split_int8_bound(nbytes, M, N, K)
+            S, seg = QM._split_plan(M, N, -(-K // 16) * 16, sms)
+            grid = (f"split 128x128 S={S} seg={seg} "
+                    f"blocks={-(-M // 128) * -(-N // 128) * S}")
         row = dict(kernel="int8_matmul", dtype="fp32", case=name, shape=f"M={M} K={K} N={N} fp32",
                    M=M, K=K, N=N, scale=str(sdt).replace("torch.", ""), max_abs_err=err,
                    err_over_tol=ratio, err_over_rms=rel, plain_fp32_err_over_tol=plain32,
-                   bit_identical=same, ok=ratio <= 1.0 and same and out.dtype == torch.float32,
+                   tf32_err_over_tol=tf32_ratio, over_tf32=vs_tf32, bit_identical=same,
+                   ok=(ratio <= 1.0 and same and out.dtype == torch.float32 and not spilled
+                       and (M == 1 or vs_tf32 <= SPLIT_VS_TF32)),
                    kernel_ms=time_ms(torch, QM.int8_matmul, sets),
                    plain_ms=time_ms(torch, QM.int8_matmul_reference, sets[:2], iters=4),
                    library_ms=time_ms(torch, lambda x_, w_, s_: F.linear(
                        x_, w_.float() * s_.float()[:, None]), sets),
-                   bound_ms=bms, bound_by=bby, grid=grid, ptxas=regs)
+                   bound_ms=bms, bound_by=bby, fma_bound_ms=fma_ms, grid=grid, ptxas=regs)
         del sets
         results.append(row)
         log(f"[kernel] int8_matmul    {name:14s} M={M:4d} K={K:5d} N={N:6d} scale="
             f"{row['scale']:8s} err={err:.3e} err/tol={ratio:.3f} (fp32_unit(K); the fp32 "
-            f"plain version {plain32:.3f}) err/rms={rel:.3e} bit-identical={same} "
+            f"plain version {plain32:.3f}, a TF32 one {tf32_ratio:.2f}, the split {vs_tf32:.2e} "
+            f"of it) err/rms={rel:.3e} bit-identical={same} "
             f"{'OK' if row['ok'] else 'FAIL'} kernel_ms={row['kernel_ms']:.4f} "
             f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} (dequantize + "
-            f"F.linear fp32) bound_ms={bms:.4f} ({bby}) {grid}")
+            f"F.linear fp32) bound_ms={bms:.4f} ({bby}"
+            + (f"; split, the cheaper of {SPLIT_TERMS_INT8} TF32 or {SPLIT_BF16_TERMS_INT8} bf16 "
+               f"products; fp32 FMA {fma_ms:.4f}" if M > 1
+               else "") + f") {grid}")
     for name, M, N, K in fp32_int8_dx_cases():
         nbytes = M * N * 4 + N * K + N * 2 + M * K * 4
 
@@ -2575,7 +2671,8 @@ def run_fp32_int8_checks(torch, dev, results, serving=False):
         row = dict(kernel="int8_matmul_dx", dtype="fp32", case=name,
                    shape=f"M={M} N={N} K={K} fp32", M=M, N=N, K=K, max_abs_err=err,
                    err_over_tol=ratio, err_over_rms=rel, plain_fp32_err_over_tol=plain32,
-                   bit_identical=same, ok=ratio <= 1.0 and same and dx.dtype == torch.float32,
+                   bit_identical=same,
+                   ok=ratio <= 1.0 and same and dx.dtype == torch.float32 and not spilled,
                    kernel_ms=time_ms(torch, QM.int8_matmul_dx, sets),
                    plain_ms=time_ms(torch, QM.int8_matmul_dx_reference, sets[:2], iters=4),
                    library_ms=time_ms(torch, lambda g_, w_, s_: (g_ * s_.float()) @ w_.float(),
@@ -3080,7 +3177,11 @@ def fwd_digests(torch, dev, kernel):
     forward case (200 calls a replay at M = 1, the GEMV); "norms" at
     every norm case, "<case>_fwd" and "<case>_bwd" apart (200 calls a
     replay below 1 MB of operands); "dropout" at phase 2's zero-offset
-    cases, 200 calls a replay."""
+    cases, 200 calls a replay; "fused_ce_fp32" the fp32 CE forward, its
+    backward (dh; dh + dW; timed only, its order of sums is free) and the
+    bf16 backward on the same inputs at the training shape; "int8_fp32" the
+    fp32 int8 forward (timed only, likewise), the fp32 and bf16 gradients
+    at the int8 base's training rows."""
     digests, ms = {}, {}
     warm_up(torch, dev)
     if kernel == "dropout":
@@ -3160,6 +3261,52 @@ def fwd_digests(torch, dev, kernel):
         digests[name] = {"ce": sha12(torch, ce), "logz": sha12(torch, logz)}
         ms[name] = time_ms(torch, lambda h_, l_, w_: TC.fused_ce_fwd(h_, l_, w_),
                            [(h, labels, w)])
+    elif kernel == "fused_ce_fp32":
+        from simlingo_tpu_torch.kernels import fused_ce as TC
+        _, N, H, V, _ = FP32_CE_CASES[0]
+        gen = torch.Generator(device=dev).manual_seed(CE_SEED)
+        h = torch.randn(N, H, generator=gen, device=dev)
+        w = 0.02 * torch.randn(V, H, generator=gen, device=dev)
+        labels = torch.randint(0, V, (N,), generator=gen, device=dev)
+        g = torch.rand(N, generator=gen, device=dev) / N
+        logz, ce = TC.fused_ce_fwd(h, labels, w)
+        digests["train_fwd"] = {"ce": sha12(torch, ce), "logz": sha12(torch, logz)}
+        ms["train_fwd"] = time_ms(torch, lambda: TC.fused_ce_fwd(h, labels, w), [()], iters=10)
+        # the split backward: times only, its bits are free (MUST_EQUAL)
+        for case, with_dw in (("train_dh", False), ("train_dh_dw", True)):
+            ms[case] = time_ms(torch, lambda d=with_dw: TC.fused_ce_bwd(h, labels, w, logz, g, d),
+                               [()], iters=10)
+        # the bf16 build's backward on the same inputs, rounded
+        hb, wb = h.bfloat16(), w.bfloat16()
+        dh, dw = TC.fused_ce_bwd(hb, labels, wb, logz, g, True)
+        digests["bf16_train_dh_dw"] = {"dh": sha12(torch, dh), "dw": sha12(torch, dw)}
+        ms["bf16_train_dh_dw"] = time_ms(
+            torch, lambda: TC.fused_ce_bwd(hb, labels, wb, logz, g, True), [()], iters=10)
+    elif kernel == "int8_fp32":
+        from simlingo_tpu_torch.kernels import quantized_matmul as QM
+        gen = torch.Generator(device=dev).manual_seed(15)
+
+        def weights(N, K):
+            w_q, scale = QM.quantize_weight(0.02 * torch.randn(N, K, generator=gen, device=dev))
+            return w_q, scale.bfloat16()
+        for name, K, N, M, _ in fp32_int8_cases(serving=False)[:5]:
+            def make():
+                return (torch.randn(M, K, generator=gen, device=dev), *weights(N, K))
+            sets = [make() for _ in range(n_sets(M * K * 4 + N * K + M * N * 4))]
+            ms[f"fwd_{name}"] = time_ms(torch, QM.int8_matmul, sets)
+            del sets
+            torch.cuda.empty_cache()
+        for name, M, N, K in fp32_int8_dx_cases()[:5]:
+            def make():
+                return (torch.randn(M, N, generator=gen, device=dev), *weights(N, K))
+            sets = [make() for _ in range(n_sets(M * N * 4 + N * K + M * K * 4))]
+            digests[f"dx_{name}"] = {"dx": sha12(torch, QM.int8_matmul_dx(*sets[0]))}
+            ms[f"dx_{name}"] = time_ms(torch, QM.int8_matmul_dx, sets)
+            bsets = [(g_.bfloat16(), w_, s_) for g_, w_, s_ in sets]
+            digests[f"bf16_dx_{name}"] = {"dx": sha12(torch, QM.int8_matmul_dx(*bsets[0]))}
+            ms[f"bf16_dx_{name}"] = time_ms(torch, QM.int8_matmul_dx, bsets)
+            del sets, bsets
+            torch.cuda.empty_cache()
     else:
         raise ValueError(f"fwd_digests: no kernel {kernel!r}")
     return digests, ms
@@ -3175,7 +3322,13 @@ MUST_EQUAL = {"fused_ce_fwd": ("train",), "dropout": ("lora_x_896", "lora_h_4864
               "flash_attn_fwd": ("vit", "vit_train", "llm_prefill", "llm_train", "clip",
                                  "base_llm"),
               "flash_attn_bwd": ("llm_train", "vit_train", "clip", "base_llm"),
-              "norms": tuple(f"{c[1]}_fwd" for c in norm_cases() if "fwd" in c[5])}
+              "norms": tuple(f"{c[1]}_fwd" for c in norm_cases() if "fwd" in c[5]),
+              # the fp32 CE forward, the fp32 activation gradient and the
+              # bf16 backwards kept their loops; the split builds (the fp32
+              # CE backward and int8 forward) sum in another order
+              "fused_ce_fp32": ("train_fwd", "bf16_train_dh_dw"),
+              "int8_fp32": tuple(f"{p}dx_{c[0]}" for c in fp32_int8_dx_cases()[:5]
+                                 for p in ("", "bf16_"))}
 
 
 def compare_fwd(parent, kernel) -> bool:
@@ -3199,12 +3352,15 @@ def compare_fwd(parent, kernel) -> bool:
     for case in [c for c in mine[0]["ms"] if c in theirs[0]["ms"]]:
         a = [r["ms"][case] for r in mine]
         b = [r["ms"][case] for r in theirs]
+        line = (f"[ab] {kernel} {case:12s} ms this tree {a[0]:.4f} {a[1]:.4f} | parent "
+                f"{b[0]:.4f} {b[1]:.4f} | ratio {sum(a) / sum(b):.3f} | bits ")
+        if case not in mine[0]["digests"]:     # timed only: its bits are free
+            log(line + "not compared")
+            continue
         same = mine[0]["digests"][case] == theirs[0]["digests"][case]
         must = MUST_EQUAL.get(kernel) == "*" or case in MUST_EQUAL.get(kernel, ())
         equal &= same or not must
-        log(f"[ab] {kernel} {case:12s} ms this tree {a[0]:.4f} {a[1]:.4f} | parent "
-            f"{b[0]:.4f} {b[1]:.4f} | ratio {sum(a) / sum(b):.3f} | bits "
-            f"{'EQUAL' if same else 'DIFFERENT'}{' (must be equal)' if must else ''} "
+        log(line + f"{'EQUAL' if same else 'DIFFERENT'}{' (must be equal)' if must else ''} "
             f"{mine[0]['digests'][case]} / {theirs[0]['digests'][case]}")
     if kernel in MUST_EQUAL:
         log(f"[digest] {kernel} cases {MUST_EQUAL[kernel]} against {parent}: "
@@ -3692,8 +3848,8 @@ HAND_KERNELS = ("flash_fwd_kernel", "flash_fwd_split_kernel", "bwd_dkdv_kernel",
                 "norm_fwd_kernel", "norm_bwd_kernel", "norm_colsum_kernel", "ce_fwd_tile_kernel",
                 "ce_fwd_finalize_kernel", "ce_dlogits_kernel", "ce_dh_kernel",
                 "ce_dh_reduce_kernel", "ce_dw_kernel", "ce_fwd_tile_f32_kernel",
-                "ce_dlogits_f32_kernel", "ce_dh_f32_kernel", "ce_dw_f32_kernel",
-                "gemm_f32_kernel", "dx_f32_kernel", "f32_reduce_kernel")
+                "ce_dlogits_split_kernel", "ce_dh_split_kernel", "ce_dw_split_kernel",
+                "gemm_split_kernel", "dx_f32_kernel", "f32_reduce_kernel")
 
 
 INT8_FWD_KERNELS = ("gemv_kernel", "gemm_kernel", "gemm64_kernel")
@@ -6071,6 +6227,11 @@ FP32_LINE_CASES = {"flash_attn_fwd": "vit_train_fp32", "flash_attn_bwd": "llm_tr
                    "rmsnorm_bwd": "llm_train_fp32", "int8_matmul": "gate_up_fp32",
                    "int8_matmul_dx": "gate_up_fp32", "fused_ce_fwd": "train_fp32",
                    "fused_ce_bwd": "train_fp32"}
+# the kernels of those fp32 builds that the `kernels` line names (the
+# split tile's: the CE backward's and the int8 forward's at M >= 2)
+FP32_LINE_KERNELS = {"fused_ce_fwd": CE_F32_KERNELS[:2], "fused_ce_bwd": CE_BWD_F32_KERNELS,
+                     "int8_matmul": ("gemm_split_kernel", "f32_reduce_kernel", "gemv_kernel"),
+                     "int8_matmul_dx": ("dx_f32_kernel", "f32_reduce_kernel")}
 # the paths whose launches the fp32 entries count: phase 5's fp32 cells
 # (`--fp32` also runs train_fp32_ln, train_fp32_int8 and serve_fp32) and
 # phase 3's small fp32 steps (the int8 base's only there in the full run)
@@ -6138,6 +6299,10 @@ def kernel_line(cases, launches, by_dim=None, small=None):
                 "max_abs_err": max(c["max_abs_err"] for c in mine if c.get("dtype") == "fp32"),
                 "ms": f["kernel_ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
                 "bound_by": f["bound_by"], "library_ms": f["library_ms"]}
+            if name in FP32_LINE_KERNELS:
+                out[-1]["fp32"]["kernels"] = list(FP32_LINE_KERNELS[name])
+            if "fma_bound_ms" in f:
+                out[-1]["fp32"]["fma_bound_ms"] = f["fma_bound_ms"]
             if name in ATTN_INSTANCE_CASES:
                 out[-1]["fp32"]["instances"] = {
                     str(d): {k: c[k] for k in ("case", "shape", "kernel_ms", "plain_ms",
@@ -7406,11 +7571,14 @@ def main() -> int:
         return 1
     if args.parent:
         checked = set(args.kernels or KERNEL_CHECKS)
-        for check, kernel in (("dropout", "dropout"),
-                              ("fused_ce", "fused_ce_fwd"), ("flash_attn_fwd", "flash_attn_fwd"),
-                              ("flash_attn_bwd", "flash_attn_bwd"),
-                              ("int8_matmul", "int8_fwd"), ("norms", "norms")):
-            if check in checked and not compare_fwd(args.parent, kernel):
+        for checks, kernel in ((("dropout",), "dropout"),
+                               (("fused_ce",), "fused_ce_fwd"),
+                               (("flash_attn_fwd",), "flash_attn_fwd"),
+                               (("flash_attn_bwd",), "flash_attn_bwd"),
+                               (("int8_matmul",), "int8_fwd"), (("norms",), "norms"),
+                               (("fp32", "fp32_ce"), "fused_ce_fp32"),
+                               (("fp32", "fp32_int8"), "int8_fp32")):
+            if checked & set(checks) and not compare_fwd(args.parent, kernel):
                 return 1
     if args.kernels is not None:
         log(f"[kernel] all cases within tolerance on {smi_line()}")

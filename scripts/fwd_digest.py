@@ -9,8 +9,12 @@ the chip_smoke.py beside this script (`fwd_digests`), and prints one line
 bits. KERNEL is flash_attn_fwd (every attention case), flash_attn_bwd
 (every attention backward case; both at the head dims the tree builds),
 fused_ce_fwd (the training shape), int8_fwd (every phase-2 int8 forward case),
-norms (every phase-2 norm case, forward and backward apart) or dropout
-(phase 2's zero-offset cases). The tree
+norms (every phase-2 norm case, forward and backward apart), dropout
+(phase 2's zero-offset cases), fused_ce_fp32 (the fp32 CE forward and
+backward, dh and dh + dW, and the bf16 backward on the same inputs, at the
+training shape) or int8_fp32 (the fp32 int8 forward and gradient, and the
+bf16 gradient, at the int8 base's training rows; the fp32 CE backward and
+the fp32 int8 forward are timed only, since their order of sums is free). The tree
 is the current directory:
 
     git archive <parent> | tar -x -C build/parent

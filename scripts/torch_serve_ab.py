@@ -16,7 +16,10 @@ parent into an ignored directory and alternate the two in one command:
       else python3 scripts/torch_serve_ab.py; fi
     done
 
-The tree is the current directory.
+The tree is the current directory. With `--fp32` it runs that tree's
+`serve_fp32` instead (LingoAgent(compute_dtype=torch.float32) on the int8
+LLM: CoT frames, plain then speculative, decode ms/token, launches held)
+and prints its statistics, with no extra frame.
 """
 
 import json
@@ -33,6 +36,10 @@ def main() -> int:
     import chip_smoke
     from simlingo_tpu_torch.kernels import _build
     _build.build_all()
+    if sys.argv[1:] == ["--fp32"]:
+        ok, stats = chip_smoke.serve_fp32(torch, torch.device("cuda"))
+        print("AB", os.getcwd(), json.dumps(stats), flush=True)
+        return 0 if ok else 1
     ok, stats, agent, frame = chip_smoke.full_width(torch, torch.device("cuda"))
     keys = ("frame_ms_cot_plain", "frame_ms_cot_spec", "frame_ms_drive_only",
             "decode_ms_per_token")

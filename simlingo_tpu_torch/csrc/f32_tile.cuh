@@ -1,8 +1,10 @@
-// The fp32 tile product of the kernels' fp32 builds (training at
-// precision=fp32, serving at compute_dtype float32): fp32 operands, fp32 FMA
-// products, fp32 sums. No tensor cores: TF32 would round each operand to 10
-// bits of mantissa, and JAX's fp32 step rounds none (`core/device.
-// fp32_products` keeps cuBLAS to fp32 too).
+// The SIMT fp32 tile product of the fused CE's fp32 forward
+// (ce_fwd_tile_f32_kernel) and the int8 activation gradient's fp32 build
+// (dx_f32_kernel): fp32 operands, fp32 FMA products, fp32 sums. One TF32
+// product would round each operand to 10 bits of mantissa, and JAX's fp32
+// step rounds none (`core/device.fp32_products` keeps cuBLAS to fp32 too);
+// the fp32 CE backward and int8 forward keep fp32 accuracy on the tensor
+// cores by splitting each operand into two TF32 parts (f32_tc_tile.cuh).
 //
 // One block of 256 threads computes a 128 x 128 tile C += A B over a range
 // [k0, k1) of the reduction, in 8-wide k-steps through two shared-memory

@@ -74,19 +74,25 @@
 // The fp32 build (precision=fp32: fp32 h and w). JAX's kernels work in their
 // operands' dtype, so at fp32 the logits and both products are fp32 and
 // dlogits is rounded to w's dtype, fp32: nothing is rounded below fp32.
-// The same passes and grids as bf16's, each on the fp32 tile product of
-// f32_tile.cuh (fp32 FMA, no tensor cores): ce_fwd_tile_f32_kernel writes
-// the same (max, sum) partials, which ce_fwd_finalize_kernel merges as it
-// does bf16's; ce_dlogits_f32_kernel writes an fp32 scratch dl [N, Vpad]
-// (582.5 MB at the training shape), ce_dh_f32_kernel the fp32 segment
-// partials of the wrapper's plan, f32_reduce_kernel sums them in order
-// into an fp32 dh, ce_dw_f32_kernel dW = dl^T h. Any H: the loads are
-// 4 bytes a thread. What bounds it: fp32 operations, 2 N H V a product
-// (3.90 ms at 67 TFLOP/s at the training shape).
+// The same passes and grids as bf16's. The forward, ce_fwd_tile_f32_kernel,
+// runs on the SIMT tile of f32_tile.cuh (fp32 FMA) and writes the same
+// (max, sum) partials, which ce_fwd_finalize_kernel merges as it does
+// bf16's. The backward's three products run on the split tile of
+// f32_tc_tile.cuh (each fp32 operand big + small in TF32, three mma.sync
+// products a k8-step, fp32 sums: fp32 accuracy on the tensor cores):
+// ce_dlogits_split_kernel writes an fp32 scratch dl [N, Vpad] (582.5 MB at
+// the training shape), ce_dh_split_kernel the fp32 segment partials of the
+// wrapper's plan (the bf16 grids: one split block an SM, 14 segments fill
+// 5.94 waves of 132), f32_reduce_kernel sums them in order into an fp32
+// dh, ce_dw_split_kernel dW = dl^T h. H % 32 == 0 (the wrapper pads). What
+// bounds it: the operations, 2 N H V a product, three TF32 products each
+// (the backward's dh 3.16 ms at 495 TFLOP/s at the training shape, 4.74
+// with dW; the forward 3.90 ms at 67 TFLOP/s fp32).
 
 #include <atomic>
 
 #include "common.cuh"
+#include "f32_tc_tile.cuh"
 #include "f32_tile.cuh"
 
 namespace {
@@ -584,83 +590,100 @@ ce_fwd_tile_f32_kernel(const float* __restrict__ h, const float* __restrict__ w,
   }
 }
 
+namespace tc = simlingo::tc32;
+static_assert(tc::BM == FBM && tc::BN == FBN && VSTEP % tc::BK == 0,
+              "the split build's tiles are the bf16 grids' tiles");
+constexpr int DL_SMEM = tc::smem_bytes<true, true, tc::F32, tc::F32>();     // 147456 bytes
+constexpr int DH_SMEM = tc::smem_bytes<true, false, tc::F32, tc::F32>();    // 143360
+constexpr int DW_SMEM = tc::smem_bytes<false, false, tc::F32, tc::F32>();   // 139264
+
 // dl[row, v0 .. v0 + 127] = (exp(logit - logz) - onehot) g in fp32 for the
-// block's rows below N, 0 in the columns past V; 16 bytes a store.
-__global__ void __launch_bounds__(simlingo::f32::THREADS, 2)
-ce_dlogits_f32_kernel(const float* __restrict__ h, const float* __restrict__ w,
-                      const long long* __restrict__ labels, const float* __restrict__ logz,
-                      const float* __restrict__ gco, float* __restrict__ dl,
-                      int N, int H, int V, int vpad) {
+// block's rows below N, 0 in the columns past V; the logits by the split
+// tile (f32_tc_tile.cuh), 8 bytes a store.
+__global__ void __launch_bounds__(tc::THREADS, 1)
+ce_dlogits_split_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                        const long long* __restrict__ labels, const float* __restrict__ logz,
+                        const float* __restrict__ gco, float* __restrict__ dl,
+                        int N, int H, int V, int vpad) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int m0 = blockIdx.x * FBM, v0 = blockIdx.y * FBN;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float acc[8][8];
-  logits_tile_f32(h, w, m0, v0, N, H, V, acc);
+  float acc[tc::MT][tc::NT][4];
+  tc::tile<true, true>(tc::F32{h, H}, N, tc::F32{w, H}, V, m0, v0, 0, H, smem_raw, acc);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + row_of(i, ty);
-    if (row >= N) continue;
-    const float lz = logz[row], gg = gco[row];
-    const long long lab = labels[row];
+  for (int mt = 0; mt < tc::MT; ++mt)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int v = v0 + half * 64 + 4 * tx;
-      float d[4];
+      const int row = m0 + tc::row_of(mt, 2 * half);
+      if (row >= N) continue;
+      const float lz = logz[row], gg = gco[row];
+      const long long lab = labels[row];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = expf(acc[i][4 * half + c] - lz);
-        d[c] = v + c < V ? (p - (v + c == lab ? 1.f : 0.f)) * gg : 0.f;
+      for (int nt = 0; nt < tc::NT; ++nt) {
+        const int v = v0 + tc::col_of(nt, 0);
+        float d[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float p = expf(acc[mt][nt][2 * half + c] - lz);
+          d[c] = v + c < V ? (p - (v + c == lab ? 1.f : 0.f)) * gg : 0.f;
+        }
+        *reinterpret_cast<float2*>(dl + static_cast<long long>(row) * vpad + v) =
+            make_float2(d[0], d[1]);
       }
-      *reinterpret_cast<float4*>(dl + static_cast<long long>(row) * vpad + v) =
-          make_float4(d[0], d[1], d[2], d[3]);
     }
-  }
 }
 
 // fp32 partial part[s] of the 128 x 128 tile (blockIdx.y, blockIdx.x) of dh
-// over segment s = blockIdx.z (as ce_dh_kernel's); the columns of dl past V
-// are 0 and w has no rows there, so the segment stops at V.
-__global__ void __launch_bounds__(simlingo::f32::THREADS, 2)
-ce_dh_f32_kernel(const float* __restrict__ dl, const float* __restrict__ w,
-                 float* __restrict__ part, int N, int H, int V, int vpad, int seg_steps) {
+// over segment s = blockIdx.z (as ce_dh_kernel's), by the split tile; the
+// columns of dl past V are 0 and w has no rows there, so the segment stops
+// at V.
+__global__ void __launch_bounds__(tc::THREADS, 1)
+ce_dh_split_kernel(const float* __restrict__ dl, const float* __restrict__ w,
+                   float* __restrict__ part, int N, int H, int V, int vpad, int seg_steps) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int n0 = blockIdx.x * GN, m0 = blockIdx.y * GM, s = blockIdx.z;
   const int k0 = s * seg_steps * VSTEP;
   const int k1 = min(min(vpad, k0 + seg_steps * VSTEP), V);
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float acc[8][8];
-  simlingo::f32::tile<true, false>(simlingo::f32::F32{dl, vpad}, N, simlingo::f32::F32{w, H}, H,
-                                   m0, n0, k0, k1, acc);
+  float acc[tc::MT][tc::NT][4];
+  tc::tile<true, false>(tc::F32{dl, vpad}, N, tc::F32{w, H}, H, m0, n0, k0, k1, smem_raw, acc);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + row_of(i, ty);
-    if (row >= N) continue;
+  for (int mt = 0; mt < tc::MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + row_of(j, tx);
-      if (col < H) part[(static_cast<long long>(s) * N + row) * H + col] = acc[i][j];
+    for (int half = 0; half < 2; ++half) {
+      const int row = m0 + tc::row_of(mt, 2 * half);
+      if (row >= N) continue;
+#pragma unroll
+      for (int nt = 0; nt < tc::NT; ++nt) {
+        const int col = n0 + tc::col_of(nt, 0);       // even; H % 32 == 0
+        if (col < H)
+          *reinterpret_cast<float2*>(part + (static_cast<long long>(s) * N + row) * H + col) =
+              make_float2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+      }
     }
-  }
 }
 
 // dW rows [m0, m0 + 128) (vocabulary), columns [n0, n0 + 128) of H, over
-// all N rows of dl and h, fp32.
-__global__ void __launch_bounds__(simlingo::f32::THREADS, 2)
-ce_dw_f32_kernel(const float* __restrict__ dl, const float* __restrict__ h,
-                 float* __restrict__ dw, int N, int H, int V, int vpad) {
+// all N rows of dl and h, by the split tile.
+__global__ void __launch_bounds__(tc::THREADS, 1)
+ce_dw_split_kernel(const float* __restrict__ dl, const float* __restrict__ h,
+                   float* __restrict__ dw, int N, int H, int V, int vpad) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int n0 = blockIdx.x * GN, m0 = blockIdx.y * GM;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float acc[8][8];
-  simlingo::f32::tile<false, false>(simlingo::f32::F32{dl, vpad}, V, simlingo::f32::F32{h, H}, H,
-                                    m0, n0, 0, N, acc);
+  float acc[tc::MT][tc::NT][4];
+  tc::tile<false, false>(tc::F32{dl, vpad}, V, tc::F32{h, H}, H, m0, n0, 0, N, smem_raw, acc);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + row_of(i, ty);
-    if (row >= V) continue;
+  for (int mt = 0; mt < tc::MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + row_of(j, tx);
-      if (col < H) dw[static_cast<long long>(row) * H + col] = acc[i][j];
+    for (int half = 0; half < 2; ++half) {
+      const int row = m0 + tc::row_of(mt, 2 * half);
+      if (row >= V) continue;
+#pragma unroll
+      for (int nt = 0; nt < tc::NT; ++nt) {
+        const int col = n0 + tc::col_of(nt, 0);
+        if (col < H)
+          *reinterpret_cast<float2*>(dw + static_cast<long long>(row) * H + col) =
+              make_float2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+      }
     }
-  }
 }
 
 // The dynamic shared-memory limit above 48 KB is a per-device attribute of
@@ -718,17 +741,34 @@ extern "C" void simlingo_fused_ce_bwd_geometry(int* out) {
   out[3] = G_RESIDENT;
 }
 
-// The fp32 build's backward: the bf16 one's passes on fp32 h, w, dl, dh, dw.
+// The split build's geometry, which the wrapper checks its plan against:
+// the product tile's rows and columns, its k-step, its blocks an SM.
+extern "C" void simlingo_fused_ce_bwd_split_geometry(int* out) {
+  out[0] = tc::BM;
+  out[1] = tc::BN;
+  out[2] = tc::BK;
+  out[3] = 1;
+}
+
+// The fp32 build's backward: the bf16 one's passes on fp32 h, w, dl, dh,
+// dw, each product on the split tile.
 static int fused_ce_bwd_f32(const float* h, const float* w, const long long* labels,
                             const float* logz, const float* g, float* dl, float* part, float* dh,
                             float* dw, int N, int H, int V, int vpad, int S, int seg_steps,
                             cudaStream_t st) {
-  const int T = simlingo::f32::THREADS;
-  ce_dlogits_f32_kernel<<<dim3((N + FBM - 1) / FBM, vpad / FBN), T, 0, st>>>(
-      h, w, labels, logz, g, dl, N, H, V, vpad);
-  cudaError_t e = cudaGetLastError();
+  static std::atomic<bool> dl_raised[MAX_DEVICES], dh_raised[MAX_DEVICES],
+      dw_raised[MAX_DEVICES];
+  const int T = tc::THREADS;
+  cudaError_t e =
+      raise_smem(reinterpret_cast<const void*>(ce_dlogits_split_kernel), DL_SMEM, dl_raised);
   if (e != cudaSuccess) return static_cast<int>(e);
-  ce_dh_f32_kernel<<<dim3((H + GN - 1) / GN, (N + GM - 1) / GM, S), T, 0, st>>>(
+  ce_dlogits_split_kernel<<<dim3((N + FBM - 1) / FBM, vpad / FBN), T, DL_SMEM, st>>>(
+      h, w, labels, logz, g, dl, N, H, V, vpad);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = raise_smem(reinterpret_cast<const void*>(ce_dh_split_kernel), DH_SMEM, dh_raised);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ce_dh_split_kernel<<<dim3((H + GN - 1) / GN, (N + GM - 1) / GM, S), T, DH_SMEM, st>>>(
       dl, w, part, N, H, V, vpad, seg_steps);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -739,14 +779,17 @@ static int fused_ce_bwd_f32(const float* h, const float* w, const long long* lab
       part, nullptr, dh, count, H, S);
   e = cudaGetLastError();
   if (e != cudaSuccess || dw == nullptr) return static_cast<int>(e);
-  ce_dw_f32_kernel<<<dim3((H + GN - 1) / GN, vpad / GM), T, 0, st>>>(dl, h, dw, N, H, V, vpad);
+  e = raise_smem(reinterpret_cast<const void*>(ce_dw_split_kernel), DW_SMEM, dw_raised);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ce_dw_split_kernel<<<dim3((H + GN - 1) / GN, vpad / GM), T, DW_SMEM, st>>>(dl, h, dw, N, H,
+                                                                          V, vpad);
   return static_cast<int>(cudaGetLastError());
 }
 
 // dh [N, H]; dw [V, H] or null (no dW). Scratch: dl [N, Vpad], Vpad = 128
 // ceil(V / 128); part [S, N, H] fp32, S segments of seg_steps 128-column
-// steps each (the wrapper's plan: none empty). bf16 h, w, dl, dh and dw
-// (H % 32 == 0, 16-byte aligned rows), or with fp32 set all fp32.
+// steps each (the wrapper's plan: none empty). bf16 h, w, dl, dh and dw,
+// or with fp32 set all fp32; H % 32 == 0, 16-byte aligned rows.
 extern "C" int simlingo_fused_ce_bwd(const void* h, const void* w, const void* labels,
                                      const void* logz, const void* g, void* dl, void* part,
                                      void* dh, void* dw, int N, int H, int V, int S,
@@ -754,7 +797,7 @@ extern "C" int simlingo_fused_ce_bwd(const void* h, const void* w, const void* l
   static std::atomic<bool> dl_raised[MAX_DEVICES], dh_raised[MAX_DEVICES],
       dw_raised[MAX_DEVICES];
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((!fp32 && H % 32 != 0) || S < 1 || seg_steps < 1)
+  if (H % 32 != 0 || S < 1 || seg_steps < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int vpad = (V + VSTEP - 1) / VSTEP * VSTEP;
   if (fp32)

@@ -101,24 +101,32 @@
 //  * M = 1: gemv_kernel with fp32 x and y (XT = float): it widened bf16 x
 //    to fp32 already; only its loads and its store change. Bound by the
 //    weight bytes, as bf16's.
-//  * M >= 2, gemm_f32_kernel: the fp32 tile product of f32_tile.cuh (128 x
-//    128 tiles, fp32 FMA, the int8 codes widened exactly as they are
-//    loaded), y = sum times the scale widened to fp32.
-//  * dx_f32_kernel: dx = (g * scale) w_q, g * scale an fp32 product as it
-//    is loaded, fp32 sums.
-//  Both split the reduction where the tiles alone give fewer than two
-//  blocks an SM (the wrapper's plan, `_f32_plan`: at most 16 segments);
-//  then each block writes an fp32 partial [S, M, cols] and
+//  * M >= 2, gemm_split_kernel: the split tile product of f32_tc_tile.cuh
+//    (128 x 128 tiles, one block an SM): x cut into big + small in TF32 as
+//    its fragments are loaded, the int8 codes staged as int8 and exact in
+//    TF32, so two mma.sync products a k8-step keep fp32 accuracy on the
+//    tensor cores; y = sum times the scale widened to fp32. Its plan
+//    (`_split_plan`) splits the reduction where the tiles alone give fewer
+//    than two waves, into the count with the shortest critical path. What
+//    bounds it: the operations of the cheaper fp32-accurate scheme, 2 M N K
+//    three times in bf16 (x in three bf16 parts, the codes exact) at 989
+//    TFLOP/s rather than twice in TF32 at 495 (0.127 ms at gate,up and the
+//    4788 training rows).
+//  * dx_f32_kernel: dx = (g * scale) w_q on the SIMT tile of f32_tile.cuh
+//    (128 x 128 tiles, fp32 FMA), g * scale an fp32 product as it is
+//    loaded, fp32 sums; any N, the loads 4 bytes a thread. Its plan
+//    (`_f32_plan`) splits the reduction where the tiles alone give fewer
+//    than two blocks an SM. What bounds it: fp32 operations, 2 M N K
+//    (0.623 ms at 67 TFLOP/s at gate,up and the 4788 training rows).
+//  Where a plan splits, each block writes an fp32 partial [S, M, cols] and
 //  f32_reduce_kernel sums s = 0..S-1 in order (and scales the forward's).
-//  What bounds them: fp32 operations, 2 M N K (0.623 ms at 67 TFLOP/s at
-//  gate,up and the 4788 training rows). Any K and N: the loads are 4
-//  bytes a thread.
 
 #include <atomic>
 
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "f32_tc_tile.cuh"
 #include "f32_tile.cuh"
 
 namespace {
@@ -1025,34 +1033,37 @@ cudaError_t launch_dx(const bf16* g, const int8_t* w, const float* s, float* par
 using simlingo::f32::row_of;
 constexpr int F32_SPLIT_MAX = 16;    // most reduction segments of the fp32 products
 
-// The fp32 tile (blockIdx.y, blockIdx.x) of y = x w_q^T over K columns [z
-// seg, (z + 1) seg), z = blockIdx.z: with part set, the fp32 partial
-// part[z]; else y = the sum times the widened scale.
+namespace tc = simlingo::tc32;
+constexpr int SPLIT_SMEM = tc::smem_bytes<true, true, tc::F32, tc::I8>();   // 98304 bytes
+
+// The tile (blockIdx.y, blockIdx.x) of y = x w_q^T over K columns [z seg,
+// (z + 1) seg), z = blockIdx.z, by the split tile (f32_tc_tile.cuh: x big +
+// small in TF32, the codes exact, two mma.sync products a k8-step): with
+// part set, the fp32 partial part[z]; else y = the sum times the widened
+// scale.
 template <typename ST>
-__global__ void __launch_bounds__(simlingo::f32::THREADS, 2)
-gemm_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
-                const ST* __restrict__ scale, float* __restrict__ part, float* __restrict__ y,
-                int M, int N, int K, int seg) {
-  const int n0 = blockIdx.x * simlingo::f32::BN, m0 = blockIdx.y * simlingo::f32::BM;
+__global__ void __launch_bounds__(tc::THREADS, 1)
+gemm_split_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
+                  const ST* __restrict__ scale, float* __restrict__ part, float* __restrict__ y,
+                  int M, int N, int K, int seg) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n0 = blockIdx.x * tc::BN, m0 = blockIdx.y * tc::BM;
   const int z = blockIdx.z, k0 = z * seg, k1 = min(K, k0 + seg);
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float acc[8][8];
-  simlingo::f32::tile<true, true>(simlingo::f32::F32{x, K}, M, simlingo::f32::I8{w, K}, N, m0,
-                                  n0, k0, k1, acc);
+  float acc[tc::MT][tc::NT][4];
+  tc::tile<true, true>(tc::F32{x, K}, M, tc::I8{w, K}, N, m0, n0, k0, k1, smem, acc);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + row_of(i, ty);
-    if (row >= M) continue;
+  for (int mt = 0; mt < tc::MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + row_of(j, tx);
-      if (col >= N) continue;
-      if (part != nullptr)
-        part[(static_cast<long long>(z) * M + row) * N + col] = acc[i][j];
-      else
-        y[static_cast<long long>(row) * N + col] = acc[i][j] * widen(scale[col]);
-    }
-  }
+    for (int nt = 0; nt < tc::NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = m0 + tc::row_of(mt, e), col = n0 + tc::col_of(nt, e);
+        if (row >= M || col >= N) continue;
+        if (part != nullptr)
+          part[(static_cast<long long>(z) * M + row) * N + col] = acc[mt][nt][e];
+        else
+          y[static_cast<long long>(row) * N + col] = acc[mt][nt][e] * widen(scale[col]);
+      }
 }
 
 // The fp32 tile (blockIdx.y, blockIdx.x) of dx = (g * scale) w_q over the
@@ -1096,13 +1107,24 @@ cudaError_t reduce_f32(const float* part, const ST* scale, float* out, int rows,
 template <typename ST>
 cudaError_t run_forward_f32(const float* x, const int8_t* w, const ST* s, float* part, float* y,
                             int M, int N, int K, int S, int seg, cudaStream_t st) {
-  if (S < 1 || S > F32_SPLIT_MAX || seg < 1 || (S > 1 && part == nullptr))
+  if (S < 1 || S > F32_SPLIT_MAX || seg < 1 || seg % tc::BK != 0 || K % 16 != 0 ||
+      (S > 1 && part == nullptr))
     return cudaErrorInvalidValue;
-  const dim3 grid((N + simlingo::f32::BN - 1) / simlingo::f32::BN,
-                  (M + simlingo::f32::BM - 1) / simlingo::f32::BM, S);
-  gemm_f32_kernel<ST><<<grid, simlingo::f32::THREADS, 0, st>>>(
+  // the shared-memory limit above 48 KB: raised at the first launch on each device
+  static std::atomic<bool> raised[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= MAX_DEVICES || !raised[dev].load(std::memory_order_relaxed)) {
+    e = cudaFuncSetAttribute(gemm_split_kernel<ST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SPLIT_SMEM);
+    if (e != cudaSuccess) return e;
+    if (dev < MAX_DEVICES) raised[dev].store(true, std::memory_order_relaxed);
+  }
+  const dim3 grid((N + tc::BN - 1) / tc::BN, (M + tc::BM - 1) / tc::BM, S);
+  gemm_split_kernel<ST><<<grid, tc::THREADS, SPLIT_SMEM, st>>>(
       x, w, s, S > 1 ? part : nullptr, y, M, N, K, seg);
-  cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess || S == 1) return e;
   return reduce_f32<ST>(part, s, y, M, N, S, st);
 }
@@ -1159,9 +1181,11 @@ extern "C" int simlingo_int8_gemv(const void* x_, const void* w_, const void* s_
 }
 
 // The fp32 build, M >= 2: y[M,N] = (x[M,K] . w_q[N,K]^T) * scale[N], x and y
-// fp32, the scale fp32 or bf16 (scale_bf16). S segments of seg K columns
-// (the wrapper's plan, S <= 16, seg a multiple of 8): with S > 1 the blocks
-// write fp32 partials to part [S, M, N], which f32_reduce_kernel sums.
+// fp32, the scale fp32 or bf16 (scale_bf16), on the split tile. K % 16 ==
+// 0, x and w_q 16-byte aligned (the wrapper pads and checks). S segments of
+// seg K columns (the wrapper's plan, S <= 16, seg a multiple of 32): with S
+// > 1 the blocks write fp32 partials to part [S, M, N], which
+// f32_reduce_kernel sums.
 extern "C" int simlingo_int8_matmul_f32(const void* x_, const void* w_, const void* s_,
                                         void* part_, void* y_, int M, int N, int K,
                                         int scale_bf16, int S, int seg, void* stream) {
@@ -1199,8 +1223,21 @@ extern "C" int simlingo_int8_matmul_dx_f32(const void* g_, const void* w_, const
   return static_cast<int>(reduce_f32<float>(part, nullptr, dx, M, K, S, st));
 }
 
-// The fp32 build's geometry, which the wrapper's plan (`_f32_plan`) is made
-// for: tile rows and columns, the reduction step, the most segments.
+// The fp32 forward's geometry, which the wrapper's plan (`_split_plan`) is
+// made for: tile rows and columns, the reduction step, the most segments,
+// blocks an SM, stages of the ring.
+extern "C" void simlingo_int8_split_geometry(int* out) {
+  out[0] = tc::BM;
+  out[1] = tc::BN;
+  out[2] = tc::BK;
+  out[3] = F32_SPLIT_MAX;
+  out[4] = 1;
+  out[5] = tc::STAGES;
+}
+
+// The fp32 activation gradient's geometry, which the wrapper's plan
+// (`_f32_plan`) is made for: tile rows and columns, the reduction step, the
+// most segments.
 extern "C" void simlingo_int8_f32_geometry(int* out) {
   out[0] = simlingo::f32::BM;
   out[1] = simlingo::f32::BN;

@@ -19,12 +19,15 @@ With compute_dw False the gradient of w is zeros (JAX `_fused_ce_bwd`
 True, dW is computed where autograd asks for it.
 
 On a CUDA tensor `fused_ce_fwd` / `fused_ce_bwd` launch `csrc/fused_ce.cu`:
-its bf16 build for bf16 h and w, its fp32 build (fp32 FMA products, no
-tensor cores; counted also in `launches_fp32`) for fp32 h and w; any other
-dtype, or h and w of two dtypes, raises. A width H that is not a multiple
-of 32 is zero-padded to one (`_pad_width`: zero columns add nothing to a
-logit, and their dh / dW columns are cut off); the path's H = 896 takes no
-copy. On a CPU tensor they run their plain versions. Labels may come as
+its bf16 build for bf16 h and w, its fp32 build (counted also in
+`launches_fp32`) for fp32 h and w; any other dtype, or h and w of two
+dtypes, raises. The fp32 forward uses fp32 FMA products; the fp32
+backward's three products run on the tensor cores with split operands
+(`csrc/f32_tc_tile.cuh`: each fp32 element as big + small in TF32, three
+products a step, fp32 sums), which keeps fp32 accuracy. A width H that is
+not a multiple of 32 is zero-padded to one (`_pad_width`: zero columns add
+nothing to a logit, and their dh / dW columns are cut off); the path's H =
+896 takes no copy. On a CPU tensor they run their plain versions. Labels may come as
 any integer type: the wrapper hands the kernel int64.
 
 The backward on the card is a scratch and two tiled products (`_bwd_plan`
@@ -55,6 +58,9 @@ _VSTEP = 128                              # vocabulary columns a dlogits tile, a
 _DH_TILE = (128, 128)                     # product tile: rows, columns
 _DH_RESIDENT = 2                          # product blocks an SM
 _DH_MAX_SEGMENTS = 16                     # cap on S: fp32 partials [S, N, H]
+# the fp32 build's split tile (simlingo_fused_ce_bwd_split_geometry): rows,
+# columns, k-step, blocks an SM. Its products take the bf16 grids.
+_SPLIT_GEOMETRY = (*_DH_TILE, 32, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -144,7 +150,9 @@ def _bwd_plan(N: int, H: int, V: int, sms: int, dtype=torch.bfloat16) -> BwdPlan
     _DH_RESIDENT blocks an SM) run together. Where the tiles alone fill a
     wave, S = 1; else S <= _DH_MAX_SEGMENTS fills its last wave best, the
     fewest segments among equals (the training shape: 56 tiles, S = 14,
-    784 blocks, 2.97 waves of 264; `chip_smoke.py --ce-sweep`)."""
+    784 blocks, 2.97 waves of 264; `chip_smoke.py --ce-sweep`). The fp32
+    build's split tile holds one block an SM (_SPLIT_GEOMETRY): the same
+    blocks fill 5.94 waves of 132, as full a last wave."""
     bm, bn = _DH_TILE
     vpad = _VSTEP * -(-V // _VSTEP)
     steps = vpad // _VSTEP
@@ -315,6 +323,10 @@ def _lib():
         if tuple(geometry) != want:
             raise RuntimeError(f"fused_ce_bwd: the library's geometry {tuple(geometry)} "
                                f"differs from the plan's {want}")
+        lib.simlingo_fused_ce_bwd_split_geometry(geometry)
+        if tuple(geometry) != _SPLIT_GEOMETRY or _VSTEP % _SPLIT_GEOMETRY[2]:
+            raise RuntimeError(f"fused_ce_bwd: the library's split geometry "
+                               f"{tuple(geometry)} differs from the plan's {_SPLIT_GEOMETRY}")
     return lib
 
 

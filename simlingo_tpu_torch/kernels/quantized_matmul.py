@@ -20,11 +20,14 @@ scale, never a dequantized copy, so no bf16 copy of a frozen layer lives
 from forward to backward (JAX's optimisation-barrier comment, :88-93).
 On a CUDA tensor both products launch the hand-written kernels
 (`csrc/int8_matmul.cu`): the bf16 build for bf16 x or g, the fp32 build
-(fp32 FMA products, no tensor cores; counted also in `launches_fp32`) for
-fp32 x or g, with the output in the activation's dtype; any other dtype
-raises. On a CPU tensor they run their plain versions, which compute in
-fp32, or in fp64 for fp64 inputs (the card's references for the fp32
-build). The scale may be fp32 or bf16 (the training step stores frozen
+(counted also in `launches_fp32`) for fp32 x or g, with the output in the
+activation's dtype; any other dtype raises. The fp32 forward at M >= 2
+runs on the tensor cores with split operands (`csrc/f32_tc_tile.cuh`: x
+as big + small in TF32, the int8 codes exact in TF32, two products a
+step), which keeps fp32 accuracy; the fp32 gradient and the M = 1 GEMV
+use fp32 FMA. On a CPU tensor they run their plain versions, which
+compute in fp32, or in fp64 for fp64 inputs (the card's references for
+the fp32 build). The scale may be fp32 or bf16 (the training step stores frozen
 leaves in bf16, as JAX does); the kernels multiply by it widened to fp32,
 the value JAX multiplies by. The forward kernel reads a bf16 scale itself;
 the activation gradient's wrapper widens it first. A K that is not a
@@ -229,27 +232,63 @@ def _gemv_plan(N: int, K: int, sms: int) -> GemvPlan:
     return GemvPlan(rows, warps, -(-groups // rounds))
 
 
-# The fp32 build's geometry (simlingo_int8_f32_geometry): output tile (rows,
-# columns), reduction step, most segments of a split.
+# The fp32 gradient's geometry (simlingo_int8_f32_geometry): output tile
+# (rows, columns), reduction step, most segments of a split.
 _F32_TILE = (128, 128)
 _F32_STEP = 8
 _F32_SPLIT = 16
 
 
 def _f32_plan(M: int, N: int, K: int, sms: int):
-    """Grid of the fp32 build's products (gemm_f32_kernel: y [M, N] over
-    K; dx_f32_kernel: dx [M, K] over N, called with its own (M, K, N)):
-    (S segments, seg reduction columns). S = 1 where the output tiles alone
-    give two blocks an SM (the training rows' linears but k,v, the tied
-    head's forward); below that, the reduction is cut into S <= _F32_SPLIT
-    segments of whole steps, as many as the SMs take two blocks of
-    (training k,v: 6; the head's dx: 16; serving's M <= 640 rows), each
-    block writing an fp32 partial that f32_reduce_kernel sums in order."""
+    """Grid of dx_f32_kernel (dx [M, K] over N, called with its own (M, K,
+    N)): (S segments, seg reduction columns). S = 1 where the output tiles
+    alone give two blocks an SM (the training rows' linears but k,v);
+    below that, the reduction is cut into S <= _F32_SPLIT segments of
+    whole steps, as many as the SMs take two blocks of (training k,v: 6;
+    the head's dx: 16; serving's M <= 640 rows), each block writing an
+    fp32 partial that f32_reduce_kernel sums in order."""
     tiles = -(-M // _F32_TILE[0]) * -(-N // _F32_TILE[1])
     steps = max(1, -(-K // _F32_STEP))
     S = 1 if tiles >= 2 * sms else max(1, min(steps, _F32_SPLIT, 2 * sms // tiles))
     per = -(-steps // S)
     return -(-steps // per), per * _F32_STEP
+
+
+# The fp32 forward's geometry (simlingo_int8_split_geometry): output tile
+# (rows, columns), reduction step, most segments of a split, blocks an SM,
+# stages of its cp.async ring.
+_SPLIT_TILE = (128, 128)
+_SPLIT_STEP = 32
+_SPLIT_MAX = 16
+_SPLIT_RESIDENT = 1
+_SPLIT_STAGES = 4
+
+
+@functools.lru_cache(maxsize=256)
+def _split_plan(M: int, N: int, K: int, sms: int):
+    """Grid of gemm_split_kernel (fp32 x, M >= 2): (S segments, seg K
+    columns). S = 1 where the 128 x 128 tiles alone give two waves of
+    _SPLIT_RESIDENT blocks an SM or more (the training rows' linears but
+    k,v; the tied head). Below that, the reduction is cut into at most
+    _SPLIT_MAX segments of whole 32-column steps, the count with the
+    shortest critical path: its waves times a block's steps, each block
+    also waiting _SPLIT_STAGES - 1 steps for its ring to fill; the fewest
+    among equals (training k,v: 38 tiles, S = 3 of 10 steps in one wave;
+    serving's gate,up at M = 640: S = 2). Each block then writes an fp32
+    partial that f32_reduce_kernel sums in order, times the scale."""
+    tiles = -(-M // _SPLIT_TILE[0]) * -(-N // _SPLIT_TILE[1])
+    steps = max(1, -(-K // _SPLIT_STEP))
+    slots = _SPLIT_RESIDENT * sms
+
+    def path(s):                        # s segments of whole steps: (waves x steps, s)
+        per = -(-steps // s)
+        return -(-tiles * s // slots) * (per + _SPLIT_STAGES - 1), s
+    S = 1
+    if tiles < 2 * slots:
+        whole = {-(-steps // -(-steps // s)) for s in range(1, min(steps, _SPLIT_MAX) + 1)}
+        S = min(whole, key=path)
+    per = -(-steps // S)
+    return -(-steps // per), per * _SPLIT_STEP
 
 
 def _pad_operands(a, w_q, scale, grad, even_n=False):
@@ -292,7 +331,7 @@ def _int8_matmul_cuda(x, w_q, scale):
             x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
             N, Kp, bf16_scale, int(fp32), *_gemv_plan(N, Kp, sms), stream)
     elif fp32:
-        S, seg = _f32_plan(M, N, Kp, sms)
+        S, seg = _split_plan(M, N, Kp, sms)
         part = torch.empty((S, M, N), dtype=torch.float32, device=x.device) if S > 1 else None
         rc = _lib().simlingo_int8_matmul_f32(
             x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
@@ -404,6 +443,13 @@ def _lib():
                 f"int8_matmul_dx: the library's tile, step and resident blocks "
                 f"{tuple(geometry)} differ from the plan's "
                 f"{(*_DX_TILE, _DX_STEP, _DX_RESIDENT)}")
+        geometry = (ctypes.c_int * 6)()
+        lib.simlingo_int8_split_geometry(geometry)
+        want = (*_SPLIT_TILE, _SPLIT_STEP, _SPLIT_MAX, _SPLIT_RESIDENT, _SPLIT_STAGES)
+        if tuple(geometry) != want:
+            raise RuntimeError(
+                f"int8_matmul: the library's split tile, step, most segments, blocks "
+                f"an SM and stages {tuple(geometry)} differ from the plan's {want}")
         geometry = (ctypes.c_int * 4)()
         lib.simlingo_int8_f32_geometry(geometry)
         if tuple(geometry) != (*_F32_TILE, _F32_STEP, _F32_SPLIT):

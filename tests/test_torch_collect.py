@@ -23,6 +23,7 @@ without `--collect`, against JAX's suite; and one babysat
 import gzip
 import importlib
 import importlib.util
+import itertools
 import json
 import os
 import sys
@@ -41,6 +42,7 @@ from simlingo_tpu.data.tokenizer import SimLingoTokenizer as JTokenizer
 from simlingo_tpu.models import simlingo as jsim
 from simlingo_tpu.models.qwen2 import Qwen2Config as JQwen2Config
 from simlingo_tpu.models.vit import ViTConfig as JViTConfig
+from simlingo_tpu.sim import actors as jactors
 from simlingo_tpu.sim import runner as jrun
 from simlingo_tpu.sim import suite as jsuite
 from simlingo_tpu_torch.agent import lidar as tlidar
@@ -51,6 +53,7 @@ from simlingo_tpu_torch.core.from_jax import params_from_jax
 from simlingo_tpu_torch.data.index import build_index
 from simlingo_tpu_torch.data.tokenizer import SimLingoTokenizer
 from simlingo_tpu_torch.orchestration.babysitter import Babysitter, LocalBackend
+from simlingo_tpu_torch.sim import actors as tactors
 from simlingo_tpu_torch.sim import runner as trun
 from simlingo_tpu_torch.sim import suite as tsuite
 from tests import carla_stubs as stubs
@@ -97,13 +100,18 @@ def collected(tmp_path_factory):
     root = tmp_path_factory.mktemp("collect")
     old = os.environ.get("SAVE_TF_LABELS")
     os.environ["SAVE_TF_LABELS"] = "1"
+    counters = jactors._ids, tactors._ids
     try:
         recs = {}
-        for tag, run in (("jax", jrun), ("torch", trun)):
+        for tag, run, actors in (("jax", jrun, jactors), ("torch", trun, tactors)):
+            # the boxes carry actor ids, which each package counts from 1 per
+            # process: both routes start the count anew, whatever ran before
+            actors._ids = itertools.count(1)
             recs[tag] = run.run_route(SPEC, run.expert_factory(
                 save_root=str(root / tag / ROUTES), seed=0, dir_name_fmt="Town12_collect"),
                 seed=0)
     finally:
+        jactors._ids, tactors._ids = counters
         if old is None:
             os.environ.pop("SAVE_TF_LABELS")
         else:

@@ -41,7 +41,9 @@ half a spacing of the fp32 |ref| plus 2^-20 sqrt(K) of the sum of |terms|
 are built at (16, 32, 128) and at two they zero-pad (48, 80), and the
 refusal of one past 128. The fp32 builds of the fused CE and the int8
 products are held to their plain versions in fp64 within chip_smoke.py's
-fp32 bounds (2^-22 sqrt(n) of the sum of |terms| and |ref|), and the bf16
+fp32 bounds (2^-22 sqrt(n) of the sum of |terms| and |ref|), the split
+builds (the CE backward pass by pass, the int8 forward at ragged and split
+shapes) the same way, and the bf16
 builds at widths the wrappers zero-pad (H 100, K 100, N 101) to the bf16
 bounds above. The int4 product (plain PyTorch) on the GPU
 against its CPU fp32 path to 2^-8 (|ref| + sum|terms|), and
@@ -1531,6 +1533,75 @@ def test_fp32_int8_matmul_dx_matches_plain(gpu, M, N, K):
     terms = TQM.int8_matmul_dx_reference(g.double(), w_q, s, abs_terms=True)
     _within64(dx, ref, _fp32_unit(N) * (terms + ref.abs()) + 1e-12, "dx")
     assert TQM.int8_matmul_dx.launches_fp32 == n32 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,V", [(100, 128, 1111), (37, 100, 1111), (129, 64, 257),
+                                   (300, 896, 5000)])
+def test_split_fp32_ce_backward_pass_by_pass(gpu, N, H, V):
+    """The fused CE's split backward (ce_dlogits_split_kernel,
+    ce_dh_split_kernel + f32_reduce_kernel, ce_dw_split_kernel; H 100
+    zero-padded to 128) pass by pass against fp64 on the same fp32 inputs,
+    within chip_smoke.py's fp32 bounds: its dlogits scratch within
+    fp32_unit(H) (|ref| + g p A) and exactly 0 past V, dh and dW within
+    fp32_unit(V) / fp32_unit(N) of the plain products of its own scratch;
+    scratch, dh and dW the same bits on two calls; counted in
+    launches_fp32."""
+    g_ = torch.Generator(device=gpu).manual_seed(3 * N + V)
+    h = torch.randn(N, H, generator=g_, device=gpu)
+    w = 0.02 * torch.randn(V, H, generator=g_, device=gpu)
+    labels = torch.randint(0, V, (N,), generator=g_, device=gpu)
+    labels[0], labels[-1] = -100, V
+    g = torch.rand(N, generator=g_, device=gpu) / N
+    logz, _ = TCE.fused_ce_fwd_plain(h, labels, w)
+    n32 = TCE.fused_ce_bwd.launches_fp32
+    dh, dw, dl = TCE.fused_ce_bwd(h, labels, w, logz, g, True, return_scratch=True)
+    again = TCE.fused_ce_bwd(h, labels, w, logz, g, True, return_scratch=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip((dh, dw, dl), again))
+    assert TCE.fused_ce_bwd.launches_fp32 == n32 + 2
+    assert dl.dtype == dh.dtype == dw.dtype == torch.float32 and dh.shape == (N, H)
+    plan = TCE._bwd_plan(N, -(-H // TCE.WIDTH_STEP) * TCE.WIDTH_STEP, V,
+                         _build.sm_count(gpu.index or 0), torch.float32)
+    assert dl.shape == plan.scratch_shape and int(torch.count_nonzero(dl[:, V:])) == 0
+    h64, w64, lz64, g64 = h.double(), w.double(), logz.double(), g.double()
+    ref = TCE.ce_dlogits_reference(h64, labels, w64, lz64, g64, plan)[:, :V]
+    pa = torch.exp(h64 @ w64.t() - lz64[:, None]) * (h64.abs() @ w64.abs().t()) * g64[:, None]
+    _within64(dl[:, :V], ref, _fp32_unit(H) * (ref.abs() + pa) + 1e-30, "dlogits")
+    dl64 = dl.double()
+    for got, want, terms, n, name in (
+            (dh, TCE.ce_dh_from_scratch_reference(dl64, w64, plan),
+             TCE.ce_dh_from_scratch_reference(dl64, w64, plan, abs_terms=True), V, "dh"),
+            (dw, TCE.ce_dw_from_scratch_reference(dl64, h64, V),
+             TCE.ce_dw_from_scratch_reference(dl64, h64, V, abs_terms=True), N, "dW")):
+        rms = float(want.square().mean().sqrt())
+        _within64(got, want, _fp32_unit(n) * (terms + want.abs()) + 1e-6 * rms, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,scale", [(130, 100, 101, "bf16"), (2, 4864, 33, "fp32"),
+                                         (640, 4864, 896, "fp32"), (300, 896, 129, "bf16"),
+                                         (4788, 896, 128, "bf16")])
+def test_split_int8_forward_at_ragged_and_split_shapes(gpu, M, K, N, scale):
+    """int8_matmul's split fp32 forward (gemm_split_kernel; K 100
+    zero-padded to 112, N off the tile, and `_split_plan`'s splits: S 7 at
+    M 640, S 3 at the training k,v) against the plain version in fp64 on
+    the same fp32 x, within fp32_unit(K) (sum |terms| + |ref|) + 1e-6
+    rms(ref); the same bits on two calls; counted."""
+    g_ = torch.Generator(device=gpu).manual_seed(M * N + K)
+    x = torch.randn(M, K, generator=g_, device=gpu)
+    w_q, s = TQM.quantize_weight(0.02 * torch.randn(N, K, generator=g_, device=gpu))
+    s = s.bfloat16() if scale == "bf16" else s
+    n32 = TQM.int8_matmul.launches_fp32
+    y = TQM.int8_matmul(x, w_q, s)
+    again = TQM.int8_matmul(x, w_q, s)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.float32 and y.shape == (M, N) and torch.equal(y, again)
+    assert TQM.int8_matmul.launches_fp32 == n32 + 2
+    ref = TQM.int8_matmul_reference(x.double(), w_q, s)
+    terms = TQM.int8_matmul_reference(x.double(), w_q, s, abs_terms=True)
+    rms = float(ref.square().mean().sqrt())
+    _within64(y, ref, _fp32_unit(K) * (terms + ref.abs()) + 1e-6 * rms, "y")
 
 
 @pytest.mark.cuda
