@@ -13,8 +13,8 @@ norms (every phase-2 norm case, forward and backward apart), dropout
 (phase 2's zero-offset cases), fused_ce_fp32 (the fp32 CE forward and
 backward, dh and dh + dW, and the bf16 backward on the same inputs, at the
 training shape) or int8_fp32 (the fp32 int8 forward and gradient, and the
-bf16 gradient, at the int8 base's training rows; the fp32 CE backward and
-the fp32 int8 forward are timed only, since their order of sums is free). The tree
+bf16 gradient, at the int8 base's training rows); chip_smoke.py's
+MUST_EQUAL names the cases whose bits two trees must share. The tree
 is the current directory:
 
     git archive <parent> | tar -x -C build/parent

@@ -1,9 +1,10 @@
 // The split-fp32 tile product on Hopper's tensor cores: fp32 operands, fp32
-// sums, products by mma.sync TF32. The fp32 builds of the fused CE's
-// backward (fused_ce.cu: ce_dlogits_split_kernel, ce_dh_split_kernel,
-// ce_dw_split_kernel) and of the w8a16 forward (int8_matmul.cu:
-// gemm_split_kernel) run on it; the CE forward and the int8 activation
-// gradient keep the SIMT tile of f32_tile.cuh.
+// sums, products by mma.sync TF32. Every fp32 product of the fused CE
+// (fused_ce.cu: ce_fwd_split_kernel and ce_dlogits_split_kernel, which
+// share one logits routine, ce_dh_split_kernel, ce_dw_split_kernel) and
+// both int8 products at M >= 2 (int8_matmul.cu: gemm_split_kernel,
+// dx_split_kernel) run on it; f32_reduce_kernel, at the end, sums the
+// partials of a split reduction.
 //
 // Why a split keeps fp32. One TF32 product rounds each operand to 11
 // significant bits; JAX's fp32 step rounds none. Each fp32 element a is cut
@@ -14,7 +15,10 @@
 // fp32" (3xTF32). An operand exact in TF32 (int8 codes, |v| <= 127) has
 // small = 0 and its term is skipped: 2 mma a k8-step against an int8
 // weight, 3 in the CE. The split happens in registers at fragment load:
-// shared memory holds one fp32 (or int8) tile a stage.
+// shared memory holds one fp32 (or int8) tile a stage. A scaled operand
+// (Scaled: the activation gradient's g times the weight's per-row scale)
+// is multiplied in fp32 at fragment load, rounded once and never fused
+// into the split's subtraction, so the value split is JAX's g * scale.
 //
 // The tensor core adds an mma's products into its accumulator without
 // rounding to nearest (earlier tensor cores were measured to truncate), so
@@ -35,11 +39,17 @@
 // ROWS false, k is the memory row (A [K, M], B [K, N]): staged [k][i],
 // rows of 128 + 8 floats. Either padding sends the eight row groups of a
 // fragment load (lane g = lane / 4 at i = g, t = lane % 4 at k = t) to 32
-// banks. int8 codes (ROWS only) are staged as int8, rows of 32 + 16 bytes,
-// and widened exactly at fragment load. The memory rows must start 16-byte
-// aligned (ld a multiple of 4 floats or 16 codes, k0 of 4 or 16): the
-// wrappers pad. acc[mt][nt][e] is tile row row_of(mt, e), column
-// col_of(nt, e). About 190 registers a thread: one block an SM.
+// banks. int8 codes are staged as int8 and widened exactly at fragment
+// load: [i][k] in rows of 32 + 16 bytes, or [k][i] in rows of 128 + 16
+// bytes, which puts the four k-rows of a B fragment (k = t) on four bank
+// pairs (the eight lanes of a row share one 8-byte word pair). A scaled
+// operand is staged [i][k] with the step's 32 scale entries after its
+// tile, and may copy VEC = 16, 8 or 4 bytes at a time, so that rows whose
+// width is not a multiple of 4 floats need no padded copy. The memory rows
+// must start aligned to their copies (16 bytes, or VEC; ld a multiple of 4
+// floats or 16 codes, k0 of 32): the wrappers pad or pick VEC.
+// acc[mt][nt][e] is tile row row_of(mt, e), column col_of(nt, e). About
+// 190 registers a thread: one block an SM.
 #pragma once
 
 #include <type_traits>
@@ -54,6 +64,7 @@ constexpr int WM = 64, WN = 32, MT = WM / 16, NT = WN / 8;     // a warp's tile,
 constexpr int LD_ROWS = BK + 4;       // floats a row of an [i][k] stage
 constexpr int LD_COLS = BM + 8;       // floats a row of a [k][i] stage
 constexpr int LD_CODES = BK + 16;     // bytes a row of an int8 [i][k] stage
+constexpr int LD_KCODES = BM + 16;    // bytes a row of an int8 [k][i] stage
 static_assert(BM == BN, "one [k][i] row length serves both operands");
 
 struct F32 {                // fp32 elements, split into big + small
@@ -66,14 +77,32 @@ struct I8 {                 // int8 codes, exact in TF32
   long long ld;
 };
 
+// fp32 elements times a per-column scale: (i, k) = p[i ld + k] s[k], rounded
+// once in fp32, then split; copied VEC bytes at a time (ld a multiple of
+// VEC / 4 floats)
+template <int VEC>
+struct Scaled {
+  const float* p;
+  long long ld;
+  const float* s;
+};
+
 template <class Src>
 constexpr bool exact = std::is_same_v<Src, I8>;
+
+template <class Src>
+struct scaled_copy { static constexpr int bytes = 0; };
+template <int VEC>
+struct scaled_copy<Scaled<VEC>> { static constexpr int bytes = VEC; };
+template <class Src>
+constexpr bool scaled = scaled_copy<Src>::bytes != 0;
 
 // bytes of one stage of an operand
 template <bool ROWS, class Src>
 __host__ __device__ constexpr int stage_bytes() {
-  static_assert(!exact<Src> || ROWS, "int8 codes are staged [i][k]");
-  if constexpr (exact<Src>) return BM * LD_CODES;
+  static_assert(!scaled<Src> || ROWS, "a scaled operand is staged [i][k]");
+  if constexpr (exact<Src>) return ROWS ? BM * LD_CODES : BK * LD_KCODES;
+  else if constexpr (scaled<Src>) return BM * LD_ROWS * 4 + BK * 4;
   else return ROWS ? BM * LD_ROWS * 4 : BK * LD_COLS * 4;
 }
 
@@ -97,6 +126,18 @@ __device__ __forceinline__ void copy16(void* smem, const void* gmem, int bytes) 
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                ::"r"(s), "l"(gmem), "r"(bytes) : "memory");
+}
+
+// the same for a VEC-byte copy (16, 8 or 4), both addresses VEC-aligned
+template <int VEC>
+__device__ __forceinline__ void copy_vec(void* smem, const void* gmem, int bytes) {
+  if constexpr (VEC == 16) {
+    copy16(smem, gmem, bytes);
+  } else {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                 ::"r"(s), "l"(gmem), "n"(VEC), "r"(bytes) : "memory");
+  }
 }
 
 // One k-step [k, k + 32) of an operand's 128-row tile at i0 into a stage.
@@ -126,14 +167,43 @@ __device__ __forceinline__ void load_stage(const F32& src, unsigned char* stage,
 template <bool ROWS>
 __device__ __forceinline__ void load_stage(const I8& src, unsigned char* stage, int i0, int lim,
                                            int k, int k1) {
-  static_assert(ROWS, "int8 codes are staged [i][k]");
 #pragma unroll
-  for (int j = 0; j < BM * BK / 16 / THREADS; ++j) {          // 128 rows of 2 chunks
+  for (int j = 0; j < BM * BK / 16 / THREADS; ++j) {
     const int c = threadIdx.x + j * THREADS;
-    const int i = i0 + (c >> 1), kk = k + (c & 1) * 16;
-    const int n = i < lim ? max(0, min(16, k1 - kk)) : 0;
-    copy16(stage + (c >> 1) * LD_CODES + (c & 1) * 16, n > 0 ? src.p + i * src.ld + kk : src.p,
-           n);
+    if constexpr (ROWS) {          // 128 rows of 2 chunks
+      const int i = i0 + (c >> 1), kk = k + (c & 1) * 16;
+      const int n = i < lim ? max(0, min(16, k1 - kk)) : 0;
+      copy16(stage + (c >> 1) * LD_CODES + (c & 1) * 16, n > 0 ? src.p + i * src.ld + kk : src.p,
+             n);
+    } else {                       // 32 k-rows of 8 chunks
+      const int kk = k + (c >> 3), i = i0 + (c & 7) * 16;
+      const int n = kk < k1 ? max(0, min(16, lim - i)) : 0;
+      copy16(stage + (c >> 3) * LD_KCODES + (c & 7) * 16, n > 0 ? src.p + kk * src.ld + i : src.p,
+             n);
+    }
+  }
+}
+
+// A scaled operand's [i][k] tile, VEC bytes a copy, then the step's 32
+// scale entries (k is a multiple of 32, so 16 bytes a copy)
+template <bool ROWS, int VEC>
+__device__ __forceinline__ void load_stage(const Scaled<VEC>& src, unsigned char* stage, int i0,
+                                           int lim, int k, int k1) {
+  static_assert(ROWS, "a scaled operand is staged [i][k]");
+  constexpr int F = VEC / 4, CPR = BK / F;          // floats a copy, copies a row
+  float* s = reinterpret_cast<float*>(stage);
+#pragma unroll
+  for (int j = 0; j < BM * CPR / THREADS; ++j) {
+    const int c = threadIdx.x + j * THREADS;
+    const int r = c / CPR, kk = k + (c % CPR) * F, i = i0 + r;
+    const int n = i < lim ? max(0, min(F, k1 - kk)) : 0;
+    copy_vec<VEC>(s + r * LD_ROWS + (c % CPR) * F, n > 0 ? src.p + i * src.ld + kk : src.p,
+                  4 * n);
+  }
+  if (threadIdx.x < BK / 4) {
+    const int kk = k + 4 * threadIdx.x;
+    const int n = max(0, min(4, k1 - kk));
+    copy16(s + BM * LD_ROWS + 4 * threadIdx.x, n > 0 ? src.s + kk : src.s, 4 * n);
   }
 }
 
@@ -141,7 +211,11 @@ __device__ __forceinline__ void load_stage(const I8& src, unsigned char* stage, 
 template <bool ROWS, class Src>
 __device__ __forceinline__ float elem(const unsigned char* stage, int i, int k) {
   if constexpr (exact<Src>)
-    return static_cast<float>(reinterpret_cast<const int8_t*>(stage)[i * LD_CODES + k]);
+    return static_cast<float>(
+        reinterpret_cast<const int8_t*>(stage)[ROWS ? i * LD_CODES + k : k * LD_KCODES + i]);
+  else if constexpr (scaled<Src>)      // rounded once: never fused into the split
+    return __fmul_rn(reinterpret_cast<const float*>(stage)[i * LD_ROWS + k],
+                     reinterpret_cast<const float*>(stage)[BM * LD_ROWS + k]);
   else if constexpr (ROWS)
     return reinterpret_cast<const float*>(stage)[i * LD_ROWS + k];
   else
@@ -264,6 +338,27 @@ __device__ __forceinline__ void tile(const SA& a, int a_lim, const SB& b, int b_
   }
   cp_async_wait<0>();
   __syncthreads();
+}
+
+// out[i] = sum over s = 0..S-1 of part[s count + i], in that order, times
+// scale[i % cols] where scale is given: the split reductions' second pass.
+template <typename ST>
+__global__ void __launch_bounds__(256)
+f32_reduce_kernel(const float* __restrict__ part, const ST* __restrict__ scale,
+                  float* __restrict__ out, long long count, int cols, int S) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < count;
+       i += stride) {
+    float v = part[i];
+    for (int s = 1; s < S; ++s) v += part[s * count + i];
+    if (scale != nullptr) {
+      if constexpr (sizeof(ST) == 2)
+        v *= __bfloat162float(scale[i % cols]);
+      else
+        v *= scale[i % cols];
+    }
+    out[i] = v;
+  }
 }
 
 }  // namespace tc32

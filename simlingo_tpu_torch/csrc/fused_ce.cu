@@ -74,26 +74,26 @@
 // The fp32 build (precision=fp32: fp32 h and w). JAX's kernels work in their
 // operands' dtype, so at fp32 the logits and both products are fp32 and
 // dlogits is rounded to w's dtype, fp32: nothing is rounded below fp32.
-// The same passes and grids as bf16's. The forward, ce_fwd_tile_f32_kernel,
-// runs on the SIMT tile of f32_tile.cuh (fp32 FMA) and writes the same
-// (max, sum) partials, which ce_fwd_finalize_kernel merges as it does
-// bf16's. The backward's three products run on the split tile of
+// The same passes and grids as bf16's, every product on the split tile of
 // f32_tc_tile.cuh (each fp32 operand big + small in TF32, three mma.sync
-// products a k8-step, fp32 sums: fp32 accuracy on the tensor cores):
-// ce_dlogits_split_kernel writes an fp32 scratch dl [N, Vpad] (582.5 MB at
-// the training shape), ce_dh_split_kernel the fp32 segment partials of the
-// wrapper's plan (the bf16 grids: one split block an SM, 14 segments fill
-// 5.94 waves of 132), f32_reduce_kernel sums them in order into an fp32
-// dh, ce_dw_split_kernel dW = dl^T h. H % 32 == 0 (the wrapper pads). What
-// bounds it: the operations, 2 N H V a product, three TF32 products each
-// (the backward's dh 3.16 ms at 495 TFLOP/s at the training shape, 4.74
-// with dW; the forward 3.90 ms at 67 TFLOP/s fp32).
+// products a k8-step, fp32 sums: fp32 accuracy on the tensor cores). The
+// forward, ce_fwd_split_kernel, computes its logits tile by logits_split,
+// the routine ce_dlogits_split_kernel recomputes them with, so the
+// backward's exp(logit - logz) sees the very logits logz was built from;
+// it writes the same (max, sum) partials, which ce_fwd_finalize_kernel
+// merges as it does bf16's. ce_dlogits_split_kernel writes an fp32 scratch
+// dl [N, Vpad] (582.5 MB at the training shape), ce_dh_split_kernel the
+// fp32 segment partials of the wrapper's plan (the bf16 grids: one split
+// block an SM, 14 segments fill 5.94 waves of 132), f32_reduce_kernel sums
+// them in order into an fp32 dh, ce_dw_split_kernel dW = dl^T h. H % 32 ==
+// 0 (the wrapper pads). What bounds it: the operations, 2 N H V a
+// product, three TF32 products each (the forward 1.58 ms at 495 TFLOP/s
+// at the training shape, the backward's dh 3.16, 4.74 with dW).
 
 #include <atomic>
 
 #include "common.cuh"
 #include "f32_tc_tile.cuh"
-#include "f32_tile.cuh"
 
 namespace {
 
@@ -536,70 +536,92 @@ ce_dw_kernel(const bf16* __restrict__ dl, const bf16* __restrict__ h, bf16* __re
 // the fp32 build
 // ---------------------------------------------------------------------------
 
-using simlingo::f32::row_of;
-static_assert(simlingo::f32::BM == FBM && simlingo::f32::BN == FBN && GM == FBM && GN == FBN,
-              "the fp32 build's tiles are the bf16 grids' tiles");
-
-// The logits tile h w^T of rows [m0, m0 + 128) and columns [v0, v0 + 128),
-// fp32 (f32_tile.cuh: acc[i][j] is row m0 + row_of(i, ty), column v0 +
-// row_of(j, tx)).
-__device__ __forceinline__ void logits_tile_f32(const float* __restrict__ h,
-                                                const float* __restrict__ w, int m0, int v0,
-                                                int N, int H, int V, float (&acc)[8][8]) {
-  simlingo::f32::tile<true, true>(simlingo::f32::F32{h, H}, N, simlingo::f32::F32{w, H}, V,
-                                  m0, v0, 0, H, acc);
-}
-
-// The forward's partials, as ce_fwd_tile_kernel's: each row's max m_s and
-// sum l_s = sum exp(logit - m_s) over the tile's columns below V (the 16
-// lanes of a row group reduce by shuffles in a fixed order), and the gold
-// logit from the one thread that holds the label's column.
-__global__ void __launch_bounds__(simlingo::f32::THREADS, 2)
-ce_fwd_tile_f32_kernel(const float* __restrict__ h, const float* __restrict__ w,
-                       const long long* __restrict__ labels, float* __restrict__ part_m,
-                       float* __restrict__ part_l, float* __restrict__ gold,
-                       int N, int H, int V) {
-  const int m0 = blockIdx.x * FBM, v0 = blockIdx.y * FBN;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float acc[8][8];
-  logits_tile_f32(h, w, m0, v0, N, H, V, acc);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + row_of(i, ty);
-    const long long lab = row < N ? labels[row] : -1;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = v0 + row_of(j, tx);
-      if (col < V) mx = fmaxf(mx, acc[i][j]);
-      if (col == lab) gold[row] = acc[i][j];          // one thread in the grid
-    }
-#pragma unroll
-    for (int off = 1; off < 16; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    float l = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      if (v0 + row_of(j, tx) < V) l += expf(acc[i][j] - mx);
-#pragma unroll
-    for (int off = 1; off < 16; off <<= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
-    if (tx == 0 && row < N) {
-      const long long at = static_cast<long long>(blockIdx.y) * N + row;
-      part_m[at] = mx;
-      part_l[at] = l;
-    }
-  }
-}
-
 namespace tc = simlingo::tc32;
-static_assert(tc::BM == FBM && tc::BN == FBN && VSTEP % tc::BK == 0,
+static_assert(tc::BM == FBM && tc::BN == FBN && GM == FBM && GN == FBN && VSTEP % tc::BK == 0,
               "the split build's tiles are the bf16 grids' tiles");
 constexpr int DL_SMEM = tc::smem_bytes<true, true, tc::F32, tc::F32>();     // 147456 bytes
 constexpr int DH_SMEM = tc::smem_bytes<true, false, tc::F32, tc::F32>();    // 143360
 constexpr int DW_SMEM = tc::smem_bytes<false, false, tc::F32, tc::F32>();   // 139264
 
+// The logits tile h w^T of rows [m0, m0 + 128) and columns [v0, v0 + 128)
+// by the split tile (acc[mt][nt][e] is row m0 + tc::row_of(mt, e), column
+// v0 + tc::col_of(nt, e)): the forward's and the backward's, the same bits.
+__device__ __forceinline__ void logits_split(const float* __restrict__ h,
+                                             const float* __restrict__ w, int m0, int v0, int N,
+                                             int H, int V, unsigned char* smem,
+                                             float (&acc)[tc::MT][tc::NT][4]) {
+  tc::tile<true, true>(tc::F32{h, H}, N, tc::F32{w, H}, V, m0, v0, 0, H, smem, acc);
+}
+
+// The forward's partials, as ce_fwd_tile_kernel's: each row's max m_s and
+// sum l_s = sum exp(logit - m_s) over the tile's columns below V, and the
+// gold logit from the one thread that holds the label's column. A row's 128
+// columns lie over 4 lanes (t = lane % 4) and the 4 warps along n: the
+// lanes reduce by shuffles, the warps through the ring's shared memory,
+// free after the tile, in warp order; the max first, then the sum against
+// it.
+__global__ void __launch_bounds__(tc::THREADS, 1)
+ce_fwd_split_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                    const long long* __restrict__ labels, float* __restrict__ part_m,
+                    float* __restrict__ part_l, float* __restrict__ gold, int N, int H, int V) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int m0 = blockIdx.x * FBM, v0 = blockIdx.y * FBN;
+  float acc[tc::MT][tc::NT][4];
+  logits_split(h, w, m0, v0, N, H, V, smem_raw, acc);
+  float* red_m = reinterpret_cast<float*>(smem_raw);      // [4 warps along n][128 rows]
+  float* red_l = red_m + 4 * FBM;
+  const int wn = threadIdx.x >> 6, t = threadIdx.x & 3;
+  const auto row_max = [&](int r) {
+    return fmaxf(fmaxf(red_m[r], red_m[FBM + r]), fmaxf(red_m[2 * FBM + r], red_m[3 * FBM + r]));
+  };
+#pragma unroll
+  for (int mt = 0; mt < tc::MT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = tc::row_of(mt, 2 * half), row = m0 + r;
+      const long long lab = row < N ? labels[row] : -1;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < tc::NT; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = v0 + tc::col_of(nt, c);
+          if (col < V) mx = fmaxf(mx, acc[mt][nt][2 * half + c]);
+          if (col == lab) gold[row] = acc[mt][nt][2 * half + c];      // one thread in the grid
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      if (t == 0) red_m[wn * FBM + r] = mx;
+    }
+  __syncthreads();
+#pragma unroll
+  for (int mt = 0; mt < tc::MT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = tc::row_of(mt, 2 * half);
+      const float mx = row_max(r);
+      float l = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < tc::NT; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if (v0 + tc::col_of(nt, c) < V) l += expf(acc[mt][nt][2 * half + c] - mx);
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      if (t == 0) red_l[wn * FBM + r] = l;
+    }
+  __syncthreads();
+  const int r = threadIdx.x, row = m0 + r;
+  if (r < FBM && row < N) {
+    const long long at = static_cast<long long>(blockIdx.y) * N + row;
+    part_m[at] = row_max(r);
+    part_l[at] = ((red_l[r] + red_l[FBM + r]) + red_l[2 * FBM + r]) + red_l[3 * FBM + r];
+  }
+}
+
 // dl[row, v0 .. v0 + 127] = (exp(logit - logz) - onehot) g in fp32 for the
-// block's rows below N, 0 in the columns past V; the logits by the split
-// tile (f32_tc_tile.cuh), 8 bytes a store.
+// block's rows below N, 0 in the columns past V; the logits by
+// logits_split, 8 bytes a store.
 __global__ void __launch_bounds__(tc::THREADS, 1)
 ce_dlogits_split_kernel(const float* __restrict__ h, const float* __restrict__ w,
                         const long long* __restrict__ labels, const float* __restrict__ logz,
@@ -608,7 +630,7 @@ ce_dlogits_split_kernel(const float* __restrict__ h, const float* __restrict__ w
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int m0 = blockIdx.x * FBM, v0 = blockIdx.y * FBN;
   float acc[tc::MT][tc::NT][4];
-  tc::tile<true, true>(tc::F32{h, H}, N, tc::F32{w, H}, V, m0, v0, 0, H, smem_raw, acc);
+  logits_split(h, w, m0, v0, N, H, V, smem_raw, acc);
 #pragma unroll
   for (int mt = 0; mt < tc::MT; ++mt)
 #pragma unroll
@@ -705,12 +727,15 @@ cudaError_t raise_smem(const void* kernel, int bytes, std::atomic<bool>* raised)
 extern "C" int simlingo_fused_ce_fwd(const void* h, const void* w, const void* labels,
                                      void* part_m, void* part_l, void* gold, void* logz,
                                      void* ce, int N, int H, int V, int fp32, void* stream) {
-  static std::atomic<bool> raised[MAX_DEVICES];
+  static std::atomic<bool> raised[MAX_DEVICES], split_raised[MAX_DEVICES];
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nvt = (V + FBN - 1) / FBN;
   const dim3 grid((N + FBM - 1) / FBM, nvt);
   if (fp32) {
-    ce_fwd_tile_f32_kernel<<<grid, simlingo::f32::THREADS, 0, st>>>(
+    cudaError_t e =
+        raise_smem(reinterpret_cast<const void*>(ce_fwd_split_kernel), DL_SMEM, split_raised);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ce_fwd_split_kernel<<<grid, tc::THREADS, DL_SMEM, st>>>(
         static_cast<const float*>(h), static_cast<const float*>(w),
         static_cast<const long long*>(labels), static_cast<float*>(part_m),
         static_cast<float*>(part_l), static_cast<float*>(gold), N, H, V);
@@ -775,7 +800,7 @@ static int fused_ce_bwd_f32(const float* h, const float* w, const long long* lab
   const long long count = static_cast<long long>(N) * H;
   long long blocks = (count + 255) / 256;
   if (blocks > 132 * 8) blocks = 132 * 8;
-  simlingo::f32::f32_reduce_kernel<float><<<static_cast<unsigned>(blocks), 256, 0, st>>>(
+  tc::f32_reduce_kernel<float><<<static_cast<unsigned>(blocks), 256, 0, st>>>(
       part, nullptr, dh, count, H, S);
   e = cudaGetLastError();
   if (e != cudaSuccess || dw == nullptr) return static_cast<int>(e);

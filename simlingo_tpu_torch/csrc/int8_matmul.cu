@@ -105,21 +105,23 @@
 //    (128 x 128 tiles, one block an SM): x cut into big + small in TF32 as
 //    its fragments are loaded, the int8 codes staged as int8 and exact in
 //    TF32, so two mma.sync products a k8-step keep fp32 accuracy on the
-//    tensor cores; y = sum times the scale widened to fp32. Its plan
-//    (`_split_plan`) splits the reduction where the tiles alone give fewer
-//    than two waves, into the count with the shortest critical path. What
-//    bounds it: the operations of the cheaper fp32-accurate scheme, 2 M N K
-//    three times in bf16 (x in three bf16 parts, the codes exact) at 989
-//    TFLOP/s rather than twice in TF32 at 495 (0.127 ms at gate,up and the
-//    4788 training rows).
-//  * dx_f32_kernel: dx = (g * scale) w_q on the SIMT tile of f32_tile.cuh
-//    (128 x 128 tiles, fp32 FMA), g * scale an fp32 product as it is
-//    loaded, fp32 sums; any N, the loads 4 bytes a thread. Its plan
-//    (`_f32_plan`) splits the reduction where the tiles alone give fewer
-//    than two blocks an SM. What bounds it: fp32 operations, 2 M N K
-//    (0.623 ms at 67 TFLOP/s at gate,up and the 4788 training rows).
-//  Where a plan splits, each block writes an fp32 partial [S, M, cols] and
-//  f32_reduce_kernel sums s = 0..S-1 in order (and scales the forward's).
+//    tensor cores; y = sum times the scale widened to fp32.
+//  * dx_split_kernel: dx = (g * scale) w_q on the same tile. g comes
+//    through the tile's scaled source: g * scale, an fp32 product rounded
+//    once (JAX's gs), formed at fragment load and then split; the codes lie
+//    k-major (the sum runs along w_q's rows) and are staged [k][i] as
+//    int8. g's rows are copied 16 bytes at a time where N % 4 == 0, else 8
+//    or 4 (the vocabulary, 151674, leaves rows 8-byte aligned; PERF.md has
+//    the narrow copies against one zero-padded copy of g).
+//  Both take the plan `_split_plan` (the gradient with its own (M, K, N)):
+//  where the tiles alone give fewer than two waves, the reduction is cut
+//  into the count of segments with the shortest critical path; each block
+//  then writes an fp32 partial [S, M, cols] and f32_reduce_kernel sums s =
+//  0..S-1 in order (and scales the forward's). What bounds both: the
+//  operations of the cheaper fp32-accurate scheme, 2 M N K three times in
+//  bf16 (the fp32 operand in three bf16 parts, the codes exact) at 989
+//  TFLOP/s rather than twice in TF32 at 495 (0.127 ms at gate,up and down
+//  and the 4788 training rows); at k,v the bytes.
 
 #include <atomic>
 
@@ -127,7 +129,6 @@
 
 #include "common.cuh"
 #include "f32_tc_tile.cuh"
-#include "f32_tile.cuh"
 
 namespace {
 
@@ -1030,11 +1031,12 @@ cudaError_t launch_dx(const bf16* g, const int8_t* w, const float* s, float* par
 // the fp32 build: M >= 2 and the activation gradient
 // ---------------------------------------------------------------------------
 
-using simlingo::f32::row_of;
 constexpr int F32_SPLIT_MAX = 16;    // most reduction segments of the fp32 products
 
 namespace tc = simlingo::tc32;
 constexpr int SPLIT_SMEM = tc::smem_bytes<true, true, tc::F32, tc::I8>();   // 98304 bytes
+template <int VEC>
+constexpr int DX_SPLIT_SMEM = tc::smem_bytes<true, false, tc::Scaled<VEC>, tc::I8>();  // 92672
 
 // The tile (blockIdx.y, blockIdx.x) of y = x w_q^T over K columns [z seg,
 // (z + 1) seg), z = blockIdx.z, by the split tile (f32_tc_tile.cuh: x big +
@@ -1066,30 +1068,50 @@ gemm_split_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
       }
 }
 
-// The fp32 tile (blockIdx.y, blockIdx.x) of dx = (g * scale) w_q over the
-// weight rows [z seg, (z + 1) seg): with part set, the fp32 partial
-// part[z]; else dx.
-__global__ void __launch_bounds__(simlingo::f32::THREADS, 2)
-dx_f32_kernel(const float* __restrict__ g, const int8_t* __restrict__ w,
-              const float* __restrict__ scale, float* __restrict__ part, float* __restrict__ dx,
-              int M, int N, int K, int seg) {
-  const int n0 = blockIdx.x * simlingo::f32::BN, m0 = blockIdx.y * simlingo::f32::BM;
+// The tile (blockIdx.y, blockIdx.x) of dx = (g * scale) w_q over the weight
+// rows [z seg, (z + 1) seg), z = blockIdx.z, by the split tile: g * scale
+// rounded once in fp32 and split into big + small in TF32, the codes
+// exact and staged k-major, two mma.sync products a k8-step. g's rows lie
+// ldg floats apart and are copied VEC bytes at a time. With part set, the
+// fp32 partial part[z]; else dx. 8 bytes a store (K % 16 == 0).
+template <int VEC>
+__global__ void __launch_bounds__(tc::THREADS, 1)
+dx_split_kernel(const float* __restrict__ g, const int8_t* __restrict__ w,
+                const float* __restrict__ scale, float* __restrict__ part, float* __restrict__ dx,
+                int M, int N, int K, long long ldg, int seg) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n0 = blockIdx.x * tc::BN, m0 = blockIdx.y * tc::BM;
   const int z = blockIdx.z, r0 = z * seg, r1 = min(N, r0 + seg);
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float acc[8][8];
-  simlingo::f32::tile<true, false>(simlingo::f32::Scaled{g, N, scale}, M,
-                                   simlingo::f32::I8{w, K}, K, m0, n0, r0, r1, acc);
+  float acc[tc::MT][tc::NT][4];
+  tc::tile<true, false>(tc::Scaled<VEC>{g, ldg, scale}, M, tc::I8{w, K}, K, m0, n0, r0, r1, smem,
+                        acc);
   float* out = part != nullptr ? part + static_cast<long long>(z) * M * K : dx;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + row_of(i, ty);
-    if (row >= M) continue;
+  for (int mt = 0; mt < tc::MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + row_of(j, tx);
-      if (col < K) out[static_cast<long long>(row) * K + col] = acc[i][j];
+    for (int half = 0; half < 2; ++half) {
+      const int row = m0 + tc::row_of(mt, 2 * half);
+      if (row >= M) continue;
+#pragma unroll
+      for (int nt = 0; nt < tc::NT; ++nt) {
+        const int col = n0 + tc::col_of(nt, 0);       // even
+        if (col < K)
+          *reinterpret_cast<float2*>(out + static_cast<long long>(row) * K + col) =
+              make_float2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+      }
     }
-  }
+}
+
+// The shared-memory limit above 48 KB is a per-device attribute of a
+// kernel: raised at its first launch on each device.
+cudaError_t raise_smem(const void* kernel, int bytes, std::atomic<bool>* raised) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < MAX_DEVICES && raised[dev].load(std::memory_order_relaxed)) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess && dev < MAX_DEVICES) raised[dev].store(true, std::memory_order_relaxed);
+  return e;
 }
 
 // The split's second pass: out = sum_s part[s] (times the scale, where given).
@@ -1099,7 +1121,7 @@ cudaError_t reduce_f32(const float* part, const ST* scale, float* out, int rows,
   const long long count = static_cast<long long>(rows) * cols;
   long long blocks = (count + 255) / 256;
   if (blocks > 132 * 8) blocks = 132 * 8;
-  simlingo::f32::f32_reduce_kernel<ST><<<static_cast<unsigned>(blocks), 256, 0, st>>>(
+  tc::f32_reduce_kernel<ST><<<static_cast<unsigned>(blocks), 256, 0, st>>>(
       part, scale, out, count, cols, S);
   return cudaGetLastError();
 }
@@ -1110,23 +1132,31 @@ cudaError_t run_forward_f32(const float* x, const int8_t* w, const ST* s, float*
   if (S < 1 || S > F32_SPLIT_MAX || seg < 1 || seg % tc::BK != 0 || K % 16 != 0 ||
       (S > 1 && part == nullptr))
     return cudaErrorInvalidValue;
-  // the shared-memory limit above 48 KB: raised at the first launch on each device
   static std::atomic<bool> raised[MAX_DEVICES];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  cudaError_t e = raise_smem(reinterpret_cast<const void*>(gemm_split_kernel<ST>), SPLIT_SMEM,
+                             raised);
   if (e != cudaSuccess) return e;
-  if (dev >= MAX_DEVICES || !raised[dev].load(std::memory_order_relaxed)) {
-    e = cudaFuncSetAttribute(gemm_split_kernel<ST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SPLIT_SMEM);
-    if (e != cudaSuccess) return e;
-    if (dev < MAX_DEVICES) raised[dev].store(true, std::memory_order_relaxed);
-  }
   const dim3 grid((N + tc::BN - 1) / tc::BN, (M + tc::BM - 1) / tc::BM, S);
   gemm_split_kernel<ST><<<grid, tc::THREADS, SPLIT_SMEM, st>>>(
       x, w, s, S > 1 ? part : nullptr, y, M, N, K, seg);
   e = cudaGetLastError();
   if (e != cudaSuccess || S == 1) return e;
   return reduce_f32<ST>(part, s, y, M, N, S, st);
+}
+
+template <int VEC>
+cudaError_t run_dx_f32(const float* g, const int8_t* w, const float* s, float* part, float* dx,
+                       int M, int N, int K, long long ldg, int S, int seg, cudaStream_t st) {
+  static std::atomic<bool> raised[MAX_DEVICES];
+  cudaError_t e = raise_smem(reinterpret_cast<const void*>(dx_split_kernel<VEC>),
+                             DX_SPLIT_SMEM<VEC>, raised);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((K + tc::BN - 1) / tc::BN, (M + tc::BM - 1) / tc::BM, S);
+  dx_split_kernel<VEC><<<grid, tc::THREADS, DX_SPLIT_SMEM<VEC>, st>>>(
+      g, w, s, S > 1 ? part : nullptr, dx, M, N, K, ldg, seg);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || S == 1) return e;
+  return reduce_f32<float>(part, nullptr, dx, M, K, S, st);
 }
 
 template <typename ST>
@@ -1202,28 +1232,36 @@ extern "C" int simlingo_int8_matmul_f32(const void* x_, const void* w_, const vo
 }
 
 // The fp32 build of the activation gradient: dx[M,K] = (g[M,N] * scale[N])
-// . w_q[N,K], g, the scale and dx fp32. S segments of seg weight rows (S <=
-// 16): with S > 1 the blocks write fp32 partials to part [S, M, K], which
-// f32_reduce_kernel sums.
+// . w_q[N,K], g, the scale and dx fp32, on the split tile. g's rows lie ldg
+// >= N floats apart and are copied vec bytes at a time (16, 8 or 4: ldg a
+// multiple of vec / 4, g vec-aligned); the scale 16-byte aligned; K % 16
+// == 0, w_q 16-byte aligned (the wrapper pads and checks). S segments of
+// seg weight rows (the wrapper's plan, `_split_plan` with (M, K, N): S <=
+// 16, seg a multiple of 32): with S > 1 the blocks write fp32 partials to
+// part [S, M, K], which f32_reduce_kernel sums.
 extern "C" int simlingo_int8_matmul_dx_f32(const void* g_, const void* w_, const void* s_,
-                                           void* part_, void* dx_, int M, int N, int K, int S,
-                                           int seg, void* stream) {
+                                           void* part_, void* dx_, int M, int N, int K,
+                                           long long ldg, int vec, int S, int seg,
+                                           void* stream) {
+  const auto* g = static_cast<const float*>(g_);
+  const auto* w = static_cast<const int8_t*>(w_);
+  const auto* s = static_cast<const float*>(s_);
   auto* part = static_cast<float*>(part_);
   auto* dx = static_cast<float*>(dx_);
   auto st = static_cast<cudaStream_t>(stream);
-  if (S < 1 || S > F32_SPLIT_MAX || seg < 1 || (S > 1 && part == nullptr))
+  const auto addr = reinterpret_cast<uintptr_t>(g);
+  if (S < 1 || S > F32_SPLIT_MAX || seg < 1 || seg % tc::BK != 0 || K % 16 != 0 || ldg < N ||
+      (vec != 16 && vec != 8 && vec != 4) || ldg % (vec / 4) != 0 || addr % vec != 0 ||
+      reinterpret_cast<uintptr_t>(s) % 16 != 0 || (S > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((K + simlingo::f32::BN - 1) / simlingo::f32::BN,
-                  (M + simlingo::f32::BM - 1) / simlingo::f32::BM, S);
-  dx_f32_kernel<<<grid, simlingo::f32::THREADS, 0, st>>>(
-      static_cast<const float*>(g_), static_cast<const int8_t*>(w_),
-      static_cast<const float*>(s_), S > 1 ? part : nullptr, dx, M, N, K, seg);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || S == 1) return static_cast<int>(e);
-  return static_cast<int>(reduce_f32<float>(part, nullptr, dx, M, K, S, st));
+  const cudaError_t e =
+      vec == 16 ? run_dx_f32<16>(g, w, s, part, dx, M, N, K, ldg, S, seg, st)
+      : vec == 8 ? run_dx_f32<8>(g, w, s, part, dx, M, N, K, ldg, S, seg, st)
+                 : run_dx_f32<4>(g, w, s, part, dx, M, N, K, ldg, S, seg, st);
+  return static_cast<int>(e);
 }
 
-// The fp32 forward's geometry, which the wrapper's plan (`_split_plan`) is
+// The fp32 products' geometry, which the wrapper's plan (`_split_plan`) is
 // made for: tile rows and columns, the reduction step, the most segments,
 // blocks an SM, stages of the ring.
 extern "C" void simlingo_int8_split_geometry(int* out) {
@@ -1233,16 +1271,6 @@ extern "C" void simlingo_int8_split_geometry(int* out) {
   out[3] = F32_SPLIT_MAX;
   out[4] = 1;
   out[5] = tc::STAGES;
-}
-
-// The fp32 activation gradient's geometry, which the wrapper's plan
-// (`_f32_plan`) is made for: tile rows and columns, the reduction step, the
-// most segments.
-extern "C" void simlingo_int8_f32_geometry(int* out) {
-  out[0] = simlingo::f32::BM;
-  out[1] = simlingo::f32::BN;
-  out[2] = simlingo::f32::BK;
-  out[3] = F32_SPLIT_MAX;
 }
 
 // The forward's geometry, which the wrapper's plan is made for: for the

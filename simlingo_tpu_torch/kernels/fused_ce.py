@@ -21,10 +21,12 @@ True, dW is computed where autograd asks for it.
 On a CUDA tensor `fused_ce_fwd` / `fused_ce_bwd` launch `csrc/fused_ce.cu`:
 its bf16 build for bf16 h and w, its fp32 build (counted also in
 `launches_fp32`) for fp32 h and w; any other dtype, or h and w of two
-dtypes, raises. The fp32 forward uses fp32 FMA products; the fp32
-backward's three products run on the tensor cores with split operands
+dtypes, raises. Every fp32 product, the forward's logits and the
+backward's three, runs on the tensor cores with split operands
 (`csrc/f32_tc_tile.cuh`: each fp32 element as big + small in TF32, three
-products a step, fp32 sums), which keeps fp32 accuracy. A width H that is
+products a step, fp32 sums), which keeps fp32 accuracy; the forward and
+the backward's dlogits pass compute the logits by one routine, so the
+backward recomputes the very logits logz came from. A width H that is
 not a multiple of 32 is zero-padded to one (`_pad_width`: zero columns add
 nothing to a logit, and their dh / dW columns are cut off); the path's H =
 896 takes no copy. On a CPU tensor they run their plain versions. Labels may come as

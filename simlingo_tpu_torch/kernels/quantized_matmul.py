@@ -21,11 +21,11 @@ from forward to backward (JAX's optimisation-barrier comment, :88-93).
 On a CUDA tensor both products launch the hand-written kernels
 (`csrc/int8_matmul.cu`): the bf16 build for bf16 x or g, the fp32 build
 (counted also in `launches_fp32`) for fp32 x or g, with the output in the
-activation's dtype; any other dtype raises. The fp32 forward at M >= 2
-runs on the tensor cores with split operands (`csrc/f32_tc_tile.cuh`: x
-as big + small in TF32, the int8 codes exact in TF32, two products a
-step), which keeps fp32 accuracy; the fp32 gradient and the M = 1 GEMV
-use fp32 FMA. On a CPU tensor they run their plain versions, which
+activation's dtype; any other dtype raises. Both fp32 products at M >= 2
+run on the tensor cores with split operands (`csrc/f32_tc_tile.cuh`: x,
+or g * scale rounded once in fp32, as big + small in TF32, the int8 codes
+exact in TF32, two products a step), which keeps fp32 accuracy; the M = 1
+GEMV uses fp32 FMA. On a CPU tensor they run their plain versions, which
 compute in fp32, or in fp64 for fp64 inputs (the card's references for
 the fp32 build). The scale may be fp32 or bf16 (the training step stores frozen
 leaves in bf16, as JAX does); the kernels multiply by it widened to fp32,
@@ -232,29 +232,7 @@ def _gemv_plan(N: int, K: int, sms: int) -> GemvPlan:
     return GemvPlan(rows, warps, -(-groups // rounds))
 
 
-# The fp32 gradient's geometry (simlingo_int8_f32_geometry): output tile
-# (rows, columns), reduction step, most segments of a split.
-_F32_TILE = (128, 128)
-_F32_STEP = 8
-_F32_SPLIT = 16
-
-
-def _f32_plan(M: int, N: int, K: int, sms: int):
-    """Grid of dx_f32_kernel (dx [M, K] over N, called with its own (M, K,
-    N)): (S segments, seg reduction columns). S = 1 where the output tiles
-    alone give two blocks an SM (the training rows' linears but k,v);
-    below that, the reduction is cut into S <= _F32_SPLIT segments of
-    whole steps, as many as the SMs take two blocks of (training k,v: 6;
-    the head's dx: 16; serving's M <= 640 rows), each block writing an
-    fp32 partial that f32_reduce_kernel sums in order."""
-    tiles = -(-M // _F32_TILE[0]) * -(-N // _F32_TILE[1])
-    steps = max(1, -(-K // _F32_STEP))
-    S = 1 if tiles >= 2 * sms else max(1, min(steps, _F32_SPLIT, 2 * sms // tiles))
-    per = -(-steps // S)
-    return -(-steps // per), per * _F32_STEP
-
-
-# The fp32 forward's geometry (simlingo_int8_split_geometry): output tile
+# The fp32 products' geometry (simlingo_int8_split_geometry): output tile
 # (rows, columns), reduction step, most segments of a split, blocks an SM,
 # stages of its cp.async ring.
 _SPLIT_TILE = (128, 128)
@@ -266,16 +244,19 @@ _SPLIT_STAGES = 4
 
 @functools.lru_cache(maxsize=256)
 def _split_plan(M: int, N: int, K: int, sms: int):
-    """Grid of gemm_split_kernel (fp32 x, M >= 2): (S segments, seg K
-    columns). S = 1 where the 128 x 128 tiles alone give two waves of
-    _SPLIT_RESIDENT blocks an SM or more (the training rows' linears but
-    k,v; the tied head). Below that, the reduction is cut into at most
-    _SPLIT_MAX segments of whole 32-column steps, the count with the
-    shortest critical path: its waves times a block's steps, each block
-    also waiting _SPLIT_STAGES - 1 steps for its ring to fill; the fewest
-    among equals (training k,v: 38 tiles, S = 3 of 10 steps in one wave;
-    serving's gate,up at M = 640: S = 2). Each block then writes an fp32
-    partial that f32_reduce_kernel sums in order, times the scale."""
+    """Grid of gemm_split_kernel (fp32 x, M >= 2) and of dx_split_kernel
+    (fp32 g, called with its own (M, K, N): dx [M, K] over N): (S
+    segments, seg reduction columns). S = 1 where the 128 x 128 tiles
+    alone give two waves of _SPLIT_RESIDENT blocks an SM or more (the
+    training rows' linears but k,v; the tied head's forward). Below that,
+    the reduction is cut into at most _SPLIT_MAX segments of whole
+    32-column steps, the count with the shortest critical path: its waves
+    times a block's steps, each block also waiting _SPLIT_STAGES - 1 steps
+    for its ring to fill; the fewest among equals (training k,v: 38 tiles,
+    S = 3 of 10 steps in one wave; serving's gate,up at M = 640: S = 2;
+    the head's dx: 14 tiles, S = 9 of 527 steps in one wave). Each block
+    then writes an fp32 partial that f32_reduce_kernel sums in order (the
+    forward's times the scale)."""
     tiles = -(-M // _SPLIT_TILE[0]) * -(-N // _SPLIT_TILE[1])
     steps = max(1, -(-K // _SPLIT_STEP))
     slots = _SPLIT_RESIDENT * sms
@@ -377,7 +358,7 @@ def _int8_matmul_dx_cuda(g, w_q, scale):
     lead = g.shape[:-1]
     fp32 = g.dtype == torch.float32
     # the bf16 kernel copies g rows 4 bytes at a time: N even
-    g2, w_q, scale = _pad_operands(g.reshape(-1, N), w_q, scale.float().contiguous(),
+    g2, w_q, scale = _pad_operands(g.reshape(-1, N), w_q, _build.aligned16(scale.float()),
                                    grad=True, even_n=not fp32)
     g2 = g2.contiguous()
     if g2.data_ptr() % 4:
@@ -389,13 +370,13 @@ def _int8_matmul_dx_cuda(g, w_q, scale):
         sms = _build.sm_count(g.device.index or 0)
         stream = torch.cuda.current_stream(g.device).cuda_stream
         if fp32:
-            S, seg = _f32_plan(M, Kp, Np, sms)
+            S, seg = _split_plan(M, Kp, Np, sms)
             part = (torch.empty((S, M, Kp), dtype=torch.float32, device=g.device)
                     if S > 1 else None)
             rc = _lib().simlingo_int8_matmul_dx_f32(
                 g2.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
                 None if part is None else part.data_ptr(), out.data_ptr(),
-                M, Np, Kp, S, seg, stream)
+                M, Np, Kp, Np, _dx_copy_bytes(Np, g2.data_ptr()), S, seg, stream)
         else:
             _, S, seg = _dx_plan(M, Np, Kp, sms)
             part = (torch.empty((S, M, Kp), dtype=torch.float32, device=g.device)
@@ -412,6 +393,14 @@ def _int8_matmul_dx_cuda(g, w_q, scale):
         _build.check(rc, "int8_matmul_dx")
         _build.count_launch(int8_matmul_dx, g.dtype)
     return (out if Kp == K else out[:, :K].contiguous()).reshape(*lead, K)
+
+
+def _dx_copy_bytes(ld: int, ptr: int) -> int:
+    """Bytes a copy of fp32 g's rows (ld floats apart, from address ptr) in
+    dx_split_kernel: 16 where every row starts 16-byte aligned, else 8 (the
+    vocabulary's 151674) or 4 (an odd N); `chip_smoke.py --int8-sweep`
+    times them against one zero-padded copy of g with 16-byte copies."""
+    return next(v for v in (16, 8, 4) if ld % (v // 4) == 0 and ptr % v == 0)
 
 
 int8_matmul.launches = 0
@@ -450,13 +439,6 @@ def _lib():
             raise RuntimeError(
                 f"int8_matmul: the library's split tile, step, most segments, blocks "
                 f"an SM and stages {tuple(geometry)} differ from the plan's {want}")
-        geometry = (ctypes.c_int * 4)()
-        lib.simlingo_int8_f32_geometry(geometry)
-        if tuple(geometry) != (*_F32_TILE, _F32_STEP, _F32_SPLIT):
-            raise RuntimeError(
-                f"int8_matmul: the library's fp32 tile, step and most segments "
-                f"{tuple(geometry)} differ from the plan's "
-                f"{(*_F32_TILE, _F32_STEP, _F32_SPLIT)}")
         lib.simlingo_int8_matmul.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.simlingo_int8_matmul.restype = ctypes.c_int
@@ -464,7 +446,8 @@ def _lib():
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.simlingo_int8_matmul_f32.restype = ctypes.c_int
         lib.simlingo_int8_matmul_dx_f32.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_longlong]
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         lib.simlingo_int8_matmul_dx_f32.restype = ctypes.c_int
         lib.simlingo_int8_gemv.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])

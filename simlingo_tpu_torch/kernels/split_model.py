@@ -66,6 +66,52 @@ def int8_forward_model(x, w_q, scale):
     return split_product(x.float(), w_q.float(), exact_b=True) * scale.float()
 
 
+def int8_dx_model(g, w_q, scale):
+    """The fp32 int8 activation gradient (dx_split_kernel): gs = g * scale
+    rounded once in fp32 (JAX's gs), then dx = gs w_q, two split products
+    a step (gs split, the codes exact)."""
+    gs = g.float() * scale.float()
+    return split_product(gs, w_q.float().t(), exact_b=True)
+
+
+def _merge(M, L, m, l):
+    """ce_fwd_finalize_kernel's merge of a tile's (max, sum) into a row's:
+    an all-masked tile (m = -inf) is skipped."""
+    keep = m == float("-inf")
+    up = m > M
+    L_up = L * torch.exp(M - m) + l
+    L_dn = L + l * torch.exp(m - M)
+    return (torch.where(keep, M, torch.where(up, m, M)),
+            torch.where(keep, L, torch.where(up, L_up, L_dn)))
+
+
+def ce_fwd_model(h2, labels, w, tile=128, slices=8):
+    """The fp32 fused-CE forward (ce_fwd_split_kernel + ce_fwd_finalize_kernel):
+    (logz [N], ce [N]). The logits by the split tile; per `tile`-column
+    tile the max over the columns below V and the sum of exp(logit - max);
+    the tiles merged as the finalize merges them (tile j into slice j %
+    `slices` in order, then slices 1.. into slice 0); logz = max + log sum,
+    ce = logz - the label's logit (0 for a label outside [0, V))."""
+    N, V = h2.shape[0], w.shape[0]
+    logits = split_product(h2.float(), w.float())
+    inf = torch.full((N,), float("-inf"), device=h2.device)
+    zero = torch.zeros(N, device=h2.device)
+    acc = [(inf, zero) for _ in range(slices)]
+    for j, v0 in enumerate(range(0, V, tile)):
+        t = logits[:, v0:v0 + tile]
+        m = t.max(dim=1).values
+        l = torch.exp(t - m[:, None]).sum(dim=1)
+        acc[j % slices] = _merge(*acc[j % slices], m, l)
+    M, L = acc[0]
+    for Mi, Li in acc[1:]:
+        M, L = _merge(M, L, Mi, Li)
+    logz = M + torch.log(L)
+    labels = labels.long()
+    ok = (labels >= 0) & (labels < V)
+    gold = logits.gather(1, labels.clamp(0, V - 1)[:, None])[:, 0]
+    return logz, logz - torch.where(ok, gold, zero)
+
+
 def ce_bwd_model(h2, labels, w, logz, g, segments, compute_dw=True):
     """The fp32 fused-CE backward's three passes (ce_dlogits_split_kernel,
     ce_dh_split_kernel + f32_reduce_kernel, ce_dw_split_kernel): (dl [N,

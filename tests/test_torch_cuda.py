@@ -43,7 +43,9 @@ refusal of one past 128. The fp32 builds of the fused CE and the int8
 products are held to their plain versions in fp64 within chip_smoke.py's
 fp32 bounds (2^-22 sqrt(n) of the sum of |terms| and |ref|), the split
 builds (the CE backward pass by pass, the int8 forward at ragged and split
-shapes) the same way, and the bf16
+shapes) the same way, both split builds of this kind the same bits on two
+calls at ragged and unaligned shapes, and the CE forward's gold logit the
+bits the backward recomputes; and the bf16
 builds at widths the wrappers zero-pad (H 100, K 100, N 101) to the bf16
 bounds above. The int4 product (plain PyTorch) on the GPU
 against its CPU fp32 path to 2^-8 (|ref| + sum|terms|), and
@@ -1449,9 +1451,12 @@ def _within64(got, ref, tol, name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,H,V,compute_dw", [(100, 128, 1111, True), (300, 896, 5000, False),
-                                              (37, 100, 1111, True), (129, 64, 257, True)])
+                                              (37, 100, 1111, True), (129, 64, 257, True),
+                                              (101, 896, 151674, False),
+                                              (101, 100, 20001, False)])
 def test_fp32_fused_ce_matches_plain(gpu, N, H, V, compute_dw):
-    """The fused CE's fp32 build (H 100 zero-padded to 128) against the
+    """The fused CE's fp32 build (H 100 zero-padded to 128; N 101 off the
+    tile, the head's vocabulary and an odd one) against the
     plain versions in fp64 on the same fp32 inputs, within chip_smoke.py's
     fp32 bounds: ce fp32_unit(H) (|h| |w| sums) + fp32_unit(V) + 2^-22
     |ref|; dh fp32_unit(H + V), dW fp32_unit(H + N) of (sum |terms| +
@@ -1514,10 +1519,12 @@ def test_fp32_int8_matmul_matches_plain(gpu, M, K, N, scale):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,N,K", [(300, 896, 4864), (192, 20001, 896), (640, 101, 100),
-                                   (4, 4864, 896)])
+                                   (4, 4864, 896), (192, 151674, 896), (101, 4098, 112),
+                                   (130, 101, 896)])
 def test_fp32_int8_matmul_dx_matches_plain(gpu, M, N, K):
-    """int8_matmul_dx's fp32 build (odd N taken as it is, K 100
-    zero-padded) against the plain version in fp64 on the same fp32 g and
+    """int8_matmul_dx's split fp32 build (odd N copied 4 bytes at a time,
+    the head's N 151674 and N 4098 8 bytes, K 100 zero-padded; the head's
+    reduction in 9 segments) against the plain version in fp64 on the same fp32 g and
     a bf16 scale, within fp32_unit(N) (sum |terms| + |ref|); bit-identical,
     counted."""
     g_ = torch.Generator(device=gpu).manual_seed(M + N + K)
@@ -1533,6 +1540,51 @@ def test_fp32_int8_matmul_dx_matches_plain(gpu, M, N, K):
     terms = TQM.int8_matmul_dx_reference(g.double(), w_q, s, abs_terms=True)
     _within64(dx, ref, _fp32_unit(N) * (terms + ref.abs()) + 1e-12, "dx")
     assert TQM.int8_matmul_dx.launches_fp32 == n32 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ce_101_100_1111", "ce_960_896_151674", "dx_101_4097_112",
+                                  "dx_192_151674_896", "dx_640_101_100", "dx_300_896_4864"])
+def test_fp32_split_builds_give_the_same_bits_twice(gpu, case):
+    """The split CE forward (ce and logz) and the split int8 gradient at
+    ragged and unaligned shapes (N 101 off the tile, H 100 padded, the
+    training shape; g rows 4-, 8- and 16-byte aligned) give the same bits
+    on two calls."""
+    what, *dims = case.split("_")
+    a, b, c = map(int, dims)
+    g_ = torch.Generator(device=gpu).manual_seed(a + b + c)
+    if what == "ce":
+        h = torch.randn(a, b, generator=g_, device=gpu)
+        w = 0.02 * torch.randn(c, b, generator=g_, device=gpu)
+        labels = torch.randint(0, c, (a,), generator=g_, device=gpu)
+        outs = [TCE.fused_ce_fwd(h, labels, w) for _ in range(2)]
+    else:
+        g = torch.randn(a, b, generator=g_, device=gpu)
+        w_q, s = TQM.quantize_weight(0.02 * torch.randn(b, c, generator=g_, device=gpu))
+        outs = [(TQM.int8_matmul_dx(g, w_q, s.bfloat16()),) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(*outs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,V", [(101, 100, 1111), (960, 896, 151674)])
+def test_fp32_ce_forward_gold_logit_is_the_backwards(gpu, N, H, V):
+    """The label's logit the split CE forward keeps (ce = logz - gold) and
+    the one ce_dlogits_split_kernel recomputes from the same logz have the
+    same bits: with g = 1 the scratch holds exp(gold - logz) - 1 at the
+    label's column, and gold - logz = -ce exactly in fp32."""
+    g_ = torch.Generator(device=gpu).manual_seed(N + V)
+    h = torch.randn(N, H, generator=g_, device=gpu)
+    w = 0.02 * torch.randn(V, H, generator=g_, device=gpu)
+    labels = torch.randint(0, V, (N,), generator=g_, device=gpu)
+    labels[0], labels[-1] = -100, V
+    logz, ce = TCE.fused_ce_fwd(h, labels, w)
+    _, _, dl = TCE.fused_ce_bwd(h, labels, w, logz, torch.ones(N, device=gpu), False,
+                                return_scratch=True)
+    torch.cuda.synchronize()
+    ok = (labels >= 0) & (labels < V)
+    at = dl.gather(1, labels.clamp(0, V - 1)[:, None])[:, 0]
+    assert torch.equal(at[ok], (torch.exp(-ce) - 1.0)[ok])
 
 
 @pytest.mark.cuda

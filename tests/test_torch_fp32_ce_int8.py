@@ -15,8 +15,8 @@ its XLA branch, where JAX takes it) and the port's plain versions at fp32
 * the wrappers' zero-padding of other widths (H 100 for the CE; K 100 and
   an odd N for the int8 products) against JAX at the unpadded width.
 
-Then the plans (the CE backward's fp32 scratch, the fp32 products' split)
-and the whole slice: one `trainer.train` step at precision=fp32 with both
+Then the CE backward's fp32 scratch plan (the fp32 int8 products' split
+plan is held in tests/test_torch_fp32_split.py) and the whole slice: one `trainer.train` step at precision=fp32 with both
 kernel gates, and one on the int8 base, each held to JAX's fp32 step at
 2e-4; the tiny LingoAgent at compute_dtype float32 on its int8 LLM against
 JAX's, tokens equal and waypoints at 2e-4.
@@ -221,23 +221,6 @@ def test_int8_pads_k_100_and_an_odd_n_as_jax_computes_them(dtype):
     s896 = torch.ones(4864)
     assert all(a is b for a, b in zip(TQM._pad_operands(x896, w896, s896, grad=False),
                                       (x896, w896, s896)))
-
-
-@pytest.mark.parametrize("M,N,K,want", [
-    (4788, 896, 896, (1, 896)), (4788, 128, 896, (6, 152)), (4788, 4864, 896, (1, 896)),
-    (4788, 896, 4864, (1, 4864)), (192, 151674, 896, (1, 896)),       # the forward
-    (192, 896, 151674, (16, 9480)), (16, 896, 4864, (16, 304)), (640, 4864, 896, (1, 896)),
-    (30, 128, 896, (16, 56)), (5, 7, 3, (1, 8))])
-def test_f32_plan_splits_the_reduction_where_the_tiles_leave_sms_idle(M, N, K, want):
-    """`_f32_plan` at the paths' shapes (the dx's as (M, K, N)): one
-    segment where the 128 x 128 tiles give two blocks each of 132 SMs,
-    else at most 16 segments of whole 8-column steps covering the
-    reduction, none empty."""
-    S, seg = TQM._f32_plan(M, N, K, 132)
-    assert (S, seg) == want
-    tiles = -(-M // 128) * -(-N // 128)
-    assert seg % 8 == 0 and 1 <= S <= 16 and (S - 1) * seg < K <= S * seg
-    assert S == 1 or tiles * S <= 2 * 132 or S == 16
 
 
 # ---------------------------------------------------------------------------

@@ -1,25 +1,26 @@
 """The split-fp32 tile product, on the CPU.
 
-The fp32 builds of the fused CE's backward and of the w8a16 forward run on
-the tensor cores with split operands (`csrc/f32_tc_tile.cuh`): each fp32
-element is big + small in TF32, and a step sums three products (two against
-int8 codes, exact in TF32) before an fp32 add. With no card here, the
-arithmetic is held through its plain PyTorch model
-(`simlingo_tpu_torch/kernels/split_model.py`):
+The fp32 builds of the fused CE (forward and backward) and of the w8a16
+products (forward and activation gradient) run on the tensor cores with
+split operands (`csrc/f32_tc_tile.cuh`): each fp32 element is big + small
+in TF32, and a step sums three products (two against int8 codes, exact in
+TF32) before an fp32 add. With no card here, the arithmetic is held
+through its plain PyTorch model (`simlingo_tpu_torch/kernels/split_model.py`):
 
 * the split itself: TF32 rounding keeps 11 significant bits, big + small
   rebuilds an fp32 value within 2^-22 of it over the normal range, every
   int8 code splits with small 0;
-* the modelled products of the CE backward (dlogits, dh, dW) and of the
-  int8 forward against fp64 within chip_smoke.py's fp32 bounds (which one
-  TF32 product exceeds), at ragged shapes;
+* the modelled products of the CE (the forward's ce and logz; the
+  backward's dlogits, dh, dW) and of the int8 forward and gradient against
+  fp64 within chip_smoke.py's fp32 bounds (which one TF32 product
+  exceeds), at ragged shapes;
 * the modelled products' errors at most chip_smoke.py's SPLIT_VS_TF32 of
   one TF32 product's, which tells the split from a build that dropped its
   small terms at shapes where the fp32 bounds pass both;
 * the modelled products against JAX's `fused_ce` (Pallas, interpret mode)
-  and `int8_matmul` at fp32 on the same seeded numpy inputs, at the 1e-5 of
-  tests/test_torch_fp32_ce_int8.py;
-* the split forward's plan (`_split_plan`) and the geometry the wrappers
+  and `int8_matmul` and its VJP at fp32 on the same seeded numpy inputs, at
+  the 1e-5 of tests/test_torch_fp32_ce_int8.py;
+* the split products' plan (`_split_plan`) and the geometry the wrappers
   check, against the CUDA sources' constants.
 """
 
@@ -196,6 +197,100 @@ def test_modelled_int8_forward_is_within_the_fp32_bound(M, K, N, scale):
     assert K > 896 or _ratio(one_tf32, ref, tol) > 1.0
 
 
+def _dx_inputs(M, K, N, seed):
+    """g [M, N] ~ N(0, 1) and a [N, K] int8 weight with a bf16 scale (the
+    training step's frozen cast), K 112 as K 100 zero-padded."""
+    rs = np.random.RandomState(seed)
+    g = torch.from_numpy(rs.randn(M, N).astype(np.float32))
+    w = torch.from_numpy((0.02 * rs.randn(N, K)).astype(np.float32))
+    if K == 112:
+        w[:, 100:] = 0.0
+    w_q, s = TQM.quantize_weight(w)
+    return g, w_q, s.bfloat16()
+
+
+def _dx_tol(g, w_q, s):
+    """chip_smoke.py's fp32 bound of the gradient: fp32_unit(N) (sum |terms|
+    + |ref|) + 1e-6 rms(ref), about the fp64 plain version; and that ref."""
+    ref = TQM.int8_matmul_dx_reference(g.double(), w_q, s)
+    terms = TQM.int8_matmul_dx_reference(g.double(), w_q, s, abs_terms=True)
+    return ref, (SMOKE.fp32_unit(w_q.shape[0]) * (terms + ref.abs())
+                 + 1e-6 * float(ref.square().mean().sqrt()))
+
+
+@pytest.mark.parametrize("M,K,N", INT8_SHAPES)
+def test_modelled_int8_dx_is_within_the_fp32_bound(M, K, N):
+    """The model of the split int8 gradient (g * scale rounded once in
+    fp32, then split; the codes exact: two products a step) against fp64
+    on the same fp32 g, within chip_smoke.py's fp32_unit(N) bound, where
+    one TF32 product (g * scale rounded to TF32 once) exceeds it."""
+    g, w_q, s = _dx_inputs(M, K, N, seed=M + K + N + 2)
+    ref, tol = _dx_tol(g, w_q, s)
+    assert _ratio(SM.int8_dx_model(g, w_q, s), ref, tol) <= 1.0
+    assert _ratio(SMOKE.int8_dx_tf32(g, w_q, s), ref, tol) > 1.0
+
+
+@pytest.mark.parametrize("M,K,N", INT8_SHAPES)
+def test_modelled_int8_dx_sits_far_below_one_tf32_product(M, K, N):
+    """chip_smoke.py's SPLIT_VS_TF32 test at the int8 gradient: the split
+    model's err/tol against fp64, at the fp32 bound, is at most 1/16 of the
+    TF32 plain version's (g * scale rounded to TF32 once, as the card's
+    control computes it)."""
+    g, w_q, s = _dx_inputs(M, K, N, seed=M + K + N + 3)
+    ref, tol = _dx_tol(g, w_q, s)
+    split = _ratio(SM.int8_dx_model(g, w_q, s), ref, tol)
+    one = _ratio(SMOKE.int8_dx_tf32(g, w_q, s), ref, tol)
+    assert split <= SMOKE.SPLIT_VS_TF32 * one, (split, one)
+
+
+def _ce_fwd_tol(h, labels, w):
+    """chip_smoke.py's fp32 bounds of ce and logz about the fp64 plain
+    version: fp32_unit(H) times their |h| |w| sums + fp32_unit(V) +
+    2^-22 |ref|; (ref ce, ref logz, ce's tol, logz's tol)."""
+    N, H = h.shape
+    V = w.shape[0]
+    h64, w64 = h.double(), w.double()
+    rlogz, rce = TC.fused_ce_fwd_plain(h64, labels, w64)
+    lz_terms, ce_terms = TC.fused_ce_fwd_plain(h64, labels, w64, abs_terms=True)
+
+    def tol(ref, terms):
+        return SMOKE.fp32_unit(H) * terms + SMOKE.fp32_unit(V) + 2.0 ** -22 * ref.abs()
+    return rce, rlogz, tol(rce, ce_terms), tol(rlogz, lz_terms)
+
+
+@pytest.mark.parametrize("N,H,V", CE_SHAPES)
+def test_modelled_ce_forward_is_within_the_fp32_bounds(N, H, V):
+    """The model of the split CE forward (the split logits, each 128-column
+    tile's max and sum, merged as ce_fwd_finalize_kernel merges them)
+    against fp64 on the same fp32 inputs, ce and logz within chip_smoke.py's
+    fp32 bounds; its gold logits are the backward model's logits, bit for
+    bit (the kernels share one logits routine)."""
+    h, labels, w, _ = _ce_inputs(N, H, V, seed=N + V + 2)
+    logz, ce = SM.ce_fwd_model(h, labels, w)
+    rce, rlogz, ce_tol, lz_tol = _ce_fwd_tol(h, labels, w)
+    assert _ratio(ce, rce, ce_tol) <= 1.0 and _ratio(logz, rlogz, lz_tol) <= 1.0
+    ok = (labels >= 0) & (labels < V)
+    dl, _, _ = SM.ce_bwd_model(h, labels, w, logz, torch.ones(N), ((0, 128 * -(-V // 128)),),
+                               compute_dw=False)
+    at = labels.clamp(0, V - 1)[:, None]
+    assert torch.equal(dl.gather(1, at)[:, 0][ok], (torch.exp(-ce) - 1.0)[ok])
+
+
+@pytest.mark.parametrize("N,H,V", CE_SHAPES)
+def test_modelled_ce_forward_sits_far_below_one_tf32_product(N, H, V):
+    """chip_smoke.py's SPLIT_VS_TF32 test at the CE forward: the split
+    model's ce and logz, each at its fp32 bound against fp64, read at most
+    1/16 of the TF32 plain version's (h and w rounded to TF32 once, as the
+    card's control computes it)."""
+    h, labels, w, _ = _ce_inputs(N, H, V, seed=N + V + 3)
+    logz, ce = SM.ce_fwd_model(h, labels, w)
+    rce, rlogz, ce_tol, lz_tol = _ce_fwd_tol(h, labels, w)
+    one_lz, one_ce = TC.fused_ce_fwd_plain(SM.tf32_round(h), labels, SM.tf32_round(w))
+    split = max(_ratio(ce, rce, ce_tol), _ratio(logz, rlogz, lz_tol))
+    one = max(_ratio(one_ce, rce, ce_tol), _ratio(one_lz, rlogz, lz_tol))
+    assert split <= SMOKE.SPLIT_VS_TF32 * one, (split, one)
+
+
 @pytest.mark.parametrize("M,K,N", INT8_SHAPES)
 def test_modelled_int8_forward_sits_far_below_one_tf32_product(M, K, N):
     """chip_smoke.py's SPLIT_VS_TF32 test at the int8 forward: the split
@@ -273,6 +368,41 @@ def test_modelled_ce_backward_matches_jax_pallas(N, H, V):
     np.testing.assert_allclose(dw.numpy(), jdw, **TOL)
 
 
+@pytest.mark.parametrize("N,H,V", [(37, 96, 1111), (100, 128, 1111)])
+def test_modelled_ce_forward_matches_jax_pallas(N, H, V):
+    """ce of the split forward model against JAX's fused_ce forward (Pallas
+    in interpret mode) at fp32 on the same numpy inputs, labels outside
+    [0, V) included, at 1e-5."""
+    rs = np.random.RandomState(N + 1)
+    h = rs.randn(N, H).astype(np.float32)
+    w = (0.3 * rs.randn(V, H)).astype(np.float32)
+    labels = rs.randint(0, V, N)
+    labels[3], labels[7] = -1, V + 10 ** 6
+    jce = np.asarray(jfused_ce(jnp.asarray(h), jnp.asarray(labels), jnp.asarray(w), False))
+    _, ce = SM.ce_fwd_model(torch.from_numpy(h), torch.from_numpy(labels), torch.from_numpy(w))
+    np.testing.assert_allclose(ce.numpy(), jce, **TOL)
+
+
+@pytest.mark.parametrize("scale", ["fp32", "bf16"])
+def test_modelled_int8_dx_matches_jax(scale):
+    """The split model of the int8 gradient against the VJP of JAX's
+    int8_matmul at fp32 (its Pallas kernel at M 128, interpret mode) on
+    the same numpy g, with an fp32 and a bf16 scale, at 1e-5."""
+    rng = np.random.RandomState(7)
+    jw, js = JQM.quantize_weight(jnp.asarray(0.05 * rng.randn(96, 130), jnp.float32), 1)
+    if scale == "bf16":
+        js = js.astype(jnp.bfloat16)
+    x = rng.randn(128, 96).astype(np.float32)
+    g = rng.randn(128, 130).astype(np.float32)
+    _, vjp = jax.vjp(jax.jit(lambda x_: JQM.int8_matmul(x_, jw, js)), jnp.asarray(x))
+    (jdx,) = vjp(jnp.asarray(g))
+    ts = torch.from_numpy(np.array(js.astype(jnp.float32)))
+    ts = ts.bfloat16() if scale == "bf16" else ts
+    w_q = torch.from_numpy(np.array(np.asarray(jw).T, order="C"))
+    dx = SM.int8_dx_model(torch.from_numpy(g), w_q, ts)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), **TOL)
+
+
 @pytest.mark.parametrize("scale", ["fp32", "bf16"])
 @pytest.mark.parametrize("M", [8, 128], ids=["xla_M8", "pallas_M128"])
 def test_modelled_int8_forward_matches_jax(M, scale):
@@ -302,13 +432,21 @@ def test_modelled_int8_forward_matches_jax(M, scale):
     (640, 4864, 896, (2, 448)), (640, 896, 4864, (7, 704)), (640, 896, 896, (3, 320)),
     (16, 4864, 896, (3, 320)), (16, 896, 896, (14, 64)), (16, 896, 4864, (16, 320)),
     (30, 128, 896, (14, 64)), (16, 151674, 896, (1, 896)), (640, 896, 112, (2, 64)),
-    (2, 7, 16, (1, 32))])
+    (2, 7, 16, (1, 32)),
+    # the gradient's (dx [M, K] over N, taken as (M, K, N)): the training
+    # path's rows, the head's 14 tiles over 151674 (9 segments, one wave),
+    # serving's and ragged ones
+    (4788, 896, 896, (1, 896)), (4788, 128, 896, (3, 320)), (4788, 4864, 896, (1, 896)),
+    (4788, 896, 4864, (1, 4864)), (192, 151674, 896, (1, 896)),
+    (192, 896, 151674, (9, 16864)), (16, 896, 4864, (16, 320)), (640, 4864, 896, (2, 448)),
+    (30, 128, 896, (14, 64)), (5, 7, 3, (1, 32))])
 def test_split_plan_splits_the_reduction_where_the_tiles_leave_sms_idle(M, N, K, want):
-    """`_split_plan` at the paths' shapes: one segment where the 128 x 128
-    tiles give two waves of one block an SM; below that at most 16 segments
-    of whole 32-column steps covering K, none empty, whose critical path
-    (waves x (a block's steps + the ring's 3-step fill)) no other count
-    beats."""
+    """`_split_plan` at the paths' shapes, the forward's (M, N, K) and the
+    gradient's (M, K, N): one segment where the 128 x 128 tiles give two
+    waves of one block an SM; below that at most 16 segments of whole
+    32-column steps covering the reduction, none empty, whose critical
+    path (waves x (a block's steps + the ring's 3-step fill)) no other
+    count beats."""
     S, seg = TQM._split_plan(M, N, K, 132)
     assert (S, seg) == want
     tiles = -(-M // 128) * -(-N // 128)
@@ -320,6 +458,18 @@ def test_split_plan_splits_the_reduction_where_the_tiles_leave_sms_idle(M, N, K,
         return -(-tiles * -(-steps // per) // 132) * (per + 3)
     if tiles < 264:
         assert all(path(S) <= path(s) for s in range(1, 17))
+
+
+@pytest.mark.parametrize("ld,ptr,want", [
+    (896, 0, 16), (128, 4096, 16), (4864, 256, 16),          # the training rows
+    (151674, 0, 8), (4098, 512, 8),                          # the vocabulary: rows 8-byte aligned
+    (101, 0, 4), (4097, 64, 4), (896, 8, 8), (896, 4, 4)])   # odd N; a start off 16 bytes
+def test_dx_copy_bytes_follow_the_rows_alignment(ld, ptr, want):
+    """dx_split_kernel copies g's rows 16 bytes at a time where every row
+    starts 16-byte aligned (ld a multiple of 4 floats, g aligned), else 8
+    or 4: the widest copy that divides both ld's bytes and g's address."""
+    assert TQM._dx_copy_bytes(ld, ptr) == want
+    assert (4 * ld) % want == 0 and ptr % want == 0
 
 
 def _constants(path, names):
